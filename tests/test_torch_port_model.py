@@ -1,0 +1,256 @@
+"""The port's model, ops and metrics against the JAX package on the CPU.
+
+The same numpy inputs and the same weights (a JAX ``PCNNet.init`` carried
+across with ``state_dict_from_jax_variables``) go to both sides.  Rotations
+are numpy matrices handed to both, since the two frameworks draw different
+numbers from one seed.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vn_pointcloudcompletion_tpu.metrics import metrics as jax_metrics
+from vn_pointcloudcompletion_tpu.models.composer import PCNNet as JaxPCNNet
+from vn_pointcloudcompletion_tpu.ops import grid as jax_grid
+from vn_pointcloudcompletion_tpu.ops import rotations as jax_rot
+from vn_pointcloudcompletion_tpu.training.torch_interop import pcnnet_variables_from_torch
+from vn_pointcloudcompletion_tpu_torch.metrics import metrics as port_metrics
+from vn_pointcloudcompletion_tpu_torch.models.composer import PCNNet, build_model
+from vn_pointcloudcompletion_tpu_torch.nn import vn as port_vn
+from vn_pointcloudcompletion_tpu_torch.ops import grid as port_grid
+from vn_pointcloudcompletion_tpu_torch.ops import rotations as port_rot
+from vn_pointcloudcompletion_tpu_torch.ops.chamfer import chamfer_distance
+from vn_pointcloudcompletion_tpu_torch.training.interop import state_dict_from_jax_variables
+from vn_pointcloudcompletion_tpu_torch.utils.config import Config
+
+torch.set_num_threads(2)
+
+NUM_COARSE = 64  # dense 1024 points
+
+
+def _randomize_bn(tree, rng):
+    """Non-identity BatchNorm parameters and running statistics, so the
+    folded affine is exercised."""
+    def walk(node):
+        if not isinstance(node, dict):
+            return np.array(node)
+        out = {k: walk(v) for k, v in node.items()}
+        if "BatchNorm_0" in out:
+            bn = out["BatchNorm_0"]
+            c = next(iter(bn.values())).shape[0]
+            if "scale" in bn:
+                bn["scale"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+                bn["bias"] = rng.normal(0, 0.2, c).astype(np.float32)
+            else:
+                bn["mean"] = rng.uniform(0.0, 0.5, c).astype(np.float32)
+                bn["var"] = rng.uniform(0.5, 2.0, c).astype(np.float32)
+        return out
+
+    return walk(tree)
+
+
+@pytest.fixture(scope="module")
+def carried():
+    """JAX model + variables and the port model loaded with the same weights."""
+    rng = np.random.default_rng(0)
+    jm = JaxPCNNet(num_coarse=NUM_COARSE, latent_dim=2048)
+    xyz = (rng.standard_normal((2, 256, 3)) * 0.3).astype(np.float32)
+    v = jm.init(jax.random.key(0), jnp.asarray(xyz), None, train=False)
+    v = {k: _randomize_bn(jax.tree.map(np.array, dict(v[k])), rng) for k in v}
+    model = PCNNet(num_coarse=NUM_COARSE, latent_dim=2048).eval()
+    model.load_state_dict(state_dict_from_jax_variables(v), strict=True)
+    return jm, v, model, xyz
+
+
+def test_state_dict_round_trip_is_exact(carried):
+    _, v, model, _ = carried
+    sd = {k: t.numpy() for k, t in model.state_dict().items()}
+    assert "decoder.final_conv.0.map_to_feat.weight" in sd
+    assert sd["decoder.final_conv.0.map_to_feat.weight"].shape == (256, 2050)
+    assert "encoder.mlp.0.leaky_relu.map_to_dir.weight" in sd
+    back = pcnnet_variables_from_torch(sd, latent_dim=2048)
+    want = jax.tree_util.tree_leaves_with_path(v)
+    got = jax.tree_util.tree_leaves_with_path(back)
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, path
+        np.testing.assert_array_equal(g, w, err_msg=str(path))
+
+
+@pytest.mark.parametrize("rotated", [False, True])
+def test_whole_model_matches_jax(carried, rotated):
+    jm, v, model, xyz = carried
+    rot = None
+    if rotated:
+        q = np.random.default_rng(5).standard_normal(4)
+        q /= np.linalg.norm(q)
+        r = np.asarray(jax_rot.quaternion_to_matrix(jnp.asarray(q, jnp.float32)))
+        rot = np.repeat(r[None], 2, axis=0)
+    jc, jf = jm.apply(v, jnp.asarray(xyz), None if rot is None else jnp.asarray(rot),
+                      train=False)
+    with torch.no_grad():
+        c, f = model(torch.from_numpy(xyz), None if rot is None else torch.from_numpy(rot))
+    assert c.shape == (2, NUM_COARSE, 3) and f.shape == (2, NUM_COARSE * 16, 3)
+    for got, want in ((c.numpy(), np.asarray(jc)), (f.numpy(), np.asarray(jf))):
+        assert np.abs(want).max() > 1e-2  # not a vanishing output
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_plain_path_equals_kernel_wrappers_on_cpu(carried):
+    _, _, model, xyz = carried
+    x = torch.from_numpy(xyz)
+    with torch.no_grad():
+        c1, f1 = model(x)
+        model.use_kernels_(False)
+        try:
+            c2, f2 = model(x)
+        finally:
+            model.use_kernels_(True)
+    assert torch.equal(c1, c2) and torch.equal(f1, f2)
+
+
+def test_vec_layers_match_jax():
+    from vn_pointcloudcompletion_tpu.nn import vn as jax_vn
+
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 8, 3, 5)).astype(np.float32)
+    jl = jax_vn.VNLinearLeakyReLU(6)
+    v = jax.tree.map(np.array, jl.init(jax.random.key(1), jnp.asarray(x)))
+    v = _randomize_bn(v, rng)
+    want = np.asarray(jl.apply(v, jnp.asarray(x), train=False))
+    layer = port_vn.VNLinearLeakyReLU(8, 6).eval()
+    bn = v["params"]["batchnorm"]["BatchNorm_0"]
+    st = v["batch_stats"]["batchnorm"]["BatchNorm_0"]
+    layer.load_state_dict({
+        "map_to_feat.weight": torch.from_numpy(v["params"]["kernel"]),
+        "map_to_dir.weight": torch.from_numpy(v["params"]["dir_kernel"]),
+        "batchnorm.bn.weight": torch.from_numpy(bn["scale"]),
+        "batchnorm.bn.bias": torch.from_numpy(bn["bias"]),
+        "batchnorm.bn.running_mean": torch.from_numpy(st["mean"]),
+        "batchnorm.bn.running_var": torch.from_numpy(st["var"]),
+    })
+    with torch.no_grad():
+        got = layer(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_batchnorm_train_mode_is_not_ported():
+    layer = port_vn.VNBatchNorm(4)
+    with pytest.raises(NotImplementedError, match="training"):
+        layer(torch.ones(1, 4, 3, 2))
+
+
+def test_safe_norm_zero_vector():
+    x = torch.zeros(1, 2, 3, requires_grad=True)
+    n = port_vn.safe_norm(x, dim=2)
+    n.sum().backward()
+    assert torch.equal(n, torch.zeros(1, 2)) and torch.isfinite(x.grad).all()
+
+
+@pytest.mark.parametrize("grid_size", [4, 8])
+def test_folding_grids_match_jax(grid_size):
+    # the two linspace implementations round differently: ~1 ulp apart
+    np.testing.assert_allclose(
+        port_grid.folding_grid_3d(grid_size).numpy(),
+        np.asarray(jax_grid.folding_grid_3d(grid_size)), atol=1e-8, rtol=0)
+
+
+def test_rotations_match_jax():
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((5, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    r_port = port_rot.quaternion_to_matrix(torch.from_numpy(q))
+    np.testing.assert_allclose(
+        r_port.numpy(), np.asarray(jax_rot.quaternion_to_matrix(jnp.asarray(q))), atol=1e-6)
+    pts = rng.standard_normal((5, 7, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        port_rot.rotate_points(torch.from_numpy(pts), r_port).numpy(),
+        np.asarray(jax_rot.rotate_points(jnp.asarray(pts), jnp.asarray(r_port.numpy()))),
+        atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["so3", "z", "none", "canonical"])
+def test_sampled_rotations_are_proper(mode):
+    g = torch.Generator().manual_seed(0)
+    r = port_rot.sample_rotation(g, mode, 6)
+    if mode in ("none", "canonical"):
+        assert r is None
+        return
+    eye = torch.eye(3).expand(6, 3, 3)
+    torch.testing.assert_close(r @ r.transpose(1, 2), eye, atol=1e-5, rtol=0)
+    torch.testing.assert_close(torch.linalg.det(r), torch.ones(6), atol=1e-5, rtol=0)
+    if mode == "z":
+        assert torch.all(r[:, 2, 2] == 1)
+    again = port_rot.sample_rotation(torch.Generator().manual_seed(0), mode, 6)
+    assert torch.equal(r, again)
+
+
+def _clouds(seed, n, m):
+    rng = np.random.default_rng(seed)
+    pred = (rng.standard_normal((2, n, 3)) * 0.05).astype(np.float32)
+    gt = (rng.standard_normal((2, m, 3)) * 0.05).astype(np.float32)
+    return pred, gt
+
+
+@pytest.mark.parametrize("name", ["l1_cd", "l2_cd", "f_score"])
+def test_chamfer_metrics_match_jax(name):
+    pred, gt = _clouds(7, 300, 500)
+    got = getattr(port_metrics, name)(torch.from_numpy(pred), torch.from_numpy(gt)).numpy()
+    want = np.asarray(getattr(jax_metrics, name)(jnp.asarray(pred), jnp.asarray(gt)))
+    if name == "f_score":
+        assert 0 < got.min() and got.max() < 1  # threshold actually splits
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+
+
+def test_voxel_iou_matches_jax():
+    pred, gt = _clouds(8, 1024, 2048)
+    gt[:, :5] = gt[:, 5:10]  # duplicates
+    got = port_metrics.voxel_iou(torch.from_numpy(pred), torch.from_numpy(gt)).numpy()
+    want = np.asarray(jax.vmap(jax_metrics.voxel_iou)(jnp.asarray(pred), jnp.asarray(gt)))
+    assert got.shape == (2,) and 0 < got.min()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    single = port_metrics.voxel_iou(torch.from_numpy(pred[0]), torch.from_numpy(gt[0]))
+    assert single.shape == () and float(single) == pytest.approx(float(want[0]))
+    vox = port_metrics.points_to_voxels(torch.from_numpy(pred[0]), 16).numpy()
+    np.testing.assert_array_equal(
+        vox, np.asarray(jax_metrics.points_to_voxels(jnp.asarray(pred[0]), 16)))
+
+
+def test_chamfer_distance_small_and_any_dim():
+    from vn_pointcloudcompletion_tpu.ops.chamfer import chamfer_distance_reference
+
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 20, 5)).astype(np.float32)
+    y = rng.standard_normal((2, 30, 5)).astype(np.float32)
+    d1, d2, i1, i2 = chamfer_distance(torch.from_numpy(x), torch.from_numpy(y))
+    w1, w2, j1, j2 = chamfer_distance_reference(x, y)
+    np.testing.assert_allclose(d1.numpy(), w1, rtol=1e-5)
+    np.testing.assert_allclose(d2.numpy(), w2, rtol=1e-5)
+    np.testing.assert_array_equal(i1.numpy(), j1)
+    np.testing.assert_array_equal(i2.numpy(), j2)
+
+
+@pytest.mark.parametrize("cfg,match", [
+    ({"dtype": "bfloat16"}, "bfloat16"),
+    ({"enc_type": "vn_pointr", "num_coarse": 448}, "vn_pointr"),
+    ({"enc_type": "dgcnn_fps"}, "DGCNN"),
+    ({"dec_type": "attention_vn_foldingnet"}, "vn_pointr"),
+    ({"num_coarse": 448}, "FPS"),
+])
+def test_unported_configs_raise(cfg, match):
+    with pytest.raises(NotImplementedError, match=match):
+        build_model(Config.from_dict(cfg))
+
+
+def test_build_model_is_seeded():
+    cfg = Config.from_dict({"num_coarse": 64, "only_coarse": True, "seed": 3})
+    a, b = build_model(cfg), build_model(cfg)
+    c = build_model(cfg.replace(seed=4))
+    wa = a.state_dict()["encoder.maxpool2.map_to_dir.weight"]
+    assert torch.equal(wa, b.state_dict()["encoder.maxpool2.map_to_dir.weight"])
+    assert not torch.equal(wa, c.state_dict()["encoder.maxpool2.map_to_dir.weight"])
+    assert wa.abs().max() <= 1 / np.sqrt(2048)
+    assert not hasattr(a, "decoder")
