@@ -137,10 +137,46 @@ def test_vec_layers_match_jax():
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-def test_batchnorm_train_mode_is_not_ported():
-    layer = port_vn.VNBatchNorm(4)
-    with pytest.raises(NotImplementedError, match="training"):
-        layer(torch.ones(1, 4, 3, 2))
+@pytest.mark.parametrize("extra_dims", [(), (2,)])
+def test_batchnorm_train_mode_matches_jax(extra_dims):
+    """Train-mode VNBatchNorm against JAX ``_NormAffine``: batch statistics
+    (biased variance) normalise, the running buffers take the unbiased one
+    with momentum 0.1; output and buffers rtol 1e-5 + atol 1e-6, the input
+    gradient 1e-5 of its max."""
+    from vn_pointcloudcompletion_tpu.nn import vn as jax_vn
+
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((3, 4, 3, 5) + extra_dims).astype(np.float32)
+    x[0, 0, :, 0] = 0.0  # an exact zero vector
+    cot = rng.standard_normal(x.shape).astype(np.float32)
+    jb = jax_vn.VNBatchNorm()
+    v = _randomize_bn(jax.tree.map(np.array, jb.init(jax.random.key(0), jnp.asarray(x))), rng)
+
+    def jax_loss(xx):
+        out, mut = jb.apply(v, xx, train=True, mutable=["batch_stats"])
+        return jnp.sum(out * cot), (out, mut)
+
+    (_, (want, mut)), gx = jax.value_and_grad(jax_loss, has_aux=True)(jnp.asarray(x))
+    layer = port_vn.VNBatchNorm(4).train()
+    bn, st = v["params"]["BatchNorm_0"], v["batch_stats"]["BatchNorm_0"]
+    layer.load_state_dict({"bn.weight": torch.from_numpy(bn["scale"]),
+                           "bn.bias": torch.from_numpy(bn["bias"]),
+                           "bn.running_mean": torch.from_numpy(st["mean"]),
+                           "bn.running_var": torch.from_numpy(st["var"])})
+    xt = torch.from_numpy(x).requires_grad_()
+    out = layer(xt)
+    (out * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    new = mut["batch_stats"]["BatchNorm_0"]
+    np.testing.assert_allclose(layer.bn.running_mean.numpy(), new["mean"], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(layer.bn.running_var.numpy(), new["var"], rtol=1e-5, atol=1e-6)
+    gx = np.asarray(gx)
+    np.testing.assert_allclose(xt.grad.numpy(), gx, atol=1e-5 * np.abs(gx).max())
+    layer.eval()  # eval mode reads the updated buffers and changes nothing
+    before = layer.bn.running_var.clone()
+    with torch.no_grad():
+        layer(xt)
+    assert torch.equal(before, layer.bn.running_var)
 
 
 def test_safe_norm_zero_vector():

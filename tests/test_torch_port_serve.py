@@ -217,6 +217,11 @@ def test_port_never_imports_jax():
     files = sorted((REPO / "vn_pointcloudcompletion_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    assert {f"vn_pointcloudcompletion_tpu_torch/{m}.py" for m in (
+        "training/steps", "training/state", "training/trainer", "training/checkpoint",
+        "utils/experiments", "metrics/losses", "ops/chamfer", "ops/vn_layer_fused",
+    )} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

@@ -12,12 +12,11 @@
 //   C: out = sum_c w_out[c] o[c]                (B, 3, 1, N)
 //
 // Design.  A block owns kPts points of one sample and walks the output
-// channels in tiles of kCh; the K loop stages kK input channels of W, Wd
-// and x (all three planes) in shared memory.  Each of the 256 threads holds
-// a 4-channel x 4-point micro-tile of all six accumulators (p and d, three
-// planes each), which is what the epilogue needs: the folded BN and the
-// reflection read all three planes of p and d of one vector.  p and d never
-// leave registers.
+// channels in tiles of kCh; the products of a tile (vn_tile.cuh) leave each
+// of the 256 threads a 4-channel x 4-point micro-tile of all six
+// accumulators (p and d, three planes each), which is what the epilogue
+// needs: the folded BN and the reflection read all three planes of p and d
+// of one vector.  p and d never leave registers.
 //   B: the grid spreads the channel tiles over blockIdx.y; each block
 //      writes its (3, kCh, kPts) output tile with 16-byte stores.
 //   C: one block walks all Cout channels (gridDim.y == 1) and keeps the
@@ -32,14 +31,9 @@
 // tensor cores).  The register micro-tile gives 96 FMAs per 20 shared-memory
 // loads; the stages are not double-buffered yet, so loads and FMAs of one
 // block do not overlap.
-#include "common.cuh"
+#include "vn_tile.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kCh = 64;   // output channels per tile (16 groups x 4)
-constexpr int kPts = 64;  // points per block (16 groups x 4)
-constexpr int kK = 8;     // input channels per shared-memory stage
 
 template <bool kProject>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -49,9 +43,7 @@ layer_fwd(const float* __restrict__ x, const float* __restrict__ w,
           const float* __restrict__ b, const float* __restrict__ w_out,
           float* __restrict__ out, int Cin, int Cout, int N,
           float one_minus_ns) {
-  __shared__ __align__(16) float ws[kK][kCh];
-  __shared__ __align__(16) float wds[kK][kCh];
-  __shared__ __align__(16) float xs[3][kK][kPts];
+  __shared__ VnkTileSmem sm;
   __shared__ float red[kProject ? 16 : 1][3][kPts];
 
   const int tx = threadIdx.x % 16;  // point group: points tx*4 .. tx*4+3
@@ -69,52 +61,7 @@ layer_fwd(const float* __restrict__ x, const float* __restrict__ w,
 
   for (int c0 = blockIdx.y * kCh; c0 < Cout; c0 += gridDim.y * kCh) {
     float accp[3][4][4], accd[3][4][4];
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) accp[j][i][q] = accd[j][i][q] = 0.f;
-
-    for (int k0 = 0; k0 < Cin; k0 += kK) {
-      for (int e = threadIdx.x; e < kCh * kK; e += kThreads) {
-        const int c = e / kK, k = e % kK;
-        const int gc = c0 + c, gk = k0 + k;
-        const bool ok = gc < Cout && gk < Cin;
-        ws[k][c] = ok ? w[static_cast<size_t>(gc) * Cin + gk] : 0.f;
-        wds[k][c] = ok ? wd[static_cast<size_t>(gc) * Cin + gk] : 0.f;
-      }
-      for (int e = threadIdx.x; e < 3 * kK * kPts; e += kThreads) {
-        const int j = e / (kK * kPts);
-        const int r = e % (kK * kPts);
-        const int k = r / kPts, nn = r % kPts;
-        const int gk = k0 + k, gn = n0 + nn;
-        xs[j][k][nn] = (gk < Cin && gn < N)
-                           ? xb[(static_cast<size_t>(j) * Cin + gk) * N + gn]
-                           : 0.f;
-      }
-      __syncthreads();
-      const int kmax = min(kK, Cin - k0);
-      for (int k = 0; k < kmax; ++k) {
-        const float4 wv = *reinterpret_cast<const float4*>(&ws[k][ty * 4]);
-        const float4 dv = *reinterpret_cast<const float4*>(&wds[k][ty * 4]);
-        const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
-        const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const float4 xv = *reinterpret_cast<const float4*>(&xs[j][k][tx * 4]);
-          const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              accp[j][i][q] = fmaf(wr[i], xr[q], accp[j][i][q]);
-              accd[j][i][q] = fmaf(dr[i], xr[q], accd[j][i][q]);
-            }
-        }
-      }
-      __syncthreads();
-    }
+    vnk_tile_products<true>(xb, w, wd, Cin, Cout, N, c0, n0, sm, accp, accd);
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {

@@ -1,6 +1,6 @@
 """The composed completion model (port of ``models/composer.py``).
 
-This slice ports the flagship pipeline only: ``enc_type='vn_pointnet'`` with
+The port has the flagship pipeline only so far: ``enc_type='vn_pointnet'`` with
 ``dec_type='vn_foldingnet'``, in the float32 compute policy.  Every other
 choice raises ``NotImplementedError`` naming the ROADMAP.md item that brings
 it.
@@ -88,7 +88,7 @@ def build_model(config: Config) -> PCNNet:
     if config.dtype != "float32":
         raise NotImplementedError(
             f"dtype={config.dtype!r}: the port runs the float32 compute policy; "
-            "the bfloat16 policy comes with training (ROADMAP.md, queue 1, item 2)"
+            "the bfloat16 policy is not ported yet (ROADMAP.md, queue 1, item 7)"
         )
     if getattr(config, "pointr_decoder", False):
         raise NotImplementedError(

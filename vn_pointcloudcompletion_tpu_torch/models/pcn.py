@@ -1,7 +1,8 @@
 """The flagship encoder and decoder: ``VNPointNet`` and ``VNFoldingNet``.
 
 Port of the parts of ``vn_pointcloudcompletion_tpu/models/pcn.py`` that the
-``vn_pointnet`` + ``vn_foldingnet`` pipeline runs in eval mode.  The encoder
+``vn_pointnet`` + ``vn_foldingnet`` pipeline runs; train mode comes from
+``model.train()``.  The encoder
 takes ``xyz`` (B, N, 3) and returns ``(coarse (B, Nc, 3), feature_global
 (B, 2L, 3, 1))``; the decoder takes ``(coarse, feature_global, rot)`` and
 returns the dense cloud (B, Nc * S, 3).  The wide layers run in plane layout
@@ -20,6 +21,8 @@ from vn_pointcloudcompletion_tpu_torch.nn.vn import (
     VNLinearAndLeakyReLU,
     VNLinearLeakyReLU,
     bn_leaky,
+    layer_moments,
+    plane_norms,
 )
 from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
 from vn_pointcloudcompletion_tpu_torch.ops.grid import folding_grid_3d
@@ -43,9 +46,10 @@ def linear_maxpool_planes(w, wd, x):
     so the direction map is precomposed (fan-in Cin instead of Cout).
     Returns the linear's output (B, 3, Cout, N) and the pooled (B, 3, Cout):
     per channel, the vector of the point with the largest <f, d> (first on
-    ties).
+    ties).  The gradient reaches the selected vectors only: the direction
+    feeds the argmax and nothing else (JAX models/pcn.py:403).
     """
-    wdc = wd @ w  # (Cout, Cin)
+    wdc = (wd @ w).detach()  # (Cout, Cin)
     f = torch.matmul(w, x)
     d = torch.matmul(wdc, x)
     idx = plane_dot(f, d).argmax(dim=-1, keepdim=True)  # (B, Cout, 1)
@@ -112,24 +116,28 @@ class _SplitFoldLayer(VNLinearLeakyReLU):
     with the reference's single (out, latent + 2) weight, but the global
     latent (the same for all points of a sample) is contracted once per
     sample and enters as a bias (JAX models/pcn.py:39-153).  At
-    ``num_dense >= 4096`` the rest of the layer is kernel B, with the two
-    per-point input channels multiplied in-kernel.
+    ``num_dense >= 4096`` the rest of the layer is kernel B (with kernel S
+    for the train-mode statistics, ``_VNSplitFoldLayerFused``), with the two
+    per-point input channels multiplied in-kernel; below that it is the
+    split products and kernel A (``_VNSplitFoldLayer``).
     """
 
     def forward(self, glob, seed, point):
         """glob (B, 3, L, 1); seed, point (B, 3, 1, Nd) -> (B, 3, C, Nd)."""
         cg = glob.shape[2]
         w, wd = self.map_to_feat.weight, self.map_to_dir.weight
-        a, b = self.batchnorm.bn()
         pbias = torch.matmul(w[:, :cg], glob)  # (B, 3, C, 1)
         dbias = torch.matmul(wd[:, :cg], glob)
         if self.use_kernels and seed.shape[3] >= 4096:
+            x2 = torch.cat([seed, point], dim=2)
+            a, b = self.batchnorm.bn(
+                **layer_moments(x2, w[:, cg:], pbias, self.training))
             return vn_layer_fused.vn_layer_fused(
-                torch.cat([seed, point], dim=2), w[:, cg:], wd[:, cg:],
-                pbias, dbias, a, b, self.negative_slope,
+                x2, w[:, cg:], wd[:, cg:], pbias, dbias, a, b, self.negative_slope,
             )
         p = pbias + torch.matmul(w[:, cg : cg + 1], seed) + torch.matmul(w[:, cg + 1 :], point)
         d = dbias + torch.matmul(wd[:, cg : cg + 1], seed) + torch.matmul(wd[:, cg + 1 :], point)
+        a, b = self.batchnorm.bn(plane_norms(p) if self.training else None)
         return bn_leaky(p, d, a, b, self.negative_slope, self.use_kernels)
 
 
@@ -163,7 +171,7 @@ class VNFoldingNet(nn.Module):
         b = coarse.shape[0]
         s = self.grid_size ** 2
         num_dense = self.nc * s
-        seed = folding_grid_3d(self.grid_size).to(coarse.device)  # (3, S)
+        seed = folding_grid_3d(self.grid_size).to(coarse)  # (3, S)
         if rot is not None:
             seed = rotate_points(seed.T, rot).transpose(1, 2)[:, :, None]  # (B, 3, 1, S)
         else:

@@ -1,7 +1,7 @@
 """Vector Neuron layers of the flagship path, as ``torch.nn`` modules.
 
 Port of the parts of ``vn_pointcloudcompletion_tpu/nn/vn.py`` that the
-``vn_pointnet`` + ``vn_foldingnet`` inference path runs.  Feature tensors
+``vn_pointnet`` + ``vn_foldingnet`` pipeline runs, in train and eval mode.  Feature tensors
 carry 3-vector channels in one of two layouts:
 
 - ``vec`` (B, C, 3, N...), the reference's;
@@ -11,8 +11,9 @@ carry 3-vector channels in one of two layouts:
 
 Submodule and parameter names follow the reference's ``state_dict`` layout
 (``map_to_feat.weight``, ``batchnorm.bn.running_var``, ...), so reference
-checkpoints load as they are.  BatchNorm runs in eval mode only in this
-slice: train-mode statistics come with the training slice.
+checkpoints load as they are.  BatchNorm follows ``module.training``: in
+train mode it normalises with the batch statistics and updates its running
+buffers (torch's semantics), in eval mode it uses the running buffers.
 
 Layers that have a kernel carry ``use_kernels`` (default True): where it is
 set and the JAX package would take its Pallas kernel for the shape, the
@@ -31,6 +32,8 @@ from vn_pointcloudcompletion_tpu_torch.ops import vn_fused, vn_layer_fused
 from vn_pointcloudcompletion_tpu_torch.ops.vn_fused import safe_sqrt
 
 EPS = 1e-6  # models/vn_layers.py:10 of the reference
+# flax's BatchNorm momentum, the weight of the old running value (torch's 0.1)
+BN_MOMENTUM = 0.9
 
 
 def safe_norm(x: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
@@ -88,7 +91,15 @@ class VNLeakyReLU(nn.Module):
 
 class _NormAffine(nn.Module):
     """BatchNorm on vector norms, folded to a per-channel affine (A, B) with
-    ``norm_bn = A * norm + B`` (JAX nn/vn.py:218-276, eval mode)."""
+    ``norm_bn = A * norm + B`` (JAX nn/vn.py:218-276).
+
+    torch ``BatchNorm`` semantics: in train mode the batch statistics
+    normalise (biased variance) and the running buffers take the unbiased
+    variance, ``running = 0.9 * running + 0.1 * batch``; in eval mode the
+    running buffers normalise.  The statistics come either from ``norm``
+    (B, C, ...) or, on the whole-layer kernel path, from ``moments=(mean,
+    biased var)`` with the reduction's element ``count``.
+    """
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -98,14 +109,26 @@ class _NormAffine(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.eps = eps
 
-    def forward(self):
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm statistics come with the training slice "
-                "(ROADMAP.md, queue 1, item 2); call .eval() first"
-            )
-        a = self.weight * torch.rsqrt(self.running_var + self.eps)
-        return a, self.bias - self.running_mean * a
+    def forward(self, norm: Optional[torch.Tensor] = None, moments=None,
+                count: Optional[int] = None):
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            if moments is not None:
+                mean, var = moments
+                cnt = count
+            else:
+                dims = (0,) + tuple(range(2, norm.ndim))
+                mean = norm.mean(dims)
+                var = (norm * norm).mean(dims) - mean * mean
+                cnt = norm.numel() // norm.shape[1]
+            with torch.no_grad():
+                unbiased = var * (cnt / max(cnt - 1, 1))
+                m = BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * unbiased)
+        a = self.weight * torch.rsqrt(var + self.eps)
+        return a, self.bias - mean * a
 
 
 class VNBatchNorm(nn.Module):
@@ -119,7 +142,7 @@ class VNBatchNorm(nn.Module):
     def forward(self, x):
         ct = torch.promote_types(x.dtype, torch.float32)
         norm = safe_norm(x.to(ct), dim=2) + EPS  # (B, C, N...)
-        a, b = self.bn()
+        a, b = self.bn(norm)
         shape = (1, -1) + (1,) * (norm.ndim - 2)
         norm_bn = a.reshape(shape) * norm + b.reshape(shape)
         return x * (norm_bn / norm).to(x.dtype).unsqueeze(2)
@@ -133,13 +156,32 @@ def bn_leaky(p, d, a, b, negative_slope: float, use_kernels: bool):
     return vn_fused.reference_bn_leaky_planes(p, d, a, b, negative_slope)
 
 
+def plane_norms(p: torch.Tensor) -> torch.Tensor:
+    """``|p| + EPS`` of (B, 3, C, N) planes, at least float32: (B, C, N)."""
+    return safe_norm(p.to(torch.promote_types(p.dtype, torch.float32)), dim=1) + EPS
+
+
+def layer_moments(x, w, pbias, training: bool) -> dict:
+    """Arguments of ``_NormAffine`` for the whole-layer path: in train mode
+    the batch moments of ``|W x + pbias| + EPS`` from kernel S (JAX
+    nn/vn.py:457-466), in eval mode none."""
+    if not training:
+        return {}
+    s1, s2 = vn_layer_fused.vn_layer_stats(x, w, pbias)
+    cnt = x.shape[0] * x.shape[3]
+    mean = s1 / cnt
+    return {"moments": (mean, s2 / cnt - mean * mean), "count": cnt}
+
+
 class VNLinearLeakyReLU(nn.Module):
     """Linear + norm-BatchNorm + leaky reflection (vn_layers.py:46-74).
 
     The direction map reads the input ``x``; the nonlinearity acts on the
     normalised ``p``, the reference's wiring.  In plane layout the layer
-    takes kernel B/C (whole layer) where ``layer_eligible`` holds and kernel
-    A (BN + reflection after the products) where ``vn_fused.eligible`` holds.
+    takes kernel B/C (whole layer, with kernel S for the train-mode
+    statistics) where ``layer_eligible`` holds and kernel A (BN + reflection
+    after the products) where ``vn_fused.eligible`` holds; each kernel's
+    backward is its own kernel.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -160,10 +202,10 @@ class VNLinearLeakyReLU(nn.Module):
         1-channel VNLinear; the whole-layer kernel contracts it in-kernel."""
         w, wd = self.map_to_feat.weight, self.map_to_dir.weight
         if self.layout == "plane":
-            a, b = self.batchnorm.bn()
             if self.use_kernels and vn_layer_fused.layer_eligible(
                 x, w.shape[0], self.share_nonlinearity
             ):
+                a, b = self.batchnorm.bn(**layer_moments(x, w, None, self.training))
                 if project_out is not None:
                     return vn_layer_fused.vn_layer_fused_project(
                         x, w, wd, None, None, a, b, project_out.reshape(-1),
@@ -176,6 +218,7 @@ class VNLinearLeakyReLU(nn.Module):
             d = torch.matmul(wd, x)
             if self.share_nonlinearity:
                 d = d.expand_as(p)
+            a, b = self.batchnorm.bn(plane_norms(p) if self.training else None)
             out = bn_leaky(p, d, a, b, self.negative_slope, self.use_kernels)
         else:
             pd = channel_linear(torch.cat([w, wd], dim=0), x, "vec")

@@ -1,15 +1,22 @@
-"""Model checkpoints as reference-layout ``state_dict`` files.
+"""Checkpoints in the reference's layout (``train.py:72-87,252-277``).
 
-``<exp_dir>/models/model_{best,last}.pth``, the reference's own layout
-(``train.py:255,268``), so its checkpoints load into the port and the port's
-load into the JAX package through ``training/torch_interop.py``.  Writes are
-atomic (temporary file + rename).  Optimizer state comes with training.
+``<exp_dir>/models/model_{name}.pth`` holds the model's ``state_dict``, so
+reference checkpoints load into the port and the port's load into the JAX
+package through ``training/torch_interop.py``;
+``<exp_dir>/optimizer/optim_{name}.pth`` holds ``{epoch, optim_state_dict,
+best_metrics, best_epoch}`` plus the count of accepted steps and the SHA-256
+of the model file it was written with.  Both files of a pair are written to
+temporary names first and then renamed, and a restore refuses a pair whose
+model file is not the one its optimizer file was written with (a crash
+between the two renames), as the JAX package's epoch markers do.
 """
 
 from __future__ import annotations
 
+import copy
+import hashlib
 import os
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -19,13 +26,75 @@ def model_path(exp_dir: str, name: str) -> str:
     return os.path.join(exp_dir, "models", f"model_{name}.pth")
 
 
+def optim_path(exp_dir: str, name: str) -> str:
+    return os.path.join(exp_dir, "optimizer", f"optim_{name}.pth")
+
+
+def _write_model(path: str, state_dict: dict) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
+
+
+def _sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
 def save_model(exp_dir: str, model: nn.Module, name: str) -> str:
     path = model_path(exp_dir, name)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    torch.save(sd, path + ".tmp")
+    _write_model(path + ".tmp", model.state_dict())
     os.replace(path + ".tmp", path)
     return path
+
+
+def payload(state, copied: bool = False) -> dict:
+    """What a checkpoint pair holds of a ``TrainState``; ``copied`` clones
+    every tensor where it lies, so that later steps do not change it."""
+    out = {"model": state.model.state_dict(), "optim": state.optimizer.state_dict(),
+           "step": int(state.step)}
+    return copy.deepcopy(out) if copied else out
+
+
+def save_checkpoint(exp_dir: str, held: dict, epoch: int, best_metrics: float,
+                    best_epoch: int, name: str) -> None:
+    """Write the model/optimizer pair ``{model,optim}_{name}.pth`` from a
+    :func:`payload`."""
+    mpath, opath = model_path(exp_dir, name), optim_path(exp_dir, name)
+    _write_model(mpath + ".tmp", held["model"])
+    os.makedirs(os.path.dirname(opath), exist_ok=True)
+    torch.save({
+        "epoch": int(epoch),
+        "optim_state_dict": held["optim"],
+        "step": held["step"],
+        "best_metrics": float(best_metrics),
+        "best_epoch": int(best_epoch),
+        "model_sha256": _sha256(mpath + ".tmp"),
+    }, opath + ".tmp")
+    os.replace(mpath + ".tmp", mpath)
+    os.replace(opath + ".tmp", opath)
+
+
+def restore_checkpoint(exp_dir: str, state,
+                       name: str = "last") -> Optional[Tuple[object, int, float, int]]:
+    """Load the pair ``{model,optim}_{name}.pth`` into ``state``; returns
+    ``(state, epoch, best_metrics, best_epoch)``, or None when absent."""
+    mpath, opath = model_path(exp_dir, name), optim_path(exp_dir, name)
+    if not (os.path.exists(mpath) and os.path.exists(opath)):
+        return None
+    meta = torch.load(opath, map_location="cpu", weights_only=True)
+    if meta.get("model_sha256") != _sha256(mpath):
+        raise RuntimeError(
+            f"checkpoint pair mismatch: {mpath} is not the model file that "
+            f"{opath} (epoch {meta.get('epoch')}) was written with (crash "
+            "between saves?); resume from 'best' or a numbered checkpoint")
+    load_model(exp_dir, state.model, (name,))
+    state.optimizer.load_state_dict(meta["optim_state_dict"])
+    state.step = int(meta["step"])
+    return (state, int(meta["epoch"]), float(meta["best_metrics"]),
+            int(meta["best_epoch"]))
 
 
 def load_model(exp_dir: str, model: nn.Module,
