@@ -1,0 +1,569 @@
+"""The DGCNN family of the port against the JAX package on the CPU.
+
+- the plain versions of kernels K1, K2, K3 and F against the Pallas kernels
+  in interpret mode (F also against the jnp loop), the ``knn`` dispatcher's
+  three branches, ``gradcheck`` of the ``autograd.Function``s and their
+  gradients against ``jax.vjp``;
+- the EdgeConv mode of ``VNLinearLeakyReLU`` against JAX's edge mode with
+  its K3 kernel and against JAX's default composition, eval and train;
+- ``VNDGCNNfps``, ``DGCNNfps``, ``FoldingNet`` and the composed pipelines in
+  eval mode (``num_coarse`` 448 for all three encoders), one float64 train
+  step, ``BatchNormCh``, a port checkpoint read by the JAX package, and the
+  CLI with ``--device cpu``;
+- the decoder width taken from the encoder (the flagship at latent_dim 1024).
+
+Inputs come from numpy seeds, weights from a JAX ``PCNNet.init`` carried
+across with ``state_dict_from_jax_variables``.  The clouds are checked to
+have a gap between the 16th and 17th neighbour distances far above float32
+rounding (``_assert_knn_gap``): the two sides compute distances in another
+order, and only a gap keeps their neighbour sets equal.
+"""
+
+import json
+import os
+import zlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vn_pointcloudcompletion_tpu.models.composer import PCNNet as JaxPCNNet
+from vn_pointcloudcompletion_tpu.ops import knn_pallas as jax_knn_pallas
+from vn_pointcloudcompletion_tpu_torch import __main__ as cli
+from vn_pointcloudcompletion_tpu_torch.models import pcn as port_pcn
+from vn_pointcloudcompletion_tpu_torch.models.common import BatchNormCh
+from vn_pointcloudcompletion_tpu_torch.models.composer import PCNNet, build_model
+from vn_pointcloudcompletion_tpu_torch.models.dgcnn import vn_edge_layer
+from vn_pointcloudcompletion_tpu_torch.nn.vn import VNLinearLeakyReLU
+from vn_pointcloudcompletion_tpu_torch.ops import fps_pallas as port_fps
+from vn_pointcloudcompletion_tpu_torch.ops import knn as port_knn
+from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas as port_knn_pallas
+from vn_pointcloudcompletion_tpu_torch.training import steps as port_steps
+from vn_pointcloudcompletion_tpu_torch.training.checkpoint import save_model
+from vn_pointcloudcompletion_tpu_torch.training.interop import state_dict_from_jax_variables
+from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
+from vn_pointcloudcompletion_tpu_torch.utils.config import Config, load_config
+
+torch.set_num_threads(2)
+
+N_POINTS = 600  # input points: FPS 600 -> 512 -> 128 as at full width
+NUM_COARSE = 32  # dense 512 points
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _randomize_norms(tree, rng):
+    """Non-identity scale/bias of every norm layer and non-trivial running
+    statistics, so the folded affines are exercised."""
+    def walk(node):
+        if not isinstance(node, dict):
+            return np.array(node)
+        out = {k: walk(v) for k, v in node.items()}
+        if {"scale", "bias"} <= set(out) and "kernel" not in out:
+            c = out["scale"].shape[0]
+            out["scale"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+            out["bias"] = rng.normal(0, 0.2, c).astype(np.float32)
+        if {"mean", "var"} <= set(out):
+            c = out["mean"].shape[0]
+            out["mean"] = rng.uniform(0.0, 0.5, c).astype(np.float32)
+            out["var"] = rng.uniform(0.5, 2.0, c).astype(np.float32)
+        return out
+
+    return walk(tree)
+
+
+def _assert_knn_gap(pts, k=16, rel=1e-5):
+    """pts (B, N, D): every point's k-th and (k+1)-th squared neighbour
+    distances (float64) differ by more than ``rel`` of the larger."""
+    p = np.asarray(pts, np.float64)
+    d = np.sort(((p[:, :, None] - p[:, None]) ** 2).sum(-1), -1)
+    gap = (d[..., k] - d[..., k - 1]) / d[..., k]
+    assert gap.min() > rel, gap.min()
+
+
+def _cloud(seed, b=2, n=N_POINTS, scale=0.3):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, n, 3)) * scale).astype(np.float32)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.asarray(a)) for a in arrays]
+
+
+# ----------------------------------------------- plain kernels vs Pallas
+
+
+def test_k1_plain_matches_pallas():
+    rng = np.random.default_rng(1)
+    d = rng.standard_normal((2, 300, 700)).astype(np.float32)
+    d[0, 0, 10:20] = d[0, 0, 5]  # ties go to the lowest index on both sides
+    jv, ji = jax_knn_pallas.topk_min_pallas(jnp.asarray(d), 16, True)
+    pv, pi = port_knn_pallas.reference_topk_min(*_t(d), 16)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("n,m,dim", [(300, 500, 3), (100, 250, 40)])
+def test_k2_plain_matches_pallas(n, m, dim):
+    """Indices equal; distances within 1e-5 of their max (the sums run in
+    another order)."""
+    rng = np.random.default_rng(n + dim)
+    q = rng.standard_normal((2, n, dim)).astype(np.float32)
+    r = rng.standard_normal((2, m, dim)).astype(np.float32)
+    jv, ji = jax_knn_pallas.knn_min_pallas(jnp.asarray(q), jnp.asarray(r), 16, True)
+    pv, pi = port_knn_pallas.reference_knn_min(*_t(q, r), 16)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(pv.numpy(), np.asarray(jv), atol=1e-5 * np.abs(jv).max())
+
+
+@pytest.mark.parametrize("coords", [True, False])
+def test_k3_plain_matches_pallas(coords):
+    """The gather is exact on both sides: the outputs are equal."""
+    rng = np.random.default_rng(3)
+    x = _cloud(3, n=300).transpose(0, 2, 1) if coords else \
+        rng.standard_normal((2, 48, 300)).astype(np.float32)
+    if coords:
+        _assert_knn_gap(x.transpose(0, 2, 1))
+    u, v = (rng.standard_normal((2, 96, 300)).astype(np.float32) for _ in range(2))
+    want = jax_knn_pallas.edge_knn_gather(*map(jnp.asarray, (x, u, v)), 16, True)
+    got, idx = port_knn_pallas.reference_edge_knn_gather(*_t(x, u, v), 16)
+    assert got.shape == (2, 96, 16, 300) and idx.shape == (2, 300, 16)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n,s", [(600, 128), (300, 400)])
+def test_f_plain_matches_pallas_and_jnp(n, s):
+    """Duplicate points, N not a multiple of 128, and more samples than
+    distinct points (the picks wrap back to index 0 as in JAX)."""
+    import importlib
+
+    jax_fps = importlib.import_module("vn_pointcloudcompletion_tpu.ops.fps")
+    jax_fps_pallas = importlib.import_module("vn_pointcloudcompletion_tpu.ops.fps_pallas")
+    xyz = _cloud(n, n=n)
+    xyz[:, 200:240] = xyz[:, 10:50]
+    got = port_fps.reference_furthest_point_sample(*_t(xyz), s).numpy()
+    pallas = jax_fps_pallas.furthest_point_sample_pallas(jnp.asarray(xyz), s, interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(pallas))
+    np.testing.assert_array_equal(got, np.asarray(jax_fps.furthest_point_sample(
+        jnp.asarray(xyz), s)))
+    assert got[0, 0] == 0 and len(set(got[0].tolist())) == min(s, n - 40)
+
+
+@pytest.mark.parametrize("n,m,dim", [(64, 300, 3), (64, 300, 520), (8, 4100, 3)],
+                         ids=["fused", "topk", "plain"])
+def test_knn_dispatch_matches_jax(n, m, dim):
+    """K2 (D <= 512), distances + K1 (D > 512), plain selection (M > 4096):
+    indices equal, distances within 1e-5 of their max."""
+    from vn_pointcloudcompletion_tpu.ops.knn import knn as jax_knn
+
+    rng = np.random.default_rng(m + dim)
+    q = rng.standard_normal((2, n, dim)).astype(np.float32)
+    r = rng.standard_normal((2, m, dim)).astype(np.float32)
+    jv, ji = jax_knn(jnp.asarray(q), jnp.asarray(r), 16)
+    pv, pi = port_knn.knn(*_t(q, r), 16)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(pv.numpy(), np.asarray(jv), atol=1e-5 * np.abs(jv).max())
+
+
+# ------------------------------------------------ gradients of K1, K2, K3
+
+
+def _double(*shapes, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=g, dtype=torch.float64, requires_grad=True)
+            for s in shapes]
+
+
+def test_knn_functions_gradcheck():
+    (d,) = _double((2, 5, 9))
+    assert torch.autograd.gradcheck(lambda t: port_knn_pallas.topk_min(t, 3)[0], (d,))
+    q, r = _double((2, 6, 3), (2, 9, 3), seed=1)
+    assert torch.autograd.gradcheck(lambda a, b: port_knn_pallas.knn_min(a, b, 4)[0], (q, r))
+    x = torch.randn(2, 3, 10, generator=torch.Generator().manual_seed(2), dtype=torch.float64)
+    u, v = _double((2, 4, 10), (2, 4, 10), seed=3)
+    assert torch.autograd.gradcheck(
+        lambda a, b: port_knn_pallas.edge_knn_gather(x, a, b, 4), (u, v))
+
+
+@pytest.mark.parametrize("which", ["K1", "K2", "K3"])
+def test_knn_function_grads_match_jax_vjp(which):
+    """Each Function's backward against ``jax.vjp`` of its Pallas kernel
+    (interpret mode), float32: within 1e-5 of each gradient's max."""
+    rng = np.random.default_rng(7)
+    if which == "K1":
+        ins = [rng.standard_normal((2, 40, 70)).astype(np.float32)]
+        jfn = lambda d: jax_knn_pallas.topk_min_pallas(d, 8, True)[0]  # noqa: E731
+        pfn = lambda d: port_knn_pallas.topk_min(d, 8)[0]  # noqa: E731
+        cot_shape = (2, 40, 8)
+    elif which == "K2":
+        ins = [_cloud(8, n=40), _cloud(9, n=70)]
+        jfn = lambda q, r: jax_knn_pallas.knn_min_pallas(q, r, 8, True)[0]  # noqa: E731
+        pfn = lambda q, r: port_knn_pallas.knn_min(q, r, 8)[0]  # noqa: E731
+        cot_shape = (2, 40, 8)
+    else:
+        x = _cloud(10, n=70).transpose(0, 2, 1).copy()
+        ins = [rng.standard_normal((2, 12, 70)).astype(np.float32) for _ in range(2)]
+        jfn = lambda u, v: jax_knn_pallas.edge_knn_gather(  # noqa: E731
+            jnp.asarray(x), u, v, 16, True)
+        pfn = lambda u, v: port_knn_pallas.edge_knn_gather(  # noqa: E731
+            torch.from_numpy(x), u, v, 16)
+        cot_shape = (2, 12, 16, 70)
+    cot = rng.standard_normal(cot_shape).astype(np.float32)
+    _, vjp = jax.vjp(jfn, *map(jnp.asarray, ins))
+    want = vjp(jnp.asarray(cot))
+    leaves = [t.requires_grad_() for t in _t(*ins)]
+    (pfn(*leaves) * torch.from_numpy(cot)).sum().backward()
+    for leaf, w in zip(leaves, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(leaf.grad.numpy(), w, atol=1e-5 * np.abs(w).max())
+
+
+# ------------------------------------------------------- the edge layer
+
+
+class _JaxEdgeStage:
+    """JAX ``vn_edge_layer`` as a flax module with its layer named ``conv``."""
+
+    def __init__(self, out):
+        import flax.linen as fnn
+
+        from vn_pointcloudcompletion_tpu.models.dgcnn import vn_edge_layer as jax_edge
+
+        class Stage(fnn.Module):
+            @fnn.compact
+            def __call__(self, x, coords, train=False):
+                return jax_edge(x, out, "conv", coords=coords, train=train)
+
+        self.module = Stage()
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("jax_path", ["edge_kernel", "composition"])
+@pytest.mark.parametrize("out,coords", [(32, True), (32, False), (512, True)],
+                         ids=["k3_coords", "k3_features", "knn_gather"])
+def test_edge_layer_matches_jax(out, coords, jax_path, train, monkeypatch):
+    """The port's edge mode (K3 where eligible, else knn + gather) against
+    JAX with ``VN_EDGE_FUSED=1 VN_EDGE_KERNEL=1`` (its K3 in interpret mode)
+    and against JAX's default composition on the CPU (graph features ->
+    layer -> mean over K).  Output, and in train mode the running
+    statistics, within 1e-5 (rtol and atol of the max)."""
+    if jax_path == "edge_kernel":
+        monkeypatch.setenv("VN_EDGE_FUSED", "1")
+        monkeypatch.setenv("VN_EDGE_KERNEL", "1")
+    else:
+        monkeypatch.delenv("VN_EDGE_FUSED", raising=False)
+    rng = np.random.default_rng(out + coords)
+    pts = _cloud(11, n=128)
+    _assert_knn_gap(pts)
+    x = rng.standard_normal((2, 3, 16, 128)).astype(np.float32)
+    if not coords:
+        _assert_knn_gap(x.reshape(2, 48, 128).transpose(0, 2, 1))
+    cj = jnp.asarray(pts.transpose(0, 2, 1)) if coords else None
+    stage = _JaxEdgeStage(out).module
+    v = _randomize_norms(_np_tree(stage.init(jax.random.key(0), jnp.asarray(x), cj)), rng)
+    want, mut = stage.apply(v, jnp.asarray(x), cj, train=train, mutable=["batch_stats"])
+    p, s = v["params"]["conv"], v["batch_stats"]["conv"]
+    layer = VNLinearLeakyReLU(32, out, layout="plane").train(train)
+    layer.load_state_dict(_vnllr_sd(p, s))
+    with torch.no_grad():
+        got = vn_edge_layer(layer, torch.from_numpy(x),
+                            torch.from_numpy(pts.transpose(0, 2, 1).copy()) if coords else None)
+    want = np.asarray(want)
+    assert got.shape == want.shape == (2, 3, out, 128)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    if train:
+        new = mut["batch_stats"]["conv"]["batchnorm"]["BatchNorm_0"]
+        np.testing.assert_allclose(layer.batchnorm.bn.running_mean.numpy(), new["mean"],
+                                   rtol=1e-5)
+        np.testing.assert_allclose(layer.batchnorm.bn.running_var.numpy(), new["var"],
+                                   rtol=1e-5)
+
+
+def _vnllr_sd(p, s):
+    """A JAX VNLinearLeakyReLU subtree as the port layer's state_dict."""
+    bn, st = p["batchnorm"]["BatchNorm_0"], s["batchnorm"]["BatchNorm_0"]
+    sd = {"map_to_feat.weight": p["kernel"], "map_to_dir.weight": p["dir_kernel"],
+          "batchnorm.bn.weight": bn["scale"], "batchnorm.bn.bias": bn["bias"],
+          "batchnorm.bn.running_mean": st["mean"], "batchnorm.bn.running_var": st["var"]}
+    return {k: torch.from_numpy(np.array(t)) for k, t in sd.items()}
+
+
+# ----------------------------------------------------- whole pipelines
+
+
+_PIPELINES = {}
+
+
+def _pipeline(enc, dec, nc, latent_dim=2048):
+    """(JAX model, variables with random norms, port model in eval mode,
+    input cloud), cached per configuration."""
+    key = (enc, dec, nc, latent_dim)
+    if key not in _PIPELINES:
+        rng = np.random.default_rng(zlib.crc32(repr(key).encode()))
+        if enc == "vn_pointnet":
+            # the flagship tests' size, 256 points.  Its argmax pools (about
+            # 5000 per batch) see a top-2 gap below float32 rounding for some
+            # clouds, and the two sides then pick other points; these seeds
+            # give none at these norms
+            xyz = _cloud(2 if nc == 448 else 0, n=256)
+        else:
+            xyz = _cloud(60)  # a seed whose neighbour gaps are wide
+            _assert_knn_gap(xyz)
+        jm = JaxPCNNet(enc, dec, nc, latent_dim)
+        v = jm.init(jax.random.key(0), jnp.asarray(xyz), None, train=False)
+        v = {k: _randomize_norms(_np_tree(dict(v[k])), rng) for k in v}
+        model = PCNNet(enc, dec, nc).eval()
+        model.load_state_dict(state_dict_from_jax_variables(v), strict=True)
+        _PIPELINES[key] = (jm, v, model, xyz)
+    return _PIPELINES[key]
+
+
+@pytest.mark.parametrize("enc,dec,nc", [
+    ("vn_dgcnn_fps", "vn_foldingnet", NUM_COARSE),
+    ("dgcnn_fps", "foldingnet", NUM_COARSE),
+    ("vn_dgcnn_fps", "foldingnet", NUM_COARSE),
+    ("vn_pointnet", "foldingnet", NUM_COARSE),
+    ("vn_pointnet", "vn_foldingnet", 448),
+    ("vn_dgcnn_fps", "vn_foldingnet", 448),
+    ("dgcnn_fps", "foldingnet", 448),
+])
+def test_pipeline_matches_jax(enc, dec, nc):
+    """Eval-mode (coarse, fine) against JAX, atol and rtol 1e-4 (as the
+    flagship); at 448 the coarse cloud is 224 predicted + 224 FPS points
+    and the dense one 14336."""
+    jm, v, model, xyz = _pipeline(enc, dec, nc)
+    jc, jf = jm.apply(v, jnp.asarray(xyz), None, train=False)
+    with torch.no_grad():
+        c, f = model(torch.from_numpy(xyz))
+    n_c, n_f = (448, 14336) if nc == 448 else (nc, nc * 16)
+    assert c.shape == (2, n_c, 3) and f.shape == (2, n_f, 3)
+    for got, want in ((c.numpy(), np.asarray(jc)), (f.numpy(), np.asarray(jf))):
+        assert np.abs(want).max() > 1e-2
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_flagship_decoder_width_comes_from_the_encoder():
+    """``latent_dim`` 1024 with ``vn_pointnet``: the JAX decoders never read
+    it (flax infers the 2048-channel global feature), and the port builds
+    its first fold layer from the encoder too (it used to take
+    ``latent_dim + 2`` input channels and fail with a shape error)."""
+    jm, v, model, xyz = _pipeline("vn_pointnet", "vn_foldingnet", NUM_COARSE, 1024)
+    assert model.decoder.final_conv[0].map_to_feat.weight.shape == (256, 2050)
+    jc, jf = jm.apply(v, jnp.asarray(xyz), None, train=False)
+    with torch.no_grad():
+        c, f = model(torch.from_numpy(xyz))
+    np.testing.assert_allclose(c.numpy(), np.asarray(jc), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(f.numpy(), np.asarray(jf), atol=1e-4, rtol=1e-4)
+
+
+def test_plain_path_equals_kernel_wrappers_on_cpu():
+    _, _, model, xyz = _pipeline("vn_dgcnn_fps", "vn_foldingnet", NUM_COARSE)
+    x = torch.from_numpy(xyz)
+    with torch.no_grad():
+        c1, f1 = model(x)
+        model.use_kernels_(False)
+        try:
+            c2, f2 = model(x)
+        finally:
+            model.use_kernels_(True)
+    assert torch.equal(c1, c2) and torch.equal(f1, f2)
+
+
+@pytest.mark.parametrize("enc,dec", [("vn_dgcnn_fps", "vn_foldingnet"),
+                                     ("dgcnn_fps", "foldingnet")])
+def test_train_step_matches_jax_float64(enc, dec, monkeypatch):
+    """Step 0 of the port's ``train_step`` in float64 against the JAX
+    forward and backward in float64 (x64): losses rtol 1e-9, every gradient
+    within 1e-7 of its tensor's max |g| (a bias that a train-mode BatchNorm
+    follows has no gradient: below 1e-12 on both sides), the running
+    statistics rtol 1e-9.
+    Both sides pick neighbours and FPS samples from float32 distances in
+    JAX and float64 ones in the port; the cloud's neighbour gaps keep the
+    picks equal.  The folding seeds are JAX's (the two linspace round 1 ulp
+    apart in float32)."""
+    from vn_pointcloudcompletion_tpu.metrics import losses as jax_losses
+    from vn_pointcloudcompletion_tpu.ops import grid as jax_grid
+
+    jm, v, _, partial = _pipeline(enc, dec, NUM_COARSE)
+    complete = _cloud(22, n=512)
+    for name in ("folding_grid_2d", "folding_grid_3d"):
+        fn = getattr(jax_grid, name)
+        monkeypatch.setattr(port_pcn, name, lambda g, fn=fn: torch.from_numpy(np.array(fn(g))))
+    monkeypatch.setattr(port_steps, "sample_rotation", lambda *a: None)
+    model = PCNNet(enc, dec, NUM_COARSE)
+    model.load_state_dict(state_dict_from_jax_variables(v), strict=True)
+    model.double()
+    f64 = lambda a: np.asarray(a, np.float64)  # noqa: E731
+    jax.config.update("jax_enable_x64", True)
+    try:
+        v64 = jax.tree.map(f64, v)
+        jp, jc = jnp.asarray(f64(partial)), jnp.asarray(f64(complete))
+
+        def jax_loss(params):
+            (coarse, fine), mut = jm.apply({"params": params, "batch_stats": v64["batch_stats"]},
+                                           jp, None, train=True, mutable=["batch_stats"])
+            l1, l2 = jax_losses.cd_loss_l1(coarse, jc), jax_losses.cd_loss_l1(fine, jc)
+            return l1 + l2, (l1, l2, mut)
+
+        (_, (j1, j2, mut)), j_grads = jax.jit(jax.value_and_grad(jax_loss, has_aux=True))(
+            v64["params"])
+        j_grads, mut = _np_tree(j_grads), _np_tree(mut)
+        cfg = Config.from_dict({"enc_type": enc, "dec_type": dec, "num_coarse": NUM_COARSE})
+        m = port_steps.train_step(create_train_state(model, cfg, 1),
+                                  torch.from_numpy(f64(partial)), torch.from_numpy(f64(complete)),
+                                  torch.Generator().manual_seed(0))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    assert float(m["skipped"]) == 0.0
+    np.testing.assert_allclose([float(m["coarse"]), float(m["dense"])],
+                               [float(j1), float(j2)], rtol=1e-9)
+    zero_stats = jax.tree.map(np.zeros_like, v["batch_stats"])
+    want = state_dict_from_jax_variables({"params": j_grads, "batch_stats": zero_stats})
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    assert set(grads) == {k for k in want if "running" not in k}
+    for name, g in grads.items():
+        w = want[name].numpy()
+        if g is None:  # the pool's direction map feeds only an argmax
+            assert "pool5" in name and not w.any(), name
+            continue
+        if np.abs(w).max() < 1e-12:  # a bias that a train-mode BatchNorm follows
+            assert np.abs(g.numpy()).max() < 1e-12, name
+            continue
+        assert np.abs(g.numpy() - w).max() <= 1e-7 * np.abs(w).max(), name
+    new_stats = state_dict_from_jax_variables({"params": v["params"],
+                                               "batch_stats": mut["batch_stats"]})
+    for name, b in model.named_buffers():
+        np.testing.assert_allclose(b.numpy(), new_stats[name].numpy(), rtol=1e-9, atol=1e-12)
+
+
+def test_batchnorm_ch_matches_flax():
+    """Train mode: output and input gradient within 1e-5, the running
+    variance updated with the BIASED batch variance (flax's rule, not
+    torch's); eval mode reads the running statistics."""
+    from vn_pointcloudcompletion_tpu.models.common import BatchNormCh as JaxBN
+
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((3, 4, 5)) * 2 + 1).astype(np.float32)
+    cot = rng.standard_normal(x.shape).astype(np.float32)
+    jb = JaxBN()
+    v = _randomize_norms(_np_tree(jb.init(jax.random.key(0), jnp.asarray(x))), rng)
+
+    def loss(xx):
+        out, mut = jb.apply(v, xx, train=True, mutable=["batch_stats"])
+        return jnp.sum(out * cot), (out, mut)
+
+    (_, (want, mut)), gx = jax.value_and_grad(loss, has_aux=True)(jnp.asarray(x))
+    bn = BatchNormCh(4).train()
+    p, s = v["params"]["BatchNorm_0"], v["batch_stats"]["BatchNorm_0"]
+    bn.load_state_dict({"weight": torch.from_numpy(p["scale"]), "bias": torch.from_numpy(p["bias"]),
+                        "running_mean": torch.from_numpy(s["mean"]),
+                        "running_var": torch.from_numpy(s["var"])})
+    xt = torch.from_numpy(x).requires_grad_()
+    out = bn(xt)
+    (out * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), atol=1e-5 * np.abs(gx).max())
+    new = mut["batch_stats"]["BatchNorm_0"]
+    biased = x.var(axis=(0, 2))
+    np.testing.assert_allclose(bn.running_var.numpy(), new["var"], rtol=1e-5)
+    np.testing.assert_allclose(bn.running_var.numpy(), 0.9 * s["var"] + 0.1 * biased, rtol=1e-5)
+    np.testing.assert_allclose(bn.running_mean.numpy(), new["mean"], rtol=1e-5, atol=1e-7)
+    bn.eval()
+    with torch.no_grad():
+        got = bn(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jb.apply({"params": v["params"], "batch_stats": mut[
+        "batch_stats"]}, jnp.asarray(x))), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("enc", ["vn_dgcnn_fps", "dgcnn_fps"])
+def test_port_checkpoint_loads_into_jax(enc):
+    """A port model's state_dict read by the JAX package's ``torch_interop``
+    gives JAX's forward the port's outputs (atol and rtol 1e-4): the whole
+    pipeline for ``vn_dgcnn_fps`` + ``vn_foldingnet``, the encoder for
+    ``dgcnn_fps`` (the JAX package maps no FoldingNet checkpoint)."""
+    from vn_pointcloudcompletion_tpu.models.dgcnn import DGCNNfps as JaxDGCNNfps
+    from vn_pointcloudcompletion_tpu.training import torch_interop
+
+    dec = "vn_foldingnet" if enc == "vn_dgcnn_fps" else "foldingnet"
+    model = build_model(Config.from_dict({"enc_type": enc, "dec_type": dec,
+                                          "num_coarse": NUM_COARSE, "seed": 2}))
+    xyz = _cloud(42)
+    _assert_knn_gap(xyz)
+    with torch.no_grad():
+        model.train()(torch.from_numpy(xyz))  # move the running statistics
+        model.eval()
+        c, f = model(torch.from_numpy(xyz))
+    sd = {k: t.numpy() for k, t in model.state_dict().items()}
+    enc_p, enc_s = torch_interop.encoder_variables_from_torch(sd, enc)
+    if enc == "vn_dgcnn_fps":
+        dec_p, dec_s = torch_interop.vn_foldingnet_from_state_dict(sd, latent_dim=512)
+        jc, jf = JaxPCNNet(enc, dec, NUM_COARSE).apply(
+            {"params": {"encoder": enc_p, "decoder": dec_p},
+             "batch_stats": {"encoder": enc_s, "decoder": dec_s}}, jnp.asarray(xyz), None)
+        pairs = ((c, jc), (f, jf))
+    else:
+        jc, jg = JaxDGCNNfps(NUM_COARSE).apply({"params": enc_p, "batch_stats": enc_s},
+                                                jnp.asarray(xyz))
+        with torch.no_grad():
+            pc, pg = model.encoder(torch.from_numpy(xyz))
+        pairs = ((pc, jc), (pg, jg))
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------------------------ CLI
+
+
+def _cli_config(tmp_path, **extra):
+    cfg = {
+        "name": "dg", "enc_type": "vn_dgcnn_fps", "dec_type": "vn_foldingnet",
+        "num_coarse": NUM_COARSE, "latent_dim": 2048, "only_coarse": False,
+        "batch_size": 2, "lr": 1e-4, "rotation": "z", "val_rotation": "so3",
+        "test_rotation": "so3", "dataset": "synthetic", "num_workers": 1,
+        "synthetic_n_partial": N_POINTS, "synthetic_n_complete": 512,
+        "synthetic_test_samples": 2, "seed": 0, "log_frequency": 1, **extra,
+    }
+    (tmp_path / "config.json").write_text(json.dumps(cfg))
+    return cfg
+
+
+def test_cli_vn_dgcnn_predict_and_test(tmp_path, monkeypatch):
+    cfg = _cli_config(tmp_path)
+    out = tmp_path / "experiments"
+    exp_dir = out / "run_000"
+    (exp_dir / "models").mkdir(parents=True)
+    cfg["exp_dir"] = str(exp_dir)
+    (exp_dir / "config.json").write_text(json.dumps(cfg))
+    monkeypatch.setenv("OUTPUT_DIR", str(out))
+    save_model(str(exp_dir), build_model(load_config("run_000")), "best")
+    from vn_pointcloudcompletion_tpu_torch.data.ply import read_ply_points, write_ply_points
+
+    raw = tmp_path / "raw"
+    raw.mkdir()
+    write_ply_points(str(raw / "scan.ply"), _cloud(24, b=1, n=900)[0])
+    written = cli.main(["-n", "run_000", "--resume", "--device", "cpu", "predict",
+                        "-i", str(raw), "-o", str(tmp_path / "pred")])
+    fine = read_ply_points(written[0])
+    assert fine.shape == (NUM_COARSE * 16, 3) and np.isfinite(fine).all()
+    res = cli.main(["-n", "run_000", "--resume", "--device", "cpu", "test"])
+    row = res["synthetic"]
+    assert all(np.isfinite(x) for x in row.values()) and 0 < row["iou"] <= 1
+
+
+def test_cli_vn_dgcnn_overfit_then_resume(tmp_path, monkeypatch):
+    _cli_config(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("OUTPUT_DIR", str(tmp_path / "out"))
+    summary = cli.main(["-n", "dg", "-epochs", "0", "--device", "cpu", "overfit"])
+    assert summary["epochs_run"] == 1
+    (run,) = os.listdir(tmp_path / "out")
+    exp = tmp_path / "out" / run
+    rows = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
+    assert rows and all(np.isfinite(r["value"]) for r in rows)
+    summary = cli.main(["-n", run, "--resume", "-epochs", "1", "--device", "cpu", "train"])
+    assert summary["epochs_run"] == 1
+    assert "[RESUME INFO] resume ckpts @ 0 epoch" in (exp / "train.log").read_text()

@@ -1,4 +1,5 @@
-"""The port's kernels (A, A', S, S', B, B', C, C', D) against the JAX package.
+"""The port's kernels (A, A', S, S', B, B', C, C', D, K1, K2, K3, F) against
+the JAX package.
 
 On the CPU each wrapper takes its plain PyTorch version; those tests hold it
 against the Pallas kernel in interpret mode (and the numpy chamfer oracle)
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 from vn_pointcloudcompletion_tpu_torch.ops import chamfer_pallas_bidir as port_chamfer
-from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib
+from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib, fps_pallas, knn_pallas
 from vn_pointcloudcompletion_tpu_torch.ops import vn_fused as port_fused
 from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused as port_layer
 
@@ -194,6 +195,10 @@ def test_kernel_entry_points_exist_in_their_sources():
         "vn_layer_fused_bwd": "vn_layer_bwd.cu",
         "vn_layer_fused_project_bwd": "vn_layer_bwd.cu",
         "chamfer_nn_one_sided": "chamfer_bidir.cu",
+        "topk_min": "knn.cu",
+        "knn_min": "knn.cu",
+        "edge_knn_gather": "knn.cu",
+        "furthest_point_sample": "fps.cu",
     }
     assert {s.name for s in cuda_lib.sources()} == set(names.values())
     for sym, src in names.items():
@@ -535,7 +540,7 @@ def test_cuda_train_step_kernels_match_plain_path(cuda, batch, grad_tol):
     cuda_lib.reset_launch_counts()
     loss_err, stat_err, errs = chip_smoke.step_agreement(*case)
     counts = cuda_lib.launch_counts()
-    assert all(v > 0 for v in counts.values()), counts
+    assert all(counts[k] > 0 for k in chip_smoke.FLAGSHIP_KERNELS), counts
     assert loss_err <= 1e-4 and stat_err <= 1e-4, (loss_err, stat_err)
     assert max(errs.values()) <= grad_tol, sorted(errs.items(), key=lambda kv: -kv[1])[:3]
 
@@ -563,3 +568,173 @@ def test_cuda_train_steps_are_reproducible(cuda):
     assert torch.equal(runs[0][0], runs[1][0])
     for k, v in runs[0][1].items():
         assert torch.equal(v, runs[1][1][k]), k
+
+
+# ------------------------------------------------ card, DGCNN family
+#
+# K1, K2, K3 and F against their plain versions on the card: the plain
+# versions do the kernels' operations in the kernels' order, so indices and
+# values are equal; each kernel runs twice and must give the same bits.
+
+
+def _cloud(seed, b, n):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.uniform(-0.5, 0.5, (b, n, 3))).astype(np.float32))
+
+
+def _lane_tie_cloud(b, m):
+    """(b, m, 3) reference points whose distances from the origin tie the
+    way duplicate points do inside one warp lane of K1-K3 (columns j and
+    j + 32), with a nearer point later in the same lane (column j + 64) for
+    j < 8: P_j (radius 1 + j/100) at columns j and j + 32, Q_j (radius 0.5)
+    at j + 64, the rest at radius 3; column m - 1 is the origin.  Of k = 32
+    nearest to the origin, ties to the lowest index give m - 1, then 64..71
+    (in some order), then 0, 32, 1, 33, ..."""
+    rng = np.random.default_rng(b * m)
+    dirs = rng.standard_normal((b, m, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    radius = np.full(m, 3.0)
+    radius[:32] = 1.0 + np.arange(32) / 100
+    radius[64:72] = 0.5
+    pts = dirs * radius[None, :, None]
+    pts[:, 32:64] = pts[:, :32]
+    pts[:, m - 1] = 0.0
+    return torch.from_numpy(pts.astype(np.float32))
+
+
+def test_lane_tie_cloud_orders_ties_by_index():
+    """The tie pattern of the card tests below: the plain selection keeps the
+    lower index of each duplicate pair first."""
+    r = _lane_tie_cloud(2, 333)
+    _, idx = knn_pallas.reference_knn_min(r[:, -1:], r, 32)
+    got = idx[0, 0].tolist()
+    assert got[0] == 332 and sorted(got[1:9]) == list(range(64, 72))
+    assert got[9:13] == [0, 32, 1, 33]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,k,ties", [(300, 700, 16, False), (2048, 2048, 16, False),
+                                        (64, 4096, 64, False), (100, 333, 32, True),
+                                        (16, 333, 40, "lane")])
+def test_kernel_k1_cuda_matches_plain(cuda, n, m, k, ties):
+    g = torch.Generator().manual_seed(n + m)
+    if ties == "lane":  # the squared distances of the lane-tie cloud, every row
+        d = (_lane_tie_cloud(2, m) ** 2).sum(-1)[:, None, :].expand(2, n, m).contiguous()
+    elif ties:
+        d = torch.randint(0, 7, (2, n, m), generator=g).float()
+    else:
+        d = torch.randn(2, n, m, generator=g)
+    d = d.to(cuda)
+    before = knn_pallas._TOPK.launches
+    got, again = knn_pallas.topk_min_fwd(d, k), knn_pallas.topk_min_fwd(d, k)
+    torch.cuda.synchronize()
+    assert knn_pallas._TOPK.launches == before + 2
+    want = knn_pallas.reference_topk_min(d, k)
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,dim,k", [(2048, 2048, 3, 16), (128, 128, 3, 16),
+                                       (512, 2048, 3, 16), (100, 333, 40, 32),
+                                       (50, 700, 512, 64), (0, 333, 3, 32)])
+def test_kernel_k2_cuda_matches_plain(cuda, n, m, dim, k):
+    """n = 0: the lane-tie cloud, every point a query."""
+    g = torch.Generator().manual_seed(n + dim)
+    if n == 0:
+        q = r = _lane_tie_cloud(2, m).to(cuda)
+    else:
+        q = torch.randn(2, n, dim, generator=g).to(cuda)
+        r = torch.randn(2, m, dim, generator=g).to(cuda)
+    got, again = knn_pallas.knn_min_fwd(q, r, k), knn_pallas.knn_min_fwd(q, r, k)
+    torch.cuda.synchronize()
+    want = knn_pallas.reference_knn_min(q, r, k)
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,dim,c3,k", [(512, 3, 384, 16), (512, 3, 768, 16),
+                                        (300, 48, 96, 32), (2048, 3, 384, 16),
+                                        (512, 0, 96, 32)])
+def test_kernel_k3_cuda_matches_plain(cuda, n, dim, c3, k):
+    """Forward equal to the bit; the backward (du scatter, dv sum) within
+    1e-6 of its max against autograd of the plain chain.  dim = 0: the
+    lane-tie cloud's coordinates."""
+    g = torch.Generator().manual_seed(n + c3)
+    if dim == 0:
+        x = _lane_tie_cloud(2, n).transpose(1, 2).contiguous().to(cuda)
+    else:
+        x = torch.randn(2, dim, n, generator=g).to(cuda)
+    u, v = (torch.randn(2, c3, n, generator=g).to(cuda) for _ in range(2))
+    got, again = knn_pallas.edge_knn_gather_fwd(x, u, v, k), knn_pallas.edge_knn_gather_fwd(x, u, v, k)
+    torch.cuda.synchronize()
+    want = knn_pallas.reference_edge_knn_gather(x, u, v, k)
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    cot = torch.randn(2, c3, k, n, generator=g).to(cuda)
+    grads = []
+    for fn in (knn_pallas.edge_knn_gather,
+               lambda *a: knn_pallas.reference_edge_knn_gather(*a)[0]):
+        uu, vv = u.clone().requires_grad_(), v.clone().requires_grad_()
+        (fn(x, uu, vv, k) * cot).sum().backward()
+        grads.append((uu.grad, vv.grad))
+    _assert_rel(grads[0], grads[1], 1e-6)
+
+
+@pytest.mark.gpu
+def test_kernel_k2_bwd_cuda_matches_plain(cuda):
+    """dq and dr of the K2 Function against autograd of the plain chain,
+    within 1e-4 of their max (the Function forms 2 g (q - r), autograd of
+    the distance 2 g q - 2 g r)."""
+    q, r = _cloud(1, 2, 512).to(cuda), _cloud(2, 2, 2048).to(cuda)
+    cot = torch.randn(2, 512, 16, generator=torch.Generator().manual_seed(3)).to(cuda)
+    grads = []
+    for fn in (knn_pallas.knn_min, knn_pallas.reference_knn_min):
+        qq, rr = q.clone().requires_grad_(), r.clone().requires_grad_()
+        (fn(qq, rr, 16)[0] * cot).sum().backward()
+        grads.append((qq.grad, rr.grad))
+    _assert_rel(grads[0], grads[1], 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,s", [(2048, 512), (512, 128), (2048, 224), (600, 700)])
+def test_kernel_f_cuda_matches_plain(cuda, n, s):
+    xyz = _cloud(n + s, 8, n)
+    xyz[:, 300:340] = xyz[:, :40]  # exact duplicates, as resample padding makes
+    xyz = xyz.to(cuda)
+    before = fps_pallas._KERNEL.launches
+    got = fps_pallas.furthest_point_sample_kernel(xyz, s)
+    again = fps_pallas.furthest_point_sample_kernel(xyz, s)
+    torch.cuda.synchronize()
+    assert fps_pallas._KERNEL.launches == before + 2
+    want = fps_pallas.reference_furthest_point_sample(xyz, s)
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("enc,dec,nc,counts", [
+    ("vn_dgcnn_fps", "vn_foldingnet", 256, {"knn_min": 2, "edge_knn_gather": 2,
+                                            "furthest_point_sample": 2, "vn_bn_leaky_fwd": 3,
+                                            "vn_layer_fused_fwd": 2,
+                                            "vn_layer_fused_project_fwd": 1}),
+    ("dgcnn_fps", "foldingnet", 448, {"knn_min": 4, "furthest_point_sample": 3}),
+])
+def test_cuda_dgcnn_kernels_match_plain_path(cuda, enc, dec, nc, counts):
+    """The eval-mode pipeline on the card, the kernels against the plain
+    path: the launches of one forward at 2048 points, coarse and dense
+    within 1e-5 + 1e-4 relative (the neighbour and FPS picks are equal; the
+    layer kernels B and C round otherwise than cuBLAS)."""
+    from vn_pointcloudcompletion_tpu_torch.models.composer import PCNNet, init_weights_
+
+    model = init_weights_(PCNNet(enc, dec, nc), 0).to(cuda).eval()
+    xyz = _cloud(0, 2, 2048).to(cuda)
+    cuda_lib.reset_launch_counts()
+    with torch.no_grad():
+        coarse, fine = model(xyz)
+        got = cuda_lib.launch_counts()
+        model.use_kernels_(False)
+        coarse_p, fine_p = model(xyz)
+    assert {k: v for k, v in got.items() if v} == counts
+    torch.testing.assert_close(coarse, coarse_p, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(fine, fine_p, atol=1e-5, rtol=1e-4)

@@ -60,7 +60,7 @@ def carried():
     xyz = (rng.standard_normal((2, 256, 3)) * 0.3).astype(np.float32)
     v = jm.init(jax.random.key(0), jnp.asarray(xyz), None, train=False)
     v = {k: _randomize_bn(jax.tree.map(np.array, dict(v[k])), rng) for k in v}
-    model = PCNNet(num_coarse=NUM_COARSE, latent_dim=2048).eval()
+    model = PCNNet(num_coarse=NUM_COARSE).eval()
     model.load_state_dict(state_dict_from_jax_variables(v), strict=True)
     return jm, v, model, xyz
 
@@ -272,9 +272,9 @@ def test_chamfer_distance_small_and_any_dim():
 @pytest.mark.parametrize("cfg,match", [
     ({"dtype": "bfloat16"}, "bfloat16"),
     ({"enc_type": "vn_pointr", "num_coarse": 448}, "vn_pointr"),
-    ({"enc_type": "dgcnn_fps"}, "DGCNN"),
+    ({"enc_type": "vn_pointr"}, "item 4"),
     ({"dec_type": "attention_vn_foldingnet"}, "vn_pointr"),
-    ({"num_coarse": 448}, "FPS"),
+    ({"pointr_decoder": True}, "vn_pointr"),
 ])
 def test_unported_configs_raise(cfg, match):
     with pytest.raises(NotImplementedError, match=match):

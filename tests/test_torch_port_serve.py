@@ -221,6 +221,8 @@ def test_port_never_imports_jax():
     assert {f"vn_pointcloudcompletion_tpu_torch/{m}.py" for m in (
         "training/steps", "training/state", "training/trainer", "training/checkpoint",
         "utils/experiments", "metrics/losses", "ops/chamfer", "ops/vn_layer_fused",
+        "ops/knn", "ops/knn_pallas", "ops/fps", "ops/fps_pallas", "models/dgcnn",
+        "models/common",
     )} <= names
     for f in files:
         for mod in _imports(f):

@@ -237,7 +237,7 @@ def _float64(flagship, monkeypatch):
     monkeypatch.setattr(port_pcn, "folding_grid_3d",
                         lambda g: torch.from_numpy(np.array(folding_grid_3d(g))))
     jm, v, partial, complete, rot = flagship
-    model = PCNNet(num_coarse=NUM_COARSE, latent_dim=2048)
+    model = PCNNet(num_coarse=NUM_COARSE)
     model.load_state_dict(state_dict_from_jax_variables(v), strict=True)
     f64 = lambda a: np.asarray(a, np.float64)  # noqa: E731
     jax.config.update("jax_enable_x64", True)

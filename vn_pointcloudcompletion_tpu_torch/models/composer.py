@@ -1,9 +1,9 @@
 """The composed completion model (port of ``models/composer.py``).
 
-The port has the flagship pipeline only so far: ``enc_type='vn_pointnet'`` with
-``dec_type='vn_foldingnet'``, in the float32 compute policy.  Every other
-choice raises ``NotImplementedError`` naming the ROADMAP.md item that brings
-it.
+Encoders ``vn_pointnet``, ``vn_dgcnn_fps`` and ``dgcnn_fps``; decoders
+``vn_foldingnet`` and ``foldingnet``; ``num_coarse`` 448 included; the
+float32 compute policy.  Every other choice raises ``NotImplementedError``
+naming the ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
@@ -13,14 +13,19 @@ import math
 import torch
 from torch import nn
 
-from vn_pointcloudcompletion_tpu_torch.models.pcn import VNFoldingNet, VNPointNet
+from vn_pointcloudcompletion_tpu_torch.models.common import ConvCh
+from vn_pointcloudcompletion_tpu_torch.models.dgcnn import DGCNNfps, VNDGCNNfps
+from vn_pointcloudcompletion_tpu_torch.models.pcn import (
+    FoldingNet,
+    VNFoldingNet,
+    VNPointNet,
+    _ScalarSplitFoldLayer,
+)
 from vn_pointcloudcompletion_tpu_torch.utils.config import Config
 
+ENCODERS = {"vn_pointnet": VNPointNet, "vn_dgcnn_fps": VNDGCNNfps, "dgcnn_fps": DGCNNfps}
 _LATER = {
-    "dgcnn_fps": "the DGCNN family (ROADMAP.md, queue 1, item 3)",
-    "vn_dgcnn_fps": "the DGCNN family (ROADMAP.md, queue 1, item 3)",
     "vn_pointr": "vn_pointr (ROADMAP.md, queue 1, item 4)",
-    "foldingnet": "the DGCNN family (ROADMAP.md, queue 1, item 3)",
     "attention_vn_foldingnet": "vn_pointr (ROADMAP.md, queue 1, item 4)",
 }
 
@@ -29,34 +34,48 @@ class PCNNet(nn.Module):
     """Encoder + decoder (reference models/model.py; JAX composer.py:32-122).
 
     ``forward(xyz, rot)`` returns ``(coarse, fine)``, at least float32;
-    ``fine`` is None when ``only_coarse``.
+    ``fine`` is None when ``only_coarse``.  At ``num_coarse == 448`` the
+    decoder folds the 224 predicted points and ``coarse`` is those with the
+    224 FPS points of the input appended.  The decoder's first layer takes
+    the width of the encoder's global feature (the config's ``latent_dim``
+    reaches no model: the JAX decoders ignore it too).
     """
 
     def __init__(self, enc_type: str = "vn_pointnet",
                  dec_type: str = "vn_foldingnet", num_coarse: int = 1024,
-                 latent_dim: int = 2048, only_coarse: bool = False):
+                 only_coarse: bool = False):
         super().__init__()
-        if enc_type != "vn_pointnet":
+        if enc_type not in ENCODERS:
             raise NotImplementedError(
                 f"enc_type={enc_type!r} is not ported yet: "
                 f"{_LATER.get(enc_type, 'unknown encoder')}")
-        self.encoder = VNPointNet(num_coarse)
+        self.encoder = ENCODERS[enc_type](num_coarse)
         self.only_coarse = only_coarse
         if not only_coarse:
-            if dec_type != "vn_foldingnet":
+            glob = self.encoder.global_shape
+            if dec_type == "vn_foldingnet":
+                if len(glob) != 2:
+                    raise ValueError(f"dec_type='vn_foldingnet' needs a vector global "
+                                     f"feature; enc_type={enc_type!r} gives {glob}")
+                self.decoder = VNFoldingNet(num_coarse, glob[0])
+            elif dec_type == "foldingnet":
+                self.decoder = FoldingNet(num_coarse, math.prod(glob))
+            else:
                 raise NotImplementedError(
                     f"dec_type={dec_type!r} is not ported yet: "
                     f"{_LATER.get(dec_type, 'unknown decoder')}")
-            self.decoder = VNFoldingNet(num_coarse, latent_dim)
 
     def forward(self, xyz, rot=None):
         def f32(t):
             return t.to(torch.promote_types(t.dtype, torch.float32))
 
         coarse, feature_global = self.encoder(xyz)
+        folded = coarse
+        if self.encoder.fps_tail:
+            folded, coarse = coarse
         if self.only_coarse:
             return f32(coarse), None
-        fine = self.decoder(coarse, feature_global, rot)
+        fine = self.decoder(folded, feature_global, rot)
         return f32(coarse), f32(fine)
 
     def use_kernels_(self, enabled: bool = True) -> "PCNNet":
@@ -69,16 +88,17 @@ class PCNNet(nn.Module):
 
 
 def init_weights_(model: nn.Module, seed: int) -> nn.Module:
-    """Redraw every linear map from ``seed``: torch's ``nn.Linear`` default,
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), from an explicit generator.  BatchNorm
-    stays at its identity init."""
+    """Redraw every linear map and convolution from ``seed``: torch's
+    default, weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)), from an
+    explicit generator.  Normalisation layers stay at their identity init."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for _, m in sorted(model.named_modules(), key=lambda kv: kv[0]):
-            if isinstance(m, nn.Linear):
-                bound = 1.0 / math.sqrt(m.weight.shape[1])
-                m.weight.copy_(
-                    torch.rand(m.weight.shape, generator=g) * (2 * bound) - bound)
+            if isinstance(m, (nn.Linear, ConvCh, _ScalarSplitFoldLayer)):
+                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                for p in (m.weight, m.bias):
+                    if p is not None:
+                        p.copy_(torch.rand(p.shape, generator=g) * (2 * bound) - bound)
     return model
 
 
@@ -93,6 +113,5 @@ def build_model(config: Config) -> PCNNet:
     if getattr(config, "pointr_decoder", False):
         raise NotImplementedError(
             "pointr_decoder needs vn_pointr (ROADMAP.md, queue 1, item 4)")
-    model = PCNNet(config.enc_type, config.dec_type, config.num_coarse,
-                   config.latent_dim, config.only_coarse)
+    model = PCNNet(config.enc_type, config.dec_type, config.num_coarse, config.only_coarse)
     return init_weights_(model, config.seed)

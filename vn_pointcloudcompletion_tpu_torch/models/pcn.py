@@ -1,12 +1,15 @@
-"""The flagship encoder and decoder: ``VNPointNet`` and ``VNFoldingNet``.
+"""The PCN-family encoder ``VNPointNet`` and the decoders ``VNFoldingNet``
+and ``FoldingNet``.
 
-Port of the parts of ``vn_pointcloudcompletion_tpu/models/pcn.py`` that the
-``vn_pointnet`` + ``vn_foldingnet`` pipeline runs; train mode comes from
-``model.train()``.  The encoder
-takes ``xyz`` (B, N, 3) and returns ``(coarse (B, Nc, 3), feature_global
-(B, 2L, 3, 1))``; the decoder takes ``(coarse, feature_global, rot)`` and
-returns the dense cloud (B, Nc * S, 3).  The wide layers run in plane layout
-(B, 3, C, N); the module tree follows the reference's ``state_dict`` keys.
+Port of those parts of ``vn_pointcloudcompletion_tpu/models/pcn.py``; train
+mode comes from ``model.train()``.  The encoder takes ``xyz`` (B, N, 3) and
+returns ``(coarse (B, Nc, 3), feature_global (B, 2L, 3, 1))`` (at
+``num_coarse == 448`` a (predicted, with FPS points) pair of coarse clouds);
+a decoder takes ``(coarse, feature_global, rot)`` and returns the dense
+cloud (B, Nc * S, 3).  A decoder's first layer is as wide as the encoder's
+global feature (``global_shape``), as flax infers it in the JAX package.
+The wide VN layers run in plane layout (B, 3, C, N); the module tree follows
+the reference's ``state_dict`` keys.
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ from vn_pointcloudcompletion_tpu_torch.nn.vn import (
     layer_moments,
     plane_norms,
 )
+from vn_pointcloudcompletion_tpu_torch.models.common import BatchNormCh, ConvCh
 from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
-from vn_pointcloudcompletion_tpu_torch.ops.grid import folding_grid_3d
+from vn_pointcloudcompletion_tpu_torch.ops.fps import fps
+from vn_pointcloudcompletion_tpu_torch.ops.grid import folding_grid_2d, folding_grid_3d
 from vn_pointcloudcompletion_tpu_torch.ops.rotations import rotate_points
 from vn_pointcloudcompletion_tpu_torch.ops.vn_fused import plane_dot
 
@@ -60,18 +65,16 @@ def linear_maxpool_planes(w, wd, x):
 class VNPointNet(nn.Module):
     """VN encoder (reference models/pcn.py:110-184; JAX models/pcn.py:413-482).
 
-    ``num_coarse == 448`` (224 predicted + FPS(input, 224)) needs the FPS
-    kernel, which this port does not have yet.
+    ``num_coarse == 448``: 224 predicted points, then FPS(input, 224)
+    appended (kernel F on the card).
     """
 
     def __init__(self, num_coarse: int = 1024, latent_dim: int = 1024):
         super().__init__()
-        if num_coarse == 448:
-            raise NotImplementedError(
-                "num_coarse=448 appends FPS(input, 224); FPS (TPU kernel F) "
-                "is not ported yet (ROADMAP.md, queue 2)"
-            )
-        self.num_coarse = num_coarse
+        self.num_coarse = 224 if num_coarse == 448 else num_coarse
+        self.fps_tail = num_coarse == 448
+        self.global_shape = (2 * latent_dim, 3)
+        self.use_kernels = True
         self.first_conv = nn.ModuleList([
             VNLinearLeakyReLU(1, 128, layout="plane"),
             VNLinear(128, 512, layout="plane"),
@@ -85,7 +88,7 @@ class VNPointNet(nn.Module):
         self.mlp = nn.ModuleList([
             VNLinearAndLeakyReLU(latent_dim * 2, 2048, use_batchnorm="none"),
             VNLinearAndLeakyReLU(2048, 1024, use_batchnorm="none"),
-            VNLinear(1024, num_coarse),
+            VNLinear(1024, self.num_coarse),
         ])
 
     def forward(self, xyz):
@@ -106,6 +109,9 @@ class VNPointNet(nn.Module):
         h = self.mlp[0](feature_global)
         h = self.mlp[1](h)
         coarse = self.mlp[2](h).reshape(b, self.num_coarse, 3)
+        if self.fps_tail:
+            cat = torch.cat([coarse, fps(xyz, 224, self.use_kernels).to(coarse.dtype)], dim=1)
+            return (coarse, cat), feature_global
         return coarse, feature_global
 
 
@@ -141,6 +147,12 @@ class _SplitFoldLayer(VNLinearLeakyReLU):
         return bn_leaky(p, d, a, b, self.negative_slope, self.use_kernels)
 
 
+def fold_grid(num_coarse: int):
+    """(coarse points folded, grid side): 224 and 8 at ``num_coarse == 448``
+    (14336 dense points), else ``num_coarse`` and 4."""
+    return (224, 8) if num_coarse == 448 else (num_coarse, 4)
+
+
 def dense_layout(coarse: torch.Tensor, grid_size: int) -> torch.Tensor:
     """Tile each coarse point over its fold grid: (B, Nc, 3) -> (B, 3, Nc*S)."""
     b, nc, _ = coarse.shape
@@ -155,14 +167,11 @@ class VNFoldingNet(nn.Module):
     given, so the decoder stays consistent with the rotated encoder output.
     """
 
-    def __init__(self, num_coarse: int = 1024, latent_dim: int = 2048):
+    def __init__(self, num_coarse: int = 1024, global_channels: int = 2048):
         super().__init__()
-        if num_coarse == 448:
-            self.nc, self.grid_size = 224, 8
-        else:
-            self.nc, self.grid_size = num_coarse, 4
+        self.nc, self.grid_size = fold_grid(num_coarse)
         self.final_conv = nn.ModuleList([
-            _SplitFoldLayer(latent_dim + 2, 256, layout="plane"),
+            _SplitFoldLayer(global_channels + 2, 256, layout="plane"),
             VNLinearLeakyReLU(256, 256, layout="plane"),
             VNLinear(256, 1, layout="plane"),
         ])
@@ -183,3 +192,50 @@ class VNFoldingNet(nn.Module):
         f = self.final_conv[1](f, project_out=self.final_conv[2].map_to_feat.weight)
         fine = f + point_feat  # (B, 3, 1, Nd)
         return fine[:, :, 0].transpose(1, 2)
+
+
+class _ScalarSplitFoldLayer(nn.Module):
+    """FoldingNet's first layer, ``final_conv.0``: a kernel-1 Conv1d over
+    ``concat([glob | seed | point])`` with the reference's single (out,
+    Cg + 5, 1) weight and a bias, the global part contracted once per sample
+    (JAX models/pcn.py:156-179).  All of it is drawn with fan-in Cg + 5."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 1))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+
+    def forward(self, glob, seed, point):
+        """glob (B, Cg), seed (B, 2, Nd), point (B, 3, Nd) -> (B, out, Nd)."""
+        w = self.weight[..., 0]
+        cg = glob.shape[1]
+        return ((glob @ w[:, :cg].T)[:, :, None]
+                + torch.einsum("oc,bcn->bon", w[:, cg:cg + 2], seed)
+                + torch.einsum("oc,bcn->bon", w[:, cg + 2:], point)
+                + self.bias[None, :, None])
+
+
+class FoldingNet(nn.Module):
+    """Scalar folding decoder (reference models/pcn.py:275-317; JAX
+    :512-547): the flattened global feature, a 2-D seed grid and each coarse
+    point through Conv1d + BatchNorm + ReLU twice and a Conv1d to 3, added
+    to the coarse point.  The rotation is not used."""
+
+    def __init__(self, num_coarse: int = 1024, global_size: int = 1024):
+        super().__init__()
+        self.nc, self.grid_size = fold_grid(num_coarse)
+        self.final_conv = nn.ModuleList([
+            _ScalarSplitFoldLayer(global_size + 5, 512), BatchNormCh(512), nn.ReLU(),
+            ConvCh(512, 512), BatchNormCh(512), nn.ReLU(), ConvCh(512, 3),
+        ])
+
+    def forward(self, coarse, feature_global, rot: Optional[torch.Tensor] = None):
+        b = coarse.shape[0]
+        s = self.grid_size ** 2
+        point_feat = dense_layout(coarse, self.grid_size)  # (B, 3, Nd)
+        seed = folding_grid_2d(self.grid_size).to(coarse)  # (2, S)
+        seed = seed[None, :, None, :].expand(b, 2, self.nc, s).reshape(b, 2, self.nc * s)
+        fc = self.final_conv
+        f = torch.relu(fc[1](fc[0](feature_global.reshape(b, -1), seed, point_feat)))
+        f = torch.relu(fc[4](fc[3](f)))
+        return (fc[6](f) + point_feat).transpose(1, 2)

@@ -1,8 +1,9 @@
 """Vector Neuron layers of the flagship path, as ``torch.nn`` modules.
 
 Port of the parts of ``vn_pointcloudcompletion_tpu/nn/vn.py`` that the
-``vn_pointnet`` + ``vn_foldingnet`` pipeline runs, in train and eval mode.  Feature tensors
-carry 3-vector channels in one of two layouts:
+``vn_pointnet``, ``vn_dgcnn_fps`` and ``vn_foldingnet`` models run, in train
+and eval mode, the EdgeConv mode of ``VNLinearLeakyReLU`` included.  Feature
+tensors carry 3-vector channels in one of two layouts:
 
 - ``vec`` (B, C, 3, N...), the reference's;
 - ``plane`` (B, 3, C, N), coordinate planes, for the wide layers: a channel
@@ -28,8 +29,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from vn_pointcloudcompletion_tpu_torch.ops import vn_fused, vn_layer_fused
-from vn_pointcloudcompletion_tpu_torch.ops.vn_fused import safe_sqrt
+from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas, vn_fused, vn_layer_fused
+from vn_pointcloudcompletion_tpu_torch.ops.knn import gather_planes, knn
+from vn_pointcloudcompletion_tpu_torch.ops.vn_fused import plane_dot, safe_sqrt
 
 EPS = 1e-6  # models/vn_layers.py:10 of the reference
 # flax's BatchNorm momentum, the weight of the old running value (torch's 0.1)
@@ -197,9 +199,15 @@ class VNLinearLeakyReLU(nn.Module):
         self.layout = layout
         self.use_kernels = True
 
-    def forward(self, x, project_out: Optional[torch.Tensor] = None):
+    def forward(self, x, project_out: Optional[torch.Tensor] = None,
+                edge_k: Optional[int] = None,
+                edge_coords: Optional[torch.Tensor] = None):
         """``project_out``: optional (1, C_out) weight of a trailing
-        1-channel VNLinear; the whole-layer kernel contracts it in-kernel."""
+        1-channel VNLinear; the whole-layer kernel contracts it in-kernel.
+
+        ``edge_k``: EdgeConv mode (plane layout), see :meth:`_edge`."""
+        if edge_k is not None:
+            return self._edge(x, edge_k, edge_coords)
         w, wd = self.map_to_feat.weight, self.map_to_dir.weight
         if self.layout == "plane":
             if self.use_kernels and vn_layer_fused.layer_eligible(
@@ -228,6 +236,63 @@ class VNLinearLeakyReLU(nn.Module):
         if project_out is not None:
             out = channel_linear(project_out, out, self.layout)
         return out
+
+    def _edge(self, x, k: int, coords: Optional[torch.Tensor]):
+        """EdgeConv over the kNN graph, then a mean over the K neighbours
+        (JAX nn/vn.py:344-424): x (B, 3, C, N) -> (B, 3, C_out, N).
+
+        The layer maps ``concat([x[nbr] - x[q], x[q]])``; being linear, that
+        is ``u[nbr] + v[q]`` with ``u = W_diff x`` and ``v = (W_ctr - W_diff)
+        x`` per point, the feature and direction maps stacked.  The graph is
+        euclidean over ``coords`` (B, 3, N) when given, else over the
+        flattened features.  Kernel K3 builds the graph and gathers where
+        ``edge_gather_eligible`` holds (edge axis order (K, N)); elsewhere
+        ``knn`` + a gather (order (N, K)).  Then BatchNorm and kernel A.
+        """
+        b, _, c, n = x.shape
+        w, wd = self.map_to_feat.weight, self.map_to_dir.weight
+        co = w.shape[0]
+        w_diff = torch.cat([w[:, :c], wd[:, :c]], dim=0)
+        w_ctr = torch.cat([w[:, c:], wd[:, c:]], dim=0)
+        u = torch.matmul(w_diff, x)  # (B, 3, Co + Do, N)
+        v = torch.matmul(w_ctr - w_diff, x)
+        cpd = u.shape[2]
+        xflat = coords if coords is not None else x.reshape(b, 3 * c, n)
+        if knn_pallas.edge_gather_eligible(n, xflat.shape[1], k, 3 * cpd):
+            args = (xflat, u.reshape(b, 3 * cpd, n), v.reshape(b, 3 * cpd, n), k)
+            if self.use_kernels:
+                pd = knn_pallas.edge_knn_gather(*args)
+            else:
+                pd = knn_pallas.reference_edge_knn_gather(*args)[0]
+            pd = pd.reshape(b, 3, cpd, k * n)
+            pool_shape, pool_dim = (b, 3, co, k, n), 3
+        else:
+            pts = xflat.transpose(1, 2)
+            _, idx = knn(pts, pts, k, self.use_kernels)
+            pd = gather_planes(u, idx).reshape(b, 3, cpd, n, k) + v[..., None]
+            pd = pd.reshape(b, 3, cpd, n * k)
+            pool_shape, pool_dim = (b, 3, co, n, k), 4
+        p, d = pd[:, :, :co], pd[:, :, co:]
+        if self.share_nonlinearity:
+            d = d.expand_as(p)
+        a, bb = self.batchnorm.bn(plane_norms(p) if self.training else None)
+        out = bn_leaky(p, d, a, bb, self.negative_slope, self.use_kernels)
+        return out.reshape(pool_shape).mean(pool_dim)
+
+
+class VNMaxPool(nn.Module):
+    """Pool over the points by argmax of a learned projection
+    (vn_layers.py:153-167), plane layout: (B, 3, C, N) -> (B, 3, C), the
+    first point on ties; the gradient reaches the selected vectors only."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.map_to_dir = nn.Linear(channels, channels, bias=False)
+
+    def forward(self, x):
+        d = torch.matmul(self.map_to_dir.weight, x)
+        idx = plane_dot(x, d).argmax(dim=-1, keepdim=True)  # (B, C, 1)
+        return torch.gather(x, 3, idx[:, None].expand(-1, 3, -1, -1))[..., 0]
 
 
 class VNLinearAndLeakyReLU(nn.Module):

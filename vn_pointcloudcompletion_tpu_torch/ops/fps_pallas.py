@@ -1,0 +1,66 @@
+"""Greedy furthest-point sampling: kernel F.
+
+Port of ``vn_pointcloudcompletion_tpu/ops/fps_pallas.py``.  From xyz
+(B, N, 3) it picks S indices per sample: index 0 first, then each time the
+first point of largest running minimum of the squared distance to the
+points picked so far, in the difference form ``d0*d0 + d1*d1 + d2*d2``.
+
+:func:`furthest_point_sample_kernel` launches ``csrc/fps.cu`` on a CUDA
+tensor and takes the plain version :func:`reference_furthest_point_sample`
+on a CPU tensor.  The plain version does the kernel's operations in the
+kernel's order (float64 inputs stay float64), so on the card the two pick
+the same indices.  The output is integer: FPS has no gradient.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vn_pointcloudcompletion_tpu_torch.ops.cuda_lib import CudaKernel, check_cuda_f32
+
+_MAX_N = 16384
+_KERNEL = CudaKernel("fps.cu", "furthest_point_sample",
+                     [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def eligible(b: int, n: int, s: int) -> bool:
+    """Where the JAX package takes its Pallas kernel on a TPU
+    (fps_pallas.py:33)."""
+    return b * n <= 512 * 1024 and n <= _MAX_N and s <= 4096
+
+
+@torch.no_grad()
+def reference_furthest_point_sample(xyz: torch.Tensor, s: int) -> torch.Tensor:
+    """Plain version of kernel F: xyz (B, N, 3) -> idx (B, S) int32."""
+    x = xyz.to(torch.promote_types(xyz.dtype, torch.float32))
+    x0, x1, x2 = (c.contiguous() for c in x.unbind(-1))
+    b, n = x0.shape
+    min_d = torch.full((b, n), float("inf"), dtype=x.dtype, device=x.device)
+    sel = torch.zeros((b, 1), dtype=torch.long, device=x.device)
+    picks = [sel]
+    for _ in range(1, s):
+        d0 = x0 - x0.gather(1, sel)
+        d1 = x1 - x1.gather(1, sel)
+        d2 = x2 - x2.gather(1, sel)
+        min_d = torch.minimum(min_d, d0 * d0 + d1 * d1 + d2 * d2)
+        sel = min_d.argmax(1, keepdim=True)  # the first of equal maxima
+        picks.append(sel)
+    return torch.cat(picks, 1).to(torch.int32)
+
+
+def furthest_point_sample_kernel(xyz: torch.Tensor, s: int) -> torch.Tensor:
+    """Kernel F on a CUDA tensor, its plain version on a CPU tensor."""
+    if not xyz.is_cuda:
+        return reference_furthest_point_sample(xyz, s)
+    if xyz.ndim != 3 or xyz.shape[2] != 3:
+        raise ValueError(f"furthest_point_sample: xyz must be (B, N, 3), got {tuple(xyz.shape)}")
+    b, n, _ = xyz.shape
+    if not 0 < n <= _MAX_N:
+        raise ValueError(f"furthest_point_sample: N={n} outside [1, {_MAX_N}]")
+    planes = xyz.transpose(1, 2).contiguous()
+    check_cuda_f32("furthest_point_sample", planes)
+    idx = torch.empty((b, s), device=xyz.device, dtype=torch.int32)
+    _KERNEL(planes, planes.data_ptr(), idx.data_ptr(), b, n, s)
+    return idx

@@ -1,13 +1,19 @@
 """JAX variables -> the port's ``state_dict`` (reference key layout).
 
-:func:`state_dict_from_jax_variables` is the exact inverse of
-``vn_pointcloudcompletion_tpu/training/torch_interop.py
-::pcnnet_variables_from_torch`` for the flagship ``vn_pointnet`` +
-``vn_foldingnet`` pipeline.  It reads the ``{params, batch_stats}`` tree of a
-JAX ``PCNNet`` (any array-likes: numpy, or JAX arrays converted by numpy) and
-needs no JAX itself.  The first fold layer's split kernels are joined back
-into the reference's single (256, latent + 2) weight, columns
-[global | seed | point].
+:func:`state_dict_from_jax_variables` reads the ``{params, batch_stats}``
+tree of a JAX ``PCNNet`` (any array-likes: numpy, or JAX arrays converted by
+numpy) and needs no JAX itself.  It tells the pipeline from the tree:
+
+- encoders ``vn_pointnet`` (the exact inverse of the JAX package's
+  ``torch_interop.pcnnet_variables_from_torch``), ``vn_dgcnn_fps`` and
+  ``dgcnn_fps`` (the inverses of ``vn_dgcnn_fps_from_state_dict`` and
+  ``dgcnn_fps_from_state_dict``, the reference's ``VN_DGCNN_fps`` and
+  ``DGCNN_fps`` keys);
+- decoders ``vn_foldingnet`` and ``foldingnet``.  The first fold layer's
+  split kernels are joined back into the reference's single weight, columns
+  [global | seed | point].  The JAX package maps no reference ``FoldingNet``
+  checkpoint; its keys here are those of the reference's ``final_conv``
+  Sequential (Conv1d, BatchNorm1d, ReLU, Conv1d, BatchNorm1d, ReLU, Conv1d).
 """
 
 from __future__ import annotations
@@ -29,11 +35,20 @@ def _vnllr(sd: dict, key: str, p: Mapping, s: Mapping) -> None:
     sd[f"{key}.batchnorm.bn.running_var"] = bn_s["var"]
 
 
-def state_dict_from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """``{params, batch_stats}`` of a JAX flagship PCNNet -> port state_dict."""
-    params, stats = variables["params"], variables["batch_stats"]
-    t, ts = params["encoder"]["trunk"], stats["encoder"]["trunk"]
-    sd: dict = {}
+def _conv(sd: dict, key: str, p: Mapping, kernel_dims: int = 1) -> None:
+    k = np.asarray(p["kernel"])
+    sd[f"{key}.weight"] = k.reshape(k.shape + (1,) * kernel_dims)
+    if "bias" in p:
+        sd[f"{key}.bias"] = p["bias"]
+
+
+def _bn(sd: dict, key: str, p: Mapping, s: Mapping) -> None:
+    p, s = p["BatchNorm_0"], s["BatchNorm_0"]
+    sd[f"{key}.weight"], sd[f"{key}.bias"] = p["scale"], p["bias"]
+    sd[f"{key}.running_mean"], sd[f"{key}.running_var"] = s["mean"], s["var"]
+
+
+def _vn_pointnet(sd: dict, t: Mapping, ts: Mapping) -> None:
     e = "encoder"
     _vnllr(sd, f"{e}.first_conv.0", t["first_conv_0"], ts["first_conv_0"])
     sd[f"{e}.first_conv.1.map_to_feat.weight"] = t["first_conv_1"]["kernel"]
@@ -47,18 +62,69 @@ def state_dict_from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]
         sd[f"{e}.mlp.{i}.leaky_relu.map_to_dir.weight"] = m["leaky_relu"]["dir_kernel"]
     sd[f"{e}.mlp.2.map_to_feat.weight"] = t["mlp_2"]["kernel"]
 
+
+def _vn_dgcnn_fps(sd: dict, p: Mapping, s: Mapping) -> None:
+    for jax_key, key in (("conv1", "conv1.0"), ("conv4", "conv4"), ("conv5", "conv5"),
+                         ("conv6", "conv6"), ("conv7_0", "conv7.0")):
+        _vnllr(sd, f"encoder.{key}", p[jax_key], s[jax_key])
+    sd["encoder.conv7.1.map_to_feat.weight"] = p["conv7_1"]["kernel"]
+    sd["encoder.pool5.map_to_dir.weight"] = p["pool5"]["dir_kernel"]
+
+
+def _dgcnn_fps(sd: dict, p: Mapping, s: Mapping) -> None:
+    e = "encoder"
+    _conv(sd, f"{e}.input_trans", p["input_trans"])
+    for i in (1, 2, 3, 4):
+        _conv(sd, f"{e}.layer{i}.0", p[f"layer{i}_conv"], kernel_dims=2)
+        gn = p[f"layer{i}_gn"]
+        sd[f"{e}.layer{i}.1.weight"], sd[f"{e}.layer{i}.1.bias"] = gn["scale"], gn["bias"]
+    _conv(sd, f"{e}.increase_dim.0", p["increase_dim_0"])
+    _bn(sd, f"{e}.increase_dim.1", p["increase_bn"], s["increase_bn"])
+    _conv(sd, f"{e}.increase_dim.3", p["increase_dim_1"])
+    for jax_key, key in (("coarse_pred_0", "coarse_pred.0"), ("coarse_pred_1", "coarse_pred.2")):
+        sd[f"{e}.{key}.weight"] = p[jax_key]["kernel"]
+        sd[f"{e}.{key}.bias"] = p[jax_key]["bias"]
+
+
+def _vn_foldingnet(sd: dict, d: Mapping, ds: Mapping) -> None:
+    f0 = d["final_conv_0"]
+    joined = {
+        "kernel": np.concatenate(
+            [f0["kernel_global"], f0["kernel_seed"], f0["kernel_point"]], axis=1),
+        "dir_kernel": np.concatenate(
+            [f0["dir_kernel_global"], f0["dir_kernel_seed"], f0["dir_kernel_point"]], axis=1),
+        "batchnorm": f0["batchnorm"],
+    }
+    _vnllr(sd, "decoder.final_conv.0", joined, ds["final_conv_0"])
+    _vnllr(sd, "decoder.final_conv.1", d["final_conv_1"], ds["final_conv_1"])
+    sd["decoder.final_conv.2.map_to_feat.weight"] = d["final_conv_2"]["kernel"]
+
+
+def _foldingnet(sd: dict, d: Mapping, ds: Mapping) -> None:
+    f0 = d["final_conv_0"]
+    w = np.concatenate([f0["kernel_global"], f0["kernel_seed"], f0["kernel_point"]], axis=1)
+    _conv(sd, "decoder.final_conv.0", {"kernel": w, "bias": f0["bias"]})
+    _bn(sd, "decoder.final_conv.1", d["final_bn_0"], ds["final_bn_0"])
+    _conv(sd, "decoder.final_conv.3", d["final_conv_1"])
+    _bn(sd, "decoder.final_conv.4", d["final_bn_1"], ds["final_bn_1"])
+    _conv(sd, "decoder.final_conv.6", d["final_conv_2"])
+
+
+def state_dict_from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``{params, batch_stats}`` of a JAX PCNNet -> port state_dict."""
+    params, stats = variables["params"], variables["batch_stats"]
+    enc, enc_s = params["encoder"], stats.get("encoder", {})
+    sd: dict = {}
+    if "trunk" in enc:
+        _vn_pointnet(sd, enc["trunk"], enc_s["trunk"])
+    elif "conv1" in enc:
+        _vn_dgcnn_fps(sd, enc, enc_s)
+    else:
+        _dgcnn_fps(sd, enc, enc_s)
     if "decoder" in params:
         d, ds = params["decoder"], stats["decoder"]
-        f0 = d["final_conv_0"]
-        joined = {
-            "kernel": np.concatenate(
-                [f0["kernel_global"], f0["kernel_seed"], f0["kernel_point"]], axis=1),
-            "dir_kernel": np.concatenate(
-                [f0["dir_kernel_global"], f0["dir_kernel_seed"],
-                 f0["dir_kernel_point"]], axis=1),
-            "batchnorm": f0["batchnorm"],
-        }
-        _vnllr(sd, "decoder.final_conv.0", joined, ds["final_conv_0"])
-        _vnllr(sd, "decoder.final_conv.1", d["final_conv_1"], ds["final_conv_1"])
-        sd["decoder.final_conv.2.map_to_feat.weight"] = d["final_conv_2"]["kernel"]
+        if "final_bn_0" in d:
+            _foldingnet(sd, d, ds)
+        else:
+            _vn_foldingnet(sd, d, ds)
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
