@@ -43,16 +43,30 @@ on one NVIDIA GPU:
    448 (224 predicted + 224 FPS points, 14336 dense; K2 4 and F 3 per
    forward); 8b: one train step through the kernels against the plain
    path, equal.
+9. Phases 4 and 5 for ``vn_pointr`` + ``attention_vn_foldingnet`` at
+   ``num_coarse`` 448, the root ``config.json``'s pipeline in the float32
+   policy (K2 2, K3 3, F 3, A 3, B 1 and B with group=S 2, C 2 per
+   forward), the forward through the kernels against the plain path on one
+   set of discrete decisions; 9b: the gradients of the grouper alone and
+   of the decoder alone (the parts that run kernels) through the kernels,
+   through the plain path and in float64 on one set of decisions, each
+   held to a bound; one whole train step, each run deciding alone, printed
+   as information beside the plain path from inputs one ulp away; both
+   step times, peak memory, a profile.
+   Phase 3 checks B, C, S and their backwards in group=S mode at the pair
+   folds' shape, and K2 at k = 8 on the grouper's own 128 centres.
 
 Every phase prints its wall time.  Any failure exits non-zero.  The line
 before the last is a JSON object with one record per kernel (its launches
 are those of the training run of its path: phase 5 for the flagship's nine,
-phase 7 for K2, K3 and F; K1 is on no model's path); the last line is
+phase 7 for K2, K3 and F, phase 9 for the group=S rows; K1, and C and C'
+in group=S mode, are on no model's path); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -85,6 +99,17 @@ STEP_TOL = 3e-4
 DGCNN_STEP_TOL = 4e-3
 DGCNN_F64_RATIO, DGCNN_F64_FLOOR = 8.0, 1e-4
 DEC_F64_TOL = 4e-3
+# Phases 9 and 9b, vn_pointr (NVIDIA H100 80GB HBM3, 700 W; PERF.md, PR 4):
+# the eval forward through the kernels against the plain path on one set of
+# discrete decisions, each output's max|d| / max (measured 3.5e-7: kernel C
+# rounds otherwise than cuBLAS); the grouper alone and the decoder alone,
+# each for a fixed cotangent on one set of decisions, each gradient against
+# the plain path within POINTR_STEP_TOL (measured 2.71e-4 and 1.11e-3) and
+# its distance from float64 within POINTR_F64_RATIO x the plain path's
+# (measured 1.01x and 1.03x).
+POINTR_FWD_TOL = 2e-6
+POINTR_STEP_TOL = 4e-3
+POINTR_F64_RATIO = 2.0
 FORWARD_KERNELS = ("vn_bn_leaky_fwd", "vn_layer_fused_fwd",
                    "vn_layer_fused_project_fwd", "chamfer_nn_one_sided")
 # The pipelines each driven at full width (batch 8, 2048 input points) by
@@ -97,14 +122,23 @@ PATHS = {
     "flagship": {"enc_type": "vn_pointnet", "dec_type": "vn_foldingnet", "num_coarse": 1024},
     "vn_dgcnn": {"enc_type": "vn_dgcnn_fps", "dec_type": "vn_foldingnet", "num_coarse": 1024},
     "dgcnn_448": {"enc_type": "dgcnn_fps", "dec_type": "foldingnet", "num_coarse": 448},
+    "vn_pointr_448": {"enc_type": "vn_pointr", "dec_type": "attention_vn_foldingnet",
+                      "num_coarse": 448},
 }
+# vn_pointr: grouper conv1 K2 + B, two F, conv4-6 K3 + A each (conv6's C3 of
+# 768 passes K3's gate), the proxy graph K2 (k 8), the FPS tail F; the
+# decoder's pair folds B with group=S, vn_folding{1,2}.1 + .2 C.
 FORWARD_LAUNCHES = {
     "vn_dgcnn": {"knn_min": 2, "edge_knn_gather": 2, "furthest_point_sample": 2,
                  "vn_bn_leaky_fwd": 3, "vn_layer_fused_fwd": 2,
                  "vn_layer_fused_project_fwd": 1},
     "dgcnn_448": {"knn_min": 4, "furthest_point_sample": 3},
+    "vn_pointr_448": {"knn_min": 2, "edge_knn_gather": 3, "furthest_point_sample": 3,
+                      "vn_bn_leaky_fwd": 3, "vn_layer_fused_fwd": 1,
+                      "vn_layer_fused_fwd[group]": 2, "vn_layer_fused_project_fwd": 2},
 }
-DGCNN_EPOCHS = {"vn_dgcnn": 4, "dgcnn_448": 2}  # overfit epochs before --resume
+# overfit epochs before --resume
+DGCNN_EPOCHS = {"vn_dgcnn": 4, "dgcnn_448": 2, "vn_pointr_448": 8}
 SYMBOL = {"A": "vn_bn_leaky_fwd", "A'": "vn_bn_leaky_bwd",
           "S": "vn_layer_stats_fwd", "S'": "vn_layer_stats_bwd",
           "B": "vn_layer_fused_fwd", "B'": "vn_layer_fused_bwd",
@@ -339,6 +373,7 @@ def check_kernels(dev):
            2 * nbytes(x, w, wd, a, b, w_out) + nbytes(g_),
            6 * prod + 90 * vecs, reps=5, plain_reps=3, repro=True)
     del x, g_
+    check_group_kernels(dev, record, randn, uniform, close, rel_close)
 
     # D: test-time chamfer, dense prediction (16384) against complete (16384)
     px = uniform(-0.3, 0.3, BATCH, n, 3)
@@ -360,6 +395,74 @@ def check_kernels(dev):
     del px, py
     records += check_knn_fps_kernels(dev, record, randn, uniform)
     return records
+
+
+def check_group_kernels(dev, record, randn, uniform, close, rel_close):
+    """Phase 3, group=S mode: B, S, S' and B' at the attention decoder's
+    pair folds ``vn_folding{1,2}.0`` (C_in 1 -> 256, 224 centres x 64 grid
+    points = 14336, the centre feature's contraction as one bias column per
+    centre, group 64); C and C' (in group mode on no model's path) at
+    ``vn_folding{1,2}.1`` + ``.2``'s width, 256 -> 128 -> 1, with the same
+    bias layout.  Each twice, for equal bits."""
+    from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
+
+    n, s = 14336, 64
+    src_f = "vn_pointcloudcompletion_tpu_torch/csrc/vn_layer_fused.cu"
+    src_b = "vn_pointcloudcompletion_tpu_torch/csrc/vn_layer_bwd.cu"
+    at = "vn_pointcloudcompletion_tpu/ops/vn_layer_fused.py:"
+    bound_w = 1 / 385 ** 0.5  # the fold layer's concat fan-in, 1 + 384
+    x = randn(BATCH, 3, 1, n)
+    w, wd = uniform(-bound_w, bound_w, 256, 1), uniform(-bound_w, bound_w, 256, 1)
+    pb, db = randn(BATCH, 3, 256, n // s, scale=0.5), randn(BATCH, 3, 256, n // s, scale=0.5)
+    a, b = uniform(0.5, 1.5, 256), randn(256, scale=0.3)
+    c1, c2 = randn(256, scale=1e-4), randn(256, scale=1e-5)
+    vecs = BATCH * 256 * n
+    io = nbytes(x, w, wd, pb, db, a, b)
+    # B: two 1-term products, the two bias adds and the epilogue per vector
+    record("B vn_layer_fused group=64", src_f, at + "541",
+           lambda: vn_layer_fused.vn_layer_fused(x, w, wd, pb, db, a, b, NS, group=s),
+           lambda: vn_layer_fused.reference_layer_fused(x, w, wd, pb, db, a, b, NS, s),
+           close(0.0, 0.0), "equal to the bit", io + 4 * 3 * vecs,
+           2 * 3 * vecs * 2 + 44 * vecs, repro=True)
+    record("S vn_layer_stats group=64", src_b, at + "278",
+           lambda: vn_layer_fused.stats_fwd(x, w, pb, s),
+           lambda: vn_layer_fused.reference_stats(x, w, pb, s),
+           rel_close(1e-5), "1e-5 x max", nbytes(x, w, pb) + 2 * 4 * 256,
+           2 * 3 * vecs + 12 * vecs, reps=10, repro=True)
+    record("S' vn_layer_stats backward group=64", src_b, at + "325",
+           lambda: vn_layer_fused.stats_bwd(x, w, pb, c1, c2, s),
+           lambda: vn_layer_fused.reference_stats_bwd(x, w, pb, c1, c2, s),
+           rel_close(1e-4), "1e-4 x max", 2 * nbytes(x, w, pb) + nbytes(c1, c2),
+           3 * 2 * 3 * vecs + 18 * vecs, reps=10, plain_reps=3, repro=True)
+    g_ = randn(BATCH, 3, 256, n, scale=1e-4)
+    record("B' vn_layer_fused backward group=64", src_b, at + "594",
+           lambda: vn_layer_fused.layer_bwd(x, w, wd, pb, db, a, b, g_, NS, s),
+           lambda: vn_layer_fused.reference_layer_bwd(x, w, wd, pb, db, a, b, g_, NS, s),
+           rel_close(1e-4), "1e-4 x max", 2 * io + nbytes(g_),
+           6 * 2 * 3 * vecs + (80 + 6) * vecs, reps=10, plain_reps=3, repro=True)
+    del g_
+
+    x = randn(BATCH, 3, 256, n)
+    w, wd = uniform(-1 / 16, 1 / 16, 128, 256), uniform(-1 / 16, 1 / 16, 128, 256)
+    pb, db = randn(BATCH, 3, 128, n // s, scale=0.5), randn(BATCH, 3, 128, n // s, scale=0.5)
+    a, b, w_out = uniform(0.5, 1.5, 128), randn(128, scale=0.3), uniform(-1 / 11, 1 / 11, 128)
+    vecs = BATCH * 128 * n
+    prod = 2 * 3 * vecs * 256
+    io = nbytes(x, w, wd, pb, db, a, b, w_out)
+    record("C vn_layer_fused_project group=64", src_f, at + "821",
+           lambda: vn_layer_fused.vn_layer_fused_project(x, w, wd, pb, db, a, b, w_out, NS,
+                                                         group=s),
+           lambda: vn_layer_fused.reference_layer_fused_project(
+               x, w, wd, pb, db, a, b, w_out, NS, s),
+           close(1e-4, 1e-4), "atol 1e-4 + rtol 1e-4", io + 4 * 3 * BATCH * n,
+           2 * prod + (32 + 12) * vecs, reps=10, repro=True)
+    g_ = randn(BATCH, 3, 1, n, scale=1e-4)
+    record("C' vn_layer_fused_project backward group=64", src_b, at + "878",
+           lambda: vn_layer_fused.layer_project_bwd(x, w, wd, pb, db, a, b, w_out, g_, NS, s),
+           lambda: vn_layer_fused.reference_layer_project_bwd(
+               x, w, wd, pb, db, a, b, w_out, g_, NS, s),
+           rel_close(1e-4), "1e-4 x max", 2 * io + nbytes(g_),
+           6 * prod + 96 * vecs, reps=5, plain_reps=3, repro=True)
 
 
 def same_indices(rel):
@@ -432,6 +535,20 @@ def check_knn_fps_kernels(dev, record, randn, uniform):
            same_indices(1e-6), "indices equal, values 1e-6 x max",
            2 * nbytes(q) + 8 * BATCH * 2048 * k, pair_ops(2048, 2048, 3),
            reps=10, plain_reps=3, repro=True)
+    # K2 at k 8 over vn_pointr's 128 centres of this input, its proxy graph:
+    # FPS 2048 -> 512 -> 128 as the grouper takes them (repeated points of
+    # the scans can make repeated centres, which tie)
+    c = q
+    for m in (512, 128):
+        pick = fps_pallas.reference_furthest_point_sample(c, m).long()
+        c = torch.gather(c, 1, pick[..., None].expand(-1, -1, 3))
+    got, again = knn_pallas.knn_min_fwd(c, c, 8), knn_pallas.knn_min_fwd(c, c, 8)
+    err, ok = same_indices(1e-6)(got, knn_pallas.reference_knn_min(c, c, 8))
+    ok = ok and all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"[kernel K2] 128 vs 128, k 8, the grouper's centres: max_abs_err {err:.3e} "
+          f"(indices equal, values 1e-6 x max, equal bits again) {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("kernel K2 disagrees at k 8 on the grouper's centres")
 
     # K3: conv4 (C3 384) checked, conv5 (C3 768) timed, at N 512 over coordinates
     x = cloud(512).transpose(1, 2).contiguous()
@@ -611,13 +728,18 @@ def serve_path(dev, path: str = "flagship"):
 
     rot = random_rotations(torch.Generator().manual_seed(1), BATCH).to(dev)
     xyz = xyz @ rot
-    with torch.no_grad():
+    # vn_pointr: the plain run takes the kernels' run's discrete decisions
+    # (see the tolerances below); the other paths' runs decide by themselves
+    taped = path == "vn_pointr_448"
+    with torch.no_grad(), DecisionTape() if taped else contextlib.nullcontext() as tape:
         cuda_lib.reset_launch_counts()
         coarse_k, fine_k = model(xyz, rot)
         torch.cuda.synchronize()
         if path != "flagship":
             check_launches(path, cuda_lib.launch_counts(), 1, f"{tag} one forward")
         model.use_kernels_(False)
+        if taped:
+            tape.run(tape.rec)
         coarse_p, fine_p = model(xyz, rot)
         model.use_kernels_(True)
     torch.cuda.synchronize()
@@ -627,9 +749,15 @@ def serve_path(dev, path: str = "flagship"):
     # so are K2 and F: the DGCNN encoder's coarse output is equal too.  The
     # VN DGCNN encoder runs conv1 through kernel B, whose products round
     # otherwise than cuBLAS (within 1e-5 in phase 3), and B and C of the decoder
-    # as well: 1e-4 of the output's max for both clouds there.
-    tol_c = 0.0 if path != "vn_dgcnn" else 1e-4 * coarse_p.abs().max().item()
-    tol_f = 0.0 if path == "dgcnn_448" else 1e-4 * fine_p.abs().max().item()
+    # as well: 1e-4 of the output's max for both clouds there.  vn_pointr
+    # carries conv1's rounding through eight VNLayerNorms, which rescale
+    # every vector to O(1) (a small one's rounding with it), so a near tie
+    # of its global pool or a feature-space kNN could pick otherwise: the
+    # plain run replays the kernels' picks, and POINTR_FWD_TOL holds the rest.
+    rel = {"flagship": 1e-4, "vn_dgcnn": 1e-4, "dgcnn_448": 0.0,
+           "vn_pointr_448": POINTR_FWD_TOL}[path]
+    tol_c = (0.0 if path == "flagship" else rel) * coarse_p.abs().max().item()
+    tol_f = rel * fine_p.abs().max().item()
     print(f"{tag} forward kernels vs plain: coarse max_abs_err {err_c:.3e} (tolerance "
           f"{tol_c:.3e}), fine max_abs_err {err_f:.3e} (tolerance {tol_f:.3e})")
     if err_c > tol_c or err_f > tol_f or fine_k.shape != (BATCH, n_dense, 3):
@@ -688,6 +816,8 @@ def train_path(dev, path: str = "flagship"):
         expected = ["chamfer_nn_one_sided", *FORWARD_LAUNCHES[path]]
         if "vn_bn_leaky_fwd" in expected:  # and the backward kernels of the VN layers
             expected += [SYMBOL[k] for k in ("A'", "S", "S'", "B'", "C'")]
+        if "vn_layer_fused_fwd[group]" in expected:  # the pair folds' train-mode kernels
+            expected += [f"{SYMBOL[k]}[group]" for k in ("S", "S'", "B'")]
     missing = [k for k in expected if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the training path: {missing}")
@@ -723,6 +853,11 @@ def rel_errs(got, want):
         e = (got[name].to(w.dtype) - w).abs().max().item()
         out[name] = e / scale if scale > 0 else (float("inf") if e > 0 else 0.0)
     return out
+
+
+def worst(errs, k=3):
+    """The ``k`` largest entries of ``{name: error}``, for printing."""
+    return ", ".join(f"{n} {v:.3e}" for n, v in sorted(errs.items(), key=lambda kv: -kv[1])[:k])
 
 
 def step_agreement(model, plain, config, partial, complete):
@@ -819,9 +954,6 @@ def train_step_kernels_vs_plain(dev, smi: str):
     partial, complete = (torch.from_numpy(np.stack([ds[i][k] for i in range(BATCH)])).to(dev)
                          for k in (0, 1))
 
-    def worst(errs, k=3):
-        return ", ".join(f"{n} {v:.3e}" for n, v in sorted(errs.items(), key=lambda kv: -kv[1])[:k])
-
     # The decoder alone (no argmax: float64 is a true reference) for a fixed
     # cotangent of the dense output, from the train-mode encoder output of
     # this batch (on a copy: the model's running statistics stay as built).
@@ -869,9 +1001,10 @@ def train_step_kernels_vs_plain(dev, smi: str):
 class DecisionTape:
     """The discrete decisions of one run of a model, recorded there and
     replayed in another: the kNN picks (K2, K3 and their plain versions),
-    the FPS picks, the VN pool's argmax, the side of the VN leaky reflection
-    (kernel A or the plain chain; by the layer's shape) and the chamfer's
-    nearest neighbours.  Runs that replay one tape differ in arithmetic
+    the FPS picks, the VN pools' argmax (both layouts), the side of the VN
+    leaky reflection (kernel A or the plain chain on planes, by the layer's
+    shape; the vec layout's, by the tensor's) and the chamfer's nearest
+    neighbours.  Runs that replay one tape differ in arithmetic
     only.  The reflections inside the whole-layer kernels B and C cannot be
     read: where a run takes B or C, that layer decides by itself.  As a
     context manager it patches the port's dispatch points, and restores
@@ -905,13 +1038,15 @@ class DecisionTape:
     def __enter__(self):
         import torch
 
+        from vn_pointcloudcompletion_tpu_torch.models import pcn
         from vn_pointcloudcompletion_tpu_torch.nn import vn
         from vn_pointcloudcompletion_tpu_torch.ops import chamfer, fps_pallas, knn_pallas
         from vn_pointcloudcompletion_tpu_torch.ops.vn_fused import EPS, plane_dot, safe_sqrt
 
         tape = self
         self._saved = [(mod, name, getattr(mod, name)) for mod, name in (
-            (vn, "bn_leaky"), (vn.VNMaxPool, "forward"), (chamfer, "nn_bidirectional"),
+            (vn, "bn_leaky"), (pcn, "bn_leaky"), (vn, "_leaky_reflect"), (vn.VNMaxPool, "forward"),
+            (chamfer, "nn_bidirectional"),
             (chamfer, "nn_bidirectional_reference"), (knn_pallas, "knn_min"),
             (knn_pallas, "reference_knn_min"), (knn_pallas, "edge_knn_gather_fwd"),
             (fps_pallas, "furthest_point_sample_kernel"),
@@ -932,7 +1067,21 @@ class DecisionTape:
             coef = torch.where(keep, 0.0, (1 - ns) * dot / (plane_dot(d32, d32)[:, None] + EPS))
             return (q - coef * d32).to(p.dtype)
 
+        def leaky_reflect(p, d, negative_slope, dim):  # vn._leaky_reflect, its side taped
+            dotprod = (p * d).sum(dim, keepdim=True)
+            keep, _ = tape.take(("vmask",) + tuple(p.shape[1:]), lambda: dotprod.detach() >= 0)
+            mask = keep.to(p.dtype)
+            d_norm_sq = (d * d).sum(dim, keepdim=True)
+            reflected = p - (dotprod / (d_norm_sq + EPS)) * d
+            return negative_slope * p + (1 - negative_slope) * (
+                mask * p + (1 - mask) * reflected)
+
         def pool(module, x):
+            if module.layout == "vec":  # VNMaxPool.forward's vec branch
+                d = vn.channel_linear(module.map_to_dir.weight, x, "vec")
+                dot = x[:, :, 0] * d[:, :, 0] + x[:, :, 1] * d[:, :, 1] + x[:, :, 2] * d[:, :, 2]
+                idx, _ = tape.take(("pool",), lambda: dot.argmax(dim=-1, keepdim=True)[:, :, None])
+                return torch.gather(x, -1, idx.expand(x.shape[:-1] + (1,)))[..., 0]
             d = torch.matmul(module.map_to_dir.weight, x)
             idx, _ = tape.take(("pool",), lambda: plane_dot(x, d).argmax(dim=-1, keepdim=True))
             return torch.gather(x, 3, idx[:, None].expand(-1, 3, -1, -1))[..., 0]
@@ -947,10 +1096,13 @@ class DecisionTape:
                 return ((q[:, :, None] - r[rows, idx.long()]) ** 2).sum(-1), idx
             return run
 
-        def edge_fwd(xflat, u, v, k):  # kernel K3's picks, recorded
+        def edge_fwd(xflat, u, v, k):  # kernel K3's picks, recorded or replayed
             out, idx = orig["edge_knn_gather_fwd"](xflat, u, v, k)
-            if xflat.is_cuda:  # (on the CPU the plain version records them)
-                tape.take(("knn",), lambda: idx)
+            if xflat.is_cuda:  # (on the CPU the plain version takes them)
+                picked, replayed = tape.take(("knn",), lambda: idx)
+                if replayed:
+                    idx = picked
+                    out = knn_pallas.gather_columns(u, picked) + v[:, :, None, :]
             return out, idx
 
         def fps(fn):
@@ -968,7 +1120,8 @@ class DecisionTape:
                 return ((x - g1) ** 2).sum(-1), i1, ((y - g2) ** 2).sum(-1), i2
             return run
 
-        vn.bn_leaky, vn.VNMaxPool.forward = bn_leaky, pool
+        vn.bn_leaky = pcn.bn_leaky = bn_leaky  # the decoders' fold layers call it from pcn
+        vn._leaky_reflect, vn.VNMaxPool.forward = leaky_reflect, pool
         chamfer.nn_bidirectional = nearest(orig["nn_bidirectional"])
         chamfer.nn_bidirectional_reference = nearest(orig["nn_bidirectional_reference"])
         knn_pallas.knn_min = knn(orig["knn_min"])
@@ -1029,22 +1182,20 @@ def on_one_tape(model, plain, run):
     return kernels, plain32, plain64, kernel_rec, own
 
 
-def check_on_one_tape(tag, grads_k, grads_p, grads_64) -> bool:
-    """Print and check each gradient: kernels vs plain within
-    DGCNN_STEP_TOL, and the kernels' distance from float64 within
-    DGCNN_F64_RATIO x the plain path's (or the floor)."""
+def check_on_one_tape(tag, grads_k, grads_p, grads_64, tol=DGCNN_STEP_TOL,
+                      f64_ratio=DGCNN_F64_RATIO) -> bool:
+    """Print and check each gradient: kernels vs plain within ``tol``, and
+    the kernels' distance from float64 within ``f64_ratio`` x the plain
+    path's (or the floor)."""
     gap, k64, p64 = (rel_errs(grads_k, grads_p), rel_errs(grads_k, grads_64),
                      rel_errs(grads_p, grads_64))
     ratio = {k: k64[k] / max(p64[k], DGCNN_F64_FLOOR) for k in k64}
 
-    def worst(errs, k=3):
-        return ", ".join(f"{n} {v:.3e}" for n, v in sorted(errs.items(), key=lambda kv: -kv[1])[:k])
-
     print(f"{tag} gradients max|dg| / max|g|, largest: kernels vs plain {worst(gap)} (tolerance "
-          f"{DGCNN_STEP_TOL}); kernels vs float64 {worst(k64)}; plain vs float64 {worst(p64)}")
+          f"{tol}); kernels vs float64 {worst(k64)}; plain vs float64 {worst(p64)}")
     print(f"{tag} each tensor's distance from float64, kernels over plain (plain floored at "
-          f"{DGCNN_F64_FLOOR}), largest: {worst(ratio)} (tolerance {DGCNN_F64_RATIO})")
-    return max(gap.values()) <= DGCNN_STEP_TOL and max(ratio.values()) <= DGCNN_F64_RATIO
+          f"{DGCNN_F64_FLOOR}), largest: {worst(ratio)} (tolerance {f64_ratio})")
+    return max(gap.values()) <= tol and max(ratio.values()) <= f64_ratio
 
 
 def dgcnn_train_step(dev, smi: str):
@@ -1119,6 +1270,106 @@ def dgcnn_train_step(dev, smi: str):
     profile_steps(model, config, partial, complete, top=10,
                   also=("knn_min", "edge_knn_gather", "fps_kernel", "indexing_backward",
                         "index_elementwise", "sort"))
+
+
+def pointr_train_step(dev, smi: str):
+    """Phase 9b, full width, batch 8, ``vn_pointr`` +
+    ``attention_vn_foldingnet``.  The two parts of the model that run
+    kernels, each for a fixed cotangent through the kernels, the plain path
+    and the plain path in float64, on one set of discrete decisions
+    (``on_one_tape``: kNN, FPS, the pools, every reflection outside kernels
+    B and C), each gradient within POINTR_STEP_TOL of its max against the
+    plain path and no further from float64 than a ratio of the plain path's
+    distance: the grouper (conv1 through S, B and their backwards at group
+    0; conv4-6 through K3, A and A'; F) and the decoder (S, B and their
+    backwards at group 64, C, C').  Between them the VN transformer runs
+    the same PyTorch on both paths.  Then one whole train step, each run
+    deciding alone, printed as information (below); then the median step
+    time of both paths, their peak memory, and a profile's top 10."""
+    import copy
+
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.ops.rotations import rotate_points
+    from vn_pointcloudcompletion_tpu_torch.training import steps
+    from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
+
+    config = _smoke_config("vn_pointr_448", lr=1e-4, rotation="so3")
+    model = build_model(config).to(dev)
+    plain = copy.deepcopy(model).use_kernels_(False)
+    partial, complete, rot = main_path_batch(dev)
+    tag = "[vn_pointr step]"
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    # the grouper alone, for a fixed cotangent of its (B, 128, 3, 128) features
+    gcot = torch.randn(BATCH, 128, 3, 128, generator=gen, device=dev) * 1e-3
+
+    def grouper_grads(m, dtype):
+        grouper = copy.deepcopy(m.encoder.grouper).to(dtype).train()
+        if dtype == torch.float64:
+            for mod in grouper.modules():
+                if hasattr(mod, "use_kernels"):
+                    mod.use_kernels = False
+        _, f = grouper(rotate_points(partial, rot).to(dtype))
+        (f * gcot.to(dtype)).sum().backward()
+        return None, None, {f"encoder.grouper.{k}": p.grad.double()
+                            for k, p in grouper.named_parameters() if p.grad is not None}
+
+    (_, _, ek), (_, _, ep), (_, _, e64), _, _ = on_one_tape(model, plain, grouper_grads)
+    ok = check_on_one_tape(f"{tag} grouper alone, fixed cotangent:", ek, ep, e64,
+                           POINTR_STEP_TOL, POINTR_F64_RATIO)
+
+    # the decoder alone for a fixed cotangent of the dense output, from the
+    # train-mode encoder output of this batch (on a copy)
+    with torch.no_grad():
+        coarse, fg = copy.deepcopy(model.encoder).train()(rotate_points(partial, rot))
+    cot = torch.randn(BATCH, 14336, 3, generator=gen, device=dev) * 1e-4
+    (_, _, dk), (_, _, dp), (_, _, d64), _, _ = on_one_tape(
+        model, plain, lambda m, dtype: (None, None, decoder_grads(
+            m.decoder, coarse[0], fg, rot, cot, dtype)))
+    ok = check_on_one_tape(f"{tag} decoder alone, fixed cotangent:", dk, dp, d64,
+                           POINTR_STEP_TOL, POINTR_F64_RATIO) and ok
+    if not ok:
+        raise AssertionError("vn_pointr train step: kernels disagree with the plain path")
+
+    # The whole step, information only.  Its float32 result moves by O(1)
+    # for one ulp of input, in the port and in the JAX package alike
+    # (tests/test_torch_port_pointr.py::test_float32_step_as_sensitive_as_jax):
+    # the VN transformer's VNLayerNorms rescale every vector to O(1), so a
+    # short vector's rounding grows with it.  Decisions replayed from
+    # another run would pair the wrong points, so each run decides alone,
+    # and the plain path from inputs one ulp away shows the spread.
+    nudged = torch.nextafter(partial, torch.full_like(partial, float("inf")))
+    (lp, bp, gp), (lk, bk, gk), (l64, _, g64), (lc, bc, gc) = (
+        step_grads(m, config, x, complete, dtype) for m, x, dtype in (
+            (plain, partial, torch.float32), (model, partial, torch.float32),
+            (plain, partial, torch.float64), (plain, nudged, torch.float32)))
+
+    print(f"{tag} whole train step at batch {BATCH}, each run deciding alone (information): "
+          f"losses (coarse, dense) plain {lp.tolist()}, kernels {lk.tolist()}, one ulp away "
+          f"{lc.tolist()}, float64 {l64.tolist()}; running statistics max|d| / max against "
+          f"plain: kernels {max(rel_errs(bk, bp).values()):.3e}, one ulp away "
+          f"{max(rel_errs(bc, bp).values()):.3e}; gradients max|dg| / max|g| against plain, "
+          f"largest: kernels {worst(rel_errs(gk, gp))}; one ulp away {worst(rel_errs(gc, gp))}; "
+          f"against float64: kernels {worst(rel_errs(gk, g64))}; plain {worst(rel_errs(gp, g64))}")
+    if not all(torch.isfinite(t).all() for t in (lk, *bk.values(), *gk.values())):
+        raise AssertionError("vn_pointr train step: non-finite losses, statistics or gradients")
+
+    def step_ms(m):
+        state = create_train_state(m, config, 1)
+        gen = torch.Generator().manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: steps.train_step(state, partial, complete, gen), 5)
+        return ms, torch.cuda.max_memory_allocated() / 2**30
+
+    k_ms, k_gib = step_ms(model)
+    p_ms, p_gib = step_ms(plain)
+    k2_ms, _ = step_ms(model)
+    print(f"{tag} {smi}: median of 5 steps after 2 warm-up (CUDA events, one host read per "
+          f"step): kernels {k_ms:.3f} ms then {k2_ms:.3f} ms, plain {p_ms:.3f} ms; peak "
+          f"memory kernels {k_gib:.2f} GiB, plain {p_gib:.2f} GiB")
+    profile_steps(model, config, partial, complete, top=10)
 
 
 def scalar_train_step(dev):
@@ -1235,11 +1486,18 @@ def main() -> int:
     phase("8 DGCNN num_coarse 448 serve", serve_path, dev, "dgcnn_448")
     phase("8 DGCNN num_coarse 448 train", train_path, dev, "dgcnn_448")
     phase("8b DGCNN num_coarse 448 train step", scalar_train_step, dev)
+    phase("9 vn_pointr num_coarse 448 serve", serve_path, dev, "vn_pointr_448")
+    pointr_counts = phase("9 vn_pointr num_coarse 448 train", train_path, dev, "vn_pointr_448")
+    phase("9b vn_pointr num_coarse 448 train step", pointr_train_step, dev, smi)
     # launches: each kernel's count in the training run of its path (K1 is
-    # on no model's path: the JAX package reaches it only for D > 512)
+    # on no model's path: the JAX package reaches it only for D > 512; nor
+    # are C and C' in group=S mode: no model passes a group to them)
     for rec in records:
         sym = SYMBOL[rec["name"].split()[0]]
-        rec["launches"] = counts[sym] if sym in FLAGSHIP_KERNELS else dgcnn_counts[sym]
+        if "group=" in rec["name"]:
+            rec["launches"] = pointr_counts[f"{sym}[group]"]
+        else:
+            rec["launches"] = counts[sym] if sym in FLAGSHIP_KERNELS else dgcnn_counts[sym]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

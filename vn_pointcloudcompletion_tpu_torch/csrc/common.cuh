@@ -95,51 +95,58 @@ namespace {
 
 constexpr int kReduceThreads = 256;
 
+// Both kernels walk the groups in strides of gridDim.y (at most 65535).
 __global__ void __launch_bounds__(kReduceThreads)
 vnk_reduce_rows_kernel(const float* __restrict__ in, float* __restrict__ out,
-                       int rows, int64_t cols) {
+                       int groups, int rows, int64_t cols) {
   __shared__ float red[kReduceThreads];
-  const int64_t g = blockIdx.y;
   const int64_t c = blockIdx.x;
-  const float* base = in + g * rows * cols + c;
-  float s = 0.f;
-  for (int r = threadIdx.x; r < rows; r += kReduceThreads)
-    s += base[static_cast<int64_t>(r) * cols];
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int h = kReduceThreads / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
+  for (int64_t g = blockIdx.y; g < groups; g += gridDim.y) {
+    const float* base = in + g * rows * cols + c;
+    float s = 0.f;
+    for (int r = threadIdx.x; r < rows; r += kReduceThreads)
+      s += base[static_cast<int64_t>(r) * cols];
+    red[threadIdx.x] = s;
+    __syncthreads();
+    for (int h = kReduceThreads / 2; h > 0; h >>= 1) {
+      if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) out[g * cols + c] = red[0];
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[g * cols + c] = red[0];
 }
 
-// Few rows and many columns (the split-K partials of a weight gradient): one
-// thread per column sums its rows in order.
+// Few rows (the split-K partials of a weight gradient; the bias partials of
+// a group=S layer, one to a column at S = 64): one thread per column sums
+// its rows in order.
 __global__ void __launch_bounds__(kReduceThreads)
 vnk_reduce_few_rows_kernel(const float* __restrict__ in,
-                           float* __restrict__ out, int rows, int64_t cols) {
+                           float* __restrict__ out, int groups, int rows,
+                           int64_t cols) {
   const int64_t c = static_cast<int64_t>(blockIdx.x) * kReduceThreads + threadIdx.x;
   if (c >= cols) return;
-  const int64_t g = blockIdx.y;
-  const float* base = in + g * rows * cols + c;
-  float s = 0.f;
-  for (int r = 0; r < rows; ++r) s += base[static_cast<int64_t>(r) * cols];
-  out[g * cols + c] = s;
+  for (int64_t g = blockIdx.y; g < groups; g += gridDim.y) {
+    const float* base = in + g * rows * cols + c;
+    float s = 0.f;
+    for (int r = 0; r < rows; ++r) s += base[static_cast<int64_t>(r) * cols];
+    out[g * cols + c] = s;
+  }
 }
 
 // in: (groups, rows, cols) -> out: (groups, cols); cols < 2^31.
 inline void vnk_reduce_rows(const float* in, float* out, int groups, int rows,
                             int64_t cols, cudaStream_t stream) {
   if (groups == 0 || cols == 0) return;
-  if (rows <= 64 && cols >= 4096) {
+  const unsigned gy = static_cast<unsigned>(groups < 65535 ? groups : 65535);
+  if (rows <= 8 || (rows <= 64 && cols >= 4096)) {
     const unsigned blocks = static_cast<unsigned>((cols + kReduceThreads - 1) / kReduceThreads);
-    vnk_reduce_few_rows_kernel<<<dim3(blocks, groups), kReduceThreads, 0,
-                                 stream>>>(in, out, rows, cols);
+    vnk_reduce_few_rows_kernel<<<dim3(blocks, gy), kReduceThreads, 0,
+                                 stream>>>(in, out, groups, rows, cols);
     return;
   }
-  vnk_reduce_rows_kernel<<<dim3(static_cast<unsigned>(cols), groups),
-                           kReduceThreads, 0, stream>>>(in, out, rows, cols);
+  vnk_reduce_rows_kernel<<<dim3(static_cast<unsigned>(cols), gy),
+                           kReduceThreads, 0, stream>>>(in, out, groups, rows, cols);
 }
 
 }  // namespace

@@ -1,14 +1,17 @@
-// Kernels S, S', B' and C': the training half of the whole-layer VN kernels
-// (group = 0).  x is (B, 3, Cin, N) planes, W and Wd (Cout, Cin), the
-// optional per-sample biases (B, 3, Cout, 1); p = W x (+ pbias), d = Wd x
-// (+ dbias) are recomputed from x in every kernel and never saved.
+// Kernels S, S', B' and C': the training half of the whole-layer VN kernels.
+// x is (B, 3, Cin, N) planes, W and Wd (Cout, Cin), the optional biases per
+// sample (group = 0: (B, 3, Cout)) or per run of `group` points (group = S:
+// (B, 3, Cout, N / S), the attention decoder's per-centre feature, column
+// n / S at point n); p = W x (+ pbias), d = Wd x (+ dbias) are recomputed
+// from x in every kernel and never saved.
 //
 // S  replaces vn_pointcloudcompletion_tpu/ops/vn_layer_fused.py
 //    ::vn_layer_stats (the pallas_call at :278, body _stats_fwd_kernel :147):
 //    s1 = sum (|p| + EPS), s2 = sum (|p| + EPS)^2 per channel.
 // S' replaces vn_layer_fused.py::_stats_bwd (pallas_call :325, body :172):
 //    dp = (c1 + 2 c2 (|p| + EPS)) p / |p| from the cotangents (c1, c2) of
-//    (s1, s2), then dx = W^T dp, dW = sum dp x^T, dpbias = sum_n dp.
+//    (s1, s2), then dx = W^T dp, dW = sum dp x^T, dpbias = sum_n dp (over
+//    each bias column's points: all N, or the S points of its group).
 // B' replaces vn_layer_fused.py::_layer_bwd (pallas_call :594, body :377):
 //    the epilogue backward (common.cuh) gives dp, dd, dA, dB from g, then
 //    dx = W^T dp + Wd^T dd, dW = sum dp x^T, dWd = sum dd x^T, and the bias
@@ -23,16 +26,22 @@
 // is three passes, all hand-written here, with no float atomics:
 //   1. pd_pass: the tile products of vn_tile.cuh recompute p (and d); the
 //      epilogue backward runs in registers; dp (and dd) go to a scratch
-//      buffer of B*3*Cout*N floats each, and the per-channel and per-sample
-//      sums go out as one partial per (sample, 64-point tile), summed over
-//      the 16 point groups of a tile with a fixed butterfly.
+//      buffer of B*3*Cout*N floats each, and the per-channel sums go out as
+//      one partial per (sample, 64-point tile), summed over the 16 point
+//      groups of a tile with a fixed butterfly.  The bias sums go out as one
+//      partial per (sample, tile) too where a bias column covers whole tiles
+//      (group 0 or group >= 64), else (pd_pass<kSplit>) as 64 / group
+//      sub-partials per tile, each the sum over one group's points (a
+//      butterfly over group / 4 lanes, or a thread's own points for
+//      group < 4).
 //   2. dx_gemm: dx = W^T dp (+ Wd^T dd), a 64 x 64 output tile per block,
 //      the same 4 x 4 register micro-tile and fmaf loop over Cout.
 //   3. dw_gemm: each block owns a 64 x 64 tile of dW (and dWd, which share
 //      the x loads) and one of S contiguous chunks of the B*3*N points
 //      (split K), writing a partial tile.
-// vnk_reduce_rows then sums every partial in a fixed order, so each run of
-// a kernel gives the same bits.  S is pass 1 alone, with the norm sums.
+// vnk_reduce_rows then sums every partial in a fixed order (the bias
+// partials over the tiles of each column), so each run of a kernel gives the
+// same bits.  S is pass 1 alone, with the norm sums.
 //
 // Bound on the H100 at the main path's shapes (batch 8, N = 16384):
 //   S at 256 -> 256: operations, the 2*Cin*Cout*3*B*N FLOP of p = W x.
@@ -40,6 +49,9 @@
 //   B' at 2 -> 256: bytes, reading g (B*3*Cout*N floats).
 //   C' at 256 -> 256: operations, six products (p, d, dx from dp and dd,
 //      dW, dWd).
+// The attention decoder's pair fold (1 -> 256, N = 14336, group 64) is
+// bound by bytes like B': S and S' read x (one channel) and write dx, B'
+// reads g; the bias columns are 1/64 of a plane.
 // All products run as FP32 FMAs on the CUDA cores (the float32 policy keeps
 // them off the tensor cores).  Passes 2 and 3 read the dp/dd scratch back
 // once each; the scratch round trip is what a fused later version removes.
@@ -65,13 +77,17 @@ struct PdArgs {
   const float* c2;
   float* dp;
   float* dd;
-  float* partial;  // (nq, B, T, Cout): per-channel sums, then per-sample ones
+  float* partial;  // (nqc, B, T, Cout) per-channel sums, then the bias
+                   // sums (nqb, B, R, Cout) with R = T * spt
   int B, Cin, Cout, N, T;
+  int group;  // 0: one bias column per sample; S: one per S points
+  int sub;    // points per bias partial: min(group, kPts), kPts for group 0
+  int spt;    // bias partials per tile: kPts / sub
   float one_minus_ns;
 };
 
 // Per-channel sums written by each mode: S (s1, s2), B' (dA, dB),
-// C' (dA, dB, dw_out); the per-sample bias sums (dpbias[3], ddbias[3]) follow.
+// C' (dA, dB, dw_out); the bias sums (dpbias[3], ddbias[3]) follow.
 template <int kMode>
 __host__ __device__ constexpr int channel_sums() {
   return kMode == kStatsFwd ? 2 : kMode == kStatsBwd ? 0 : kMode == kLayerBwd ? 2 : 3;
@@ -90,7 +106,9 @@ __device__ __forceinline__ void store4(float* row, int n, int N, bool vec,
   }
 }
 
-template <int kMode>
+// kSplit: bias columns narrower than a tile (0 < group < 64), a tile's
+// bias partials split per group; otherwise one running sum a thread.
+template <int kMode, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1) pd_pass(PdArgs args) {
   constexpr bool kWithD = kMode == kLayerBwd || kMode == kProjBwd;
   constexpr int kNqc = channel_sums<kMode>();
@@ -116,14 +134,6 @@ __global__ void __launch_bounds__(kThreads, 1) pd_pass(PdArgs args) {
   for (int i = 0; i < 4; ++i) {
     const int c = c0 + ty * 4 + i;
     const bool cok = c < Cout;
-    float pb[3] = {0.f, 0.f, 0.f}, db[3] = {0.f, 0.f, 0.f};
-    if (has_bias && cok) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        pb[j] = args.pbias[(static_cast<size_t>(bi) * 3 + j) * Cout + c];
-        if (kWithD) db[j] = args.dbias[(static_cast<size_t>(bi) * 3 + j) * Cout + c];
-      }
-    }
     float av = 0.f, bv = 0.f, wo = 0.f, c1v = 0.f, c2v = 0.f;
     if (cok) {
       if (kWithD) {
@@ -138,10 +148,19 @@ __global__ void __launch_bounds__(kThreads, 1) pd_pass(PdArgs args) {
     }
     float sc[3] = {0.f, 0.f, 0.f}, sp[3] = {0.f, 0.f, 0.f}, sd[3] = {0.f, 0.f, 0.f};
     float outp[3][4], outd[3][4];
+    float pb[3] = {0.f, 0.f, 0.f}, db[3] = {0.f, 0.f, 0.f};
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int n = n0 + tx * 4 + q;
       const bool ok = cok && n < N;
+      // a thread's 4 points share one bias column unless group is 1 or 2
+      if (has_bias && cok && (q == 0 || (kSplit && args.group < 4))) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          pb[j] = vnk_bias(args.pbias, bi, j, c, Cout, n, N, args.group);
+          if (kWithD) db[j] = vnk_bias(args.dbias, bi, j, c, Cout, n, N, args.group);
+        }
+      }
       const float p[3] = {accp[0][i][q] + pb[0], accp[1][i][q] + pb[1],
                           accp[2][i][q] + pb[2]};
       if (kMode == kStatsFwd) {
@@ -183,16 +202,13 @@ __global__ void __launch_bounds__(kThreads, 1) pd_pass(PdArgs args) {
           sc[0] += dqp;
           sc[1] += dqp / norm_e;
           if (kMode == kProjBwd) sc[2] += o[0] * gp[0] + o[1] * gp[1] + o[2] * gp[2];
-#pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            sp[j] += dpv[j];
-            sd[j] += ddv[j];
-          }
         }
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
           outp[j][q] = ok ? dpv[j] : 0.f;
           outd[j][q] = ok ? ddv[j] : 0.f;
+          sp[j] += outp[j][q];
+          sd[j] += outd[j][q];
         }
       }
     }
@@ -216,13 +232,36 @@ __global__ void __launch_bounds__(kThreads, 1) pd_pass(PdArgs args) {
       if (tx == 0 && cok) args.partial[k * stride + at] = v;
     }
     if (kMode != kStatsFwd && has_bias) {
+      float* bias_part = args.partial + kNqc * stride;
+      const size_t bstride = stride * args.spt;
+      const size_t row0 = (static_cast<size_t>(bi) * args.T + t) * args.spt;
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
-        const float v = vnk_sum16(sp[j]);
-        if (tx == 0 && cok) args.partial[(kNqc + j) * stride + at] = v;
-        if (kWithD) {
-          const float u = vnk_sum16(sd[j]);
-          if (tx == 0 && cok) args.partial[(kNqc + 3 + j) * stride + at] = u;
+#pragma unroll
+        for (int h = 0; h < (kWithD ? 2 : 1); ++h) {
+          const float o0 = h == 0 ? outp[j][0] : outd[j][0];
+          const float o1 = h == 0 ? outp[j][1] : outd[j][1];
+          const float o2 = h == 0 ? outp[j][2] : outd[j][2];
+          const float o3 = h == 0 ? outp[j][3] : outd[j][3];
+          float* dst = bias_part + (h * 3 + j) * bstride;
+          if (!kSplit) {  // group 0 or >= 64: one partial a tile
+            const float v = vnk_sum16(h == 0 ? sp[j] : sd[j]);
+            if (tx == 0 && cok) dst[row0 * Cout + c] = v;
+          } else if (args.sub >= 4) {  // a thread's 4 points, then its run of lanes
+            const int lanes = args.sub / 4;
+            const float v = vnk_sum_lanes(((o0 + o1) + o2) + o3, lanes);
+            if (tx % lanes == 0 && cok) dst[(row0 + tx / lanes) * Cout + c] = v;
+          } else if (args.sub == 2) {  // two groups in a thread's points
+            if (cok) {
+              dst[(row0 + tx * 2) * Cout + c] = o0 + o1;
+              dst[(row0 + tx * 2 + 1) * Cout + c] = o2 + o3;
+            }
+          } else if (cok) {  // group 1: every point its own column
+            dst[(row0 + tx * 4) * Cout + c] = o0;
+            dst[(row0 + tx * 4 + 1) * Cout + c] = o1;
+            dst[(row0 + tx * 4 + 2) * Cout + c] = o2;
+            dst[(row0 + tx * 4 + 3) * Cout + c] = o3;
+          }
         }
       }
     }
@@ -400,7 +439,11 @@ int tiles(int N) { return (N + kPts - 1) / kPts; }
 template <int kMode>
 void launch_pd(const PdArgs& args, cudaStream_t st) {
   const dim3 grid(args.T, (args.Cout + kCh - 1) / kCh, args.B);
-  pd_pass<kMode><<<grid, kThreads, 0, st>>>(args);
+  if (kMode != kStatsFwd && args.sub < kPts) {
+    pd_pass<kMode, true><<<grid, kThreads, 0, st>>>(args);
+  } else {
+    pd_pass<kMode, false><<<grid, kThreads, 0, st>>>(args);
+  }
 }
 
 // Passes 2 and 3 and the reductions shared by S', B' and C'.  dw2 receives
@@ -428,7 +471,7 @@ PdArgs make_args(const void* x, const void* w, const void* wd,
                  const void* pbias, const void* dbias, const void* a,
                  const void* b, const void* w_out, const void* g,
                  const void* c1, const void* c2, void* dp, void* dd,
-                 void* partial, int B, int Cin, int Cout, int N,
+                 void* partial, int B, int Cin, int Cout, int N, int group,
                  float one_minus_ns) {
   PdArgs r;
   r.x = static_cast<const float*>(x);
@@ -450,52 +493,64 @@ PdArgs make_args(const void* x, const void* w, const void* wd,
   r.Cout = Cout;
   r.N = N;
   r.T = tiles(N);
+  r.group = group;
+  r.sub = group == 0 || group > kPts ? kPts : group;
+  r.spt = kPts / r.sub;
   r.one_minus_ns = one_minus_ns;
   return r;
 }
 
-// The per-sample bias sums (3 or 6 quantities of (B, T, Cout)) after nqc
-// per-channel ones -> dbias_out (nq, B, Cout).
+// The bias sums (3 or 6 quantities of (B, R, Cout), R = T * spt partials a
+// sample) after nqc per-channel ones -> dbias_out (nq, B, R / rpg, Cout),
+// each the sum of the rpg consecutive partials of one bias column: all T
+// tiles for group 0, group / 64 tiles for group >= 64, else 1 (the wrapper
+// keeps the first N / group columns).
 void reduce_bias(const PdArgs& args, int nqc, int nq, float* dbias_out,
                  cudaStream_t st) {
   const size_t stride = static_cast<size_t>(args.B) * args.T * args.Cout;
-  vnk_reduce_rows(args.partial + nqc * stride, dbias_out, nq * args.B, args.T,
-                  args.Cout, st);
+  const int rows = args.T * args.spt;
+  const int rpg = args.group == 0 ? args.T : args.group >= kPts ? args.group / kPts : 1;
+  vnk_reduce_rows(args.partial + nqc * stride, dbias_out, nq * args.B * (rows / rpg),
+                  rpg, args.Cout, st);
 }
 
 }  // namespace
 
-// Scratch the wrapper allocates (floats): partial (nq, B, ceil(N/64), Cout);
-// dp, dd (B, 3, Cout, N); dw_part (1 or 2, S, Cout, Cin).
+// Scratch the wrapper allocates (floats): partial, the per-channel sums
+// (nqc, B, T, Cout) then the bias sums (nqb, B, T * spt, Cout), T =
+// ceil(N / 64), spt = 64 / group for 0 < group < 64 and 1 otherwise; dp, dd
+// (B, 3, Cout, N); dw_part (1 or 2, S, Cout, Cin).  The bias gradients
+// (nq, B, G, Cout) have G = 1 for group 0, N / group for group >= 64 and
+// T * 64 / group otherwise.  `group` is 0 or a power of two dividing 512.
 
 // S: s12 (2, Cout) = (s1, s2); partial with nq = 2.
 VNK_EXPORT int vn_layer_stats_fwd(const void* x, const void* w,
                                   const void* pbias, void* s12, void* partial,
-                                  int B, int Cin, int Cout, int N,
+                                  int B, int Cin, int Cout, int N, int group,
                                   void* stream) {
   if (B == 0 || N == 0 || Cout == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PdArgs args = make_args(x, w, nullptr, pbias, nullptr, nullptr, nullptr,
                                 nullptr, nullptr, nullptr, nullptr, nullptr,
-                                nullptr, partial, B, Cin, Cout, N, 0.f);
+                                nullptr, partial, B, Cin, Cout, N, group, 0.f);
   launch_pd<kStatsFwd>(args, st);
   vnk_reduce_rows(args.partial, static_cast<float*>(s12), 2, B * args.T, Cout, st);
   return static_cast<int>(cudaGetLastError());
 }
 
-// S': dx (B, 3, Cin, N), dw (Cout, Cin), dpb (3, B, Cout) or null without
-// bias; partial with nq = 3 (bias only).
+// S': dx (B, 3, Cin, N), dw (Cout, Cin), dpb (3, B, G, Cout) or null
+// without bias; partial with nqc = 0, nqb = 3.
 VNK_EXPORT int vn_layer_stats_bwd(const void* x, const void* w,
                                   const void* pbias, const void* c1,
                                   const void* c2, void* dx, void* dw,
                                   void* dpb, void* dp, void* partial,
                                   void* dw_part, int B, int Cin, int Cout,
-                                  int N, int S, void* stream) {
+                                  int N, int S, int group, void* stream) {
   if (B == 0 || N == 0 || Cout == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PdArgs args = make_args(x, w, nullptr, pbias, nullptr, nullptr, nullptr,
                                 nullptr, nullptr, c1, c2, dp, nullptr, partial,
-                                B, Cin, Cout, N, 0.f);
+                                B, Cin, Cout, N, group, 0.f);
   launch_pd<kStatsBwd>(args, st);
   if (pbias != nullptr) reduce_bias(args, 0, 3, static_cast<float*>(dpb), st);
   products_bwd<false>(args.x, args.w, nullptr, args.dp, nullptr,
@@ -505,19 +560,19 @@ VNK_EXPORT int vn_layer_stats_bwd(const void* x, const void* w,
 }
 
 // B': dx, dw2 (2, Cout, Cin) = (dW, dWd), dab (2, Cout) = (dA, dB),
-// dpdb (6, B, Cout) = (dpbias planes, ddbias planes) or null; partial with
-// nq = 2 + 6.
+// dpdb (6, B, G, Cout) = (dpbias planes, ddbias planes) or null; partial
+// with nqc = 2, nqb = 6.
 VNK_EXPORT int vn_layer_fused_bwd(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* g, void* dx,
     void* dw2, void* dab, void* dpdb, void* dp, void* dd, void* partial,
-    void* dw_part, int B, int Cin, int Cout, int N, int S, float one_minus_ns,
-    void* stream) {
+    void* dw_part, int B, int Cin, int Cout, int N, int S, int group,
+    float one_minus_ns, void* stream) {
   if (B == 0 || N == 0 || Cout == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PdArgs args = make_args(x, w, wd, pbias, dbias, a, b, nullptr, g,
                                 nullptr, nullptr, dp, dd, partial, B, Cin,
-                                Cout, N, one_minus_ns);
+                                Cout, N, group, one_minus_ns);
   launch_pd<kLayerBwd>(args, st);
   vnk_reduce_rows(args.partial, static_cast<float*>(dab), 2, B * args.T, Cout, st);
   if (pbias != nullptr) reduce_bias(args, 2, 6, static_cast<float*>(dpdb), st);
@@ -528,18 +583,18 @@ VNK_EXPORT int vn_layer_fused_bwd(
 }
 
 // C': as B' with w_out (Cout,) and g (B, 3, 1, N); dabo (3, Cout) =
-// (dA, dB, dw_out); partial with nq = 3 + 6.
+// (dA, dB, dw_out); partial with nqc = 3, nqb = 6.
 VNK_EXPORT int vn_layer_fused_project_bwd(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* w_out,
     const void* g, void* dx, void* dw2, void* dabo, void* dpdb, void* dp,
     void* dd, void* partial, void* dw_part, int B, int Cin, int Cout, int N,
-    int S, float one_minus_ns, void* stream) {
+    int S, int group, float one_minus_ns, void* stream) {
   if (B == 0 || N == 0 || Cout == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PdArgs args = make_args(x, w, wd, pbias, dbias, a, b, w_out, g,
                                 nullptr, nullptr, dp, dd, partial, B, Cin,
-                                Cout, N, one_minus_ns);
+                                Cout, N, group, one_minus_ns);
   launch_pd<kProjBwd>(args, st);
   vnk_reduce_rows(args.partial, static_cast<float*>(dabo), 3, B * args.T, Cout, st);
   if (pbias != nullptr) reduce_bias(args, 3, 6, static_cast<float*>(dpdb), st);

@@ -1,5 +1,5 @@
-// Kernels B and C: a whole VNLinearLeakyReLU layer in one pass (forward,
-// group = 0), optionally followed by a 1-channel output contraction.
+// Kernels B and C: a whole VNLinearLeakyReLU layer in one pass (forward),
+// optionally followed by a 1-channel output contraction.
 //
 // B replaces vn_pointcloudcompletion_tpu/ops/vn_layer_fused.py::vn_layer_fused
 //   (the pallas_call at :541, kernel body _layer_fwd_kernel at :359).
@@ -7,6 +7,8 @@
 //   (the pallas_call at :821, kernel body _proj_fwd_kernel at :640).
 //
 //   p = W x (+ pbias),  d = Wd x (+ dbias)      per plane j of x (B, 3, Cin, N)
+//   the biases per sample (group = 0) or per run of `group` points
+//   (group = S: one column per fold centre, vnk_bias in vn_tile.cuh)
 //   o = bn_leaky(p, d; A, B)                    (common.cuh)
 //   B: out = o                                  (B, 3, Cout, N)
 //   C: out = sum_c w_out[c] o[c]                (B, 3, 1, N)
@@ -41,7 +43,7 @@ layer_fwd(const float* __restrict__ x, const float* __restrict__ w,
           const float* __restrict__ wd, const float* __restrict__ pbias,
           const float* __restrict__ dbias, const float* __restrict__ a,
           const float* __restrict__ b, const float* __restrict__ w_out,
-          float* __restrict__ out, int Cin, int Cout, int N,
+          float* __restrict__ out, int Cin, int Cout, int N, int group,
           float one_minus_ns) {
   __shared__ VnkTileSmem sm;
   __shared__ float red[kProject ? 16 : 1][3][kPts];
@@ -67,18 +69,19 @@ layer_fwd(const float* __restrict__ x, const float* __restrict__ w,
     for (int i = 0; i < 4; ++i) {
       const int c = c0 + ty * 4 + i;
       if (c >= Cout) continue;
-      float pb[3] = {0.f, 0.f, 0.f}, db[3] = {0.f, 0.f, 0.f};
-      if (pbias != nullptr) {
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          pb[j] = pbias[(static_cast<size_t>(bi) * 3 + j) * Cout + c];
-          db[j] = dbias[(static_cast<size_t>(bi) * 3 + j) * Cout + c];
-        }
-      }
       const float av = a[c], bv = b[c];
       float o[3][4];
+      float pb[3] = {0.f, 0.f, 0.f}, db[3] = {0.f, 0.f, 0.f};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
+        // a thread's 4 points share one bias column unless group is 1 or 2
+        if (pbias != nullptr && (q == 0 || group == 1 || group == 2)) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            pb[j] = vnk_bias(pbias, bi, j, c, Cout, n0 + tx * 4 + q, N, group);
+            db[j] = vnk_bias(dbias, bi, j, c, Cout, n0 + tx * 4 + q, N, group);
+          }
+        }
         float v[3];
         vnk_bn_leaky(accp[0][i][q] + pb[0], accp[1][i][q] + pb[1],
                      accp[2][i][q] + pb[2], accd[0][i][q] + db[0],
@@ -132,8 +135,8 @@ layer_fwd(const float* __restrict__ x, const float* __restrict__ w,
 template <bool kProject>
 int launch(const void* x, const void* w, const void* wd, const void* pbias,
            const void* dbias, const void* a, const void* b, const void* w_out,
-           void* out, int B, int Cin, int Cout, int N, float one_minus_ns,
-           void* stream) {
+           void* out, int B, int Cin, int Cout, int N, int group,
+           float one_minus_ns, void* stream) {
   if (B == 0 || N == 0) return 0;
   const int ch_tiles = kProject ? 1 : (Cout + kCh - 1) / kCh;
   const dim3 grid((N + kPts - 1) / kPts, ch_tiles, B);
@@ -142,27 +145,28 @@ int launch(const void* x, const void* w, const void* wd, const void* pbias,
       static_cast<const float*>(wd), static_cast<const float*>(pbias),
       static_cast<const float*>(dbias), static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<const float*>(w_out),
-      static_cast<float*>(out), Cin, Cout, N, one_minus_ns);
+      static_cast<float*>(out), Cin, Cout, N, group, one_minus_ns);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// pbias and dbias are (B, 3, Cout) per-sample biases, or both null.
+// pbias and dbias are (B, 3, Cout) per-sample biases (group = 0) or
+// (B, 3, Cout, N / group) per-group ones (N % group == 0), or both null.
 VNK_EXPORT int vn_layer_fused_fwd(const void* x, const void* w, const void* wd,
                                   const void* pbias, const void* dbias,
                                   const void* a, const void* b, void* out,
-                                  int B, int Cin, int Cout, int N,
+                                  int B, int Cin, int Cout, int N, int group,
                                   float one_minus_ns, void* stream) {
   return launch<false>(x, w, wd, pbias, dbias, a, b, nullptr, out, B, Cin,
-                       Cout, N, one_minus_ns, stream);
+                       Cout, N, group, one_minus_ns, stream);
 }
 
 VNK_EXPORT int vn_layer_fused_project_fwd(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* w_out,
-    void* out, int B, int Cin, int Cout, int N, float one_minus_ns,
+    void* out, int B, int Cin, int Cout, int N, int group, float one_minus_ns,
     void* stream) {
   return launch<true>(x, w, wd, pbias, dbias, a, b, w_out, out, B, Cin, Cout,
-                      N, one_minus_ns, stream);
+                      N, group, one_minus_ns, stream);
 }

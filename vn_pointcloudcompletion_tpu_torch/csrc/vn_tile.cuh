@@ -83,13 +83,31 @@ __device__ __forceinline__ void vnk_tile_products(
   }
 }
 
-// Sum v over the 16 threads of a point group row (same ty, tx = 0..15: 16
-// neighbouring lanes of one warp), in a fixed butterfly order.  Every lane
-// of the warp must call it.
-__device__ __forceinline__ float vnk_sum16(float v) {
+// Sum v over aligned runs of `lanes` (1, 2, 4, 8 or 16) threads of a point
+// group row (same ty, tx = 0..15: 16 neighbouring lanes of one warp), in a
+// fixed butterfly order; every lane of a run ends with the run's sum.
+// `lanes` must be the same in the whole warp, and every lane must call it.
+__device__ __forceinline__ float vnk_sum_lanes(float v, int lanes) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off, 16);
+  for (int off = 8; off > 0; off >>= 1)
+    if (off < lanes) v += __shfl_xor_sync(0xffffffffu, v, off, 16);
   return v;
+}
+
+__device__ __forceinline__ float vnk_sum16(float v) { return vnk_sum_lanes(v, 16); }
+
+// The bias of output channel c, plane j, at point n of sample bi:
+//   group == 0: one column per sample, bias (B, 3, Cout);
+//   group  > 0: one column per `group` consecutive points, bias
+//               (B, 3, Cout, N / group), column n / group (the JAX kernels'
+//               in-register expansion, vn_layer_fused.py:74-84).
+// n past the end reads the last column (its point is masked by the caller).
+__device__ __forceinline__ float vnk_bias(const float* __restrict__ bias, int bi,
+                                          int j, int c, int Cout, int n, int N,
+                                          int group) {
+  const size_t row = (static_cast<size_t>(bi) * 3 + j) * Cout + c;
+  if (group == 0) return bias[row];
+  return bias[row * (N / group) + min(n, N - 1) / group];
 }
 
 }  // namespace

@@ -1,9 +1,11 @@
 """The composed completion model (port of ``models/composer.py``).
 
-Encoders ``vn_pointnet``, ``vn_dgcnn_fps`` and ``dgcnn_fps``; decoders
-``vn_foldingnet`` and ``foldingnet``; ``num_coarse`` 448 included; the
-float32 compute policy.  Every other choice raises ``NotImplementedError``
-naming the ROADMAP.md item that brings it.
+Encoders ``vn_pointnet``, ``vn_dgcnn_fps``, ``dgcnn_fps`` and ``vn_pointr``
+(at ``num_coarse`` 448 only, as in JAX); decoders ``vn_foldingnet``,
+``attention_vn_foldingnet`` and ``foldingnet``; ``num_coarse`` 448
+included; the float32 compute policy.  The bfloat16 policy and
+``pointr_decoder`` raise ``NotImplementedError`` naming the ROADMAP.md item
+that brings them.
 """
 
 from __future__ import annotations
@@ -16,18 +18,17 @@ from torch import nn
 from vn_pointcloudcompletion_tpu_torch.models.common import ConvCh
 from vn_pointcloudcompletion_tpu_torch.models.dgcnn import DGCNNfps, VNDGCNNfps
 from vn_pointcloudcompletion_tpu_torch.models.pcn import (
+    AttentionVNFoldingNet,
     FoldingNet,
     VNFoldingNet,
     VNPointNet,
     _ScalarSplitFoldLayer,
 )
+from vn_pointcloudcompletion_tpu_torch.models.pointr import VNPCTransformer
 from vn_pointcloudcompletion_tpu_torch.utils.config import Config
 
 ENCODERS = {"vn_pointnet": VNPointNet, "vn_dgcnn_fps": VNDGCNNfps, "dgcnn_fps": DGCNNfps}
-_LATER = {
-    "vn_pointr": "vn_pointr (ROADMAP.md, queue 1, item 4)",
-    "attention_vn_foldingnet": "vn_pointr (ROADMAP.md, queue 1, item 4)",
-}
+VN_DECODERS = {"vn_foldingnet": VNFoldingNet, "attention_vn_foldingnet": AttentionVNFoldingNet}
 
 
 class PCNNet(nn.Module):
@@ -45,25 +46,28 @@ class PCNNet(nn.Module):
                  dec_type: str = "vn_foldingnet", num_coarse: int = 1024,
                  only_coarse: bool = False):
         super().__init__()
-        if enc_type not in ENCODERS:
-            raise NotImplementedError(
-                f"enc_type={enc_type!r} is not ported yet: "
-                f"{_LATER.get(enc_type, 'unknown encoder')}")
-        self.encoder = ENCODERS[enc_type](num_coarse)
+        if enc_type == "vn_pointr":  # JAX composer.py:71-76
+            if num_coarse != 448:
+                raise ValueError(
+                    "enc_type='vn_pointr' requires num_coarse=448 (224 predicted + 224 FPS; "
+                    "reference model.py:23-24 contract)")
+            self.encoder = VNPCTransformer()
+        elif enc_type in ENCODERS:
+            self.encoder = ENCODERS[enc_type](num_coarse)
+        else:
+            raise ValueError(f"encoder type {enc_type} not supported")
         self.only_coarse = only_coarse
         if not only_coarse:
             glob = self.encoder.global_shape
-            if dec_type == "vn_foldingnet":
+            if dec_type in VN_DECODERS:
                 if len(glob) != 2:
-                    raise ValueError(f"dec_type='vn_foldingnet' needs a vector global "
+                    raise ValueError(f"dec_type={dec_type!r} needs a vector global "
                                      f"feature; enc_type={enc_type!r} gives {glob}")
-                self.decoder = VNFoldingNet(num_coarse, glob[0])
+                self.decoder = VN_DECODERS[dec_type](num_coarse, glob[0])
             elif dec_type == "foldingnet":
                 self.decoder = FoldingNet(num_coarse, math.prod(glob))
             else:
-                raise NotImplementedError(
-                    f"dec_type={dec_type!r} is not ported yet: "
-                    f"{_LATER.get(dec_type, 'unknown decoder')}")
+                raise ValueError(f"decoder type {dec_type} not supported")
 
     def forward(self, xyz, rot=None):
         def f32(t):
@@ -90,7 +94,12 @@ class PCNNet(nn.Module):
 def init_weights_(model: nn.Module, seed: int) -> nn.Module:
     """Redraw every linear map and convolution from ``seed``: torch's
     default, weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)), from an
-    explicit generator.  Normalisation layers stay at their identity init."""
+    explicit generator.  Normalisation layers stay at their identity init.
+    A ``vn_pointr`` encoder is then redrawn as the reference's
+    ``_init_weights`` pass does (vn_pointr.py:541-553; JAX
+    ``reinit_pointr_params``, training/state.py:86-93): every linear map
+    trunc_normal(std 0.02) on +-2 std, from the same generator; it holds no
+    bias, and its norms keep scale 1 and bias 0."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for _, m in sorted(model.named_modules(), key=lambda kv: kv[0]):
@@ -99,6 +108,11 @@ def init_weights_(model: nn.Module, seed: int) -> nn.Module:
                 for p in (m.weight, m.bias):
                     if p is not None:
                         p.copy_(torch.rand(p.shape, generator=g) * (2 * bound) - bound)
+        encoder = getattr(model, "encoder", None)
+        if isinstance(encoder, VNPCTransformer):
+            for _, m in sorted(encoder.named_modules(), key=lambda kv: kv[0]):
+                if isinstance(m, nn.Linear):
+                    nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04, generator=g)
     return model
 
 
@@ -112,6 +126,7 @@ def build_model(config: Config) -> PCNNet:
         )
     if getattr(config, "pointr_decoder", False):
         raise NotImplementedError(
-            "pointr_decoder needs vn_pointr (ROADMAP.md, queue 1, item 4)")
+            "pointr_decoder (the vn_pointr decoder stack) is not ported yet "
+            "(ROADMAP.md, queue 1, item 4b)")
     model = PCNNet(config.enc_type, config.dec_type, config.num_coarse, config.only_coarse)
     return init_weights_(model, config.seed)

@@ -1,5 +1,5 @@
-"""The PCN-family encoder ``VNPointNet`` and the decoders ``VNFoldingNet``
-and ``FoldingNet``.
+"""The PCN-family encoder ``VNPointNet`` and the decoders ``VNFoldingNet``,
+``AttentionVNFoldingNet`` and ``FoldingNet``.
 
 Port of those parts of ``vn_pointcloudcompletion_tpu/models/pcn.py``; train
 mode comes from ``model.train()``.  The encoder takes ``xyz`` (B, N, 3) and
@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from vn_pointcloudcompletion_tpu_torch.nn.attention import VNBlock, to_vn
 from vn_pointcloudcompletion_tpu_torch.nn.vn import (
     VNLinear,
     VNLinearAndLeakyReLU,
@@ -147,6 +148,38 @@ class _SplitFoldLayer(VNLinearLeakyReLU):
         return bn_leaky(p, d, a, b, self.negative_slope, self.use_kernels)
 
 
+class _PairFoldLayer(VNLinearLeakyReLU):
+    """A fold layer of the attention decoder, ``vn_folding{1,2}.0``.
+
+    Mathematically VNLinearLeakyReLU over concat([var | feat]) with the
+    reference's single (out, 1 + Cf) weight: ``var`` (B, 3, 1, N*S) varies
+    over the S grid points of each of N centres, the centre feature ``feat``
+    (B, 3, Cf, N) does not, so its contraction is taken once per centre and
+    enters as a per-centre bias (JAX models/pcn.py:182-294).  At N*S >= 4096
+    with S dividing 512 the rest of the layer is kernel B with ``group=S``
+    (with kernel S for the train-mode statistics,
+    ``_VNSplitPairFoldLayerFused``); otherwise the bias is expanded, added to
+    the var product, and kernel A (or the plain chain) follows
+    (``_VNSplitPairFoldLayer``).
+    """
+
+    def forward(self, feat, var, s: int):
+        """feat (B, 3, Cf, N); var (B, 3, 1, N*S) -> (B, 3, C, N*S)."""
+        w, wd = self.map_to_feat.weight, self.map_to_dir.weight
+        pbias = torch.matmul(w[:, 1:], feat)  # (B, 3, C, N) per centre
+        dbias = torch.matmul(wd[:, 1:], feat)
+        if (self.use_kernels and var.shape[3] >= 4096
+                and vn_layer_fused.GROUP_TILE % s == 0):
+            a, b = self.batchnorm.bn(
+                **layer_moments(var, w[:, :1], pbias, self.training, group=s))
+            return vn_layer_fused.vn_layer_fused(
+                var, w[:, :1], wd[:, :1], pbias, dbias, a, b, self.negative_slope, group=s)
+        p = vn_layer_fused.expand_bias(pbias, s) + torch.matmul(w[:, :1], var)
+        d = vn_layer_fused.expand_bias(dbias, s) + torch.matmul(wd[:, :1], var)
+        a, b = self.batchnorm.bn(plane_norms(p) if self.training else None)
+        return bn_leaky(p, d, a, b, self.negative_slope, self.use_kernels)
+
+
 def fold_grid(num_coarse: int):
     """(coarse points folded, grid side): 224 and 8 at ``num_coarse == 448``
     (14336 dense points), else ``num_coarse`` and 4."""
@@ -192,6 +225,56 @@ class VNFoldingNet(nn.Module):
         f = self.final_conv[1](f, project_out=self.final_conv[2].map_to_feat.weight)
         fine = f + point_feat  # (B, 3, 1, Nd)
         return fine[:, :, 0].transpose(1, 2)
+
+
+class AttentionVNFoldingNet(nn.Module):
+    """Transformer + two-stage VN fold (reference models/pcn.py:392-520; JAX
+    models/pcn.py:615-689).
+
+    Two VN blocks (384 channels, 8 heads, ``qk_scale`` 1) run over per-centre
+    features, the downsized global feature plus the centre, the latter put
+    through the reference's scrambling ``repeat_input_centers`` reshape
+    (copied as it is).  Then a [-1, 1] grid of S points is folded around each
+    centre twice (``vn_folding1``, ``vn_folding2``: a pair fold layer, then a
+    VNLinearLeakyReLU whose 1-channel VNLinear runs inside kernel C), and
+    ``rebuild = relative_xyz + coarse``.  The rotation is not used.
+    """
+
+    def __init__(self, num_coarse: int = 1024, global_channels: int = 2048):
+        super().__init__()
+        self.grid_size = 8 if num_coarse == 448 else 4
+        self.downsize_global = VNLinear(global_channels, 384)
+        self.transformer = nn.ModuleList([
+            VNBlock(384, 384, num_heads=8, qk_scale=1.0) for _ in range(2)])
+
+        def folding():
+            return nn.ModuleList([_PairFoldLayer(1 + 384, 256, layout="plane"),
+                                  VNLinearLeakyReLU(256, 128, layout="plane"),
+                                  VNLinear(128, 1, layout="plane")])
+
+        self.vn_folding1, self.vn_folding2 = folding(), folding()
+
+    def forward(self, coarse, feature_global, rot: Optional[torch.Tensor] = None):
+        b, n, _ = coarse.shape
+        s = self.grid_size ** 2
+        # (B, 384, N, 3) -> (B, 1152, N) -> (B, N, 1152): the reference's reshape
+        repeat_centers = coarse[:, None].expand(b, 384, n, 3).reshape(b, 384 * 3, n)
+        fg = self.downsize_global(feature_global)  # (B, 384, 3, 1)
+        fg = fg.expand(b, 384, 3, n).reshape(b, 384 * 3, n)
+        vn_x = to_vn((fg + repeat_centers).transpose(1, 2))  # (B, 384, 3, N)
+        for block in self.transformer:
+            vn_x = block(vn_x)
+
+        feat = vn_x.transpose(1, 2)  # (B, 3, 384, N), constant over each grid
+        seed = folding_grid_3d(self.grid_size, extent=1.0).to(coarse)  # (3, S)
+        seed = seed[None, :, None, None, :].expand(b, 3, 1, n, s).reshape(b, 3, 1, n * s)
+        fold = seed
+        for stage in (self.vn_folding1, self.vn_folding2):
+            h = stage[0](feat, fold, s)
+            fold = stage[1](h, project_out=stage[2].map_to_feat.weight)  # (B, 3, 1, N*S)
+        relative_xyz = fold[:, :, 0].reshape(b, 3, n, s).transpose(1, 2)  # (B, N, 3, S)
+        rebuild = relative_xyz + coarse[..., None]
+        return rebuild.transpose(2, 3).reshape(b, n * s, 3)
 
 
 class _ScalarSplitFoldLayer(nn.Module):

@@ -1,9 +1,10 @@
-"""Vector Neuron layers of the flagship path, as ``torch.nn`` modules.
+"""Vector Neuron layers, as ``torch.nn`` modules.
 
-Port of the parts of ``vn_pointcloudcompletion_tpu/nn/vn.py`` that the
-``vn_pointnet``, ``vn_dgcnn_fps`` and ``vn_foldingnet`` models run, in train
-and eval mode, the EdgeConv mode of ``VNLinearLeakyReLU`` included.  Feature
-tensors carry 3-vector channels in one of two layouts:
+Port of ``vn_pointcloudcompletion_tpu/nn/vn.py``, the whole layer zoo, in
+train and eval mode: the EdgeConv mode of ``VNLinearLeakyReLU``,
+``VNLayerNorm``, ``VNMaxPool`` in both layouts, ``mean_pool`` and
+``VNStdFeature`` included.  Feature tensors carry 3-vector channels in one
+of two layouts:
 
 - ``vec`` (B, C, 3, N...), the reference's;
 - ``plane`` (B, 3, C, N), coordinate planes, for the wide layers: a channel
@@ -163,13 +164,13 @@ def plane_norms(p: torch.Tensor) -> torch.Tensor:
     return safe_norm(p.to(torch.promote_types(p.dtype, torch.float32)), dim=1) + EPS
 
 
-def layer_moments(x, w, pbias, training: bool) -> dict:
+def layer_moments(x, w, pbias, training: bool, group: int = 0) -> dict:
     """Arguments of ``_NormAffine`` for the whole-layer path: in train mode
     the batch moments of ``|W x + pbias| + EPS`` from kernel S (JAX
-    nn/vn.py:457-466), in eval mode none."""
+    nn/vn.py:457-466; ``group``: per-group bias columns), in eval mode none."""
     if not training:
         return {}
-    s1, s2 = vn_layer_fused.vn_layer_stats(x, w, pbias)
+    s1, s2 = vn_layer_fused.vn_layer_stats(x, w, pbias, group)
     cnt = x.shape[0] * x.shape[3]
     mean = s1 / cnt
     return {"moments": (mean, s2 / cnt - mean * mean), "count": cnt}
@@ -281,18 +282,79 @@ class VNLinearLeakyReLU(nn.Module):
 
 
 class VNMaxPool(nn.Module):
-    """Pool over the points by argmax of a learned projection
-    (vn_layers.py:153-167), plane layout: (B, 3, C, N) -> (B, 3, C), the
-    first point on ties; the gradient reaches the selected vectors only."""
+    """Pool over the last axis by argmax of a learned projection
+    (vn_layers.py:153-167), the first point on ties; the gradient reaches
+    the selected vectors only.  ``plane``: (B, 3, C, N) -> (B, 3, C);
+    ``vec``, rank-generic as the reference's meshgrid gather: (B, C, 3, N)
+    -> (B, C, 3), (B, C, 3, N, K) -> (B, C, 3, N)."""
+
+    def __init__(self, channels: int, layout: str = "plane"):
+        super().__init__()
+        self.map_to_dir = nn.Linear(channels, channels, bias=False)
+        self.layout = layout
+
+    def forward(self, x):
+        if self.layout == "plane":
+            d = torch.matmul(self.map_to_dir.weight, x)
+            idx = plane_dot(x, d).argmax(dim=-1, keepdim=True)  # (B, C, 1)
+            return torch.gather(x, 3, idx[:, None].expand(-1, 3, -1, -1))[..., 0]
+        d = channel_linear(self.map_to_dir.weight, x, "vec")
+        dot = x[:, :, 0] * d[:, :, 0] + x[:, :, 1] * d[:, :, 1] + x[:, :, 2] * d[:, :, 2]
+        idx = dot.argmax(dim=-1, keepdim=True)[:, :, None]  # (B, C, 1, ..., 1)
+        return torch.gather(x, -1, idx.expand(x.shape[:-1] + (1,)))[..., 0]
+
+
+def mean_pool(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
+    """vn_layers.py:170-171."""
+    return x.mean(dim, keepdim=keepdim)
+
+
+class VNLayerNorm(nn.Module):
+    """LayerNorm over the channels of the vector norms, the vectors rescaled
+    (vn_layers.py:129-150; JAX nn/vn.py:203-215): vec layout (B, C, 3,
+    N...), statistics in at least float32, eps 1e-5."""
 
     def __init__(self, channels: int):
         super().__init__()
-        self.map_to_dir = nn.Linear(channels, channels, bias=False)
+        self.layer_norm = nn.LayerNorm(channels, eps=1e-5)
 
     def forward(self, x):
-        d = torch.matmul(self.map_to_dir.weight, x)
-        idx = plane_dot(x, d).argmax(dim=-1, keepdim=True)  # (B, C, 1)
-        return torch.gather(x, 3, idx[:, None].expand(-1, 3, -1, -1))[..., 0]
+        ct = torch.promote_types(x.dtype, torch.float32)
+        norm = safe_norm(x.to(ct), dim=2) + EPS  # (B, C, N...)
+        norm_l = nn.functional.layer_norm(
+            norm.movedim(1, -1), (norm.shape[1],), self.layer_norm.weight.to(ct),
+            self.layer_norm.bias.to(ct), self.layer_norm.eps).movedim(-1, 1)
+        return x * (norm_l / norm).to(x.dtype).unsqueeze(2)
+
+
+class VNStdFeature(nn.Module):
+    """A learned invariant frame and the features expressed in it
+    (vn_layers.py:174-220; JAX nn/vn.py:577-609), vec layout (B, C, 3,
+    N...): returns ``(x_std (B, C, 3, N...), frame (B, 3, 3, N...))``, the
+    frame in the reference's transposed layout (with ``normalize_frame`` two
+    learned axes and their cross product)."""
+
+    def __init__(self, in_channels: int, normalize_frame: bool = False,
+                 share_nonlinearity: bool = False, negative_slope: float = 0.2):
+        super().__init__()
+        self.normalize_frame = normalize_frame
+        self.vn1 = VNLinearLeakyReLU(in_channels, in_channels // 2, share_nonlinearity,
+                                     negative_slope)
+        self.vn2 = VNLinearLeakyReLU(in_channels // 2, in_channels // 4, share_nonlinearity,
+                                     negative_slope)
+        self.vn_lin = nn.Linear(in_channels // 4, 2 if normalize_frame else 3, bias=False)
+
+    def forward(self, x):
+        z0 = channel_linear(self.vn_lin.weight, self.vn2(self.vn1(x)), "vec")
+        if self.normalize_frame:
+            v1 = z0[:, 0]  # (B, 3, ...)
+            u1 = v1 / (safe_norm(v1, dim=1, keepdim=True) + EPS)
+            v2 = z0[:, 1]
+            v2 = v2 - (v2 * u1).sum(1, keepdim=True) * u1
+            u2 = v2 / (safe_norm(v2, dim=1, keepdim=True) + EPS)
+            z0 = torch.stack([u1, u2, torch.cross(u1, u2, dim=1)], dim=1)
+        x_std = torch.einsum("bij...,bkj...->bik...", x, z0)
+        return x_std, z0.transpose(1, 2)
 
 
 class VNLinearAndLeakyReLU(nn.Module):

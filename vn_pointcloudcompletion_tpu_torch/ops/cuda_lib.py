@@ -10,7 +10,8 @@ CPU tests import every module, and this machine may have no ``nvcc``.
 
 A :class:`CudaKernel` is one C entry point.  Its ``launches`` counter goes up
 by one each time the entry point launches its kernel, which is how a run
-shows that the main path went through the kernels.
+shows that the main path went through the kernels.  One entry point may be
+bound twice under two names, to count two modes of it apart.
 """
 
 from __future__ import annotations
@@ -107,9 +108,10 @@ class CudaKernel:
     C function returns ``cudaGetLastError()``).
     """
 
-    def __init__(self, source: str, symbol: str, argtypes: list):
+    def __init__(self, source: str, symbol: str, argtypes: list, name: str = ""):
         self.source = source
         self.symbol = symbol
+        self.name = name or symbol  # the key of its count in launch_counts()
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
@@ -139,7 +141,7 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> Dict[str, int]:
-    return {k.symbol: k.launches for k in KERNELS}
+    return {k.name: k.launches for k in KERNELS}
 
 
 def check_cuda_f32(name: str, *tensors) -> None:

@@ -17,7 +17,7 @@ from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas
 from vn_pointcloudcompletion_tpu_torch.ops.knn_pallas import pairwise_sqdist
 
 __all__ = ["pairwise_sqdist", "knn", "gather_neighbors", "gather_planes",
-           "graph_feature", "vn_graph_feature_planes"]
+           "graph_feature", "vn_graph_feature_planes", "vn_graph_feature"]
 
 
 def knn(query: torch.Tensor, ref: torch.Tensor, k: int, use_kernels: bool = True):
@@ -69,3 +69,15 @@ def vn_graph_feature_planes(x_q: torch.Tensor, x_k: torch.Tensor,
     nbr = gather_neighbors(flatk, idx).reshape(b, nq, k, 3, c).permute(0, 3, 4, 1, 2)
     ctr = x_q[:, :, :, :, None].expand_as(nbr)
     return torch.cat([nbr - ctr, ctr], dim=2).reshape(b, 3, 2 * c, nq * k)
+
+
+def vn_graph_feature(x_q: torch.Tensor, x_k: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Vec-layout VN EdgeConv feature ``concat([neighbour - centre, centre])``
+    over the channels: x_q (B, C, 3, Nq), x_k (B, C, 3, Nk), idx (B, Nq, K)
+    -> (B, 2C, 3, Nq, K) (JAX ops/knn.py:153-170)."""
+    b, c, _, nk = x_k.shape
+    nq, k = idx.shape[1], idx.shape[2]
+    flatk = x_k.permute(0, 3, 1, 2).reshape(b, nk, c * 3)
+    nbr = gather_neighbors(flatk, idx).reshape(b, nq, k, c, 3).permute(0, 3, 4, 1, 2)
+    ctr = x_q[:, :, :, :, None].expand_as(nbr)
+    return torch.cat([nbr - ctr, ctr], dim=1)

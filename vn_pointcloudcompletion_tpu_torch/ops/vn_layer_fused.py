@@ -1,5 +1,4 @@
-"""A whole VNLinearLeakyReLU layer in one pass, forward and backward
-(``group = 0``).
+"""A whole VNLinearLeakyReLU layer in one pass, forward and backward.
 
 Port of ``vn_pointcloudcompletion_tpu/ops/vn_layer_fused.py``:
 
@@ -12,6 +11,13 @@ Port of ``vn_pointcloudcompletion_tpu/ops/vn_layer_fused.py``:
   followed by the contraction with a 1-channel ``w_out``, so the
   (B, 3, C_out, N) activation never exists; the decoder's ``final_conv.1``
   + ``final_conv.2``.
+
+The biases come per sample (``group = 0``: (B, 3, C_out, 1)) or per run of
+``group`` points (``group = S``: (B, 3, C_out, N // S), column ``n // S`` at
+point ``n``): the attention decoder's pair fold adds its per-centre feature
+contraction that way, expanded in the kernel, never in device memory
+(JAX ``vn_layer_fused.py:74-116``).  Their gradients are ``dp`` summed over
+each column's points.  As in JAX, ``S`` divides N and 512.
 
 Each is a ``torch.autograd.Function`` that saves only its inputs; the
 backward recomputes ``p`` and ``d`` from ``x``, as the JAX ops do, so no
@@ -44,23 +50,28 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LAYER = CudaKernel(
     "vn_layer_fused.cu", "vn_layer_fused_fwd",
-    [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
+    [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
 )
 _PROJECT = CudaKernel(
     "vn_layer_fused.cu", "vn_layer_fused_project_fwd",
-    [_P] * 9 + [_I] * 4 + [ctypes.c_float, _P],
+    [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P],
 )
 _STATS = CudaKernel(
-    "vn_layer_bwd.cu", "vn_layer_stats_fwd", [_P] * 5 + [_I] * 4 + [_P])
+    "vn_layer_bwd.cu", "vn_layer_stats_fwd", [_P] * 5 + [_I] * 5 + [_P])
 _STATS_BWD = CudaKernel(
-    "vn_layer_bwd.cu", "vn_layer_stats_bwd", [_P] * 11 + [_I] * 5 + [_P])
+    "vn_layer_bwd.cu", "vn_layer_stats_bwd", [_P] * 11 + [_I] * 6 + [_P])
 _LAYER_BWD = CudaKernel(
     "vn_layer_bwd.cu", "vn_layer_fused_bwd",
-    [_P] * 16 + [_I] * 5 + [ctypes.c_float, _P])
+    [_P] * 16 + [_I] * 6 + [ctypes.c_float, _P])
 _PROJECT_BWD = CudaKernel(
     "vn_layer_bwd.cu", "vn_layer_fused_project_bwd",
-    [_P] * 17 + [_I] * 5 + [ctypes.c_float, _P])
+    [_P] * 17 + [_I] * 6 + [ctypes.c_float, _P])
+# The same entry points in group=S mode, counted apart (launch_counts()
+# keys "<symbol>[group]"): the attention decoder's pair folds.
+_GROUPED = {k.symbol: CudaKernel(k.source, k.symbol, k.argtypes, f"{k.symbol}[group]")
+            for k in (_LAYER, _PROJECT, _STATS, _STATS_BWD, _LAYER_BWD, _PROJECT_BWD)}
 TILE = 64  # points per block of the layer kernels (kPts in csrc/vn_tile.cuh)
+GROUP_TILE = 512  # the TPU kernels' point tile: a group must divide it (TN)
 
 
 def layer_eligible(x: torch.Tensor, c_out: int,
@@ -74,10 +85,29 @@ def layer_eligible(x: torch.Tensor, c_out: int,
     return aligned and c_in <= 512 and c_out <= 512 and n >= 4096
 
 
-def _products(w, x, bias):
+def expand_bias(bias, group: int):
+    """A bias at every point: (B, 3, C, G) columns each repeated ``group``
+    times along the points -> (B, 3, C, G * group); ``group == 0`` keeps the
+    per-sample (B, 3, C, 1) column, which broadcasts."""
+    if bias is None or group == 0:
+        return bias
+    b, _, c, g = bias.shape
+    return bias[..., None].expand(b, 3, c, g, group).reshape(b, 3, c, g * group)
+
+
+def bias_grad(dp, group: int):
+    """The gradient of a bias from that of the pre-activation dp (B, 3, C,
+    N): dp summed over the points of each column."""
+    if group == 0:
+        return dp.sum(3, keepdim=True)
+    b, _, c, n = dp.shape
+    return dp.reshape(b, 3, c, n // group, group).sum(-1)
+
+
+def _products(w, x, bias, group: int = 0):
     """(C_out, C_in) map over the planes of x (B, 3, C_in, N), plus bias."""
     p = torch.matmul(w, x)
-    return p if bias is None else p + bias
+    return p if bias is None else p + expand_bias(bias, group)
 
 
 def _weight_grad(g, x):
@@ -85,61 +115,65 @@ def _weight_grad(g, x):
     return torch.einsum("bjcn,bjkn->ck", g, x)
 
 
-def reference_layer_fused(x, w, wd, pbias, dbias, a, b, negative_slope: float):
-    """Plain version of kernel B: separate products, then the epilogue."""
+def reference_layer_fused(x, w, wd, pbias, dbias, a, b, negative_slope: float,
+                          group: int = 0):
+    """Plain version of kernel B: separate products, the biases expanded and
+    added (the kernel's one addition), then the epilogue."""
     return reference_bn_leaky_planes(
-        _products(w, x, pbias), _products(wd, x, dbias), a, b, negative_slope)
+        _products(w, x, pbias, group), _products(wd, x, dbias, group), a, b,
+        negative_slope)
 
 
 def reference_layer_fused_project(x, w, wd, pbias, dbias, a, b, w_out,
-                                  negative_slope: float):
+                                  negative_slope: float, group: int = 0):
     """Plain version of kernel C: the layer, then the 1-channel VNLinear."""
-    out = reference_layer_fused(x, w, wd, pbias, dbias, a, b, negative_slope)
+    out = reference_layer_fused(x, w, wd, pbias, dbias, a, b, negative_slope, group)
     return torch.matmul(w_out.reshape(1, -1), out)
 
 
-def reference_stats(x, w, pbias):
+def reference_stats(x, w, pbias, group: int = 0):
     """Plain version of kernel S: (s1, s2), the sums over samples and points
     of ``|p| + EPS`` and its square per output channel."""
-    p = _products(w, x, pbias)
+    p = _products(w, x, pbias, group)
     norm_e = safe_sqrt(plane_dot(p, p)) + EPS  # (B, C, N)
     return norm_e.sum((0, 2)), (norm_e * norm_e).sum((0, 2))
 
 
-def reference_stats_bwd(x, w, pbias, c1, c2):
+def reference_stats_bwd(x, w, pbias, c1, c2, group: int = 0):
     """Plain version of kernel S': (dx, dw, dpbias) from the cotangents
     (c1, c2) of (s1, s2); dpbias is None without a bias."""
-    p = _products(w, x, pbias)
+    p = _products(w, x, pbias, group)
     pnorm = safe_sqrt(plane_dot(p, p))
     norm_e = pnorm + EPS
     inv = torch.where(pnorm > 0, 1.0 / torch.clamp_min(pnorm, 1e-30), 0.0)
     scale = (c1[None, :, None] + 2.0 * c2[None, :, None] * norm_e) * inv
     dp = scale[:, None] * p
-    dpb = None if pbias is None else dp.sum(3, keepdim=True)
+    dpb = None if pbias is None else bias_grad(dp, group)
     return torch.matmul(w.t(), dp), _weight_grad(dp, x), dpb
 
 
-def reference_layer_bwd(x, w, wd, pbias, dbias, a, b, g, negative_slope: float):
+def reference_layer_bwd(x, w, wd, pbias, dbias, a, b, g, negative_slope: float,
+                        group: int = 0):
     """Plain version of kernel B': (dx, dw, dwd, dpbias, ddbias, da, db) for
     the cotangent g (B, 3, C_out, N); the bias gradients are None without
     biases."""
-    p, d = _products(w, x, pbias), _products(wd, x, dbias)
+    p, d = _products(w, x, pbias, group), _products(wd, x, dbias, group)
     dp, dd, da, db = reference_bn_leaky_bwd(p, d, a, b, g, negative_slope)
     dx = torch.matmul(w.t(), dp) + torch.matmul(wd.t(), dd)
     dpb = ddb = None
     if pbias is not None:
-        dpb, ddb = dp.sum(3, keepdim=True), dd.sum(3, keepdim=True)
+        dpb, ddb = bias_grad(dp, group), bias_grad(dd, group)
     return dx, _weight_grad(dp, x), _weight_grad(dd, x), dpb, ddb, da, db
 
 
 def reference_layer_project_bwd(x, w, wd, pbias, dbias, a, b, w_out, g,
-                                negative_slope: float):
+                                negative_slope: float, group: int = 0):
     """Plain version of kernel C': as :func:`reference_layer_bwd` for the
     cotangent g (B, 3, 1, N) of the projected output, plus d w_out."""
     g_full = w_out[None, None, :, None] * g
     dx, dw, dwd, dpb, ddb, da, db = reference_layer_bwd(
-        x, w, wd, pbias, dbias, a, b, g_full, negative_slope)
-    o = reference_layer_fused(x, w, wd, pbias, dbias, a, b, negative_slope)
+        x, w, wd, pbias, dbias, a, b, g_full, negative_slope, group)
+    o = reference_layer_fused(x, w, wd, pbias, dbias, a, b, negative_slope, group)
     dwo = plane_dot(o, g).sum((0, 2))
     return dx, dw, dwd, dpb, ddb, da, db, dwo
 
@@ -147,8 +181,16 @@ def reference_layer_project_bwd(x, w, wd, pbias, dbias, a, b, w_out, g,
 # ------------------------------------------------------------- launches
 
 
+def check_group(name, n: int, group: int, pbias) -> None:
+    """A bias group must divide N and the TPU kernels' 512-point tile, and
+    comes with a bias (JAX vn_layer_fused.py:266, :523)."""
+    if group < 0 or (group and (n % group or GROUP_TILE % group or pbias is None)):
+        raise ValueError(f"{name}: group={group} must divide N={n} and {GROUP_TILE} "
+                         "and come with a bias")
+
+
 def _prepare(name, x, w, wd=None, pbias=None, dbias=None, a=None, b=None,
-             w_out=None, g=None):
+             w_out=None, g=None, group=0):
     """Check shapes, make the tensors contiguous float32 on one card."""
     bsz, three, c_in, n = x.shape
     c_out = w.shape[0]
@@ -159,9 +201,11 @@ def _prepare(name, x, w, wd=None, pbias=None, dbias=None, a=None, b=None,
             raise ValueError(f"{name}: a, b, w_out must be ({c_out},)")
     if wd is not None and (pbias is None) != (dbias is None):
         raise ValueError(f"{name}: pass both biases or neither")
+    check_group(name, n, group, pbias)
+    cols = n // group if group else 1
     for t in (pbias, dbias):
-        if t is not None and t.shape != (bsz, 3, c_out, 1):
-            raise ValueError(f"{name}: biases must be ({bsz}, 3, {c_out}, 1)")
+        if t is not None and t.shape != (bsz, 3, c_out, cols):
+            raise ValueError(f"{name}: biases must be ({bsz}, 3, {c_out}, {cols})")
     if g is not None and g.shape != (bsz, 3, 1 if w_out is not None else c_out, n):
         raise ValueError(f"{name}: bad cotangent shape {tuple(g.shape)}")
     args = [None if t is None else t.contiguous()
@@ -186,91 +230,119 @@ def _split_k(x, c_in, c_out, n_points):
     return max(1, min(-(-n_points // 16), -(-4 * sms // tiles)))
 
 
+def _bias_rows(n: int, group: int):
+    """(bias partials per tile, bias gradient columns the kernels write):
+    a group of at least a tile (or group 0) sums whole tiles; a smaller one
+    splits each tile into TILE // group columns (the last tile's spare ones
+    are cut off by the caller)."""
+    tiles = -(-n // TILE)
+    if group == 0:
+        return 1, 1
+    if group >= TILE:
+        return 1, n // group
+    return TILE // group, tiles * (TILE // group)
+
+
+def _counted(kernel: CudaKernel, group: int) -> CudaKernel:
+    return _GROUPED[kernel.symbol] if group else kernel
+
+
 def _launch(kernel: CudaKernel, x, w, wd, pbias, dbias, a, b, w_out,
-            negative_slope: float):
+            negative_slope: float, group: int):
     (x, w, wd, pbias, dbias, a, b, w_out, _), (bsz, c_in, c_out, n) = _prepare(
-        kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out)
+        kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out, group=group)
     out = _empty(x, bsz, 3, c_out if w_out is None else 1, n)
-    kernel(x, *[_ptr(t) for t in (x, w, wd, pbias, dbias, a, b)],
+    _counted(kernel, group)(x, *[_ptr(t) for t in (x, w, wd, pbias, dbias, a, b)],
            *([] if w_out is None else [w_out.data_ptr()]),
-           out.data_ptr(), bsz, c_in, c_out, n, 1 - negative_slope)
+           out.data_ptr(), bsz, c_in, c_out, n, group, 1 - negative_slope)
     return out
 
 
-def stats_fwd(x, w, pbias):
+def stats_fwd(x, w, pbias, group: int = 0):
     """Kernel S on a CUDA tensor, its plain version on a CPU tensor."""
     if not x.is_cuda:
-        return reference_stats(x, w, pbias)
+        return reference_stats(x, w, pbias, group)
     (x, w, _, pbias, *_), (bsz, c_in, c_out, n) = _prepare(
-        "vn_layer_stats", x, w, pbias=pbias)
+        "vn_layer_stats", x, w, pbias=pbias, group=group)
     s12 = _empty(x, 2, c_out)
     partial = _empty(x, 2, bsz, -(-n // TILE), c_out)
-    _STATS(x, x.data_ptr(), w.data_ptr(), _ptr(pbias), s12.data_ptr(),
-           partial.data_ptr(), bsz, c_in, c_out, n)
+    _counted(_STATS, group)(x, x.data_ptr(), w.data_ptr(), _ptr(pbias), s12.data_ptr(),
+           partial.data_ptr(), bsz, c_in, c_out, n, group)
     return s12[0], s12[1]
 
 
-def stats_bwd(x, w, pbias, c1, c2):
+def _bias_grads(out, nq: int, bsz: int, c_out: int, n: int, group: int):
+    """The kernels' (nq, B, G', C_out) bias sums -> nq tensors (B, 3, C_out,
+    cols) (nq = 3: one bias; 6: two), the first cols = N // group columns."""
+    cols = n // group if group else 1
+    out = out.reshape(nq // 3, 3, bsz, -1, c_out)[:, :, :, :cols]
+    return out.permute(0, 2, 1, 4, 3).unbind(0)
+
+
+def stats_bwd(x, w, pbias, c1, c2, group: int = 0):
     """Kernel S' on a CUDA tensor, its plain version on a CPU tensor:
     (dx, dw, dpbias)."""
     if not x.is_cuda:
-        return reference_stats_bwd(x, w, pbias, c1, c2)
+        return reference_stats_bwd(x, w, pbias, c1, c2, group)
     (x, w, _, pbias, _, c1, c2, *_), (bsz, c_in, c_out, n) = _prepare(
-        "vn_layer_stats backward", x, w, pbias=pbias, a=c1, b=c2)
+        "vn_layer_stats backward", x, w, pbias=pbias, a=c1, b=c2, group=group)
     s = _split_k(x, c_in, c_out, bsz * 3 * n)
+    spt, cols = _bias_rows(n, group)
     dx, dw = torch.empty_like(x), _empty(x, c_out, c_in)
-    dpb = None if pbias is None else _empty(x, 3, bsz, c_out)
+    dpb = None if pbias is None else _empty(x, 3, bsz, cols, c_out)
     dp = _empty(x, bsz, 3, c_out, n)
-    partial = None if pbias is None else _empty(x, 3, bsz, -(-n // TILE), c_out)
+    partial = None if pbias is None else _empty(x, 3, bsz, -(-n // TILE) * spt, c_out)
     dw_part = _empty(x, s, c_out, c_in)
-    _STATS_BWD(x, *[_ptr(t) for t in (x, w, pbias, c1, c2, dx, dw, dpb, dp,
+    _counted(_STATS_BWD, group)(x, *[_ptr(t) for t in (x, w, pbias, c1, c2, dx, dw, dpb, dp,
                                       partial, dw_part)],
-               bsz, c_in, c_out, n, s)
+               bsz, c_in, c_out, n, s, group)
     if dpb is not None:
-        dpb = dpb.permute(1, 0, 2)[..., None]
+        (dpb,) = _bias_grads(dpb, 3, bsz, c_out, n, group)
     return dx, dw, dpb
 
 
 def _layer_bwd_launch(kernel, x, w, wd, pbias, dbias, a, b, w_out, g,
-                      negative_slope):
+                      negative_slope, group):
     """Kernels B' and C': (dx, dw, dwd, dpbias, ddbias, da, db[, dwo])."""
     (x, w, wd, pbias, dbias, a, b, w_out, g), (bsz, c_in, c_out, n) = _prepare(
-        kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out, g)
+        kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out, g, group)
     s = _split_k(x, c_in, c_out, bsz * 3 * n)
     nqc = 2 if w_out is None else 3
+    tiles = -(-n // TILE)
+    spt, cols = _bias_rows(n, group)
     dx, dw2, sums = torch.empty_like(x), _empty(x, 2, c_out, c_in), _empty(x, nqc, c_out)
-    dpdb = None if pbias is None else _empty(x, 6, bsz, c_out)
+    dpdb = None if pbias is None else _empty(x, 6, bsz, cols, c_out)
     dp, dd = _empty(x, bsz, 3, c_out, n), _empty(x, bsz, 3, c_out, n)
-    partial = _empty(x, nqc + 6, bsz, -(-n // TILE), c_out)
+    # the per-channel sums (nqc, B, T, C_out), then the bias sums (6, B, T * spt, C_out)
+    partial = _empty(x, (nqc + (0 if pbias is None else 6 * spt)) * bsz * tiles * c_out)
     dw_part = _empty(x, 2, s, c_out, c_in)
     ptrs = [_ptr(t) for t in (x, w, wd, pbias, dbias, a, b)]
     if w_out is not None:
         ptrs.append(w_out.data_ptr())
     ptrs += [_ptr(t) for t in (g, dx, dw2, sums, dpdb, dp, dd, partial, dw_part)]
-    kernel(x, *ptrs, bsz, c_in, c_out, n, s, 1 - negative_slope)
+    _counted(kernel, group)(x, *ptrs, bsz, c_in, c_out, n, s, group, 1 - negative_slope)
     dpb = ddb = None
     if dpdb is not None:
-        dpdb = dpdb.reshape(2, 3, bsz, c_out).permute(0, 2, 1, 3)[..., None]
-        dpb, ddb = dpdb[0], dpdb[1]
+        dpb, ddb = _bias_grads(dpdb, 6, bsz, c_out, n, group)
     return (dx, dw2[0], dw2[1], dpb, ddb, *sums.unbind(0))
 
 
-def layer_bwd(x, w, wd, pbias, dbias, a, b, g, negative_slope: float):
+def layer_bwd(x, w, wd, pbias, dbias, a, b, g, negative_slope: float, group: int = 0):
     """Kernel B' on a CUDA tensor, its plain version on a CPU tensor."""
     if not x.is_cuda:
-        return reference_layer_bwd(x, w, wd, pbias, dbias, a, b, g, negative_slope)
+        return reference_layer_bwd(x, w, wd, pbias, dbias, a, b, g, negative_slope, group)
     return _layer_bwd_launch(_LAYER_BWD, x, w, wd, pbias, dbias, a, b, None, g,
-                             negative_slope)
+                             negative_slope, group)
 
 
 def layer_project_bwd(x, w, wd, pbias, dbias, a, b, w_out, g,
-                      negative_slope: float):
+                      negative_slope: float, group: int = 0):
     """Kernel C' on a CUDA tensor, its plain version on a CPU tensor."""
     if not x.is_cuda:
         return reference_layer_project_bwd(
-            x, w, wd, pbias, dbias, a, b, w_out, g, negative_slope)
+            x, w, wd, pbias, dbias, a, b, w_out, g, negative_slope, group)
     return _layer_bwd_launch(_PROJECT_BWD, x, w, wd, pbias, dbias, a, b, w_out,
-                             g, negative_slope)
+                             g, negative_slope, group)
 
 
 # ------------------------------------------------------------- autograd
@@ -280,9 +352,10 @@ class _LayerStats(torch.autograd.Function):
     """Kernel S forward, S' backward; saves only (x, w, pbias)."""
 
     @staticmethod
-    def forward(ctx, x, w, pbias):
+    def forward(ctx, x, w, pbias, group):
         ctx.save_for_backward(x, w, pbias)
-        return stats_fwd(x, w, pbias)
+        ctx.group = group
+        return stats_fwd(x, w, pbias, group)
 
     @staticmethod
     def backward(ctx, c1, c2):
@@ -290,61 +363,66 @@ class _LayerStats(torch.autograd.Function):
         c_out = w.shape[0]
         c1 = torch.zeros(c_out, device=x.device, dtype=w.dtype) if c1 is None else c1
         c2 = torch.zeros(c_out, device=x.device, dtype=w.dtype) if c2 is None else c2
-        return stats_bwd(x, w, pbias, c1, c2)
+        return (*stats_bwd(x, w, pbias, c1, c2, ctx.group), None)
 
 
 class _LayerFused(torch.autograd.Function):
     """Kernel B forward, B' backward; saves only the inputs."""
 
     @staticmethod
-    def forward(ctx, x, w, wd, pbias, dbias, a, b, negative_slope):
+    def forward(ctx, x, w, wd, pbias, dbias, a, b, negative_slope, group):
         ctx.save_for_backward(x, w, wd, pbias, dbias, a, b)
-        ctx.negative_slope = negative_slope
+        ctx.negative_slope, ctx.group = negative_slope, group
         if not x.is_cuda:
-            return reference_layer_fused(x, w, wd, pbias, dbias, a, b, negative_slope)
-        return _launch(_LAYER, x, w, wd, pbias, dbias, a, b, None, negative_slope)
+            return reference_layer_fused(x, w, wd, pbias, dbias, a, b, negative_slope, group)
+        return _launch(_LAYER, x, w, wd, pbias, dbias, a, b, None, negative_slope, group)
 
     @staticmethod
     def backward(ctx, g):
-        return (*layer_bwd(*ctx.saved_tensors, g, ctx.negative_slope), None)
+        return (*layer_bwd(*ctx.saved_tensors, g, ctx.negative_slope, ctx.group),
+                None, None)
 
 
 class _LayerFusedProject(torch.autograd.Function):
     """Kernel C forward, C' backward; saves only the inputs."""
 
     @staticmethod
-    def forward(ctx, x, w, wd, pbias, dbias, a, b, w_out, negative_slope):
+    def forward(ctx, x, w, wd, pbias, dbias, a, b, w_out, negative_slope, group):
         ctx.save_for_backward(x, w, wd, pbias, dbias, a, b, w_out)
-        ctx.negative_slope = negative_slope
+        ctx.negative_slope, ctx.group = negative_slope, group
         if not x.is_cuda:
             return reference_layer_fused_project(
-                x, w, wd, pbias, dbias, a, b, w_out, negative_slope)
-        return _launch(_PROJECT, x, w, wd, pbias, dbias, a, b, w_out, negative_slope)
+                x, w, wd, pbias, dbias, a, b, w_out, negative_slope, group)
+        return _launch(_PROJECT, x, w, wd, pbias, dbias, a, b, w_out, negative_slope,
+                       group)
 
     @staticmethod
     def backward(ctx, g):
-        return (*layer_project_bwd(*ctx.saved_tensors, g, ctx.negative_slope), None)
+        return (*layer_project_bwd(*ctx.saved_tensors, g, ctx.negative_slope, ctx.group),
+                None, None)
 
 
-def vn_layer_stats(x, w, pbias: Optional[torch.Tensor] = None):
-    """x: (B, 3, C_in, N); w: (C_out, C_in); pbias: (B, 3, C_out, 1) or None.
+def vn_layer_stats(x, w, pbias: Optional[torch.Tensor] = None, group: int = 0):
+    """x: (B, 3, C_in, N); w: (C_out, C_in); pbias: (B, 3, C_out, 1), or
+    (B, 3, C_out, N // group) with ``group``, or None.
     Returns (s1, s2): (C_out,) sums over samples and points of ``|p| + EPS``
     and ``(|p| + EPS)^2``; the BN moments are ``s1 / (B N)``, ``s2 / (B N)``."""
-    return _LayerStats.apply(x, w, pbias)
+    return _LayerStats.apply(x, w, pbias, group)
 
 
 def vn_layer_fused(x, w, wd, pbias: Optional[torch.Tensor],
-                   dbias: Optional[torch.Tensor], a, b, negative_slope: float):
+                   dbias: Optional[torch.Tensor], a, b, negative_slope: float,
+                   group: int = 0):
     """x: (B, 3, C_in, N); w, wd: (C_out, C_in); pbias, dbias: per-sample
-    (B, 3, C_out, 1) or both None; a, b: (C_out,) folded BN affine.
-    Returns (B, 3, C_out, N)."""
-    return _LayerFused.apply(x, w, wd, pbias, dbias, a, b, negative_slope)
+    (B, 3, C_out, 1), per-group (B, 3, C_out, N // group) with ``group``, or
+    both None; a, b: (C_out,) folded BN affine.  Returns (B, 3, C_out, N)."""
+    return _LayerFused.apply(x, w, wd, pbias, dbias, a, b, negative_slope, group)
 
 
 def vn_layer_fused_project(x, w, wd, pbias: Optional[torch.Tensor],
                            dbias: Optional[torch.Tensor], a, b, w_out,
-                           negative_slope: float):
+                           negative_slope: float, group: int = 0):
     """The layer of :func:`vn_layer_fused` contracted with ``w_out``
     (C_out,) over its output channels.  Returns (B, 3, 1, N)."""
     return _LayerFusedProject.apply(x, w, wd, pbias, dbias, a, b, w_out,
-                                    negative_slope)
+                                    negative_slope, group)

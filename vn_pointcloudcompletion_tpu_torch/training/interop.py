@@ -5,15 +5,24 @@ tree of a JAX ``PCNNet`` (any array-likes: numpy, or JAX arrays converted by
 numpy) and needs no JAX itself.  It tells the pipeline from the tree:
 
 - encoders ``vn_pointnet`` (the exact inverse of the JAX package's
-  ``torch_interop.pcnnet_variables_from_torch``), ``vn_dgcnn_fps`` and
-  ``dgcnn_fps`` (the inverses of ``vn_dgcnn_fps_from_state_dict`` and
-  ``dgcnn_fps_from_state_dict``, the reference's ``VN_DGCNN_fps`` and
-  ``DGCNN_fps`` keys);
-- decoders ``vn_foldingnet`` and ``foldingnet``.  The first fold layer's
-  split kernels are joined back into the reference's single weight, columns
-  [global | seed | point].  The JAX package maps no reference ``FoldingNet``
-  checkpoint; its keys here are those of the reference's ``final_conv``
-  Sequential (Conv1d, BatchNorm1d, ReLU, Conv1d, BatchNorm1d, ReLU, Conv1d).
+  ``torch_interop.pcnnet_variables_from_torch``), ``vn_dgcnn_fps``,
+  ``dgcnn_fps`` and ``vn_pointr`` (the inverses of
+  ``vn_dgcnn_fps_from_state_dict``, ``dgcnn_fps_from_state_dict`` and
+  ``vn_pointr_from_state_dict``, the reference's ``VN_DGCNN_fps``,
+  ``DGCNN_fps`` and ``VN_PCTransformer`` keys).  vn_pointr's scanned tail
+  ``encoder_scan`` (parameters and statistics stacked on a leading axis) is
+  unstacked into the blocks ``encoder.1`` .. ``encoder.5``, and its coarse
+  head ``vn_coarse_pred.2``, which the JAX mapping leaves out (the
+  reference's head is 1024 wide), is carried too;
+- decoders ``vn_foldingnet``, ``attention_vn_foldingnet`` and
+  ``foldingnet``.  A fold layer's split kernels are joined back into the
+  reference's single weight, columns [global | seed | point] for
+  ``vn_foldingnet``, [var | feat] for the attention decoder's pair folds.
+  The JAX package maps no reference ``FoldingNet`` or attention decoder
+  checkpoint; their keys here are those of the reference modules
+  (``final_conv`` Sequential: Conv1d, BatchNorm1d, ReLU, Conv1d,
+  BatchNorm1d, ReLU, Conv1d; ``downsize_global``, ``transformer.{0,1}``,
+  ``vn_folding{1,2}.{0,1,2}``).
 """
 
 from __future__ import annotations
@@ -46,6 +55,64 @@ def _bn(sd: dict, key: str, p: Mapping, s: Mapping) -> None:
     p, s = p["BatchNorm_0"], s["BatchNorm_0"]
     sd[f"{key}.weight"], sd[f"{key}.bias"] = p["scale"], p["bias"]
     sd[f"{key}.running_mean"], sd[f"{key}.running_var"] = s["mean"], s["var"]
+
+
+def _vnlalr(sd: dict, key: str, p: Mapping, s: Mapping) -> None:
+    """VNLinearAndLeakyReLU with its norm-BatchNorm."""
+    sd[f"{key}.linear.map_to_feat.weight"] = p["linear"]["kernel"]
+    sd[f"{key}.leaky_relu.map_to_dir.weight"] = p["leaky_relu"]["dir_kernel"]
+    _bn(sd, f"{key}.batchnorm.bn", p["batchnorm"], s["batchnorm"])
+
+
+def _vn_block(sd: dict, key: str, p: Mapping, s: Mapping) -> None:
+    """VNBlock: norms, attention maps, conv1/conv2 where it has the kNN
+    branch, conv3/conv4."""
+    for norm in ("norm1", "norm2"):
+        ln = p[norm]["LayerNorm_0"]
+        sd[f"{key}.{norm}.layer_norm.weight"] = ln["scale"]
+        sd[f"{key}.{norm}.layer_norm.bias"] = ln["bias"]
+    for name in ("proj_vnq", "proj_vnk", "proj_vnv", "proj_vn"):
+        sd[f"{key}.attn.{name}.map_to_feat.weight"] = p["attn"][name]["kernel"]
+    for conv in ("conv1", "conv3", "conv4"):
+        if conv in p:
+            _vnllr(sd, f"{key}.{conv}", p[conv], s[conv])
+    if "conv2" in p:
+        sd[f"{key}.conv2.map_to_feat.weight"] = p["conv2"]["kernel"]
+
+
+def _unstack(tree, i: int):
+    """Layer i of a tree stacked on a leading axis (flax ``nn.scan``)."""
+    if isinstance(tree, Mapping):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _vn_pointr(sd: dict, p: Mapping, s: Mapping) -> None:
+    e = "encoder"
+    for conv, key in (("conv1", "conv1.0"), ("conv4", "conv4"), ("conv5", "conv5"),
+                      ("conv6", "conv6")):
+        _vnllr(sd, f"{e}.grouper.{key}", p["grouper"][conv], s["grouper"][conv])
+    _vnllr(sd, f"{e}.vn_input_proj.0", p["vn_input_proj_0"], s["vn_input_proj_0"])
+    sd[f"{e}.vn_input_proj.1.map_to_feat.weight"] = p["vn_input_proj_1"]["kernel"]
+    _vnlalr(sd, f"{e}.fourth_vn_pos_embed.0", p["fourth_vn_pos_embed_0"],
+            s["fourth_vn_pos_embed_0"])
+    sd[f"{e}.fourth_vn_pos_embed.1.map_to_feat.weight"] = p["fourth_vn_pos_embed_1"]["kernel"]
+    heads = sorted(int(k.split("_")[1]) for k in p if k.startswith("encoder_")
+                   and k != "encoder_scan")
+    for i in heads:
+        _vn_block(sd, f"{e}.encoder.{i}", p[f"encoder_{i}"], s[f"encoder_{i}"])
+    if "encoder_scan" in p:
+        tail_p, tail_s = p["encoder_scan"]["block"], s["encoder_scan"]["block"]
+        depth = np.asarray(tail_p["norm1"]["LayerNorm_0"]["scale"]).shape[0]
+        for j in range(depth):
+            _vn_block(sd, f"{e}.encoder.{len(heads) + j}", _unstack(tail_p, j),
+                      _unstack(tail_s, j))
+    _vnlalr(sd, f"{e}.vn_increase_dim.0", p["vn_increase_dim_0"], s["vn_increase_dim_0"])
+    sd[f"{e}.vn_increase_dim.1.map_to_feat.weight"] = p["vn_increase_dim_1"]["kernel"]
+    sd[f"{e}.vn_global_pool.map_to_dir.weight"] = p["vn_global_pool"]["dir_kernel"]
+    sd[f"{e}.vn_coarse_pred.0.map_to_feat.weight"] = p["vn_coarse_pred_0"]["kernel"]
+    sd[f"{e}.vn_coarse_pred.1.map_to_dir.weight"] = p["vn_coarse_pred_1"]["dir_kernel"]
+    sd[f"{e}.vn_coarse_pred.2.map_to_feat.weight"] = p["vn_coarse_pred_2"]["kernel"]
 
 
 def _vn_pointnet(sd: dict, t: Mapping, ts: Mapping) -> None:
@@ -100,6 +167,22 @@ def _vn_foldingnet(sd: dict, d: Mapping, ds: Mapping) -> None:
     sd["decoder.final_conv.2.map_to_feat.weight"] = d["final_conv_2"]["kernel"]
 
 
+def _attention_vn_foldingnet(sd: dict, d: Mapping, ds: Mapping) -> None:
+    sd["decoder.downsize_global.map_to_feat.weight"] = d["downsize_global"]["kernel"]
+    for i in (0, 1):
+        _vn_block(sd, f"decoder.transformer.{i}", d[f"transformer_{i}"], ds[f"transformer_{i}"])
+    for stage in ("vn_folding1", "vn_folding2"):
+        f0 = d[f"{stage}_0"]
+        joined = {
+            "kernel": np.concatenate([f0["kernel_var"], f0["kernel_feat"]], axis=1),
+            "dir_kernel": np.concatenate([f0["dir_kernel_var"], f0["dir_kernel_feat"]], axis=1),
+            "batchnorm": f0["batchnorm"],
+        }
+        _vnllr(sd, f"decoder.{stage}.0", joined, ds[f"{stage}_0"])
+        _vnllr(sd, f"decoder.{stage}.1", d[f"{stage}_1"], ds[f"{stage}_1"])
+        sd[f"decoder.{stage}.2.map_to_feat.weight"] = d[f"{stage}_2"]["kernel"]
+
+
 def _foldingnet(sd: dict, d: Mapping, ds: Mapping) -> None:
     f0 = d["final_conv_0"]
     w = np.concatenate([f0["kernel_global"], f0["kernel_seed"], f0["kernel_point"]], axis=1)
@@ -117,6 +200,8 @@ def state_dict_from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]
     sd: dict = {}
     if "trunk" in enc:
         _vn_pointnet(sd, enc["trunk"], enc_s["trunk"])
+    elif "grouper" in enc:
+        _vn_pointr(sd, enc, enc_s)
     elif "conv1" in enc:
         _vn_dgcnn_fps(sd, enc, enc_s)
     else:
@@ -125,6 +210,8 @@ def state_dict_from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]
         d, ds = params["decoder"], stats["decoder"]
         if "final_bn_0" in d:
             _foldingnet(sd, d, ds)
+        elif "downsize_global" in d:
+            _attention_vn_foldingnet(sd, d, ds)
         else:
             _vn_foldingnet(sd, d, ds)
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
