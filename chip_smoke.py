@@ -8,8 +8,8 @@ on one NVIDIA GPU:
    versions and the TF32 settings.
 2. Builds every kernel under ``vn_pointcloudcompletion_tpu_torch/csrc/``
    (one ``nvcc`` per source, all at once) and prints the build time.
-3. Holds each of the thirteen kernels (A, A', S, S', B, B', C, C', D, K1,
-   K2, K3, F) against its plain PyTorch version on the card at the shapes of
+3. Holds each of the fourteen kernels (A, A', S, S', B, B', C, C', D, K1,
+   K2, K3, F, E) against its plain PyTorch version on the card at the shapes of
    the main paths (batch 8), with the tolerance stated beside it (K1, K2,
    K3 and F: indices equal; K1 and K2 on VN DGCNN conv1's own input, whose
    repeated points tie), times both with CUDA events (K1 also against
@@ -54,13 +54,27 @@ on one NVIDIA GPU:
    as information beside the plain path from inputs one ulp away; both
    step times, peak memory, a profile.
    Phase 3 checks B, C, S and their backwards in group=S mode at the pair
-   folds' shape, and K2 at k = 8 on the grouper's own 128 centres.
+   folds' shape, and K2 at k = 8 on the grouper's own 128 centres; and
+   kernel E (the approximate EMD's annealing rounds) at (8, 16384) vs
+   (8, 16384) on synthetic scans (timed, twice for equal bits) and Gaussian
+   clouds, at 14336 (timed) and 4096 vs 16384, against float64 at
+   (2, 4096), and the gradient of the trainable EMD from its moments.
+10. ``--emd test`` through the command line on the flagship and on
+   ``vn_pointr_448`` (14336 points), counted (E once per batch), one batch's
+   EMD column through E against the plain version; 10b: ``overfit`` +
+   ``--resume`` of the flagship with ``coarse_loss`` ``emd`` and ``dcd``
+   (dense matching at 1024 points: no E launch, as in JAX).
+11. The standalone ``PCN``, ``VNPCN`` and classic ``DGCNN`` (k 40) at batch
+   8, 2048 points: each forward through the kernels against the plain path,
+   the launches of one forward asserted (DGCNN: K2 4), K2 at k 40 on the
+   synthetic partials against its plain version.
 
 Every phase prints its wall time.  Any failure exits non-zero.  The line
 before the last is a JSON object with one record per kernel (its launches
 are those of the training run of its path: phase 5 for the flagship's nine,
-phase 7 for K2, K3 and F, phase 9 for the group=S rows; K1, and C and C'
-in group=S mode, are on no model's path); the last line is
+phase 7 for K2, K3 and F, phase 9 for the group=S rows, phase 10's two
+``--emd test`` runs for E; K1, and C and C' in group=S mode, are on no
+model's path); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -137,6 +151,21 @@ FORWARD_LAUNCHES = {
                       "vn_bn_leaky_fwd": 3, "vn_layer_fused_fwd": 1,
                       "vn_layer_fused_fwd[group]": 2, "vn_layer_fused_project_fwd": 2},
 }
+# Kernel E (phase 3) against its plain version, each max|d| / max: the cost
+# within EMD_COST_TOL, the moments within EMD_MOMENT_TOL (the level -4^7
+# amplifies the rounding of sums taken in another order on near ties; the
+# bounds of tests/test_ops.py::TestEMDOracle for JAX's kernel against its
+# streamed path); against float64, no further than EMD_F64_RATIO x the
+# float32 plain version plus a floor of 2e-4 of the scale (3e-3 for t); the
+# gradient from E's moments within EMD_GRAD_TOL of the plain one's max.
+EMD_COST_TOL, EMD_MOMENT_TOL, EMD_F64_RATIO, EMD_GRAD_TOL = 2e-4, 1e-2, 3.0, 5e-3
+# FP32 operations per pair of kernel E's schedule (csrc/emd.cu), each exp
+# counted as one: d = 3 sub + 3 mul + 2 add, then level * d and exp; round 0's
+# supply pass adds one fma (2); each round's column pass four fmas (8); each
+# row pass four fmas, w * d and an fma (11), and in rounds 0-8 the next
+# round's supply, level * d, exp and an fma (4).
+EMD_D_OPS = 8 + 1 + 1
+EMD_OPS_PER_PAIR = (EMD_D_OPS + 2) + 10 * (EMD_D_OPS + 8) + 10 * (EMD_D_OPS + 11) + 9 * 4
 # overfit epochs before --resume
 DGCNN_EPOCHS = {"vn_dgcnn": 4, "dgcnn_448": 2, "vn_pointr_448": 8}
 SYMBOL = {"A": "vn_bn_leaky_fwd", "A'": "vn_bn_leaky_bwd",
@@ -144,7 +173,7 @@ SYMBOL = {"A": "vn_bn_leaky_fwd", "A'": "vn_bn_leaky_bwd",
           "B": "vn_layer_fused_fwd", "B'": "vn_layer_fused_bwd",
           "C": "vn_layer_fused_project_fwd", "C'": "vn_layer_fused_project_bwd",
           "D": "chamfer_nn_one_sided", "K1": "topk_min", "K2": "knn_min",
-          "K3": "edge_knn_gather", "F": "furthest_point_sample"}
+          "K3": "edge_knn_gather", "F": "furthest_point_sample", "E": "emd_rounds"}
 FLAGSHIP_KERNELS = tuple(SYMBOL[k] for k in ("A", "A'", "S", "S'", "B", "B'", "C", "C'", "D"))
 
 
@@ -394,6 +423,7 @@ def check_kernels(dev):
            BATCH * n * n * (8 + 2), reps=10, plain_reps=3)
     del px, py
     records += check_knn_fps_kernels(dev, record, randn, uniform)
+    check_emd_kernel(dev, record)
     return records
 
 
@@ -616,6 +646,103 @@ def check_knn_fps_kernels(dev, record, randn, uniform):
     return records
 
 
+def emd_clouds(dev, n: int, m: int, kind: str):
+    """(x1 (8, n, 3), x2 (8, m, 3)): ``"scan"``, each sample's synthetic
+    complete scan (its first n points) against another sample's (the first
+    m), as ``test --emd`` compares a completion with a ground truth; or
+    ``"gauss"``, Gaussian clouds x 0.3 as JAX's EMD tests take them."""
+    import numpy as np
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.data.synthetic import SyntheticCompletionDataset
+
+    if kind == "gauss":
+        g = torch.Generator(device=dev).manual_seed(n + m)
+        return [torch.randn(BATCH, k, 3, generator=g, device=dev) * 0.3 for k in (n, m)]
+    ds = SyntheticCompletionDataset(BATCH + 1, seed=5)
+    scans = np.stack([ds[i][1] for i in range(BATCH + 1)])
+    return (torch.from_numpy(scans[:BATCH, :n]).to(dev),
+            torch.from_numpy(scans[1:, :m]).to(dev))
+
+
+def emd_close(got, want):
+    """Kernel E's five outputs against the plain version's: (largest
+    max|d| / max, ok)."""
+    worst_rel, ok = 0.0, True
+    for k, (g, w) in enumerate(zip(got, want)):
+        rel = ((g - w).abs().max() / w.abs().max()).item()
+        worst_rel = max(worst_rel, rel)
+        ok = ok and rel <= (EMD_COST_TOL if k == 0 else EMD_MOMENT_TOL)
+    return worst_rel, ok
+
+
+def check_emd_kernel(dev, record):
+    """Phase 3, kernel E: at (8, 16384) vs (8, 16384), the ``test --emd``
+    shape of the 1024-coarse pipelines, on synthetic scans (recorded and
+    timed, twice for equal bits) and Gaussian clouds; at 14336 (``num_coarse``
+    448; timed) and at 4096 vs 16384; against float64 at (2, 4096); the
+    trainable form's gradient from E's moments against the plain one's."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.ops import emd_pallas
+    from vn_pointcloudcompletion_tpu_torch.ops.emd import earth_mover_distance_blocked
+
+    n = 16384
+    x1, x2 = emd_clouds(dev, n, n, "scan")
+    pairs = BATCH * n * n
+    record("E emd_rounds", "vn_pointcloudcompletion_tpu_torch/csrc/emd.cu",
+           "vn_pointcloudcompletion_tpu/ops/emd_pallas.py:304",
+           lambda: emd_pallas.emd_rounds_kernel(x1, x2),
+           lambda: emd_pallas.reference_emd_rounds(x1, x2),
+           emd_close, f"cost {EMD_COST_TOL}, moments {EMD_MOMENT_TOL} x max",
+           nbytes(x1, x2) + 4 * BATCH * (1 + 4 * n + 4 * n), EMD_OPS_PER_PAIR * pairs,
+           reps=5, plain_reps=1, repro=True)
+    for (nn, mm, kind) in ((n, n, "gauss"), (14336, 14336, "scan"), (4096, n, "gauss")):
+        a, b = emd_clouds(dev, nn, mm, kind)
+        got, again = emd_pallas.emd_rounds_kernel(a, b), emd_pallas.emd_rounds_kernel(a, b)
+        err, ok = emd_close(got, emd_pallas.reference_emd_rounds(a, b))
+        same = all(torch.equal(u, v) for u, v in zip(got, again))
+        timing = ""
+        if nn == 14336:
+            ms = cuda_ms(lambda: emd_pallas.emd_rounds_kernel(a, b), 5)
+            b_ms, _ = bound(0, EMD_OPS_PER_PAIR * BATCH * nn * mm)
+            timing = f"; kernel {ms:.4f} ms, bound {b_ms:.4f} ms (operations)"
+        print(f"[kernel E] {nn} vs {mm} ({kind}): max|d| / max {err:.3e} (cost {EMD_COST_TOL}, "
+              f"moments {EMD_MOMENT_TOL}); equal bits again: {same}{timing} "
+              f"{'PASS' if ok and same else 'FAIL'}", flush=True)
+        if not (ok and same):
+            raise AssertionError(f"kernel E disagrees at {nn} vs {mm} ({kind})")
+
+    # float64: each output no further than the float32 plain version
+    a, b = emd_clouds(dev, 4096, 4096, "scan")
+    a, b = a[:2].contiguous(), b[:2].contiguous()
+    ref = emd_pallas.reference_emd_rounds(a.double(), b.double())
+    got, plain = emd_pallas.emd_rounds_kernel(a, b), emd_pallas.reference_emd_rounds(a, b)
+    ratios = []
+    for k, (g, p, r) in enumerate(zip(got, plain, ref)):
+        floor = (3e-3 if k in (2, 4) else 2e-4) * r.abs().max().item()
+        dk, dp = (g.double() - r).abs().max().item(), (p.double() - r).abs().max().item()
+        ratios.append((dk, dp, dk <= EMD_F64_RATIO * dp + floor))
+    print("[kernel E] (2, 4096) against float64, max|d| kernel / plain: " + ", ".join(
+        f"{name} {dk:.3e} / {dp:.3e}" for name, (dk, dp, _) in zip(
+            ("cost", "s_n", "t_n", "s_m", "t_m"), ratios))
+        + f" (kernel within {EMD_F64_RATIO} x plain + floor)", flush=True)
+    if not all(ok for _, _, ok in ratios):
+        raise AssertionError("kernel E is further from float64 than its plain version allows")
+
+    # the gradient through the trainable form, E's moments against the plain ones
+    grads = []
+    for use_kernels in (True, False):
+        p, q = x1.clone().requires_grad_(), x2.clone().requires_grad_()
+        earth_mover_distance_blocked(p, q, use_kernels).sum().backward()
+        grads.append((p.grad, q.grad))
+    errs = [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(*grads)]
+    print(f"[kernel E] gradient at (8, 16384) from the moments, kernel vs plain: max|dg| / "
+          f"max|g| {max(errs):.3e} (tolerance {EMD_GRAD_TOL})", flush=True)
+    if max(errs) > EMD_GRAD_TOL:
+        raise AssertionError("kernel E's gradient disagrees with the plain version's")
+
+
 def main_path_batch(dev):
     """The batch of the train-step phases 5b and 7b (synthetic, seed 3) and
     the rotation of their step (seed 1): (partial, complete, rot)."""
@@ -651,6 +778,26 @@ def check_launches(path: str, counts: dict, forwards: int, what: str) -> None:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
 
 
+def _make_experiment(work: str, path: str):
+    """A fresh experiment ``smoke`` under ``work/experiments`` (the
+    ``OUTPUT_DIR`` of the CLI calls after it) holding a ``PATHS[path]``
+    model drawn from seed 0, saved as its best: (config, model)."""
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.training.checkpoint import save_model
+    from vn_pointcloudcompletion_tpu_torch.utils.config import store_config
+
+    shutil.rmtree(work, ignore_errors=True)
+    exp_dir = os.path.join(work, "experiments", "smoke")
+    os.makedirs(os.path.join(exp_dir, "models"))
+    config = _smoke_config(path, test_rotation="so3", synthetic_test_samples=2 * BATCH)
+    config.exp_dir = exp_dir
+    store_config(config)
+    model = build_model(config)
+    save_model(exp_dir, model, "best")
+    os.environ["OUTPUT_DIR"] = os.path.join(work, "experiments")
+    return config, model
+
+
 def serve_path(dev, path: str = "flagship"):
     """Phase 4: predict + test at full width through the CLI, counted; then
     the whole forward through the kernels against the plain path."""
@@ -660,21 +807,11 @@ def serve_path(dev, path: str = "flagship"):
     from vn_pointcloudcompletion_tpu_torch import __main__ as cli
     from vn_pointcloudcompletion_tpu_torch.data.ply import read_ply_points, write_ply_points
     from vn_pointcloudcompletion_tpu_torch.data.synthetic import SyntheticCompletionDataset
-    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
     from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib
-    from vn_pointcloudcompletion_tpu_torch.training.checkpoint import save_model
-    from vn_pointcloudcompletion_tpu_torch.utils.config import store_config
 
     tag = f"[serve {path}]"
     work = os.path.join(ROOT, "build", "chip_smoke")
-    shutil.rmtree(work, ignore_errors=True)
-    exp_dir = os.path.join(work, "experiments", "smoke")
-    os.makedirs(os.path.join(exp_dir, "models"))
-    config = _smoke_config(path, test_rotation="so3", synthetic_test_samples=2 * BATCH)
-    config.exp_dir = exp_dir
-    store_config(config)
-    model = build_model(config)
-    save_model(exp_dir, model, "best")
+    config, model = _make_experiment(work, path)
 
     in_dir = os.path.join(work, "partials")
     os.makedirs(in_dir)
@@ -682,7 +819,6 @@ def serve_path(dev, path: str = "flagship"):
     for i in range(8):
         write_ply_points(os.path.join(in_dir, f"scan{i}.ply"), scans[i][0])
     out_dir = os.path.join(work, "completions")
-    os.environ["OUTPUT_DIR"] = os.path.join(work, "experiments")
 
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
@@ -765,9 +901,10 @@ def serve_path(dev, path: str = "flagship"):
     shutil.rmtree(work, ignore_errors=True)
 
 
-def train_path(dev, path: str = "flagship"):
+def train_path(dev, path: str = "flagship", epochs: int = 0, **extra):
     """Phase 5: overfit + train --resume at full width through the CLI,
-    counted."""
+    counted; ``epochs`` and ``extra`` config fields (phase 10b: the coarse
+    loss) override the path's."""
     import math
 
     import torch
@@ -775,8 +912,8 @@ def train_path(dev, path: str = "flagship"):
     from vn_pointcloudcompletion_tpu_torch import __main__ as cli
     from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib
 
-    tag = f"[train {path}]"
-    epochs = TRAIN_EPOCHS if path == "flagship" else DGCNN_EPOCHS[path]
+    tag = f"[train {path}{''.join(f' {k}={v}' for k, v in extra.items())}]"
+    epochs = epochs or (TRAIN_EPOCHS if path == "flagship" else DGCNN_EPOCHS[path])
     work = os.path.join(ROOT, "build", "chip_smoke_train")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -787,7 +924,7 @@ def train_path(dev, path: str = "flagship"):
     # (the VN DGCNN's too, over 4 epochs; the DGCNN at 448 runs 2 epochs and
     # is checked for finite losses, its step against the plain path in 8b).
     config = _smoke_config(path, name="smoke_train", lr=3e-4, rotation="so3",
-                           val_rotation="so3", log_frequency=1)
+                           val_rotation="so3", log_frequency=1, **extra)
     with open(os.path.join(work, "config.json"), "w") as f:
         json.dump(config.to_dict(), f)
     os.environ["OUTPUT_DIR"] = os.path.join(work, "experiments")
@@ -830,7 +967,7 @@ def train_path(dev, path: str = "flagship"):
         raise AssertionError("non-finite logged loss")
     if len(train) != epochs + 1:
         raise AssertionError(f"epochs logged: {train}")
-    if path != "dgcnn_448" and not train[epochs - 1] < train[0]:
+    if path != "dgcnn_448" and not extra and not train[epochs - 1] < train[0]:
         raise AssertionError(f"training loss did not fall: {train}")
     if summary["epochs_run"] != epochs or resumed["epochs_run"] != 1:
         raise AssertionError(f"epochs run: {summary} then {resumed}")
@@ -843,6 +980,119 @@ def train_path(dev, path: str = "flagship"):
             raise AssertionError("train --resume did not continue the run")
     shutil.rmtree(work, ignore_errors=True)
     return counts
+
+
+def emd_test_path(dev, path: str):
+    """Phase 10: ``--emd test`` through the CLI on 2 batches of the
+    synthetic test set, counted (kernel E once per batch); then one batch's
+    EMD column through kernel E against the plain version, within
+    EMD_COST_TOL relative.  Returns the run's launch counts."""
+    import math
+
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch import __main__ as cli
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib
+    from vn_pointcloudcompletion_tpu_torch.ops.emd import earth_mover_distance_blocked
+    from vn_pointcloudcompletion_tpu_torch.ops.rotations import rotate_points
+    from vn_pointcloudcompletion_tpu_torch.training.evaluate import metric_step
+
+    tag = f"[emd test {path}]"
+    work = os.path.join(ROOT, "build", "chip_smoke_emd")
+    _, model = _make_experiment(work, path)
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    table = cli.main(["-n", "smoke", "--resume", "--emd", "test"])
+    torch.cuda.synchronize()
+    counts = cuda_lib.launch_counts()
+    row = table["synthetic"]
+    print(f"{tag} test --emd, 2 batches of {BATCH}: {time.perf_counter() - t0:.3f} s (host "
+          f"clock, first call); EMD(1e-3) {row['emd'] * 1e3:.4f}; kernel E launches "
+          f"{counts['emd_rounds']}")
+    if counts["emd_rounds"] != 2:
+        raise AssertionError(f"{tag} kernel E launched {counts['emd_rounds']} times, not 2")
+    if not (math.isfinite(row["emd"]) and row["emd"] > 0):
+        raise AssertionError(f"{tag} bad EMD column {row}")
+
+    partial, complete, rot = main_path_batch(dev)
+    model = model.to(dev).eval()
+    out_k, pred = metric_step(model, partial, complete, rot, with_emd=True)
+    n = pred.shape[1]
+    with torch.no_grad():
+        plain = earth_mover_distance_blocked(pred, rotate_points(complete, rot)[:, :n], False) / n
+    err = ((out_k["emd"] - plain).abs() / plain.abs()).max().item()
+    print(f"{tag} one batch, {n} vs {n} points: EMD through kernel E vs plain, max rel err "
+          f"{err:.3e} (tolerance {EMD_COST_TOL})")
+    if err > EMD_COST_TOL:
+        raise AssertionError(f"{tag} the EMD column disagrees with the plain path")
+    shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
+def coarse_loss_train(dev):
+    """Phase 10b: ``overfit`` then ``--resume`` on the flagship with the
+    ``emd`` and the ``dcd`` coarse losses (the dense approx_match at 1024 vs
+    1024 points: no launch of kernel E, as in JAX)."""
+    for loss in ("emd", "dcd"):
+        counts = train_path(dev, "flagship", 2, coarse_loss=loss)
+        if counts["emd_rounds"] != 0:
+            raise AssertionError(f"coarse_loss {loss}: kernel E launched {counts['emd_rounds']}")
+
+
+def set_kernels(model, enabled: bool):
+    """``use_kernels`` of every module of a standalone model."""
+    for m in model.modules():
+        if hasattr(m, "use_kernels"):
+            m.use_kernels = enabled
+    return model
+
+
+def standalone_models(dev):
+    """Phase 11: ``PCN`` (16384 dense, latent 1024, grid 4), ``VNPCN`` (latent
+    1024) and the classic ``DGCNN`` (num_coarse 448, k 40), weights from seed
+    0, eval mode, batch 8, 2048 input points (the rotated synthetic
+    partials): each forward through the kernels against the plain path, the
+    launches of one forward asserted; K2 at k 40 on the partials, which
+    repeat points, against its plain version (indices equal)."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.models.composer import init_weights_
+    from vn_pointcloudcompletion_tpu_torch.models.dgcnn import DGCNN
+    from vn_pointcloudcompletion_tpu_torch.models.pcn import PCN, VNPCN
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib, knn_pallas
+    from vn_pointcloudcompletion_tpu_torch.ops.rotations import rotate_points
+
+    partial, _, rot = main_path_batch(dev)
+    xyz = rotate_points(partial, rot)
+    err, ok = same_indices(0.0)(knn_pallas.knn_min_fwd(xyz, xyz, 40),
+                                knn_pallas.reference_knn_min(xyz, xyz, 40))
+    print(f"[standalone] K2 at k 40 on the partials: max_abs_err {err:.3e} (indices and values "
+          f"equal) {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("kernel K2 disagrees at k 40")
+    # launches of one forward: VNPCN's encoder kernel A at first_conv.0 and
+    # second_conv.0; DGCNN's four graphs through K2; PCN none
+    cases = (("PCN", PCN(16384, 1024, 4), {}),
+             ("VNPCN", VNPCN(latent_dim=1024), {"vn_bn_leaky_fwd": 2}),
+             ("DGCNN", DGCNN(448, 40), {"knn_min": 4}))
+    for name, model, launches in cases:
+        model = init_weights_(model, 0).to(dev).eval()
+        with torch.no_grad():
+            cuda_lib.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = model(xyz)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = {k: v for k, v in cuda_lib.launch_counts().items() if v}
+            want = set_kernels(model, False)(xyz)
+        errs = [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want)
+                if g is not None]
+        finite = all(torch.isfinite(g).all() for g in got if g is not None)
+        print(f"[standalone] {name}: output shapes {[tuple(g.shape) for g in got if g is not None]}, "
+              f"kernels vs plain max|d| / max {max(errs):.3e} (tolerance 1e-6); launches "
+              f"{counts} (expected {launches}); first forward {ms:.3f} ms (host clock)")
+        if counts != launches or max(errs) > 1e-6 or not finite:
+            raise AssertionError(f"{name}: kernels disagree with the plain path")
 
 
 def rel_errs(got, want):
@@ -1489,6 +1739,11 @@ def main() -> int:
     phase("9 vn_pointr num_coarse 448 serve", serve_path, dev, "vn_pointr_448")
     pointr_counts = phase("9 vn_pointr num_coarse 448 train", train_path, dev, "vn_pointr_448")
     phase("9b vn_pointr num_coarse 448 train step", pointr_train_step, dev, smi)
+    emd_counts = phase("10 flagship test --emd", emd_test_path, dev, "flagship")
+    emd_counts_448 = phase("10 vn_pointr num_coarse 448 test --emd", emd_test_path, dev,
+                           "vn_pointr_448")
+    phase("10b flagship coarse losses emd, dcd", coarse_loss_train, dev)
+    phase("11 standalone PCN, VNPCN, DGCNN", standalone_models, dev)
     # launches: each kernel's count in the training run of its path (K1 is
     # on no model's path: the JAX package reaches it only for D > 512; nor
     # are C and C' in group=S mode: no model passes a group to them)
@@ -1496,6 +1751,8 @@ def main() -> int:
         sym = SYMBOL[rec["name"].split()[0]]
         if "group=" in rec["name"]:
             rec["launches"] = pointr_counts[f"{sym}[group]"]
+        elif sym == "emd_rounds":  # phase 10: both test --emd runs
+            rec["launches"] = emd_counts[sym] + emd_counts_448[sym]
         else:
             rec["launches"] = counts[sym] if sym in FLAGSHIP_KERNELS else dgcnn_counts[sym]
     print(json.dumps({"kernels": records}))

@@ -1,10 +1,11 @@
-"""The port's kernels (A, A', S, S', B, B', C, C', D, K1, K2, K3, F) against
-the JAX package.
+"""The port's kernels (A, A', S, S', B, B', C, C', D, K1, K2, K3, F, E)
+against the JAX package.
 
 On the CPU each wrapper takes its plain PyTorch version; those tests hold it
 against the Pallas kernel in interpret mode (and the numpy chamfer oracle)
 on the same numpy inputs, and check each ``autograd.Function`` with
-``torch.autograd.gradcheck`` in float64.  Tests marked ``gpu`` launch the CUDA kernels and
+``torch.autograd.gradcheck`` in float64 (kernel E's plain version is held
+against JAX in ``tests/test_torch_port_emd.py``).  Tests marked ``gpu`` launch the CUDA kernels and
 hold them against the plain versions on the card; they skip where
 ``torch.cuda.is_available()`` is false.  JAX is imported inside the tests,
 so the ``gpu`` tests also run on a machine without it:
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from vn_pointcloudcompletion_tpu_torch.ops import chamfer_pallas_bidir as port_chamfer
-from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib, fps_pallas, knn_pallas
+from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib, emd_pallas, fps_pallas, knn_pallas
 from vn_pointcloudcompletion_tpu_torch.ops import vn_fused as port_fused
 from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused as port_layer
 
@@ -203,6 +204,7 @@ def test_kernel_entry_points_exist_in_their_sources():
         "knn_min": "knn.cu",
         "edge_knn_gather": "knn.cu",
         "furthest_point_sample": "fps.cu",
+        "emd_rounds": "emd.cu",
     }
     assert {s.name for s in cuda_lib.sources()} == set(names.values())
     for sym, src in names.items():
@@ -723,11 +725,14 @@ def test_kernel_k1_cuda_matches_plain(cuda, n, m, k, ties):
 @pytest.mark.parametrize("n,m,dim,k", [(2048, 2048, 3, 16), (128, 128, 3, 16),
                                        (512, 2048, 3, 16), (100, 333, 40, 32),
                                        (50, 700, 512, 64), (0, 333, 3, 32),
-                                       (128, 128, 3, 8), (-1, 128, 3, 8)])
+                                       (128, 128, 3, 8), (-1, 128, 3, 8),
+                                       (2048, 2048, 3, 40), (2048, 2048, 64, 40),
+                                       (-1, 2048, 3, 40)])
 def test_kernel_k2_cuda_matches_plain(cuda, n, m, dim, k):
     """n = 0: the lane-tie cloud, every point a query.  k = 8 on 128 points:
     vn_pointr's proxy graph over its centres; n = -1 with the repeats of FPS
-    centres (resample padding wraps back to index 0) and a duplicate pair."""
+    centres (resample padding wraps back to index 0) and a duplicate pair.
+    k = 40 at 2048 points: the classic DGCNN's four graphs (D 3 and 64)."""
     g = torch.Generator().manual_seed(n + dim)
     if n == -1:
         q = r = _cloud(k, 2, m)
@@ -835,3 +840,87 @@ def test_cuda_dgcnn_kernels_match_plain_path(cuda, enc, dec, nc, counts):
     assert {k: v for k, v in got.items() if v} == counts
     torch.testing.assert_close(coarse, coarse_p, atol=1e-5, rtol=1e-4)
     torch.testing.assert_close(fine, fine_p, atol=1e-5, rtol=1e-4)
+
+
+# ------------------------------------------------------------ card, EMD
+#
+# Kernel E against its plain version on the card.  The two sum the same
+# terms in another order, and the level -4^7 amplifies that rounding on near
+# ties of the annealing: the cost within 2e-4 of its max, each moment within
+# 1e-2 of its max (the bounds ``tests/test_ops.py::TestEMDOracle`` holds
+# JAX's Pallas kernel to against its streamed path).
+
+
+def _emd_clouds(seed, b, n, m):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.standard_normal((b, k, 3)) * 0.3).astype(np.float32))
+            for k in (n, m)]
+
+
+def _assert_emd_close(got, want):
+    for name, g, w in zip(("cost", "s_n", "t_n", "s_m", "t_m"), got, want):
+        assert g.shape == w.shape, name
+        tol = 2e-4 if name == "cost" else 1e-2
+        err = (g - w).abs().max().item()
+        assert err <= tol * w.abs().max().item(), (name, err, w.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(1024, 1024), (2048, 512), (512, 2048), (1100, 1030)])
+def test_kernel_e_cuda_matches_plain(cuda, n, m):
+    """One counted launch per call, the plain version's numbers, the same
+    bits again, and no further from the plain version in float64 than 3x the
+    float32 plain version plus a floor of 2e-4 of the scale (3e-3 for t)."""
+    x1, x2 = (t.to(cuda) for t in _emd_clouds(n * m, 2, n, m))
+    before = emd_pallas._KERNEL.launches
+    got = emd_pallas.emd_rounds_kernel(x1, x2)
+    again = emd_pallas.emd_rounds_kernel(x1, x2)
+    torch.cuda.synchronize()
+    assert emd_pallas._KERNEL.launches == before + 2
+    _assert_same_bits(got, again)
+    want = emd_pallas.reference_emd_rounds(x1, x2)
+    _assert_emd_close(got, want)
+    ref = emd_pallas.reference_emd_rounds(x1.double(), x2.double())
+    for name, g, w, r in zip(("cost", "s_n", "t_n", "s_m", "t_m"), got, want, ref):
+        scale = r.abs().max().item()
+        floor = (3e-3 if name[0] == "t" else 2e-4) * scale
+        assert (g.double() - r).abs().max() <= 3 * (w.double() - r).abs().max() + floor, name
+
+
+@pytest.mark.gpu
+def test_kernel_e_gradient_matches_plain(cuda):
+    """The trainable streamed EMD through kernel E against the same Function
+    on the plain version: the costs rtol 2e-4, both gradients within 5e-3 of
+    their max (the moments' rounding, as JAX's fused-vs-streamed bound)."""
+    from vn_pointcloudcompletion_tpu_torch.ops.emd import earth_mover_distance_blocked
+
+    x1, x2 = (t.to(cuda) for t in _emd_clouds(7, 2, 1024, 1024))
+    out = []
+    for use_kernels in (True, False):
+        a, b = x1.clone().requires_grad_(), x2.clone().requires_grad_()
+        cost = earth_mover_distance_blocked(a, b, use_kernels)
+        cost.sum().backward()
+        out.append((cost.detach(), a.grad, b.grad))
+    (ck, gak, gbk), (cp, gap, gbp) = out
+    torch.testing.assert_close(ck, cp, rtol=2e-4, atol=0)
+    _assert_rel((gak, gbk), (gap, gbp), 5e-3)
+
+
+@pytest.mark.gpu
+def test_cuda_dgcnn_classic_matches_plain_path(cuda):
+    """The classic DGCNN (k 40) in eval mode on the card: K2 four times per
+    forward, the plain path's coarse cloud within 1e-5 + 1e-4 relative."""
+    from vn_pointcloudcompletion_tpu_torch.models.composer import init_weights_
+    from vn_pointcloudcompletion_tpu_torch.models.dgcnn import DGCNN
+
+    model = init_weights_(DGCNN(448), 0).to(cuda).eval()
+    xyz = _cloud(4, 2, 2048).to(cuda)
+    cuda_lib.reset_launch_counts()
+    with torch.no_grad():
+        coarse, fg = model(xyz)
+        got = cuda_lib.launch_counts()
+        model.use_kernels = False
+        coarse_p, fg_p = model(xyz)
+    assert {k: v for k, v in got.items() if v} == {"knn_min": 4}
+    torch.testing.assert_close(coarse, coarse_p, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(fg, fg_p, atol=1e-5, rtol=1e-4)

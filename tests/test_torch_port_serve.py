@@ -107,9 +107,18 @@ def test_metric_step_matches_jax_metrics(experiment):
                                np.asarray(jax_metrics.f_score(pj, cj)), atol=1e-6)
 
 
-def test_cli_rejects_emd_and_missing_flags(experiment):
-    with pytest.raises(NotImplementedError, match="EMD"):
-        cli.main(["-n", "run_000", "--resume", "--device", "cpu", "--emd", "test"])
+def test_cli_test_with_emd(experiment, capsys):
+    """``--emd`` adds the per-point EMD column (x1e3): the dense 1024 points
+    against the first 1024 of the ground truth."""
+    res = cli.main(["-n", "run_000", "--resume", "--device", "cpu", "--emd", "test"])
+    assert set(res["synthetic"]) == {"l1", "l2", "f", "iou", "emd"}
+    assert 0 < res["synthetic"]["emd"] < 1 and res["average"]["emd"] == res["synthetic"]["emd"]
+    printed = capsys.readouterr().out
+    assert "EMD(1e-3)" in printed
+    assert f"{res['average']['emd'] * 1e3:12.4f}" in printed
+
+
+def test_cli_rejects_missing_flags(experiment):
     with pytest.raises(SystemExit):
         cli.main(["-n", "run_000", "--device", "cpu", "test"])
     with pytest.raises(SystemExit):

@@ -43,7 +43,7 @@ def main(argv=None):
                         help="test: export predicted clouds as .ply; "
                              "predict: also write the coarse clouds")
     parser.add_argument("--emd", action="store_true",
-                        help="test: also report per-point EMD (not ported yet)")
+                        help="test: also report per-point EMD")
     parser.add_argument("--novel", action="store_true",
                         help="test: evaluate the 8 novel (unseen) categories")
     parser.add_argument("-i", "--input", type=str, default=None,

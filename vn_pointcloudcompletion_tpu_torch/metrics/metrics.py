@@ -2,10 +2,9 @@
 ``metrics/metric.py`` + ``utils/voxel_util.py``).
 
 - ``l1_cd`` / ``l2_cd``: batch sums of per-sample Chamfer distance;
+- ``emd_sum``: batch sum of the approximate EMD;
 - ``f_score``: F-score at a euclidean (not squared) distance threshold;
 - ``voxel_iou``: 64^3 occupancy IoU in a per-cloud cubic bounding box.
-
-The EMD metric is not part of the port yet.
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from vn_pointcloudcompletion_tpu_torch.ops.chamfer import chamfer_distance
+from vn_pointcloudcompletion_tpu_torch.ops.emd import earth_mover_distance
 
 
 def l2_cd(pcs1, pcs2):
@@ -23,6 +23,10 @@ def l2_cd(pcs1, pcs2):
 def l1_cd(pcs1, pcs2):
     d1, d2, _, _ = chamfer_distance(pcs1, pcs2)
     return torch.sum(torch.sqrt(d1).mean(1) + torch.sqrt(d2).mean(1)) / 2
+
+
+def emd_sum(pcs1, pcs2):
+    return torch.sum(earth_mover_distance(pcs1, pcs2))
 
 
 def f_score_from_dists(d1, d2, threshold: float = 0.01):

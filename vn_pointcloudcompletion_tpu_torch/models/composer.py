@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from vn_pointcloudcompletion_tpu_torch.models.common import ConvCh
-from vn_pointcloudcompletion_tpu_torch.models.dgcnn import DGCNNfps, VNDGCNNfps
+from vn_pointcloudcompletion_tpu_torch.models.dgcnn import DGCNNfps, TransformNet, VNDGCNNfps
 from vn_pointcloudcompletion_tpu_torch.models.pcn import (
     AttentionVNFoldingNet,
     FoldingNet,
@@ -95,7 +95,8 @@ def init_weights_(model: nn.Module, seed: int) -> nn.Module:
     """Redraw every linear map and convolution from ``seed``: torch's
     default, weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)), from an
     explicit generator.  Normalisation layers stay at their identity init.
-    A ``vn_pointr`` encoder is then redrawn as the reference's
+    A ``TransformNet`` keeps its identity alignment (weight 0, bias the
+    identity).  A ``vn_pointr`` encoder is then redrawn as the reference's
     ``_init_weights`` pass does (vn_pointr.py:541-553; JAX
     ``reinit_pointr_params``, training/state.py:86-93): every linear map
     trunc_normal(std 0.02) on +-2 std, from the same generator; it holds no
@@ -108,6 +109,9 @@ def init_weights_(model: nn.Module, seed: int) -> nn.Module:
                 for p in (m.weight, m.bias):
                     if p is not None:
                         p.copy_(torch.rand(p.shape, generator=g) * (2 * bound) - bound)
+        for m in model.modules():
+            if isinstance(m, TransformNet):
+                m.reset_transform()
         encoder = getattr(model, "encoder", None)
         if isinstance(encoder, VNPCTransformer):
             for _, m in sorted(encoder.named_modules(), key=lambda kv: kv[0]):

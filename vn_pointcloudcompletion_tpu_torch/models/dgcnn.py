@@ -1,4 +1,5 @@
-"""DGCNN-family encoders: ``VNDGCNNfps`` and ``DGCNNfps``.
+"""DGCNN-family encoders ``VNDGCNNfps`` and ``DGCNNfps``, and the classic
+coarse-only ``DGCNN`` with its ``TransformNet``.
 
 Port of ``vn_pointcloudcompletion_tpu/models/dgcnn.py`` (reference
 ``models/dgcnn.py:19-324``).  Both take xyz (B, N, 3) and return
@@ -172,3 +173,94 @@ class DGCNNfps(nn.Module):
             cat = torch.cat([coarse, fps(xyz, 224, self.use_kernels)], dim=1)
             return (coarse, cat), feature_global
         return coarse, feature_global
+
+
+def _conv_bn(conv: ConvCh, bn: BatchNormCh, h):
+    """Kernel-1 convolution, BatchNorm, LeakyReLU(0.2)."""
+    return F.leaky_relu(bn(conv(h)), 0.2)
+
+
+class TransformNet(nn.Module):
+    """DGCNN's T-Net (reference models/utils/transform_net.py:12-57; JAX
+    models/dgcnn.py:257-291): from the (B, 6, N, K) edge features of the raw
+    coordinates, a 3x3 alignment, identity at initialisation (``transform``
+    weight 0, bias the identity).  Keys as the reference module's:
+    ``conv{1,2,3}`` Sequentials (convolution, BatchNorm), ``linear1``,
+    ``bn3``, ``linear2``, ``bn4``, ``transform``."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.ModuleList([ConvCh(6, 64, bias=False, kernel_dims=2), BatchNormCh(64)])
+        self.conv2 = nn.ModuleList([ConvCh(64, 128, bias=False, kernel_dims=2), BatchNormCh(128)])
+        self.conv3 = nn.ModuleList([ConvCh(128, 1024, bias=False), BatchNormCh(1024)])
+        self.linear1 = DenseTorch(1024, 512, bias=False)
+        self.bn3 = BatchNormCh(512)
+        self.linear2 = DenseTorch(512, 256, bias=False)
+        self.bn4 = BatchNormCh(256)
+        self.transform = DenseTorch(256, 9)
+        self.reset_transform()
+
+    def reset_transform(self) -> None:
+        with torch.no_grad():
+            self.transform.weight.zero_()
+            self.transform.bias.copy_(torch.eye(3).reshape(9))
+
+    def forward(self, x):
+        b = x.shape[0]
+        h = _conv_bn(*self.conv1, x)
+        h = _conv_bn(*self.conv2, h).amax(-1)  # over K: (B, 128, N)
+        h = _conv_bn(*self.conv3, h).amax(-1)  # (B, 1024)
+        h = F.leaky_relu(self.bn3(self.linear1(h)), 0.2)
+        h = F.leaky_relu(self.bn4(self.linear2(h)), 0.2)
+        return self.transform(h).reshape(b, 3, 3)
+
+
+class DGCNN(nn.Module):
+    """Classic DGCNN with the input T-Net, k = 40 (reference
+    models/dgcnn.py:327-417; JAX models/dgcnn.py:294-345), coarse only (the
+    reference's dense branch reads attributes it never defines):
+    ``forward(xyz)`` -> ``(coarse (B, num_coarse, 3), feature_global
+    (B, 1024))``.  Four dynamic graphs (the raw and the aligned coordinates,
+    then the 64-channel features twice), each the kNN of every point among
+    all N, kernel K2 on the card (``ops/knn.py::knn``).  Keys:
+    ``transform_net``, ``conv1`` .. ``conv6`` (convolution, BatchNorm),
+    ``mlp`` (Linear, ReLU, Linear, ReLU, Linear)."""
+
+    def __init__(self, num_coarse: int = 448, n_knn: int = 40):
+        super().__init__()
+        self.num_coarse, self.n_knn = num_coarse, n_knn
+        self.transform_net = TransformNet()
+
+        def conv_bn(c_in, c_out, kernel_dims=2):
+            return nn.ModuleList([ConvCh(c_in, c_out, bias=False, kernel_dims=kernel_dims),
+                                  BatchNormCh(c_out)])
+
+        self.conv1, self.conv2 = conv_bn(6, 64), conv_bn(64, 64)
+        self.conv3, self.conv4 = conv_bn(128, 64), conv_bn(64, 64)
+        self.conv5 = conv_bn(128, 64)
+        self.conv6 = conv_bn(192, 1024, kernel_dims=1)
+        self.mlp = nn.ModuleList([DenseTorch(1024, 1024), nn.ReLU(), DenseTorch(1024, 1024),
+                                  nn.ReLU(), DenseTorch(1024, 3 * num_coarse)])
+        self.use_kernels = True
+
+    def _graph(self, h):
+        """(B, C, N) -> EdgeConv features over its own kNN, (B, 2C, N, K)."""
+        pts = h.transpose(1, 2)
+        _, idx = knn(pts, pts, self.n_knn, self.use_kernels)
+        return graph_feature(h, h, idx)
+
+    def forward(self, xyz):
+        b = xyz.shape[0]
+        x = xyz.transpose(1, 2)  # (B, 3, N)
+        t = self.transform_net(self._graph(x))
+        x = torch.einsum("bdn,bde->ben", x, t)  # x^T t, back to (B, 3, N)
+        h = _conv_bn(*self.conv2, _conv_bn(*self.conv1, self._graph(x)))
+        x1 = h.amax(-1)
+        h = _conv_bn(*self.conv4, _conv_bn(*self.conv3, self._graph(x1)))
+        x2 = h.amax(-1)
+        x3 = _conv_bn(*self.conv5, self._graph(x2)).amax(-1)
+        h = _conv_bn(*self.conv6, torch.cat([x1, x2, x3], dim=1))
+        feature_global = h.amax(-1)  # (B, 1024)
+        m = self.mlp
+        h = torch.relu(m[2](torch.relu(m[0](feature_global))))
+        return m[4](h).reshape(b, self.num_coarse, 3), feature_global

@@ -1,5 +1,7 @@
-"""The PCN-family encoder ``VNPointNet`` and the decoders ``VNFoldingNet``,
-``AttentionVNFoldingNet`` and ``FoldingNet``.
+"""The PCN family: the encoder ``VNPointNet``, the decoders
+``VNFoldingNet``, ``AttentionVNFoldingNet`` and ``FoldingNet``, and the
+standalone models ``PCN`` (scalar, with its own folding head) and ``VNPCN``
+(coarse only).
 
 Port of those parts of ``vn_pointcloudcompletion_tpu/models/pcn.py``; train
 mode comes from ``model.train()``.  The encoder takes ``xyz`` (B, N, 3) and
@@ -322,3 +324,71 @@ class FoldingNet(nn.Module):
         f = torch.relu(fc[1](fc[0](feature_global.reshape(b, -1), seed, point_feat)))
         f = torch.relu(fc[4](fc[3](f)))
         return (fc[6](f) + point_feat).transpose(1, 2)
+
+
+class PCN(nn.Module):
+    """Classic scalar PCN (reference models/pcn.py:186-273; JAX
+    models/pcn.py:309-358): a shared point MLP with a max-pooled global
+    feature, twice, an MLP to ``num_dense // grid_size^2`` coarse points, and
+    a folding head as :class:`FoldingNet`'s.  ``forward(xyz, rot)`` returns
+    ``(coarse, fine)``, ``fine`` None when ``only_coarse``; the rotation is
+    not used.  Keys as the reference's Sequentials: ``first_conv``,
+    ``second_conv``, ``mlp`` and ``final_conv``."""
+
+    def __init__(self, num_dense: int = 16384, latent_dim: int = 1024, grid_size: int = 4,
+                 only_coarse: bool = False):
+        super().__init__()
+        self.num_dense, self.grid_size, self.only_coarse = num_dense, grid_size, only_coarse
+        self.num_coarse = num_dense // grid_size ** 2
+        self.first_conv = nn.ModuleList([ConvCh(3, 128), BatchNormCh(128), nn.ReLU(),
+                                         ConvCh(128, 256)])
+        self.second_conv = nn.ModuleList([ConvCh(512, 512), BatchNormCh(512), nn.ReLU(),
+                                          ConvCh(512, latent_dim)])
+        self.mlp = nn.ModuleList([nn.Linear(latent_dim, 1024), nn.ReLU(), nn.Linear(1024, 1024),
+                                  nn.ReLU(), nn.Linear(1024, 3 * self.num_coarse)])
+        if not only_coarse:
+            self.final_conv = nn.ModuleList([
+                _ScalarSplitFoldLayer(latent_dim + 5, 512), BatchNormCh(512), nn.ReLU(),
+                ConvCh(512, 512), BatchNormCh(512), nn.ReLU(), ConvCh(512, 3)])
+
+    def forward(self, xyz, rot: Optional[torch.Tensor] = None):
+        b = xyz.shape[0]
+        fc, sc, mlp = self.first_conv, self.second_conv, self.mlp
+        f = fc[3](torch.relu(fc[1](fc[0](xyz.transpose(1, 2)))))  # (B, 256, N)
+        g = f.amax(2, keepdim=True)
+        f = torch.cat([g.expand_as(f), f], dim=1)  # (B, 512, N)
+        f = sc[3](torch.relu(sc[1](sc[0](f))))
+        feature_global = f.amax(2)  # (B, latent)
+        h = torch.relu(mlp[2](torch.relu(mlp[0](feature_global))))
+        coarse = mlp[4](h).reshape(b, self.num_coarse, 3)
+        if self.only_coarse:
+            return coarse, None
+        s = self.grid_size ** 2
+        point_feat = dense_layout(coarse, self.grid_size)  # (B, 3, Nd)
+        seed = folding_grid_2d(self.grid_size).to(coarse)  # (2, S)
+        seed = seed[None, :, None, :].expand(b, 2, self.num_coarse, s).reshape(
+            b, 2, self.num_dense)
+        f = self.final_conv
+        h = torch.relu(f[1](f[0](feature_global, seed, point_feat)))
+        h = torch.relu(f[4](f[3](h)))
+        return coarse, (f[6](h) + point_feat).transpose(1, 2)
+
+
+class VNPCN(VNPointNet):
+    """Standalone VN-PCN (reference models/pcn.py:11-108; JAX
+    models/pcn.py:485-509): the VN-PointNet trunk with 1024 coarse points,
+    ``forward(xyz, rot)`` -> ``(coarse, feature_global (B, 2L, 3, 1))``.
+    Coarse only, as in JAX: the reference's dense path cannot run (its 5-D
+    global feature meets a 3-argument ``expand``), so ``only_coarse=False``
+    raises."""
+
+    def __init__(self, num_dense: int = 16384, latent_dim: int = 1024, grid_size: int = 4,
+                 only_coarse: bool = True):
+        if not only_coarse:
+            raise NotImplementedError(
+                "VNPCN dense path is broken in the reference (models/pcn.py:97-108); "
+                "use VNPointNet + VNFoldingNet via PCNNet instead")
+        super().__init__(1024, latent_dim)
+
+    def forward(self, xyz, rot: Optional[torch.Tensor] = None):
+        return super().forward(xyz)

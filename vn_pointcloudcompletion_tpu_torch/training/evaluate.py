@@ -2,11 +2,12 @@
 reference ``test.py:33-203``).
 
 For each category: L1-CD (x1e3), L2-CD (x1e4), F-Score@0.01 (%) and voxel
-IoU@64^3 (%), averaged over the test split.  Each batch is rotated by
-``test_rotation`` (drawn from a ``torch.Generator`` seeded with
-``config.seed + 1000``; the JAX package draws other matrices from the same
-seed), completed, and scored on the device.  The EMD column (``--emd``) is
-not ported yet.
+IoU@64^3 (%), averaged over the test split, and with ``--emd`` the
+approximate EMD per point (x1e3) against an equal-size slice of the ground
+truth, through the streamed form (kernel E on the card at the dense sizes).
+Each batch is rotated by ``test_rotation`` (drawn from a ``torch.Generator``
+seeded with ``config.seed + 1000``; the JAX package draws other matrices
+from the same seed), completed, and scored on the device.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from vn_pointcloudcompletion_tpu_torch.data.synthetic import SyntheticCompletion
 from vn_pointcloudcompletion_tpu_torch.metrics.metrics import f_score_from_dists, voxel_iou
 from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
 from vn_pointcloudcompletion_tpu_torch.ops.chamfer import chamfer_distance
+from vn_pointcloudcompletion_tpu_torch.ops.emd import earth_mover_distance_blocked
 from vn_pointcloudcompletion_tpu_torch.ops.rotations import rotate_points, sample_rotation
 from vn_pointcloudcompletion_tpu_torch.training.checkpoint import load_model
 from vn_pointcloudcompletion_tpu_torch.utils.config import Config
@@ -38,7 +40,7 @@ log = logging.getLogger("test")
 
 
 @torch.no_grad()
-def metric_step(model, partial, complete, rot: Optional[torch.Tensor]):
+def metric_step(model, partial, complete, rot: Optional[torch.Tensor], with_emd: bool = False):
     """Rotate, complete and score one batch -> (per-sample metrics, pred)."""
     if rot is not None:
         partial = rotate_points(partial, rot)
@@ -52,12 +54,18 @@ def metric_step(model, partial, complete, rot: Optional[torch.Tensor]):
         "f": f_score_from_dists(d1, d2, 0.01),
         "iou": voxel_iou(pred, complete),
     }
+    if with_emd:
+        # per point, against an equal-size slice of the ground truth
+        # (reference test.py:139-182; JAX evaluate.py:57-64)
+        n = pred.shape[1]
+        out["emd"] = earth_mover_distance_blocked(pred, complete[:, :n]) / n
     return out, pred
 
 
 def test_single_category(config: Config, model, category: str,
                          generator: torch.Generator, device: torch.device,
-                         save_dir: Optional[str] = None) -> Dict[str, float]:
+                         save_dir: Optional[str] = None,
+                         with_emd: bool = False) -> Dict[str, float]:
     if config.dataset == "synthetic":
         dataset = SyntheticCompletionDataset(
             config.extra.get("synthetic_test_samples", 16), seed=config.seed + 2,
@@ -73,7 +81,7 @@ def test_single_category(config: Config, model, category: str,
     count = 0
     for p, c in device_prefetch(loader, device):
         rot = sample_rotation(generator, config.test_rotation, p.shape[0])
-        out, pred = metric_step(model, p, c, None if rot is None else rot.to(device))
+        out, pred = metric_step(model, p, c, None if rot is None else rot.to(device), with_emd)
         for key, val in out.items():
             totals[key] = totals.get(key, 0.0) + float(val.sum())
         if save_dir is not None:
@@ -90,9 +98,6 @@ def evaluate(config: Config, save: bool = False,
              device="cuda") -> Dict[str, Dict[str, float]]:
     """Evaluate model_best (else model_last) over the test split and print
     the reference's table."""
-    if with_emd:
-        raise NotImplementedError(
-            "the EMD metric (--emd) is not ported yet (ROADMAP.md, queue 1, item 5)")
     dev = resolve_device(device)
     model = build_model(config)
     load_model(config.exp_dir, model)
@@ -107,6 +112,8 @@ def evaluate(config: Config, save: bool = False,
     header = "{:20s}{:>12s}{:>12s}{:>16s}{:>12s}".format(
         "Category", "L1_CD(1e-3)", "L2_CD(1e-4)", "FScore-0.01(%)", "iou(%)"
     )
+    if with_emd:
+        header += "{:>12s}".format("EMD(1e-3)")
     log.info(header)
     print(header)
     for category in categories:
@@ -114,7 +121,8 @@ def evaluate(config: Config, save: bool = False,
         if save:
             save_dir = os.path.join(config.exp_dir, "test", category, "output")
             os.makedirs(save_dir, exist_ok=True)
-        res = test_single_category(config, model, category, generator, dev, save_dir)
+        res = test_single_category(config, model, category, generator, dev, save_dir,
+                                   with_emd)
         if not res:
             log.info(f"{category:20s} (no test samples — skipped)")
             continue
@@ -135,6 +143,9 @@ def evaluate(config: Config, save: bool = False,
 
 
 def _format_row(name: str, res: Dict[str, float]) -> str:
-    return "{:20s}{:>12.4f}{:>12.4f}{:>16.4f}{:>12.4f}".format(
+    row = "{:20s}{:>12.4f}{:>12.4f}{:>16.4f}{:>12.4f}".format(
         name, res["l1"] * 1e3, res["l2"] * 1e4, res["f"] * 1e2, res["iou"] * 1e2
     )
+    if "emd" in res:
+        row += "{:>12.4f}".format(res["emd"] * 1e3)
+    return row

@@ -23,6 +23,15 @@ numpy) and needs no JAX itself.  It tells the pipeline from the tree:
   (``final_conv`` Sequential: Conv1d, BatchNorm1d, ReLU, Conv1d,
   BatchNorm1d, ReLU, Conv1d; ``downsize_global``, ``transformer.{0,1}``,
   ``vn_folding{1,2}.{0,1,2}``).
+
+It also reads the tree of a standalone model, told by its top-level keys:
+``PCN`` (``first_conv_0``), ``VNPCN`` (a top-level ``trunk``) and ``DGCNN``
+(``transform_net``).  The JAX package maps no reference checkpoint for
+them; their keys here are those of the reference's Sequentials
+(``first_conv``, ``second_conv``, ``mlp``, ``final_conv`` of PCN; the
+VN-PointNet trunk's own for VNPCN; ``transform_net.{conv1,conv2,conv3,
+linear1,bn3,linear2,bn4,transform}``, ``conv1`` .. ``conv6``, ``mlp`` of
+DGCNN).
 """
 
 from __future__ import annotations
@@ -115,19 +124,18 @@ def _vn_pointr(sd: dict, p: Mapping, s: Mapping) -> None:
     sd[f"{e}.vn_coarse_pred.2.map_to_feat.weight"] = p["vn_coarse_pred_2"]["kernel"]
 
 
-def _vn_pointnet(sd: dict, t: Mapping, ts: Mapping) -> None:
-    e = "encoder"
-    _vnllr(sd, f"{e}.first_conv.0", t["first_conv_0"], ts["first_conv_0"])
-    sd[f"{e}.first_conv.1.map_to_feat.weight"] = t["first_conv_1"]["kernel"]
-    sd[f"{e}.maxpool1.map_to_dir.weight"] = t["maxpool1"]["dir_kernel"]
-    _vnllr(sd, f"{e}.second_conv.0", t["second_conv_0"], ts["second_conv_0"])
-    sd[f"{e}.second_conv.1.map_to_feat.weight"] = t["second_conv_1"]["kernel"]
-    sd[f"{e}.maxpool2.map_to_dir.weight"] = t["maxpool2"]["dir_kernel"]
+def _vn_pointnet(sd: dict, t: Mapping, ts: Mapping, e: str = "encoder.") -> None:
+    _vnllr(sd, f"{e}first_conv.0", t["first_conv_0"], ts["first_conv_0"])
+    sd[f"{e}first_conv.1.map_to_feat.weight"] = t["first_conv_1"]["kernel"]
+    sd[f"{e}maxpool1.map_to_dir.weight"] = t["maxpool1"]["dir_kernel"]
+    _vnllr(sd, f"{e}second_conv.0", t["second_conv_0"], ts["second_conv_0"])
+    sd[f"{e}second_conv.1.map_to_feat.weight"] = t["second_conv_1"]["kernel"]
+    sd[f"{e}maxpool2.map_to_dir.weight"] = t["maxpool2"]["dir_kernel"]
     for i in (0, 1):
         m = t[f"mlp_{i}"]
-        sd[f"{e}.mlp.{i}.linear.map_to_feat.weight"] = m["linear"]["kernel"]
-        sd[f"{e}.mlp.{i}.leaky_relu.map_to_dir.weight"] = m["leaky_relu"]["dir_kernel"]
-    sd[f"{e}.mlp.2.map_to_feat.weight"] = t["mlp_2"]["kernel"]
+        sd[f"{e}mlp.{i}.linear.map_to_feat.weight"] = m["linear"]["kernel"]
+        sd[f"{e}mlp.{i}.leaky_relu.map_to_dir.weight"] = m["leaky_relu"]["dir_kernel"]
+    sd[f"{e}mlp.2.map_to_feat.weight"] = t["mlp_2"]["kernel"]
 
 
 def _vn_dgcnn_fps(sd: dict, p: Mapping, s: Mapping) -> None:
@@ -183,21 +191,58 @@ def _attention_vn_foldingnet(sd: dict, d: Mapping, ds: Mapping) -> None:
         sd[f"decoder.{stage}.2.map_to_feat.weight"] = d[f"{stage}_2"]["kernel"]
 
 
-def _foldingnet(sd: dict, d: Mapping, ds: Mapping) -> None:
+def _foldingnet(sd: dict, d: Mapping, ds: Mapping, e: str = "decoder.") -> None:
     f0 = d["final_conv_0"]
     w = np.concatenate([f0["kernel_global"], f0["kernel_seed"], f0["kernel_point"]], axis=1)
-    _conv(sd, "decoder.final_conv.0", {"kernel": w, "bias": f0["bias"]})
-    _bn(sd, "decoder.final_conv.1", d["final_bn_0"], ds["final_bn_0"])
-    _conv(sd, "decoder.final_conv.3", d["final_conv_1"])
-    _bn(sd, "decoder.final_conv.4", d["final_bn_1"], ds["final_bn_1"])
-    _conv(sd, "decoder.final_conv.6", d["final_conv_2"])
+    _conv(sd, f"{e}final_conv.0", {"kernel": w, "bias": f0["bias"]})
+    _bn(sd, f"{e}final_conv.1", d["final_bn_0"], ds["final_bn_0"])
+    _conv(sd, f"{e}final_conv.3", d["final_conv_1"])
+    _bn(sd, f"{e}final_conv.4", d["final_bn_1"], ds["final_bn_1"])
+    _conv(sd, f"{e}final_conv.6", d["final_conv_2"])
+
+
+def _pcn(sd: dict, p: Mapping, s: Mapping) -> None:
+    for seq in ("first", "second"):
+        _conv(sd, f"{seq}_conv.0", p[f"{seq}_conv_0"])
+        _bn(sd, f"{seq}_conv.1", p[f"{seq}_bn"], s[f"{seq}_bn"])
+        _conv(sd, f"{seq}_conv.3", p[f"{seq}_conv_1"])
+    for i in range(3):
+        _conv(sd, f"mlp.{2 * i}", p[f"mlp_{i}"], kernel_dims=0)
+    if "final_conv_0" in p:
+        _foldingnet(sd, p, s, e="")
+
+
+def _dgcnn(sd: dict, p: Mapping, s: Mapping) -> None:
+    t, ts = p["transform_net"], s["transform_net"]
+    for i, dims in ((1, 2), (2, 2), (3, 1)):
+        _conv(sd, f"transform_net.conv{i}.0", t[f"conv{i}"], kernel_dims=dims)
+        _bn(sd, f"transform_net.conv{i}.1", t[f"bn{i}"], ts[f"bn{i}"])
+    for i, bn in ((1, 4), (2, 5)):
+        _conv(sd, f"transform_net.linear{i}", t[f"linear{i}"], kernel_dims=0)
+        _bn(sd, f"transform_net.bn{bn - 1}", t[f"bn{bn}"], ts[f"bn{bn}"])
+    sd["transform_net.transform.weight"] = np.asarray(t["transform_kernel"]).T
+    sd["transform_net.transform.bias"] = t["transform_bias"]
+    for i in range(1, 7):
+        _conv(sd, f"conv{i}.0", p[f"conv{i}_conv"], kernel_dims=1 if i == 6 else 2)
+        _bn(sd, f"conv{i}.1", p[f"conv{i}_bn"], s[f"conv{i}_bn"])
+    for i in range(3):
+        _conv(sd, f"mlp.{2 * i}", p[f"mlp_{i}"], kernel_dims=0)
 
 
 def state_dict_from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """``{params, batch_stats}`` of a JAX PCNNet -> port state_dict."""
-    params, stats = variables["params"], variables["batch_stats"]
-    enc, enc_s = params["encoder"], stats.get("encoder", {})
+    """``{params, batch_stats}`` of a JAX PCNNet, or of a standalone PCN,
+    VNPCN or DGCNN -> port state_dict."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
     sd: dict = {}
+    if "encoder" not in params:  # a standalone model
+        if "first_conv_0" in params:
+            _pcn(sd, params, stats)
+        elif "trunk" in params:
+            _vn_pointnet(sd, params["trunk"], stats["trunk"], e="")
+        else:
+            _dgcnn(sd, params, stats)
+        return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    enc, enc_s = params["encoder"], stats.get("encoder", {})
     if "trunk" in enc:
         _vn_pointnet(sd, enc["trunk"], enc_s["trunk"])
     elif "grouper" in enc:

@@ -16,7 +16,7 @@ from typing import Dict, List
 
 import torch
 
-from vn_pointcloudcompletion_tpu_torch.metrics.losses import cd_loss_l1
+from vn_pointcloudcompletion_tpu_torch.metrics.losses import calc_dcd, cd_loss_l1, emd_loss
 from vn_pointcloudcompletion_tpu_torch.metrics.metrics import l1_cd
 from vn_pointcloudcompletion_tpu_torch.ops.rotations import rotate_points, sample_rotation
 from vn_pointcloudcompletion_tpu_torch.training.state import TrainState
@@ -41,10 +41,14 @@ def _rotate(generator: torch.Generator, mode: str, partial, complete):
 def coarse_loss(config: Config, coarse, complete) -> torch.Tensor:
     if config.coarse_loss == "cd":
         return cd_loss_l1(coarse, complete)
-    if config.coarse_loss in ("emd", "dcd"):
-        raise NotImplementedError(
-            f"coarse_loss={config.coarse_loss!r} is not ported yet "
-            "(ROADMAP.md, queue 1, item 5)")
+    if config.coarse_loss == "emd":
+        # EMD needs equal counts: the reference cuts the ground truth to the
+        # coarse cloud's size (train.py:149)
+        return emd_loss(coarse, complete[:, :coarse.shape[1]])
+    if config.coarse_loss == "dcd":
+        alpha = config.dcd_opts.get("alpha", 200)
+        n_lambda = config.dcd_opts.get("lambda", 0.5)
+        return calc_dcd(coarse, complete, alpha=alpha, n_lambda=n_lambda)[0].mean()
     raise ValueError(f"Not implemented loss {config.coarse_loss}")
 
 
