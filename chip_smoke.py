@@ -5,11 +5,12 @@ on one NVIDIA GPU:
     python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
-   versions and the TF32 settings.
+   versions, the TF32 settings and cuBLAS's bf16 reduced-precision switch.
 2. Builds every kernel under ``vn_pointcloudcompletion_tpu_torch/csrc/``
    (one ``nvcc`` per source, all at once) and prints the build time.
 3. Holds each of the fourteen kernels (A, A', S, S', B, B', C, C', D, K1,
-   K2, K3, F, E) against its plain PyTorch version on the card at the shapes of
+   K2, K3, F, E), and the bf16 modes of A, B, C and K3, against its plain
+   PyTorch version on the card at the shapes of
    the main paths (batch 8), with the tolerance stated beside it (K1, K2,
    K3 and F: indices equal; K1 and K2 on VN DGCNN conv1's own input, whose
    repeated points tie), times both with CUDA events (K1 also against
@@ -68,13 +69,23 @@ on one NVIDIA GPU:
    8, 2048 points: each forward through the kernels against the plain path,
    the launches of one forward asserted (DGCNN: K2 4), K2 at k 40 on the
    synthetic partials against its plain version.
+12. The bfloat16 policy's serving path (``nn/precision.py``): the eval
+   forwards of the flagship, ``vn_dgcnn`` and ``vn_pointr_448`` at full
+   width, batch 8, under ``compute_dtype_scope(torch.bfloat16)``, each
+   counted (A, B, C and K3 in their bf16 modes only, counted under
+   ``<symbol>[bf16]`` and ``[group,bf16]``; D, K2 and F in float32), each on
+   one DecisionTape against the plain path in bf16 and in float32, a mutant
+   of kernel C caught; the flagship metric step counted; median times of
+   each in float32 and bf16.  Phase 3 holds the bf16 modes (A, B at group 0
+   and 64, C, K3) against their plain bf16 versions, bounds at the bf16
+   tensor-core rate.
 
 Every phase prints its wall time.  Any failure exits non-zero.  The line
 before the last is a JSON object with one record per kernel (its launches
 are those of the training run of its path: phase 5 for the flagship's nine,
 phase 7 for K2, K3 and F, phase 9 for the group=S rows, phase 10's two
-``--emd test`` runs for E; K1, and C and C' in group=S mode, are on no
-model's path); the last line is
+``--emd test`` runs for E, phase 12 for the bf16 rows; K1, and C and C' in
+group=S mode, are on no model's path); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -90,8 +101,10 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# H100 SXM, NVIDIA's data sheet: FP32 outside the tensor cores, HBM3 rate.
+# H100 SXM, NVIDIA's data sheet: FP32 outside the tensor cores, dense bf16
+# on the tensor cores (the bound of the bf16 rows), HBM3 rate.
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 BATCH = 8
 NS = 0.2  # the VN leaky slope of every layer on the path
@@ -151,6 +164,34 @@ FORWARD_LAUNCHES = {
                       "vn_bn_leaky_fwd": 3, "vn_layer_fused_fwd": 1,
                       "vn_layer_fused_fwd[group]": 2, "vn_layer_fused_project_fwd": 2},
 }
+# Phase 12, the bf16 policy's eval forwards: one forward's launches, A, B,
+# C and K3 in their bf16 modes only (D, K2 and F stay float32: their
+# wrappers upcast bf16 coordinates exactly), as the JAX package's TPU
+# dispatch gives them; the flagship: A at first_conv.0 and second_conv.0,
+# B at final_conv.0, C at final_conv.1 + .2.
+BF16_NAMES = {"vn_bn_leaky_fwd": "vn_bn_leaky_fwd[bf16]",
+              "vn_layer_fused_fwd": "vn_layer_fused_fwd[bf16]",
+              "vn_layer_fused_fwd[group]": "vn_layer_fused_fwd[group,bf16]",
+              "vn_layer_fused_project_fwd": "vn_layer_fused_project_fwd[bf16]",
+              "edge_knn_gather": "edge_knn_gather[bf16]"}
+BF16_FORWARD_LAUNCHES = {
+    "flagship": {"vn_bn_leaky_fwd[bf16]": 2, "vn_layer_fused_fwd[bf16]": 1,
+                 "vn_layer_fused_project_fwd[bf16]": 1},
+    **{path: {BF16_NAMES.get(k, k): v for k, v in FORWARD_LAUNCHES[path].items()}
+       for path in ("vn_dgcnn", "vn_pointr_448")},
+}
+# Phase 12, on one tape of discrete decisions, the coarse cloud and the
+# decoder's last fold output (kernel C's on the kernel path; the dense
+# cloud is the coarse points plus it, rounded to bf16 at the coarse points'
+# scale), each as max|d| / max of the float32 forward's: the bf16 kernel
+# path no further
+# from the float32 forward than BF16_F32_RATIO x the plain bf16 path, and
+# within BF16_FWD_TOL of the plain bf16 path (the fold layers round p and d
+# once in kernel B where the plain chain rounds each of its three products,
+# and kernel C projects its epilogue unrounded: a few bf16 ulps, 2^-8 each).
+BF16_F32_RATIO = 2.0
+BF16_FWD_TOL = 1e-2
+BF16_MUTANT = 1 + 2.0 ** -6  # kernel C's bf16 output scaled: must fail the checks
 # Kernel E (phase 3) against its plain version, each max|d| / max: the cost
 # within EMD_COST_TOL, the moments within EMD_MOMENT_TOL (the level -4^7
 # amplifies the rounding of sums taken in another order on near ties; the
@@ -195,10 +236,10 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, peak_ops: float = PEAK_FP32):
     """Least time for the work on the card: (ms, what bounds it)."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_FP32 * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -225,7 +266,7 @@ def check_kernels(dev):
 
     def record(name, source, replaces, kernel_fn, plain_fn, compare, tol,
                work_bytes, work_ops, reps=20, plain_reps=5, repro=False,
-               library_fn=None):
+               library_fn=None, peak_ops=PEAK_FP32):
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         err, ok = compare(got, want)
@@ -235,7 +276,7 @@ def check_kernels(dev):
             print(f"[kernel {name}] second launch bitwise equal: {same}")
             ok = ok and same
             del again
-        b_ms, b_by = bound(work_bytes, work_ops)
+        b_ms, b_by = bound(work_bytes, work_ops, peak_ops)
         rec = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
@@ -424,7 +465,114 @@ def check_kernels(dev):
     del px, py
     records += check_knn_fps_kernels(dev, record, randn, uniform)
     check_emd_kernel(dev, record)
+    check_bf16_kernels(dev, record, randn, uniform)
     return records
+
+
+def bf16_ulps(got, want):
+    """(largest |got - want| in bf16 ulps of the larger magnitude, count of
+    elements that differ) of two bf16 tensors."""
+    import torch
+
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((g - w).abs() / ulp).max().item(), int((g != w).sum())
+
+
+def check_bf16_kernels(dev, record, randn, uniform):
+    """Phase 3, the bf16 modes (the bfloat16 policy's serving path) at
+    the main paths' shapes, each against its plain bf16 version: A at the
+    flagship's second_conv.0 (C 1024, N 2048), B at its final_conv.0 (C_in
+    2, C_out 256, N 16384, per-sample bias) and at the attention decoder's
+    pair folds (C_in 1 -> 256, N 14336, group 64), K3 at conv5 (N 512, C3
+    768, k 16): equal to the bit; C at final_conv.1 + .2 (256 -> 256 -> 1,
+    N 16384): within one bf16 ulp per element, the differing count printed.
+    Bounds: bytes at 2 per activation element, operations at the dense bf16
+    tensor-core rate (the same work could run there)."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas, vn_fused, vn_layer_fused
+
+    bf = torch.bfloat16
+    src = "vn_pointcloudcompletion_tpu_torch/csrc/"
+    at = "vn_pointcloudcompletion_tpu/ops/"
+
+    def equal(got, want):
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        same = all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+        err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want)
+                  if torch.is_floating_point(w))
+        return err, same and got[0].dtype == bf
+
+    def within_one_ulp(got, want):
+        worst_ulp, differ = bf16_ulps(got, want)
+        print(f"[kernel C bf16] {differ} of {got.numel()} elements differ, the largest "
+              f"by {worst_ulp:.2f} bf16 ulp")
+        return (got.float() - want.float()).abs().max().item(), got.dtype == bf and worst_ulp <= 1
+
+    c, n = 1024, 2048
+    p, d = randn(BATCH, 3, c, n).to(bf), randn(BATCH, 3, c, n).to(bf)
+    p[:, :, :8, :16] = 0.0
+    a, b = uniform(0.5, 1.5, c), randn(c, scale=0.3)
+    vecs = BATCH * c * n
+    record("A fused_bn_leaky bf16", src + "vn_fused.cu", at + "vn_fused.py:189",
+           lambda: vn_fused.fused_bn_leaky(p, d, a, b, NS),
+           lambda: vn_fused.reference_bn_leaky_planes(p, d, a, b, NS),
+           equal, "equal to the bit", nbytes(p, d, a, b) + nbytes(p), 32 * vecs,
+           peak_ops=PEAK_BF16)
+    del p, d
+
+    n, c_out = 16384, 256
+    x = randn(BATCH, 3, 2, n, scale=0.3).to(bf)
+    w, wd = uniform(-0.02, 0.02, c_out, 2), uniform(-0.02, 0.02, c_out, 2)
+    pb, db = randn(BATCH, 3, c_out, 1).to(bf), randn(BATCH, 3, c_out, 1).to(bf)
+    a, b = uniform(0.5, 1.5, c_out), randn(c_out, scale=0.3)
+    vecs = BATCH * c_out * n
+    record("B vn_layer_fused bf16", src + "vn_layer_fused.cu", at + "vn_layer_fused.py:541",
+           lambda: vn_layer_fused.vn_layer_fused(x, w, wd, pb, db, a, b, NS),
+           lambda: vn_layer_fused.reference_layer_fused(x, w, wd, pb, db, a, b, NS),
+           equal, "equal to the bit", nbytes(x, w, wd, pb, db, a, b) + 2 * 3 * vecs,
+           2 * 3 * vecs * 2 * 2 + 38 * vecs, peak_ops=PEAK_BF16)
+
+    n, s = 14336, 64
+    bw = 1 / 385 ** 0.5
+    x = randn(BATCH, 3, 1, n).to(bf)
+    w, wd = uniform(-bw, bw, 256, 1), uniform(-bw, bw, 256, 1)
+    pb = randn(BATCH, 3, 256, n // s, scale=0.5).to(bf)
+    db = randn(BATCH, 3, 256, n // s, scale=0.5).to(bf)
+    vecs = BATCH * 256 * n
+    record("B vn_layer_fused group=64 bf16", src + "vn_layer_fused.cu",
+           at + "vn_layer_fused.py:541",
+           lambda: vn_layer_fused.vn_layer_fused(x, w, wd, pb, db, a, b, NS, group=s),
+           lambda: vn_layer_fused.reference_layer_fused(x, w, wd, pb, db, a, b, NS, s),
+           equal, "equal to the bit", nbytes(x, w, wd, pb, db, a, b) + 2 * 3 * vecs,
+           2 * 3 * vecs * 2 + 44 * vecs, peak_ops=PEAK_BF16)
+
+    n = 16384
+    x = randn(BATCH, 3, 256, n).to(bf)
+    w, wd = uniform(-1 / 16, 1 / 16, 256, 256), uniform(-1 / 16, 1 / 16, 256, 256)
+    w_out = uniform(-1 / 16, 1 / 16, 256)
+    vecs = BATCH * 256 * n
+    record("C vn_layer_fused_project bf16", src + "vn_layer_fused.cu",
+           at + "vn_layer_fused.py:821",
+           lambda: vn_layer_fused.vn_layer_fused_project(x, w, wd, None, None, a, b, w_out, NS),
+           lambda: vn_layer_fused.reference_layer_fused_project(
+               x, w, wd, None, None, a, b, w_out, NS),
+           within_one_ulp, "1 bf16 ulp per element",
+           nbytes(x, w, wd, a, b, w_out) + 2 * 3 * BATCH * n,
+           2 * 3 * vecs * 2 * 256 + (32 + 6) * vecs, reps=10, peak_ops=PEAK_BF16)
+    del x
+
+    k, c3 = 16, 768
+    xf = uniform(-0.5, 0.5, BATCH, 3, 512).to(bf)  # conv5's bf16 coordinates
+    u, v = randn(BATCH, c3, 512).to(bf), randn(BATCH, c3, 512).to(bf)
+    record("K3 edge_knn_gather bf16", src + "knn.cu", at + "knn_pallas.py:350",
+           lambda: knn_pallas.edge_knn_gather_fwd(xf, u, v, k),
+           lambda: knn_pallas.reference_edge_knn_gather(xf, u, v, k),
+           equal, "indices and values equal",
+           nbytes(xf, u, v) + 2 * BATCH * c3 * k * 512 + 4 * BATCH * 512 * k,
+           BATCH * 512 * 512 * 10 + BATCH * c3 * k * 512, repro=True, peak_ops=PEAK_BF16)
 
 
 def check_group_kernels(dev, record, randn, uniform, close, rel_close):
@@ -1251,7 +1399,8 @@ def train_step_kernels_vs_plain(dev, smi: str):
 class DecisionTape:
     """The discrete decisions of one run of a model, recorded there and
     replayed in another: the kNN picks (K2, K3 and their plain versions),
-    the FPS picks, the VN pools' argmax (both layouts), the side of the VN
+    the FPS picks, the VN pools' argmax (both layouts, and the flagship
+    encoder's fused linear + pool), the side of the VN
     leaky reflection (kernel A or the plain chain on planes, by the layer's
     shape; the vec layout's, by the tensor's) and the chamfer's nearest
     neighbours.  Runs that replay one tape differ in arithmetic
@@ -1289,13 +1438,15 @@ class DecisionTape:
         import torch
 
         from vn_pointcloudcompletion_tpu_torch.models import pcn
-        from vn_pointcloudcompletion_tpu_torch.nn import vn
+        from vn_pointcloudcompletion_tpu_torch.nn import precision, vn
         from vn_pointcloudcompletion_tpu_torch.ops import chamfer, fps_pallas, knn_pallas
         from vn_pointcloudcompletion_tpu_torch.ops.vn_fused import EPS, plane_dot, safe_sqrt
 
         tape = self
+        weak = precision.weak
         self._saved = [(mod, name, getattr(mod, name)) for mod, name in (
             (vn, "bn_leaky"), (pcn, "bn_leaky"), (vn, "_leaky_reflect"), (vn.VNMaxPool, "forward"),
+            (pcn, "linear_maxpool_planes"),
             (chamfer, "nn_bidirectional"),
             (chamfer, "nn_bidirectional_reference"), (knn_pallas, "knn_min"),
             (knn_pallas, "reference_knn_min"), (knn_pallas, "edge_knn_gather_fwd"),
@@ -1322,19 +1473,25 @@ class DecisionTape:
             keep, _ = tape.take(("vmask",) + tuple(p.shape[1:]), lambda: dotprod.detach() >= 0)
             mask = keep.to(p.dtype)
             d_norm_sq = (d * d).sum(dim, keepdim=True)
-            reflected = p - (dotprod / (d_norm_sq + EPS)) * d
-            return negative_slope * p + (1 - negative_slope) * (
+            reflected = p - (dotprod / (d_norm_sq + weak(EPS, p))) * d
+            return weak(negative_slope, p) * p + weak(1 - negative_slope, p) * (
                 mask * p + (1 - mask) * reflected)
 
         def pool(module, x):
             if module.layout == "vec":  # VNMaxPool.forward's vec branch
                 d = vn.channel_linear(module.map_to_dir.weight, x, "vec")
-                dot = x[:, :, 0] * d[:, :, 0] + x[:, :, 1] * d[:, :, 1] + x[:, :, 2] * d[:, :, 2]
+                dot = vn.vector_dot(x, d, 2)
                 idx, _ = tape.take(("pool",), lambda: dot.argmax(dim=-1, keepdim=True)[:, :, None])
                 return torch.gather(x, -1, idx.expand(x.shape[:-1] + (1,)))[..., 0]
-            d = torch.matmul(module.map_to_dir.weight, x)
-            idx, _ = tape.take(("pool",), lambda: plane_dot(x, d).argmax(dim=-1, keepdim=True))
+            d = vn.channel_linear(module.map_to_dir.weight, x, "plane")
+            idx, _ = tape.take(("pool",), lambda: vn.vector_dot(x, d, 1).argmax(
+                dim=-1, keepdim=True))
             return torch.gather(x, 3, idx[:, None].expand(-1, 3, -1, -1))[..., 0]
+
+        def linear_maxpool(w, wd, x):  # the flagship encoder's pools, taped
+            f, score = pcn.linear_pool_scores(w, wd, x)
+            idx, _ = tape.take(("lpool",), lambda: score.argmax(dim=-1, keepdim=True))
+            return f, torch.gather(f, 3, idx[:, None].expand(-1, 3, -1, -1))[..., 0]
 
         def knn(fn):
             def run(q, r, k):
@@ -1371,6 +1528,7 @@ class DecisionTape:
             return run
 
         vn.bn_leaky = pcn.bn_leaky = bn_leaky  # the decoders' fold layers call it from pcn
+        pcn.linear_maxpool_planes = linear_maxpool
         vn._leaky_reflect, vn.VNMaxPool.forward = leaky_reflect, pool
         chamfer.nn_bidirectional = nearest(orig["nn_bidirectional"])
         chamfer.nn_bidirectional_reference = nearest(orig["nn_bidirectional_reference"])
@@ -1690,6 +1848,175 @@ def profile_steps(model, config, partial, complete, steps_n: int = 3, top: int =
               f"{e.count // steps_n:5d} launches/step  {e.key[:90]}")
 
 
+def last_fold(model):
+    """The decoder's last fold layer (kernel C on the kernel path: the
+    1-channel projection of the fold), whose output a forward hook reads."""
+    dec = model.decoder
+    return dec.final_conv[1] if hasattr(dec, "final_conv") else dec.vn_folding2[1]
+
+
+def bf16_on_one_tape(model, xyz, rot, mutant_of=None):
+    """The eval forward under the bf16 policy through the kernels, recorded
+    on a DecisionTape, then through the plain path in bf16 and in float32,
+    both replaying the kernels' decisions: three pairs (coarse cloud, the
+    decoder's last fold output; ``last_fold``) and the recording.
+    ``mutant_of``: a recording to replay in the kernel run (a mutant's run
+    on the unchanged run's decisions)."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.nn.precision import compute_dtype_scope
+
+    folds = []
+    hook = last_fold(model).register_forward_hook(lambda m, i, out: folds.append(out))
+
+    def run(dtype):
+        with compute_dtype_scope(dtype):
+            return model(xyz, rot)[0], folds[-1]
+
+    try:
+        with torch.no_grad(), DecisionTape() as tape:
+            tape.run(mutant_of)
+            kern = run(torch.bfloat16)
+            rec = {**(mutant_of or {}), **tape.rec}
+            model.use_kernels_(False)
+            try:
+                tape.run(rec)
+                plain = run(torch.bfloat16)
+                tape.run({**rec, **tape.rec})
+                f32 = run(torch.float32)
+            finally:
+                model.use_kernels_(True)
+    finally:
+        hook.remove()
+    return kern, plain, f32, rec
+
+
+def bf16_tape_check(tag, kern, plain, f32) -> bool:
+    """Print and check phase 12's two bounds for (coarse, fold), in root
+    mean square: ||a - b|| / ||float32 forward||.  (A single element's bf16
+    noise reaches ~2% of the fold's max: kernel C and the plain chain sum
+    256 channels' epilogues, which cancel, and the plain chain rounds each
+    to bf16 first; the mean square sees a bias of all elements, such as
+    the mutant's, through that noise.)"""
+    ok = True
+    for name, k, p, f in zip(("coarse", "fold"), kern, plain, f32):
+        f = f.double()
+        scale = f.norm().item()
+        d_kf, d_pf, d_kp = ((a.double() - b.double()).norm().item() / scale
+                            for a, b in ((k, f), (p, f), (k, p)))
+        good = d_kf <= BF16_F32_RATIO * d_pf and d_kp <= BF16_FWD_TOL
+        print(f"{tag} {name}: kernels vs float32 {d_kf:.3e}, plain bf16 vs float32 "
+              f"{d_pf:.3e} (ratio {d_kf / max(d_pf, 1e-30):.2f}, bound {BF16_F32_RATIO}); "
+              f"kernels vs plain bf16 {d_kp:.3e} (bound {BF16_FWD_TOL:.3e}); max-abs: "
+              f"{(k.double() - f).abs().max().item() / f.abs().max().item():.3e}, "
+              f"{(p.double() - f).abs().max().item() / f.abs().max().item():.3e}, "
+              f"{(k.double() - p.double()).abs().max().item() / f.abs().max().item():.3e} "
+              f"{'PASS' if good else 'FAIL'}")
+        ok = ok and good
+    return ok
+
+
+def bf16_serve(dev, smi: str):
+    """Phase 12: the bf16 policy's serving path.  The eval forwards of the
+    flagship, VN DGCNN and vn_pointr_448 at full width, batch 8, under
+    ``compute_dtype_scope(torch.bfloat16)``, each with the counters set to
+    0 just before and read just after (the launches of BF16_FORWARD_LAUNCHES
+    exactly: no float32-mode launch of A, B, C or K3), float32 outputs;
+    each on one DecisionTape against the plain path in bf16 and in float32
+    (``bf16_tape_check``), and on the flagship a mutant (kernel C's bf16
+    output scaled by BF16_MUTANT) that the check must catch; then the
+    flagship metric step (JAX ``bench_eval_step``'s protocol: so3 rotation,
+    forward, CD-L1/L2, F-score, IoU) counted.  Median times (CUDA events)
+    of each forward and of the metric step in float32 and bf16.  Returns
+    the summed launch counts of the counted runs."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.nn.precision import compute_dtype_scope
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib, vn_layer_fused
+    from vn_pointcloudcompletion_tpu_torch.training.evaluate import metric_step
+
+    partial, complete, rot = main_path_batch(dev)
+    xyz = partial @ rot
+    total: dict = {}
+
+    def counted(what, fn):
+        cuda_lib.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cuda_lib.launch_counts().items() if v}
+        for key, v in counts.items():
+            total[key] = total.get(key, 0) + v
+        print(f"[bf16 serve] {what} launches: {json.dumps(counts)}")
+        return out, counts
+
+    def timed(fn, dtype, reps=5):
+        def run():
+            with torch.no_grad(), compute_dtype_scope(dtype):
+                return fn()
+        return cuda_ms(run, reps)
+
+    for path in ("flagship", "vn_dgcnn", "vn_pointr_448"):
+        tag = f"[bf16 serve {path}]"
+        config = _smoke_config(path)
+        model = build_model(config).to(dev).eval()
+
+        def fwd():
+            with torch.no_grad(), compute_dtype_scope(torch.bfloat16):
+                return model(xyz, rot)
+
+        (coarse, fine), counts = counted(f"{path} one forward", fwd)
+        counts.pop("chamfer_nn_one_sided", None)
+        if counts != BF16_FORWARD_LAUNCHES[path]:
+            raise AssertionError(f"{tag} launches {counts}, expected "
+                                 f"{BF16_FORWARD_LAUNCHES[path]}")
+        n_dense = 14336 if config.num_coarse == 448 else 16 * config.num_coarse
+        if (fine.dtype != torch.float32 or fine.shape != (BATCH, n_dense, 3)
+                or not (torch.isfinite(fine).all() and torch.isfinite(coarse).all())):
+            raise AssertionError(f"{tag} bad outputs {fine.dtype} {tuple(fine.shape)}")
+        kern, plain, f32, rec = bf16_on_one_tape(model, xyz, rot)
+        if not bf16_tape_check(tag, kern, plain, f32):
+            raise AssertionError(f"{tag} the bf16 kernel path disagrees with the plain path")
+        if path == "flagship":
+            orig = vn_layer_fused.vn_layer_fused_project
+            vn_layer_fused.vn_layer_fused_project = lambda *a, **k: orig(*a, **k) * BF16_MUTANT
+            try:
+                mutant = bf16_on_one_tape(model, xyz, rot, rec)[0]
+            finally:
+                vn_layer_fused.vn_layer_fused_project = orig
+            if bf16_tape_check(f"{tag} mutant (C x {BF16_MUTANT})", mutant, plain, f32):
+                raise AssertionError(f"{tag} the check misses kernel C scaled by {BF16_MUTANT}")
+            print(f"{tag} the mutant fails the check, as it must")
+        ms = {dt: timed(lambda: model(xyz, rot), dt) for dt in (torch.float32, torch.bfloat16)}
+        print(f"{tag} eval forward, batch {BATCH}: float32 {ms[torch.float32]:.2f} ms "
+              f"({BATCH / ms[torch.float32] * 1e3:.1f} completions/s), bf16 "
+              f"{ms[torch.bfloat16]:.2f} ms ({BATCH / ms[torch.bfloat16] * 1e3:.1f} "
+              f"completions/s); {smi}")
+        if path != "flagship":
+            del model
+            continue
+        flagship = model
+
+    def step():
+        with torch.no_grad(), compute_dtype_scope(torch.bfloat16):
+            return metric_step(flagship, partial, complete, rot)
+
+    (out, pred), counts = counted("flagship metric step", step)
+    want = dict(BF16_FORWARD_LAUNCHES["flagship"], chamfer_nn_one_sided=2)
+    if counts != want or pred.dtype != torch.float32:
+        raise AssertionError(f"[bf16 metric step] launches {counts}, expected {want}")
+    row = {k: float(v.mean()) for k, v in out.items()}
+    if not all(v == v and abs(v) < float("inf") for v in row.values()):
+        raise AssertionError(f"[bf16 metric step] non-finite metrics {row}")
+    ms = {dt: timed(lambda: metric_step(flagship, partial, complete, rot), dt)
+          for dt in (torch.float32, torch.bfloat16)}
+    print(f"[bf16 metric step] flagship, batch {BATCH}: {json.dumps(row)}; float32 "
+          f"{ms[torch.float32]:.2f} ms ({BATCH / ms[torch.float32] * 1e3:.1f} completions/s), "
+          f"bf16 {ms[torch.bfloat16]:.2f} ms ({BATCH / ms[torch.bfloat16] * 1e3:.1f} "
+          f"completions/s); {smi}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1710,7 +2037,8 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; allow_tf32: matmul "
           f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
-          f"{torch.backends.cudnn.allow_tf32}", flush=True)
+          f"{torch.backends.cudnn.allow_tf32}; allow_bf16_reduced_precision_reduction "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}", flush=True)
 
     t0 = time.perf_counter()
     reports = cuda_lib.build_all()
@@ -1744,12 +2072,17 @@ def main() -> int:
                            "vn_pointr_448")
     phase("10b flagship coarse losses emd, dcd", coarse_loss_train, dev)
     phase("11 standalone PCN, VNPCN, DGCNN", standalone_models, dev)
+    bf16_counts = phase("12 bf16 serve", bf16_serve, dev, smi)
     # launches: each kernel's count in the training run of its path (K1 is
     # on no model's path: the JAX package reaches it only for D > 512; nor
-    # are C and C' in group=S mode: no model passes a group to them)
+    # are C and C' in group=S mode: no model passes a group to them); the
+    # bf16 rows' in phase 12's counted forwards and metric step
     for rec in records:
         sym = SYMBOL[rec["name"].split()[0]]
-        if "group=" in rec["name"]:
+        if rec["name"].endswith(" bf16"):  # phase 12, the bf16 serving path
+            mode = "[group,bf16]" if "group=" in rec["name"] else "[bf16]"
+            rec["launches"] = bf16_counts.get(f"{sym}{mode}", 0)
+        elif "group=" in rec["name"]:
             rec["launches"] = pointr_counts[f"{sym}[group]"]
         elif sym == "emd_rounds":  # phase 10: both test --emd runs
             rec["launches"] = emd_counts[sym] + emd_counts_448[sym]

@@ -185,16 +185,19 @@ def test_kernel_d_ties_go_to_lowest_index():
 
 def test_launch_check_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_lib.check_cuda_f32("x", torch.zeros(1, 3, 16, 512))
+        cuda_lib.check_cuda("x", "float32 planes", (torch.zeros(1, 3, 16, 512), torch.float32))
 
 
 def test_kernel_entry_points_exist_in_their_sources():
     names = {k.symbol: k.source for k in cuda_lib.KERNELS}
     assert names == {
         "vn_bn_leaky_fwd": "vn_fused.cu",
+        "vn_bn_leaky_fwd_bf16": "vn_fused.cu",
         "vn_bn_leaky_bwd": "vn_fused.cu",
         "vn_layer_fused_fwd": "vn_layer_fused.cu",
         "vn_layer_fused_project_fwd": "vn_layer_fused.cu",
+        "vn_layer_fused_fwd_bf16": "vn_layer_fused.cu",
+        "vn_layer_fused_project_fwd_bf16": "vn_layer_fused.cu",
         "vn_layer_stats_fwd": "vn_layer_bwd.cu",
         "vn_layer_stats_bwd": "vn_layer_bwd.cu",
         "vn_layer_fused_bwd": "vn_layer_bwd.cu",
@@ -203,6 +206,7 @@ def test_kernel_entry_points_exist_in_their_sources():
         "topk_min": "knn.cu",
         "knn_min": "knn.cu",
         "edge_knn_gather": "knn.cu",
+        "edge_knn_gather_bf16": "knn.cu",
         "furthest_point_sample": "fps.cu",
         "emd_rounds": "emd.cu",
     }
@@ -924,3 +928,131 @@ def test_cuda_dgcnn_classic_matches_plain_path(cuda):
     assert {k: v for k, v in got.items() if v} == {"knn_min": 4}
     torch.testing.assert_close(coarse, coarse_p, atol=1e-5, rtol=1e-4)
     torch.testing.assert_close(fg, fg_p, atol=1e-5, rtol=1e-4)
+
+
+# ------------------------------------------------------- bf16 modes, card
+
+
+def _bf16_t(*arrays, device):
+    return [None if a is None else torch.from_numpy(a).to(device, torch.bfloat16)
+            for a in arrays]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,n", [(128, 2048), (1024, 2048), (16, 1000)])
+def test_kernel_a_bf16_cuda_matches_plain(cuda, c, n):
+    """bf16 planes: the kernel's bf16 mode, counted apart, equal to the
+    plain version to the bit."""
+    p, d, a, b = _bn_inputs(np.random.default_rng(c + 1), 2, c, n)
+    (pt, dt), (at, bt) = _bf16_t(p, d, device=cuda), _t(a, b, device=cuda)
+    kernel = cuda_lib.launch_counts
+    before = kernel()
+    got = port_fused.fused_bn_leaky(pt, dt, at, bt, NS)
+    torch.cuda.synchronize()
+    after = kernel()
+    assert after["vn_bn_leaky_fwd[bf16]"] == before["vn_bn_leaky_fwd[bf16]"] + 1
+    assert after["vn_bn_leaky_fwd"] == before["vn_bn_leaky_fwd"]
+    want = port_fused.reference_bn_leaky_planes(pt, dt, at, bt, NS)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out,n,group", [
+    (2, 256, 16384, 0), (2, 16, 1000, 0), (1, 256, 14336, 64), (1, 32, 4096, 16),
+])
+def test_kernel_b_bf16_cuda_matches_plain(cuda, c_in, c_out, n, group):
+    """bf16 x and biases (per sample, or per ``group`` points), float32
+    weights: equal to the bit (C_in <= 2: the float32 sums of exact
+    products cannot differ in order)."""
+    rng = np.random.default_rng(c_out + n)
+    x, w, wd, pb, db, a, b, _ = _layer_inputs(rng, 2, c_in, c_out, n, True)
+    if group:
+        pb = rng.standard_normal((2, 3, c_out, n // group)).astype(np.float32)
+        db = rng.standard_normal((2, 3, c_out, n // group)).astype(np.float32)
+    xt, pbt, dbt = _bf16_t(x, pb, db, device=cuda)
+    wt, wdt, at, bt = _t(w, wd, a, b, device=cuda)
+    name = "vn_layer_fused_fwd[group,bf16]" if group else "vn_layer_fused_fwd[bf16]"
+    before = cuda_lib.launch_counts()[name]
+    got = port_layer.vn_layer_fused(xt, wt, wdt, pbt, dbt, at, bt, NS, group)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()[name] == before + 1
+    want = port_layer.reference_layer_fused(xt, wt, wdt, pbt, dbt, at, bt, NS, group)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out,n", [(256, 256, 16384), (256, 128, 14336), (16, 16, 1000)])
+def test_kernel_c_bf16_cuda_matches_plain(cuda, c_in, c_out, n):
+    """Within one bf16 ulp per element (the products' float32 sums run in
+    another order than the plain version's matrix product, and p, d round
+    through bf16 after them)."""
+    rng = np.random.default_rng(c_in + n + 1)
+    x, w, wd, _, _, a, b, w_out = _layer_inputs(rng, 2, c_in, c_out, n, False)
+    (xt,) = _bf16_t(x, device=cuda)
+    wt, wdt, at, bt, wot = _t(w, wd, a, b, w_out, device=cuda)
+    before = cuda_lib.launch_counts()["vn_layer_fused_project_fwd[bf16]"]
+    got = port_layer.vn_layer_fused_project(xt, wt, wdt, None, None, at, bt, wot, NS)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["vn_layer_fused_project_fwd[bf16]"] == before + 1
+    want = port_layer.reference_layer_fused_project(xt, wt, wdt, None, None, at, bt, wot, NS)
+    from chip_smoke import bf16_ulps  # run from the repo root
+
+    worst, differ = bf16_ulps(got, want)
+    print(f"C bf16 ({c_in}, {c_out}, {n}): worst {worst} ulp, {differ} of {got.numel()} differ")
+    assert got.dtype == torch.bfloat16 and worst <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,dim,c3,k,x_bf16", [(512, 3, 768, 16, True), (2048, 3, 384, 16, True),
+                                               (512, 96, 384, 16, True), (512, 3, 384, 16, False),
+                                               (333, 0, 96, 32, True)])
+def test_kernel_k3_bf16_cuda_matches_plain(cuda, n, dim, c3, k, x_bf16):
+    """bf16 features (and bf16 or float32 coordinates): equal indices and
+    bits; dim = 0: the lane-tie cloud, rounded to bf16 (more ties)."""
+    g = torch.Generator().manual_seed(n + c3 + 1)
+    if dim == 0:
+        x = _lane_tie_cloud(2, n).transpose(1, 2).contiguous()
+    else:
+        x = torch.randn(2, dim, n, generator=g)
+    x = x.to(cuda, torch.bfloat16 if x_bf16 else torch.float32)
+    u, v = (torch.randn(2, c3, n, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    before = cuda_lib.launch_counts()["edge_knn_gather[bf16]"]
+    got = knn_pallas.edge_knn_gather_fwd(x, u, v, k)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["edge_knn_gather[bf16]"] == before + 1
+    want = knn_pallas.reference_edge_knn_gather(x, u, v, k)
+    assert got[0].dtype == torch.bfloat16
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_bf16_reaches_no_float32_kernel(cuda):
+    """A bf16 CUDA tensor given to a wrapper with no bf16 mode raises (S,
+    the backwards A', B', C', S', and D, K1, E, which take float32), and
+    one with a bf16 mode never falls back to the float32 kernel: mixed
+    types raise too."""
+    rng = np.random.default_rng(3)
+    x, w, wd, pb, db, a, b, w_out = _layer_inputs(rng, 2, 2, 16, 1024, True)
+    xt, pbt, dbt = _bf16_t(x, pb, db, device=cuda)
+    wt, wdt, at, bt, wot = _t(w, wd, a, b, w_out, device=cuda)
+    g = torch.zeros(2, 3, 16, 1024, device=cuda)
+    planes = g.to(torch.bfloat16) + 1  # (2, 3, 16, 1024) bf16
+    pts = xt[:, :, 0].transpose(1, 2).contiguous()  # (2, 1024, 3) bf16
+    before = cuda_lib.launch_counts()
+    for call in (
+        lambda: port_layer.stats_fwd(xt, wt, pbt),
+        lambda: port_layer.layer_bwd(xt, wt, wdt, pbt, dbt, at, bt, g, NS),
+        lambda: port_layer.layer_project_bwd(xt, wt, wdt, pbt, dbt, at, bt, wot, g[:, :, :1], NS),
+        lambda: port_layer.stats_bwd(xt, wt, pbt, at, bt),
+        lambda: port_fused.bn_leaky_bwd(planes, planes, at, bt, planes, NS),
+        lambda: port_chamfer.nn_bidirectional(pts, pts),
+        lambda: knn_pallas.topk_min_fwd(xt[:, 0], 4),
+        lambda: emd_pallas.emd_rounds_kernel(pts, pts),
+        lambda: port_layer.vn_layer_fused(xt, wt, wdt, pbt.float(), dbt.float(), at, bt, NS),
+        lambda: port_fused.fused_bn_leaky(planes, planes.float(), at, bt, NS),
+        lambda: knn_pallas.edge_knn_gather_fwd(xt[:, 0], xt[:, 0], xt[:, 0].float(), 4),
+    ):
+        with pytest.raises(TypeError, match="takes"):
+            call()
+    assert cuda_lib.launch_counts() == before

@@ -52,17 +52,72 @@ def _randomize_bn(tree, rng):
     return walk(tree)
 
 
-@pytest.fixture(scope="module")
-def carried():
-    """JAX model + variables and the port model loaded with the same weights."""
+def flagship_pool_gaps(model, xyz):
+    """The two VN max-pools of the flagship encoder (``maxpool1``,
+    ``maxpool2``) scored in float64 through the port's layers, eval mode:
+    per (sample, channel), the winner's score minus the best score of a
+    point whose vector differs from the winner's, over the largest |score|
+    of the channel.  A small gap lets two implementations that sum a score
+    in different orders pick different vectors; a tie between equal
+    vectors (duplicate points) picks the same vector either way and is
+    not a gap.  Returns [(B, 512), (B, 2048)]."""
+    enc = model.encoder
+    params = {k: t.detach().double() for k, t in enc.state_dict().items()}
+    x = torch.from_numpy(np.asarray(xyz, np.float64)).transpose(1, 2)[:, :, None, :]
+    gaps = []
+    with torch.no_grad():
+        h = torch.func.functional_call(enc.first_conv[0], {
+            k.split(".", 2)[2]: v for k, v in params.items() if k.startswith("first_conv.0.")}, (x,))
+        for i, (conv, pool) in enumerate((("first_conv", "maxpool1"),
+                                          ("second_conv", "maxpool2"))):
+            w = params[f"{conv}.1.map_to_feat.weight"]
+            f = torch.matmul(w, h)
+            s = port_vn.vector_dot(f, torch.matmul(params[f"{pool}.map_to_dir.weight"] @ w, h), 1)
+            top = s.argmax(-1, keepdim=True)  # (B, C, 1)
+            win = torch.gather(f, 3, top[:, None].expand(-1, 3, -1, -1))  # (B, 3, C, 1)
+            same = (f == win).all(1)  # points whose vector is the winner's
+            second = torch.where(same, -torch.inf, s).amax(-1)
+            gaps.append(((s.amax(-1) - second) / s.abs().amax(-1)).numpy())
+            if i == 0:
+                g = win.expand(-1, -1, -1, f.shape[3])
+                h = torch.func.functional_call(enc.second_conv[0], {
+                    k.split(".", 2)[2]: v for k, v in params.items()
+                    if k.startswith("second_conv.0.")}, (torch.cat([g, f], 2),))
+    return gaps
+
+
+def _assert_pool_gap(model, xyz, rel=1e-5):
+    """Every channel of both flagship pools picks its vector by more than
+    ``rel`` of the channel's largest score (see :func:`flagship_pool_gaps`),
+    as ``tests/test_torch_port_dgcnn.py::_assert_knn_gap`` holds kNN."""
+    for name, gap in zip(("maxpool1", "maxpool2"), flagship_pool_gaps(model, xyz)):
+        assert gap.min() > rel, (name, gap.min(), np.unravel_index(gap.argmin(), gap.shape))
+
+
+def carried_flagship():
+    """JAX model + variables and the port model loaded with the same weights,
+    and a cloud (32 points) on which both flagship pools pick their vectors
+    by more than 1e-5 of their scores (``_assert_pool_gap``).  A float32 tie
+    in a pool lets JAX and the port, which sum the score in different
+    orders, pick different vectors: the 256-point cloud this fixture took
+    before had one at 8e-9 in ``maxpool1``."""
     rng = np.random.default_rng(0)
     jm = JaxPCNNet(num_coarse=NUM_COARSE, latent_dim=2048)
-    xyz = (rng.standard_normal((2, 256, 3)) * 0.3).astype(np.float32)
-    v = jm.init(jax.random.key(0), jnp.asarray(xyz), None, train=False)
+    init_xyz = (rng.standard_normal((2, 256, 3)) * 0.3).astype(np.float32)
+    # jitted: the same values as the eager init, in a seventh of the time
+    v = jax.jit(lambda k, x: jm.init(k, x, None, train=False))(jax.random.key(0),
+                                                               jnp.asarray(init_xyz))
     v = {k: _randomize_bn(jax.tree.map(np.array, dict(v[k])), rng) for k in v}
     model = PCNNet(num_coarse=NUM_COARSE).eval()
     model.load_state_dict(state_dict_from_jax_variables(v), strict=True)
+    xyz = (np.random.default_rng(1019).standard_normal((2, 32, 3)) * 0.3).astype(np.float32)
+    _assert_pool_gap(model, xyz)
     return jm, v, model, xyz
+
+
+@pytest.fixture(scope="module")
+def carried():
+    return carried_flagship()
 
 
 def test_state_dict_round_trip_is_exact(carried):
@@ -273,7 +328,7 @@ def test_chamfer_distance_small_and_any_dim():
 
 
 @pytest.mark.parametrize("cfg,error,match", [
-    ({"dtype": "bfloat16"}, NotImplementedError, "bfloat16"),
+    ({"dtype": "bfloat16"}, None, None),
     ({"enc_type": "vn_pointr", "num_coarse": 448, "dec_type": "attention_vn_foldingnet"},
      None, None),
     ({"enc_type": "vn_pointr"}, ValueError, "num_coarse=448"),
@@ -281,12 +336,16 @@ def test_chamfer_distance_small_and_any_dim():
     ({"pointr_decoder": True}, NotImplementedError, "item 4b"),
 ])
 def test_unported_configs_raise(cfg, error, match):
-    """What the port does not run raises, naming its ROADMAP.md item (the
-    bfloat16 policy, vn_pointr's decoder stack); vn_pointr off num_coarse
-    448 is a ValueError, as in JAX; the pipelines ported since build."""
+    """What the port does not run raises, naming its ROADMAP.md item
+    (vn_pointr's decoder stack); vn_pointr off num_coarse 448 is a
+    ValueError, as in JAX; the pipelines ported since build, and so does a
+    bfloat16 config (the policy is set by the caller, not the model:
+    parameters stay float32)."""
     if error is None:
         model = build_model(Config.from_dict(cfg))
-        assert type(model.decoder).__name__ == "AttentionVNFoldingNet"
+        want = "VNFoldingNet" if "dtype" in cfg else "AttentionVNFoldingNet"
+        assert type(model.decoder).__name__ == want
+        assert all(p.dtype == torch.float32 for p in model.parameters())
         return
     with pytest.raises(error, match=match):
         build_model(Config.from_dict(cfg))

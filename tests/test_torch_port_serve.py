@@ -231,7 +231,7 @@ def test_port_never_imports_jax():
         "training/steps", "training/state", "training/trainer", "training/checkpoint",
         "utils/experiments", "metrics/losses", "ops/chamfer", "ops/vn_layer_fused",
         "ops/knn", "ops/knn_pallas", "ops/fps", "ops/fps_pallas", "models/dgcnn",
-        "models/common",
+        "models/common", "nn/precision",
     )} <= names
     for f in files:
         for mod in _imports(f):

@@ -12,6 +12,7 @@
 // always fused.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -22,6 +23,33 @@ VNK_EXPORT const char* vnk_error_string(int err) {
 }
 
 constexpr float VNK_EPS = 1e-6f;  // models/vn_layers.py:10 of the reference
+
+// The element types of the activations: float32, or bfloat16 under the
+// bfloat16 compute policy (nn/precision.py).  A bfloat16 kernel reads its
+// activations as bf16, computes in float32 and stores bf16 rounded to
+// nearest even (the TPU kernels' `.astype(jnp.float32)` ... `.astype(
+// out_ref.dtype)`); the conversions are the cuda_bf16.h intrinsics.
+typedef __nv_bfloat16 vnk_bf16;
+
+__device__ __forceinline__ float vnk_load(float v) { return v; }
+__device__ __forceinline__ float vnk_load(vnk_bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T vnk_cast(float v);
+template <>
+__device__ __forceinline__ float vnk_cast<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ vnk_bf16 vnk_cast<vnk_bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// v rounded through bf16 and back (exact in float32).
+__device__ __forceinline__ float vnk_round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename T>
+__host__ __device__ constexpr bool vnk_is_bf16() { return sizeof(T) == 2; }
 
 // Folded norm-BatchNorm followed by the VN leaky reflection, for one vector
 // (p, d) of one channel (vn_pointcloudcompletion_tpu/ops/vn_layer_fused.py

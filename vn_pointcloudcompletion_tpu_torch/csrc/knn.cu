@@ -30,6 +30,12 @@
 // in shared memory and writes the gathered rows with neighbouring threads on
 // neighbouring queries, so every store is a full 128-byte line.
 //
+// K3's bf16 mode (the bfloat16 compute policy; knn_pallas.py:298-333 on
+// bf16 features): x is read as bf16 or float32 and upcast exactly, so the
+// distances and the selection are the float32 mode's on those values; u and
+// v are bf16, the gather is exact, and out = bf16(float(u[idx]) + float(v))
+// rounded to nearest even, the TPU kernel's `g.astype(v.dtype) + v`.
+//
 // Bound on the H100.  K1: bytes (one read of the matrix).  K2 at the main
 // path's D = 3: operations, about 12 per (query, reference) pair for the
 // distance and the compare, on the CUDA cores.  K3: bytes, the (B, C3, k, N)
@@ -118,13 +124,15 @@ __device__ __forceinline__ void warp_merge(LaneList<K>& l, int k, Emit emit) {
 }
 
 // The squared distance of query row qrow (D floats, shared memory) to
-// column j of a (D, M) array, in the plain version's order.
+// column j of a (D, M) array (float32 or bf16, read as float32), in the
+// plain version's order.
+template <typename X>
 __device__ __forceinline__ float sq_dist(const float* qrow, float qsq,
-                                         const float* __restrict__ cols,
+                                         const X* __restrict__ cols,
                                          int D, int M, int j) {
   float cross = 0.f, rsq = 0.f;
   for (int e = 0; e < D; ++e) {
-    const float re = cols[static_cast<int64_t>(e) * M + j];
+    const float re = vnk_load(cols[static_cast<int64_t>(e) * M + j]);
     cross = cross + qrow[e] * re;
     rsq = rsq + re * re;
   }
@@ -184,23 +192,24 @@ knn_min_kernel(const float* __restrict__ q, const float* __restrict__ rt,
   });
 }
 
-// K3: x (B, D, N), u, v (B, C3, N) -> out (B, C3, k, N), idx (B, N, k).
-template <int K>
+// K3: x (B, D, N), u, v (B, C3, N) -> out (B, C3, k, N), idx (B, N, k);
+// x of type X, u, v and out of type T.
+template <int K, typename X, typename T>
 __global__ void __launch_bounds__(kThreads)
-edge_knn_gather_kernel(const float* __restrict__ x, const float* __restrict__ u,
-                       const float* __restrict__ v, float* __restrict__ out,
+edge_knn_gather_kernel(const X* __restrict__ x, const T* __restrict__ u,
+                       const T* __restrict__ v, T* __restrict__ out,
                        int* __restrict__ idx, int N, int D, int C3, int k) {
   extern __shared__ float smem[];
   int* sidx = reinterpret_cast<int*>(smem + kWarps * D);  // (kEdgeQueries, k)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * kEdgeQueries;
-  const float* xb = x + static_cast<int64_t>(b) * D * N;
+  const X* xb = x + static_cast<int64_t>(b) * D * N;
   float* qrow = smem + warp * D;
   for (int qq = warp; qq < kEdgeQueries; qq += kWarps) {
     const int n = q0 + qq;
     if (n >= N) break;
-    for (int e = lane; e < D; e += 32) qrow[e] = xb[static_cast<int64_t>(e) * N + n];
+    for (int e = lane; e < D; e += 32) qrow[e] = vnk_load(xb[static_cast<int64_t>(e) * N + n]);
     __syncwarp();
     const float qsq = sq_norm(qrow, D);
     LaneList<K> l;
@@ -221,7 +230,8 @@ edge_knn_gather_kernel(const float* __restrict__ x, const float* __restrict__ u,
   for (int e = threadIdx.x >> 5; e < C3 * k; e += kWarps) {
     const int c = e / k, kk = e - c * k;
     const int64_t row = (bc + c) * N;
-    out[((bc + c) * k + kk) * N + n] = u[row + sidx[ql * k + kk]] + v[row + n];
+    out[((bc + c) * k + kk) * N + n] =
+        vnk_cast<T>(vnk_load(u[row + sidx[ql * k + kk]]) + vnk_load(v[row + n]));
   }
 }
 
@@ -256,11 +266,13 @@ struct LaunchKnn {
 
 template <int K>
 struct LaunchEdge {
-  static int run(const float* x, const float* u, const float* v, float* out,
-                 int* idx, int B, int N, int D, int C3, int k, cudaStream_t s) {
+  template <typename X, typename T>
+  static int run(const X* x, const T* u, const T* v, T* out, int* idx, int B,
+                 int N, int D, int C3, int k, cudaStream_t s) {
     const dim3 grid((N + kEdgeQueries - 1) / kEdgeQueries, B);
     const size_t shmem = sizeof(float) * kWarps * D + sizeof(int) * kEdgeQueries * k;
-    edge_knn_gather_kernel<K><<<grid, kThreads, shmem, s>>>(x, u, v, out, idx, N, D, C3, k);
+    edge_knn_gather_kernel<K, X, T><<<grid, kThreads, shmem, s>>>(
+        x, u, v, out, idx, N, D, C3, k);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -295,4 +307,22 @@ VNK_EXPORT int edge_knn_gather(const void* x, const void* u, const void* v,
                           static_cast<const float*>(v), static_cast<float*>(out),
                           static_cast<int*>(idx), B, N, D, C3, k,
                           static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 mode: u, v bfloat16 -> out (B, C3, k, N) bfloat16, idx int32;
+// x (B, D, N) bfloat16 when x_bf16 is set, else float32; D <= 512.
+VNK_EXPORT int edge_knn_gather_bf16(const void* x, const void* u, const void* v,
+                                    void* out, void* idx, int B, int N, int D,
+                                    int C3, int k, int x_bf16, void* stream) {
+  if (B == 0 || N == 0) return 0;
+  const vnk_bf16* ub = static_cast<const vnk_bf16*>(u);
+  const vnk_bf16* vb = static_cast<const vnk_bf16*>(v);
+  vnk_bf16* ob = static_cast<vnk_bf16*>(out);
+  int* ib = static_cast<int*>(idx);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return by_k<LaunchEdge>(k, static_cast<const vnk_bf16*>(x), ub, vb, ob, ib, B,
+                            N, D, C3, k, st);
+  return by_k<LaunchEdge>(k, static_cast<const float*>(x), ub, vb, ob, ib, B, N,
+                          D, C3, k, st);
 }

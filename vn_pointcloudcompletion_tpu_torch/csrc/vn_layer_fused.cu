@@ -26,6 +26,17 @@
 //      shared-memory reduction over the 16 channel groups at the end and no
 //      atomics across blocks.
 //
+// The bf16 mode (T = vnk_bf16: x, the biases and out bfloat16; W, Wd, A, B
+// and w_out float32) is the TPU kernels' bf16=True (vn_layer_fused.py:61-65
+// _dot, :86-126 _compute_pd): products of bf16-rounded W and x summed in
+// float32, the bias added in float32, then p and d rounded through bf16
+// once (never Wx alone: that would round twice) before the float32
+// epilogue; B stores the epilogue in bf16, C sums the UNROUNDED float32
+// epilogue times w_out (as JAX's fused C does, :650-656) and stores the
+// sum in bf16.  The loops are the float32 mode's over bf16 loads, FMAs on
+// the CUDA cores: the bf16 bound below is the tensor cores', which only a
+// redesign with mma/wgmma could approach.
+//
 // Bound on the H100.  B (Cin = 2 on the main path): bytes, the
 // B*3*Cout*N*4-byte output write; the two-term products cost two FMAs per
 // accumulator.  C (Cin = Cout = 256): operations, 2 * 2*Cin*Cout*3*B*N FLOP
@@ -37,13 +48,24 @@
 
 namespace {
 
-template <bool kProject>
+// Four point values of one output row, from n (a multiple of 4, 8-byte
+// aligned in the bf16 mode, 16-byte in the float32 one).
+__device__ __forceinline__ void store4(float* dst, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(vnk_bf16* dst, const float (&v)[4]) {
+  reinterpret_cast<__nv_bfloat162*>(dst)[0] = __floats2bfloat162_rn(v[0], v[1]);
+  reinterpret_cast<__nv_bfloat162*>(dst)[1] = __floats2bfloat162_rn(v[2], v[3]);
+}
+
+template <bool kProject, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-layer_fwd(const float* __restrict__ x, const float* __restrict__ w,
-          const float* __restrict__ wd, const float* __restrict__ pbias,
-          const float* __restrict__ dbias, const float* __restrict__ a,
+layer_fwd(const T* __restrict__ x, const float* __restrict__ w,
+          const float* __restrict__ wd, const T* __restrict__ pbias,
+          const T* __restrict__ dbias, const float* __restrict__ a,
           const float* __restrict__ b, const float* __restrict__ w_out,
-          float* __restrict__ out, int Cin, int Cout, int N, int group,
+          T* __restrict__ out, int Cin, int Cout, int N, int group,
           float one_minus_ns) {
   __shared__ VnkTileSmem sm;
   __shared__ float red[kProject ? 16 : 1][3][kPts];
@@ -52,7 +74,7 @@ layer_fwd(const float* __restrict__ x, const float* __restrict__ w,
   const int ty = threadIdx.x / 16;  // channel group: channels ty*4 .. ty*4+3
   const int bi = blockIdx.z;
   const int n0 = blockIdx.x * kPts;
-  const float* xb = x + static_cast<size_t>(bi) * 3 * Cin * N;
+  const T* xb = x + static_cast<size_t>(bi) * 3 * Cin * N;
   const bool vec_store = (N % 4 == 0) && (n0 + tx * 4 + 3 < N);
 
   float proj[3][4];
@@ -82,10 +104,17 @@ layer_fwd(const float* __restrict__ x, const float* __restrict__ w,
             db[j] = vnk_bias(dbias, bi, j, c, Cout, n0 + tx * 4 + q, N, group);
           }
         }
-        float v[3];
-        vnk_bn_leaky(accp[0][i][q] + pb[0], accp[1][i][q] + pb[1],
-                     accp[2][i][q] + pb[2], accd[0][i][q] + db[0],
-                     accd[1][i][q] + db[1], accd[2][i][q] + db[2], av, bv,
+        float pv[3], dv[3], v[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          pv[j] = accp[j][i][q] + pb[j];
+          dv[j] = accd[j][i][q] + db[j];
+          if (vnk_is_bf16<T>()) {
+            pv[j] = vnk_round_bf16(pv[j]);
+            dv[j] = vnk_round_bf16(dv[j]);
+          }
+        }
+        vnk_bn_leaky(pv[0], pv[1], pv[2], dv[0], dv[1], dv[2], av, bv,
                      one_minus_ns, v);
         o[0][q] = v[0];
         o[1][q] = v[1];
@@ -100,15 +129,14 @@ layer_fwd(const float* __restrict__ x, const float* __restrict__ w,
       } else {
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
-          float* row = out + ((static_cast<size_t>(bi) * 3 + j) * Cout + c) * N;
+          T* row = out + ((static_cast<size_t>(bi) * 3 + j) * Cout + c) * N;
           const int n = n0 + tx * 4;
           if (vec_store) {
-            *reinterpret_cast<float4*>(row + n) =
-                make_float4(o[j][0], o[j][1], o[j][2], o[j][3]);
+            store4(row + n, o[j]);
           } else {
 #pragma unroll
             for (int q = 0; q < 4; ++q)
-              if (n + q < N) row[n + q] = o[j][q];
+              if (n + q < N) row[n + q] = vnk_cast<T>(o[j][q]);
           }
         }
       }
@@ -127,12 +155,12 @@ layer_fwd(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int g = 0; g < 16; ++g) s += red[g][j][nn];
       const int n = n0 + nn;
-      if (n < N) out[(static_cast<size_t>(bi) * 3 + j) * N + n] = s;
+      if (n < N) out[(static_cast<size_t>(bi) * 3 + j) * N + n] = vnk_cast<T>(s);
     }
   }
 }
 
-template <bool kProject>
+template <bool kProject, typename T>
 int launch(const void* x, const void* w, const void* wd, const void* pbias,
            const void* dbias, const void* a, const void* b, const void* w_out,
            void* out, int B, int Cin, int Cout, int N, int group,
@@ -140,12 +168,12 @@ int launch(const void* x, const void* w, const void* wd, const void* pbias,
   if (B == 0 || N == 0) return 0;
   const int ch_tiles = kProject ? 1 : (Cout + kCh - 1) / kCh;
   const dim3 grid((N + kPts - 1) / kPts, ch_tiles, B);
-  layer_fwd<kProject><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(wd), static_cast<const float*>(pbias),
-      static_cast<const float*>(dbias), static_cast<const float*>(a),
+  layer_fwd<kProject, T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(wd), static_cast<const T*>(pbias),
+      static_cast<const T*>(dbias), static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<const float*>(w_out),
-      static_cast<float*>(out), Cin, Cout, N, group, one_minus_ns);
+      static_cast<T*>(out), Cin, Cout, N, group, one_minus_ns);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -153,13 +181,15 @@ int launch(const void* x, const void* w, const void* wd, const void* pbias,
 
 // pbias and dbias are (B, 3, Cout) per-sample biases (group = 0) or
 // (B, 3, Cout, N / group) per-group ones (N % group == 0), or both null.
+// x, the biases and out are float32 here and bfloat16 in the _bf16 entry
+// points; W, Wd, A, B and w_out are float32 in both.
 VNK_EXPORT int vn_layer_fused_fwd(const void* x, const void* w, const void* wd,
                                   const void* pbias, const void* dbias,
                                   const void* a, const void* b, void* out,
                                   int B, int Cin, int Cout, int N, int group,
                                   float one_minus_ns, void* stream) {
-  return launch<false>(x, w, wd, pbias, dbias, a, b, nullptr, out, B, Cin,
-                       Cout, N, group, one_minus_ns, stream);
+  return launch<false, float>(x, w, wd, pbias, dbias, a, b, nullptr, out, B,
+                              Cin, Cout, N, group, one_minus_ns, stream);
 }
 
 VNK_EXPORT int vn_layer_fused_project_fwd(
@@ -167,6 +197,25 @@ VNK_EXPORT int vn_layer_fused_project_fwd(
     const void* dbias, const void* a, const void* b, const void* w_out,
     void* out, int B, int Cin, int Cout, int N, int group, float one_minus_ns,
     void* stream) {
-  return launch<true>(x, w, wd, pbias, dbias, a, b, w_out, out, B, Cin, Cout,
-                      N, group, one_minus_ns, stream);
+  return launch<true, float>(x, w, wd, pbias, dbias, a, b, w_out, out, B, Cin,
+                             Cout, N, group, one_minus_ns, stream);
+}
+
+VNK_EXPORT int vn_layer_fused_fwd_bf16(const void* x, const void* w,
+                                       const void* wd, const void* pbias,
+                                       const void* dbias, const void* a,
+                                       const void* b, void* out, int B,
+                                       int Cin, int Cout, int N, int group,
+                                       float one_minus_ns, void* stream) {
+  return launch<false, vnk_bf16>(x, w, wd, pbias, dbias, a, b, nullptr, out, B,
+                                 Cin, Cout, N, group, one_minus_ns, stream);
+}
+
+VNK_EXPORT int vn_layer_fused_project_fwd_bf16(
+    const void* x, const void* w, const void* wd, const void* pbias,
+    const void* dbias, const void* a, const void* b, const void* w_out,
+    void* out, int B, int Cin, int Cout, int N, int group, float one_minus_ns,
+    void* stream) {
+  return launch<true, vnk_bf16>(x, w, wd, pbias, dbias, a, b, w_out, out, B,
+                                Cin, Cout, N, group, one_minus_ns, stream);
 }

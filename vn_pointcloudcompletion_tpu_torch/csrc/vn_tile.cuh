@@ -8,6 +8,13 @@
 // threads holds a 4-channel x 4-point micro-tile of the accumulators (p and
 // d, three planes each): channels c0 + ty*4 + i, points n0 + tx*4 + q.  The
 // inner products call fmaf() explicitly, in input-channel order.
+//
+// x is float32 or, in the bf16 mode (T = vnk_bf16), bfloat16; W and Wd are
+// float32 parameters and are then rounded to bf16 as they are staged (JAX
+// vn_layer_fused.py::_dot casts both operands to bf16).  The stages hold
+// float32 either way: a product of two bf16 values is exact in float32, so
+// the sums are float32 sums of exact products, as the TPU's bf16 matrix
+// unit with float32 accumulation gives them.
 #pragma once
 
 #include "common.cuh"
@@ -25,9 +32,9 @@ struct VnkTileSmem {
   __align__(16) float xs[3][kK][kPts];
 };
 
-template <bool kWithD>
+template <bool kWithD, typename T>
 __device__ __forceinline__ void vnk_tile_products(
-    const float* __restrict__ xb, const float* __restrict__ w,
+    const T* __restrict__ xb, const float* __restrict__ w,
     const float* __restrict__ wd, int Cin, int Cout, int N, int c0, int n0,
     VnkTileSmem& sm, float (&accp)[3][4][4], float (&accd)[3][4][4]) {
   const int tx = threadIdx.x % 16;
@@ -44,8 +51,14 @@ __device__ __forceinline__ void vnk_tile_products(
       const int c = e / kK, k = e % kK;
       const int gc = c0 + c, gk = k0 + k;
       const bool ok = gc < Cout && gk < Cin;
-      sm.ws[k][c] = ok ? w[static_cast<size_t>(gc) * Cin + gk] : 0.f;
-      if (kWithD) sm.wds[k][c] = ok ? wd[static_cast<size_t>(gc) * Cin + gk] : 0.f;
+      float wv = ok ? w[static_cast<size_t>(gc) * Cin + gk] : 0.f;
+      if (vnk_is_bf16<T>()) wv = vnk_round_bf16(wv);
+      sm.ws[k][c] = wv;
+      if (kWithD) {
+        float dv = ok ? wd[static_cast<size_t>(gc) * Cin + gk] : 0.f;
+        if (vnk_is_bf16<T>()) dv = vnk_round_bf16(dv);
+        sm.wds[k][c] = dv;
+      }
     }
     for (int e = threadIdx.x; e < 3 * kK * kPts; e += kThreads) {
       const int j = e / (kK * kPts);
@@ -53,7 +66,7 @@ __device__ __forceinline__ void vnk_tile_products(
       const int k = r / kPts, nn = r % kPts;
       const int gk = k0 + k, gn = n0 + nn;
       sm.xs[j][k][nn] = (gk < Cin && gn < N)
-                            ? xb[(static_cast<size_t>(j) * Cin + gk) * N + gn]
+                            ? vnk_load(xb[(static_cast<size_t>(j) * Cin + gk) * N + gn])
                             : 0.f;
     }
     __syncthreads();
@@ -102,12 +115,14 @@ __device__ __forceinline__ float vnk_sum16(float v) { return vnk_sum_lanes(v, 16
 //               (B, 3, Cout, N / group), column n / group (the JAX kernels'
 //               in-register expansion, vn_layer_fused.py:74-84).
 // n past the end reads the last column (its point is masked by the caller).
-__device__ __forceinline__ float vnk_bias(const float* __restrict__ bias, int bi,
+// The bias is stored in the activations' type and read as float32.
+template <typename T>
+__device__ __forceinline__ float vnk_bias(const T* __restrict__ bias, int bi,
                                           int j, int c, int Cout, int n, int N,
                                           int group) {
   const size_t row = (static_cast<size_t>(bi) * 3 + j) * Cout + c;
-  if (group == 0) return bias[row];
-  return bias[row * (N / group) + min(n, N - 1) / group];
+  if (group == 0) return vnk_load(bias[row]);
+  return vnk_load(bias[row * (N / group) + min(n, N - 1) / group]);
 }
 
 }  // namespace

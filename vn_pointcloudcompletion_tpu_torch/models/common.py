@@ -11,6 +11,12 @@ that of the JAX modules:
   takes that BIASED variance (``ra = 0.9 ra + 0.1 var``).  The VN layers'
   ``_NormAffine`` differs on purpose (unbiased running variance).
 - :class:`GroupNormCh` normalises with the biased variance, eps 1e-5.
+
+Under the bfloat16 compute policy the kernel-1 convolutions are bf16 channel
+maps (JAX ``ConvCh`` goes through ``_channel_linear``; bias cast to bf16);
+the normalisations compute in float32 and, like flax's and jnp's promotion
+with float32 parameters, hand float32 on; a dense layer meets a bf16 input
+in float32.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from vn_pointcloudcompletion_tpu_torch.nn.vn import BN_MOMENTUM
+from vn_pointcloudcompletion_tpu_torch.nn.vn import BN_MOMENTUM, channel_linear
 
 
 class ConvCh(nn.Module):
@@ -34,9 +40,9 @@ class ConvCh(nn.Module):
 
     def forward(self, x):
         w = self.weight.reshape(self.weight.shape[0], self.weight.shape[1])
-        y = torch.einsum("oc,bc...->bo...", w, x)
+        y = channel_linear(w, x, "vec")
         if self.bias is not None:
-            y = y + self.bias.reshape((1, -1) + (1,) * (y.ndim - 2))
+            y = y + self.bias.reshape((1, -1) + (1,) * (y.ndim - 2)).to(y.dtype)
         return y
 
 
@@ -66,7 +72,8 @@ class BatchNormCh(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)).to(x.dtype)
+        y = (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+        return y.to(torch.promote_types(x.dtype, torch.float32))
 
 
 class GroupNormCh(nn.Module):
@@ -92,5 +99,9 @@ class GroupNormCh(nn.Module):
         return xn * self.weight.reshape(shape) + self.bias.reshape(shape)
 
 
-# torch-initialised dense layer over the last axis (JAX ``DenseTorch``)
-DenseTorch = nn.Linear
+class DenseTorch(nn.Linear):
+    """torch-initialised dense layer over the last axis (JAX ``DenseTorch``);
+    a bf16 input is promoted to the weight's float32 first."""
+
+    def forward(self, x):
+        return super().forward(x.to(torch.promote_types(x.dtype, self.weight.dtype)))

@@ -3,9 +3,19 @@
 Encoders ``vn_pointnet``, ``vn_dgcnn_fps``, ``dgcnn_fps`` and ``vn_pointr``
 (at ``num_coarse`` 448 only, as in JAX); decoders ``vn_foldingnet``,
 ``attention_vn_foldingnet`` and ``foldingnet``; ``num_coarse`` 448
-included; the float32 compute policy.  The bfloat16 policy and
-``pointr_decoder`` raise ``NotImplementedError`` naming the ROADMAP.md item
-that brings them.
+included.  ``pointr_decoder`` raises ``NotImplementedError`` naming the
+ROADMAP.md item that brings it.
+
+The compute dtype is not the model's: the forward reads the process-global
+policy of ``nn/precision.py`` (float32 by default, bfloat16 inside
+``compute_dtype_scope(torch.bfloat16)``), and parameters stay float32 under
+either.  ``build_model`` therefore accepts a config's ``dtype`` of
+``bfloat16`` and sets nothing.  Who sets the policy: ``bench``-style
+callers (``chip_smoke.py`` phase 12, as the JAX package's ``bench.py``
+does for every entry) and, once bf16 training is ported, ``train`` (JAX
+``trainer.py:77``; the port's trainer raises on it until then).  The CLI's
+``test`` and ``predict`` never set it, so they run float32 on such a
+config, as the JAX package's ``main.py`` runs them.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from vn_pointcloudcompletion_tpu_torch.models.pcn import (
     _ScalarSplitFoldLayer,
 )
 from vn_pointcloudcompletion_tpu_torch.models.pointr import VNPCTransformer
+from vn_pointcloudcompletion_tpu_torch.nn.precision import from_config_dtype
 from vn_pointcloudcompletion_tpu_torch.utils.config import Config
 
 ENCODERS = {"vn_pointnet": VNPointNet, "vn_dgcnn_fps": VNDGCNNfps, "dgcnn_fps": DGCNNfps}
@@ -34,7 +45,8 @@ VN_DECODERS = {"vn_foldingnet": VNFoldingNet, "attention_vn_foldingnet": Attenti
 class PCNNet(nn.Module):
     """Encoder + decoder (reference models/model.py; JAX composer.py:32-122).
 
-    ``forward(xyz, rot)`` returns ``(coarse, fine)``, at least float32;
+    ``forward(xyz, rot)`` returns ``(coarse, fine)``, at least float32 (bf16
+    under the bfloat16 policy promotes; float64 passes through);
     ``fine`` is None when ``only_coarse``.  At ``num_coarse == 448`` the
     decoder folds the 224 predicted points and ``coarse`` is those with the
     224 FPS points of the input appended.  The decoder's first layer takes
@@ -122,12 +134,9 @@ def init_weights_(model: nn.Module, seed: int) -> nn.Module:
 
 def build_model(config: Config) -> PCNNet:
     """PCNNet from a reference-compatible config, weights drawn from
-    ``config.seed``."""
-    if config.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={config.dtype!r}: the port runs the float32 compute policy; "
-            "the bfloat16 policy is not ported yet (ROADMAP.md, queue 1, item 7)"
-        )
+    ``config.seed``.  ``config.dtype`` (float32 or bfloat16) is checked and
+    not applied: see the module docstring."""
+    from_config_dtype(config.dtype)  # a KeyError for any other name
     if getattr(config, "pointr_decoder", False):
         raise NotImplementedError(
             "pointr_decoder (the vn_pointr decoder stack) is not ported yet "

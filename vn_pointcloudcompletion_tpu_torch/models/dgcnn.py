@@ -26,7 +26,13 @@ from vn_pointcloudcompletion_tpu_torch.models.common import (
     DenseTorch,
     GroupNormCh,
 )
-from vn_pointcloudcompletion_tpu_torch.nn.vn import VNLinear, VNLinearLeakyReLU, VNMaxPool
+from vn_pointcloudcompletion_tpu_torch.nn.precision import activation_dtype
+from vn_pointcloudcompletion_tpu_torch.nn.vn import (
+    VNLinear,
+    VNLinearLeakyReLU,
+    VNMaxPool,
+    mean_pool,
+)
 from vn_pointcloudcompletion_tpu_torch.ops.fps import fps, furthest_point_sample, take_points
 from vn_pointcloudcompletion_tpu_torch.ops.knn import graph_feature, knn, vn_graph_feature_planes
 
@@ -50,16 +56,20 @@ def _edge_scalar(coor_q, x_q, coor_k, x_k, use_kernels: bool):
 def _edge_vn_planes(x, coords=None, use_kernels: bool = True):
     """Plane-layout VN EdgeConv features over the kNN of the flattened (3C)
     features of x (B, 3, C, N), or of ``coords`` (B, 3, N) when given:
-    (B, 3, 2C, N*K)."""
+    (B, 3, 2C, N*K).  The graph comes from x as given; under the bf16 policy
+    the edge features are bf16 (JAX models/dgcnn.py:88-95)."""
     b, _, c, n = x.shape
     pts = (coords if coords is not None else x.reshape(b, 3 * c, n)).transpose(1, 2)
-    return vn_graph_feature_planes(x, x, knn(pts, pts, K, use_kernels)[1])
+    idx = knn(pts, pts, K, use_kernels)[1]
+    x = activation_dtype(x)
+    return vn_graph_feature_planes(x, x, idx)
 
 
 def _pool_edge_planes(f, n: int):
-    """(B, 3, C, N*K) -> mean over K -> (B, 3, C, N)."""
+    """(B, 3, C, N*K) -> mean over K -> (B, 3, C, N), summed in at least
+    float32 (JAX models/dgcnn.py:138-142)."""
     b, _, c, _ = f.shape
-    return f.reshape(b, 3, c, n, K).mean(-1)
+    return mean_pool(f.reshape(b, 3, c, n, K))
 
 
 def vn_edge_layer(layer: VNLinearLeakyReLU, x, coords=None):
@@ -96,6 +106,9 @@ class VNDGCNNfps(nn.Module):
     def forward(self, xyz):
         b, n, _ = xyz.shape
         uk = self.use_kernels
+        # under the bf16 policy the trunk, its FPS and its graphs run on
+        # bf16-rounded coordinates (JAX models/dgcnn.py:222-226)
+        xyz = activation_dtype(xyz)
         coor = xyz.transpose(1, 2)  # (B, 3, N)
         f = _edge_vn_planes(coor[:, :, None, :], use_kernels=uk)  # (B, 3, 2, N*K)
         x1 = _pool_edge_planes(self.conv1[0](f), n)  # (B, 3, 32, N)

@@ -21,21 +21,24 @@ from typing import Optional
 import torch
 from torch import nn
 
+from vn_pointcloudcompletion_tpu_torch.nn import precision
 from vn_pointcloudcompletion_tpu_torch.nn.attention import VNBlock, to_vn
+from vn_pointcloudcompletion_tpu_torch.nn.precision import activation_dtype, bf16_policy
 from vn_pointcloudcompletion_tpu_torch.nn.vn import (
     VNLinear,
     VNLinearAndLeakyReLU,
     VNLinearLeakyReLU,
     bn_leaky,
+    channel_linear,
     layer_moments,
     plane_norms,
+    vector_dot,
 )
-from vn_pointcloudcompletion_tpu_torch.models.common import BatchNormCh, ConvCh
+from vn_pointcloudcompletion_tpu_torch.models.common import BatchNormCh, ConvCh, DenseTorch
 from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
-from vn_pointcloudcompletion_tpu_torch.ops.fps import fps
+from vn_pointcloudcompletion_tpu_torch.ops.fps import concat_points, fps
 from vn_pointcloudcompletion_tpu_torch.ops.grid import folding_grid_2d, folding_grid_3d
 from vn_pointcloudcompletion_tpu_torch.ops.rotations import rotate_points
-from vn_pointcloudcompletion_tpu_torch.ops.vn_fused import plane_dot
 
 
 class _DirMap(nn.Module):
@@ -55,14 +58,24 @@ def linear_maxpool_planes(w, wd, x):
     Returns the linear's output (B, 3, Cout, N) and the pooled (B, 3, Cout):
     per channel, the vector of the point with the largest <f, d> (first on
     ties).  The gradient reaches the selected vectors only: the direction
-    feeds the argmax and nothing else (JAX models/pcn.py:403).
+    feeds the argmax and nothing else (JAX models/pcn.py:403).  Under the
+    bf16 policy the composition is a bf16 product too (float32 sums), as
+    the channel map consumes it in bf16 anyway (JAX models/pcn.py:388-400).
     """
-    wdc = (wd @ w).detach()  # (Cout, Cin)
-    f = torch.matmul(w, x)
-    d = torch.matmul(wdc, x)
-    idx = plane_dot(f, d).argmax(dim=-1, keepdim=True)  # (B, Cout, 1)
-    idx = idx[:, None].expand(-1, 3, -1, -1)
-    return f, torch.gather(f, 3, idx)[..., 0]
+    f, score = linear_pool_scores(w, wd, x)
+    idx = score.argmax(dim=-1, keepdim=True)  # (B, Cout, 1)
+    return f, torch.gather(f, 3, idx[:, None].expand(-1, 3, -1, -1))[..., 0]
+
+
+def linear_pool_scores(w, wd, x):
+    """The linear's output f = W x (B, 3, Cout, N) and the pool's scores
+    <f, (Wd W) x> (B, Cout, N)."""
+    if bf16_policy():
+        wdc = precision.matmul(wd.to(torch.bfloat16), w.to(torch.bfloat16)).detach()
+    else:
+        wdc = (wd @ w).detach()  # (Cout, Cin)
+    f = channel_linear(w, x, "plane")
+    return f, vector_dot(f, channel_linear(wdc, x, "plane"), 1)
 
 
 class VNPointNet(nn.Module):
@@ -113,7 +126,7 @@ class VNPointNet(nn.Module):
         h = self.mlp[1](h)
         coarse = self.mlp[2](h).reshape(b, self.num_coarse, 3)
         if self.fps_tail:
-            cat = torch.cat([coarse, fps(xyz, 224, self.use_kernels).to(coarse.dtype)], dim=1)
+            cat = concat_points(coarse, fps(xyz, 224, self.use_kernels))
             return (coarse, cat), feature_global
         return coarse, feature_global
 
@@ -135,8 +148,8 @@ class _SplitFoldLayer(VNLinearLeakyReLU):
         """glob (B, 3, L, 1); seed, point (B, 3, 1, Nd) -> (B, 3, C, Nd)."""
         cg = glob.shape[2]
         w, wd = self.map_to_feat.weight, self.map_to_dir.weight
-        pbias = torch.matmul(w[:, :cg], glob)  # (B, 3, C, 1)
-        dbias = torch.matmul(wd[:, :cg], glob)
+        pbias = channel_linear(w[:, :cg], glob, "plane")  # (B, 3, C, 1)
+        dbias = channel_linear(wd[:, :cg], glob, "plane")
         if self.use_kernels and seed.shape[3] >= 4096:
             x2 = torch.cat([seed, point], dim=2)
             a, b = self.batchnorm.bn(
@@ -144,8 +157,10 @@ class _SplitFoldLayer(VNLinearLeakyReLU):
             return vn_layer_fused.vn_layer_fused(
                 x2, w[:, cg:], wd[:, cg:], pbias, dbias, a, b, self.negative_slope,
             )
-        p = pbias + torch.matmul(w[:, cg : cg + 1], seed) + torch.matmul(w[:, cg + 1 :], point)
-        d = dbias + torch.matmul(wd[:, cg : cg + 1], seed) + torch.matmul(wd[:, cg + 1 :], point)
+        p = (pbias + channel_linear(w[:, cg : cg + 1], seed, "plane")
+             + channel_linear(w[:, cg + 1 :], point, "plane"))
+        d = (dbias + channel_linear(wd[:, cg : cg + 1], seed, "plane")
+             + channel_linear(wd[:, cg + 1 :], point, "plane"))
         a, b = self.batchnorm.bn(plane_norms(p) if self.training else None)
         return bn_leaky(p, d, a, b, self.negative_slope, self.use_kernels)
 
@@ -168,18 +183,25 @@ class _PairFoldLayer(VNLinearLeakyReLU):
     def forward(self, feat, var, s: int):
         """feat (B, 3, Cf, N); var (B, 3, 1, N*S) -> (B, 3, C, N*S)."""
         w, wd = self.map_to_feat.weight, self.map_to_dir.weight
-        pbias = torch.matmul(w[:, 1:], feat)  # (B, 3, C, N) per centre
-        dbias = torch.matmul(wd[:, 1:], feat)
+        pbias = channel_linear(w[:, 1:], feat, "plane")  # (B, 3, C, N) per centre
+        dbias = channel_linear(wd[:, 1:], feat, "plane")
         if (self.use_kernels and var.shape[3] >= 4096
                 and vn_layer_fused.GROUP_TILE % s == 0):
             a, b = self.batchnorm.bn(
                 **layer_moments(var, w[:, :1], pbias, self.training, group=s))
             return vn_layer_fused.vn_layer_fused(
                 var, w[:, :1], wd[:, :1], pbias, dbias, a, b, self.negative_slope, group=s)
-        p = vn_layer_fused.expand_bias(pbias, s) + torch.matmul(w[:, :1], var)
-        d = vn_layer_fused.expand_bias(dbias, s) + torch.matmul(wd[:, :1], var)
+        p = vn_layer_fused.expand_bias(pbias, s) + channel_linear(w[:, :1], var, "plane")
+        d = vn_layer_fused.expand_bias(dbias, s) + channel_linear(wd[:, :1], var, "plane")
         a, b = self.batchnorm.bn(plane_norms(p) if self.training else None)
         return bn_leaky(p, d, a, b, self.negative_slope, self.use_kernels)
+
+
+def _grid_like(grid: torch.Tensor, coarse: torch.Tensor) -> torch.Tensor:
+    """A folding grid on coarse's device, in at least float32: under the
+    bf16 policy the seed is built and rotated in float32 and cast to bf16
+    only where the fold chain takes it (JAX models/pcn.py:585-590)."""
+    return grid.to(coarse.device, torch.promote_types(coarse.dtype, torch.float32))
 
 
 def fold_grid(num_coarse: int):
@@ -215,7 +237,7 @@ class VNFoldingNet(nn.Module):
         b = coarse.shape[0]
         s = self.grid_size ** 2
         num_dense = self.nc * s
-        seed = folding_grid_3d(self.grid_size).to(coarse)  # (3, S)
+        seed = _grid_like(folding_grid_3d(self.grid_size), coarse)  # (3, S)
         if rot is not None:
             seed = rotate_points(seed.T, rot).transpose(1, 2)[:, :, None]  # (B, 3, 1, S)
         else:
@@ -223,9 +245,14 @@ class VNFoldingNet(nn.Module):
         seed = seed[:, :, :, None, :].expand(b, 3, 1, self.nc, s).reshape(b, 3, 1, num_dense)
         point_feat = dense_layout(coarse, self.grid_size)[:, :, None]  # (B, 3, 1, Nd)
         glob = feature_global.transpose(1, 2)  # (B, 3, L, 1)
-        f = self.final_conv[0](glob, seed, point_feat)
+        # under the bf16 policy the fold chain runs in bf16 (its kernels take
+        # their mode from x), not promoted by the float32 seed and coarse
+        # constants; the residual add stays in the coarse points' dtype
+        # (JAX models/pcn.py:585-611)
+        f = self.final_conv[0](activation_dtype(glob), activation_dtype(seed),
+                               activation_dtype(point_feat))
         f = self.final_conv[1](f, project_out=self.final_conv[2].map_to_feat.weight)
-        fine = f + point_feat  # (B, 3, 1, Nd)
+        fine = f.to(point_feat.dtype) + point_feat  # (B, 3, 1, Nd)
         return fine[:, :, 0].transpose(1, 2)
 
 
@@ -267,15 +294,17 @@ class AttentionVNFoldingNet(nn.Module):
         for block in self.transformer:
             vn_x = block(vn_x)
 
-        feat = vn_x.transpose(1, 2)  # (B, 3, 384, N), constant over each grid
-        seed = folding_grid_3d(self.grid_size, extent=1.0).to(coarse)  # (3, S)
+        # (B, 3, 384, N), constant over each grid; bf16 under the bf16 policy,
+        # the seed too (JAX models/pcn.py:660-666)
+        feat = activation_dtype(vn_x.transpose(1, 2))
+        seed = _grid_like(folding_grid_3d(self.grid_size, extent=1.0), coarse)  # (3, S)
         seed = seed[None, :, None, None, :].expand(b, 3, 1, n, s).reshape(b, 3, 1, n * s)
-        fold = seed
+        fold = activation_dtype(seed)
         for stage in (self.vn_folding1, self.vn_folding2):
             h = stage[0](feat, fold, s)
             fold = stage[1](h, project_out=stage[2].map_to_feat.weight)  # (B, 3, 1, N*S)
         relative_xyz = fold[:, :, 0].reshape(b, 3, n, s).transpose(1, 2)  # (B, N, 3, S)
-        rebuild = relative_xyz + coarse[..., None]
+        rebuild = relative_xyz.to(coarse.dtype) + coarse[..., None]
         return rebuild.transpose(2, 3).reshape(b, n * s, 3)
 
 
@@ -294,6 +323,9 @@ class _ScalarSplitFoldLayer(nn.Module):
         """glob (B, Cg), seed (B, 2, Nd), point (B, 3, Nd) -> (B, out, Nd)."""
         w = self.weight[..., 0]
         cg = glob.shape[1]
+        # a bf16 global feature (the bf16 policy) meets the float32 weight in
+        # float32, as jnp's promotion takes it
+        glob = glob.to(torch.promote_types(glob.dtype, w.dtype))
         return ((glob @ w[:, :cg].T)[:, :, None]
                 + torch.einsum("oc,bcn->bon", w[:, cg:cg + 2], seed)
                 + torch.einsum("oc,bcn->bon", w[:, cg + 2:], point)
@@ -318,7 +350,7 @@ class FoldingNet(nn.Module):
         b = coarse.shape[0]
         s = self.grid_size ** 2
         point_feat = dense_layout(coarse, self.grid_size)  # (B, 3, Nd)
-        seed = folding_grid_2d(self.grid_size).to(coarse)  # (2, S)
+        seed = _grid_like(folding_grid_2d(self.grid_size), coarse)  # (2, S)
         seed = seed[None, :, None, :].expand(b, 2, self.nc, s).reshape(b, 2, self.nc * s)
         fc = self.final_conv
         f = torch.relu(fc[1](fc[0](feature_global.reshape(b, -1), seed, point_feat)))
@@ -344,8 +376,8 @@ class PCN(nn.Module):
                                          ConvCh(128, 256)])
         self.second_conv = nn.ModuleList([ConvCh(512, 512), BatchNormCh(512), nn.ReLU(),
                                           ConvCh(512, latent_dim)])
-        self.mlp = nn.ModuleList([nn.Linear(latent_dim, 1024), nn.ReLU(), nn.Linear(1024, 1024),
-                                  nn.ReLU(), nn.Linear(1024, 3 * self.num_coarse)])
+        self.mlp = nn.ModuleList([DenseTorch(latent_dim, 1024), nn.ReLU(), DenseTorch(1024, 1024),
+                                  nn.ReLU(), DenseTorch(1024, 3 * self.num_coarse)])
         if not only_coarse:
             self.final_conv = nn.ModuleList([
                 _ScalarSplitFoldLayer(latent_dim + 5, 512), BatchNormCh(512), nn.ReLU(),
@@ -365,7 +397,7 @@ class PCN(nn.Module):
             return coarse, None
         s = self.grid_size ** 2
         point_feat = dense_layout(coarse, self.grid_size)  # (B, 3, Nd)
-        seed = folding_grid_2d(self.grid_size).to(coarse)  # (2, S)
+        seed = _grid_like(folding_grid_2d(self.grid_size), coarse)  # (2, S)
         seed = seed[None, :, None, :].expand(b, 2, self.num_coarse, s).reshape(
             b, 2, self.num_dense)
         f = self.final_conv

@@ -31,6 +31,7 @@ from vn_pointcloudcompletion_tpu_torch.models.dgcnn import (
     vn_edge_layer,
 )
 from vn_pointcloudcompletion_tpu_torch.nn.attention import VNBlock, to_scalar, to_vn
+from vn_pointcloudcompletion_tpu_torch.nn.precision import activation_dtype
 from vn_pointcloudcompletion_tpu_torch.nn.vn import (
     VNLeakyReLU,
     VNLinear,
@@ -38,7 +39,7 @@ from vn_pointcloudcompletion_tpu_torch.nn.vn import (
     VNLinearLeakyReLU,
     VNMaxPool,
 )
-from vn_pointcloudcompletion_tpu_torch.ops.fps import fps
+from vn_pointcloudcompletion_tpu_torch.ops.fps import concat_points, fps
 from vn_pointcloudcompletion_tpu_torch.ops.knn import knn
 
 PROXY_K = 8  # neighbours of the proxy graph on the centres (vn_pointr.py:17-29)
@@ -61,6 +62,9 @@ class VNDGCNNGrouper(nn.Module):
     def forward(self, xyz):
         n = xyz.shape[1]
         uk = self.use_kernels
+        # the bf16 policy's boundary: bf16 coordinates and features from here
+        # on, FPS and kNN on bf16-rounded coordinates (JAX models/pointr.py:95-98)
+        xyz = activation_dtype(xyz)
         coor = xyz.transpose(1, 2)  # (B, 3, N)
         f = _edge_vn_planes(coor[:, :, None, :], use_kernels=uk)  # (B, 3, 2, N*K)
         x1 = _pool_edge_planes(self.conv1[0](f), n)  # (B, 3, 32, N)
@@ -122,6 +126,5 @@ class VNPCTransformer(nn.Module):
         global_feature = self.vn_global_pool(g)[..., None]  # (B, 1024, 3, 1)
         h = self.vn_coarse_pred[1](self.vn_coarse_pred[0](global_feature))
         coarse = self.vn_coarse_pred[2](h)[..., 0]  # (B, 224, 3)
-        cat = torch.cat([coarse, fps(xyz, self.num_query, self.use_kernels).to(coarse.dtype)],
-                        dim=1)
+        cat = concat_points(coarse, fps(xyz, self.num_query, self.use_kernels))
         return (coarse, cat), global_feature

@@ -8,8 +8,11 @@ flattens (C, 3) row-major; :func:`to_vn` and :func:`to_scalar` are its exact
 reshapes (``x.transpose(1, 2).view(bs, -1, 3, n)`` and the inverse).
 
 The products are plain ``torch.matmul``, as the JAX package leaves them to
-XLA.  The softmax runs in float32 as in JAX, and in float64 for a float64
-input (a reference run; JAX rounds it through float32 even then).  Dropout
+XLA (bf16 ones under the bfloat16 policy: float32 sums, one rounding,
+``nn/precision.py::matmul``).  The softmax runs in float32 as in JAX and is
+cast back to the scores' dtype (bf16 under the policy), and in float64 for
+a float64 input (a reference run; JAX rounds it through float32 even
+then).  Dropout
 and drop-path are rate 0 in every reference instantiation and are left
 out, as are the reference attention's scalar ``qkv``/``proj`` maps, which
 its VN forward never calls.
@@ -22,6 +25,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from vn_pointcloudcompletion_tpu_torch.nn.precision import matmul, weak
 from vn_pointcloudcompletion_tpu_torch.nn.vn import (
     VNLayerNorm,
     VNLinear,
@@ -70,10 +74,11 @@ class VNAttention(nn.Module):
         q = split_heads(self.proj_vnq(vn_x))
         k = split_heads(self.proj_vnk(vn_x))
         v = split_heads(self.proj_vnv(vn_x))
-        attn = torch.matmul(q, k.transpose(-1, -2)) * self.scale
+        attn = matmul(q, k.transpose(-1, -2))
+        attn = attn * weak(self.scale, attn)
         attn = torch.softmax(attn.to(torch.promote_types(attn.dtype, torch.float32)),
                              dim=-1).to(q.dtype)
-        out = torch.matmul(attn, v)  # (B, H, N, 3P/H)
+        out = matmul(attn, v)  # (B, H, N, 3P/H)
         # (B, H, N, P/H, 3) -> (B, N, P, 3) -> (B, P, 3, N)
         out = out.permute(0, 2, 1, 3).reshape(b, n, p, 3).permute(0, 2, 3, 1)
         return self.proj_vn(out)

@@ -21,6 +21,13 @@ Layers that have a kernel carry ``use_kernels`` (default True): where it is
 set and the JAX package would take its Pallas kernel for the shape, the
 layer calls the kernel's wrapper (the kernel on a CUDA tensor, its plain
 version on a CPU tensor); otherwise it runs the plain PyTorch chain.
+
+Under the bfloat16 compute policy (``nn/precision.py``) every channel map
+takes bf16 operands, accumulates in float32 and stores bf16 (JAX
+``_channel_linear``); norm statistics stay in at least float32 with the
+scale cast back; the pools' scores are bf16 products summed in float32;
+the kernels run their bf16 modes (A, B, C, K3), which they take from the
+dtype of the activations they are given.
 """
 
 from __future__ import annotations
@@ -30,9 +37,11 @@ from typing import Optional
 import torch
 from torch import nn
 
+from vn_pointcloudcompletion_tpu_torch.nn import precision
+from vn_pointcloudcompletion_tpu_torch.nn.precision import activation_dtype, bf16_policy, weak
 from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas, vn_fused, vn_layer_fused
 from vn_pointcloudcompletion_tpu_torch.ops.knn import gather_planes, knn
-from vn_pointcloudcompletion_tpu_torch.ops.vn_fused import plane_dot, safe_sqrt
+from vn_pointcloudcompletion_tpu_torch.ops.vn_fused import safe_sqrt
 
 EPS = 1e-6  # models/vn_layers.py:10 of the reference
 # flax's BatchNorm momentum, the weight of the old running value (torch's 0.1)
@@ -46,20 +55,38 @@ def safe_norm(x: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
 
 def channel_linear(w: torch.Tensor, x: torch.Tensor, layout: str) -> torch.Tensor:
     """Apply an (out, in) channel map: over axis 2 of (B, 3, C, N) planes or
-    over axis 1 of (B, C, ...) vec tensors."""
+    over axis 1 of (B, C, ...) vec tensors.  Under the bfloat16 policy both
+    operands are cast to bf16, the sums run in float32 and the result is
+    stored bf16 (JAX nn/vn.py:83-112)."""
+    if bf16_policy():
+        w, x = w.to(torch.bfloat16), x.to(torch.bfloat16)
     if layout == "plane":
-        return torch.matmul(w, x)
-    return torch.einsum("oc,bc...->bo...", w, x)
+        return precision.matmul(w, x)
+    return precision.einsum("oc,bc...->bo...", w, x)
+
+
+def vector_dot(u: torch.Tensor, v: torch.Tensor, dim: int) -> torch.Tensor:
+    """<u, v> over the 3-vector axis ``dim``, summed in plane order; for
+    bf16 vectors the products are rounded to bf16 and summed in float32,
+    then rounded once (JAX's ``jnp.sum(x * d, axis)`` on bf16: the pools'
+    scores)."""
+    if u.dtype == torch.bfloat16:
+        return (u * v).float().sum(dim).to(torch.bfloat16)
+    u0, u1, u2 = u.unbind(dim)
+    v0, v1, v2 = v.unbind(dim)
+    return u0 * v0 + u1 * v1 + u2 * v2
 
 
 def _leaky_reflect(p, d, negative_slope: float, dim: int):
     """The VN leaky ReLU: keep p where <p, d> >= 0, else remove its
-    component along d; blend with ``negative_slope`` (vn_layers.py:38-43)."""
+    component along d; blend with ``negative_slope`` (vn_layers.py:38-43).
+    bf16 vectors are computed in bf16, each operation rounded, with the
+    constants rounded to bf16 as JAX's weak types round them."""
     dotprod = (p * d).sum(dim, keepdim=True)
     mask = (dotprod >= 0).to(p.dtype)
     d_norm_sq = (d * d).sum(dim, keepdim=True)
-    reflected = p - (dotprod / (d_norm_sq + EPS)) * d
-    return negative_slope * p + (1 - negative_slope) * (
+    reflected = p - (dotprod / (d_norm_sq + weak(EPS, p))) * d
+    return weak(negative_slope, p) * p + weak(1 - negative_slope, p) * (
         mask * p + (1 - mask) * reflected
     )
 
@@ -214,6 +241,8 @@ class VNLinearLeakyReLU(nn.Module):
             if self.use_kernels and vn_layer_fused.layer_eligible(
                 x, w.shape[0], self.share_nonlinearity
             ):
+                # the kernels' mode follows x: bf16 under the bf16 policy
+                x = activation_dtype(x)
                 a, b = self.batchnorm.bn(**layer_moments(x, w, None, self.training))
                 if project_out is not None:
                     return vn_layer_fused.vn_layer_fused_project(
@@ -223,8 +252,8 @@ class VNLinearLeakyReLU(nn.Module):
                 return vn_layer_fused.vn_layer_fused(
                     x, w, wd, None, None, a, b, self.negative_slope
                 )
-            p = torch.matmul(w, x)
-            d = torch.matmul(wd, x)
+            p = channel_linear(w, x, "plane")
+            d = channel_linear(wd, x, "plane")
             if self.share_nonlinearity:
                 d = d.expand_as(p)
             a, b = self.batchnorm.bn(plane_norms(p) if self.training else None)
@@ -255,8 +284,8 @@ class VNLinearLeakyReLU(nn.Module):
         co = w.shape[0]
         w_diff = torch.cat([w[:, :c], wd[:, :c]], dim=0)
         w_ctr = torch.cat([w[:, c:], wd[:, c:]], dim=0)
-        u = torch.matmul(w_diff, x)  # (B, 3, Co + Do, N)
-        v = torch.matmul(w_ctr - w_diff, x)
+        u = channel_linear(w_diff, x, "plane")  # (B, 3, Co + Do, N)
+        v = channel_linear(w_ctr - w_diff, x, "plane")
         cpd = u.shape[2]
         xflat = coords if coords is not None else x.reshape(b, 3 * c, n)
         if knn_pallas.edge_gather_eligible(n, xflat.shape[1], k, 3 * cpd):
@@ -278,7 +307,7 @@ class VNLinearLeakyReLU(nn.Module):
             d = d.expand_as(p)
         a, bb = self.batchnorm.bn(plane_norms(p) if self.training else None)
         out = bn_leaky(p, d, a, bb, self.negative_slope, self.use_kernels)
-        return out.reshape(pool_shape).mean(pool_dim)
+        return mean_pool(out.reshape(pool_shape), pool_dim)
 
 
 class VNMaxPool(nn.Module):
@@ -295,18 +324,20 @@ class VNMaxPool(nn.Module):
 
     def forward(self, x):
         if self.layout == "plane":
-            d = torch.matmul(self.map_to_dir.weight, x)
-            idx = plane_dot(x, d).argmax(dim=-1, keepdim=True)  # (B, C, 1)
+            d = channel_linear(self.map_to_dir.weight, x, "plane")
+            idx = vector_dot(x, d, 1).argmax(dim=-1, keepdim=True)  # (B, C, 1)
             return torch.gather(x, 3, idx[:, None].expand(-1, 3, -1, -1))[..., 0]
         d = channel_linear(self.map_to_dir.weight, x, "vec")
-        dot = x[:, :, 0] * d[:, :, 0] + x[:, :, 1] * d[:, :, 1] + x[:, :, 2] * d[:, :, 2]
+        dot = vector_dot(x, d, 2)
         idx = dot.argmax(dim=-1, keepdim=True)[:, :, None]  # (B, C, 1, ..., 1)
         return torch.gather(x, -1, idx.expand(x.shape[:-1] + (1,)))[..., 0]
 
 
 def mean_pool(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
-    """vn_layers.py:170-171."""
-    return x.mean(dim, keepdim=keepdim)
+    """vn_layers.py:170-171; bf16 is summed in float32 and the mean
+    rounded once (JAX's ``jnp.mean`` upcasts it so)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return x.mean(dim, keepdim=keepdim, dtype=acc).to(x.dtype)
 
 
 class VNLayerNorm(nn.Module):

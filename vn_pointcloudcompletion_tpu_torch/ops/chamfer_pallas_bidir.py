@@ -21,7 +21,7 @@ import torch
 
 from vn_pointcloudcompletion_tpu_torch.ops.cuda_lib import (
     CudaKernel,
-    check_cuda_f32,
+    check_cuda,
 )
 
 _P = ctypes.c_void_p
@@ -68,7 +68,7 @@ def nn_bidirectional(x: torch.Tensor, y: torch.Tensor):
             or x.shape[0] != y.shape[0]:
         raise ValueError(f"nn_bidirectional: bad shapes {tuple(x.shape)} {tuple(y.shape)}")
     x, y = x.contiguous(), y.contiguous()
-    check_cuda_f32("nn_bidirectional", x, y)
+    check_cuda("nn_bidirectional", "float32 clouds", (x, torch.float32), (y, torch.float32))
     bsz, n, m = x.shape[0], x.shape[1], y.shape[1]
     out = []
     for src, dst, rows, cols in ((x, y, n, m), (y, x, m, n)):

@@ -11,7 +11,9 @@ CPU tests import every module, and this machine may have no ``nvcc``.
 A :class:`CudaKernel` is one C entry point.  Its ``launches`` counter goes up
 by one each time the entry point launches its kernel, which is how a run
 shows that the main path went through the kernels.  One entry point may be
-bound twice under two names, to count two modes of it apart.
+bound twice under two names, to count two modes of it apart; a mode that
+is its own entry point (the bfloat16 modes, ``<symbol>_bf16``) counts
+under ``<symbol>[bf16]``.
 """
 
 from __future__ import annotations
@@ -144,15 +146,16 @@ def launch_counts() -> Dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
 
 
-def check_cuda_f32(name: str, *tensors) -> None:
-    """Raise unless every tensor is a contiguous float32 tensor on one card."""
-    import torch
-
-    dev = tensors[0].device
-    for t in tensors:
+def check_cuda(name: str, takes: str, *pairs) -> None:
+    """Raise unless each ``(tensor, dtype)`` of ``pairs`` is a contiguous
+    tensor of that dtype, all on one card.  ``takes`` says in words what
+    the kernel takes (its modes' element types), for the error."""
+    dev = pairs[0][0].device
+    for t, dtype in pairs:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expects float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} takes {takes}; got {t.dtype} where it "
+                            f"takes {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expects contiguous tensors")

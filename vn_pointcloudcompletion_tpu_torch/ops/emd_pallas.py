@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from vn_pointcloudcompletion_tpu_torch.ops.cuda_lib import CudaKernel, check_cuda_f32
+from vn_pointcloudcompletion_tpu_torch.ops.cuda_lib import CudaKernel, check_cuda
 
 _MAX_PTS = 16384
 _BLOCK_ELEMS = 1 << 24  # entries of one (B, rows, M) tensor of the plain version
@@ -131,7 +131,7 @@ def emd_rounds_kernel(x1: torch.Tensor, x2: torch.Tensor):
             or x1.shape[0] != x2.shape[0]:
         raise ValueError(f"emd_rounds: bad shapes {tuple(x1.shape)} {tuple(x2.shape)}")
     x1, x2 = x1.contiguous(), x2.contiguous()
-    check_cuda_f32("emd_rounds", x1, x2)
+    check_cuda("emd_rounds", "float32 clouds", (x1, torch.float32), (x2, torch.float32))
     b, n, m = x1.shape[0], x1.shape[1], x2.shape[1]
 
     def empty(*shape):

@@ -31,6 +31,14 @@ def take_points(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.movedim(-1, 1)[rows, idx.long()].movedim(1, -1)
 
 
+def concat_points(coarse: torch.Tensor, sampled: torch.Tensor) -> torch.Tensor:
+    """The coarse points with the sampled input points appended, in the
+    wider of their dtypes (``jnp.concatenate``'s promotion: bf16 coarse
+    points with float32 FPS points give float32)."""
+    ct = torch.promote_types(coarse.dtype, sampled.dtype)
+    return torch.cat([coarse.to(ct), sampled.to(ct)], dim=1)
+
+
 def fps(pc: torch.Tensor, num_samples: int, use_kernels: bool = True) -> torch.Tensor:
     """Subsample a cloud: pc (B, N, 3) -> (B, S, 3)."""
     idx = furthest_point_sample(pc, num_samples, use_kernels)

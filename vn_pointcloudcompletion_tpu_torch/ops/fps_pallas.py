@@ -9,7 +9,8 @@ points picked so far, in the difference form ``d0*d0 + d1*d1 + d2*d2``.
 tensor and takes the plain version :func:`reference_furthest_point_sample`
 on a CPU tensor.  The plain version does the kernel's operations in the
 kernel's order (float64 inputs stay float64), so on the card the two pick
-the same indices.  The output is integer: FPS has no gradient.
+the same indices.  bfloat16 coordinates (the bfloat16 compute policy) are
+upcast exactly to float32 first, as the JAX kernel casts its input.  The output is integer: FPS has no gradient.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import ctypes
 
 import torch
 
-from vn_pointcloudcompletion_tpu_torch.ops.cuda_lib import CudaKernel, check_cuda_f32
+from vn_pointcloudcompletion_tpu_torch.ops.cuda_lib import CudaKernel, check_cuda
 
 _MAX_N = 16384
 _KERNEL = CudaKernel("fps.cu", "furthest_point_sample",
@@ -59,8 +60,11 @@ def furthest_point_sample_kernel(xyz: torch.Tensor, s: int) -> torch.Tensor:
     b, n, _ = xyz.shape
     if not 0 < n <= _MAX_N:
         raise ValueError(f"furthest_point_sample: N={n} outside [1, {_MAX_N}]")
+    if xyz.dtype == torch.bfloat16:  # an exact upcast, as JAX's (fps_pallas.py:79)
+        xyz = xyz.float()
     planes = xyz.transpose(1, 2).contiguous()
-    check_cuda_f32("furthest_point_sample", planes)
+    check_cuda("furthest_point_sample", "float32 coordinates (bf16 upcast exactly)",
+               (planes, torch.float32))
     idx = torch.empty((b, s), device=xyz.device, dtype=torch.int32)
     _KERNEL(planes, planes.data_ptr(), idx.data_ptr(), b, n, s)
     return idx

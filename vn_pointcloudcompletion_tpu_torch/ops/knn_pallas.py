@@ -15,7 +15,11 @@ distance is ``(|q|^2 + |r|^2) - 2 q.r`` with each sum taken over the
 coordinates in order, unclamped; the plain versions (``reference_*``) do the
 kernels' operations in the kernels' order, so on the card the two pick the
 same indices.  Distances are taken in at least float32 (float64 inputs stay
-float64 in the plain versions; the kernels take float32).
+float64 in the plain versions; the kernels take float32, and K2's wrapper
+upcasts bf16 points exactly).  K3 has a bf16 mode for the bfloat16 compute
+policy: bf16 features u and v (and bf16 or float32 ``xflat``, read as
+float32), the exact gather, and the centre add ``bf16(float(u[idx]) +
+float(v))``; its launches count under ``edge_knn_gather[bf16]``.
 
 Each is a ``torch.autograd.Function``: on a CUDA tensor its forward launches
 the kernel of ``csrc/knn.cu``, on a CPU tensor it takes the plain version.
@@ -34,7 +38,7 @@ import ctypes
 
 import torch
 
-from vn_pointcloudcompletion_tpu_torch.ops.cuda_lib import CudaKernel, check_cuda_f32
+from vn_pointcloudcompletion_tpu_torch.ops.cuda_lib import CudaKernel, check_cuda
 
 _MAX_M = 4096  # row length cap of the TPU kernels (knn_pallas.py:30)
 _MAX_D = 512   # feature width cap of the fused kernel (knn_pallas.py:148)
@@ -45,6 +49,10 @@ _I = ctypes.c_int
 _TOPK = CudaKernel("knn.cu", "topk_min", [_P] * 3 + [_I] * 3 + [_P])
 _KNN = CudaKernel("knn.cu", "knn_min", [_P] * 4 + [_I] * 5 + [_P])
 _EDGE = CudaKernel("knn.cu", "edge_knn_gather", [_P] * 5 + [_I] * 5 + [_P])
+_EDGE_BF16 = CudaKernel("knn.cu", "edge_knn_gather_bf16", [_P] * 5 + [_I] * 6 + [_P],
+                        "edge_knn_gather[bf16]")
+EDGE_TAKES = ("float32 xflat, u and v, or (its bf16 mode) bf16 u and v with bf16 "
+              "or float32 xflat")
 
 
 def eligible(m: int, k: int) -> bool:
@@ -115,10 +123,20 @@ def gather_columns(u: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def reference_edge_knn_gather(xflat: torch.Tensor, u: torch.Tensor,
                               v: torch.Tensor, k: int):
-    """Plain version of K3: (out (B, C3, k, N), idx (B, N, k))."""
+    """Plain version of K3: (out (B, C3, k, N), idx (B, N, k)).  The
+    centre add is taken in at least float32 and rounded once to u's dtype
+    (bf16 features: the bf16 mode's ``bf16(float(u[idx]) + float(v))``)."""
     pts = xflat.transpose(1, 2)
     _, idx = reference_knn_min(pts, pts, k)
-    return gather_columns(u, idx) + v[:, :, None, :], idx
+    ct = _ct(u)
+    out = gather_columns(u, idx).to(ct) + v.to(ct)[:, :, None, :]
+    return out.to(u.dtype), idx
+
+
+def _exact_f32(t: torch.Tensor) -> torch.Tensor:
+    """bf16 values upcast to float32, which holds them exactly; other
+    dtypes as they are."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 def _check_k(name: str, k: int, m: int) -> None:
@@ -135,7 +153,7 @@ def topk_min_fwd(d: torch.Tensor, k: int):
     b, n, m = d.shape
     _check_k("topk_min", k, m)
     d = d.contiguous()
-    check_cuda_f32("topk_min", d)
+    check_cuda("topk_min", "a float32 matrix", (d, torch.float32))
     vals = torch.empty((b, n, k), device=d.device, dtype=torch.float32)
     idx = torch.empty((b, n, k), device=d.device, dtype=torch.int32)
     _TOPK(d, d.data_ptr(), vals.data_ptr(), idx.data_ptr(), b * n, m, k)
@@ -153,8 +171,12 @@ def knn_min_fwd(q: torch.Tensor, r: torch.Tensor, k: int):
     _check_k("knn_min", k, m)
     if dim > _MAX_D:
         raise ValueError(f"knn_min: D={dim} > {_MAX_D}")
+    # bf16 coordinates are upcast exactly, as JAX's kernel does in its body
+    # (knn_pallas.py:159-160)
+    q, r = _exact_f32(q), _exact_f32(r)
     q, rt = q.contiguous(), r.transpose(1, 2).contiguous()
-    check_cuda_f32("knn_min", q, rt)
+    check_cuda("knn_min", "float32 points (bf16 upcast exactly)",
+               (q, torch.float32), (rt, torch.float32))
     vals = torch.empty((b, n, k), device=q.device, dtype=torch.float32)
     idx = torch.empty((b, n, k), device=q.device, dtype=torch.int32)
     _KNN(q, q.data_ptr(), rt.data_ptr(), vals.data_ptr(), idx.data_ptr(), b, n, m, dim, k)
@@ -175,11 +197,18 @@ def edge_knn_gather_fwd(xflat: torch.Tensor, u: torch.Tensor, v: torch.Tensor, k
         raise ValueError(f"edge_knn_gather: D={dim} > {_MAX_D}")
     c3 = u.shape[1]
     xflat, u, v = xflat.contiguous(), u.contiguous(), v.contiguous()
-    check_cuda_f32("edge_knn_gather", xflat, u, v)
-    out = torch.empty((b, c3, k, n), device=u.device, dtype=torch.float32)
+    bf16 = u.dtype == torch.bfloat16
+    dt = torch.bfloat16 if bf16 else torch.float32
+    xdt = torch.bfloat16 if bf16 and xflat.dtype == torch.bfloat16 else torch.float32
+    check_cuda("edge_knn_gather", EDGE_TAKES, (xflat, xdt), (u, dt), (v, dt))
+    out = torch.empty((b, c3, k, n), device=u.device, dtype=dt)
     idx = torch.empty((b, n, k), device=u.device, dtype=torch.int32)
-    _EDGE(u, xflat.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
-          idx.data_ptr(), b, n, dim, c3, k)
+    ptrs = (xflat.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(), idx.data_ptr(),
+            b, n, dim, c3, k)
+    if bf16:
+        _EDGE_BF16(u, *ptrs, int(xdt == torch.bfloat16))
+    else:
+        _EDGE(u, *ptrs)
     return out, idx
 
 

@@ -19,7 +19,9 @@ and, for the cotangent g of ``out`` (the JAX module's docstring, l.26-31):
 :func:`fused_bn_leaky` is a ``torch.autograd.Function``: on a CUDA tensor its
 forward is kernel A and its backward kernel A' (``csrc/vn_fused.cu``); on a
 CPU tensor they are the plain versions :func:`reference_bn_leaky_planes` and
-:func:`reference_bn_leaky_bwd`.
+:func:`reference_bn_leaky_bwd`.  Kernel A has a bf16 mode for bf16 planes
+(the bfloat16 compute policy): read bf16, compute in float32, store bf16;
+A' takes float32 only, and a bf16 CUDA tensor raises there.
 """
 
 from __future__ import annotations
@@ -28,10 +30,7 @@ import ctypes
 
 import torch
 
-from vn_pointcloudcompletion_tpu_torch.ops.cuda_lib import (
-    CudaKernel,
-    check_cuda_f32,
-)
+from vn_pointcloudcompletion_tpu_torch.ops.cuda_lib import CudaKernel, check_cuda
 
 EPS = 1e-6  # models/vn_layers.py:10 of the reference
 
@@ -41,6 +40,9 @@ _KERNEL = CudaKernel(
     [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.c_float, _P],
 )
+_KERNEL_BF16 = CudaKernel(
+    "vn_fused.cu", "vn_bn_leaky_fwd_bf16", _KERNEL.argtypes, "vn_bn_leaky_fwd[bf16]")
+TAKES = "p, d float32 or (its bf16 mode) bf16, and float32 a, b"
 _BWD = CudaKernel(
     "vn_fused.cu", "vn_bn_leaky_bwd",
     [_P] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, _P],
@@ -76,11 +78,14 @@ def plane_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return u[:, 0] * v[:, 0] + u[:, 1] * v[:, 1] + u[:, 2] * v[:, 2]
 
 
-def reference_bn_leaky_planes(p, d, a, b, negative_slope: float):
+def reference_bn_leaky_planes(p, d, a, b, negative_slope: float,
+                              out_dtype=None):
     """Plain PyTorch version of kernel A on (B, 3, C, N) planes.
 
     Written in the kernel's operation order, so that the two agree to the bit
-    on the card; float64 inputs stay float64.
+    on the card; float64 inputs stay float64.  bf16 planes (the bf16 mode)
+    are computed in float32 and the output rounded once to bf16, unless
+    ``out_dtype`` asks for another (kernel C's unrounded epilogue).
     """
     ct = torch.promote_types(p.dtype, torch.float32)
     p32, d32 = p.to(ct), d.to(ct)
@@ -92,7 +97,7 @@ def reference_bn_leaky_planes(p, d, a, b, negative_slope: float):
     dot = plane_dot(q, d32)[:, None]
     z = plane_dot(d32, d32)[:, None] + EPS
     coef = torch.where(dot >= 0, 0.0, (1 - negative_slope) * dot / z)
-    return (q - coef * d32).to(p.dtype)
+    return (q - coef * d32).to(out_dtype or p.dtype)
 
 
 def reference_bn_leaky_bwd(p, d, a, b, g, negative_slope: float):
@@ -148,10 +153,13 @@ def bn_leaky_fwd(p, d, a, b, negative_slope: float):
     _check_shapes("fused_bn_leaky", p, d, a, b)
     bsz, _, c, n = p.shape
     p, d, a, b = (t.contiguous() for t in (p, d, a, b))
-    check_cuda_f32("fused_bn_leaky", p, d, a, b)
+    dt = torch.bfloat16 if p.dtype == torch.bfloat16 else torch.float32
+    check_cuda("fused_bn_leaky", TAKES, (p, dt), (d, dt), (a, torch.float32),
+               (b, torch.float32))
     out = torch.empty_like(p)
-    _KERNEL(p, p.data_ptr(), d.data_ptr(), a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), bsz, c, n, 1 - negative_slope)
+    kernel = _KERNEL_BF16 if dt == torch.bfloat16 else _KERNEL
+    kernel(p, p.data_ptr(), d.data_ptr(), a.data_ptr(), b.data_ptr(),
+           out.data_ptr(), bsz, c, n, 1 - negative_slope)
     return out
 
 
@@ -165,7 +173,8 @@ def bn_leaky_bwd(p, d, a, b, g, negative_slope: float):
         raise ValueError(f"fused_bn_leaky backward: cotangent {g.shape} != {p.shape}")
     bsz, _, c, n = p.shape
     p, d, a, b, g = (t.contiguous() for t in (p, d, a, b, g))
-    check_cuda_f32("fused_bn_leaky backward", p, d, a, b, g)
+    check_cuda("fused_bn_leaky backward", "float32 p, d, a, b and g (no bf16 mode yet)",
+               *[(t, torch.float32) for t in (p, d, a, b, g)])
     dp, dd = torch.empty_like(p), torch.empty_like(p)
     dadb = torch.empty((2, c), device=p.device, dtype=torch.float32)
     tiles = -(-n // BWD_TILE)
@@ -193,6 +202,8 @@ class _FusedBnLeaky(torch.autograd.Function):
 
 
 def fused_bn_leaky(p, d, a, b, negative_slope: float):
-    """p, d: (B, 3, C, N) planes; a, b: (C,) -> out (B, 3, C, N), with the
-    gradient of kernel A' (float32 only on the card)."""
+    """p, d: (B, 3, C, N) planes; a, b: (C,) float32 -> out (B, 3, C, N)
+    in p's dtype, with the gradient of kernel A' (float32 only on the
+    card).  bf16 planes take kernel A's bf16 mode (counted under
+    ``vn_bn_leaky_fwd[bf16]``)."""
     return _FusedBnLeaky.apply(p, d, a, b, negative_slope)

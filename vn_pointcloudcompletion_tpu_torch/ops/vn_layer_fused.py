@@ -25,6 +25,14 @@ backward recomputes ``p`` and ``d`` from ``x``, as the JAX ops do, so no
 products run inside the kernels (``csrc/vn_layer_fused.cu``,
 ``csrc/vn_layer_bwd.cu``).  A CPU tensor takes the plain versions
 (``reference_*``).
+
+B and C have a bf16 mode, taken when x is bfloat16 (the bfloat16 compute
+policy; JAX's ``bf16=True``): bf16 x and biases, products of bf16-rounded
+weights summed in float32, p and d rounded through bf16 before the float32
+epilogue, output in bf16 (C: the unrounded epilogue projected, then
+rounded).  Its launches count under ``<symbol>[bf16]`` and
+``<symbol>[group,bf16]``.  S and the backwards take float32 only: a bf16
+CUDA tensor raises there (bf16 training is the next slice).
 """
 
 from __future__ import annotations
@@ -34,10 +42,7 @@ from typing import Optional
 
 import torch
 
-from vn_pointcloudcompletion_tpu_torch.ops.cuda_lib import (
-    CudaKernel,
-    check_cuda_f32,
-)
+from vn_pointcloudcompletion_tpu_torch.ops.cuda_lib import CudaKernel, check_cuda
 from vn_pointcloudcompletion_tpu_torch.ops.vn_fused import (
     EPS,
     plane_dot,
@@ -70,6 +75,15 @@ _PROJECT_BWD = CudaKernel(
 # keys "<symbol>[group]"): the attention decoder's pair folds.
 _GROUPED = {k.symbol: CudaKernel(k.source, k.symbol, k.argtypes, f"{k.symbol}[group]")
             for k in (_LAYER, _PROJECT, _STATS, _STATS_BWD, _LAYER_BWD, _PROJECT_BWD)}
+# The bf16 modes of B and C (entry points <symbol>_bf16), counted under
+# "<symbol>[bf16]" and, in group=S mode, "<symbol>[group,bf16]".
+_BF16 = {(k.symbol, grouped): CudaKernel(
+    k.source, f"{k.symbol}_bf16", k.argtypes,
+    f"{k.symbol}[group,bf16]" if grouped else f"{k.symbol}[bf16]")
+    for k in (_LAYER, _PROJECT) for grouped in (False, True)}
+FWD_TAKES = ("x and the biases float32 or (its bf16 mode) bf16, with float32 "
+             "w, wd, a, b and w_out")
+F32_TAKES = "float32 tensors only (no bf16 mode yet)"
 TILE = 64  # points per block of the layer kernels (kPts in csrc/vn_tile.cuh)
 GROUP_TILE = 512  # the TPU kernels' point tile: a group must divide it (TN)
 
@@ -105,7 +119,24 @@ def bias_grad(dp, group: int):
 
 
 def _products(w, x, bias, group: int = 0):
-    """(C_out, C_in) map over the planes of x (B, 3, C_in, N), plus bias."""
+    """(C_out, C_in) map over the planes of x (B, 3, C_in, N), plus bias.
+
+    bf16 x (the bf16 mode; JAX ``_compute_pd`` with ``bf16=True``): the
+    products of bf16-rounded w and x (each exact in float32) summed in
+    float32 in input-channel order, as kernels B and C sum them, the bias
+    added in float32, then one rounding to bf16.  (A matrix product would
+    sum in another order and move p by one bf16 step where it lies at a
+    rounding boundary; C's 256-channel projection turns that into several
+    ulps of its output.)"""
+    if x.dtype == torch.bfloat16:
+        wf, xf = w.to(torch.bfloat16).float(), x.float()
+        p = torch.zeros(x.shape[:2] + (w.shape[0], x.shape[3]), dtype=torch.float32,
+                        device=x.device)
+        for k in range(w.shape[1]):
+            p.addcmul_(wf[:, k:k + 1], xf[:, :, k:k + 1])
+        if bias is not None:
+            p = p + expand_bias(bias, group).float()
+        return p.to(torch.bfloat16)
     p = torch.matmul(w, x)
     return p if bias is None else p + expand_bias(bias, group)
 
@@ -126,9 +157,37 @@ def reference_layer_fused(x, w, wd, pbias, dbias, a, b, negative_slope: float,
 
 def reference_layer_fused_project(x, w, wd, pbias, dbias, a, b, w_out,
                                   negative_slope: float, group: int = 0):
-    """Plain version of kernel C: the layer, then the 1-channel VNLinear."""
-    out = reference_layer_fused(x, w, wd, pbias, dbias, a, b, negative_slope, group)
-    return torch.matmul(w_out.reshape(1, -1), out)
+    """Plain version of kernel C: the layer, then the 1-channel VNLinear.
+    The projection reads the layer's epilogue unrounded (in at least
+    float32, as JAX's fused C does) and rounds once to x's dtype."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    o = reference_bn_leaky_planes(
+        _products(w, x, pbias, group), _products(wd, x, dbias, group), a, b,
+        negative_slope, out_dtype=ct)
+    if x.dtype == torch.bfloat16:
+        return _project_in_kernel_order(w_out, o).to(torch.bfloat16)
+    return torch.matmul(w_out.to(ct).reshape(1, -1), o).to(x.dtype)
+
+
+def _project_in_kernel_order(w_out, o):
+    """sum_c w_out[c] o[:, :, c] (B, 3, C, N) -> (B, 3, 1, N) in kernel C's
+    order: each of 16 channel groups sums its channels c0 + 4 g + i (c0 in
+    steps of 64, then i = 0..3) in turn, each product rounded, then the 16
+    group sums in turn.  The epilogue's channels cancel in this sum, so in
+    the bf16 mode another order rounds differently by several bf16 ulps of
+    the (small) result."""
+    prods = w_out.float()[None, None, :, None] * o
+    c = o.shape[2]
+    acc = torch.zeros(o.shape[:2] + (16, o.shape[3]), dtype=o.dtype, device=o.device)
+    for c0 in range(0, c, TILE):
+        for i in range(4):
+            chans = c0 + 4 * torch.arange(16) + i
+            g = chans < c
+            acc[:, :, g] = acc[:, :, g] + prods[:, :, chans[g].to(o.device)]
+    out = torch.zeros_like(acc[:, :, :1])
+    for g in range(16):
+        out = out + acc[:, :, g:g + 1]
+    return out
 
 
 def reference_stats(x, w, pbias, group: int = 0):
@@ -190,8 +249,10 @@ def check_group(name, n: int, group: int, pbias) -> None:
 
 
 def _prepare(name, x, w, wd=None, pbias=None, dbias=None, a=None, b=None,
-             w_out=None, g=None, group=0):
-    """Check shapes, make the tensors contiguous float32 on one card."""
+             w_out=None, g=None, group=0, bf16_mode: bool = False):
+    """Check shapes and types, make the tensors contiguous on one card:
+    float32, or with ``bf16_mode`` (kernels B and C) x and the biases in
+    bf16 when x is bf16."""
     bsz, three, c_in, n = x.shape
     c_out = w.shape[0]
     if three != 3 or w.shape != (c_out, c_in) or (wd is not None and wd.shape != w.shape):
@@ -210,7 +271,10 @@ def _prepare(name, x, w, wd=None, pbias=None, dbias=None, a=None, b=None,
         raise ValueError(f"{name}: bad cotangent shape {tuple(g.shape)}")
     args = [None if t is None else t.contiguous()
             for t in (x, w, wd, pbias, dbias, a, b, w_out, g)]
-    check_cuda_f32(name, *[t for t in args if t is not None])
+    act = torch.bfloat16 if bf16_mode and x.dtype == torch.bfloat16 else torch.float32
+    check_cuda(name, FWD_TAKES if bf16_mode else F32_TAKES,
+               *[(t, act if i in (0, 3, 4) else torch.float32)
+                 for i, t in enumerate(args) if t is not None])
     return args, (bsz, c_in, c_out, n)
 
 
@@ -218,8 +282,8 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _empty(x, *shape):
-    return torch.empty(shape, device=x.device, dtype=torch.float32)
+def _empty(x, *shape, dtype=torch.float32):
+    return torch.empty(shape, device=x.device, dtype=dtype)
 
 
 def _split_k(x, c_in, c_out, n_points):
@@ -243,16 +307,21 @@ def _bias_rows(n: int, group: int):
     return TILE // group, tiles * (TILE // group)
 
 
-def _counted(kernel: CudaKernel, group: int) -> CudaKernel:
+def _counted(kernel: CudaKernel, group: int, bf16: bool = False) -> CudaKernel:
+    if bf16:
+        return _BF16[(kernel.symbol, bool(group))]
     return _GROUPED[kernel.symbol] if group else kernel
 
 
 def _launch(kernel: CudaKernel, x, w, wd, pbias, dbias, a, b, w_out,
             negative_slope: float, group: int):
+    """Kernel B or C, in the mode of x's dtype (float32 or bf16)."""
     (x, w, wd, pbias, dbias, a, b, w_out, _), (bsz, c_in, c_out, n) = _prepare(
-        kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out, group=group)
-    out = _empty(x, bsz, 3, c_out if w_out is None else 1, n)
-    _counted(kernel, group)(x, *[_ptr(t) for t in (x, w, wd, pbias, dbias, a, b)],
+        kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out, group=group,
+        bf16_mode=True)
+    out = _empty(x, bsz, 3, c_out if w_out is None else 1, n, dtype=x.dtype)
+    _counted(kernel, group, x.dtype == torch.bfloat16)(
+           x, *[_ptr(t) for t in (x, w, wd, pbias, dbias, a, b)],
            *([] if w_out is None else [w_out.data_ptr()]),
            out.data_ptr(), bsz, c_in, c_out, n, group, 1 - negative_slope)
     return out

@@ -41,7 +41,12 @@ log = logging.getLogger("test")
 
 @torch.no_grad()
 def metric_step(model, partial, complete, rot: Optional[torch.Tensor], with_emd: bool = False):
-    """Rotate, complete and score one batch -> (per-sample metrics, pred)."""
+    """Rotate, complete and score one batch -> (per-sample metrics, pred).
+
+    The forward runs under whatever compute policy the caller set
+    (``nn/precision.py``; the CLI's ``test`` sets none: float32); the model
+    hands back at least float32, so the chamfer (kernel D), F-score and
+    IoU are float32 either way (JAX ``_make_metric_step``)."""
     if rot is not None:
         partial = rotate_points(partial, rot)
         complete = rotate_points(complete, rot)

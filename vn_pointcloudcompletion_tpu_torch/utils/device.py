@@ -9,8 +9,11 @@ def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on: the card unless the caller asks
     for the CPU.  Raises when the card is asked for and there is none.
 
-    Also sets the float32 compute policy: matrix products and convolutions
-    in full float32, never TF32.
+    Also sets the numeric policy of the matrix products: float32 ones and
+    convolutions in full float32, never TF32; bfloat16 ones (the bfloat16
+    compute policy, ``nn/precision.py``) accumulate in float32 throughout,
+    as JAX's ``preferred_element_type=float32`` does, never in cuBLAS's
+    reduced-precision split-K.
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -20,4 +23,5 @@ def resolve_device(device="cuda") -> torch.device:
         )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev
