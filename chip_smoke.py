@@ -9,7 +9,8 @@ on one NVIDIA GPU:
 2. Builds every kernel under ``vn_pointcloudcompletion_tpu_torch/csrc/``
    (one ``nvcc`` per source, all at once) and prints the build time.
 3. Holds each of the fourteen kernels (A, A', S, S', B, B', C, C', D, K1,
-   K2, K3, F, E), and the bf16 modes of A, B, C and K3, against its plain
+   K2, K3, F, E), and the bf16 modes of A, A', S, S', B, B', C, C' and K3,
+   against its plain
    PyTorch version on the card at the shapes of
    the main paths (batch 8), with the tolerance stated beside it (K1, K2,
    K3 and F: indices equal; K1 and K2 on VN DGCNN conv1's own input, whose
@@ -79,12 +80,25 @@ on one NVIDIA GPU:
    each in float32 and bf16.  Phase 3 holds the bf16 modes (A, B at group 0
    and 64, C, K3) against their plain bf16 versions, bounds at the bf16
    tensor-core rate.
+13. The bfloat16 policy's training path: ``train`` + ``train --resume``
+   on the root ``config.json`` (vn_pointr + attention_vn_foldingnet at
+   448, dtype bfloat16, batch 8; synthetic data at full width), the
+   launches of the run and of one train step asserted exactly (only the
+   bf16 modes of A, A', B, B', C, C', S, S' and K3); the flagship's bf16
+   train step on one DecisionTape through the kernels, through their plain
+   versions in the kernels' place and through the plain path in bf16 and
+   float32, each gradient held to two bounds, and a mutant of C''s bf16
+   backward caught; float32/bf16 step times of the flagship and
+   vn_pointr_448.  Phase 3 holds the bf16 modes of the training kernels
+   (A'; S, S', B' at group 0 and 64; C') against their plain bf16 versions,
+   twice for equal bits.
 
 Every phase prints its wall time.  Any failure exits non-zero.  The line
 before the last is a JSON object with one record per kernel (its launches
 are those of the training run of its path: phase 5 for the flagship's nine,
 phase 7 for K2, K3 and F, phase 9 for the group=S rows, phase 10's two
-``--emd test`` runs for E, phase 12 for the bf16 rows; K1, and C and C' in
+``--emd test`` runs for E, phase 12 for the bf16 rows of A, B, C and K3,
+phase 13 for those of the training kernels; K1, and C and C' in
 group=S mode, are on no model's path); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -93,6 +107,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -192,6 +207,36 @@ BF16_FORWARD_LAUNCHES = {
 BF16_F32_RATIO = 2.0
 BF16_FWD_TOL = 1e-2
 BF16_MUTANT = 1 + 2.0 ** -6  # kernel C's bf16 output scaled: must fail the checks
+# Phase 13, the bf16 policy's training path.  One train step of the root
+# config.json's pipeline (vn_pointr_448, batch 8) launches its eval
+# forward's kernels (BF16_FORWARD_LAUNCHES), kernel S before each of its
+# five whole-layer kernels (grouper conv1's B, the pair folds' two B in
+# group=S mode, the two C), and the backward of every VN kernel: A' for the
+# three A, S' for each S, B' and C' -- each in its bf16 mode, none in float32.
+BF16_STEP_LAUNCHES = {
+    "vn_pointr_448": {**BF16_FORWARD_LAUNCHES["vn_pointr_448"],
+                      "vn_layer_stats_fwd[bf16]": 3, "vn_layer_stats_fwd[group,bf16]": 2,
+                      "vn_bn_leaky_bwd[bf16]": 3, "vn_layer_stats_bwd[bf16]": 3,
+                      "vn_layer_stats_bwd[group,bf16]": 2, "vn_layer_fused_bwd[bf16]": 1,
+                      "vn_layer_fused_bwd[group,bf16]": 2,
+                      "vn_layer_fused_project_bwd[bf16]": 2},
+}
+BF16_TRAIN_EPOCHS = 2  # phase 13's train epochs before --resume
+# Phase 13, the flagship's bf16 train step on one DecisionTape, each
+# gradient as its root-mean-square distance over the tensor's norm: the
+# kernels no further from the plain float32 path than BF16_F32_RATIO x the
+# plain bf16 path (use_kernels off: it rounds at other points, and train-
+# mode BatchNorm on nearly constant norms turns bf16 rounding into O(1)
+# gradient changes, JAX's as much), and within BF16_STEP_TOL of their own
+# plain versions run in the kernels' place (``kernels_as_plain``: the same
+# rounding points, other summation orders; measured 1.52e-2 at most, at
+# encoder.first_conv.0, the layer furthest from the loss, whose gradient
+# passes back through every train-mode BatchNorm on norms: NVIDIA H100 80GB
+# HBM3, 700 W), the decoder's gradients, which the backward kernels compute
+# directly, within BF16_DECODER_TOL (measured 1.85e-3 at most).  The mutant
+# (C''s bf16 dW x BF16_MUTANT) must fail: it reads 1.66e-2.
+BF16_STEP_TOL = 2e-2
+BF16_DECODER_TOL = 5e-3
 # Kernel E (phase 3) against its plain version, each max|d| / max: the cost
 # within EMD_COST_TOL, the moments within EMD_MOMENT_TOL (the level -4^7
 # amplifies the rounding of sums taken in another order on near ties; the
@@ -573,6 +618,142 @@ def check_bf16_kernels(dev, record, randn, uniform):
            equal, "indices and values equal",
            nbytes(xf, u, v) + 2 * BATCH * c3 * k * 512 + 4 * BATCH * 512 * k,
            BATCH * 512 * 512 * 10 + BATCH * c3 * k * 512, repro=True, peak_ops=PEAK_BF16)
+    check_bf16_train_kernels(dev, record, randn, uniform)
+
+
+def bf16_bwd_close(rel, exact=()):
+    """Compare the outputs of a bf16 training kernel with its plain bf16
+    version's: those in ``exact`` equal to the bit, the other bf16 ones
+    within one bf16 ulp of their largest magnitude (float32 sums taken in
+    another order, then one rounding), the float32 ones within ``rel`` of
+    their max.  Returns the largest absolute error."""
+    import torch
+
+    def cmp(got, want):
+        err, ok = 0.0, True
+        for k, (g, w) in enumerate(zip(got, want)):
+            if w is None:
+                continue
+            e = (g.float() - w.float()).abs().max().item()
+            err = max(err, e)
+            scale = max(w.float().abs().max().item(), 2.0 ** -126)
+            if k in exact:
+                ok = ok and torch.equal(g, w)
+            elif w.dtype == torch.bfloat16:
+                ok = ok and g.dtype == w.dtype and e <= 2.0 ** (math.floor(math.log2(scale)) - 7)
+            else:
+                ok = ok and e <= rel * scale
+        return err, ok
+    return cmp
+
+
+def check_bf16_train_kernels(dev, record, randn, uniform):
+    """Phase 3, the bf16 modes of the training kernels (the bfloat16
+    policy's training path) at the main paths' shapes, each against its
+    plain bf16 version (``bf16_bwd_close``) and twice for equal bits: A' at
+    the flagship's second_conv.0 (C 1024, N 2048; dp and dd equal to the
+    bit), S and S' at final_conv.1 (256 -> 256, N 16384), S, S' and B' at
+    the attention decoder's pair folds (1 -> 256, N 14336, group 64), B' at
+    final_conv.0 (2 -> 256, per-sample bias), C' at final_conv.1 + .2 (256
+    -> 256 -> 1).  Bounds: bytes at 2 per activation element (4 per
+    parameter and float32 gradient), operations at the dense bf16
+    tensor-core rate."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.ops import vn_fused, vn_layer_fused
+
+    bf = torch.bfloat16
+    src = "vn_pointcloudcompletion_tpu_torch/csrc/"
+    at = "vn_pointcloudcompletion_tpu/ops/"
+    close = bf16_bwd_close(1e-4)
+
+    c, n = 1024, 2048
+    p, d, g_ = (randn(BATCH, 3, c, n).to(bf) for _ in range(3))
+    p[:, :, :8, :16] = 0.0
+    a, b = uniform(0.5, 1.5, c), randn(c, scale=0.3)
+    vecs = BATCH * c * n
+    record("A' fused_bn_leaky backward bf16", src + "vn_fused.cu", at + "vn_fused.py:214",
+           lambda: vn_fused.bn_leaky_bwd(p, d, a, b, g_, NS),
+           lambda: vn_fused.reference_bn_leaky_bwd(p, d, a, b, g_, NS),
+           bf16_bwd_close(1e-5, exact=(0, 1)), "dp, dd equal to the bit; dA, dB 1e-5 x max",
+           nbytes(p, d, g_, a, b) + 2 * nbytes(p) + 2 * 4 * c, 80 * vecs, repro=True,
+           peak_ops=PEAK_BF16)
+    del p, d, g_
+
+    n = 16384
+    x = randn(BATCH, 3, 256, n).to(bf)
+    w = uniform(-1 / 16, 1 / 16, 256, 256)
+    c1, c2 = randn(256, scale=1e-4), randn(256, scale=1e-5)
+    vecs = BATCH * 256 * n
+    prod = 2 * 3 * vecs * 256
+    record("S vn_layer_stats bf16", src + "vn_layer_bwd.cu", at + "vn_layer_fused.py:278",
+           lambda: vn_layer_fused.stats_fwd(x, w, None),
+           lambda: vn_layer_fused.reference_stats(x, w, None),
+           close, "1e-4 x max", nbytes(x, w) + 2 * 4 * 256, prod + 9 * vecs, reps=10,
+           repro=True, peak_ops=PEAK_BF16)
+    record("S' vn_layer_stats backward bf16", src + "vn_layer_bwd.cu",
+           at + "vn_layer_fused.py:325",
+           lambda: vn_layer_fused.stats_bwd(x, w, None, c1, c2),
+           lambda: vn_layer_fused.reference_stats_bwd(x, w, None, c1, c2),
+           close, "dx 1 bf16 ulp of max; dW 1e-4 x max",
+           2 * nbytes(x) + 2 * nbytes(w) + nbytes(c1, c2), 3 * prod + 15 * vecs, reps=10,
+           plain_reps=3, repro=True, peak_ops=PEAK_BF16)
+
+    w, wd = uniform(-1 / 16, 1 / 16, 256, 256), uniform(-1 / 16, 1 / 16, 256, 256)
+    a, b, w_out = uniform(0.5, 1.5, 256), randn(256, scale=0.3), uniform(-1 / 16, 1 / 16, 256)
+    g_ = randn(BATCH, 3, 1, n, scale=1e-4).to(bf)
+    record("C' vn_layer_fused_project backward bf16", src + "vn_layer_bwd.cu",
+           at + "vn_layer_fused.py:878",
+           lambda: vn_layer_fused.layer_project_bwd(x, w, wd, None, None, a, b, w_out, g_, NS),
+           lambda: vn_layer_fused.reference_layer_project_bwd(
+               x, w, wd, None, None, a, b, w_out, g_, NS),
+           close, "dx 1 bf16 ulp of max; dW, dWd, dA, dB, dw_out 1e-4 x max",
+           2 * nbytes(x, w, wd, a, b, w_out) + nbytes(g_), 6 * prod + 90 * vecs, reps=5,
+           plain_reps=3, repro=True, peak_ops=PEAK_BF16)
+    del x, g_
+
+    x = randn(BATCH, 3, 2, n, scale=0.3).to(bf)
+    w, wd = uniform(-0.02, 0.02, 256, 2), uniform(-0.02, 0.02, 256, 2)
+    pb, db = randn(BATCH, 3, 256, 1).to(bf), randn(BATCH, 3, 256, 1).to(bf)
+    g_ = randn(BATCH, 3, 256, n, scale=1e-4).to(bf)
+    record("B' vn_layer_fused backward bf16", src + "vn_layer_bwd.cu",
+           at + "vn_layer_fused.py:594",
+           lambda: vn_layer_fused.layer_bwd(x, w, wd, pb, db, a, b, g_, NS),
+           lambda: vn_layer_fused.reference_layer_bwd(x, w, wd, pb, db, a, b, g_, NS),
+           close, "dx, bias grads 1 bf16 ulp of max; dW, dWd, dA, dB 1e-4 x max",
+           2 * nbytes(x, w, wd, pb, db, a, b) + nbytes(g_), 6 * 2 * 3 * vecs * 2 + 86 * vecs,
+           repro=True, peak_ops=PEAK_BF16)
+    del g_
+
+    n, s = 14336, 64
+    bw = 1 / 385 ** 0.5
+    x = randn(BATCH, 3, 1, n).to(bf)
+    w, wd = uniform(-bw, bw, 256, 1), uniform(-bw, bw, 256, 1)
+    pb = randn(BATCH, 3, 256, n // s, scale=0.5).to(bf)
+    db = randn(BATCH, 3, 256, n // s, scale=0.5).to(bf)
+    g_ = randn(BATCH, 3, 256, n, scale=1e-4).to(bf)
+    vecs = BATCH * 256 * n
+    io = nbytes(x, w, wd, pb, db, a, b)
+    record("S vn_layer_stats group=64 bf16", src + "vn_layer_bwd.cu",
+           at + "vn_layer_fused.py:278",
+           lambda: vn_layer_fused.stats_fwd(x, w, pb, s),
+           lambda: vn_layer_fused.reference_stats(x, w, pb, s),
+           close, "1e-4 x max", nbytes(x, w, pb) + 2 * 4 * 256, 2 * 3 * vecs + 12 * vecs,
+           reps=10, repro=True, peak_ops=PEAK_BF16)
+    record("S' vn_layer_stats backward group=64 bf16", src + "vn_layer_bwd.cu",
+           at + "vn_layer_fused.py:325",
+           lambda: vn_layer_fused.stats_bwd(x, w, pb, c1, c2, s),
+           lambda: vn_layer_fused.reference_stats_bwd(x, w, pb, c1, c2, s),
+           close, "dx, bias grads 1 bf16 ulp of max; dW 1e-4 x max",
+           2 * nbytes(x, w, pb) + nbytes(c1, c2), 3 * 2 * 3 * vecs + 18 * vecs, reps=10,
+           plain_reps=3, repro=True, peak_ops=PEAK_BF16)
+    record("B' vn_layer_fused backward group=64 bf16", src + "vn_layer_bwd.cu",
+           at + "vn_layer_fused.py:594",
+           lambda: vn_layer_fused.layer_bwd(x, w, wd, pb, db, a, b, g_, NS, s),
+           lambda: vn_layer_fused.reference_layer_bwd(x, w, wd, pb, db, a, b, g_, NS, s),
+           close, "dx, bias grads 1 bf16 ulp of max; dW, dWd, dA, dB 1e-4 x max",
+           2 * io + nbytes(g_), 6 * 2 * 3 * vecs + 86 * vecs, reps=10, plain_reps=3,
+           repro=True, peak_ops=PEAK_BF16)
 
 
 def check_group_kernels(dev, record, randn, uniform, close, rel_close):
@@ -2017,6 +2198,275 @@ def bf16_serve(dev, smi: str):
     return total
 
 
+def bf16_step_grads(model, config, partial, complete, policy):
+    """One train step's (coarse, dense) losses, running statistics and
+    gradients (float64 copies) of a copy of ``model`` under the compute
+    policy ``policy``, for the rotation from seed 1; no optimiser update."""
+    import copy
+
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.nn.precision import compute_dtype_scope
+    from vn_pointcloudcompletion_tpu_torch.ops.rotations import random_rotations, rotate_points
+    from vn_pointcloudcompletion_tpu_torch.training.steps import _losses
+
+    m = copy.deepcopy(model).train()
+    rot = random_rotations(torch.Generator().manual_seed(1), partial.shape[0]).to(partial.device)
+    with compute_dtype_scope(policy):
+        loss1, loss2, loss = _losses(m, config, rotate_points(partial, rot),
+                                     rotate_points(complete, rot), rot)
+        loss.backward()
+    return (torch.stack([loss1, loss2]).detach().double(),
+            {k: b.double() for k, b in m.named_buffers()},
+            {k: p.grad.double() for k, p in m.named_parameters() if p.grad is not None})
+
+
+def rms_errs(got, want):
+    """||got - want|| / ||want|| of each tensor of ``want``."""
+    return {k: ((got[k] - w).norm() / w.norm()).item() for k, w in want.items()
+            if w.norm() > 0}
+
+
+@contextlib.contextmanager
+def kernels_as_plain():
+    """Inside: every VN kernel's wrapper (A, A', S, S', B, B', C, C') runs
+    its plain version on CUDA tensors too, at the kernels' dispatch points
+    and rounding points: the arithmetic of the kernel path in plain
+    PyTorch, for holding the kernels to it inside a whole train step."""
+    from vn_pointcloudcompletion_tpu_torch.ops import vn_fused, vn_layer_fused as vl
+
+    def layer(kernel, x, w, wd, pbias, dbias, a, b, w_out, ns, group):
+        if w_out is None:
+            return vl.reference_layer_fused(x, w, wd, pbias, dbias, a, b, ns, group)
+        return vl.reference_layer_fused_project(x, w, wd, pbias, dbias, a, b, w_out, ns, group)
+
+    swaps = [(vn_fused, "bn_leaky_fwd", vn_fused.reference_bn_leaky_planes),
+             (vn_fused, "bn_leaky_bwd", vn_fused.reference_bn_leaky_bwd),
+             (vl, "stats_fwd", vl.reference_stats), (vl, "stats_bwd", vl.reference_stats_bwd),
+             (vl, "layer_bwd", vl.reference_layer_bwd),
+             (vl, "layer_project_bwd", vl.reference_layer_project_bwd), (vl, "_launch", layer)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def bf16_step_check(tag, kern, versions, plain16, plain32) -> bool:
+    """Print and check phase 13's bounds on one step's gradients: the
+    kernels within BF16_STEP_TOL of their plain versions (``versions``: the
+    same dispatch and rounding in plain PyTorch), the decoder's (which the
+    backward kernels compute directly) within BF16_DECODER_TOL, and no
+    further from the plain float32 path than BF16_F32_RATIO x the plain
+    bf16 path."""
+    d_kv = rms_errs(kern, versions)
+    dec = {k: v for k, v in d_kv.items() if k.startswith("decoder.")}
+    d_kf, d_pf = rms_errs(kern, plain32), rms_errs(plain16, plain32)
+    ratio = {k: d_kf[k] / max(d_pf[k], 1e-12) for k in d_kf}
+    ok = (max(ratio.values()) <= BF16_F32_RATIO and max(d_kv.values()) <= BF16_STEP_TOL
+          and max(dec.values()) <= BF16_DECODER_TOL)
+    print(f"{tag} gradients, RMS distance over the norm, largest: kernels vs their plain "
+          f"versions {worst(d_kv)} (bound {BF16_STEP_TOL}), in the decoder {worst(dec)} "
+          f"(bound {BF16_DECODER_TOL}); kernels vs plain float32 {worst(d_kf)}; plain bf16 vs "
+          f"plain float32 {worst(d_pf)}; the ratio of the two {worst(ratio)} (bound "
+          f"{BF16_F32_RATIO}) {'PASS' if ok else 'FAIL'}")
+    return ok
+
+
+def bf16_flagship_step(dev, partial, complete):
+    """Phase 13 (b): the flagship's bf16 train step on one DecisionTape,
+    through the kernels, through their plain versions in the kernels' place
+    (``kernels_as_plain``), through the plain path (use_kernels off) in
+    bf16 and in float32: ``bf16_step_check``, and a mutant (C''s bf16 dW x
+    BF16_MUTANT) that must fail it.  Returns (config, model)."""
+    import copy
+
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
+
+    config = _smoke_config(lr=1e-4, rotation="so3")
+    model = build_model(config).to(dev)
+    plain = copy.deepcopy(model).use_kernels_(False)
+    btag = "[bf16 train flagship step]"
+
+    def run(m, policy):
+        return bf16_step_grads(m, config, partial, complete, policy)
+
+    orig = vn_layer_fused.layer_project_bwd
+
+    def mutant_bwd(*a, **k):
+        out = list(orig(*a, **k))
+        out[1] = out[1] * BF16_MUTANT
+        return tuple(out)
+
+    with DecisionTape() as tape:
+        tape.run()
+        lk, bk, gk = run(model, torch.bfloat16)
+        rec = tape.rec
+        # kernel A's reflections are not replayed into the runs through the
+        # kernels or their plain versions (a replayed side takes the tape's
+        # own chain, not A and A'): A's plain version decides as A, bit for bit
+        picks = {k: v for k, v in rec.items() if k[0] != "mask"}
+        tape.run(picks)
+        with kernels_as_plain():
+            lv, bv, gv = run(model, torch.bfloat16)
+        tape.run(rec)
+        lp, _, gp = run(plain, torch.bfloat16)
+        rec = {**rec, **tape.rec}
+        tape.run(rec)
+        l32, _, g32 = run(plain, torch.float32)
+        vn_layer_fused.layer_project_bwd = mutant_bwd
+        try:
+            tape.run(picks)
+            _, _, gm = run(model, torch.bfloat16)
+        finally:
+            vn_layer_fused.layer_project_bwd = orig
+    finite = all(torch.isfinite(t).all() for t in (lk, *bk.values(), *gk.values()))
+    print(f"{btag} batch {BATCH}, losses (coarse, dense): kernels {lk.tolist()}, their plain "
+          f"versions {lv.tolist()}, plain bf16 {lp.tolist()}, plain float32 {l32.tolist()}; "
+          f"running statistics max|d| / max, kernels vs their plain versions: "
+          f"{max(rel_errs(bk, bv).values()):.3e}")
+    if not (finite and bf16_step_check(btag, gk, gv, gp, g32)):
+        raise AssertionError(f"{btag} the bf16 kernel step disagrees with the plain path")
+    mutated = "decoder.final_conv.1.map_to_feat.weight"
+    print(f"{btag} mutant: {mutated} lies {rms_errs(gm, gv)[mutated]:.3e} from the plain "
+          f"versions' (unmutated kernels: {rms_errs(gk, gv)[mutated]:.3e})")
+    if bf16_step_check(f"{btag} mutant (C' dW x {BF16_MUTANT})", gm, gv, gp, g32):
+        raise AssertionError(f"{btag} the check misses C''s dW scaled by {BF16_MUTANT}")
+    print(f"{btag} the mutant fails the check, as it must")
+
+    return config, model
+
+
+def bf16_train(dev, smi: str):
+    """Phase 13: the bf16 policy's training path.  (a) ``train`` for
+    BF16_TRAIN_EPOCHS epochs, then ``train --resume`` for one, on the root
+    ``config.json`` (vn_pointr + attention_vn_foldingnet at 448, dtype
+    bfloat16, batch 8) with ``dataset: synthetic`` at full width, counted:
+    the launches equal the epochs' train steps (BF16_STEP_LAUNCHES) and
+    validation forwards (BF16_FORWARD_LAUNCHES) exactly, so no float32-mode
+    launch of A, A', B, B', C, C', S, S' or K3; one train step counted
+    alone.  (b) The flagship's bf16 train step through the kernels, the
+    plain bf16 path and the plain float32 path on one DecisionTape
+    (``bf16_step_check``), and a mutant of C''s bf16 backward (dW x
+    BF16_MUTANT) that must fail.  (c) CUDA-event medians of the float32 and
+    bf16 train steps of both models, with peak memory.  Returns the launch
+    counts of (a)'s counted runs."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch import __main__ as cli
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.nn.precision import compute_dtype, compute_dtype_scope
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib
+    from vn_pointcloudcompletion_tpu_torch.training import steps
+    from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
+    from vn_pointcloudcompletion_tpu_torch.utils.config import Config
+
+    tag = "[bf16 train]"
+    with open(os.path.join(ROOT, "config.json")) as f:
+        root = json.load(f)
+    if root["dtype"] != "bfloat16" or root["enc_type"] != "vn_pointr" or root["num_coarse"] != 448:
+        raise AssertionError(f"{tag} the root config.json changed: {root}")
+    full = _smoke_config("vn_pointr_448").extra  # the other phases' synthetic widths
+    # one batch of training and one of validation samples: each epoch is one
+    # step and one validation forward, as overfit's
+    root.update(name="smoke_bf16", dataset="synthetic", num_workers=4, log_frequency=1,
+                batch_size=BATCH, synthetic_n_partial=full["synthetic_n_partial"],
+                synthetic_n_complete=full["synthetic_n_complete"],
+                synthetic_train_samples=BATCH, synthetic_val_samples=BATCH)
+    work = os.path.join(ROOT, "build", "chip_smoke_bf16")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with open(os.path.join(work, "config.json"), "w") as f:
+        json.dump(root, f)
+    os.environ["OUTPUT_DIR"] = os.path.join(work, "experiments")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = cli.main(["-n", "smoke_bf16", "-epochs", str(BF16_TRAIN_EPOCHS - 1), "train"])
+        (run,) = os.listdir(os.environ["OUTPUT_DIR"])
+        resumed = cli.main(["-n", run, "--resume", "-epochs", str(BF16_TRAIN_EPOCHS), "train"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        counts = {k: v for k, v in cuda_lib.launch_counts().items() if v}
+    finally:
+        os.chdir(cwd)
+    exp_dir = os.path.join(os.environ["OUTPUT_DIR"], run)
+    epochs = BF16_TRAIN_EPOCHS + 1
+    want = {k: epochs * (BF16_STEP_LAUNCHES["vn_pointr_448"].get(k, 0)
+                         + BF16_FORWARD_LAUNCHES["vn_pointr_448"].get(k, 0))
+            for k in BF16_STEP_LAUNCHES["vn_pointr_448"]}
+    got = {k: v for k, v in counts.items() if k != "chamfer_nn_one_sided"}
+    print(f"{tag} root config.json: train {BF16_TRAIN_EPOCHS} epochs + resume 1 of one step + "
+          f"one validation batch: {t1 - t0:.3f} s (host clock); launches {json.dumps(counts)}")
+    if got != want or compute_dtype() != torch.float32:
+        raise AssertionError(f"{tag} launches {got}, expected {want}")
+    with open(os.path.join(exp_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    train = [r["value"] for r in rows if r["split"] == "train" and r["tag"] == "Loss/Epoch/Total"]
+    print(f"{tag} train total loss per epoch (x1e3): {train}")
+    if (len(train) != epochs or not all(math.isfinite(r["value"]) for r in rows)
+            or summary["epochs_run"] != BF16_TRAIN_EPOCHS or resumed["epochs_run"] != 1):
+        raise AssertionError(f"{tag} bad run: {train}, {summary}, {resumed}")
+    with open(os.path.join(exp_dir, "train.log")) as f:
+        if "[RESUME INFO] resume ckpts @ %d epoch" % (BF16_TRAIN_EPOCHS - 1) not in f.read():
+            raise AssertionError(f"{tag} train --resume did not continue the run")
+    saved = torch.load(os.path.join(exp_dir, "models", "model_last.pth"), weights_only=True)
+    if any(t.dtype not in (torch.float32, torch.int64) for t in saved.values()):
+        raise AssertionError(f"{tag} the checkpoint is not float32")
+    shutil.rmtree(work, ignore_errors=True)
+
+    partial, complete, rot = main_path_batch(dev)
+    pointr_config = Config.from_dict(dict(root, rotation="none"))
+    pointr = build_model(pointr_config).to(dev)
+    state = create_train_state(pointr, pointr_config, 1)
+    with compute_dtype_scope(torch.bfloat16):
+        steps.train_step(state, partial, complete, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        metrics = steps.train_step(state, partial, complete, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+    step_counts = {k: v for k, v in cuda_lib.launch_counts().items()
+                   if v and k != "chamfer_nn_one_sided"}
+    print(f"{tag} one vn_pointr_448 train step: launches {json.dumps(step_counts)}; "
+          f"skipped {metrics['skipped'].item()}")
+    if step_counts != BF16_STEP_LAUNCHES["vn_pointr_448"] or metrics["skipped"].item():
+        raise AssertionError(f"{tag} one step's launches {step_counts}, expected "
+                             f"{BF16_STEP_LAUNCHES['vn_pointr_448']}")
+    total = {k: counts.get(k, 0) + step_counts.get(k, 0) for k in {*counts, *step_counts}}
+
+    # (b) the flagship's bf16 step on one tape
+    config, model = bf16_flagship_step(dev, partial, complete)
+
+    # (c) float32 and bf16 step times of both models through the kernels
+    for name, m, cfg in (("flagship", model, config), ("vn_pointr_448", pointr, pointr_config)):
+        ms, gib = {}, {}
+        for dt in (torch.float32, torch.bfloat16, torch.float32, torch.bfloat16):
+            st = create_train_state(m, cfg, 1)
+            gen = torch.Generator().manual_seed(0)
+
+            def step():
+                with compute_dtype_scope(dt):
+                    return steps.train_step(st, partial, complete, gen)
+
+            torch.cuda.reset_peak_memory_stats()
+            ms.setdefault(dt, []).append(cuda_ms(step, 5))
+            gib[dt] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[bf16 train step] {name}, batch {BATCH}, {smi}: median of 5 steps after 2 "
+              f"warm-up (CUDA events), float32 then bf16, twice: float32 "
+              f"{' / '.join(f'{t:.3f}' for t in ms[torch.float32])} ms, bf16 "
+              f"{' / '.join(f'{t:.3f}' for t in ms[torch.bfloat16])} ms; peak memory float32 "
+              f"{gib[torch.float32]:.2f} GiB, bf16 {gib[torch.bfloat16]:.2f} GiB")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2073,15 +2523,19 @@ def main() -> int:
     phase("10b flagship coarse losses emd, dcd", coarse_loss_train, dev)
     phase("11 standalone PCN, VNPCN, DGCNN", standalone_models, dev)
     bf16_counts = phase("12 bf16 serve", bf16_serve, dev, smi)
+    bf16_train_counts = phase("13 bf16 train", bf16_train, dev, smi)
     # launches: each kernel's count in the training run of its path (K1 is
     # on no model's path: the JAX package reaches it only for D > 512; nor
     # are C and C' in group=S mode: no model passes a group to them); the
-    # bf16 rows' in phase 12's counted forwards and metric step
+    # bf16 rows' in phase 12's counted forwards and metric step (A, B, C,
+    # K3) and phase 13's counted training runs (A', S, S', B', C')
     for rec in records:
         sym = SYMBOL[rec["name"].split()[0]]
-        if rec["name"].endswith(" bf16"):  # phase 12, the bf16 serving path
+        if rec["name"].endswith(" bf16"):
             mode = "[group,bf16]" if "group=" in rec["name"] else "[bf16]"
-            rec["launches"] = bf16_counts.get(f"{sym}{mode}", 0)
+            train_sym = rec["name"].split()[0] in ("A'", "S", "S'", "B'", "C'")
+            rec["launches"] = (bf16_train_counts if train_sym else bf16_counts).get(
+                f"{sym}{mode}", 0)
         elif "group=" in rec["name"]:
             rec["launches"] = pointr_counts[f"{sym}[group]"]
         elif sym == "emd_rounds":  # phase 10: both test --emd runs

@@ -656,15 +656,81 @@ def test_cli_test_on_a_bf16_config_runs_float32(tmp_path, monkeypatch, root):
 
 
 def test_cli_train_on_a_bf16_config_names_the_next_slice(tmp_path, monkeypatch):
+    """bf16 training runs (below); what a bf16 config still cannot ask of
+    ``train`` and ``overfit`` is the next slice, ``remat``, and the error
+    names it and its ROADMAP.md item."""
     import json
 
     from vn_pointcloudcompletion_tpu_torch import __main__ as cli
 
     cfg = {"enc_type": "vn_pointnet", "dec_type": "vn_foldingnet", "num_coarse": 64,
-           "batch_size": 2, "dataset": "synthetic", "num_workers": 1, "dtype": "bfloat16"}
+           "batch_size": 2, "dataset": "synthetic", "num_workers": 1, "dtype": "bfloat16",
+           "remat": True}
     (tmp_path / "config.json").write_text(json.dumps(cfg))
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("OUTPUT_DIR", str(tmp_path / "out"))
     for command in ("train", "overfit"):
-        with pytest.raises(NotImplementedError, match="bf16 training"):
+        with pytest.raises(NotImplementedError, match="remat.*item 7"):
             cli.main(["-epochs", "0", "--device", "cpu", command])
+    assert precision.compute_dtype() == torch.float32
+
+
+@pytest.mark.parametrize("root", [False, True], ids=["flagship", "root_config"])
+def test_cli_train_and_resume_on_a_bf16_config(tmp_path, monkeypatch, root):
+    """``overfit`` then ``-n <run> --resume train`` on a bf16 config under
+    the bf16 policy: finite losses, the checkpoints float32 and restored
+    into a fresh state as they were saved (parameters, BatchNorm statistics,
+    Adam's moments and count), the resumed run continuing from them.  ``root_config``:
+    the repo's own ``config.json`` (vn_pointr + attention_vn_foldingnet at
+    448, bfloat16, batch 8) cut to batch 2 of 600-point synthetic scans."""
+    import json
+    import os
+    from pathlib import Path
+
+    from vn_pointcloudcompletion_tpu_torch import __main__ as cli
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.training.checkpoint import restore_checkpoint
+    from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
+    from vn_pointcloudcompletion_tpu_torch.utils.config import load_config
+
+    small = {"name": "b16", "dataset": "synthetic", "batch_size": 2, "num_workers": 1,
+             "synthetic_n_complete": 1024, "log_frequency": 1}
+    if root:
+        cfg = json.loads((Path(__file__).resolve().parents[1] / "config.json").read_text())
+        assert cfg["dtype"] == "bfloat16" and cfg["enc_type"] == "vn_pointr"
+        cfg.update(small, synthetic_n_partial=600)
+    else:
+        cfg = dict(small, enc_type="vn_pointnet", dec_type="vn_foldingnet", num_coarse=64,
+                   latent_dim=2048, synthetic_n_partial=512, dtype="bfloat16", seed=1)
+    (tmp_path / "config.json").write_text(json.dumps(cfg))
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("OUTPUT_DIR", str(tmp_path / "out"))
+    assert cli.main(["-epochs", "0", "--device", "cpu", "overfit"])["epochs_run"] == 1
+    (run,) = os.listdir(tmp_path / "out")
+    exp = tmp_path / "out" / run
+    # the stored pair restores into a fresh state under the policy as it was saved
+    saved_model = torch.load(exp / "models" / "model_last.pth", weights_only=True)
+    saved = torch.load(exp / "optimizer" / "optim_last.pth", weights_only=True)
+    config = load_config(run)
+    state = create_train_state(build_model(config), config, 1)
+    with precision.compute_dtype_scope(torch.bfloat16):
+        state, epoch, _, _ = restore_checkpoint(str(exp), state, "last")
+    assert epoch == 0 and state.step == saved["step"] == 1
+    for k, t in state.model.state_dict().items():
+        assert t.dtype == saved_model[k].dtype and torch.equal(t, saved_model[k]), k
+    for i, moments in state.optimizer.state_dict()["state"].items():
+        for k, t in moments.items():
+            assert torch.equal(torch.as_tensor(t), torch.as_tensor(
+                saved["optim_state_dict"]["state"][i][k])), (i, k)
+            assert not torch.is_floating_point(t) or t.dtype == torch.float32, (i, k)
+    assert cli.main(["-n", run, "--resume", "-epochs", "1", "--device", "cpu",
+                     "train"])["epochs_run"] == 1
+    assert precision.compute_dtype() == torch.float32
+    assert "[RESUME INFO] resume ckpts @ 0 epoch" in (exp / "train.log").read_text()
+    rows = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
+    assert len([r for r in rows if r["tag"] == "Loss/Epoch/Total"]) == 4  # train, val x 2
+    assert all(np.isfinite(r["value"]) for r in rows)
+    model = torch.load(exp / "models" / "model_last.pth", weights_only=True)
+    meta = torch.load(exp / "optimizer" / "optim_last.pth", weights_only=True)
+    assert all(t.dtype == torch.float32 for t in model.values() if t.is_floating_point())
+    assert meta["epoch"] == 1 and meta["step"] == 2

@@ -1,0 +1,456 @@
+"""bfloat16 training of the port against the JAX package on the CPU.
+
+- Each bf16 backward mode's plain version (A'; S, S' and B' at group 0 and
+  at groups 16 and 64; C') against JAX's Pallas kernel with ``bf16=True``
+  in interpret mode, through ``jax.vjp`` on the same bf16 inputs.  Bound,
+  in bf16 ulps of each output's largest magnitude: the bf16 outputs (dp, dd,
+  dx, the bias gradients) within one ulp with at most 1% of the elements
+  differing, the float32 outputs (dW, dA, dB, dw_out, s1, s2) within 1/16
+  ulp (2^-12 of the max; measured 2e-3 ulp at most); the sums over points
+  run in another order on the two sides, the rounding points are JAX's.  A
+  B' whose bias gradients sum the bf16-rounded dp fails that check.
+- K3's backward on bf16 features (float32 sums, one cast) against
+  ``_ekg_bwd``.
+- The bf16 policy hands every training kernel (S, S', B', C', A') bf16
+  activations in the three VN pipelines: the modes follow x's dtype, JAX's
+  follow the policy, and the two agree.
+- The VN decoders' gradients alone and the three VN pipelines' train-step
+  gradients under ``compute_dtype_scope(bfloat16)`` on both sides, each
+  tensor no further (root mean square) from JAX's float32 gradient than
+  twice JAX's own bf16 gradient lies from it.  Under the bf16 policy the
+  gradients of a random-init model move by O(1) of their size (train-mode
+  BatchNorm on norms, the argmax pools and the chamfer picks all see the
+  rounding), JAX's as much, so that spread is the only yardstick of whole
+  gradients; the kernels' arithmetic is held by the plain versions above.
+- The trainer runs the whole of ``train`` under the config's policy and
+  restores the caller's; a skipped bf16 step keeps the parameters, Adam's
+  moments and the BatchNorm statistics.
+"""
+
+import copy
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_port_bf16 import _carried
+from tests.test_torch_port_pointr import _GROUPS
+from vn_pointcloudcompletion_tpu.nn import precision as jax_precision
+from vn_pointcloudcompletion_tpu_torch import __main__ as cli
+from vn_pointcloudcompletion_tpu_torch.nn import precision
+from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas as port_knn
+from vn_pointcloudcompletion_tpu_torch.ops import vn_fused as port_fused
+from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused as port_layer
+from vn_pointcloudcompletion_tpu_torch.training import interop
+from vn_pointcloudcompletion_tpu_torch.training import steps as port_steps
+from vn_pointcloudcompletion_tpu_torch.training.interop import state_dict_from_jax_variables
+from vn_pointcloudcompletion_tpu_torch.utils.config import Config
+
+torch.set_num_threads(2)
+
+NS = 0.2
+BF16 = torch.bfloat16
+
+
+def _bf16(a):
+    """The same bf16 values on both sides: (torch bf16, jnp bf16)."""
+    a = np.asarray(a, np.float32)
+    return torch.from_numpy(a).to(BF16), jnp.asarray(a, jnp.bfloat16)
+
+
+def _ulps_of_max(got, want):
+    """(max |got - want| in bf16 ulps of max |want|, share of elements that
+    differ) of a port tensor and a JAX array."""
+    g, w = got.detach().float().numpy(), np.asarray(want, np.float32)
+    scale = max(float(np.abs(w).max()), 2.0 ** -126)
+    return float(np.abs(g - w).max() / 2.0 ** (np.floor(np.log2(scale)) - 7)), float((g != w).mean())
+
+
+def _check(name, got, want):
+    """Every output of the same dtype and shape as JAX's; bf16 ones within
+    one ulp of their max with at most 1% differing, float32 ones within
+    1/16 ulp of their max."""
+    assert len(got) == len(want), name
+    for k, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            assert g is None, (name, k)
+            continue
+        assert str(g.dtype).split(".")[1] == str(w.dtype) and g.shape == w.shape, (name, k)
+        ulps, differ = _ulps_of_max(g, w)
+        print(f"{name} output {k} ({w.dtype}): {ulps:.2e} ulp of max, {differ:.2%} differ")
+        if w.dtype == jnp.bfloat16:
+            assert ulps <= 1.0 and differ <= 0.01, (name, k, ulps, differ)
+        else:
+            assert ulps <= 1 / 16, (name, k, ulps)
+
+
+def _layer_case(group, n, c_in, c_out=16, seed=0):
+    """bf16 x and biases (per sample, or per ``group`` points), float32
+    weights and folded BN: (port tensors, JAX arrays), then the rng."""
+    rng = np.random.default_rng(seed + group + n)
+    x = rng.standard_normal((2, 3, c_in, n)).astype(np.float32)
+    x[:, :, :, :7] = 0.0  # exact zero vectors: the |p| guard (the bias moves p off 0)
+    bound = 1 / np.sqrt(c_in)
+    w, wd = (rng.uniform(-bound, bound, (c_out, c_in)).astype(np.float32) for _ in range(2))
+    cols = n // group if group else 1
+    pb, db = (rng.standard_normal((2, 3, c_out, cols)).astype(np.float32) for _ in range(2))
+    a = rng.uniform(0.5, 1.5, c_out).astype(np.float32)
+    b = rng.normal(0.0, 0.3, c_out).astype(np.float32)
+    w_out = rng.uniform(-0.3, 0.3, c_out).astype(np.float32)
+    (tx, jx), (tpb, jpb), (tdb, jdb) = _bf16(x), _bf16(pb), _bf16(db)
+    f32 = (w, wd, a, b, w_out)
+    port = (tx, *[torch.from_numpy(t) for t in f32[:2]], tpb, tdb,
+            *[torch.from_numpy(t) for t in f32[2:]])
+    return port, (jx, *map(jnp.asarray, f32[:2]), jpb, jdb, *map(jnp.asarray, f32[2:])), rng
+
+
+# (group, N): the decoder's per-sample bias and the attention decoder's pair
+# folds at the widths tests/test_torch_port_pointr.py runs them
+_BWD_GROUPS = [(0, 1024)] + [(s, n) for s, n in _GROUPS if s in (16, 64)]
+
+
+# ------------------------------------- plain bf16 backwards vs Pallas
+
+
+def test_kernel_a_bwd_bf16_plain_matches_pallas():
+    from vn_pointcloudcompletion_tpu.ops import vn_fused as jax_fused
+
+    rng = np.random.default_rng(41)
+    p, d, g = (rng.standard_normal((2, 3, 128, 1024)).astype(np.float32) for _ in range(3))
+    p[:, :, :32, :7] = 0.0  # exact zero vectors: the |p| + EPS guard
+    a = rng.uniform(0.5, 1.5, 128).astype(np.float32)
+    b = rng.normal(0.0, 0.3, 128).astype(np.float32)
+    (tp, jp), (td, jd), (tg, jg) = _bf16(p), _bf16(d), _bf16(g)
+    _, vjp = jax.vjp(lambda *t: jax_fused.fused_bn_leaky(*t, NS, True), jp, jd,
+                     jnp.asarray(a), jnp.asarray(b))
+    got = port_fused.reference_bn_leaky_bwd(tp, td, torch.from_numpy(a), torch.from_numpy(b),
+                                            tg, NS)
+    _check("A'", got, vjp(jg))
+
+
+@pytest.mark.parametrize("group,n", _BWD_GROUPS)
+def test_kernel_s_bf16_plain_matches_pallas(group, n):
+    """S and S' (per-sample bias at group 0, the pair folds' C_in 1 at 16
+    and 64): s1, s2 float32; dx, dpbias bf16; dw float32."""
+    from vn_pointcloudcompletion_tpu.ops import vn_layer_fused as jax_layer
+
+    (tx, tw, _, tpb, *_), (jx, jw, _, jpb, *_), rng = _layer_case(group, n, 1 if group else 8)
+    c1, c2 = (rng.standard_normal(16).astype(np.float32) for _ in range(2))
+    want, vjp = jax.vjp(lambda *t: jax_layer.vn_layer_stats(*t, True, True, group), jx, jw, jpb)
+    _check(f"S group {group}", port_layer.reference_stats(tx, tw, tpb, group), want)
+    got = port_layer.reference_stats_bwd(tx, tw, tpb, *map(torch.from_numpy, (c1, c2)), group)
+    _check(f"S' group {group}", got, vjp((jnp.asarray(c1), jnp.asarray(c2))))
+
+
+def _b_bwd(group, n, c_in):
+    """The plain bf16 B' and JAX's for one case: (got, want)."""
+    from vn_pointcloudcompletion_tpu.ops import vn_layer_fused as jax_layer
+
+    (tx, tw, twd, tpb, tdb, ta, tb, _), (jx, jw, jwd, jpb, jdb, ja, jb, _), rng = _layer_case(
+        group, n, c_in)
+    tg, jg = _bf16(rng.standard_normal((2, 3, 16, n)))
+    _, vjp = jax.vjp(lambda *t: jax_layer.vn_layer_fused(*t, NS, True, True, group),
+                     jx, jw, jwd, jpb, jdb, ja, jb)
+    return (tx, tw, twd, tpb, tdb, ta, tb, tg), vjp(jg)
+
+
+@pytest.mark.parametrize("group,n", _BWD_GROUPS)
+def test_kernel_b_bwd_bf16_plain_matches_pallas(group, n):
+    """B': dx and the bias gradients bf16, dw, dwd, dA, dB float32; the
+    bias gradients and dA, dB sum the float32 dp and dd."""
+    args, want = _b_bwd(group, n, 1 if group else 8)
+    _check(f"B' group {group}", port_layer.reference_layer_bwd(*args, NS, group), want)
+
+
+def test_bf16_bias_check_catches_rounded_bias_sums():
+    """A B' whose bias gradients sum the bf16-rounded dp and dd (the
+    scratch the kernel stores) instead of the float32 ones fails the check
+    at group 64, where a bias column covers 64 points."""
+    args, want = _b_bwd(64, 1088, 1)
+    got = list(port_layer.reference_layer_bwd(*args, NS, 64))
+    x, w, wd, pb, db, a, b, g = args
+    p, d = port_layer._planes(w, x, pb, 64), port_layer._planes(wd, x, db, 64)
+    dp, dd, _, _ = port_fused.reference_bn_leaky_bwd(p, d, a, b, g, NS)
+    got[3], got[4] = (port_layer.bias_grad(t.to(BF16).float(), 64).to(BF16) for t in (dp, dd))
+    with pytest.raises(AssertionError):
+        _check("B' mutant", got, want)
+
+
+def test_kernel_c_bwd_bf16_plain_matches_pallas():
+    """C' at group 0 (its group=S mode is on no model's path): the
+    cotangent w_out * g formed in float32 from the bf16 g, dw_out from the
+    unrounded epilogue."""
+    from vn_pointcloudcompletion_tpu.ops import vn_layer_fused as jax_layer
+
+    (tx, tw, twd, tpb, tdb, ta, tb, two), jargs, rng = _layer_case(0, 1024, 16)
+    tg, jg = _bf16(rng.standard_normal((2, 3, 1, 1024)))
+    _, vjp = jax.vjp(lambda *t: jax_layer.vn_layer_fused_project(*t, NS, True, True), *jargs)
+    got = port_layer.reference_layer_project_bwd(tx, tw, twd, tpb, tdb, ta, tb, two, tg, NS)
+    _check("C'", got, vjp(jg))
+
+
+def test_kernel_k3_bwd_bf16_matches_jax():
+    """K3's backward on bf16 features: du (up to k cotangents a column) and
+    dv summed in float32 and cast to bf16 once, as ``_ekg_bwd`` does: equal
+    to JAX's.  Summed in bf16 instead, du would differ."""
+    from vn_pointcloudcompletion_tpu.ops import knn_pallas as jax_knn
+    from tests.test_torch_port_dgcnn import _assert_knn_gap
+
+    rng = np.random.default_rng(43)
+    x = (rng.standard_normal((2, 3, 256)) * 0.3).astype(np.float32)
+    tx, jx = _bf16(x)
+    _assert_knn_gap(tx.float().numpy().transpose(0, 2, 1), 16, 1e-5)
+    (tu, ju), (tv, jv) = _bf16(rng.standard_normal((2, 48, 256))), _bf16(
+        rng.standard_normal((2, 48, 256)))
+    tct, jct = _bf16(rng.standard_normal((2, 48, 16, 256)))
+    _, vjp = jax.vjp(lambda u, v: jax_knn.edge_knn_gather(jx, u, v, 16, True), ju, jv)
+    tu.requires_grad_(), tv.requires_grad_()
+    port_knn.edge_knn_gather(tx, tu, tv, 16).backward(tct)
+    for name, got, want in zip(("du", "dv"), (tu.grad, tv.grad), vjp(jct)):
+        assert got.dtype == BF16 and want.dtype == jnp.bfloat16, name
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32), name)
+    _, idx = port_knn.reference_edge_knn_gather(tx, tu.detach(), tv.detach(), 16)
+    in_bf16 = port_knn.scatter_rows(tct.permute(0, 2, 3, 1).reshape(2, 16 * 256, 48),
+                                    idx.transpose(1, 2).reshape(2, 16 * 256), 256)
+    assert not torch.equal(in_bf16.transpose(1, 2), tu.grad)
+
+
+# ------------------------------------------- the policy reaches the kernels
+
+_ROUTED = {"stats_fwd": port_layer, "stats_bwd": port_layer, "layer_bwd": port_layer,
+           "layer_project_bwd": port_layer, "bn_leaky_bwd": port_fused}
+# each pipeline's step reaches all five (num_coarse 256 or 448: the
+# decoders' fold layers take the whole-layer kernels at >= 4096 points)
+_PIPELINE_KERNELS = {
+    "flagship": ("vn_pointnet", "vn_foldingnet", 256),
+    "vn_dgcnn": ("vn_dgcnn_fps", "vn_foldingnet", 256),
+    "vn_pointr": ("vn_pointr", "attention_vn_foldingnet", 448),
+}
+
+
+@pytest.mark.parametrize("name", list(_PIPELINE_KERNELS))
+def test_bf16_policy_gives_every_training_kernel_bf16(name, monkeypatch):
+    """One train-mode forward and backward of a pipeline under the bf16
+    policy: every call of S, S', B', C' and A' gets bf16 activations (the
+    kernels take their mode from x's dtype, JAX's from the policy), and
+    under the float32 policy every call gets float32."""
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+
+    enc, dec, nc = _PIPELINE_KERNELS[name]
+    seen = []
+    for fn, mod in _ROUTED.items():
+        def wrapped(x, *a, _orig=getattr(mod, fn), _fn=fn, **k):
+            seen.append((_fn, x.dtype))
+            return _orig(x, *a, **k)
+        monkeypatch.setattr(mod, fn, wrapped)
+    model = build_model(Config.from_dict({"enc_type": enc, "dec_type": dec,
+                                          "num_coarse": nc, "seed": 3})).train()
+    xyz = torch.from_numpy((np.random.default_rng(5).standard_normal((1, 600, 3)) * 0.3)
+                           .astype(np.float32))
+    for dtype in (BF16, torch.float32):
+        seen.clear()
+        with precision.compute_dtype_scope(dtype):
+            coarse, fine = model(xyz)
+            (coarse.float().square().sum() + fine.float().square().sum()).backward()
+        assert {fn for fn, _ in seen} == set(_ROUTED), {fn for fn, _ in seen}
+        assert all(dt == dtype for _, dt in seen), seen
+
+
+# ------------------------------------------------ gradients against JAX
+
+
+def _rms(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def _within_jax_spread(tag, got16, jax16, jax32):
+    """Each tensor's RMS distance from JAX's float32 gradient within twice
+    JAX's bf16 gradient's."""
+    keys = [k for k in jax32 if jax32[k].abs().max() > 0]
+    assert set(keys) <= set(got16), set(keys) - set(got16)
+    ratio = {k: _rms(got16[k], jax32[k]) / _rms(jax16[k], jax32[k]) for k in keys}
+    spread = sorted(_rms(jax16[k], jax32[k]) for k in keys)
+    worst = max(ratio, key=ratio.get)
+    print(f"{tag}: {len(keys)} gradients, JAX's bf16 spread {spread[0]:.3g}..{spread[-1]:.3g}"
+          f" (RMS of its float32 gradient); port/JAX distance ratio up to "
+          f"{ratio[worst]:.3f} ({worst})")
+    assert all(torch.isfinite(got16[k]).all() for k in keys)
+    assert ratio[worst] <= 2.0, (worst, ratio[worst])
+
+
+_DECODERS = {  # (class name in both packages, num_coarse, interop mapping)
+    "VNFoldingNet": ("VNFoldingNet", 256, interop._vn_foldingnet),
+    "AttentionVNFoldingNet": ("AttentionVNFoldingNet", 448, interop._attention_vn_foldingnet),
+}
+
+
+@pytest.mark.parametrize("name", list(_DECODERS))
+def test_decoder_bf16_gradients_within_jax_spread(name):
+    """A decoder alone in train mode, batch 1, the same weights and inputs
+    (a 64-wide global feature), for a fixed cotangent of the dense cloud:
+    the gradients of every parameter and of both inputs.  The flagship's at
+    num_coarse 256 (4096 points: kernels B, C, S and their backwards), the
+    attention decoder's at 448 (14336 points, the pair folds in group=S
+    mode); JAX takes its unfused layers on the CPU."""
+    from vn_pointcloudcompletion_tpu.models import pcn as jax_pcn
+    from vn_pointcloudcompletion_tpu_torch.models import pcn as port_pcn
+
+    cls, nc, mapper = _DECODERS[name]
+    rng = np.random.default_rng(nc)
+    n = 224 if nc == 448 else nc
+    coarse = (rng.standard_normal((1, n, 3)) * 0.3).astype(np.float32)
+    fg = (rng.standard_normal((1, 64, 3, 1)) * 0.3).astype(np.float32)
+    cot = (rng.standard_normal((1, n * (64 if nc == 448 else 16), 3)) * 1e-3).astype(np.float32)
+    jm = getattr(jax_pcn, cls)(nc, 64)
+    v = jax.tree.map(np.array, jax.jit(jm.init)(jax.random.key(0), jnp.asarray(coarse),
+                                                jnp.asarray(fg)))
+    sd = {}
+    mapper(sd, v["params"], v["batch_stats"])
+    dec = getattr(port_pcn, cls)(nc, 64)
+    dec.load_state_dict({k[len("decoder."):]: torch.from_numpy(np.array(t))
+                         for k, t in sd.items()}, strict=True)
+    zero = jax.tree.map(np.zeros_like, v["batch_stats"])
+
+    def jax_grads(dtype):
+        def loss(params, c, f):
+            fine, _ = jm.apply({"params": params, "batch_stats": v["batch_stats"]}, c, f,
+                               train=True, mutable=["batch_stats"])
+            return jnp.sum(fine.astype(jnp.float32) * jnp.asarray(cot))
+
+        with jax_precision.compute_dtype_scope(dtype):
+            g = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(v["params"], jnp.asarray(coarse),
+                                                           jnp.asarray(fg))
+        out = {}
+        mapper(out, jax.tree.map(np.array, g[0]), zero)
+        out = {k: torch.from_numpy(np.array(t)) for k, t in out.items() if "running" not in k}
+        out.update(coarse=torch.from_numpy(np.array(g[1])), fg=torch.from_numpy(np.array(g[2])))
+        return out
+
+    c, f = (torch.from_numpy(t).requires_grad_() for t in (coarse, fg))
+    with precision.compute_dtype_scope(BF16):
+        fine = dec.train()(c, f)
+    assert fine.dtype == torch.float32
+    (fine * torch.from_numpy(cot)).sum().backward()
+    got = {f"decoder.{k}": p.grad for k, p in dec.named_parameters()}
+    got.update(coarse=c.grad, fg=f.grad)
+    _within_jax_spread(name, got, jax_grads(jnp.bfloat16), jax_grads(jnp.float32))
+
+
+@pytest.mark.parametrize("name", ["flagship", "vn_dgcnn", "vn_pointr"])
+def test_train_step_bf16_gradients_within_jax_spread(name):
+    """The loss of the train step (coarse and dense chamfer L1) in train
+    mode, no rotation, under the bf16 policy on both sides, with JAX's
+    weights (``tests/test_torch_port_bf16.py``'s pipelines): every
+    parameter's gradient; and the losses finite."""
+    from vn_pointcloudcompletion_tpu.metrics import losses as jax_losses
+
+    jm, v, model, xyz = _carried(name)
+    complete = (np.random.default_rng(7).standard_normal((xyz.shape[0], 1024, 3))
+                * 0.3).astype(np.float32)
+    zero = jax.tree.map(np.zeros_like, v["batch_stats"])
+
+    def jax_grads(dtype):
+        def loss(params):
+            (c, f), _ = jm.apply({"params": params, "batch_stats": v["batch_stats"]},
+                                 jnp.asarray(xyz), None, train=True, mutable=["batch_stats"])
+            cj = jnp.asarray(complete)
+            return jax_losses.cd_loss_l1(c, cj) + jax_losses.cd_loss_l1(f, cj)
+
+        with jax_precision.compute_dtype_scope(dtype):
+            g = jax.jit(jax.grad(loss))(v["params"])
+        return state_dict_from_jax_variables({"params": jax.tree.map(np.array, g),
+                                              "batch_stats": zero})
+
+    m = copy.deepcopy(model).train()
+    with precision.compute_dtype_scope(BF16):
+        losses = port_steps._losses(m, Config.from_dict({}), torch.from_numpy(xyz),
+                                    torch.from_numpy(complete), None)
+    assert all(torch.isfinite(t) for t in losses)
+    losses[2].backward()
+    got = {k: p.grad for k, p in m.named_parameters() if p.grad is not None}
+    _within_jax_spread(name, got, jax_grads(jnp.bfloat16), jax_grads(jnp.float32))
+
+
+# ------------------------------------------------ the trainer and the guard
+
+
+def _tiny_config(tmp_path, monkeypatch, **extra):
+    cfg = {"name": "b", "enc_type": "vn_pointnet", "dec_type": "vn_foldingnet",
+           "num_coarse": 64, "latent_dim": 2048, "batch_size": 2, "lr": 1e-4,
+           "dataset": "synthetic", "num_workers": 1, "synthetic_n_partial": 256,
+           "synthetic_n_complete": 1024, "seed": 0, "log_frequency": 1,
+           "dtype": "bfloat16", **extra}
+    (tmp_path / "config.json").write_text(json.dumps(cfg))
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("OUTPUT_DIR", str(tmp_path / "out"))
+
+
+def test_trainer_sets_the_config_policy_and_restores_it(tmp_path, monkeypatch):
+    """``train`` on a bf16 config runs every train step and every
+    validation step under the bf16 policy and hands back the caller's
+    policy, on return and on an exception."""
+    from vn_pointcloudcompletion_tpu_torch.training import trainer
+
+    _tiny_config(tmp_path, monkeypatch)
+    seen = {"train": [], "val": []}
+    for key, fn in (("train", "train_step"), ("val", "eval_step")):
+        def wrapped(*a, _orig=getattr(trainer, fn), _key=key, **k):
+            seen[_key].append(precision.compute_dtype())
+            return _orig(*a, **k)
+        monkeypatch.setattr(trainer, fn, wrapped)
+    cli.main(["-epochs", "1", "--device", "cpu", "overfit"])
+    assert seen["train"] == [BF16] * 2 and seen["val"] == [BF16] * 2
+    assert precision.compute_dtype() == torch.float32
+
+    def fail(*a, **k):
+        assert precision.compute_dtype() == BF16
+        raise RuntimeError("a step failed")
+
+    monkeypatch.setattr(trainer, "train_step", fail)
+    with precision.compute_dtype_scope(torch.float32), pytest.raises(RuntimeError):
+        cli.main(["-epochs", "0", "--device", "cpu", "overfit"])
+    assert precision.compute_dtype() == torch.float32
+
+
+def test_skipped_bf16_step_changes_nothing(monkeypatch):
+    """Under the bf16 policy a step whose gradient holds an inf (injected
+    into kernel A''s dp, on the flagship encoder's path) is skipped: the
+    parameters, the BatchNorm running statistics, Adam's moments and its
+    count stay as they were; a clean step after it is taken."""
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
+
+    cfg = Config.from_dict({"num_coarse": 64, "lr": 1e-3, "seed": 5, "dtype": "bfloat16"})
+    state = create_train_state(build_model(cfg), cfg, 4)
+    rng = np.random.default_rng(1)
+    partial = torch.from_numpy((rng.standard_normal((2, 512, 3)) * 0.3).astype(np.float32))
+    complete = torch.from_numpy((rng.standard_normal((2, 1024, 3)) * 0.3).astype(np.float32))
+    gen = torch.Generator().manual_seed(0)
+    with precision.compute_dtype_scope(BF16):
+        assert float(port_steps.train_step(state, partial, complete, gen)["skipped"]) == 0.0
+        before = {k: t.clone() for k, t in state.model.state_dict().items()}
+        opt_before = copy.deepcopy(state.optimizer.state_dict()["state"])
+        calls = []
+
+        def inf_bwd(p, *a):
+            dp, dd, da, db = orig(p, *a)
+            assert p.dtype == BF16
+            calls.append(1)
+            return dp.index_put((torch.tensor(0),) * 4, torch.tensor(float("inf"), dtype=BF16)), \
+                dd, da, db
+
+        orig = port_fused.bn_leaky_bwd
+        monkeypatch.setattr(port_fused, "bn_leaky_bwd", inf_bwd)
+        m = port_steps.train_step(state, partial, complete, gen)
+        assert calls and float(m["skipped"]) == 1.0 and state.step == 1
+        for k, t in state.model.state_dict().items():
+            assert torch.equal(t, before[k]), k
+        for i, s in state.optimizer.state_dict()["state"].items():
+            for k, t in s.items():
+                assert torch.equal(torch.as_tensor(t), torch.as_tensor(opt_before[i][k])), (i, k)
+        monkeypatch.setattr(port_fused, "bn_leaky_bwd", orig)
+        assert float(port_steps.train_step(state, partial, complete, gen)["skipped"]) == 0.0
+    assert state.step == 2 and all(p.dtype == torch.float32 for p in state.model.parameters())

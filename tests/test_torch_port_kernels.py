@@ -194,6 +194,7 @@ def test_kernel_entry_points_exist_in_their_sources():
         "vn_bn_leaky_fwd": "vn_fused.cu",
         "vn_bn_leaky_fwd_bf16": "vn_fused.cu",
         "vn_bn_leaky_bwd": "vn_fused.cu",
+        "vn_bn_leaky_bwd_bf16": "vn_fused.cu",
         "vn_layer_fused_fwd": "vn_layer_fused.cu",
         "vn_layer_fused_project_fwd": "vn_layer_fused.cu",
         "vn_layer_fused_fwd_bf16": "vn_layer_fused.cu",
@@ -202,6 +203,10 @@ def test_kernel_entry_points_exist_in_their_sources():
         "vn_layer_stats_bwd": "vn_layer_bwd.cu",
         "vn_layer_fused_bwd": "vn_layer_bwd.cu",
         "vn_layer_fused_project_bwd": "vn_layer_bwd.cu",
+        "vn_layer_stats_fwd_bf16": "vn_layer_bwd.cu",
+        "vn_layer_stats_bwd_bf16": "vn_layer_bwd.cu",
+        "vn_layer_fused_bwd_bf16": "vn_layer_bwd.cu",
+        "vn_layer_fused_project_bwd_bf16": "vn_layer_bwd.cu",
         "chamfer_nn_one_sided": "chamfer_bidir.cu",
         "topk_min": "knn.cu",
         "knn_min": "knn.cu",
@@ -1028,10 +1033,10 @@ def test_kernel_k3_bf16_cuda_matches_plain(cuda, n, dim, c3, k, x_bf16):
 
 @pytest.mark.gpu
 def test_bf16_reaches_no_float32_kernel(cuda):
-    """A bf16 CUDA tensor given to a wrapper with no bf16 mode raises (S,
-    the backwards A', B', C', S', and D, K1, E, which take float32), and
-    one with a bf16 mode never falls back to the float32 kernel: mixed
-    types raise too."""
+    """A bf16 CUDA tensor given to a wrapper with no bf16 mode raises (D,
+    K1, E, which take float32), and one with a bf16 mode never falls back
+    to the float32 kernel: mixed types raise (bf16 activations with a
+    float32 bias or cotangent, in the forwards and the backwards alike)."""
     rng = np.random.default_rng(3)
     x, w, wd, pb, db, a, b, w_out = _layer_inputs(rng, 2, 2, 16, 1024, True)
     xt, pbt, dbt = _bf16_t(x, pb, db, device=cuda)
@@ -1041,11 +1046,11 @@ def test_bf16_reaches_no_float32_kernel(cuda):
     pts = xt[:, :, 0].transpose(1, 2).contiguous()  # (2, 1024, 3) bf16
     before = cuda_lib.launch_counts()
     for call in (
-        lambda: port_layer.stats_fwd(xt, wt, pbt),
+        lambda: port_layer.stats_fwd(xt, wt, pbt.float()),
         lambda: port_layer.layer_bwd(xt, wt, wdt, pbt, dbt, at, bt, g, NS),
         lambda: port_layer.layer_project_bwd(xt, wt, wdt, pbt, dbt, at, bt, wot, g[:, :, :1], NS),
-        lambda: port_layer.stats_bwd(xt, wt, pbt, at, bt),
-        lambda: port_fused.bn_leaky_bwd(planes, planes, at, bt, planes, NS),
+        lambda: port_layer.stats_bwd(xt, wt, pbt, at.to(torch.bfloat16), bt),
+        lambda: port_fused.bn_leaky_bwd(planes, planes, at, bt, planes.float(), NS),
         lambda: port_chamfer.nn_bidirectional(pts, pts),
         lambda: knn_pallas.topk_min_fwd(xt[:, 0], 4),
         lambda: emd_pallas.emd_rounds_kernel(pts, pts),
@@ -1056,3 +1061,118 @@ def test_bf16_reaches_no_float32_kernel(cuda):
         with pytest.raises(TypeError, match="takes"):
             call()
     assert cuda_lib.launch_counts() == before
+
+
+# ------------------------------------------- bf16 backward modes, card
+#
+# The bf16 modes of A', S, S', B' and C' against their plain bf16 versions:
+# the bf16 outputs (dp, dd of A'; dx; the bias gradients) within one bf16
+# ulp of the output's largest magnitude (float32 sums taken in another
+# order, then one rounding), A''s dp and dd equal to the bit (elementwise,
+# in the plain version's order); the float32 outputs (dW, dA, dB, dw_out,
+# the sums of S) within 1e-4 of their max, as the float32 modes; every
+# kernel twice, for equal bits.
+
+
+def _assert_bf16_bwd(got, want, rel=1e-4):
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max().item()
+        scale = max(w.float().abs().max().item(), 2.0 ** -126)
+        if w.dtype == torch.bfloat16:
+            assert err <= 2.0 ** (np.floor(np.log2(scale)) - 7), (err, scale)
+        else:
+            assert err <= rel * scale, (err, scale)
+
+
+def _bf16_layer_case(cuda, c_in, c_out, n, group, seed):
+    """(x, w, wd, pbias, dbias, a, b, w_out) on the card: bf16 x and biases
+    (per sample, or per ``group`` points), float32 parameters."""
+    rng = np.random.default_rng(seed)
+    x, w, wd, pb, db, a, b, w_out = _layer_inputs(rng, 2, c_in, c_out, n, True)
+    if group:
+        pb = rng.standard_normal((2, 3, c_out, n // group)).astype(np.float32)
+        db = rng.standard_normal((2, 3, c_out, n // group)).astype(np.float32)
+    xt, pbt, dbt = _bf16_t(x, pb, db, device=cuda)
+    return (xt, *_t(w, wd, device=cuda), pbt, dbt, *_t(a, b, w_out, device=cuda)), rng
+
+
+def _counts_of(name, run):
+    """``run()``'s result and the launches it made under ``name``."""
+    before = cuda_lib.launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    after = cuda_lib.launch_counts()
+    assert all(after[k] == before[k] for k in after if k != name), "another kernel launched"
+    return out, after[name] - before[name]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,n", [(128, 2048), (1024, 2048), (16, 1000)])
+def test_kernel_a_bwd_bf16_cuda_matches_plain(cuda, c, n):
+    rng = np.random.default_rng(c + 3)
+    p, d, a, b = _bn_inputs(rng, 2, c, n)
+    g = rng.standard_normal(p.shape).astype(np.float32)
+    (pt, dt, gt), (at, bt) = _bf16_t(p, d, g, device=cuda), _t(a, b, device=cuda)
+    got, launched = _counts_of("vn_bn_leaky_bwd[bf16]",
+                               lambda: port_fused.bn_leaky_bwd(pt, dt, at, bt, gt, NS))
+    assert launched == 1
+    want = port_fused.reference_bn_leaky_bwd(pt, dt, at, bt, gt, NS)
+    for k in (0, 1):
+        assert got[k].dtype == torch.bfloat16 and torch.equal(got[k], want[k])
+    _assert_rel(got[2:], want[2:], 1e-5)
+    _assert_same_bits(got, port_fused.bn_leaky_bwd(pt, dt, at, bt, gt, NS))
+
+
+# (C_in, C_out, N, group): the decoder's first fold layer, a 16-channel
+# layer on a ragged tile, the pair folds (group 64, and 16 on a ragged
+# tile), the fold's 256-channel layer
+_BF16_BWD_SHAPES = [(2, 256, 4096, 0), (16, 16, 1000, 0), (1, 256, 4096, 64),
+                    (1, 32, 1040, 16), (256, 256, 4100, 0)]
+
+
+def _grouped(symbol, group):
+    return f"{symbol}[group,bf16]" if group else f"{symbol}[bf16]"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out,n,group", _BF16_BWD_SHAPES)
+def test_kernel_s_bf16_cuda_matches_plain(cuda, c_in, c_out, n, group):
+    (x, w, _, pb, _, *_), _ = _bf16_layer_case(cuda, c_in, c_out, n, group, n + 11)
+    c1, c2 = (torch.randn(c_out, generator=torch.Generator().manual_seed(k)).to(cuda)
+              for k in (1, 2))
+    got, launched = _counts_of(_grouped("vn_layer_stats_fwd", group),
+                               lambda: port_layer.stats_fwd(x, w, pb, group))
+    assert launched == 1
+    _assert_bf16_bwd(got, port_layer.reference_stats(x, w, pb, group), 1e-5)
+    dgot, launched = _counts_of(_grouped("vn_layer_stats_bwd", group),
+                                lambda: port_layer.stats_bwd(x, w, pb, c1, c2, group))
+    assert launched == 1 and dgot[0].dtype == torch.bfloat16
+    _assert_bf16_bwd(dgot, port_layer.reference_stats_bwd(x, w, pb, c1, c2, group))
+    _assert_same_bits(got, port_layer.stats_fwd(x, w, pb, group))
+    _assert_same_bits(dgot, port_layer.stats_bwd(x, w, pb, c1, c2, group))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out,n,group,project", [
+    *[(*shape, False) for shape in _BF16_BWD_SHAPES],
+    *[(*shape, True) for shape in _BF16_BWD_SHAPES if not shape[3]],  # C': group 0 only
+])
+def test_kernel_b_c_bwd_bf16_cuda_matches_plain(cuda, c_in, c_out, n, group, project):
+    (x, w, wd, pb, db, a, b, w_out), rng = _bf16_layer_case(
+        cuda, c_in, c_out, n, group, c_in + c_out + n)
+    g = torch.from_numpy(rng.standard_normal((2, 3, 1 if project else c_out, n)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    if project:
+        symbol, fn = "vn_layer_fused_project_bwd", port_layer.layer_project_bwd
+        plain, args = port_layer.reference_layer_project_bwd, (x, w, wd, pb, db, a, b, w_out, g)
+    else:
+        symbol, fn = "vn_layer_fused_bwd", port_layer.layer_bwd
+        plain, args = port_layer.reference_layer_bwd, (x, w, wd, pb, db, a, b, g)
+    got, launched = _counts_of(_grouped(symbol, group), lambda: fn(*args, NS, group))
+    assert launched == 1 and got[0].dtype == got[3].dtype == torch.bfloat16
+    _assert_bf16_bwd(got, plain(*args, NS, group))
+    _assert_same_bits(got, fn(*args, NS, group))

@@ -523,7 +523,7 @@ def test_trained_checkpoint_loads_into_jax_encoder(workdir):
 
 
 @pytest.mark.parametrize("cfg,match", [
-    ({"dtype": "bfloat16"}, "item 7"), ({"remat": True}, "item 7"),
+    ({"dtype": "bfloat16", "remat": True}, "item 7"), ({"remat": True}, "item 7"),
     ({"enc_pretrained": "enc.pth"}, "item 7"),
 ])
 def test_unported_training_options_raise(workdir, cfg, match):

@@ -59,15 +59,23 @@ bn_leaky_fwd(const T* __restrict__ p, const T* __restrict__ d,
 // wrapper allocates, and vnk_reduce_rows sums those in a fixed order.  No
 // float atomics, so the result is the same on every run.
 //
-// Bound on the H100: bytes, 5 * B*3*C*N*4 (p, d, g read, dp, dd written);
-// some 70 operations per vector are far below the FP32 rate for that.
+// The bf16 mode (vn_bn_leaky_bwd_bf16: p, d, g, dp and dd bfloat16; a, b
+// and the partials float32) is the TPU kernel's on bf16 planes (:98-146,
+// out_shape p.dtype at :223-224): bf16 loads, the float32 arithmetic of the
+// float32 mode, dp and dd rounded to nearest even as they are stored, and
+// the dA, dB partials summed from the float32 values.
+//
+// Bound on the H100: bytes, 5 * B*3*C*N*s (p, d, g read, dp, dd written;
+// s = 4, or 2 in the bf16 mode); some 70 operations per vector are far
+// below the FP32 rate for that.
 constexpr int kBwdPts = 1024;
 
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-bn_leaky_bwd(const float* __restrict__ p, const float* __restrict__ d,
+bn_leaky_bwd(const E* __restrict__ p, const E* __restrict__ d,
              const float* __restrict__ a, const float* __restrict__ b,
-             const float* __restrict__ g, float* __restrict__ dp,
-             float* __restrict__ dd, float* __restrict__ partial, int B,
+             const E* __restrict__ g, E* __restrict__ dp,
+             E* __restrict__ dd, float* __restrict__ partial, int B,
              int C, int N, float one_minus_ns) {
   __shared__ float red[2][kThreads];
   const int t = blockIdx.x, c = blockIdx.y, bi = blockIdx.z;
@@ -80,16 +88,16 @@ bn_leaky_bwd(const float* __restrict__ p, const float* __restrict__ d,
     const int n = t * kBwdPts + k * kThreads + threadIdx.x;
     if (n >= N) break;
     const int64_t i = row + n;
-    const float pv[3] = {p[i], p[i + cn], p[i + 2 * cn]};
-    const float dv[3] = {d[i], d[i + cn], d[i + 2 * cn]};
-    const float gv[3] = {g[i], g[i + cn], g[i + 2 * cn]};
+    const float pv[3] = {vnk_load(p[i]), vnk_load(p[i + cn]), vnk_load(p[i + 2 * cn])};
+    const float dv[3] = {vnk_load(d[i]), vnk_load(d[i + cn]), vnk_load(d[i + 2 * cn])};
+    const float gv[3] = {vnk_load(g[i]), vnk_load(g[i + cn]), vnk_load(g[i + 2 * cn])};
     float dpv[3], ddv[3], dqp, norm_e;
     vnk_bn_leaky_bwd(pv, dv, gv, av, bv, one_minus_ns, dpv, ddv, &dqp,
                      &norm_e, nullptr);
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      dp[i + j * cn] = dpv[j];
-      dd[i + j * cn] = ddv[j];
+      dp[i + j * cn] = vnk_cast<E>(dpv[j]);
+      dd[i + j * cn] = vnk_cast<E>(ddv[j]);
     }
     sa += dqp;
     sb += dqp / norm_e;
@@ -113,26 +121,43 @@ bn_leaky_bwd(const float* __restrict__ p, const float* __restrict__ d,
   }
 }
 
+template <typename E>
+int launch_bwd(const void* p, const void* d, const void* a, const void* b,
+               const void* g, void* dp, void* dd, void* dadb, void* partial,
+               int B, int C, int N, float one_minus_ns, void* stream) {
+  if (static_cast<int64_t>(B) * C * N == 0) return 0;
+  const int T = (N + kBwdPts - 1) / kBwdPts;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bn_leaky_bwd<E><<<dim3(T, C, B), kThreads, 0, st>>>(
+      static_cast<const E*>(p), static_cast<const E*>(d),
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const E*>(g), static_cast<E*>(dp), static_cast<E*>(dd),
+      static_cast<float*>(partial), B, C, N, one_minus_ns);
+  vnk_reduce_rows(static_cast<const float*>(partial), static_cast<float*>(dadb),
+                  2, B * T, C, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dadb: (2, C) -> dA, dB; partial: scratch of 2 * B * ceil(N / 1024) * C floats.
+// dadb: (2, C) -> dA, dB; partial: scratch of 2 * B * ceil(N / 1024) * C
+// floats.  p, d, g, dp and dd float32 here, bfloat16 in the _bf16 entry.
 VNK_EXPORT int vn_bn_leaky_bwd(const void* p, const void* d, const void* a,
                                const void* b, const void* g, void* dp,
                                void* dd, void* dadb, void* partial, int B,
                                int C, int N, float one_minus_ns,
                                void* stream) {
-  if (static_cast<int64_t>(B) * C * N == 0) return 0;
-  const int T = (N + kBwdPts - 1) / kBwdPts;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bn_leaky_bwd<<<dim3(T, C, B), kThreads, 0, st>>>(
-      static_cast<const float*>(p), static_cast<const float*>(d),
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(g), static_cast<float*>(dp),
-      static_cast<float*>(dd), static_cast<float*>(partial), B, C, N,
-      one_minus_ns);
-  vnk_reduce_rows(static_cast<const float*>(partial), static_cast<float*>(dadb),
-                  2, B * T, C, st);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bwd<float>(p, d, a, b, g, dp, dd, dadb, partial, B, C, N,
+                           one_minus_ns, stream);
+}
+
+VNK_EXPORT int vn_bn_leaky_bwd_bf16(const void* p, const void* d,
+                                    const void* a, const void* b,
+                                    const void* g, void* dp, void* dd,
+                                    void* dadb, void* partial, int B, int C,
+                                    int N, float one_minus_ns, void* stream) {
+  return launch_bwd<vnk_bf16>(p, d, a, b, g, dp, dd, dadb, partial, B, C, N,
+                              one_minus_ns, stream);
 }
 
 namespace {

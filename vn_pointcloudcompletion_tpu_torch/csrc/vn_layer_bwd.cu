@@ -55,6 +55,23 @@
 // All products run as FP32 FMAs on the CUDA cores (the float32 policy keeps
 // them off the tensor cores).  Passes 2 and 3 read the dp/dd scratch back
 // once each; the scratch round trip is what a fused later version removes.
+//
+// The bf16 mode (entry points <name>_bf16; T = vnk_bf16: x, the biases, g,
+// dx and the dp/dd scratch bfloat16; W, Wd, A, B, w_out, c1, c2, dW, the
+// per-channel and the bias sums float32) is the TPU kernels' bf16=True
+// (vn_layer_fused.py:61-65, :86-123, :204-209, :440-457, :733-750):
+//   pass 1 recomputes p and d as the forward's bf16 mode does (vn_tile.cuh:
+//      products of bf16-rounded W and x summed in float32, the bias added,
+//      one rounding through bf16), runs the float32 epilogue backward on
+//      them and on the bf16 cotangent (C': w_out * g formed in float32),
+//      writes the per-channel and the bias partials from the float32 dp
+//      and dd, and only then rounds dp and dd to bf16 as it stores them:
+//      the scratch holds JAX's dp16 and dd16 (half the float32 mode's);
+//   pass 2 takes dx = W16^T dp16 (+ Wd16^T dd16), exact products summed in
+//      float32, stored bf16;
+//   pass 3 takes dW = dp16 x16^T (dWd = dd16 x16^T) in float32.
+// The loops are the float32 mode's over bf16 loads: the bf16 bounds (the
+// tensor cores' rate, half the bytes) are for a redesign with mma/wgmma.
 #include "vn_tile.cuh"
 
 namespace {
@@ -63,20 +80,21 @@ enum Mode { kStatsFwd = 0, kStatsBwd = 1, kLayerBwd = 2, kProjBwd = 3 };
 
 constexpr int kP = 16;  // points per shared-memory stage of dw_gemm
 
+template <typename E>  // the activations' type (T below is a tile count)
 struct PdArgs {
-  const float* x;
+  const E* x;
   const float* w;
   const float* wd;
-  const float* pbias;
-  const float* dbias;
+  const E* pbias;
+  const E* dbias;
   const float* a;
   const float* b;
   const float* w_out;
-  const float* g;
+  const E* g;
   const float* c1;
   const float* c2;
-  float* dp;
-  float* dd;
+  E* dp;  // the dp, dd scratch: float32, or bf16 in the bf16 mode
+  E* dd;
   float* partial;  // (nqc, B, T, Cout) per-channel sums, then the bias
                    // sums (nqb, B, R, Cout) with R = T * spt
   int B, Cin, Cout, N, T;
@@ -93,8 +111,9 @@ __host__ __device__ constexpr int channel_sums() {
   return kMode == kStatsFwd ? 2 : kMode == kStatsBwd ? 0 : kMode == kLayerBwd ? 2 : 3;
 }
 
-// Four consecutive points n .. n+3 of one row, 16 bytes at once where they
-// are aligned and all inside the row.
+// Four consecutive points n .. n+3 of one row (n a multiple of 4), at once
+// where they are all inside a row of N % 4 == 0 points (16 bytes of float32,
+// 8 of bf16, rounded to nearest even).
 __device__ __forceinline__ void store4(float* row, int n, int N, bool vec,
                                        const float (&v)[4]) {
   if (vec) {
@@ -106,10 +125,22 @@ __device__ __forceinline__ void store4(float* row, int n, int N, bool vec,
   }
 }
 
+__device__ __forceinline__ void store4(vnk_bf16* row, int n, int N, bool vec,
+                                       const float (&v)[4]) {
+  if (vec) {
+    reinterpret_cast<__nv_bfloat162*>(row + n)[0] = __floats2bfloat162_rn(v[0], v[1]);
+    reinterpret_cast<__nv_bfloat162*>(row + n)[1] = __floats2bfloat162_rn(v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (n + q < N) row[n + q] = __float2bfloat16_rn(v[q]);
+  }
+}
+
 // kSplit: bias columns narrower than a tile (0 < group < 64), a tile's
 // bias partials split per group; otherwise one running sum a thread.
-template <int kMode, bool kSplit>
-__global__ void __launch_bounds__(kThreads, 1) pd_pass(PdArgs args) {
+template <int kMode, bool kSplit, typename T>
+__global__ void __launch_bounds__(kThreads, 1) pd_pass(PdArgs<T> args) {
   constexpr bool kWithD = kMode == kLayerBwd || kMode == kProjBwd;
   constexpr int kNqc = channel_sums<kMode>();
   constexpr bool kWrites = kMode != kStatsFwd;
@@ -122,7 +153,7 @@ __global__ void __launch_bounds__(kThreads, 1) pd_pass(PdArgs args) {
   const int n0 = t * kPts;
   const int c0 = blockIdx.y * kCh;
   const int Cout = args.Cout, N = args.N;
-  const float* xb = args.x + static_cast<size_t>(bi) * 3 * args.Cin * N;
+  const T* xb = args.x + static_cast<size_t>(bi) * 3 * args.Cin * N;
   const bool has_bias = args.pbias != nullptr;
   const bool vec_store = (N % 4 == 0) && (n0 + tx * 4 + 3 < N);
 
@@ -161,8 +192,10 @@ __global__ void __launch_bounds__(kThreads, 1) pd_pass(PdArgs args) {
           if (kWithD) db[j] = vnk_bias(args.dbias, bi, j, c, Cout, n, N, args.group);
         }
       }
-      const float p[3] = {accp[0][i][q] + pb[0], accp[1][i][q] + pb[1],
-                          accp[2][i][q] + pb[2]};
+      // the bf16 mode rounds p and d through bf16 once
+      const float p[3] = {vnk_round_as<T>(accp[0][i][q] + pb[0]),
+                          vnk_round_as<T>(accp[1][i][q] + pb[1]),
+                          vnk_round_as<T>(accp[2][i][q] + pb[2])};
       if (kMode == kStatsFwd) {
         const float norm_e = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2]) + VNK_EPS;
         if (ok) {
@@ -181,17 +214,18 @@ __global__ void __launch_bounds__(kThreads, 1) pd_pass(PdArgs args) {
           sp[j] += outp[j][q];
         }
       } else {
-        const float d[3] = {accd[0][i][q] + db[0], accd[1][i][q] + db[1],
-                            accd[2][i][q] + db[2]};
+        const float d[3] = {vnk_round_as<T>(accd[0][i][q] + db[0]),
+                            vnk_round_as<T>(accd[1][i][q] + db[1]),
+                            vnk_round_as<T>(accd[2][i][q] + db[2])};
         float gp[3] = {0.f, 0.f, 0.f}, gv[3] = {0.f, 0.f, 0.f};
         if (ok) {
 #pragma unroll
           for (int j = 0; j < 3; ++j) {
             if (kMode == kProjBwd) {
-              gp[j] = args.g[(static_cast<size_t>(bi) * 3 + j) * N + n];
+              gp[j] = vnk_load(args.g[(static_cast<size_t>(bi) * 3 + j) * N + n]);
               gv[j] = wo * gp[j];
             } else {
-              gv[j] = args.g[((static_cast<size_t>(bi) * 3 + j) * Cout + c) * N + n];
+              gv[j] = vnk_load(args.g[((static_cast<size_t>(bi) * 3 + j) * Cout + c) * N + n]);
             }
           }
         }
@@ -213,6 +247,7 @@ __global__ void __launch_bounds__(kThreads, 1) pd_pass(PdArgs args) {
       }
     }
 
+    // the partials below sum the float32 outp/outd; the stores round them
     if (kWrites && cok) {
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
@@ -269,12 +304,14 @@ __global__ void __launch_bounds__(kThreads, 1) pd_pass(PdArgs args) {
 }
 
 // dx[bj, k, n] = sum_c W[c, k] g1[bj, c, n] (+ Wd[c, k] g2[bj, c, n]) for
-// every (sample, plane) bj: a 64-row x 64-point tile per block.
-template <bool kTwo>
+// every (sample, plane) bj: a 64-row x 64-point tile per block.  The bf16
+// mode rounds W and Wd to bf16 as they are staged and reads bf16 g1, g2:
+// each product is exact in float32.
+template <bool kTwo, typename T>
 __global__ void __launch_bounds__(kThreads)
 dx_gemm(const float* __restrict__ w, const float* __restrict__ wd,
-        const float* __restrict__ g1, const float* __restrict__ g2,
-        float* __restrict__ dx, int Cin, int Cout, int N) {
+        const T* __restrict__ g1, const T* __restrict__ g2,
+        T* __restrict__ dx, int Cin, int Cout, int N) {
   __shared__ __align__(16) float ws[kK][kCh];
   __shared__ __align__(16) float wds[kK][kCh];
   __shared__ __align__(16) float gs[kK][kPts];
@@ -284,8 +321,8 @@ dx_gemm(const float* __restrict__ w, const float* __restrict__ wd,
   const int n0 = blockIdx.x * kPts;
   const int k0 = blockIdx.y * kCh;
   const size_t bj = blockIdx.z;
-  const float* g1b = g1 + bj * Cout * N;
-  const float* g2b = kTwo ? g2 + bj * Cout * N : nullptr;
+  const T* g1b = g1 + bj * Cout * N;
+  const T* g2b = kTwo ? g2 + bj * Cout * N : nullptr;
 
   float acc[4][4];
 #pragma unroll
@@ -298,15 +335,15 @@ dx_gemm(const float* __restrict__ w, const float* __restrict__ wd,
       const int cc = e / kCh, r = e % kCh;
       const int gc = c0 + cc, gk = k0 + r;
       const bool ok = gc < Cout && gk < Cin;
-      ws[cc][r] = ok ? w[static_cast<size_t>(gc) * Cin + gk] : 0.f;
-      if (kTwo) wds[cc][r] = ok ? wd[static_cast<size_t>(gc) * Cin + gk] : 0.f;
+      ws[cc][r] = ok ? vnk_round_as<T>(w[static_cast<size_t>(gc) * Cin + gk]) : 0.f;
+      if (kTwo) wds[cc][r] = ok ? vnk_round_as<T>(wd[static_cast<size_t>(gc) * Cin + gk]) : 0.f;
     }
     for (int e = threadIdx.x; e < kK * kPts; e += kThreads) {
       const int cc = e / kPts, nn = e % kPts;
       const int gc = c0 + cc, gn = n0 + nn;
       const bool ok = gc < Cout && gn < N;
-      gs[cc][nn] = ok ? g1b[static_cast<size_t>(gc) * N + gn] : 0.f;
-      if (kTwo) g2s[cc][nn] = ok ? g2b[static_cast<size_t>(gc) * N + gn] : 0.f;
+      gs[cc][nn] = ok ? vnk_load(g1b[static_cast<size_t>(gc) * N + gn]) : 0.f;
+      if (kTwo) g2s[cc][nn] = ok ? vnk_load(g2b[static_cast<size_t>(gc) * N + gn]) : 0.f;
     }
     __syncthreads();
     const int cmax = min(kK, Cout - c0);
@@ -338,26 +375,17 @@ dx_gemm(const float* __restrict__ w, const float* __restrict__ wd,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int k = k0 + ty * 4 + i;
-    if (k >= Cin) continue;
-    float* row = dx + (bj * Cin + k) * N;
-    if (vec_store) {
-      *reinterpret_cast<float4*>(row + n) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    } else {
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (n + q < N) row[n + q] = acc[i][q];
-    }
+    if (k < Cin) store4(dx + (bj * Cin + k) * N, n, N, vec_store, acc[i]);
   }
 }
 
 // Split-K weight gradient: part[s, c, k] = sum over points p in chunk s of
 // g1[p, c] x[p, k] (and part2 with g2), where p runs over (sample, plane,
 // point) of the (B*3, C, N) tensors.  One 64 x 64 (c, k) tile per block.
-template <bool kTwo>
+template <bool kTwo, typename T>
 __global__ void __launch_bounds__(kThreads)
-dw_gemm(const float* __restrict__ g1, const float* __restrict__ g2,
-        const float* __restrict__ x, float* __restrict__ part,
+dw_gemm(const T* __restrict__ g1, const T* __restrict__ g2,
+        const T* __restrict__ x, float* __restrict__ part,
         float* __restrict__ part2, int Cin, int Cout, int N, int P,
         int chunk) {
   __shared__ __align__(16) float gs[kP][kCh];
@@ -387,10 +415,10 @@ dw_gemm(const float* __restrict__ g1, const float* __restrict__ g2,
         const int n = p - bj * N;
         if (c0 + r < Cout) {
           const size_t at = (static_cast<size_t>(bj) * Cout + c0 + r) * N + n;
-          gv = g1[at];
-          if (kTwo) hv = g2[at];
+          gv = vnk_load(g1[at]);
+          if (kTwo) hv = vnk_load(g2[at]);
         }
-        if (k0 + r < Cin) xv = x[(static_cast<size_t>(bj) * Cin + k0 + r) * N + n];
+        if (k0 + r < Cin) xv = vnk_load(x[(static_cast<size_t>(bj) * Cin + k0 + r) * N + n]);
       }
       gs[pp][r] = gv;
       if (kTwo) g2s[pp][r] = hv;
@@ -436,30 +464,29 @@ dw_gemm(const float* __restrict__ g1, const float* __restrict__ g2,
 
 int tiles(int N) { return (N + kPts - 1) / kPts; }
 
-template <int kMode>
-void launch_pd(const PdArgs& args, cudaStream_t st) {
+template <int kMode, typename T>
+void launch_pd(const PdArgs<T>& args, cudaStream_t st) {
   const dim3 grid(args.T, (args.Cout + kCh - 1) / kCh, args.B);
   if (kMode != kStatsFwd && args.sub < kPts) {
-    pd_pass<kMode, true><<<grid, kThreads, 0, st>>>(args);
+    pd_pass<kMode, true, T><<<grid, kThreads, 0, st>>>(args);
   } else {
-    pd_pass<kMode, false><<<grid, kThreads, 0, st>>>(args);
+    pd_pass<kMode, false, T><<<grid, kThreads, 0, st>>>(args);
   }
 }
 
 // Passes 2 and 3 and the reductions shared by S', B' and C'.  dw2 receives
 // (kTwo ? 2 : 1) gradients of (Cout, Cin); dw_part holds as many split-K
 // partials of (S, Cout, Cin).
-template <bool kTwo>
-void products_bwd(const float* x, const float* w, const float* wd,
-                  const float* dp, const float* dd, float* dx, float* dw2,
-                  float* dw_part, int B, int Cin, int Cout, int N, int S,
-                  cudaStream_t st) {
-  dx_gemm<kTwo><<<dim3(tiles(N), (Cin + kCh - 1) / kCh, B * 3), kThreads, 0,
+template <bool kTwo, typename T>
+void products_bwd(const T* x, const float* w, const float* wd, const T* dp,
+                  const T* dd, T* dx, float* dw2, float* dw_part, int B,
+                  int Cin, int Cout, int N, int S, cudaStream_t st) {
+  dx_gemm<kTwo, T><<<dim3(tiles(N), (Cin + kCh - 1) / kCh, B * 3), kThreads, 0,
                   st>>>(w, wd, dp, dd, dx, Cin, Cout, N);
   const int P = B * 3 * N;
   const int chunk = ((P + S - 1) / S + kP - 1) / kP * kP;
   const size_t part_size = static_cast<size_t>(S) * Cout * Cin;
-  dw_gemm<kTwo><<<dim3((Cin + kCh - 1) / kCh, (Cout + kCh - 1) / kCh, S),
+  dw_gemm<kTwo, T><<<dim3((Cin + kCh - 1) / kCh, (Cout + kCh - 1) / kCh, S),
                   kThreads, 0, st>>>(dp, dd, x, dw_part,
                                      kTwo ? dw_part + part_size : nullptr, Cin,
                                      Cout, N, P, chunk);
@@ -467,26 +494,27 @@ void products_bwd(const float* x, const float* w, const float* wd,
                   static_cast<int64_t>(Cout) * Cin, st);
 }
 
-PdArgs make_args(const void* x, const void* w, const void* wd,
-                 const void* pbias, const void* dbias, const void* a,
-                 const void* b, const void* w_out, const void* g,
-                 const void* c1, const void* c2, void* dp, void* dd,
-                 void* partial, int B, int Cin, int Cout, int N, int group,
-                 float one_minus_ns) {
-  PdArgs r;
-  r.x = static_cast<const float*>(x);
+template <typename T>
+PdArgs<T> make_args(const void* x, const void* w, const void* wd,
+                    const void* pbias, const void* dbias, const void* a,
+                    const void* b, const void* w_out, const void* g,
+                    const void* c1, const void* c2, void* dp, void* dd,
+                    void* partial, int B, int Cin, int Cout, int N, int group,
+                    float one_minus_ns) {
+  PdArgs<T> r;
+  r.x = static_cast<const T*>(x);
   r.w = static_cast<const float*>(w);
   r.wd = static_cast<const float*>(wd);
-  r.pbias = static_cast<const float*>(pbias);
-  r.dbias = static_cast<const float*>(dbias);
+  r.pbias = static_cast<const T*>(pbias);
+  r.dbias = static_cast<const T*>(dbias);
   r.a = static_cast<const float*>(a);
   r.b = static_cast<const float*>(b);
   r.w_out = static_cast<const float*>(w_out);
-  r.g = static_cast<const float*>(g);
+  r.g = static_cast<const T*>(g);
   r.c1 = static_cast<const float*>(c1);
   r.c2 = static_cast<const float*>(c2);
-  r.dp = static_cast<float*>(dp);
-  r.dd = static_cast<float*>(dd);
+  r.dp = static_cast<T*>(dp);
+  r.dd = static_cast<T*>(dd);
   r.partial = static_cast<float*>(partial);
   r.B = B;
   r.Cin = Cin;
@@ -505,7 +533,8 @@ PdArgs make_args(const void* x, const void* w, const void* wd,
 // each the sum of the rpg consecutive partials of one bias column: all T
 // tiles for group 0, group / 64 tiles for group >= 64, else 1 (the wrapper
 // keeps the first N / group columns).
-void reduce_bias(const PdArgs& args, int nqc, int nq, float* dbias_out,
+template <typename T>
+void reduce_bias(const PdArgs<T>& args, int nqc, int nq, float* dbias_out,
                  cudaStream_t st) {
   const size_t stride = static_cast<size_t>(args.B) * args.T * args.Cout;
   const int rows = args.T * args.spt;
@@ -514,28 +543,85 @@ void reduce_bias(const PdArgs& args, int nqc, int nq, float* dbias_out,
                   rpg, args.Cout, st);
 }
 
+template <typename T>
+int stats_fwd(const void* x, const void* w, const void* pbias, void* s12,
+              void* partial, int B, int Cin, int Cout, int N, int group,
+              void* stream) {
+  if (B == 0 || N == 0 || Cout == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const PdArgs<T> args = make_args<T>(x, w, nullptr, pbias, nullptr, nullptr, nullptr,
+                                      nullptr, nullptr, nullptr, nullptr, nullptr,
+                                      nullptr, partial, B, Cin, Cout, N, group, 0.f);
+  launch_pd<kStatsFwd>(args, st);
+  vnk_reduce_rows(args.partial, static_cast<float*>(s12), 2, B * args.T, Cout, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int stats_bwd(const void* x, const void* w, const void* pbias, const void* c1,
+              const void* c2, void* dx, void* dw, void* dpb, void* dp,
+              void* partial, void* dw_part, int B, int Cin, int Cout, int N,
+              int S, int group, void* stream) {
+  if (B == 0 || N == 0 || Cout == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const PdArgs<T> args = make_args<T>(x, w, nullptr, pbias, nullptr, nullptr, nullptr,
+                                      nullptr, nullptr, c1, c2, dp, nullptr, partial,
+                                      B, Cin, Cout, N, group, 0.f);
+  launch_pd<kStatsBwd>(args, st);
+  if (pbias != nullptr) reduce_bias(args, 0, 3, static_cast<float*>(dpb), st);
+  products_bwd<false>(args.x, args.w, nullptr, args.dp, static_cast<const T*>(nullptr),
+                      static_cast<T*>(dx), static_cast<float*>(dw),
+                      static_cast<float*>(dw_part), B, Cin, Cout, N, S, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B' (w_out null, kLayerBwd) and C' (kProjBwd): nqc per-channel sums.
+template <int kMode, typename T>
+int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
+              const void* dbias, const void* a, const void* b,
+              const void* w_out, const void* g, void* dx, void* dw2,
+              void* sums, void* dpdb, void* dp, void* dd, void* partial,
+              void* dw_part, int B, int Cin, int Cout, int N, int S,
+              int group, float one_minus_ns, void* stream) {
+  if (B == 0 || N == 0 || Cout == 0) return 0;
+  constexpr int nqc = channel_sums<kMode>();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const PdArgs<T> args = make_args<T>(x, w, wd, pbias, dbias, a, b, w_out, g,
+                                      nullptr, nullptr, dp, dd, partial, B, Cin,
+                                      Cout, N, group, one_minus_ns);
+  launch_pd<kMode>(args, st);
+  vnk_reduce_rows(args.partial, static_cast<float*>(sums), nqc, B * args.T, Cout, st);
+  if (pbias != nullptr) reduce_bias(args, nqc, 6, static_cast<float*>(dpdb), st);
+  products_bwd<true>(args.x, args.w, args.wd, args.dp, args.dd,
+                     static_cast<T*>(dx), static_cast<float*>(dw2),
+                     static_cast<float*>(dw_part), B, Cin, Cout, N, S, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Scratch the wrapper allocates (floats): partial, the per-channel sums
+// Scratch the wrapper allocates: partial (floats), the per-channel sums
 // (nqc, B, T, Cout) then the bias sums (nqb, B, T * spt, Cout), T =
 // ceil(N / 64), spt = 64 / group for 0 < group < 64 and 1 otherwise; dp, dd
-// (B, 3, Cout, N); dw_part (1 or 2, S, Cout, Cin).  The bias gradients
-// (nq, B, G, Cout) have G = 1 for group 0, N / group for group >= 64 and
-// T * 64 / group otherwise.  `group` is 0 or a power of two dividing 512.
+// (B, 3, Cout, N) in the activations' type; dw_part (1 or 2, S, Cout, Cin)
+// floats.  The bias gradients (nq, B, G, Cout), float32, have G = 1 for
+// group 0, N / group for group >= 64 and T * 64 / group otherwise.  `group`
+// is 0 or a power of two dividing 512.  x, the biases, g, dx, dp and dd are
+// float32 in these entry points and bfloat16 in the _bf16 ones.
 
 // S: s12 (2, Cout) = (s1, s2); partial with nq = 2.
 VNK_EXPORT int vn_layer_stats_fwd(const void* x, const void* w,
                                   const void* pbias, void* s12, void* partial,
                                   int B, int Cin, int Cout, int N, int group,
                                   void* stream) {
-  if (B == 0 || N == 0 || Cout == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const PdArgs args = make_args(x, w, nullptr, pbias, nullptr, nullptr, nullptr,
-                                nullptr, nullptr, nullptr, nullptr, nullptr,
-                                nullptr, partial, B, Cin, Cout, N, group, 0.f);
-  launch_pd<kStatsFwd>(args, st);
-  vnk_reduce_rows(args.partial, static_cast<float*>(s12), 2, B * args.T, Cout, st);
-  return static_cast<int>(cudaGetLastError());
+  return stats_fwd<float>(x, w, pbias, s12, partial, B, Cin, Cout, N, group, stream);
+}
+
+VNK_EXPORT int vn_layer_stats_fwd_bf16(const void* x, const void* w,
+                                       const void* pbias, void* s12,
+                                       void* partial, int B, int Cin, int Cout,
+                                       int N, int group, void* stream) {
+  return stats_fwd<vnk_bf16>(x, w, pbias, s12, partial, B, Cin, Cout, N, group, stream);
 }
 
 // S': dx (B, 3, Cin, N), dw (Cout, Cin), dpb (3, B, G, Cout) or null
@@ -546,17 +632,18 @@ VNK_EXPORT int vn_layer_stats_bwd(const void* x, const void* w,
                                   void* dpb, void* dp, void* partial,
                                   void* dw_part, int B, int Cin, int Cout,
                                   int N, int S, int group, void* stream) {
-  if (B == 0 || N == 0 || Cout == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const PdArgs args = make_args(x, w, nullptr, pbias, nullptr, nullptr, nullptr,
-                                nullptr, nullptr, c1, c2, dp, nullptr, partial,
-                                B, Cin, Cout, N, group, 0.f);
-  launch_pd<kStatsBwd>(args, st);
-  if (pbias != nullptr) reduce_bias(args, 0, 3, static_cast<float*>(dpb), st);
-  products_bwd<false>(args.x, args.w, nullptr, args.dp, nullptr,
-                      static_cast<float*>(dx), static_cast<float*>(dw),
-                      static_cast<float*>(dw_part), B, Cin, Cout, N, S, st);
-  return static_cast<int>(cudaGetLastError());
+  return stats_bwd<float>(x, w, pbias, c1, c2, dx, dw, dpb, dp, partial, dw_part,
+                          B, Cin, Cout, N, S, group, stream);
+}
+
+VNK_EXPORT int vn_layer_stats_bwd_bf16(const void* x, const void* w,
+                                       const void* pbias, const void* c1,
+                                       const void* c2, void* dx, void* dw,
+                                       void* dpb, void* dp, void* partial,
+                                       void* dw_part, int B, int Cin, int Cout,
+                                       int N, int S, int group, void* stream) {
+  return stats_bwd<vnk_bf16>(x, w, pbias, c1, c2, dx, dw, dpb, dp, partial,
+                             dw_part, B, Cin, Cout, N, S, group, stream);
 }
 
 // B': dx, dw2 (2, Cout, Cin) = (dW, dWd), dab (2, Cout) = (dA, dB),
@@ -568,18 +655,21 @@ VNK_EXPORT int vn_layer_fused_bwd(
     void* dw2, void* dab, void* dpdb, void* dp, void* dd, void* partial,
     void* dw_part, int B, int Cin, int Cout, int N, int S, int group,
     float one_minus_ns, void* stream) {
-  if (B == 0 || N == 0 || Cout == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const PdArgs args = make_args(x, w, wd, pbias, dbias, a, b, nullptr, g,
-                                nullptr, nullptr, dp, dd, partial, B, Cin,
-                                Cout, N, group, one_minus_ns);
-  launch_pd<kLayerBwd>(args, st);
-  vnk_reduce_rows(args.partial, static_cast<float*>(dab), 2, B * args.T, Cout, st);
-  if (pbias != nullptr) reduce_bias(args, 2, 6, static_cast<float*>(dpdb), st);
-  products_bwd<true>(args.x, args.w, args.wd, args.dp, args.dd,
-                     static_cast<float*>(dx), static_cast<float*>(dw2),
-                     static_cast<float*>(dw_part), B, Cin, Cout, N, S, st);
-  return static_cast<int>(cudaGetLastError());
+  return layer_bwd<kLayerBwd, float>(x, w, wd, pbias, dbias, a, b, nullptr, g, dx,
+                                     dw2, dab, dpdb, dp, dd, partial, dw_part, B,
+                                     Cin, Cout, N, S, group, one_minus_ns, stream);
+}
+
+VNK_EXPORT int vn_layer_fused_bwd_bf16(
+    const void* x, const void* w, const void* wd, const void* pbias,
+    const void* dbias, const void* a, const void* b, const void* g, void* dx,
+    void* dw2, void* dab, void* dpdb, void* dp, void* dd, void* partial,
+    void* dw_part, int B, int Cin, int Cout, int N, int S, int group,
+    float one_minus_ns, void* stream) {
+  return layer_bwd<kLayerBwd, vnk_bf16>(x, w, wd, pbias, dbias, a, b, nullptr, g,
+                                        dx, dw2, dab, dpdb, dp, dd, partial,
+                                        dw_part, B, Cin, Cout, N, S, group,
+                                        one_minus_ns, stream);
 }
 
 // C': as B' with w_out (Cout,) and g (B, 3, 1, N); dabo (3, Cout) =
@@ -590,16 +680,19 @@ VNK_EXPORT int vn_layer_fused_project_bwd(
     const void* g, void* dx, void* dw2, void* dabo, void* dpdb, void* dp,
     void* dd, void* partial, void* dw_part, int B, int Cin, int Cout, int N,
     int S, int group, float one_minus_ns, void* stream) {
-  if (B == 0 || N == 0 || Cout == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const PdArgs args = make_args(x, w, wd, pbias, dbias, a, b, w_out, g,
-                                nullptr, nullptr, dp, dd, partial, B, Cin,
-                                Cout, N, group, one_minus_ns);
-  launch_pd<kProjBwd>(args, st);
-  vnk_reduce_rows(args.partial, static_cast<float*>(dabo), 3, B * args.T, Cout, st);
-  if (pbias != nullptr) reduce_bias(args, 3, 6, static_cast<float*>(dpdb), st);
-  products_bwd<true>(args.x, args.w, args.wd, args.dp, args.dd,
-                     static_cast<float*>(dx), static_cast<float*>(dw2),
-                     static_cast<float*>(dw_part), B, Cin, Cout, N, S, st);
-  return static_cast<int>(cudaGetLastError());
+  return layer_bwd<kProjBwd, float>(x, w, wd, pbias, dbias, a, b, w_out, g, dx,
+                                    dw2, dabo, dpdb, dp, dd, partial, dw_part, B,
+                                    Cin, Cout, N, S, group, one_minus_ns, stream);
+}
+
+VNK_EXPORT int vn_layer_fused_project_bwd_bf16(
+    const void* x, const void* w, const void* wd, const void* pbias,
+    const void* dbias, const void* a, const void* b, const void* w_out,
+    const void* g, void* dx, void* dw2, void* dabo, void* dpdb, void* dp,
+    void* dd, void* partial, void* dw_part, int B, int Cin, int Cout, int N,
+    int S, int group, float one_minus_ns, void* stream) {
+  return layer_bwd<kProjBwd, vnk_bf16>(x, w, wd, pbias, dbias, a, b, w_out, g,
+                                       dx, dw2, dabo, dpdb, dp, dd, partial,
+                                       dw_part, B, Cin, Cout, N, S, group,
+                                       one_minus_ns, stream);
 }

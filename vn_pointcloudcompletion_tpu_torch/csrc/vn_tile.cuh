@@ -96,6 +96,14 @@ __device__ __forceinline__ void vnk_tile_products(
   }
 }
 
+// v rounded through the activation type T: unchanged for float32, through
+// bf16 and back in the bf16 mode (the products' operands W, Wd, and the
+// planes p, d once their float32 sum is complete).
+template <typename T>
+__device__ __forceinline__ float vnk_round_as(float v) {
+  return vnk_is_bf16<T>() ? vnk_round_bf16(v) : v;
+}
+
 // Sum v over aligned runs of `lanes` (1, 2, 4, 8 or 16) threads of a point
 // group row (same ty, tx = 0..15: 16 neighbouring lanes of one warp), in a
 // fixed butterfly order; every lane of a run ends with the run's sum.

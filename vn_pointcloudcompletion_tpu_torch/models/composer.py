@@ -12,10 +12,10 @@ policy of ``nn/precision.py`` (float32 by default, bfloat16 inside
 either.  ``build_model`` therefore accepts a config's ``dtype`` of
 ``bfloat16`` and sets nothing.  Who sets the policy: ``bench``-style
 callers (``chip_smoke.py`` phase 12, as the JAX package's ``bench.py``
-does for every entry) and, once bf16 training is ported, ``train`` (JAX
-``trainer.py:77``; the port's trainer raises on it until then).  The CLI's
-``test`` and ``predict`` never set it, so they run float32 on such a
-config, as the JAX package's ``main.py`` runs them.
+does for every entry) and ``train`` (``training/trainer.py``, from the
+config's ``dtype``, as JAX ``trainer.py:77`` does).  The CLI's ``test`` and
+``predict`` never set it, so they run float32 on such a config, as the JAX
+package's ``main.py`` runs them.
 """
 
 from __future__ import annotations

@@ -13,8 +13,8 @@ A process-global, read at forward time (JAX reads it at trace time), by
 ``models/``.  Parameters stay float32 under either policy and are cast at
 their use.  Who sets it: ``bench``-style callers (the JAX package's
 ``bench.py`` sets bfloat16 for every entry, ``bench_infer`` and
-``bench_eval_step`` included) and, once bfloat16 training is ported,
-``train``.  The CLI's ``test`` and ``predict`` never set it, as the JAX
+``bench_eval_step`` included) and ``train``, from the config's ``dtype``
+for the whole run (``training/trainer.py``).  The CLI's ``test`` and ``predict`` never set it, as the JAX
 package's ``main.py`` does not, so they run float32 on any config.
 """
 

@@ -270,13 +270,17 @@ class _EdgeKnnGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
+        """JAX ``_ekg_bwd``: du and dv summed in at least float32 (bf16
+        features: the k cotangents of a column are not added in bf16) and
+        cast to the features' dtype once."""
         (idx,) = ctx.saved_tensors
         b, n, k = idx.shape
-        dv = ct.sum(2)
+        ctf = ct.to(torch.promote_types(ct.dtype, torch.float32))
+        dv = ctf.sum(2)
         # ct[b, :, kk, q] goes to column idx[b, q, kk] of u
-        du = scatter_rows(ct.permute(0, 2, 3, 1).reshape(b, k * n, -1),
+        du = scatter_rows(ctf.permute(0, 2, 3, 1).reshape(b, k * n, -1),
                           idx.transpose(1, 2).reshape(b, k * n), n)
-        return None, du.transpose(1, 2), dv, None
+        return None, du.transpose(1, 2).to(ct.dtype), dv.to(ct.dtype), None
 
 
 def topk_min(d: torch.Tensor, k: int):

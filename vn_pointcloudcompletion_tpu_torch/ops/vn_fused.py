@@ -19,9 +19,10 @@ and, for the cotangent g of ``out`` (the JAX module's docstring, l.26-31):
 :func:`fused_bn_leaky` is a ``torch.autograd.Function``: on a CUDA tensor its
 forward is kernel A and its backward kernel A' (``csrc/vn_fused.cu``); on a
 CPU tensor they are the plain versions :func:`reference_bn_leaky_planes` and
-:func:`reference_bn_leaky_bwd`.  Kernel A has a bf16 mode for bf16 planes
-(the bfloat16 compute policy): read bf16, compute in float32, store bf16;
-A' takes float32 only, and a bf16 CUDA tensor raises there.
+:func:`reference_bn_leaky_bwd`.  Both kernels have a bf16 mode for bf16
+planes (the bfloat16 compute policy), counted under ``<symbol>[bf16]``:
+read bf16, compute in float32, store bf16 (A': dp and dd; its dA, dB sums
+are float32, summed from the float32 values).
 """
 
 from __future__ import annotations
@@ -47,6 +48,9 @@ _BWD = CudaKernel(
     "vn_fused.cu", "vn_bn_leaky_bwd",
     [_P] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, _P],
 )
+_BWD_BF16 = CudaKernel("vn_fused.cu", "vn_bn_leaky_bwd_bf16", _BWD.argtypes,
+                       "vn_bn_leaky_bwd[bf16]")
+BWD_TAKES = "p, d and g float32 or (its bf16 mode) bf16, and float32 a, b"
 BWD_TILE = 1024  # points per block of kernel A' (kBwdPts in csrc/vn_fused.cu)
 
 
@@ -105,8 +109,10 @@ def reference_bn_leaky_bwd(p, d, a, b, g, negative_slope: float):
 
     Written from the formulas above in the kernel's operation order (one
     rounding per operation), so dp and dd agree with the kernel to the bit
-    on the card; float64 inputs stay float64.  The zero-norm guard is that
-    of :func:`safe_sqrt`: the ``p / |p|`` factor is 0 at |p| = 0.
+    on the card; float64 inputs stay float64, bf16 ones (the bf16 mode)
+    are computed in float32 with dp and dd rounded once to bf16 and dA, dB
+    float32.  The zero-norm guard is that of :func:`safe_sqrt`: the
+    ``p / |p|`` factor is 0 at |p| = 0.
     """
     ct = torch.promote_types(p.dtype, torch.float32)
     p0, p1, p2 = p.to(ct).unbind(1)
@@ -173,15 +179,17 @@ def bn_leaky_bwd(p, d, a, b, g, negative_slope: float):
         raise ValueError(f"fused_bn_leaky backward: cotangent {g.shape} != {p.shape}")
     bsz, _, c, n = p.shape
     p, d, a, b, g = (t.contiguous() for t in (p, d, a, b, g))
-    check_cuda("fused_bn_leaky backward", "float32 p, d, a, b and g (no bf16 mode yet)",
-               *[(t, torch.float32) for t in (p, d, a, b, g)])
+    dt = torch.bfloat16 if p.dtype == torch.bfloat16 else torch.float32
+    check_cuda("fused_bn_leaky backward", BWD_TAKES, (p, dt), (d, dt), (g, dt),
+               (a, torch.float32), (b, torch.float32))
     dp, dd = torch.empty_like(p), torch.empty_like(p)
     dadb = torch.empty((2, c), device=p.device, dtype=torch.float32)
     tiles = -(-n // BWD_TILE)
     partial = torch.empty((2, bsz, tiles, c), device=p.device, dtype=torch.float32)
-    _BWD(p, p.data_ptr(), d.data_ptr(), a.data_ptr(), b.data_ptr(),
-         g.data_ptr(), dp.data_ptr(), dd.data_ptr(), dadb.data_ptr(),
-         partial.data_ptr(), bsz, c, n, 1 - negative_slope)
+    (_BWD_BF16 if dt == torch.bfloat16 else _BWD)(
+        p, p.data_ptr(), d.data_ptr(), a.data_ptr(), b.data_ptr(), g.data_ptr(),
+        dp.data_ptr(), dd.data_ptr(), dadb.data_ptr(), partial.data_ptr(), bsz, c, n,
+        1 - negative_slope)
     return dp, dd, dadb[0], dadb[1]
 
 
@@ -203,7 +211,7 @@ class _FusedBnLeaky(torch.autograd.Function):
 
 def fused_bn_leaky(p, d, a, b, negative_slope: float):
     """p, d: (B, 3, C, N) planes; a, b: (C,) float32 -> out (B, 3, C, N)
-    in p's dtype, with the gradient of kernel A' (float32 only on the
-    card).  bf16 planes take kernel A's bf16 mode (counted under
-    ``vn_bn_leaky_fwd[bf16]``)."""
+    in p's dtype, with the gradient of kernel A'.  bf16 planes take the
+    kernels' bf16 modes (counted under ``vn_bn_leaky_fwd[bf16]`` and
+    ``vn_bn_leaky_bwd[bf16]``)."""
     return _FusedBnLeaky.apply(p, d, a, b, negative_slope)

@@ -26,13 +26,19 @@ products run inside the kernels (``csrc/vn_layer_fused.cu``,
 ``csrc/vn_layer_bwd.cu``).  A CPU tensor takes the plain versions
 (``reference_*``).
 
-B and C have a bf16 mode, taken when x is bfloat16 (the bfloat16 compute
-policy; JAX's ``bf16=True``): bf16 x and biases, products of bf16-rounded
-weights summed in float32, p and d rounded through bf16 before the float32
-epilogue, output in bf16 (C: the unrounded epilogue projected, then
-rounded).  Its launches count under ``<symbol>[bf16]`` and
-``<symbol>[group,bf16]``.  S and the backwards take float32 only: a bf16
-CUDA tensor raises there (bf16 training is the next slice).
+Every kernel has a bf16 mode, taken when x is bfloat16 (the bfloat16
+compute policy; JAX's ``bf16=True``): bf16 x, biases and cotangent,
+products of bf16-rounded weights summed in float32, p and d rounded through
+bf16 before the float32 epilogue (or its backward), outputs in bf16 (C: the
+unrounded epilogue projected, then rounded).  The backwards (S', B', C')
+form dp and dd in float32, sum the per-channel and bias gradients from
+those, and round them to bf16 only as operands of the dx and dW products
+(JAX ``vn_layer_fused.py:204-209``, ``:440-457``, ``:733-750``); dx is
+bf16, dW and the sums float32, the bias gradients rounded once to the
+biases' dtype.  Launches count under ``<symbol>[bf16]`` and
+``<symbol>[group,bf16]``.  The model layers pass bf16 x under the bf16
+policy (``nn/vn.py``, ``models/pcn.py``: ``activation_dtype``), so the
+mode follows the policy as JAX's ``compute_dtype() == bfloat16`` does.
 """
 
 from __future__ import annotations
@@ -75,15 +81,15 @@ _PROJECT_BWD = CudaKernel(
 # keys "<symbol>[group]"): the attention decoder's pair folds.
 _GROUPED = {k.symbol: CudaKernel(k.source, k.symbol, k.argtypes, f"{k.symbol}[group]")
             for k in (_LAYER, _PROJECT, _STATS, _STATS_BWD, _LAYER_BWD, _PROJECT_BWD)}
-# The bf16 modes of B and C (entry points <symbol>_bf16), counted under
+# The bf16 modes (entry points <symbol>_bf16), counted under
 # "<symbol>[bf16]" and, in group=S mode, "<symbol>[group,bf16]".
 _BF16 = {(k.symbol, grouped): CudaKernel(
     k.source, f"{k.symbol}_bf16", k.argtypes,
     f"{k.symbol}[group,bf16]" if grouped else f"{k.symbol}[bf16]")
-    for k in (_LAYER, _PROJECT) for grouped in (False, True)}
-FWD_TAKES = ("x and the biases float32 or (its bf16 mode) bf16, with float32 "
-             "w, wd, a, b and w_out")
-F32_TAKES = "float32 tensors only (no bf16 mode yet)"
+    for k in (_LAYER, _PROJECT, _STATS, _STATS_BWD, _LAYER_BWD, _PROJECT_BWD)
+    for grouped in (False, True)}
+TAKES = ("x, the biases and the cotangent float32 or (the bf16 mode) bf16, with "
+         "float32 w, wd, a, b, w_out and c1, c2")
 TILE = 64  # points per block of the layer kernels (kPts in csrc/vn_tile.cuh)
 GROUP_TILE = 512  # the TPU kernels' point tile: a group must divide it (TN)
 
@@ -141,9 +147,30 @@ def _products(w, x, bias, group: int = 0):
     return p if bias is None else p + expand_bias(bias, group)
 
 
+def _planes(w, x, bias, group: int = 0):
+    """p (or d) as the epilogue and its backward read them, in at least
+    float32: in the bf16 mode the bf16-rounded planes of :func:`_products`,
+    as float32."""
+    return _products(w, x, bias, group).to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _operand(t, x):
+    """A factor of a backward product: in the bf16 mode (bf16 x) rounded to
+    bf16 and read as float32, JAX's ``w16``, ``dp16``, ``x16`` (the products
+    exact, summed in float32); otherwise ``t`` itself."""
+    return t.to(torch.bfloat16).float() if x.dtype == torch.bfloat16 else t
+
+
+def _input_grad(x, *pairs):
+    """dx = sum over the (w, dp) pairs of w^T dp, in x's dtype."""
+    dx = sum(torch.matmul(_operand(w, x).t(), _operand(dp, x)) for w, dp in pairs)
+    return dx.to(x.dtype)
+
+
 def _weight_grad(g, x):
-    """sum over samples, planes and points of g x^T: (C_out, C_in)."""
-    return torch.einsum("bjcn,bjkn->ck", g, x)
+    """sum over samples, planes and points of g x^T: (C_out, C_in), float32
+    sums of the bf16 operands in the bf16 mode."""
+    return torch.einsum("bjcn,bjkn->ck", _operand(g, x), _operand(x, x))
 
 
 def reference_layer_fused(x, w, wd, pbias, dbias, a, b, negative_slope: float,
@@ -193,46 +220,54 @@ def _project_in_kernel_order(w_out, o):
 def reference_stats(x, w, pbias, group: int = 0):
     """Plain version of kernel S: (s1, s2), the sums over samples and points
     of ``|p| + EPS`` and its square per output channel."""
-    p = _products(w, x, pbias, group)
+    p = _planes(w, x, pbias, group)
     norm_e = safe_sqrt(plane_dot(p, p)) + EPS  # (B, C, N)
     return norm_e.sum((0, 2)), (norm_e * norm_e).sum((0, 2))
 
 
 def reference_stats_bwd(x, w, pbias, c1, c2, group: int = 0):
     """Plain version of kernel S': (dx, dw, dpbias) from the cotangents
-    (c1, c2) of (s1, s2); dpbias is None without a bias."""
-    p = _products(w, x, pbias, group)
+    (c1, c2) of (s1, s2); dpbias is None without a bias.  The bias
+    gradient sums the float32 dp (JAX ``:218-225``), dx and dw take it
+    rounded in the bf16 mode."""
+    p = _planes(w, x, pbias, group)
     pnorm = safe_sqrt(plane_dot(p, p))
     norm_e = pnorm + EPS
     inv = torch.where(pnorm > 0, 1.0 / torch.clamp_min(pnorm, 1e-30), 0.0)
     scale = (c1[None, :, None] + 2.0 * c2[None, :, None] * norm_e) * inv
     dp = scale[:, None] * p
-    dpb = None if pbias is None else bias_grad(dp, group)
-    return torch.matmul(w.t(), dp), _weight_grad(dp, x), dpb
+    dpb = None if pbias is None else bias_grad(dp, group).to(pbias.dtype)
+    return _input_grad(x, (w, dp)), _weight_grad(dp, x), dpb
 
 
 def reference_layer_bwd(x, w, wd, pbias, dbias, a, b, g, negative_slope: float,
                         group: int = 0):
     """Plain version of kernel B': (dx, dw, dwd, dpbias, ddbias, da, db) for
     the cotangent g (B, 3, C_out, N); the bias gradients are None without
-    biases."""
-    p, d = _products(w, x, pbias, group), _products(wd, x, dbias, group)
+    biases.  dp and dd stay float32 for dA, dB and the bias sums; the bf16
+    mode rounds them only as operands of dx, dw and dwd (JAX ``:440-457``)."""
+    p, d = _planes(w, x, pbias, group), _planes(wd, x, dbias, group)
     dp, dd, da, db = reference_bn_leaky_bwd(p, d, a, b, g, negative_slope)
-    dx = torch.matmul(w.t(), dp) + torch.matmul(wd.t(), dd)
     dpb = ddb = None
     if pbias is not None:
-        dpb, ddb = bias_grad(dp, group), bias_grad(dd, group)
-    return dx, _weight_grad(dp, x), _weight_grad(dd, x), dpb, ddb, da, db
+        dpb, ddb = bias_grad(dp, group).to(pbias.dtype), bias_grad(dd, group).to(dbias.dtype)
+    return (_input_grad(x, (w, dp), (wd, dd)), _weight_grad(dp, x), _weight_grad(dd, x),
+            dpb, ddb, da, db)
 
 
 def reference_layer_project_bwd(x, w, wd, pbias, dbias, a, b, w_out, g,
                                 negative_slope: float, group: int = 0):
     """Plain version of kernel C': as :func:`reference_layer_bwd` for the
-    cotangent g (B, 3, 1, N) of the projected output, plus d w_out."""
-    g_full = w_out[None, None, :, None] * g
+    cotangent g (B, 3, 1, N) of the projected output, plus d w_out: the
+    layer's cotangent ``w_out * g`` and ``<o, g>`` (o the unrounded
+    epilogue) formed in at least float32 (JAX ``:678-684``)."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    g = g.to(ct)
     dx, dw, dwd, dpb, ddb, da, db = reference_layer_bwd(
-        x, w, wd, pbias, dbias, a, b, g_full, negative_slope, group)
-    o = reference_layer_fused(x, w, wd, pbias, dbias, a, b, negative_slope, group)
+        x, w, wd, pbias, dbias, a, b, w_out.to(ct)[None, None, :, None] * g,
+        negative_slope, group)
+    o = reference_bn_leaky_planes(_planes(w, x, pbias, group), _planes(wd, x, dbias, group),
+                                  a, b, negative_slope)
     dwo = plane_dot(o, g).sum((0, 2))
     return dx, dw, dwd, dpb, ddb, da, db, dwo
 
@@ -249,10 +284,10 @@ def check_group(name, n: int, group: int, pbias) -> None:
 
 
 def _prepare(name, x, w, wd=None, pbias=None, dbias=None, a=None, b=None,
-             w_out=None, g=None, group=0, bf16_mode: bool = False):
+             w_out=None, g=None, group=0):
     """Check shapes and types, make the tensors contiguous on one card:
-    float32, or with ``bf16_mode`` (kernels B and C) x and the biases in
-    bf16 when x is bf16."""
+    float32, or in the bf16 mode (bf16 x) x, the biases and the cotangent
+    in bf16."""
     bsz, three, c_in, n = x.shape
     c_out = w.shape[0]
     if three != 3 or w.shape != (c_out, c_in) or (wd is not None and wd.shape != w.shape):
@@ -271,10 +306,9 @@ def _prepare(name, x, w, wd=None, pbias=None, dbias=None, a=None, b=None,
         raise ValueError(f"{name}: bad cotangent shape {tuple(g.shape)}")
     args = [None if t is None else t.contiguous()
             for t in (x, w, wd, pbias, dbias, a, b, w_out, g)]
-    act = torch.bfloat16 if bf16_mode and x.dtype == torch.bfloat16 else torch.float32
-    check_cuda(name, FWD_TAKES if bf16_mode else F32_TAKES,
-               *[(t, act if i in (0, 3, 4) else torch.float32)
-                 for i, t in enumerate(args) if t is not None])
+    act = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    check_cuda(name, TAKES, *[(t, act if i in (0, 3, 4, 8) else torch.float32)
+                              for i, t in enumerate(args) if t is not None])
     return args, (bsz, c_in, c_out, n)
 
 
@@ -307,7 +341,12 @@ def _bias_rows(n: int, group: int):
     return TILE // group, tiles * (TILE // group)
 
 
-def _counted(kernel: CudaKernel, group: int, bf16: bool = False) -> CudaKernel:
+def _bf16(x) -> bool:
+    """Whether a launch takes its kernel's bf16 mode: x is bf16."""
+    return x.dtype == torch.bfloat16
+
+
+def _counted(kernel: CudaKernel, group: int, bf16: bool) -> CudaKernel:
     if bf16:
         return _BF16[(kernel.symbol, bool(group))]
     return _GROUPED[kernel.symbol] if group else kernel
@@ -317,10 +356,9 @@ def _launch(kernel: CudaKernel, x, w, wd, pbias, dbias, a, b, w_out,
             negative_slope: float, group: int):
     """Kernel B or C, in the mode of x's dtype (float32 or bf16)."""
     (x, w, wd, pbias, dbias, a, b, w_out, _), (bsz, c_in, c_out, n) = _prepare(
-        kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out, group=group,
-        bf16_mode=True)
+        kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out, group=group)
     out = _empty(x, bsz, 3, c_out if w_out is None else 1, n, dtype=x.dtype)
-    _counted(kernel, group, x.dtype == torch.bfloat16)(
+    _counted(kernel, group, _bf16(x))(
            x, *[_ptr(t) for t in (x, w, wd, pbias, dbias, a, b)],
            *([] if w_out is None else [w_out.data_ptr()]),
            out.data_ptr(), bsz, c_in, c_out, n, group, 1 - negative_slope)
@@ -335,17 +373,19 @@ def stats_fwd(x, w, pbias, group: int = 0):
         "vn_layer_stats", x, w, pbias=pbias, group=group)
     s12 = _empty(x, 2, c_out)
     partial = _empty(x, 2, bsz, -(-n // TILE), c_out)
-    _counted(_STATS, group)(x, x.data_ptr(), w.data_ptr(), _ptr(pbias), s12.data_ptr(),
-           partial.data_ptr(), bsz, c_in, c_out, n, group)
+    _counted(_STATS, group, _bf16(x))(x, x.data_ptr(), w.data_ptr(), _ptr(pbias),
+                                      s12.data_ptr(), partial.data_ptr(), bsz, c_in,
+                                      c_out, n, group)
     return s12[0], s12[1]
 
 
-def _bias_grads(out, nq: int, bsz: int, c_out: int, n: int, group: int):
-    """The kernels' (nq, B, G', C_out) bias sums -> nq tensors (B, 3, C_out,
-    cols) (nq = 3: one bias; 6: two), the first cols = N // group columns."""
+def _bias_grads(out, nq: int, bsz: int, c_out: int, n: int, group: int, dtype):
+    """The kernels' float32 (nq, B, G', C_out) bias sums -> nq tensors (B,
+    3, C_out, cols) of ``dtype`` (nq = 3: one bias; 6: two), the first cols
+    = N // group columns."""
     cols = n // group if group else 1
     out = out.reshape(nq // 3, 3, bsz, -1, c_out)[:, :, :, :cols]
-    return out.permute(0, 2, 1, 4, 3).unbind(0)
+    return out.permute(0, 2, 1, 4, 3).to(dtype).unbind(0)
 
 
 def stats_bwd(x, w, pbias, c1, c2, group: int = 0):
@@ -359,14 +399,14 @@ def stats_bwd(x, w, pbias, c1, c2, group: int = 0):
     spt, cols = _bias_rows(n, group)
     dx, dw = torch.empty_like(x), _empty(x, c_out, c_in)
     dpb = None if pbias is None else _empty(x, 3, bsz, cols, c_out)
-    dp = _empty(x, bsz, 3, c_out, n)
+    dp = _empty(x, bsz, 3, c_out, n, dtype=x.dtype)  # scratch: bf16 in the bf16 mode
     partial = None if pbias is None else _empty(x, 3, bsz, -(-n // TILE) * spt, c_out)
     dw_part = _empty(x, s, c_out, c_in)
-    _counted(_STATS_BWD, group)(x, *[_ptr(t) for t in (x, w, pbias, c1, c2, dx, dw, dpb, dp,
-                                      partial, dw_part)],
-               bsz, c_in, c_out, n, s, group)
+    _counted(_STATS_BWD, group, _bf16(x))(
+        x, *[_ptr(t) for t in (x, w, pbias, c1, c2, dx, dw, dpb, dp, partial, dw_part)],
+        bsz, c_in, c_out, n, s, group)
     if dpb is not None:
-        (dpb,) = _bias_grads(dpb, 3, bsz, c_out, n, group)
+        (dpb,) = _bias_grads(dpb, 3, bsz, c_out, n, group, pbias.dtype)
     return dx, dw, dpb
 
 
@@ -381,7 +421,8 @@ def _layer_bwd_launch(kernel, x, w, wd, pbias, dbias, a, b, w_out, g,
     spt, cols = _bias_rows(n, group)
     dx, dw2, sums = torch.empty_like(x), _empty(x, 2, c_out, c_in), _empty(x, nqc, c_out)
     dpdb = None if pbias is None else _empty(x, 6, bsz, cols, c_out)
-    dp, dd = _empty(x, bsz, 3, c_out, n), _empty(x, bsz, 3, c_out, n)
+    # the dp, dd scratch: bf16 in the bf16 mode (JAX's dp16, dd16)
+    dp, dd = (_empty(x, bsz, 3, c_out, n, dtype=x.dtype) for _ in range(2))
     # the per-channel sums (nqc, B, T, C_out), then the bias sums (6, B, T * spt, C_out)
     partial = _empty(x, (nqc + (0 if pbias is None else 6 * spt)) * bsz * tiles * c_out)
     dw_part = _empty(x, 2, s, c_out, c_in)
@@ -389,10 +430,11 @@ def _layer_bwd_launch(kernel, x, w, wd, pbias, dbias, a, b, w_out, g,
     if w_out is not None:
         ptrs.append(w_out.data_ptr())
     ptrs += [_ptr(t) for t in (g, dx, dw2, sums, dpdb, dp, dd, partial, dw_part)]
-    _counted(kernel, group)(x, *ptrs, bsz, c_in, c_out, n, s, group, 1 - negative_slope)
+    _counted(kernel, group, _bf16(x))(x, *ptrs, bsz, c_in, c_out, n, s, group,
+                                      1 - negative_slope)
     dpb = ddb = None
     if dpdb is not None:
-        dpb, ddb = _bias_grads(dpdb, 6, bsz, c_out, n, group)
+        dpb, ddb = _bias_grads(dpdb, 6, bsz, c_out, n, group, pbias.dtype)
     return (dx, dw2[0], dw2[1], dpb, ddb, *sums.unbind(0))
 
 

@@ -29,6 +29,7 @@ from vn_pointcloudcompletion_tpu_torch.data.pipeline import BatchLoader, device_
 from vn_pointcloudcompletion_tpu_torch.data.shapenet import ShapeNetPCN
 from vn_pointcloudcompletion_tpu_torch.data.synthetic import SyntheticCompletionDataset
 from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+from vn_pointcloudcompletion_tpu_torch.nn.precision import compute_dtype_scope, from_config_dtype
 from vn_pointcloudcompletion_tpu_torch.training.checkpoint import (
     payload,
     restore_checkpoint,
@@ -59,12 +60,6 @@ def build_datasets(config: Config):
 
 
 def _check_ported(config: Config) -> None:
-    if config.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={config.dtype!r}: training under the bfloat16 policy is not "
-            "ported yet (ROADMAP.md, queue 1, item 7: bf16 training, the next "
-            "slice: the bf16 modes of A', S, S', B' and C'); the forward alone "
-            "runs under it (nn/precision.py::compute_dtype_scope)")
     if config.remat:
         raise NotImplementedError(
             "remat (recomputing the forward in the backward) is not ported yet "
@@ -90,8 +85,18 @@ class _Scalars:
 
 
 def train(config: Config, resume: bool = False, device="cuda") -> dict:
-    """Run training; returns ``{best_epoch, best_cd, epochs_run}``."""
+    """Run training; returns ``{best_epoch, best_cd, epochs_run}``.
+
+    The whole run, validation included, runs under the compute policy of
+    ``config.dtype`` (JAX sets it process-wide, ``training/trainer.py:74-77``);
+    the caller's policy is restored on return.  Parameters, Adam's state
+    and the checkpoints stay float32 under either."""
     _check_ported(config)
+    with compute_dtype_scope(from_config_dtype(config.dtype)):
+        return _train(config, resume, device)
+
+
+def _train(config: Config, resume: bool, device) -> dict:
     dev = resolve_device(device)
     log_dataset.info("Loading Data...")
     train_dataset, val_dataset = build_datasets(config)
