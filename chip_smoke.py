@@ -17,7 +17,10 @@ on one NVIDIA GPU:
    repeated points tie), times both with CUDA events (K1 also against
    ``torch.topk``), runs the backward-slice and DGCNN kernels twice to show
    that they give the same bits, and holds the backward of K2 and K3
-   against autograd of their plain chains.
+   against autograd of their plain chains.  Each S' and C' row names the
+   passes it took (wide at C_in, C_out >= 16, else narrow), its TFLOP/s
+   and share of its bound, and, for the wide ones, the narrow passes' time
+   at the same shape in the same call.
 4. Serving the flagship at full width (encoder latent 1024 -> 2048-channel
    global feature, 2048 input points, 1024 coarse, 16384 dense points,
    random weights from a seed) through the port's command line: ``predict``
@@ -32,8 +35,10 @@ on one NVIDIA GPU:
 5b. The decoder's backward through the kernels against float64; one train
    step through the kernels against the same step through the plain path
    on the same model and batch (losses, every gradient, the running
-   statistics); the median step time of both; and torch.profiler's device
-   time by kernel over three steps through the kernels.
+   statistics), with the passes of its S' and C' launches asserted
+   (FLAGSHIP_STEP_DESIGNS); the median step time of both; and
+   torch.profiler's device time by kernel over three steps through the
+   kernels.
 6, 7. Phases 4 and 5 for ``vn_dgcnn_fps`` + ``vn_foldingnet`` (1024
    coarse, 16384 dense), the launches of each forward asserted (K2 2, K3 2,
    F 2, A 3, B 2, C 1); 7b: the gradients of the encoder alone and of one
@@ -88,7 +93,8 @@ on one NVIDIA GPU:
    train step on one DecisionTape through the kernels, through their plain
    versions in the kernels' place and through the plain path in bf16 and
    float32, each gradient held to two bounds, and a mutant of C''s bf16
-   backward caught; float32/bf16 step times of the flagship and
+   backward caught; the passes of both steps' S' and C' launches asserted
+   (BF16_STEP_DESIGNS); float32/bf16 step times of the flagship and
    vn_pointr_448.  Phase 3 holds the bf16 modes of the training kernels
    (A'; S, S', B' at group 0 and 64; C') against their plain bf16 versions,
    twice for equal bits.
@@ -222,6 +228,21 @@ BF16_STEP_LAUNCHES = {
                       "vn_layer_fused_project_bwd[bf16]": 2},
 }
 BF16_TRAIN_EPOCHS = 2  # phase 13's train epochs before --resume
+# The design of every S' and C' launch of one train step (cuda_lib
+# .variant_counts(); ops/vn_layer_fused.py::backward_design): the wide
+# passes at C_in, C_out >= 16 (final_conv.1's 256 -> 256, vn_folding{1,2}.1's 256
+# -> 128), the narrow ones below (final_conv.0's 2 -> 256, conv1's 2 -> 32,
+# the pair folds' 1 -> 256 at group 64).  Phase 5b (float32) and phase 13
+# (bf16) assert them.
+FLAGSHIP_STEP_DESIGNS = {"vn_layer_stats_bwd/narrow": 1, "vn_layer_stats_bwd/wide": 1,
+                         "vn_layer_fused_project_bwd/wide": 1}
+BF16_STEP_DESIGNS = {
+    "flagship": {"vn_layer_stats_bwd[bf16]/narrow": 1, "vn_layer_stats_bwd[bf16]/wide": 1,
+                 "vn_layer_fused_project_bwd[bf16]/wide": 1},
+    "vn_pointr_448": {"vn_layer_stats_bwd[bf16]/narrow": 1, "vn_layer_stats_bwd[bf16]/wide": 2,
+                      "vn_layer_stats_bwd[group,bf16]/narrow": 2,
+                      "vn_layer_fused_project_bwd[bf16]/wide": 2},
+}
 # Phase 13, the flagship's bf16 train step on one DecisionTape, each
 # gradient as its root-mean-square distance over the tensor's norm: the
 # kernels no further from the plain float32 path than BF16_F32_RATIO x the
@@ -288,6 +309,20 @@ def bound(nbytes: float, ops: float, peak_ops: float = PEAK_FP32):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def narrow_ms(fn, reps: int) -> float:
+    """``cuda_ms`` of ``fn`` with S' and C' held to their narrow passes
+    (the FMA passes that B' runs): the same work the wide ones replace,
+    timed in the same call."""
+    from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
+
+    design = vn_layer_fused.backward_design
+    vn_layer_fused.backward_design = lambda c_in, c_out: "narrow"
+    try:
+        return cuda_ms(fn, reps)
+    finally:
+        vn_layer_fused.backward_design = design
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -297,7 +332,7 @@ def check_kernels(dev):
     import torch
 
     from vn_pointcloudcompletion_tpu_torch.ops import chamfer_pallas_bidir as chamfer
-    from vn_pointcloudcompletion_tpu_torch.ops import vn_fused, vn_layer_fused
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib, vn_fused, vn_layer_fused
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -312,7 +347,11 @@ def check_kernels(dev):
     def record(name, source, replaces, kernel_fn, plain_fn, compare, tol,
                work_bytes, work_ops, reps=20, plain_reps=5, repro=False,
                library_fn=None, peak_ops=PEAK_FP32):
-        got, want = kernel_fn(), plain_fn()
+        before = cuda_lib.variant_counts()
+        got = kernel_fn()
+        designs = sorted(k.split("/")[1] for k, v in cuda_lib.variant_counts().items()
+                         if v != before.get(k, 0))
+        want = plain_fn()
         torch.cuda.synchronize()
         err, ok = compare(got, want)
         if repro:  # the same inputs again must give the same bits
@@ -334,6 +373,12 @@ def check_kernels(dev):
               f"{'PASS' if ok else 'FAIL'}; kernel {rec['ms']:.4f} ms, plain "
               f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
               f"library: {lib}", flush=True)
+        if designs:  # S' and C': the passes taken, the rate (the narrow passes' time)
+            narrow = ("" if designs != ["wide"] else "; the narrow passes at the same shape: "
+                      f"{narrow_ms(kernel_fn, max(3, reps // 2)):.4f} ms")
+            print(f"[kernel {name}] {'/'.join(designs)} passes: "
+                  f"{work_ops / rec['ms'] / 1e9:.2f} TFLOP/s, {b_ms / rec['ms']:.1%} of the "
+                  f"bound{narrow}", flush=True)
         if not ok:
             raise AssertionError(f"kernel {name} disagrees with its plain version")
         records.append(rec)
@@ -1522,6 +1567,7 @@ def train_step_kernels_vs_plain(dev, smi: str):
 
     from vn_pointcloudcompletion_tpu_torch.data.synthetic import SyntheticCompletionDataset
     from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib
     from vn_pointcloudcompletion_tpu_torch.ops.rotations import random_rotations, rotate_points
     from vn_pointcloudcompletion_tpu_torch.training import steps
     from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
@@ -1547,8 +1593,14 @@ def train_step_kernels_vs_plain(dev, smi: str):
     print(f"[train step] decoder backward against float64, max|dg| / max|g|: kernels "
           f"{worst(dec_k)} (tolerance {DEC_F64_TOL}); plain, for comparison, {worst(dec_p)}")
 
+    cuda_lib.reset_launch_counts()
     loss_err, stat_err, step_errs = step_agreement(model, plain, config, partial, complete)
     torch.cuda.synchronize()
+    designs = cuda_lib.variant_counts()
+    print(f"[train step] S' and C' launches by design in the kernels' step: {designs} "
+          f"(expected {FLAGSHIP_STEP_DESIGNS})")
+    if designs != FLAGSHIP_STEP_DESIGNS:
+        raise AssertionError("train step: S' or C' took other passes than expected")
     print(f"[train step] kernels vs plain at batch {BATCH}: losses rel err {loss_err:.3e} "
           f"(tolerance 1e-4); running statistics rel err {stat_err:.3e} (tolerance 1e-4); "
           f"gradients max|dg| / max|g|, largest: {worst(step_errs)} (tolerance {STEP_TOL})")
@@ -2287,7 +2339,7 @@ def bf16_flagship_step(dev, partial, complete):
     import torch
 
     from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
-    from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib, vn_layer_fused
 
     config = _smoke_config(lr=1e-4, rotation="so3")
     model = build_model(config).to(dev)
@@ -2306,7 +2358,9 @@ def bf16_flagship_step(dev, partial, complete):
 
     with DecisionTape() as tape:
         tape.run()
+        cuda_lib.reset_launch_counts()
         lk, bk, gk = run(model, torch.bfloat16)
+        designs = cuda_lib.variant_counts()
         rec = tape.rec
         # kernel A's reflections are not replayed into the runs through the
         # kernels or their plain versions (a replayed side takes the tape's
@@ -2326,6 +2380,10 @@ def bf16_flagship_step(dev, partial, complete):
             _, _, gm = run(model, torch.bfloat16)
         finally:
             vn_layer_fused.layer_project_bwd = orig
+    print(f"{btag} S' and C' launches by design: {designs} (expected "
+          f"{BF16_STEP_DESIGNS['flagship']})")
+    if designs != BF16_STEP_DESIGNS["flagship"]:
+        raise AssertionError(f"{btag} S' or C' took other passes than expected")
     finite = all(torch.isfinite(t).all() for t in (lk, *bk.values(), *gk.values()))
     print(f"{btag} batch {BATCH}, losses (coarse, dense): kernels {lk.tolist()}, their plain "
           f"versions {lv.tolist()}, plain bf16 {lp.tolist()}, plain float32 {l32.tolist()}; "
@@ -2435,11 +2493,15 @@ def bf16_train(dev, smi: str):
         torch.cuda.synchronize()
     step_counts = {k: v for k, v in cuda_lib.launch_counts().items()
                    if v and k != "chamfer_nn_one_sided"}
+    designs = cuda_lib.variant_counts()
     print(f"{tag} one vn_pointr_448 train step: launches {json.dumps(step_counts)}; "
-          f"skipped {metrics['skipped'].item()}")
+          f"S' and C' by design {json.dumps(designs)}; skipped {metrics['skipped'].item()}")
     if step_counts != BF16_STEP_LAUNCHES["vn_pointr_448"] or metrics["skipped"].item():
         raise AssertionError(f"{tag} one step's launches {step_counts}, expected "
                              f"{BF16_STEP_LAUNCHES['vn_pointr_448']}")
+    if designs != BF16_STEP_DESIGNS["vn_pointr_448"]:
+        raise AssertionError(f"{tag} one step's S', C' designs {designs}, expected "
+                             f"{BF16_STEP_DESIGNS['vn_pointr_448']}")
     total = {k: counts.get(k, 0) + step_counts.get(k, 0) for k in {*counts, *step_counts}}
 
     # (b) the flagship's bf16 step on one tape

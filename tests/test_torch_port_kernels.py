@@ -1176,3 +1176,81 @@ def test_kernel_b_c_bwd_bf16_cuda_matches_plain(cuda, c_in, c_out, n, group, pro
     assert launched == 1 and got[0].dtype == got[3].dtype == torch.bfloat16
     _assert_bf16_bwd(got, plain(*args, NS, group))
     _assert_same_bits(got, fn(*args, NS, group))
+
+
+# ------------------------------------------------ the wide passes of S', C'
+#
+# S' and C' at C_in, C_out >= 16 run the wide passes (cp.async rings; bf16
+# products on the tensor cores), below that the narrow ones
+# (port_layer.backward_design).  Ragged shapes: 48 -> 80 channels, N 1000
+# (no multiple of a 64-point pass-1 tile, a 128-point pass-2 tile or a
+# pass-3 stage) and 1088 for the bias groups, which must divide N; group 16
+# splits each 64-point tile's bias sums, group 64 sums whole tiles.  Each
+# against its plain version at chip_smoke.py phase 3's bounds (float32:
+# 1e-4 of each output's max; bf16: one bf16 ulp of the max for bf16
+# outputs, 1e-4 for the float32 ones), twice for equal bits, counted under
+# its design.
+
+
+def _wide_inputs(cuda, c_in, c_out, n, group, bias, bf16, seed):
+    rng = np.random.default_rng(seed)
+    x, w, wd, pb, db, a, b, w_out = _layer_inputs(rng, 2, c_in, c_out, n, bias)
+    if group:
+        pb, db = (rng.standard_normal((2, 3, c_out, n // group)).astype(np.float32)
+                  for _ in range(2))
+    c1, c2 = (rng.standard_normal(c_out).astype(np.float32) for _ in range(2))
+    g1 = rng.standard_normal((2, 3, 1, n)).astype(np.float32)
+    act = _bf16_t if bf16 else _t
+    x, pb, db, g1 = act(x, pb, db, g1, device=cuda)
+    return (x, *_t(w, wd, device=cuda), pb, db, *_t(a, b, w_out, c1, c2, device=cuda), g1)
+
+
+def _wide_run(kernel, x, w, wd, pb, db, a, b, w_out, c1, c2, g1, group):
+    """(launch, plain version, symbol) of S' or C' on these inputs."""
+    if kernel == "S'":
+        return (lambda: port_layer.stats_bwd(x, w, pb, c1, c2, group),
+                lambda: port_layer.reference_stats_bwd(x, w, pb, c1, c2, group),
+                "vn_layer_stats_bwd")
+    args = (x, w, wd, pb, db, a, b, w_out, g1, NS, group)
+    return (lambda: port_layer.layer_project_bwd(*args),
+            lambda: port_layer.reference_layer_project_bwd(*args), "vn_layer_fused_project_bwd")
+
+
+def _variant(symbol, group, bf16, design):
+    mode = ("[group,bf16]" if bf16 else "[group]") if group else ("[bf16]" if bf16 else "")
+    return f"{symbol}{mode}/{design}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group,n,bias", [(0, 1000, False), (0, 1000, True), (16, 1088, True),
+                                          (64, 1088, True)])
+@pytest.mark.parametrize("kernel", ["S'", "C'"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_wide_backward_cuda_matches_plain(cuda, group, n, bias, kernel, bf16):
+    inputs = _wide_inputs(cuda, 48, 80, n, group, bias, bf16, n + group + 31)
+    launch, plain, symbol = _wide_run(kernel, *inputs, group)
+    key = _variant(symbol, group, bf16, "wide")
+    before = cuda_lib.variant_counts().get(key, 0)
+    got, again = launch(), launch()
+    torch.cuda.synchronize()
+    assert cuda_lib.variant_counts().get(key, 0) == before + 2
+    (_assert_bf16_bwd if bf16 else _assert_rel)(got, plain())
+    _assert_same_bits(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,design", [(2, "narrow"), (16, "wide")])
+@pytest.mark.parametrize("kernel", ["S'", "C'"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_wide_backward_dispatch_boundary(cuda, c_in, design, kernel, bf16):
+    """C_in 2 takes the narrow passes, 16 the wide ones; both against the
+    plain version."""
+    assert port_layer.backward_design(c_in, 64) == design
+    inputs = _wide_inputs(cuda, c_in, 64, 1000, 0, True, bf16, c_in + 5)
+    launch, plain, symbol = _wide_run(kernel, *inputs, 0)
+    key = _variant(symbol, 0, bf16, design)
+    before = cuda_lib.variant_counts().get(key, 0)
+    got = launch()
+    torch.cuda.synchronize()
+    assert cuda_lib.variant_counts().get(key, 0) == before + 1
+    (_assert_bf16_bwd if bf16 else _assert_rel)(got, plain())

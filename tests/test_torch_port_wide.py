@@ -1,0 +1,125 @@
+"""Which passes kernels S' and C' run, and the chunking of their wide
+weight-gradient pass, on the CPU.
+
+``ops/vn_layer_fused.py::backward_design`` picks the wide passes (cp.async
+rings; in the bf16 mode dx, dW and S''s p on the tensor cores) for C_in
+and C_out >= 16 and the narrow ones (pd_pass, dx_gemm, dw_gemm) below
+that; the CUDA kernels take what the wrapper picks, so the choice for
+every layer a pipeline trains is checked here, where no card is needed.
+``wide_split`` cuts pass 3's reduction into whole stages of one plane
+each: every point is summed by exactly one split.  The kernels themselves
+are held against their plain versions by the ``gpu`` tests of
+``tests/test_torch_port_kernels.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused as port_layer
+from vn_pointcloudcompletion_tpu_torch.utils.config import Config
+
+torch.set_num_threads(2)
+
+# (encoder, decoder, num_coarse): the decoders' fold layers take the
+# whole-layer kernels at >= 4096 points
+_PIPELINES = {
+    "flagship": ("vn_pointnet", "vn_foldingnet", 256),
+    "vn_dgcnn": ("vn_dgcnn_fps", "vn_foldingnet", 256),
+    "vn_pointr": ("vn_pointr", "attention_vn_foldingnet", 448),
+}
+# (kernel, C_in, C_out, group) of every S' and C' launch of one train step,
+# and its design: final_conv.0 (2 -> 256) and the pair folds (1 -> 256,
+# group 64) narrow; final_conv.1 (256 -> 256) and vn_folding{1,2}.1 (256 ->
+# 128) wide; VN DGCNN's and vn_pointr's conv1 (2 -> 32) narrow
+_EXPECTED = {
+    "flagship": {("S'", 2, 256, 0): "narrow", ("S'", 256, 256, 0): "wide",
+                 ("C'", 256, 256, 0): "wide"},
+    "vn_dgcnn": {("S'", 2, 32, 0): "narrow", ("S'", 2, 256, 0): "narrow",
+                 ("S'", 256, 256, 0): "wide", ("C'", 256, 256, 0): "wide"},
+    "vn_pointr": {("S'", 2, 32, 0): "narrow", ("S'", 1, 256, 64): "narrow",
+                  ("S'", 256, 128, 0): "wide", ("C'", 256, 128, 0): "wide"},
+}
+
+
+@pytest.mark.parametrize("name", list(_PIPELINES))
+def test_backward_design_of_every_trained_layer(name, monkeypatch):
+    """One train-mode forward and backward of a pipeline at num_coarse 256
+    or 448: each S' and C' call's (C_in, C_out, group) and the design the
+    wrapper takes for it."""
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+
+    seen = {}
+
+    def record(kernel, fn):
+        def wrapped(x, w, *args):
+            group = args[-1] if isinstance(args[-1], int) else 0
+            key = (kernel, x.shape[2], w.shape[0], group)
+            seen[key] = port_layer.backward_design(x.shape[2], w.shape[0])
+            return fn(x, w, *args)
+        return wrapped
+
+    monkeypatch.setattr(port_layer, "stats_bwd", record("S'", port_layer.stats_bwd))
+    monkeypatch.setattr(port_layer, "layer_project_bwd",
+                        record("C'", port_layer.layer_project_bwd))
+    enc, dec, nc = _PIPELINES[name]
+    model = build_model(Config.from_dict({"enc_type": enc, "dec_type": dec,
+                                          "num_coarse": nc, "seed": 3})).train()
+    xyz = torch.from_numpy((np.random.default_rng(5).standard_normal((1, 600, 3)) * 0.3)
+                           .astype(np.float32))
+    coarse, fine = model(xyz)
+    (coarse.square().sum() + fine.square().sum()).backward()
+    assert seen == _EXPECTED[name]
+
+
+@pytest.mark.parametrize("c_in,c_out,design", [
+    (1, 256, "narrow"), (2, 256, "narrow"), (2, 32, "narrow"), (15, 256, "narrow"),
+    (16, 15, "narrow"), (16, 16, "wide"), (48, 80, "wide"), (256, 128, "wide"),
+    (256, 256, "wide"), (512, 512, "wide"),
+])
+def test_backward_design_boundary(c_in, c_out, design):
+    """Wide from C_in = C_out = 16 (one m16n8k16 product's depth) up; C'
+    at group 64 (256 -> 128, phase 3 of chip_smoke.py) is wide too: the
+    choice reads the shape only."""
+    assert port_layer.backward_design(c_in, c_out) == design
+
+
+def _split_points(s, chunk, bsz, n, bf16):
+    """The (plane, point) pairs that split ``s`` of the wide pass 3 sums
+    over, walked as ``dw_wide_f32`` / ``dw_wide_bf16`` walk them: stage t
+    is plane t // ceil(n / step), points (t % ceil(n / step)) * step ..."""
+    step = port_layer.wide_stage_points(bf16)
+    per_plane = -(-n // step)
+    for t in range(s * chunk, min((s + 1) * chunk, bsz * 3 * per_plane)):
+        n0 = (t % per_plane) * step
+        for p in range(n0, min(n0 + step, n)):
+            yield t // per_plane, p
+
+
+@pytest.mark.parametrize("bsz,n,c_in,c_out,two,bf16", [
+    (2, 1000, 48, 80, True, False),
+    (2, 1000, 48, 80, False, True),
+    (1, 4100, 256, 256, True, True),
+    (3, 17, 16, 16, False, True),
+    (2, 1088, 256, 128, True, False),
+    (8, 16384, 256, 256, False, False),
+])
+def test_wide_split_covers_every_point_once(bsz, n, c_in, c_out, two, bf16):
+    """Every (plane, point) of B*3 planes of n points lies in exactly one
+    split's stages, no split is empty, and the splits fill the card (132
+    SMs) at least once over."""
+    sms = 132
+    splits, chunk = port_layer.wide_split(c_in, c_out, bsz, n, two, bf16, sms)
+    step = port_layer.wide_stage_points(bf16)
+    stages = bsz * 3 * -(-n // step)
+    assert splits >= 1 and chunk >= 1
+    assert (splits - 1) * chunk < stages <= splits * chunk  # none empty, none missing
+    seen = np.zeros((bsz * 3, n), dtype=np.int64)
+    for s in range(splits):
+        pts = list(_split_points(s, chunk, bsz, n, bf16))
+        assert pts, f"split {s} is empty"
+        planes, points = np.array(pts).T
+        np.add.at(seen, (planes, points), 1)
+    assert (seen == 1).all()
+    tiles = -(-c_out // (64 if two else 128)) * -(-c_in // 128)
+    assert splits * tiles >= min(sms, stages * tiles)

@@ -24,24 +24,63 @@
 // tile's dW into one output; Hopper blocks run in no order, and a register
 // tile that holds dx for all input channels does not fit.  So each backward
 // is three passes, all hand-written here, with no float atomics:
-//   1. pd_pass: the tile products of vn_tile.cuh recompute p (and d); the
-//      epilogue backward runs in registers; dp (and dd) go to a scratch
-//      buffer of B*3*Cout*N floats each, and the per-channel sums go out as
-//      one partial per (sample, 64-point tile), summed over the 16 point
-//      groups of a tile with a fixed butterfly.  The bias sums go out as one
-//      partial per (sample, tile) too where a bias column covers whole tiles
-//      (group 0 or group >= 64), else (pd_pass<kSplit>) as 64 / group
-//      sub-partials per tile, each the sum over one group's points (a
-//      butterfly over group / 4 lanes, or a thread's own points for
-//      group < 4).
-//   2. dx_gemm: dx = W^T dp (+ Wd^T dd), a 64 x 64 output tile per block,
-//      the same 4 x 4 register micro-tile and fmaf loop over Cout.
-//   3. dw_gemm: each block owns a 64 x 64 tile of dW (and dWd, which share
-//      the x loads) and one of S contiguous chunks of the B*3*N points
+//   1. pass 1 recomputes p (and d) for all three planes of a (channel x
+//      64-point) tile, runs the epilogue backward in registers, writes dp
+//      (and dd) to a scratch of B*3*Cout*N elements each, and the
+//      per-channel sums as one partial per (sample, 64-point tile), summed
+//      in a fixed order.  The bias sums go out as one partial per (sample,
+//      tile) too where a bias column covers whole tiles (group 0 or >= 64),
+//      else (kSplit) as 64 / group sub-partials per tile, each the sum over
+//      one group's points;
+//   2. dx = W^T dp (+ Wd^T dd);
+//   3. dW = sum dp x^T (dWd = sum dd x^T, sharing the x loads), each block
+//      one output tile and one of S contiguous chunks of the B*3*N points
 //      (split K), writing a partial tile.
 // vnk_reduce_rows then sums every partial in a fixed order (the bias
 // partials over the tiles of each column), so each run of a kernel gives the
 // same bits.  S is pass 1 alone, with the norm sums.
+//
+// Two designs of the three passes; the wrapper picks one from (Cin, Cout)
+// (ops/vn_layer_fused.py::backward_design) and neither stands in for the
+// other:
+//   narrow (Cin or Cout < 16: final_conv.0's 2 -> 256, the pair folds' 1
+//      -> 256; and every B'): pd_pass with the 4 x 4 FMA micro-tile of vn_tile.cuh,
+//      dx_gemm and dw_gemm below.  These shapes are bound by bytes, not
+//      operations.
+//   wide (Cin >= 16 and Cout >= 16, S' and C' only: final_conv.1's 256 ->
+//      256, vn_folding{1,2}.1's 256 -> 128): W (and Wd) first transposed
+//      into a (Cin, Cout) scratch in the activations' type (bf16-rounded in
+//      the bf16 mode, the rounding the products' operands get); then in
+//      every pass a ring of shared-memory stages filled by cp.async
+//      (vn_mma.cuh), loading the next reduction slice while the current one
+//      multiplies, one barrier a slice.
+//      Pass 1 of float32 S' and C' and of bf16 C' (pd_wide_fma): FP32 FMAs
+//      on the CUDA cores, pd_pass's layout and epilogue at 2 (C') or 4 (S')
+//      channels x 4 points x 3 planes a thread, 256 threads, two blocks an
+//      SM, over a ring of 16-channel stages (32 for bf16); p, d summed in
+//      input-channel order with fmaf, so they have pd_pass's bits and the
+//      plain version's.  bf16 C' takes it because its epilogue backward
+//      turns a p or d one bf16 ulp off (which another summation order
+//      gives, rarely) into dp, dd several percent off, beyond what the 1e-4
+//      bound on dW, dWd absorbs; S' has no such amplification.
+//      Pass 1 of bf16 S' (pd_wide_mma): the tensor cores, warp-level
+//      mma.sync.m16n8k16 bf16 -> float32 (exact products, float32 sums:
+//      JAX's preferred_element_type=float32), W^T and x read by
+//      ldmatrix.trans, a 128-channel x 64-point tile in 16 warps (32 x 16
+//      each, 3 planes), three 32-channel stages; its epilogue reads the
+//      accumulators in their fragment layout and sums the bias columns over
+//      a quad by shuffles, then across the point warps in warp order
+//      through shared memory.
+//      Passes 2 and 3 in float32 (dx_wide_f32, dw_wide_f32): FP32 FMAs (the
+//      float32 policy keeps products in full float32; 3xTF32 would round
+//      each product), 128 x 128 tiles (pass 3: 64 x 128 for C'), 8 x 8 a
+//      thread, three stages 32 (pass 2) or 16 (pass 3) deep.  In bf16
+//      (dx_wide_bf16, dw_wide_bf16): mma.sync as pass 1, dp/dd read by
+//      ldmatrix.trans in pass 2, dp/dd and x plain in pass 3 (both lie with
+//      the points contiguous), three 32-deep stages.  The grids run the row blocks of one point tile
+//      together, so x (pass 1) and dp, dd (pass 2) come from DRAM once.
+//   Pass 3's chunks are whole stages of one plane (the wrapper's
+//   wide_split), so a stage never straddles two planes.
 //
 // Bound on the H100 at the main path's shapes (batch 8, N = 16384):
 //   S at 256 -> 256: operations, the 2*Cin*Cout*3*B*N FLOP of p = W x.
@@ -51,27 +90,29 @@
 //      dW, dWd).
 // The attention decoder's pair fold (1 -> 256, N = 14336, group 64) is
 // bound by bytes like B': S and S' read x (one channel) and write dx, B'
-// reads g; the bias columns are 1/64 of a plane.
-// All products run as FP32 FMAs on the CUDA cores (the float32 policy keeps
-// them off the tensor cores).  Passes 2 and 3 read the dp/dd scratch back
-// once each; the scratch round trip is what a fused later version removes.
+// reads g; the bias columns are 1/64 of a plane.  Passes 2 and 3 read the
+// dp/dd scratch back once each: that round trip (403 / 805 MB for S' / C'
+// in float32 at 256 -> 256, half in bf16) is what a fused later version
+// removes.
 //
 // The bf16 mode (entry points <name>_bf16; T = vnk_bf16: x, the biases, g,
 // dx and the dp/dd scratch bfloat16; W, Wd, A, B, w_out, c1, c2, dW, the
 // per-channel and the bias sums float32) is the TPU kernels' bf16=True
 // (vn_layer_fused.py:61-65, :86-123, :204-209, :440-457, :733-750):
-//   pass 1 recomputes p and d as the forward's bf16 mode does (vn_tile.cuh:
-//      products of bf16-rounded W and x summed in float32, the bias added,
-//      one rounding through bf16), runs the float32 epilogue backward on
-//      them and on the bf16 cotangent (C': w_out * g formed in float32),
-//      writes the per-channel and the bias partials from the float32 dp
-//      and dd, and only then rounds dp and dd to bf16 as it stores them:
-//      the scratch holds JAX's dp16 and dd16 (half the float32 mode's);
+//   pass 1 recomputes p and d as the forward's bf16 mode does: products of
+//      bf16-rounded W and x summed in float32, the bias added, one rounding
+//      through bf16; runs the float32 epilogue backward on them and on the
+//      bf16 cotangent (C': w_out * g formed in float32), writes the
+//      per-channel and the bias partials from the float32 dp and dd, and
+//      only then rounds dp and dd to bf16 as it stores them: the scratch
+//      holds JAX's dp16 and dd16;
 //   pass 2 takes dx = W16^T dp16 (+ Wd16^T dd16), exact products summed in
 //      float32, stored bf16;
 //   pass 3 takes dW = dp16 x16^T (dWd = dd16 x16^T) in float32.
-// The loops are the float32 mode's over bf16 loads: the bf16 bounds (the
-// tensor cores' rate, half the bytes) are for a redesign with mma/wgmma.
+// The narrow passes run the float32 mode's loops over bf16 loads.
+#include <algorithm>
+
+#include "vn_mma.cuh"
 #include "vn_tile.cuh"
 
 namespace {
@@ -134,6 +175,168 @@ __device__ __forceinline__ void store4(vnk_bf16* row, int n, int N, bool vec,
 #pragma unroll
     for (int q = 0; q < 4; ++q)
       if (n + q < N) row[n + q] = __float2bfloat16_rn(v[q]);
+  }
+}
+
+// The epilogue of the wide FMA pass 1 (pd_wide_fma): pd_pass's below for
+// kMC channels a thread (thread (ty, tx) holds channels c0 + ty * kMC + i,
+// points n0 + tx * 4 + q).  The sums over a channel's 64 points run over a
+// thread's 4, then a fixed butterfly over its 16 lanes.  (pd_pass keeps its
+// own copy: moved into a function, it compiled to other code, and kernel S
+// ran slower.)
+template <int kMode, bool kSplit, int kMC, typename T>
+__device__ __forceinline__ void pd_epilogue(const PdArgs<T>& args,
+                                            const float (&accp)[3][kMC][4],
+                                            const float (&accd)[3][kMC][4], int t, int bi,
+                                            int c0, int n0) {
+  constexpr bool kWithD = kMode == kLayerBwd || kMode == kProjBwd;
+  constexpr int kNqc = channel_sums<kMode>();
+  constexpr bool kWrites = kMode != kStatsFwd;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int Cout = args.Cout, N = args.N;
+  const bool has_bias = args.pbias != nullptr;
+  const bool vec_store = (N % 4 == 0) && (n0 + tx * 4 + 3 < N);
+
+#pragma unroll
+  for (int i = 0; i < kMC; ++i) {
+    const int c = c0 + ty * kMC + i;
+    const bool cok = c < Cout;
+    float av = 0.f, bv = 0.f, wo = 0.f, c1v = 0.f, c2v = 0.f;
+    if (cok) {
+      if (kWithD) {
+        av = args.a[c];
+        bv = args.b[c];
+      }
+      if (kMode == kProjBwd) wo = args.w_out[c];
+      if (kMode == kStatsBwd) {
+        c1v = args.c1[c];
+        c2v = args.c2[c];
+      }
+    }
+    float sc[3] = {0.f, 0.f, 0.f}, sp[3] = {0.f, 0.f, 0.f}, sd[3] = {0.f, 0.f, 0.f};
+    float outp[3][4], outd[3][4];
+    float pb[3] = {0.f, 0.f, 0.f}, db[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int n = n0 + tx * 4 + q;
+      const bool ok = cok && n < N;
+      // a thread's 4 points share one bias column unless group is 1 or 2
+      if (has_bias && cok && (q == 0 || (kSplit && args.group < 4))) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          pb[j] = vnk_bias(args.pbias, bi, j, c, Cout, n, N, args.group);
+          if (kWithD) db[j] = vnk_bias(args.dbias, bi, j, c, Cout, n, N, args.group);
+        }
+      }
+      // the bf16 mode rounds p and d through bf16 once
+      const float p[3] = {vnk_round_as<T>(accp[0][i][q] + pb[0]),
+                          vnk_round_as<T>(accp[1][i][q] + pb[1]),
+                          vnk_round_as<T>(accp[2][i][q] + pb[2])};
+      if (kMode == kStatsFwd) {
+        const float norm_e = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2]) + VNK_EPS;
+        if (ok) {
+          sc[0] += norm_e;
+          sc[1] += norm_e * norm_e;
+        }
+      } else if (kMode == kStatsBwd) {
+        const float pnorm = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2]);
+        const float norm_e = pnorm + VNK_EPS;
+        float scale = (c1v + 2.f * c2v * norm_e) *
+                      (pnorm > 0.f ? 1.f / fmaxf(pnorm, 1e-30f) : 0.f);
+        if (!ok) scale = 0.f;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          outp[j][q] = scale * p[j];
+          sp[j] += outp[j][q];
+        }
+      } else {
+        const float d[3] = {vnk_round_as<T>(accd[0][i][q] + db[0]),
+                            vnk_round_as<T>(accd[1][i][q] + db[1]),
+                            vnk_round_as<T>(accd[2][i][q] + db[2])};
+        float gp[3] = {0.f, 0.f, 0.f}, gv[3] = {0.f, 0.f, 0.f};
+        if (ok) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            if (kMode == kProjBwd) {
+              gp[j] = vnk_load(args.g[(static_cast<size_t>(bi) * 3 + j) * N + n]);
+              gv[j] = wo * gp[j];
+            } else {
+              gv[j] = vnk_load(args.g[((static_cast<size_t>(bi) * 3 + j) * Cout + c) * N + n]);
+            }
+          }
+        }
+        float dpv[3], ddv[3], o[3], dqp, norm_e;
+        vnk_bn_leaky_bwd(p, d, gv, av, bv, args.one_minus_ns, dpv, ddv, &dqp,
+                         &norm_e, kMode == kProjBwd ? o : nullptr);
+        if (ok) {
+          sc[0] += dqp;
+          sc[1] += dqp / norm_e;
+          if (kMode == kProjBwd) sc[2] += o[0] * gp[0] + o[1] * gp[1] + o[2] * gp[2];
+        }
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          outp[j][q] = ok ? dpv[j] : 0.f;
+          outd[j][q] = ok ? ddv[j] : 0.f;
+          sp[j] += outp[j][q];
+          sd[j] += outd[j][q];
+        }
+      }
+    }
+
+    // the partials below sum the float32 outp/outd; the stores round them
+    if (kWrites && cok) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const size_t row = ((static_cast<size_t>(bi) * 3 + j) * Cout + c) * N;
+        const int n = n0 + tx * 4;
+        store4(args.dp + row, n, N, vec_store, outp[j]);
+        if (kWithD) store4(args.dd + row, n, N, vec_store, outd[j]);
+      }
+    }
+
+    // one partial per (quantity, sample, tile, channel)
+    const size_t stride = static_cast<size_t>(args.B) * args.T * Cout;
+    const size_t at = (static_cast<size_t>(bi) * args.T + t) * Cout + c;
+#pragma unroll
+    for (int k = 0; k < kNqc; ++k) {
+      const float v = vnk_sum16(sc[k]);
+      if (tx == 0 && cok) args.partial[k * stride + at] = v;
+    }
+    if (kMode != kStatsFwd && has_bias) {
+      float* bias_part = args.partial + kNqc * stride;
+      const size_t bstride = stride * args.spt;
+      const size_t row0 = (static_cast<size_t>(bi) * args.T + t) * args.spt;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+#pragma unroll
+        for (int h = 0; h < (kWithD ? 2 : 1); ++h) {
+          const float o0 = h == 0 ? outp[j][0] : outd[j][0];
+          const float o1 = h == 0 ? outp[j][1] : outd[j][1];
+          const float o2 = h == 0 ? outp[j][2] : outd[j][2];
+          const float o3 = h == 0 ? outp[j][3] : outd[j][3];
+          float* dst = bias_part + (h * 3 + j) * bstride;
+          if (!kSplit) {  // group 0 or >= 64: one partial a tile
+            const float v = vnk_sum16(h == 0 ? sp[j] : sd[j]);
+            if (tx == 0 && cok) dst[row0 * Cout + c] = v;
+          } else if (args.sub >= 4) {  // a thread's 4 points, then its run of lanes
+            const int lanes = args.sub / 4;
+            const float v = vnk_sum_lanes(((o0 + o1) + o2) + o3, lanes);
+            if (tx % lanes == 0 && cok) dst[(row0 + tx / lanes) * Cout + c] = v;
+          } else if (args.sub == 2) {  // two groups in a thread's points
+            if (cok) {
+              dst[(row0 + tx * 2) * Cout + c] = o0 + o1;
+              dst[(row0 + tx * 2 + 1) * Cout + c] = o2 + o3;
+            }
+          } else if (cok) {  // group 1: every point its own column
+            dst[(row0 + tx * 4) * Cout + c] = o0;
+            dst[(row0 + tx * 4 + 1) * Cout + c] = o1;
+            dst[(row0 + tx * 4 + 2) * Cout + c] = o2;
+            dst[(row0 + tx * 4 + 3) * Cout + c] = o3;
+          }
+        }
+      }
+    }
   }
 }
 
@@ -462,6 +665,719 @@ dw_gemm(const T* __restrict__ g1, const T* __restrict__ g2,
   }
 }
 
+// ------------------------------------------------------------ wide passes
+//
+// W^T (and Wd^T) in the activations' type: wt (1 or 2, Cin, Cout), rounded to
+// bf16 in the bf16 mode (the rounding vn_tile.cuh gives W as it stages it).
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+transpose_weights(const float* __restrict__ w, const float* __restrict__ wd,
+                  T* __restrict__ wt, int Cin, int Cout) {
+  const int64_t total = static_cast<int64_t>(Cin) * Cout;
+  const int64_t all = wd != nullptr ? 2 * total : total;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kWideThreads + threadIdx.x; e < all;
+       e += static_cast<int64_t>(gridDim.x) * kWideThreads) {
+    const int64_t r = e % total;
+    const int k = static_cast<int>(r / Cout), c = static_cast<int>(r % Cout);
+    wt[e] = vnk_cast<T>((e < total ? w : wd)[static_cast<size_t>(c) * Cin + k]);
+  }
+}
+
+// Wide pass 1 on the CUDA cores (float32 S' and C', and bf16 C'):
+// pd_pass's layout, order and epilogue (thread (ty, tx) of the 16 x 16
+// grid: kMC channels x 4 points x 3 planes, of p and d for C'; two blocks
+// an SM, so one's epilogue overlaps the other's products) over a ring of
+// kKs input channels a stage: W^T rows in the activations' type T by
+// cp.async, the three x planes as float32 (bf16 x is loaded
+// into registers and widened as it is stored).  p and d are summed with
+// fmaf in input-channel order, so they have pd_pass's bits and the plain
+// version's.  bf16 C' takes this pass rather than the tensor cores: its
+// epilogue backward (BatchNorm on the norms, the reflection) turns a p or d
+// one bf16 ulp away -- which another summation order gives, rarely -- into
+// dp, dd several percent away, beyond what the 1e-4 bound on dW, dWd
+// absorbs.
+template <int kMode, typename T>
+struct PdFma {
+  static constexpr bool kWithD = kMode == kProjBwd;
+  static constexpr int kMC = kWithD ? 2 : 4;  // channels a thread
+  static constexpr int kBC = 16 * kMC;        // channels a block
+  // bf16 x: 32 channels a stage, two deep; float32: 16, three deep (each
+  // the faster on the card at 256 -> 256)
+  static constexpr int kKs = vnk_is_bf16<T>() ? 32 : 16, kStages = vnk_is_bf16<T>() ? 2 : 3;
+  static constexpr int kW = kKs * kBC;        // elements of one W stage
+  static constexpr int kX = kKs * kPts;       // floats of one x plane stage
+  static constexpr int kWBytes = (kWithD ? 2 : 1) * kW * static_cast<int>(sizeof(T));
+  static constexpr int kStage = kWBytes + 3 * kX * 4;  // bytes
+  static constexpr int kBytes = kStages * kStage;
+  static constexpr int kXChunks = 3 * kX / 8;  // 8-element bf16 loads of an x stage
+  static constexpr int kXPer = (kXChunks + kWideThreads - 1) / kWideThreads;  // a thread
+};
+
+// kN (2 or 4) consecutive elements of shared memory, widened to float.
+template <int kN>
+__device__ __forceinline__ void load_n(const float* p, float (&v)[kN]) {
+  static_assert(kN == 2 || kN == 4, "two or four elements");
+  if constexpr (kN == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  } else {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x;
+    v[1] = a.y;
+  }
+}
+
+template <int kN>
+__device__ __forceinline__ void load_n(const vnk_bf16* p, float (&v)[kN]) {
+#pragma unroll
+  for (int h = 0; h < kN / 2; ++h) {
+    const __nv_bfloat162 a = reinterpret_cast<const __nv_bfloat162*>(p)[h];
+    v[2 * h] = __low2float(a);
+    v[2 * h + 1] = __high2float(a);
+  }
+}
+
+// The bf16 pair in a 32-bit word, widened (exact).
+__device__ __forceinline__ float2 widen2(unsigned w) {
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+
+template <int kMode, bool kSplit, typename T>
+__global__ void __launch_bounds__(kWideThreads, 2)
+pd_wide_fma(PdArgs<T> args, const T* __restrict__ wt, bool aw, bool ax) {
+  using P = PdFma<kMode, T>;
+  constexpr int kMC = P::kMC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int t = blockIdx.y, bi = blockIdx.z;  // channel blocks of a tile run together
+  const int n0 = t * kPts, c0 = blockIdx.x * P::kBC;
+  const int Cin = args.Cin, Cout = args.Cout, N = args.N;
+  const T* xb = args.x + static_cast<size_t>(bi) * 3 * Cin * N;
+  const T* wdt = wt + static_cast<size_t>(Cin) * Cout;
+
+  float accp[3][kMC][4], accd[3][kMC][4];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int i = 0; i < kMC; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) accp[j][i][q] = accd[j][i][q] = 0.f;
+
+  uint4 xraw[P::kXPer];  // bf16: this thread's 8-value pieces of the next x stage
+  int xat[P::kXPer];     // ... and where they go in it
+  auto load = [&](int s, int kt) {
+    unsigned char* st = smem_raw + s * P::kStage;
+    const int k0 = kt * P::kKs;
+    const size_t wrow = static_cast<size_t>(k0) * Cout + c0;
+    T* ws = reinterpret_cast<T*>(st);
+    stage_tile<T, P::kKs, P::kBC>(ws, P::kBC, wt + wrow, Cout, Cin - k0, Cout - c0, aw);
+    if (P::kWithD)
+      stage_tile<T, P::kKs, P::kBC>(ws + P::kW, P::kBC, wdt + wrow, Cout, Cin - k0, Cout - c0,
+                                    aw);
+    if constexpr (!vnk_is_bf16<T>()) {
+      float* xs = reinterpret_cast<float*>(st + P::kWBytes);
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        stage_tile<float, P::kKs, kPts>(xs + j * P::kX, kPts,
+                                        xb + (static_cast<size_t>(j) * Cin + k0) * N + n0, N,
+                                        Cin - k0, N - n0, ax);
+    } else {
+#pragma unroll
+      for (int u = 0; u < P::kXPer; ++u) {
+        const int e = threadIdx.x + u * kWideThreads;
+        if (e >= P::kXChunks) break;
+        const int j = e / (P::kX / 8), r = e / (kPts / 8) % P::kKs, cc = e % (kPts / 8) * 8;
+        const T* row = xb + (static_cast<size_t>(j) * Cin + k0 + r) * N + n0;
+        const int len = k0 + r < Cin ? N - n0 : 0;
+        xat[u] = (j * P::kKs + r) * kPts + cc;
+        if (ax && cc + 8 <= len) {
+          xraw[u] = *reinterpret_cast<const uint4*>(row + cc);
+        } else {
+          unsigned h[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            h[q] = cc + q < len ? __bfloat16_as_ushort(row[cc + q]) : 0u;
+          xraw[u] = make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16, h[4] | h[5] << 16,
+                               h[6] | h[7] << 16);
+        }
+      }
+    }
+  };
+  auto store = [&](int s) {
+    if constexpr (vnk_is_bf16<T>()) {
+      float* xs = reinterpret_cast<float*>(smem_raw + s * P::kStage + P::kWBytes);
+#pragma unroll
+      for (int u = 0; u < P::kXPer; ++u) {
+        if (threadIdx.x + u * kWideThreads >= P::kXChunks) break;
+        const float2 a = widen2(xraw[u].x), b = widen2(xraw[u].y), c = widen2(xraw[u].z),
+                     d = widen2(xraw[u].w);
+        reinterpret_cast<float4*>(xs + xat[u])[0] = make_float4(a.x, a.y, b.x, b.y);
+        reinterpret_cast<float4*>(xs + xat[u])[1] = make_float4(c.x, c.y, d.x, d.y);
+      }
+    }
+  };
+  auto compute = [&](int s) {
+    const unsigned char* st = smem_raw + s * P::kStage;
+    const T* ws = reinterpret_cast<const T*>(st);
+    const T* wds = ws + P::kW;
+    const float* xs = reinterpret_cast<const float*>(st + P::kWBytes);
+#pragma unroll
+    for (int k = 0; k < P::kKs; ++k) {
+      float wr[kMC], dr[kMC];
+      load_n<kMC>(ws + k * P::kBC + ty * kMC, wr);
+      if (P::kWithD) load_n<kMC>(wds + k * P::kBC + ty * kMC, dr);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        float xr[4];
+        load_n<4>(xs + (j * P::kKs + k) * kPts + tx * 4, xr);
+#pragma unroll
+        for (int i = 0; i < kMC; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            accp[j][i][q] = fmaf(wr[i], xr[q], accp[j][i][q]);
+            if (P::kWithD) accd[j][i][q] = fmaf(dr[i], xr[q], accd[j][i][q]);
+          }
+      }
+    }
+  };
+  pipeline<P::kStages>((Cin + P::kKs - 1) / P::kKs, load, compute, store);
+  pd_epilogue<kMode, kSplit, kMC>(args, accp, accd, t, bi, c0, n0);
+}
+
+// Wide pass 1 of S' in bf16, on the tensor cores: warp (wm, wn) of the 4 x 4
+// grid owns channels wm * 32 .. of the block's 128 and points wn * 16 .. of
+// its 64: two m16 tiles x two n8 tiles a plane.
+struct PdBf16 {
+  static constexpr int kThreads = 512;  // 16 warps
+  static constexpr int kMT = 2, kBC = 128;
+  static constexpr int kKs = 32, kStages = 3;
+  static constexpr int kWld = kBC + 8, kXld = kPts + 8;  // padded rows: no bank conflicts
+  static constexpr int kW = kKs * kWld, kX = kKs * kXld;
+  static constexpr int kStage = kW + 3 * kX;  // bf16 elements
+  static constexpr int kBytes = kStages * kStage * 2 + 4 * kBC * 3 * 4;  // + the bias sums
+};
+
+// dp at points n, n + 1 of a row, rounded to bf16.
+__device__ __forceinline__ void store2(vnk_bf16* row, int n, int N, float v0, float v1) {
+  if (n + 1 < N && N % 2 == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(row + n) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    if (n < N) row[n] = __float2bfloat16_rn(v0);
+    if (n + 1 < N) row[n + 1] = __float2bfloat16_rn(v1);
+  }
+}
+
+template <bool kSplit>
+__global__ void __launch_bounds__(PdBf16::kThreads, 1)
+pd_wide_mma(PdArgs<vnk_bf16> args, const vnk_bf16* __restrict__ wt, bool aw, bool ax) {
+  using T = vnk_bf16;
+  using P = PdBf16;
+  constexpr int kMT = P::kMT, kBC = P::kBC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  float* const red = reinterpret_cast<float*>(smem_raw + P::kStages * P::kStage * 2);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp % 4, wn = warp / 4, grp = lane / 4, tig = lane % 4;
+  const int t = blockIdx.y, bi = blockIdx.z;  // channel blocks of a tile run together
+  const int n0 = t * kPts, c0 = blockIdx.x * kBC;
+  const int Cin = args.Cin, Cout = args.Cout, N = args.N;
+  const T* xb = args.x + static_cast<size_t>(bi) * 3 * Cin * N;
+
+  float acc[3][kMT][2][4];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][mt][nt][e] = 0.f;
+
+  auto load = [&](int s, int kt) {
+    T* st = sm + s * P::kStage;
+    const int k0 = kt * P::kKs;
+    stage_tile<T, P::kKs, kBC, P::kThreads>(st, P::kWld, wt + static_cast<size_t>(k0) * Cout + c0,
+                                           Cout, Cin - k0, Cout - c0, aw);
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      stage_tile<T, P::kKs, kPts, P::kThreads>(
+          st + P::kW + j * P::kX, P::kXld, xb + (static_cast<size_t>(j) * Cin + k0) * N + n0, N,
+          Cin - k0, N - n0, ax);
+  };
+  auto compute = [&](int s) {
+    const T* ws = sm + s * P::kStage;
+    const T* xs = ws + P::kW;
+#pragma unroll
+    for (int ks = 0; ks < P::kKs; ks += 16) {
+      unsigned a[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) frag_a_t(a[mt], ws, P::kWld, wm * 16 * kMT + mt * 16, ks);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        unsigned b[4];
+        frag_b2_t(b, xs + j * P::kX, P::kXld, wn * 16, ks);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          mma_bf16(acc[j][mt][0], a[mt], b[0], b[1]);
+          mma_bf16(acc[j][mt][1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+  };
+  pipeline<P::kStages>((Cin + P::kKs - 1) / P::kKs, load, compute);
+
+  // The epilogue on the fragments: a thread holds, per (mt, row half r),
+  // channel c0 + wm 32 + mt 16 + grp + 8 r at points n0 + wn 16 + nt 8 +
+  // 2 tig + e (nt, e < 2), all three planes of p.  A bias sum runs over a
+  // thread's points, its quad (shuffles), then, for columns of 16 points
+  // or more, the point warps in order (shared memory).
+  const bool has_bias = args.pbias != nullptr;
+  const int sub = args.sub;
+  const bool warp_sums = has_bias && (!kSplit || sub >= 16);
+  const size_t bstride = static_cast<size_t>(args.B) * args.T * Cout * args.spt;
+  const size_t row0 = (static_cast<size_t>(bi) * args.T + t) * args.spt;
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int cl = wm * 16 * kMT + mt * 16 + grp + 8 * r;
+      const int c = c0 + cl;
+      const bool cok = c < Cout;
+      const float c1v = cok ? args.c1[c] : 0.f, c2v = cok ? args.c2[c] : 0.f;
+      float sb[3] = {0.f, 0.f, 0.f};  // the warp's bias sums
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int lp = wn * 16 + nt * 8 + 2 * tig;  // the pair's first point in the tile
+        float o[2][3];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {  // dp = (c1 + 2 c2 (|p| + EPS)) p / |p|, as pd_pass
+          const int n = n0 + lp + e;
+          float p[3];
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            const float pb = has_bias && cok ? vnk_bias(args.pbias, bi, j, c, Cout, n, N,
+                                                        args.group) : 0.f;
+            p[j] = vnk_round_bf16(acc[j][mt][nt][2 * r + e] + pb);
+          }
+          const float pnorm = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2]);
+          const float norm_e = pnorm + VNK_EPS;
+          float scale = (c1v + 2.f * c2v * norm_e) *
+                        (pnorm > 0.f ? 1.f / fmaxf(pnorm, 1e-30f) : 0.f);
+          if (!(cok && n < N)) scale = 0.f;
+#pragma unroll
+          for (int j = 0; j < 3; ++j) o[e][j] = scale * p[j];
+        }
+        if (cok) {  // the stores round dp; the bias sums read the float32 values
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            store2(args.dp + ((static_cast<size_t>(bi) * 3 + j) * Cout + c) * N, n0 + lp, N,
+                   o[0][j], o[1][j]);
+        }
+        if (!has_bias) continue;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const float pair = o[0][j] + o[1][j];
+          float* dst = args.partial + j * bstride;
+          if (warp_sums) {
+            sb[j] += pair;
+          } else if (sub == 8) {  // one n8 tile a column
+            const float v = quad_sum(pair);
+            if (tig == 0 && cok) dst[(row0 + lp / 8) * Cout + c] = v;
+          } else if (sub == 4) {  // two lanes' pairs
+            const float v = pair + __shfl_xor_sync(0xffffffffu, pair, 1);
+            if (tig % 2 == 0 && cok) dst[(row0 + lp / 4) * Cout + c] = v;
+          } else if (sub == 2) {
+            if (cok) dst[(row0 + lp / 2) * Cout + c] = pair;
+          } else if (cok) {  // group 1: every point its own column
+            dst[(row0 + lp) * Cout + c] = o[0][j];
+            dst[(row0 + lp + 1) * Cout + c] = o[1][j];
+          }
+        }
+      }
+      if (warp_sums) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const float v = quad_sum(sb[j]);
+          if (tig == 0) red[((wn * kBC + cl) * 3) + j] = v;
+        }
+      }
+    }
+  }
+  if (!warp_sums) return;
+  __syncthreads();
+  // a bias column of w = sub / 16 point warps (4 for group 0 or >= 64)
+  // sums its w in order
+  if (threadIdx.x < kBC && c0 + static_cast<int>(threadIdx.x) < Cout) {
+    const int cl = threadIdx.x, c = c0 + cl;
+    const int per = kSplit ? sub / 16 : 4;
+    for (int j = 0; j < 3; ++j)
+      for (int col = 0; col < 4 / per; ++col) {
+        float v = red[(col * per * kBC + cl) * 3 + j];
+        for (int w = col * per + 1; w < (col + 1) * per; ++w) v += red[(w * kBC + cl) * 3 + j];
+        args.partial[j * bstride + (row0 + col) * Cout + c] = v;
+      }
+  }
+}
+
+// Wide pass 2: dx[bj, k, n] = sum_c W[c, k] g1[bj, c, n] (+ Wd g2), a
+// kBM x kBN (input channel x point) tile per block; the reduction runs over
+// the Cout channels of (W, g1), then of (Wd, g2).
+struct DxF32 {
+  static constexpr int kBM = 128, kBN = 128, kKs = 32, kStages = 3;
+  static constexpr int kStage = kKs * kBM + kKs * kBN;
+  static constexpr int kBytes = kStages * kStage * 4;
+};
+
+// float32: A = W as stored ([c][k], k contiguous), B = g ([c][n]); thread
+// (ty, tx) holds rows {ty * 4 + i, 64 + ty * 4 + i} x points {tx * 4 + q,
+// 64 + tx * 4 + q}, read as float4 (a half warp shares its A rows).
+template <bool kTwo>
+__global__ void __launch_bounds__(kWideThreads, 2)
+dx_wide_f32(const float* __restrict__ w, const float* __restrict__ wd,
+            const float* __restrict__ g1, const float* __restrict__ g2,
+            float* __restrict__ dx, int Cin, int Cout, int N, bool aw, bool ag) {
+  using P = DxF32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const sm = reinterpret_cast<float*>(smem_raw);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = blockIdx.x * P::kBM, n0 = blockIdx.y * P::kBN;  // row blocks together
+  const size_t bj = blockIdx.z;
+  const int nk = (Cout + P::kKs - 1) / P::kKs;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[i][q] = 0.f;
+
+  auto load = [&](int s, int kt) {
+    float* st = sm + s * P::kStage;
+    const bool second = kTwo && kt >= nk;
+    const int c0 = (second ? kt - nk : kt) * P::kKs;
+    const float* a = second ? wd : w;
+    const float* g = (second ? g2 : g1) + bj * Cout * N;
+    stage_tile<float, P::kKs, P::kBM>(st, P::kBM, a + static_cast<size_t>(c0) * Cin + m0, Cin,
+                                      Cout - c0, Cin - m0, aw);
+    stage_tile<float, P::kKs, P::kBN>(st + P::kKs * P::kBM, P::kBN,
+                                      g + static_cast<size_t>(c0) * N + n0, N, Cout - c0,
+                                      N - n0, ag);
+  };
+  auto compute = [&](int s) {
+    const float* as = sm + s * P::kStage;
+    const float* bs = as + P::kKs * P::kBM;
+#pragma unroll 4
+    for (int k = 0; k < P::kKs; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + k * P::kBM + ty * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + k * P::kBM + 64 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + k * P::kBN + tx * 4);
+      const float4 b1 = *reinterpret_cast<const float4*>(bs + k * P::kBN + 64 + tx * 4);
+      const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[i][q] = fmaf(ar[i], br[q], acc[i][q]);
+    }
+  };
+  pipeline<P::kStages>(kTwo ? 2 * nk : nk, load, compute);
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? 0 : 64) + ty * 4 + i % 4;
+    if (m >= Cin) continue;
+    float* row = dx + (bj * Cin + m) * N;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + 64 * h + tx * 4;
+      const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]};
+      store4(row, n, N, N % 4 == 0 && n + 3 < N, v);
+    }
+  }
+}
+
+// bf16: A = W^T16 ([k][c], the reduction contiguous), B = g16 ([c][n], read
+// with .trans); warp (wm, wn) of the 2 x 4 grid owns 64 rows x 32 points.
+struct DxBf16 {
+  static constexpr int kBM = 128, kBN = 128, kKs = 32, kStages = 3;
+  static constexpr int kAld = kKs + 8, kBld = kBN + 8;
+  static constexpr int kA = kBM * kAld, kB = kKs * kBld;
+  static constexpr int kStage = kA + kB;
+  static constexpr int kBytes = kStages * kStage * 2;
+};
+
+template <bool kTwo>
+__global__ void __launch_bounds__(kWideThreads, 2)
+dx_wide_bf16(const vnk_bf16* __restrict__ wt, const vnk_bf16* __restrict__ g1,
+             const vnk_bf16* __restrict__ g2, vnk_bf16* __restrict__ dx, int Cin, int Cout,
+             int N, bool aw, bool ag) {
+  using T = vnk_bf16;
+  using P = DxBf16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp % 2, wn = warp / 2, grp = lane / 4, tig = lane % 4;
+  const int m0 = blockIdx.x * P::kBM, n0 = blockIdx.y * P::kBN;  // row blocks together
+  const size_t bj = blockIdx.z;
+  const int nk = (Cout + P::kKs - 1) / P::kKs;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  auto load = [&](int s, int kt) {
+    T* st = sm + s * P::kStage;
+    const bool second = kTwo && kt >= nk;
+    const int c0 = (second ? kt - nk : kt) * P::kKs;
+    const T* a = wt + (second ? static_cast<size_t>(Cin) * Cout : 0);
+    const T* g = (second ? g2 : g1) + bj * Cout * N;
+    stage_tile<T, P::kBM, P::kKs>(st, P::kAld, a + static_cast<size_t>(m0) * Cout + c0, Cout,
+                                  Cin - m0, Cout - c0, aw);
+    stage_tile<T, P::kKs, P::kBN>(st + P::kA, P::kBld, g + static_cast<size_t>(c0) * N + n0,
+                                  N, Cout - c0, N - n0, ag);
+  };
+  auto compute = [&](int s) {
+    const T* as = sm + s * P::kStage;
+    const T* bs = as + P::kA;
+#pragma unroll
+    for (int ks = 0; ks < P::kKs; ks += 16) {
+      unsigned a[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) frag_a(a[mt], as, P::kAld, wm * 64 + mt * 16, ks);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        unsigned b[4];
+        frag_b2_t(b, bs, P::kBld, wn * 32 + np * 16, ks);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
+          mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+  };
+  pipeline<P::kStages>(kTwo ? 2 * nk : nk, load, compute);
+
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = m0 + wm * 64 + mt * 16 + grp + 8 * r;
+      if (m >= Cin) continue;
+      T* row = dx + (bj * Cin + m) * N;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        store2(row, n0 + wn * 32 + nt * 8 + 2 * tig, N, acc[mt][nt][2 * r],
+               acc[mt][nt][2 * r + 1]);
+    }
+}
+
+// Wide pass 3, split K: part[s, c, k] = sum over the stages of chunk s of
+// g1[bj, c, n] x[bj, k, n] (part2 with g2).  Stage t of the B*3 planes'
+// ceil(N / kKs) each is plane t / tiles_n, points (t % tiles_n) kKs ..;
+// chunk s is stages s * chunk .. (s + 1) * chunk - 1.
+template <bool kTwo>
+struct DwF32 {
+  static constexpr int kMI = kTwo ? 4 : 8;  // rows a thread
+  static constexpr int kBM = 16 * kMI, kBN = 128, kKs = 16, kStages = 3, kLd = kKs + 4;
+  static constexpr int kStage = ((kTwo ? 2 : 1) * kBM + kBN) * kLd;
+  static constexpr int kBytes = kStages * kStage * 4;
+};
+
+// float32: A = g ([c][n]) and B = x ([k][n]) both with the points
+// contiguous, rows padded to kKs + 4 (float4 reads of 8 neighbouring rows
+// hit distinct banks); thread (ty, tx) holds rows ty + 16 i x columns tx +
+// 16 q.
+template <bool kTwo>
+__global__ void __launch_bounds__(kWideThreads, 2)
+dw_wide_f32(const float* __restrict__ g1, const float* __restrict__ g2,
+            const float* __restrict__ x, float* __restrict__ part, float* __restrict__ part2,
+            int Cin, int Cout, int N, int planes, int chunk, bool ax) {
+  using P = DwF32<kTwo>;
+  constexpr int kMI = P::kMI;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const sm = reinterpret_cast<float*>(smem_raw);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int k0 = blockIdx.x * P::kBN, c0 = blockIdx.y * P::kBM, s = blockIdx.z;
+  const int tiles_n = (N + P::kKs - 1) / P::kKs;
+  const int t0 = s * chunk;
+  const int tiles = min(chunk, planes * tiles_n - t0);
+
+  float acc[kTwo ? 2 : 1][kMI][8];
+#pragma unroll
+  for (int h = 0; h < (kTwo ? 2 : 1); ++h)
+#pragma unroll
+    for (int i = 0; i < kMI; ++i)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[h][i][q] = 0.f;
+
+  auto load = [&](int st_i, int it) {
+    float* st = sm + st_i * P::kStage;
+    const int t = t0 + it;
+    const size_t bj = t / tiles_n;
+    const int n0 = (t % tiles_n) * P::kKs;
+    const size_t ga = (bj * Cout + c0) * N + n0;
+    stage_tile<float, P::kBM, P::kKs>(st, P::kLd, g1 + ga, N, Cout - c0, N - n0, ax);
+    if (kTwo)
+      stage_tile<float, P::kBM, P::kKs>(st + P::kBM * P::kLd, P::kLd, g2 + ga, N, Cout - c0,
+                                        N - n0, ax);
+    stage_tile<float, P::kBN, P::kKs>(st + (kTwo ? 2 : 1) * P::kBM * P::kLd, P::kLd,
+                                      x + (bj * Cin + k0) * N + n0, N, Cin - k0, N - n0, ax);
+  };
+  auto compute = [&](int st_i) {
+    const float* as = sm + st_i * P::kStage;
+    const float* bs = as + (kTwo ? 2 : 1) * P::kBM * P::kLd;
+#pragma unroll
+    for (int kk = 0; kk < P::kKs; kk += 4) {
+#pragma unroll
+      for (int qh = 0; qh < 8; qh += 4) {  // half the columns at a time: no spills
+        float4 b[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          b[q] = *reinterpret_cast<const float4*>(bs + (tx + 16 * (qh + q)) * P::kLd + kk);
+#pragma unroll
+        for (int h = 0; h < (kTwo ? 2 : 1); ++h)
+#pragma unroll
+          for (int i = 0; i < kMI; ++i) {
+            const float4 a =
+                *reinterpret_cast<const float4*>(as + (h * P::kBM + ty + 16 * i) * P::kLd + kk);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              float& c = acc[h][i][qh + q];
+              c = fmaf(a.x, b[q].x, c);
+              c = fmaf(a.y, b[q].y, c);
+              c = fmaf(a.z, b[q].z, c);
+              c = fmaf(a.w, b[q].w, c);
+            }
+          }
+      }
+    }
+  };
+  pipeline<P::kStages>(tiles, load, compute);
+
+#pragma unroll
+  for (int h = 0; h < (kTwo ? 2 : 1); ++h)
+#pragma unroll
+    for (int i = 0; i < kMI; ++i) {
+      const int c = c0 + ty + 16 * i;
+      if (c >= Cout) continue;
+      float* row = (h == 0 ? part : part2) + (static_cast<size_t>(s) * Cout + c) * Cin;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int k = k0 + tx + 16 * q;
+        if (k < Cin) row[k] = acc[h][i][q];
+      }
+    }
+}
+
+template <bool kTwo>
+struct DwBf16 {
+  static constexpr int kMT = kTwo ? 2 : 4;  // m16 tiles a warp
+  static constexpr int kBM = 32 * kMT, kBN = 128, kKs = 32, kStages = 3, kLd = kKs + 8;
+  static constexpr int kStage = ((kTwo ? 2 : 1) * kBM + kBN) * kLd;
+  static constexpr int kBytes = kStages * kStage * 2;
+};
+
+// bf16: A = g16 ([c][n]) and B = x16 ([k][n]), both with the reduction
+// (points) contiguous, read plain; warp (wm, wn) of the 2 x 4 grid owns
+// 16 kMT rows x 32 columns.
+template <bool kTwo>
+__global__ void __launch_bounds__(kWideThreads, 2)
+dw_wide_bf16(const vnk_bf16* __restrict__ g1, const vnk_bf16* __restrict__ g2,
+             const vnk_bf16* __restrict__ x, float* __restrict__ part,
+             float* __restrict__ part2, int Cin, int Cout, int N, int planes, int chunk,
+             bool ax) {
+  using T = vnk_bf16;
+  using P = DwBf16<kTwo>;
+  constexpr int kMT = P::kMT, kNh = kTwo ? 2 : 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp % 2, wn = warp / 2, grp = lane / 4, tig = lane % 4;
+  const int k0 = blockIdx.x * P::kBN, c0 = blockIdx.y * P::kBM, s = blockIdx.z;
+  const int tiles_n = (N + P::kKs - 1) / P::kKs;
+  const int t0 = s * chunk;
+  const int tiles = min(chunk, planes * tiles_n - t0);
+
+  float acc[kNh][kMT][4][4];
+#pragma unroll
+  for (int h = 0; h < kNh; ++h)
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[h][mt][nt][e] = 0.f;
+
+  auto load = [&](int st_i, int it) {
+    T* st = sm + st_i * P::kStage;
+    const int t = t0 + it;
+    const size_t bj = t / tiles_n;
+    const int n0 = (t % tiles_n) * P::kKs;
+    const size_t ga = (bj * Cout + c0) * N + n0;
+    stage_tile<T, P::kBM, P::kKs>(st, P::kLd, g1 + ga, N, Cout - c0, N - n0, ax);
+    if (kTwo)
+      stage_tile<T, P::kBM, P::kKs>(st + P::kBM * P::kLd, P::kLd, g2 + ga, N, Cout - c0,
+                                    N - n0, ax);
+    stage_tile<T, P::kBN, P::kKs>(st + kNh * P::kBM * P::kLd, P::kLd,
+                                  x + (bj * Cin + k0) * N + n0, N, Cin - k0, N - n0, ax);
+  };
+  auto compute = [&](int st_i) {
+    const T* as = sm + st_i * P::kStage;
+    const T* bs = as + kNh * P::kBM * P::kLd;
+#pragma unroll
+    for (int ks = 0; ks < P::kKs; ks += 16) {
+      unsigned a[kNh][kMT][4];
+#pragma unroll
+      for (int h = 0; h < kNh; ++h)
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+          frag_a(a[h][mt], as + h * P::kBM * P::kLd, P::kLd, wm * 16 * kMT + mt * 16, ks);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        unsigned b[4];
+        frag_b2(b, bs, P::kLd, wn * 32 + np * 16, ks);
+#pragma unroll
+        for (int h = 0; h < kNh; ++h)
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            mma_bf16(acc[h][mt][2 * np], a[h][mt], b[0], b[1]);
+            mma_bf16(acc[h][mt][2 * np + 1], a[h][mt], b[2], b[3]);
+          }
+      }
+    }
+  };
+  pipeline<P::kStages>(tiles, load, compute);
+
+#pragma unroll
+  for (int h = 0; h < kNh; ++h)
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int c = c0 + wm * 16 * kMT + mt * 16 + grp + 8 * r;
+        if (c >= Cout) continue;
+        float* row = (h == 0 ? part : part2) + (static_cast<size_t>(s) * Cout + c) * Cin;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int k = k0 + wn * 32 + nt * 8 + 2 * tig;
+          if (k + 1 < Cin && Cin % 2 == 0) {
+            *reinterpret_cast<float2*>(row + k) =
+                make_float2(acc[h][mt][nt][2 * r], acc[h][mt][nt][2 * r + 1]);
+          } else {
+            if (k < Cin) row[k] = acc[h][mt][nt][2 * r];
+            if (k + 1 < Cin) row[k + 1] = acc[h][mt][nt][2 * r + 1];
+          }
+        }
+      }
+}
+
 int tiles(int N) { return (N + kPts - 1) / kPts; }
 
 template <int kMode, typename T>
@@ -492,6 +1408,81 @@ void products_bwd(const T* x, const float* w, const float* wd, const T* dp,
                                      Cout, N, P, chunk);
   vnk_reduce_rows(dw_part, dw2, kTwo ? 2 : 1, S,
                   static_cast<int64_t>(Cout) * Cin, st);
+}
+
+// A 16-byte-aligned pointer whose rows (of `stride` elements) start
+// 16-byte-aligned too: the tiles of that matrix go by cp.async.
+bool aligned16(const void* p, int64_t stride, int vec) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && stride % vec == 0;
+}
+
+template <int kNT = kWideThreads, typename Kernel, typename... Args>
+cudaError_t launch_wide(Kernel kernel, dim3 grid, int bytes, cudaStream_t st, Args... args) {
+  const cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kNT, bytes, st>>>(args...);
+  return cudaGetLastError();
+}
+
+// W^T (and Wd^T) into wt, then the wide pass 1.
+template <int kMode, typename T>
+cudaError_t launch_pd_wide(const PdArgs<T>& args, T* wt, cudaStream_t st) {
+  constexpr int kV = 16 / static_cast<int>(sizeof(T));
+  const int64_t n_w = static_cast<int64_t>(args.Cin) * args.Cout * (kMode == kProjBwd ? 2 : 1);
+  const unsigned blocks = static_cast<unsigned>(std::min<int64_t>((n_w + 255) / 256, 4096));
+  transpose_weights<T><<<blocks, kWideThreads, 0, st>>>(
+      args.w, kMode == kProjBwd ? args.wd : nullptr, wt, args.Cin, args.Cout);
+  const bool aw = aligned16(wt, args.Cout, kV), ax = aligned16(args.x, args.N, kV);
+  const bool split = args.sub < kPts;
+  if constexpr (vnk_is_bf16<T>() && kMode == kStatsBwd) {
+    using P = PdBf16;
+    const dim3 grid((args.Cout + P::kBC - 1) / P::kBC, args.T, args.B);
+    return split ? launch_wide<P::kThreads>(pd_wide_mma<true>, grid, P::kBytes, st, args, wt, aw, ax)
+                 : launch_wide<P::kThreads>(pd_wide_mma<false>, grid, P::kBytes, st, args, wt, aw, ax);
+  } else {
+    using P = PdFma<kMode, T>;
+    const dim3 grid((args.Cout + P::kBC - 1) / P::kBC, args.T, args.B);
+    return split ? launch_wide(pd_wide_fma<kMode, true, T>, grid, P::kBytes, st, args, wt, aw, ax)
+                 : launch_wide(pd_wide_fma<kMode, false, T>, grid, P::kBytes, st, args, wt, aw, ax);
+  }
+}
+
+// Wide passes 2 and 3 and the split-K reduction: as products_bwd, with
+// `chunk` stages of pass 3 to a split.
+template <bool kTwo, typename T>
+cudaError_t products_wide(const T* x, const float* w, const float* wd, const T* wt, const T* dp,
+                          const T* dd, T* dx, float* dw2, float* dw_part, int B, int Cin,
+                          int Cout, int N, int S, int chunk, cudaStream_t st) {
+  constexpr int kV = 16 / static_cast<int>(sizeof(T));
+  const bool ag = aligned16(dp, N, kV) && (!kTwo || aligned16(dd, N, kV));
+  const bool ax = ag && aligned16(x, N, kV);
+  float* part2 = kTwo ? dw_part + static_cast<size_t>(S) * Cout * Cin : nullptr;
+  cudaError_t err;
+  if constexpr (vnk_is_bf16<T>()) {
+    using P = DxBf16;
+    using Q = DwBf16<kTwo>;
+    err = launch_wide(dx_wide_bf16<kTwo>,
+                      dim3((Cin + P::kBM - 1) / P::kBM, (N + P::kBN - 1) / P::kBN, B * 3),
+                      P::kBytes, st, wt, dp, dd, dx, Cin, Cout, N, aligned16(wt, Cout, kV), ag);
+    if (err != cudaSuccess) return err;
+    err = launch_wide(dw_wide_bf16<kTwo>,
+                      dim3((Cin + Q::kBN - 1) / Q::kBN, (Cout + Q::kBM - 1) / Q::kBM, S),
+                      Q::kBytes, st, dp, dd, x, dw_part, part2, Cin, Cout, N, B * 3, chunk, ax);
+  } else {
+    using P = DxF32;
+    using Q = DwF32<kTwo>;
+    const bool aw = aligned16(w, Cin, kV) && (!kTwo || aligned16(wd, Cin, kV));
+    err = launch_wide(dx_wide_f32<kTwo>,
+                      dim3((Cin + P::kBM - 1) / P::kBM, (N + P::kBN - 1) / P::kBN, B * 3),
+                      P::kBytes, st, w, wd, dp, dd, dx, Cin, Cout, N, aw, ag);
+    if (err != cudaSuccess) return err;
+    err = launch_wide(dw_wide_f32<kTwo>,
+                      dim3((Cin + Q::kBN - 1) / Q::kBN, (Cout + Q::kBM - 1) / Q::kBM, S),
+                      Q::kBytes, st, dp, dd, x, dw_part, part2, Cin, Cout, N, B * 3, chunk, ax);
+  }
+  if (err != cudaSuccess) return err;
+  vnk_reduce_rows(dw_part, dw2, kTwo ? 2 : 1, S, static_cast<int64_t>(Cout) * Cin, st);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -560,35 +1551,59 @@ int stats_fwd(const void* x, const void* w, const void* pbias, void* s12,
 template <typename T>
 int stats_bwd(const void* x, const void* w, const void* pbias, const void* c1,
               const void* c2, void* dx, void* dw, void* dpb, void* dp,
-              void* partial, void* dw_part, int B, int Cin, int Cout, int N,
-              int S, int group, void* stream) {
+              void* partial, void* dw_part, void* wt, int B, int Cin, int Cout, int N,
+              int S, int chunk, int group, int wide, void* stream) {
   if (B == 0 || N == 0 || Cout == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PdArgs<T> args = make_args<T>(x, w, nullptr, pbias, nullptr, nullptr, nullptr,
                                       nullptr, nullptr, c1, c2, dp, nullptr, partial,
                                       B, Cin, Cout, N, group, 0.f);
-  launch_pd<kStatsBwd>(args, st);
-  if (pbias != nullptr) reduce_bias(args, 0, 3, static_cast<float*>(dpb), st);
-  products_bwd<false>(args.x, args.w, nullptr, args.dp, static_cast<const T*>(nullptr),
-                      static_cast<T*>(dx), static_cast<float*>(dw),
-                      static_cast<float*>(dw_part), B, Cin, Cout, N, S, st);
+  if (wide) {
+    cudaError_t err = launch_pd_wide<kStatsBwd>(args, static_cast<T*>(wt), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (pbias != nullptr) reduce_bias(args, 0, 3, static_cast<float*>(dpb), st);
+    err = products_wide<false>(args.x, args.w, nullptr, static_cast<const T*>(wt), args.dp,
+                               static_cast<const T*>(nullptr), static_cast<T*>(dx),
+                               static_cast<float*>(dw), static_cast<float*>(dw_part), B, Cin,
+                               Cout, N, S, chunk, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    launch_pd<kStatsBwd>(args, st);
+    if (pbias != nullptr) reduce_bias(args, 0, 3, static_cast<float*>(dpb), st);
+    products_bwd<false>(args.x, args.w, nullptr, args.dp, static_cast<const T*>(nullptr),
+                        static_cast<T*>(dx), static_cast<float*>(dw),
+                        static_cast<float*>(dw_part), B, Cin, Cout, N, S, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// B' (w_out null, kLayerBwd) and C' (kProjBwd): nqc per-channel sums.
+// B' (w_out null, kLayerBwd; narrow only) and C' (kProjBwd): nqc
+// per-channel sums.
 template <int kMode, typename T>
 int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
               const void* dbias, const void* a, const void* b,
               const void* w_out, const void* g, void* dx, void* dw2,
               void* sums, void* dpdb, void* dp, void* dd, void* partial,
-              void* dw_part, int B, int Cin, int Cout, int N, int S,
-              int group, float one_minus_ns, void* stream) {
+              void* dw_part, void* wt, int B, int Cin, int Cout, int N, int S,
+              int chunk, int group, int wide, float one_minus_ns, void* stream) {
   if (B == 0 || N == 0 || Cout == 0) return 0;
   constexpr int nqc = channel_sums<kMode>();
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PdArgs<T> args = make_args<T>(x, w, wd, pbias, dbias, a, b, w_out, g,
                                       nullptr, nullptr, dp, dd, partial, B, Cin,
                                       Cout, N, group, one_minus_ns);
+  if constexpr (kMode == kProjBwd) {
+    if (wide) {
+      cudaError_t err = launch_pd_wide<kMode>(args, static_cast<T*>(wt), st);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      vnk_reduce_rows(args.partial, static_cast<float*>(sums), nqc, B * args.T, Cout, st);
+      if (pbias != nullptr) reduce_bias(args, nqc, 6, static_cast<float*>(dpdb), st);
+      err = products_wide<true>(args.x, args.w, args.wd, static_cast<const T*>(wt), args.dp,
+                                args.dd, static_cast<T*>(dx), static_cast<float*>(dw2),
+                                static_cast<float*>(dw_part), B, Cin, Cout, N, S, chunk, st);
+      return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+    }
+  }
   launch_pd<kMode>(args, st);
   vnk_reduce_rows(args.partial, static_cast<float*>(sums), nqc, B * args.T, Cout, st);
   if (pbias != nullptr) reduce_bias(args, nqc, 6, static_cast<float*>(dpdb), st);
@@ -608,6 +1623,10 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
 // group 0, N / group for group >= 64 and T * 64 / group otherwise.  `group`
 // is 0 or a power of two dividing 512.  x, the biases, g, dx, dp and dd are
 // float32 in these entry points and bfloat16 in the _bf16 ones.
+// S' and C' take `wide` (1: the wide passes, 0: the narrow ones; the
+// wrapper's backward_design), and for the wide passes wt, a (1 or 2, Cin,
+// Cout) scratch in the activations' type, and `chunk`, the pass-3 stages
+// (16 points float32, 32 bf16) of each of the S splits.
 
 // S: s12 (2, Cout) = (s1, s2); partial with nq = 2.
 VNK_EXPORT int vn_layer_stats_fwd(const void* x, const void* w,
@@ -630,20 +1649,22 @@ VNK_EXPORT int vn_layer_stats_bwd(const void* x, const void* w,
                                   const void* pbias, const void* c1,
                                   const void* c2, void* dx, void* dw,
                                   void* dpb, void* dp, void* partial,
-                                  void* dw_part, int B, int Cin, int Cout,
-                                  int N, int S, int group, void* stream) {
-  return stats_bwd<float>(x, w, pbias, c1, c2, dx, dw, dpb, dp, partial, dw_part,
-                          B, Cin, Cout, N, S, group, stream);
+                                  void* dw_part, void* wt, int B, int Cin, int Cout,
+                                  int N, int S, int chunk, int group, int wide,
+                                  void* stream) {
+  return stats_bwd<float>(x, w, pbias, c1, c2, dx, dw, dpb, dp, partial, dw_part, wt,
+                          B, Cin, Cout, N, S, chunk, group, wide, stream);
 }
 
 VNK_EXPORT int vn_layer_stats_bwd_bf16(const void* x, const void* w,
                                        const void* pbias, const void* c1,
                                        const void* c2, void* dx, void* dw,
                                        void* dpb, void* dp, void* partial,
-                                       void* dw_part, int B, int Cin, int Cout,
-                                       int N, int S, int group, void* stream) {
+                                       void* dw_part, void* wt, int B, int Cin,
+                                       int Cout, int N, int S, int chunk, int group,
+                                       int wide, void* stream) {
   return stats_bwd<vnk_bf16>(x, w, pbias, c1, c2, dx, dw, dpb, dp, partial,
-                             dw_part, B, Cin, Cout, N, S, group, stream);
+                             dw_part, wt, B, Cin, Cout, N, S, chunk, group, wide, stream);
 }
 
 // B': dx, dw2 (2, Cout, Cin) = (dW, dWd), dab (2, Cout) = (dA, dB),
@@ -656,8 +1677,9 @@ VNK_EXPORT int vn_layer_fused_bwd(
     void* dw_part, int B, int Cin, int Cout, int N, int S, int group,
     float one_minus_ns, void* stream) {
   return layer_bwd<kLayerBwd, float>(x, w, wd, pbias, dbias, a, b, nullptr, g, dx,
-                                     dw2, dab, dpdb, dp, dd, partial, dw_part, B,
-                                     Cin, Cout, N, S, group, one_minus_ns, stream);
+                                     dw2, dab, dpdb, dp, dd, partial, dw_part, nullptr,
+                                     B, Cin, Cout, N, S, 0, group, 0, one_minus_ns,
+                                     stream);
 }
 
 VNK_EXPORT int vn_layer_fused_bwd_bf16(
@@ -668,8 +1690,8 @@ VNK_EXPORT int vn_layer_fused_bwd_bf16(
     float one_minus_ns, void* stream) {
   return layer_bwd<kLayerBwd, vnk_bf16>(x, w, wd, pbias, dbias, a, b, nullptr, g,
                                         dx, dw2, dab, dpdb, dp, dd, partial,
-                                        dw_part, B, Cin, Cout, N, S, group,
-                                        one_minus_ns, stream);
+                                        dw_part, nullptr, B, Cin, Cout, N, S, 0, group,
+                                        0, one_minus_ns, stream);
 }
 
 // C': as B' with w_out (Cout,) and g (B, 3, 1, N); dabo (3, Cout) =
@@ -678,21 +1700,22 @@ VNK_EXPORT int vn_layer_fused_project_bwd(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* w_out,
     const void* g, void* dx, void* dw2, void* dabo, void* dpdb, void* dp,
-    void* dd, void* partial, void* dw_part, int B, int Cin, int Cout, int N,
-    int S, int group, float one_minus_ns, void* stream) {
+    void* dd, void* partial, void* dw_part, void* wt, int B, int Cin, int Cout,
+    int N, int S, int chunk, int group, int wide, float one_minus_ns, void* stream) {
   return layer_bwd<kProjBwd, float>(x, w, wd, pbias, dbias, a, b, w_out, g, dx,
-                                    dw2, dabo, dpdb, dp, dd, partial, dw_part, B,
-                                    Cin, Cout, N, S, group, one_minus_ns, stream);
+                                    dw2, dabo, dpdb, dp, dd, partial, dw_part, wt, B,
+                                    Cin, Cout, N, S, chunk, group, wide, one_minus_ns,
+                                    stream);
 }
 
 VNK_EXPORT int vn_layer_fused_project_bwd_bf16(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* w_out,
     const void* g, void* dx, void* dw2, void* dabo, void* dpdb, void* dp,
-    void* dd, void* partial, void* dw_part, int B, int Cin, int Cout, int N,
-    int S, int group, float one_minus_ns, void* stream) {
+    void* dd, void* partial, void* dw_part, void* wt, int B, int Cin, int Cout,
+    int N, int S, int chunk, int group, int wide, float one_minus_ns, void* stream) {
   return layer_bwd<kProjBwd, vnk_bf16>(x, w, wd, pbias, dbias, a, b, w_out, g,
                                        dx, dw2, dabo, dpdb, dp, dd, partial,
-                                       dw_part, B, Cin, Cout, N, S, group,
-                                       one_minus_ns, stream);
+                                       dw_part, wt, B, Cin, Cout, N, S, chunk, group,
+                                       wide, one_minus_ns, stream);
 }

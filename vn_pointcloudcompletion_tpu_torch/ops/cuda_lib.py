@@ -13,7 +13,9 @@ by one each time the entry point launches its kernel, which is how a run
 shows that the main path went through the kernels.  One entry point may be
 bound twice under two names, to count two modes of it apart; a mode that
 is its own entry point (the bfloat16 modes, ``<symbol>_bf16``) counts
-under ``<symbol>[bf16]``.
+under ``<symbol>[bf16]``.  An entry point that runs one of two designs
+(kernels S' and C': the wide or the narrow passes) also counts each launch
+under the design's name (:func:`variant_counts`).
 """
 
 from __future__ import annotations
@@ -116,12 +118,14 @@ class CudaKernel:
         self.name = name or symbol  # the key of its count in launch_counts()
         self.argtypes = argtypes
         self.launches = 0
+        self.variants: Dict[str, int] = {}  # launches by design, where one is named
         self._fn = None
         KERNELS.append(self)
 
-    def __call__(self, like, *args) -> None:
+    def __call__(self, like, *args, variant: str = "") -> None:
         """Launch on the device of tensor ``like``, on PyTorch's current
-        stream there; ``args`` are the C arguments before the stream."""
+        stream there; ``args`` are the C arguments before the stream;
+        ``variant`` names the design the arguments choose, if any."""
         import torch
 
         if self._fn is None:
@@ -135,15 +139,24 @@ class CudaKernel:
             msg = _library(self.source).vnk_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
         self.launches += 1
+        if variant:
+            self.variants[variant] = self.variants.get(variant, 0) + 1
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.variants = {}
 
 
 def launch_counts() -> Dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
+
+
+def variant_counts() -> Dict[str, int]:
+    """Launches by design: ``<name>/<variant>`` -> count, since the last
+    :func:`reset_launch_counts`."""
+    return {f"{k.name}/{v}": n for k in KERNELS for v, n in k.variants.items()}
 
 
 def check_cuda(name: str, takes: str, *pairs) -> None:

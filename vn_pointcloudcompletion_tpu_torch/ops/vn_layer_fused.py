@@ -19,6 +19,12 @@ contraction that way, expanded in the kernel, never in device memory
 (JAX ``vn_layer_fused.py:74-116``).  Their gradients are ``dp`` summed over
 each column's points.  As in JAX, ``S`` divides N and 512.
 
+S' and C' run one of two sets of passes, chosen by :func:`backward_design`
+from the layer's widths and counted by name (``cuda_lib.variant_counts``):
+the wide passes at C_in, C_out >= 16 (final_conv.1, vn_folding{1,2}.1),
+the narrow ones below (final_conv.0, the pair folds); both compute the
+same function (``csrc/vn_layer_bwd.cu``).
+
 Each is a ``torch.autograd.Function`` that saves only its inputs; the
 backward recomputes ``p`` and ``d`` from ``x``, as the JAX ops do, so no
 (B, 3, C, N) residual is kept between forward and backward.  The matrix
@@ -70,13 +76,13 @@ _PROJECT = CudaKernel(
 _STATS = CudaKernel(
     "vn_layer_bwd.cu", "vn_layer_stats_fwd", [_P] * 5 + [_I] * 5 + [_P])
 _STATS_BWD = CudaKernel(
-    "vn_layer_bwd.cu", "vn_layer_stats_bwd", [_P] * 11 + [_I] * 6 + [_P])
+    "vn_layer_bwd.cu", "vn_layer_stats_bwd", [_P] * 12 + [_I] * 8 + [_P])
 _LAYER_BWD = CudaKernel(
     "vn_layer_bwd.cu", "vn_layer_fused_bwd",
     [_P] * 16 + [_I] * 6 + [ctypes.c_float, _P])
 _PROJECT_BWD = CudaKernel(
     "vn_layer_bwd.cu", "vn_layer_fused_project_bwd",
-    [_P] * 17 + [_I] * 6 + [ctypes.c_float, _P])
+    [_P] * 18 + [_I] * 8 + [ctypes.c_float, _P])
 # The same entry points in group=S mode, counted apart (launch_counts()
 # keys "<symbol>[group]"): the attention decoder's pair folds.
 _GROUPED = {k.symbol: CudaKernel(k.source, k.symbol, k.argtypes, f"{k.symbol}[group]")
@@ -321,11 +327,58 @@ def _empty(x, *shape, dtype=torch.float32):
 
 
 def _split_k(x, c_in, c_out, n_points):
-    """Chunks of the point axis for the weight-gradient pass: enough blocks
-    to cover the card four times over."""
+    """Chunks of the point axis for the narrow weight-gradient pass: enough
+    blocks to cover the card four times over."""
     tiles = -(-c_out // TILE) * -(-c_in // TILE)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     return max(1, min(-(-n_points // 16), -(-4 * sms // tiles)))
+
+
+WIDE_MIN_CHANNELS = 16  # one m16n8k16 product's depth
+
+
+def backward_design(c_in: int, c_out: int) -> str:
+    """Which passes kernels S' and C' run at (c_in, c_out): ``"wide"``
+    (cp.async rings; in the bf16 mode dx, dW and S''s p on the tensor
+    cores) where both are matrix work, c_in and c_out >= 16; ``"narrow"``
+    (the FMA passes that B' also runs) below that, where the products are
+    one or two channels deep and bytes bound the pass (final_conv.0's 2 ->
+    256, the pair folds' 1 -> 256).  Either is a hand-written kernel; a
+    CUDA launch takes the one chosen here or raises."""
+    return "wide" if min(c_in, c_out) >= WIDE_MIN_CHANNELS else "narrow"
+
+
+def wide_stage_points(bf16: bool) -> int:
+    """Points per pass-3 stage of the wide passes (csrc DwF32 / DwBf16)."""
+    return 32 if bf16 else 16
+
+
+def wide_split(c_in: int, c_out: int, bsz: int, n: int, two: bool, bf16: bool,
+               sms: int):
+    """(splits, chunk) of the wide weight-gradient pass: its reduction runs
+    over the B*3 planes' ceil(n / stage) stages of ``wide_stage_points``
+    points each, stage t of plane t // ceil(n / stage); split s takes the
+    ``chunk`` stages from s * chunk.  Splits enough for two blocks of 128
+    (64 for C', ``two``) x 128 output tiles on every SM, none empty."""
+    stages = bsz * 3 * -(-n // wide_stage_points(bf16))
+    tiles = -(-c_out // (64 if two else 128)) * -(-c_in // 128)
+    splits = max(1, min(stages, -(-2 * sms // tiles)))
+    chunk = -(-stages // splits)
+    return -(-stages // chunk), chunk
+
+
+def _design_args(x, c_in, c_out, bsz, n, two):
+    """(W^T scratch of the wide passes or None, dw_part's splits, pass 3's
+    stages a split (0 for the narrow passes), the design's name) for S'
+    (``two`` False) or C' at these widths."""
+    design = backward_design(c_in, c_out)
+    if design == "narrow":
+        s = _split_k(x, c_in, c_out, bsz * 3 * n)
+        return None, s, 0, design
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    s, chunk = wide_split(c_in, c_out, bsz, n, two, _bf16(x), sms)
+    wt = _empty(x, 2 if two else 1, c_in, c_out, dtype=x.dtype)  # W^T (and Wd^T)
+    return wt, s, chunk, design
 
 
 def _bias_rows(n: int, group: int):
@@ -395,7 +448,7 @@ def stats_bwd(x, w, pbias, c1, c2, group: int = 0):
         return reference_stats_bwd(x, w, pbias, c1, c2, group)
     (x, w, _, pbias, _, c1, c2, *_), (bsz, c_in, c_out, n) = _prepare(
         "vn_layer_stats backward", x, w, pbias=pbias, a=c1, b=c2, group=group)
-    s = _split_k(x, c_in, c_out, bsz * 3 * n)
+    wt, s, chunk, design = _design_args(x, c_in, c_out, bsz, n, two=False)
     spt, cols = _bias_rows(n, group)
     dx, dw = torch.empty_like(x), _empty(x, c_out, c_in)
     dpb = None if pbias is None else _empty(x, 3, bsz, cols, c_out)
@@ -403,8 +456,8 @@ def stats_bwd(x, w, pbias, c1, c2, group: int = 0):
     partial = None if pbias is None else _empty(x, 3, bsz, -(-n // TILE) * spt, c_out)
     dw_part = _empty(x, s, c_out, c_in)
     _counted(_STATS_BWD, group, _bf16(x))(
-        x, *[_ptr(t) for t in (x, w, pbias, c1, c2, dx, dw, dpb, dp, partial, dw_part)],
-        bsz, c_in, c_out, n, s, group)
+        x, *[_ptr(t) for t in (x, w, pbias, c1, c2, dx, dw, dpb, dp, partial, dw_part, wt)],
+        bsz, c_in, c_out, n, s, chunk, group, int(design == "wide"), variant=design)
     if dpb is not None:
         (dpb,) = _bias_grads(dpb, 3, bsz, c_out, n, group, pbias.dtype)
     return dx, dw, dpb
@@ -415,8 +468,12 @@ def _layer_bwd_launch(kernel, x, w, wd, pbias, dbias, a, b, w_out, g,
     """Kernels B' and C': (dx, dw, dwd, dpbias, ddbias, da, db[, dwo])."""
     (x, w, wd, pbias, dbias, a, b, w_out, g), (bsz, c_in, c_out, n) = _prepare(
         kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out, g, group)
-    s = _split_k(x, c_in, c_out, bsz * 3 * n)
-    nqc = 2 if w_out is None else 3
+    project = w_out is not None
+    if project:  # C' chooses its passes; B' runs the narrow ones
+        wt, s, chunk, design = _design_args(x, c_in, c_out, bsz, n, two=True)
+    else:
+        s = _split_k(x, c_in, c_out, bsz * 3 * n)
+    nqc = 3 if project else 2
     tiles = -(-n // TILE)
     spt, cols = _bias_rows(n, group)
     dx, dw2, sums = torch.empty_like(x), _empty(x, 2, c_out, c_in), _empty(x, nqc, c_out)
@@ -427,11 +484,16 @@ def _layer_bwd_launch(kernel, x, w, wd, pbias, dbias, a, b, w_out, g,
     partial = _empty(x, (nqc + (0 if pbias is None else 6 * spt)) * bsz * tiles * c_out)
     dw_part = _empty(x, 2, s, c_out, c_in)
     ptrs = [_ptr(t) for t in (x, w, wd, pbias, dbias, a, b)]
-    if w_out is not None:
+    if project:
         ptrs.append(w_out.data_ptr())
     ptrs += [_ptr(t) for t in (g, dx, dw2, sums, dpdb, dp, dd, partial, dw_part)]
-    _counted(kernel, group, _bf16(x))(x, *ptrs, bsz, c_in, c_out, n, s, group,
-                                      1 - negative_slope)
+    if project:
+        _counted(kernel, group, _bf16(x))(
+            x, *ptrs, _ptr(wt), bsz, c_in, c_out, n, s, chunk, group,
+            int(design == "wide"), 1 - negative_slope, variant=design)
+    else:
+        _counted(kernel, group, _bf16(x))(x, *ptrs, bsz, c_in, c_out, n, s, group,
+                                          1 - negative_slope)
     dpb = ddb = None
     if dpdb is not None:
         dpb, ddb = _bias_grads(dpdb, 6, bsz, c_out, n, group, pbias.dtype)
