@@ -17,10 +17,15 @@ on one NVIDIA GPU:
    repeated points tie), times both with CUDA events (K1 also against
    ``torch.topk``), runs the backward-slice and DGCNN kernels twice to show
    that they give the same bits, and holds the backward of K2 and K3
-   against autograd of their plain chains.  Each S' and C' row names the
-   passes it took (wide at C_in, C_out >= 16, else narrow), its TFLOP/s
-   and share of its bound, and, for the wide ones, the narrow passes' time
-   at the same shape in the same call.
+   against autograd of their plain chains.  Each C, S', C' and B' row
+   names the design it took (C, S', C' wide at C_in, C_out >= 16, else
+   narrow; B' fused at C_in <= 2, else narrow), its TFLOP/s, GB/s and
+   share of its bound, and, for a wide or fused row, the narrow design's
+   time at the same shape in the same call; bf16 C (wide: the tensor
+   cores) is held to BF16_C_RMS, its mutant at least 4x beyond; D is also
+   timed at the training loss's coarse pair (1024 x 16384).  Phases 4-13
+   check that every counted C took the wide design and every B' the
+   fused pass (check_designs).
 4. Serving the flagship at full width (encoder latent 1024 -> 2048-channel
    global feature, 2048 input points, 1024 coarse, 16384 dense points,
    random weights from a seed) through the port's command line: ``predict``
@@ -213,6 +218,16 @@ BF16_FORWARD_LAUNCHES = {
 BF16_F32_RATIO = 2.0
 BF16_FWD_TOL = 1e-2
 BF16_MUTANT = 1 + 2.0 ** -6  # kernel C's bf16 output scaled: must fail the checks
+# bf16 C in the wide design (the tensor cores) against its plain version:
+# the root-mean-square distance over the plain output's norm (bf16_rms).
+# The tensor cores sum p and d in their own order, so a p or d at a bf16
+# rounding boundary rounds one ulp away from the plain version's at rare
+# points, and moves its point's projected output by up to several ulps of a
+# small, cancelling result: no per-element ulp bound holds, and one relative
+# to the largest output lets one flip at the largest element read 2^-7,
+# only 2x under the mutant.  In root mean square the mutant reads 2^-6
+# (every element scaled) and the bound is 2^-9, 8x under it.
+BF16_C_RMS = 2.0 ** -9
 # Phase 13, the bf16 policy's training path.  One train step of the root
 # config.json's pipeline (vn_pointr_448, batch 8) launches its eval
 # forward's kernels (BF16_FORWARD_LAUNCHES), kernel S before each of its
@@ -228,21 +243,31 @@ BF16_STEP_LAUNCHES = {
                       "vn_layer_fused_project_bwd[bf16]": 2},
 }
 BF16_TRAIN_EPOCHS = 2  # phase 13's train epochs before --resume
-# The design of every S' and C' launch of one train step (cuda_lib
-# .variant_counts(); ops/vn_layer_fused.py::backward_design): the wide
-# passes at C_in, C_out >= 16 (final_conv.1's 256 -> 256, vn_folding{1,2}.1's 256
-# -> 128), the narrow ones below (final_conv.0's 2 -> 256, conv1's 2 -> 32,
-# the pair folds' 1 -> 256 at group 64).  Phase 5b (float32) and phase 13
-# (bf16) assert them.
+# The design of every C, S', C' and B' launch of one train step (cuda_lib
+# .variant_counts(); ops/vn_layer_fused.py::forward_design, backward_design,
+# layer_bwd_design): C, S' and C' wide at C_in, C_out >= 16 (final_conv.1's
+# 256 -> 256, vn_folding{1,2}.1's 256 -> 128), S' narrow below (final_conv.0's
+# 2 -> 256, conv1's 2 -> 32, the pair folds' 1 -> 256 at group 64); B' fused
+# at C_in <= 2 (final_conv.0, conv1, the pair folds).  Phase 5b (float32)
+# and phase 13 (bf16) assert them.
 FLAGSHIP_STEP_DESIGNS = {"vn_layer_stats_bwd/narrow": 1, "vn_layer_stats_bwd/wide": 1,
-                         "vn_layer_fused_project_bwd/wide": 1}
+                         "vn_layer_fused_project_bwd/wide": 1,
+                         "vn_layer_fused_project_fwd/wide": 1, "vn_layer_fused_bwd/fused": 1}
 BF16_STEP_DESIGNS = {
     "flagship": {"vn_layer_stats_bwd[bf16]/narrow": 1, "vn_layer_stats_bwd[bf16]/wide": 1,
-                 "vn_layer_fused_project_bwd[bf16]/wide": 1},
+                 "vn_layer_fused_project_bwd[bf16]/wide": 1,
+                 "vn_layer_fused_project_fwd[bf16]/wide": 1, "vn_layer_fused_bwd[bf16]/fused": 1},
     "vn_pointr_448": {"vn_layer_stats_bwd[bf16]/narrow": 1, "vn_layer_stats_bwd[bf16]/wide": 2,
                       "vn_layer_stats_bwd[group,bf16]/narrow": 2,
-                      "vn_layer_fused_project_bwd[bf16]/wide": 2},
+                      "vn_layer_fused_project_bwd[bf16]/wide": 2,
+                      "vn_layer_fused_project_fwd[bf16]/wide": 2,
+                      "vn_layer_fused_bwd[bf16]/fused": 1,
+                      "vn_layer_fused_bwd[group,bf16]/fused": 2},
 }
+# Every launch of C on a main path (phases 4-13) takes the wide design and
+# every launch of B' the fused pass: checked on each counted run
+# (check_designs).
+MAIN_DESIGNS = {"vn_layer_fused_project_fwd": "wide", "vn_layer_fused_bwd": "fused"}
 # Phase 13, the flagship's bf16 train step on one DecisionTape, each
 # gradient as its root-mean-square distance over the tensor's norm: the
 # kernels no further from the plain float32 path than BF16_F32_RATIO x the
@@ -310,17 +335,36 @@ def bound(nbytes: float, ops: float, peak_ops: float = PEAK_FP32):
 
 
 def narrow_ms(fn, reps: int) -> float:
-    """``cuda_ms`` of ``fn`` with S' and C' held to their narrow passes
-    (the FMA passes that B' runs): the same work the wide ones replace,
-    timed in the same call."""
+    """``cuda_ms`` of ``fn`` with C, S', C' and B' held to their narrow
+    designs (the parent designs: C's one-block FMA loop, the FMA passes
+    over a dp/dd scratch): the same work the wide and fused designs
+    replace, timed in the same call."""
     from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
 
-    design = vn_layer_fused.backward_design
-    vn_layer_fused.backward_design = lambda c_in, c_out: "narrow"
+    chooser = ("backward_design", "forward_design", "layer_bwd_design")
+    saved = [getattr(vn_layer_fused, name) for name in chooser]
+    for name in chooser:
+        setattr(vn_layer_fused, name, lambda *widths: "narrow")
     try:
         return cuda_ms(fn, reps)
     finally:
-        vn_layer_fused.backward_design = design
+        for name, fn_ in zip(chooser, saved):
+            setattr(vn_layer_fused, name, fn_)
+
+
+def check_designs(what: str, counts: dict, variants: dict) -> None:
+    """Each launch of C and B' in ``counts`` (any mode) took its
+    MAIN_DESIGNS design: ``variants`` (cuda_lib.variant_counts() of the
+    same run) counts them all there."""
+    def base(key):
+        return key.split("/")[0].split("[")[0]
+
+    want = {f"{k}/{MAIN_DESIGNS[base(k)]}": v for k, v in counts.items()
+            if v and base(k) in MAIN_DESIGNS}
+    got = {k: v for k, v in variants.items() if v and base(k) in MAIN_DESIGNS}
+    print(f"{what} C and B' launches by design: {json.dumps(got)}")
+    if got != want:
+        raise AssertionError(f"{what}: C and B' designs {got}, expected {want}")
 
 
 def nbytes(*tensors) -> int:
@@ -356,7 +400,8 @@ def check_kernels(dev):
         err, ok = compare(got, want)
         if repro:  # the same inputs again must give the same bits
             again = kernel_fn()
-            same = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+            pairs = zip(got, again) if isinstance(got, tuple) else [(got, again)]
+            same = all(torch.equal(a, b) for a, b in pairs if a is not None)
             print(f"[kernel {name}] second launch bitwise equal: {same}")
             ok = ok and same
             del again
@@ -373,12 +418,13 @@ def check_kernels(dev):
               f"{'PASS' if ok else 'FAIL'}; kernel {rec['ms']:.4f} ms, plain "
               f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
               f"library: {lib}", flush=True)
-        if designs:  # S' and C': the passes taken, the rate (the narrow passes' time)
-            narrow = ("" if designs != ["wide"] else "; the narrow passes at the same shape: "
+        if designs:  # C, S', C', B': the design taken, the rates (the narrow design's time)
+            narrow = ("" if designs not in (["wide"], ["fused"]) else
+                      "; the narrow design at the same shape: "
                       f"{narrow_ms(kernel_fn, max(3, reps // 2)):.4f} ms")
-            print(f"[kernel {name}] {'/'.join(designs)} passes: "
-                  f"{work_ops / rec['ms'] / 1e9:.2f} TFLOP/s, {b_ms / rec['ms']:.1%} of the "
-                  f"bound{narrow}", flush=True)
+            print(f"[kernel {name}] {'/'.join(designs)} design: "
+                  f"{work_ops / rec['ms'] / 1e9:.2f} TFLOP/s, {work_bytes / rec['ms'] / 1e6:.1f} "
+                  f"GB/s, {b_ms / rec['ms']:.1%} of the bound{narrow}", flush=True)
         if not ok:
             raise AssertionError(f"kernel {name} disagrees with its plain version")
         records.append(rec)
@@ -503,7 +549,7 @@ def check_kernels(dev):
                x, w, wd, None, None, a, b, w_out, NS),
            close(1e-4, 1e-4), "atol 1e-4 + rtol 1e-4",
            nbytes(x, w, wd, a, b, w_out) + 4 * 3 * BATCH * n,
-           2 * 3 * vecs * 2 * 256 + (32 + 6) * vecs, reps=10)
+           2 * 3 * vecs * 2 * 256 + (32 + 6) * vecs, reps=10, repro=True)
 
     # B': the backward of B at final_conv.0 (Cin 2, Cout 256, per-sample bias)
     x = randn(BATCH, 3, 2, n, scale=0.3)
@@ -552,7 +598,20 @@ def check_kernels(dev):
            exact, "distances and indices exact",
            nbytes(px, py) + 2 * 4 * 2 * BATCH * n,
            BATCH * n * n * (8 + 2), reps=10, plain_reps=3)
-    del px, py
+    # D at the training loss's coarse pair (1024 predicted against the 16384
+    # complete points; half of D's launches in a train step), timed to rank it
+    pc = uniform(-0.3, 0.3, BATCH, 1024, 3)
+    err, ok = exact(chamfer.nn_bidirectional(pc, py),
+                    chamfer.nn_bidirectional_reference(pc, py))
+    c_ms = cuda_ms(lambda: chamfer.nn_bidirectional(pc, py), 20)
+    c_bound, c_by = bound(nbytes(pc, py) + 2 * 4 * (1024 + n) * BATCH,
+                          BATCH * 1024 * n * (8 + 2))
+    print(f"[kernel D] coarse pair (1024 x {n}, both directions): max_abs_err {err:.3e} "
+          f"{'PASS' if ok else 'FAIL'}; kernel {c_ms:.4f} ms, bound {c_bound:.4f} ms ({c_by})",
+          flush=True)
+    if not ok:
+        raise AssertionError("kernel D disagrees with its plain version at the coarse pair")
+    del px, py, pc
     records += check_knn_fps_kernels(dev, record, randn, uniform)
     check_emd_kernel(dev, record)
     check_bf16_kernels(dev, record, randn, uniform)
@@ -570,16 +629,24 @@ def bf16_ulps(got, want):
     return ((g - w).abs() / ulp).max().item(), int((g != w).sum())
 
 
+def bf16_rms(got, want) -> float:
+    """||got - want|| / ||want||, in float64."""
+    got, want = got.double(), want.double()
+    return ((got - want).norm() / want.norm().clamp_min(1e-300)).item()
+
+
 def check_bf16_kernels(dev, record, randn, uniform):
     """Phase 3, the bf16 modes (the bfloat16 policy's serving path) at
     the main paths' shapes, each against its plain bf16 version: A at the
     flagship's second_conv.0 (C 1024, N 2048), B at its final_conv.0 (C_in
     2, C_out 256, N 16384, per-sample bias) and at the attention decoder's
     pair folds (C_in 1 -> 256, N 14336, group 64), K3 at conv5 (N 512, C3
-    768, k 16): equal to the bit; C at final_conv.1 + .2 (256 -> 256 -> 1,
-    N 16384): within one bf16 ulp per element, the differing count printed.
-    Bounds: bytes at 2 per activation element, operations at the dense bf16
-    tensor-core rate (the same work could run there)."""
+    768, k 16): equal to the bit; C (the wide design, on the tensor cores)
+    at final_conv.1 + .2 (256 -> 256 -> 1, N 16384) and in group mode at 256
+    -> 128 -> 1 (N 14336, group 64): within BF16_C_RMS in root mean square,
+    the mutant (x BF16_MUTANT) at least 4x beyond, the differing count
+    printed; twice for equal bits.  Bounds: bytes at 2 per activation
+    element, operations at the dense bf16 tensor-core rate."""
     import torch
 
     from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas, vn_fused, vn_layer_fused
@@ -595,11 +662,17 @@ def check_bf16_kernels(dev, record, randn, uniform):
                   if torch.is_floating_point(w))
         return err, same and got[0].dtype == bf
 
-    def within_one_ulp(got, want):
+    def within_rms(got, want):
+        """BF16_C_RMS, and the mutant (the output x BF16_MUTANT) at least 4x
+        beyond it."""
         worst_ulp, differ = bf16_ulps(got, want)
-        print(f"[kernel C bf16] {differ} of {got.numel()} elements differ, the largest "
-              f"by {worst_ulp:.2f} bf16 ulp")
-        return (got.float() - want.float()).abs().max().item(), got.dtype == bf and worst_ulp <= 1
+        rms, mutant = bf16_rms(got, want), bf16_rms(got * BF16_MUTANT, want)
+        print(f"[kernel C bf16] RMS distance {rms:.3e} (bound {BF16_C_RMS:.3e}); the mutant "
+              f"(x {BF16_MUTANT}) {mutant:.3e} = {mutant / BF16_C_RMS:.1f}x the bound (at least "
+              f"4x); {differ} of {got.numel()} elements differ, the largest by "
+              f"{worst_ulp:.2f} bf16 ulp")
+        ok = got.dtype == bf and rms <= BF16_C_RMS and mutant >= 4 * BF16_C_RMS
+        return (got.float() - want.float()).abs().max().item(), ok
 
     c, n = 1024, 2048
     p, d = randn(BATCH, 3, c, n).to(bf), randn(BATCH, 3, c, n).to(bf)
@@ -649,9 +722,26 @@ def check_bf16_kernels(dev, record, randn, uniform):
            lambda: vn_layer_fused.vn_layer_fused_project(x, w, wd, None, None, a, b, w_out, NS),
            lambda: vn_layer_fused.reference_layer_fused_project(
                x, w, wd, None, None, a, b, w_out, NS),
-           within_one_ulp, "1 bf16 ulp per element",
+           within_rms, f"RMS {BF16_C_RMS:.3e} of the norm",
            nbytes(x, w, wd, a, b, w_out) + 2 * 3 * BATCH * n,
-           2 * 3 * vecs * 2 * 256 + (32 + 6) * vecs, reps=10, peak_ops=PEAK_BF16)
+           2 * 3 * vecs * 2 * 256 + (32 + 6) * vecs, reps=10, repro=True, peak_ops=PEAK_BF16)
+    # C in group mode at vn_folding{1,2}.1 + .2's width (on no model's path)
+    n, s = 14336, 64
+    x = randn(BATCH, 3, 256, n).to(bf)
+    w, wd = uniform(-1 / 16, 1 / 16, 128, 256), uniform(-1 / 16, 1 / 16, 128, 256)
+    pb = randn(BATCH, 3, 128, n // s, scale=0.5).to(bf)
+    db = randn(BATCH, 3, 128, n // s, scale=0.5).to(bf)
+    a, b, w_out = uniform(0.5, 1.5, 128), randn(128, scale=0.3), uniform(-1 / 11, 1 / 11, 128)
+    vecs = BATCH * 128 * n
+    record("C vn_layer_fused_project group=64 bf16", src + "vn_layer_fused.cu",
+           at + "vn_layer_fused.py:821",
+           lambda: vn_layer_fused.vn_layer_fused_project(x, w, wd, pb, db, a, b, w_out, NS,
+                                                         group=s),
+           lambda: vn_layer_fused.reference_layer_fused_project(
+               x, w, wd, pb, db, a, b, w_out, NS, s),
+           within_rms, f"RMS {BF16_C_RMS:.3e} of the norm",
+           nbytes(x, w, wd, pb, db, a, b, w_out) + 2 * 3 * BATCH * n,
+           2 * 3 * vecs * 2 * 256 + (32 + 12) * vecs, reps=10, repro=True, peak_ops=PEAK_BF16)
     del x
 
     k, c3 = 16, 768
@@ -1206,6 +1296,7 @@ def serve_path(dev, path: str = "flagship"):
           f"{BATCH}: {t2 - t1:.3f} s (host clock, first call, build included "
           "if any)")
     print(f"{tag} launches: {json.dumps(counts)}")
+    check_designs(f"{tag} predict + test", counts, cuda_lib.variant_counts())
     if path == "flagship":
         missing = [k for k in FORWARD_KERNELS if counts[k] == 0]
         if missing:
@@ -1247,6 +1338,8 @@ def serve_path(dev, path: str = "flagship"):
         torch.cuda.synchronize()
         if path != "flagship":
             check_launches(path, cuda_lib.launch_counts(), 1, f"{tag} one forward")
+        check_designs(f"{tag} one forward", cuda_lib.launch_counts(),
+                      cuda_lib.variant_counts())
         model.use_kernels_(False)
         if taped:
             tape.run(tape.rec)
@@ -1311,6 +1404,7 @@ def train_path(dev, path: str = "flagship", epochs: int = 0, **extra):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         counts = cuda_lib.launch_counts()
+        variants = cuda_lib.variant_counts()
         (run,) = os.listdir(os.environ["OUTPUT_DIR"])
         exp_dir = os.path.join(os.environ["OUTPUT_DIR"], run)
         resumed = cli.main(["-n", run, "--resume", "-epochs", str(epochs), "train"])
@@ -1321,6 +1415,7 @@ def train_path(dev, path: str = "flagship", epochs: int = 0, **extra):
           f"batch: {t1 - t0:.3f} s; resume 1 epoch: {t2 - t1:.3f} s (host clock, "
           "checkpoint writes included)")
     print(f"{tag} launches: {json.dumps(counts)}")
+    check_designs(f"{tag} overfit", counts, variants)
     if path == "flagship":
         expected = FLAGSHIP_KERNELS
     else:
@@ -1597,10 +1692,10 @@ def train_step_kernels_vs_plain(dev, smi: str):
     loss_err, stat_err, step_errs = step_agreement(model, plain, config, partial, complete)
     torch.cuda.synchronize()
     designs = cuda_lib.variant_counts()
-    print(f"[train step] S' and C' launches by design in the kernels' step: {designs} "
+    print(f"[train step] C, S', C' and B' launches by design in the kernels' step: {designs} "
           f"(expected {FLAGSHIP_STEP_DESIGNS})")
     if designs != FLAGSHIP_STEP_DESIGNS:
-        raise AssertionError("train step: S' or C' took other passes than expected")
+        raise AssertionError("train step: C, S', C' or B' took another design than expected")
     print(f"[train step] kernels vs plain at batch {BATCH}: losses rel err {loss_err:.3e} "
           f"(tolerance 1e-4); running statistics rel err {stat_err:.3e} (tolerance 1e-4); "
           f"gradients max|dg| / max|g|, largest: {worst(step_errs)} (tolerance {STEP_TOL})")
@@ -2181,6 +2276,7 @@ def bf16_serve(dev, smi: str):
         for key, v in counts.items():
             total[key] = total.get(key, 0) + v
         print(f"[bf16 serve] {what} launches: {json.dumps(counts)}")
+        check_designs(f"[bf16 serve] {what}", counts, cuda_lib.variant_counts())
         return out, counts
 
     def timed(fn, dtype, reps=5):
@@ -2356,10 +2452,21 @@ def bf16_flagship_step(dev, partial, complete):
         out[1] = out[1] * BF16_MUTANT
         return tuple(out)
 
+    project = vn_layer_fused.vn_layer_fused_project
+    seen = []  # kernel C's arguments in the kernels' step
+
+    def capture(*a, **k):
+        seen.append((a, k))
+        return project(*a, **k)
+
     with DecisionTape() as tape:
         tape.run()
         cuda_lib.reset_launch_counts()
-        lk, bk, gk = run(model, torch.bfloat16)
+        vn_layer_fused.vn_layer_fused_project = capture
+        try:
+            lk, bk, gk = run(model, torch.bfloat16)
+        finally:
+            vn_layer_fused.vn_layer_fused_project = project
         designs = cuda_lib.variant_counts()
         rec = tape.rec
         # kernel A's reflections are not replayed into the runs through the
@@ -2380,10 +2487,24 @@ def bf16_flagship_step(dev, partial, complete):
             _, _, gm = run(model, torch.bfloat16)
         finally:
             vn_layer_fused.layer_project_bwd = orig
-    print(f"{btag} S' and C' launches by design: {designs} (expected "
+    # The forward's C sums p and d on the tensor cores, C''s pass 1 (and the
+    # plain C) in input-channel order: on this step's own input to
+    # final_conv.1 + .2, how far the two roundings of p, d carry to the output
+    (args, kwargs), = seen
+    with torch.no_grad():
+        args = tuple(t.detach() if torch.is_tensor(t) else t for t in args)
+        got = project(*args, **kwargs)
+        want = vn_layer_fused.reference_layer_fused_project(*args, **kwargs)
+    worst_ulp, differ = bf16_ulps(got, want)
+    print(f"{btag} final_conv.1 + .2 on the step's own input: kernel C (p, d on the tensor "
+          f"cores) against its plain version (p, d in input-channel order, as C''s pass 1 "
+          f"forms them): {differ} of {got.numel()} outputs differ, the largest by "
+          f"{worst_ulp:.2f} bf16 ulp; RMS distance {bf16_rms(got, want):.3e} (bound "
+          f"{BF16_C_RMS:.3e})")
+    print(f"{btag} C, S', C' and B' launches by design: {designs} (expected "
           f"{BF16_STEP_DESIGNS['flagship']})")
     if designs != BF16_STEP_DESIGNS["flagship"]:
-        raise AssertionError(f"{btag} S' or C' took other passes than expected")
+        raise AssertionError(f"{btag} C, S', C' or B' took another design than expected")
     finite = all(torch.isfinite(t).all() for t in (lk, *bk.values(), *gk.values()))
     print(f"{btag} batch {BATCH}, losses (coarse, dense): kernels {lk.tolist()}, their plain "
           f"versions {lv.tolist()}, plain bf16 {lp.tolist()}, plain float32 {l32.tolist()}; "
@@ -2454,6 +2575,8 @@ def bf16_train(dev, smi: str):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         counts = {k: v for k, v in cuda_lib.launch_counts().items() if v}
+        check_designs(f"{tag} root config.json train + resume", counts,
+                      cuda_lib.variant_counts())
     finally:
         os.chdir(cwd)
     exp_dir = os.path.join(os.environ["OUTPUT_DIR"], run)
@@ -2495,12 +2618,12 @@ def bf16_train(dev, smi: str):
                    if v and k != "chamfer_nn_one_sided"}
     designs = cuda_lib.variant_counts()
     print(f"{tag} one vn_pointr_448 train step: launches {json.dumps(step_counts)}; "
-          f"S' and C' by design {json.dumps(designs)}; skipped {metrics['skipped'].item()}")
+          f"C, S', C' and B' by design {json.dumps(designs)}; skipped {metrics['skipped'].item()}")
     if step_counts != BF16_STEP_LAUNCHES["vn_pointr_448"] or metrics["skipped"].item():
         raise AssertionError(f"{tag} one step's launches {step_counts}, expected "
                              f"{BF16_STEP_LAUNCHES['vn_pointr_448']}")
     if designs != BF16_STEP_DESIGNS["vn_pointr_448"]:
-        raise AssertionError(f"{tag} one step's S', C' designs {designs}, expected "
+        raise AssertionError(f"{tag} one step's C, S', C', B' designs {designs}, expected "
                              f"{BF16_STEP_DESIGNS['vn_pointr_448']}")
     total = {k: counts.get(k, 0) + step_counts.get(k, 0) for k in {*counts, *step_counts}}
 

@@ -22,8 +22,9 @@
 //
 // Design.  The TPU kernels run their grid in order and add each point
 // tile's dW into one output; Hopper blocks run in no order, and a register
-// tile that holds dx for all input channels does not fit.  So each backward
-// is three passes, all hand-written here, with no float atomics:
+// tile that holds dx for all input channels does not fit.  So S', C' and
+// B' above Cin = 2 are three passes, all hand-written here, with no float
+// atomics (B' at Cin <= 2 is one fused pass, below):
 //   1. pass 1 recomputes p (and d) for all three planes of a (channel x
 //      64-point) tile, runs the epilogue backward in registers, writes dp
 //      (and dd) to a scratch of B*3*Cout*N elements each, and the
@@ -40,13 +41,24 @@
 // partials over the tiles of each column), so each run of a kernel gives the
 // same bits.  S is pass 1 alone, with the norm sums.
 //
-// Two designs of the three passes; the wrapper picks one from (Cin, Cout)
-// (ops/vn_layer_fused.py::backward_design) and neither stands in for the
-// other:
-//   narrow (Cin or Cout < 16: final_conv.0's 2 -> 256, the pair folds' 1
-//      -> 256; and every B'): pd_pass with the 4 x 4 FMA micro-tile of vn_tile.cuh,
-//      dx_gemm and dw_gemm below.  These shapes are bound by bytes, not
-//      operations.
+// Three designs; the wrapper picks one from (Cin, Cout) (ops/
+// vn_layer_fused.py::backward_design for S' and C', ::layer_bwd_design for
+// B') and none stands in for another:
+//   fused (B' at Cin <= 2 only: final_conv.0's 2 -> 256, conv1's 2 -> 32,
+//      the pair folds' 1 -> 256 at group 64): layer_bwd_fused, one pass.
+//      A block owns a 64-point tile of one sample and walks all Cout
+//      channels: it recomputes p and d (Cin FMAs a plane), reads g once,
+//      runs the epilogue backward in registers, sums dA, dB, the bias
+//      gradients, dW and dWd over its points (one partial per sample, tile
+//      and channel, or the kSplit sub-partials, as pass 1 writes them) and
+//      keeps dx of its points in registers across the channels, adding the
+//      16 channel groups in order at the end.  No dp/dd scratch (805 MB in
+//      float32 at batch 8, N 16384), no dx_gemm or dw_gemm launch.
+//   narrow (S' and C' at Cin or Cout < 16: final_conv.0's 2 -> 256, the
+//      pair folds' 1 -> 256; B' at Cin > 2): pd_pass with the 4 x 4 FMA
+//      micro-tile of vn_tile.cuh, dx_gemm and dw_gemm below.  At Cin <= 2
+//      these shapes are bound by bytes, not operations, and the 64 x 64
+//      tiles of dx_gemm and dw_gemm are 1/32-1/64 used.
 //   wide (Cin >= 16 and Cout >= 16, S' and C' only: final_conv.1's 256 ->
 //      256, vn_folding{1,2}.1's 256 -> 128): W (and Wd) first transposed
 //      into a (Cin, Cout) scratch in the activations' type (bf16-rounded in
@@ -85,15 +97,16 @@
 // Bound on the H100 at the main path's shapes (batch 8, N = 16384):
 //   S at 256 -> 256: operations, the 2*Cin*Cout*3*B*N FLOP of p = W x.
 //   S' at 256 -> 256: operations, three such products (p, dx, dW).
-//   B' at 2 -> 256: bytes, reading g (B*3*Cout*N floats).
+//   B' at 2 -> 256: bytes, reading g (B*3*Cout*N floats: 403 MB, 0.12 ms);
+//      the fused pass issues ~130 instructions a (channel, point) vector
+//      (p, d, the epilogue backward, the dx and dW products, the sums).
 //   C' at 256 -> 256: operations, six products (p, d, dx from dp and dd,
 //      dW, dWd).
 // The attention decoder's pair fold (1 -> 256, N = 14336, group 64) is
 // bound by bytes like B': S and S' read x (one channel) and write dx, B'
 // reads g; the bias columns are 1/64 of a plane.  Passes 2 and 3 read the
 // dp/dd scratch back once each: that round trip (403 / 805 MB for S' / C'
-// in float32 at 256 -> 256, half in bf16) is what a fused later version
-// removes.
+// in float32 at 256 -> 256, half in bf16) remains in S' and C'.
 //
 // The bf16 mode (entry points <name>_bf16; T = vnk_bf16: x, the biases, g,
 // dx and the dp/dd scratch bfloat16; W, Wd, A, B, w_out, c1, c2, dW, the
@@ -109,9 +122,10 @@
 //   pass 2 takes dx = W16^T dp16 (+ Wd16^T dd16), exact products summed in
 //      float32, stored bf16;
 //   pass 3 takes dW = dp16 x16^T (dWd = dd16 x16^T) in float32.
-// The narrow passes run the float32 mode's loops over bf16 loads.
-#include <algorithm>
-
+// The narrow passes run the float32 mode's loops over bf16 loads.  The
+// fused B' forms dp, dd in float32 as pass 1 does, sums dA, dB and the bias
+// gradients from them, and rounds dp, dd (and W, Wd) to bf16 only as
+// operands of its dx and dW products; dx is stored bf16.
 #include "vn_mma.cuh"
 #include "vn_tile.cuh"
 
@@ -666,22 +680,6 @@ dw_gemm(const T* __restrict__ g1, const T* __restrict__ g2,
 }
 
 // ------------------------------------------------------------ wide passes
-//
-// W^T (and Wd^T) in the activations' type: wt (1 or 2, Cin, Cout), rounded to
-// bf16 in the bf16 mode (the rounding vn_tile.cuh gives W as it stages it).
-template <typename T>
-__global__ void __launch_bounds__(kWideThreads)
-transpose_weights(const float* __restrict__ w, const float* __restrict__ wd,
-                  T* __restrict__ wt, int Cin, int Cout) {
-  const int64_t total = static_cast<int64_t>(Cin) * Cout;
-  const int64_t all = wd != nullptr ? 2 * total : total;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kWideThreads + threadIdx.x; e < all;
-       e += static_cast<int64_t>(gridDim.x) * kWideThreads) {
-    const int64_t r = e % total;
-    const int k = static_cast<int>(r / Cout), c = static_cast<int>(r % Cout);
-    wt[e] = vnk_cast<T>((e < total ? w : wd)[static_cast<size_t>(c) * Cin + k]);
-  }
-}
 
 // Wide pass 1 on the CUDA cores (float32 S' and C', and bf16 C'):
 // pd_pass's layout, order and epilogue (thread (ty, tx) of the 16 x 16
@@ -1378,6 +1376,250 @@ dw_wide_bf16(const vnk_bf16* __restrict__ g1, const vnk_bf16* __restrict__ g2,
       }
 }
 
+// ------------------------------------------------------------ the fused B'
+//
+// B' at Cin <= 2 (kCin, the decoder's first fold layer and the pair folds):
+// a block owns one 64-point tile of one sample and walks all Cout channels,
+// thread (ty, tx) of the 16 x 16 grid channels c0 + 4 ty + i (i < 4, c0 in
+// steps of 64) at points n0 + 4 tx + q.  For each channel it recomputes p
+// and d (kCin FMAs a plane), reads g once (a thread's four points of the
+// three planes, copied by cp.async into its own shared-memory slots one
+// channel ahead), runs the epilogue backward in registers and then
+//   - sums dA, dB, the bias gradients (as pd_pass: one partial per sample,
+//     tile and channel, or the kSplit sub-partials) and dW[c, k], dWd[c, k]
+//     over its four points and a fixed butterfly over its 16 lanes: one
+//     partial per (sample, tile, channel, k), summed by vnk_reduce_rows;
+//   - adds W[c, k] dp + Wd[c, k] dd to its running dx of its four points,
+//     kept in registers across the channels it walks; the 16 channel groups
+//     are added in order through shared memory at the end.
+// No dp/dd scratch, no further pass over the points.  The bf16 mode forms
+// dp and dd in float32, sums dA, dB and the bias gradients from those, and
+// rounds dp, dd (and W, Wd) to bf16 only as operands of the dx and dW
+// products (JAX vn_layer_fused.py:440-457); dx is stored bf16.
+// cp.async of a thread's g slice: 16 bytes (four float32 points, through
+// L2 only) or 8 (four bf16 points).
+template <int kBytes>
+__device__ __forceinline__ void cp_async_g(void* dst, const void* src) {
+  if constexpr (kBytes == 16) {
+    cp_async16(dst, src);
+  } else {
+    static_assert(kBytes == 8, "8 or 16 bytes");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
+  }
+}
+
+// Channels of g in flight ahead of the one in use (on the card one was
+// faster than none and than two).
+constexpr int kGAhead = 1;
+
+// Three blocks an SM at Cin 1 (its x and dx take half the registers), two at
+// Cin 2: each the faster on the card.
+template <int kCin, bool kSplit, typename T>
+__global__ void __launch_bounds__(kThreads, kCin == 1 ? 3 : 2)
+layer_bwd_fused(PdArgs<T> args, T* __restrict__ dx, float* __restrict__ dw_part, bool ag) {
+  constexpr int kNqc = channel_sums<kLayerBwd>();
+  // a thread's g slices (three planes x its four points) kGAhead channels
+  // ahead, each thread filling and reading only its own slots; then, after
+  // the channel walk, the 16 channel groups' dx
+  constexpr int kGV = 4 * static_cast<int>(sizeof(T));  // bytes of four points
+  constexpr int kGBytes = (kGAhead + 1) * 3 * kThreads * kGV;
+  constexpr int kRedBytes = 16 * 3 * kCin * kPts * 4;
+  __shared__ __align__(16) unsigned char smem[kGBytes > kRedBytes ? kGBytes : kRedBytes];
+  auto red = reinterpret_cast<float (*)[3][kCin][kPts]>(smem);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int t = blockIdx.x, bi = blockIdx.y;
+  const int n0 = t * kPts, nt0 = n0 + tx * 4;
+  const int Cout = args.Cout, N = args.N;
+  const bool has_bias = args.pbias != nullptr;
+  const bool vec = ag && (N % 4 == 0) && (nt0 + 3 < N);  // g rows 16 (8)-byte aligned
+
+  // x at this thread's four points (zero past N), and its running dx
+  float xv[3][kCin][4], dxa[3][kCin][4];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int k = 0; k < kCin; ++k)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int n = nt0 + q;
+        xv[j][k][q] = n < N ? vnk_load(args.x[((static_cast<size_t>(bi) * 3 + j) * kCin + k) * N + n])
+                            : 0.f;
+        dxa[j][k][q] = 0.f;
+      }
+
+  const size_t stride = static_cast<size_t>(args.B) * args.T * Cout;
+  const size_t bstride = stride * args.spt;
+  const size_t row0 = (static_cast<size_t>(bi) * args.T + t) * args.spt;
+  float* const bias_part = args.partial + kNqc * stride;
+  // the thread's channels in turn: m -> c0 + 4 ty + i, c0 = 64 (m / 4), i = m % 4
+  const int walk = (Cout + kCh - 1) / kCh * 4;
+  const auto channel = [&](int m) { return m / 4 * kCh + ty * 4 + m % 4; };
+  const auto slot = [&](int m, int j) {
+    return smem + ((m % (kGAhead + 1) * 3 + j) * kThreads + threadIdx.x) * kGV;
+  };
+  const auto fetch = [&](int m) {  // one commit group a channel, empty past the walk
+    const int c = channel(m);
+    if (vec && m < walk && c < Cout) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        cp_async_g<kGV>(slot(m, j), args.g + ((static_cast<size_t>(bi) * 3 + j) * Cout + c) * N + nt0);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int m = 0; m < kGAhead; ++m) fetch(m);
+#pragma unroll 1
+  for (int m = 0; m < walk; ++m) {
+    fetch(m + kGAhead);
+    cp_async_wait<kGAhead>();  // this thread's copies of channel m have landed
+    {
+      const int c = channel(m);
+      const bool cok = c < Cout;
+      // the products' operands: W and Wd rounded to bf16 in the bf16 mode
+      float wr[kCin], dr[kCin];
+#pragma unroll
+      for (int k = 0; k < kCin; ++k) {
+        wr[k] = cok ? vnk_round_as<T>(args.w[c * kCin + k]) : 0.f;
+        dr[k] = cok ? vnk_round_as<T>(args.wd[c * kCin + k]) : 0.f;
+      }
+      const float av = cok ? args.a[c] : 0.f, bv = cok ? args.b[c] : 0.f;
+
+      // g of the four points, three planes
+      float gq[3][4];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const T* row = args.g + ((static_cast<size_t>(bi) * 3 + j) * Cout + (cok ? c : 0)) * N;
+        if (cok && vec) {
+          load_n<4>(reinterpret_cast<const T*>(slot(m, j)), gq[j]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) gq[j][q] = cok && nt0 + q < N ? vnk_load(row[nt0 + q]) : 0.f;
+        }
+      }
+
+      float sc[2] = {0.f, 0.f}, sp[3] = {0.f, 0.f, 0.f}, sd[3] = {0.f, 0.f, 0.f};
+      float sw[kCin], swd[kCin];
+#pragma unroll
+      for (int k = 0; k < kCin; ++k) sw[k] = swd[k] = 0.f;
+      float outp[3][4], outd[3][4];
+      float pb[3] = {0.f, 0.f, 0.f}, db[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int n = nt0 + q;
+        const bool ok = cok && n < N;
+        // a thread's 4 points share one bias column unless group is 1 or 2
+        if (has_bias && cok && (q == 0 || (kSplit && args.group < 4))) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            pb[j] = vnk_bias(args.pbias, bi, j, c, Cout, n, N, args.group);
+            db[j] = vnk_bias(args.dbias, bi, j, c, Cout, n, N, args.group);
+          }
+        }
+        // p and d as the forward's: input-channel order, the bias, one rounding
+        float p[3], d[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          float ap = 0.f, ad = 0.f;
+#pragma unroll
+          for (int k = 0; k < kCin; ++k) {
+            ap = fmaf(wr[k], xv[j][k][q], ap);
+            ad = fmaf(dr[k], xv[j][k][q], ad);
+          }
+          p[j] = vnk_round_as<T>(ap + pb[j]);
+          d[j] = vnk_round_as<T>(ad + db[j]);
+        }
+        const float gv[3] = {gq[0][q], gq[1][q], gq[2][q]};
+        float dpv[3], ddv[3], dqp, norm_e;
+        vnk_bn_leaky_bwd(p, d, gv, av, bv, args.one_minus_ns, dpv, ddv, &dqp, &norm_e, nullptr);
+        if (ok) {
+          sc[0] += dqp;
+          sc[1] += dqp / norm_e;
+        }
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          outp[j][q] = ok ? dpv[j] : 0.f;
+          outd[j][q] = ok ? ddv[j] : 0.f;
+          sp[j] += outp[j][q];
+          sd[j] += outd[j][q];
+          const float p16 = vnk_round_as<T>(outp[j][q]), d16 = vnk_round_as<T>(outd[j][q]);
+#pragma unroll
+          for (int k = 0; k < kCin; ++k) {
+            sw[k] = fmaf(p16, xv[j][k][q], sw[k]);
+            swd[k] = fmaf(d16, xv[j][k][q], swd[k]);
+            dxa[j][k][q] = fmaf(dr[k], d16, fmaf(wr[k], p16, dxa[j][k][q]));
+          }
+        }
+      }
+
+      // one partial per (quantity, sample, tile, channel): dA, dB; dW, dWd
+      // at (sample, tile, channel, k); the bias sums as pd_pass writes them
+      const size_t at = (static_cast<size_t>(bi) * args.T + t) * Cout + c;
+#pragma unroll
+      for (int k = 0; k < kNqc; ++k) {
+        const float v = vnk_sum16(sc[k]);
+        if (tx == 0 && cok) args.partial[k * stride + at] = v;
+      }
+#pragma unroll
+      for (int k = 0; k < kCin; ++k) {
+        const float v = vnk_sum16(sw[k]), vd = vnk_sum16(swd[k]);
+        if (tx == 0 && cok) {
+          dw_part[at * kCin + k] = v;
+          dw_part[(stride + at) * kCin + k] = vd;
+        }
+      }
+      if (has_bias) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float o0 = h == 0 ? outp[j][0] : outd[j][0];
+            const float o1 = h == 0 ? outp[j][1] : outd[j][1];
+            const float o2 = h == 0 ? outp[j][2] : outd[j][2];
+            const float o3 = h == 0 ? outp[j][3] : outd[j][3];
+            float* dst = bias_part + (h * 3 + j) * bstride;
+            if (!kSplit) {  // group 0 or >= 64: one partial a tile
+              const float v = vnk_sum16(h == 0 ? sp[j] : sd[j]);
+              if (tx == 0 && cok) dst[row0 * Cout + c] = v;
+            } else if (args.sub >= 4) {  // a thread's 4 points, then its run of lanes
+              const int lanes = args.sub / 4;
+              const float v = vnk_sum_lanes(((o0 + o1) + o2) + o3, lanes);
+              if (tx % lanes == 0 && cok) dst[(row0 + tx / lanes) * Cout + c] = v;
+            } else if (args.sub == 2) {  // two groups in a thread's points
+              if (cok) {
+                dst[(row0 + tx * 2) * Cout + c] = o0 + o1;
+                dst[(row0 + tx * 2 + 1) * Cout + c] = o2 + o3;
+              }
+            } else if (cok) {  // group 1: every point its own column
+              dst[(row0 + tx * 4) * Cout + c] = o0;
+              dst[(row0 + tx * 4 + 1) * Cout + c] = o1;
+              dst[(row0 + tx * 4 + 2) * Cout + c] = o2;
+              dst[(row0 + tx * 4 + 3) * Cout + c] = o3;
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // dx: the 16 channel groups' sums in order (red overlays the g slots)
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int k = 0; k < kCin; ++k)
+      *reinterpret_cast<float4*>(&red[ty][j][k][tx * 4]) =
+          make_float4(dxa[j][k][0], dxa[j][k][1], dxa[j][k][2], dxa[j][k][3]);
+  __syncthreads();
+  for (int e = threadIdx.x; e < 3 * kCin * kPts; e += kThreads) {
+    const int j = e / (kCin * kPts), k = e / kPts % kCin, nn = e % kPts, n = n0 + nn;
+    float s = 0.f;
+#pragma unroll
+    for (int g = 0; g < 16; ++g) s += red[g][j][k][nn];
+    if (n < N) dx[((static_cast<size_t>(bi) * 3 + j) * kCin + k) * N + n] = vnk_cast<T>(s);
+  }
+}
+
 int tiles(int N) { return (N + kPts - 1) / kPts; }
 
 template <int kMode, typename T>
@@ -1410,28 +1652,11 @@ void products_bwd(const T* x, const float* w, const float* wd, const T* dp,
                   static_cast<int64_t>(Cout) * Cin, st);
 }
 
-// A 16-byte-aligned pointer whose rows (of `stride` elements) start
-// 16-byte-aligned too: the tiles of that matrix go by cp.async.
-bool aligned16(const void* p, int64_t stride, int vec) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && stride % vec == 0;
-}
-
-template <int kNT = kWideThreads, typename Kernel, typename... Args>
-cudaError_t launch_wide(Kernel kernel, dim3 grid, int bytes, cudaStream_t st, Args... args) {
-  const cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kNT, bytes, st>>>(args...);
-  return cudaGetLastError();
-}
-
 // W^T (and Wd^T) into wt, then the wide pass 1.
 template <int kMode, typename T>
 cudaError_t launch_pd_wide(const PdArgs<T>& args, T* wt, cudaStream_t st) {
   constexpr int kV = 16 / static_cast<int>(sizeof(T));
-  const int64_t n_w = static_cast<int64_t>(args.Cin) * args.Cout * (kMode == kProjBwd ? 2 : 1);
-  const unsigned blocks = static_cast<unsigned>(std::min<int64_t>((n_w + 255) / 256, 4096));
-  transpose_weights<T><<<blocks, kWideThreads, 0, st>>>(
-      args.w, kMode == kProjBwd ? args.wd : nullptr, wt, args.Cin, args.Cout);
+  launch_transpose(args.w, kMode == kProjBwd ? args.wd : nullptr, wt, args.Cin, args.Cout, st);
   const bool aw = aligned16(wt, args.Cout, kV), ax = aligned16(args.x, args.N, kV);
   const bool split = args.sub < kPts;
   if constexpr (vnk_is_bf16<T>() && kMode == kStatsBwd) {
@@ -1577,23 +1802,51 @@ int stats_bwd(const void* x, const void* w, const void* pbias, const void* c1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B' (w_out null, kLayerBwd; narrow only) and C' (kProjBwd): nqc
-// per-channel sums.
+// The fused B' (Cin = kCin <= 2) into dx and its partials.
+template <int kCin, typename T>
+cudaError_t launch_bwd_fused(const PdArgs<T>& args, T* dx, float* dw_part, cudaStream_t st) {
+  const bool ag = aligned16(args.g, args.N, 16 / static_cast<int>(sizeof(T)));
+  const dim3 grid(args.T, args.B);
+  if (args.sub < kPts) {
+    layer_bwd_fused<kCin, true, T><<<grid, kThreads, 0, st>>>(args, dx, dw_part, ag);
+  } else {
+    layer_bwd_fused<kCin, false, T><<<grid, kThreads, 0, st>>>(args, dx, dw_part, ag);
+  }
+  return cudaGetLastError();
+}
+
+// B' (w_out null, kLayerBwd) and C' (kProjBwd): nqc per-channel sums.
+// `design` 1 takes the fused pass (B', Cin <= 2) or the wide passes (C'),
+// 0 the narrow ones.
 template <int kMode, typename T>
 int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
               const void* dbias, const void* a, const void* b,
               const void* w_out, const void* g, void* dx, void* dw2,
               void* sums, void* dpdb, void* dp, void* dd, void* partial,
               void* dw_part, void* wt, int B, int Cin, int Cout, int N, int S,
-              int chunk, int group, int wide, float one_minus_ns, void* stream) {
+              int chunk, int group, int design, float one_minus_ns, void* stream) {
   if (B == 0 || N == 0 || Cout == 0) return 0;
   constexpr int nqc = channel_sums<kMode>();
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PdArgs<T> args = make_args<T>(x, w, wd, pbias, dbias, a, b, w_out, g,
                                       nullptr, nullptr, dp, dd, partial, B, Cin,
                                       Cout, N, group, one_minus_ns);
+  if constexpr (kMode == kLayerBwd) {
+    if (design) {
+      if (Cin != 1 && Cin != 2) return static_cast<int>(cudaErrorInvalidValue);
+      float* part = static_cast<float*>(dw_part);
+      cudaError_t err = Cin == 1 ? launch_bwd_fused<1>(args, static_cast<T*>(dx), part, st)
+                                 : launch_bwd_fused<2>(args, static_cast<T*>(dx), part, st);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      vnk_reduce_rows(args.partial, static_cast<float*>(sums), nqc, B * args.T, Cout, st);
+      if (pbias != nullptr) reduce_bias(args, nqc, 6, static_cast<float*>(dpdb), st);
+      vnk_reduce_rows(part, static_cast<float*>(dw2), 2, B * args.T,
+                      static_cast<int64_t>(Cout) * Cin, st);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
   if constexpr (kMode == kProjBwd) {
-    if (wide) {
+    if (design) {
       cudaError_t err = launch_pd_wide<kMode>(args, static_cast<T*>(wt), st);
       if (err != cudaSuccess) return static_cast<int>(err);
       vnk_reduce_rows(args.partial, static_cast<float*>(sums), nqc, B * args.T, Cout, st);
@@ -1669,16 +1922,19 @@ VNK_EXPORT int vn_layer_stats_bwd_bf16(const void* x, const void* w,
 
 // B': dx, dw2 (2, Cout, Cin) = (dW, dWd), dab (2, Cout) = (dA, dB),
 // dpdb (6, B, G, Cout) = (dpbias planes, ddbias planes) or null; partial
-// with nqc = 2, nqb = 6.
+// with nqc = 2, nqb = 6.  `fused` (the wrapper's layer_bwd_design; Cin <=
+// 2 only) takes the fused pass: no dp, dd (null), and dw_part holds the
+// weight partials (2, B, T, Cout, Cin); otherwise the narrow passes and
+// dw_part (2, S, Cout, Cin).
 VNK_EXPORT int vn_layer_fused_bwd(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* g, void* dx,
     void* dw2, void* dab, void* dpdb, void* dp, void* dd, void* partial,
-    void* dw_part, int B, int Cin, int Cout, int N, int S, int group,
+    void* dw_part, int B, int Cin, int Cout, int N, int S, int group, int fused,
     float one_minus_ns, void* stream) {
   return layer_bwd<kLayerBwd, float>(x, w, wd, pbias, dbias, a, b, nullptr, g, dx,
                                      dw2, dab, dpdb, dp, dd, partial, dw_part, nullptr,
-                                     B, Cin, Cout, N, S, 0, group, 0, one_minus_ns,
+                                     B, Cin, Cout, N, S, 0, group, fused, one_minus_ns,
                                      stream);
 }
 
@@ -1686,12 +1942,12 @@ VNK_EXPORT int vn_layer_fused_bwd_bf16(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* g, void* dx,
     void* dw2, void* dab, void* dpdb, void* dp, void* dd, void* partial,
-    void* dw_part, int B, int Cin, int Cout, int N, int S, int group,
+    void* dw_part, int B, int Cin, int Cout, int N, int S, int group, int fused,
     float one_minus_ns, void* stream) {
   return layer_bwd<kLayerBwd, vnk_bf16>(x, w, wd, pbias, dbias, a, b, nullptr, g,
                                         dx, dw2, dab, dpdb, dp, dd, partial,
                                         dw_part, nullptr, B, Cin, Cout, N, S, 0, group,
-                                        0, one_minus_ns, stream);
+                                        fused, one_minus_ns, stream);
 }
 
 // C': as B' with w_out (Cout,) and g (B, 3, 1, N); dabo (3, Cout) =

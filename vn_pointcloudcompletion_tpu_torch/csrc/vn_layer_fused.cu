@@ -13,18 +13,54 @@
 //   B: out = o                                  (B, 3, Cout, N)
 //   C: out = sum_c w_out[c] o[c]                (B, 3, 1, N)
 //
-// Design.  A block owns kPts points of one sample and walks the output
-// channels in tiles of kCh; the products of a tile (vn_tile.cuh) leave each
-// of the 256 threads a 4-channel x 4-point micro-tile of all six
-// accumulators (p and d, three planes each), which is what the epilogue
-// needs: the folded BN and the reflection read all three planes of p and d
-// of one vector.  p and d never leave registers.
-//   B: the grid spreads the channel tiles over blockIdx.y; each block
-//      writes its (3, kCh, kPts) output tile with 16-byte stores.
-//   C: one block walks all Cout channels (gridDim.y == 1) and keeps the
-//      w_out contraction in registers, so the per-point sum needs one
-//      shared-memory reduction over the 16 channel groups at the end and no
-//      atomics across blocks.
+// Two designs of C; the wrapper picks one from (Cin, Cout)
+// (ops/vn_layer_fused.py::forward_design) and neither stands in for the
+// other:
+//   narrow (Cin or Cout < 16; and every B): layer_fwd below.  A block owns
+//      kPts points of one sample and walks the output channels in tiles of
+//      kCh; the products of a tile (vn_tile.cuh) leave each of the 256
+//      threads a 4-channel x 4-point micro-tile of all six accumulators (p
+//      and d, three planes each), which is what the epilogue needs: the
+//      folded BN and the reflection read all three planes of p and d of one
+//      vector.  p and d never leave registers.
+//      B: the grid spreads the channel tiles over blockIdx.y; each block
+//         writes its (3, kCh, kPts) output tile with 16-byte stores.
+//      C: one block walks all Cout channels (gridDim.y == 1) and keeps the
+//         w_out contraction in registers, so the per-point sum needs one
+//         shared-memory reduction over the 16 channel groups at the end and
+//         no atomics across blocks.  Its loop has 8-channel stages, not
+//         double-buffered, one block an SM (13-22% of the FP32 peak).
+//   wide (Cin >= 16 and Cout >= 16: final_conv.1 + .2's 256 -> 256 -> 1,
+//      vn_folding{1,2}.1 + .2's 256 -> 128 -> 1): W and Wd first transposed
+//      into a (2, Cin, Cout) scratch in the activations' type (vn_mma.cuh,
+//      bf16-rounded in the bf16 mode), then a ring of shared-memory stages
+//      filled by cp.async, the next input-channel slice loading while the
+//      current one multiplies.  The grid runs the channel blocks of one
+//      64-point tile together (blockIdx.x), so x comes from DRAM once; each
+//      block contracts its channels with w_out in a fixed order and writes
+//      one projection partial per (channel block, sample, plane, point);
+//      proj_sum adds the partials in channel-block order and rounds once to
+//      the output's type.  No float atomics.
+//      float32 (proj_wide_fma): FP32 FMAs on the CUDA cores, the layout of
+//         the wide C' pass 1 (vn_layer_bwd.cu pd_wide_fma): 2 channels x 4
+//         points x 3 planes of p and d a thread, 32 channels a block, 256
+//         threads, two blocks an SM, 16-channel stages three deep; p and d
+//         summed with fmaf in input-channel order (the narrow kernel's bits
+//         and the plain version's order).
+//      bf16 (proj_wide_mma): the tensor cores, mma.sync.m16n8k16 bf16 ->
+//         float32 (exact products, float32 sums), W^T, Wd^T and x read by
+//         ldmatrix.trans; 64 channels x 64 points a block in 8 warps (32
+//         channels x 16 points each, p and d, three planes), three 32-channel
+//         stages, two blocks an SM.  The sums run in the tensor cores' order,
+//         not input-channel order, so a p or d that lies at a bf16 rounding
+//         boundary rounds one ulp away from the plain version's at rare
+//         points; the forward has no step that amplifies that (C''s
+//         BatchNorm-on-norms backward does, so C' keeps FMA order for p and
+//         d).  The check against the plain version is a stated bound, not
+//         equal bits (chip_smoke.py, BF16_C_RMS).  The epilogue reads the
+//         accumulators in their fragment layout: a thread's four channels in
+//         order, a fixed shuffle tree over the warp's eight channel rows, the
+//         two channel warps in order; the plain version sums in that order.
 //
 // The bf16 mode (T = vnk_bf16: x, the biases and out bfloat16; W, Wd, A, B
 // and w_out float32) is the TPU kernels' bf16=True (vn_layer_fused.py:61-65
@@ -33,17 +69,16 @@
 // once (never Wx alone: that would round twice) before the float32
 // epilogue; B stores the epilogue in bf16, C sums the UNROUNDED float32
 // epilogue times w_out (as JAX's fused C does, :650-656) and stores the
-// sum in bf16.  The loops are the float32 mode's over bf16 loads, FMAs on
-// the CUDA cores: the bf16 bound below is the tensor cores', which only a
-// redesign with mma/wgmma could approach.
+// sum in bf16.  The narrow loops are the float32 mode's over bf16 loads.
 //
 // Bound on the H100.  B (Cin = 2 on the main path): bytes, the
 // B*3*Cout*N*4-byte output write; the two-term products cost two FMAs per
-// accumulator.  C (Cin = Cout = 256): operations, 2 * 2*Cin*Cout*3*B*N FLOP
-// of FP32 FMAs on the CUDA cores (the float32 policy keeps them off the
-// tensor cores).  The register micro-tile gives 96 FMAs per 20 shared-memory
-// loads; the stages are not double-buffered yet, so loads and FMAs of one
-// block do not overlap.
+// accumulator.  C (Cin = Cout = 256): operations, 2 * 2*Cin*Cout*3*B*N FLOP,
+// of FP32 FMAs on the CUDA cores in float32 (the float32 policy keeps them
+// off the tensor cores; 1.56 ms at batch 8, N 16384) and of the bf16 tensor
+// cores in the bf16 mode (0.104 ms at 989 TFLOP/s); the epilogue's ~40
+// FP32 operations a vector and the bf16 x read (0.06 ms) come next.
+#include "vn_mma.cuh"
 #include "vn_tile.cuh"
 
 namespace {
@@ -177,6 +212,327 @@ int launch(const void* x, const void* w, const void* wd, const void* pbias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ the wide C
+
+// float32: thread (ty, tx) of the 16 x 16 grid holds p and d of channels
+// c0 + 2 ty + i (i < 2) at points n0 + 4 tx + q (q < 4), three planes.
+struct ProjFma {
+  static constexpr int kMC = 2, kBC = 32, kKs = 16, kStages = 3;
+  static constexpr int kW = kKs * kBC;            // floats of one W stage
+  static constexpr int kX = kKs * kPts;           // floats of one x plane stage
+  static constexpr int kStage = 2 * kW + 3 * kX;  // floats
+  static constexpr int kRed = 16 * 3 * kPts;      // the 16 channel groups' projections
+  static constexpr int kBytes = (kStages * kStage + kRed) * 4;
+};
+
+__global__ void __launch_bounds__(kWideThreads, 2)
+proj_wide_fma(const float* __restrict__ x, const float* __restrict__ wt,
+              const float* __restrict__ pbias, const float* __restrict__ dbias,
+              const float* __restrict__ a, const float* __restrict__ b,
+              const float* __restrict__ w_out, float* __restrict__ part, int B, int Cin,
+              int Cout, int N, int group, float one_minus_ns, bool aw, bool ax) {
+  using P = ProjFma;
+  constexpr int kMC = P::kMC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const sm = reinterpret_cast<float*>(smem_raw);
+  float* const red = sm + P::kStages * P::kStage;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int cb = blockIdx.x, t = blockIdx.y, bi = blockIdx.z;  // channel blocks of a tile together
+  const int n0 = t * kPts, c0 = cb * P::kBC;
+  const float* xb = x + static_cast<size_t>(bi) * 3 * Cin * N;
+  const float* wdt = wt + static_cast<size_t>(Cin) * Cout;
+
+  float accp[3][kMC][4], accd[3][kMC][4];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int i = 0; i < kMC; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) accp[j][i][q] = accd[j][i][q] = 0.f;
+
+  auto load = [&](int s, int kt) {
+    float* st = sm + s * P::kStage;
+    const int k0 = kt * P::kKs;
+    const size_t wrow = static_cast<size_t>(k0) * Cout + c0;
+    stage_tile<float, P::kKs, P::kBC>(st, P::kBC, wt + wrow, Cout, Cin - k0, Cout - c0, aw);
+    stage_tile<float, P::kKs, P::kBC>(st + P::kW, P::kBC, wdt + wrow, Cout, Cin - k0,
+                                      Cout - c0, aw);
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      stage_tile<float, P::kKs, kPts>(st + 2 * P::kW + j * P::kX, kPts,
+                                      xb + (static_cast<size_t>(j) * Cin + k0) * N + n0, N,
+                                      Cin - k0, N - n0, ax);
+  };
+  auto compute = [&](int s) {
+    const float* ws = sm + s * P::kStage;
+    const float* wds = ws + P::kW;
+    const float* xs = ws + 2 * P::kW;
+#pragma unroll
+    for (int k = 0; k < P::kKs; ++k) {
+      const float2 wv = *reinterpret_cast<const float2*>(ws + k * P::kBC + ty * kMC);
+      const float2 dv = *reinterpret_cast<const float2*>(wds + k * P::kBC + ty * kMC);
+      const float wr[kMC] = {wv.x, wv.y}, dr[kMC] = {dv.x, dv.y};
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float4 xv = *reinterpret_cast<const float4*>(xs + (j * P::kKs + k) * kPts + tx * 4);
+        const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+        for (int i = 0; i < kMC; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            accp[j][i][q] = fmaf(wr[i], xr[q], accp[j][i][q]);
+            accd[j][i][q] = fmaf(dr[i], xr[q], accd[j][i][q]);
+          }
+      }
+    }
+  };
+  pipeline<P::kStages>((Cin + P::kKs - 1) / P::kKs, load, compute);
+
+  // the epilogue, then w_out: a thread's two channels in order
+  float proj[3][4];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) proj[j][q] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMC; ++i) {
+    const int c = c0 + ty * kMC + i;
+    if (c >= Cout) continue;
+    const float av = a[c], bv = b[c], wo = w_out[c];
+    float pb[3] = {0.f, 0.f, 0.f}, db[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      // a thread's 4 points share one bias column unless group is 1 or 2
+      if (pbias != nullptr && (q == 0 || group == 1 || group == 2)) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          pb[j] = vnk_bias(pbias, bi, j, c, Cout, n0 + tx * 4 + q, N, group);
+          db[j] = vnk_bias(dbias, bi, j, c, Cout, n0 + tx * 4 + q, N, group);
+        }
+      }
+      float o[3];
+      vnk_bn_leaky(accp[0][i][q] + pb[0], accp[1][i][q] + pb[1], accp[2][i][q] + pb[2],
+                   accd[0][i][q] + db[0], accd[1][i][q] + db[1], accd[2][i][q] + db[2], av,
+                   bv, one_minus_ns, o);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) proj[j][q] += wo * o[j];
+    }
+  }
+  // the 16 channel groups in order
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    *reinterpret_cast<float4*>(red + (ty * 3 + j) * kPts + tx * 4) =
+        make_float4(proj[j][0], proj[j][1], proj[j][2], proj[j][3]);
+  __syncthreads();
+  if (threadIdx.x < 3 * kPts) {
+    const int j = threadIdx.x / kPts, nn = threadIdx.x % kPts, n = n0 + nn;
+    float s = 0.f;
+#pragma unroll
+    for (int g = 0; g < 16; ++g) s += red[(g * 3 + j) * kPts + nn];
+    if (n < N) part[((static_cast<size_t>(cb) * B + bi) * 3 + j) * N + n] = s;
+  }
+}
+
+// bf16: warp (wm, wn) of the 2 x 4 grid owns channels wm * 32 .. + 31 of the
+// block's 64 and points wn * 16 .. + 15 of its 64: two m16 tiles x two n8
+// tiles of p and of d, three planes.
+struct ProjMma {
+  static constexpr int kThreads = 256;  // 8 warps
+  static constexpr int kBC = 64, kKs = 32, kStages = 3;
+  static constexpr int kWld = kBC + 8, kXld = kPts + 8;  // padded rows: no bank conflicts
+  static constexpr int kW = kKs * kWld, kX = kKs * kXld;
+  static constexpr int kStage = 2 * kW + 3 * kX;  // bf16 elements
+  static constexpr int kBytes = kStages * kStage * 2 + 2 * 3 * kPts * 4;  // + two warps' sums
+};
+
+__global__ void __launch_bounds__(ProjMma::kThreads, 2)
+proj_wide_mma(const vnk_bf16* __restrict__ x, const vnk_bf16* __restrict__ wt,
+              const vnk_bf16* __restrict__ pbias, const vnk_bf16* __restrict__ dbias,
+              const float* __restrict__ a, const float* __restrict__ b,
+              const float* __restrict__ w_out, float* __restrict__ part, int B, int Cin,
+              int Cout, int N, int group, float one_minus_ns, bool aw, bool ax) {
+  using T = vnk_bf16;
+  using P = ProjMma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  float* const red = reinterpret_cast<float*>(smem_raw + P::kStages * P::kStage * 2);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp % 2, wn = warp / 2, grp = lane / 4, tig = lane % 4;
+  const int cb = blockIdx.x, t = blockIdx.y, bi = blockIdx.z;  // channel blocks of a tile together
+  const int n0 = t * kPts, c0 = cb * P::kBC;
+  const T* xb = x + static_cast<size_t>(bi) * 3 * Cin * N;
+  const T* wdt = wt + static_cast<size_t>(Cin) * Cout;
+
+  float accp[3][2][2][4], accd[3][2][2][4];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) accp[j][mt][nt][e] = accd[j][mt][nt][e] = 0.f;
+
+  auto load = [&](int s, int kt) {
+    T* st = sm + s * P::kStage;
+    const int k0 = kt * P::kKs;
+    const size_t wrow = static_cast<size_t>(k0) * Cout + c0;
+    stage_tile<T, P::kKs, P::kBC, P::kThreads>(st, P::kWld, wt + wrow, Cout, Cin - k0,
+                                               Cout - c0, aw);
+    stage_tile<T, P::kKs, P::kBC, P::kThreads>(st + P::kW, P::kWld, wdt + wrow, Cout, Cin - k0,
+                                               Cout - c0, aw);
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      stage_tile<T, P::kKs, kPts, P::kThreads>(
+          st + 2 * P::kW + j * P::kX, P::kXld, xb + (static_cast<size_t>(j) * Cin + k0) * N + n0,
+          N, Cin - k0, N - n0, ax);
+  };
+  auto compute = [&](int s) {
+    const T* ws = sm + s * P::kStage;
+    const T* wds = ws + P::kW;
+    const T* xs = ws + 2 * P::kW;
+#pragma unroll
+    for (int ks = 0; ks < P::kKs; ks += 16) {
+      unsigned fw[2][4], fd[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        frag_a_t(fw[mt], ws, P::kWld, wm * 32 + mt * 16, ks);
+        frag_a_t(fd[mt], wds, P::kWld, wm * 32 + mt * 16, ks);
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        unsigned fx[4];
+        frag_b2_t(fx, xs + j * P::kX, P::kXld, wn * 16, ks);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(accp[j][mt][0], fw[mt], fx[0], fx[1]);
+          mma_bf16(accp[j][mt][1], fw[mt], fx[2], fx[3]);
+          mma_bf16(accd[j][mt][0], fd[mt], fx[0], fx[1]);
+          mma_bf16(accd[j][mt][1], fd[mt], fx[2], fx[3]);
+        }
+      }
+    }
+  };
+  pipeline<P::kStages>((Cin + P::kKs - 1) / P::kKs, load, compute);
+
+  // The epilogue on the fragments: element 2 r + e of acc[j][mt][nt] is
+  // channel c0 + wm 32 + mt 16 + grp + 8 r at point n0 + wn 16 + nt 8 +
+  // 2 tig + e.  A thread contracts its four channels with w_out in order
+  // (mt, then r).
+  const bool has_bias = pbias != nullptr;
+  float proj[3][2][2];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) proj[j][nt][0] = proj[j][nt][1] = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int c = c0 + wm * 32 + mt * 16 + grp + 8 * r;
+      if (c >= Cout) continue;
+      const float av = a[c], bv = b[c], wo = w_out[c];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + wn * 16 + nt * 8 + 2 * tig + e;
+          float pv[3], dv[3];
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            const float pb = has_bias ? vnk_bias(pbias, bi, j, c, Cout, n, N, group) : 0.f;
+            const float db = has_bias ? vnk_bias(dbias, bi, j, c, Cout, n, N, group) : 0.f;
+            pv[j] = vnk_round_bf16(accp[j][mt][nt][2 * r + e] + pb);
+            dv[j] = vnk_round_bf16(accd[j][mt][nt][2 * r + e] + db);
+          }
+          float o[3];
+          vnk_bn_leaky(pv[0], pv[1], pv[2], dv[0], dv[1], dv[2], av, bv, one_minus_ns, o);
+#pragma unroll
+          for (int j = 0; j < 3; ++j) proj[j][nt][e] += wo * o[j];
+        }
+      }
+    }
+  }
+  // the warp's eight channel rows (lanes 4 grp + tig): a fixed tree, pairs
+  // of neighbouring rows first; then the two channel warps in order
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = proj[j][nt][e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (grp == 0) red[(wm * 3 + j) * kPts + wn * 16 + nt * 8 + 2 * tig + e] = v;
+      }
+  __syncthreads();
+  if (threadIdx.x < 3 * kPts) {
+    const int j = threadIdx.x / kPts, nn = threadIdx.x % kPts, n = n0 + nn;
+    const float s = red[j * kPts + nn] + red[(3 + j) * kPts + nn];
+    if (n < N) part[((static_cast<size_t>(cb) * B + bi) * 3 + j) * N + n] = s;
+  }
+}
+
+// out[e] = the sum of the `blocks` projection partials of element e, in
+// channel-block order, rounded once to T.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+proj_sum(const float* __restrict__ part, T* __restrict__ out, int blocks, int64_t cols) {
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kWideThreads + threadIdx.x; e < cols;
+       e += static_cast<int64_t>(gridDim.x) * kWideThreads) {
+    float s = 0.f;
+    for (int k = 0; k < blocks; ++k) s += part[k * cols + e];
+    out[e] = vnk_cast<T>(s);
+  }
+}
+
+// Kernel C in the design the wrapper chose: wide, or layer_fwd<true, T>.
+template <typename T>
+int project_fwd(const void* x, const void* w, const void* wd, const void* pbias,
+                const void* dbias, const void* a, const void* b, const void* w_out, void* out,
+                void* wt, void* part, int B, int Cin, int Cout, int N, int group, int wide,
+                float one_minus_ns, void* stream) {
+  if (!wide)
+    return launch<true, T>(x, w, wd, pbias, dbias, a, b, w_out, out, B, Cin, Cout, N, group,
+                           one_minus_ns, stream);
+  if (B == 0 || N == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  constexpr int kV = 16 / static_cast<int>(sizeof(T));
+  launch_transpose(static_cast<const float*>(w), static_cast<const float*>(wd),
+                   static_cast<T*>(wt), Cin, Cout, st);
+  const bool aw = aligned16(wt, Cout, kV), ax = aligned16(x, N, kV);
+  const int tiles = (N + kPts - 1) / kPts;
+  int blocks;
+  cudaError_t err;
+  if constexpr (vnk_is_bf16<T>()) {
+    using P = ProjMma;
+    blocks = (Cout + P::kBC - 1) / P::kBC;
+    err = launch_wide<P::kThreads>(
+        proj_wide_mma, dim3(blocks, tiles, B), P::kBytes, st, static_cast<const T*>(x),
+        static_cast<const T*>(wt), static_cast<const T*>(pbias), static_cast<const T*>(dbias),
+        static_cast<const float*>(a), static_cast<const float*>(b),
+        static_cast<const float*>(w_out), static_cast<float*>(part), B, Cin, Cout, N, group,
+        one_minus_ns, aw, ax);
+  } else {
+    using P = ProjFma;
+    blocks = (Cout + P::kBC - 1) / P::kBC;
+    err = launch_wide(
+        proj_wide_fma, dim3(blocks, tiles, B), P::kBytes, st, static_cast<const T*>(x),
+        static_cast<const T*>(wt), static_cast<const T*>(pbias), static_cast<const T*>(dbias),
+        static_cast<const float*>(a), static_cast<const float*>(b),
+        static_cast<const float*>(w_out), static_cast<float*>(part), B, Cin, Cout, N, group,
+        one_minus_ns, aw, ax);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t cols = static_cast<int64_t>(B) * 3 * N;
+  const int64_t need = (cols + kWideThreads - 1) / kWideThreads;
+  proj_sum<T><<<static_cast<unsigned>(need < 65535 ? need : 65535), kWideThreads, 0, st>>>(
+      static_cast<const float*>(part), static_cast<T*>(out), blocks, cols);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // pbias and dbias are (B, 3, Cout) per-sample biases (group = 0) or
@@ -192,13 +548,17 @@ VNK_EXPORT int vn_layer_fused_fwd(const void* x, const void* w, const void* wd,
                               Cin, Cout, N, group, one_minus_ns, stream);
 }
 
+// C takes `wide` (1: the wide design, 0: the narrow one; the wrapper's
+// forward_design) and, for the wide design, wt, a (2, Cin, Cout) scratch in
+// the activations' type, and part, (ceil(Cout / kBC), B, 3, N) floats: kBC
+// is 32 in float32 (ProjFma) and 64 in bf16 (ProjMma).
 VNK_EXPORT int vn_layer_fused_project_fwd(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* w_out,
-    void* out, int B, int Cin, int Cout, int N, int group, float one_minus_ns,
-    void* stream) {
-  return launch<true, float>(x, w, wd, pbias, dbias, a, b, w_out, out, B, Cin,
-                             Cout, N, group, one_minus_ns, stream);
+    void* out, void* wt, void* part, int B, int Cin, int Cout, int N, int group,
+    int wide, float one_minus_ns, void* stream) {
+  return project_fwd<float>(x, w, wd, pbias, dbias, a, b, w_out, out, wt, part, B, Cin,
+                            Cout, N, group, wide, one_minus_ns, stream);
 }
 
 VNK_EXPORT int vn_layer_fused_fwd_bf16(const void* x, const void* w,
@@ -214,8 +574,8 @@ VNK_EXPORT int vn_layer_fused_fwd_bf16(const void* x, const void* w,
 VNK_EXPORT int vn_layer_fused_project_fwd_bf16(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* w_out,
-    void* out, int B, int Cin, int Cout, int N, int group, float one_minus_ns,
-    void* stream) {
-  return launch<true, vnk_bf16>(x, w, wd, pbias, dbias, a, b, w_out, out, B,
-                                Cin, Cout, N, group, one_minus_ns, stream);
+    void* out, void* wt, void* part, int B, int Cin, int Cout, int N, int group,
+    int wide, float one_minus_ns, void* stream) {
+  return project_fwd<vnk_bf16>(x, w, wd, pbias, dbias, a, b, w_out, out, wt, part, B, Cin,
+                               Cout, N, group, wide, one_minus_ns, stream);
 }

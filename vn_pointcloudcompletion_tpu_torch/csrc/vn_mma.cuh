@@ -1,9 +1,10 @@
-// Building blocks of the matrix passes of S' and C' at Cin >= 16
-// (vn_layer_bwd.cu, "the wide passes"): a ring of shared-memory stages
-// filled by cp.async, and the bf16 tensor-core product of one warp
-// (mma.sync m16n8k16, float32 accumulators) with its operands read by
-// ldmatrix.  Nothing here is used by kernels S, B, B' or C, which keep
-// vn_tile.cuh.
+// Building blocks of the wide designs at Cin, Cout >= 16: the matrix passes
+// of S' and C' (vn_layer_bwd.cu, "the wide passes") and kernel C's forward
+// (vn_layer_fused.cu): a ring of shared-memory stages filled by cp.async,
+// the bf16 tensor-core product of one warp (mma.sync m16n8k16, float32
+// accumulators) with its operands read by ldmatrix, and the W^T scratch
+// the rings stage from.  Kernels S and B, the narrow passes and the fused
+// B' keep vn_tile.cuh.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 operands), lane =
 // 4 * group + tig:
@@ -175,6 +176,46 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return bytes > 48 * 1024
              ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)
              : cudaSuccess;
+}
+
+// A 16-byte-aligned pointer whose rows (of `stride` elements) start
+// 16-byte-aligned too: the tiles of that matrix go by cp.async.
+inline bool aligned16(const void* p, int64_t stride, int vec) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && stride % vec == 0;
+}
+
+template <int kNT = kWideThreads, typename Kernel, typename... Args>
+cudaError_t launch_wide(Kernel kernel, dim3 grid, int bytes, cudaStream_t st, Args... args) {
+  const cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kNT, bytes, st>>>(args...);
+  return cudaGetLastError();
+}
+
+// W^T (and Wd^T) in the activations' type: wt (1 or 2, Cin, Cout), rounded to
+// bf16 in the bf16 mode (the rounding vn_tile.cuh gives W as it stages it).
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+transpose_weights(const float* __restrict__ w, const float* __restrict__ wd,
+                  T* __restrict__ wt, int Cin, int Cout) {
+  const int64_t total = static_cast<int64_t>(Cin) * Cout;
+  const int64_t all = wd != nullptr ? 2 * total : total;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kWideThreads + threadIdx.x; e < all;
+       e += static_cast<int64_t>(gridDim.x) * kWideThreads) {
+    const int64_t r = e % total;
+    const int k = static_cast<int>(r / Cout), c = static_cast<int>(r % Cout);
+    wt[e] = vnk_cast<T>((e < total ? w : wd)[static_cast<size_t>(c) * Cin + k]);
+  }
+}
+
+// Launch transpose_weights: W (and Wd, if not null) into wt.
+template <typename T>
+void launch_transpose(const float* w, const float* wd, T* wt, int Cin, int Cout,
+                      cudaStream_t st) {
+  const int64_t n_w = static_cast<int64_t>(Cin) * Cout * (wd != nullptr ? 2 : 1);
+  const int64_t need = (n_w + kWideThreads - 1) / kWideThreads;
+  const unsigned blocks = static_cast<unsigned>(need < 4096 ? need : 4096);
+  transpose_weights<T><<<blocks, kWideThreads, 0, st>>>(w, wd, wt, Cin, Cout);
 }
 
 }  // namespace

@@ -19,11 +19,14 @@ contraction that way, expanded in the kernel, never in device memory
 (JAX ``vn_layer_fused.py:74-116``).  Their gradients are ``dp`` summed over
 each column's points.  As in JAX, ``S`` divides N and 512.
 
-S' and C' run one of two sets of passes, chosen by :func:`backward_design`
-from the layer's widths and counted by name (``cuda_lib.variant_counts``):
-the wide passes at C_in, C_out >= 16 (final_conv.1, vn_folding{1,2}.1),
-the narrow ones below (final_conv.0, the pair folds); both compute the
-same function (``csrc/vn_layer_bwd.cu``).
+Kernels C, S', C' and B' run one of two designs, chosen from the layer's
+widths and counted by name (``cuda_lib.variant_counts``): C by
+:func:`forward_design` and S', C' by :func:`backward_design`, the wide
+design at C_in, C_out >= 16 (final_conv.1, vn_folding{1,2}.1), the narrow
+one below; B' by :func:`layer_bwd_design`, one fused pass at C_in <= 2
+(final_conv.0, the pair folds), the narrow passes above.  Both designs of a
+kernel compute the same function (``csrc/vn_layer_fused.cu``,
+``csrc/vn_layer_bwd.cu``).
 
 Each is a ``torch.autograd.Function`` that saves only its inputs; the
 backward recomputes ``p`` and ``d`` from ``x``, as the JAX ops do, so no
@@ -71,7 +74,7 @@ _LAYER = CudaKernel(
 )
 _PROJECT = CudaKernel(
     "vn_layer_fused.cu", "vn_layer_fused_project_fwd",
-    [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P],
+    [_P] * 11 + [_I] * 6 + [ctypes.c_float, _P],
 )
 _STATS = CudaKernel(
     "vn_layer_bwd.cu", "vn_layer_stats_fwd", [_P] * 5 + [_I] * 5 + [_P])
@@ -79,7 +82,7 @@ _STATS_BWD = CudaKernel(
     "vn_layer_bwd.cu", "vn_layer_stats_bwd", [_P] * 12 + [_I] * 8 + [_P])
 _LAYER_BWD = CudaKernel(
     "vn_layer_bwd.cu", "vn_layer_fused_bwd",
-    [_P] * 16 + [_I] * 6 + [ctypes.c_float, _P])
+    [_P] * 16 + [_I] * 7 + [ctypes.c_float, _P])
 _PROJECT_BWD = CudaKernel(
     "vn_layer_bwd.cu", "vn_layer_fused_project_bwd",
     [_P] * 18 + [_I] * 8 + [ctypes.c_float, _P])
@@ -198,18 +201,22 @@ def reference_layer_fused_project(x, w, wd, pbias, dbias, a, b, w_out,
         _products(w, x, pbias, group), _products(wd, x, dbias, group), a, b,
         negative_slope, out_dtype=ct)
     if x.dtype == torch.bfloat16:
-        return _project_in_kernel_order(w_out, o).to(torch.bfloat16)
+        wide = forward_design(x.shape[2], w.shape[0]) == "wide"
+        return _project_in_kernel_order(w_out, o, wide).to(torch.bfloat16)
     return torch.matmul(w_out.to(ct).reshape(1, -1), o).to(x.dtype)
 
 
-def _project_in_kernel_order(w_out, o):
-    """sum_c w_out[c] o[:, :, c] (B, 3, C, N) -> (B, 3, 1, N) in kernel C's
-    order: each of 16 channel groups sums its channels c0 + 4 g + i (c0 in
-    steps of 64, then i = 0..3) in turn, each product rounded, then the 16
-    group sums in turn.  The epilogue's channels cancel in this sum, so in
-    the bf16 mode another order rounds differently by several bf16 ulps of
-    the (small) result."""
+def _project_in_kernel_order(w_out, o, wide: bool = False):
+    """sum_c w_out[c] o[:, :, c] (B, 3, C, N) -> (B, 3, 1, N) in the order
+    of kernel C's bf16 mode, each product rounded (the epilogue's channels
+    cancel in this sum, so another order rounds differently by several bf16
+    ulps of the (small) result).  The narrow design: each of 16 channel
+    groups sums its channels c0 + 4 g + i (c0 in steps of 64, then i =
+    0..3) in turn, then the 16 group sums in turn.  The wide design: see
+    :func:`_project_wide_order`."""
     prods = w_out.float()[None, None, :, None] * o
+    if wide:
+        return _project_wide_order(prods)
     c = o.shape[2]
     acc = torch.zeros(o.shape[:2] + (16, o.shape[3]), dtype=o.dtype, device=o.device)
     for c0 in range(0, c, TILE):
@@ -220,6 +227,29 @@ def _project_in_kernel_order(w_out, o):
     out = torch.zeros_like(acc[:, :, :1])
     for g in range(16):
         out = out + acc[:, :, g:g + 1]
+    return out
+
+
+def _project_wide_order(prods):
+    """The bf16 wide C's contraction order (``csrc/vn_layer_fused.cu``
+    proj_wide_mma) over prods (B, 3, C, N): channel cb 64 + wm 32 + mt 16 +
+    8 r + grp is element (mt, r) of the lane of row grp in the channel warp
+    wm of channel block cb.  A lane sums its four channels in (mt, r) order;
+    the warp's eight rows add pairwise, neighbours first (a shuffle tree);
+    then the two channel warps; then the channel blocks in turn."""
+    b, _, c, n = prods.shape
+    blocks = -(-c // WIDE_BF16_BLOCK)
+    pad = blocks * WIDE_BF16_BLOCK - c
+    if pad:
+        prods = torch.cat([prods, prods.new_zeros(b, 3, pad, n)], 2)
+    t = prods.reshape(b, 3, blocks, 2, 2, 2, 8, n)  # (cb, wm, mt, r, grp)
+    s = ((t[:, :, :, :, 0, 0] + t[:, :, :, :, 0, 1]) + t[:, :, :, :, 1, 0]) + t[:, :, :, :, 1, 1]
+    for _ in range(3):  # (..., grp, n): pairs of neighbouring rows
+        s = s[..., 0::2, :] + s[..., 1::2, :]
+    s = s[:, :, :, 0] + s[:, :, :, 1]  # the channel warps: (B, 3, blocks, 1, N)
+    out = torch.zeros_like(s[:, :, 0])
+    for k in range(blocks):
+        out = out + s[:, :, k]
     return out
 
 
@@ -335,16 +365,55 @@ def _split_k(x, c_in, c_out, n_points):
 
 
 WIDE_MIN_CHANNELS = 16  # one m16n8k16 product's depth
+FUSED_MAX_CIN = 2  # the widest input of B''s fused pass (csrc layer_bwd_fused)
+WIDE_F32_BLOCK = 32  # channels a block of the float32 wide C (csrc ProjFma::kBC)
+WIDE_BF16_BLOCK = 64  # ... of the bf16 one (csrc ProjMma::kBC)
+
+
+def forward_design(c_in: int, c_out: int) -> str:
+    """Which design kernel C runs at (c_in, c_out): ``"wide"`` (a
+    cp.async ring over a W^T scratch; FP32 FMAs in float32, the tensor
+    cores in bf16; the channel blocks of a point tile run together, their
+    projections summed by a second pass) where both are matrix work, c_in
+    and c_out >= 16; ``"narrow"`` (one block walks all channels of its
+    point tile with vn_tile.cuh's FMA loop) below that.  Either is a
+    hand-written kernel; a CUDA launch takes the one chosen here or
+    raises."""
+    return "wide" if min(c_in, c_out) >= WIDE_MIN_CHANNELS else "narrow"
+
+
+def projection_blocks(c_out: int, bf16: bool) -> int:
+    """Channel blocks of the wide C, each writing one projection partial
+    per (sample, plane, point)."""
+    return -(-c_out // (WIDE_BF16_BLOCK if bf16 else WIDE_F32_BLOCK))
+
+
+def layer_bwd_design(c_in: int) -> str:
+    """Which passes kernel B' runs: ``"fused"`` (one pass that recomputes
+    p and d, reads g once and sums dx, dW, dWd, dA, dB and the bias
+    gradients in registers, with no dp/dd scratch) at c_in <= 2, where each
+    product is one or two channels deep (final_conv.0's 2 -> 256, the pair
+    folds' 1 -> 256); ``"narrow"`` (pd_pass, dx_gemm, dw_gemm over a dp/dd
+    scratch) above."""
+    return "fused" if c_in <= FUSED_MAX_CIN else "narrow"
+
+
+def fused_weight_partials(bsz: int, n: int, c_in: int, c_out: int) -> int:
+    """Floats of the weight partials of B''s fused pass: dW and dWd, one
+    (C_out, C_in) partial per 64-point tile of each sample, which
+    ``vnk_reduce_rows`` sums in order."""
+    return 2 * bsz * -(-n // TILE) * c_out * c_in
 
 
 def backward_design(c_in: int, c_out: int) -> str:
     """Which passes kernels S' and C' run at (c_in, c_out): ``"wide"``
     (cp.async rings; in the bf16 mode dx, dW and S''s p on the tensor
     cores) where both are matrix work, c_in and c_out >= 16; ``"narrow"``
-    (the FMA passes that B' also runs) below that, where the products are
-    one or two channels deep and bytes bound the pass (final_conv.0's 2 ->
-    256, the pair folds' 1 -> 256).  Either is a hand-written kernel; a
-    CUDA launch takes the one chosen here or raises."""
+    (pd_pass, dx_gemm and dw_gemm on the CUDA cores) below that, where the
+    products are one or two channels deep and bytes bound the pass
+    (final_conv.0's 2 -> 256, the pair folds' 1 -> 256).  Either is a
+    hand-written kernel; a CUDA launch takes the one chosen here or
+    raises."""
     return "wide" if min(c_in, c_out) >= WIDE_MIN_CHANNELS else "narrow"
 
 
@@ -407,14 +476,23 @@ def _counted(kernel: CudaKernel, group: int, bf16: bool) -> CudaKernel:
 
 def _launch(kernel: CudaKernel, x, w, wd, pbias, dbias, a, b, w_out,
             negative_slope: float, group: int):
-    """Kernel B or C, in the mode of x's dtype (float32 or bf16)."""
+    """Kernel B or C, in the mode of x's dtype (float32 or bf16); C in the
+    design of :func:`forward_design`."""
     (x, w, wd, pbias, dbias, a, b, w_out, _), (bsz, c_in, c_out, n) = _prepare(
         kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out, group=group)
     out = _empty(x, bsz, 3, c_out if w_out is None else 1, n, dtype=x.dtype)
-    _counted(kernel, group, _bf16(x))(
-           x, *[_ptr(t) for t in (x, w, wd, pbias, dbias, a, b)],
-           *([] if w_out is None else [w_out.data_ptr()]),
-           out.data_ptr(), bsz, c_in, c_out, n, group, 1 - negative_slope)
+    ptrs = [_ptr(t) for t in (x, w, wd, pbias, dbias, a, b)]
+    launch = _counted(kernel, group, _bf16(x))
+    if w_out is None:
+        launch(x, *ptrs, out.data_ptr(), bsz, c_in, c_out, n, group, 1 - negative_slope)
+        return out
+    design = forward_design(c_in, c_out)
+    wt = part = None
+    if design == "wide":  # W^T and Wd^T; the channel blocks' projections
+        wt = _empty(x, 2, c_in, c_out, dtype=x.dtype)
+        part = _empty(x, projection_blocks(c_out, _bf16(x)), bsz, 3, n)
+    launch(x, *ptrs, w_out.data_ptr(), out.data_ptr(), _ptr(wt), _ptr(part), bsz, c_in,
+           c_out, n, group, int(design == "wide"), 1 - negative_slope, variant=design)
     return out
 
 
@@ -469,20 +547,24 @@ def _layer_bwd_launch(kernel, x, w, wd, pbias, dbias, a, b, w_out, g,
     (x, w, wd, pbias, dbias, a, b, w_out, g), (bsz, c_in, c_out, n) = _prepare(
         kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out, g, group)
     project = w_out is not None
-    if project:  # C' chooses its passes; B' runs the narrow ones
+    if project:  # C' chooses its passes (wide or narrow), B' fused or narrow
         wt, s, chunk, design = _design_args(x, c_in, c_out, bsz, n, two=True)
     else:
-        s = _split_k(x, c_in, c_out, bsz * 3 * n)
+        design = layer_bwd_design(c_in)
+        s = 0 if design == "fused" else _split_k(x, c_in, c_out, bsz * 3 * n)
     nqc = 3 if project else 2
     tiles = -(-n // TILE)
     spt, cols = _bias_rows(n, group)
     dx, dw2, sums = torch.empty_like(x), _empty(x, 2, c_out, c_in), _empty(x, nqc, c_out)
     dpdb = None if pbias is None else _empty(x, 6, bsz, cols, c_out)
-    # the dp, dd scratch: bf16 in the bf16 mode (JAX's dp16, dd16)
-    dp, dd = (_empty(x, bsz, 3, c_out, n, dtype=x.dtype) for _ in range(2))
     # the per-channel sums (nqc, B, T, C_out), then the bias sums (6, B, T * spt, C_out)
     partial = _empty(x, (nqc + (0 if pbias is None else 6 * spt)) * bsz * tiles * c_out)
-    dw_part = _empty(x, 2, s, c_out, c_in)
+    if design == "fused":  # no dp, dd; the weight partials (2, B, T, C_out, C_in)
+        dp = dd = None
+        dw_part = _empty(x, fused_weight_partials(bsz, n, c_in, c_out))
+    else:  # the dp, dd scratch: bf16 in the bf16 mode (JAX's dp16, dd16)
+        dp, dd = (_empty(x, bsz, 3, c_out, n, dtype=x.dtype) for _ in range(2))
+        dw_part = _empty(x, 2, s, c_out, c_in)
     ptrs = [_ptr(t) for t in (x, w, wd, pbias, dbias, a, b)]
     if project:
         ptrs.append(w_out.data_ptr())
@@ -493,7 +575,8 @@ def _layer_bwd_launch(kernel, x, w, wd, pbias, dbias, a, b, w_out, g,
             int(design == "wide"), 1 - negative_slope, variant=design)
     else:
         _counted(kernel, group, _bf16(x))(x, *ptrs, bsz, c_in, c_out, n, s, group,
-                                          1 - negative_slope)
+                                          int(design == "fused"), 1 - negative_slope,
+                                          variant=design)
     dpb = ddb = None
     if dpdb is not None:
         dpb, ddb = _bias_grads(dpdb, 6, bsz, c_out, n, group, pbias.dtype)
