@@ -17,15 +17,18 @@ on one NVIDIA GPU:
    repeated points tie), times both with CUDA events (K1 also against
    ``torch.topk``), runs the backward-slice and DGCNN kernels twice to show
    that they give the same bits, and holds the backward of K2 and K3
-   against autograd of their plain chains.  Each C, S', C' and B' row
-   names the design it took (C, S', C' wide at C_in, C_out >= 16, else
+   against autograd of their plain chains.  Each C, S, S', C' and B' row
+   names the design it took (C, S, S', C' wide at C_in, C_out >= 16, else
    narrow; B' fused at C_in <= 2, else narrow), its TFLOP/s, GB/s and
    share of its bound, and, for a wide or fused row, the narrow design's
    time at the same shape in the same call; bf16 C (wide: the tensor
    cores) is held to BF16_C_RMS, its mutant at least 4x beyond; D is also
-   timed at the training loss's coarse pair (1024 x 16384).  Phases 4-13
-   check that every counted C took the wide design and every B' the
-   fused pass (check_designs).
+   timed at the training loss's coarse pair (1024 x 16384); S is timed at
+   final_conv.0's 2 -> 256 (narrow) and at 256 -> 128 (wide, both types),
+   and its wide design's bits are compared with the narrow one's.  Phases
+   4-13 check that every counted C took the wide design and every B' the
+   fused pass (check_designs), and phases 5, 7, 9 and 13 that kernel S took
+   its design at every layer of every step (check_stats_designs).
 4. Serving the flagship at full width (encoder latent 1024 -> 2048-channel
    global feature, 2048 input points, 1024 coarse, 16384 dense points,
    random weights from a seed) through the port's command line: ``predict``
@@ -40,7 +43,7 @@ on one NVIDIA GPU:
 5b. The decoder's backward through the kernels against float64; one train
    step through the kernels against the same step through the plain path
    on the same model and batch (losses, every gradient, the running
-   statistics), with the passes of its S' and C' launches asserted
+   statistics), with the designs of its S, S' and C' launches asserted
    (FLAGSHIP_STEP_DESIGNS); the median step time of both; and
    torch.profiler's device time by kernel over three steps through the
    kernels.
@@ -98,7 +101,7 @@ on one NVIDIA GPU:
    train step on one DecisionTape through the kernels, through their plain
    versions in the kernels' place and through the plain path in bf16 and
    float32, each gradient held to two bounds, and a mutant of C''s bf16
-   backward caught; the passes of both steps' S' and C' launches asserted
+   backward caught; the designs of both steps' S, S' and C' launches asserted
    (BF16_STEP_DESIGNS); float32/bf16 step times of the flagship and
    vn_pointr_448.  Phase 3 holds the bf16 modes of the training kernels
    (A'; S, S', B' at group 0 and 64; C') against their plain bf16 versions,
@@ -243,26 +246,48 @@ BF16_STEP_LAUNCHES = {
                       "vn_layer_fused_project_bwd[bf16]": 2},
 }
 BF16_TRAIN_EPOCHS = 2  # phase 13's train epochs before --resume
-# The design of every C, S', C' and B' launch of one train step (cuda_lib
+# The design of every C, S, S', C' and B' launch of one train step (cuda_lib
 # .variant_counts(); ops/vn_layer_fused.py::forward_design, backward_design,
-# layer_bwd_design): C, S' and C' wide at C_in, C_out >= 16 (final_conv.1's
-# 256 -> 256, vn_folding{1,2}.1's 256 -> 128), S' narrow below (final_conv.0's
-# 2 -> 256, conv1's 2 -> 32, the pair folds' 1 -> 256 at group 64); B' fused
+# layer_bwd_design, stats_design): C, S, S' and C' wide at C_in, C_out >= 16
+# (final_conv.1's 256 -> 256, vn_folding{1,2}.1's 256 -> 128), S and S'
+# narrow below (final_conv.0's 2 -> 256, conv1's 2 -> 32, the pair folds'
+# 1 -> 256 at group 64); B' fused
 # at C_in <= 2 (final_conv.0, conv1, the pair folds).  Phase 5b (float32)
 # and phase 13 (bf16) assert them.
+# Kernel S (ops/vn_layer_fused.py::stats_design) takes the same widths'
+# designs as S' in every train step: STATS_STEP_DESIGNS, asserted for each
+# counted training run of phases 5, 7, 9 and 13 (check_stats_designs) and
+# inside the per-step tables below.
+STATS_STEP_DESIGNS = {
+    "flagship": {"vn_layer_stats_fwd/narrow": 1, "vn_layer_stats_fwd/wide": 1},
+    "vn_dgcnn": {"vn_layer_stats_fwd/narrow": 2, "vn_layer_stats_fwd/wide": 1},
+    "vn_pointr_448": {"vn_layer_stats_fwd/narrow": 1, "vn_layer_stats_fwd/wide": 2,
+                      "vn_layer_stats_fwd[group]/narrow": 2},
+}
+
+
+def bf16_designs(designs: dict) -> dict:
+    """The same design counts under the bf16 modes' names."""
+    return {k.replace("[group]", "[group,bf16]") if "[group]" in k
+            else k.replace("/", "[bf16]/"): v for k, v in designs.items()}
+
+
 FLAGSHIP_STEP_DESIGNS = {"vn_layer_stats_bwd/narrow": 1, "vn_layer_stats_bwd/wide": 1,
                          "vn_layer_fused_project_bwd/wide": 1,
-                         "vn_layer_fused_project_fwd/wide": 1, "vn_layer_fused_bwd/fused": 1}
+                         "vn_layer_fused_project_fwd/wide": 1, "vn_layer_fused_bwd/fused": 1,
+                         **STATS_STEP_DESIGNS["flagship"]}
 BF16_STEP_DESIGNS = {
     "flagship": {"vn_layer_stats_bwd[bf16]/narrow": 1, "vn_layer_stats_bwd[bf16]/wide": 1,
                  "vn_layer_fused_project_bwd[bf16]/wide": 1,
-                 "vn_layer_fused_project_fwd[bf16]/wide": 1, "vn_layer_fused_bwd[bf16]/fused": 1},
+                 "vn_layer_fused_project_fwd[bf16]/wide": 1, "vn_layer_fused_bwd[bf16]/fused": 1,
+                 **bf16_designs(STATS_STEP_DESIGNS["flagship"])},
     "vn_pointr_448": {"vn_layer_stats_bwd[bf16]/narrow": 1, "vn_layer_stats_bwd[bf16]/wide": 2,
                       "vn_layer_stats_bwd[group,bf16]/narrow": 2,
                       "vn_layer_fused_project_bwd[bf16]/wide": 2,
                       "vn_layer_fused_project_fwd[bf16]/wide": 2,
                       "vn_layer_fused_bwd[bf16]/fused": 1,
-                      "vn_layer_fused_bwd[group,bf16]/fused": 2},
+                      "vn_layer_fused_bwd[group,bf16]/fused": 2,
+                      **bf16_designs(STATS_STEP_DESIGNS["vn_pointr_448"])},
 }
 # Every launch of C on a main path (phases 4-13) takes the wide design and
 # every launch of B' the fused pass: checked on each counted run
@@ -334,22 +359,30 @@ def bound(nbytes: float, ops: float, peak_ops: float = PEAK_FP32):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def narrow_ms(fn, reps: int) -> float:
-    """``cuda_ms`` of ``fn`` with C, S', C' and B' held to their narrow
-    designs (the parent designs: C's one-block FMA loop, the FMA passes
-    over a dp/dd scratch): the same work the wide and fused designs
-    replace, timed in the same call."""
+@contextlib.contextmanager
+def narrow_designs():
+    """C, S, S', C' and B' held to their narrow designs (the parent
+    designs: C's and S's one-block FMA loop, the FMA passes over a dp/dd
+    scratch) inside the block."""
     from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
 
-    chooser = ("backward_design", "forward_design", "layer_bwd_design")
+    chooser = ("backward_design", "forward_design", "layer_bwd_design", "stats_design")
     saved = [getattr(vn_layer_fused, name) for name in chooser]
     for name in chooser:
         setattr(vn_layer_fused, name, lambda *widths: "narrow")
     try:
-        return cuda_ms(fn, reps)
+        yield
     finally:
         for name, fn_ in zip(chooser, saved):
             setattr(vn_layer_fused, name, fn_)
+
+
+def narrow_ms(fn, reps: int) -> float:
+    """``cuda_ms`` of ``fn`` in the narrow designs (``narrow_designs``):
+    the same work the wide and fused designs replace, timed in the same
+    call."""
+    with narrow_designs():
+        return cuda_ms(fn, reps)
 
 
 def check_designs(what: str, counts: dict, variants: dict) -> None:
@@ -365,6 +398,35 @@ def check_designs(what: str, counts: dict, variants: dict) -> None:
     print(f"{what} C and B' launches by design: {json.dumps(got)}")
     if got != want:
         raise AssertionError(f"{what}: C and B' designs {got}, expected {want}")
+
+
+def stats_wide_vs_narrow(x, w, shape: str) -> None:
+    """Print whether kernel S's wide design gives the narrow design's
+    bits on the same inputs (float32: the same products in the same order
+    and the same partials, so it should; bf16: the tensor cores sum p in
+    their own order)."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
+
+    wide = vn_layer_fused.stats_fwd(x, w, None)
+    with narrow_designs():
+        narrow = vn_layer_fused.stats_fwd(x, w, None)
+    diff = max((a - b).abs().max().item() for a, b in zip(wide, narrow))
+    same = all(torch.equal(a, b) for a, b in zip(wide, narrow))
+    print(f"[kernel S] {shape} {str(x.dtype).split('.')[-1]}: the wide design's (s1, s2) "
+          f"bitwise equal to the narrow design's: {same} (max |d| {diff:.3e})", flush=True)
+
+
+def check_stats_designs(what: str, variants: dict, per_step: dict, steps: int) -> None:
+    """Kernel S's launches of a run of ``steps`` train steps by design
+    (``variants``: cuda_lib.variant_counts() of the run) are ``per_step``
+    (a STATS_STEP_DESIGNS entry) times ``steps``."""
+    want = {k: v * steps for k, v in per_step.items()}
+    got = {k: v for k, v in variants.items() if v and k.startswith("vn_layer_stats_fwd")}
+    print(f"{what} S launches by design: {json.dumps(got)}")
+    if got != want:
+        raise AssertionError(f"{what}: S designs {got}, expected {want}")
 
 
 def nbytes(*tensors) -> int:
@@ -418,7 +480,7 @@ def check_kernels(dev):
               f"{'PASS' if ok else 'FAIL'}; kernel {rec['ms']:.4f} ms, plain "
               f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
               f"library: {lib}", flush=True)
-        if designs:  # C, S', C', B': the design taken, the rates (the narrow design's time)
+        if designs:  # C, S, S', C', B': the design taken, the rates (the narrow design's time)
             narrow = ("" if designs not in (["wide"], ["fused"]) else
                       "; the narrow design at the same shape: "
                       f"{narrow_ms(kernel_fn, max(3, reps // 2)):.4f} ms")
@@ -487,32 +549,49 @@ def check_kernels(dev):
            repro=True)
     del p, d, g_
 
-    # S, S': the train-mode statistics of decoder final_conv.1 (256 -> 256)
-    # and, checked only, of final_conv.0 (2 -> 256, per-sample bias)
+    # S, S': the train-mode statistics of decoder final_conv.1 (256 -> 256,
+    # S wide) and final_conv.0 (2 -> 256, per-sample bias: S narrow, timed;
+    # S' checked only)
     n = 16384
+    src_b = "vn_pointcloudcompletion_tpu_torch/csrc/vn_layer_bwd.cu"
     x2 = randn(BATCH, 3, 2, n, scale=0.3)
     w2 = uniform(-0.02, 0.02, 256, 2)
     pb2 = randn(BATCH, 3, 256, 1)
-    got = vn_layer_fused.stats_fwd(x2, w2, pb2)
-    want = vn_layer_fused.reference_stats(x2, w2, pb2)
+    vecs = BATCH * 256 * n
+    record("S vn_layer_stats 2 -> 256", src_b,
+           "vn_pointcloudcompletion_tpu/ops/vn_layer_fused.py:278",
+           lambda: vn_layer_fused.stats_fwd(x2, w2, pb2),
+           lambda: vn_layer_fused.reference_stats(x2, w2, pb2),
+           rel_close(1e-5), "1e-5 x max", nbytes(x2, w2, pb2) + 2 * 4 * 256,
+           2 * 3 * vecs * 2 + 12 * vecs, reps=10, repro=True)
     c1, c2 = randn(256, scale=1e-4), randn(256, scale=1e-5)
-    err_s, ok_s = rel_close(1e-5)(got, want)
     err_b, ok_b = rel_close(1e-4)(vn_layer_fused.stats_bwd(x2, w2, pb2, c1, c2),
                                   vn_layer_fused.reference_stats_bwd(x2, w2, pb2, c1, c2))
-    print(f"[kernel S, S'] final_conv.0 shapes (Cin 2, bias): max_abs_err {err_s:.3e}, "
-          f"{err_b:.3e} (tolerance 1e-5, 1e-4 x max)")
-    if not (ok_s and ok_b):
-        raise AssertionError("kernel S or S' disagrees at final_conv.0 shapes")
+    print(f"[kernel S'] final_conv.0 shapes (Cin 2, bias): max_abs_err {err_b:.3e} "
+          "(tolerance 1e-4 x max)")
+    if not ok_b:
+        raise AssertionError("kernel S' disagrees at final_conv.0 shapes")
     x = randn(BATCH, 3, 256, n)
     w = uniform(-1 / 16, 1 / 16, 256, 256)
-    vecs = BATCH * 256 * n
     prod = 2 * 3 * vecs * 256  # one (256 x 256) map over all planes and points
-    record("S vn_layer_stats", "vn_pointcloudcompletion_tpu_torch/csrc/vn_layer_bwd.cu",
-           "vn_pointcloudcompletion_tpu/ops/vn_layer_fused.py:278",
+    record("S vn_layer_stats", src_b, "vn_pointcloudcompletion_tpu/ops/vn_layer_fused.py:278",
            lambda: vn_layer_fused.stats_fwd(x, w, None),
            lambda: vn_layer_fused.reference_stats(x, w, None),
            rel_close(1e-5), "1e-5 x max", nbytes(x, w) + 2 * 4 * 256,
            prod + 9 * vecs, reps=10, repro=True)
+    stats_wide_vs_narrow(x, w, "256 -> 256")
+    # S at vn_folding{1,2}.1 (256 -> 128, 14336 points), wide, timed
+    xf = randn(BATCH, 3, 256, 14336)
+    wf = uniform(-1 / 16, 1 / 16, 128, 256)
+    vecs_f = BATCH * 128 * 14336
+    record("S vn_layer_stats 256 -> 128", src_b,
+           "vn_pointcloudcompletion_tpu/ops/vn_layer_fused.py:278",
+           lambda: vn_layer_fused.stats_fwd(xf, wf, None),
+           lambda: vn_layer_fused.reference_stats(xf, wf, None),
+           rel_close(1e-5), "1e-5 x max", nbytes(xf, wf) + 2 * 4 * 128,
+           2 * 3 * vecs_f * 256 + 9 * vecs_f, reps=10, repro=True)
+    stats_wide_vs_narrow(xf, wf, "256 -> 128")
+    del xf
     record("S' vn_layer_stats backward",
            "vn_pointcloudcompletion_tpu_torch/csrc/vn_layer_bwd.cu",
            "vn_pointcloudcompletion_tpu/ops/vn_layer_fused.py:325",
@@ -826,6 +905,17 @@ def check_bf16_train_kernels(dev, record, randn, uniform):
            lambda: vn_layer_fused.reference_stats(x, w, None),
            close, "1e-4 x max", nbytes(x, w) + 2 * 4 * 256, prod + 9 * vecs, reps=10,
            repro=True, peak_ops=PEAK_BF16)
+    stats_wide_vs_narrow(x, w, "256 -> 256")
+    xf = randn(BATCH, 3, 256, 14336).to(bf)
+    wf = uniform(-1 / 16, 1 / 16, 128, 256)
+    vecs_f = BATCH * 128 * 14336
+    record("S vn_layer_stats 256 -> 128 bf16", src + "vn_layer_bwd.cu",
+           at + "vn_layer_fused.py:278",
+           lambda: vn_layer_fused.stats_fwd(xf, wf, None),
+           lambda: vn_layer_fused.reference_stats(xf, wf, None),
+           close, "1e-4 x max", nbytes(xf, wf) + 2 * 4 * 128,
+           2 * 3 * vecs_f * 256 + 9 * vecs_f, reps=10, repro=True, peak_ops=PEAK_BF16)
+    del xf
     record("S' vn_layer_stats backward bf16", src + "vn_layer_bwd.cu",
            at + "vn_layer_fused.py:325",
            lambda: vn_layer_fused.stats_bwd(x, w, None, c1, c2),
@@ -1416,6 +1506,8 @@ def train_path(dev, path: str = "flagship", epochs: int = 0, **extra):
           "checkpoint writes included)")
     print(f"{tag} launches: {json.dumps(counts)}")
     check_designs(f"{tag} overfit", counts, variants)
+    if path in STATS_STEP_DESIGNS:  # one train step an epoch
+        check_stats_designs(f"{tag} overfit", variants, STATS_STEP_DESIGNS[path], epochs)
     if path == "flagship":
         expected = FLAGSHIP_KERNELS
     else:
@@ -1692,10 +1784,10 @@ def train_step_kernels_vs_plain(dev, smi: str):
     loss_err, stat_err, step_errs = step_agreement(model, plain, config, partial, complete)
     torch.cuda.synchronize()
     designs = cuda_lib.variant_counts()
-    print(f"[train step] C, S', C' and B' launches by design in the kernels' step: {designs} "
+    print(f"[train step] C, S, S', C' and B' launches by design in the kernels' step: {designs} "
           f"(expected {FLAGSHIP_STEP_DESIGNS})")
     if designs != FLAGSHIP_STEP_DESIGNS:
-        raise AssertionError("train step: C, S', C' or B' took another design than expected")
+        raise AssertionError("train step: C, S, S', C' or B' took another design than expected")
     print(f"[train step] kernels vs plain at batch {BATCH}: losses rel err {loss_err:.3e} "
           f"(tolerance 1e-4); running statistics rel err {stat_err:.3e} (tolerance 1e-4); "
           f"gradients max|dg| / max|g|, largest: {worst(step_errs)} (tolerance {STEP_TOL})")
@@ -2501,10 +2593,10 @@ def bf16_flagship_step(dev, partial, complete):
           f"forms them): {differ} of {got.numel()} outputs differ, the largest by "
           f"{worst_ulp:.2f} bf16 ulp; RMS distance {bf16_rms(got, want):.3e} (bound "
           f"{BF16_C_RMS:.3e})")
-    print(f"{btag} C, S', C' and B' launches by design: {designs} (expected "
+    print(f"{btag} C, S, S', C' and B' launches by design: {designs} (expected "
           f"{BF16_STEP_DESIGNS['flagship']})")
     if designs != BF16_STEP_DESIGNS["flagship"]:
-        raise AssertionError(f"{btag} C, S', C' or B' took another design than expected")
+        raise AssertionError(f"{btag} C, S, S', C' or B' took another design than expected")
     finite = all(torch.isfinite(t).all() for t in (lk, *bk.values(), *gk.values()))
     print(f"{btag} batch {BATCH}, losses (coarse, dense): kernels {lk.tolist()}, their plain "
           f"versions {lv.tolist()}, plain bf16 {lp.tolist()}, plain float32 {l32.tolist()}; "
@@ -2577,6 +2669,9 @@ def bf16_train(dev, smi: str):
         counts = {k: v for k, v in cuda_lib.launch_counts().items() if v}
         check_designs(f"{tag} root config.json train + resume", counts,
                       cuda_lib.variant_counts())
+        check_stats_designs(f"{tag} root config.json train + resume", cuda_lib.variant_counts(),
+                            bf16_designs(STATS_STEP_DESIGNS["vn_pointr_448"]),
+                            BF16_TRAIN_EPOCHS + 1)
     finally:
         os.chdir(cwd)
     exp_dir = os.path.join(os.environ["OUTPUT_DIR"], run)
@@ -2618,12 +2713,13 @@ def bf16_train(dev, smi: str):
                    if v and k != "chamfer_nn_one_sided"}
     designs = cuda_lib.variant_counts()
     print(f"{tag} one vn_pointr_448 train step: launches {json.dumps(step_counts)}; "
-          f"C, S', C' and B' by design {json.dumps(designs)}; skipped {metrics['skipped'].item()}")
+          f"C, S, S', C' and B' by design {json.dumps(designs)}; skipped "
+          f"{metrics['skipped'].item()}")
     if step_counts != BF16_STEP_LAUNCHES["vn_pointr_448"] or metrics["skipped"].item():
         raise AssertionError(f"{tag} one step's launches {step_counts}, expected "
                              f"{BF16_STEP_LAUNCHES['vn_pointr_448']}")
     if designs != BF16_STEP_DESIGNS["vn_pointr_448"]:
-        raise AssertionError(f"{tag} one step's C, S', C', B' designs {designs}, expected "
+        raise AssertionError(f"{tag} one step's C, S, S', C', B' designs {designs}, expected "
                              f"{BF16_STEP_DESIGNS['vn_pointr_448']}")
     total = {k: counts.get(k, 0) + step_counts.get(k, 0) for k in {*counts, *step_counts}}
 

@@ -493,24 +493,73 @@ _LAYER_SHAPES = [(2, 16, 1000, True), (2, 256, 4096, True), (16, 16, 1024, False
                  (256, 256, 4100, False)]
 
 
+# Kernel S's shapes: _LAYER_SHAPES (2 -> 16, 2 -> 256 narrow; 16 -> 16,
+# 256 -> 256 wide) and the wide design at the other widths it takes:
+# 16 -> 16 and 256 -> 256 with a bias, 256 -> 128 (vn_folding{1,2}.1) on a
+# ragged and a whole tile, with and without bias.
+_STATS_SHAPES = [*_LAYER_SHAPES, (16, 16, 1024, True), (256, 256, 4100, True),
+                 (256, 128, 1000, True), (256, 128, 4096, False)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("c_in,c_out,n,bias", _LAYER_SHAPES)
+@pytest.mark.parametrize("c_in,c_out,n,bias", _STATS_SHAPES)
 def test_kernel_s_cuda_matches_plain(cuda, c_in, c_out, n, bias):
     rng = np.random.default_rng(c_out + n + 7)
     x, w, _, pb, _, _, _, _ = _t(*_layer_inputs(rng, 2, c_in, c_out, n, bias), device=cuda)
     c1, c2 = (torch.randn(c_out, generator=torch.Generator().manual_seed(k)).to(cuda)
               for k in (1, 2))
     s0, b0 = port_layer._STATS.launches, port_layer._STATS_BWD.launches
+    key = f"vn_layer_stats_fwd/{port_layer.stats_design(c_in, c_out)}"
+    v0 = cuda_lib.variant_counts().get(key, 0)
     got, again = port_layer.stats_fwd(x, w, pb), port_layer.stats_fwd(x, w, pb)
     dgot = port_layer.stats_bwd(x, w, pb, c1, c2)
     dagain = port_layer.stats_bwd(x, w, pb, c1, c2)
     torch.cuda.synchronize()
     assert port_layer._STATS.launches == s0 + 2
+    assert cuda_lib.variant_counts().get(key, 0) == v0 + 2
     assert port_layer._STATS_BWD.launches == b0 + 2
     _assert_rel(got, port_layer.reference_stats(x, w, pb), 1e-5)
     _assert_rel(dgot, port_layer.reference_stats_bwd(x, w, pb, c1, c2))
     _assert_same_bits(got, again)
     _assert_same_bits(dgot, dagain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out,n,bias", [(16, 16, 1024, True), (256, 256, 4100, False),
+                                              (256, 128, 1000, True)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_wide_stats_against_narrow_design(cuda, c_in, c_out, n, bias, bf16, monkeypatch):
+    """The wide S against the narrow S on the same inputs: in float32 the
+    same bits (the same products in the same order, the same partials); in
+    bf16 (p on the tensor cores, summed in their own order) within the
+    plain version's bound of each other."""
+    rng = np.random.default_rng(c_in + c_out + n)
+    x, w, _, pb, _, _, _, _ = _t(*_layer_inputs(rng, 2, c_in, c_out, n, bias), device=cuda)
+    if bf16:
+        x, pb = (None if t is None else t.to(torch.bfloat16) for t in (x, pb))
+    wide = port_layer.stats_fwd(x, w, pb)
+    monkeypatch.setattr(port_layer, "stats_design", lambda *widths: "narrow")
+    narrow = port_layer.stats_fwd(x, w, pb)
+    torch.cuda.synchronize()
+    if bf16:
+        _assert_rel(wide, narrow, 1e-4)
+    else:
+        _assert_same_bits(wide, narrow)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out", [(1, 32), (16, 32)])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_kernel_s_small_groups_cuda_matches_plain(cuda, c_in, c_out, group):
+    """Bias columns of 1, 2 and 4 points (a thread's four points then span
+    four, two or one column) in both designs."""
+    rng = np.random.default_rng(group + c_in)
+    x, w, _, _, _, _, _, _ = _t(*_layer_inputs(rng, 2, c_in, c_out, 1024, False), device=cuda)
+    pb = torch.from_numpy(rng.standard_normal((2, 3, c_out, 1024 // group))
+                          .astype(np.float32)).to(cuda)
+    got = port_layer.stats_fwd(x, w, pb, group)
+    _assert_rel(got, port_layer.reference_stats(x, w, pb, group), 1e-5)
+    _assert_same_bits(got, port_layer.stats_fwd(x, w, pb, group))
 
 
 @pytest.mark.gpu
@@ -860,10 +909,23 @@ def test_cuda_dgcnn_kernels_match_plain_path(cuda, enc, dec, nc, counts):
 # JAX's Pallas kernel to against its streamed path).
 
 
-def _emd_clouds(seed, b, n, m):
+def _emd_clouds(seed, b, n, m, kind="gauss"):
+    """Gaussian clouds x 0.3, or (``"cluster"``) both clouds drawn around
+    the same 16 centres at 1e-3, every third point an exact copy of its
+    predecessor: near ties at every level and exact ones."""
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy((rng.standard_normal((b, k, 3)) * 0.3).astype(np.float32))
-            for k in (n, m)]
+    if kind == "gauss":
+        return [torch.from_numpy((rng.standard_normal((b, k, 3)) * 0.3).astype(np.float32))
+                for k in (n, m)]
+    centres = rng.standard_normal((b, 16, 3)) * 0.3
+    clouds = []
+    for k in (n, m):
+        pick = rng.integers(0, 16, (b, k))
+        pts = np.take_along_axis(centres, pick[..., None], 1)
+        pts = pts + rng.standard_normal((b, k, 3)) * 1e-3
+        pts[:, 2::3] = pts[:, 1:-1:3][:, :pts[:, 2::3].shape[1]]
+        clouds.append(torch.from_numpy(pts.astype(np.float32)))
+    return clouds
 
 
 def _assert_emd_close(got, want):
@@ -875,12 +937,17 @@ def _assert_emd_close(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,m", [(1024, 1024), (2048, 512), (512, 2048), (1100, 1030)])
-def test_kernel_e_cuda_matches_plain(cuda, n, m):
+@pytest.mark.parametrize("n,m,kind", [
+    (1024, 1024, "gauss"), (2048, 512, "gauss"), (512, 2048, "gauss"), (1100, 1030, "gauss"),
+    (1537, 2049, "gauss"), (1100, 1030, "cluster"), (2500, 777, "cluster"),
+])
+def test_kernel_e_cuda_matches_plain(cuda, n, m, kind):
     """One counted launch per call, the plain version's numbers, the same
     bits again, and no further from the plain version in float64 than 3x the
-    float32 plain version plus a floor of 2e-4 of the scale (3e-3 for t)."""
-    x1, x2 = (t.to(cuda) for t in _emd_clouds(n * m, 2, n, m))
+    float32 plain version plus a floor of 2e-4 of the scale (3e-3 for t).
+    Ragged sizes: no multiple of a block's 512 points, of the 1024-point
+    tile or of a 64-term chunk; clustered clouds: near and exact ties."""
+    x1, x2 = (t.to(cuda) for t in _emd_clouds(n * m, 2, n, m, kind))
     before = emd_pallas._KERNEL.launches
     got = emd_pallas.emd_rounds_kernel(x1, x2)
     again = emd_pallas.emd_rounds_kernel(x1, x2)
@@ -1151,9 +1218,11 @@ def test_kernel_s_bf16_cuda_matches_plain(cuda, c_in, c_out, n, group):
     (x, w, _, pb, _, *_), _ = _bf16_layer_case(cuda, c_in, c_out, n, group, n + 11)
     c1, c2 = (torch.randn(c_out, generator=torch.Generator().manual_seed(k)).to(cuda)
               for k in (1, 2))
+    key = _variant("vn_layer_stats_fwd", group, True, port_layer.stats_design(c_in, c_out))
+    v0 = cuda_lib.variant_counts().get(key, 0)
     got, launched = _counts_of(_grouped("vn_layer_stats_fwd", group),
                                lambda: port_layer.stats_fwd(x, w, pb, group))
-    assert launched == 1
+    assert launched == 1 and cuda_lib.variant_counts().get(key, 0) == v0 + 1
     _assert_bf16_bwd(got, port_layer.reference_stats(x, w, pb, group), 1e-5)
     dgot, launched = _counts_of(_grouped("vn_layer_stats_bwd", group),
                                 lambda: port_layer.stats_bwd(x, w, pb, c1, c2, group))
@@ -1161,6 +1230,31 @@ def test_kernel_s_bf16_cuda_matches_plain(cuda, c_in, c_out, n, group):
     _assert_bf16_bwd(dgot, port_layer.reference_stats_bwd(x, w, pb, c1, c2, group))
     _assert_same_bits(got, port_layer.stats_fwd(x, w, pb, group))
     _assert_same_bits(dgot, port_layer.stats_bwd(x, w, pb, c1, c2, group))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out,n,group,bias", [
+    (16, 16, 1000, 0, False), (256, 256, 4100, 0, False), (256, 128, 1000, 0, False),
+    (256, 128, 1000, 0, True), (256, 128, 1088, 64, True),
+])
+def test_kernel_s_bf16_wide_cuda_matches_plain(cuda, c_in, c_out, n, group, bias):
+    """The wide bf16 S (p on the tensor cores) at widths without and with
+    a bias (per sample, group 64), counted under its design, twice for
+    equal bits, against its plain bf16 version within 1e-4 of the max
+    (chip_smoke.py's bound for bf16 S): the tensor cores sum p in their own
+    order, so a p at a bf16 rounding boundary rounds one ulp away from the
+    plain version's at rare points, and at 2000 points a channel one such
+    point moves s2 by ~1e-5 of its max (1.02e-5 at 256 -> 128, N 1000, no
+    bias: NVIDIA H100 80GB HBM3, 700 W)."""
+    (x, w, _, pb, _, *_), _ = _bf16_layer_case(cuda, c_in, c_out, n, group, n + 11)
+    pb = pb if bias else None
+    key = _variant("vn_layer_stats_fwd", group, True, "wide")
+    v0 = cuda_lib.variant_counts().get(key, 0)
+    got, launched = _counts_of(_grouped("vn_layer_stats_fwd", group),
+                               lambda: port_layer.stats_fwd(x, w, pb, group))
+    assert launched == 1 and cuda_lib.variant_counts().get(key, 0) == v0 + 1
+    _assert_bf16_bwd(got, port_layer.reference_stats(x, w, pb, group), 1e-4)
+    _assert_same_bits(got, port_layer.stats_fwd(x, w, pb, group))
 
 
 @pytest.mark.gpu

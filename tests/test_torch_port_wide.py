@@ -1,11 +1,13 @@
-"""Which passes kernels S' and C' run, and the chunking of their wide
+"""Which passes kernels S, S' and C' run, and the chunking of their wide
 weight-gradient pass, on the CPU.
 
 ``ops/vn_layer_fused.py::backward_design`` picks the wide passes (cp.async
 rings; in the bf16 mode dx, dW and S''s p on the tensor cores) for C_in
 and C_out >= 16 and the narrow ones (pd_pass, dx_gemm, dw_gemm) below
-that; the CUDA kernels take what the wrapper picks, so the choice for
-every layer a pipeline trains is checked here, where no card is needed.
+that, and ``stats_design`` the same for kernel S (the wide pass 1 without
+its dp store, or pd_pass); the CUDA kernels take what the wrapper picks,
+so the choice for every layer a pipeline trains is checked here, where no
+card is needed.
 ``wide_split`` cuts pass 3's reduction into whole stages of one plane
 each: every point is summed by exactly one split.  The kernels themselves
 are held against their plain versions by the ``gpu`` tests of
@@ -70,6 +72,52 @@ def test_backward_design_of_every_trained_layer(name, monkeypatch):
     coarse, fine = model(xyz)
     (coarse.square().sum() + fine.square().sum()).backward()
     assert seen == _EXPECTED[name]
+
+
+# (C_in, C_out, group) of every S launch of one train step, and its
+# design: the train-mode BatchNorm statistics of each whole-layer VN layer,
+# so the same widths as S'
+_STATS_EXPECTED = {name: {(c_in, c_out, group): design
+                          for (kernel, c_in, c_out, group), design in layers.items()
+                          if kernel == "S'"}
+                   for name, layers in _EXPECTED.items()}
+
+
+@pytest.mark.parametrize("name", list(_PIPELINES))
+def test_stats_design_of_every_trained_layer(name, monkeypatch):
+    """One train-mode forward of a pipeline at num_coarse 256 or 448: each
+    kernel S call's (C_in, C_out, group) and the design the wrapper takes
+    for it (final_conv.1's 256 -> 256 and vn_folding{1,2}.1's 256 -> 128
+    wide; 2 -> 256, 2 -> 32 and the pair folds' 1 -> 256 at group 64
+    narrow)."""
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+
+    seen = {}
+    stats_fwd = port_layer.stats_fwd
+
+    def record(x, w, pbias, group=0):
+        seen[(x.shape[2], w.shape[0], group)] = port_layer.stats_design(x.shape[2], w.shape[0])
+        return stats_fwd(x, w, pbias, group)
+
+    monkeypatch.setattr(port_layer, "stats_fwd", record)
+    enc, dec, nc = _PIPELINES[name]
+    model = build_model(Config.from_dict({"enc_type": enc, "dec_type": dec,
+                                          "num_coarse": nc, "seed": 3})).train()
+    xyz = torch.from_numpy((np.random.default_rng(5).standard_normal((1, 600, 3)) * 0.3)
+                           .astype(np.float32))
+    model(xyz)
+    assert seen == _STATS_EXPECTED[name]
+
+
+@pytest.mark.parametrize("c_in,c_out,design", [
+    (1, 256, "narrow"), (2, 256, "narrow"), (2, 32, "narrow"), (15, 256, "narrow"),
+    (16, 15, "narrow"), (15, 16, "narrow"), (16, 16, "wide"), (256, 128, "wide"),
+    (256, 256, "wide"),
+])
+def test_stats_design_boundary(c_in, c_out, design):
+    """Kernel S is wide from C_in = C_out = 16 up, as S' and C'."""
+    assert port_layer.stats_design(c_in, c_out) == design
+    assert port_layer.stats_design(c_in, c_out) == port_layer.backward_design(c_in, c_out)
 
 
 @pytest.mark.parametrize("c_in,c_out,design", [

@@ -19,35 +19,57 @@
 // (n // m).  Only the n and m real points are visited: the JAX kernel's
 // padding only gives zero supply to points that do not exist.
 //
-// Design.  One thread per row (row passes) or per column (column pass), the
-// other cloud streamed through shared memory in tiles of kTile points, one
-// launch per pass over the whole batch (blockIdx.y is the sample).  The row
-// pass of round r also sums round r+1's supply from the same distances (the
-// TPU kernel's "C+A merge"), so a round is two passes and the call 21, plus
-// one launch that sets the state and one that sums the cost rows.  Bound on
-// the H100: operations, about 438 FP32 operations and 30 exps per pair over
-// the ten rounds (chip_smoke.py counts them).
+// Bound on the H100: operations, about 438 FP32 operations a pair over the
+// ten rounds as the algorithm counts them (chip_smoke.py EMD_OPS_PER_PAIR).
+// The kernel is bound by instruction issue, one warp instruction a clock on
+// each of an SM's four schedulers, so its design counts issue slots a pair:
+//   - w = 2^(c d), c = level * log2(e) (level is a power of two, so c is
+//     log2(e) rounded once and scaled exactly), on the SFU's ex2.approx:
+//     a multiply and one MUFU where expf takes about eight instructions;
+//   - d = fma(dz, dz, fma(dy, dy, dx * dx)): six instructions, not eight;
+//   - kR = 2 points of a pass's own cloud a thread, so one pair of
+//     shared-memory float4 reads of the other cloud serves two pairs.
+// That is ~14 slots a pair in a column pass and ~18 in a row pass (two
+// exponentials: this round's weight and the next round's supply), ~330 a
+// pair over the call against the old design's ~580.  kR = 2 halves the
+// threads, so each pass also splits the other cloud into S spans (one
+// block per (own tile, span, sample)), S chosen on the host so that the
+// blocks fill whole waves of the card's resident blocks (at 14336 points
+// one block a thread-row of 256 left the last wave 85% full); each block
+// writes one partial per point and quantity, and a second launch (the
+// "done" kernels) sums the S partials in span order and runs the pass's
+// epilogue.
 //
 // Exactness.  The level -4^7 = -16384 amplifies any error in d, so the row
-// and column passes must see the same bits for d_ij: both compute it in the
-// difference form (x1 - x2)^2 summed over the coordinates in order, rounded
-// after every operation (the file is built with --fmad=false), from the same
-// float32 coordinates.  exp is expf (no fast-math, subnormals kept).  Every
-// sum over points is a per-thread sum in a fixed order, in chunks of kChunk
-// terms summed apart and then joined (one running sum over 16384 terms
-// would carry ~16384 roundings, the plain version's tree reductions a few
-// dozen), or, for the cost over rows, a block sum: no atomics, and a second
-// call gives the same bits.
+// and column passes must see the same bits for d_ij and w_ij: both call
+// pair_d and weight on the same float32 coordinates and the same c.  Round
+// r's row pass sums round r + 1's supply with weight(c_{r+1}, d), which is
+// what round r + 1's column pass computes.  Weights below the SFU's normal
+// range (2^-126) flush to zero: they vanish under the 1e-9 of every ratio.
+// Every sum over points is a per-thread sum in a fixed order, in chunks of
+// kChunk terms summed apart and then joined (one running sum over 16384
+// terms would carry ~16384 roundings, the plain version's tree reductions a
+// few dozen), the S span partials joined in span order, or, for the cost
+// over rows, a block sum: no atomics, and a second call on the same card
+// gives the same bits (S depends on the card's SM count and the kernels'
+// occupancy only).
 #include <math.h>
+
+#include <algorithm>
+#include <cmath>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kR = 2;         // points of a pass's own cloud a thread
 constexpr int kTile = 1024;   // points of the other cloud per shared-memory tile
 constexpr int kChunk = 64;    // terms summed apart before joining a running sum
 constexpr int kRounds = 10;
+constexpr int kMaxSplits = 8;   // spans of the other cloud (the wrapper sizes the partials)
+constexpr int kMinSpan = 256;   // the fewest points of the other cloud a span takes
+constexpr float kLog2e = 1.4426950408889634f;
 
 // d(x1_i, x2_j) in the difference form; a is the x1 point, b the x2 point.
 __device__ __forceinline__ float pair_d(float ax, float ay, float az,
@@ -55,8 +77,23 @@ __device__ __forceinline__ float pair_d(float ax, float ay, float az,
   const float dx = ax - bx;
   const float dy = ay - by;
   const float dz = az - bz;
-  return dx * dx + dy * dy + dz * dz;
+  return fmaf(dz, dz, fmaf(dy, dy, dx * dx));
 }
+
+// exp(level d) as 2^(c d), c = level log2(e), on the SFU.
+__device__ __forceinline__ float weight(float c, float d) {
+  float w;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(w) : "f"(c * d));
+  return w;
+}
+
+// Quantities a pass sums per point: row passes y0..y3, cost (and the next
+// supply) or, in kMode 0, the supply alone; column passes z0..z3.
+template <int kMode>
+__host__ __device__ constexpr int row_sums() {
+  return kMode == 0 ? 1 : kMode == 1 ? 6 : 5;
+}
+constexpr int kColSums = 4;
 
 __global__ void __launch_bounds__(kThreads)
 emd_init(float* __restrict__ remain_l, float* __restrict__ remain_r,
@@ -78,38 +115,43 @@ emd_init(float* __restrict__ remain_l, float* __restrict__ remain_r,
   }
 }
 
-// A row pass, one thread per row i of x1.  kMode 0: round 0's supply only;
-// 1: this round's row moments and cost, and the next round's supply; 2: the
-// last round's row moments and cost.  remain_r holds the value after this
-// round's column pass (the next round's capacities), u4 this round's
-// [ratio_r, ratio_r x2]; v4 holds this round's [ratio_l, ratio_l x1] and
-// receives the next round's.
+// A row pass over span blockIdx.y of x2 (points lo .. hi - 1), kR rows of
+// x1 a thread (rows i0 + k * kThreads).  kMode 0: round 0's supply only;
+// 1: this round's row moments and cost, and the next round's supply; 2:
+// the last round's row moments and cost.  remain_r holds the value after
+// this round's column pass (the next round's capacities), u4 this round's
+// [ratio_r, ratio_r x2].  Writes part[q][span][b * N + i].
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 emd_rows(const float* __restrict__ x1, const float* __restrict__ x2,
          const float* __restrict__ remain_r, const float4* __restrict__ u4,
-         float* __restrict__ remain_l, float4* __restrict__ v4,
-         float* __restrict__ costrow, float* __restrict__ s_n,
-         float* __restrict__ t_n, int N, int M, float level, float level_next) {
+         float* __restrict__ part, int N, int M, int span, float c, float c_next) {
+  constexpr int kQ = row_sums<kMode>();
   __shared__ float4 xs[kTile];  // x2 and remain_r
   __shared__ float4 us[kTile];  // u4
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool ok = i < N;
-  const int64_t row = static_cast<int64_t>(b) * N + i;
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  if (ok) {
-    ax = x1[3 * row];
-    ay = x1[3 * row + 1];
-    az = x1[3 * row + 2];
+  const int b = blockIdx.z, s = blockIdx.y;
+  const int lo = s * span, hi = min(M, lo + span);
+  const int i0 = blockIdx.x * (kThreads * kR) + threadIdx.x;
+  float ax[kR], ay[kR], az[kR];
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const int i = i0 + k * kThreads;
+    const int64_t row = static_cast<int64_t>(b) * N + min(i, N - 1);
+    ax[k] = x1[3 * row];
+    ay[k] = x1[3 * row + 1];
+    az[k] = x1[3 * row + 2];
   }
   const float* x2b = x2 + static_cast<int64_t>(b) * M * 3;
   const float* rrb = remain_r + static_cast<int64_t>(b) * M;
   const float4* u4b = u4 + static_cast<int64_t>(b) * M;
 
-  float sup = 0.f, y0 = 0.f, y1 = 0.f, y2 = 0.f, y3 = 0.f, c = 0.f;
-  for (int m0 = 0; m0 < M; m0 += kTile) {
-    const int cnt = min(kTile, M - m0);
+  float acc[kR][kQ];
+#pragma unroll
+  for (int k = 0; k < kR; ++k)
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) acc[k][q] = 0.f;
+  for (int m0 = lo; m0 < hi; m0 += kTile) {
+    const int cnt = min(kTile, hi - m0);
     __syncthreads();
     for (int e = threadIdx.x; e < cnt; e += kThreads) {
       const float* p = x2b + static_cast<int64_t>(m0 + e) * 3;
@@ -119,76 +161,117 @@ emd_rows(const float* __restrict__ x1, const float* __restrict__ x2,
     __syncthreads();
     for (int c0 = 0; c0 < cnt; c0 += kChunk) {
       const int c1 = min(cnt, c0 + kChunk);
-      float lsup = 0.f, l0 = 0.f, l1 = 0.f, l2 = 0.f, l3 = 0.f, lc = 0.f;
+      float l[kR][kQ];
+#pragma unroll
+      for (int k = 0; k < kR; ++k)
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) l[k][q] = 0.f;
 #pragma unroll 4
       for (int e = c0; e < c1; ++e) {
         const float4 v = xs[e];
-        const float d = pair_d(ax, ay, az, v.x, v.y, v.z);
-        const float w = expf(level * d);
-        if (kMode == 0) {
-          lsup = fmaf(w, v.w, lsup);
-        } else {
-          const float4 u = us[e];
-          l0 = fmaf(w, u.x, l0);
-          l1 = fmaf(w, u.y, l1);
-          l2 = fmaf(w, u.z, l2);
-          l3 = fmaf(w, u.w, l3);
-          lc = fmaf(w * d, u.x, lc);
-          if (kMode == 1) lsup = fmaf(expf(level_next * d), v.w, lsup);
+        float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (kMode > 0) u = us[e];
+#pragma unroll
+        for (int k = 0; k < kR; ++k) {
+          const float d = pair_d(ax[k], ay[k], az[k], v.x, v.y, v.z);
+          if (kMode == 0) {
+            l[k][0] = fmaf(weight(c, d), v.w, l[k][0]);
+          } else {
+            const float w = weight(c, d);
+            l[k][0] = fmaf(w, u.x, l[k][0]);
+            l[k][1] = fmaf(w, u.y, l[k][1]);
+            l[k][2] = fmaf(w, u.z, l[k][2]);
+            l[k][3] = fmaf(w, u.w, l[k][3]);
+            l[k][4] = fmaf(w * d, u.x, l[k][4]);
+            if (kMode == 1) l[k][5] = fmaf(weight(c_next, d), v.w, l[k][5]);
+          }
         }
       }
-      sup += lsup;
-      y0 += l0;
-      y1 += l1;
-      y2 += l2;
-      y3 += l3;
-      c += lc;
+#pragma unroll
+      for (int k = 0; k < kR; ++k)
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) acc[k][q] += l[k][q];
     }
   }
-  if (!ok) return;
+  const int64_t plane = static_cast<int64_t>(gridDim.z) * N;
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const int i = i0 + k * kThreads;
+    if (i >= N) continue;
+    float* dst = part + static_cast<int64_t>(s) * plane + static_cast<int64_t>(b) * N + i;
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) dst[q * gridDim.y * plane] = acc[k][q];
+  }
+}
 
+// The sum of quantity q of one point over the S span partials, in span order.
+__device__ __forceinline__ float span_total(const float* __restrict__ part, int q, int S,
+                                            int64_t plane, int64_t at) {
+  const float* p = part + static_cast<int64_t>(q) * S * plane + at;
+  float v = p[0];
+  for (int s = 1; s < S; ++s) v += p[s * plane];
+  return v;
+}
+
+// The row epilogue, one thread per row of the B * N: the row moments and
+// cost of this round (kMode > 0), and the next round's [ratio_l, ratio_l
+// x1] into v4 (kMode < 2).
+template <int kMode>
+__global__ void __launch_bounds__(kThreads)
+emd_rows_done(const float* __restrict__ part, int S, const float* __restrict__ x1,
+              float* __restrict__ remain_l, float4* __restrict__ v4,
+              float* __restrict__ costrow, float* __restrict__ s_n,
+              float* __restrict__ t_n, int64_t rows) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (row >= rows) return;
   float rem = remain_l[row];
   if (kMode > 0) {
+    const float y0 = span_total(part, 0, S, rows, row);
     const float rl = v4[row].x;
-    costrow[row] = costrow[row] + rl * c;
+    costrow[row] = costrow[row] + rl * span_total(part, 4, S, rows, row);
     s_n[row] = s_n[row] + rl * y0;
-    t_n[3 * row] = t_n[3 * row] + rl * y1;
-    t_n[3 * row + 1] = t_n[3 * row + 1] + rl * y2;
-    t_n[3 * row + 2] = t_n[3 * row + 2] + rl * y3;
+    t_n[3 * row] = t_n[3 * row] + rl * span_total(part, 1, S, rows, row);
+    t_n[3 * row + 1] = t_n[3 * row + 1] + rl * span_total(part, 2, S, rows, row);
+    t_n[3 * row + 2] = t_n[3 * row + 2] + rl * span_total(part, 3, S, rows, row);
     rem = fmaxf(0.f, rem - rl * y0);
     remain_l[row] = rem;
   }
   if (kMode < 2) {
+    const float sup = span_total(part, kMode == 0 ? 0 : 5, S, rows, row);
     const float rl = rem / (sup + 1e-9f);
-    v4[row] = make_float4(rl, rl * ax, rl * ay, rl * az);
+    v4[row] = make_float4(rl, rl * x1[3 * row], rl * x1[3 * row + 1], rl * x1[3 * row + 2]);
   }
 }
 
-// The column pass, one thread per column j of x2: z_j from this round's v4,
-// then the column's capacity update, its moments and its u4.
+// The column pass over span blockIdx.y of x1, kR columns of x2 a thread:
+// z_j from this round's v4.  Writes part[q][span][b * M + j].
 __global__ void __launch_bounds__(kThreads)
 emd_cols(const float* __restrict__ x1, const float4* __restrict__ v4,
-         const float* __restrict__ x2, float* __restrict__ remain_r,
-         float4* __restrict__ u4, float* __restrict__ s_m,
-         float* __restrict__ t_m, int N, int M, float level) {
+         const float* __restrict__ x2, float* __restrict__ part, int N, int M, int span,
+         float c) {
   __shared__ float4 xs[kTile];  // x1
   __shared__ float4 vs[kTile];  // v4
-  const int b = blockIdx.y;
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  const bool ok = j < M;
-  const int64_t col = static_cast<int64_t>(b) * M + j;
-  float bx = 0.f, by = 0.f, bz = 0.f;
-  if (ok) {
-    bx = x2[3 * col];
-    by = x2[3 * col + 1];
-    bz = x2[3 * col + 2];
+  const int b = blockIdx.z, s = blockIdx.y;
+  const int lo = s * span, hi = min(N, lo + span);
+  const int j0 = blockIdx.x * (kThreads * kR) + threadIdx.x;
+  float bx[kR], by[kR], bz[kR];
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const int64_t col = static_cast<int64_t>(b) * M + min(j0 + k * kThreads, M - 1);
+    bx[k] = x2[3 * col];
+    by[k] = x2[3 * col + 1];
+    bz[k] = x2[3 * col + 2];
   }
   const float* x1b = x1 + static_cast<int64_t>(b) * N * 3;
   const float4* v4b = v4 + static_cast<int64_t>(b) * N;
 
-  float z0 = 0.f, z1 = 0.f, z2 = 0.f, z3 = 0.f;
-  for (int n0 = 0; n0 < N; n0 += kTile) {
-    const int cnt = min(kTile, N - n0);
+  float acc[kR][kColSums];
+#pragma unroll
+  for (int k = 0; k < kR; ++k)
+#pragma unroll
+    for (int q = 0; q < kColSums; ++q) acc[k][q] = 0.f;
+  for (int n0 = lo; n0 < hi; n0 += kTile) {
+    const int cnt = min(kTile, hi - n0);
     __syncthreads();
     for (int e = threadIdx.x; e < cnt; e += kThreads) {
       const float* p = x1b + static_cast<int64_t>(n0 + e) * 3;
@@ -198,34 +281,60 @@ emd_cols(const float* __restrict__ x1, const float4* __restrict__ v4,
     __syncthreads();
     for (int c0 = 0; c0 < cnt; c0 += kChunk) {
       const int c1 = min(cnt, c0 + kChunk);
-      float l0 = 0.f, l1 = 0.f, l2 = 0.f, l3 = 0.f;
+      float l[kR][kColSums];
+#pragma unroll
+      for (int k = 0; k < kR; ++k)
+#pragma unroll
+        for (int q = 0; q < kColSums; ++q) l[k][q] = 0.f;
 #pragma unroll 4
       for (int e = c0; e < c1; ++e) {
         const float4 a = xs[e];
         const float4 v = vs[e];
-        const float w = expf(level * pair_d(a.x, a.y, a.z, bx, by, bz));
-        l0 = fmaf(w, v.x, l0);
-        l1 = fmaf(w, v.y, l1);
-        l2 = fmaf(w, v.z, l2);
-        l3 = fmaf(w, v.w, l3);
+#pragma unroll
+        for (int k = 0; k < kR; ++k) {
+          const float w = weight(c, pair_d(a.x, a.y, a.z, bx[k], by[k], bz[k]));
+          l[k][0] = fmaf(w, v.x, l[k][0]);
+          l[k][1] = fmaf(w, v.y, l[k][1]);
+          l[k][2] = fmaf(w, v.z, l[k][2]);
+          l[k][3] = fmaf(w, v.w, l[k][3]);
+        }
       }
-      z0 += l0;
-      z1 += l1;
-      z2 += l2;
-      z3 += l3;
+#pragma unroll
+      for (int k = 0; k < kR; ++k)
+#pragma unroll
+        for (int q = 0; q < kColSums; ++q) acc[k][q] += l[k][q];
     }
   }
-  if (!ok) return;
+  const int64_t plane = static_cast<int64_t>(gridDim.z) * M;
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const int j = j0 + k * kThreads;
+    if (j >= M) continue;
+    float* dst = part + static_cast<int64_t>(s) * plane + static_cast<int64_t>(b) * M + j;
+#pragma unroll
+    for (int q = 0; q < kColSums; ++q) dst[q * gridDim.y * plane] = acc[k][q];
+  }
+}
 
+// The column epilogue, one thread per column of the B * M: the capacity
+// update, the column moments and this round's u4.
+__global__ void __launch_bounds__(kThreads)
+emd_cols_done(const float* __restrict__ part, int S, const float* __restrict__ x2,
+              float* __restrict__ remain_r, float4* __restrict__ u4,
+              float* __restrict__ s_m, float* __restrict__ t_m, int64_t cols) {
+  const int64_t col = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (col >= cols) return;
+  const float z0 = span_total(part, 0, S, cols, col);
   const float rr = remain_r[col];
   const float sumr = z0 * rr;
   const float ratio_r = fminf(rr / (sumr + 1e-9f), 1.f) * rr;
   remain_r[col] = fmaxf(0.f, rr - sumr);
   s_m[col] = s_m[col] + ratio_r * z0;
-  t_m[3 * col] = t_m[3 * col] + ratio_r * z1;
-  t_m[3 * col + 1] = t_m[3 * col + 1] + ratio_r * z2;
-  t_m[3 * col + 2] = t_m[3 * col + 2] + ratio_r * z3;
-  u4[col] = make_float4(ratio_r, ratio_r * bx, ratio_r * by, ratio_r * bz);
+  t_m[3 * col] = t_m[3 * col] + ratio_r * span_total(part, 1, S, cols, col);
+  t_m[3 * col + 1] = t_m[3 * col + 1] + ratio_r * span_total(part, 2, S, cols, col);
+  t_m[3 * col + 2] = t_m[3 * col + 2] + ratio_r * span_total(part, 3, S, cols, col);
+  u4[col] = make_float4(ratio_r, ratio_r * x2[3 * col], ratio_r * x2[3 * col + 1],
+                        ratio_r * x2[3 * col + 2]);
 }
 
 // cost[b] = sum_i costrow[b, i]: per-thread strided sums, then a tree in
@@ -245,11 +354,43 @@ emd_cost_sum(const float* __restrict__ costrow, float* __restrict__ cost, int N)
   if (threadIdx.x == 0) cost[blockIdx.x] = red[0];
 }
 
+// The blocks the card holds at once for `kernel`: its occupancy times the
+// SMs.
+template <typename Kernel>
+int resident_blocks(Kernel kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0) !=
+          cudaSuccess)
+    return 0;
+  return sms * per_sm;
+}
+
+// Spans of a pass's other cloud (len points) for `tiles` blocks a span: the
+// fewest that fill the most of their last wave of `slots` resident blocks
+// (a larger count must fill 2% more), at most kMaxSplits and no span under
+// kMinSpan points.  Returns the span's length in points (a multiple of
+// kChunk); the count is ceil(len / span).
+int split_span(int64_t tiles, int len, int slots) {
+  const int most = std::max(1, std::min(kMaxSplits, len / kMinSpan));
+  auto fill = [&](int s) {
+    const double waves = static_cast<double>(tiles * s) / std::max(slots, 1);
+    return waves / std::ceil(waves);
+  };
+  int best = 1;
+  for (int s = 2; s <= most; ++s)
+    if (fill(s) > fill(best) + 0.02) best = s;
+  const int span = (len + best - 1) / best;
+  return (span + kChunk - 1) / kChunk * kChunk;
+}
+
 }  // namespace
 
 // x1: (B, N, 3), x2: (B, M, 3) float32 -> cost (B,), s_n (B, N), t_n
 // (B, N, 3), s_m (B, M), t_m (B, M, 3).  scratch: 5 B N + 5 B M floats,
-// 16-byte aligned (v4, u4, remain_l, remain_r, costrow).
+// 16-byte aligned (v4, u4, remain_l, remain_r, costrow), then the span
+// partials, 6 * kMaxSplits * B * max(N, M) floats.
 VNK_EXPORT int emd_rounds(const void* x1v, const void* x2v, void* costv,
                           void* s_nv, void* t_nv, void* s_mv, void* t_mv,
                           void* scratchv, int B, int N, int M, void* streamv) {
@@ -269,36 +410,54 @@ VNK_EXPORT int emd_rounds(const void* x1v, const void* x2v, void* costv,
   float* remain_l = scratch + 4 * rows + 4 * cols;
   float* remain_r = remain_l + rows;
   float* costrow = remain_r + cols;
+  float* part = costrow + rows;
 
   // capacities by integer ratio (emd_kernel.cu:29-35 of the reference)
   const float multi_l = N >= M ? 1.f : static_cast<float>(M / N);
   const float multi_r = N >= M ? static_cast<float>(N / M) : 1.f;
-  float levels[kRounds];
-  for (int r = 0; r < kRounds - 1; ++r) levels[r] = -static_cast<float>(ldexp(1.0, 2 * (7 - r)));
-  levels[kRounds - 1] = 0.f;
+  float c[kRounds];  // level * log2(e), levels -4^7 .. -4^-1, 0
+  for (int r = 0; r < kRounds - 1; ++r)
+    c[r] = -static_cast<float>(ldexp(1.0, 2 * (7 - r))) * kLog2e;
+  c[kRounds - 1] = 0.f;
+
+  // the grids: kR * kThreads points of the pass's own cloud a block, the
+  // other cloud in spans
+  const int row_tiles = (N + kR * kThreads - 1) / (kR * kThreads);
+  const int col_tiles = (M + kR * kThreads - 1) / (kR * kThreads);
+  const int row_span = split_span(static_cast<int64_t>(row_tiles) * B, M,
+                                  resident_blocks(emd_rows<1>));
+  const int col_span = split_span(static_cast<int64_t>(col_tiles) * B, N,
+                                  resident_blocks(emd_cols));
+  const int row_splits = (M + row_span - 1) / row_span;
+  const int col_splits = (N + col_span - 1) / col_span;
+  const dim3 row_grid(row_tiles, row_splits, B), col_grid(col_tiles, col_splits, B);
+  const unsigned row_done = static_cast<unsigned>((rows + kThreads - 1) / kThreads);
+  const unsigned col_done = static_cast<unsigned>((cols + kThreads - 1) / kThreads);
 
   cudaError_t err;
   const int64_t most_blocks = ((rows > cols ? rows : cols) + kThreads - 1) / kThreads;
   const unsigned init_blocks = static_cast<unsigned>(most_blocks < 4096 ? most_blocks : 4096);
   emd_init<<<init_blocks, kThreads, 0, stream>>>(remain_l, remain_r, costrow, s_n, t_n,
                                                  s_m, t_m, rows, cols, multi_l, multi_r);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const dim3 row_grid((N + kThreads - 1) / kThreads, B);
-  const dim3 col_grid((M + kThreads - 1) / kThreads, B);
-  emd_rows<0><<<row_grid, kThreads, 0, stream>>>(x1, x2, remain_r, u4, remain_l, v4, costrow,
-                                                 s_n, t_n, N, M, levels[0], 0.f);
+  emd_rows<0><<<row_grid, kThreads, 0, stream>>>(x1, x2, remain_r, u4, part, N, M, row_span,
+                                                 c[0], 0.f);
+  emd_rows_done<0><<<row_done, kThreads, 0, stream>>>(part, row_splits, x1, remain_l, v4,
+                                                      costrow, s_n, t_n, rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   for (int r = 0; r < kRounds; ++r) {
-    emd_cols<<<col_grid, kThreads, 0, stream>>>(x1, v4, x2, remain_r, u4, s_m, t_m, N, M,
-                                                levels[r]);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    emd_cols<<<col_grid, kThreads, 0, stream>>>(x1, v4, x2, part, N, M, col_span, c[r]);
+    emd_cols_done<<<col_done, kThreads, 0, stream>>>(part, col_splits, x2, remain_r, u4, s_m,
+                                                     t_m, cols);
     if (r + 1 < kRounds) {
-      emd_rows<1><<<row_grid, kThreads, 0, stream>>>(x1, x2, remain_r, u4, remain_l, v4,
-                                                     costrow, s_n, t_n, N, M, levels[r],
-                                                     levels[r + 1]);
+      emd_rows<1><<<row_grid, kThreads, 0, stream>>>(x1, x2, remain_r, u4, part, N, M,
+                                                     row_span, c[r], c[r + 1]);
+      emd_rows_done<1><<<row_done, kThreads, 0, stream>>>(part, row_splits, x1, remain_l, v4,
+                                                          costrow, s_n, t_n, rows);
     } else {
-      emd_rows<2><<<row_grid, kThreads, 0, stream>>>(x1, x2, remain_r, u4, remain_l, v4,
-                                                     costrow, s_n, t_n, N, M, levels[r], 0.f);
+      emd_rows<2><<<row_grid, kThreads, 0, stream>>>(x1, x2, remain_r, u4, part, N, M,
+                                                     row_span, c[r], 0.f);
+      emd_rows_done<2><<<row_done, kThreads, 0, stream>>>(part, row_splits, x1, remain_l, v4,
+                                                          costrow, s_n, t_n, rows);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }

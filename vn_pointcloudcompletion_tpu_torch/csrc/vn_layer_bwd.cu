@@ -39,11 +39,11 @@
 //      (split K), writing a partial tile.
 // vnk_reduce_rows then sums every partial in a fixed order (the bias
 // partials over the tiles of each column), so each run of a kernel gives the
-// same bits.  S is pass 1 alone, with the norm sums.
+// same bits.  S is pass 1 alone, with the norm sums and no dp store.
 //
 // Three designs; the wrapper picks one from (Cin, Cout) (ops/
-// vn_layer_fused.py::backward_design for S' and C', ::layer_bwd_design for
-// B') and none stands in for another:
+// vn_layer_fused.py::stats_design for S, ::backward_design for S' and C',
+// ::layer_bwd_design for B') and none stands in for another:
 //   fused (B' at Cin <= 2 only: final_conv.0's 2 -> 256, conv1's 2 -> 32,
 //      the pair folds' 1 -> 256 at group 64): layer_bwd_fused, one pass.
 //      A block owns a 64-point tile of one sample and walks all Cout
@@ -54,35 +54,40 @@
 //      keeps dx of its points in registers across the channels, adding the
 //      16 channel groups in order at the end.  No dp/dd scratch (805 MB in
 //      float32 at batch 8, N 16384), no dx_gemm or dw_gemm launch.
-//   narrow (S' and C' at Cin or Cout < 16: final_conv.0's 2 -> 256, the
-//      pair folds' 1 -> 256; B' at Cin > 2): pd_pass with the 4 x 4 FMA
-//      micro-tile of vn_tile.cuh, dx_gemm and dw_gemm below.  At Cin <= 2
+//   narrow (S, S' and C' at Cin or Cout < 16: final_conv.0's 2 -> 256,
+//      conv1's 2 -> 32, the pair folds' 1 -> 256; B' at Cin > 2): pd_pass
+//      with the 4 x 4 FMA micro-tile of vn_tile.cuh (for S alone: no scratch,
+//      one block an SM), dx_gemm and dw_gemm below.  At Cin <= 2
 //      these shapes are bound by bytes, not operations, and the 64 x 64
 //      tiles of dx_gemm and dw_gemm are 1/32-1/64 used.
-//   wide (Cin >= 16 and Cout >= 16, S' and C' only: final_conv.1's 256 ->
+//   wide (Cin >= 16 and Cout >= 16, S, S' and C': final_conv.1's 256 ->
 //      256, vn_folding{1,2}.1's 256 -> 128): W (and Wd) first transposed
 //      into a (Cin, Cout) scratch in the activations' type (bf16-rounded in
 //      the bf16 mode, the rounding the products' operands get); then in
 //      every pass a ring of shared-memory stages filled by cp.async
 //      (vn_mma.cuh), loading the next reduction slice while the current one
 //      multiplies, one barrier a slice.
-//      Pass 1 of float32 S' and C' and of bf16 C' (pd_wide_fma): FP32 FMAs
-//      on the CUDA cores, pd_pass's layout and epilogue at 2 (C') or 4 (S')
+//      Pass 1 of float32 S, S' and C' and of bf16 C' (pd_wide_fma): FP32
+//      FMAs on the CUDA cores, pd_pass's layout and epilogue at 2 (C') or 4 (S, S')
 //      channels x 4 points x 3 planes a thread, 256 threads, two blocks an
 //      SM, over a ring of 16-channel stages (32 for bf16); p, d summed in
 //      input-channel order with fmaf, so they have pd_pass's bits and the
 //      plain version's.  bf16 C' takes it because its epilogue backward
 //      turns a p or d one bf16 ulp off (which another summation order
 //      gives, rarely) into dp, dd several percent off, beyond what the 1e-4
-//      bound on dW, dWd absorbs; S' has no such amplification.
-//      Pass 1 of bf16 S' (pd_wide_mma): the tensor cores, warp-level
+//      bound on dW, dWd absorbs; S' has no such amplification.  float32 S
+//      takes the same products in the same order as pd_pass and sums its
+//      partials in pd_pass's order, so its bits are the narrow S's.
+//      Pass 1 of bf16 S and S' (pd_wide_mma): the tensor cores, warp-level
 //      mma.sync.m16n8k16 bf16 -> float32 (exact products, float32 sums:
 //      JAX's preferred_element_type=float32), W^T and x read by
 //      ldmatrix.trans, a 128-channel x 64-point tile in 16 warps (32 x 16
 //      each, 3 planes), three 32-channel stages; its epilogue reads the
-//      accumulators in their fragment layout and sums the bias columns over
-//      a quad by shuffles, then across the point warps in warp order
-//      through shared memory.
+//      accumulators in their fragment layout and sums the bias columns
+//      (S': dp; S: |p| + EPS and its square, p rounded through bf16 once as
+//      pd_pass rounds it) over a thread's points, its quad by shuffles,
+//      then across the point warps in warp order through shared memory.
+//      So S's p is S''s p, bit for bit.
 //      Passes 2 and 3 in float32 (dx_wide_f32, dw_wide_f32): FP32 FMAs (the
 //      float32 policy keeps products in full float32; 3xTF32 would round
 //      each product), 128 x 128 tiles (pass 3: 64 x 128 for C'), 8 x 8 a
@@ -845,9 +850,9 @@ pd_wide_fma(PdArgs<T> args, const T* __restrict__ wt, bool aw, bool ax) {
   pd_epilogue<kMode, kSplit, kMC>(args, accp, accd, t, bi, c0, n0);
 }
 
-// Wide pass 1 of S' in bf16, on the tensor cores: warp (wm, wn) of the 4 x 4
-// grid owns channels wm * 32 .. of the block's 128 and points wn * 16 .. of
-// its 64: two m16 tiles x two n8 tiles a plane.
+// Wide pass 1 of S' in bf16, and the wide S in bf16, on the tensor cores:
+// warp (wm, wn) of the 4 x 4 grid owns channels wm * 32 .. of the block's
+// 128 and points wn * 16 .. of its 64: two m16 tiles x two n8 tiles a plane.
 struct PdBf16 {
   static constexpr int kThreads = 512;  // 16 warps
   static constexpr int kMT = 2, kBC = 128;
@@ -868,9 +873,10 @@ __device__ __forceinline__ void store2(vnk_bf16* row, int n, int N, float v0, fl
   }
 }
 
-template <bool kSplit>
+template <int kMode, bool kSplit>
 __global__ void __launch_bounds__(PdBf16::kThreads, 1)
 pd_wide_mma(PdArgs<vnk_bf16> args, const vnk_bf16* __restrict__ wt, bool aw, bool ax) {
+  static_assert(kMode == kStatsFwd || kMode == kStatsBwd, "S and S' only");
   using T = vnk_bf16;
   using P = PdBf16;
   constexpr int kMT = P::kMT, kBC = P::kBC;
@@ -926,13 +932,67 @@ pd_wide_mma(PdArgs<vnk_bf16> args, const vnk_bf16* __restrict__ wt, bool aw, boo
     }
   };
   pipeline<P::kStages>((Cin + P::kKs - 1) / P::kKs, load, compute);
+  const bool has_bias = args.pbias != nullptr;
+
+  if constexpr (kMode == kStatsFwd) {
+    // S: p rounded through bf16 once (the bias added first), then |p| + EPS
+    // and its square summed over a thread's four points (nt, then e), its
+    // quad (quad_sum) and the four point warps in order (shared memory):
+    // one (s1, s2) partial per (sample, tile, channel), pd_pass's layout.
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int cl = wm * 16 * kMT + mt * 16 + grp + 8 * r;
+        const int c = c0 + cl;
+        const bool cok = c < Cout;
+        float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = n0 + wn * 16 + nt * 8 + 2 * tig + e;
+            float p[3];
+#pragma unroll
+            for (int j = 0; j < 3; ++j) {
+              const float pb = has_bias && cok ? vnk_bias(args.pbias, bi, j, c, Cout, n, N,
+                                                          args.group) : 0.f;
+              p[j] = vnk_round_bf16(acc[j][mt][nt][2 * r + e] + pb);
+            }
+            const float norm_e = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2]) + VNK_EPS;
+            if (cok && n < N) {
+              s1 += norm_e;
+              s2 += norm_e * norm_e;
+            }
+          }
+        }
+        s1 = quad_sum(s1);
+        s2 = quad_sum(s2);
+        if (tig == 0) {
+          red[(wn * kBC + cl) * 2] = s1;
+          red[(wn * kBC + cl) * 2 + 1] = s2;
+        }
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < 2 * kBC) {
+      const int cl = threadIdx.x % kBC, k = threadIdx.x / kBC, c = c0 + cl;
+      if (c < Cout) {
+        float v = red[cl * 2 + k];
+#pragma unroll
+        for (int w = 1; w < 4; ++w) v += red[(w * kBC + cl) * 2 + k];
+        const size_t stride = static_cast<size_t>(args.B) * args.T * Cout;
+        args.partial[k * stride + (static_cast<size_t>(bi) * args.T + t) * Cout + c] = v;
+      }
+    }
+    return;
+  }
 
   // The epilogue on the fragments: a thread holds, per (mt, row half r),
   // channel c0 + wm 32 + mt 16 + grp + 8 r at points n0 + wn 16 + nt 8 +
   // 2 tig + e (nt, e < 2), all three planes of p.  A bias sum runs over a
   // thread's points, its quad (shuffles), then, for columns of 16 points
   // or more, the point warps in order (shared memory).
-  const bool has_bias = args.pbias != nullptr;
   const int sub = args.sub;
   const bool warp_sums = has_bias && (!kSplit || sub >= 16);
   const size_t bstride = static_cast<size_t>(args.B) * args.T * Cout * args.spt;
@@ -1622,10 +1682,12 @@ layer_bwd_fused(PdArgs<T> args, T* __restrict__ dx, float* __restrict__ dw_part,
 
 int tiles(int N) { return (N + kPts - 1) / kPts; }
 
+// kSplit also makes S read the bias at every point of a thread's four where
+// groups 1 and 2 give them two or four columns.
 template <int kMode, typename T>
 void launch_pd(const PdArgs<T>& args, cudaStream_t st) {
   const dim3 grid(args.T, (args.Cout + kCh - 1) / kCh, args.B);
-  if (kMode != kStatsFwd && args.sub < kPts) {
+  if (args.sub < kPts) {
     pd_pass<kMode, true, T><<<grid, kThreads, 0, st>>>(args);
   } else {
     pd_pass<kMode, false, T><<<grid, kThreads, 0, st>>>(args);
@@ -1659,11 +1721,16 @@ cudaError_t launch_pd_wide(const PdArgs<T>& args, T* wt, cudaStream_t st) {
   launch_transpose(args.w, kMode == kProjBwd ? args.wd : nullptr, wt, args.Cin, args.Cout, st);
   const bool aw = aligned16(wt, args.Cout, kV), ax = aligned16(args.x, args.N, kV);
   const bool split = args.sub < kPts;
-  if constexpr (vnk_is_bf16<T>() && kMode == kStatsBwd) {
+  if constexpr (vnk_is_bf16<T>() && (kMode == kStatsBwd || kMode == kStatsFwd)) {
     using P = PdBf16;
     const dim3 grid((args.Cout + P::kBC - 1) / P::kBC, args.T, args.B);
-    return split ? launch_wide<P::kThreads>(pd_wide_mma<true>, grid, P::kBytes, st, args, wt, aw, ax)
-                 : launch_wide<P::kThreads>(pd_wide_mma<false>, grid, P::kBytes, st, args, wt, aw, ax);
+    if (kMode == kStatsFwd)  // no bias partials: kSplit plays no part
+      return launch_wide<P::kThreads>(pd_wide_mma<kMode, false>, grid, P::kBytes, st, args, wt,
+                                      aw, ax);
+    return split ? launch_wide<P::kThreads>(pd_wide_mma<kMode, true>, grid, P::kBytes, st, args,
+                                            wt, aw, ax)
+                 : launch_wide<P::kThreads>(pd_wide_mma<kMode, false>, grid, P::kBytes, st, args,
+                                            wt, aw, ax);
   } else {
     using P = PdFma<kMode, T>;
     const dim3 grid((args.Cout + P::kBC - 1) / P::kBC, args.T, args.B);
@@ -1761,14 +1828,19 @@ void reduce_bias(const PdArgs<T>& args, int nqc, int nq, float* dbias_out,
 
 template <typename T>
 int stats_fwd(const void* x, const void* w, const void* pbias, void* s12,
-              void* partial, int B, int Cin, int Cout, int N, int group,
-              void* stream) {
+              void* partial, void* wt, int B, int Cin, int Cout, int N, int group,
+              int wide, void* stream) {
   if (B == 0 || N == 0 || Cout == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PdArgs<T> args = make_args<T>(x, w, nullptr, pbias, nullptr, nullptr, nullptr,
                                       nullptr, nullptr, nullptr, nullptr, nullptr,
                                       nullptr, partial, B, Cin, Cout, N, group, 0.f);
-  launch_pd<kStatsFwd>(args, st);
+  if (wide) {
+    const cudaError_t err = launch_pd_wide<kStatsFwd>(args, static_cast<T*>(wt), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    launch_pd<kStatsFwd>(args, st);
+  }
   vnk_reduce_rows(args.partial, static_cast<float*>(s12), 2, B * args.T, Cout, st);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1881,19 +1953,23 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
 // Cout) scratch in the activations' type, and `chunk`, the pass-3 stages
 // (16 points float32, 32 bf16) of each of the S splits.
 
-// S: s12 (2, Cout) = (s1, s2); partial with nq = 2.
+// S: s12 (2, Cout) = (s1, s2); partial with nq = 2.  `wide` (the wrapper's
+// stats_design) takes the wide pass 1 over wt, a (Cin, Cout) scratch in
+// the activations' type; 0 takes pd_pass (wt unused).
 VNK_EXPORT int vn_layer_stats_fwd(const void* x, const void* w,
                                   const void* pbias, void* s12, void* partial,
-                                  int B, int Cin, int Cout, int N, int group,
-                                  void* stream) {
-  return stats_fwd<float>(x, w, pbias, s12, partial, B, Cin, Cout, N, group, stream);
+                                  void* wt, int B, int Cin, int Cout, int N, int group,
+                                  int wide, void* stream) {
+  return stats_fwd<float>(x, w, pbias, s12, partial, wt, B, Cin, Cout, N, group, wide,
+                          stream);
 }
 
 VNK_EXPORT int vn_layer_stats_fwd_bf16(const void* x, const void* w,
                                        const void* pbias, void* s12,
-                                       void* partial, int B, int Cin, int Cout,
-                                       int N, int group, void* stream) {
-  return stats_fwd<vnk_bf16>(x, w, pbias, s12, partial, B, Cin, Cout, N, group, stream);
+                                       void* partial, void* wt, int B, int Cin, int Cout,
+                                       int N, int group, int wide, void* stream) {
+  return stats_fwd<vnk_bf16>(x, w, pbias, s12, partial, wt, B, Cin, Cout, N, group, wide,
+                             stream);
 }
 
 // S': dx (B, 3, Cin, N), dw (Cout, Cin), dpb (3, B, G, Cout) or null

@@ -14,7 +14,7 @@ shows that the main path went through the kernels.  One entry point may be
 bound twice under two names, to count two modes of it apart; a mode that
 is its own entry point (the bfloat16 modes, ``<symbol>_bf16``) counts
 under ``<symbol>[bf16]``.  An entry point that runs one of two designs
-(kernels S' and C': the wide or the narrow passes) also counts each launch
+(kernels C, S, S', C' and B': wide, narrow or fused) also counts each launch
 under the design's name (:func:`variant_counts`).
 """
 

@@ -32,6 +32,7 @@ import torch
 from vn_pointcloudcompletion_tpu_torch.ops.cuda_lib import CudaKernel, check_cuda
 
 _MAX_PTS = 16384
+_MAX_SPLITS = 8  # spans of the other cloud a pass of the kernel may take (csrc kMaxSplits)
 _BLOCK_ELEMS = 1 << 24  # entries of one (B, rows, M) tensor of the plain version
 _KERNEL = CudaKernel("emd.cu", "emd_rounds",
                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -138,7 +139,8 @@ def emd_rounds_kernel(x1: torch.Tensor, x2: torch.Tensor):
         return torch.empty(shape, device=x1.device, dtype=torch.float32)
 
     cost, s_n, t_n, s_m, t_m = empty(b), empty(b, n), empty(b, n, 3), empty(b, m), empty(b, m, 3)
-    scratch = empty(5 * b * (n + m))  # v4, u4, remain_l, remain_r, cost rows
+    # v4, u4, remain_l, remain_r, cost rows; then the passes' span partials
+    scratch = empty(5 * b * (n + m) + 6 * _MAX_SPLITS * b * max(n, m))
     _KERNEL(x1, x1.data_ptr(), x2.data_ptr(), cost.data_ptr(), s_n.data_ptr(),
             t_n.data_ptr(), s_m.data_ptr(), t_m.data_ptr(), scratch.data_ptr(), b, n, m)
     return cost, s_n, t_n, s_m, t_m

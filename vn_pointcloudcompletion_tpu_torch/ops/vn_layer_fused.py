@@ -19,11 +19,12 @@ contraction that way, expanded in the kernel, never in device memory
 (JAX ``vn_layer_fused.py:74-116``).  Their gradients are ``dp`` summed over
 each column's points.  As in JAX, ``S`` divides N and 512.
 
-Kernels C, S', C' and B' run one of two designs, chosen from the layer's
-widths and counted by name (``cuda_lib.variant_counts``): C by
-:func:`forward_design` and S', C' by :func:`backward_design`, the wide
-design at C_in, C_out >= 16 (final_conv.1, vn_folding{1,2}.1), the narrow
-one below; B' by :func:`layer_bwd_design`, one fused pass at C_in <= 2
+Kernels C, S, S', C' and B' run one of two designs, chosen from the
+layer's widths and counted by name (``cuda_lib.variant_counts``): C by
+:func:`forward_design`, S by :func:`stats_design` and S', C' by
+:func:`backward_design`, the wide design at C_in, C_out >= 16
+(final_conv.1, vn_folding{1,2}.1), the narrow one below; B' by
+:func:`layer_bwd_design`, one fused pass at C_in <= 2
 (final_conv.0, the pair folds), the narrow passes above.  Both designs of a
 kernel compute the same function (``csrc/vn_layer_fused.cu``,
 ``csrc/vn_layer_bwd.cu``).
@@ -77,7 +78,7 @@ _PROJECT = CudaKernel(
     [_P] * 11 + [_I] * 6 + [ctypes.c_float, _P],
 )
 _STATS = CudaKernel(
-    "vn_layer_bwd.cu", "vn_layer_stats_fwd", [_P] * 5 + [_I] * 5 + [_P])
+    "vn_layer_bwd.cu", "vn_layer_stats_fwd", [_P] * 6 + [_I] * 6 + [_P])
 _STATS_BWD = CudaKernel(
     "vn_layer_bwd.cu", "vn_layer_stats_bwd", [_P] * 12 + [_I] * 8 + [_P])
 _LAYER_BWD = CudaKernel(
@@ -382,6 +383,20 @@ def forward_design(c_in: int, c_out: int) -> str:
     return "wide" if min(c_in, c_out) >= WIDE_MIN_CHANNELS else "narrow"
 
 
+def stats_design(c_in: int, c_out: int) -> str:
+    """Which pass kernel S runs at (c_in, c_out): ``"wide"`` (pass 1 of
+    the wide S' without its dp store: a cp.async ring over a W^T scratch,
+    FP32 FMAs in float32, the tensor cores in bf16) where p = W x is
+    matrix work, c_in and c_out >= 16 (final_conv.1's 256 -> 256,
+    vn_folding{1,2}.1's 256 -> 128); ``"narrow"`` (pd_pass, vn_tile.cuh's
+    FMA loop) below that, where the product is one or two channels deep
+    and bytes bound the pass (final_conv.0's 2 -> 256, conv1's 2 -> 32, the
+    pair folds' 1 -> 256).  The same widths as S''s passes, so every
+    layer's S and S' take the same design.  Either is a hand-written
+    kernel; a CUDA launch takes the one chosen here or raises."""
+    return backward_design(c_in, c_out)
+
+
 def projection_blocks(c_out: int, bf16: bool) -> int:
     """Channel blocks of the wide C, each writing one projection partial
     per (sample, plane, point)."""
@@ -502,11 +517,14 @@ def stats_fwd(x, w, pbias, group: int = 0):
         return reference_stats(x, w, pbias, group)
     (x, w, _, pbias, *_), (bsz, c_in, c_out, n) = _prepare(
         "vn_layer_stats", x, w, pbias=pbias, group=group)
+    design = stats_design(c_in, c_out)
     s12 = _empty(x, 2, c_out)
     partial = _empty(x, 2, bsz, -(-n // TILE), c_out)
+    wt = _empty(x, c_in, c_out, dtype=x.dtype) if design == "wide" else None  # W^T
     _counted(_STATS, group, _bf16(x))(x, x.data_ptr(), w.data_ptr(), _ptr(pbias),
-                                      s12.data_ptr(), partial.data_ptr(), bsz, c_in,
-                                      c_out, n, group)
+                                      s12.data_ptr(), partial.data_ptr(), _ptr(wt), bsz,
+                                      c_in, c_out, n, group, int(design == "wide"),
+                                      variant=design)
     return s12[0], s12[1]
 
 
