@@ -17,18 +17,24 @@ on one NVIDIA GPU:
    repeated points tie), times both with CUDA events (K1 also against
    ``torch.topk``), runs the backward-slice and DGCNN kernels twice to show
    that they give the same bits, and holds the backward of K2 and K3
-   against autograd of their plain chains.  Each C, S, S', C' and B' row
-   names the design it took (C, S, S', C' wide at C_in, C_out >= 16, else
-   narrow; B' fused at C_in <= 2, else narrow), its TFLOP/s, GB/s and
-   share of its bound, and, for a wide or fused row, the narrow design's
-   time at the same shape in the same call; bf16 C (wide: the tensor
-   cores) is held to BF16_C_RMS, its mutant at least 4x beyond; D is also
-   timed at the training loss's coarse pair (1024 x 16384); S is timed at
-   final_conv.0's 2 -> 256 (narrow) and at 256 -> 128 (wide, both types),
-   and its wide design's bits are compared with the narrow one's.  Phases
-   4-13 check that every counted C took the wide design and every B' the
-   fused pass (check_designs), and phases 5, 7, 9 and 13 that kernel S took
-   its design at every layer of every step (check_stats_designs).
+   against autograd of their plain chains.  Every row prints its share of
+   its bound, and its time a call in a run of calls back to back
+   (``stream_ms``: the wrapper's host time hidden behind the card's).  Each B, C, S, S', C' and B' row names the design it took (C,
+   S, S', C' wide at C_in, C_out >= 16, else narrow; B the store stream and
+   B' fused at C_in <= 2, else narrow), its TFLOP/s, GB/s and share of its
+   bound, and, for a wide, fused or stream row, the narrow design's time at
+   the same shape in the same call; B's stream design must give the narrow
+   design's bits (float32 and bf16, groups 0 and 64); bf16 C (wide: the
+   tensor cores) is held to BF16_C_RMS, its mutant at least 4x beyond; D
+   (one sweep for both directions) is also timed at the training loss's
+   coarse pair (1024 x 16384) and at 448 x 14336, twice for equal bits;
+   S is timed at final_conv.0's 2 -> 256 (narrow) and at 256 -> 128 (wide,
+   both types), and its wide design's bits are compared with the narrow
+   one's; S' at final_conv.0's 2 -> 256 (narrow, both types).  Phases 4-13
+   check that every counted B took the stream design, every C the wide one
+   and every B' the fused pass (check_designs), and phases 5, 7, 9 and 13
+   that kernel S took its design at every layer of every step
+   (check_stats_designs).
 4. Serving the flagship at full width (encoder latent 1024 -> 2048-channel
    global feature, 2048 input points, 1024 coarse, 16384 dense points,
    random weights from a seed) through the port's command line: ``predict``
@@ -167,7 +173,7 @@ POINTR_FWD_TOL = 2e-6
 POINTR_STEP_TOL = 4e-3
 POINTR_F64_RATIO = 2.0
 FORWARD_KERNELS = ("vn_bn_leaky_fwd", "vn_layer_fused_fwd",
-                   "vn_layer_fused_project_fwd", "chamfer_nn_one_sided")
+                   "vn_layer_fused_project_fwd", "chamfer_nn_bidir")
 # The pipelines each driven at full width (batch 8, 2048 input points) by
 # its own serve (and train) phase, and the launches of one eval forward of
 # the DGCNN ones, as the JAX package's TPU dispatch gives them: VN DGCNN
@@ -246,14 +252,14 @@ BF16_STEP_LAUNCHES = {
                       "vn_layer_fused_project_bwd[bf16]": 2},
 }
 BF16_TRAIN_EPOCHS = 2  # phase 13's train epochs before --resume
-# The design of every C, S, S', C' and B' launch of one train step (cuda_lib
-# .variant_counts(); ops/vn_layer_fused.py::forward_design, backward_design,
-# layer_bwd_design, stats_design): C, S, S' and C' wide at C_in, C_out >= 16
-# (final_conv.1's 256 -> 256, vn_folding{1,2}.1's 256 -> 128), S and S'
-# narrow below (final_conv.0's 2 -> 256, conv1's 2 -> 32, the pair folds'
-# 1 -> 256 at group 64); B' fused
-# at C_in <= 2 (final_conv.0, conv1, the pair folds).  Phase 5b (float32)
-# and phase 13 (bf16) assert them.
+# The design of every B, C, S, S', C' and B' launch of one train step
+# (cuda_lib.variant_counts(); ops/vn_layer_fused.py::forward_design,
+# backward_design, layer_fwd_design, layer_bwd_design, stats_design): C, S,
+# S' and C' wide at C_in, C_out >= 16 (final_conv.1's 256 -> 256,
+# vn_folding{1,2}.1's 256 -> 128), S and S' narrow below (final_conv.0's 2
+# -> 256, conv1's 2 -> 32, the pair folds' 1 -> 256 at group 64); B the
+# store stream and B' fused at C_in <= 2 (final_conv.0, conv1, the pair
+# folds).  Phase 5b (float32) and phase 13 (bf16) assert them.
 # Kernel S (ops/vn_layer_fused.py::stats_design) takes the same widths'
 # designs as S' in every train step: STATS_STEP_DESIGNS, asserted for each
 # counted training run of phases 5, 7, 9 and 13 (check_stats_designs) and
@@ -273,26 +279,30 @@ def bf16_designs(designs: dict) -> dict:
 
 
 FLAGSHIP_STEP_DESIGNS = {"vn_layer_stats_bwd/narrow": 1, "vn_layer_stats_bwd/wide": 1,
-                         "vn_layer_fused_project_bwd/wide": 1,
+                         "vn_layer_fused_fwd/stream": 1, "vn_layer_fused_project_bwd/wide": 1,
                          "vn_layer_fused_project_fwd/wide": 1, "vn_layer_fused_bwd/fused": 1,
                          **STATS_STEP_DESIGNS["flagship"]}
 BF16_STEP_DESIGNS = {
     "flagship": {"vn_layer_stats_bwd[bf16]/narrow": 1, "vn_layer_stats_bwd[bf16]/wide": 1,
-                 "vn_layer_fused_project_bwd[bf16]/wide": 1,
+                 "vn_layer_fused_fwd[bf16]/stream": 1, "vn_layer_fused_project_bwd[bf16]/wide": 1,
                  "vn_layer_fused_project_fwd[bf16]/wide": 1, "vn_layer_fused_bwd[bf16]/fused": 1,
                  **bf16_designs(STATS_STEP_DESIGNS["flagship"])},
     "vn_pointr_448": {"vn_layer_stats_bwd[bf16]/narrow": 1, "vn_layer_stats_bwd[bf16]/wide": 2,
                       "vn_layer_stats_bwd[group,bf16]/narrow": 2,
+                      "vn_layer_fused_fwd[bf16]/stream": 1,
+                      "vn_layer_fused_fwd[group,bf16]/stream": 2,
                       "vn_layer_fused_project_bwd[bf16]/wide": 2,
                       "vn_layer_fused_project_fwd[bf16]/wide": 2,
                       "vn_layer_fused_bwd[bf16]/fused": 1,
                       "vn_layer_fused_bwd[group,bf16]/fused": 2,
                       **bf16_designs(STATS_STEP_DESIGNS["vn_pointr_448"])},
 }
-# Every launch of C on a main path (phases 4-13) takes the wide design and
+# Every launch of B on a main path (phases 4-13) takes the store stream
+# (every main-path B has C_in <= 2), every launch of C the wide design and
 # every launch of B' the fused pass: checked on each counted run
 # (check_designs).
-MAIN_DESIGNS = {"vn_layer_fused_project_fwd": "wide", "vn_layer_fused_bwd": "fused"}
+MAIN_DESIGNS = {"vn_layer_fused_fwd": "stream", "vn_layer_fused_project_fwd": "wide",
+                "vn_layer_fused_bwd": "fused"}
 # Phase 13, the flagship's bf16 train step on one DecisionTape, each
 # gradient as its root-mean-square distance over the tensor's norm: the
 # kernels no further from the plain float32 path than BF16_F32_RATIO x the
@@ -329,7 +339,7 @@ SYMBOL = {"A": "vn_bn_leaky_fwd", "A'": "vn_bn_leaky_bwd",
           "S": "vn_layer_stats_fwd", "S'": "vn_layer_stats_bwd",
           "B": "vn_layer_fused_fwd", "B'": "vn_layer_fused_bwd",
           "C": "vn_layer_fused_project_fwd", "C'": "vn_layer_fused_project_bwd",
-          "D": "chamfer_nn_one_sided", "K1": "topk_min", "K2": "knn_min",
+          "D": "chamfer_nn_bidir", "K1": "topk_min", "K2": "knn_min",
           "K3": "edge_knn_gather", "F": "furthest_point_sample", "E": "emd_rounds"}
 FLAGSHIP_KERNELS = tuple(SYMBOL[k] for k in ("A", "A'", "S", "S'", "B", "B'", "C", "C'", "D"))
 
@@ -352,6 +362,27 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def stream_ms(fn, reps: int) -> float:
+    """Milliseconds a call of ``fn`` in a run of ``reps`` calls back to back
+    between two CUDA events: the host enqueues ahead of the card, so a
+    call's host time (the wrapper's checks, allocations, the launch) hides
+    wherever the card is the slower.  ``cuda_ms`` synchronises around each
+    call and so counts the host time before the first launch."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(nbytes: float, ops: float, peak_ops: float = PEAK_FP32):
     """Least time for the work on the card: (ms, what bounds it)."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -361,12 +392,13 @@ def bound(nbytes: float, ops: float, peak_ops: float = PEAK_FP32):
 
 @contextlib.contextmanager
 def narrow_designs():
-    """C, S, S', C' and B' held to their narrow designs (the parent
-    designs: C's and S's one-block FMA loop, the FMA passes over a dp/dd
-    scratch) inside the block."""
+    """B, C, S, S', C' and B' held to their narrow designs (the parent
+    designs: B's, C's and S's one-block FMA loop, the FMA passes over a
+    dp/dd scratch) inside the block."""
     from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
 
-    chooser = ("backward_design", "forward_design", "layer_bwd_design", "stats_design")
+    chooser = ("backward_design", "forward_design", "layer_bwd_design", "layer_fwd_design",
+               "stats_design")
     saved = [getattr(vn_layer_fused, name) for name in chooser]
     for name in chooser:
         setattr(vn_layer_fused, name, lambda *widths: "narrow")
@@ -379,14 +411,14 @@ def narrow_designs():
 
 def narrow_ms(fn, reps: int) -> float:
     """``cuda_ms`` of ``fn`` in the narrow designs (``narrow_designs``):
-    the same work the wide and fused designs replace, timed in the same
-    call."""
+    the same work the wide, fused and stream designs replace, timed in the
+    same call."""
     with narrow_designs():
         return cuda_ms(fn, reps)
 
 
 def check_designs(what: str, counts: dict, variants: dict) -> None:
-    """Each launch of C and B' in ``counts`` (any mode) took its
+    """Each launch of B, C and B' in ``counts`` (any mode) took its
     MAIN_DESIGNS design: ``variants`` (cuda_lib.variant_counts() of the
     same run) counts them all there."""
     def base(key):
@@ -395,9 +427,9 @@ def check_designs(what: str, counts: dict, variants: dict) -> None:
     want = {f"{k}/{MAIN_DESIGNS[base(k)]}": v for k, v in counts.items()
             if v and base(k) in MAIN_DESIGNS}
     got = {k: v for k, v in variants.items() if v and base(k) in MAIN_DESIGNS}
-    print(f"{what} C and B' launches by design: {json.dumps(got)}")
+    print(f"{what} B, C and B' launches by design: {json.dumps(got)}")
     if got != want:
-        raise AssertionError(f"{what}: C and B' designs {got}, expected {want}")
+        raise AssertionError(f"{what}: B, C and B' designs {got}, expected {want}")
 
 
 def stats_wide_vs_narrow(x, w, shape: str) -> None:
@@ -427,6 +459,25 @@ def check_stats_designs(what: str, variants: dict, per_step: dict, steps: int) -
     print(f"{what} S launches by design: {json.dumps(got)}")
     if got != want:
         raise AssertionError(f"{what}: S designs {got}, expected {want}")
+
+
+def layer_stream_vs_narrow(tag: str, x, w, wd, pbias, dbias, a, b, group: int = 0) -> None:
+    """Kernel B's stream design against its narrow design on the same
+    inputs: the same operations in the same order, so equal bits (fails
+    otherwise)."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
+
+    stream = vn_layer_fused.vn_layer_fused(x, w, wd, pbias, dbias, a, b, NS, group)
+    with narrow_designs():
+        narrow = vn_layer_fused.vn_layer_fused(x, w, wd, pbias, dbias, a, b, NS, group)
+    same = torch.equal(stream, narrow)
+    diff = (stream.float() - narrow.float()).abs().max().item()
+    print(f"[kernel B] {tag}: the stream design's output bitwise equal to the narrow "
+          f"design's: {same} (max |d| {diff:.3e})", flush=True)
+    if not same:
+        raise AssertionError(f"kernel B {tag}: the stream design differs from the narrow one")
 
 
 def nbytes(*tensors) -> int:
@@ -476,12 +527,14 @@ def check_kernels(dev):
             "library_ms": None if library_fn is None else cuda_ms(library_fn, reps),
         }
         lib = "none" if library_fn is None else f"{rec['library_ms']:.4f} ms"
+        b2b = stream_ms(kernel_fn, reps)
         print(f"[kernel {name}] max_abs_err {err:.3e} (tolerance {tol}) "
-              f"{'PASS' if ok else 'FAIL'}; kernel {rec['ms']:.4f} ms, plain "
-              f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"library: {lib}", flush=True)
-        if designs:  # C, S, S', C', B': the design taken, the rates (the narrow design's time)
-            narrow = ("" if designs not in (["wide"], ["fused"]) else
+              f"{'PASS' if ok else 'FAIL'}; kernel {rec['ms']:.4f} ms ({b2b:.4f} ms a call "
+              f"back to back), plain {rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+              f"{b_ms / rec['ms']:.1%} of it; {b_ms / b2b:.1%} back to back), library: {lib}",
+              flush=True)
+        if designs:  # B, C, S, S', C', B': the design taken, the rates (the narrow design's time)
+            narrow = ("" if designs not in (["wide"], ["fused"], ["stream"]) else
                       "; the narrow design at the same shape: "
                       f"{narrow_ms(kernel_fn, max(3, reps // 2)):.4f} ms")
             print(f"[kernel {name}] {'/'.join(designs)} design: "
@@ -565,12 +618,13 @@ def check_kernels(dev):
            rel_close(1e-5), "1e-5 x max", nbytes(x2, w2, pb2) + 2 * 4 * 256,
            2 * 3 * vecs * 2 + 12 * vecs, reps=10, repro=True)
     c1, c2 = randn(256, scale=1e-4), randn(256, scale=1e-5)
-    err_b, ok_b = rel_close(1e-4)(vn_layer_fused.stats_bwd(x2, w2, pb2, c1, c2),
-                                  vn_layer_fused.reference_stats_bwd(x2, w2, pb2, c1, c2))
-    print(f"[kernel S'] final_conv.0 shapes (Cin 2, bias): max_abs_err {err_b:.3e} "
-          "(tolerance 1e-4 x max)")
-    if not ok_b:
-        raise AssertionError("kernel S' disagrees at final_conv.0 shapes")
+    # S' at final_conv.0 (narrow passes): p, dx and dW, each a 2-deep product
+    record("S' vn_layer_stats backward 2 -> 256", src_b,
+           "vn_pointcloudcompletion_tpu/ops/vn_layer_fused.py:325",
+           lambda: vn_layer_fused.stats_bwd(x2, w2, pb2, c1, c2),
+           lambda: vn_layer_fused.reference_stats_bwd(x2, w2, pb2, c1, c2),
+           rel_close(1e-4), "1e-4 x max", 2 * nbytes(x2, w2, pb2) + nbytes(c1, c2),
+           3 * 2 * 3 * vecs * 2 + 18 * vecs, reps=10, plain_reps=3, repro=True)
     x = randn(BATCH, 3, 256, n)
     w = uniform(-1 / 16, 1 / 16, 256, 256)
     prod = 2 * 3 * vecs * 256  # one (256 x 256) map over all planes and points
@@ -614,7 +668,8 @@ def check_kernels(dev):
            lambda: vn_layer_fused.reference_layer_fused(x, w, wd, pb, db, a, b, NS),
            close(1e-5, 1e-5), "atol 1e-5 + rtol 1e-5",
            nbytes(x, w, wd, pb, db, a, b) + 4 * 3 * vecs,
-           2 * 3 * vecs * 2 * 2 + 38 * vecs)
+           2 * 3 * vecs * 2 * 2 + 38 * vecs, repro=True)
+    layer_stream_vs_narrow("2 -> 256, N 16384, per-sample bias, float32", x, w, wd, pb, db, a, b)
 
     # C: decoder final_conv.1 + final_conv.2, C_in = C_out = 256
     x = randn(BATCH, 3, 256, n)
@@ -669,6 +724,7 @@ def check_kernels(dev):
         same = all(torch.equal(got[k], want[k]) for k in range(4))
         return dmax, same
 
+    # each pair's distance (8 operations) and both minima, once
     record("D nn_bidirectional",
            "vn_pointcloudcompletion_tpu_torch/csrc/chamfer_bidir.cu",
            "vn_pointcloudcompletion_tpu/ops/chamfer_pallas_bidir.py:159",
@@ -676,21 +732,22 @@ def check_kernels(dev):
            lambda: chamfer.nn_bidirectional_reference(px, py),
            exact, "distances and indices exact",
            nbytes(px, py) + 2 * 4 * 2 * BATCH * n,
-           BATCH * n * n * (8 + 2), reps=10, plain_reps=3)
+           BATCH * n * n * (8 + 2), reps=10, plain_reps=3, repro=True)
     # D at the training loss's coarse pair (1024 predicted against the 16384
-    # complete points; half of D's launches in a train step), timed to rank it
-    pc = uniform(-0.3, 0.3, BATCH, 1024, 3)
-    err, ok = exact(chamfer.nn_bidirectional(pc, py),
-                    chamfer.nn_bidirectional_reference(pc, py))
-    c_ms = cuda_ms(lambda: chamfer.nn_bidirectional(pc, py), 20)
-    c_bound, c_by = bound(nbytes(pc, py) + 2 * 4 * (1024 + n) * BATCH,
-                          BATCH * 1024 * n * (8 + 2))
-    print(f"[kernel D] coarse pair (1024 x {n}, both directions): max_abs_err {err:.3e} "
-          f"{'PASS' if ok else 'FAIL'}; kernel {c_ms:.4f} ms, bound {c_bound:.4f} ms ({c_by})",
-          flush=True)
-    if not ok:
-        raise AssertionError("kernel D disagrees with its plain version at the coarse pair")
-    del px, py, pc
+    # complete points; half of D's launches in a train step) and at
+    # num_coarse 448's (448 against 14336)
+    for nc, nd in ((1024, n), (448, 14336)):
+        pc = uniform(-0.3, 0.3, BATCH, nc, 3)
+        pd = py if nd == n else uniform(-0.3, 0.3, BATCH, nd, 3)
+        record(f"D nn_bidirectional {nc} x {nd}",
+               "vn_pointcloudcompletion_tpu_torch/csrc/chamfer_bidir.cu",
+               "vn_pointcloudcompletion_tpu/ops/chamfer_pallas_bidir.py:159",
+               lambda: chamfer.nn_bidirectional(pc, pd),
+               lambda: chamfer.nn_bidirectional_reference(pc, pd),
+               exact, "distances and indices exact",
+               nbytes(pc, pd) + 2 * 4 * (nc + nd) * BATCH,
+               BATCH * nc * nd * (8 + 2), reps=20, plain_reps=3, repro=True)
+    del px, py, pc, pd
     records += check_knn_fps_kernels(dev, record, randn, uniform)
     check_emd_kernel(dev, record)
     check_bf16_kernels(dev, record, randn, uniform)
@@ -775,7 +832,8 @@ def check_bf16_kernels(dev, record, randn, uniform):
            lambda: vn_layer_fused.vn_layer_fused(x, w, wd, pb, db, a, b, NS),
            lambda: vn_layer_fused.reference_layer_fused(x, w, wd, pb, db, a, b, NS),
            equal, "equal to the bit", nbytes(x, w, wd, pb, db, a, b) + 2 * 3 * vecs,
-           2 * 3 * vecs * 2 * 2 + 38 * vecs, peak_ops=PEAK_BF16)
+           2 * 3 * vecs * 2 * 2 + 38 * vecs, repro=True, peak_ops=PEAK_BF16)
+    layer_stream_vs_narrow("2 -> 256, N 16384, per-sample bias, bf16", x, w, wd, pb, db, a, b)
 
     n, s = 14336, 64
     bw = 1 / 385 ** 0.5
@@ -789,7 +847,8 @@ def check_bf16_kernels(dev, record, randn, uniform):
            lambda: vn_layer_fused.vn_layer_fused(x, w, wd, pb, db, a, b, NS, group=s),
            lambda: vn_layer_fused.reference_layer_fused(x, w, wd, pb, db, a, b, NS, s),
            equal, "equal to the bit", nbytes(x, w, wd, pb, db, a, b) + 2 * 3 * vecs,
-           2 * 3 * vecs * 2 + 44 * vecs, peak_ops=PEAK_BF16)
+           2 * 3 * vecs * 2 + 44 * vecs, repro=True, peak_ops=PEAK_BF16)
+    layer_stream_vs_narrow("1 -> 256, N 14336, group 64, bf16", x, w, wd, pb, db, a, b, s)
 
     n = 16384
     x = randn(BATCH, 3, 256, n).to(bf)
@@ -941,6 +1000,13 @@ def check_bf16_train_kernels(dev, record, randn, uniform):
     w, wd = uniform(-0.02, 0.02, 256, 2), uniform(-0.02, 0.02, 256, 2)
     pb, db = randn(BATCH, 3, 256, 1).to(bf), randn(BATCH, 3, 256, 1).to(bf)
     g_ = randn(BATCH, 3, 256, n, scale=1e-4).to(bf)
+    record("S' vn_layer_stats backward 2 -> 256 bf16", src + "vn_layer_bwd.cu",
+           at + "vn_layer_fused.py:325",
+           lambda: vn_layer_fused.stats_bwd(x, w, pb, c1, c2),
+           lambda: vn_layer_fused.reference_stats_bwd(x, w, pb, c1, c2),
+           close, "dx, bias grads 1 bf16 ulp of max; dW 1e-4 x max",
+           2 * nbytes(x, w, pb) + nbytes(c1, c2), 3 * 2 * 3 * vecs * 2 + 18 * vecs, reps=10,
+           plain_reps=3, repro=True, peak_ops=PEAK_BF16)
     record("B' vn_layer_fused backward bf16", src + "vn_layer_bwd.cu",
            at + "vn_layer_fused.py:594",
            lambda: vn_layer_fused.layer_bwd(x, w, wd, pb, db, a, b, g_, NS),
@@ -1008,6 +1074,7 @@ def check_group_kernels(dev, record, randn, uniform, close, rel_close):
            lambda: vn_layer_fused.reference_layer_fused(x, w, wd, pb, db, a, b, NS, s),
            close(0.0, 0.0), "equal to the bit", io + 4 * 3 * vecs,
            2 * 3 * vecs * 2 + 44 * vecs, repro=True)
+    layer_stream_vs_narrow("1 -> 256, N 14336, group 64, float32", x, w, wd, pb, db, a, b, s)
     record("S vn_layer_stats group=64", src_b, at + "278",
            lambda: vn_layer_fused.stats_fwd(x, w, pb, s),
            lambda: vn_layer_fused.reference_stats(x, w, pb, s),
@@ -1327,7 +1394,7 @@ def check_launches(path: str, counts: dict, forwards: int, what: str) -> None:
     """The launches of ``forwards`` eval forwards of a DGCNN path, exactly,
     every other kernel but D (the metrics' chamfer) at 0."""
     want = {k: v * forwards for k, v in FORWARD_LAUNCHES[path].items()}
-    got = {k: v for k, v in counts.items() if v and k != "chamfer_nn_one_sided"}
+    got = {k: v for k, v in counts.items() if v and k != "chamfer_nn_bidir"}
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
 
@@ -1393,7 +1460,7 @@ def serve_path(dev, path: str = "flagship"):
             raise AssertionError(f"kernels not launched on the serving path: {missing}")
     else:  # predict: one batch of 8; test: two
         check_launches(path, counts, 3, f"{tag} predict + test")
-        if counts["chamfer_nn_one_sided"] == 0:
+        if counts["chamfer_nn_bidir"] == 0:
             raise AssertionError(f"{tag} the metrics' kernel D was not launched")
 
     n_coarse = config.num_coarse
@@ -1511,7 +1578,7 @@ def train_path(dev, path: str = "flagship", epochs: int = 0, **extra):
     if path == "flagship":
         expected = FLAGSHIP_KERNELS
     else:
-        expected = ["chamfer_nn_one_sided", *FORWARD_LAUNCHES[path]]
+        expected = ["chamfer_nn_bidir", *FORWARD_LAUNCHES[path]]
         if "vn_bn_leaky_fwd" in expected:  # and the backward kernels of the VN layers
             expected += [SYMBOL[k] for k in ("A'", "S", "S'", "B'", "C'")]
         if "vn_layer_fused_fwd[group]" in expected:  # the pair folds' train-mode kernels
@@ -2387,7 +2454,7 @@ def bf16_serve(dev, smi: str):
                 return model(xyz, rot)
 
         (coarse, fine), counts = counted(f"{path} one forward", fwd)
-        counts.pop("chamfer_nn_one_sided", None)
+        counts.pop("chamfer_nn_bidir", None)
         if counts != BF16_FORWARD_LAUNCHES[path]:
             raise AssertionError(f"{tag} launches {counts}, expected "
                                  f"{BF16_FORWARD_LAUNCHES[path]}")
@@ -2423,7 +2490,7 @@ def bf16_serve(dev, smi: str):
             return metric_step(flagship, partial, complete, rot)
 
     (out, pred), counts = counted("flagship metric step", step)
-    want = dict(BF16_FORWARD_LAUNCHES["flagship"], chamfer_nn_one_sided=2)
+    want = dict(BF16_FORWARD_LAUNCHES["flagship"], chamfer_nn_bidir=1)
     if counts != want or pred.dtype != torch.float32:
         raise AssertionError(f"[bf16 metric step] launches {counts}, expected {want}")
     row = {k: float(v.mean()) for k, v in out.items()}
@@ -2679,7 +2746,7 @@ def bf16_train(dev, smi: str):
     want = {k: epochs * (BF16_STEP_LAUNCHES["vn_pointr_448"].get(k, 0)
                          + BF16_FORWARD_LAUNCHES["vn_pointr_448"].get(k, 0))
             for k in BF16_STEP_LAUNCHES["vn_pointr_448"]}
-    got = {k: v for k, v in counts.items() if k != "chamfer_nn_one_sided"}
+    got = {k: v for k, v in counts.items() if k != "chamfer_nn_bidir"}
     print(f"{tag} root config.json: train {BF16_TRAIN_EPOCHS} epochs + resume 1 of one step + "
           f"one validation batch: {t1 - t0:.3f} s (host clock); launches {json.dumps(counts)}")
     if got != want or compute_dtype() != torch.float32:
@@ -2710,7 +2777,7 @@ def bf16_train(dev, smi: str):
         metrics = steps.train_step(state, partial, complete, torch.Generator().manual_seed(0))
         torch.cuda.synchronize()
     step_counts = {k: v for k, v in cuda_lib.launch_counts().items()
-                   if v and k != "chamfer_nn_one_sided"}
+                   if v and k != "chamfer_nn_bidir"}
     designs = cuda_lib.variant_counts()
     print(f"{tag} one vn_pointr_448 train step: launches {json.dumps(step_counts)}; "
           f"C, S, S', C' and B' by design {json.dumps(designs)}; skipped "

@@ -1,14 +1,16 @@
-"""Which design kernel C's forward and kernel B''s backward run, the host
-helpers of the new designs, and the plain C's order of summation, on the
-CPU.
+"""Which design kernel C's forward and kernel B's forward and backward
+run, the host helpers of the new designs, and the plain C's order of
+summation, on the CPU.
 
 ``ops/vn_layer_fused.py::forward_design`` gives kernel C the wide design
 (cp.async rings over a W^T scratch; FP32 FMAs in float32, the tensor cores
 in bf16; the channel blocks' projections summed by a second pass) at C_in,
-C_out >= 16 and the narrow one below; ``layer_bwd_design`` gives B' one
-fused pass at C_in <= 2 and the narrow passes above.  The CUDA kernels take
-what the wrapper picks, so the choice for every layer of the four pipelines
-is checked here, where no card is needed.  In the bf16 mode the plain C
+C_out >= 16 and the narrow one below; ``layer_fwd_design`` gives B a store
+stream (no product tile) at C_in <= 2 and the narrow tile above;
+``layer_bwd_design`` gives B' one fused pass at C_in <= 2 and the narrow
+passes above.  The CUDA kernels take what the wrapper picks, so the choice
+for every layer of the four pipelines is checked here, where no card is
+needed.  In the bf16 mode the plain C
 sums its projection in the order of the design the kernel takes, so the
 card can hold the kernel to it; both orders are held against JAX's Pallas
 kernel here.  The kernels themselves are held against their plain versions
@@ -35,16 +37,20 @@ _PIPELINES = {
     "dgcnn": ("dgcnn_fps", "foldingnet", 448),
     "vn_pointr": ("vn_pointr", "attention_vn_foldingnet", 448),
 }
-# (kernel, C_in, C_out, group) of every C and B' launch of one train step,
-# and its design: C at final_conv.1 + .2 (256 -> 256) and vn_folding{1,2}.1
-# + .2 (256 -> 128) wide; B' at final_conv.0 (2 -> 256), conv1 (2 -> 32)
-# and the pair folds (1 -> 256, group 64) fused; the scalar DGCNN none
+# (kernel, C_in, C_out, group) of every C, B and B' launch of one train
+# step, and its design: C at final_conv.1 + .2 (256 -> 256) and
+# vn_folding{1,2}.1 + .2 (256 -> 128) wide; B at final_conv.0 (2 -> 256),
+# conv1 (2 -> 32) and the pair folds (1 -> 256, group 64) the store stream,
+# B' there fused; the scalar DGCNN none
 _EXPECTED = {
-    "flagship": {("C", 256, 256, 0): "wide", ("B'", 2, 256, 0): "fused"},
-    "vn_dgcnn": {("C", 256, 256, 0): "wide", ("B'", 2, 256, 0): "fused",
+    "flagship": {("C", 256, 256, 0): "wide", ("B", 2, 256, 0): "stream",
+                 ("B'", 2, 256, 0): "fused"},
+    "vn_dgcnn": {("C", 256, 256, 0): "wide", ("B", 2, 256, 0): "stream",
+                 ("B", 2, 32, 0): "stream", ("B'", 2, 256, 0): "fused",
                  ("B'", 2, 32, 0): "fused"},
     "dgcnn": {},
-    "vn_pointr": {("C", 256, 128, 0): "wide", ("B'", 2, 32, 0): "fused",
+    "vn_pointr": {("C", 256, 128, 0): "wide", ("B", 2, 32, 0): "stream",
+                  ("B", 1, 256, 64): "stream", ("B'", 2, 32, 0): "fused",
                   ("B'", 1, 256, 64): "fused"},
 }
 
@@ -52,7 +58,7 @@ _EXPECTED = {
 @pytest.mark.parametrize("name", list(_PIPELINES))
 def test_design_of_every_c_and_b_bwd_layer(name, monkeypatch):
     """One train-mode forward and backward of a pipeline at num_coarse 256
-    or 448: each C and B' call's (C_in, C_out, group) and the design the
+    or 448: each C, B and B' call's (C_in, C_out, group) and the design the
     wrapper takes for it."""
     from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
 
@@ -67,6 +73,9 @@ def test_design_of_every_c_and_b_bwd_layer(name, monkeypatch):
 
     monkeypatch.setattr(port_layer, "vn_layer_fused_project",
                         record("C", port_layer.vn_layer_fused_project, port_layer.forward_design))
+    monkeypatch.setattr(port_layer, "vn_layer_fused",
+                        record("B", port_layer.vn_layer_fused, lambda c_in, _: port_layer
+                               .layer_fwd_design(c_in)))
     monkeypatch.setattr(port_layer, "layer_bwd",
                         record("B'", port_layer.layer_bwd, lambda c_in, _: port_layer
                                .layer_bwd_design(c_in)))
@@ -97,6 +106,16 @@ def test_layer_bwd_design_boundary(c_in, design):
     """B' fuses its passes at C_in <= 2 (csrc layer_bwd_fused instantiates
     1 and 2); the output width does not matter."""
     assert port_layer.layer_bwd_design(c_in) == design
+
+
+@pytest.mark.parametrize("c_in,design", [(1, "stream"), (2, "stream"), (3, "narrow"),
+                                         (16, "narrow"), (256, "narrow")])
+def test_layer_fwd_design_boundary(c_in, design):
+    """B streams its output at C_in <= 2 (csrc layer_fwd_stream instantiates
+    1 and 2), the widths where B' fuses its passes; the output width does
+    not matter."""
+    assert port_layer.layer_fwd_design(c_in) == design
+    assert (design == "stream") == (port_layer.layer_bwd_design(c_in) == "fused")
 
 
 @pytest.mark.parametrize("c_out,bf16,blocks", [

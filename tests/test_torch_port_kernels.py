@@ -183,6 +183,51 @@ def test_kernel_d_ties_go_to_lowest_index():
     assert i2.tolist() == [[0, 0, 0]] and d2.tolist() == [[1.0, 1.0, 1.0]]
 
 
+def _nn_keys(d, i):
+    """Kernel D's candidate keys (csrc/chamfer_bidir.cu make_key) in numpy:
+    the float bits of d >= +0 above the index, as unsigned 64-bit."""
+    return (d.astype(np.float32).view(np.uint32).astype(np.uint64) << np.uint64(32)) | \
+        i.astype(np.uint32).astype(np.uint64)
+
+
+def _nonnegative_floats(rng):
+    """+0, the subnormals' ends, the smallest normal, random magnitudes over
+    the whole exponent range, the largest finite and +inf, some repeated."""
+    tiny = np.finfo(np.float32).tiny
+    special = np.array([0.0, 1e-45, 2e-45, tiny * (1 - 2.0 ** -23), tiny, 1.0, 1.0,
+                        np.finfo(np.float32).max, np.inf], np.float32)
+    rand = (2.0 ** rng.uniform(-149, 127, 200)).astype(np.float32)
+    return np.concatenate([special, rand, rand[:20]])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kernel_d_key_orders_distance_then_index(seed):
+    """The 64-bit key that kernel D's blocks combine with an integer
+    atomicMin orders (d, index) lexicographically for every non-negative
+    float32 d (+0, subnormals, normals, +inf): its minimum is the nearest
+    point, ties to the lowest index."""
+    rng = np.random.default_rng(seed)
+    d = _nonnegative_floats(rng)
+    i = rng.integers(0, 2 ** 31 - 1, d.size).astype(np.int64)
+    i[:4] = [0, 1, 2 ** 31 - 1, 5]
+    keys = _nn_keys(d, i)
+    by_key = np.argsort(keys, kind="stable")
+    by_pair = np.lexsort((i, d))
+    np.testing.assert_array_equal(keys[by_key], keys[by_pair])
+    a, b = np.meshgrid(np.arange(d.size), np.arange(d.size), indexing="ij")
+    less = (d[a] < d[b]) | ((d[a] == d[b]) & (i[a] < i[b]))
+    np.testing.assert_array_equal(keys[a] < keys[b], less)
+
+
+def test_kernel_d_distance_is_never_negative_zero():
+    """The diff-form distance of coordinates with signed zeros is +0, so no
+    key holds the bits of -0 (which would order above every distance)."""
+    z = np.array([0.0, -0.0], np.float32)
+    pts = np.stack(np.meshgrid(z, z, z, indexing="ij"), -1).reshape(1, -1, 3)
+    d, _, _, _ = port_chamfer.nn_bidirectional(*_t(pts, pts))
+    assert (d.numpy().view(np.uint32) == 0).all()
+
+
 def test_launch_check_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_lib.check_cuda("x", "float32 planes", (torch.zeros(1, 3, 16, 512), torch.float32))
@@ -207,7 +252,7 @@ def test_kernel_entry_points_exist_in_their_sources():
         "vn_layer_stats_bwd_bf16": "vn_layer_bwd.cu",
         "vn_layer_fused_bwd_bf16": "vn_layer_bwd.cu",
         "vn_layer_fused_project_bwd_bf16": "vn_layer_bwd.cu",
-        "chamfer_nn_one_sided": "chamfer_bidir.cu",
+        "chamfer_nn_bidir": "chamfer_bidir.cu",
         "topk_min": "knn.cu",
         "knn_min": "knn.cu",
         "edge_knn_gather": "knn.cu",
@@ -408,20 +453,50 @@ def test_kernel_c_cuda_matches_plain(cuda, c_in, c_out, n, bias):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
 
 
+def _tie_clouds(rng, b, n, m, quantum=0.0):
+    """Clouds with exact ties both ways: duplicate points in each cloud and
+    points of x equal to points of y (zero distances); ``quantum`` rounds
+    every coordinate to a grid, so that many distances are equal."""
+    x = (rng.standard_normal((b, n, 3)) * 0.3).astype(np.float32)
+    y = (rng.standard_normal((b, m, 3)) * 0.3).astype(np.float32)
+    y[:, m // 2] = y[:, 0]
+    x[:, n // 2] = x[:, 0]
+    if n > 4 and m > 4:
+        x[:, 3] = y[:, 1]
+        x[:, n - 1] = y[:, 1]
+        y[:, m - 2] = x[:, 2]
+    if quantum:
+        x, y = (np.round(t / quantum) * quantum for t in (x, y))
+    return x.astype(np.float32), y.astype(np.float32)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,m", [(300, 700), (2048, 1500), (1, 5)])
-def test_kernel_d_cuda_matches_plain(cuda, n, m):
-    rng = np.random.default_rng(n)
-    x = (rng.standard_normal((2, n, 3)) * 0.3).astype(np.float32)
-    y = (rng.standard_normal((2, m, 3)) * 0.3).astype(np.float32)
-    y[:, m // 2] = y[:, 0]  # an exact duplicate: its tie goes to index 0
+@pytest.mark.parametrize("b,n,m,quantum", [
+    (2, 300, 700, 0.0), (2, 2048, 1500, 0.0), (2, 1, 5, 0.0),
+    (8, 16384, 16384, 0.0), (8, 1024, 16384, 0.0), (8, 16384, 1024, 0.0),
+    (8, 448, 14336, 0.0), (8, 14336, 14336, 0.0), (8, 2048, 2048, 0.0),
+    (2, 2047, 16385, 0.0), (1, 16384, 16384, 0.0), (1, 3000, 2500, 0.0),
+    (2, 4096, 4096, 1 / 16), (2, 700, 5000, 1 / 8),
+])
+def test_kernel_d_cuda_matches_plain(cuda, b, n, m, quantum):
+    """Kernel D's one sweep (both directions from each distance, the blocks'
+    minima combined by an integer atomicMin on (d, index) keys) against the
+    plain version at every shape the models pass, ragged sizes and one
+    sample, on clouds with exact ties both ways (and, on a grid, many equal
+    distances): distances and indices equal to the bit, one counted launch
+    a call, and a second launch gives the same bits."""
+    x, y = _tie_clouds(np.random.default_rng(n + m), b, n, m, quantum)
     xt, yt = _t(x, y, device=cuda)
+    before = cuda_lib.launch_counts()["chamfer_nn_bidir"]
     got = port_chamfer.nn_bidirectional(xt, yt)
+    again = port_chamfer.nn_bidirectional(xt, yt)
     torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["chamfer_nn_bidir"] == before + 2
     want = port_chamfer.nn_bidirectional_reference(xt, yt)
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g, w)
+        assert torch.equal(g, a)
 
 
 @pytest.mark.gpu
@@ -545,6 +620,45 @@ def test_wide_stats_against_narrow_design(cuda, c_in, c_out, n, bias, bf16, monk
         _assert_rel(wide, narrow, 1e-4)
     else:
         _assert_same_bits(wide, narrow)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in", [1, 2])
+@pytest.mark.parametrize("c_out", [16, 256])
+@pytest.mark.parametrize("layout,n", [("none", 999), ("sample", 999), ("sample", 4096),
+                                      ("group64", 1216), ("group2", 1000)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_stream_layer_against_narrow_design(cuda, c_in, c_out, layout, n, bf16, monkeypatch):
+    """Kernel B's stream design (C_in <= 2) against its narrow design on the
+    same inputs, forced through the chooser: the same operations in the same
+    order, so the same bits, in float32 and bf16, with no bias, a per-sample
+    bias or one bias column per 64 (or 2) points, at ragged N (999: the
+    scalar stores) and aligned N; each launch counted under its design."""
+    rng = np.random.default_rng(c_in + c_out + n)
+    x, w, wd, pb, db, a, b, _ = _layer_inputs(rng, 2, c_in, c_out, n, layout != "none")
+    group = {"group64": 64, "group2": 2}.get(layout, 0)
+    if group:
+        pb, db = (rng.standard_normal((2, 3, c_out, n // group)).astype(np.float32)
+                  for _ in range(2))
+    if bf16:
+        xt, pbt, dbt = _bf16_t(x, pb, db, device=cuda)
+    else:
+        xt, pbt, dbt = _t(x, pb, db, device=cuda)
+    wt, wdt, at, bt = _t(w, wd, a, b, device=cuda)
+    name = "vn_layer_fused_fwd" + ({(False, False): "", (False, True): "[group]",
+                                    (True, False): "[bf16]", (True, True): "[group,bf16]"}
+                                   [(bf16, bool(group))])
+    before = cuda_lib.variant_counts()
+    stream = port_layer.vn_layer_fused(xt, wt, wdt, pbt, dbt, at, bt, NS, group)
+    monkeypatch.setattr(port_layer, "layer_fwd_design", lambda c_in: "narrow")
+    narrow = port_layer.vn_layer_fused(xt, wt, wdt, pbt, dbt, at, bt, NS, group)
+    torch.cuda.synchronize()
+    after = cuda_lib.variant_counts()
+    for design in ("stream", "narrow"):
+        key = f"{name}/{design}"
+        assert after.get(key, 0) == before.get(key, 0) + 1
+    assert stream.dtype == narrow.dtype == xt.dtype
+    assert torch.equal(stream, narrow)
 
 
 @pytest.mark.gpu

@@ -115,6 +115,37 @@ __device__ __forceinline__ void vnk_bn_leaky_bwd(
   *norm_e_out = norm_e;
 }
 
+// The blocks of `kernel` (a __global__ function) that the card holds at
+// once, at `threads` threads and `smem` bytes of dynamic shared memory (the
+// kernel is allowed that much above 48 KB first): its occupancy times the
+// SMs, or 0 if the runtime refuses.  The runtime's queries cost host time
+// that a launch of a short kernel would wait for, so the answer is kept per
+// kernel, device and size; the first launch asks.
+inline int vnk_resident_blocks(const void* kernel, int threads, int smem) {
+  struct Entry {
+    const void* kernel;
+    int dev, threads, smem, slots;
+  };
+  static Entry cache[32];
+  static int used = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  for (int i = 0; i < used; ++i)
+    if (cache[i].kernel == kernel && cache[i].dev == dev && cache[i].threads == threads &&
+        cache[i].smem == smem)
+      return cache[i].slots;
+  int sms = 0, per_sm = 0;
+  if ((smem > 48 * 1024 &&
+       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+           cudaSuccess) ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=
+          cudaSuccess)
+    return 0;
+  if (used < 32) cache[used++] = {kernel, dev, threads, smem, sms * per_sm};
+  return sms * per_sm;
+}
+
 // Sums across blocks without atomics.  A kernel that reduces over points
 // writes one partial per block; vnk_reduce_rows then sums in[g, :, c] over
 // its rows into out[g, c] in a fixed order (each thread a strided run of

@@ -354,19 +354,6 @@ emd_cost_sum(const float* __restrict__ costrow, float* __restrict__ cost, int N)
   if (threadIdx.x == 0) cost[blockIdx.x] = red[0];
 }
 
-// The blocks the card holds at once for `kernel`: its occupancy times the
-// SMs.
-template <typename Kernel>
-int resident_blocks(Kernel kernel) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0) !=
-          cudaSuccess)
-    return 0;
-  return sms * per_sm;
-}
-
 // Spans of a pass's other cloud (len points) for `tiles` blocks a span: the
 // fewest that fill the most of their last wave of `slots` resident blocks
 // (a larger count must fill 2% more), at most kMaxSplits and no span under
@@ -424,10 +411,12 @@ VNK_EXPORT int emd_rounds(const void* x1v, const void* x2v, void* costv,
   // other cloud in spans
   const int row_tiles = (N + kR * kThreads - 1) / (kR * kThreads);
   const int col_tiles = (M + kR * kThreads - 1) / (kR * kThreads);
-  const int row_span = split_span(static_cast<int64_t>(row_tiles) * B, M,
-                                  resident_blocks(emd_rows<1>));
-  const int col_span = split_span(static_cast<int64_t>(col_tiles) * B, N,
-                                  resident_blocks(emd_cols));
+  const int row_span = split_span(
+      static_cast<int64_t>(row_tiles) * B, M,
+      vnk_resident_blocks(reinterpret_cast<const void*>(emd_rows<1>), kThreads, 0));
+  const int col_span = split_span(
+      static_cast<int64_t>(col_tiles) * B, N,
+      vnk_resident_blocks(reinterpret_cast<const void*>(emd_cols), kThreads, 0));
   const int row_splits = (M + row_span - 1) / row_span;
   const int col_splits = (N + col_span - 1) / col_span;
   const dim3 row_grid(row_tiles, row_splits, B), col_grid(col_tiles, col_splits, B);

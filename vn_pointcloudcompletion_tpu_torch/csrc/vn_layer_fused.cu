@@ -13,10 +13,24 @@
 //   B: out = o                                  (B, 3, Cout, N)
 //   C: out = sum_c w_out[c] o[c]                (B, 3, 1, N)
 //
-// Two designs of C; the wrapper picks one from (Cin, Cout)
-// (ops/vn_layer_fused.py::forward_design) and neither stands in for the
-// other:
-//   narrow (Cin or Cout < 16; and every B): layer_fwd below.  A block owns
+// Two designs of B and two of C; the wrapper picks one, B's from Cin
+// (ops/vn_layer_fused.py::layer_fwd_design), C's from (Cin, Cout)
+// (forward_design), and neither stands in for the other:
+//   stream (B at Cin <= 2: final_conv.0's 2 -> 256, conv1's 2 -> 32, the
+//      pair folds' 1 -> 256 at group 64): layer_fwd_stream below.  The layer
+//      writes (B, 3, Cout, N) and reads almost nothing, so the output write
+//      bounds it; there is no product tile and no barrier.  A grid of
+//      resident blocks walks work items (sample, 16-channel tile, 1024-point
+//      tile); a thread holds the Cin x-values of its 4 points (three
+//      planes) in registers, reads each channel's W, Wd, A, B and bias
+//      (vnk_bias's column, worked out once an item) through L1 (one
+//      address a warp), forms p and d with the narrow
+//      design's fmaf chain, the bias after it and (bf16) the rounding of p
+//      and d, runs the same epilogue and writes each plane's 4 points with
+//      one streaming store (__stcs: 16 bytes float32, 8 bytes bf16; a warp
+//      writes 512 or 256 contiguous bytes).  The same operations in the same
+//      order as the narrow design: its bits, in both modes and bias layouts.
+//   narrow (Cin or Cout < 16 for C; B at Cin > 2): layer_fwd below.  A block owns
 //      kPts points of one sample and walks the output channels in tiles of
 //      kCh; the products of a tile (vn_tile.cuh) leave each of the 256
 //      threads a 4-channel x 4-point micro-tile of all six accumulators (p
@@ -71,13 +85,16 @@
 // epilogue times w_out (as JAX's fused C does, :650-656) and stores the
 // sum in bf16.  The narrow loops are the float32 mode's over bf16 loads.
 //
-// Bound on the H100.  B (Cin = 2 on the main path): bytes, the
-// B*3*Cout*N*4-byte output write; the two-term products cost two FMAs per
-// accumulator.  C (Cin = Cout = 256): operations, 2 * 2*Cin*Cout*3*B*N FLOP,
+// Bound on the H100.  B (Cin <= 2 on the main paths): bytes, the
+// B*3*Cout*N*4-byte output write (2 bytes an element in bf16); its ~75 FP32
+// instructions a vector (two FMAs a plane of p and of d, the epilogue's
+// square root and two divisions) come close behind in bf16.  C (Cin = Cout = 256): operations, 2 * 2*Cin*Cout*3*B*N FLOP,
 // of FP32 FMAs on the CUDA cores in float32 (the float32 policy keeps them
 // off the tensor cores; 1.56 ms at batch 8, N 16384) and of the bf16 tensor
 // cores in the bf16 mode (0.104 ms at 989 TFLOP/s); the epilogue's ~40
 // FP32 operations a vector and the bf16 x read (0.06 ms) come next.
+#include <algorithm>
+
 #include "vn_mma.cuh"
 #include "vn_tile.cuh"
 
@@ -209,6 +226,161 @@ int launch(const void* x, const void* w, const void* wd, const void* pbias,
       static_cast<const T*>(dbias), static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<const float*>(w_out),
       static_cast<T*>(out), Cin, Cout, N, group, one_minus_ns);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------- the stream B
+
+constexpr int kStreamThreads = 256;
+constexpr int kStreamCh = 16;                        // channels a work item
+constexpr int kStreamPts = kStreamThreads * 4;       // points a work item
+
+// Four values of an x row from `src`, of which the first `len` exist
+// (zeros past them); `vec`: one aligned vector load.
+__device__ __forceinline__ void load4(const float* src, int len, bool vec, float (&v)[4]) {
+  if (vec) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(src));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = q < len ? src[q] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load4(const vnk_bf16* src, int len, bool vec, float (&v)[4]) {
+  if (vec) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(src));
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
+    v[0] = __low2float(lo); v[1] = __high2float(lo);
+    v[2] = __low2float(hi); v[3] = __high2float(hi);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = q < len ? vnk_load(src[q]) : 0.f;
+  }
+}
+
+// store4 with the streaming hint (evict first: the output is read by the
+// next layer, not by this kernel).
+__device__ __forceinline__ void store4_cs(float* dst, const float (&v)[4]) {
+  __stcs(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
+}
+
+__device__ __forceinline__ void store4_cs(vnk_bf16* dst, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  __stcs(reinterpret_cast<uint2*>(dst), make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                                   *reinterpret_cast<const unsigned*>(&hi)));
+}
+
+// ax: x's rows take aligned vector loads (N % 4 == 0, x aligned).  The
+// bias columns of a thread's points (vnk_bias's n / group) and its row
+// pointers are worked out once a work item, not once a channel.  Blocks an
+// SM: 4 at Cin 1 (64 registers, no spill), 3 at Cin 2 (the second channel's
+// x spills at 64; measured faster at 3 on the H100).
+template <int kCin, typename T>
+__global__ void __launch_bounds__(kStreamThreads, kCin == 1 ? 4 : 3)
+layer_fwd_stream(const T* __restrict__ x, const float* __restrict__ w,
+                 const float* __restrict__ wd, const T* __restrict__ pbias,
+                 const T* __restrict__ dbias, const float* __restrict__ a,
+                 const float* __restrict__ b, T* __restrict__ out, int B, int Cout, int N,
+                 int group, float one_minus_ns, bool ax) {
+  const int pt_tiles = (N + kStreamPts - 1) / kStreamPts;
+  const int ch_tiles = (Cout + kStreamCh - 1) / kStreamCh;
+  const int items = B * ch_tiles * pt_tiles;
+  const bool vec_out = N % 4 == 0;
+  const int cols = group ? N / group : 1;  // bias columns a channel
+  const size_t out_plane = static_cast<size_t>(Cout) * N;
+  const size_t bias_plane = static_cast<size_t>(Cout) * cols;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int pt = item % pt_tiles, rest = item / pt_tiles;
+    const int ct = rest % ch_tiles, bi = rest / ch_tiles;
+    const int n = (pt * kStreamThreads + threadIdx.x) * 4;
+    if (n >= N) continue;
+    const int len = N - n;  // points from n that exist
+    const bool full = len >= 4;
+    float xv[3][kCin][4];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int k = 0; k < kCin; ++k)
+        load4(x + ((static_cast<size_t>(bi) * 3 + j) * kCin + k) * N + n, len, ax && full,
+              xv[j][k]);
+    int bcol[4];  // one column for all 4 points unless group is 1 or 2
+#pragma unroll
+    for (int q = 0; q < 4; ++q) bcol[q] = group ? min(n + q, N - 1) / group : 0;
+    const int c0 = ct * kStreamCh, c1 = min(Cout, c0 + kStreamCh);
+    T* orow = out + (static_cast<size_t>(bi) * 3 * Cout + c0) * N + n;  // plane 0, channel c
+    size_t brow = (static_cast<size_t>(bi) * 3 * Cout + c0) * cols;  // channel c's bias columns
+    for (int c = c0; c < c1; ++c, orow += N, brow += cols) {
+      float wr[kCin], dr[kCin];
+#pragma unroll
+      for (int k = 0; k < kCin; ++k) {
+        wr[k] = vnk_round_as<T>(__ldg(w + c * kCin + k));
+        dr[k] = vnk_round_as<T>(__ldg(wd + c * kCin + k));
+      }
+      const float av = __ldg(a + c), bv = __ldg(b + c);
+      float pb[3] = {0.f, 0.f, 0.f}, db[3] = {0.f, 0.f, 0.f};
+      float o[3][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (pbias != nullptr && (q == 0 || bcol[q] != bcol[q - 1])) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            pb[j] = vnk_load(pbias[brow + j * bias_plane + bcol[q]]);
+            db[j] = vnk_load(dbias[brow + j * bias_plane + bcol[q]]);
+          }
+        }
+        float pv[3], dv[3], v[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {  // the narrow design's products, in its order
+          float ap = 0.f, ad = 0.f;
+#pragma unroll
+          for (int k = 0; k < kCin; ++k) {
+            ap = fmaf(wr[k], xv[j][k][q], ap);
+            ad = fmaf(dr[k], xv[j][k][q], ad);
+          }
+          pv[j] = vnk_round_as<T>(ap + pb[j]);
+          dv[j] = vnk_round_as<T>(ad + db[j]);
+        }
+        vnk_bn_leaky(pv[0], pv[1], pv[2], dv[0], dv[1], dv[2], av, bv, one_minus_ns, v);
+#pragma unroll
+        for (int j = 0; j < 3; ++j) o[j][q] = v[j];
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        T* row = orow + j * out_plane;
+        if (vec_out && full) {
+          store4_cs(row, o[j]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (q < len) row[q] = vnk_cast<T>(o[j][q]);
+        }
+      }
+    }
+  }
+}
+
+// Kernel B in the stream design (Cin 1 or 2): as many blocks as the card
+// holds at once, at most one a work item.
+template <typename T>
+int launch_stream(const void* x, const void* w, const void* wd, const void* pbias,
+                  const void* dbias, const void* a, const void* b, void* out, int B, int Cin,
+                  int Cout, int N, int group, float one_minus_ns, void* stream) {
+  if (Cin < 1 || Cin > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || N == 0 || Cout == 0) return 0;
+  auto kernel = Cin == 1 ? layer_fwd_stream<1, T> : layer_fwd_stream<2, T>;
+  const int slots = vnk_resident_blocks(reinterpret_cast<const void*>(kernel), kStreamThreads, 0);
+  if (slots == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t items = static_cast<int64_t>(B) * ((Cout + kStreamCh - 1) / kStreamCh) *
+                        ((N + kStreamPts - 1) / kStreamPts);
+  const int64_t grid = std::min<int64_t>(items, slots);
+  const bool ax = reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0 && N % 4 == 0;
+  kernel<<<static_cast<unsigned>(grid), kStreamThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const float*>(wd),
+      static_cast<const T*>(pbias), static_cast<const T*>(dbias), static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<T*>(out), B, Cout, N, group, one_minus_ns, ax);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -535,17 +707,32 @@ int project_fwd(const void* x, const void* w, const void* wd, const void* pbias,
 
 }  // namespace
 
+// Kernel B in the design the wrapper chose: the stream (Cin <= 2) or
+// layer_fwd<false, T>.
+template <typename T>
+int layer_fwd_design(const void* x, const void* w, const void* wd, const void* pbias,
+                     const void* dbias, const void* a, const void* b, void* out, int B, int Cin,
+                     int Cout, int N, int group, int streamed, float one_minus_ns, void* stream) {
+  if (streamed)
+    return launch_stream<T>(x, w, wd, pbias, dbias, a, b, out, B, Cin, Cout, N, group,
+                            one_minus_ns, stream);
+  return launch<false, T>(x, w, wd, pbias, dbias, a, b, nullptr, out, B, Cin, Cout, N, group,
+                          one_minus_ns, stream);
+}
+
 // pbias and dbias are (B, 3, Cout) per-sample biases (group = 0) or
 // (B, 3, Cout, N / group) per-group ones (N % group == 0), or both null.
 // x, the biases and out are float32 here and bfloat16 in the _bf16 entry
-// points; W, Wd, A, B and w_out are float32 in both.
+// points; W, Wd, A, B and w_out are float32 in both.  B takes `streamed`
+// (1: the stream design, Cin 1 or 2; 0: the narrow one; the wrapper's
+// layer_fwd_design).
 VNK_EXPORT int vn_layer_fused_fwd(const void* x, const void* w, const void* wd,
                                   const void* pbias, const void* dbias,
                                   const void* a, const void* b, void* out,
-                                  int B, int Cin, int Cout, int N, int group,
+                                  int B, int Cin, int Cout, int N, int group, int streamed,
                                   float one_minus_ns, void* stream) {
-  return launch<false, float>(x, w, wd, pbias, dbias, a, b, nullptr, out, B,
-                              Cin, Cout, N, group, one_minus_ns, stream);
+  return layer_fwd_design<float>(x, w, wd, pbias, dbias, a, b, out, B, Cin, Cout, N, group,
+                                 streamed, one_minus_ns, stream);
 }
 
 // C takes `wide` (1: the wide design, 0: the narrow one; the wrapper's
@@ -565,10 +752,10 @@ VNK_EXPORT int vn_layer_fused_fwd_bf16(const void* x, const void* w,
                                        const void* wd, const void* pbias,
                                        const void* dbias, const void* a,
                                        const void* b, void* out, int B,
-                                       int Cin, int Cout, int N, int group,
+                                       int Cin, int Cout, int N, int group, int streamed,
                                        float one_minus_ns, void* stream) {
-  return launch<false, vnk_bf16>(x, w, wd, pbias, dbias, a, b, nullptr, out, B,
-                                 Cin, Cout, N, group, one_minus_ns, stream);
+  return layer_fwd_design<vnk_bf16>(x, w, wd, pbias, dbias, a, b, out, B, Cin, Cout, N, group,
+                                    streamed, one_minus_ns, stream);
 }
 
 VNK_EXPORT int vn_layer_fused_project_fwd_bf16(

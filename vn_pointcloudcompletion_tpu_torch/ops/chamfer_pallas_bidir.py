@@ -6,11 +6,14 @@ and y (B, M, 3) it returns the squared distance and index of every point's
 nearest neighbour in the other cloud, in the diff form ``sum_k (x_k - y_k)^2``
 with ties to the lowest index.
 
-On a CUDA tensor :func:`nn_bidirectional` launches the one-sided kernel of
-``csrc/chamfer_bidir.cu`` once per direction (the design is explained
-there); on a CPU tensor it takes the plain version
-:func:`nn_bidirectional_reference`, which works through the rows in chunks so
-that a 16384 x 16384 pair of clouds never needs its whole distance matrix.
+On a CUDA tensor :func:`nn_bidirectional` launches the kernel of
+``csrc/chamfer_bidir.cu`` once for both directions: one sweep that forms
+each distance once and folds it into both minima, the blocks' candidates
+combined as 64-bit keys ``(float bits of d) << 32 | index`` by an integer
+atomicMin (the design is explained there).  On a CPU tensor it takes the
+plain version :func:`nn_bidirectional_reference`, which works through the
+rows in chunks so that a 16384 x 16384 pair of clouds never needs its whole
+distance matrix.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from vn_pointcloudcompletion_tpu_torch.ops.cuda_lib import (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _KERNEL = CudaKernel(
-    "chamfer_bidir.cu", "chamfer_nn_one_sided", [_P] * 4 + [_I] * 3 + [_P])
+    "chamfer_bidir.cu", "chamfer_nn_bidir", [_P] * 7 + [_I] * 3 + [_P])
 
 _CHUNK_ELEMS = 1 << 26  # distances held at once by the plain version (256 MB)
 
@@ -70,11 +73,9 @@ def nn_bidirectional(x: torch.Tensor, y: torch.Tensor):
     x, y = x.contiguous(), y.contiguous()
     check_cuda("nn_bidirectional", "float32 clouds", (x, torch.float32), (y, torch.float32))
     bsz, n, m = x.shape[0], x.shape[1], y.shape[1]
-    out = []
-    for src, dst, rows, cols in ((x, y, n, m), (y, x, m, n)):
-        d = torch.empty((bsz, rows), device=x.device, dtype=torch.float32)
-        i = torch.empty((bsz, rows), device=x.device, dtype=torch.int32)
-        _KERNEL(x, src.data_ptr(), dst.data_ptr(), d.data_ptr(), i.data_ptr(),
-                bsz, rows, cols)
-        out += [d, i]
+    out = [torch.empty((bsz, rows), device=x.device, dtype=dtype)
+           for rows in (n, m) for dtype in (torch.float32, torch.int32)]
+    keys = torch.empty((bsz, n + m), device=x.device, dtype=torch.int64)  # scratch
+    _KERNEL(x, x.data_ptr(), y.data_ptr(), *[t.data_ptr() for t in out], keys.data_ptr(),
+            bsz, n, m)
     return out[0], out[1], out[2], out[3]

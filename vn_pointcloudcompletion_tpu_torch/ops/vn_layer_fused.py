@@ -19,14 +19,15 @@ contraction that way, expanded in the kernel, never in device memory
 (JAX ``vn_layer_fused.py:74-116``).  Their gradients are ``dp`` summed over
 each column's points.  As in JAX, ``S`` divides N and 512.
 
-Kernels C, S, S', C' and B' run one of two designs, chosen from the
+Kernels B, C, S, S', C' and B' run one of two designs, chosen from the
 layer's widths and counted by name (``cuda_lib.variant_counts``): C by
 :func:`forward_design`, S by :func:`stats_design` and S', C' by
 :func:`backward_design`, the wide design at C_in, C_out >= 16
-(final_conv.1, vn_folding{1,2}.1), the narrow one below; B' by
-:func:`layer_bwd_design`, one fused pass at C_in <= 2
-(final_conv.0, the pair folds), the narrow passes above.  Both designs of a
-kernel compute the same function (``csrc/vn_layer_fused.cu``,
+(final_conv.1, vn_folding{1,2}.1), the narrow one below; B by
+:func:`layer_fwd_design`, a store stream at C_in <= 2 (final_conv.0, conv1,
+the pair folds), the narrow tile above; B' by :func:`layer_bwd_design`, one
+fused pass at C_in <= 2, the narrow passes above.  Both designs of a kernel
+compute the same function (``csrc/vn_layer_fused.cu``,
 ``csrc/vn_layer_bwd.cu``).
 
 Each is a ``torch.autograd.Function`` that saves only its inputs; the
@@ -71,7 +72,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LAYER = CudaKernel(
     "vn_layer_fused.cu", "vn_layer_fused_fwd",
-    [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
+    [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P],
 )
 _PROJECT = CudaKernel(
     "vn_layer_fused.cu", "vn_layer_fused_project_fwd",
@@ -366,7 +367,7 @@ def _split_k(x, c_in, c_out, n_points):
 
 
 WIDE_MIN_CHANNELS = 16  # one m16n8k16 product's depth
-FUSED_MAX_CIN = 2  # the widest input of B''s fused pass (csrc layer_bwd_fused)
+FUSED_MAX_CIN = 2  # the widest input of B''s fused pass and B's stream (csrc)
 WIDE_F32_BLOCK = 32  # channels a block of the float32 wide C (csrc ProjFma::kBC)
 WIDE_BF16_BLOCK = 64  # ... of the bf16 one (csrc ProjMma::kBC)
 
@@ -401,6 +402,19 @@ def projection_blocks(c_out: int, bf16: bool) -> int:
     """Channel blocks of the wide C, each writing one projection partial
     per (sample, plane, point)."""
     return -(-c_out // (WIDE_BF16_BLOCK if bf16 else WIDE_F32_BLOCK))
+
+
+def layer_fwd_design(c_in: int) -> str:
+    """Which design kernel B runs: ``"stream"`` (no product tile: each
+    thread forms p and d of its points from the one or two input channels,
+    runs the epilogue and streams the output out in 16- or 8-byte stores;
+    the narrow design's operations in its order, so its bits) at c_in <= 2,
+    where the output write bounds the layer (final_conv.0's 2 -> 256,
+    conv1's 2 -> 32, the pair folds' 1 -> 256); ``"narrow"`` (vn_tile.cuh's
+    product tile, 64 channels x 64 points a block) above.  Either is a
+    hand-written kernel; a CUDA launch takes the one chosen here or
+    raises."""
+    return "stream" if c_in <= FUSED_MAX_CIN else "narrow"
 
 
 def layer_bwd_design(c_in: int) -> str:
@@ -491,15 +505,17 @@ def _counted(kernel: CudaKernel, group: int, bf16: bool) -> CudaKernel:
 
 def _launch(kernel: CudaKernel, x, w, wd, pbias, dbias, a, b, w_out,
             negative_slope: float, group: int):
-    """Kernel B or C, in the mode of x's dtype (float32 or bf16); C in the
-    design of :func:`forward_design`."""
+    """Kernel B or C, in the mode of x's dtype (float32 or bf16); B in the
+    design of :func:`layer_fwd_design`, C in that of :func:`forward_design`."""
     (x, w, wd, pbias, dbias, a, b, w_out, _), (bsz, c_in, c_out, n) = _prepare(
         kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out, group=group)
     out = _empty(x, bsz, 3, c_out if w_out is None else 1, n, dtype=x.dtype)
     ptrs = [_ptr(t) for t in (x, w, wd, pbias, dbias, a, b)]
     launch = _counted(kernel, group, _bf16(x))
     if w_out is None:
-        launch(x, *ptrs, out.data_ptr(), bsz, c_in, c_out, n, group, 1 - negative_slope)
+        design = layer_fwd_design(c_in)
+        launch(x, *ptrs, out.data_ptr(), bsz, c_in, c_out, n, group, int(design == "stream"),
+               1 - negative_slope, variant=design)
         return out
     design = forward_design(c_in, c_out)
     wt = part = None
