@@ -30,11 +30,16 @@ on one NVIDIA GPU:
    coarse pair (1024 x 16384) and at 448 x 14336, twice for equal bits;
    S is timed at final_conv.0's 2 -> 256 (narrow) and at 256 -> 128 (wide,
    both types), and its wide design's bits are compared with the narrow
-   one's; S' at final_conv.0's 2 -> 256 (narrow, both types).  Phases 4-13
-   check that every counted B took the stream design, every C the wide one
-   and every B' the fused pass (check_designs), and phases 5, 7, 9 and 13
-   that kernel S took its design at every layer of every step
-   (check_stats_designs).
+   one's; S' at final_conv.0's 2 -> 256 (narrow, both types); F at the
+   paths' 2048 -> 512, 512 -> 128 and 2048 -> 224 with its dependency floor
+   (the same launch without the per-point arithmetic), K3 in both modes at
+   the five path shapes (EDGE_SHAPES: "coords" over coordinates, "tiled"
+   over vn_pointr's features) beside the parent "warp" design, both by
+   device time too (graph_ms; K3 split into its selection and its gather).
+   Phases 4-13 check that every counted B took the stream design, every C
+   the wide one, every B' the fused pass, every F its one design and every
+   K3 its path's (check_designs), and phases 5, 7, 9 and 13 that kernel S
+   took its design at every layer of every step (check_stats_designs).
 4. Serving the flagship at full width (encoder latent 1024 -> 2048-channel
    global feature, 2048 input points, 1024 coarse, 16384 dense points,
    random weights from a seed) through the port's command line: ``predict``
@@ -63,7 +68,7 @@ on one NVIDIA GPU:
 8. Phases 4 and 5 for ``dgcnn_fps`` + ``foldingnet`` at ``num_coarse``
    448 (224 predicted + 224 FPS points, 14336 dense; K2 4 and F 3 per
    forward); 8b: one train step through the kernels against the plain
-   path, equal.
+   path, equal, and both paths' step and eval forward times.
 9. Phases 4 and 5 for ``vn_pointr`` + ``attention_vn_foldingnet`` at
    ``num_coarse`` 448, the root ``config.json``'s pipeline in the float32
    policy (K2 2, K3 3, F 3, A 3, B 1 and B with group=S 2, C 2 per
@@ -259,7 +264,8 @@ BF16_TRAIN_EPOCHS = 2  # phase 13's train epochs before --resume
 # vn_folding{1,2}.1's 256 -> 128), S and S' narrow below (final_conv.0's 2
 # -> 256, conv1's 2 -> 32, the pair folds' 1 -> 256 at group 64); B the
 # store stream and B' fused at C_in <= 2 (final_conv.0, conv1, the pair
-# folds).  Phase 5b (float32) and phase 13 (bf16) assert them.
+# folds); vn_pointr's F and K3 (on its features: tiled) too.  Phase 5b
+# (float32) and phase 13 (bf16) assert them.
 # Kernel S (ops/vn_layer_fused.py::stats_design) takes the same widths'
 # designs as S' in every train step: STATS_STEP_DESIGNS, asserted for each
 # counted training run of phases 5, 7, 9 and 13 (check_stats_designs) and
@@ -295,6 +301,8 @@ BF16_STEP_DESIGNS = {
                       "vn_layer_fused_project_fwd[bf16]/wide": 2,
                       "vn_layer_fused_bwd[bf16]/fused": 1,
                       "vn_layer_fused_bwd[group,bf16]/fused": 2,
+                      "edge_knn_gather[bf16]/tiled": 3,
+                      "furthest_point_sample/single_barrier": 3,
                       **bf16_designs(STATS_STEP_DESIGNS["vn_pointr_448"])},
 }
 # Every launch of B on a main path (phases 4-13) takes the store stream
@@ -302,7 +310,13 @@ BF16_STEP_DESIGNS = {
 # every launch of B' the fused pass: checked on each counted run
 # (check_designs).
 MAIN_DESIGNS = {"vn_layer_fused_fwd": "stream", "vn_layer_fused_project_fwd": "wide",
-                "vn_layer_fused_bwd": "fused"}
+                "vn_layer_fused_bwd": "fused", "furthest_point_sample": "single_barrier"}
+# Every K3 launch of a path takes the design of the path's shapes
+# (ops/knn_pallas.py::edge_design): "coords" over the VN DGCNN's coordinates
+# (D 3, N 512), "tiled" over vn_pointr's features (D 96 and 192 at N 512, D
+# 192 at N 128); every F launch its one design (MAIN_DESIGNS): checked with
+# the others on each counted run of phases 6-13.
+EDGE_PATH_DESIGNS = {"vn_dgcnn": "coords", "vn_pointr_448": "tiled"}
 # Phase 13, the flagship's bf16 train step on one DecisionTape, each
 # gradient as its root-mean-square distance over the tensor's norm: the
 # kernels no further from the plain float32 path than BF16_F32_RATIO x the
@@ -383,6 +397,38 @@ def stream_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 10) -> float:
+    """Device milliseconds a call of ``fn``: ``reps`` calls captured in one
+    CUDA graph, the median replay of five over ``reps``.  No host time (the
+    wrapper's checks, allocations and launches) is left in it, as
+    ``cuda_ms`` and ``stream_ms`` leave it for a call shorter than the
+    host's part."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm the allocator off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
 def bound(nbytes: float, ops: float, peak_ops: float = PEAK_FP32):
     """Least time for the work on the card: (ms, what bounds it)."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -409,6 +455,20 @@ def narrow_designs():
             setattr(vn_layer_fused, name, fn_)
 
 
+@contextlib.contextmanager
+def warp_design():
+    """K3 held to its "warp" design (the parent design: one warp a query,
+    then the block's gather) inside the block."""
+    from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas
+
+    saved = knn_pallas.edge_design
+    knn_pallas.edge_design = lambda *shape: "warp"
+    try:
+        yield
+    finally:
+        knn_pallas.edge_design = saved
+
+
 def narrow_ms(fn, reps: int) -> float:
     """``cuda_ms`` of ``fn`` in the narrow designs (``narrow_designs``):
     the same work the wide, fused and stream designs replace, timed in the
@@ -417,19 +477,23 @@ def narrow_ms(fn, reps: int) -> float:
         return cuda_ms(fn, reps)
 
 
-def check_designs(what: str, counts: dict, variants: dict) -> None:
-    """Each launch of B, C and B' in ``counts`` (any mode) took its
-    MAIN_DESIGNS design: ``variants`` (cuda_lib.variant_counts() of the
+def check_designs(what: str, counts: dict, variants: dict, path: str = "") -> None:
+    """Each launch of B, C, B' and F in ``counts`` (any mode) took its
+    MAIN_DESIGNS design, and each of K3 the design of ``path``'s shapes
+    (EDGE_PATH_DESIGNS): ``variants`` (cuda_lib.variant_counts() of the
     same run) counts them all there."""
     def base(key):
         return key.split("/")[0].split("[")[0]
 
-    want = {f"{k}/{MAIN_DESIGNS[base(k)]}": v for k, v in counts.items()
-            if v and base(k) in MAIN_DESIGNS}
-    got = {k: v for k, v in variants.items() if v and base(k) in MAIN_DESIGNS}
-    print(f"{what} B, C and B' launches by design: {json.dumps(got)}")
+    designs = dict(MAIN_DESIGNS)
+    if path in EDGE_PATH_DESIGNS:
+        designs["edge_knn_gather"] = EDGE_PATH_DESIGNS[path]
+    want = {f"{k}/{designs[base(k)]}": v for k, v in counts.items()
+            if v and "/" not in k and base(k) in designs}
+    got = {k: v for k, v in variants.items() if v and base(k) in designs}
+    print(f"{what} B, C, B', F and K3 launches by design: {json.dumps(got)}")
     if got != want:
-        raise AssertionError(f"{what}: B, C and B' designs {got}, expected {want}")
+        raise AssertionError(f"{what}: B, C, B', F and K3 designs {got}, expected {want}")
 
 
 def stats_wide_vs_narrow(x, w, shape: str) -> None:
@@ -533,16 +597,23 @@ def check_kernels(dev):
               f"back to back), plain {rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
               f"{b_ms / rec['ms']:.1%} of it; {b_ms / b2b:.1%} back to back), library: {lib}",
               flush=True)
-        if designs:  # B, C, S, S', C', B': the design taken, the rates (the narrow design's time)
-            narrow = ("" if designs not in (["wide"], ["fused"], ["stream"]) else
-                      "; the narrow design at the same shape: "
-                      f"{narrow_ms(kernel_fn, max(3, reps // 2)):.4f} ms")
+        if designs:  # B, C, S, S', C', B', F, K3: the design taken, the rates (the parent's time)
+            narrow = ""
+            if designs in (["wide"], ["fused"], ["stream"]):
+                narrow = ("; the narrow design at the same shape: "
+                          f"{narrow_ms(kernel_fn, max(3, reps // 2)):.4f} ms")
+            elif designs in (["coords"], ["tiled"]):
+                with warp_design():
+                    narrow = ("; the warp (parent) design at the same shape: "
+                              f"{cuda_ms(kernel_fn, max(3, reps // 2)):.4f} ms, "
+                              f"{stream_ms(kernel_fn, max(3, reps // 2)):.4f} back to back")
             print(f"[kernel {name}] {'/'.join(designs)} design: "
                   f"{work_ops / rec['ms'] / 1e9:.2f} TFLOP/s, {work_bytes / rec['ms'] / 1e6:.1f} "
                   f"GB/s, {b_ms / rec['ms']:.1%} of the bound{narrow}", flush=True)
         if not ok:
             raise AssertionError(f"kernel {name} disagrees with its plain version")
         records.append(rec)
+        return rec
 
     def close(atol, rtol):
         def cmp(got, want):
@@ -776,8 +847,8 @@ def check_bf16_kernels(dev, record, randn, uniform):
     the main paths' shapes, each against its plain bf16 version: A at the
     flagship's second_conv.0 (C 1024, N 2048), B at its final_conv.0 (C_in
     2, C_out 256, N 16384, per-sample bias) and at the attention decoder's
-    pair folds (C_in 1 -> 256, N 14336, group 64), K3 at conv5 (N 512, C3
-    768, k 16): equal to the bit; C (the wide design, on the tensor cores)
+    pair folds (C_in 1 -> 256, N 14336, group 64), K3 at every path shape
+    (EDGE_SHAPES, k 16): equal to the bit; C (the wide design, on the tensor cores)
     at final_conv.1 + .2 (256 -> 256 -> 1, N 16384) and in group mode at 256
     -> 128 -> 1 (N 14336, group 64): within BF16_C_RMS in root mean square,
     the mutant (x BF16_MUTANT) at least 4x beyond, the differing count
@@ -882,15 +953,11 @@ def check_bf16_kernels(dev, record, randn, uniform):
            2 * 3 * vecs * 2 * 256 + (32 + 12) * vecs, reps=10, repro=True, peak_ops=PEAK_BF16)
     del x
 
-    k, c3 = 16, 768
-    xf = uniform(-0.5, 0.5, BATCH, 3, 512).to(bf)  # conv5's bf16 coordinates
-    u, v = randn(BATCH, c3, 512).to(bf), randn(BATCH, c3, 512).to(bf)
-    record("K3 edge_knn_gather bf16", src + "knn.cu", at + "knn_pallas.py:350",
-           lambda: knn_pallas.edge_knn_gather_fwd(xf, u, v, k),
-           lambda: knn_pallas.reference_edge_knn_gather(xf, u, v, k),
-           equal, "indices and values equal",
-           nbytes(xf, u, v) + 2 * BATCH * c3 * k * 512 + 4 * BATCH * 512 * k,
-           BATCH * 512 * 512 * 10 + BATCH * c3 * k * 512, repro=True, peak_ops=PEAK_BF16)
+    # K3 at every path shape (EDGE_SHAPES) on bf16 coordinates or features
+    for n, dim, c3 in EDGE_SHAPES:
+        xf = (uniform(-0.5, 0.5, BATCH, dim, n) if dim == 3 else randn(BATCH, dim, n)).to(bf)
+        u, v = randn(BATCH, c3, n).to(bf), randn(BATCH, c3, n).to(bf)
+        edge_record(record, "K3 edge_knn_gather", src + "knn.cu", xf, u, v, 16)
     check_bf16_train_kernels(dev, record, randn, uniform)
 
 
@@ -1135,6 +1202,65 @@ def same_indices(rel):
     return cmp
 
 
+# K3's shapes on the paths (N, D, C3), k 16: the VN DGCNN's conv5 and conv4
+# over the coordinates, vn_pointr's conv4, conv5 and conv6 over its features
+EDGE_SHAPES = ((512, 3, 768), (512, 3, 384), (512, 96, 384), (512, 192, 384), (128, 192, 768))
+# F's (N, S) on the paths: the trunks' 2048 -> 512 -> 128, num_coarse 448's tail
+FPS_SHAPES = ((2048, 512), (512, 128), (2048, 224))
+
+
+def lane_tie_cloud(dev, b: int, m: int):
+    """(b, m, 3) points whose distances from the origin (the last point) tie
+    as duplicate points do inside one lane's list: P_j (radius 1 + j/100) at
+    columns j and j + 32, Q_j (radius 0.5) at j + 64 for j < 8, the rest at
+    radius 3 (``tests/test_torch_port_kernels.py::_lane_tie_cloud``)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(b * m)
+    dirs = rng.standard_normal((b, m, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    radius = np.full(m, 3.0)
+    radius[:32] = 1.0 + np.arange(32) / 100
+    radius[64:72] = 0.5
+    pts = dirs * radius[None, :, None]
+    pts[:, 32:64] = pts[:, :32]
+    pts[:, m - 1] = 0.0
+    return torch.from_numpy(pts.astype(np.float32)).to(dev)
+
+
+def edge_record(record, name, source, x, u, v, k):
+    """One phase-3 row of K3 at x's shape (its name gains the shape, but
+    the VN DGCNN conv5's): indices and values equal to the plain version's,
+    twice; then its device time split into the selection (the same call at
+    C3 0) and the gather, and the gather's rate.  Its operations bound is
+    at the FP32 rate in both modes: bf16 values are widened exactly and the
+    distances formed in float32."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas
+
+    b, dim, n = x.shape
+    c3 = u.shape[1]
+    bf16 = u.dtype == torch.bfloat16
+    if (n, dim, c3) != EDGE_SHAPES[0]:
+        name += f" N {n} D {dim} C3 {c3}"
+    name += " bf16" if bf16 else ""
+    out_bytes = u.element_size() * b * c3 * k * n
+    fn = lambda: knn_pallas.edge_knn_gather_fwd(x, u, v, k)  # noqa: E731
+    rec = record(name, source, "vn_pointcloudcompletion_tpu/ops/knn_pallas.py:350", fn,
+                 lambda: knn_pallas.reference_edge_knn_gather(x, u, v, k),
+                 same_indices(0.0), "indices and values exact",
+                 nbytes(x, u, v) + out_bytes + 4 * b * n * k,
+                 b * n * n * (2 * dim + 4) + b * c3 * k * n, repro=True)
+    u0 = u[:, :0]
+    device, select = graph_ms(fn), graph_ms(lambda: knn_pallas.edge_knn_gather_fwd(x, u0, u0, k))
+    print(f"[kernel {name}] device {device:.4f} ms: selection {select:.4f} ms, gather "
+          f"{device - select:.4f} ms ({out_bytes / (device - select) / 1e6:.0f} GB/s of output)",
+          flush=True)
+    return rec
+
+
 def check_knn_fps_kernels(dev, record, randn, uniform):
     """Phase 3, DGCNN family: K1, K2, K3 and F against their plain versions
     at the shapes of the VN DGCNN and DGCNN paths (batch 8, k 16), the
@@ -1201,25 +1327,31 @@ def check_knn_fps_kernels(dev, record, randn, uniform):
     if not ok:
         raise AssertionError("kernel K2 disagrees at k 8 on the grouper's centres")
 
-    # K3: conv4 (C3 384) checked, conv5 (C3 768) timed, at N 512 over coordinates
+    # K3 at every shape of the paths: the VN DGCNN's conv5 (C3 768) and
+    # conv4 (C3 384) over the coordinates (D 3, N 512: "coords"), vn_pointr's
+    # conv4 (D 96), conv5 (D 192, N 512, C3 384) and conv6 (D 192, N 128, C3
+    # 768) over its features ("tiled"); each against its plain version, twice
+    # for equal bits, beside the warp (parent) design at the same shape, and
+    # split into its selection (C3 0) and its gather by device time (CUDA
+    # graph replay, no host time)
+    for n, dim, c3 in EDGE_SHAPES:
+        x = cloud(n).transpose(1, 2).contiguous() if dim == 3 else randn(BATCH, dim, n)
+        u, v = randn(BATCH, c3, n), randn(BATCH, c3, n)
+        edge_record(record, "K3 edge_knn_gather", src_knn, x, u, v, k)
+    # the lane-tie cloud's coordinates (ties to the lowest index inside one
+    # lane's list, and across the lanes of a query)
+    xt = lane_tie_cloud(dev, BATCH, 512).transpose(1, 2).contiguous()
+    ut, vt = randn(BATCH, 384, 512), randn(BATCH, 384, 512)
+    got, again = (knn_pallas.edge_knn_gather_fwd(xt, ut, vt, k) for _ in range(2))
+    err, ok = same_indices(0.0)(got, knn_pallas.reference_edge_knn_gather(xt, ut, vt, k))
+    ok = ok and all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"[kernel K3] lane-tie cloud, N 512, C3 384 ({knn_pallas.edge_design(512, 3, k, False)}): "
+          f"indices and values exact, equal bits again {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("kernel K3 disagrees on the lane-tie cloud")
+    del got, again, xt, ut, vt
     x = cloud(512).transpose(1, 2).contiguous()
-    for c3 in (384, 768):
-        u, v = randn(BATCH, c3, 512), randn(BATCH, c3, 512)
-        fn = lambda: knn_pallas.edge_knn_gather_fwd(x, u, v, k)  # noqa: E731
-        plain = lambda: knn_pallas.reference_edge_knn_gather(x, u, v, k)  # noqa: E731
-        if c3 == 384:
-            err, ok = same_indices(0.0)(fn(), plain())
-            print(f"[kernel K3] C3 384: max_abs_err {err:.3e} (indices and values exact) "
-                  f"{'PASS' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError("kernel K3 disagrees at C3 384")
-            continue
-        out_bytes = 4 * BATCH * c3 * k * 512
-        record("K3 edge_knn_gather", src_knn,
-               "vn_pointcloudcompletion_tpu/ops/knn_pallas.py:350", fn, plain,
-               same_indices(0.0), "indices and values exact",
-               nbytes(x, u, v) + out_bytes + 4 * BATCH * 512 * k,
-               pair_ops(512, 512, 3) + BATCH * c3 * k * 512, repro=True)
+    u, v = randn(BATCH, 768, 512), randn(BATCH, 768, 512)
 
     # the backward of K3 (du scatter, dv sum) and K2 (dq, dr) through their
     # autograd.Functions against autograd of the plain chain
@@ -1248,22 +1380,42 @@ def check_knn_fps_kernels(dev, record, randn, uniform):
         if max(errs) > tol:
             raise AssertionError(f"{name} disagrees with the plain chain")
 
-    # F: 2048 -> 512 (timed) and 512 -> 128; duplicate points in the first
-    xyz = cloud(2048)
-    xyz[:, 1000:1064] = xyz[:, :64]
-    small = cloud(512)
+    # F at the paths' three shapes: 2048 -> 512 and 512 -> 128 (the trunks'
+    # fps_downsample, which hands F the transposed view of (B, 3, N)
+    # coordinates) and 2048 -> 224 (num_coarse 448's tail, a (B, N, 3)
+    # cloud), duplicate points in each; its dependency floor, the same launch
+    # with the per-point arithmetic taken out (fps_pallas.
+    # furthest_point_sample_chain), beside the operations bound; then a cloud
+    # of one repeated point, whose picks wrap to index 0
     idx_eq = lambda got, want: (0.0, torch.equal(got, want))  # noqa: E731
-    err, ok = idx_eq(fps_pallas.furthest_point_sample_kernel(small, 128),
-                     fps_pallas.reference_furthest_point_sample(small, 128))
-    print(f"[kernel F] 512 -> 128: indices equal {'PASS' if ok else 'FAIL'}")
+    for n, s in FPS_SHAPES:
+        xyz = cloud(n)
+        xyz[:, n // 2:n // 2 + 64] = xyz[:, :64]
+        if s != 224:
+            xyz = xyz.transpose(1, 2).contiguous().transpose(1, 2)
+        name = "F furthest_point_sample" + ("" if (n, s) == FPS_SHAPES[0] else f" {n} -> {s}")
+        fn = lambda: fps_pallas.furthest_point_sample_kernel(xyz, s)  # noqa: E731
+        rec = record(name, "vn_pointcloudcompletion_tpu_torch/csrc/fps.cu",
+                     "vn_pointcloudcompletion_tpu/ops/fps_pallas.py:85", fn,
+                     lambda: fps_pallas.reference_furthest_point_sample(xyz, s),
+                     idx_eq, "indices equal", nbytes(xyz) + 4 * BATCH * s,
+                     BATCH * (s - 1) * n * 10, reps=10, plain_reps=2, repro=True)
+        chain = lambda: fps_pallas.furthest_point_sample_chain(xyz, s)  # noqa: E731
+        rec["dependency_floor_ms"] = floor = graph_ms(chain)
+        device = graph_ms(fn)
+        print(f"[kernel F] {n} -> {s}: device {device:.4f} ms; dependency floor {floor:.4f} ms "
+              f"= {s - 1} steps x {floor / (s - 1) * 1e3:.3f} us (the step's chain alone: a "
+              f"block barrier, two warp reductions either side of it, the new sample's "
+              f"load), {floor / device:.1%} of the kernel; operations bound "
+              f"{rec['bound_ms']:.4f} ms", flush=True)
+    one = cloud(1)[:, :1].expand(BATCH, 2048, 3).contiguous()
+    got = fps_pallas.furthest_point_sample_kernel(one, 512)
+    ok = torch.equal(got, fps_pallas.reference_furthest_point_sample(one, 512))
+    ok = ok and not got.any().item()
+    print(f"[kernel F] 2048 copies of one point -> 512: every pick index 0 "
+          f"{'PASS' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("kernel F disagrees at 512 -> 128")
-    record("F furthest_point_sample", "vn_pointcloudcompletion_tpu_torch/csrc/fps.cu",
-           "vn_pointcloudcompletion_tpu/ops/fps_pallas.py:85",
-           lambda: fps_pallas.furthest_point_sample_kernel(xyz, 512),
-           lambda: fps_pallas.reference_furthest_point_sample(xyz, 512),
-           idx_eq, "indices equal", nbytes(xyz) + 4 * BATCH * 512,
-           BATCH * 511 * 2048 * 10, reps=10, plain_reps=2, repro=True)
+        raise AssertionError("kernel F: a cloud of one repeated point must pick index 0")
     return records
 
 
@@ -1453,7 +1605,7 @@ def serve_path(dev, path: str = "flagship"):
           f"{BATCH}: {t2 - t1:.3f} s (host clock, first call, build included "
           "if any)")
     print(f"{tag} launches: {json.dumps(counts)}")
-    check_designs(f"{tag} predict + test", counts, cuda_lib.variant_counts())
+    check_designs(f"{tag} predict + test", counts, cuda_lib.variant_counts(), path)
     if path == "flagship":
         missing = [k for k in FORWARD_KERNELS if counts[k] == 0]
         if missing:
@@ -1496,7 +1648,7 @@ def serve_path(dev, path: str = "flagship"):
         if path != "flagship":
             check_launches(path, cuda_lib.launch_counts(), 1, f"{tag} one forward")
         check_designs(f"{tag} one forward", cuda_lib.launch_counts(),
-                      cuda_lib.variant_counts())
+                      cuda_lib.variant_counts(), path)
         model.use_kernels_(False)
         if taped:
             tape.run(tape.rec)
@@ -1572,7 +1724,7 @@ def train_path(dev, path: str = "flagship", epochs: int = 0, **extra):
           f"batch: {t1 - t0:.3f} s; resume 1 epoch: {t2 - t1:.3f} s (host clock, "
           "checkpoint writes included)")
     print(f"{tag} launches: {json.dumps(counts)}")
-    check_designs(f"{tag} overfit", counts, variants)
+    check_designs(f"{tag} overfit", counts, variants, path)
     if path in STATS_STEP_DESIGNS:  # one train step an epoch
         check_stats_designs(f"{tag} overfit", variants, STATS_STEP_DESIGNS[path], epochs)
     if path == "flagship":
@@ -1607,7 +1759,7 @@ def train_path(dev, path: str = "flagship", epochs: int = 0, **extra):
         if "[RESUME INFO] resume ckpts @ %d epoch" % (epochs - 1) not in f.read():
             raise AssertionError("train --resume did not continue the run")
     shutil.rmtree(work, ignore_errors=True)
-    return counts
+    return {**counts, **variants}  # launches, and by design (``<name>/<design>``)
 
 
 def emd_test_path(dev, path: str):
@@ -2163,7 +2315,8 @@ def dgcnn_train_step(dev, smi: str):
           f"{p_ms:.3f} ms; peak memory kernels {k_gib:.2f} GiB, plain {p_gib:.2f} GiB")
     # the top 10, and the encoder's kNN, FPS and gather items below them
     profile_steps(model, config, partial, complete, top=10,
-                  also=("knn_min", "edge_knn_gather", "fps_kernel", "indexing_backward",
+                  also=("knn_min", "edge_knn_gather", "edge_select", "edge_gather", "fps_kernel",
+                        "indexing_backward",
                         "index_elementwise", "sort"))
 
 
@@ -2267,7 +2420,7 @@ def pointr_train_step(dev, smi: str):
     profile_steps(model, config, partial, complete, top=10)
 
 
-def scalar_train_step(dev):
+def scalar_train_step(dev, smi: str):
     """Phase 8b: one train step of ``dgcnn_fps`` + ``foldingnet`` at
     ``num_coarse`` 448, full width, through the kernels (K2, F) against the
     plain path.  The kernels only pick indices, equal to their plain
@@ -2275,7 +2428,8 @@ def scalar_train_step(dev):
     kernel D on both): losses, running statistics and every gradient within
     1e-6 of the tensor's max.  A bias followed by a normalisation has a
     gradient of 0 up to rounding; tensors whose gradient is below 1e-6 of
-    the model's largest are listed, not compared."""
+    the model's largest are listed, not compared.  Then the median step and
+    eval forward times of both paths (CUDA events)."""
     import copy
 
     import torch
@@ -2300,6 +2454,29 @@ def scalar_train_step(dev):
           + f" (tolerance 1e-6 for each); gradients of 0 up to rounding: {zero}")
     if loss_err > 1e-6 or stat_err > 1e-6 or max(errs.values()) > 1e-6:
         raise AssertionError("DGCNN train step: kernels disagree with the plain path")
+
+    from vn_pointcloudcompletion_tpu_torch.training import steps
+    from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
+
+    _, _, rot = main_path_batch(dev)
+
+    def step_ms(m):
+        state = create_train_state(m, config, 1)
+        gen = torch.Generator().manual_seed(0)
+        return cuda_ms(lambda: steps.train_step(state, partial, complete, gen), 5)
+
+    def forward_ms(m):
+        m.eval()
+        with torch.no_grad():
+            ms = cuda_ms(lambda: m(partial @ rot, rot), 5)
+        m.train()
+        return ms
+
+    k_ms, p_ms, k2_ms = step_ms(model), step_ms(plain), step_ms(model)
+    kf, pf, kf2 = forward_ms(model), forward_ms(plain), forward_ms(model)
+    print(f"[dgcnn_448 step] {smi}: median of 5 after 2 warm-up (CUDA events): train step "
+          f"kernels {k_ms:.3f} ms then {k2_ms:.3f} ms, plain {p_ms:.3f} ms; eval forward "
+          f"kernels {kf:.3f} ms then {kf2:.3f} ms, plain {pf:.3f} ms")
 
 
 def profile_steps(model, config, partial, complete, steps_n: int = 3, top: int = 20,
@@ -2415,7 +2592,7 @@ def bf16_serve(dev, smi: str):
     flagship metric step (JAX ``bench_eval_step``'s protocol: so3 rotation,
     forward, CD-L1/L2, F-score, IoU) counted.  Median times (CUDA events)
     of each forward and of the metric step in float32 and bf16.  Returns
-    the summed launch counts of the counted runs."""
+    the summed launch counts of the counted runs, and by design."""
     import torch
 
     from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
@@ -2427,15 +2604,16 @@ def bf16_serve(dev, smi: str):
     xyz = partial @ rot
     total: dict = {}
 
-    def counted(what, fn):
+    def counted(what, fn, path):
         cuda_lib.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
         counts = {k: v for k, v in cuda_lib.launch_counts().items() if v}
-        for key, v in counts.items():
+        variants = cuda_lib.variant_counts()
+        for key, v in {**counts, **variants}.items():
             total[key] = total.get(key, 0) + v
         print(f"[bf16 serve] {what} launches: {json.dumps(counts)}")
-        check_designs(f"[bf16 serve] {what}", counts, cuda_lib.variant_counts())
+        check_designs(f"[bf16 serve] {what}", counts, variants, path)
         return out, counts
 
     def timed(fn, dtype, reps=5):
@@ -2453,7 +2631,7 @@ def bf16_serve(dev, smi: str):
             with torch.no_grad(), compute_dtype_scope(torch.bfloat16):
                 return model(xyz, rot)
 
-        (coarse, fine), counts = counted(f"{path} one forward", fwd)
+        (coarse, fine), counts = counted(f"{path} one forward", fwd, path)
         counts.pop("chamfer_nn_bidir", None)
         if counts != BF16_FORWARD_LAUNCHES[path]:
             raise AssertionError(f"{tag} launches {counts}, expected "
@@ -2489,7 +2667,7 @@ def bf16_serve(dev, smi: str):
         with torch.no_grad(), compute_dtype_scope(torch.bfloat16):
             return metric_step(flagship, partial, complete, rot)
 
-    (out, pred), counts = counted("flagship metric step", step)
+    (out, pred), counts = counted("flagship metric step", step, "flagship")
     want = dict(BF16_FORWARD_LAUNCHES["flagship"], chamfer_nn_bidir=1)
     if counts != want or pred.dtype != torch.float32:
         raise AssertionError(f"[bf16 metric step] launches {counts}, expected {want}")
@@ -2735,7 +2913,7 @@ def bf16_train(dev, smi: str):
         t1 = time.perf_counter()
         counts = {k: v for k, v in cuda_lib.launch_counts().items() if v}
         check_designs(f"{tag} root config.json train + resume", counts,
-                      cuda_lib.variant_counts())
+                      cuda_lib.variant_counts(), "vn_pointr_448")
         check_stats_designs(f"{tag} root config.json train + resume", cuda_lib.variant_counts(),
                             bf16_designs(STATS_STEP_DESIGNS["vn_pointr_448"]),
                             BF16_TRAIN_EPOCHS + 1)
@@ -2780,13 +2958,13 @@ def bf16_train(dev, smi: str):
                    if v and k != "chamfer_nn_bidir"}
     designs = cuda_lib.variant_counts()
     print(f"{tag} one vn_pointr_448 train step: launches {json.dumps(step_counts)}; "
-          f"C, S, S', C' and B' by design {json.dumps(designs)}; skipped "
+          f"C, S, S', C', B', F and K3 by design {json.dumps(designs)}; skipped "
           f"{metrics['skipped'].item()}")
     if step_counts != BF16_STEP_LAUNCHES["vn_pointr_448"] or metrics["skipped"].item():
         raise AssertionError(f"{tag} one step's launches {step_counts}, expected "
                              f"{BF16_STEP_LAUNCHES['vn_pointr_448']}")
     if designs != BF16_STEP_DESIGNS["vn_pointr_448"]:
-        raise AssertionError(f"{tag} one step's C, S, S', C', B' designs {designs}, expected "
+        raise AssertionError(f"{tag} one step's designs {designs}, expected "
                              f"{BF16_STEP_DESIGNS['vn_pointr_448']}")
     total = {k: counts.get(k, 0) + step_counts.get(k, 0) for k in {*counts, *step_counts}}
 
@@ -2861,7 +3039,7 @@ def main() -> int:
     phase("7b VN DGCNN train step", dgcnn_train_step, dev, smi)
     phase("8 DGCNN num_coarse 448 serve", serve_path, dev, "dgcnn_448")
     phase("8 DGCNN num_coarse 448 train", train_path, dev, "dgcnn_448")
-    phase("8b DGCNN num_coarse 448 train step", scalar_train_step, dev)
+    phase("8b DGCNN num_coarse 448 train step", scalar_train_step, dev, smi)
     phase("9 vn_pointr num_coarse 448 serve", serve_path, dev, "vn_pointr_448")
     pointr_counts = phase("9 vn_pointr num_coarse 448 train", train_path, dev, "vn_pointr_448")
     phase("9b vn_pointr num_coarse 448 train step", pointr_train_step, dev, smi)
@@ -2874,7 +3052,8 @@ def main() -> int:
     bf16_train_counts = phase("13 bf16 train", bf16_train, dev, smi)
     # launches: each kernel's count in the training run of its path (K1 is
     # on no model's path: the JAX package reaches it only for D > 512; nor
-    # are C and C' in group=S mode: no model passes a group to them); the
+    # are C and C' in group=S mode: no model passes a group to them; F's and
+    # K3's rows at vn_pointr's shapes: phase 9's run, by design as well); the
     # bf16 rows' in phase 12's counted forwards and metric step (A, B, C,
     # K3) and phase 13's counted training runs (A', S, S', B', C')
     for rec in records:
@@ -2889,7 +3068,16 @@ def main() -> int:
         elif sym == "emd_rounds":  # phase 10: both test --emd runs
             rec["launches"] = emd_counts[sym] + emd_counts_448[sym]
         else:
-            rec["launches"] = counts[sym] if sym in FLAGSHIP_KERNELS else dgcnn_counts[sym]
+            on_pointr = " D 96 " in rec["name"] or " D 192 " in rec["name"] or "-> 224" in rec["name"]
+            rec["launches"] = (counts if sym in FLAGSHIP_KERNELS else
+                               pointr_counts if on_pointr else dgcnn_counts)[sym]
+            if sym in ("edge_knn_gather", "furthest_point_sample"):  # launches by design
+                run = pointr_counts if on_pointr else dgcnn_counts
+                rec["designs"] = {k.split("/")[1]: v for k, v in run.items()
+                                  if k.startswith(f"{sym}/")}
+        if rec["name"].endswith(" bf16") and sym == "edge_knn_gather":
+            rec["designs"] = {k.split("/")[1]: v for k, v in bf16_counts.items()
+                              if k.startswith(f"{sym}[bf16]/")}
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

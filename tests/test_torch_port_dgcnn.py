@@ -135,10 +135,11 @@ def test_k3_plain_matches_pallas(coords):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("n,s", [(600, 128), (300, 400)])
+@pytest.mark.parametrize("n,s", [(600, 128), (300, 400), (2048, 224), (512, 128)])
 def test_f_plain_matches_pallas_and_jnp(n, s):
     """Duplicate points, N not a multiple of 128, and more samples than
-    distinct points (the picks wrap back to index 0 as in JAX)."""
+    distinct points (the picks wrap back to index 0 as in JAX); the paths'
+    2048 -> 224 (num_coarse 448's tail) and 512 -> 128."""
     import importlib
 
     jax_fps = importlib.import_module("vn_pointcloudcompletion_tpu.ops.fps")

@@ -845,20 +845,12 @@ def _lane_tie_cloud(b, m):
     """(b, m, 3) reference points whose distances from the origin tie the
     way duplicate points do inside one warp lane of K1-K3 (columns j and
     j + 32), with a nearer point later in the same lane (column j + 64) for
-    j < 8: P_j (radius 1 + j/100) at columns j and j + 32, Q_j (radius 0.5)
-    at j + 64, the rest at radius 3; column m - 1 is the origin.  Of k = 32
-    nearest to the origin, ties to the lowest index give m - 1, then 64..71
-    (in some order), then 0, 32, 1, 33, ..."""
-    rng = np.random.default_rng(b * m)
-    dirs = rng.standard_normal((b, m, 3))
-    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-    radius = np.full(m, 3.0)
-    radius[:32] = 1.0 + np.arange(32) / 100
-    radius[64:72] = 0.5
-    pts = dirs * radius[None, :, None]
-    pts[:, 32:64] = pts[:, :32]
-    pts[:, m - 1] = 0.0
-    return torch.from_numpy(pts.astype(np.float32))
+    j < 8 (``chip_smoke.lane_tie_cloud``).  Of k = 32 nearest to the
+    origin, ties to the lowest index give m - 1, then 64..71 (in some
+    order), then 0, 32, 1, 33, ..."""
+    from chip_smoke import lane_tie_cloud
+
+    return lane_tie_cloud(torch.device("cpu"), b, m)
 
 
 def test_lane_tie_cloud_orders_ties_by_index():
@@ -926,19 +918,28 @@ def test_kernel_k2_cuda_matches_plain(cuda, n, m, dim, k):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,dim,c3,k", [(512, 3, 384, 16), (512, 3, 768, 16),
                                         (300, 48, 96, 32), (2048, 3, 384, 16),
-                                        (512, 0, 96, 32)])
+                                        (512, 0, 96, 32), (512, 0, 384, 16), (128, 0, 96, 16),
+                                        (512, 96, 384, 16), (512, 192, 384, 16),
+                                        (128, 192, 768, 16), (64, 40, 32, 32), (116, 48, 64, 16)])
 def test_kernel_k3_cuda_matches_plain(cuda, n, dim, c3, k):
-    """Forward equal to the bit; the backward (du scatter, dv sum) within
-    1e-6 of its max against autograd of the plain chain.  dim = 0: the
-    lane-tie cloud's coordinates."""
+    """Forward equal to the bit, twice, in the design ``edge_design`` picks
+    (coords: D 3 and the lane-tie cloud at k 16; tiled: vn_pointr's D 96
+    and 192 at N 512, 128, and D 40 at N 64; warp: N 2048, k 32 at N 300
+    and 512, N 116 not a multiple of 8); the backward (du scatter, dv sum)
+    within 1e-6 of its max against autograd of the plain chain.  dim = 0:
+    the lane-tie cloud's coordinates."""
     g = torch.Generator().manual_seed(n + c3)
     if dim == 0:
         x = _lane_tie_cloud(2, n).transpose(1, 2).contiguous().to(cuda)
     else:
         x = torch.randn(2, dim, n, generator=g).to(cuda)
     u, v = (torch.randn(2, c3, n, generator=g).to(cuda) for _ in range(2))
+    design = knn_pallas.edge_design(n, x.shape[1], k, False)
+    key = f"edge_knn_gather/{design}"
+    before = cuda_lib.variant_counts().get(key, 0)
     got, again = knn_pallas.edge_knn_gather_fwd(x, u, v, k), knn_pallas.edge_knn_gather_fwd(x, u, v, k)
     torch.cuda.synchronize()
+    assert cuda_lib.variant_counts()[key] == before + 2
     want = knn_pallas.reference_edge_knn_gather(x, u, v, k)
     for a, b, c in zip(got, want, again):
         assert torch.equal(a, b) and torch.equal(a, c)
@@ -950,6 +951,24 @@ def test_kernel_k3_cuda_matches_plain(cuda, n, dim, c3, k):
         (fn(x, uu, vv, k) * cot).sum().backward()
         grads.append((uu.grad, vv.grad))
     _assert_rel(grads[0], grads[1], 1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", ["coords", "tiled"])
+def test_kernel_k3_designs_agree_with_the_warp_design(cuda, design, monkeypatch):
+    """The new designs and the parent warp design on the same inputs at a
+    path shape: the same indices and bits."""
+    n, dim = (512, 3) if design == "coords" else (512, 192)
+    g = torch.Generator().manual_seed(dim)
+    x = torch.randn(2, dim, n, generator=g).to(cuda)
+    u, v = (torch.randn(2, 384, n, generator=g).to(cuda) for _ in range(2))
+    assert knn_pallas.edge_design(n, dim, 16, False) == design
+    got = knn_pallas.edge_knn_gather_fwd(x, u, v, 16)
+    monkeypatch.setattr(knn_pallas, "edge_design", lambda *shape: "warp")
+    warp = knn_pallas.edge_knn_gather_fwd(x, u, v, 16)
+    torch.cuda.synchronize()
+    for a, b in zip(got, warp):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -968,18 +987,34 @@ def test_kernel_k2_bwd_cuda_matches_plain(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,s", [(2048, 512), (512, 128), (2048, 224), (600, 700)])
-def test_kernel_f_cuda_matches_plain(cuda, n, s):
-    xyz = _cloud(n + s, 8, n)
-    xyz[:, 300:340] = xyz[:, :40]  # exact duplicates, as resample padding makes
+@pytest.mark.parametrize("n,s,cloud", [(2048, 512, "dup"), (512, 128, "dup"), (2048, 224, "dup"),
+                                       (600, 700, "dup"), (16384, 4096, "dup"),
+                                       (9000, 700, "dup"), (100, 300, "dup"),
+                                       (2048, 512, "one")])
+def test_kernel_f_cuda_matches_plain(cuda, n, s, cloud):
+    """The paths' shapes, N 16384 and S 4096 (the gate), N above 8192 (the
+    minima in registers, the coordinates read from shared memory), and more
+    samples than points: equal indices, twice, from the (B, N, 3) cloud and
+    from the transposed view of (B, 3, N) planes (the kernel reads
+    strides).  "dup": 40 exact duplicates; "one": every point the same, so
+    every pick is index 0."""
+    xyz = _cloud(n + s, 8 if n <= 2048 else 2, n)
+    if cloud == "one":
+        xyz[:] = xyz[:, :1]
+    else:
+        xyz[:, 300 % n:300 % n + 40] = xyz[:, :40]
     xyz = xyz.to(cuda)
-    before = fps_pallas._KERNEL.launches
-    got = fps_pallas.furthest_point_sample_kernel(xyz, s)
-    again = fps_pallas.furthest_point_sample_kernel(xyz, s)
-    torch.cuda.synchronize()
-    assert fps_pallas._KERNEL.launches == before + 2
+    view = xyz.transpose(1, 2).contiguous().transpose(1, 2)
     want = fps_pallas.reference_furthest_point_sample(xyz, s)
-    assert torch.equal(got, want) and torch.equal(got, again)
+    before = fps_pallas._KERNEL.launches
+    for x in (xyz, view):
+        got = fps_pallas.furthest_point_sample_kernel(x, s)
+        again = fps_pallas.furthest_point_sample_kernel(x, s)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got, again)
+    assert fps_pallas._KERNEL.launches == before + 4
+    if cloud == "one":
+        assert not want.any()
 
 
 @pytest.mark.gpu
@@ -1198,10 +1233,14 @@ def test_kernel_c_bf16_cuda_matches_plain(cuda, c_in, c_out, n):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,dim,c3,k,x_bf16", [(512, 3, 768, 16, True), (2048, 3, 384, 16, True),
                                                (512, 96, 384, 16, True), (512, 3, 384, 16, False),
-                                               (333, 0, 96, 32, True)])
+                                               (333, 0, 96, 32, True), (512, 192, 384, 16, True),
+                                               (128, 192, 768, 16, True), (512, 0, 384, 16, True),
+                                               (512, 96, 384, 16, False), (1024, 3, 64, 16, True)])
 def test_kernel_k3_bf16_cuda_matches_plain(cuda, n, dim, c3, k, x_bf16):
     """bf16 features (and bf16 or float32 coordinates): equal indices and
-    bits; dim = 0: the lane-tie cloud, rounded to bf16 (more ties)."""
+    bits, twice, in the design ``edge_design`` picks (coords at D 3, N 512
+    and 1024; tiled at vn_pointr's D 96 and 192; warp at N 2048 and N 333);
+    dim = 0: the lane-tie cloud, rounded to bf16 (more ties)."""
     g = torch.Generator().manual_seed(n + c3 + 1)
     if dim == 0:
         x = _lane_tie_cloud(2, n).transpose(1, 2).contiguous()
@@ -1209,14 +1248,17 @@ def test_kernel_k3_bf16_cuda_matches_plain(cuda, n, dim, c3, k, x_bf16):
         x = torch.randn(2, dim, n, generator=g)
     x = x.to(cuda, torch.bfloat16 if x_bf16 else torch.float32)
     u, v = (torch.randn(2, c3, n, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    key = f"edge_knn_gather[bf16]/{knn_pallas.edge_design(n, x.shape[1], k, True)}"
     before = cuda_lib.launch_counts()["edge_knn_gather[bf16]"]
-    got = knn_pallas.edge_knn_gather_fwd(x, u, v, k)
+    before_design = cuda_lib.variant_counts().get(key, 0)
+    got, again = knn_pallas.edge_knn_gather_fwd(x, u, v, k), knn_pallas.edge_knn_gather_fwd(x, u, v, k)
     torch.cuda.synchronize()
-    assert cuda_lib.launch_counts()["edge_knn_gather[bf16]"] == before + 1
+    assert cuda_lib.launch_counts()["edge_knn_gather[bf16]"] == before + 2
+    assert cuda_lib.variant_counts()[key] == before_design + 2
     want = knn_pallas.reference_edge_knn_gather(x, u, v, k)
     assert got[0].dtype == torch.bfloat16
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 @pytest.mark.gpu

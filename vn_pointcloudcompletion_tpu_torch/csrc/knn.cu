@@ -21,14 +21,39 @@
 // kernel and plain version pick the same indices.
 //
 // Design.  The TPU kernels hold a (256, M) tile in VMEM and make k passes of
-// min / argmin / mask over it.  Here one warp owns one query row: each lane
-// walks the columns lane, lane + 32, ... in ascending order and keeps its own
-// k best (value, index) pairs sorted in registers (an insertion that bubbles
-// the candidate down the list), then k rounds of a butterfly argmin over the
-// 32 lanes' heads merge the lists.  Nothing is written but the k results.
-// K3 gives each block 32 queries (8 warps, 4 rows each), keeps their indices
-// in shared memory and writes the gathered rows with neighbouring threads on
-// neighbouring queries, so every store is a full 128-byte line.
+// min / argmin / mask over it.  Here K1 and K2 give one warp one query row:
+// each lane walks the columns lane, lane + 32, ... in ascending order and
+// keeps its own k best (value, index) pairs sorted in registers (an
+// insertion that bubbles the candidate down the list), then k rounds of a
+// butterfly argmin over the 32 lanes' heads merge the lists.  Nothing is
+// written but the k results.
+//
+// K3 runs one of three designs, chosen by shape in ops/knn_pallas.py
+// ::edge_design and passed in (every one gives the same indices and bits):
+//  - "coords" (D <= 4, the coordinates of the VN DGCNN's conv4/conv5) and
+//    "tiled" (D > 4 at N <= 512, the features of vn_pointr's grouper):
+//    two launches of one call.  The selection writes idx: a block takes 32
+//    queries, 8 lanes a query, each lane a LaneList over the columns lane,
+//    lane + 8, ... and 3 butterfly rounds a merge.  "coords" stages the
+//    sample's D planes and |x|^2 in shared memory and forms each distance
+//    as it scans (a broadcast read); "tiled" forms the (32, N) distance
+//    tile first, a register-tiled product (8 queries x up to 8 references
+//    a thread) over x rows staged by cp.async 8 at a time, each pair's
+//    cross and |r|^2 sums in order over e, then selects from the tile in
+//    shared memory.  The gather then streams the (B, C3, k, N) output over
+//    the whole card: a block owns a run of (sample, channel) rows, keeps
+//    its share of the sample's indices in registers (the same queries and
+//    neighbour slots for every channel), stages each row's u and v by
+//    cp.async (a 4-stage ring) and writes 16-byte streaming stores (__stcs,
+//    so the output does not evict u from L2); no division is left in the
+//    row loop.
+//  - "warp" (the parent design) where those do not reach: the gather's
+//    split does not fit (gather_kpt: N not whole 16-byte runs, more than
+//    256 runs, k not 1, 2, 4 or 8 slots a thread), k > 32, or D > 4 at N >
+//    512 or N not a multiple of 8.  A block of 32 queries (8 warps,
+//    4 rows each, one warp a query as K2), their indices in shared memory,
+//    then the gathered rows with neighbouring threads on neighbouring
+//    queries, so every store is a full 128-byte line.
 //
 // K3's bf16 mode (the bfloat16 compute policy; knn_pallas.py:298-333 on
 // bf16 features): x is read as bf16 or float32 and upcast exactly, so the
@@ -39,12 +64,14 @@
 // Bound on the H100.  K1: bytes (one read of the matrix).  K2 at the main
 // path's D = 3: operations, about 12 per (query, reference) pair for the
 // distance and the compare, on the CUDA cores.  K3: bytes, the (B, C3, k, N)
-// output written once.  The gather reads of u hit L2 (u is at most 1.6 MB per
-// sample).
+// output written once (201 MB at conv5 in float32); at vn_pointr's D 192
+// the distance product is ~0.8 G FP32 instructions (--fmad=false: a multiply
+// and an add a term), ~27 us on the card's FP32 issue.
 #include <limits.h>
 #include <math.h>
 
 #include "common.cuh"
+#include "vn_mma.cuh"
 
 namespace {
 
@@ -100,17 +127,19 @@ struct LaneList {
   }
 };
 
-// The warp's k smallest pairs from the 32 lane lists: round r finds the
-// smallest head (value, then index) with a butterfly over the lanes, the
-// owning lane drops its head, and lane 0 hands (r, value, index) to emit.
-template <int K, typename Emit>
+// The k smallest pairs from the lane lists of `Lanes` neighbouring lanes
+// (32: the warp; 8: K3's selection): round r finds the smallest head
+// (value, then index) with a butterfly over the lanes, the owning lane
+// drops its head, and the group's first lane hands (r, value, index) to
+// emit.
+template <int K, int Lanes = 32, typename Emit>
 __device__ __forceinline__ void warp_merge(LaneList<K>& l, int k, Emit emit) {
-  const int lane = threadIdx.x & 31;
+  const bool first = (threadIdx.x & (Lanes - 1)) == 0;
   for (int r = 0; r < k; ++r) {
     float bv = l.v[0];
     int bi = l.i[0];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
+    for (int off = Lanes / 2; off > 0; off >>= 1) {
       const float ov = __shfl_xor_sync(kFull, bv, off);
       const int oi = __shfl_xor_sync(kFull, bi, off);
       if (ov < bv || (ov == bv && oi < bi)) {
@@ -119,7 +148,7 @@ __device__ __forceinline__ void warp_merge(LaneList<K>& l, int k, Emit emit) {
       }
     }
     if (l.i[0] == bi) l.pop();
-    if (lane == 0) emit(r, bv, bi);
+    if (first) emit(r, bv, bi);
   }
 }
 
@@ -235,6 +264,295 @@ edge_knn_gather_kernel(const X* __restrict__ x, const T* __restrict__ u,
   }
 }
 
+// ---- K3's "coords" and "tiled" designs: a selection, then the gather ----
+
+constexpr int kSelLanes = 8;                       // lanes that scan one query's columns
+constexpr int kSelQueries = kThreads / kSelLanes;  // queries a selection block
+constexpr int kCoordsMaxD = 4;
+constexpr int kTiledMaxN = 512;
+constexpr int kTileRows = 8;      // x rows a stage of the tiled product
+constexpr int kTileQ = 8;         // queries a thread of the tiled product
+constexpr int kTileR = 64;        // threads along the references (r = tr + 64 j)
+constexpr int kGatherStages = 4;  // u, v rows in flight in a gather block
+
+// "coords": x (B, D, N), D <= 4 -> idx (B, N, k).  The block stages the
+// sample's planes and |x_j|^2 (the plain version's sq_norms, in order); a
+// query's 8 lanes each scan every 8th column from shared memory.
+template <int K, typename X>
+__global__ void __launch_bounds__(kThreads)
+edge_select_coords(const X* __restrict__ x, int* __restrict__ idx, int N, int D, int k) {
+  extern __shared__ float smem[];  // (D, N) planes, then |x_j|^2 (N)
+  float* rsq = smem + D * N;
+  const int b = blockIdx.y;
+  const X* xb = x + static_cast<int64_t>(b) * D * N;
+  for (int j = threadIdx.x; j < N; j += kThreads) {
+    float sq = 0.f;
+    for (int e = 0; e < D; ++e) {
+      const float r = vnk_load(xb[static_cast<int64_t>(e) * N + j]);
+      smem[e * N + j] = r;
+      sq = sq + r * r;
+    }
+    rsq[j] = sq;
+  }
+  __syncthreads();
+  // rows past N compute on the last point and write nothing (the merge's
+  // shuffles need every lane of the warp)
+  const int q = blockIdx.x * kSelQueries + threadIdx.x / kSelLanes;
+  const int n = min(q, N - 1);
+  float qv[kCoordsMaxD];
+#pragma unroll
+  for (int e = 0; e < kCoordsMaxD; ++e) qv[e] = e < D ? smem[e * N + n] : 0.f;
+  const float qsq = rsq[n];
+  LaneList<K> l;
+  l.init();
+  for (int j = threadIdx.x % kSelLanes; j < N; j += kSelLanes) {
+    float cross = 0.f;
+#pragma unroll
+    for (int e = 0; e < kCoordsMaxD; ++e) {
+      if (e < D) cross = cross + qv[e] * smem[e * N + j];
+    }
+    l.push((qsq + rsq[j]) - 2.f * cross, j);
+  }
+  int* io = idx + (static_cast<int64_t>(b) * N + n) * k;
+  warp_merge<K, kSelLanes>(l, k, [&](int r, float, int i) {
+    if (q < N) io[r] = i;
+  });
+}
+
+// 8 consecutive elements of a shared-memory row (16 or 32 bytes aligned),
+// as float32.
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 c = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+  f[4] = c.x, f[5] = c.y, f[6] = c.z, f[7] = c.w;
+}
+
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+__device__ __forceinline__ void load8(const vnk_bf16* p, float (&f)[8]) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    f[2 * m] = bf16_lo(w[m]);
+    f[2 * m + 1] = bf16_hi(w[m]);
+  }
+}
+
+// Shared memory of the tiled selection at N columns: the distance tile
+// (32 rows of ds floats), |x_j|^2, two stages of kTileRows x rows.
+__host__ __device__ inline int tiled_row_stride(int N) { return ((N + 31) & ~31) + 8; }  // rows 8 banks apart
+
+template <typename X>
+inline int tiled_smem(int N) {
+  return static_cast<int>(sizeof(float)) * (kSelQueries * tiled_row_stride(N) + N) +
+         2 * kTileRows * N * static_cast<int>(sizeof(X));
+}
+
+// "tiled": x (B, D, N), N <= 512 (N a multiple of 8, 16-byte rows) -> idx
+// (B, N, k).  Thread (tq, tr) of the product holds the cross sums of
+// queries q0 + 8 tq + i (i < 8) with references tr + 64 j (j < RJ), summed
+// over e in order; the threads also sum |x_j|^2 of columns tid, tid + 256.
+template <int K, int RJ, typename X>
+__global__ void __launch_bounds__(kThreads)
+edge_select_tiled(const X* __restrict__ x, int* __restrict__ idx, int N, int D, int k) {
+  constexpr int kV = 16 / static_cast<int>(sizeof(X));
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ds = tiled_row_stride(N);
+  float* dist = reinterpret_cast<float*>(smem_raw);  // (kSelQueries, ds)
+  float* rsq = dist + kSelQueries * ds;              // (N)
+  X* ring = reinterpret_cast<X*>(rsq + N);           // (2, kTileRows, N)
+  const int b = blockIdx.y, q0 = blockIdx.x * kSelQueries;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tq = warp >> 1, tr = ((warp & 1) << 5) | (tid & 31);
+  const X* xb = x + static_cast<int64_t>(b) * D * N;
+  // queries and references past N read the last ones; their sums go unused
+  const int qbase = min(q0 + tq * kTileQ, N - kTileQ);
+  int rj[RJ];
+#pragma unroll
+  for (int j = 0; j < RJ; ++j) rj[j] = min(tr + kTileR * j, N - 1);
+  float acc[kTileQ][RJ];
+#pragma unroll
+  for (int i = 0; i < kTileQ; ++i) {
+#pragma unroll
+    for (int j = 0; j < RJ; ++j) acc[i][j] = 0.f;
+  }
+  float rs[2] = {0.f, 0.f};
+  const int chunks = (D + kTileRows - 1) / kTileRows;
+  // stage c: x rows c * kTileRows ..., whole rows, so one contiguous run
+  auto load = [&](int c) {
+    if (c < chunks) {
+      const int rows = min(kTileRows, D - c * kTileRows);
+      const X* src = xb + static_cast<int64_t>(c) * kTileRows * N;
+      X* dst = ring + (c & 1) * kTileRows * N;
+      for (int e = tid; e < rows * N / kV; e += kThreads) cp_async16(dst + e * kV, src + e * kV);
+    }
+    cp_async_commit();
+  };
+  load(0);
+  for (int c = 0; c < chunks; ++c) {
+    load(c + 1);
+    cp_async_wait<1>();
+    __syncthreads();  // stage c & 1 published
+    const X* tile = ring + (c & 1) * kTileRows * N;
+    const int rows = min(kTileRows, D - c * kTileRows);
+    for (int ee = 0; ee < rows; ++ee) {
+      const X* row = tile + ee * N;
+      float qv[kTileQ], rv[RJ];
+      load8(row + qbase, qv);
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) rv[j] = vnk_load(row[rj[j]]);
+#pragma unroll
+      for (int i = 0; i < kTileQ; ++i) {
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) acc[i][j] = acc[i][j] + qv[i] * rv[j];
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int col = tid + m * kThreads;
+        if (col < N) {
+          const float r = vnk_load(row[col]);
+          rs[m] = rs[m] + r * r;
+        }
+      }
+    }
+    __syncthreads();  // stage c & 1 free for load(c + 2)
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    if (tid + m * kThreads < N) rsq[tid + m * kThreads] = rs[m];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kTileQ; ++i) {
+    const int ql = tq * kTileQ + i;
+    const float qsq = rsq[min(q0 + ql, N - 1)];
+#pragma unroll
+    for (int j = 0; j < RJ; ++j) {
+      const int r = tr + kTileR * j;
+      if (r < N) dist[ql * ds + r] = (qsq + rsq[r]) - 2.f * acc[i][j];
+    }
+  }
+  __syncthreads();
+  const int ql = tid >> 3, q = q0 + ql;
+  const float* drow = dist + ql * ds;
+  LaneList<K> l;
+  l.init();
+  for (int j = tid & (kSelLanes - 1); j < N; j += kSelLanes) l.push(drow[j], j);
+  int* io = idx + (static_cast<int64_t>(b) * N + min(q, N - 1)) * k;
+  warp_merge<K, kSelLanes>(l, k, [&](int r, float, int i) {
+    if (q < N) io[r] = i;
+  });
+}
+
+// 16 bytes of T at p (shared memory, aligned) as float32: 4 or 8 values.
+__device__ __forceinline__ void load_vec(const float* p, float (&f)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+}
+
+__device__ __forceinline__ void load_vec(const vnk_bf16* p, float (&f)[8]) { load8(p, f); }
+
+// 16 bytes of T from float32 values, by a streaming store (evict first).
+__device__ __forceinline__ void store_stream(float* p, const float (&f)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(f[0], f[1], f[2], f[3]));
+}
+
+__device__ __forceinline__ unsigned bf16_pair(float a, float b) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(a))) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(b))) << 16);
+}
+
+__device__ __forceinline__ void store_stream(vnk_bf16* p, const float (&f)[8]) {
+  __stcs(reinterpret_cast<uint4*>(p), make_uint4(bf16_pair(f[0], f[1]), bf16_pair(f[2], f[3]),
+                                                 bf16_pair(f[4], f[5]), bf16_pair(f[6], f[7])));
+}
+
+// KPT consecutive ints (aligned to min(KPT, 4) ints) into dst.
+template <int KPT>
+__device__ __forceinline__ void load_ints(const int* p, int (&dst)[KPT]) {
+  if constexpr (KPT % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < KPT; j += 4) {
+      const int4 a = *reinterpret_cast<const int4*>(p + j);
+      dst[j] = a.x, dst[j + 1] = a.y, dst[j + 2] = a.z, dst[j + 3] = a.w;
+    }
+  } else if constexpr (KPT == 2) {
+    const int2 a = *reinterpret_cast<const int2*>(p);
+    dst[0] = a.x, dst[1] = a.y;
+  } else {
+    dst[0] = p[0];
+  }
+}
+
+// Neighbour slots a gather thread takes: thread t owns the 16-byte run of
+// queries (t % QC) * V ... (QC = N / V runs, V = 16 / sizeof(T)) and slots
+// (t / QC) * KPT ... + KPT - 1; KPT in {1, 2, 4, 8}, or 0 where the shape
+// does not fit (ops/knn_pallas.py::gather_slots says the same).
+inline int gather_kpt(int N, int k, int vec) {
+  if (N % vec != 0 || N / vec > kThreads) return 0;
+  const int ks = kThreads / (N / vec);
+  if (k % ks != 0) return 0;
+  const int kpt = k / ks;
+  return kpt == 1 || kpt == 2 || kpt == 4 || kpt == 8 ? kpt : 0;
+}
+
+// The gather: out[b, c, kk, q] = T(float(u[b, c, idx[b, q, kk]]) + float(v[b,
+// c, q])) for the rows (b, c) of this block's run of the B * C3 rows.
+template <typename T, int KPT>
+__global__ void __launch_bounds__(kThreads)
+edge_gather_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                   const int* __restrict__ idx, T* __restrict__ out, int N, int C3, int k,
+                   int64_t rows) {
+  constexpr int kV = 16 / static_cast<int>(sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);  // kGatherStages x (u row, v row)
+  const int runs = N / kV, tid = threadIdx.x;
+  const int q = (tid % runs) * kV, kk0 = (tid / runs) * KPT;
+  const bool active = kk0 < k;
+  const int64_t r0 = rows * blockIdx.x / gridDim.x;
+  const int64_t r1 = rows * (blockIdx.x + 1) / gridDim.x;
+  for (int64_t seg = r0; seg < r1;) {  // the rows of one sample at a time
+    const int64_t b = seg / C3;
+    const int64_t end = min(r1, (b + 1) * C3);
+    int ix[kV][KPT];
+    if (active) {
+#pragma unroll
+      for (int e = 0; e < kV; ++e) load_ints<KPT>(idx + (b * N + q + e) * k + kk0, ix[e]);
+    }
+    int done = 0;  // rows go through the ring in order
+    pipeline<kGatherStages>(
+        static_cast<int>(end - seg),
+        [&](int st, int i) {
+          const T* us = u + (seg + i) * N;
+          const T* vs = v + (seg + i) * N;
+          T* dst = ring + st * 2 * N;
+          for (int e = tid; e < 2 * runs; e += kThreads) {
+            cp_async16(dst + e * kV, e < runs ? us + e * kV : vs + (e - runs) * kV);
+          }
+        },
+        [&](int st) {
+          const int64_t row = seg + done++;
+          if (!active) return;
+          const T* us = ring + st * 2 * N;
+          float vf[kV];
+          load_vec(us + N + q, vf);
+          T* o = out + (row * k + kk0) * N + q;
+#pragma unroll
+          for (int j = 0; j < KPT; ++j) {
+            float g[kV];
+#pragma unroll
+            for (int e = 0; e < kV; ++e) g[e] = vnk_load(us[ix[e][j]]) + vf[e];
+            store_stream(o + static_cast<int64_t>(j) * N, g);
+          }
+        });
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free for the next sample's rows
+    seg = end;
+  }
+}
 template <template <int> class Launch, typename... Args>
 int by_k(int k, Args... args) {
   if (k <= 16) return Launch<16>::run(args...);
@@ -264,16 +582,91 @@ struct LaunchKnn {
   }
 };
 
+// K3's designs (ops/knn_pallas.py::edge_design)
+enum EdgeDesign { kEdgeWarp = 0, kEdgeCoords = 1, kEdgeTiled = 2 };
+
+template <typename T>
+int launch_gather(const T* u, const T* v, const int* idx, T* out, int B, int N, int C3, int k,
+                  cudaStream_t s) {
+  using Kernel = void (*)(const T*, const T*, const int*, T*, int, int, int, int64_t);
+  Kernel kernel = nullptr;
+  switch (gather_kpt(N, k, 16 / static_cast<int>(sizeof(T)))) {
+    case 1: kernel = &edge_gather_kernel<T, 1>; break;
+    case 2: kernel = &edge_gather_kernel<T, 2>; break;
+    case 4: kernel = &edge_gather_kernel<T, 4>; break;
+    case 8: kernel = &edge_gather_kernel<T, 8>; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem = kGatherStages * 2 * N * static_cast<int>(sizeof(T));
+  const int slots = vnk_resident_blocks(reinterpret_cast<const void*>(kernel), kThreads, smem);
+  if (slots == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t rows = static_cast<int64_t>(B) * C3;  // as many blocks as the card holds
+  if (rows == 0) return 0;
+  const int grid = static_cast<int>(rows < slots ? rows : slots);
+  kernel<<<grid, kThreads, static_cast<size_t>(smem), s>>>(u, v, idx, out, N, C3, k, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int K>
 struct LaunchEdge {
   template <typename X, typename T>
   static int run(const X* x, const T* u, const T* v, T* out, int* idx, int B,
-                 int N, int D, int C3, int k, cudaStream_t s) {
-    const dim3 grid((N + kEdgeQueries - 1) / kEdgeQueries, B);
-    const size_t shmem = sizeof(float) * kWarps * D + sizeof(int) * kEdgeQueries * k;
-    edge_knn_gather_kernel<K, X, T><<<grid, kThreads, shmem, s>>>(
-        x, u, v, out, idx, N, D, C3, k);
-    return static_cast<int>(cudaGetLastError());
+                 int N, int D, int C3, int k, int design, cudaStream_t s) {
+    if (design == kEdgeWarp) {
+      const dim3 grid((N + kEdgeQueries - 1) / kEdgeQueries, B);
+      const size_t shmem = sizeof(float) * kWarps * D + sizeof(int) * kEdgeQueries * k;
+      edge_knn_gather_kernel<K, X, T><<<grid, kThreads, shmem, s>>>(
+          x, u, v, out, idx, N, D, C3, k);
+      return static_cast<int>(cudaGetLastError());
+    }
+    if constexpr (K > 32) {  // the lane lists of the new designs hold at most 32
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      return run_select_gather(x, u, v, out, idx, B, N, D, C3, k, design, s);
+    }
+  }
+
+  // "coords" or "tiled": the selection, then the gather; both take 16-byte rows
+  template <typename X, typename T>
+  static int run_select_gather(const X* x, const T* u, const T* v, T* out, int* idx, int B,
+                               int N, int D, int C3, int k, int design, cudaStream_t s) {
+    constexpr int kVt = 16 / static_cast<int>(sizeof(T));
+    if (gather_kpt(N, k, kVt) == 0 || !aligned16(u, N, kVt) ||
+        !aligned16(v, N, kVt) || !aligned16(out, N, kVt)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (design == kEdgeCoords) {
+      const dim3 grid((N + kSelQueries - 1) / kSelQueries, B);
+      if (D > kCoordsMaxD) return static_cast<int>(cudaErrorInvalidValue);
+      const int smem = static_cast<int>(sizeof(float)) * (D + 1) * N;
+      auto kernel = &edge_select_coords<K, X>;
+      if (vnk_resident_blocks(reinterpret_cast<const void*>(kernel), kThreads, smem) == 0) {
+        return static_cast<int>(cudaErrorInvalidConfiguration);
+      }
+      kernel<<<grid, kThreads, static_cast<size_t>(smem), s>>>(x, idx, N, D, k);
+    } else if (design == kEdgeTiled) {
+      constexpr int kVx = 16 / static_cast<int>(sizeof(X));
+      if (N > kTiledMaxN || N % kTileQ != 0 || !aligned16(x, N, kVx)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      using Kernel = void (*)(const X*, int*, int, int, int);
+      const int rj = (N + kTileR - 1) / kTileR;
+      const Kernel kernel = rj <= 1   ? &edge_select_tiled<K, 1, X>
+                            : rj <= 2 ? &edge_select_tiled<K, 2, X>
+                            : rj <= 4 ? &edge_select_tiled<K, 4, X>
+                                      : &edge_select_tiled<K, 8, X>;
+      const int smem = tiled_smem<X>(N);
+      const dim3 grid((N + kSelQueries - 1) / kSelQueries, B);
+      if (vnk_resident_blocks(reinterpret_cast<const void*>(kernel), kThreads, smem) == 0) {
+        return static_cast<int>(cudaErrorInvalidConfiguration);
+      }
+      kernel<<<grid, kThreads, static_cast<size_t>(smem), s>>>(x, idx, N, D, k);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return launch_gather<T>(u, v, idx, out, B, N, C3, k, s);
   }
 };
 
@@ -298,22 +691,25 @@ VNK_EXPORT int knn_min(const void* q, const void* rt, void* vals, void* idx,
 }
 
 // x: (B, D, N), u, v: (B, C3, N) float32 -> out (B, C3, k, N) float32,
-// idx (B, N, k) int32; D <= 512.
+// idx (B, N, k) int32; D <= 512; design: 0 warp, 1 coords, 2 tiled
+// (ops/knn_pallas.py::edge_design; a design that cannot take the shape
+// returns cudaErrorInvalidValue).
 VNK_EXPORT int edge_knn_gather(const void* x, const void* u, const void* v,
                                void* out, void* idx, int B, int N, int D, int C3,
-                               int k, void* stream) {
+                               int k, int design, void* stream) {
   if (B == 0 || N == 0) return 0;
   return by_k<LaunchEdge>(k, static_cast<const float*>(x), static_cast<const float*>(u),
                           static_cast<const float*>(v), static_cast<float*>(out),
-                          static_cast<int*>(idx), B, N, D, C3, k,
+                          static_cast<int*>(idx), B, N, D, C3, k, design,
                           static_cast<cudaStream_t>(stream));
 }
 
 // The bf16 mode: u, v bfloat16 -> out (B, C3, k, N) bfloat16, idx int32;
-// x (B, D, N) bfloat16 when x_bf16 is set, else float32; D <= 512.
+// x (B, D, N) bfloat16 when x_bf16 is set, else float32; D <= 512; design
+// as above.
 VNK_EXPORT int edge_knn_gather_bf16(const void* x, const void* u, const void* v,
                                     void* out, void* idx, int B, int N, int D,
-                                    int C3, int k, int x_bf16, void* stream) {
+                                    int C3, int k, int x_bf16, int design, void* stream) {
   if (B == 0 || N == 0) return 0;
   const vnk_bf16* ub = static_cast<const vnk_bf16*>(u);
   const vnk_bf16* vb = static_cast<const vnk_bf16*>(v);
@@ -322,7 +718,7 @@ VNK_EXPORT int edge_knn_gather_bf16(const void* x, const void* u, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16)
     return by_k<LaunchEdge>(k, static_cast<const vnk_bf16*>(x), ub, vb, ob, ib, B,
-                            N, D, C3, k, st);
+                            N, D, C3, k, design, st);
   return by_k<LaunchEdge>(k, static_cast<const float*>(x), ub, vb, ob, ib, B, N,
-                          D, C3, k, st);
+                          D, C3, k, design, st);
 }

@@ -112,7 +112,8 @@ class CudaKernel:
     C function returns ``cudaGetLastError()``).
     """
 
-    def __init__(self, source: str, symbol: str, argtypes: list, name: str = ""):
+    def __init__(self, source: str, symbol: str, argtypes: list, name: str = "",
+                 counted: bool = True):
         self.source = source
         self.symbol = symbol
         self.name = name or symbol  # the key of its count in launch_counts()
@@ -120,7 +121,8 @@ class CudaKernel:
         self.launches = 0
         self.variants: Dict[str, int] = {}  # launches by design, where one is named
         self._fn = None
-        KERNELS.append(self)
+        if counted:  # a probe that no path launches (counted=False) stays out of the counts
+            KERNELS.append(self)
 
     def __call__(self, like, *args, variant: str = "") -> None:
         """Launch on the device of tensor ``like``, on PyTorch's current
@@ -159,10 +161,11 @@ def variant_counts() -> Dict[str, int]:
     return {f"{k.name}/{v}": n for k in KERNELS for v, n in k.variants.items()}
 
 
-def check_cuda(name: str, takes: str, *pairs) -> None:
-    """Raise unless each ``(tensor, dtype)`` of ``pairs`` is a contiguous
-    tensor of that dtype, all on one card.  ``takes`` says in words what
-    the kernel takes (its modes' element types), for the error."""
+def check_cuda(name: str, takes: str, *pairs, contiguous: bool = True) -> None:
+    """Raise unless each ``(tensor, dtype)`` of ``pairs`` is a tensor of
+    that dtype (and contiguous, unless the kernel reads strides), all on
+    one card.  ``takes`` says in words what the kernel takes (its modes'
+    element types), for the error."""
     dev = pairs[0][0].device
     for t, dtype in pairs:
         if t.device != dev or t.device.type != "cuda":
@@ -170,5 +173,5 @@ def check_cuda(name: str, takes: str, *pairs) -> None:
         if t.dtype != dtype:
             raise TypeError(f"{name} takes {takes}; got {t.dtype} where it "
                             f"takes {dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: expects contiguous tensors")

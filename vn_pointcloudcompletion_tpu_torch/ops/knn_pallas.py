@@ -19,7 +19,12 @@ float64 in the plain versions; the kernels take float32, and K2's wrapper
 upcasts bf16 points exactly).  K3 has a bf16 mode for the bfloat16 compute
 policy: bf16 features u and v (and bf16 or float32 ``xflat``, read as
 float32), the exact gather, and the centre add ``bf16(float(u[idx]) +
-float(v))``; its launches count under ``edge_knn_gather[bf16]``.
+float(v))``; its launches count under ``edge_knn_gather[bf16]``.  K3 runs
+one of three designs of ``csrc/knn.cu``, chosen by shape in
+:func:`edge_design` and counted by name (``cuda_lib.variant_counts``):
+``coords`` and ``tiled`` (a selection, then a gather that streams the
+output over the whole card), ``warp`` (the parent design) where they do not
+reach.
 
 Each is a ``torch.autograd.Function``: on a CUDA tensor its forward launches
 the kernel of ``csrc/knn.cu``, on a CPU tensor it takes the plain version.
@@ -48,8 +53,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _TOPK = CudaKernel("knn.cu", "topk_min", [_P] * 3 + [_I] * 3 + [_P])
 _KNN = CudaKernel("knn.cu", "knn_min", [_P] * 4 + [_I] * 5 + [_P])
-_EDGE = CudaKernel("knn.cu", "edge_knn_gather", [_P] * 5 + [_I] * 5 + [_P])
-_EDGE_BF16 = CudaKernel("knn.cu", "edge_knn_gather_bf16", [_P] * 5 + [_I] * 6 + [_P],
+_EDGE = CudaKernel("knn.cu", "edge_knn_gather", [_P] * 5 + [_I] * 6 + [_P])
+_EDGE_BF16 = CudaKernel("knn.cu", "edge_knn_gather_bf16", [_P] * 5 + [_I] * 7 + [_P],
                         "edge_knn_gather[bf16]")
 EDGE_TAKES = ("float32 xflat, u and v, or (its bf16 mode) bf16 u and v with bf16 "
               "or float32 xflat")
@@ -69,6 +74,45 @@ def edge_gather_eligible(n: int, d: int, k: int, c3: int) -> bool:
     """Where the JAX package takes K3 on a TPU (knn_pallas.py:283)."""
     return (n <= 2048 and d <= _MAX_D and k in (16, 32) and c3 <= 1536
             and n * c3 <= 512 * 1536)
+
+
+EDGE_DESIGNS = ("warp", "coords", "tiled")  # csrc/knn.cu EdgeDesign, in its order
+_GATHER_THREADS = 256  # the gather's block (csrc knn.cu kThreads)
+_COORDS_MAX_D = 4
+_TILED_MAX_N = 512
+
+
+def gather_slots(n: int, k: int, bf16: bool) -> int:
+    """Neighbour slots each thread of K3's gather takes (csrc
+    ``gather_kpt``): a thread owns one 16-byte run of queries (4 float32
+    or 8 bf16) and ``k / (256 / runs)`` consecutive slots, which must be 1,
+    2, 4 or 8; 0 where the shape does not fit (N not whole runs, more than
+    256 runs, or k not split evenly)."""
+    vec = 8 if bf16 else 4
+    runs = n // vec
+    if n % vec or runs > _GATHER_THREADS:
+        return 0
+    share = _GATHER_THREADS // runs
+    kpt = k // share
+    return kpt if k % share == 0 and kpt in (1, 2, 4, 8) else 0
+
+
+def edge_design(n: int, d: int, k: int, bf16: bool) -> str:
+    """Which design kernel K3 runs at N points, D distance coordinates,
+    k neighbours, bf16 features or float32: ``"coords"`` at D <= 4 (each
+    distance formed as a query's lanes scan the staged planes) and
+    ``"tiled"`` at D > 4 and N <= 512 a multiple of 8 (a register-tiled
+    product fills a distance tile in shared memory, then the lanes select
+    from it), both followed by the gather over the whole card, which needs
+    k <= 32 and :func:`gather_slots`; ``"warp"`` (one warp a query, then
+    the block's gather: the parent design) elsewhere.  Every design gives
+    the same indices and bits; a CUDA launch takes the one chosen here or
+    raises."""
+    if k > 32 or gather_slots(n, k, bf16) == 0:
+        return "warp"
+    if d <= _COORDS_MAX_D:
+        return "coords"
+    return "tiled" if n <= _TILED_MAX_N and n % 8 == 0 else "warp"
 
 
 def _ct(t: torch.Tensor) -> torch.dtype:
@@ -201,14 +245,18 @@ def edge_knn_gather_fwd(xflat: torch.Tensor, u: torch.Tensor, v: torch.Tensor, k
     dt = torch.bfloat16 if bf16 else torch.float32
     xdt = torch.bfloat16 if bf16 and xflat.dtype == torch.bfloat16 else torch.float32
     check_cuda("edge_knn_gather", EDGE_TAKES, (xflat, xdt), (u, dt), (v, dt))
+    design = edge_design(n, dim, k, bf16)
+    if design != "warp":  # the new designs copy whole rows by cp.async (16-byte aligned)
+        xflat, u, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (xflat, u, v))
     out = torch.empty((b, c3, k, n), device=u.device, dtype=dt)
     idx = torch.empty((b, n, k), device=u.device, dtype=torch.int32)
     ptrs = (xflat.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(), idx.data_ptr(),
             b, n, dim, c3, k)
+    code = EDGE_DESIGNS.index(design)
     if bf16:
-        _EDGE_BF16(u, *ptrs, int(xdt == torch.bfloat16))
+        _EDGE_BF16(u, *ptrs, int(xdt == torch.bfloat16), code, variant=design)
     else:
-        _EDGE(u, *ptrs)
+        _EDGE(u, *ptrs, code, variant=design)
     return out, idx
 
 
