@@ -35,11 +35,21 @@ on one NVIDIA GPU:
    (the same launch without the per-point arithmetic), K3 in both modes at
    the five path shapes (EDGE_SHAPES: "coords" over coordinates, "tiled"
    over vn_pointr's features) beside the parent "warp" design, both by
-   device time too (graph_ms; K3 split into its selection and its gather).
+   device time too (graph_ms; K3 split into its selection and its gather);
+   K2 at every path shape (KNN_SHAPES: D 3, "coords") on the scans and on
+   the lane-tie cloud against its plain version, twice and against the
+   parent "warp" design for equal bits, and A in bf16 at every path shape
+   (A_BF16_SHAPES, "run8") against its plain version and the parent
+   "vector" design, equal to the bit; both timed beside their parent
+   design (versus_parent: a call, back to back, on the device), K2 also
+   against cdist + topk, and at D 64, k 40 (the warp design).
    Phases 4-13 check that every counted B took the stream design, every C
-   the wide one, every B' the fused pass, every F its one design and every
-   K3 its path's (check_designs), and phases 5, 7, 9 and 13 that kernel S
-   took its design at every layer of every step (check_stats_designs).
+   the wide one, every B' the fused pass, every F its one design, every K2
+   the coords design, every A in bf16 the run8 design and every K3 its
+   path's (check_designs); phase 11 that the classic DGCNN's K2 took coords
+   over its coordinates and warp over its 64 features; and phases 5, 7, 9
+   and 13 that kernel S took its design at every layer of every step
+   (check_stats_designs).
 4. Serving the flagship at full width (encoder latent 1024 -> 2048-channel
    global feature, 2048 input points, 1024 coarse, 16384 dense points,
    random weights from a seed) through the port's command line: ``predict``
@@ -92,8 +102,8 @@ on one NVIDIA GPU:
    (dense matching at 1024 points: no E launch, as in JAX).
 11. The standalone ``PCN``, ``VNPCN`` and classic ``DGCNN`` (k 40) at batch
    8, 2048 points: each forward through the kernels against the plain path,
-   the launches of one forward asserted (DGCNN: K2 4), K2 at k 40 on the
-   synthetic partials against its plain version.
+   the launches of one forward asserted (DGCNN: K2 4, two coords and two
+   warp), K2 at k 40 on the synthetic partials against its plain version.
 12. The bfloat16 policy's serving path (``nn/precision.py``): the eval
    forwards of the flagship, ``vn_dgcnn`` and ``vn_pointr_448`` at full
    width, batch 8, under ``compute_dtype_scope(torch.bfloat16)``, each
@@ -264,8 +274,9 @@ BF16_TRAIN_EPOCHS = 2  # phase 13's train epochs before --resume
 # vn_folding{1,2}.1's 256 -> 128), S and S' narrow below (final_conv.0's 2
 # -> 256, conv1's 2 -> 32, the pair folds' 1 -> 256 at group 64); B the
 # store stream and B' fused at C_in <= 2 (final_conv.0, conv1, the pair
-# folds); vn_pointr's F and K3 (on its features: tiled) too.  Phase 5b
-# (float32) and phase 13 (bf16) assert them.
+# folds); vn_pointr's F, K2 (coords) and K3 (on its features: tiled) too,
+# and A in bf16 (run8; float32 A has one design and counts none).  Phase
+# 5b (float32) and phase 13 (bf16) assert them.
 # Kernel S (ops/vn_layer_fused.py::stats_design) takes the same widths'
 # designs as S' in every train step: STATS_STEP_DESIGNS, asserted for each
 # counted training run of phases 5, 7, 9 and 13 (check_stats_designs) and
@@ -289,7 +300,8 @@ FLAGSHIP_STEP_DESIGNS = {"vn_layer_stats_bwd/narrow": 1, "vn_layer_stats_bwd/wid
                          "vn_layer_fused_project_fwd/wide": 1, "vn_layer_fused_bwd/fused": 1,
                          **STATS_STEP_DESIGNS["flagship"]}
 BF16_STEP_DESIGNS = {
-    "flagship": {"vn_layer_stats_bwd[bf16]/narrow": 1, "vn_layer_stats_bwd[bf16]/wide": 1,
+    "flagship": {"vn_bn_leaky_fwd[bf16]/run8": 2,
+                 "vn_layer_stats_bwd[bf16]/narrow": 1, "vn_layer_stats_bwd[bf16]/wide": 1,
                  "vn_layer_fused_fwd[bf16]/stream": 1, "vn_layer_fused_project_bwd[bf16]/wide": 1,
                  "vn_layer_fused_project_fwd[bf16]/wide": 1, "vn_layer_fused_bwd[bf16]/fused": 1,
                  **bf16_designs(STATS_STEP_DESIGNS["flagship"])},
@@ -303,14 +315,19 @@ BF16_STEP_DESIGNS = {
                       "vn_layer_fused_bwd[group,bf16]/fused": 2,
                       "edge_knn_gather[bf16]/tiled": 3,
                       "furthest_point_sample/single_barrier": 3,
+                      "knn_min/coords": 2, "vn_bn_leaky_fwd[bf16]/run8": 3,
                       **bf16_designs(STATS_STEP_DESIGNS["vn_pointr_448"])},
 }
 # Every launch of B on a main path (phases 4-13) takes the store stream
 # (every main-path B has C_in <= 2), every launch of C the wide design and
-# every launch of B' the fused pass: checked on each counted run
-# (check_designs).
+# every launch of B' the fused pass, every K2 launch (all over coordinates,
+# D 3) the "coords" design and every A launch in bf16 the "run8" design
+# (every main-path A has N a multiple of 8): checked on each counted run
+# (check_designs).  A name with its mode ("[bf16]") is held to its own
+# entry, B, C, B', F and K2 in either mode to their base name's.
 MAIN_DESIGNS = {"vn_layer_fused_fwd": "stream", "vn_layer_fused_project_fwd": "wide",
-                "vn_layer_fused_bwd": "fused", "furthest_point_sample": "single_barrier"}
+                "vn_layer_fused_bwd": "fused", "furthest_point_sample": "single_barrier",
+                "knn_min": "coords", "vn_bn_leaky_fwd[bf16]": "run8"}
 # Every K3 launch of a path takes the design of the path's shapes
 # (ops/knn_pallas.py::edge_design): "coords" over the VN DGCNN's coordinates
 # (D 3, N 512), "tiled" over vn_pointr's features (D 96 and 192 at N 512, D
@@ -456,17 +473,106 @@ def narrow_designs():
 
 
 @contextlib.contextmanager
-def warp_design():
-    """K3 held to its "warp" design (the parent design: one warp a query,
-    then the block's gather) inside the block."""
-    from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas
+def parent_designs():
+    """K2 and K3 held to their "warp" designs (the parent designs: one warp
+    a query; K3 then the block's gather) and A's bf16 mode to its "vector"
+    design (one thread a vector) inside the block."""
+    from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas, vn_fused
 
-    saved = knn_pallas.edge_design
-    knn_pallas.edge_design = lambda *shape: "warp"
+    choosers = ((knn_pallas, "edge_design", "warp"), (knn_pallas, "knn_design", "warp"),
+                (vn_fused, "fwd_design", "vector"))
+    saved = [getattr(mod, name) for mod, name, _ in choosers]
+    for mod, name, design in choosers:
+        setattr(mod, name, lambda *shape, design=design: design)
     try:
         yield
     finally:
-        knn_pallas.edge_design = saved
+        for (mod, name, _), fn_ in zip(choosers, saved):
+            setattr(mod, name, fn_)
+
+
+def knn_scan_sass(sass: str) -> tuple:
+    """(instructions, references a lane) of one trip of K2's coords scan
+    when no lane flushes, read from ``cuobjdump -sass`` text of the knn
+    library: in knn_select_coords<16, false>, the innermost loop around the
+    flush vote (VOTE.ANY) less the span that the vote's branch skips (the
+    flush); a trip's references a lane are its 16-byte shared loads (one
+    float4 a reference).  Raises ValueError where the code has no such
+    loop."""
+    import re
+
+    head = re.search(r"Function : \S*knn_select_coordsILi16ELb0E\S*", sass)
+    if head is None:
+        raise ValueError("no knn_select_coords<16, false> in the SASS")
+    body = sass[head.end():].split("Function :", 1)[0]
+    ins = [(int(a, 16), op.strip())
+           for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+
+    def target(op):
+        hit = re.search(r"\bBRA (0x[0-9a-f]+)", op)
+        return None if hit is None else int(hit.group(1), 16)
+
+    votes = [a for a, op in ins if op.startswith("VOTE.ANY")]
+    if len(votes) != 1:
+        raise ValueError(f"{len(votes)} warp votes in knn_select_coords<16, false>")
+    vote = votes[0]
+    loops = [(target(op), a) for a, op in ins
+             if target(op) is not None and target(op) <= vote < a]
+    if not loops:
+        raise ValueError("no loop around the flush vote")
+    top, end = max(loops)  # the innermost
+    skips = [(a, target(op)) for a, op in ins
+             if vote < a < end and target(op) is not None and target(op) > a]
+    if not skips or skips[0][1] > end:
+        raise ValueError("no branch past the flush inside the loop")
+    skip, back = skips[0]
+    trip = [op for a, op in ins if top <= a <= skip or back <= a <= end]
+    return len(trip), sum(op.startswith("LDS.128") for op in trip)
+
+
+def knn_scan_issue() -> tuple:
+    """``knn_scan_sass`` of the knn library built in this run (cuobjdump
+    -sass of the CUDA toolkit that built it)."""
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib
+
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    tool = os.path.join(home, "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+        if tool is None:
+            raise ValueError("no cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(cuda_lib.library_path(cuda_lib.CSRC / "knn.cu"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    return knn_scan_sass(sass)
+
+
+def launched_designs(fn):
+    """``fn()`` and the designs its launches took, sorted (the names whose
+    count in cuda_lib.variant_counts() moved in the call)."""
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib
+
+    before = cuda_lib.variant_counts()
+    out = fn()
+    return out, sorted(k.split("/")[1] for k, v in cuda_lib.variant_counts().items()
+                       if v != before.get(k, 0))
+
+
+def versus_parent(rec: dict, fn, reps: int = 20) -> None:
+    """A redesigned kernel's row (K2 and A bf16) against its parent design
+    at the same shape in the same call: the parent's time a call
+    (``cuda_ms``), back to back (``stream_ms``) and on the device alone
+    (``graph_ms``), printed first, then the new design's, each with its
+    share of the row's bound; kept in the row."""
+    with parent_designs():
+        parent = cuda_ms(fn, reps), stream_ms(fn, reps), graph_ms(fn)
+    new = rec["ms"], stream_ms(fn, reps), graph_ms(fn)
+    bound_ms = rec["bound_ms"]
+    for who, (ms, b2b, dev_ms) in (("parent design", parent), (f"{rec['design']} design", new)):
+        print(f"[kernel {rec['name']}] {who}: {ms:.4f} ms a call, {b2b:.4f} back to back, "
+              f"{dev_ms:.4f} on the device; {bound_ms / dev_ms:.1%} of the bound on the "
+              f"device ({bound_ms / b2b:.1%} back to back)", flush=True)
+    rec.update({"stream_ms": new[1], "graph_ms": new[2], "parent_ms": parent[0],
+                "parent_stream_ms": parent[1], "parent_graph_ms": parent[2]})
 
 
 def narrow_ms(fn, reps: int) -> float:
@@ -478,22 +584,25 @@ def narrow_ms(fn, reps: int) -> float:
 
 
 def check_designs(what: str, counts: dict, variants: dict, path: str = "") -> None:
-    """Each launch of B, C, B' and F in ``counts`` (any mode) took its
-    MAIN_DESIGNS design, and each of K3 the design of ``path``'s shapes
-    (EDGE_PATH_DESIGNS): ``variants`` (cuda_lib.variant_counts() of the
-    same run) counts them all there."""
-    def base(key):
-        return key.split("/")[0].split("[")[0]
-
+    """Each launch of B, C, B', F and K2 in ``counts`` (any mode) and of A
+    in bf16 took its MAIN_DESIGNS design, and each of K3 the design of
+    ``path``'s shapes (EDGE_PATH_DESIGNS): ``variants``
+    (cuda_lib.variant_counts() of the same run) counts them all there."""
     designs = dict(MAIN_DESIGNS)
     if path in EDGE_PATH_DESIGNS:
         designs["edge_knn_gather"] = EDGE_PATH_DESIGNS[path]
-    want = {f"{k}/{designs[base(k)]}": v for k, v in counts.items()
-            if v and "/" not in k and base(k) in designs}
-    got = {k: v for k, v in variants.items() if v and base(k) in designs}
-    print(f"{what} B, C, B', F and K3 launches by design: {json.dumps(got)}")
+
+    def design_of(key):  # the design the launches counted under ``key`` must take
+        name = key.split("/")[0]
+        return designs.get(name, designs.get(name.split("[")[0]))
+
+    want = {f"{k}/{design_of(k)}": v for k, v in counts.items()
+            if v and "/" not in k and design_of(k)}
+    got = {k: v for k, v in variants.items() if v and design_of(k)}
+    print(f"{what} B, C, B', F, K2, K3 and bf16 A launches by design: {json.dumps(got)}")
     if got != want:
-        raise AssertionError(f"{what}: B, C, B', F and K3 designs {got}, expected {want}")
+        raise AssertionError(f"{what}: B, C, B', F, K2, K3 and bf16 A designs {got}, "
+                             f"expected {want}")
 
 
 def stats_wide_vs_narrow(x, w, shape: str) -> None:
@@ -567,11 +676,10 @@ def check_kernels(dev):
 
     def record(name, source, replaces, kernel_fn, plain_fn, compare, tol,
                work_bytes, work_ops, reps=20, plain_reps=5, repro=False,
-               library_fn=None, peak_ops=PEAK_FP32):
-        before = cuda_lib.variant_counts()
-        got = kernel_fn()
-        designs = sorted(k.split("/")[1] for k, v in cuda_lib.variant_counts().items()
-                         if v != before.get(k, 0))
+               library_fn=None, peak_ops=PEAK_FP32, versus=False):
+        """One row of the kernels line; ``versus``: the caller goes on to
+        ``versus_parent``, which times the parent design."""
+        got, designs = launched_designs(kernel_fn)
         want = plain_fn()
         torch.cuda.synchronize()
         err, ok = compare(got, want)
@@ -602,11 +710,12 @@ def check_kernels(dev):
             if designs in (["wide"], ["fused"], ["stream"]):
                 narrow = ("; the narrow design at the same shape: "
                           f"{narrow_ms(kernel_fn, max(3, reps // 2)):.4f} ms")
-            elif designs in (["coords"], ["tiled"]):
-                with warp_design():
-                    narrow = ("; the warp (parent) design at the same shape: "
+            elif designs in (["coords"], ["tiled"], ["run8"]) and not versus:
+                with parent_designs():
+                    narrow = ("; the parent design at the same shape: "
                               f"{cuda_ms(kernel_fn, max(3, reps // 2)):.4f} ms, "
                               f"{stream_ms(kernel_fn, max(3, reps // 2)):.4f} back to back")
+            rec["design"] = "/".join(designs)
             print(f"[kernel {name}] {'/'.join(designs)} design: "
                   f"{work_ops / rec['ms'] / 1e9:.2f} TFLOP/s, {work_bytes / rec['ms'] / 1e6:.1f} "
                   f"GB/s, {b_ms / rec['ms']:.1%} of the bound{narrow}", flush=True)
@@ -881,17 +990,7 @@ def check_bf16_kernels(dev, record, randn, uniform):
         ok = got.dtype == bf and rms <= BF16_C_RMS and mutant >= 4 * BF16_C_RMS
         return (got.float() - want.float()).abs().max().item(), ok
 
-    c, n = 1024, 2048
-    p, d = randn(BATCH, 3, c, n).to(bf), randn(BATCH, 3, c, n).to(bf)
-    p[:, :, :8, :16] = 0.0
-    a, b = uniform(0.5, 1.5, c), randn(c, scale=0.3)
-    vecs = BATCH * c * n
-    record("A fused_bn_leaky bf16", src + "vn_fused.cu", at + "vn_fused.py:189",
-           lambda: vn_fused.fused_bn_leaky(p, d, a, b, NS),
-           lambda: vn_fused.reference_bn_leaky_planes(p, d, a, b, NS),
-           equal, "equal to the bit", nbytes(p, d, a, b) + nbytes(p), 32 * vecs,
-           peak_ops=PEAK_BF16)
-    del p, d
+    check_a_bf16(record, randn, uniform)
 
     n, c_out = 16384, 256
     x = randn(BATCH, 3, 2, n, scale=0.3).to(bf)
@@ -959,6 +1058,61 @@ def check_bf16_kernels(dev, record, randn, uniform):
         u, v = randn(BATCH, c3, n).to(bf), randn(BATCH, c3, n).to(bf)
         edge_record(record, "K3 edge_knn_gather", src + "knn.cu", xf, u, v, 16)
     check_bf16_train_kernels(dev, record, randn, uniform)
+
+
+def check_a_bf16(record, randn, uniform):
+    """Phase 3, kernel A in bf16 at every shape of the paths
+    (A_BF16_SHAPES): the run8 design against its plain version and its
+    parent (vector) design, equal to the bit, and timed beside the parent
+    design; the flagship's second_conv.0 (C 1024, N 2048) is the row of
+    the kernels line."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.ops import vn_fused
+
+    bf = torch.bfloat16
+
+    def equal(got, want):
+        same = got.dtype == bf and torch.equal(got, want)
+        return (got.float() - want.float()).abs().max().item(), same
+
+    # A at every shape of the paths (A_BF16_SHAPES), the run8 design against
+    # its plain version and its parent design, equal to the bit; the
+    # flagship's second_conv.0 (C 1024, N 2048) is the timed row, the
+    # others are timed beside the parent design
+    for c, n in A_BF16_SHAPES:
+        p, d = randn(BATCH, 3, c, n).to(bf), randn(BATCH, 3, c, n).to(bf)
+        p[:, :, :8, :16] = 0.0
+        a, b = uniform(0.5, 1.5, c), randn(c, scale=0.3)
+        fn = lambda: vn_fused.fused_bn_leaky(p, d, a, b, NS)  # noqa: E731
+        work = nbytes(p, d, a, b) + nbytes(p), 32 * BATCH * c * n
+        if (c, n) == A_BF16_SHAPES[0]:
+            rec = record("A fused_bn_leaky bf16", "vn_pointcloudcompletion_tpu_torch/csrc/vn_fused.cu",
+                         "vn_pointcloudcompletion_tpu/ops/vn_fused.py:189", fn,
+                         lambda: vn_fused.reference_bn_leaky_planes(p, d, a, b, NS),
+                         equal, "equal to the bit", *work, repro=True, peak_ops=PEAK_BF16,
+                         versus=True)
+        else:
+            got, designs = launched_designs(fn)
+            _, ok = equal(got, vn_fused.reference_bn_leaky_planes(p, d, a, b, NS))
+            rec = {"name": f"A fused_bn_leaky bf16 C {c} N {n}", "ms": cuda_ms(fn, 20),
+                   "bound_ms": bound(*work, PEAK_BF16)[0], "design": "/".join(designs)}
+            print(f"[kernel {rec['name']}] equal to the plain version: {ok}; bound "
+                  f"{rec['bound_ms']:.4f} ms (bytes)", flush=True)
+            if not ok:
+                raise AssertionError(f"kernel A bf16 disagrees with its plain version at C {c}, "
+                                     f"N {n}")
+        got = fn()
+        with parent_designs():
+            parent, parent_design = launched_designs(fn)
+        same = torch.equal(got, parent)
+        print(f"[kernel {rec['name']}] the {rec.get('design')} design's output bitwise equal to "
+              f"the parent ({'/'.join(parent_design)}) design's: {same}", flush=True)
+        if not same or rec.get("design") != "run8" or parent_design != ["vector"]:
+            raise AssertionError(f"kernel A bf16 at C {c}, N {n}: the run8 and vector designs "
+                                 "were not taken or differ")
+        versus_parent(rec, fn)
+        del p, d, got, parent
 
 
 def bf16_bwd_close(rel, exact=()):
@@ -1202,7 +1356,20 @@ def same_indices(rel):
     return cmp
 
 
+# Kernel A's bf16 shapes on the paths (C, N) at batch 8: the flagship's
+# second_conv.0 and first_conv.0, the VN DGCNN's conv4 and conv5 (the
+# EdgeConv's k 16 x 512 points; vn_pointr's conv4 and conv5 as well), its
+# conv6 (k 16 x 128 points) and vn_pointr's conv6
+A_BF16_SHAPES = ((1024, 2048), (128, 2048), (64, 8192), (128, 8192), (512, 2048))
+# K2's shapes on the paths (N, M, k), all over coordinates (D 3): the VN
+# DGCNN's conv1 and vn_pointr's grouper (2048 vs 2048), the VN DGCNN's
+# conv6 (128 vs 128), dgcnn_448's grouper layers (2048/2048, 512/2048,
+# 512/512, 128/512), vn_pointr's proxy graph (128 vs 128 at k 8) and the
+# classic DGCNN's first two graphs (2048 vs 2048 at k 40)
+KNN_SHAPES = ((2048, 2048, 16), (128, 128, 16), (512, 2048, 16), (512, 512, 16),
+              (128, 512, 16), (128, 128, 8), (2048, 2048, 40))
 # K3's shapes on the paths (N, D, C3), k 16: the VN DGCNN's conv5 and conv4
+
 # over the coordinates, vn_pointr's conv4, conv5 and conv6 over its features
 EDGE_SHAPES = ((512, 3, 768), (512, 3, 384), (512, 96, 384), (512, 192, 384), (128, 192, 768))
 # F's (N, S) on the paths: the trunks' 2048 -> 512 -> 128, num_coarse 448's tail
@@ -1261,6 +1428,113 @@ def edge_record(record, name, source, x, u, v, k):
     return rec
 
 
+def check_knn_kernel(dev, record, randn, uniform, q):
+    """Phase 3, kernel K2 at every shape of the paths (KNN_SHAPES) against
+    its plain version and its parent (warp) design, the (8, 2048 vs 2048,
+    k 16) row timed beside the parent design and two PyTorch calls; ``q``:
+    VN DGCNN conv1's input (B, 2048, 3)."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.ops import fps_pallas, knn_pallas
+
+    k = 16
+    src_knn = "vn_pointcloudcompletion_tpu_torch/csrc/knn.cu"
+
+    def pair_ops(n, m, dim):  # distance (2D + 3) and one compare per pair
+        return BATCH * n * m * (2 * dim + 4)
+
+    # K2 at every shape of the paths (KNN_SHAPES), queries and references
+    # taken as the paths take them: FPS 2048 -> 512 -> 128 over VN DGCNN
+    # conv1's own input (the rotated partial scans, whose resampling repeats
+    # points, so repeated centres and equal distances occur), on the
+    # lane-tie cloud (ties to the lowest index inside one lane's list and
+    # across a query's lanes) and on uniform random clouds; at each:
+    # indices equal to the plain version's, values within 1e-6 of its max,
+    # a second launch and the parent (warp) design equal to the bit
+    levels = {2048: q}
+    for m, prev in ((512, 2048), (128, 512)):
+        pick = fps_pallas.reference_furthest_point_sample(levels[prev], m).long()
+        levels[m] = torch.gather(levels[prev], 1, pick[..., None].expand(-1, -1, 3))
+    for n, m, kk in KNN_SHAPES:
+        tie = lane_tie_cloud(dev, BATCH, m)
+        for what, qq, rr in (("scans", levels[n], levels[m]),
+                             ("lane-tie cloud", tie[:, m - n:], tie),
+                             ("random clouds", uniform(-0.5, 0.5, BATCH, n, 3),
+                              uniform(-0.5, 0.5, BATCH, m, 3))):
+            (got, design), again = (launched_designs(lambda: knn_pallas.knn_min_fwd(qq, rr, kk)),
+                                    knn_pallas.knn_min_fwd(qq, rr, kk))
+            with parent_designs():
+                parent, parent_design = launched_designs(
+                    lambda: knn_pallas.knn_min_fwd(qq, rr, kk))
+            err, ok = same_indices(1e-6)(got, knn_pallas.reference_knn_min(qq, rr, kk))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            same_parent = all(torch.equal(a, b) for a, b in zip(got, parent))
+            design = "/".join(design)
+            ok = ok and same and same_parent and design == "coords" and parent_design == ["warp"]
+            print(f"[kernel K2] {n} vs {m}, k {kk}, {what} ({design}): max_abs_err {err:.3e} "
+                  f"(indices equal, values 1e-6 x max), equal bits again {same}, the parent "
+                  f"(warp) design's bits {same_parent} {'PASS' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"kernel K2 disagrees at {n} vs {m}, k {kk} on the {what}")
+    # timed at VN DGCNN conv1's shape (2048 vs 2048 on its own input, k 16);
+    # the yardstick is two PyTorch calls, cdist and topk (nearest by
+    # Euclidean distance, not squared: the same order, other values)
+    fn = lambda: knn_pallas.knn_min_fwd(q, q, k)  # noqa: E731
+    rec = record("K2 knn_min", src_knn, "vn_pointcloudcompletion_tpu/ops/knn_pallas.py:201", fn,
+                 lambda: knn_pallas.reference_knn_min(q, q, k),
+                 same_indices(1e-6), "indices equal, values 1e-6 x max",
+                 2 * nbytes(q) + 8 * BATCH * 2048 * k, pair_ops(2048, 2048, 3),
+                 reps=10, plain_reps=3, repro=True, versus=True,
+                 library_fn=lambda: torch.topk(torch.cdist(q, q), k, dim=-1, largest=False))
+    versus_parent(rec, fn)
+    # the issue floor of the coords design's scan, beside the row, not in
+    # it: a trip's warp instructions (knn_scan_issue: the SASS of the
+    # library built in this run) over its references a lane, 32 pairs a
+    # warp instruction, 4 issued a clock on each SM at the card's top clock
+    try:
+        trip, per_lane = knn_scan_issue()
+    except (OSError, ValueError, subprocess.SubprocessError) as exc:
+        print(f"[kernel K2 knn_min] the scan's issue floor: not measured ({exc})", flush=True)
+    else:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+        pairs = BATCH * 2048 * 2048
+        floor_ms = pairs * trip / per_lane / 32 / (sms * 4 * mhz * 1e6) * 1e3
+        print(f"[kernel K2 knn_min] the scan's issue floor: {pairs} pairs x {trip} "
+              f"instructions a trip / {per_lane} references a lane a trip (SASS of this build) "
+              f"/ 32 lanes / ({sms} SMs x 4 a clock x {mhz:.0f} MHz) = {floor_ms:.4f} ms "
+              f"({floor_ms / rec['graph_ms']:.1%} of the device time; the FP32 bound, 10 "
+              f"operations a pair at 67 TFLOP/s, {rec['bound_ms']:.4f} ms)", flush=True)
+    # the other path shapes' times beside the parent design; D 64 at k 40
+    # (the classic DGCNN's last two graphs) takes the warp design itself
+    feats = randn(BATCH, 2048, 64)
+    for n, m, dim, kk in ((512, 2048, 3, 16), (128, 128, 3, 16), (2048, 2048, 3, 40),
+                          (2048, 2048, 64, 40)):
+        qq, rr = (levels[n], levels[m]) if dim == 3 else (feats, feats)
+        fn = lambda: knn_pallas.knn_min_fwd(qq, rr, kk)  # noqa: E731
+        got, design = launched_designs(fn)
+        err, ok = same_indices(1e-6)(got, knn_pallas.reference_knn_min(qq, rr, kk))
+        ok = ok and all(torch.equal(a, b) for a, b in zip(got, fn()))
+        b_ms = bound(2 * nbytes(qq) + 8 * BATCH * n * kk, pair_ops(n, m, dim))[0]
+        row = {"name": f"K2 knn_min {n} vs {m} D {dim} k {kk}", "ms": cuda_ms(fn, 10),
+               "bound_ms": b_ms, "design": "/".join(design)}
+        print(f"[kernel {row['name']}] {row['design']} design: max_abs_err {err:.3e} (indices "
+              f"equal, values 1e-6 x max, equal bits again) {'PASS' if ok else 'FAIL'}; bound "
+              f"{b_ms:.4f} ms (operations)", flush=True)
+        if not ok:
+            raise AssertionError(f"kernel K2 disagrees at {n} vs {m}, D {dim}, k {kk}")
+        if row["design"] == "warp":
+            dev_ms = graph_ms(fn)
+            print(f"[kernel {row['name']}] warp (parent) design: {row['ms']:.4f} ms a call, "
+                  f"{stream_ms(fn, 10):.4f} back to back, {dev_ms:.4f} on the device; "
+                  f"{b_ms / dev_ms:.1%} of the bound on the device", flush=True)
+        else:
+            versus_parent(row, fn, reps=10)
+    del feats, tie, got, again, parent
+
+
 def check_knn_fps_kernels(dev, record, randn, uniform):
     """Phase 3, DGCNN family: K1, K2, K3 and F against their plain versions
     at the shapes of the VN DGCNN and DGCNN paths (batch 8, k 16), the
@@ -1278,9 +1552,6 @@ def check_knn_fps_kernels(dev, record, randn, uniform):
     def cloud(n):  # a partial scan's scale, 2048 -> 512 -> 128 FPS levels
         return uniform(-0.5, 0.5, BATCH, n, 3)
 
-    def pair_ops(n, m, dim):  # distance (2D + 3) and one compare per pair
-        return BATCH * n * m * (2 * dim + 4)
-
     # K1 over the (8, 2048, 2048) distance matrix of VN DGCNN conv1's input:
     # the rotated partial scans of the training batch, whose resampling
     # repeats points, so that equal distances occur; torch.topk as library
@@ -1296,36 +1567,7 @@ def check_knn_fps_kernels(dev, record, randn, uniform):
            library_fn=lambda: torch.topk(d, k, dim=-1, largest=False))
     del d
 
-    # K2: VN DGCNN conv1 (2048 vs 2048, its own input) is timed; conv6 (128
-    # vs 128) and the DGCNN layer2 shape (512 vs 2048) are checked
-    for n, m in ((128, 128), (512, 2048)):
-        qq, rr = cloud(n), cloud(m)
-        err, ok = same_indices(1e-6)(knn_pallas.knn_min_fwd(qq, rr, k),
-                                     knn_pallas.reference_knn_min(qq, rr, k))
-        print(f"[kernel K2] {n} vs {m}: max_abs_err {err:.3e} (indices equal, values "
-              f"1e-6 x max) {'PASS' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"kernel K2 disagrees at {n} vs {m}")
-    record("K2 knn_min", src_knn, "vn_pointcloudcompletion_tpu/ops/knn_pallas.py:201",
-           lambda: knn_pallas.knn_min_fwd(q, q, k),
-           lambda: knn_pallas.reference_knn_min(q, q, k),
-           same_indices(1e-6), "indices equal, values 1e-6 x max",
-           2 * nbytes(q) + 8 * BATCH * 2048 * k, pair_ops(2048, 2048, 3),
-           reps=10, plain_reps=3, repro=True)
-    # K2 at k 8 over vn_pointr's 128 centres of this input, its proxy graph:
-    # FPS 2048 -> 512 -> 128 as the grouper takes them (repeated points of
-    # the scans can make repeated centres, which tie)
-    c = q
-    for m in (512, 128):
-        pick = fps_pallas.reference_furthest_point_sample(c, m).long()
-        c = torch.gather(c, 1, pick[..., None].expand(-1, -1, 3))
-    got, again = knn_pallas.knn_min_fwd(c, c, 8), knn_pallas.knn_min_fwd(c, c, 8)
-    err, ok = same_indices(1e-6)(got, knn_pallas.reference_knn_min(c, c, 8))
-    ok = ok and all(torch.equal(a, b) for a, b in zip(got, again))
-    print(f"[kernel K2] 128 vs 128, k 8, the grouper's centres: max_abs_err {err:.3e} "
-          f"(indices equal, values 1e-6 x max, equal bits again) {'PASS' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("kernel K2 disagrees at k 8 on the grouper's centres")
+    check_knn_kernel(dev, record, randn, uniform, q)
 
     # K3 at every shape of the paths: the VN DGCNN's conv5 (C3 768) and
     # conv4 (C3 384) over the coordinates (D 3, N 512: "coords"), vn_pointr's
@@ -1851,11 +2093,13 @@ def standalone_models(dev):
     if not ok:
         raise AssertionError("kernel K2 disagrees at k 40")
     # launches of one forward: VNPCN's encoder kernel A at first_conv.0 and
-    # second_conv.0; DGCNN's four graphs through K2; PCN none
-    cases = (("PCN", PCN(16384, 1024, 4), {}),
-             ("VNPCN", VNPCN(latent_dim=1024), {"vn_bn_leaky_fwd": 2}),
-             ("DGCNN", DGCNN(448, 40), {"knn_min": 4}))
-    for name, model, launches in cases:
+    # second_conv.0; DGCNN's four graphs through K2, the first two over the
+    # coordinates (D 3: coords), the last two over 64 features (warp); PCN
+    # none
+    cases = (("PCN", PCN(16384, 1024, 4), {}, {}),
+             ("VNPCN", VNPCN(latent_dim=1024), {"vn_bn_leaky_fwd": 2}, {}),
+             ("DGCNN", DGCNN(448, 40), {"knn_min": 4}, {"knn_min/coords": 2, "knn_min/warp": 2}))
+    for name, model, launches, designs in cases:
         model = init_weights_(model, 0).to(dev).eval()
         with torch.no_grad():
             cuda_lib.reset_launch_counts()
@@ -1864,14 +2108,16 @@ def standalone_models(dev):
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             counts = {k: v for k, v in cuda_lib.launch_counts().items() if v}
+            variants = {k: v for k, v in cuda_lib.variant_counts().items() if v}
             want = set_kernels(model, False)(xyz)
         errs = [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want)
                 if g is not None]
         finite = all(torch.isfinite(g).all() for g in got if g is not None)
         print(f"[standalone] {name}: output shapes {[tuple(g.shape) for g in got if g is not None]}, "
               f"kernels vs plain max|d| / max {max(errs):.3e} (tolerance 1e-6); launches "
-              f"{counts} (expected {launches}); first forward {ms:.3f} ms (host clock)")
-        if counts != launches or max(errs) > 1e-6 or not finite:
+              f"{counts} (expected {launches}), by design {variants} (expected {designs}); "
+              f"first forward {ms:.3f} ms (host clock)")
+        if counts != launches or variants != designs or max(errs) > 1e-6 or not finite:
             raise AssertionError(f"{name}: kernels disagree with the plain path")
 
 
@@ -3071,11 +3317,11 @@ def main() -> int:
             on_pointr = " D 96 " in rec["name"] or " D 192 " in rec["name"] or "-> 224" in rec["name"]
             rec["launches"] = (counts if sym in FLAGSHIP_KERNELS else
                                pointr_counts if on_pointr else dgcnn_counts)[sym]
-            if sym in ("edge_knn_gather", "furthest_point_sample"):  # launches by design
+            if sym in ("edge_knn_gather", "furthest_point_sample", "knn_min"):  # by design
                 run = pointr_counts if on_pointr else dgcnn_counts
                 rec["designs"] = {k.split("/")[1]: v for k, v in run.items()
                                   if k.startswith(f"{sym}/")}
-        if rec["name"].endswith(" bf16") and sym == "edge_knn_gather":
+        if rec["name"].endswith(" bf16") and sym in ("edge_knn_gather", "vn_bn_leaky_fwd"):
             rec["designs"] = {k.split("/")[1]: v for k, v in bf16_counts.items()
                               if k.startswith(f"{sym}[bf16]/")}
     print(json.dumps({"kernels": records}))

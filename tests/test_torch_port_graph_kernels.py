@@ -1,6 +1,13 @@
-"""Kernels F and K3 on the CPU: which design K3 runs at each of the paths'
-shapes, the host rules of its gather, F's probe, and the plain versions
-against the JAX package at the paths' new shapes.
+"""Kernels F, K2, K3 and A on the CPU: which design K2, K3 and A's bf16
+mode run at each of the paths' shapes, the host rules of K3's gather, F's
+probe, and the plain versions against the JAX package at the paths' new
+shapes.
+
+``ops/knn_pallas.py::knn_design`` gives kernel K2 the "coords" design over
+coordinates (D <= 4, M <= 4096) and the parent "warp" design above;
+``ops/vn_fused.py::fwd_design`` gives A's bf16 mode the "run8" design
+where N is a multiple of 8 and the planes start 16-byte aligned, the
+parent "vector" design elsewhere (float32 A has that design only).
 
 ``ops/knn_pallas.py::edge_design`` gives kernel K3 the "coords" design over
 coordinates (D <= 4), the "tiled" design over features (D > 4, N <= 512)
@@ -15,6 +22,8 @@ against JAX's Pallas kernels in interpret mode: K3 here over vn_pointr's D
 ``tests/test_torch_port_dgcnn.py::test_f_plain_matches_pallas_and_jnp``.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +33,7 @@ from tests.test_torch_port_dgcnn import _assert_knn_gap
 from vn_pointcloudcompletion_tpu.ops import knn_pallas as jax_knn_pallas
 from vn_pointcloudcompletion_tpu_torch.ops import fps_pallas as port_fps
 from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas as port_knn
+from vn_pointcloudcompletion_tpu_torch.ops import vn_fused as port_fused
 from vn_pointcloudcompletion_tpu_torch.utils.config import Config
 
 torch.set_num_threads(2)
@@ -43,35 +53,173 @@ _F_CALLS = {"vn_dgcnn": {(2048, 512), (512, 128)},
             "vn_pointr": {(2048, 512), (512, 128), (2048, 224)}}
 
 
-@pytest.mark.parametrize("name", list(_K3_CALLS))
-def test_design_of_every_k3_call(name, monkeypatch):
-    """One eval forward of a pipeline at 2048 points: each K3 call's shape
-    and the design the wrapper takes for it in either mode, and F's shapes."""
+# (N, M, D, k) of every K2 call of one eval forward at 2048 input points,
+# all over coordinates: the VN DGCNN's conv1 and conv6, dgcnn_448's grouper
+# layers, vn_pointr's grouper conv1 and its proxy graph (k 8)
+_K2_CALLS = {
+    "vn_dgcnn": {(2048, 2048, 3, 16), (128, 128, 3, 16)},
+    "dgcnn_448": {(2048, 2048, 3, 16), (512, 2048, 3, 16), (512, 512, 3, 16),
+                  (128, 512, 3, 16)},
+    "vn_pointr": {(2048, 2048, 3, 16), (128, 128, 3, 8)},
+}
+# (C, N) of every call of kernel A in the same forwards
+_A_CALLS = {"vn_dgcnn": {(64, 8192), (128, 8192), (512, 2048)},
+            "dgcnn_448": set(),
+            "vn_pointr": {(64, 8192), (128, 2048)}}
+_PIPELINES = {"vn_dgcnn": ("vn_dgcnn_fps", "vn_foldingnet", 1024),
+              "dgcnn_448": ("dgcnn_fps", "foldingnet", 448),
+              "vn_pointr": ("vn_pointr", "attention_vn_foldingnet", 448)}
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_calls(name):
+    """The shapes with which one eval forward of a pipeline at 2048 points
+    calls K3 (N, D, C3, k), F (N, S), K2 (N, M, D, k) and A (C, N)."""
     from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
 
-    seen, fps_seen = {}, set()
-    edge, fps = port_knn.edge_knn_gather, port_fps.furthest_point_sample_kernel
+    calls = {"k3": set(), "f": set(), "k2": set(), "a": set()}
+    saved = (port_knn.edge_knn_gather, port_fps.furthest_point_sample_kernel,
+             port_knn.knn_min, port_fused.fused_bn_leaky)
+    edge, fps, knn, bn = saved
 
     def record_edge(xflat, u, v, k):
-        shape = (xflat.shape[2], xflat.shape[1], u.shape[1], k)
-        seen[shape] = {port_knn.edge_design(shape[0], shape[1], k, bf16) for bf16 in (False, True)}
+        calls["k3"].add((xflat.shape[2], xflat.shape[1], u.shape[1], k))
         return edge(xflat, u, v, k)
 
     def record_fps(xyz, s):
-        fps_seen.add((xyz.shape[1], s))
+        calls["f"].add((xyz.shape[1], s))
         return fps(xyz, s)
 
-    monkeypatch.setattr(port_knn, "edge_knn_gather", record_edge)
-    monkeypatch.setattr(port_fps, "furthest_point_sample_kernel", record_fps)
-    enc, dec, nc, want = _K3_CALLS[name]
-    model = build_model(Config.from_dict({"enc_type": enc, "dec_type": dec,
-                                          "num_coarse": nc, "seed": 3})).eval()
-    xyz = torch.from_numpy((np.random.default_rng(5).standard_normal((1, 2048, 3)) * 0.3)
-                           .astype(np.float32))
-    with torch.no_grad():
-        model(xyz)
-    assert seen == {shape: {design} for shape, design in want.items()}
-    assert fps_seen == _F_CALLS[name]
+    def record_knn(q, r, k):
+        calls["k2"].add((q.shape[1], r.shape[1], q.shape[2], k))
+        return knn(q, r, k)
+
+    def record_bn(p, d, a, b, ns):
+        calls["a"].add((p.shape[2], p.shape[3]))
+        return bn(p, d, a, b, ns)
+
+    port_knn.edge_knn_gather, port_fps.furthest_point_sample_kernel = record_edge, record_fps
+    port_knn.knn_min, port_fused.fused_bn_leaky = record_knn, record_bn
+    try:
+        enc, dec, nc = _PIPELINES[name]
+        model = build_model(Config.from_dict({"enc_type": enc, "dec_type": dec,
+                                              "num_coarse": nc, "seed": 3})).eval()
+        xyz = torch.from_numpy((np.random.default_rng(5).standard_normal((1, 2048, 3)) * 0.3)
+                               .astype(np.float32))
+        with torch.no_grad():
+            model(xyz)
+    finally:
+        (port_knn.edge_knn_gather, port_fps.furthest_point_sample_kernel,
+         port_knn.knn_min, port_fused.fused_bn_leaky) = saved
+    return calls
+
+
+@pytest.mark.parametrize("name", list(_K3_CALLS))
+def test_design_of_every_k3_call(name):
+    """One eval forward of a pipeline at 2048 points: each K3 call's shape
+    and the design the wrapper takes for it in either mode, and F's shapes."""
+    calls = _forward_calls(name)
+    seen = {shape: {port_knn.edge_design(shape[0], shape[1], shape[3], bf16)
+                    for bf16 in (False, True)} for shape in calls["k3"]}
+    assert seen == {shape: {design} for shape, design in _K3_CALLS[name][3].items()}
+    assert calls["f"] == _F_CALLS[name]
+
+
+@pytest.mark.parametrize("name", list(_K2_CALLS))
+def test_design_of_every_k2_and_a_call(name):
+    """The same forwards: every K2 call is over coordinates and takes the
+    coords design; every A call has N a multiple of 8, so its bf16 mode
+    takes the run8 design (the planes the wrapper hands over are fresh or
+    contiguous copies, 16-byte aligned)."""
+    calls = _forward_calls(name)
+    assert calls["k2"] == _K2_CALLS[name]
+    assert {port_knn.knn_design(*shape[1:]) for shape in calls["k2"]} == {"coords"}
+    assert calls["a"] == _A_CALLS[name]
+    assert all(port_fused.fwd_design(n) == "run8" for _, n in calls["a"])
+
+
+@pytest.mark.parametrize("n,m,d,k,design", [
+    (2048, 2048, 3, 16, "coords"), (128, 128, 3, 16, "coords"), (512, 2048, 3, 16, "coords"),
+    (512, 512, 3, 16, "coords"), (128, 512, 3, 16, "coords"), (128, 128, 3, 8, "coords"),
+    (2048, 2048, 3, 40, "coords"), (100, 4096, 4, 64, "coords"), (77, 999, 1, 1, "coords"),
+    (2048, 2048, 64, 40, "warp"), (300, 700, 5, 16, "warp"), (50, 700, 512, 64, "warp"),
+    (64, 8192, 3, 16, "warp"),
+])
+def test_knn_design(n, m, d, k, design):
+    """"coords" over coordinates (D <= 4, M <= 4096: the references and
+    their candidate buffers fit a block's shared memory), "warp" above:
+    every path shape (the first seven, N queries against M references)
+    takes coords, the classic DGCNN's graphs over 64 features warp; the
+    choice does not read N."""
+    assert port_knn.knn_design(m, d, k) == design
+
+
+@pytest.mark.parametrize("m,d,k", [(2048, 3, 65), (2048, 3, 0), (16, 3, 17), (2048, 0, 16),
+                                   (2048, 513, 16)])
+def test_knn_design_refuses(m, d, k):
+    """k outside [1, min(64, M)] and D outside [1, 512] have no design."""
+    with pytest.raises(ValueError, match="no design"):
+        port_knn.knn_design(m, d, k)
+
+
+# cuobjdump -sass text in the layout of the knn library's: another
+# instantiation first (its vote must not be taken), then a
+# knn_select_coords<16, false> whose scan loop (0x20-0xa0) holds two
+# 16-byte shared loads, the flush vote, and a flush (0x70-0x80) that the
+# vote's branch skips
+_SCAN_SASS = """
+        Function : _ZN38_GLOBAL__N__0_6_knn_cu_017knn_select_coordsILi32ELb0EEEvPKfS2_PfPiiiiillllll
+        /*0000*/                   VOTE.ANY P0, P0 ;                      /* 0x0000000000ff7806 */
+        Function : _ZN38_GLOBAL__N__0_6_knn_cu_017knn_select_coordsILi16ELb0EEEvPKfS2_PfPiiiiillllll
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                 /* 0x00000a0000017a02 */
+        /*0010*/                   LDS.128 R4, [R2] ;                     /* 0x0000000002047984 */
+        /*0020*/                   LDS.128 R4, [R26] ;                    /* 0x000000001a047984 */
+        /*0030*/                   FADD R5, R4, R6 ;                      /* 0x0000000604057221 */
+        /*0040*/                   LDS.128 R8, [R26+0x10] ;               /* 0x000010001a087984 */
+        /*0050*/                   VOTE.ANY P0, P0 ;                      /* 0x0000000000ff7806 */
+        /*0060*/              @!P0 BRA 0x90 ;                             /* 0x0000000000048947 */
+        /*0070*/                   REDUX.MAX UR5, R15 ;                   /* 0x000000000f0573c4 */
+        /*0080*/                   LDS R49, [R23] ;                       /* 0x0000000017317984 */
+        /*0090*/                   ISETP.LT.AND P0, PT, R51, UR5, PT ;    /* 0x0000000533007c0c */
+        /*00a0*/              @!P0 BRA 0x20 ;                             /* 0xffffffec00d48947 */
+        /*00b0*/                   EXIT ;                                 /* 0x000000000000794d */
+        Function : _ZN38_GLOBAL__N__0_6_knn_cu_017knn_select_coordsILi16ELb1EEEvPKfS2_PfPiiiiillllll
+        /*0000*/                   VOTE.ANY P0, P0 ;                      /* 0x0000000000ff7806 */
+"""
+
+
+def test_knn_scan_sass_counts_one_trip():
+    """chip_smoke's issue floor of K2's scan reads one trip's instructions
+    (the loop less the flush it skips: 0x20-0x60 and 0x90-0xa0) and its
+    references a lane (the 16-byte shared loads) from the SASS."""
+    import chip_smoke
+
+    assert chip_smoke.knn_scan_sass(_SCAN_SASS) == (7, 2)
+
+
+@pytest.mark.parametrize("edit", [
+    ("ILi16ELb0E", "ILi8ELb0E"),  # no such instantiation
+    ("/*0050*/                   VOTE.ANY", "/*0050*/                   NOP"),  # no vote
+    ("@!P0 BRA 0x20 ", "@!P0 BRA 0xb0 "),  # no loop around the vote
+])
+def test_knn_scan_sass_refuses(edit):
+    """Code without the scan's shape gives no count."""
+    import chip_smoke
+
+    with pytest.raises(ValueError):
+        chip_smoke.knn_scan_sass(_SCAN_SASS.replace(*edit))
+
+
+@pytest.mark.parametrize("n,aligned,design", [
+    (2048, True, "run8"), (512, True, "run8"), (16384, True, "run8"), (8192, True, "run8"),
+    (520, True, "run8"), (516, True, "vector"), (1001, True, "vector"), (2048, False, "vector"),
+    (2052, True, "vector"),
+])
+def test_bn_leaky_fwd_design(n, aligned, design):
+    """A's bf16 mode takes run8 where each thread's 8 points are one
+    16-byte run of every plane (N a multiple of 8, 520 = 65 runs included,
+    and aligned starts); the parent vector design elsewhere."""
+    assert port_fused.fwd_design(n, aligned) == design
 
 
 @pytest.mark.parametrize("n,d,k,bf16,design", [

@@ -972,6 +972,92 @@ def test_kernel_k3_designs_agree_with_the_warp_design(cuda, design, monkeypatch)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 8, 16, 40, 64])
+@pytest.mark.parametrize("case", ["ragged", "duplicates", "strided"])
+def test_kernel_k2_coords_against_plain_and_warp_design(cuda, k, case, monkeypatch):
+    """K2's coords design (D 3) against its plain version and the parent
+    warp design on the same inputs: indices and values equal to the bit,
+    twice.  ragged: N 300 != M 700, neither a multiple of a block's 64
+    queries or a warp's 32-reference span; duplicates: the lane-tie cloud
+    (ties inside one lane's list and across a query's lanes) with the
+    queries a suffix of it; strided: q and r as transposed views of (B, 3,
+    N) planes, which the coords design reads in place."""
+    g = torch.Generator().manual_seed(k)
+    if case == "duplicates":
+        r = _lane_tie_cloud(2, 333).to(cuda)
+        q = r[:, 333 - 100:]
+    else:
+        q, r = torch.randn(2, 300, 3, generator=g), torch.randn(2, 700, 3, generator=g)
+        if case == "strided":
+            q, r = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, r))
+        q, r = q.to(cuda), r.to(cuda)
+    assert knn_pallas.knn_design(r.shape[1], 3, k) == "coords"
+    before = cuda_lib.variant_counts().get("knn_min/coords", 0)
+    got, again = knn_pallas.knn_min_fwd(q, r, k), knn_pallas.knn_min_fwd(q, r, k)
+    torch.cuda.synchronize()
+    assert cuda_lib.variant_counts()["knn_min/coords"] == before + 2
+    want = knn_pallas.reference_knn_min(q, r, k)
+    monkeypatch.setattr(knn_pallas, "knn_design", lambda *shape: "warp")
+    warp = knn_pallas.knn_min_fwd(q, r, k)
+    torch.cuda.synchronize()
+    for a, b, c, w in zip(got, want, again, warp):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, w)
+
+
+@pytest.mark.gpu
+def test_kernel_k2_coords_shared_memory_grows_and_shrinks(cuda):
+    """K2's coords design takes 16 M + 30 KB of shared memory, above the
+    48 KB default from M ~1150: M 4000, then 2900, then 4000 again (one
+    kernel, k 16, sizes no other test asks for) each launch and match the
+    plain version; the third reuses the first's cached occupancy."""
+    g = torch.Generator().manual_seed(11)
+    for m in (4000, 2900, 4000):
+        r = torch.randn(2, m, 3, generator=g).to(cuda)
+        q = r[:, :200]
+        got = knn_pallas.knn_min_fwd(q, r, 16)
+        torch.cuda.synchronize()
+        for a, b in zip(got, knn_pallas.reference_knn_min(q, r, 16)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [16, 128, 1024])
+@pytest.mark.parametrize("n", [2048, 520])
+def test_kernel_a_bf16_run8_against_vector_design(cuda, c, n, monkeypatch):
+    """A's bf16 run8 design against its plain version and the parent vector
+    design: equal to the bit (N 520: 65 runs of 8 points, a row that fills
+    no power-of-two block)."""
+    p, d, a, b = _bn_inputs(np.random.default_rng(c + n), 2, c, n)
+    (pt, dt), (at, bt) = _bf16_t(p, d, device=cuda), _t(a, b, device=cuda)
+    assert port_fused.fwd_design(n) == "run8"
+    before = cuda_lib.variant_counts().get("vn_bn_leaky_fwd[bf16]/run8", 0)
+    got = port_fused.fused_bn_leaky(pt, dt, at, bt, NS)
+    torch.cuda.synchronize()
+    assert cuda_lib.variant_counts()["vn_bn_leaky_fwd[bf16]/run8"] == before + 1
+    want = port_fused.reference_bn_leaky_planes(pt, dt, at, bt, NS)
+    monkeypatch.setattr(port_fused, "fwd_design", lambda *shape: "vector")
+    vector = port_fused.fused_bn_leaky(pt, dt, at, bt, NS)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want) and torch.equal(got, vector)
+
+
+@pytest.mark.gpu
+def test_kernel_a_bf16_unaligned_planes_take_the_vector_design(cuda):
+    """bf16 planes whose start is not 16-byte aligned take the vector
+    design; the output still equals the plain version's."""
+    p, d, a, b = _bn_inputs(np.random.default_rng(7), 2, 16, 1024)
+    (pt, dt), (at, bt) = _bf16_t(p, d, device=cuda), _t(a, b, device=cuda)
+    # contiguous copies that start one element (2 bytes) into their storage
+    views = [t.new_empty(t.numel() + 1)[1:].view(t.shape).copy_(t) for t in (pt, dt)]
+    assert all(v.data_ptr() % 16 for v in views)
+    before = cuda_lib.variant_counts().get("vn_bn_leaky_fwd[bf16]/vector", 0)
+    got = port_fused.fused_bn_leaky(*views, at, bt, NS)
+    torch.cuda.synchronize()
+    assert cuda_lib.variant_counts()["vn_bn_leaky_fwd[bf16]/vector"] == before + 1
+    assert torch.equal(got, port_fused.reference_bn_leaky_planes(*views, at, bt, NS))
+
+
+@pytest.mark.gpu
 def test_kernel_k2_bwd_cuda_matches_plain(cuda):
     """dq and dr of the K2 Function against autograd of the plain chain,
     within 1e-4 of their max (the Function forms 2 g (q - r), autograd of

@@ -120,7 +120,9 @@ __device__ __forceinline__ void vnk_bn_leaky_bwd(
 // kernel is allowed that much above 48 KB first): its occupancy times the
 // SMs, or 0 if the runtime refuses.  The runtime's queries cost host time
 // that a launch of a short kernel would wait for, so the answer is kept per
-// kernel, device and size; the first launch asks.
+// kernel, device and size; the first launch asks.  The kernel's limit only
+// rises, to the largest size asked for so far: a lower one would refuse a
+// larger size answered from the cache.
 inline int vnk_resident_blocks(const void* kernel, int threads, int smem) {
   struct Entry {
     const void* kernel;
@@ -134,9 +136,12 @@ inline int vnk_resident_blocks(const void* kernel, int threads, int smem) {
     if (cache[i].kernel == kernel && cache[i].dev == dev && cache[i].threads == threads &&
         cache[i].smem == smem)
       return cache[i].slots;
-  int sms = 0, per_sm = 0;
+  int sms = 0, per_sm = 0, limit = smem;
+  for (int i = 0; i < used; ++i)
+    if (cache[i].kernel == kernel && cache[i].dev == dev && cache[i].smem > limit)
+      limit = cache[i].smem;
   if ((smem > 48 * 1024 &&
-       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit) !=
            cudaSuccess) ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=

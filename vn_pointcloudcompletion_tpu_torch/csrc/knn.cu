@@ -21,12 +21,29 @@
 // kernel and plain version pick the same indices.
 //
 // Design.  The TPU kernels hold a (256, M) tile in VMEM and make k passes of
-// min / argmin / mask over it.  Here K1 and K2 give one warp one query row:
-// each lane walks the columns lane, lane + 32, ... in ascending order and
-// keeps its own k best (value, index) pairs sorted in registers (an
-// insertion that bubbles the candidate down the list), then k rounds of a
-// butterfly argmin over the 32 lanes' heads merge the lists.  Nothing is
-// written but the k results.
+// min / argmin / mask over it.  Here K1 (and K2's "warp" design) give one
+// warp one query row: each lane walks the columns lane, lane + 32, ... in
+// ascending order and keeps its own k best (value, index) pairs sorted in
+// registers (an insertion that bubbles the candidate down the list), then k
+// rounds of a butterfly argmin over the 32 lanes' heads merge the lists.
+// Nothing is written but the k results.
+//
+// K2 runs one of two designs, chosen by shape in ops/knn_pallas.py
+// ::knn_design and passed in (both give the same indices and bits):
+//  - "coords" (D <= 4: every K2 call of the models' paths, over
+//    coordinates): a block takes 64 queries of one sample and stages the
+//    sample's references and |r|^2 (each computed once, in the plain
+//    version's order) in shared memory as one float4 a reference; each
+//    query gets 4 lanes, each lane a LaneList over the references lane,
+//    lane + 4, ...; a lane buffers the distances that pass its tests and
+//    the warp pushes the buffers into the lists together (see
+//    knn_select_coords), then 2 butterfly rounds a merge.  q and r are
+//    read at their own strides, so the wrapper copies neither.  Of 2, 4,
+//    8 and 16 lanes a query, 4 ran fastest at (8, 2048 vs 2048) (a
+//    probe on the card; 8 was faster at 128 vs 128, where 64 queries a
+//    block leave the card nearly empty).
+//  - "warp" (the parent design) above D 4: one warp a query over the
+//    references transposed to (B, D, M), |r|^2 formed for every pair.
 //
 // K3 runs one of three designs, chosen by shape in ops/knn_pallas.py
 // ::edge_design and passed in (every one gives the same indices and bits):
@@ -62,9 +79,13 @@
 // rounded to nearest even, the TPU kernel's `g.astype(v.dtype) + v`.
 //
 // Bound on the H100.  K1: bytes (one read of the matrix).  K2 at the main
-// path's D = 3: operations, about 12 per (query, reference) pair for the
-// distance and the compare, on the CUDA cores.  K3: bytes, the (B, C3, k, N)
-// output written once (201 MB at conv5 in float32); at vn_pointr's D 192
+// path's D = 3: operations, 10 FP32 ones per (query, reference) pair for
+// the distance and the compare (2 D + 4), on the CUDA cores; what the card
+// issues is more, 17.25 instructions a pair a lane in the coords design's
+// scan (its SASS: the shared load, the distance, the test, the predicated
+// append, the loop; chip_smoke.py::knn_scan_issue counts them in the build
+// it runs) plus the pushes of the candidates that pass.  K3: bytes, the
+// (B, C3, k, N) output written once (201 MB at conv5 in float32); at vn_pointr's D 192
 // the distance product is ~0.8 G FP32 instructions (--fmad=false: a multiply
 // and an add a term), ~27 us on the card's FP32 issue.
 #include <limits.h>
@@ -194,7 +215,7 @@ topk_min_kernel(const float* __restrict__ d, float* __restrict__ vals,
   });
 }
 
-// K2: q (B, N, D), rt (B, D, M) -> vals, idx (B, N, k).
+// K2, the "warp" design: q (B, N, D), rt (B, D, M) -> vals, idx (B, N, k).
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 knn_min_kernel(const float* __restrict__ q, const float* __restrict__ rt,
@@ -218,6 +239,158 @@ knn_min_kernel(const float* __restrict__ q, const float* __restrict__ rt,
   warp_merge(l, k, [&](int rr, float v, int i) {
     vals[o + rr] = v;
     idx[o + rr] = i;
+  });
+}
+
+// ---- K2's "coords" design ----
+
+constexpr int kKnnLanes = 4;                       // lanes that scan one query's references
+constexpr int kKnnQueries = kThreads / kKnnLanes;  // queries a block
+constexpr int kKnnMaxM = 4096;                     // the TPU kernel's row cap (knn_pallas.py:30)
+constexpr int kKnnBatch = 8;                       // distances formed before their tests
+constexpr int kKnnFlush = 8;                       // a lane's buffered candidates that start a flush
+constexpr int kKnnCap = kKnnFlush + kKnnBatch - 1;  // a lane's buffer
+
+// Shared memory of the coords design at M references, D <= 4: one float4 a
+// reference, {r0, r1, r2, |r|^2} at D <= 3 (the coordinates past D zero), or
+// {r0, r1, r2, r3} followed by the M values |r|^2 at D = 4; then each
+// thread's candidate buffer, kKnnCap (value, index) pairs.
+inline int knn_coords_smem(int M, int D) {
+  return (D == 4 ? 20 : 16) * M + 8 * kKnnCap * kThreads;
+}
+
+// The distance to one staged reference, in the plain version's order.
+// Past D the query's and the reference's coordinates are zero: adding their
+// product changes no distance (at most the sign of a zero cross term, which
+// the subtraction from |q|^2 + |r|^2 >= 0 absorbs).
+template <bool kD4>
+__device__ __forceinline__ float coords_dist(const float4* refs, const float* rsq4,
+                                             const float (&qv)[4], float qsq, int j) {
+  const float4 c = refs[j];
+  float cross = qv[0] * c.x;
+  cross = cross + qv[1] * c.y;
+  cross = cross + qv[2] * c.z;
+  float rsq;
+  if constexpr (kD4) {
+    cross = cross + qv[3] * c.w;
+    rsq = rsq4[j];
+  } else {
+    rsq = c.w;
+  }
+  return (qsq + rsq) - 2.f * cross;
+}
+
+// K2 "coords": q (B, N, D), r (B, M, D) float32 at element strides (qsb,
+// qsn, qse) and (rsb, rsm, rse), D <= 4, M <= 4096 -> vals, idx (B, N, k).
+//
+// A lane's sorted insertion costs ~100 instructions, and the warp waits
+// for any lane that inserts: scanning and inserting in turn, nearly every
+// step of the scan had an insertion somewhere in the warp.  So a lane only
+// tests each distance and appends the ones that pass to its buffer in
+// shared memory (in ascending index order, as its list would have taken
+// them); when a lane of the warp holds kKnnFlush, every lane pushes its
+// buffer into its list at once.  The test is against the last value of
+// the lane's list (strict: a later equal value has a higher index) and a
+// bound for the query: the largest over its lanes of each lane's
+// (K / lanes)-th value, below which the query already holds K >= k
+// values, so a larger distance cannot be among the k smallest (an equal
+// one passes: it may tie with a higher index).
+template <int K, bool kD4>
+__global__ void __launch_bounds__(kThreads)
+knn_select_coords(const float* __restrict__ q, const float* __restrict__ r,
+                  float* __restrict__ vals, int* __restrict__ idx, int N, int M, int D,
+                  int k, int64_t qsb, int64_t qsn, int64_t qse, int64_t rsb, int64_t rsm,
+                  int64_t rse) {
+  static_assert(K % kKnnLanes == 0, "the query's bound needs K / lanes values a lane");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* refs = reinterpret_cast<float4*>(smem_raw);              // (M)
+  float* rsq4 = reinterpret_cast<float*>(refs + M);                 // (M), D = 4 only
+  float* bufv = rsq4 + (kD4 ? M : 0);                               // (kKnnCap, kThreads)
+  int* bufi = reinterpret_cast<int*>(bufv + kKnnCap * kThreads);  // (kKnnCap, kThreads)
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const float* rb = r + b * rsb;
+  for (int j = tid; j < M; j += kThreads) {
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    float sq = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (e < D) {
+        c[e] = rb[j * rsm + e * rse];
+        sq = sq + c[e] * c[e];
+      }
+    }
+    if constexpr (kD4) {
+      refs[j] = make_float4(c[0], c[1], c[2], c[3]);
+      rsq4[j] = sq;
+    } else {
+      refs[j] = make_float4(c[0], c[1], c[2], sq);
+    }
+  }
+  __syncthreads();
+  // queries past N compute on the last one and write nothing (the merge's
+  // shuffles need every lane of the warp)
+  const int qi = blockIdx.x * kKnnQueries + tid / kKnnLanes;
+  const int n = min(qi, N - 1);
+  const float* qp = q + b * qsb + n * qsn;
+  float qv[4];
+  float qsq = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    qv[e] = e < D ? qp[e * qse] : 0.f;
+    if (e < D) qsq = qsq + qv[e] * qv[e];
+  }
+  LaneList<K> l;
+  l.init();
+  float thr = INFINITY;  // a distance passes below it
+  int cnt = 0;           // the lane's buffered candidates
+  auto flush = [&]() {
+    const int most = static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(cnt)));
+    for (int t = 0; t < most; ++t) {
+      if (t < cnt) l.push(bufv[t * kThreads + tid], bufi[t * kThreads + tid]);
+    }
+    cnt = 0;
+    float bound = l.v[K / kKnnLanes - 1];
+#pragma unroll
+    for (int off = kKnnLanes / 2; off > 0; off >>= 1) {
+      bound = fmaxf(bound, __shfl_xor_sync(kFull, bound, off));
+    }
+    thr = fminf(l.v[K - 1], nextafterf(bound, INFINITY));
+  };
+  auto offer = [&](float dv, int j) {
+    if (dv < thr) {
+      bufv[cnt * kThreads + tid] = dv;
+      bufi[cnt * kThreads + tid] = j;
+      ++cnt;
+    }
+  };
+  // the lane's references j0 + lane + kKnnLanes t, t < kKnnBatch, for j0 a
+  // multiple of kSpan: the same trip count for every lane (the flush is
+  // warp-wide)
+  constexpr int kSpan = kKnnBatch * kKnnLanes;
+  const int lane = tid & (kKnnLanes - 1);
+  int j0 = 0;
+  for (; j0 + kSpan <= M; j0 += kSpan) {
+    float dv[kKnnBatch];
+#pragma unroll
+    for (int t = 0; t < kKnnBatch; ++t) {
+      dv[t] = coords_dist<kD4>(refs, rsq4, qv, qsq, j0 + lane + t * kKnnLanes);
+    }
+#pragma unroll
+    for (int t = 0; t < kKnnBatch; ++t) offer(dv[t], j0 + lane + t * kKnnLanes);
+    if (__any_sync(kFull, cnt >= kKnnFlush)) flush();
+  }
+#pragma unroll
+  for (int t = 0; t < kKnnBatch; ++t) {  // the last M % kSpan references
+    const int j = j0 + lane + t * kKnnLanes;
+    if (j < M) offer(coords_dist<kD4>(refs, rsq4, qv, qsq, j), j);
+  }
+  flush();
+  const int64_t o = (static_cast<int64_t>(b) * N + n) * k;
+  warp_merge<K, kKnnLanes>(l, k, [&](int rr, float v, int i) {
+    if (qi < N) {
+      vals[o + rr] = v;
+      idx[o + rr] = i;
+    }
   });
 }
 
@@ -571,13 +744,37 @@ struct LaunchTopk {
   }
 };
 
+// K2's designs (ops/knn_pallas.py::knn_design)
+enum KnnDesign { kKnnWarp = 0, kKnnCoords = 1 };
+
 template <int K>
 struct LaunchKnn {
-  static int run(const float* q, const float* rt, float* vals, int* idx, int B,
-                 int N, int M, int D, int k, cudaStream_t s) {
-    const dim3 grid((N + kWarps - 1) / kWarps, B);
-    const size_t shmem = sizeof(float) * kWarps * D;
-    knn_min_kernel<K><<<grid, kThreads, shmem, s>>>(q, rt, vals, idx, N, M, D, k);
+  static int run(const float* q, const float* r, float* vals, int* idx, int B, int N, int M,
+                 int D, int k, int design, int64_t qsb, int64_t qsn, int64_t qse, int64_t rsb,
+                 int64_t rsm, int64_t rse, cudaStream_t s) {
+    if (design == kKnnWarp) {  // q (B, N, D) and r as (B, D, M), both packed
+      if (qsb != static_cast<int64_t>(N) * D || qsn != D || qse != 1 ||
+          rsb != static_cast<int64_t>(D) * M || rsm != 1 || rse != M) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      const dim3 grid((N + kWarps - 1) / kWarps, B);
+      const size_t shmem = sizeof(float) * kWarps * D;
+      knn_min_kernel<K><<<grid, kThreads, shmem, s>>>(q, r, vals, idx, N, M, D, k);
+      return static_cast<int>(cudaGetLastError());
+    }
+    if (design != kKnnCoords || D < 1 || D > kCoordsMaxD || M > kKnnMaxM) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    using Kernel = void (*)(const float*, const float*, float*, int*, int, int, int, int, int64_t,
+                            int64_t, int64_t, int64_t, int64_t, int64_t);
+    const Kernel kernel = D == 4 ? &knn_select_coords<K, true> : &knn_select_coords<K, false>;
+    const int smem = knn_coords_smem(M, D);
+    if (vnk_resident_blocks(reinterpret_cast<const void*>(kernel), kThreads, smem) == 0) {
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    const dim3 grid((N + kKnnQueries - 1) / kKnnQueries, B);
+    kernel<<<grid, kThreads, static_cast<size_t>(smem), s>>>(q, r, vals, idx, N, M, D, k, qsb,
+                                                              qsn, qse, rsb, rsm, rse);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -681,13 +878,19 @@ VNK_EXPORT int topk_min(const void* d, void* vals, void* idx, int rows, int M,
                           static_cast<cudaStream_t>(stream));
 }
 
-// q: (B, N, D), rt: (B, D, M) float32 -> vals, idx (B, N, k); D <= 512.
-VNK_EXPORT int knn_min(const void* q, const void* rt, void* vals, void* idx,
-                       int B, int N, int M, int D, int k, void* stream) {
+// q: (B, N, D), r: (B, M, D) float32 at element strides (qsb, qsn, qse) and
+// (rsb, rsm, rse) -> vals, idx (B, N, k); D <= 512; design: 0 warp (q
+// packed, r packed as (B, D, M): rsm 1, rse M), 1 coords (D <= 4, M <= 4096,
+// any strides) (ops/knn_pallas.py::knn_design; a design that cannot take the
+// shape returns cudaErrorInvalidValue).
+VNK_EXPORT int knn_min(const void* q, const void* r, void* vals, void* idx, int B, int N,
+                       int M, int D, int k, int design, int64_t qsb, int64_t qsn, int64_t qse,
+                       int64_t rsb, int64_t rsm, int64_t rse, void* stream) {
   if (B == 0 || N == 0) return 0;
-  return by_k<LaunchKnn>(k, static_cast<const float*>(q), static_cast<const float*>(rt),
-                         static_cast<float*>(vals), static_cast<int*>(idx), B, N, M,
-                         D, k, static_cast<cudaStream_t>(stream));
+  return by_k<LaunchKnn>(k, static_cast<const float*>(q), static_cast<const float*>(r),
+                         static_cast<float*>(vals), static_cast<int*>(idx), B, N, M, D, k,
+                         design, qsb, qsn, qse, rsb, rsm, rse,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // x: (B, D, N), u, v: (B, C3, N) float32 -> out (B, C3, k, N) float32,

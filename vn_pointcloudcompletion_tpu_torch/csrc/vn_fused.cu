@@ -6,18 +6,28 @@
 //
 // p, d, out: (B, 3, C, N), contiguous, float32 or (the bf16 mode, the
 // bfloat16 compute policy) bfloat16; a, b: (C,) float32, the folded BN
-// affine.  One thread per (b, c, n) vector: it reads the three planes of p
-// and d and writes the three planes of out.  Neighbouring threads take
-// neighbouring n, so every plane is read and written in full coalesced
-// lines.  The bf16 mode is the TPU kernel's on bf16 planes (vn_fused.py
-// :76-95): it reads p and d as bf16, computes in float32 in the float32
-// mode's order and stores bf16 rounded to nearest even.
+// affine.  The "vector" design: one thread per (b, c, n) vector; it reads
+// the three planes of p and d and writes the three planes of out.
+// Neighbouring threads take neighbouring n, so every plane is read and
+// written in full coalesced lines.  The bf16 mode is the TPU kernel's on
+// bf16 planes (vn_fused.py :76-95): it reads p and d as bf16, computes in
+// float32 in the float32 mode's order and stores bf16 rounded to nearest
+// even.
 //
 // Bound on the H100: bytes.  The pass moves 3 * B*3*C*N*s bytes (p and d
 // read once, out written once; s = 4, or 2 in the bf16 mode) and does some
-// 40 operations per vector, far below the FP32 rate for that traffic, so
-// the design only has to keep every access coalesced and touch each byte
-// once.
+// 40 operations per vector, far below the FP32 rate for that traffic.  In
+// bf16 the vector design still issued as many instructions a vector as in
+// float32 (two 64-bit divisions for its row and channel, six 2-byte loads,
+// three 2-byte stores, a[c] and b[c] again), for half the bytes, and so
+// took nearly the float32 time.  The bf16 "run8" design (ops/vn_fused.py
+// ::fwd_design: N a multiple of 8 and 16-byte aligned planes) gives a
+// thread 8 consecutive points of one (sample, channel) row: one 16-byte
+// load from each of the six input planes, one 16-byte store to each of the
+// three output planes, a[c] and b[c] read once, the grid over (runs of the
+// row, channels, samples) so that no division is left; each vector's
+// arithmetic is vnk_bn_leaky's, in the same order, so the bits are the
+// vector design's.
 #include "common.cuh"
 
 namespace {
@@ -44,6 +54,58 @@ bn_leaky_fwd(const T* __restrict__ p, const T* __restrict__ d,
   out[base] = vnk_cast<T>(o[0]);
   out[base + cn] = vnk_cast<T>(o[1]);
   out[base + 2 * cn] = vnk_cast<T>(o[2]);
+}
+
+constexpr int kRun = 8;  // points a thread of the run8 design (16 bytes of bf16)
+
+__device__ __forceinline__ void unpack_bf16x8(uint4 w, float (&f)[kRun]) {
+  const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    f[2 * m] = __uint_as_float(u[m] << 16);
+    f[2 * m + 1] = __uint_as_float(u[m] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+
+// The bf16 run8 design: thread (x, y) of block (bx, by, b) owns points
+// 8 (bx * blockDim.x + x) ... + 7 of row (b, c = by * blockDim.y + y);
+// N % 8 == 0 and 16-byte aligned planes (checked by the launch).
+__global__ void __launch_bounds__(kThreads)
+bn_leaky_fwd_run8(const vnk_bf16* __restrict__ p, const vnk_bf16* __restrict__ d,
+                  const float* __restrict__ a, const float* __restrict__ b,
+                  vnk_bf16* __restrict__ out, int C, int N, float one_minus_ns) {
+  const int n0 = (blockIdx.x * blockDim.x + threadIdx.x) * kRun;
+  const int c = blockIdx.y * blockDim.y + threadIdx.y;
+  if (n0 >= N || c >= C) return;
+  const int64_t cn = static_cast<int64_t>(C) * N;
+  const int64_t base = blockIdx.z * 3 * cn + static_cast<int64_t>(c) * N + n0;
+  const float av = a[c], bv = b[c];
+  float pv[3][kRun], dv[3][kRun];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    unpack_bf16x8(*reinterpret_cast<const uint4*>(p + base + j * cn), pv[j]);
+    unpack_bf16x8(*reinterpret_cast<const uint4*>(d + base + j * cn), dv[j]);
+  }
+  unsigned ow[3][kRun / 2];
+#pragma unroll
+  for (int e = 0; e < kRun; e += 2) {
+    float o0[3], o1[3];
+    vnk_bn_leaky(pv[0][e], pv[1][e], pv[2][e], dv[0][e], dv[1][e], dv[2][e], av, bv,
+                 one_minus_ns, o0);
+    vnk_bn_leaky(pv[0][e + 1], pv[1][e + 1], pv[2][e + 1], dv[0][e + 1], dv[1][e + 1],
+                 dv[2][e + 1], av, bv, one_minus_ns, o1);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) ow[j][e / 2] = pack_bf16x2(o0[j], o1[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    *reinterpret_cast<uint4*>(out + base + j * cn) = make_uint4(ow[j][0], ow[j][1], ow[j][2], ow[j][3]);
+  }
 }
 
 // Kernel A': the backward of A.  Replaces vn_fused.py::_fused_bwd (the
@@ -177,6 +239,31 @@ int launch_fwd(const void* p, const void* d, const void* a, const void* b,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 designs (ops/vn_fused.py::fwd_design)
+enum FwdDesign { kFwdVector = 0, kFwdRun8 = 1 };
+
+int launch_fwd_run8(const void* p, const void* d, const void* a, const void* b, void* out,
+                    int B, int C, int N, float one_minus_ns, cudaStream_t st) {
+  if (N % kRun != 0 || reinterpret_cast<uintptr_t>(p) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(d) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      B > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (static_cast<int64_t>(B) * C * N == 0) return 0;
+  // x over the row's runs (a power of two up to the block), y over channels
+  const int runs = N / kRun;
+  int bx = 32;
+  while (bx < runs && bx < kThreads) bx *= 2;
+  const dim3 block(bx, kThreads / bx);
+  const dim3 grid((runs + bx - 1) / bx, (C + block.y - 1) / block.y, B);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  bn_leaky_fwd_run8<<<grid, block, 0, st>>>(
+      static_cast<const vnk_bf16*>(p), static_cast<const vnk_bf16*>(d),
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<vnk_bf16*>(out), C,
+      N, one_minus_ns);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 VNK_EXPORT int vn_bn_leaky_fwd(const void* p, const void* d, const void* a,
@@ -185,9 +272,16 @@ VNK_EXPORT int vn_bn_leaky_fwd(const void* p, const void* d, const void* a,
   return launch_fwd<float>(p, d, a, b, out, B, C, N, one_minus_ns, stream);
 }
 
-// The bf16 mode: p, d, out bfloat16; a, b float32.
+// The bf16 mode: p, d, out bfloat16; a, b float32; design: 0 vector, 1
+// run8 (N % 8 == 0 and 16-byte aligned p, d and out, else
+// cudaErrorInvalidValue).
 VNK_EXPORT int vn_bn_leaky_fwd_bf16(const void* p, const void* d, const void* a,
                                     const void* b, void* out, int B, int C,
-                                    int N, float one_minus_ns, void* stream) {
+                                    int N, float one_minus_ns, int design, void* stream) {
+  if (design == kFwdRun8) {
+    return launch_fwd_run8(p, d, a, b, out, B, C, N, one_minus_ns,
+                           static_cast<cudaStream_t>(stream));
+  }
+  if (design != kFwdVector) return static_cast<int>(cudaErrorInvalidValue);
   return launch_fwd<vnk_bf16>(p, d, a, b, out, B, C, N, one_minus_ns, stream);
 }

@@ -16,7 +16,12 @@ coordinates in order, unclamped; the plain versions (``reference_*``) do the
 kernels' operations in the kernels' order, so on the card the two pick the
 same indices.  Distances are taken in at least float32 (float64 inputs stay
 float64 in the plain versions; the kernels take float32, and K2's wrapper
-upcasts bf16 points exactly).  K3 has a bf16 mode for the bfloat16 compute
+upcasts bf16 points exactly).  K2 runs one of two designs of
+``csrc/knn.cu``, chosen by shape in :func:`knn_design` and counted by name:
+``coords`` (D <= 4: the sample's references staged in shared memory, a few
+lanes a query, q and r read at their own strides) and ``warp`` (the parent
+design, over references the wrapper copies to (B, D, M)).  K3 has a bf16
+mode for the bfloat16 compute
 policy: bf16 features u and v (and bf16 or float32 ``xflat``, read as
 float32), the exact gather, and the centre add ``bf16(float(u[idx]) +
 float(v))``; its launches count under ``edge_knn_gather[bf16]``.  K3 runs
@@ -52,7 +57,8 @@ _MAX_K = 64
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _TOPK = CudaKernel("knn.cu", "topk_min", [_P] * 3 + [_I] * 3 + [_P])
-_KNN = CudaKernel("knn.cu", "knn_min", [_P] * 4 + [_I] * 5 + [_P])
+_I64 = ctypes.c_int64
+_KNN = CudaKernel("knn.cu", "knn_min", [_P] * 4 + [_I] * 6 + [_I64] * 6 + [_P])
 _EDGE = CudaKernel("knn.cu", "edge_knn_gather", [_P] * 5 + [_I] * 6 + [_P])
 _EDGE_BF16 = CudaKernel("knn.cu", "edge_knn_gather_bf16", [_P] * 5 + [_I] * 7 + [_P],
                         "edge_knn_gather[bf16]")
@@ -76,6 +82,7 @@ def edge_gather_eligible(n: int, d: int, k: int, c3: int) -> bool:
             and n * c3 <= 512 * 1536)
 
 
+KNN_DESIGNS = ("warp", "coords")  # csrc/knn.cu KnnDesign, in its order
 EDGE_DESIGNS = ("warp", "coords", "tiled")  # csrc/knn.cu EdgeDesign, in its order
 _GATHER_THREADS = 256  # the gather's block (csrc knn.cu kThreads)
 _COORDS_MAX_D = 4
@@ -95,6 +102,21 @@ def gather_slots(n: int, k: int, bf16: bool) -> int:
     share = _GATHER_THREADS // runs
     kpt = k // share
     return kpt if k % share == 0 and kpt in (1, 2, 4, 8) else 0
+
+
+def knn_design(m: int, d: int, k: int) -> str:
+    """Which design kernel K2 runs against M references of D coordinates,
+    k neighbours, at any number of queries: ``"coords"`` at D <= 4 and
+    M <= 4096 (a block stages the sample's references and their |r|^2 in
+    shared memory, 80 KB at most beside 30 KB of candidate buffers, and
+    gives each query 4 lanes), ``"warp"`` (one warp a query over the
+    references transposed to (B, D, M): the parent design) elsewhere.
+    Both give the same indices and bits; a CUDA launch takes the one chosen
+    here or raises.  k outside [1, min(64, M)] and D outside [1, 512] are
+    refused."""
+    if not (0 < k <= min(_MAX_K, m) and 0 < d <= _MAX_D):
+        raise ValueError(f"knn_min: no design takes M={m}, D={d}, k={k}")
+    return "coords" if d <= _COORDS_MAX_D and m <= _MAX_M else "warp"
 
 
 def edge_design(n: int, d: int, k: int, bf16: bool) -> str:
@@ -212,18 +234,21 @@ def knn_min_fwd(q: torch.Tensor, r: torch.Tensor, k: int):
         raise ValueError(f"knn_min: bad shapes {tuple(q.shape)} {tuple(r.shape)}")
     b, n, dim = q.shape
     m = r.shape[1]
-    _check_k("knn_min", k, m)
-    if dim > _MAX_D:
-        raise ValueError(f"knn_min: D={dim} > {_MAX_D}")
+    design = knn_design(m, dim, k)
     # bf16 coordinates are upcast exactly, as JAX's kernel does in its body
     # (knn_pallas.py:159-160)
     q, r = _exact_f32(q), _exact_f32(r)
-    q, rt = q.contiguous(), r.transpose(1, 2).contiguous()
-    check_cuda("knn_min", "float32 points (bf16 upcast exactly)",
-               (q, torch.float32), (rt, torch.float32))
+    check_cuda("knn_min", "float32 points (bf16 upcast exactly), any strides",
+               (q, torch.float32), (r, torch.float32), contiguous=False)
+    if design == "coords":  # read at their own strides
+        qs, rs = q.stride(), r.stride()
+    else:  # q packed, r packed as (B, D, M)
+        q, r = q.contiguous(), r.transpose(1, 2).contiguous()
+        qs, rs = (n * dim, dim, 1), (dim * m, 1, m)
     vals = torch.empty((b, n, k), device=q.device, dtype=torch.float32)
     idx = torch.empty((b, n, k), device=q.device, dtype=torch.int32)
-    _KNN(q, q.data_ptr(), rt.data_ptr(), vals.data_ptr(), idx.data_ptr(), b, n, m, dim, k)
+    _KNN(q, q.data_ptr(), r.data_ptr(), vals.data_ptr(), idx.data_ptr(), b, n, m, dim, k,
+         KNN_DESIGNS.index(design), *qs, *rs, variant=design)
     return vals, idx
 
 

@@ -22,7 +22,11 @@ CPU tensor they are the plain versions :func:`reference_bn_leaky_planes` and
 :func:`reference_bn_leaky_bwd`.  Both kernels have a bf16 mode for bf16
 planes (the bfloat16 compute policy), counted under ``<symbol>[bf16]``:
 read bf16, compute in float32, store bf16 (A': dp and dd; its dA, dB sums
-are float32, summed from the float32 values).
+are float32, summed from the float32 values).  A's bf16 mode runs one of
+two designs, chosen in :func:`fwd_design` and counted by name
+(``cuda_lib.variant_counts``): ``run8`` (a thread owns 8 consecutive points
+of a row: 16-byte loads and stores) or ``vector`` (one thread a vector,
+the parent design); the float32 mode has the vector design only.
 """
 
 from __future__ import annotations
@@ -42,7 +46,9 @@ _KERNEL = CudaKernel(
      ctypes.c_float, _P],
 )
 _KERNEL_BF16 = CudaKernel(
-    "vn_fused.cu", "vn_bn_leaky_fwd_bf16", _KERNEL.argtypes, "vn_bn_leaky_fwd[bf16]")
+    "vn_fused.cu", "vn_bn_leaky_fwd_bf16", _KERNEL.argtypes[:-1] + [ctypes.c_int, _P],
+    "vn_bn_leaky_fwd[bf16]")
+FWD_DESIGNS = ("vector", "run8")  # csrc/vn_fused.cu FwdDesign, in its order
 TAKES = "p, d float32 or (its bf16 mode) bf16, and float32 a, b"
 _BWD = CudaKernel(
     "vn_fused.cu", "vn_bn_leaky_bwd",
@@ -61,6 +67,17 @@ def _channel_tile(c: int) -> int:
     if c <= 128 and c % 16 == 0:
         return c
     return 0
+
+
+def fwd_design(n: int, aligned: bool = True) -> str:
+    """Which design kernel A's bf16 mode runs at N points: ``"run8"`` with
+    N a multiple of 8 and planes that start 16-byte aligned (``aligned``:
+    p and d do; the output is allocated so), each thread 8 consecutive
+    points of one (sample, channel) row by 16-byte loads and stores;
+    ``"vector"`` (one thread a vector: the parent design) otherwise.  Both
+    give the same bits; a CUDA launch takes the one chosen here or raises.
+    The float32 mode has the vector design only."""
+    return "run8" if n % 8 == 0 and aligned else "vector"
 
 
 def eligible(p: torch.Tensor) -> bool:
@@ -163,9 +180,13 @@ def bn_leaky_fwd(p, d, a, b, negative_slope: float):
     check_cuda("fused_bn_leaky", TAKES, (p, dt), (d, dt), (a, torch.float32),
                (b, torch.float32))
     out = torch.empty_like(p)
-    kernel = _KERNEL_BF16 if dt == torch.bfloat16 else _KERNEL
-    kernel(p, p.data_ptr(), d.data_ptr(), a.data_ptr(), b.data_ptr(),
-           out.data_ptr(), bsz, c, n, 1 - negative_slope)
+    args = (p.data_ptr(), d.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, c, n,
+            1 - negative_slope)
+    if dt == torch.bfloat16:
+        design = fwd_design(n, p.data_ptr() % 16 == 0 and d.data_ptr() % 16 == 0)
+        _KERNEL_BF16(p, *args, FWD_DESIGNS.index(design), variant=design)
+    else:
+        _KERNEL(p, *args)
     return out
 
 
