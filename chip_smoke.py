@@ -14,9 +14,9 @@ on one NVIDIA GPU:
    PyTorch version on the card at the shapes of
    the main paths (batch 8), with the tolerance stated beside it (K1, K2,
    K3 and F: indices equal; K1 and K2 on VN DGCNN conv1's own input, whose
-   repeated points tie), times both with CUDA events (K1 also against
-   ``torch.topk``), runs the backward-slice and DGCNN kernels twice to show
-   that they give the same bits, and holds the backward of K2 and K3
+   repeated points tie), times both with CUDA events, runs the
+   backward-slice and DGCNN kernels twice to show that they give the same
+   bits, and holds the backward of K2 and K3
    against autograd of their plain chains.  Every row prints its share of
    its bound, and its time a call in a run of calls back to back
    (``stream_ms``: the wrapper's host time hidden behind the card's).  Each B, C, S, S', C' and B' row names the design it took (C,
@@ -42,7 +42,16 @@ on one NVIDIA GPU:
    (A_BF16_SHAPES, "run8") against its plain version and the parent
    "vector" design, equal to the bit; both timed beside their parent
    design (versus_parent: a call, back to back, on the device), K2 also
-   against cdist + topk, and at D 64, k 40 (the warp design).
+   against cdist + topk, and at D 64, k 40 (the warp design); K1 in its
+   "stream" design (topk_design) over the (8, 2048, M) distance matrices of
+   the rotated scans (K1_SHAPES: M 2048 at k 16, 40 and 64, M 4096 at k 16),
+   each equal to its plain version, a second launch and the parent "warp"
+   design, timed beside the parent design and torch.topk.
+3b. K1's path: ``knn()`` at (8, 2048 vs 2048, D 768, k 16) (features past
+   K2's D 512), counted: K1 once in its stream design and nothing else; the
+   indices equal to the plain selection's over the same matrix (one batched
+   product in full float32, checked against float64 and unchanged with TF32
+   allowed); the call's time.
    Phases 4-13 check that every counted B took the stream design, every C
    the wide one, every B' the fused pass, every F its one design, every K2
    the coords design, every A in bf16 the run8 design and every K3 its
@@ -133,8 +142,9 @@ before the last is a JSON object with one record per kernel (its launches
 are those of the training run of its path: phase 5 for the flagship's nine,
 phase 7 for K2, K3 and F, phase 9 for the group=S rows, phase 10's two
 ``--emd test`` runs for E, phase 12 for the bf16 rows of A, B, C and K3,
-phase 13 for those of the training kernels; K1, and C and C' in
-group=S mode, are on no model's path); the last line is
+phase 13 for those of the training kernels, phase 3b's ``knn()`` call for
+K1, which no model reaches; C and C' in group=S mode are on no model's
+path); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -474,13 +484,13 @@ def narrow_designs():
 
 @contextlib.contextmanager
 def parent_designs():
-    """K2 and K3 held to their "warp" designs (the parent designs: one warp
-    a query; K3 then the block's gather) and A's bf16 mode to its "vector"
-    design (one thread a vector) inside the block."""
+    """K1, K2 and K3 held to their "warp" designs (the parent designs: one
+    warp a row or query; K3 then the block's gather) and A's bf16 mode to
+    its "vector" design (one thread a vector) inside the block."""
     from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas, vn_fused
 
     choosers = ((knn_pallas, "edge_design", "warp"), (knn_pallas, "knn_design", "warp"),
-                (vn_fused, "fwd_design", "vector"))
+                (knn_pallas, "topk_design", "warp"), (vn_fused, "fwd_design", "vector"))
     saved = [getattr(mod, name) for mod, name, _ in choosers]
     for mod, name, design in choosers:
         setattr(mod, name, lambda *shape, design=design: design)
@@ -558,7 +568,7 @@ def launched_designs(fn):
 
 
 def versus_parent(rec: dict, fn, reps: int = 20) -> None:
-    """A redesigned kernel's row (K2 and A bf16) against its parent design
+    """A redesigned kernel's row (K1, K2 and A bf16) against its parent design
     at the same shape in the same call: the parent's time a call
     (``cuda_ms``), back to back (``stream_ms``) and on the device alone
     (``graph_ms``), printed first, then the new design's, each with its
@@ -707,7 +717,7 @@ def check_kernels(dev):
               flush=True)
         if designs:  # B, C, S, S', C', B', F, K3: the design taken, the rates (the parent's time)
             narrow = ""
-            if designs in (["wide"], ["fused"], ["stream"]):
+            if designs in (["wide"], ["fused"], ["stream"]) and not versus:
                 narrow = ("; the narrow design at the same shape: "
                           f"{narrow_ms(kernel_fn, max(3, reps // 2)):.4f} ms")
             elif designs in (["coords"], ["tiled"], ["run8"]) and not versus:
@@ -1368,6 +1378,9 @@ A_BF16_SHAPES = ((1024, 2048), (128, 2048), (64, 8192), (128, 8192), (512, 2048)
 # classic DGCNN's first two graphs (2048 vs 2048 at k 40)
 KNN_SHAPES = ((2048, 2048, 16), (128, 128, 16), (512, 2048, 16), (512, 512, 16),
               (128, 512, 16), (128, 128, 8), (2048, 2048, 40))
+# K1's rows (M, k) over (8, 2048, M) matrices: knn()'s D > 512 branch at
+# 2048 points (k 16), the row cap 4096, and the larger lists (k 40, 64)
+K1_SHAPES = ((2048, 16), (4096, 16), (2048, 40), (2048, 64))
 # K3's shapes on the paths (N, D, C3), k 16: the VN DGCNN's conv5 and conv4
 
 # over the coordinates, vn_pointr's conv4, conv5 and conv6 over its features
@@ -1376,11 +1389,14 @@ EDGE_SHAPES = ((512, 3, 768), (512, 3, 384), (512, 96, 384), (512, 192, 384), (1
 FPS_SHAPES = ((2048, 512), (512, 128), (2048, 224))
 
 
-def lane_tie_cloud(dev, b: int, m: int):
+def lane_tie_cloud(dev, b: int, m: int, period: int = 32):
     """(b, m, 3) points whose distances from the origin (the last point) tie
     as duplicate points do inside one lane's list: P_j (radius 1 + j/100) at
-    columns j and j + 32, Q_j (radius 0.5) at j + 64 for j < 8, the rest at
-    radius 3 (``tests/test_torch_port_kernels.py::_lane_tie_cloud``)."""
+    columns j and j + period, Q_j (radius 0.5) at j + 2 period for j < 8,
+    the rest at radius 3 (``tests/test_torch_port_kernels.py::_lane_tie_cloud``).
+    A period of 32 puts each pair in one lane of a warp that deals columns
+    one a lane (the warp designs; K2's and K3's few-lane designs too), 16 in
+    one lane of K1's stream design (4 lanes, 16-byte vectors)."""
     import numpy as np
     import torch
 
@@ -1388,10 +1404,10 @@ def lane_tie_cloud(dev, b: int, m: int):
     dirs = rng.standard_normal((b, m, 3))
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
     radius = np.full(m, 3.0)
-    radius[:32] = 1.0 + np.arange(32) / 100
-    radius[64:72] = 0.5
+    radius[:period] = 1.0 + np.arange(period) / 100
+    radius[2 * period:2 * period + 8] = 0.5
     pts = dirs * radius[None, :, None]
-    pts[:, 32:64] = pts[:, :32]
+    pts[:, period:2 * period] = pts[:, :period]
     pts[:, m - 1] = 0.0
     return torch.from_numpy(pts.astype(np.float32)).to(dev)
 
@@ -1554,18 +1570,36 @@ def check_knn_fps_kernels(dev, record, randn, uniform):
 
     # K1 over the (8, 2048, 2048) distance matrix of VN DGCNN conv1's input:
     # the rotated partial scans of the training batch, whose resampling
-    # repeats points, so that equal distances occur; torch.topk as library
-    partial, _, rot = main_path_batch(dev)
+    # repeats points, so that equal distances occur; and over the (8, 2048,
+    # 4096) matrix of those scans against the first 4096 points of the
+    # complete scans; at k 16, 40 and 64.  Each row: indices and values
+    # equal to the plain version's, to a second launch's and to the parent
+    # (warp) design's, then timed beside the parent design (versus_parent);
+    # torch.topk as library.  Bound: one read of the matrix, the outputs
+    # written once (one compare an element, far below the FP32 rate)
+    partial, complete, rot = main_path_batch(dev)
     q = rotate_points(partial, rot)
-    d = knn_pallas.pairwise_sqdist(q, q)
-    record("K1 topk_min", src_knn, "vn_pointcloudcompletion_tpu/ops/knn_pallas.py:110",
-           lambda: knn_pallas.topk_min_fwd(d, k),
-           lambda: knn_pallas.reference_topk_min(d, k),
-           same_indices(0.0), "indices equal, values exact",
-           nbytes(d) + 8 * BATCH * 2048 * k, BATCH * 2048 * 2048,
-           reps=10, plain_reps=3, repro=True,
-           library_fn=lambda: torch.topk(d, k, dim=-1, largest=False))
-    del d
+    mats = {2048: knn_pallas.pairwise_sqdist(q, q),
+            4096: knn_pallas.pairwise_sqdist(q, rotate_points(complete[:, :4096], rot))}
+    for m, kk in K1_SHAPES:
+        d = mats[m]
+        name = "K1 topk_min" + ("" if (m, kk) == K1_SHAPES[0] else f" 2048 x {m} k {kk}")
+        fn = lambda: knn_pallas.topk_min_fwd(d, kk)  # noqa: E731
+        with parent_designs():
+            parent = fn()
+        rec = record(name, src_knn, "vn_pointcloudcompletion_tpu/ops/knn_pallas.py:110", fn,
+                     lambda: knn_pallas.reference_topk_min(d, kk),
+                     same_indices(0.0), "indices equal, values exact",
+                     nbytes(d) + 8 * BATCH * 2048 * kk, BATCH * 2048 * m,
+                     reps=10, plain_reps=3, repro=True, versus=True,
+                     library_fn=lambda: torch.topk(d, kk, dim=-1, largest=False))
+        same = all(torch.equal(a, b) for a, b in zip(fn(), parent))
+        print(f"[kernel {name}] the parent (warp) design's bits: {same}", flush=True)
+        if not same or rec["design"] != "stream":
+            raise AssertionError(f"kernel {name}: design {rec['design']}, the warp design's "
+                                 f"bits {same}")
+        versus_parent(rec, fn, reps=10)
+    del mats, d, parent
 
     check_knn_kernel(dev, record, randn, uniform, q)
 
@@ -1659,6 +1693,68 @@ def check_knn_fps_kernels(dev, record, randn, uniform):
     if not ok:
         raise AssertionError("kernel F: a cloud of one repeated point must pick index 0")
     return records
+
+
+def knn_wide_path(dev):
+    """Phase 3b, K1's path: ``knn()`` at (8, 2048 vs 2048, D 768, k 16),
+    the feature graph of a plane-layout VN EdgeConv whose 3C passes K2's
+    512 (C 256; the JAX package then forms the matrix and takes K1).  The
+    counts are set to 0 just before one call and read just after: K1 once,
+    in its stream design, and nothing else.  The indices and values equal
+    the plain selection's over the same matrix (``pairwise_sqdist_einsum``:
+    one batched product in full float32, whatever the caller's TF32
+    switch: the matrix formed with TF32 allowed is the same to the bit, and
+    lies within a quarter of a TF32 product's distance from float64); then
+    the call's time, its synchronisation inside, and the product's and
+    K1's device times.  Returns the counts, by design too."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib, knn_pallas
+    from vn_pointcloudcompletion_tpu_torch.ops.knn import knn, pairwise_sqdist_einsum
+
+    feats = torch.randn(BATCH, 2048, 768, generator=torch.Generator(device=dev).manual_seed(7),
+                        device=dev)
+    cuda_lib.reset_launch_counts()
+    vals, idx = knn(feats, feats, 16)
+    torch.cuda.synchronize()
+    counts = {**cuda_lib.launch_counts(), **cuda_lib.variant_counts()}
+    launched = {k: v for k, v in counts.items() if v}
+    d = pairwise_sqdist_einsum(feats, feats)
+    want = knn_pallas.reference_topk_min(d, 16)
+    equal = torch.equal(idx, want[1]) and torch.equal(vals, want[0])
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        same_tf32 = torch.equal(pairwise_sqdist_einsum(feats, feats), d)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    # the distance from float64 of the matrix and of the same product with
+    # its inputs rounded to TF32's 10-bit mantissa (what a TF32 product reads)
+    tf32 = (feats.view(torch.int32) + 0x1000 & -0x2000).view(torch.float32).double()
+    d64 = pairwise_sqdist_einsum(feats.double(), feats.double())
+    scale = d64.abs().max()
+    err = ((d - d64).abs().max() / scale).item()
+    sq = (feats.double() ** 2).sum(-1)
+    err_tf32 = (((sq[:, :, None] + sq[:, None, :] - 2 * tf32 @ tf32.transpose(1, 2)) - d64)
+                .abs().max() / scale).item()
+    del d64, tf32, sq
+    ok = (launched == {"topk_min": 1, "topk_min/stream": 1} and equal and same_tf32
+          and err <= err_tf32 / 4)
+    call_ms = cuda_ms(lambda: (knn(feats, feats, 16), torch.cuda.synchronize()), 10)
+    product_ms = graph_ms(lambda: pairwise_sqdist_einsum(feats, feats))
+    tflops = 2 * BATCH * 2048 * 2048 * 768 / product_ms / 1e9
+    select_ms = graph_ms(lambda: knn_pallas.topk_min_fwd(d, 16))
+    print(f"[knn D 768] launches {json.dumps(launched)}; indices and values equal to the plain "
+          f"selection over the same matrix {equal}; the matrix with TF32 allowed the same "
+          f"{same_tf32}; from float64 {err:.3e} of its max (a TF32 product's {err_tf32:.3e}, "
+          f"at most a quarter of it); {'PASS' if ok else 'FAIL'}", flush=True)
+    print(f"[knn D 768] (8, 2048 vs 2048, D 768, k 16): {call_ms:.4f} ms a call (synchronised); "
+          f"on the device the product {product_ms:.4f} ms ({tflops:.1f} TFLOP/s), K1 "
+          f"{select_ms:.4f} ms", flush=True)
+    if not ok:
+        raise AssertionError("knn() at D 768 did not go through K1's stream design on the "
+                             "einsum-form matrix")
+    return counts
 
 
 def emd_clouds(dev, n: int, m: int, kind: str):
@@ -3277,6 +3373,7 @@ def main() -> int:
         return out
 
     records = phase("3 kernels", check_kernels, dev)
+    knn_counts = phase("3b knn() at D 768 (K1)", knn_wide_path, dev)
     phase("4 flagship serve", serve_path, dev)
     counts = phase("5 flagship train", train_path, dev)
     phase("5b flagship train step", train_step_kernels_vs_plain, dev, smi)
@@ -3296,9 +3393,10 @@ def main() -> int:
     phase("11 standalone PCN, VNPCN, DGCNN", standalone_models, dev)
     bf16_counts = phase("12 bf16 serve", bf16_serve, dev, smi)
     bf16_train_counts = phase("13 bf16 train", bf16_train, dev, smi)
-    # launches: each kernel's count in the training run of its path (K1 is
-    # on no model's path: the JAX package reaches it only for D > 512; nor
-    # are C and C' in group=S mode: no model passes a group to them; F's and
+    # launches: each kernel's count in the training run of its path (K1's:
+    # phase 3b's knn() call, its path; no model reaches it: the JAX package
+    # takes it only for D > 512; C and C' in group=S mode are on no path:
+    # no model passes a group to them; F's and
     # K3's rows at vn_pointr's shapes: phase 9's run, by design as well); the
     # bf16 rows' in phase 12's counted forwards and metric step (A, B, C,
     # K3) and phase 13's counted training runs (A', S, S', B', C')
@@ -3313,6 +3411,10 @@ def main() -> int:
             rec["launches"] = pointr_counts[f"{sym}[group]"]
         elif sym == "emd_rounds":  # phase 10: both test --emd runs
             rec["launches"] = emd_counts[sym] + emd_counts_448[sym]
+        elif sym == "topk_min":  # phase 3b, by design as well
+            rec["launches"] = knn_counts[sym]
+            rec["designs"] = {k.split("/")[1]: v for k, v in knn_counts.items()
+                              if k.startswith(f"{sym}/")}
         else:
             on_pointr = " D 96 " in rec["name"] or " D 192 " in rec["name"] or "-> 224" in rec["name"]
             rec["launches"] = (counts if sym in FLAGSHIP_KERNELS else

@@ -154,11 +154,13 @@ def test_f_plain_matches_pallas_and_jnp(n, s):
     assert got[0, 0] == 0 and len(set(got[0].tolist())) == min(s, n - 40)
 
 
-@pytest.mark.parametrize("n,m,dim", [(64, 300, 3), (64, 300, 520), (8, 4100, 3)],
-                         ids=["fused", "topk", "plain"])
+@pytest.mark.parametrize("n,m,dim", [(64, 300, 3), (64, 300, 520), (8, 4100, 3),
+                                     (48, 200, 768)],
+                         ids=["fused", "topk", "plain", "topk_768"])
 def test_knn_dispatch_matches_jax(n, m, dim):
-    """K2 (D <= 512), distances + K1 (D > 512), plain selection (M > 4096):
-    indices equal, distances within 1e-5 of their max."""
+    """K2 (D <= 512), distances + K1 (D > 512; 768: a plane-layout VN
+    EdgeConv's 3C at C 256), plain selection (M > 4096): indices equal,
+    distances within 1e-5 of their max."""
     from vn_pointcloudcompletion_tpu.ops.knn import knn as jax_knn
 
     rng = np.random.default_rng(m + dim)
@@ -168,6 +170,26 @@ def test_knn_dispatch_matches_jax(n, m, dim):
     pv, pi = port_knn.knn(*_t(q, r), 16)
     np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
     np.testing.assert_allclose(pv.numpy(), np.asarray(jv), atol=1e-5 * np.abs(jv).max())
+
+
+@pytest.mark.parametrize("n,m,dim", [(64, 300, 520), (48, 200, 768), (100, 4100, 3)])
+def test_knn_matrix_is_jax_einsum_form(n, m, dim):
+    """knn()'s matrix in front of K1 and the plain selection
+    (``pairwise_sqdist_einsum``: one batched product) against JAX's
+    ``pairwise_sqdist`` on the same inputs: within 1e-5 of its max; and
+    float64 inputs stay float64."""
+    from vn_pointcloudcompletion_tpu.ops.knn import pairwise_sqdist as jax_sqdist
+
+    rng = np.random.default_rng(n + dim)
+    q = rng.standard_normal((2, n, dim)).astype(np.float32)
+    r = rng.standard_normal((2, m, dim)).astype(np.float32)
+    want = np.asarray(jax_sqdist(jnp.asarray(q), jnp.asarray(r)))
+    got = port_knn.pairwise_sqdist_einsum(*_t(q, r))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * np.abs(want).max(), rtol=0)
+    got64 = port_knn.pairwise_sqdist_einsum(*(torch.from_numpy(a.astype(np.float64)) for a in (q, r)))
+    assert got64.dtype == torch.float64
+    np.testing.assert_allclose(got64.numpy(), want, atol=1e-5 * np.abs(want).max(), rtol=0)
 
 
 # ------------------------------------------------ gradients of K1, K2, K3

@@ -1,7 +1,11 @@
-"""Kernels F, K2, K3 and A on the CPU: which design K2, K3 and A's bf16
-mode run at each of the paths' shapes, the host rules of K3's gather, F's
-probe, and the plain versions against the JAX package at the paths' new
-shapes.
+"""Kernels F, K1, K2, K3 and A on the CPU: which design K2, K3 and A's bf16
+mode run at each of the paths' shapes, K1's choice, the host rules of K3's
+gather, F's probe, and the plain versions against the JAX package at the
+paths' new shapes.
+
+``ops/knn_pallas.py::topk_design`` gives kernel K1 the "stream" design
+where its rows are whole 16-byte vectors and the parent "warp" design
+elsewhere.
 
 ``ops/knn_pallas.py::knn_design`` gives kernel K2 the "coords" design over
 coordinates (D <= 4, M <= 4096) and the parent "warp" design above;
@@ -160,6 +164,26 @@ def test_knn_design_refuses(m, d, k):
     """k outside [1, min(64, M)] and D outside [1, 512] have no design."""
     with pytest.raises(ValueError, match="no design"):
         port_knn.knn_design(m, d, k)
+
+
+@pytest.mark.parametrize("m,k,aligned,design", [
+    (2048, 16, True, "stream"), (4096, 64, True, "stream"), (2048, 40, True, "stream"),
+    (4, 4, True, "stream"), (4095, 16, True, "warp"), (333, 16, True, "warp"),
+    (2048, 16, False, "warp"),
+])
+def test_topk_design(m, k, aligned, design):
+    """K1 takes the stream design where every row is whole 16-byte vectors
+    (M a multiple of 4, the matrix 16-byte aligned): knn()'s matrix at M
+    2048 (k 16) and the row cap 4096 at k 64; the parent warp design at a
+    ragged M or an unaligned start.  The choice does not read N."""
+    assert port_knn.topk_design(m, k, aligned) == design
+
+
+@pytest.mark.parametrize("m,k", [(2048, 0), (2048, 65), (16, 17), (4100, 16), (8192, 64)])
+def test_topk_design_refuses(m, k):
+    """k outside [1, min(64, M)] and M > 4096 have no design."""
+    with pytest.raises(ValueError, match="no design"):
+        port_knn.topk_design(m, k, True)
 
 
 # cuobjdump -sass text in the layout of the knn library's: another

@@ -841,16 +841,17 @@ def _cloud(seed, b, n):
     return torch.from_numpy((rng.uniform(-0.5, 0.5, (b, n, 3))).astype(np.float32))
 
 
-def _lane_tie_cloud(b, m):
+def _lane_tie_cloud(b, m, period=32):
     """(b, m, 3) reference points whose distances from the origin tie the
     way duplicate points do inside one warp lane of K1-K3 (columns j and
-    j + 32), with a nearer point later in the same lane (column j + 64) for
-    j < 8 (``chip_smoke.lane_tie_cloud``).  Of k = 32 nearest to the
-    origin, ties to the lowest index give m - 1, then 64..71 (in some
+    j + period, 32; 16 for one lane of K1's stream design), with a nearer
+    point later in the same lane (column j + 2 period) for j < 8
+    (``chip_smoke.lane_tie_cloud``).  Of k = 32 nearest to the origin at
+    period 32, ties to the lowest index give m - 1, then 64..71 (in some
     order), then 0, 32, 1, 33, ..."""
     from chip_smoke import lane_tie_cloud
 
-    return lane_tie_cloud(torch.device("cpu"), b, m)
+    return lane_tie_cloud(torch.device("cpu"), b, m, period)
 
 
 def test_lane_tie_cloud_orders_ties_by_index():
@@ -864,25 +865,66 @@ def test_lane_tie_cloud_orders_ties_by_index():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,m,k,ties", [(300, 700, 16, False), (2048, 2048, 16, False),
-                                        (64, 4096, 64, False), (100, 333, 32, True),
-                                        (16, 333, 40, "lane")])
-def test_kernel_k1_cuda_matches_plain(cuda, n, m, k, ties):
+@pytest.mark.parametrize("b,n,m,k,case", [
+    (2, 300, 700, 16, "randn"), (2, 2048, 2048, 16, "randn"), (2, 64, 4096, 64, "randn"),
+    (2, 100, 333, 32, "int"), (2, 16, 333, 40, "lane"), (8, 2048, 2048, 16, "scans"),
+    (8, 2048, 4096, 64, "randn"), (2, 100, 2047, 16, "randn"), (2, 100, 336, 32, "int"),
+    (2, 64, 2048, 64, "int"), (2, 16, 336, 40, "lane16"), (2, 3, 4, 4, "int")])
+def test_kernel_k1_cuda_matches_plain(cuda, b, n, m, k, case, monkeypatch):
+    """K1 in the design ``topk_design`` picks (stream at M % 4 == 0, the
+    parent warp design at M 333 and 2047) against its plain version, a
+    second launch and the warp design: indices and values equal to the
+    bit, each launch counted under its design.  "scans": the distance
+    matrix of the main path's rotated partial scans (their resampling
+    repeats points, so distances tie); "int": integers 0-6, ties in every
+    lane and across lanes; "lane", "lane16": the squared norms of the
+    lane-tie cloud, its duplicate pairs inside one lane of the warp design
+    (32 columns apart) or of the stream design (16)."""
     g = torch.Generator().manual_seed(n + m)
-    if ties == "lane":  # the squared distances of the lane-tie cloud, every row
-        d = (_lane_tie_cloud(2, m) ** 2).sum(-1)[:, None, :].expand(2, n, m).contiguous()
-    elif ties:
-        d = torch.randint(0, 7, (2, n, m), generator=g).float()
+    if case == "scans":
+        import chip_smoke
+        from vn_pointcloudcompletion_tpu_torch.ops.rotations import rotate_points
+
+        partial, _, rot = chip_smoke.main_path_batch(cuda)
+        q = rotate_points(partial, rot)
+        d = knn_pallas.pairwise_sqdist(q, q)
+    elif case.startswith("lane"):
+        cloud = _lane_tie_cloud(b, m, 16 if case == "lane16" else 32)
+        d = (cloud ** 2).sum(-1)[:, None, :].expand(b, n, m).contiguous()
+    elif case == "int":
+        d = torch.randint(0, 7, (b, n, m), generator=g).float()
     else:
-        d = torch.randn(2, n, m, generator=g)
+        d = torch.randn(b, n, m, generator=g)
     d = d.to(cuda)
-    before = knn_pallas._TOPK.launches
+    design = knn_pallas.topk_design(m, k, True)
+    assert design == ("stream" if m % 4 == 0 else "warp")
+    key = f"topk_min/{design}"
+    before = cuda_lib.variant_counts().get(key, 0)
     got, again = knn_pallas.topk_min_fwd(d, k), knn_pallas.topk_min_fwd(d, k)
     torch.cuda.synchronize()
-    assert knn_pallas._TOPK.launches == before + 2
+    assert cuda_lib.variant_counts()[key] == before + 2
     want = knn_pallas.reference_topk_min(d, k)
-    for a, b, c in zip(got, want, again):
-        assert torch.equal(a, b) and torch.equal(a, c)
+    monkeypatch.setattr(knn_pallas, "topk_design", lambda *shape: "warp")
+    warp = knn_pallas.topk_min_fwd(d, k)
+    torch.cuda.synchronize()
+    for a, w, c, p in zip(got, want, again, warp):
+        assert torch.equal(a, w) and torch.equal(a, c) and torch.equal(a, p)
+
+
+@pytest.mark.gpu
+def test_kernel_k1_unaligned_rows_take_the_warp_design(cuda):
+    """A matrix whose start is not 16-byte aligned takes the warp design
+    (the stream design copies 16-byte vectors); the result still equals
+    the plain version's."""
+    d = torch.randn(2, 100, 2048, generator=torch.Generator().manual_seed(5)).to(cuda)
+    view = d.new_empty(d.numel() + 1)[1:].view(d.shape).copy_(d)
+    assert view.data_ptr() % 16
+    before = cuda_lib.variant_counts().get("topk_min/warp", 0)
+    got = knn_pallas.topk_min_fwd(view, 16)
+    torch.cuda.synchronize()
+    assert cuda_lib.variant_counts()["topk_min/warp"] == before + 1
+    for a, w in zip(got, knn_pallas.reference_topk_min(d, 16)):
+        assert torch.equal(a, w)
 
 
 @pytest.mark.gpu

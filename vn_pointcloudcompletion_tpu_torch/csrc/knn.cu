@@ -21,12 +21,29 @@
 // kernel and plain version pick the same indices.
 //
 // Design.  The TPU kernels hold a (256, M) tile in VMEM and make k passes of
-// min / argmin / mask over it.  Here K1 (and K2's "warp" design) give one
-// warp one query row: each lane walks the columns lane, lane + 32, ... in
-// ascending order and keeps its own k best (value, index) pairs sorted in
-// registers (an insertion that bubbles the candidate down the list), then k
-// rounds of a butterfly argmin over the 32 lanes' heads merge the lists.
-// Nothing is written but the k results.
+// min / argmin / mask over it.  Here the parent designs of K1 and K2
+// ("warp") give one warp one query row: each lane walks the columns lane,
+// lane + 32, ... in ascending order and keeps its own k best (value, index)
+// pairs sorted in registers (an insertion that bubbles the candidate down
+// the list), then k rounds of a butterfly argmin over the 32 lanes' heads
+// merge the lists.  Nothing is written but the k results.
+//
+// K1 runs one of two designs, chosen in ops/knn_pallas.py::topk_design and
+// passed in (both give the same indices and bits):
+//  - "stream" (M a multiple of 4, the matrix 16-byte aligned: knn()'s
+//    matrix at D > 512): a warp takes 8 rows and copies them through a
+//    ring of its own, 3 stages of 64 columns by cp.async (16 bytes a copy,
+//    one warp barrier a stage, no block barrier); each row gets 4 lanes,
+//    lane l the 16-byte vectors l, l + 4, ... of a stage, which select as
+//    K2's coords design does (BufferedSelect), then 2 butterfly rounds a
+//    merge.  The parent design kept ~one 128-byte line in flight a warp
+//    and made nearly every lane insert; a first version with one ring for
+//    the block (a block barrier a stage) let a warp that flushed hold up
+//    the block's copies, and ran slower than a ring a warp.  Of 2 and 4
+//    lanes a row, stages of 32, 64 and 128 columns and 2 to 4 stages
+//    (tools/probe_topk.py), 4 lanes and 3 stages of 64 ran fastest at
+//    k 16 (2 lanes ran ~7% faster at k 40 and 64, ~4% slower at k 16).
+//  - "warp" (the parent design) where a row is not whole 16-byte vectors.
 //
 // K2 runs one of two designs, chosen by shape in ops/knn_pallas.py
 // ::knn_design and passed in (both give the same indices and bits):
@@ -37,7 +54,7 @@
 //    query gets 4 lanes, each lane a LaneList over the references lane,
 //    lane + 4, ...; a lane buffers the distances that pass its tests and
 //    the warp pushes the buffers into the lists together (see
-//    knn_select_coords), then 2 butterfly rounds a merge.  q and r are
+//    BufferedSelect), then 2 butterfly rounds a merge.  q and r are
 //    read at their own strides, so the wrapper copies neither.  Of 2, 4,
 //    8 and 16 lanes a query, 4 ran fastest at (8, 2048 vs 2048) (a
 //    probe on the card; 8 was faster at 128 vs 128, where 64 queries a
@@ -78,7 +95,12 @@
 // v are bf16, the gather is exact, and out = bf16(float(u[idx]) + float(v))
 // rounded to nearest even, the TPU kernel's `g.astype(v.dtype) + v`.
 //
-// Bound on the H100.  K1: bytes (one read of the matrix).  K2 at the main
+// Bound on the H100.  K1: bytes, one read of the matrix (134 MB at (8,
+// 2048, 2048), 0.041 ms at 3.35 TB/s); the stream design's copies and
+// scan alone (its selection taken out: tools/probe_topk.py floor) take
+// 0.053 ms, 77% of that bound, and the selection adds ~0.012 ms at k 16,
+// ~0.2 at k 40 and 64 (a push into a lane's 64-entry list is ~450
+// instructions).  K2 at the main
 // path's D = 3: operations, 10 FP32 ones per (query, reference) pair for
 // the distance and the compare (2 D + 4), on the CUDA cores; what the card
 // issues is more, 17.25 instructions a pair a lane in the coords design's
@@ -173,6 +195,68 @@ __device__ __forceinline__ void warp_merge(LaneList<K>& l, int k, Emit emit) {
   }
 }
 
+// ---- the buffered selection (K1's "stream" design, K2's "coords" design) ----
+
+constexpr int kKnnBatch = 8;  // values offered between two flush tests
+constexpr int kKnnFlush = 8;  // a lane's buffered candidates that start a flush
+constexpr int kKnnCap = kKnnFlush + kKnnBatch - 1;  // a lane's buffer
+
+// The selection of one row (K1) or query (K2) spread over kLanes
+// neighbouring lanes, each a LaneList over the columns it owns, offered in
+// ascending index order.  A lane's sorted insertion costs ~100
+// instructions, and the warp waits for any lane that inserts: scanning and
+// inserting in turn, nearly every step of a scan had an insertion
+// somewhere in the warp.  So a lane only tests each value (offer) and
+// appends the ones that pass to its buffer in shared memory (in ascending
+// index order, as its list would have taken them); when a lane of the warp
+// holds kKnnFlush after a batch (step), every lane pushes its buffer into
+// its list at once (flush).  The test is against the last value of the
+// lane's list (strict: a later equal value has a higher index) and a bound
+// for the row: the largest over its lanes of each lane's (K / lanes)-th
+// value, below which the row already holds K >= k values, so a larger value
+// cannot be among the k smallest (an equal one passes: it may tie with a
+// higher index).  Every lane of the warp calls step and flush together.
+template <int K, int kLanes>
+struct BufferedSelect {
+  static_assert(K % kLanes == 0, "the row's bound needs K / lanes values a lane");
+  LaneList<K> l;
+  float* bufv;  // this thread's column of the block's (kKnnCap, kThreads) buffers
+  int* bufi;
+  float thr;  // a value passes below it
+  int cnt;    // the lane's buffered candidates
+
+  __device__ __forceinline__ BufferedSelect(float* bv, int* bi)
+      : bufv(bv + threadIdx.x), bufi(bi + threadIdx.x), thr(INFINITY), cnt(0) {
+    l.init();
+  }
+
+  __device__ __forceinline__ void offer(float v, int j) {
+    if (v < thr) {
+      bufv[cnt * kThreads] = v;
+      bufi[cnt * kThreads] = j;
+      ++cnt;
+    }
+  }
+
+  __device__ __forceinline__ void flush() {
+    const int most = static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(cnt)));
+    for (int t = 0; t < most; ++t) {
+      if (t < cnt) l.push(bufv[t * kThreads], bufi[t * kThreads]);
+    }
+    cnt = 0;
+    float bound = l.v[K / kLanes - 1];
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1) {
+      bound = fmaxf(bound, __shfl_xor_sync(kFull, bound, off));
+    }
+    thr = fminf(l.v[K - 1], nextafterf(bound, INFINITY));
+  }
+
+  __device__ __forceinline__ void step() {
+    if (__any_sync(kFull, cnt >= kKnnFlush)) flush();
+  }
+};
+
 // The squared distance of query row qrow (D floats, shared memory) to
 // column j of a (D, M) array (float32 or bf16, read as float32), in the
 // plain version's order.
@@ -195,7 +279,7 @@ __device__ __forceinline__ float sq_norm(const float* qrow, int D) {
   return s;
 }
 
-// K1: d (rows, M) -> vals, idx (rows, k).
+// K1, the "warp" design: d (rows, M) -> vals, idx (rows, k).
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 topk_min_kernel(const float* __restrict__ d, float* __restrict__ vals,
@@ -212,6 +296,104 @@ topk_min_kernel(const float* __restrict__ d, float* __restrict__ vals,
   warp_merge(l, k, [&](int r, float v, int i) {
     vo[r] = v;
     io[r] = i;
+  });
+}
+
+// ---- K1's "stream" design ----
+
+constexpr int kTopkLanes = 4;                        // lanes that select from one row
+constexpr int kTopkWarpRows = 32 / kTopkLanes;       // rows a warp
+constexpr int kTopkRows = kWarps * kTopkWarpRows;    // rows a block
+constexpr int kTopkCols = 64;                        // columns of a stage
+constexpr int kTopkVecs = kTopkCols / 4;             // 16-byte vectors of a staged row
+constexpr int kTopkStride = kTopkCols + 16;          // floats: the two rows a quarter-warp reads
+                                                     // lie 64 bytes apart mod 128, 16 banks
+constexpr int kTopkStages = 3;
+constexpr int kTopkRing = kTopkStages * kTopkWarpRows * kTopkStride;  // a warp's ring (floats)
+// every warp's ring, then each thread's candidate buffer: 90 KB, two
+// blocks an SM
+constexpr int kTopkSmem =
+    static_cast<int>(sizeof(float)) * kWarps * kTopkRing + 8 * kKnnCap * kThreads;
+
+// K1 "stream": d (rows, M) float32, M a multiple of 4, 16-byte aligned ->
+// vals, idx (rows, k).  A warp takes 8 rows and streams them through a ring
+// of its own, kTopkStages stages of 64 columns (cp.async, 16 bytes a copy):
+// two stages are in flight while its lanes select from the one that
+// landed, and no warp waits for another (a warp barrier a stage, no block
+// barrier), so a warp that flushes keeps its copies in flight and holds up
+// no other warp's.  A row has 4 lanes; lane l takes the 16-byte vectors l,
+// l + 4, l + 8, l + 12 of each stage, so it sees its columns in ascending
+// order, and offers each value to its BufferedSelect.
+template <int K>
+__global__ void __launch_bounds__(kThreads, K <= 32 ? 2 : 1)
+topk_min_stream(const float* __restrict__ d, float* __restrict__ vals, int* __restrict__ idx,
+                int rows, int M, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const int r = wl / kTopkLanes, lane = wl % kTopkLanes;
+  float* ring = reinterpret_cast<float*>(smem_raw) + warp * kTopkRing;  // (stages, 8, stride)
+  float* bufv = reinterpret_cast<float*>(smem_raw) + kWarps * kTopkRing;  // (kKnnCap, kThreads)
+  int* bufi = reinterpret_cast<int*>(bufv + kKnnCap * kThreads);          // (kKnnCap, kThreads)
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kTopkRows + warp * kTopkWarpRows;
+  if (row0 >= rows) return;  // no barrier waits for this warp
+  // rows past the last read the last one and write nothing (the merge's
+  // shuffles need every lane of the warp)
+  const int64_t last = rows - 1;
+  const int tiles = (M + kTopkCols - 1) / kTopkCols;
+  auto load = [&](int c) {  // stage c % kTopkStages: columns c * kTopkCols ... of the 8 rows
+    if (c < tiles) {
+      const int nv = min(kTopkCols, M - c * kTopkCols) / 4;
+      float* dst = ring + (c % kTopkStages) * kTopkWarpRows * kTopkStride;
+#pragma unroll
+      for (int e = wl; e < kTopkWarpRows * kTopkVecs; e += 32) {
+        const int rr = e / kTopkVecs, v = e % kTopkVecs;
+        if (v < nv) {
+          cp_async16(dst + rr * kTopkStride + 4 * v,
+                     d + min(row0 + rr, last) * M + c * kTopkCols + 4 * v);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c < kTopkStages - 1; ++c) load(c);
+  BufferedSelect<K, kTopkLanes> sel(bufv, bufi);
+  for (int c = 0; c < tiles; ++c) {
+    cp_async_wait<kTopkStages - 2>();
+    __syncwarp();  // stage c landed for every lane; every lane done with stage c - 1
+    load(c + kTopkStages - 1);
+    const int c0 = c * kTopkCols, nv = min(kTopkCols, M - c0) / 4;
+    const float* row = ring + ((c % kTopkStages) * kTopkWarpRows + r) * kTopkStride;
+    constexpr int kBatchVecs = kKnnBatch / 4;
+#pragma unroll
+    for (int t = 0; t < kTopkVecs / kTopkLanes; t += kBatchVecs) {
+      float4 x[kBatchVecs];  // loaded before the offers, which store to shared memory
+#pragma unroll
+      for (int u = 0; u < kBatchVecs; ++u) {
+        const int v = lane + kTopkLanes * (t + u);
+        if (v < nv) x[u] = *reinterpret_cast<const float4*>(row + 4 * v);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatchVecs; ++u) {
+        const int v = lane + kTopkLanes * (t + u);
+        if (v < nv) {
+          const int j = c0 + 4 * v;
+          sel.offer(x[u].x, j);
+          sel.offer(x[u].y, j + 1);
+          sel.offer(x[u].z, j + 2);
+          sel.offer(x[u].w, j + 3);
+        }
+      }
+      sel.step();
+    }
+  }
+  sel.flush();
+  const int64_t row = row0 + r;
+  warp_merge<K, kTopkLanes>(sel.l, k, [&](int rr, float v, int i) {
+    if (row < rows) {
+      vals[row * k + rr] = v;
+      idx[row * k + rr] = i;
+    }
   });
 }
 
@@ -247,9 +429,6 @@ knn_min_kernel(const float* __restrict__ q, const float* __restrict__ rt,
 constexpr int kKnnLanes = 4;                       // lanes that scan one query's references
 constexpr int kKnnQueries = kThreads / kKnnLanes;  // queries a block
 constexpr int kKnnMaxM = 4096;                     // the TPU kernel's row cap (knn_pallas.py:30)
-constexpr int kKnnBatch = 8;                       // distances formed before their tests
-constexpr int kKnnFlush = 8;                       // a lane's buffered candidates that start a flush
-constexpr int kKnnCap = kKnnFlush + kKnnBatch - 1;  // a lane's buffer
 
 // Shared memory of the coords design at M references, D <= 4: one float4 a
 // reference, {r0, r1, r2, |r|^2} at D <= 3 (the coordinates past D zero), or
@@ -281,27 +460,14 @@ __device__ __forceinline__ float coords_dist(const float4* refs, const float* rs
 }
 
 // K2 "coords": q (B, N, D), r (B, M, D) float32 at element strides (qsb,
-// qsn, qse) and (rsb, rsm, rse), D <= 4, M <= 4096 -> vals, idx (B, N, k).
-//
-// A lane's sorted insertion costs ~100 instructions, and the warp waits
-// for any lane that inserts: scanning and inserting in turn, nearly every
-// step of the scan had an insertion somewhere in the warp.  So a lane only
-// tests each distance and appends the ones that pass to its buffer in
-// shared memory (in ascending index order, as its list would have taken
-// them); when a lane of the warp holds kKnnFlush, every lane pushes its
-// buffer into its list at once.  The test is against the last value of
-// the lane's list (strict: a later equal value has a higher index) and a
-// bound for the query: the largest over its lanes of each lane's
-// (K / lanes)-th value, below which the query already holds K >= k
-// values, so a larger distance cannot be among the k smallest (an equal
-// one passes: it may tie with a higher index).
+// qsn, qse) and (rsb, rsm, rse), D <= 4, M <= 4096 -> vals, idx (B, N, k);
+// each query's 4 lanes select as BufferedSelect says.
 template <int K, bool kD4>
 __global__ void __launch_bounds__(kThreads)
 knn_select_coords(const float* __restrict__ q, const float* __restrict__ r,
                   float* __restrict__ vals, int* __restrict__ idx, int N, int M, int D,
                   int k, int64_t qsb, int64_t qsn, int64_t qse, int64_t rsb, int64_t rsm,
                   int64_t rse) {
-  static_assert(K % kKnnLanes == 0, "the query's bound needs K / lanes values a lane");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float4* refs = reinterpret_cast<float4*>(smem_raw);              // (M)
   float* rsq4 = reinterpret_cast<float*>(refs + M);                 // (M), D = 4 only
@@ -339,30 +505,7 @@ knn_select_coords(const float* __restrict__ q, const float* __restrict__ r,
     qv[e] = e < D ? qp[e * qse] : 0.f;
     if (e < D) qsq = qsq + qv[e] * qv[e];
   }
-  LaneList<K> l;
-  l.init();
-  float thr = INFINITY;  // a distance passes below it
-  int cnt = 0;           // the lane's buffered candidates
-  auto flush = [&]() {
-    const int most = static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(cnt)));
-    for (int t = 0; t < most; ++t) {
-      if (t < cnt) l.push(bufv[t * kThreads + tid], bufi[t * kThreads + tid]);
-    }
-    cnt = 0;
-    float bound = l.v[K / kKnnLanes - 1];
-#pragma unroll
-    for (int off = kKnnLanes / 2; off > 0; off >>= 1) {
-      bound = fmaxf(bound, __shfl_xor_sync(kFull, bound, off));
-    }
-    thr = fminf(l.v[K - 1], nextafterf(bound, INFINITY));
-  };
-  auto offer = [&](float dv, int j) {
-    if (dv < thr) {
-      bufv[cnt * kThreads + tid] = dv;
-      bufi[cnt * kThreads + tid] = j;
-      ++cnt;
-    }
-  };
+  BufferedSelect<K, kKnnLanes> sel(bufv, bufi);
   // the lane's references j0 + lane + kKnnLanes t, t < kKnnBatch, for j0 a
   // multiple of kSpan: the same trip count for every lane (the flush is
   // warp-wide)
@@ -376,17 +519,17 @@ knn_select_coords(const float* __restrict__ q, const float* __restrict__ r,
       dv[t] = coords_dist<kD4>(refs, rsq4, qv, qsq, j0 + lane + t * kKnnLanes);
     }
 #pragma unroll
-    for (int t = 0; t < kKnnBatch; ++t) offer(dv[t], j0 + lane + t * kKnnLanes);
-    if (__any_sync(kFull, cnt >= kKnnFlush)) flush();
+    for (int t = 0; t < kKnnBatch; ++t) sel.offer(dv[t], j0 + lane + t * kKnnLanes);
+    sel.step();
   }
 #pragma unroll
   for (int t = 0; t < kKnnBatch; ++t) {  // the last M % kSpan references
     const int j = j0 + lane + t * kKnnLanes;
-    if (j < M) offer(coords_dist<kD4>(refs, rsq4, qv, qsq, j), j);
+    if (j < M) sel.offer(coords_dist<kD4>(refs, rsq4, qv, qsq, j), j);
   }
-  flush();
+  sel.flush();
   const int64_t o = (static_cast<int64_t>(b) * N + n) * k;
-  warp_merge<K, kKnnLanes>(l, k, [&](int rr, float v, int i) {
+  warp_merge<K, kKnnLanes>(sel.l, k, [&](int rr, float v, int i) {
     if (qi < N) {
       vals[o + rr] = v;
       idx[o + rr] = i;
@@ -734,12 +877,27 @@ int by_k(int k, Args... args) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// K1's designs (ops/knn_pallas.py::topk_design)
+enum TopkDesign { kTopkWarp = 0, kTopkStream = 1 };
+
 template <int K>
 struct LaunchTopk {
-  static int run(const float* d, float* vals, int* idx, int rows, int M, int k,
+  static int run(const float* d, float* vals, int* idx, int rows, int M, int k, int design,
                  cudaStream_t s) {
-    topk_min_kernel<K><<<(rows + kWarps - 1) / kWarps, kThreads, 0, s>>>(
-        d, vals, idx, rows, M, k);
+    if (design == kTopkWarp) {
+      topk_min_kernel<K><<<(rows + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+          d, vals, idx, rows, M, k);
+      return static_cast<int>(cudaGetLastError());
+    }
+    if (design != kTopkStream || !aligned16(d, M, 4)) {  // 16-byte copies of whole rows
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const auto kernel = &topk_min_stream<K>;
+    if (vnk_resident_blocks(reinterpret_cast<const void*>(kernel), kThreads, kTopkSmem) == 0) {
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    kernel<<<(rows + kTopkRows - 1) / kTopkRows, kThreads, kTopkSmem, s>>>(d, vals, idx, rows,
+                                                                           M, k);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -869,12 +1027,15 @@ struct LaunchEdge {
 
 }  // namespace
 
-// d: (rows, M) float32 -> vals (rows, k) float32, idx (rows, k) int32.
+// d: (rows, M) float32 -> vals (rows, k) float32, idx (rows, k) int32;
+// design: 0 warp, 1 stream (M a multiple of 4, d 16-byte aligned)
+// (ops/knn_pallas.py::topk_design; a design that cannot take the shape
+// returns cudaErrorInvalidValue).
 VNK_EXPORT int topk_min(const void* d, void* vals, void* idx, int rows, int M,
-                        int k, void* stream) {
+                        int k, int design, void* stream) {
   if (rows == 0) return 0;
   return by_k<LaunchTopk>(k, static_cast<const float*>(d), static_cast<float*>(vals),
-                          static_cast<int*>(idx), rows, M, k,
+                          static_cast<int*>(idx), rows, M, k, design,
                           static_cast<cudaStream_t>(stream));
 }
 

@@ -13,9 +13,9 @@ by one each time the entry point launches its kernel, which is how a run
 shows that the main path went through the kernels.  One entry point may be
 bound twice under two names, to count two modes of it apart; a mode that
 is its own entry point (the bfloat16 modes, ``<symbol>_bf16``) counts
-under ``<symbol>[bf16]``.  An entry point that runs one of two designs
-(kernels B, C, S, S', C' and B': wide, narrow, fused or stream) also counts
-each launch under the design's name (:func:`variant_counts`).
+under ``<symbol>[bf16]``.  An entry point that runs one of several designs
+(B, C, S, S', C', B', K1, K2, K3, and A in bf16) also counts each launch
+under the design's name (:func:`variant_counts`).
 """
 
 from __future__ import annotations

@@ -3,10 +3,12 @@
 :func:`knn` dispatches as the JAX package does on a TPU
 (``ops/knn.py:53-66``): kernel K2 where ``fused_eligible(M, k, D)``, else
 the distance matrix and kernel K1 where ``eligible(M, k)``, else the plain
-selection over the matrix.  ``use_kernels=False`` keeps that dispatch and
-takes each kernel's plain version, so the two paths pick the same
-neighbours.  Indices are (B, N, K) int32; the gathers index with them
-(their backward is a sort-based ``index_put_``, no float atomics).
+selection over the matrix.  The matrix is formed as JAX forms it there
+(:func:`pairwise_sqdist_einsum`: one batched product in full float32).
+``use_kernels=False`` keeps that dispatch and takes each kernel's plain
+version, so the two paths pick the same neighbours.  Indices are (B, N, K)
+int32; the gathers index with them (their backward is a sort-based
+``index_put_``, no float atomics).
 """
 
 from __future__ import annotations
@@ -14,10 +16,26 @@ from __future__ import annotations
 import torch
 
 from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas
-from vn_pointcloudcompletion_tpu_torch.ops.knn_pallas import pairwise_sqdist
 
-__all__ = ["pairwise_sqdist", "knn", "gather_neighbors", "gather_planes",
+__all__ = ["pairwise_sqdist_einsum", "knn", "gather_neighbors", "gather_planes",
            "graph_feature", "vn_graph_feature_planes", "vn_graph_feature"]
+
+
+def pairwise_sqdist_einsum(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """JAX's ``ops/knn.py::pairwise_sqdist``, the einsum form: q (B, N, D),
+    r (B, M, D) -> (B, N, M) ``(|q|^2 + |r|^2) - 2 q.r^T``, the cross term
+    one batched product (``baddbmm``, the subtraction in its epilogue) in
+    full float32, never TF32, whatever the caller set (float64 inputs stay
+    float64).  The kernels' in-order form is ``knn_pallas.pairwise_sqdist``."""
+    ct = torch.promote_types(torch.promote_types(q.dtype, torch.float32), r.dtype)
+    q, r = q.to(ct), r.to(ct)
+    sq = (q * q).sum(-1)[:, :, None] + (r * r).sum(-1)[:, None, :]
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.baddbmm(sq, q, r.transpose(1, 2), alpha=-2.0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def knn(query: torch.Tensor, ref: torch.Tensor, k: int, use_kernels: bool = True):
@@ -29,7 +47,7 @@ def knn(query: torch.Tensor, ref: torch.Tensor, k: int, use_kernels: bool = True
         if use_kernels:
             return knn_pallas.knn_min(query, ref, k)
         return knn_pallas.reference_knn_min(query, ref, k)
-    d = pairwise_sqdist(query, ref)
+    d = pairwise_sqdist_einsum(query, ref)
     if knn_pallas.eligible(m, k):
         if use_kernels:
             return knn_pallas.topk_min(d, k)

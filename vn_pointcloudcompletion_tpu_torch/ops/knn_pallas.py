@@ -16,7 +16,11 @@ coordinates in order, unclamped; the plain versions (``reference_*``) do the
 kernels' operations in the kernels' order, so on the card the two pick the
 same indices.  Distances are taken in at least float32 (float64 inputs stay
 float64 in the plain versions; the kernels take float32, and K2's wrapper
-upcasts bf16 points exactly).  K2 runs one of two designs of
+upcasts bf16 points exactly).  K1 runs one of two designs of
+``csrc/knn.cu``, chosen in :func:`topk_design` and counted by name:
+``stream`` (M a multiple of 4, 16-byte aligned rows: the rows streamed
+through shared memory, a few lanes a row) and ``warp`` (the parent design,
+one warp a row).  K2 runs one of two designs of
 ``csrc/knn.cu``, chosen by shape in :func:`knn_design` and counted by name:
 ``coords`` (D <= 4: the sample's references staged in shared memory, a few
 lanes a query, q and r read at their own strides) and ``warp`` (the parent
@@ -56,7 +60,7 @@ _MAX_K = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_TOPK = CudaKernel("knn.cu", "topk_min", [_P] * 3 + [_I] * 3 + [_P])
+_TOPK = CudaKernel("knn.cu", "topk_min", [_P] * 3 + [_I] * 4 + [_P])
 _I64 = ctypes.c_int64
 _KNN = CudaKernel("knn.cu", "knn_min", [_P] * 4 + [_I] * 6 + [_I64] * 6 + [_P])
 _EDGE = CudaKernel("knn.cu", "edge_knn_gather", [_P] * 5 + [_I] * 6 + [_P])
@@ -82,6 +86,7 @@ def edge_gather_eligible(n: int, d: int, k: int, c3: int) -> bool:
             and n * c3 <= 512 * 1536)
 
 
+TOPK_DESIGNS = ("warp", "stream")  # csrc/knn.cu TopkDesign, in its order
 KNN_DESIGNS = ("warp", "coords")  # csrc/knn.cu KnnDesign, in its order
 EDGE_DESIGNS = ("warp", "coords", "tiled")  # csrc/knn.cu EdgeDesign, in its order
 _GATHER_THREADS = 256  # the gather's block (csrc knn.cu kThreads)
@@ -102,6 +107,21 @@ def gather_slots(n: int, k: int, bf16: bool) -> int:
     share = _GATHER_THREADS // runs
     kpt = k // share
     return kpt if k % share == 0 and kpt in (1, 2, 4, 8) else 0
+
+
+def topk_design(m: int, k: int, aligned: bool) -> str:
+    """Which design kernel K1 runs over rows of M values, k smallest, at any
+    number of rows: ``"stream"`` where M is a multiple of 4 and the rows
+    start 16-byte ``aligned`` (a block streams 64 rows through shared
+    memory by 16-byte copies and gives each row 4 lanes that buffer the
+    values passing a row bound, as K2's coords design does; every K-padded
+    list, 16, 32 or 64, splits over the 4 lanes), ``"warp"`` (one warp a
+    row: the parent design) elsewhere.  Both give the same indices and
+    bits; a CUDA launch takes the one chosen here or raises.  k outside
+    [1, min(64, M)] and M > 4096 are refused."""
+    if not (0 < k <= min(_MAX_K, m) and m <= _MAX_M):
+        raise ValueError(f"topk_min: no design takes M={m}, k={k}")
+    return "stream" if m % 4 == 0 and aligned else "warp"
 
 
 def knn_design(m: int, d: int, k: int) -> str:
@@ -217,12 +237,13 @@ def topk_min_fwd(d: torch.Tensor, k: int):
     if d.ndim != 3:
         raise ValueError(f"topk_min: d must be (B, N, M), got {tuple(d.shape)}")
     b, n, m = d.shape
-    _check_k("topk_min", k, m)
     d = d.contiguous()
     check_cuda("topk_min", "a float32 matrix", (d, torch.float32))
+    design = topk_design(m, k, d.data_ptr() % 16 == 0)
     vals = torch.empty((b, n, k), device=d.device, dtype=torch.float32)
     idx = torch.empty((b, n, k), device=d.device, dtype=torch.int32)
-    _TOPK(d, d.data_ptr(), vals.data_ptr(), idx.data_ptr(), b * n, m, k)
+    _TOPK(d, d.data_ptr(), vals.data_ptr(), idx.data_ptr(), b * n, m, k,
+          TOPK_DESIGNS.index(design), variant=design)
     return vals, idx
 
 
