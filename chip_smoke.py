@@ -136,6 +136,25 @@ on one NVIDIA GPU:
    vn_pointr_448.  Phase 3 holds the bf16 modes of the training kernels
    (A'; S, S', B' at group 0 and 64; C') against their plain bf16 versions,
    twice for equal bits.
+14. The trainer's options.  (a) ``remat`` on the flagship in float32 at
+   full width, batch 8: one train step through the kernels with ``remat``
+   between two without, from the same weights on the same batch: losses,
+   gradients, parameters after the update and running statistics equal in
+   bits to the plain step's (or, where the plain step does not repeat its
+   own bits, within STEP_TOL of each tensor's max), the forward kernels
+   launched twice and every other kernel once (REMAT_FORWARD; the designs
+   FLAGSHIP_STEP_DESIGNS with the forward's doubled); peak device memory
+   and CUDA-event step time with and without ``remat`` at batch 8 and 16
+   (``utils/profiling.py``).  (b) The same on the root ``config.json``
+   (vn_pointr_448) under the bf16 policy: the launches BF16_STEP_LAUNCHES
+   with the forward's doubled, no float32-mode launch.  (c) ``--ckpt_path``
+   through the command line: ``overfit`` of the flagship with phase 5's
+   ``model_best.pth`` as a pretrained encoder, which stays equal to the
+   file's bits while its BatchNorm statistics and the decoder move; the
+   nine training kernels launched.  (d) ``-from``: a source run with
+   ``checkpoint_every 1``, then a run branched from its epoch 1, which
+   holds a byte copy of the pair, logs ``[BRANCH INFO]``, starts at epoch 2
+   from the pair's weights; ``-from`` a missing epoch raises.
 
 Every phase prints its wall time.  Any failure exits non-zero.  The line
 before the last is a JSON object with one record per kernel (its launches
@@ -383,6 +402,12 @@ SYMBOL = {"A": "vn_bn_leaky_fwd", "A'": "vn_bn_leaky_bwd",
           "D": "chamfer_nn_bidir", "K1": "topk_min", "K2": "knn_min",
           "K3": "edge_knn_gather", "F": "furthest_point_sample", "E": "emd_rounds"}
 FLAGSHIP_KERNELS = tuple(SYMBOL[k] for k in ("A", "A'", "S", "S'", "B", "B'", "C", "C'", "D"))
+# Phase 14, remat: the kernels of the forward, which the recomputation in
+# the backward launches a second time; the chamfer loss (D) stays outside
+# the checkpointed segment and every backward kernel runs once.
+REMAT_FORWARD = tuple(SYMBOL[k] for k in ("A", "S", "B", "C", "K1", "K2", "K3", "F"))
+# Phase 5's flagship model_best.pth, kept for phase 14c's pretrained encoder.
+PRETRAINED = os.path.join(ROOT, "build", "chip_smoke_pretrained.pth")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -401,6 +426,34 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def step_cost(model, config, partial, complete, policy=None, reps: int = 5):
+    """A fresh train state's guarded train steps, timed through
+    ``utils/profiling.py``: (CUDA-event median ms, host-clock median ms,
+    the allocator's peak GiB, the peak above the weights and optimiser
+    state in GiB) over ``reps`` steps after 2 warm-up steps, each step
+    ending in its one host read, under the compute policy ``policy``."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.nn.precision import compute_dtype_scope
+    from vn_pointcloudcompletion_tpu_torch.training import steps
+    from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
+    from vn_pointcloudcompletion_tpu_torch.utils.profiling import StepTimer, device_memory_stats
+
+    state = create_train_state(model, config, 1)
+    gen = torch.Generator().manual_seed(0)
+    timer = StepTimer(warmup=2)
+    torch.cuda.synchronize()
+    base = device_memory_stats()[0]["bytes_in_use"]
+    torch.cuda.reset_peak_memory_stats()
+    with compute_dtype_scope(policy or torch.float32):
+        for _ in range(2 + reps):
+            with timer:
+                steps.train_step(state, partial, complete, gen)
+    peak = device_memory_stats()[0]["peak_bytes_in_use"]
+    return (timer.device_summary()["p50_s"] * 1e3, timer.summary()["p50_s"] * 1e3,
+            peak / 2**30, (peak - base) / 2**30)
 
 
 def stream_ms(fn, reps: int) -> float:
@@ -1854,18 +1907,26 @@ def check_emd_kernel(dev, record):
         raise AssertionError("kernel E's gradient disagrees with the plain version's")
 
 
-def main_path_batch(dev):
-    """The batch of the train-step phases 5b and 7b (synthetic, seed 3) and
-    the rotation of their step (seed 1): (partial, complete, rot)."""
+def synthetic_batch(dev, b: int):
+    """``b`` synthetic samples at full width (seed 3): (partial, complete)."""
     import numpy as np
     import torch
 
     from vn_pointcloudcompletion_tpu_torch.data.synthetic import SyntheticCompletionDataset
+
+    ds = SyntheticCompletionDataset(b, seed=3)
+    return tuple(torch.from_numpy(np.stack([ds[i][k] for i in range(b)])).to(dev)
+                 for k in (0, 1))
+
+
+def main_path_batch(dev):
+    """The batch of the train-step phases 5b and 7b (synthetic, seed 3) and
+    the rotation of their step (seed 1): (partial, complete, rot)."""
+    import torch
+
     from vn_pointcloudcompletion_tpu_torch.ops.rotations import random_rotations
 
-    ds = SyntheticCompletionDataset(BATCH, seed=3)
-    partial, complete = (torch.from_numpy(np.stack([ds[i][k] for i in range(BATCH)])).to(dev)
-                         for k in (0, 1))
+    partial, complete = synthetic_batch(dev, BATCH)
     return partial, complete, random_rotations(torch.Generator().manual_seed(1), BATCH).to(dev)
 
 
@@ -2015,10 +2076,11 @@ def serve_path(dev, path: str = "flagship"):
     shutil.rmtree(work, ignore_errors=True)
 
 
-def train_path(dev, path: str = "flagship", epochs: int = 0, **extra):
+def train_path(dev, path: str = "flagship", epochs: int = 0, keep_best: str = "", **extra):
     """Phase 5: overfit + train --resume at full width through the CLI,
     counted; ``epochs`` and ``extra`` config fields (phase 10b: the coarse
-    loss) override the path's."""
+    loss) override the path's; ``keep_best``: where to copy the run's
+    ``model_best.pth`` (phase 14c reads it)."""
     import math
 
     import torch
@@ -2096,6 +2158,8 @@ def train_path(dev, path: str = "flagship", epochs: int = 0, **extra):
     with open(os.path.join(exp_dir, "train.log")) as f:
         if "[RESUME INFO] resume ckpts @ %d epoch" % (epochs - 1) not in f.read():
             raise AssertionError("train --resume did not continue the run")
+    if keep_best:
+        shutil.copy(os.path.join(exp_dir, "models", "model_best.pth"), keep_best)
     shutil.rmtree(work, ignore_errors=True)
     return {**counts, **variants}  # launches, and by design (``<name>/<design>``)
 
@@ -2317,8 +2381,6 @@ def train_step_kernels_vs_plain(dev, smi: str):
     from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
     from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib
     from vn_pointcloudcompletion_tpu_torch.ops.rotations import random_rotations, rotate_points
-    from vn_pointcloudcompletion_tpu_torch.training import steps
-    from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
 
     config = _smoke_config(lr=1e-4, rotation="so3")
     model = build_model(config).to(dev)
@@ -2361,16 +2423,9 @@ def train_step_kernels_vs_plain(dev, smi: str):
         print(f"[train step] num_coarse 256, batch {b}: gradients max|dg| / max|g|, "
               f"largest: {worst(errs, 1)}")
 
-    def step_ms(m):
-        state = create_train_state(m, config, 1)
-        gen = torch.Generator().manual_seed(0)
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: steps.train_step(state, partial, complete, gen), 5)
-        return ms, torch.cuda.max_memory_allocated() / 2**30
-
-    k_ms, k_gib = step_ms(model)
-    p_ms, p_gib = step_ms(plain)
-    k2_ms, _ = step_ms(model)
+    k_ms, _, k_gib, _ = step_cost(model, config, partial, complete)
+    p_ms, _, p_gib, _ = step_cost(plain, config, partial, complete)
+    k2_ms = step_cost(model, config, partial, complete)[0]
     print(f"[train step] {smi}: median of 5 steps after 2 warm-up (CUDA events, one "
           f"host read per step): kernels {k_ms:.3f} ms then {k2_ms:.3f} ms, plain "
           f"{p_ms:.3f} ms; peak memory kernels {k_gib:.2f} GiB, plain {p_gib:.2f} GiB")
@@ -2601,8 +2656,6 @@ def dgcnn_train_step(dev, smi: str):
 
     from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
     from vn_pointcloudcompletion_tpu_torch.ops.rotations import rotate_points
-    from vn_pointcloudcompletion_tpu_torch.training import steps
-    from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
 
     config = _smoke_config("vn_dgcnn", lr=1e-4, rotation="so3")
     model = build_model(config).to(dev)
@@ -2642,16 +2695,9 @@ def dgcnn_train_step(dev, smi: str):
     if not (ok and loss_err <= 1e-4 and stat_err <= 1e-4):
         raise AssertionError("VN DGCNN train step: kernels disagree with the plain path")
 
-    def step_ms(m):
-        state = create_train_state(m, config, 1)
-        gen = torch.Generator().manual_seed(0)
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: steps.train_step(state, partial, complete, gen), 5)
-        return ms, torch.cuda.max_memory_allocated() / 2**30
-
-    k_ms, k_gib = step_ms(model)
-    p_ms, p_gib = step_ms(plain)
-    k2_ms, _ = step_ms(model)
+    k_ms, _, k_gib, _ = step_cost(model, config, partial, complete)
+    p_ms, _, p_gib, _ = step_cost(plain, config, partial, complete)
+    k2_ms = step_cost(model, config, partial, complete)[0]
     print(f"[vn_dgcnn step] {smi}: median of 5 steps after 2 warm-up (CUDA events, one "
           f"host read per step): kernels {k_ms:.3f} ms then {k2_ms:.3f} ms, plain "
           f"{p_ms:.3f} ms; peak memory kernels {k_gib:.2f} GiB, plain {p_gib:.2f} GiB")
@@ -2682,8 +2728,6 @@ def pointr_train_step(dev, smi: str):
 
     from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
     from vn_pointcloudcompletion_tpu_torch.ops.rotations import rotate_points
-    from vn_pointcloudcompletion_tpu_torch.training import steps
-    from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
 
     config = _smoke_config("vn_pointr_448", lr=1e-4, rotation="so3")
     model = build_model(config).to(dev)
@@ -2746,16 +2790,9 @@ def pointr_train_step(dev, smi: str):
     if not all(torch.isfinite(t).all() for t in (lk, *bk.values(), *gk.values())):
         raise AssertionError("vn_pointr train step: non-finite losses, statistics or gradients")
 
-    def step_ms(m):
-        state = create_train_state(m, config, 1)
-        gen = torch.Generator().manual_seed(0)
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: steps.train_step(state, partial, complete, gen), 5)
-        return ms, torch.cuda.max_memory_allocated() / 2**30
-
-    k_ms, k_gib = step_ms(model)
-    p_ms, p_gib = step_ms(plain)
-    k2_ms, _ = step_ms(model)
+    k_ms, _, k_gib, _ = step_cost(model, config, partial, complete)
+    p_ms, _, p_gib, _ = step_cost(plain, config, partial, complete)
+    k2_ms = step_cost(model, config, partial, complete)[0]
     print(f"{tag} {smi}: median of 5 steps after 2 warm-up (CUDA events, one host read per "
           f"step): kernels {k_ms:.3f} ms then {k2_ms:.3f} ms, plain {p_ms:.3f} ms; peak "
           f"memory kernels {k_gib:.2f} GiB, plain {p_gib:.2f} GiB")
@@ -2797,15 +2834,8 @@ def scalar_train_step(dev, smi: str):
     if loss_err > 1e-6 or stat_err > 1e-6 or max(errs.values()) > 1e-6:
         raise AssertionError("DGCNN train step: kernels disagree with the plain path")
 
-    from vn_pointcloudcompletion_tpu_torch.training import steps
-    from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
 
     _, _, rot = main_path_batch(dev)
-
-    def step_ms(m):
-        state = create_train_state(m, config, 1)
-        gen = torch.Generator().manual_seed(0)
-        return cuda_ms(lambda: steps.train_step(state, partial, complete, gen), 5)
 
     def forward_ms(m):
         m.eval()
@@ -2814,7 +2844,8 @@ def scalar_train_step(dev, smi: str):
         m.train()
         return ms
 
-    k_ms, p_ms, k2_ms = step_ms(model), step_ms(plain), step_ms(model)
+    k_ms, p_ms, k2_ms = (step_cost(m, config, partial, complete)[0]
+                         for m in (model, plain, model))
     kf, pf, kf2 = forward_ms(model), forward_ms(plain), forward_ms(model)
     print(f"[dgcnn_448 step] {smi}: median of 5 after 2 warm-up (CUDA events): train step "
           f"kernels {k_ms:.3f} ms then {k2_ms:.3f} ms, plain {p_ms:.3f} ms; eval forward "
@@ -3317,22 +3348,310 @@ def bf16_train(dev, smi: str):
     for name, m, cfg in (("flagship", model, config), ("vn_pointr_448", pointr, pointr_config)):
         ms, gib = {}, {}
         for dt in (torch.float32, torch.bfloat16, torch.float32, torch.bfloat16):
-            st = create_train_state(m, cfg, 1)
-            gen = torch.Generator().manual_seed(0)
-
-            def step():
-                with compute_dtype_scope(dt):
-                    return steps.train_step(st, partial, complete, gen)
-
-            torch.cuda.reset_peak_memory_stats()
-            ms.setdefault(dt, []).append(cuda_ms(step, 5))
-            gib[dt] = torch.cuda.max_memory_allocated() / 2**30
+            t_ms, _, gib[dt], _ = step_cost(m, cfg, partial, complete, dt)
+            ms.setdefault(dt, []).append(t_ms)
         print(f"[bf16 train step] {name}, batch {BATCH}, {smi}: median of 5 steps after 2 "
               f"warm-up (CUDA events), float32 then bf16, twice: float32 "
               f"{' / '.join(f'{t:.3f}' for t in ms[torch.float32])} ms, bf16 "
               f"{' / '.join(f'{t:.3f}' for t in ms[torch.bfloat16])} ms; peak memory float32 "
               f"{gib[torch.float32]:.2f} GiB, bf16 {gib[torch.bfloat16]:.2f} GiB")
     return total
+
+
+def remat_launches(counts: dict) -> dict:
+    """A remat step's launches (or launches by design) from a plain step's:
+    the REMAT_FORWARD kernels' twice, every other kernel's once."""
+    return {k: v * (2 if k.split("/")[0].split("[")[0] in REMAT_FORWARD else 1)
+            for k, v in counts.items() if v}
+
+
+def remat_step_runs(model, config, partial, complete, policy=None):
+    """One guarded train step (the rotation from seed 0) of a copy of
+    ``model`` each: without ``remat``, with it, and without it again, under
+    the compute policy ``policy`` (the step's backward, where the
+    recomputation runs, inside it too).  Each run: (losses, gradients,
+    state_dict after the update, launches, launches by design), every
+    tensor a copy."""
+    import copy
+
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.nn.precision import compute_dtype_scope
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib
+    from vn_pointcloudcompletion_tpu_torch.training import steps
+    from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
+
+    runs = []
+    for remat in (False, True, False):
+        m = copy.deepcopy(model)
+        state = create_train_state(m, config.replace(remat=remat), 1)
+        cuda_lib.reset_launch_counts()
+        with compute_dtype_scope(policy or torch.float32):
+            metrics = steps.train_step(state, partial, complete, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        if metrics["skipped"].item():
+            raise AssertionError(f"the train step (remat {remat}) was skipped")
+        runs.append((torch.stack([metrics["coarse"], metrics["dense"]]).detach().clone(),
+                     {k: p.grad.clone() for k, p in m.named_parameters() if p.grad is not None},
+                     {k: t.clone() for k, t in m.state_dict().items()},
+                     {k: v for k, v in cuda_lib.launch_counts().items() if v},
+                     {k: v for k, v in cuda_lib.variant_counts().items() if v}))
+    return runs
+
+
+def check_remat(tag: str, runs) -> dict:
+    """Print and check the remat step against the plain step
+    (``remat_step_runs``): every tensor (the losses, each gradient, each
+    parameter after the update, each running statistic) equal in bits;
+    only where the plain step does not repeat its own bits either (a kernel
+    or library call that does not) is a tensor held to STEP_TOL of its max
+    instead.  The launches and the designs: the plain step's with the
+    forward's doubled.  Returns the unequal tensors' max|d| / max."""
+    import torch
+
+    (lp, gp, sp, cp, vp), (lr, gr, sr, cr, vr), (lp2, gp2, sp2, _, _) = runs
+    if set(gp) != set(gr) or set(gp) != set(gp2):
+        raise AssertionError(f"{tag} the remat and plain steps gave gradients of other parameters")
+    tensors = {"losses": (lp, lr, lp2), **{f"grad {k}": (gp[k], gr[k], gp2[k]) for k in gp},
+               **{k: (sp[k], sr[k], sp2[k]) for k in sp}}
+
+    def rel(a, b):
+        scale = b.abs().max().item()
+        e = (a.double() - b.double()).abs().max().item()
+        return e / scale if scale > 0 else float("inf")
+
+    unequal = {k: rel(r, p) for k, (p, r, _) in tensors.items() if not torch.equal(p, r)}
+    unrepeated = [k for k, (p, _, p2) in tensors.items() if not torch.equal(p, p2)]
+    print(f"{tag} remat step against the plain step: {len(tensors) - len(unequal)} of "
+          f"{len(tensors)} tensors (losses, gradients, parameters after the update, running "
+          f"statistics) equal in bits; the plain step against itself: "
+          f"{len(tensors) - len(unrepeated)} equal")
+    if unequal:
+        print(f"{tag} not equal in bits, max|d| / max: {worst(unequal, 5)}; not repeated by the "
+              f"plain step: {unrepeated[:5]} (tolerance {STEP_TOL} where the plain step does not "
+              "repeat its bits, else 0)")
+        bits = [k for k in unequal if k not in unrepeated]
+        loose = [k for k in unequal if k in unrepeated and unequal[k] > STEP_TOL]
+        if bits or loose:
+            raise AssertionError(f"{tag} the remat step disagrees with the plain step: not "
+                                 f"equal in bits where the plain step repeats them: {bits}; "
+                                 f"beyond {STEP_TOL} where it does not: {loose}")
+    print(f"{tag} launches: plain {json.dumps(cp)}; remat {json.dumps(cr)}")
+    if cr != remat_launches(cp) or vr != remat_launches(vp):
+        raise AssertionError(f"{tag} remat launches {cr} / {vr}, expected the plain step's "
+                             f"with the forward kernels' doubled: {remat_launches(cp)} / "
+                             f"{remat_launches(vp)}")
+    return unequal
+
+
+def remat_cost(tag: str, smi: str, model, config, dev, policy=None) -> None:
+    """Peak device memory and step time of the plain and the remat step at
+    batch 8 and 16, in the order plain, remat, plain, remat at each batch
+    (``utils/profiling.py``: the allocator's peak, reset before each
+    reading; CUDA-event and host-clock medians of 5 steps after 2 warm-up
+    steps, each step ending in its one host read)."""
+    import torch
+
+    for b in (BATCH, 2 * BATCH):
+        partial, complete = synthetic_batch(dev, b)
+        readings = {False: [], True: []}
+        for remat in (False, True, False, True):
+            readings[remat].append(step_cost(model, config.replace(remat=remat), partial,
+                                             complete, policy))
+        for remat, rs in readings.items():
+            print(f"{tag} batch {b}, remat {remat}, {smi}: step (CUDA events, median of 5 "
+                  f"after 2 warm-up) {' / '.join(f'{r[0]:.3f}' for r in rs)} ms, host clock "
+                  f"{' / '.join(f'{r[1]:.3f}' for r in rs)} ms; peak device memory "
+                  f"{' / '.join(f'{r[2]:.3f}' for r in rs)} GiB, of which above the weights "
+                  f"and optimiser state {' / '.join(f'{r[3]:.3f}' for r in rs)} GiB")
+        del partial, complete
+        torch.cuda.empty_cache()
+
+
+def remat_flagship(dev, smi: str):
+    """Phase 14a: ``remat`` on the flagship in float32 at full width."""
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+
+    tag = "[remat flagship]"
+    config = _smoke_config(lr=1e-4, rotation="so3")
+    model = build_model(config).to(dev)
+    partial, complete = synthetic_batch(dev, BATCH)
+    runs = remat_step_runs(model, config, partial, complete)
+    plain_designs = runs[0][4]
+    if plain_designs != FLAGSHIP_STEP_DESIGNS:
+        raise AssertionError(f"{tag} the plain step's designs {plain_designs}, expected "
+                             f"{FLAGSHIP_STEP_DESIGNS}")
+    missing = [k for k in FLAGSHIP_KERNELS if not runs[1][3].get(k)]
+    if missing:
+        raise AssertionError(f"{tag} kernels not launched in the remat step: {missing}")
+    check_remat(tag, runs)
+    del runs
+    remat_cost(tag, smi, model, config, dev)
+
+
+def remat_root_config(dev, smi: str):
+    """Phase 14b: ``remat`` on the root ``config.json`` (vn_pointr_448) under
+    its bf16 policy, at full width: no float32-mode launch."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.utils.config import Config
+
+    tag = "[remat root config.json bf16]"
+    with open(os.path.join(ROOT, "config.json")) as f:
+        root = json.load(f)
+    if root["dtype"] != "bfloat16" or root["enc_type"] != "vn_pointr":
+        raise AssertionError(f"{tag} the root config.json changed: {root}")
+    config = Config.from_dict(dict(root, batch_size=BATCH, dataset="synthetic"))
+    model = build_model(config).to(dev)
+    partial, complete = synthetic_batch(dev, BATCH)
+    runs = remat_step_runs(model, config, partial, complete, torch.bfloat16)
+    plain = {k: v for k, v in runs[0][3].items() if k != "chamfer_nn_bidir"}
+    if plain != BF16_STEP_LAUNCHES["vn_pointr_448"]:
+        raise AssertionError(f"{tag} the plain step's launches {plain}, expected "
+                             f"{BF16_STEP_LAUNCHES['vn_pointr_448']}")
+    check_remat(tag, runs)
+    del runs
+    remat_cost(tag, smi, model, config, dev, torch.bfloat16)
+
+
+@contextlib.contextmanager
+def cli_workdir(name: str, config):
+    """A work dir under ``build/`` holding ``config`` as its config.json,
+    the working directory and ``OUTPUT_DIR`` (its ``experiments/``) for
+    the CLI calls inside; removed afterwards.  Yields the work dir."""
+    work = os.path.join(ROOT, "build", name)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with open(os.path.join(work, "config.json"), "w") as f:
+        json.dump(config.to_dict(), f)
+    os.environ["OUTPUT_DIR"] = os.path.join(work, "experiments")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        yield work
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def pretrained_encoder_cli(dev):
+    """Phase 14c: ``--ckpt_path <phase 5's model_best.pth> -epochs 2
+    overfit`` on the flagship: the encoder equal to the file's bits
+    afterwards, its running statistics and the decoder moved, the nine
+    training kernels launched."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch import __main__ as cli
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib
+    from vn_pointcloudcompletion_tpu_torch.utils.config import Config
+
+    tag = "[pretrained encoder]"
+    config = _smoke_config(name="smoke_pretrained", lr=3e-4, rotation="so3", log_frequency=1)
+    with cli_workdir("chip_smoke_pretrained", config) as work:
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = cli.main(["-n", "smoke_pretrained", "--ckpt_path", PRETRAINED, "-epochs", "2",
+                            "overfit"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        counts = cuda_lib.launch_counts()
+        (run,) = os.listdir(os.path.join(work, "experiments"))
+        exp_dir = os.path.join(work, "experiments", run)
+        trained = torch.load(os.path.join(exp_dir, "models", "model_last.pth"), weights_only=True)
+        with open(os.path.join(exp_dir, "config.json")) as f:
+            stored = Config.from_dict(json.load(f))
+        with open(os.path.join(exp_dir, "overfit.log")) as f:
+            loaded = f"Loaded pretrained encoder from {PRETRAINED}" in f.read()
+    pretrained = torch.load(PRETRAINED, weights_only=True)
+    init = build_model(stored).state_dict()
+    frozen = [k for k in trained if k.startswith("encoder.") and "running" not in k]
+    stats = [k for k in trained if k.startswith("encoder.") and "running" in k]
+    decoder = [k for k in trained if k.startswith("decoder.") and "running" not in k]
+    unequal = [k for k in frozen if not torch.equal(trained[k], pretrained[k])]
+    still = [k for k in stats if torch.equal(trained[k], pretrained[k])]
+    unmoved = [k for k in decoder if torch.equal(trained[k], init[k])]
+    print(f"{tag} overfit 3 epochs with phase 5's model_best.pth as the encoder: "
+          f"{t1 - t0:.3f} s (host clock); {len(frozen) - len(unequal)} of {len(frozen)} encoder "
+          f"parameters equal to the file's bits; {len(stats) - len(still)} of {len(stats)} "
+          f"encoder running statistics moved; {len(decoder) - len(unmoved)} of {len(decoder)} "
+          f"decoder parameters moved; launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    missing = [k for k in FLAGSHIP_KERNELS if counts[k] == 0]
+    if (unequal or still or unmoved or missing or not loaded or summary["epochs_run"] != 3
+            or stored.enc_pretrained != PRETRAINED):
+        raise AssertionError(f"{tag} frozen encoder changed {unequal[:3]}, statistics unmoved "
+                             f"{still[:3]}, decoder unmoved {unmoved[:3]}, kernels not "
+                             f"launched {missing}, loaded {loaded}, {summary}")
+
+
+def branch_cli(dev):
+    """Phase 14d: a flagship source run with ``checkpoint_every 1`` (epochs
+    0 and 1), then ``-n <source> -from 1 -epochs 3 train``: the branched
+    run holds a byte copy of the pair ``model_1`` / ``optim_1`` at its
+    first step, whose weights are the pair's, logs ``[BRANCH INFO]`` and
+    trains epochs 2 and 3; ``-from 7`` raises FileNotFoundError."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch import __main__ as cli
+    from vn_pointcloudcompletion_tpu_torch.training import trainer
+
+    tag = "[-from]"
+    config = _smoke_config(name="smoke_source", lr=3e-4, rotation="so3", log_frequency=1,
+                           checkpoint_every=1)
+    pair = (("models", "model_1.pth"), ("optimizer", "optim_1.pth"))
+    first = []  # the first step's weights and the new run's copy of the pair
+    step = trainer.train_step
+
+    def spy(state, *args):
+        if not first:
+            exp = state.config.exp_dir
+            weights = {k: t.detach().cpu().clone() for k, t in state.model.state_dict().items()}
+            copied = []
+            for sub, name in pair:
+                with open(os.path.join(exp, sub, name), "rb") as f:
+                    copied.append(f.read())
+            first.append((weights, copied))
+        return step(state, *args)
+
+    with cli_workdir("chip_smoke_branch", config) as work:
+        experiments = os.path.join(work, "experiments")
+        t0 = time.perf_counter()
+        cli.main(["-n", "smoke_source", "-epochs", "1", "overfit"])
+        (source,) = os.listdir(experiments)
+        trainer.train_step = spy
+        try:
+            summary = cli.main(["-n", source, "-from", "1", "-epochs", "3", "train"])
+        finally:
+            trainer.train_step = step
+        t1 = time.perf_counter()
+        (branched,) = [r for r in os.listdir(experiments) if r != source]
+        originals = []
+        for sub, name in pair:
+            with open(os.path.join(experiments, source, sub, name), "rb") as f:
+                originals.append(f.read())
+        saved = torch.load(os.path.join(experiments, source, "models", "model_1.pth"),
+                           weights_only=True)
+        with open(os.path.join(experiments, branched, "train.log")) as f:
+            log = f.read()
+        last = torch.load(os.path.join(experiments, branched, "optimizer", "optim_last.pth"),
+                          weights_only=True)
+        try:
+            cli.main(["-n", source, "-from", "7", "train"])
+            refused = ""
+        except FileNotFoundError as e:
+            refused = str(e)
+    weights, copied = first[0]
+    same_weights = all(torch.equal(weights[k], saved[k]) for k in saved)
+    print(f"{tag} source 2 epochs + branch from epoch 1 to 3: {t1 - t0:.3f} s (host clock); "
+          f"pair copied byte for byte: {copied == originals}; first step from the pair's "
+          f"weights: {same_weights}; [BRANCH INFO] logged: {'[BRANCH INFO]' in log}; epochs "
+          f"run {summary['epochs_run']}, last epoch {last['epoch']}; -from 7: {refused!r}")
+    if not (copied == originals and same_weights and "[BRANCH INFO] new run" in log
+            and "Training Epoch [002/003]" in log and "Training Epoch [001/003]" not in log
+            and summary["epochs_run"] == 2 and last["epoch"] == 3
+            and "checkpoint_every" in refused):
+        raise AssertionError(f"{tag} the branched run is not the source's epoch 1 continued")
 
 
 def main() -> int:
@@ -3375,7 +3694,7 @@ def main() -> int:
     records = phase("3 kernels", check_kernels, dev)
     knn_counts = phase("3b knn() at D 768 (K1)", knn_wide_path, dev)
     phase("4 flagship serve", serve_path, dev)
-    counts = phase("5 flagship train", train_path, dev)
+    counts = phase("5 flagship train", train_path, dev, "flagship", 0, PRETRAINED)
     phase("5b flagship train step", train_step_kernels_vs_plain, dev, smi)
     phase("6 VN DGCNN serve", serve_path, dev, "vn_dgcnn")
     dgcnn_counts = phase("7 VN DGCNN train", train_path, dev, "vn_dgcnn")
@@ -3393,6 +3712,10 @@ def main() -> int:
     phase("11 standalone PCN, VNPCN, DGCNN", standalone_models, dev)
     bf16_counts = phase("12 bf16 serve", bf16_serve, dev, smi)
     bf16_train_counts = phase("13 bf16 train", bf16_train, dev, smi)
+    phase("14a remat flagship float32", remat_flagship, dev, smi)
+    phase("14b remat root config.json bf16", remat_root_config, dev, smi)
+    phase("14c pretrained encoder --ckpt_path", pretrained_encoder_cli, dev)
+    phase("14d -from branching", branch_cli, dev)
     # launches: each kernel's count in the training run of its path (K1's:
     # phase 3b's knn() call, its path; no model reaches it: the JAX package
     # takes it only for D > 512; C and C' in group=S mode are on no path:

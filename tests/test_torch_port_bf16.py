@@ -19,6 +19,8 @@ distance; the algorithm itself is held in float32 and float64 by the other
 ``test_torch_port_*`` files.
 """
 
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -656,23 +658,29 @@ def test_cli_test_on_a_bf16_config_runs_float32(tmp_path, monkeypatch, root):
 
 
 def test_cli_train_on_a_bf16_config_names_the_next_slice(tmp_path, monkeypatch):
-    """bf16 training runs (below); what a bf16 config still cannot ask of
-    ``train`` and ``overfit`` is the next slice, ``remat``, and the error
-    names it and its ROADMAP.md item."""
+    """``train`` and ``overfit`` of a bf16 config with ``remat`` run under
+    the bf16 policy (the recomputation inside ``backward()`` too) and leave
+    the caller's float32 policy as it was; what a bf16 config still cannot
+    ask of ``train`` is ``--mesh``, and the error names its ROADMAP.md
+    item."""
     import json
 
     from vn_pointcloudcompletion_tpu_torch import __main__ as cli
 
     cfg = {"enc_type": "vn_pointnet", "dec_type": "vn_foldingnet", "num_coarse": 64,
            "batch_size": 2, "dataset": "synthetic", "num_workers": 1, "dtype": "bfloat16",
-           "remat": True}
+           "remat": True, "synthetic_n_partial": 256, "synthetic_n_complete": 1024,
+           "synthetic_train_samples": 2, "synthetic_val_samples": 2, "log_frequency": 1}
     (tmp_path / "config.json").write_text(json.dumps(cfg))
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("OUTPUT_DIR", str(tmp_path / "out"))
     for command in ("train", "overfit"):
-        with pytest.raises(NotImplementedError, match="remat.*item 7"):
-            cli.main(["-epochs", "0", "--device", "cpu", command])
-    assert precision.compute_dtype() == torch.float32
+        summary = cli.main(["-epochs", "0", "--device", "cpu", command])
+        assert summary["epochs_run"] == 1 and np.isfinite(summary["best_cd"]), command
+        assert precision.compute_dtype() == torch.float32
+    with pytest.raises(NotImplementedError, match="mesh.*item 6b"):
+        cli.main(["--mesh", "2", "--device", "cpu", "train"])
+    shutil.rmtree(tmp_path / "out")  # ~260 MB a flagship checkpoint pair
 
 
 @pytest.mark.parametrize("root", [False, True], ids=["flagship", "root_config"])

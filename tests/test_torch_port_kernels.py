@@ -829,6 +829,74 @@ def test_cuda_train_steps_are_reproducible(cuda):
         assert torch.equal(v, runs[1][1][k]), k
 
 
+@pytest.mark.gpu
+def test_cuda_remat_step_equals_plain_step(cuda):
+    """A guarded train step with ``remat`` through the kernels at
+    num_coarse=256, batch 4, between two without, from the same weights:
+    the losses, every gradient, every parameter after the update and every
+    running statistic equal in bits; the forward kernels (A, S, B, C)
+    launched twice, the backward kernels and D once each
+    (``chip_smoke.py`` phase 14a at full width)."""
+    import chip_smoke
+
+    model, _, config, partial, complete = chip_smoke.small_step_case(cuda, 4)
+    runs = chip_smoke.remat_step_runs(model, config, partial, complete)
+    assert chip_smoke.check_remat("[remat test]", runs) == {}
+    plain, remat = runs[0][3], runs[1][3]
+    assert all(plain.get(k) for k in chip_smoke.FLAGSHIP_KERNELS), plain
+    for k in chip_smoke.FLAGSHIP_KERNELS:
+        assert remat[k] == plain[k] * (2 if k in chip_smoke.REMAT_FORWARD else 1), (k, remat)
+
+
+@pytest.mark.gpu
+def test_cuda_device_memory_stats_and_step_timer(cuda):
+    """``utils/profiling.py`` on the card: ``device_memory_stats`` reads the
+    allocator's bytes in use and their peak and the card's memory under
+    JAX's keys; ``StepTimer`` times each step on the device as well."""
+    from vn_pointcloudcompletion_tpu_torch.utils.profiling import StepTimer, device_memory_stats
+
+    torch.cuda.synchronize()
+    before = device_memory_stats()[0]["bytes_in_use"]
+    torch.cuda.reset_peak_memory_stats()
+    x = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    stats = device_memory_stats()
+    assert len(stats) == torch.cuda.device_count() and stats[0]["device"] == "cuda:0"
+    assert stats[0]["bytes_in_use"] == before + (64 << 20)
+    assert stats[0]["peak_bytes_in_use"] >= stats[0]["bytes_in_use"]
+    assert stats[0]["bytes_limit"] == torch.cuda.get_device_properties(0).total_memory
+    del x
+    after = device_memory_stats()[0]
+    assert after["bytes_in_use"] == before and after["peak_bytes_in_use"] >= before + (64 << 20)
+    timer = StepTimer(warmup=1)
+    a = torch.ones(2048, 2048, device=cuda)
+    for _ in range(3):
+        with timer:
+            a @ a
+    assert len(timer.device_times) == 3 and all(t > 0 for t in timer.device_times)
+    assert timer.device_summary()["steps"] == 2 and timer.summary()["steps"] == 2
+
+
+@pytest.mark.gpu
+def test_cuda_trace_and_log_compile_time(cuda, tmp_path):
+    """``utils/profiling.py``'s ``trace`` records the card's kernels through
+    CUPTI and writes a Chrome trace; ``log_compile_time`` times a first and
+    a second call, each up to its synchronisation."""
+    import json
+    import os
+
+    from vn_pointcloudcompletion_tpu_torch.utils.profiling import log_compile_time, trace
+
+    a = torch.ones(1024, 1024, device=cuda)
+    first, steady = log_compile_time(lambda: {"out": a @ a})
+    assert first > 0 and steady > 0
+    with trace(str(tmp_path / "tb")) as prof:
+        a @ a
+    assert any(e.self_device_time_total > 0 for e in prof.key_averages())
+    (name,) = os.listdir(tmp_path / "tb")
+    with open(tmp_path / "tb" / name) as f:
+        assert json.load(f)["traceEvents"]
+
+
 # ------------------------------------------------ card, DGCNN family
 #
 # K1, K2, K3 and F against their plain versions on the card: the plain

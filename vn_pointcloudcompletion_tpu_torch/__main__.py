@@ -4,6 +4,7 @@ and ``test``.
     python -m vn_pointcloudcompletion_tpu_torch [-n <name>] [-epochs N] train
     python -m vn_pointcloudcompletion_tpu_torch -n <run> --resume [-epochs N] train
     python -m vn_pointcloudcompletion_tpu_torch [-n <name>] [-epochs N] overfit
+    python -m vn_pointcloudcompletion_tpu_torch -n <run> -from <epoch|best|last> [-epochs N] train
     python -m vn_pointcloudcompletion_tpu_torch -n <run> --resume predict -i <ply or dir> [-o <dir>] [--save]
     python -m vn_pointcloudcompletion_tpu_torch -n <run> --resume test [--save] [--novel]
 
@@ -12,11 +13,15 @@ directory and creates ``$OUTPUT_DIR/MM-DD_<name>_NNN/`` (default
 ``./experiments/``) with ``config.json``, ``<command>.log``,
 ``metrics.jsonl``, ``models/model_{best,last}.pth`` and
 ``optimizer/optim_{best,last}.pth``.  ``--resume`` continues the named run
-from its ``last`` pair at the next epoch; ``predict`` and ``test`` read the
-named run's ``model_best.pth`` (or ``model_last.pth``).  ``overfit`` trains
-and validates on ``batch_size`` synthetic samples.  The flags are
-``main.py``'s, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
-versions of the kernels).
+from its ``last`` pair at the next epoch; ``-from N`` starts a new run
+from the named run's snapshot and its numbered pair ``model_N``/``optim_N``
+(written every ``checkpoint_every`` epochs; ``best`` and ``last`` too) at
+epoch N + 1, and ``--resume`` takes precedence over it.  ``--ckpt_path``
+loads a pretrained encoder (a ``.pth`` state dict) and freezes it.
+``predict`` and ``test`` read the named run's ``model_best.pth`` (or
+``model_last.pth``).  ``overfit`` trains and validates on ``batch_size``
+synthetic samples.  The flags are ``main.py``'s, plus ``--device`` (default
+``cuda``; ``cpu`` runs the plain versions of the kernels).
 """
 
 from __future__ import annotations
@@ -34,7 +39,10 @@ def main(argv=None):
     parser.add_argument("--resume", action="store_true",
                         help="use (train: continue) the named experiment")
     parser.add_argument("--ckpt_path", type=str, default=None,
-                        help="path of a pretrained encoder checkpoint (not ported yet)")
+                        help="path of a pretrained encoder checkpoint (.pth), loaded and frozen")
+    parser.add_argument("-from", "--from_epoch", type=str, default=0,
+                        help="branch a NEW run from -n <src run>'s numbered "
+                             "checkpoint: an epoch, 'best' or 'last'")
     parser.add_argument("-epochs", "--epochs", type=int, default=None,
                         help="override max epochs")
     parser.add_argument("--mesh", type=int, default=None,
@@ -60,12 +68,16 @@ def main(argv=None):
         parser.error(f"{args.command} requires --resume with -n <existing experiment>")
     if args.resume and args.name is None:
         parser.error("--resume requires -n <experiment dir name>")
+    # --resume takes precedence over -from (main.py:86-99)
+    branching = not args.resume and args.from_epoch not in (0, "0", None, "")
+    if branching and args.name is None:
+        parser.error("-from requires -n <source experiment dir name>")
     if args.command == "predict" and not args.input:
         parser.error("predict requires -i/--input <.ply file or directory>")
     if args.mesh is not None:
         raise NotImplementedError(
             "--mesh (data-parallel training over several cards) is not ported "
-            "yet (ROADMAP.md, queue 1, item 6)")
+            "yet (ROADMAP.md, queue 1, item 6b)")
 
     from vn_pointcloudcompletion_tpu_torch.utils.config import load_config, store_config
     from vn_pointcloudcompletion_tpu_torch.utils.experiments import (
@@ -78,6 +90,13 @@ def main(argv=None):
     configure_logging()
     if args.resume:
         config = load_config(args.name)
+    elif branching:
+        # -from: a new run seeded from an existing run's numbered checkpoint
+        # (reference main.py:40-46 + utils/experiments.py:154-166)
+        config = load_config(args.name)  # the source run's snapshot (its exp_dir)
+        fe = args.from_epoch
+        config.checkpoint = int(fe) if str(fe).isdigit() else str(fe)
+        config = create_experiment(config)
     else:
         config = load_config(None)
         if args.name:

@@ -9,6 +9,10 @@ of the model file it was written with.  Both files of a pair are written to
 temporary names first and then renamed, and a restore refuses a pair whose
 model file is not the one its optimizer file was written with (a crash
 between the two renames), as the JAX package's epoch markers do.
+
+:func:`load_pretrained_encoder` reads an encoder pretrained elsewhere (the
+reference's ``enc_pretrained``, ``models/model.py:29-39``) into a model, as
+the JAX package's ``training/checkpoint.py:101-141`` does.
 """
 
 from __future__ import annotations
@@ -16,10 +20,12 @@ from __future__ import annotations
 import copy
 import hashlib
 import os
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from vn_pointcloudcompletion_tpu_torch.training.interop import encoder_state_dict_from_torch
 
 
 def model_path(exp_dir: str, name: str) -> str:
@@ -112,3 +118,31 @@ def load_model(exp_dir: str, model: nn.Module,
             return path
     raise FileNotFoundError(
         f"no model_{{{','.join(names)}}}.pth in {os.path.join(exp_dir, 'models')}")
+
+
+def load_pretrained_encoder(model: nn.Module, path: str,
+                            enc_type: str = "vn_pointnet") -> List[str]:
+    """Load a torch ``.pth``/``.pt`` state dict's encoder into
+    ``model.encoder`` in place, non-strictly as the JAX package's
+    ``load_pretrained_encoder`` merges it (``torch_interop.py:257-372``):
+    every parameter and BatchNorm running statistic of the encoder comes
+    from the file, but for the keys JAX's converters leave at their init
+    (``interop.PRETRAINED_SKIPPED``: vn_pointr's coarse head); a missing key
+    or another shape raises.  The file may hold a whole ``PCNNet`` (keys
+    under ``encoder.``) or a bare encoder.  Returns the keys loaded.
+
+    The JAX package also reads its own flax msgpack ``.ckpt`` files here;
+    the port reads torch state dicts only."""
+    if not path.endswith((".pth", ".pt")):
+        raise ValueError(
+            f"pretrained encoder {path!r}: the port reads a torch state dict "
+            "(.pth or .pt: a reference or port checkpoint); the JAX package's "
+            "flax msgpack .ckpt files are not read by the port")
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    own = model.encoder.state_dict()
+    loaded = encoder_state_dict_from_torch(
+        sd, {k: v.shape for k, v in own.items()}, enc_type)
+    with torch.no_grad():
+        for k, t in loaded.items():
+            own[k].copy_(t)
+    return sorted(loaded)

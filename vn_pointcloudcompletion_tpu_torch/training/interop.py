@@ -32,6 +32,11 @@ them; their keys here are those of the reference's Sequentials
 VN-PointNet trunk's own for VNPCN; ``transform_net.{conv1,conv2,conv3,
 linear1,bn3,linear2,bn4,transform}``, ``conv1`` .. ``conv6``, ``mlp`` of
 DGCNN).
+
+:func:`encoder_state_dict_from_torch` carries the other outside weights
+in: a reference (or port) ``.pth`` state dict -> the tensors of the port's
+encoder that a pretrained-encoder load replaces, the keys of the JAX
+package's ``torch_interop.encoder_variables_from_torch`` converters.
 """
 
 from __future__ import annotations
@@ -40,6 +45,50 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+
+# Encoder keys that the JAX converters leave at their init by design
+# (``torch_interop.vn_pointr_from_state_dict``): vn_pointr's coarse head,
+# 1024 vector channels wide in the reference where the 448-coarse contract
+# needs 224.  The converters' other skipped keys (the dead ``input_proj``,
+# ``pos_embed``, ``attn.qkv``/``attn.proj``, ``conv1``/``conv2`` past
+# ``knn_layer``, ``decoder.*``, ``vn_mlp_query``) are not in the port's
+# encoder at all.
+PRETRAINED_SKIPPED = {"vn_pointr": ("vn_coarse_pred.2.",)}
+
+
+def encoder_state_dict_from_torch(sd: Mapping[str, torch.Tensor], encoder_keys,
+                                  enc_type: str) -> Dict[str, torch.Tensor]:
+    """The entries of a torch state dict ``sd`` (a whole ``PCNNet``'s, keys
+    under ``encoder.``, or a bare encoder's) that a pretrained-encoder load
+    takes, under the port encoder's own keys (``encoder_keys``, with their
+    shapes: ``{key: shape}``), as JAX's converters read them: every key but
+    ``PRETRAINED_SKIPPED`` is required (KeyError), with the encoder's shape
+    (ValueError, as ``torch_interop.merge_partial_tree``); keys of ``sd``
+    outside the encoder are ignored.  vn_pointr's wrapper is told by an
+    ``encoder.grouper.`` key, since that encoder's own block stack is also
+    named ``encoder.{i}``."""
+    if enc_type == "vn_pointr":
+        wrapped = any(k.startswith("encoder.grouper.") for k in sd)
+    else:
+        wrapped = any(k.startswith("encoder.") for k in sd)
+    if wrapped:
+        sd = {k[len("encoder."):]: v for k, v in sd.items() if k.startswith("encoder.")}
+    skipped = PRETRAINED_SKIPPED.get(enc_type, ())
+    wanted = {k: tuple(shape) for k, shape in encoder_keys.items()
+              if not k.startswith(skipped)}
+    missing = sorted(k for k in wanted if k not in sd)
+    if missing:
+        raise KeyError(f"pretrained {enc_type} encoder: {len(missing)} keys missing, "
+                       f"first {missing[:5]}")
+    out = {}
+    for k, shape in wanted.items():
+        t = torch.as_tensor(sd[k])
+        if tuple(t.shape) != shape:
+            raise ValueError(f"shape mismatch in pretrained load: {k} {shape} vs "
+                             f"{tuple(t.shape)}")
+        out[k] = t
+    return out
 
 
 def _vnllr(sd: dict, key: str, p: Mapping, s: Mapping) -> None:

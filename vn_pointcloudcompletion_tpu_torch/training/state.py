@@ -8,9 +8,13 @@ reference's ``optimizer.state_dict()`` layout.  The learning rate is set
 before every update from the count of accepted steps, so a resumed run
 continues the schedule and a skipped step does not advance it, as the
 optax schedule driven by ``opt_state``'s count does.  Frozen parameters
-(``freeze_encoder`` / ``freeze_decoder``) stay out of the optimiser, the
-counterpart of optax's ``set_to_zero`` branch: their gradients are still
-computed (and checked by the non-finite guard) but never applied.
+(``freeze_encoder``, or a pretrained encoder: ``enc_pretrained``;
+``freeze_decoder``) stay out of the optimiser, the counterpart of optax's
+``set_to_zero`` branch (JAX ``training/state.py:51``) and of the
+reference's ``requires_grad=False`` on a model in train mode: their
+gradients are still computed (and checked by the non-finite guard) but
+never applied, and a frozen encoder's BatchNorm running statistics still
+move.
 """
 
 from __future__ import annotations
@@ -33,12 +37,8 @@ def step_lr(base_lr: float, count: int, steps_per_epoch: int,
 
 def trainable_parameters(model: nn.Module, config: Config) -> List[nn.Parameter]:
     """Every parameter outside the frozen top-level submodules."""
-    if config.enc_pretrained != "none":
-        raise NotImplementedError(
-            "enc_pretrained (loading and freezing a pretrained encoder) is not "
-            "ported yet (ROADMAP.md, queue 1, item 7)")
     frozen = set()
-    if config.freeze_encoder:
+    if config.freeze_encoder or config.enc_pretrained != "none":
         frozen.add("encoder")
     if config.freeze_decoder:
         frozen.add("decoder")

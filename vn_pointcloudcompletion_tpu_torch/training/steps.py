@@ -8,6 +8,26 @@ the dense clouds, the backward, and the optimiser update behind the
 non-finite guard.  The guard reads one boolean from the card per step, the
 only host read of the step; on a skipped step neither the parameters, the
 BatchNorm running buffers, Adam's moments nor its count change.
+
+Under ``config.remat`` the whole forward is one checkpointed segment
+(``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` around the apply,
+``training/steps.py:77-86``): its activations are dropped and the backward
+runs it again; the losses stay outside.  The recomputation makes the same
+discrete decisions (argmax pools, kNN, FPS) as the forward, since the plain
+path and every kernel repeat their bits; the rotation is drawn before it.
+It would update the BatchNorm running buffers a second time, so the step
+puts back the forward's: the running statistics are those of one forward,
+as JAX's ``mutated["batch_stats"]`` are.  The bf16 policy is read during
+the recomputation too, so ``backward()`` runs inside the same
+``compute_dtype_scope`` as the forward (the trainer holds it for the run).
+
+On this port ``remat`` saves no peak memory: the one segment is the whole
+forward, so the backward's first unpack recomputes all of it and every
+saved activation is alive again before the first backward kernel.  It
+costs one more train-mode forward, 36-65% of the step's time on an H100
+(flagship float32 and the root ``config.json`` in bf16 at batch 8 and 16;
+``chip_smoke.py`` phase 14, recorded in ``PERF.md``).  It is kept for
+parity with JAX's option.
 """
 
 from __future__ import annotations
@@ -15,6 +35,7 @@ from __future__ import annotations
 from typing import Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from vn_pointcloudcompletion_tpu_torch.metrics.losses import calc_dcd, cd_loss_l1, emd_loss
 from vn_pointcloudcompletion_tpu_torch.metrics.metrics import l1_cd
@@ -53,8 +74,13 @@ def coarse_loss(config: Config, coarse, complete) -> torch.Tensor:
 
 
 def _losses(model, config: Config, partial, complete, rot):
-    """Forward in the model's current mode: (coarse, dense, total) losses."""
-    coarse, fine = model(partial, rot)
+    """Forward in the model's current mode: (coarse, dense, total) losses;
+    in train mode under ``config.remat`` the forward is recomputed in the
+    backward (see the module docstring for the running buffers)."""
+    if config.remat and model.training:
+        coarse, fine = checkpoint(model, partial, rot, use_reentrant=False)
+    else:
+        coarse, fine = model(partial, rot)
     loss1 = coarse_loss(config, coarse, complete)
     if config.only_coarse:
         return loss1, torch.zeros((), device=loss1.device), loss1
@@ -75,7 +101,12 @@ def train_step(state: TrainState, partial: torch.Tensor, complete: torch.Tensor,
         p.grad = None
 
     loss1, loss2, loss = _losses(model, config, partial, complete, rot)
+    forward_buffers = [b.detach().clone() for b in model.buffers()] if config.remat else None
     loss.backward()
+    if forward_buffers is not None:  # undo the recomputation's BatchNorm update
+        with torch.no_grad():
+            for b, kept in zip(model.buffers(), forward_buffers):
+                b.copy_(kept)
 
     grads = [p.grad for p in params if p.grad is not None]
     ok = all_finite(grads) & torch.isfinite(loss)

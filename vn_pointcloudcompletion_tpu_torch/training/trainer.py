@@ -11,9 +11,17 @@ validation total improves, ``last`` every ``checkpoint_last_every`` epochs
 The scalars the JAX trainer writes with tensorboardX (``Loss/Batch/*``,
 ``Loss/Epoch/*``) go to ``<exp_dir>/metrics.jsonl``, one JSON object per
 line: ``{"split", "tag", "step", "value"}``.  The per-epoch PNG of one
-validation cloud is not drawn (ROADMAP.md, queue 1, item 7).  The step's
-metrics stay on the card until the end of the epoch, apart from the log
-points.
+validation cloud is not drawn (it needs ``plot_pcd_one_view``: ROADMAP.md,
+queue 1, item 8).  The step's metrics stay on the card until the end of
+the epoch, apart from the log points.
+
+Before the first epoch, in the JAX trainer's order
+(``training/trainer.py:125-163``): a pretrained encoder
+(``enc_pretrained``, frozen by ``training/state.py``) is loaded into the
+new state; then ``--resume`` restores the run's ``last`` pair, or a run
+branched with ``-from`` restores the numbered pair that
+``utils/experiments.py::create_experiment`` copied into it and continues
+at the epoch after it.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from vn_pointcloudcompletion_tpu_torch.data.synthetic import SyntheticCompletion
 from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
 from vn_pointcloudcompletion_tpu_torch.nn.precision import compute_dtype_scope, from_config_dtype
 from vn_pointcloudcompletion_tpu_torch.training.checkpoint import (
+    load_pretrained_encoder,
     payload,
     restore_checkpoint,
     save_checkpoint,
@@ -39,6 +48,7 @@ from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
 from vn_pointcloudcompletion_tpu_torch.training.steps import eval_step, train_step
 from vn_pointcloudcompletion_tpu_torch.utils.config import Config
 from vn_pointcloudcompletion_tpu_torch.utils.device import resolve_device
+from vn_pointcloudcompletion_tpu_torch.utils.experiments import get_num_params_total
 
 log = logging.getLogger("train")
 log_dataset = logging.getLogger("dataset")
@@ -57,17 +67,6 @@ def build_datasets(config: Config):
     root = os.path.join(config.data_path, "PCN")
     return (ShapeNetPCN(root, "train", config.category, seed=config.seed),
             ShapeNetPCN(root, "valid", config.category, seed=config.seed))
-
-
-def _check_ported(config: Config) -> None:
-    if config.remat:
-        raise NotImplementedError(
-            "remat (recomputing the forward in the backward) is not ported yet "
-            "(ROADMAP.md, queue 1, item 7)")
-    if config.checkpoint:
-        raise NotImplementedError(
-            "branching a run from a numbered checkpoint (-from) is not ported "
-            "yet (ROADMAP.md, queue 1, item 7)")
 
 
 class _Scalars:
@@ -91,7 +90,6 @@ def train(config: Config, resume: bool = False, device="cuda") -> dict:
     ``config.dtype`` (JAX sets it process-wide, ``training/trainer.py:74-77``);
     the caller's policy is restored on return.  Parameters, Adam's state
     and the checkpoints stay float32 under either."""
-    _check_ported(config)
     with compute_dtype_scope(from_config_dtype(config.dtype)):
         return _train(config, resume, device)
 
@@ -111,6 +109,16 @@ def _train(config: Config, resume: bool, device) -> dict:
     state = create_train_state(model, config, steps_per_epoch)
     generator = torch.Generator().manual_seed(config.seed)
 
+    if config.enc_pretrained != "none":
+        if not os.path.exists(config.enc_pretrained):
+            # the optimiser freezes the encoder whenever enc_pretrained is
+            # set: skipping a mistyped path would train a frozen random
+            # encoder for the whole run
+            raise FileNotFoundError(
+                f"enc_pretrained checkpoint not found: {config.enc_pretrained}")
+        load_pretrained_encoder(model, config.enc_pretrained, config.enc_type)
+        log.info(f"Loaded pretrained encoder from {config.enc_pretrained}")
+
     start_epoch, best_cd_l1, best_epoch_l1 = 0, 1e8, -1
     if resume:
         restored = restore_checkpoint(config.exp_dir, state, "last")
@@ -121,10 +129,21 @@ def _train(config: Config, resume: bool, device) -> dict:
                      f" (best_metrics = {best_cd_l1 * 1e3})")
         else:
             log.info("No checkpoint found; training from start")
+    elif config.checkpoint:
+        # -from: create_experiment copied model_{N}/optim_{N} into this new
+        # run dir (reference utils/experiments.py:154-166)
+        restored = restore_checkpoint(config.exp_dir, state, str(config.checkpoint))
+        if restored is None:
+            raise FileNotFoundError(
+                f"branch checkpoint {config.checkpoint} missing from {config.exp_dir}")
+        state, last_epoch, best_cd_l1, best_epoch_l1 = restored
+        start_epoch = last_epoch + 1
+        log.info(f"[BRANCH INFO] new run {config.run_name} branched from epoch "
+                 f"{last_epoch} checkpoint (best_metrics = {best_cd_l1 * 1e3})")
     else:
         log.info(f"Start a brand new experiment: {config.run_name}")
 
-    log.info(f"Model total params: {sum(p.numel() for p in model.parameters())}")
+    log.info(f"Model total params: {get_num_params_total(model)}")
     log.info(f"Producing coarse only: {config.only_coarse}")
     log.info(f"Producing num of coarse points: {config.num_coarse}")
 

@@ -87,7 +87,7 @@ class Config:
     # TPU-native additions (absent fields default; reference configs still load)
     seed: int = 0
     dtype: str = "float32"  # compute dtype for model matmuls: float32 | bfloat16
-    remat: bool = False  # rematerialise the forward in backward (HBM for FLOPs)
+    remat: bool = False  # recompute the forward in backward; the port saves no peak memory
     mesh_shape: Optional[Dict[str, int]] = None  # e.g. {"data": 8}
     steps_per_epoch: Optional[int] = None  # override for synthetic data
     dataset: str = "shapenet"  # shapenet | synthetic
