@@ -155,6 +155,29 @@ on one NVIDIA GPU:
    ``checkpoint_every 1``, then a run branched from its epoch 1, which
    holds a byte copy of the pair, logs ``[BRANCH INFO]``, starts at epoch 2
    from the pair's weights; ``-from`` a missing epoch raises.
+15. vn_pointr's decoder stack (``pointr_decoder``: the root ``config.json``'s
+   pipeline, PATHS ``vn_pointr_448_dec``) at full width: embed 384,
+   enc_depth 6, dec_depth 8, 224 queries, 448 coarse and 14336 dense
+   points, batch 8, random weights from seed 0, synthetic data.  (a) Phase
+   4 on it: ``predict`` + ``test`` counted (FORWARD_LAUNCHES: vn_pointr_448's
+   with K2 4, every K2 in the coords design), the forward through the
+   kernels against the plain path on one DecisionTape within
+   POINTR_FWD_TOL, the refined queries included.  (b) ``overfit`` + ``train
+   --resume`` + ``--resume test``, counted; one train step counted
+   (STEP_LAUNCHES); the stack alone (``VNPCTransformer.refine``) and the
+   attention decoder with its ``query_proj`` alone, each through the
+   kernels, the plain path and float64 on one tape (POINTR_STEP_TOL and
+   POINTR_QUERY_DEC_TOL);
+   the eval forward and the step of vn_pointr_448 with and without the
+   stack in turns, with peak memory (``step_cost``), and a profile.  (c)
+   The same forward and a train step under the bf16 policy, as phases 12
+   and 13 check the root config (launches and designs exact), with float32
+   and bf16 times of both models.  (d) The scalar ``VNPCTransformer``
+   (``dgcnn="dgcnn"``, ``trans="trans"``, ``only_coarse=False``) at the same
+   width, which the composer never builds: one forward counted (K2 7, F 3)
+   against the plain path on one tape.  Phase 3 holds K2 at the stack's two
+   graphs too (KNN_SHAPES: 224 vs 224 and 224 vs 128, k 8), timed beside
+   the parent design and cdist + topk.
 
 Every phase prints its wall time.  Any failure exits non-zero.  The line
 before the last is a JSON object with one record per kernel (its launches
@@ -216,6 +239,16 @@ DEC_F64_TOL = 4e-3
 POINTR_FWD_TOL = 2e-6
 POINTR_STEP_TOL = 4e-3
 POINTR_F64_RATIO = 2.0
+# Phase 15b, the attention decoder with ``query_proj`` alone on one tape, fed
+# the decoder stack's refined queries: kernels vs plain, each gradient's
+# max|dg| / max|g| (measured 7.38e-3 at vn_folding2.0's direction map,
+# NVIDIA H100 80GB HBM3, 700 W).  The reflections inside kernels B and C
+# decide by themselves (DecisionTape), and with the queries added to the
+# centres' features more of them lie near their boundary than in phase
+# 9b's decoder (1.11e-3); the plain path itself lies 2.8e-2 from float64
+# there, and POINTR_F64_RATIO holds each tensor of the kernel path to the
+# plain path's distance from float64 (measured 1.16x at most).
+POINTR_QUERY_DEC_TOL = 2e-2
 FORWARD_KERNELS = ("vn_bn_leaky_fwd", "vn_layer_fused_fwd",
                    "vn_layer_fused_project_fwd", "chamfer_nn_bidir")
 # The pipelines each driven at full width (batch 8, 2048 input points) by
@@ -231,6 +264,8 @@ PATHS = {
     "vn_pointr_448": {"enc_type": "vn_pointr", "dec_type": "attention_vn_foldingnet",
                       "num_coarse": 448},
 }
+# phase 15: the root config.json's pipeline with vn_pointr's decoder stack
+PATHS["vn_pointr_448_dec"] = {**PATHS["vn_pointr_448"], "pointr_decoder": True}
 # vn_pointr: grouper conv1 K2 + B, two F, conv4-6 K3 + A each (conv6's C3 of
 # 768 passes K3's gate), the proxy graph K2 (k 8), the FPS tail F; the
 # decoder's pair folds B with group=S, vn_folding{1,2}.1 + .2 C.
@@ -243,6 +278,13 @@ FORWARD_LAUNCHES = {
                       "vn_bn_leaky_fwd": 3, "vn_layer_fused_fwd": 1,
                       "vn_layer_fused_fwd[group]": 2, "vn_layer_fused_project_fwd": 2},
 }
+# with the decoder stack, K2 also for its self (224 vs 224) and cross (224
+# vs 128) graphs, k 8; the stack's VN layers are vec layout: no kernel
+FORWARD_LAUNCHES["vn_pointr_448_dec"] = {**FORWARD_LAUNCHES["vn_pointr_448"], "knn_min": 4}
+# phase 15d, the scalar VNPCTransformer (dgcnn="dgcnn", trans="trans",
+# only_coarse=False): its trunk's four k 16 graphs, the proxy graph and the
+# decoder's two; the trunk's two FPS and the 224 of the tail
+SCALAR_PTR_LAUNCHES = {"knn_min": 7, "furthest_point_sample": 3}
 # Phase 12, the bf16 policy's eval forwards: one forward's launches, A, B,
 # C and K3 in their bf16 modes only (D, K2 and F stay float32: their
 # wrappers upcast bf16 coordinates exactly), as the JAX package's TPU
@@ -257,7 +299,7 @@ BF16_FORWARD_LAUNCHES = {
     "flagship": {"vn_bn_leaky_fwd[bf16]": 2, "vn_layer_fused_fwd[bf16]": 1,
                  "vn_layer_fused_project_fwd[bf16]": 1},
     **{path: {BF16_NAMES.get(k, k): v for k, v in FORWARD_LAUNCHES[path].items()}
-       for path in ("vn_dgcnn", "vn_pointr_448")},
+       for path in ("vn_dgcnn", "vn_pointr_448", "vn_pointr_448_dec")},
 }
 # Phase 12, on one tape of discrete decisions, the coarse cloud and the
 # decoder's last fold output (kernel C's on the kernel path; the dense
@@ -295,6 +337,11 @@ BF16_STEP_LAUNCHES = {
                       "vn_layer_fused_bwd[group,bf16]": 2,
                       "vn_layer_fused_project_bwd[bf16]": 2},
 }
+BF16_STEP_LAUNCHES["vn_pointr_448_dec"] = {**BF16_STEP_LAUNCHES["vn_pointr_448"], "knn_min": 4}
+# the float32 step's: the same kernels in their float32 modes (phase 15b)
+STEP_LAUNCHES = {path: {k.replace("[bf16]", "").replace(",bf16]", "]"): v
+                        for k, v in launches.items()}
+                 for path, launches in BF16_STEP_LAUNCHES.items()}
 BF16_TRAIN_EPOCHS = 2  # phase 13's train epochs before --resume
 # The design of every B, C, S, S', C' and B' launch of one train step
 # (cuda_lib.variant_counts(); ops/vn_layer_fused.py::forward_design,
@@ -316,6 +363,7 @@ STATS_STEP_DESIGNS = {
     "vn_pointr_448": {"vn_layer_stats_fwd/narrow": 1, "vn_layer_stats_fwd/wide": 2,
                       "vn_layer_stats_fwd[group]/narrow": 2},
 }
+STATS_STEP_DESIGNS["vn_pointr_448_dec"] = STATS_STEP_DESIGNS["vn_pointr_448"]
 
 
 def bf16_designs(designs: dict) -> dict:
@@ -347,6 +395,8 @@ BF16_STEP_DESIGNS = {
                       "knn_min/coords": 2, "vn_bn_leaky_fwd[bf16]/run8": 3,
                       **bf16_designs(STATS_STEP_DESIGNS["vn_pointr_448"])},
 }
+BF16_STEP_DESIGNS["vn_pointr_448_dec"] = {**BF16_STEP_DESIGNS["vn_pointr_448"],
+                                          "knn_min/coords": 4}
 # Every launch of B on a main path (phases 4-13) takes the store stream
 # (every main-path B has C_in <= 2), every launch of C the wide design and
 # every launch of B' the fused pass, every K2 launch (all over coordinates,
@@ -362,7 +412,8 @@ MAIN_DESIGNS = {"vn_layer_fused_fwd": "stream", "vn_layer_fused_project_fwd": "w
 # (D 3, N 512), "tiled" over vn_pointr's features (D 96 and 192 at N 512, D
 # 192 at N 128); every F launch its one design (MAIN_DESIGNS): checked with
 # the others on each counted run of phases 6-13.
-EDGE_PATH_DESIGNS = {"vn_dgcnn": "coords", "vn_pointr_448": "tiled"}
+EDGE_PATH_DESIGNS = {"vn_dgcnn": "coords", "vn_pointr_448": "tiled",
+                     "vn_pointr_448_dec": "tiled"}
 # Phase 13, the flagship's bf16 train step on one DecisionTape, each
 # gradient as its root-mean-square distance over the tensor's norm: the
 # kernels no further from the plain float32 path than BF16_F32_RATIO x the
@@ -394,7 +445,7 @@ EMD_COST_TOL, EMD_MOMENT_TOL, EMD_F64_RATIO, EMD_GRAD_TOL = 2e-4, 1e-2, 3.0, 5e-
 EMD_D_OPS = 8 + 1 + 1
 EMD_OPS_PER_PAIR = (EMD_D_OPS + 2) + 10 * (EMD_D_OPS + 8) + 10 * (EMD_D_OPS + 11) + 9 * 4
 # overfit epochs before --resume
-DGCNN_EPOCHS = {"vn_dgcnn": 4, "dgcnn_448": 2, "vn_pointr_448": 8}
+DGCNN_EPOCHS = {"vn_dgcnn": 4, "dgcnn_448": 2, "vn_pointr_448": 8, "vn_pointr_448_dec": 4}
 SYMBOL = {"A": "vn_bn_leaky_fwd", "A'": "vn_bn_leaky_bwd",
           "S": "vn_layer_stats_fwd", "S'": "vn_layer_stats_bwd",
           "B": "vn_layer_fused_fwd", "B'": "vn_layer_fused_bwd",
@@ -1427,10 +1478,12 @@ A_BF16_SHAPES = ((1024, 2048), (128, 2048), (64, 8192), (128, 8192), (512, 2048)
 # K2's shapes on the paths (N, M, k), all over coordinates (D 3): the VN
 # DGCNN's conv1 and vn_pointr's grouper (2048 vs 2048), the VN DGCNN's
 # conv6 (128 vs 128), dgcnn_448's grouper layers (2048/2048, 512/2048,
-# 512/512, 128/512), vn_pointr's proxy graph (128 vs 128 at k 8) and the
-# classic DGCNN's first two graphs (2048 vs 2048 at k 40)
+# 512/512, 128/512), vn_pointr's proxy graph (128 vs 128 at k 8), the
+# classic DGCNN's first two graphs (2048 vs 2048 at k 40), and vn_pointr's
+# decoder stack (phase 15): its self graph over the 224 coarse points and
+# its cross graph of those over the 128 centres, k 8
 KNN_SHAPES = ((2048, 2048, 16), (128, 128, 16), (512, 2048, 16), (512, 512, 16),
-              (128, 512, 16), (128, 128, 8), (2048, 2048, 40))
+              (128, 512, 16), (128, 128, 8), (2048, 2048, 40), (224, 224, 8), (224, 128, 8))
 # K1's rows (M, k) over (8, 2048, M) matrices: knn()'s D > 512 branch at
 # 2048 points (k 16), the row cap 4096, and the larger lists (k 40, 64)
 K1_SHAPES = ((2048, 16), (4096, 16), (2048, 40), (2048, 64))
@@ -1520,14 +1573,17 @@ def check_knn_kernel(dev, record, randn, uniform, q):
     # across a query's lanes) and on uniform random clouds; at each:
     # indices equal to the plain version's, values within 1e-6 of its max,
     # a second launch and the parent (warp) design equal to the bit
+    # (the decoder's 224 queries: FPS 2048 -> 224 of the scans, as the tail)
     levels = {2048: q}
-    for m, prev in ((512, 2048), (128, 512)):
+    for m, prev in ((512, 2048), (128, 512), (224, 2048)):
         pick = fps_pallas.reference_furthest_point_sample(levels[prev], m).long()
         levels[m] = torch.gather(levels[prev], 1, pick[..., None].expand(-1, -1, 3))
     for n, m, kk in KNN_SHAPES:
         tie = lane_tie_cloud(dev, BATCH, m)
+        # the last n points of the cloud repeated: the origin among the queries
+        tie_q = torch.cat([tie] * -(-n // m), dim=1)[:, -n:]
         for what, qq, rr in (("scans", levels[n], levels[m]),
-                             ("lane-tie cloud", tie[:, m - n:], tie),
+                             ("lane-tie cloud", tie_q, tie),
                              ("random clouds", uniform(-0.5, 0.5, BATCH, n, 3),
                               uniform(-0.5, 0.5, BATCH, m, 3))):
             (got, design), again = (launched_designs(lambda: knn_pallas.knn_min_fwd(qq, rr, kk)),
@@ -1577,10 +1633,11 @@ def check_knn_kernel(dev, record, randn, uniform, q):
               f"({floor_ms / rec['graph_ms']:.1%} of the device time; the FP32 bound, 10 "
               f"operations a pair at 67 TFLOP/s, {rec['bound_ms']:.4f} ms)", flush=True)
     # the other path shapes' times beside the parent design; D 64 at k 40
-    # (the classic DGCNN's last two graphs) takes the warp design itself
+    # (the classic DGCNN's last two graphs) takes the warp design itself;
+    # the decoder stack's two graphs (k 8) also beside cdist + topk
     feats = randn(BATCH, 2048, 64)
     for n, m, dim, kk in ((512, 2048, 3, 16), (128, 128, 3, 16), (2048, 2048, 3, 40),
-                          (2048, 2048, 64, 40)):
+                          (2048, 2048, 64, 40), (224, 224, 3, 8), (224, 128, 3, 8)):
         qq, rr = (levels[n], levels[m]) if dim == 3 else (feats, feats)
         fn = lambda: knn_pallas.knn_min_fwd(qq, rr, kk)  # noqa: E731
         got, design = launched_designs(fn)
@@ -1601,6 +1658,12 @@ def check_knn_kernel(dev, record, randn, uniform, q):
                   f"{b_ms / dev_ms:.1%} of the bound on the device", flush=True)
         else:
             versus_parent(row, fn, reps=10)
+        if kk == 8:
+            lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(qq, rr), kk, dim=-1,
+                                                largest=False), 10)
+            print(f"[kernel {row['name']}] library (cdist + topk, two calls): {lib_ms:.4f} ms; "
+                  f"plain {cuda_ms(lambda: knn_pallas.reference_knn_min(qq, rr, kk), 5):.4f} "
+                  f"ms", flush=True)
     del feats, tie, got, again, parent
 
 
@@ -2038,8 +2101,12 @@ def serve_path(dev, path: str = "flagship"):
     rot = random_rotations(torch.Generator().manual_seed(1), BATCH).to(dev)
     xyz = xyz @ rot
     # vn_pointr: the plain run takes the kernels' run's discrete decisions
-    # (see the tolerances below); the other paths' runs decide by themselves
-    taped = path == "vn_pointr_448"
+    # (see the tolerances below); the other paths' runs decide by themselves.
+    # With the decoder stack, the refined queries are compared too (a hook)
+    taped = path.startswith("vn_pointr_448")
+    queries = []
+    hook = model.encoder.register_forward_hook(
+        lambda m, i, out: queries.append(out[1][1]) if path == "vn_pointr_448_dec" else None)
     with torch.no_grad(), DecisionTape() if taped else contextlib.nullcontext() as tape:
         cuda_lib.reset_launch_counts()
         coarse_k, fine_k = model(xyz, rot)
@@ -2053,7 +2120,15 @@ def serve_path(dev, path: str = "flagship"):
             tape.run(tape.rec)
         coarse_p, fine_p = model(xyz, rot)
         model.use_kernels_(True)
+    hook.remove()
     torch.cuda.synchronize()
+    if queries:
+        q_k, q_p = queries
+        err_q = ((q_k - q_p).abs().max() / q_p.abs().max()).item()
+        print(f"{tag} refined queries {tuple(q_k.shape)} kernels vs plain: max|d| / max "
+              f"{err_q:.3e} (tolerance {POINTR_FWD_TOL})")
+        if err_q > POINTR_FWD_TOL or q_k.shape != (BATCH, 224, 384):
+            raise AssertionError(f"{tag} refined queries: kernels disagree with the plain path")
     err_c = (coarse_k - coarse_p).abs().max().item()
     err_f = (fine_k - fine_p).abs().max().item()
     # Tolerances.  The flagship encoder's only kernel, A, is bit-exact, and
@@ -2066,7 +2141,7 @@ def serve_path(dev, path: str = "flagship"):
     # of its global pool or a feature-space kNN could pick otherwise: the
     # plain run replays the kernels' picks, and POINTR_FWD_TOL holds the rest.
     rel = {"flagship": 1e-4, "vn_dgcnn": 1e-4, "dgcnn_448": 0.0,
-           "vn_pointr_448": POINTR_FWD_TOL}[path]
+           "vn_pointr_448": POINTR_FWD_TOL, "vn_pointr_448_dec": POINTR_FWD_TOL}[path]
     tol_c = (0.0 if path == "flagship" else rel) * coarse_p.abs().max().item()
     tol_f = rel * fine_p.abs().max().item()
     print(f"{tag} forward kernels vs plain: coarse max_abs_err {err_c:.3e} (tolerance "
@@ -2076,11 +2151,13 @@ def serve_path(dev, path: str = "flagship"):
     shutil.rmtree(work, ignore_errors=True)
 
 
-def train_path(dev, path: str = "flagship", epochs: int = 0, keep_best: str = "", **extra):
+def train_path(dev, path: str = "flagship", epochs: int = 0, keep_best: str = "",
+               and_test: bool = False, **extra):
     """Phase 5: overfit + train --resume at full width through the CLI,
     counted; ``epochs`` and ``extra`` config fields (phase 10b: the coarse
     loss) override the path's; ``keep_best``: where to copy the run's
-    ``model_best.pth`` (phase 14c reads it)."""
+    ``model_best.pth`` (phase 14c reads it); ``and_test``: then ``--resume
+    test`` on the run (phase 15b), its metric row finite."""
     import math
 
     import torch
@@ -2118,6 +2195,7 @@ def train_path(dev, path: str = "flagship", epochs: int = 0, keep_best: str = ""
         exp_dir = os.path.join(os.environ["OUTPUT_DIR"], run)
         resumed = cli.main(["-n", run, "--resume", "-epochs", str(epochs), "train"])
         t2 = time.perf_counter()
+        tested = cli.main(["-n", run, "--resume", "test"]) if and_test else None
     finally:
         os.chdir(cwd)
     print(f"{tag} overfit {epochs} epochs of one step + one validation "
@@ -2147,8 +2225,15 @@ def train_path(dev, path: str = "flagship", epochs: int = 0, keep_best: str = ""
         raise AssertionError("non-finite logged loss")
     if len(train) != epochs + 1:
         raise AssertionError(f"epochs logged: {train}")
-    if path != "dgcnn_448" and not extra and not train[epochs - 1] < train[0]:
+    # (the DGCNN at 448 and phase 15b's short run: finite losses only)
+    if (path not in ("dgcnn_448", "vn_pointr_448_dec") and not extra
+            and not train[epochs - 1] < train[0]):
         raise AssertionError(f"training loss did not fall: {train}")
+    if tested is not None:
+        row = tested["synthetic"]
+        print(f"{tag} --resume test: {json.dumps(row)}")
+        if not all(math.isfinite(v) for v in row.values()) or not 0 < row["iou"] <= 1:
+            raise AssertionError(f"{tag} bad metric row {row}")
     if summary["epochs_run"] != epochs or resumed["epochs_run"] != 1:
         raise AssertionError(f"epochs run: {summary} then {resumed}")
     for sub, stem in (("models", "model"), ("optimizer", "optim")):
@@ -2347,10 +2432,11 @@ def small_step_case(dev, batch: int):
     return model, plain, config, partial, complete
 
 
-def decoder_grads(decoder, coarse, feature_global, rot, cot, dtype):
+def decoder_grads(decoder, coarse, feature_global, rot, cot, dtype, center_feats=None):
     """Gradients of ``sum(fine * cot)`` w.r.t. the decoder's parameters and
-    inputs, on a copy of the decoder in ``dtype`` (float64 takes the plain
-    path: the kernels are float32)."""
+    inputs (``center_feats``: the attention decoder's refined queries, with
+    the decoder stack), on a copy of the decoder in ``dtype`` (float64 takes
+    the plain path: the kernels are float32)."""
     import copy
 
     dec = copy.deepcopy(decoder).to(dtype).train()
@@ -2360,10 +2446,15 @@ def decoder_grads(decoder, coarse, feature_global, rot, cot, dtype):
                 m.use_kernels = False
     c = coarse.detach().to(dtype).requires_grad_()
     f = feature_global.detach().to(dtype).requires_grad_()
-    fine = dec(c, f, rot.to(dtype))
+    kw = {}
+    if center_feats is not None:
+        kw["center_feats"] = center_feats.detach().to(dtype).requires_grad_()
+    fine = dec(c, f, rot.to(dtype), **kw)
     (fine * cot.to(dtype)).sum().backward()
     out = {f"decoder.{k}": p.grad for k, p in dec.named_parameters()}
     out.update(coarse=c.grad, feature_global=f.grad)
+    if kw:
+        out["center_feats"] = kw["center_feats"].grad
     return out
 
 
@@ -2850,6 +2941,267 @@ def scalar_train_step(dev, smi: str):
     print(f"[dgcnn_448 step] {smi}: median of 5 after 2 warm-up (CUDA events): train step "
           f"kernels {k_ms:.3f} ms then {k2_ms:.3f} ms, plain {p_ms:.3f} ms; eval forward "
           f"kernels {kf:.3f} ms then {kf2:.3f} ms, plain {pf:.3f} ms")
+
+
+def pointr_decoder_step(dev, smi: str):
+    """Phase 15b, after the counted training run: vn_pointr_448 with the
+    decoder stack (``pointr_decoder``) at full width, batch 8.  One train
+    step counted (STEP_LAUNCHES: vn_pointr_448's with K2 4, every kernel in
+    its float32 mode and its design).  The parts of the model the stack
+    adds, each for a fixed cotangent through the kernels, the plain path
+    and the plain path in float64 on one set of discrete decisions
+    (``on_one_tape``), each gradient no further from float64 than
+    POINTR_F64_RATIO x the plain path's distance: the stack alone
+    (``VNPCTransformer.refine``: the queries' VN layers and eight blocks,
+    K2 for its two graphs) from this batch's train-mode tokens, centres,
+    global feature and coarse points, within POINTR_STEP_TOL of the plain
+    path's; the attention decoder with its ``query_proj`` (S, B, C and
+    their backwards) from the same encoder output, within
+    POINTR_QUERY_DEC_TOL (see there).  (The grouper is phase 9b's; between
+    the parts the VN transformer runs the same PyTorch on both paths, and
+    the whole float32 step moves by O(1) for one ulp of input: phase 9b.)  Then the eval
+    forward and the train step of vn_pointr_448 with and without the stack
+    in turns (CUDA events; ``step_cost``: the step's peak memory), and a
+    profile of the stack's step."""
+    import copy
+
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib
+    from vn_pointcloudcompletion_tpu_torch.ops.rotations import rotate_points
+    from vn_pointcloudcompletion_tpu_torch.training import steps
+    from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
+
+    path = "vn_pointr_448_dec"
+    tag = f"[{path} step]"
+    config = _smoke_config(path, lr=1e-4, rotation="so3")
+    model = build_model(config).to(dev)
+    plain = copy.deepcopy(model).use_kernels_(False)
+    partial, complete, rot = main_path_batch(dev)
+
+    state = create_train_state(copy.deepcopy(model), config, 1)
+    steps.train_step(state, partial, complete, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    metrics = steps.train_step(state, partial, complete, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in cuda_lib.launch_counts().items()
+              if v and k != "chamfer_nn_bidir"}
+    print(f"{tag} one train step: launches {json.dumps(counts)}; skipped "
+          f"{metrics['skipped'].item()}")
+    check_designs(f"{tag} one train step", counts, cuda_lib.variant_counts(), path)
+    check_stats_designs(f"{tag} one train step", cuda_lib.variant_counts(),
+                        STATS_STEP_DESIGNS[path], 1)
+    if counts != STEP_LAUNCHES[path] or metrics["skipped"].item():
+        raise AssertionError(f"{tag} launches {counts}, expected {STEP_LAUNCHES[path]}")
+    del state
+
+    # the stack's inputs from this batch's train-mode encoder (on a copy)
+    enc = copy.deepcopy(model.encoder).train()
+    args = []
+    refine = enc.refine
+    enc.refine = lambda *a: args.extend(a) or refine(*a)
+    with torch.no_grad():
+        (coarse, _), (fg, queries) = enc(rotate_points(partial, rot))
+    del enc
+    gen = torch.Generator(device=dev).manual_seed(2)
+    qcot = torch.randn(queries.shape, generator=gen, device=dev) * 1e-3
+
+    def stack_grads(m, dtype):
+        e = copy.deepcopy(m.encoder).to(dtype).train()
+        q = e.refine(*(t.to(dtype) if t.is_floating_point() else t for t in args))
+        (q * qcot.to(dtype)).sum().backward()
+        return None, None, {f"encoder.{k}": p.grad.double() for k, p in e.named_parameters()
+                            if p.grad is not None}
+
+    (_, _, sk), (_, _, sp), (_, _, s64), _, _ = on_one_tape(model, plain, stack_grads)
+    if not any(k.startswith("encoder.decoder.7.") for k in sk):
+        raise AssertionError(f"{tag} no gradient reached the stack's last block")
+    ok = check_on_one_tape(f"{tag} the decoder stack alone, fixed cotangent of the queries:",
+                           sk, sp, s64, POINTR_STEP_TOL, POINTR_F64_RATIO)
+    cot = torch.randn(BATCH, 14336, 3, generator=gen, device=dev) * 1e-4
+    (_, _, dk), (_, _, dp), (_, _, d64), _, _ = on_one_tape(
+        model, plain, lambda m, dtype: (None, None, decoder_grads(
+            m.decoder, coarse, fg, rot, cot, dtype, queries)))
+    ok = check_on_one_tape(f"{tag} the decoder with query_proj alone, fixed cotangent:", dk,
+                           dp, d64, POINTR_QUERY_DEC_TOL, POINTR_F64_RATIO) and ok
+    if not ok:
+        raise AssertionError(f"{tag} kernels disagree with the plain path")
+    del plain
+
+    base_config = _smoke_config("vn_pointr_448", lr=1e-4, rotation="so3")
+    base = build_model(base_config).to(dev)
+    xyz = partial @ rot
+
+    def forward_ms(m):
+        m.eval()
+        with torch.no_grad():
+            ms = cuda_ms(lambda: m(xyz, rot), 5)
+        m.train()
+        return ms
+
+    fwd, step, gib = {}, {}, {}
+    for name, m, cfg in (("vn_pointr_448", base, base_config), (path, model, config),
+                         (path, model, config), ("vn_pointr_448", base, base_config)):
+        fwd.setdefault(name, []).append(forward_ms(m))
+        t_ms, _, gib[name], _ = step_cost(m, cfg, partial, complete)
+        step.setdefault(name, []).append(t_ms)
+    for name in ("vn_pointr_448", path):
+        print(f"{tag} {name}, batch {BATCH}, {smi}, in turns (448, stack, stack, 448): eval "
+              f"forward float32 {' / '.join(f'{t:.3f}' for t in fwd[name])} ms (median of 5, "
+              f"CUDA events); train step float32 {' / '.join(f'{t:.3f}' for t in step[name])} "
+              f"ms (median of 5 after 2 warm-up); peak memory {gib[name]:.3f} GiB")
+    del base
+    profile_steps(model, config, partial, complete, top=10)
+
+
+def pointr_decoder_bf16(dev, smi: str):
+    """Phase 15c: vn_pointr_448 with the decoder stack under the bf16
+    policy, as phases 12 and 13 hold the root config.json: one eval forward
+    counted (BF16_FORWARD_LAUNCHES: no float32-mode launch of A, B, C or
+    K3; K2 4), float32 outputs, on one DecisionTape against the plain path
+    in bf16 and in float32 (``bf16_tape_check``); one bf16 train step
+    counted (BF16_STEP_LAUNCHES and BF16_STEP_DESIGNS, K2 4); the eval
+    forward in float32 and bf16 and the bf16 train step of vn_pointr_448
+    with and without the stack (CUDA events, peak memory).  (The JAX
+    package cannot run this model under bf16: its scanned blocks return
+    float32 queries for a bf16 carry, which ``nn.scan`` refuses; the port's
+    blocks widen the queries where JAX's dtypes do.)"""
+    import copy
+
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.nn.precision import compute_dtype_scope
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib
+    from vn_pointcloudcompletion_tpu_torch.training import steps
+    from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
+
+    path = "vn_pointr_448_dec"
+    tag = f"[{path} bf16]"
+    config = _smoke_config(path)
+    model = build_model(config).to(dev).eval()
+    partial, complete, rot = main_path_batch(dev)
+    xyz = partial @ rot
+
+    cuda_lib.reset_launch_counts()
+    with torch.no_grad(), compute_dtype_scope(torch.bfloat16):
+        coarse, fine = model(xyz, rot)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in cuda_lib.launch_counts().items()
+              if v and k != "chamfer_nn_bidir"}
+    print(f"{tag} one forward: launches {json.dumps(counts)}")
+    check_designs(f"{tag} one forward", counts, cuda_lib.variant_counts(), path)
+    if counts != BF16_FORWARD_LAUNCHES[path]:
+        raise AssertionError(f"{tag} launches {counts}, expected {BF16_FORWARD_LAUNCHES[path]}")
+    if (fine.dtype != torch.float32 or fine.shape != (BATCH, 14336, 3)
+            or not (torch.isfinite(fine).all() and torch.isfinite(coarse).all())):
+        raise AssertionError(f"{tag} bad outputs {fine.dtype} {tuple(fine.shape)}")
+    kern, plain, f32, _ = bf16_on_one_tape(model, xyz, rot)
+    if not bf16_tape_check(tag, kern, plain, f32):
+        raise AssertionError(f"{tag} the bf16 kernel path disagrees with the plain path")
+
+    state = create_train_state(copy.deepcopy(model).train(), config, 1)
+    with compute_dtype_scope(torch.bfloat16):
+        steps.train_step(state, partial, complete, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        metrics = steps.train_step(state, partial, complete, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in cuda_lib.launch_counts().items()
+              if v and k != "chamfer_nn_bidir"}
+    designs = cuda_lib.variant_counts()
+    print(f"{tag} one train step: launches {json.dumps(counts)}; by design "
+          f"{json.dumps(designs)}; skipped {metrics['skipped'].item()}")
+    if counts != BF16_STEP_LAUNCHES[path] or metrics["skipped"].item():
+        raise AssertionError(f"{tag} launches {counts}, expected {BF16_STEP_LAUNCHES[path]}")
+    if designs != BF16_STEP_DESIGNS[path]:
+        raise AssertionError(f"{tag} designs {designs}, expected {BF16_STEP_DESIGNS[path]}")
+    del state
+
+    base_config = _smoke_config("vn_pointr_448")
+    base = build_model(base_config).to(dev)
+    fwd, step, gib = {}, {}, {}
+    for name, m, cfg in (("vn_pointr_448", base, base_config), (path, model, config),
+                         (path, model, config), ("vn_pointr_448", base, base_config)):
+        m.eval()
+        for dt in (torch.float32, torch.bfloat16):
+            def run(m=m, dt=dt):
+                with torch.no_grad(), compute_dtype_scope(dt):
+                    return m(xyz, rot)
+            fwd.setdefault((name, dt), []).append(cuda_ms(run, 5))
+        m.train()
+        t_ms, _, gib[name], _ = step_cost(m, cfg, partial, complete, torch.bfloat16)
+        step.setdefault(name, []).append(t_ms)
+    for name in ("vn_pointr_448", path):
+        print(f"{tag} {name}, batch {BATCH}, {smi}, in turns (448, stack, stack, 448): eval "
+              f"forward float32 {' / '.join(f'{t:.3f}' for t in fwd[name, torch.float32])} ms, "
+              f"bf16 {' / '.join(f'{t:.3f}' for t in fwd[name, torch.bfloat16])} ms (medians "
+              f"of 5, CUDA events); bf16 train step "
+              f"{' / '.join(f'{t:.3f}' for t in step[name])} ms; peak memory {gib[name]:.3f} GiB")
+
+
+def scalar_pointr(dev, smi: str):
+    """Phase 15d: the scalar ``VNPCTransformer(dgcnn="dgcnn", trans="trans",
+    only_coarse=False)`` at full width (embed 384, enc_depth 6, dec_depth 8,
+    224 queries), batch 8, 2048 input points, weights drawn from seed 0
+    (``init_weights_``): the composer never builds it, as in JAX.  One eval
+    forward counted (SCALAR_PTR_LAUNCHES: K2 for the trunk's four graphs,
+    the proxy graph and the decoder's two; F for the trunk's two samplings
+    and the FPS tail; every launch in its design), then the plain path on
+    the same DecisionTape: the coarse points, the global feature and the
+    refined queries within POINTR_FWD_TOL of each one's max; both paths'
+    forward times."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.models.composer import init_weights_
+    from vn_pointcloudcompletion_tpu_torch.models.pointr import VNPCTransformer
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib
+
+    tag = "[scalar VNPCTransformer]"
+    enc = init_weights_(VNPCTransformer(dgcnn="dgcnn", trans="trans", only_coarse=False),
+                        0).to(dev).eval()
+    partial, _, rot = main_path_batch(dev)
+    xyz = partial @ rot
+
+    def use(flag):
+        for m in enc.modules():
+            if hasattr(m, "use_kernels"):
+                m.use_kernels = flag
+
+    with torch.no_grad(), DecisionTape() as tape:
+        cuda_lib.reset_launch_counts()
+        (coarse, cat), (g, q) = enc(xyz)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cuda_lib.launch_counts().items() if v}
+        print(f"{tag} one forward: launches {json.dumps(counts)}")
+        check_designs(f"{tag} one forward", counts, cuda_lib.variant_counts())
+        if counts != SCALAR_PTR_LAUNCHES:
+            raise AssertionError(f"{tag} launches {counts}, expected {SCALAR_PTR_LAUNCHES}")
+        use(False)
+        tape.run(tape.rec)
+        (coarse_p, cat_p), (g_p, q_p) = enc(xyz)
+        use(True)
+    errs = {name: ((a - b).abs().max() / b.abs().max()).item() for name, a, b in (
+        ("coarse", coarse, coarse_p), ("coarse with the FPS tail", cat, cat_p),
+        ("global feature", g, g_p), ("refined queries", q, q_p))}
+    print(f"{tag} kernels vs plain on one tape, max|d| / max: {json.dumps(errs)} (tolerance "
+          f"{POINTR_FWD_TOL})")
+    shapes = tuple(tuple(t.shape) for t in (coarse, cat, g, q))
+    if shapes != ((BATCH, 224, 3), (BATCH, 448, 3), (BATCH, 1024), (BATCH, 224, 384)):
+        raise AssertionError(f"{tag} output shapes {shapes}")
+    if max(errs.values()) > POINTR_FWD_TOL or not torch.isfinite(q).all():
+        raise AssertionError(f"{tag} kernels disagree with the plain path")
+    ms = {}
+    for flag in (True, False, True, False):
+        use(flag)
+        with torch.no_grad():
+            ms.setdefault(flag, []).append(cuda_ms(lambda: enc(xyz), 5))
+    use(True)
+    print(f"{tag} eval forward, batch {BATCH}, {smi}: kernels "
+          f"{' / '.join(f'{t:.3f}' for t in ms[True])} ms, plain "
+          f"{' / '.join(f'{t:.3f}' for t in ms[False])} ms (medians of 5, CUDA events)")
 
 
 def profile_steps(model, config, partial, complete, steps_n: int = 3, top: int = 20,
@@ -3716,6 +4068,12 @@ def main() -> int:
     phase("14b remat root config.json bf16", remat_root_config, dev, smi)
     phase("14c pretrained encoder --ckpt_path", pretrained_encoder_cli, dev)
     phase("14d -from branching", branch_cli, dev)
+    phase("15a vn_pointr_448 + decoder stack serve", serve_path, dev, "vn_pointr_448_dec")
+    phase("15b vn_pointr_448 + decoder stack train", train_path, dev, "vn_pointr_448_dec",
+          0, "", True)
+    phase("15b vn_pointr_448 + decoder stack train step", pointr_decoder_step, dev, smi)
+    phase("15c vn_pointr_448 + decoder stack bf16", pointr_decoder_bf16, dev, smi)
+    phase("15d scalar VNPCTransformer", scalar_pointr, dev, smi)
     # launches: each kernel's count in the training run of its path (K1's:
     # phase 3b's knn() call, its path; no model reaches it: the JAX package
     # takes it only for D > 512; C and C' in group=S mode are on no path:

@@ -83,11 +83,33 @@ def test_kernel_a_plain_matches_pallas(c):
         *map(jnp.asarray, (p, d, a, b)), NS))
     # The outputs reach ~5, where one float32 ulp is ~5e-7, and XLA may sum
     # the three planes in another order than the port: allow 4 ulp of the
-    # largest output (eps = 2^-23 of it).
-    atol = 4 * np.finfo(np.float32).eps * np.abs(ref).max()
-    np.testing.assert_allclose(got, pallas, atol=atol, rtol=0)
-    np.testing.assert_allclose(got, ref, atol=atol, rtol=0)
+    # largest output (eps = 2^-23 of it).  A failure reports where the
+    # largest gap falls and how far each side lies from float64 there.
+    ulp = np.finfo(np.float32).eps * np.abs(ref).max()
+    exact = _bn_leaky_float64(p, d, a, b, NS)
+    for name, want in (("pallas", pallas), ("jax plain", ref)):
+        gap = np.abs(got - want)
+        i = np.unravel_index(gap.argmax(), gap.shape)
+        assert gap.max() <= 4 * ulp, (
+            f"port vs {name}: {gap.max() / ulp:.2f} ulp of max|out| at {i} "
+            f"(port {got[i]!r}, {name} {want[i]!r}, float64 {exact[i]!r}); "
+            f"from float64 there: port {abs(got[i] - exact[i]) / ulp:.2f} ulp, "
+            f"{name} {abs(want[i] - exact[i]) / ulp:.2f}; largest anywhere: "
+            f"port {np.abs(got - exact).max() / ulp:.2f}, "
+            f"{name} {np.abs(want - exact).max() / ulp:.2f}")
     assert np.all(got[:, :, : c // 4, :7] == 0.0)
+
+
+def _bn_leaky_float64(p, d, a, b, ns):
+    """Kernel A's formula (``ops/vn_fused.py``'s docstring) in numpy
+    float64, from the float32 inputs."""
+    p, d = p.astype(np.float64), d.astype(np.float64)
+    a = a.astype(np.float64)[None, None, :, None]
+    b = b.astype(np.float64)[None, None, :, None]
+    q = p * (a + b / (np.sqrt((p * p).sum(1, keepdims=True)) + 1e-6))
+    dot = (q * d).sum(1, keepdims=True)
+    z = (d * d).sum(1, keepdims=True) + 1e-6
+    return q - np.where(dot >= 0, 0.0, (1 - ns) * dot / z) * d
 
 
 def test_kernel_b_plain_matches_pallas():
@@ -1112,6 +1134,56 @@ def test_kernel_k2_coords_against_plain_and_warp_design(cuda, k, case, monkeypat
     torch.cuda.synchronize()
     for a, b, c, w in zip(got, want, again, warp):
         assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [224, 128], ids=["self", "cross"])
+@pytest.mark.parametrize("case", ["random", "duplicates"])
+def test_kernel_k2_decoder_graphs_match_plain(cuda, m, case):
+    """K2 at the shapes of vn_pointr's decoder stack, 224 queries (the
+    coarse points) over themselves or over the 128 centres, k 8: indices
+    and distances equal to the plain version's, twice; duplicates: the
+    lane-tie cloud, the queries the cloud repeated up to 224."""
+    g = torch.Generator().manual_seed(m)
+    if case == "duplicates":
+        r = _lane_tie_cloud(2, m).to(cuda)
+        q = torch.cat([r] * -(-224 // m), dim=1)[:, -224:]
+    else:
+        r = torch.randn(2, m, 3, generator=g).to(cuda)
+        q = r if m == 224 else torch.randn(2, 224, 3, generator=g).to(cuda)
+    got, again = knn_pallas.knn_min_fwd(q, r, 8), knn_pallas.knn_min_fwd(q, r, 8)
+    want = knn_pallas.reference_knn_min(q, r, 8)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_cuda_pointr_decoder_forward_matches_plain_on_one_tape(cuda):
+    """The root config's pipeline with ``pointr_decoder`` at full width,
+    batch 2: the eval forward through the kernels (K2 4 launches) against
+    the plain path on one ``chip_smoke.DecisionTape``, the coarse and dense
+    clouds and the refined queries within ``chip_smoke.POINTR_FWD_TOL`` of
+    each one's max, as phase 15a holds them at batch 8."""
+    import chip_smoke
+
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+
+    model = build_model(chip_smoke._smoke_config("vn_pointr_448_dec")).to(cuda).eval()
+    xyz, _ = chip_smoke.synthetic_batch(cuda, 2)
+    queries = []
+    model.encoder.register_forward_hook(lambda m, i, out: queries.append(out[1][1]))
+    with torch.no_grad(), chip_smoke.DecisionTape() as tape:
+        cuda_lib.reset_launch_counts()
+        kern = model(xyz)
+        torch.cuda.synchronize()
+        assert cuda_lib.launch_counts()["knn_min"] == 4
+        model.use_kernels_(False)
+        tape.run(tape.rec)
+        plain = model(xyz)
+    for got, want in zip((*kern, queries[0]), (*plain, queries[1])):
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        assert err <= chip_smoke.POINTR_FWD_TOL, err
 
 
 @pytest.mark.gpu

@@ -327,25 +327,37 @@ def test_chamfer_distance_small_and_any_dim():
     np.testing.assert_array_equal(i2.numpy(), j2)
 
 
+_PTR = {"enc_type": "vn_pointr", "num_coarse": 448}
+
+
 @pytest.mark.parametrize("cfg,error,match", [
     ({"dtype": "bfloat16"}, None, None),
-    ({"enc_type": "vn_pointr", "num_coarse": 448, "dec_type": "attention_vn_foldingnet"},
-     None, None),
+    ({**_PTR, "dec_type": "attention_vn_foldingnet"}, None, None),
     ({"enc_type": "vn_pointr"}, ValueError, "num_coarse=448"),
     ({"dec_type": "attention_vn_foldingnet"}, None, None),
-    ({"pointr_decoder": True}, NotImplementedError, "item 4b"),
+    ({"pointr_decoder": True}, ValueError, "enc_type='vn_pointr'"),
+    ({**_PTR, "pointr_decoder": True}, ValueError, "dec_type='attention_vn_foldingnet'"),
+    ({**_PTR, "pointr_decoder": True, "only_coarse": True}, None, None),
 ])
 def test_unported_configs_raise(cfg, error, match):
-    """What the port does not run raises, naming its ROADMAP.md item
-    (vn_pointr's decoder stack); vn_pointr off num_coarse 448 is a
-    ValueError, as in JAX; the pipelines ported since build, and so does a
-    bfloat16 config (the policy is set by the caller, not the model:
-    parameters stay float32)."""
+    """Every JAX config now builds or raises as JAX does (the name is the
+    test's first purpose, the refusal of configs not yet ported; none is
+    left).  The configs JAX's ``build_model`` refuses raise its ValueErrors:
+    vn_pointr off num_coarse 448, ``pointr_decoder`` without the vn_pointr
+    encoder or without the attention decoder; the pipelines build, and so
+    does a bfloat16 config (the policy is set by the caller, not the model:
+    parameters stay float32); ``pointr_decoder`` under ``only_coarse``
+    holds no decoder stack (JAX composer.py:61-63)."""
     if error is None:
         model = build_model(Config.from_dict(cfg))
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+        if cfg.get("only_coarse"):
+            assert not hasattr(model, "decoder")
+            assert not any(k.startswith(("encoder.decoder.", "encoder.vn_mlp_query."))
+                           for k in model.state_dict())
+            return
         want = "VNFoldingNet" if "dtype" in cfg else "AttentionVNFoldingNet"
         assert type(model.decoder).__name__ == want
-        assert all(p.dtype == torch.float32 for p in model.parameters())
         return
     with pytest.raises(error, match=match):
         build_model(Config.from_dict(cfg))

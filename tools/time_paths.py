@@ -7,10 +7,11 @@ parent, change, change, parent):
 
 It imports the port package and ``chip_smoke.py`` of the current directory,
 so the same code times the package of whichever commit is checked out
-there: ``vn_dgcnn``, ``dgcnn_448`` and ``vn_pointr_448`` at full width
-(``chip_smoke._smoke_config``: random weights from seed 0, batch 8, 2048
-input points, ``chip_smoke.main_path_batch``), and the flagship's eval
-forwards.  For each path it times the eval forward in float32 and under the
+there: ``vn_dgcnn``, ``dgcnn_448``, ``vn_pointr_448`` and, where the
+checkout's ``chip_smoke.PATHS`` has it, ``vn_pointr_448_dec`` (with the
+decoder stack) at full width (``chip_smoke._smoke_config``: random weights
+from seed 0, batch 8, 2048 input points, ``chip_smoke.main_path_batch``),
+and the flagship's eval forwards.  For each path it times the eval forward in float32 and under the
 bfloat16 policy and (but the flagship) the float32 train step, ``reps``
 calls each (default 20) after two warm-up calls, CUDA events around each
 call (a call ends in its own synchronisation, as ``chip_smoke.cuda_ms``
@@ -141,7 +142,8 @@ def main() -> int:
         return spent / calls * 1e6
 
     for n, m, k in ((2048, 2048, 16), (128, 128, 16), (512, 2048, 16), (512, 512, 16),
-                    (128, 512, 16), (128, 128, 8), (2048, 2048, 40)):
+                    (128, 512, 16), (128, 128, 8), (2048, 2048, 40), (224, 224, 8),
+                    (224, 128, 8)):
         q, r = xyz[:, :n], xyz[:, :m]
         fn = lambda: knn_pallas.knn_min_fwd(q, r, k)  # noqa: E731
         kernels.append({"name": f"K2 {n} vs {m} k {k}", "ms": cs.cuda_ms(fn, 20),
@@ -159,7 +161,9 @@ def main() -> int:
         del p, d
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    for path in ("flagship", "vn_dgcnn", "dgcnn_448", "vn_pointr_448"):
+    for path in ("flagship", "vn_dgcnn", "dgcnn_448", "vn_pointr_448", "vn_pointr_448_dec"):
+        if path not in cs.PATHS:  # a checkout from before the decoder stack
+            continue
         config = cs._smoke_config(path)
         model = build_model(config).to(dev).eval()
         row = {"path": path, "batch": cs.BATCH, "reps": reps}

@@ -3,8 +3,10 @@
 Encoders ``vn_pointnet``, ``vn_dgcnn_fps``, ``dgcnn_fps`` and ``vn_pointr``
 (at ``num_coarse`` 448 only, as in JAX); decoders ``vn_foldingnet``,
 ``attention_vn_foldingnet`` and ``foldingnet``; ``num_coarse`` 448
-included.  ``pointr_decoder`` raises ``NotImplementedError`` naming the
-ROADMAP.md item that brings it.
+included.  ``pointr_decoder`` runs the ``vn_pointr`` encoder's decoder
+stack and feeds its refined queries to the attention decoder's
+``query_proj`` (JAX composer.py:40-44, :56-63, :87-90, :108-115); under
+``only_coarse`` the stack is neither built nor run.
 
 The compute dtype is not the model's: the forward reads the process-global
 policy of ``nn/precision.py`` (float32 by default, bfloat16 inside
@@ -56,14 +58,20 @@ class PCNNet(nn.Module):
 
     def __init__(self, enc_type: str = "vn_pointnet",
                  dec_type: str = "vn_foldingnet", num_coarse: int = 1024,
-                 only_coarse: bool = False):
+                 only_coarse: bool = False, pointr_decoder: bool = False):
         super().__init__()
+        if pointr_decoder and enc_type != "vn_pointr":  # JAX composer.py:56-60
+            raise ValueError(
+                "pointr_decoder=True requires enc_type='vn_pointr' (it is "
+                "that encoder's transformer decoder stack)")
+        # only_coarse discards the fine output: no stack under it (JAX :61-63)
+        self.pointr_decoder = pointr_decoder and not only_coarse
         if enc_type == "vn_pointr":  # JAX composer.py:71-76
             if num_coarse != 448:
                 raise ValueError(
                     "enc_type='vn_pointr' requires num_coarse=448 (224 predicted + 224 FPS; "
                     "reference model.py:23-24 contract)")
-            self.encoder = VNPCTransformer()
+            self.encoder = VNPCTransformer(only_coarse=not self.pointr_decoder)
         elif enc_type in ENCODERS:
             self.encoder = ENCODERS[enc_type](num_coarse)
         else:
@@ -75,11 +83,19 @@ class PCNNet(nn.Module):
                 if len(glob) != 2:
                     raise ValueError(f"dec_type={dec_type!r} needs a vector global "
                                      f"feature; enc_type={enc_type!r} gives {glob}")
-                self.decoder = VN_DECODERS[dec_type](num_coarse, glob[0])
-            elif dec_type == "foldingnet":
-                self.decoder = FoldingNet(num_coarse, math.prod(glob))
-            else:
+            elif dec_type != "foldingnet":
                 raise ValueError(f"decoder type {dec_type} not supported")
+            if self.pointr_decoder and dec_type != "attention_vn_foldingnet":
+                raise ValueError(  # JAX composer.py:108-115
+                    "pointr_decoder=True requires "
+                    "dec_type='attention_vn_foldingnet' (the per-query fold)")
+            if self.pointr_decoder:
+                self.decoder = AttentionVNFoldingNet(num_coarse, glob[0],
+                                                     query_channels=128)
+            elif dec_type in VN_DECODERS:
+                self.decoder = VN_DECODERS[dec_type](num_coarse, glob[0])
+            else:
+                self.decoder = FoldingNet(num_coarse, math.prod(glob))
 
     def forward(self, xyz, rot=None):
         def f32(t):
@@ -91,7 +107,11 @@ class PCNNet(nn.Module):
             folded, coarse = coarse
         if self.only_coarse:
             return f32(coarse), None
-        fine = self.decoder(folded, feature_global, rot)
+        if self.pointr_decoder:  # (global feature, refined queries)
+            feature_global, queries = feature_global
+            fine = self.decoder(folded, feature_global, rot, center_feats=queries)
+        else:
+            fine = self.decoder(folded, feature_global, rot)
         return f32(coarse), f32(fine)
 
     def use_kernels_(self, enabled: bool = True) -> "PCNNet":
@@ -110,9 +130,11 @@ def init_weights_(model: nn.Module, seed: int) -> nn.Module:
     A ``TransformNet`` keeps its identity alignment (weight 0, bias the
     identity).  A ``vn_pointr`` encoder is then redrawn as the reference's
     ``_init_weights`` pass does (vn_pointr.py:541-553; JAX
-    ``reinit_pointr_params``, training/state.py:86-93): every linear map
-    trunc_normal(std 0.02) on +-2 std, from the same generator; it holds no
-    bias, and its norms keep scale 1 and bias 0."""
+    ``reinit_pointr_params``, training/state.py:86-93), from the same
+    generator: every linear map trunc_normal(std 0.02) on +-2 std, every
+    convolution of the scalar arms xavier_normal, every bias 0 (the
+    decoder stack's ``proj`` maps and ``Mlp``s, the scalar arms' layers),
+    and its norms keep scale 1 and bias 0."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for _, m in sorted(model.named_modules(), key=lambda kv: kv[0]):
@@ -129,6 +151,13 @@ def init_weights_(model: nn.Module, seed: int) -> nn.Module:
             for _, m in sorted(encoder.named_modules(), key=lambda kv: kv[0]):
                 if isinstance(m, nn.Linear):
                     nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04, generator=g)
+                elif isinstance(m, ConvCh):
+                    w = m.weight.view(m.weight.shape[0], -1)
+                    w.copy_(torch.randn(w.shape, generator=g)
+                            * math.sqrt(2.0 / (w.shape[0] + w.shape[1])))
+                bias = getattr(m, "bias", None)
+                if isinstance(bias, torch.Tensor):
+                    bias.zero_()
     return model
 
 
@@ -137,9 +166,6 @@ def build_model(config: Config) -> PCNNet:
     ``config.seed``.  ``config.dtype`` (float32 or bfloat16) is checked and
     not applied: see the module docstring."""
     from_config_dtype(config.dtype)  # a KeyError for any other name
-    if getattr(config, "pointr_decoder", False):
-        raise NotImplementedError(
-            "pointr_decoder (the vn_pointr decoder stack) is not ported yet "
-            "(ROADMAP.md, queue 1, item 4b)")
-    model = PCNNet(config.enc_type, config.dec_type, config.num_coarse, config.only_coarse)
+    model = PCNNet(config.enc_type, config.dec_type, config.num_coarse, config.only_coarse,
+                   config.pointr_decoder)
     return init_weights_(model, config.seed)

@@ -129,17 +129,16 @@ class VNDGCNNfps(nn.Module):
         return coarse, feature_global
 
 
-class DGCNNfps(nn.Module):
-    """Scalar DGCNN encoder with FPS downsampling (reference :19-161; JAX
-    models/dgcnn.py:145-195): EdgeConv + GroupNorm over FPS 2048 -> 512 ->
-    128, feature_global (B, 1024)."""
+class ScalarEdgeTrunk(nn.Module):
+    """The scalar EdgeConv/FPS trunk that ``DGCNNfps`` and the PoinTr
+    ``DGCNNGrouper`` share (JAX ``scalar_edge_trunk``, models/dgcnn.py:145-167;
+    reference models/dgcnn.py:121-148 = dgcnn_group.py:81-107): 3 -> 8 -> 32
+    -> 64 -> 64 -> 128 channels over FPS N -> 512 -> 128, keys
+    ``input_trans`` and ``layer1`` .. ``layer4`` (Conv2d without bias,
+    GroupNorm(4)) of both reference modules."""
 
-    global_shape = (1024,)
-
-    def __init__(self, num_coarse: int = 1024):
+    def __init__(self):
         super().__init__()
-        self.nc = 224 if num_coarse == 448 else num_coarse
-        self.fps_tail = num_coarse == 448
         self.input_trans = ConvCh(3, 8)
 
         def layer(c_in, c_out):  # Conv2d(bias=False), GroupNorm(4), LeakyReLU
@@ -148,10 +147,6 @@ class DGCNNfps(nn.Module):
 
         self.layer1, self.layer2 = layer(8, 32), layer(32, 64)
         self.layer3, self.layer4 = layer(64, 64), layer(64, 128)
-        self.increase_dim = nn.ModuleList([
-            ConvCh(128, 1024), BatchNormCh(1024), nn.LeakyReLU(0.2), ConvCh(1024, 1024)])
-        self.coarse_pred = nn.ModuleList([
-            DenseTorch(1024, 1024), nn.ReLU(), DenseTorch(1024, 3 * self.nc)])
         self.use_kernels = True
 
     @staticmethod
@@ -160,8 +155,7 @@ class DGCNNfps(nn.Module):
         return h.amax(-1)  # over K
 
     def trunk(self, xyz):
-        """The shared EdgeConv/FPS trunk (JAX ``scalar_edge_trunk``):
-        coor (B, 3, 128), f (B, 128, 128)."""
+        """xyz (B, N, 3) -> coor (B, 3, 128), f (B, 128, 128)."""
         uk = self.use_kernels
         coor = xyz.transpose(1, 2)
         f = self.input_trans(coor)
@@ -173,6 +167,23 @@ class DGCNNfps(nn.Module):
         coor_q, f_q = fps_downsample(coor, f, 128, uk)
         f = self._layer(self.layer4, _edge_scalar(coor_q, f_q, coor, f, uk))
         return coor_q, f
+
+
+class DGCNNfps(ScalarEdgeTrunk):
+    """Scalar DGCNN encoder with FPS downsampling (reference :19-161; JAX
+    models/dgcnn.py:170-195): the trunk, then ``increase_dim`` and a max to
+    feature_global (B, 1024), and the ``coarse_pred`` head."""
+
+    global_shape = (1024,)
+
+    def __init__(self, num_coarse: int = 1024):
+        super().__init__()
+        self.nc = 224 if num_coarse == 448 else num_coarse
+        self.fps_tail = num_coarse == 448
+        self.increase_dim = nn.ModuleList([
+            ConvCh(128, 1024), BatchNormCh(1024), nn.LeakyReLU(0.2), ConvCh(1024, 1024)])
+        self.coarse_pred = nn.ModuleList([
+            DenseTorch(1024, 1024), nn.ReLU(), DenseTorch(1024, 3 * self.nc)])
 
     def forward(self, xyz):
         b = xyz.shape[0]

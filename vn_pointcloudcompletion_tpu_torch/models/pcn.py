@@ -266,13 +266,20 @@ class AttentionVNFoldingNet(nn.Module):
     (copied as it is).  Then a [-1, 1] grid of S points is folded around each
     centre twice (``vn_folding1``, ``vn_folding2``: a pair fold layer, then a
     VNLinearLeakyReLU whose 1-channel VNLinear runs inside kernel C), and
-    ``rebuild = relative_xyz + coarse``.  The rotation is not used.
+    ``rebuild = relative_xyz + coarse``.  The rotation is not used.  With
+    ``query_channels`` (the vn_pointr decoder stack's queries, composer
+    ``pointr_decoder``) it holds ``query_proj`` (VNLinear to 384), and the
+    projected per-centre features ``center_feats`` (B, N, 3 query_channels)
+    are added to the conditioning (JAX models/pcn.py:630-649).
     """
 
-    def __init__(self, num_coarse: int = 1024, global_channels: int = 2048):
+    def __init__(self, num_coarse: int = 1024, global_channels: int = 2048,
+                 query_channels: Optional[int] = None):
         super().__init__()
         self.grid_size = 8 if num_coarse == 448 else 4
         self.downsize_global = VNLinear(global_channels, 384)
+        if query_channels is not None:
+            self.query_proj = VNLinear(query_channels, 384)
         self.transformer = nn.ModuleList([
             VNBlock(384, 384, num_heads=8, qk_scale=1.0) for _ in range(2)])
 
@@ -283,14 +290,18 @@ class AttentionVNFoldingNet(nn.Module):
 
         self.vn_folding1, self.vn_folding2 = folding(), folding()
 
-    def forward(self, coarse, feature_global, rot: Optional[torch.Tensor] = None):
+    def forward(self, coarse, feature_global, rot: Optional[torch.Tensor] = None,
+                center_feats: Optional[torch.Tensor] = None):
         b, n, _ = coarse.shape
         s = self.grid_size ** 2
         # (B, 384, N, 3) -> (B, 1152, N) -> (B, N, 1152): the reference's reshape
         repeat_centers = coarse[:, None].expand(b, 384, n, 3).reshape(b, 384 * 3, n)
         fg = self.downsize_global(feature_global)  # (B, 384, 3, 1)
         fg = fg.expand(b, 384, 3, n).reshape(b, 384 * 3, n)
-        vn_x = to_vn((fg + repeat_centers).transpose(1, 2))  # (B, 384, 3, N)
+        x = fg + repeat_centers
+        if center_feats is not None:
+            x = x + self.query_proj(to_vn(center_feats)).reshape(b, 384 * 3, n)
+        vn_x = to_vn(x.transpose(1, 2))  # (B, 384, 3, N)
         for block in self.transformer:
             vn_x = block(vn_x)
 

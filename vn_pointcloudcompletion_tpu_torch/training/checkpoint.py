@@ -127,9 +127,10 @@ def load_pretrained_encoder(model: nn.Module, path: str,
     ``load_pretrained_encoder`` merges it (``torch_interop.py:257-372``):
     every parameter and BatchNorm running statistic of the encoder comes
     from the file, but for the keys JAX's converters leave at their init
-    (``interop.PRETRAINED_SKIPPED``: vn_pointr's coarse head); a missing key
-    or another shape raises.  The file may hold a whole ``PCNNet`` (keys
-    under ``encoder.``) or a bare encoder.  Returns the keys loaded.
+    (``interop.PRETRAINED_SKIPPED``: vn_pointr's coarse head and decoder
+    stack); a missing key or another shape raises.  The file may hold a
+    whole ``PCNNet`` (keys under ``encoder.``) or a bare encoder.  Returns
+    the keys loaded.
 
     The JAX package also reads its own flax msgpack ``.ckpt`` files here;
     the port reads torch state dicts only."""

@@ -9,11 +9,18 @@ numpy) and needs no JAX itself.  It tells the pipeline from the tree:
   ``dgcnn_fps`` and ``vn_pointr`` (the inverses of
   ``vn_dgcnn_fps_from_state_dict``, ``dgcnn_fps_from_state_dict`` and
   ``vn_pointr_from_state_dict``, the reference's ``VN_DGCNN_fps``,
-  ``DGCNN_fps`` and ``VN_PCTransformer`` keys).  vn_pointr's scanned tail
-  ``encoder_scan`` (parameters and statistics stacked on a leading axis) is
-  unstacked into the blocks ``encoder.1`` .. ``encoder.5``, and its coarse
-  head ``vn_coarse_pred.2``, which the JAX mapping leaves out (the
-  reference's head is 1024 wide), is carried too;
+  ``DGCNN_fps`` and ``VN_PCTransformer`` keys).  vn_pointr's scanned tails
+  ``encoder_scan`` and ``decoder_scan`` (parameters and statistics stacked
+  on a leading axis) are unstacked into the blocks ``encoder.1`` ..
+  ``encoder.5`` and ``decoder.1`` .. ``decoder.7``; its coarse head
+  ``vn_coarse_pred.2``, which the JAX mapping leaves out (the reference's
+  head is 1024 wide), and its decoder stack (``vn_mlp_query``,
+  ``decoder``), which the JAX mapping leaves at its init, are carried too,
+  as are the scalar arms (``dgcnn="dgcnn"``: the ``DGCNNGrouper`` trunk,
+  ``input_proj``, ``pos_embed``; ``trans="trans"``: the scalar ``Block``
+  and ``DecoderBlock`` stacks, ``increase_dim``, ``coarse_pred``,
+  ``mlp_query``).  A flax ``Dense`` kernel is (in, out), a torch
+  ``Linear`` weight its transpose;
 - decoders ``vn_foldingnet``, ``attention_vn_foldingnet`` and
   ``foldingnet``.  A fold layer's split kernels are joined back into the
   reference's single weight, columns [global | seed | point] for
@@ -22,7 +29,7 @@ numpy) and needs no JAX itself.  It tells the pipeline from the tree:
   checkpoint; their keys here are those of the reference modules
   (``final_conv`` Sequential: Conv1d, BatchNorm1d, ReLU, Conv1d,
   BatchNorm1d, ReLU, Conv1d; ``downsize_global``, ``transformer.{0,1}``,
-  ``vn_folding{1,2}.{0,1,2}``).
+  ``vn_folding{1,2}.{0,1,2}``, and ``query_proj`` with the decoder stack).
 
 It also reads the tree of a standalone model, told by its top-level keys:
 ``PCN`` (``first_conv_0``), ``VNPCN`` (a top-level ``trunk``) and ``DGCNN``
@@ -50,11 +57,12 @@ import torch
 # Encoder keys that the JAX converters leave at their init by design
 # (``torch_interop.vn_pointr_from_state_dict``): vn_pointr's coarse head,
 # 1024 vector channels wide in the reference where the 448-coarse contract
-# needs 224.  The converters' other skipped keys (the dead ``input_proj``,
-# ``pos_embed``, ``attn.qkv``/``attn.proj``, ``conv1``/``conv2`` past
-# ``knn_layer``, ``decoder.*``, ``vn_mlp_query``) are not in the port's
-# encoder at all.
-PRETRAINED_SKIPPED = {"vn_pointr": ("vn_coarse_pred.2.",)}
+# needs 224, and its decoder stack (``decoder.*``, ``vn_mlp_query``), which
+# the reference's only_coarse composition never runs.  The converters' other
+# skipped keys (the dead ``input_proj``, ``pos_embed``,
+# ``attn.qkv``/``attn.proj``, ``conv1``/``conv2`` past ``knn_layer``) are
+# not in the port's encoder at all.
+PRETRAINED_SKIPPED = {"vn_pointr": ("vn_coarse_pred.2.", "decoder.", "vn_mlp_query.")}
 
 
 def encoder_state_dict_from_torch(sd: Mapping[str, torch.Tensor], encoder_keys,
@@ -145,32 +153,125 @@ def _unstack(tree, i: int):
     return np.asarray(tree)[i]
 
 
+def _ln(sd: dict, key: str, p: Mapping) -> None:
+    """flax ``LayerNorm`` -> torch ``LayerNorm``."""
+    sd[f"{key}.weight"], sd[f"{key}.bias"] = p["scale"], p["bias"]
+
+
+def _dense(sd: dict, key: str, p: Mapping) -> None:
+    """flax ``Dense`` (kernel (in, out)) -> torch ``Linear`` (weight (out, in))."""
+    sd[f"{key}.weight"] = np.asarray(p["kernel"]).T
+    if "bias" in p:
+        sd[f"{key}.bias"] = p["bias"]
+
+
+def _cross_attention(sd: dict, key: str, p: Mapping) -> None:
+    for name in ("q_map", "k_map", "v_map", "proj"):
+        _dense(sd, f"{key}.{name}", p[name])
+
+
+def _scalar_block(sd: dict, key: str, p: Mapping, s: Mapping = None) -> None:
+    """Scalar ``Block`` or ``DecoderBlock``: norms, attention maps, the kNN
+    branches where it has them, the MLP."""
+    for norm in ("norm1", "norm2", "norm_q", "norm_v"):
+        if norm in p:
+            _ln(sd, f"{key}.{norm}", p[norm])
+    attn = "self_attn" if "self_attn" in p else "attn"
+    for name in ("qkv", "proj"):
+        _dense(sd, f"{key}.{attn}.{name}", p[attn][name])
+    if attn == "self_attn":
+        _cross_attention(sd, f"{key}.attn", p["attn"])
+    for name in ("knn_map", "knn_map_cross"):
+        if name in p:
+            _dense(sd, f"{key}.{name}.0", p[name])
+    for name in ("merge_map", "merge_map_cross"):
+        if name in p:
+            _dense(sd, f"{key}.{name}", p[name])
+    _dense(sd, f"{key}.mlp.fc1", p["mlp"]["Dense_0"])
+    _dense(sd, f"{key}.mlp.fc2", p["mlp"]["Dense_1"])
+
+
+def _vn_decoder_block(sd: dict, key: str, p: Mapping, s: Mapping) -> None:
+    """VNDecoderBlock: scalar norms, VN self-attention, cross-attention, and
+    conv1-conv4, pool1, pool2 where it has the kNN branches."""
+    for norm in ("norm1", "norm_q", "norm_v"):
+        _ln(sd, f"{key}.{norm}", p[norm])
+    for name in ("proj_vnq", "proj_vnk", "proj_vnv", "proj_vn"):
+        sd[f"{key}.self_attn.{name}.map_to_feat.weight"] = p["self_attn"][name]["kernel"]
+    _cross_attention(sd, f"{key}.attn", p["attn"])
+    for conv in ("conv1", "conv3"):
+        if conv in p:
+            _vnllr(sd, f"{key}.{conv}", p[conv], s[conv])
+    for conv in ("conv2", "conv4"):
+        if conv in p:
+            sd[f"{key}.{conv}.map_to_feat.weight"] = p[conv]["kernel"]
+    for pool in ("pool1", "pool2"):
+        if pool in p:
+            sd[f"{key}.{pool}.map_to_dir.weight"] = p[pool]["dir_kernel"]
+
+
+def _stack(sd: dict, key: str, name: str, p: Mapping, s: Mapping, fill) -> None:
+    """A block stack: the unrolled heads ``{name}_{i}``, then the scanned
+    tail ``{name}_scan``, unstacked, as ``{key}.{i}``."""
+    heads = sorted(int(k.rsplit("_", 1)[1]) for k in p
+                   if k.startswith(f"{name}_") and k != f"{name}_scan")
+    for i in heads:
+        fill(sd, f"{key}.{i}", p[f"{name}_{i}"], s.get(f"{name}_{i}", {}))
+    if f"{name}_scan" in p:
+        tail_p = p[f"{name}_scan"]["block"]
+        tail_s = s.get(f"{name}_scan", {}).get("block", {})
+        norm1 = tail_p["norm1"]  # every block has one (a VNLayerNorm in VNBlock)
+        depth = np.asarray(norm1.get("LayerNorm_0", norm1)["scale"]).shape[0]
+        for j in range(depth):
+            fill(sd, f"{key}.{len(heads) + j}", _unstack(tail_p, j), _unstack(tail_s, j))
+
+
+def _seq_conv_bn(sd: dict, key: str, p: Mapping, s: Mapping, name: str, bn: str) -> None:
+    """The reference's Conv1d, BatchNorm1d, LeakyReLU, Conv1d Sequential
+    from ``{name}_0``, ``{bn}``, ``{name}_1``."""
+    _conv(sd, f"{key}.0", p[f"{name}_0"])
+    _bn(sd, f"{key}.1", p[bn], s[bn])
+    _conv(sd, f"{key}.3", p[f"{name}_1"])
+
+
 def _vn_pointr(sd: dict, p: Mapping, s: Mapping) -> None:
     e = "encoder"
-    for conv, key in (("conv1", "conv1.0"), ("conv4", "conv4"), ("conv5", "conv5"),
-                      ("conv6", "conv6")):
-        _vnllr(sd, f"{e}.grouper.{key}", p["grouper"][conv], s["grouper"][conv])
-    _vnllr(sd, f"{e}.vn_input_proj.0", p["vn_input_proj_0"], s["vn_input_proj_0"])
-    sd[f"{e}.vn_input_proj.1.map_to_feat.weight"] = p["vn_input_proj_1"]["kernel"]
-    _vnlalr(sd, f"{e}.fourth_vn_pos_embed.0", p["fourth_vn_pos_embed_0"],
-            s["fourth_vn_pos_embed_0"])
-    sd[f"{e}.fourth_vn_pos_embed.1.map_to_feat.weight"] = p["fourth_vn_pos_embed_1"]["kernel"]
-    heads = sorted(int(k.split("_")[1]) for k in p if k.startswith("encoder_")
-                   and k != "encoder_scan")
-    for i in heads:
-        _vn_block(sd, f"{e}.encoder.{i}", p[f"encoder_{i}"], s[f"encoder_{i}"])
-    if "encoder_scan" in p:
-        tail_p, tail_s = p["encoder_scan"]["block"], s["encoder_scan"]["block"]
-        depth = np.asarray(tail_p["norm1"]["LayerNorm_0"]["scale"]).shape[0]
-        for j in range(depth):
-            _vn_block(sd, f"{e}.encoder.{len(heads) + j}", _unstack(tail_p, j),
-                      _unstack(tail_s, j))
-    _vnlalr(sd, f"{e}.vn_increase_dim.0", p["vn_increase_dim_0"], s["vn_increase_dim_0"])
-    sd[f"{e}.vn_increase_dim.1.map_to_feat.weight"] = p["vn_increase_dim_1"]["kernel"]
-    sd[f"{e}.vn_global_pool.map_to_dir.weight"] = p["vn_global_pool"]["dir_kernel"]
-    sd[f"{e}.vn_coarse_pred.0.map_to_feat.weight"] = p["vn_coarse_pred_0"]["kernel"]
-    sd[f"{e}.vn_coarse_pred.1.map_to_dir.weight"] = p["vn_coarse_pred_1"]["dir_kernel"]
-    sd[f"{e}.vn_coarse_pred.2.map_to_feat.weight"] = p["vn_coarse_pred_2"]["kernel"]
+    if "input_trans" in p["grouper"]:  # dgcnn="dgcnn"
+        _scalar_trunk(sd, f"{e}.grouper", p["grouper"])
+        _seq_conv_bn(sd, f"{e}.input_proj", p, s, "input_proj", "input_proj_bn")
+        _seq_conv_bn(sd, f"{e}.pos_embed", p, s, "pos_embed", "pos_embed_bn")
+    else:
+        for conv, key in (("conv1", "conv1.0"), ("conv4", "conv4"), ("conv5", "conv5"),
+                          ("conv6", "conv6")):
+            _vnllr(sd, f"{e}.grouper.{key}", p["grouper"][conv], s["grouper"][conv])
+        _vnllr(sd, f"{e}.vn_input_proj.0", p["vn_input_proj_0"], s["vn_input_proj_0"])
+        sd[f"{e}.vn_input_proj.1.map_to_feat.weight"] = p["vn_input_proj_1"]["kernel"]
+        _vnlalr(sd, f"{e}.fourth_vn_pos_embed.0", p["fourth_vn_pos_embed_0"],
+                s["fourth_vn_pos_embed_0"])
+        sd[f"{e}.fourth_vn_pos_embed.1.map_to_feat.weight"] = (
+            p["fourth_vn_pos_embed_1"]["kernel"])
+    if "vn_increase_dim_0" in p:  # trans="vn_trans"
+        _stack(sd, f"{e}.encoder", "encoder", p, s, _vn_block)
+        _vnlalr(sd, f"{e}.vn_increase_dim.0", p["vn_increase_dim_0"], s["vn_increase_dim_0"])
+        sd[f"{e}.vn_increase_dim.1.map_to_feat.weight"] = p["vn_increase_dim_1"]["kernel"]
+        sd[f"{e}.vn_global_pool.map_to_dir.weight"] = p["vn_global_pool"]["dir_kernel"]
+        sd[f"{e}.vn_coarse_pred.0.map_to_feat.weight"] = p["vn_coarse_pred_0"]["kernel"]
+        sd[f"{e}.vn_coarse_pred.1.map_to_dir.weight"] = p["vn_coarse_pred_1"]["dir_kernel"]
+        sd[f"{e}.vn_coarse_pred.2.map_to_feat.weight"] = p["vn_coarse_pred_2"]["kernel"]
+        if "vn_mlp_query_0" in p:
+            for i in (0, 1):
+                _vnllr(sd, f"{e}.vn_mlp_query.{i}", p[f"vn_mlp_query_{i}"],
+                       s[f"vn_mlp_query_{i}"])
+            sd[f"{e}.vn_mlp_query.2.map_to_feat.weight"] = p["vn_mlp_query_2"]["kernel"]
+            _stack(sd, f"{e}.decoder", "decoder", p, s, _vn_decoder_block)
+    else:
+        _stack(sd, f"{e}.encoder", "encoder", p, s, _scalar_block)
+        _seq_conv_bn(sd, f"{e}.increase_dim", p, s, "increase_dim", "increase_bn")
+        _coarse_pred(sd, e, p)
+        if "mlp_query_0" in p:
+            for i in range(3):
+                _conv(sd, f"{e}.mlp_query.{2 * i}", p[f"mlp_query_{i}"])
+            _stack(sd, f"{e}.decoder", "decoder", p, s, _scalar_block)
 
 
 def _vn_pointnet(sd: dict, t: Mapping, ts: Mapping, e: str = "encoder.") -> None:
@@ -195,19 +296,28 @@ def _vn_dgcnn_fps(sd: dict, p: Mapping, s: Mapping) -> None:
     sd["encoder.pool5.map_to_dir.weight"] = p["pool5"]["dir_kernel"]
 
 
+def _scalar_trunk(sd: dict, key: str, p: Mapping) -> None:
+    """The scalar EdgeConv trunk (JAX ``scalar_edge_trunk``) of ``DGCNNfps``
+    and ``DGCNNGrouper``."""
+    _conv(sd, f"{key}.input_trans", p["input_trans"])
+    for i in (1, 2, 3, 4):
+        _conv(sd, f"{key}.layer{i}.0", p[f"layer{i}_conv"], kernel_dims=2)
+        gn = p[f"layer{i}_gn"]
+        sd[f"{key}.layer{i}.1.weight"], sd[f"{key}.layer{i}.1.bias"] = gn["scale"], gn["bias"]
+
+
+def _coarse_pred(sd: dict, e: str, p: Mapping) -> None:
+    """The scalar coarse head: Linear, ReLU, Linear (JAX ``DenseTorch``
+    kernels are (out, in) already)."""
+    for jax_key, key in (("coarse_pred_0", "coarse_pred.0"), ("coarse_pred_1", "coarse_pred.2")):
+        _conv(sd, f"{e}.{key}", p[jax_key], kernel_dims=0)
+
+
 def _dgcnn_fps(sd: dict, p: Mapping, s: Mapping) -> None:
     e = "encoder"
-    _conv(sd, f"{e}.input_trans", p["input_trans"])
-    for i in (1, 2, 3, 4):
-        _conv(sd, f"{e}.layer{i}.0", p[f"layer{i}_conv"], kernel_dims=2)
-        gn = p[f"layer{i}_gn"]
-        sd[f"{e}.layer{i}.1.weight"], sd[f"{e}.layer{i}.1.bias"] = gn["scale"], gn["bias"]
-    _conv(sd, f"{e}.increase_dim.0", p["increase_dim_0"])
-    _bn(sd, f"{e}.increase_dim.1", p["increase_bn"], s["increase_bn"])
-    _conv(sd, f"{e}.increase_dim.3", p["increase_dim_1"])
-    for jax_key, key in (("coarse_pred_0", "coarse_pred.0"), ("coarse_pred_1", "coarse_pred.2")):
-        sd[f"{e}.{key}.weight"] = p[jax_key]["kernel"]
-        sd[f"{e}.{key}.bias"] = p[jax_key]["bias"]
+    _scalar_trunk(sd, e, p)
+    _seq_conv_bn(sd, f"{e}.increase_dim", p, s, "increase_dim", "increase_bn")
+    _coarse_pred(sd, e, p)
 
 
 def _vn_foldingnet(sd: dict, d: Mapping, ds: Mapping) -> None:
@@ -226,6 +336,8 @@ def _vn_foldingnet(sd: dict, d: Mapping, ds: Mapping) -> None:
 
 def _attention_vn_foldingnet(sd: dict, d: Mapping, ds: Mapping) -> None:
     sd["decoder.downsize_global.map_to_feat.weight"] = d["downsize_global"]["kernel"]
+    if "query_proj" in d:
+        sd["decoder.query_proj.map_to_feat.weight"] = d["query_proj"]["kernel"]
     for i in (0, 1):
         _vn_block(sd, f"decoder.transformer.{i}", d[f"transformer_{i}"], ds[f"transformer_{i}"])
     for stage in ("vn_folding1", "vn_folding2"):
