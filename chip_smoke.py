@@ -178,6 +178,20 @@ on one NVIDIA GPU:
    against the plain path on one tape.  Phase 3 holds K2 at the stack's two
    graphs too (KNN_SHAPES: 224 vs 224 and 224 vs 128, k 8), timed beside
    the parent design and cdist + topk.
+16. ``--mesh``, the flagship at full width.  (a) ``train --mesh 1`` over
+   NCCL (one rank: no BatchNorm collective, the gradient all-reduce) through
+   the CLI, counted as phase 5 (every flagship kernel, B, C, B', S by
+   design a step), then ``--resume test``; the same run without ``--mesh``
+   ends with the same bits in every parameter and buffer; the step at
+   world size 1 against the step without a mesh in turns, and the gradient
+   all-reduce alone.  (b) Two ranks sharing the card over gloo with CUDA
+   tensors (NCCL refuses two ranks on one GPU), global batch 16: the first
+   step, each rank replaying its rows of the one-process step's
+   DecisionTape, against the one-process step within MESH_STEP_TOL and,
+   with float64 on that tape, each tensor no further from float64 than
+   DGCNN_F64_RATIO x the one process; parameters, buffers and Adam's state
+   equal in bits on both ranks; each rank's step time and the time in its
+   all-reduces.  The kernels line's ``mesh_launches``: phase 16a's counts.
 
 Every phase prints its wall time.  Any failure exits non-zero.  The line
 before the last is a JSON object with one record per kernel (its launches
@@ -479,12 +493,13 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def step_cost(model, config, partial, complete, policy=None, reps: int = 5):
+def step_cost(model, config, partial, complete, policy=None, reps: int = 5, mesh=None):
     """A fresh train state's guarded train steps, timed through
     ``utils/profiling.py``: (CUDA-event median ms, host-clock median ms,
     the allocator's peak GiB, the peak above the weights and optimiser
     state in GiB) over ``reps`` steps after 2 warm-up steps, each step
-    ending in its one host read, under the compute policy ``policy``."""
+    ending in its one host read, under the compute policy ``policy`` (and
+    over ``mesh``'s ranks, phase 16a)."""
     import torch
 
     from vn_pointcloudcompletion_tpu_torch.nn.precision import compute_dtype_scope
@@ -501,7 +516,7 @@ def step_cost(model, config, partial, complete, policy=None, reps: int = 5):
     with compute_dtype_scope(policy or torch.float32):
         for _ in range(2 + reps):
             with timer:
-                steps.train_step(state, partial, complete, gen)
+                steps.train_step(state, partial, complete, gen, mesh)
     peak = device_memory_stats()[0]["peak_bytes_in_use"]
     return (timer.device_summary()["p50_s"] * 1e3, timer.summary()["p50_s"] * 1e3,
             peak / 2**30, (peak - base) / 2**30)
@@ -4006,6 +4021,363 @@ def branch_cli(dev):
         raise AssertionError(f"{tag} the branched run is not the source's epoch 1 continued")
 
 
+MESH_EPOCHS = 1  # phase 16a: epochs 0 and 1 of two train steps each
+MESH_TIMEOUT_S = 300  # phase 16b: every collective of a rank, and the ranks' join
+# Phase 16b, two ranks against one process on one tape, each gradient's
+# max|dg| / max|g| (measured 3.31e-3 at encoder.second_conv.0, NVIDIA H100
+# 80GB HBM3, 700 W).  Not phase 5b's STEP_TOL: there the encoder is the
+# same bits on both paths, here its BatchNorm sums are split over ranks,
+# and the float32 E[n^2] - E[n]^2 of the norms moves its gradients as far
+# as float32 moves the plain path from float64 (5b: 2.9e-3 in the
+# decoder).  The float64 ratio (DGCNN_F64_RATIO) is the test of accuracy.
+# Both bounds sit between the sound step and the controls of MESH_FAULTS,
+# which break the step (same card, on the same tape): the gap 3.31e-3
+# sound, 2.52 with per-rank BatchNorm statistics, 4.02 with the sums'
+# cotangents not all-reduced; the float64 ratio 4.08, 1.59e4, 4.95e3.
+MESH_STEP_TOL = 7e-3
+MESH_FAULTS = ("local_stats", "unreduced_cotangents")  # phase 16b's controls
+
+
+def mesh_world_one(dev, smi: str):
+    """Phase 16a: ``train --mesh 1`` (one rank, NCCL) at full width on the
+    flagship, counted as phase 5 counts (every flagship kernel launched, B,
+    C, B', S by design for each step), then ``--resume test``; the same run
+    without ``--mesh`` ends with the same bits in every parameter and
+    buffer.  Then the step at world size 1 against the step without a mesh,
+    in turns (CUDA events), and the gradient all-reduce alone.  Returns the
+    run's launches."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch import __main__ as cli
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib
+    from vn_pointcloudcompletion_tpu_torch.parallel.mesh import (
+        destroy_mesh,
+        free_port,
+        make_mesh,
+        mean_over_ranks,
+    )
+
+    tag = "[mesh 1]"
+    config = _smoke_config(name="smoke_mesh", lr=3e-4, rotation="so3", val_rotation="so3",
+                           test_rotation="so3", log_frequency=1,
+                           synthetic_train_samples=2 * BATCH, synthetic_val_samples=BATCH,
+                           synthetic_test_samples=BATCH)
+    steps_run = 2 * (MESH_EPOCHS + 1)
+    with cli_workdir("chip_smoke_mesh", config) as work:
+        experiments = os.path.join(work, "experiments")
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = cli.main(["-n", "mesh", "-epochs", str(MESH_EPOCHS), "--mesh", "1", "train"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        counts, variants = cuda_lib.launch_counts(), cuda_lib.variant_counts()
+        (run,) = os.listdir(experiments)
+        table = cli.main(["-n", run, "--resume", "test"])
+        t2 = time.perf_counter()
+        plain_summary = cli.main(["-n", "nomesh", "-epochs", str(MESH_EPOCHS), "train"])
+        t3 = time.perf_counter()
+        (other,) = [r for r in os.listdir(experiments) if r != run]
+        last = [torch.load(os.path.join(experiments, r, "models", "model_last.pth"),
+                           weights_only=True) for r in (run, other)]
+        with open(os.path.join(experiments, run, "train.log")) as f:
+            log = f.read()
+    unequal = [k for k in last[1] if not torch.equal(last[0][k], last[1][k])]
+    print(f"{tag} train --mesh 1, {MESH_EPOCHS + 1} epochs of 2 steps + validation: "
+          f"{t1 - t0:.3f} s; --resume test: {t2 - t1:.3f} s; the same run without --mesh: "
+          f"{t3 - t2:.3f} s (host clock, checkpoint writes included)")
+    print(f"{tag} launches: {json.dumps(counts)}")
+    check_designs(f"{tag} train", counts, variants, "flagship")
+    check_stats_designs(f"{tag} train", variants, STATS_STEP_DESIGNS["flagship"], steps_run)
+    missing = [k for k in FLAGSHIP_KERNELS if counts[k] == 0]
+    row = table["synthetic"]
+    print(f"{tag} {len(last[1]) - len(unequal)} of {len(last[1])} parameters and buffers "
+          f"equal in bits to the run without --mesh; --resume test: {json.dumps(row)}")
+    if (missing or unequal or summary != plain_summary or summary["epochs_run"] != MESH_EPOCHS + 1
+            or "Training Epoch [001/001]" not in log
+            or not all(math.isfinite(v) for v in row.values())):
+        raise AssertionError(f"{tag} kernels not launched {missing}, unequal {unequal[:3]}, "
+                             f"{summary} vs {plain_summary}, row {row}")
+
+    model = build_model(config).to(dev)
+    partial, complete = synthetic_batch(dev, BATCH)
+    mesh = make_mesh(0, 1, f"tcp://localhost:{free_port()}", dev.type)
+    try:
+        times = [step_cost(model, config, partial, complete, mesh=m)[0]
+                 for m in (None, mesh, mesh, None)]
+        grads = [torch.randn_like(p) for p in model.parameters()]
+        losses = [torch.ones((), device=dev)] * 3
+        reduce_ms = cuda_ms(lambda: mean_over_ranks(mesh, grads, losses), 20)
+    finally:
+        destroy_mesh()
+    n = sum(g.numel() for g in grads)
+    print(f"{tag} {smi}: train step at batch {BATCH}, median of 5 after 2 warm-up (CUDA "
+          f"events): without a mesh {times[0]:.3f} ms, {times[3]:.3f} ms; world size 1 (NCCL) "
+          f"{times[1]:.3f} ms, {times[2]:.3f} ms; the gradient all-reduce alone ({n} "
+          f"float32 + 3 losses, concatenated, reduced, divided, copied back) {reduce_ms:.3f} ms",
+          flush=True)
+    return {**counts, **variants}
+
+
+def digest(tensors: dict) -> dict:
+    """Each tensor's bits as a hash, by name: equal bits across ranks."""
+    import hashlib
+
+    import torch
+
+    return {k: hashlib.sha256(t.detach().cpu().reshape(-1).view(torch.uint8).numpy()
+                              .tobytes()).hexdigest() for k, t in tensors.items()}
+
+
+def tape_rows(value, rank: int, n: int, device):
+    """A recorded decision's rows of one rank, on its device (every
+    decision of the flagship's step is batch-first; the chamfer's is a
+    pair)."""
+    if isinstance(value, tuple):
+        return tuple(tape_rows(v, rank, n, device) for v in value)
+    return value[rank * n:(rank + 1) * n].to(device)
+
+
+def inject_mesh_fault(fault: str) -> None:
+    """Break this rank's data-parallel step as phase 16b's controls do, in
+    this process only: "local_stats", every train-mode BatchNorm normalises
+    with its own rank's rows (a per-rank DDP); "unreduced_cotangents", the
+    BatchNorm sums' all-reduce keeps its forward but its backward does not
+    sum the cotangents over ranks."""
+    from vn_pointcloudcompletion_tpu_torch.models import common
+    from vn_pointcloudcompletion_tpu_torch.nn import vn
+    from vn_pointcloudcompletion_tpu_torch.parallel import mesh
+
+    if fault == "local_stats":
+        vn.global_sums = common.global_sums = lambda s1, s2, count: (s1, s2, count)
+    elif fault == "unreduced_cotangents":
+        mesh._AllReduceSum.backward = staticmethod(lambda ctx, g: g)
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+
+
+def mesh_rank(rank, world, init, device, config, partial, complete, out_dir, reps,
+              fault=None):
+    """Phase 16b: one of ``world`` ranks on one card over gloo (CUDA
+    tensors; NCCL refuses two ranks on one GPU).  The model of ``config``
+    from its seed (rank 0's state broadcast), the rank's rows of the global
+    batch ``partial``, ``complete``, the rotations from seed 1: one step on
+    the rank's rows of the one-process step's DecisionTape
+    (``out_dir/tape.pt``), whose gradients (rank 0) and hashes of
+    everything after it (each rank) go to ``out_dir``; then ``reps`` steps
+    timed (host clock to the step's host read) and counted (launches a
+    step), and ``reps`` more with every all-reduce timed between two
+    synchronisations.  ``fault``: the step broken as
+    :func:`inject_mesh_fault` says, its files named after it."""
+    from datetime import timedelta
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.parallel.mesh import (
+        data_sharding,
+        destroy_mesh,
+        make_mesh,
+    )
+    from vn_pointcloudcompletion_tpu_torch.parallel.train_parallel import (
+        make_parallel_steps,
+        shard_state,
+    )
+    from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
+
+    if fault is not None:
+        inject_mesh_fault(fault)
+    suffix = "" if fault is None else f"_{fault}"
+
+    mesh = make_mesh(rank, world, init, device, backend="gloo",
+                     timeout=timedelta(seconds=MESH_TIMEOUT_S))
+    sync = torch.cuda.synchronize if mesh.device.type == "cuda" else (lambda: None)
+    try:
+        model = build_model(config).to(mesh.device)
+        state = shard_state(create_train_state(model, config, 1), mesh)
+        train_step, _ = make_parallel_steps(config, mesh)
+        partial, complete = (data_sharding(mesh, t).to(mesh.device) for t in (partial, complete))
+        gen = torch.Generator().manual_seed(1)
+        recorded = torch.load(os.path.join(out_dir, "tape.pt"), weights_only=False)
+        with DecisionTape() as tape:
+            tape.run({k: [tape_rows(v, rank, partial.shape[0], mesh.device) for v in vs]
+                      for k, vs in recorded.items()})
+            m = train_step(state, partial, complete, gen)
+        grads = {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        adam = {f"{k}.{n}": t for k, p in model.named_parameters()
+                for n, t in state.optimizer.state.get(p, {}).items()}
+        hashes = {"metrics": {k: float(v) for k, v in m.items()}, "grads": digest(grads),
+                  "state": digest(model.state_dict()), "adam": digest(adam)}
+        if rank == 0:
+            torch.save({"grads": grads, "metrics": hashes["metrics"]},
+                       os.path.join(out_dir, f"grads0{suffix}.pt"))
+        timing = time_mesh_steps(train_step, state, partial, complete, gen, reps, sync)
+    finally:
+        destroy_mesh()
+    hashes["launches"], step_ms, timed_ms, spent = timing
+    with open(os.path.join(out_dir, f"rank{rank}{suffix}.json"), "w") as f:
+        json.dump({**hashes, "step_ms": step_ms, "timed_ms": timed_ms, "reduces": spent}, f)
+
+
+def time_mesh_steps(train_step, state, partial, complete, gen, reps: int, sync):
+    """Phase 16b's timing on one rank: ``reps`` steps timed (host clock to
+    the step's host read) and counted, then ``reps`` more with every
+    all-reduce timed between two synchronisations.  Returns (launches a
+    step, step ms, step ms with the all-reduces timed, each step's
+    all-reduces as (ms, values)); nothing where ``reps`` is 0."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib
+
+    if not reps:
+        return {}, [], [], []
+    step_ms, timed_ms, spent = [], [], []
+    cuda_lib.reset_launch_counts()
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        train_step(state, partial, complete, gen)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: v // reps for k, v in cuda_lib.launch_counts().items() if v}
+    reduce = torch.distributed.all_reduce
+
+    def timed(t, *a, **k):
+        sync()
+        t0 = time.perf_counter()
+        out = reduce(t, *a, **k)
+        sync()
+        spent[-1].append(((time.perf_counter() - t0) * 1e3, t.numel()))
+        return out
+
+    torch.distributed.all_reduce = timed
+    try:
+        for _ in range(reps):
+            spent.append([])
+            t0 = time.perf_counter()
+            train_step(state, partial, complete, gen)
+            timed_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        torch.distributed.all_reduce = reduce
+    return launches, step_ms, timed_ms, spent
+
+
+def one_process_step(model, config, partial, complete, out_dir):
+    """The one-process step that phase 16b's ranks are held to, its
+    decisions recorded (DecisionTape) to ``out_dir/tape.pt`` for the ranks
+    to replay: (metrics, gradients)."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.training import steps
+    from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
+
+    with DecisionTape() as tape:
+        tape.run()
+        m = steps.train_step(create_train_state(model, config, 1), partial, complete,
+                             torch.Generator().manual_seed(1))
+    cpu = lambda v: tuple(map(cpu, v)) if isinstance(v, tuple) else v.cpu()  # noqa: E731
+    torch.save({k: [cpu(v) for v in vs] for k, vs in tape.rec.items()},
+               os.path.join(out_dir, "tape.pt"))
+    return m, {k: p.grad for k, p in model.named_parameters() if p.grad is not None}, tape.rec
+
+
+def mesh_two_ranks(dev, smi: str):
+    """Phase 16b: two ranks sharing the card over gloo, global batch 16 (8 a
+    rank): the first step's gradients against the one-process step at batch
+    16 on the same card (the same weights, batch and rotations) and tape
+    (the ranks replay their rows of its discrete decisions: otherwise the
+    encoder's BatchNorm sums, split over ranks, round otherwise and flip
+    argmax pools whose top two lie within float32 rounding), within
+    MESH_STEP_TOL of each tensor's max, and each tensor no further from the
+    float64 plain step on that tape than DGCNN_F64_RATIO x the one-process
+    step is (phase 7b's test); parameters, buffers and Adam's state equal
+    in bits on the two ranks; the step times of both, and the time in the
+    all-reduces.  Then the controls: the same two-rank step broken as
+    :func:`inject_mesh_fault` says (per-rank BatchNorm statistics; the sums'
+    cotangents not summed over ranks) must fail one of the two bounds, or
+    the bounds could not tell the step from those faults."""
+    import copy
+
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.parallel.mesh import spawn_ranks
+
+    tag = "[mesh 2 gloo]"
+    world, reps = 2, 5
+    config = _smoke_config(lr=1e-4, rotation="so3", batch_size=world * BATCH)
+    model = build_model(config).to(dev)
+    plain = copy.deepcopy(model).use_kernels_(False)
+    partial, complete = synthetic_batch(dev, world * BATCH)
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_mesh2")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    m, want, rec = one_process_step(model, config, partial, complete, out_dir)
+    with DecisionTape() as tape:  # the float64 reference on the same tape (phase 7b)
+        tape.run(rec)
+        step_grads(plain, config, partial, complete, torch.float32)
+        tape.run({**rec, **tape.rec})
+        g64 = step_grads(plain, config, partial, complete, torch.float64)[2]
+    del plain, rec
+    single_ms = step_cost(model, config, partial, complete)[0]
+    del model
+    torch.cuda.empty_cache()
+
+    device = "cuda:0" if dev.type == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    spawn_ranks(mesh_rank, world, device, config, partial.cpu(), complete.cpu(), out_dir, reps,
+                deadline=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    controls = {}
+    for fault in MESH_FAULTS:
+        spawn_ranks(mesh_rank, world, device, config, partial.cpu(), complete.cpu(), out_dir,
+                    0, fault, deadline=MESH_TIMEOUT_S)
+        bad = torch.load(os.path.join(out_dir, f"grads0_{fault}.pt"), weights_only=True)
+        controls[fault] = check_on_one_tape(
+            f"{tag} control, {fault} (k) vs one process (plain column), on one tape:",
+            {k: g.to(dev).double() for k, g in bad["grads"].items()},
+            {k: g.double() for k, g in want.items()}, g64, tol=MESH_STEP_TOL)
+    caught = {fault: not passed for fault, passed in controls.items()}
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    got = torch.load(os.path.join(out_dir, "grads0.pt"), weights_only=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    grads = {k: g.to(dev).double() for k, g in got["grads"].items()}
+    close = check_on_one_tape(f"{tag} two ranks (k) vs one process (plain column), on one "
+                              "tape:", grads, {k: g.double() for k, g in want.items()}, g64,
+                              tol=MESH_STEP_TOL)
+    errs = rel_errs(grads, {k: g.double() for k, g in want.items()})
+    loss_err = max(abs(got["metrics"][k] - float(m[k])) / abs(float(m[k]))
+                   for k in ("coarse", "dense"))
+    same = {k: ranks[0][k] == ranks[1][k] for k in ("metrics", "grads", "state", "adam")}
+    missing = [k for k in FLAGSHIP_KERNELS for rank in ranks if not rank["launches"].get(k)]
+    print(f"{tag} spawn to exit of both ranks: {wall:.1f} s; rank 0's step against one "
+          f"process at batch {world * BATCH}: losses rel err {loss_err:.3e}, gradients "
+          f"max|dg| / max|g| largest: {worst(errs)} (tolerance {MESH_STEP_TOL}); equal in bits "
+          f"on both ranks: {json.dumps(same)}; rank 0's launches a step (untaped): "
+          f"{json.dumps(ranks[0]['launches'])}")
+    for r, rank in enumerate(ranks):
+        per_step = [sum(ms for ms, _ in step) for step in rank["reduces"]]
+        grad = [max(step, key=lambda x: x[1])[0] for step in rank["reduces"]]
+        print(f"{tag} {smi}: rank {r}: step {statistics.median(rank['step_ms']):.3f} ms "
+              f"(median of {reps}, host clock to the step's host read; steps "
+              f"{', '.join(f'{x:.1f}' for x in rank['step_ms'])}); with every all-reduce "
+              f"timed between two synchronisations: step "
+              f"{statistics.median(rank['timed_ms']):.3f} ms, in all-reduces "
+              f"{statistics.median(per_step):.3f} ms a step "
+              f"({len(rank['reduces'][0])} a step: the gradients' {statistics.median(grad):.3f} "
+              f"ms, {rank['reduces'][0][-1][1]} values)")
+    print(f"{tag} {smi}: one process at batch {world * BATCH}: {single_ms:.3f} ms a step "
+          f"(CUDA events, median of 5)")
+    print(f"{tag} the controls fail the bounds: {json.dumps(caught)}")
+    if missing or not (all(same.values()) and close and loss_err <= 1e-4):
+        raise AssertionError(f"{tag} the two-rank step is not the one-process step")
+    if not all(caught.values()):
+        raise AssertionError(f"{tag} the bounds pass a broken step: {caught}")
+
+
 def main() -> int:
     import torch
 
@@ -4074,6 +4446,8 @@ def main() -> int:
     phase("15b vn_pointr_448 + decoder stack train step", pointr_decoder_step, dev, smi)
     phase("15c vn_pointr_448 + decoder stack bf16", pointr_decoder_bf16, dev, smi)
     phase("15d scalar VNPCTransformer", scalar_pointr, dev, smi)
+    mesh_counts = phase("16a flagship train --mesh 1 (NCCL)", mesh_world_one, dev, smi)
+    phase("16b flagship, two ranks on the card (gloo)", mesh_two_ranks, dev, smi)
     # launches: each kernel's count in the training run of its path (K1's:
     # phase 3b's knn() call, its path; no model reaches it: the JAX package
     # takes it only for D > 512; C and C' in group=S mode are on no path:
@@ -4100,6 +4474,8 @@ def main() -> int:
             on_pointr = " D 96 " in rec["name"] or " D 192 " in rec["name"] or "-> 224" in rec["name"]
             rec["launches"] = (counts if sym in FLAGSHIP_KERNELS else
                                pointr_counts if on_pointr else dgcnn_counts)[sym]
+            if sym in FLAGSHIP_KERNELS and "group=" not in rec["name"]:
+                rec["mesh_launches"] = mesh_counts[sym]  # phase 16a's run
             if sym in ("edge_knn_gather", "furthest_point_sample", "knn_min"):  # by design
                 run = pointr_counts if on_pointr else dgcnn_counts
                 rec["designs"] = {k.split("/")[1]: v for k, v in run.items()

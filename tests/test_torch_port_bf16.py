@@ -660,9 +660,10 @@ def test_cli_test_on_a_bf16_config_runs_float32(tmp_path, monkeypatch, root):
 def test_cli_train_on_a_bf16_config_names_the_next_slice(tmp_path, monkeypatch):
     """``train`` and ``overfit`` of a bf16 config with ``remat`` run under
     the bf16 policy (the recomputation inside ``backward()`` too) and leave
-    the caller's float32 policy as it was; what a bf16 config still cannot
-    ask of ``train`` is ``--mesh``, and the error names its ROADMAP.md
-    item."""
+    the caller's float32 policy as it was; ``--mesh`` (ROADMAP.md item 6b,
+    once refused) now reaches the data-parallel path, where a global batch
+    of 2 over 3 ranks raises JAX's ValueError before any rank starts (the
+    ranks: ``tests/test_torch_port_parallel.py``)."""
     import json
 
     from vn_pointcloudcompletion_tpu_torch import __main__ as cli
@@ -678,8 +679,8 @@ def test_cli_train_on_a_bf16_config_names_the_next_slice(tmp_path, monkeypatch):
         summary = cli.main(["-epochs", "0", "--device", "cpu", command])
         assert summary["epochs_run"] == 1 and np.isfinite(summary["best_cd"]), command
         assert precision.compute_dtype() == torch.float32
-    with pytest.raises(NotImplementedError, match="mesh.*item 6b"):
-        cli.main(["--mesh", "2", "--device", "cpu", "train"])
+    with pytest.raises(ValueError, match="must be divisible by the mesh's 'data' axis size 3"):
+        cli.main(["--mesh", "3", "--device", "cpu", "train"])
     shutil.rmtree(tmp_path / "out")  # ~260 MB a flagship checkpoint pair
 
 

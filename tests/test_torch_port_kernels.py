@@ -73,6 +73,7 @@ def test_kernel_a_plain_matches_pallas(c):
     rng = np.random.default_rng(c)
     p, d, a, b = _bn_inputs(rng, 2, c, 512)
     got = port_fused.fused_bn_leaky(*_t(p, d, a, b), NS).numpy()
+    before = got.copy()  # held against ``got`` after the JAX calls
     assert port_fused.eligible(torch.from_numpy(p))
     q = p * (a[None, None, :, None] + b[None, None, :, None]
              / (np.sqrt((p * p).sum(1, keepdims=True)) + 1e-6))
@@ -84,20 +85,56 @@ def test_kernel_a_plain_matches_pallas(c):
     # The outputs reach ~5, where one float32 ulp is ~5e-7, and XLA may sum
     # the three planes in another order than the port: allow 4 ulp of the
     # largest output (eps = 2^-23 of it).  A failure reports where the
-    # largest gap falls and how far each side lies from float64 there.
+    # largest gap falls, how far each side lies from float64 there, and what
+    # tells a wrong computation from a later overwrite (``_kernel_a_report``).
     ulp = np.finfo(np.float32).eps * np.abs(ref).max()
     exact = _bn_leaky_float64(p, d, a, b, NS)
     for name, want in (("pallas", pallas), ("jax plain", ref)):
         gap = np.abs(got - want)
+        if gap.max() <= 4 * ulp:
+            continue
         i = np.unravel_index(gap.argmax(), gap.shape)
-        assert gap.max() <= 4 * ulp, (
+        pytest.fail(
             f"port vs {name}: {gap.max() / ulp:.2f} ulp of max|out| at {i} "
             f"(port {got[i]!r}, {name} {want[i]!r}, float64 {exact[i]!r}); "
             f"from float64 there: port {abs(got[i] - exact[i]) / ulp:.2f} ulp, "
             f"{name} {abs(want[i] - exact[i]) / ulp:.2f}; largest anywhere: "
             f"port {np.abs(got - exact).max() / ulp:.2f}, "
-            f"{name} {np.abs(want - exact).max() / ulp:.2f}")
+            f"{name} {np.abs(want - exact).max() / ulp:.2f}; "
+            + _kernel_a_report(gap / ulp, got, before, (p, d, a, b)))
     assert np.all(got[:, :, : c // 4, :7] == 0.0)
+
+
+def _kernel_a_report(gap_ulp, got, before, inputs) -> str:
+    """What a failing kernel A comparison needs besides the gap: (a) the
+    largest gap (ulp of max|out|) per sample and per channel, which shows
+    whether the bad elements are one intra-op thread's contiguous share;
+    (b) whether the port's function run again on one thread gives the same
+    bits; (c) whether the output copied before the JAX calls equals the one
+    compared (computed wrong, or overwritten later); (d) the thread count,
+    torch's CPU capability and the host's CPU model."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = port_fused.fused_bn_leaky(*_t(*inputs), NS).numpy()
+    finally:
+        torch.set_num_threads(threads)
+    model = "unknown"
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((ln.split(":", 1)[1].strip() for ln in f
+                          if ln.startswith(("model name", "Model", "CPU part"))), model)
+    except OSError:
+        pass
+    per_sample = np.round(gap_ulp.max(axis=(1, 2, 3)), 2).tolist()
+    per_channel = np.round(gap_ulp.max(axis=(1, 3)), 2).tolist()
+    return (f"(a) largest gap per sample {per_sample}, per sample and channel {per_channel}; "
+            f"(b) one thread gives the same bits: {np.array_equal(one, got)} (largest gap "
+            f"{np.abs(one - got).max():.3g}), before the JAX calls: "
+            f"{np.array_equal(one, before)}; (c) the copy taken before the JAX calls equals "
+            f"the output compared: {np.array_equal(before, got)}; (d) "
+            f"torch.get_num_threads() {threads}, cpu capability "
+            f"{torch.backends.cpu.get_cpu_capability()}, CPU {model!r}")
 
 
 def _bn_leaky_float64(p, d, a, b, ns):

@@ -533,7 +533,10 @@ def test_unported_training_options_raise(workdir, cfg, item):
     ``remat`` in float32 and under the bf16 policy now runs ``overfit``;
     ``enc_pretrained`` on a missing file raises FileNotFoundError, as JAX's
     trainer does (``training/trainer.py:125-136``: a frozen random encoder
-    would train otherwise).  ``--mesh`` still raises, naming item 6b."""
+    would train otherwise).  ``--mesh`` (item 6b) is ported: it reaches
+    the data-parallel path, where a global batch of 2 over 3 ranks raises
+    JAX's ValueError before any rank starts (the ranks themselves:
+    ``tests/test_torch_port_parallel.py``)."""
     c = json.loads((workdir / "config.json").read_text())
     c.update(cfg)
     (workdir / "config.json").write_text(json.dumps(c))
@@ -543,5 +546,5 @@ def test_unported_training_options_raise(workdir, cfg, item):
     else:
         summary = cli.main(["-epochs", "0", "--device", "cpu", "overfit"])
         assert summary["epochs_run"] == 1 and np.isfinite(summary["best_cd"]), item
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        cli.main(["--mesh", "2", "--device", "cpu", "train"])
+    with pytest.raises(ValueError, match="must be divisible by the mesh's 'data' axis size 3"):
+        cli.main(["--mesh", "3", "--device", "cpu", "train"])

@@ -7,6 +7,7 @@ and ``test``.
     python -m vn_pointcloudcompletion_tpu_torch -n <run> -from <epoch|best|last> [-epochs N] train
     python -m vn_pointcloudcompletion_tpu_torch -n <run> --resume predict -i <ply or dir> [-o <dir>] [--save]
     python -m vn_pointcloudcompletion_tpu_torch -n <run> --resume test [--save] [--novel]
+    python -m vn_pointcloudcompletion_tpu_torch [-n <name>] --mesh N train
 
 A new ``train`` or ``overfit`` run reads ``config.json`` in the working
 directory and creates ``$OUTPUT_DIR/MM-DD_<name>_NNN/`` (default
@@ -20,7 +21,10 @@ epoch N + 1, and ``--resume`` takes precedence over it.  ``--ckpt_path``
 loads a pretrained encoder (a ``.pth`` state dict) and freezes it.
 ``predict`` and ``test`` read the named run's ``model_best.pth`` (or
 ``model_last.pth``).  ``overfit`` trains and validates on ``batch_size``
-synthetic samples.  The flags are ``main.py``'s, plus ``--device`` (default
+synthetic samples.  ``--mesh N`` trains data-parallel on N cards of this
+host, one process a card (``parallel/``; ``batch_size`` is the global
+batch), ``--mesh 0`` on every visible card; with ``--device cpu`` it runs N
+gloo processes.  The flags are ``main.py``'s, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the plain versions of the kernels).
 """
 
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 
 def main(argv=None):
@@ -46,7 +51,9 @@ def main(argv=None):
     parser.add_argument("-epochs", "--epochs", type=int, default=None,
                         help="override max epochs")
     parser.add_argument("--mesh", type=int, default=None,
-                        help="train/overfit data-parallel over N cards (not ported yet)")
+                        help="train/overfit only: data-parallel over N cards, one process "
+                             "a card (0 = every visible card; default: one card, no "
+                             "group); with --device cpu, N gloo processes")
     parser.add_argument("--save", action="store_true",
                         help="test: export predicted clouds as .ply; "
                              "predict: also write the coarse clouds")
@@ -74,10 +81,12 @@ def main(argv=None):
         parser.error("-from requires -n <source experiment dir name>")
     if args.command == "predict" and not args.input:
         parser.error("predict requires -i/--input <.ply file or directory>")
-    if args.mesh is not None:
-        raise NotImplementedError(
-            "--mesh (data-parallel training over several cards) is not ported "
-            "yet (ROADMAP.md, queue 1, item 6b)")
+    world = None
+    if args.mesh is not None and not training:
+        print(f"warning: --mesh applies to train/overfit only; {args.command} runs "
+              "single-device", file=sys.stderr)
+    elif args.mesh is not None:
+        world = _mesh_size(parser, args.mesh, args.device)
 
     from vn_pointcloudcompletion_tpu_torch.utils.config import load_config, store_config
     from vn_pointcloudcompletion_tpu_torch.utils.experiments import (
@@ -119,6 +128,13 @@ def main(argv=None):
     handler = add_file_handler(os.path.join(config.exp_dir, f"{args.command}.log"))
     try:
         if training:
+            if world is not None:
+                from vn_pointcloudcompletion_tpu_torch.parallel.train_parallel import (
+                    train_on_ranks,
+                )
+
+                return train_on_ranks(config, args.resume, args.device, world,
+                                      log_path=handler.baseFilename)
             from vn_pointcloudcompletion_tpu_torch.training.trainer import train
 
             return train(config, resume=args.resume, device=args.device)
@@ -139,6 +155,23 @@ def main(argv=None):
                         with_emd=args.emd, device=args.device)
     finally:
         remove_handler(handler)
+
+
+def _mesh_size(parser, mesh: int, device: str) -> int:
+    """The ranks of ``--mesh``: N, or every visible card for 0; an error
+    where the cards are fewer."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        if mesh < 1:
+            parser.error("--mesh 0 counts the visible cards; with --device cpu give the "
+                         "number of processes")
+        return mesh
+    visible = torch.cuda.device_count()
+    world = mesh or visible
+    if mesh < 0 or not 1 <= world <= visible:
+        parser.error(f"--mesh {mesh}: {visible} cards visible")
+    return world
 
 
 if __name__ == "__main__":

@@ -2,8 +2,19 @@
 
 Port of ``data/pipeline.py``.  :class:`BatchLoader` assembles numpy batches
 on a thread pool, a few batches ahead; :func:`device_prefetch` turns them into
-tensors on the device, copying through pinned host memory without blocking so
-that the copy of the next batch overlaps the current batch's compute.
+tensors on the device (:func:`stage_batch`), copying through pinned host
+memory without blocking so that the copy of the next batch overlaps the
+current batch's compute.
+
+Under data-parallel training (``parallel/``) the ranks of one host split
+each global batch as JAX's devices of one process do: every rank orders the
+dataset as the one-process loader does (the same shuffle seed and global
+batches of ``batch_size``) and loads only its rows of each global batch
+(``BatchLoader(shard=(rank, world))``, ``batch_size // world`` rows), which
+it stages onto its own card.  The global batch is the ranks' local batches
+in rank order, as JAX's ``make_array_from_process_local_data`` forms it, so
+``--mesh N`` trains on the batches of the one-process run, in its order; no
+input row crosses ranks.
 """
 
 from __future__ import annotations
@@ -20,11 +31,21 @@ class BatchLoader:
     """Iterable over (partial, complete) numpy batches of a map-style dataset.
 
     Epoch shuffling is seeded and reproducible; ``drop_last`` drops the final
-    short batch.
+    short batch.  ``shard`` ``(rank, world)``: ``batch_size`` is the global
+    batch, and the loader yields rank's ``batch_size // world`` rows of each
+    (``parallel/mesh.py::data_sharding``'s rows); a short last batch would not
+    split evenly, so a shard of more than one rank drops it.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 seed: int = 0, num_workers: int = 8, drop_last: bool = True):
+                 seed: int = 0, num_workers: int = 8, drop_last: bool = True,
+                 shard: Tuple[int, int] = (0, 1)):
+        rank, world = shard
+        if batch_size % world:
+            raise ValueError(f"batch_size={batch_size} does not split over {world} ranks")
+        if world > 1 and not drop_last:
+            raise ValueError("a loader sharded over ranks drops the short last batch")
+        self.rows = slice(rank * (batch_size // world), (rank + 1) * (batch_size // world))
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -55,7 +76,7 @@ class BatchLoader:
             pending = collections.deque()
 
             def submit(i):
-                idxs = order[i * self.batch_size : (i + 1) * self.batch_size]
+                idxs = order[i * self.batch_size : (i + 1) * self.batch_size][self.rows]
                 pending.append(pool.map(self.dataset.__getitem__, idxs))
 
             ahead = 3
@@ -69,9 +90,10 @@ class BatchLoader:
                        np.stack([it[1] for it in items]))
 
 
-def to_device(batch, device: torch.device):
-    """numpy arrays -> tensors on ``device``; CUDA copies go through pinned
-    memory and do not block the host."""
+def stage_batch(batch, device: torch.device):
+    """numpy arrays -> tensors on ``device`` (a rank's card: its local
+    rows); CUDA copies go through pinned memory and do not block the
+    host."""
     def put(x):
         t = torch.from_numpy(np.ascontiguousarray(x))
         if device.type == "cuda":
@@ -86,7 +108,7 @@ def device_prefetch(iterator: Iterable, device: torch.device, size: int = 2):
     q: collections.deque = collections.deque()
     it = iter(iterator)
     for batch in it:
-        q.append(to_device(batch, device))
+        q.append(stage_batch(batch, device))
         if len(q) > size:
             yield q.popleft()
     while q:

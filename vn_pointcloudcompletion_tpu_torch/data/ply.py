@@ -2,13 +2,20 @@
 
 Reads the vertex x/y/z of ascii, binary_little_endian and binary_big_endian
 files with integer or float properties (others are parsed and dropped);
-writes binary_little_endian.  The JAX package's C++ fast path (fastply) is
-not part of the port yet.
+writes binary_little_endian.  As in the JAX package, the C++ reader
+``tools/fastply.cpp`` (``data/fastply_binding.py``, built at first use) reads
+first, and the numpy reader takes every file it does not read or every
+file where it could not be built; :data:`READERS` counts which reader
+returned each file.
 """
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
+
+from vn_pointcloudcompletion_tpu_torch.data import fastply_binding
 
 _PLY_TYPES = {
     "char": "i1", "int8": "i1",
@@ -22,8 +29,21 @@ _PLY_TYPES = {
 }
 
 
+READERS: collections.Counter = collections.Counter()  # "fastply" / "numpy": files read
+
+
 def read_ply_points(path: str) -> np.ndarray:
     """Read the vertex x/y/z of a PLY file -> (N, 3) float32."""
+    pts = fastply_binding.read_points(path)
+    if pts is not None:
+        READERS["fastply"] += 1
+        return pts
+    READERS["numpy"] += 1
+    return read_ply_points_numpy(path)
+
+
+def read_ply_points_numpy(path: str) -> np.ndarray:
+    """The numpy reader."""
     with open(path, "rb") as f:
         header_lines = []
         while True:

@@ -5,8 +5,12 @@ List-file driven: ``{split}.list`` holds ``category_id/model_id`` lines.
 Training partials have 8 rendered views, one picked at random per access;
 partial clouds are permutation-resampled to 2048 points, complete clouds to
 16384 (short clouds padded by resampling).  Sampling draws from a generator
-keyed on (seed, epoch, index), so it does not depend on worker order.  The
-JAX package's per-host sharding is not part of the port.
+keyed on (seed, epoch, index), so it does not depend on worker order.
+``process_index`` of ``process_count`` reads its own strided share of the
+model list, truncated to equal shares (JAX's rule for the hosts of a
+multi-host run).  The ranks of ``--mesh`` run on one host, one JAX
+process: each reads the whole list and takes its rows of every global
+batch (``data/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -68,7 +72,7 @@ class ShapeNetPCN:
     """ShapeNet-PCN: 28974 train / 800 valid / 1200 test models."""
 
     def __init__(self, dataroot: str, split: str, category: str = "all",
-                 seed: int = 0):
+                 seed: int = 0, process_index: int = 0, process_count: int = 1):
         if split not in ("train", "valid", "test", "test_novel"):
             raise ValueError(f"unknown split {split!r}")
         self.split = split
@@ -80,6 +84,10 @@ class ShapeNetPCN:
         if category != "all":
             prefix = CAT2ID[category]
             lines = [ln for ln in lines if ln.startswith(prefix)]
+        # one share a process, all of one size: a process with more batches
+        # than the others would wait for them in a collective forever
+        per_proc = len(lines) // max(process_count, 1)
+        lines = lines[process_index::process_count][:per_proc]
 
         self.partial_paths: List[str] = []
         self.complete_paths: List[str] = []

@@ -9,7 +9,9 @@ that of the JAX modules:
 - :class:`BatchNormCh` is flax's ``nn.BatchNorm``, not torch's: the batch
   variance is ``E[x^2] - E[x]^2`` clipped at 0, and the running variance
   takes that BIASED variance (``ra = 0.9 ra + 0.1 var``).  The VN layers'
-  ``_NormAffine`` differs on purpose (unbiased running variance).
+  ``_NormAffine`` differs on purpose (unbiased running variance).  Under a
+  data-parallel mesh of more than one rank both take the statistics of the
+  global batch (``parallel/mesh.py::global_sums``).
 - :class:`GroupNormCh` normalises with the biased variance, eps 1e-5.
 
 Under the bfloat16 compute policy the kernel-1 convolutions are bf16 channel
@@ -25,6 +27,7 @@ import torch
 from torch import nn
 
 from vn_pointcloudcompletion_tpu_torch.nn.vn import BN_MOMENTUM, channel_linear
+from vn_pointcloudcompletion_tpu_torch.parallel.mesh import data_parallel, global_sums
 
 
 class ConvCh(nn.Module):
@@ -63,8 +66,14 @@ class BatchNormCh(nn.Module):
         if self.training:
             dims = (0,) + tuple(range(2, x.ndim))
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(dims)
-            var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+            if data_parallel():
+                s1, s2, cnt = global_sums(xf.sum(dims), (xf * xf).sum(dims),
+                                          xf.numel() // xf.shape[1])
+                mean = s1 / cnt
+                var = torch.clamp_min(s2 / cnt - mean * mean, 0.0)
+            else:
+                mean = xf.mean(dims)
+                var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
             with torch.no_grad():
                 m = BN_MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

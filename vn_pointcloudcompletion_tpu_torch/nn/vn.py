@@ -42,6 +42,7 @@ from vn_pointcloudcompletion_tpu_torch.nn.precision import activation_dtype, bf1
 from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas, vn_fused, vn_layer_fused
 from vn_pointcloudcompletion_tpu_torch.ops.knn import gather_planes, knn
 from vn_pointcloudcompletion_tpu_torch.ops.vn_fused import safe_sqrt
+from vn_pointcloudcompletion_tpu_torch.parallel.mesh import data_parallel, global_sums
 
 EPS = 1e-6  # models/vn_layers.py:10 of the reference
 # flax's BatchNorm momentum, the weight of the old running value (torch's 0.1)
@@ -128,7 +129,10 @@ class _NormAffine(nn.Module):
     variance, ``running = 0.9 * running + 0.1 * batch``; in eval mode the
     running buffers normalise.  The statistics come either from ``norm``
     (B, C, ...) or, on the whole-layer kernel path, from ``moments=(mean,
-    biased var)`` with the reduction's element ``count``.
+    biased var)`` with the reduction's element ``count``.  Under a
+    data-parallel mesh of more than one rank the statistics are those of
+    the global batch (``parallel/mesh.py::global_sums``; the kernel path's
+    sums are reduced in :func:`layer_moments`).
     """
 
     def __init__(self, features: int, eps: float = 1e-5):
@@ -140,7 +144,7 @@ class _NormAffine(nn.Module):
         self.eps = eps
 
     def forward(self, norm: Optional[torch.Tensor] = None, moments=None,
-                count: Optional[int] = None):
+                count=None):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
@@ -149,11 +153,17 @@ class _NormAffine(nn.Module):
                 cnt = count
             else:
                 dims = (0,) + tuple(range(2, norm.ndim))
-                mean = norm.mean(dims)
-                var = (norm * norm).mean(dims) - mean * mean
                 cnt = norm.numel() // norm.shape[1]
+                if data_parallel():
+                    s1, s2, cnt = global_sums(norm.sum(dims), (norm * norm).sum(dims), cnt)
+                    mean = s1 / cnt
+                    var = s2 / cnt - mean * mean
+                else:
+                    mean = norm.mean(dims)
+                    var = (norm * norm).mean(dims) - mean * mean
             with torch.no_grad():
-                unbiased = var * (cnt / max(cnt - 1, 1))
+                unbiased = var * (cnt / torch.clamp_min(cnt - 1, 1) if torch.is_tensor(cnt)
+                                  else cnt / max(cnt - 1, 1))
                 m = BN_MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
                 self.running_var.copy_(m * self.running_var + (1 - m) * unbiased)
@@ -194,11 +204,12 @@ def plane_norms(p: torch.Tensor) -> torch.Tensor:
 def layer_moments(x, w, pbias, training: bool, group: int = 0) -> dict:
     """Arguments of ``_NormAffine`` for the whole-layer path: in train mode
     the batch moments of ``|W x + pbias| + EPS`` from kernel S (JAX
-    nn/vn.py:457-466; ``group``: per-group bias columns), in eval mode none."""
+    nn/vn.py:457-466; ``group``: per-group bias columns), over every rank's
+    rows under a data-parallel mesh; in eval mode none."""
     if not training:
         return {}
     s1, s2 = vn_layer_fused.vn_layer_stats(x, w, pbias, group)
-    cnt = x.shape[0] * x.shape[3]
+    s1, s2, cnt = global_sums(s1, s2, x.shape[0] * x.shape[3])
     mean = s1 / cnt
     return {"moments": (mean, s2 / cnt - mean * mean), "count": cnt}
 

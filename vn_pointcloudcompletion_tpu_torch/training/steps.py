@@ -21,6 +21,13 @@ as JAX's ``mutated["batch_stats"]`` are.  The bf16 policy is read during
 the recomputation too, so ``backward()`` runs inside the same
 ``compute_dtype_scope`` as the forward (the trainer holds it for the run).
 
+Under a data-parallel ``mesh`` (``parallel/train_parallel.py``) each rank
+runs these steps over its rows of the global batch: the rotations are drawn
+for the global batch and the rank takes its rows, the gradients and losses
+are averaged over ranks before the guard, and the validation sums are summed
+over ranks.  Under ``remat`` the recomputed forward repeats the BatchNorm
+all-reduces on every rank, in the same order.
+
 On this port ``remat`` saves no peak memory: the one segment is the whole
 forward, so the backward's first unpack recomputes all of it and every
 saved activation is alive again before the first backward kernel.  It
@@ -32,14 +39,21 @@ parity with JAX's option.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from vn_pointcloudcompletion_tpu_torch.metrics.losses import calc_dcd, cd_loss_l1, emd_loss
 from vn_pointcloudcompletion_tpu_torch.metrics.metrics import l1_cd
 from vn_pointcloudcompletion_tpu_torch.ops.rotations import rotate_points, sample_rotation
+from vn_pointcloudcompletion_tpu_torch.parallel.mesh import (
+    Mesh,
+    check_step_mesh,
+    data_sharding,
+    mean_over_ranks,
+)
 from vn_pointcloudcompletion_tpu_torch.training.state import TrainState
 from vn_pointcloudcompletion_tpu_torch.utils.config import Config
 
@@ -51,11 +65,15 @@ def all_finite(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
 
 
-def _rotate(generator: torch.Generator, mode: str, partial, complete):
-    rot = sample_rotation(generator, mode, partial.shape[0])
+def _rotate(generator: torch.Generator, mode: str, partial, complete,
+            mesh: Optional[Mesh] = None):
+    """Rotate the batch; under a mesh the rotations are drawn for the global
+    batch and the rank takes its rows (JAX ``parallel/train_parallel.py:8-11``)."""
+    world = 1 if mesh is None else mesh.world
+    rot = sample_rotation(generator, mode, partial.shape[0] * world)
     if rot is None:
         return None, partial, complete
-    rot = rot.to(partial.device)
+    rot = data_sharding(mesh, rot).to(partial.device, partial.dtype)
     return rot, rotate_points(partial, rot), rotate_points(complete, rot)
 
 
@@ -89,11 +107,16 @@ def _losses(model, config: Config, partial, complete, rot):
 
 
 def train_step(state: TrainState, partial: torch.Tensor, complete: torch.Tensor,
-               generator: torch.Generator) -> Dict[str, torch.Tensor]:
+               generator: torch.Generator,
+               mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """One guarded optimiser step; returns the step's metrics as tensors on
-    the device (``total``, ``coarse``, ``dense``, ``skipped``)."""
+    the device (``total``, ``coarse``, ``dense``, ``skipped``).  Under a
+    ``mesh`` (``parallel/train_parallel.py``) the batch is the rank's rows
+    and the step is that of the global batch: the gradients and the losses
+    are averaged over ranks before the guard."""
+    check_step_mesh(mesh)
     config, model = state.config, state.model
-    rot, partial, complete = _rotate(generator, config.rotation, partial, complete)
+    rot, partial, complete = _rotate(generator, config.rotation, partial, complete, mesh)
     model.train()
     buffers = [b.detach().clone() for b in model.buffers()]
     params = [p for p in model.parameters() if p.requires_grad]
@@ -109,6 +132,8 @@ def train_step(state: TrainState, partial: torch.Tensor, complete: torch.Tensor,
                 b.copy_(kept)
 
     grads = [p.grad for p in params if p.grad is not None]
+    if mesh is not None:
+        loss1, loss2, loss = mean_over_ranks(mesh, grads, (loss1, loss2, loss))
     ok = all_finite(grads) & torch.isfinite(loss)
     if bool(ok):
         state.apply_gradients()
@@ -122,14 +147,21 @@ def train_step(state: TrainState, partial: torch.Tensor, complete: torch.Tensor,
 
 @torch.no_grad()
 def eval_step(model, config: Config, partial: torch.Tensor, complete: torch.Tensor,
-              generator: torch.Generator) -> Dict[str, torch.Tensor]:
+              generator: torch.Generator,
+              mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """Validation: batch sums of ``l1_cd`` for the coarse and dense clouds,
-    under ``val_rotation``, with the running statistics."""
-    rot, partial, complete = _rotate(generator, config.val_rotation, partial, complete)
+    under ``val_rotation``, with the running statistics; under a ``mesh``
+    summed over the ranks' rows."""
+    check_step_mesh(mesh)
+    rot, partial, complete = _rotate(generator, config.val_rotation, partial, complete, mesh)
     model.eval()
     coarse, fine = model(partial, rot)
     out = {"coarse_sum": l1_cd(coarse, complete)}
     out["dense_sum"] = (torch.zeros((), device=coarse.device) if fine is None
                         else l1_cd(fine, complete))
+    if mesh is not None:
+        sums = torch.stack([out["coarse_sum"], out["dense_sum"]])
+        dist.all_reduce(sums)
+        out = {"coarse_sum": sums[0], "dense_sum": sums[1]}
     return out
 

@@ -15,6 +15,19 @@ validation cloud is not drawn (it needs ``plot_pcd_one_view``: ROADMAP.md,
 queue 1, item 8).  The step's metrics stay on the card until the end of
 the epoch, apart from the log points.
 
+With a ``mesh`` (``--mesh``; ``parallel/``) the run is one rank of a
+data-parallel group (JAX ``training/trainer.py:57-63,79-95,168-173``):
+``batch_size`` is the global batch, and the rank loads its ``batch_size //
+world`` rows of each global batch of the one-process run
+(``data/pipeline.py``), as JAX on one host loads the global batch in its
+one process and shards it over the devices.  So an epoch takes the steps
+of the one-process epoch over the same batches, ShapeNet and synthetic
+alike.  The validation loader drops its short last batch, and the
+validation means divide by the global count of samples evaluated.  Every
+rank restores ``--resume``, ``-from`` and ``enc_pretrained`` and then takes
+rank 0's state (``shard_state``); only rank 0 writes checkpoints and
+scalars.
+
 Before the first epoch, in the JAX trainer's order
 (``training/trainer.py:125-163``): a pretrained encoder
 (``enc_pretrained``, frozen by ``training/state.py``) is loaded into the
@@ -30,6 +43,7 @@ import json
 import logging
 import os
 import time
+from typing import Optional
 
 import torch
 
@@ -38,6 +52,12 @@ from vn_pointcloudcompletion_tpu_torch.data.shapenet import ShapeNetPCN
 from vn_pointcloudcompletion_tpu_torch.data.synthetic import SyntheticCompletionDataset
 from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
 from vn_pointcloudcompletion_tpu_torch.nn.precision import compute_dtype_scope, from_config_dtype
+from vn_pointcloudcompletion_tpu_torch.parallel.mesh import Mesh
+from vn_pointcloudcompletion_tpu_torch.parallel.train_parallel import (
+    check_batch,
+    make_parallel_steps,
+    shard_state,
+)
 from vn_pointcloudcompletion_tpu_torch.training.checkpoint import (
     load_pretrained_encoder,
     payload,
@@ -55,6 +75,9 @@ log_dataset = logging.getLogger("dataset")
 
 
 def build_datasets(config: Config):
+    """The train and validation sets.  The ranks of ``--mesh`` run on one
+    host, which JAX counts as one process: ShapeNet's per-process shares
+    (``process_count`` > 1, JAX's multi-host rule) are not taken here."""
     if config.dataset == "synthetic":
         kw = dict(n_partial=config.extra.get("synthetic_n_partial", 2048),
                   n_complete=config.extra.get("synthetic_n_complete", 16384))
@@ -70,38 +93,52 @@ def build_datasets(config: Config):
 
 
 class _Scalars:
-    """Appends the tensorboard scalars to ``<exp_dir>/metrics.jsonl``."""
+    """Appends the tensorboard scalars to ``<exp_dir>/metrics.jsonl``; a
+    rank other than 0 (``exp_dir`` None) writes nothing."""
 
-    def __init__(self, exp_dir: str):
-        self._f = open(os.path.join(exp_dir, "metrics.jsonl"), "a")
+    def __init__(self, exp_dir: Optional[str]):
+        self._f = None if exp_dir is None else open(os.path.join(exp_dir, "metrics.jsonl"), "a")
 
     def add(self, split: str, tag: str, value: float, step: int) -> None:
-        self._f.write(json.dumps({"split": split, "tag": tag, "step": step,
-                                  "value": float(value)}) + "\n")
+        if self._f is not None:
+            self._f.write(json.dumps({"split": split, "tag": tag, "step": step,
+                                      "value": float(value)}) + "\n")
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
-def train(config: Config, resume: bool = False, device="cuda") -> dict:
+def train(config: Config, resume: bool = False, device="cuda",
+          mesh: Optional[Mesh] = None) -> dict:
     """Run training; returns ``{best_epoch, best_cd, epochs_run}``.
+    ``mesh``: this process is one rank of a data-parallel group on
+    ``mesh.device`` (``device`` is then not read).
 
     The whole run, validation included, runs under the compute policy of
     ``config.dtype`` (JAX sets it process-wide, ``training/trainer.py:74-77``);
     the caller's policy is restored on return.  Parameters, Adam's state
     and the checkpoints stay float32 under either."""
     with compute_dtype_scope(from_config_dtype(config.dtype)):
-        return _train(config, resume, device)
+        return _train(config, resume, device, mesh)
 
 
-def _train(config: Config, resume: bool, device) -> dict:
-    dev = resolve_device(device)
+def _train(config: Config, resume: bool, device, mesh: Optional[Mesh]) -> dict:
+    if mesh is None:
+        dev, rank, world = resolve_device(device), 0, 1
+    else:  # fail on the batch before the datasets and the model are built
+        dev, rank, world = mesh.device, mesh.rank, mesh.world
+        check_batch(config, world)
     log_dataset.info("Loading Data...")
     train_dataset, val_dataset = build_datasets(config)
     train_loader = BatchLoader(train_dataset, config.batch_size, shuffle=True,
-                               seed=config.seed, num_workers=config.num_workers)
+                               seed=config.seed, num_workers=config.num_workers,
+                               shard=(rank, world))
+    # a mesh's step needs every rank's batch whole; the validation means
+    # divide by the samples evaluated
     val_loader = BatchLoader(val_dataset, config.batch_size, shuffle=False,
-                             num_workers=config.num_workers, drop_last=False)
+                             num_workers=config.num_workers, drop_last=mesh is not None,
+                             shard=(rank, world))
     log_dataset.info("Dataset loaded!")
 
     model = build_model(config).to(dev)
@@ -143,6 +180,17 @@ def _train(config: Config, resume: bool, device) -> dict:
     else:
         log.info(f"Start a brand new experiment: {config.run_name}")
 
+    if mesh is None:
+        step_fn, eval_fn = train_step, eval_step
+    else:
+        step_fn, eval_fn = make_parallel_steps(config, mesh)
+        state = shard_state(state, mesh)
+    writes = mesh is None or mesh.is_main
+
+    def save(held, epoch, name):
+        if writes:  # rank 0 writes for the group
+            save_checkpoint(config.exp_dir, held, epoch, best_cd_l1, best_epoch_l1, name)
+
     log.info(f"Model total params: {get_num_params_total(model)}")
     log.info(f"Producing coarse only: {config.only_coarse}")
     log.info(f"Producing num of coarse points: {config.num_coarse}")
@@ -151,7 +199,7 @@ def _train(config: Config, resume: bool, device) -> dict:
     n_batches = len(train_loader)
     step_every = max(n_batches // max(config.log_frequency, 1), 1)
     last_every = max(config.checkpoint_last_every, 1)
-    scalars = _Scalars(config.exp_dir)
+    scalars = _Scalars(config.exp_dir if writes else None)
     epochs_run = 0
     pending_best = None  # (payload, epoch) of a best model not written yet
     try:
@@ -160,7 +208,7 @@ def _train(config: Config, resume: bool, device) -> dict:
             t0 = time.time()
             step_metrics = []
             for i, (p, c) in enumerate(device_prefetch(train_loader, dev)):
-                metrics = train_step(state, p, c, generator)
+                metrics = step_fn(state, p, c, generator)
                 step_metrics.append(metrics)
                 if (i + 1) % step_every == 0:
                     m = {k: float(v) for k, v in metrics.items()}
@@ -197,13 +245,13 @@ def _train(config: Config, resume: bool, device) -> dict:
             val = {"coarse": 0.0, "dense": 0.0}
             n_evaluated = 0
             for p, c in device_prefetch(val_loader, dev):
-                out = eval_step(model, config, p, c, generator)
+                out = eval_fn(model, config, p, c, generator)
                 val["coarse"] += float(out["coarse_sum"])
                 val["dense"] += float(out["dense_sum"])
-                n_evaluated += p.shape[0]
+                n_evaluated += p.shape[0] * world
             if n_evaluated == 0:
-                log.warning("validation evaluated 0 batches; skipping the "
-                            "best-checkpoint update")
+                log.warning("validation evaluated 0 batches (dataset smaller than the "
+                            "mesh-divisible batch size); skipping the best-checkpoint update")
             n_val = max(n_evaluated, 1)
             val_coarse, val_dense = val["coarse"] / n_val, val["dense"] / n_val
             # the reference's "total" adds the coarse and dense means
@@ -219,24 +267,20 @@ def _train(config: Config, resume: bool, device) -> dict:
                 best_epoch_l1, best_cd_l1 = epoch, val_total
                 if last_every > 1:
                     # written with the next "last", from a copy kept on the card
-                    pending_best = (payload(state, copied=True), epoch)
+                    pending_best = (payload(state, copied=True) if writes else None, epoch)
                 else:
-                    save_checkpoint(config.exp_dir, payload(state), epoch, best_cd_l1,
-                                    best_epoch_l1, "best")
+                    save(payload(state), epoch, "best")
                     log.info(f"Save checkpoint at {config.exp_dir}/models/model_best.pth")
             if epoch % last_every == 0 or epoch == end_epoch:
                 if pending_best is not None:
                     held, b_epoch = pending_best
-                    save_checkpoint(config.exp_dir, held, b_epoch, best_cd_l1,
-                                    best_epoch_l1, "best")
+                    save(held, b_epoch, "best")
                     log.info(f"Save checkpoint at {config.exp_dir}/models/model_best.pth"
                              f" (epoch {b_epoch}, deferred)")
                     pending_best = None
-                save_checkpoint(config.exp_dir, payload(state), epoch, best_cd_l1,
-                                best_epoch_l1, "last")
+                save(payload(state), epoch, "last")
             if config.checkpoint_every and epoch % config.checkpoint_every == 0:
-                save_checkpoint(config.exp_dir, payload(state), epoch, best_cd_l1,
-                                best_epoch_l1, str(epoch))
+                save(payload(state), epoch, str(epoch))
             epochs_run += 1
     finally:
         scalars.close()
