@@ -68,8 +68,9 @@ on one NVIDIA GPU:
 5. Training the flagship at the same width through the command line:
    ``overfit`` at batch 8 for a few epochs (one step and one validation
    batch each), with the counters set to 0 just before and read just after
-   (all nine must be launched), the losses checked finite and falling, the
-   checkpoints checked, and ``train --resume`` for one more epoch.
+   (exactly FLAGSHIP_EPOCH_LAUNCHES an epoch, phase 17c), the losses
+   checked finite and falling, the checkpoints checked, and ``train
+   --resume`` for one more epoch.
 5b. The decoder's backward through the kernels against float64; one train
    step through the kernels against the same step through the plain path
    on the same model and batch (losses, every gradient, the running
@@ -192,6 +193,27 @@ on one NVIDIA GPU:
    DGCNN_F64_RATIO x the one process; parameters, buffers and Adam's state
    equal in bits on both ranks; each rank's step time and the time in its
    all-reduces.  The kernels line's ``mesh_launches``: phase 16a's counts.
+17. The JAX package's last modules.  (a) The partial-scan renderer
+   (``data/render.py``) on the card: ``generate_partials`` of a 16384-point
+   synthetic complete cloud at 8 views, image 160, equal point for point
+   and in order to the port's CPU version, its time (median of CUDA-event
+   timings after warm-up) beside the CPU version's (host clock); then the
+   render entry (``render_root``) over a synthetic 32-model PCN root, on
+   the card and on the CPU, every file equal in bytes, models/s of both.
+   (b) ``voxel2obj`` (``utils/obj_io.py``) of the flagship's dense
+   prediction voxelised at 64^3 on the card, byte-identical to the CPU
+   path's file.  (c) In phase 5: the trainer draws each epoch's figure
+   (JAX's per-epoch PNG): where matplotlib imports, ``epoch_NNN.png`` of
+   every epoch exists, else each run's log holds the one warning naming
+   it; phase 5's launches are exactly FLAGSHIP_EPOCH_LAUNCHES a epoch, as
+   before the figure.  (d) bf16 convergence: OVERFIT_STEPS guarded train
+   steps of the flagship on one synthetic batch of 8 (``overfit``'s
+   data), float32 and bf16 from the same weights, both loss curves printed
+   every 20 steps; fails on a non-finite loss or a final loss (the mean of
+   the last 10 steps) not below half the first step's.  The ``.ckpt``
+   reader (``training/flax_msgpack.py``) runs on the host before any card
+   work and needs JAX's files, which this machine cannot write: its checks
+   are the CPU tests.
 
 Every phase prints its wall time.  Any failure exits non-zero.  The line
 before the last is a JSON object with one record per kernel (its launches
@@ -471,6 +493,16 @@ FLAGSHIP_KERNELS = tuple(SYMBOL[k] for k in ("A", "A'", "S", "S'", "B", "B'", "C
 # the backward launches a second time; the chamfer loss (D) stays outside
 # the checkpointed segment and every backward kernel runs once.
 REMAT_FORWARD = tuple(SYMBOL[k] for k in ("A", "S", "B", "C", "K1", "K2", "K3", "F"))
+# Phase 5's launches each overfit epoch of the flagship: one train step
+# (A 2, A' 2, S 2, S' 2, B 1, B' 1, C 1, C' 1, D 2: the dense and coarse
+# losses) and one validation batch (A 2, B 1, C 1, D 2: the two l1_cd).
+FLAGSHIP_EPOCH_LAUNCHES = {"vn_bn_leaky_fwd": 4, "vn_bn_leaky_bwd": 2, "vn_layer_stats_fwd": 2,
+                           "vn_layer_stats_bwd": 2, "vn_layer_fused_fwd": 2,
+                           "vn_layer_fused_bwd": 1, "vn_layer_fused_project_fwd": 2,
+                           "vn_layer_fused_project_bwd": 1, "chamfer_nn_bidir": 4}
+FIGURE_WARNING = "matplotlib is not installed"  # the trainer's, once a run (phase 17c)
+RENDER_MODELS = 32  # phase 17a's synthetic PCN root
+OVERFIT_STEPS = 200  # phase 17d, each dtype
 # Phase 5's flagship model_best.pth, kept for phase 14c's pretrained encoder.
 PRETRAINED = os.path.join(ROOT, "build", "chip_smoke_pretrained.pth")
 
@@ -2220,6 +2252,11 @@ def train_path(dev, path: str = "flagship", epochs: int = 0, keep_best: str = ""
     check_designs(f"{tag} overfit", counts, variants, path)
     if path in STATS_STEP_DESIGNS:  # one train step an epoch
         check_stats_designs(f"{tag} overfit", variants, STATS_STEP_DESIGNS[path], epochs)
+    if path == "flagship" and not extra:  # phase 5, with the figures (17c)
+        want = {k: v * epochs for k, v in FLAGSHIP_EPOCH_LAUNCHES.items()}
+        if {k: v for k, v in counts.items() if v} != want:
+            raise AssertionError(f"{tag} launches {counts}, expected {want}")
+        check_epoch_figures(tag, exp_dir, epochs + 1)
     if path == "flagship":
         expected = FLAGSHIP_KERNELS
     else:
@@ -2262,6 +2299,175 @@ def train_path(dev, path: str = "flagship", epochs: int = 0, keep_best: str = ""
         shutil.copy(os.path.join(exp_dir, "models", "model_best.pth"), keep_best)
     shutil.rmtree(work, ignore_errors=True)
     return {**counts, **variants}  # launches, and by design (``<name>/<design>``)
+
+
+def check_epoch_figures(tag: str, exp_dir: str, epochs: int) -> None:
+    """Phase 17c: the figure of each of ``epochs`` epochs written where
+    matplotlib imports, else the trainer's warning once in each run's log."""
+    try:
+        import matplotlib  # noqa: F401
+    except ModuleNotFoundError:
+        logs = {}
+        for name in ("overfit.log", "train.log"):
+            with open(os.path.join(exp_dir, name)) as f:
+                logs[name] = f.read().count(FIGURE_WARNING)
+        print(f"[17c] {tag} matplotlib is not installed: the trainer's warning "
+              f"{FIGURE_WARNING!r} in the logs {logs} (once a run), no PNG")
+        if list(logs.values()) != [1, 1]:
+            raise AssertionError(f"[17c] {tag} figure warnings {logs}")
+        return
+    pngs = sorted(os.listdir(os.path.join(exp_dir, "visualizations")))
+    print(f"[17c] {tag} figures: {pngs}")
+    if pngs != [f"epoch_{e:03d}.png" for e in range(epochs)]:
+        raise AssertionError(f"[17c] {tag} figures {pngs}")
+
+
+def render_on_card(dev, smi: str):
+    """Phase 17a: ``generate_partials`` at 16384 points x 8 views on the
+    card against the CPU version, point for point and in order, both
+    timed; then ``render_root`` over a synthetic 32-model root on the card
+    and on the CPU, every file equal in bytes, models/s of both."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.data import render
+    from vn_pointcloudcompletion_tpu_torch.data.ply import write_ply_points
+    from vn_pointcloudcompletion_tpu_torch.data.synthetic import SyntheticCompletionDataset
+
+    tag = "[17a render]"
+    ds = SyntheticCompletionDataset(RENDER_MODELS, seed=5)
+    cloud = ds[0][1]
+    card = render.generate_partials(cloud, n_views=8, seed=3, device=dev)
+    host = render.generate_partials(cloud, n_views=8, seed=3, device="cpu")
+    sizes = [len(p) for p in host]
+    equal = len(card) == len(host) and all(torch.equal(c.cpu(), h) for c, h in zip(card, host))
+    card_ms = cuda_ms(lambda: render.generate_partials(cloud, n_views=8, seed=3, device=dev), 20)
+    host_ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        render.generate_partials(cloud, n_views=8, seed=3, device="cpu")
+        host_ms.append((time.perf_counter() - t) * 1e3)
+    print(f"{tag} {smi}: generate_partials, {cloud.shape[0]} points x 8 views, image 160: "
+          f"card {card_ms:.3f} ms (median of 20, CUDA events, after 2 warm-up), CPU version "
+          f"{statistics.median(host_ms):.3f} ms (median of 5, host clock, {torch.get_num_threads()} "
+          f"threads); partial sizes {sizes}; card == CPU point for point and in order: {equal}",
+          flush=True)
+    if not equal or not all(100 < n < cloud.shape[0] for n in sizes):
+        raise AssertionError(f"{tag} the card's partials differ from the CPU version's")
+
+    work = os.path.join(ROOT, "build", "chip_smoke_render")
+    shutil.rmtree(work, ignore_errors=True)
+    roots = {d: os.path.join(work, d) for d in ("card", "cpu")}
+    for i in range(RENDER_MODELS):
+        cat = ("02691156", "03001627")[i % 2]
+        for root in roots.values():
+            os.makedirs(os.path.join(root, "train", "complete", cat), exist_ok=True)
+            write_ply_points(os.path.join(root, "train", "complete", cat, f"m{i:03d}.ply"),
+                             ds[i][1])
+    rates = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        t = time.perf_counter()
+        n = render.render_root(roots[name], "train", 8, 0, device)
+        rates[name] = n / (time.perf_counter() - t)
+    files = []
+    for cat in sorted(os.listdir(os.path.join(roots["cpu"], "train", "partial"))):
+        folder = os.path.join("train", "partial", cat)
+        files += [os.path.join(folder, f) for f in sorted(os.listdir(os.path.join(roots["cpu"],
+                                                                                   folder)))]
+    differ = []
+    for f in files:
+        with open(os.path.join(roots["card"], f), "rb") as a, \
+                open(os.path.join(roots["cpu"], f), "rb") as b:
+            if a.read() != b.read():
+                differ.append(f)
+    print(f"{tag} {smi}: render entry over {RENDER_MODELS} synthetic models ({cloud.shape[0]} "
+          f"points, 8 views each; PLY reads and writes included, host clock): card "
+          f"{rates['card']:.2f} models/s, CPU {rates['cpu']:.2f} models/s; {len(files)} files, "
+          f"{len(differ)} differ from the CPU run's", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    if len(files) != 8 * RENDER_MODELS or differ:
+        raise AssertionError(f"{tag} {len(files)} files, differing {differ[:3]}")
+
+
+def obj_on_card(dev):
+    """Phase 17b: ``voxel2obj`` of the flagship's dense prediction (seed 0
+    weights, a synthetic partial) at 64^3 on the card, byte-identical to
+    the CPU path's file."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.metrics.metrics import points_to_voxels
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.utils.obj_io import voxel2obj
+
+    tag = "[17b obj]"
+    torch.manual_seed(0)
+    model = build_model(_smoke_config()).to(dev).eval()
+    partial, _ = synthetic_batch(dev, 1)
+    with torch.no_grad():
+        _, fine = model(partial, None)
+    work = os.path.join(ROOT, "build", "chip_smoke_obj")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    paths = {d: os.path.join(work, f"{d}.obj") for d in ("card", "cpu")}
+    grid = points_to_voxels(fine[0])
+    t = time.perf_counter()
+    voxel2obj(paths["card"], grid)
+    card_s = time.perf_counter() - t
+    voxel2obj(paths["cpu"], points_to_voxels(fine[0].cpu()))
+    with open(paths["card"], "rb") as a, open(paths["cpu"], "rb") as b:
+        data = a.read()
+        same = data == b.read()
+    shutil.rmtree(work, ignore_errors=True)
+    faces = data.count(b"\nf ")
+    print(f"{tag} dense prediction {tuple(fine.shape[1:])} -> {int(grid.sum())} of 64^3 voxels "
+          f"-> {len(data)} bytes of OBJ ({faces} faces) in {card_s:.3f} s (host clock, the "
+          f"file write included); card file == CPU file: {same}", flush=True)
+    if not same or int(grid.sum()) == 0:
+        raise AssertionError(f"{tag} the card's OBJ differs from the CPU path's")
+
+
+def bf16_convergence(dev, smi: str):
+    """Phase 17d: OVERFIT_STEPS guarded train steps of the flagship on one
+    synthetic batch of 8 (``overfit``'s data: one batch again and again;
+    the step of ``training/steps.py``, lr 3e-4, so3, StepLR by epochs of
+    one step as ``overfit`` runs it) in float32 and under the bf16 policy,
+    from the same seed-0 weights; both curves every 20 steps.  Fails on a
+    non-finite loss, or where the final loss (the mean of the last 10
+    steps: one step's loss moves by +-30%) is not below half the first."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.nn.precision import compute_dtype_scope
+    from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
+    from vn_pointcloudcompletion_tpu_torch.training.steps import train_step
+
+    tag = "[17d bf16 convergence]"
+    config = _smoke_config(lr=3e-4, rotation="so3")
+    partial, complete = synthetic_batch(dev, BATCH)
+    curves, finals = {}, {}
+    for name, dtype in (("float32", torch.float32), ("bf16", torch.bfloat16)):
+        torch.manual_seed(0)
+        state = create_train_state(build_model(config).to(dev), config, 1)
+        gen = torch.Generator().manual_seed(1)
+        losses, skipped = [], 0
+        t = time.perf_counter()
+        with compute_dtype_scope(dtype):
+            for _ in range(OVERFIT_STEPS):
+                m = train_step(state, partial, complete, gen)
+                losses.append(m["total"])
+                skipped += int(m["skipped"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        curves[name] = [float(v) for v in losses]
+        finals[name] = statistics.mean(curves[name][-10:])
+        shown = [f"{i}: {curves[name][i] * 1e3:.3f}" for i in range(0, OVERFIT_STEPS, 20)]
+        print(f"{tag} {smi}: {name} total loss x1e3 by step {', '.join(shown)}, "
+              f"{OVERFIT_STEPS - 1}: {curves[name][-1] * 1e3:.3f}; first {curves[name][0] * 1e3:.3f}, "
+              f"final (mean of the last 10) {finals[name] * 1e3:.3f}; {skipped} steps skipped; "
+              f"{wall:.1f} s wall", flush=True)
+        if not all(math.isfinite(v) for v in curves[name]) or not finals[name] < curves[name][0] / 2:
+            raise AssertionError(f"{tag} {name} did not converge: first {curves[name][0]}, "
+                                 f"final {finals[name]}")
+    print(f"{tag} final loss bf16 / float32: {finals['bf16'] / finals['float32']:.4f}", flush=True)
 
 
 def emd_test_path(dev, path: str):
@@ -4448,6 +4654,9 @@ def main() -> int:
     phase("15d scalar VNPCTransformer", scalar_pointr, dev, smi)
     mesh_counts = phase("16a flagship train --mesh 1 (NCCL)", mesh_world_one, dev, smi)
     phase("16b flagship, two ranks on the card (gloo)", mesh_two_ranks, dev, smi)
+    phase("17a partial-scan renderer", render_on_card, dev, smi)
+    phase("17b voxel OBJ export", obj_on_card, dev)
+    phase("17d bf16 convergence, flagship overfit", bf16_convergence, dev, smi)
     # launches: each kernel's count in the training run of its path (K1's:
     # phase 3b's knn() call, its path; no model reaches it: the JAX package
     # takes it only for D > 512; C and C' in group=S mode are on no path:

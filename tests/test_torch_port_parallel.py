@@ -461,8 +461,8 @@ def test_world_of_one_gives_the_bits_of_no_mesh(monkeypatch):
         try:
             m = steps.train_step(state, partial, complete, torch.Generator().manual_seed(0), mesh)
             n_train = len(calls)
-            e = steps.eval_step(model, cfg, partial, complete, torch.Generator().manual_seed(1),
-                                mesh)
+            e, _ = steps.eval_step(model, cfg, partial, complete,
+                                   torch.Generator().manual_seed(1), mesh)
         finally:
             port_mesh.destroy_mesh()
         runs.append((m, e, {k: p.grad for k, p in model.named_parameters()},

@@ -231,10 +231,11 @@ def test_port_never_imports_jax():
         "training/steps", "training/state", "training/trainer", "training/checkpoint",
         "utils/experiments", "metrics/losses", "ops/chamfer", "ops/vn_layer_fused",
         "ops/knn", "ops/knn_pallas", "ops/fps", "ops/fps_pallas", "models/dgcnn",
-        "models/common", "nn/precision",
+        "models/common", "nn/precision", "data/render", "utils/obj_io",
+        "visualization/visualization", "training/flax_msgpack",
     )} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax",
+            assert top not in ("jax", "jaxlib", "flax", "optax", "msgpack",
                                "vn_pointcloudcompletion_tpu"), f"{f}: imports {mod}"

@@ -257,14 +257,28 @@ def test_load_pretrained_encoder_matches_jax(enc, bare, tmp_path):
 
 @pytest.mark.parametrize("fault", ["ckpt", "shape", "missing"])
 def test_load_pretrained_encoder_refuses_as_jax(fault, tmp_path):
-    """A flax ``.ckpt`` path raises ValueError naming the formats the port
-    reads; an encoder tensor of another shape raises ValueError and a
-    missing one KeyError, on both sides."""
+    """A flax ``.ckpt`` tree without one of the encoder's leaves raises
+    ValueError in JAX and KeyError naming it in the port (the port reads
+    JAX's ``.ckpt`` files since they were ported,
+    ``tests/test_torch_port_ckpt.py``); an encoder tensor of another shape
+    raises ValueError and a missing one KeyError, on both sides."""
     jm, init = _random_variables("vn_pointnet", 0)
     model = PCNNet("vn_pointnet", "vn_foldingnet", 64)
     if fault == "ckpt":
-        with pytest.raises(ValueError, match=r"\.pth or \.pt.*msgpack"):
-            load_pretrained_encoder(model, str(tmp_path / "enc.ckpt"), "vn_pointnet")
+        import flax.serialization
+
+        _, v = _random_variables("vn_pointnet", 1)
+        del v["params"]["encoder"]["trunk"]["second_conv_1"]
+        path = str(tmp_path / "enc.ckpt")
+        with open(path, "wb") as f:
+            f.write(flax.serialization.msgpack_serialize(v))
+        jstate = jax_state.TrainState.create(apply_fn=jm.apply, params=init["params"],
+                                             tx=optax.identity(),
+                                             batch_stats=init["batch_stats"])
+        with pytest.raises(ValueError):
+            jax_ckpt.load_pretrained_encoder(jstate, path, enc_type="vn_pointnet")
+        with pytest.raises(KeyError, match="second_conv"):
+            load_pretrained_encoder(model, path, "vn_pointnet")
         return
     sd = _reference_file("vn_pointnet", tmp_path / "enc.pth", bare=False)
     key = "encoder.second_conv.0.map_to_feat.weight"

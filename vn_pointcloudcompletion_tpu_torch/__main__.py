@@ -12,13 +12,15 @@ and ``test``.
 A new ``train`` or ``overfit`` run reads ``config.json`` in the working
 directory and creates ``$OUTPUT_DIR/MM-DD_<name>_NNN/`` (default
 ``./experiments/``) with ``config.json``, ``<command>.log``,
-``metrics.jsonl``, ``models/model_{best,last}.pth`` and
-``optimizer/optim_{best,last}.pth``.  ``--resume`` continues the named run
+``metrics.jsonl``, ``models/model_{best,last}.pth``,
+``optimizer/optim_{best,last}.pth`` and ``visualizations/epoch_NNN.png``
+(one validation sample an epoch, where matplotlib is installed).  ``--resume`` continues the named run
 from its ``last`` pair at the next epoch; ``-from N`` starts a new run
 from the named run's snapshot and its numbered pair ``model_N``/``optim_N``
 (written every ``checkpoint_every`` epochs; ``best`` and ``last`` too) at
 epoch N + 1, and ``--resume`` takes precedence over it.  ``--ckpt_path``
-loads a pretrained encoder (a ``.pth`` state dict) and freezes it.
+loads a pretrained encoder (a ``.pth`` state dict, or a flax msgpack
+``.ckpt`` of the JAX package) and freezes it.
 ``predict`` and ``test`` read the named run's ``model_best.pth`` (or
 ``model_last.pth``).  ``overfit`` trains and validates on ``batch_size``
 synthetic samples.  ``--mesh N`` trains data-parallel on N cards of this
@@ -44,7 +46,8 @@ def main(argv=None):
     parser.add_argument("--resume", action="store_true",
                         help="use (train: continue) the named experiment")
     parser.add_argument("--ckpt_path", type=str, default=None,
-                        help="path of a pretrained encoder checkpoint (.pth), loaded and frozen")
+                        help="path of a pretrained encoder checkpoint (.pth, or a JAX "
+                             "package .ckpt), loaded and frozen")
     parser.add_argument("-from", "--from_epoch", type=str, default=0,
                         help="branch a NEW run from -n <src run>'s numbered "
                              "checkpoint: an epoch, 'best' or 'last'")

@@ -12,7 +12,9 @@ between the two renames), as the JAX package's epoch markers do.
 
 :func:`load_pretrained_encoder` reads an encoder pretrained elsewhere (the
 reference's ``enc_pretrained``, ``models/model.py:29-39``) into a model, as
-the JAX package's ``training/checkpoint.py:101-141`` does.
+the JAX package's ``training/checkpoint.py:101-141`` does: from a torch
+state dict, or from one of the JAX package's own flax msgpack ``.ckpt``
+files (``training/flax_msgpack.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,11 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from vn_pointcloudcompletion_tpu_torch.training.interop import encoder_state_dict_from_torch
+from vn_pointcloudcompletion_tpu_torch.training import flax_msgpack
+from vn_pointcloudcompletion_tpu_torch.training.interop import (
+    encoder_state_dict_from_torch,
+    state_dict_from_jax_variables,
+)
 
 
 def model_path(exp_dir: str, name: str) -> str:
@@ -122,28 +128,98 @@ def load_model(exp_dir: str, model: nn.Module,
 
 def load_pretrained_encoder(model: nn.Module, path: str,
                             enc_type: str = "vn_pointnet") -> List[str]:
-    """Load a torch ``.pth``/``.pt`` state dict's encoder into
-    ``model.encoder`` in place, non-strictly as the JAX package's
-    ``load_pretrained_encoder`` merges it (``torch_interop.py:257-372``):
-    every parameter and BatchNorm running statistic of the encoder comes
-    from the file, but for the keys JAX's converters leave at their init
-    (``interop.PRETRAINED_SKIPPED``: vn_pointr's coarse head and decoder
-    stack); a missing key or another shape raises.  The file may hold a
-    whole ``PCNNet`` (keys under ``encoder.``) or a bare encoder.  Returns
-    the keys loaded.
+    """Load a pretrained encoder from ``path`` into ``model.encoder`` in
+    place; returns the keys loaded.  A missing key raises KeyError and
+    another shape ValueError, each naming the key.
 
-    The JAX package also reads its own flax msgpack ``.ckpt`` files here;
-    the port reads torch state dicts only."""
-    if not path.endswith((".pth", ".pt")):
-        raise ValueError(
-            f"pretrained encoder {path!r}: the port reads a torch state dict "
-            "(.pth or .pt: a reference or port checkpoint); the JAX package's "
-            "flax msgpack .ckpt files are not read by the port")
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+    - A torch ``.pth``/``.pt`` state dict, non-strictly as the JAX
+      package's ``load_pretrained_encoder`` merges it
+      (``torch_interop.py:257-372``): every parameter and BatchNorm running
+      statistic of the encoder comes from the file, but for the keys JAX's
+      converters leave at their init (``interop.PRETRAINED_SKIPPED``:
+      vn_pointr's coarse head and decoder stack).  The file may hold a
+      whole ``PCNNet`` (keys under ``encoder.``) or a bare encoder.
+    - A flax msgpack ``.ckpt`` of the JAX package: a whole-model
+      ``model_*.ckpt`` (``{params, batch_stats, epoch}``) or a bare encoder
+      tree, as JAX reads it (``training/checkpoint.py:126-140``): the
+      encoder's parameters ``params["encoder"]`` (or the whole ``params``),
+      its running statistics from ``batch_stats["encoder"]`` where the file
+      has them (else they keep theirs), carried to the port's keys by
+      ``interop.state_dict_from_jax_variables``.  Every tensor of the
+      encoder is loaded, strictly, as flax's ``from_state_dict`` does."""
     own = model.encoder.state_dict()
-    loaded = encoder_state_dict_from_torch(
-        sd, {k: v.shape for k, v in own.items()}, enc_type)
+    if path.endswith((".pth", ".pt")):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        loaded = encoder_state_dict_from_torch(
+            sd, {k: v.shape for k, v in own.items()}, enc_type)
+    elif path.endswith(".ckpt"):
+        loaded = _encoder_from_flax(flax_msgpack.read_tree(path), own, enc_type)
+    else:
+        raise ValueError(
+            f"pretrained encoder {path!r}: reads a torch state dict (.pth or .pt: a "
+            "reference or port checkpoint) or a JAX package flax msgpack .ckpt")
     with torch.no_grad():
         for k, t in loaded.items():
             own[k].copy_(t)
     return sorted(loaded)
+
+
+def _host_array(t):
+    """A decoded leaf as numpy for the interop mappers (bf16 widened to
+    float32, exactly)."""
+    if isinstance(t, torch.Tensor):
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return t
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _placeholder_stats(params):
+    """A batch_stats tree shaped as ``params``' BatchNorms (``mean`` and
+    ``var`` beside each ``BatchNorm_0``'s ``scale``), for a file that holds
+    no statistics: the mappers then run, and the statistics are not
+    loaded."""
+    out = {}
+    for k, v in params.items():
+        if not isinstance(v, dict):
+            continue
+        if k == "BatchNorm_0":
+            out[k] = {"mean": v["scale"], "var": v["scale"]}
+        else:
+            sub = _placeholder_stats(v)
+            if sub:
+                out[k] = sub
+    return out
+
+
+def _encoder_from_flax(blob, own: dict, enc_type: str) -> dict:
+    """The port encoder's tensors from a decoded JAX checkpoint tree: its
+    ``params["encoder"]`` (or the whole ``params`` of a bare encoder tree)
+    and ``batch_stats["encoder"]`` where present, as JAX takes them."""
+    params = blob["params"].get("encoder", blob["params"])
+    stats = (blob.get("batch_stats") or {}).get("encoder")
+    params = _tree_map(_host_array, params)
+    has_stats = stats is not None
+    stats = _tree_map(_host_array, stats) if has_stats else _placeholder_stats(params)
+    try:
+        sd = state_dict_from_jax_variables(
+            {"params": {"encoder": params}, "batch_stats": {"encoder": stats}})
+    except KeyError as e:
+        raise KeyError(f"JAX {enc_type} encoder tree: no {e} where the mapping "
+                       "reads it") from None
+    sd = {k[len("encoder."):]: t for k, t in sd.items() if k.startswith("encoder.")}
+    out = {}
+    for k, t in own.items():
+        if not has_stats and k.endswith(("running_mean", "running_var")):
+            continue
+        if k not in sd:
+            raise KeyError(f"JAX {enc_type} encoder tree: no tensor for {k}")
+        if tuple(sd[k].shape) != tuple(t.shape):
+            raise ValueError(f"shape mismatch in pretrained load: {k} {tuple(t.shape)} vs "
+                             f"{tuple(sd[k].shape)}")
+        out[k] = sd[k]
+    return out

@@ -39,7 +39,7 @@ parity with JAX's option.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -147,11 +147,14 @@ def train_step(state: TrainState, partial: torch.Tensor, complete: torch.Tensor,
 
 @torch.no_grad()
 def eval_step(model, config: Config, partial: torch.Tensor, complete: torch.Tensor,
-              generator: torch.Generator,
-              mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+              generator: torch.Generator, mesh: Optional[Mesh] = None
+              ) -> Tuple[Dict[str, torch.Tensor], Tuple[torch.Tensor, ...]]:
     """Validation: batch sums of ``l1_cd`` for the coarse and dense clouds,
     under ``val_rotation``, with the running statistics; under a ``mesh``
-    summed over the ranks' rows."""
+    summed over the ranks' rows.  Returns ``(sums, (partial, coarse, fine,
+    complete))`` as JAX's ``eval_step`` does: the rotated clouds of the
+    batch (the rank's rows under a ``mesh``), on the device; ``fine`` is
+    None under ``only_coarse``."""
     check_step_mesh(mesh)
     rot, partial, complete = _rotate(generator, config.val_rotation, partial, complete, mesh)
     model.eval()
@@ -163,5 +166,5 @@ def eval_step(model, config: Config, partial: torch.Tensor, complete: torch.Tens
         sums = torch.stack([out["coarse_sum"], out["dense_sum"]])
         dist.all_reduce(sums)
         out = {"coarse_sum": sums[0], "dense_sum": sums[1]}
-    return out
+    return out, (partial, coarse, fine, complete)
 

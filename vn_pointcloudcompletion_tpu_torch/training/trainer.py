@@ -10,10 +10,20 @@ validation total improves, ``last`` every ``checkpoint_last_every`` epochs
 
 The scalars the JAX trainer writes with tensorboardX (``Loss/Batch/*``,
 ``Loss/Epoch/*``) go to ``<exp_dir>/metrics.jsonl``, one JSON object per
-line: ``{"split", "tag", "step", "value"}``.  The per-epoch PNG of one
-validation cloud is not drawn (it needs ``plot_pcd_one_view``: ROADMAP.md,
-queue 1, item 8).  The step's metrics stay on the card until the end of
-the epoch, apart from the log points.
+line: ``{"split", "tag", "step", "value"}``.  The step's metrics stay on
+the card until the end of the epoch, apart from the log points.
+
+Each epoch draws one validation sample and writes its clouds to
+``<exp_dir>/visualizations/epoch_{epoch:03d}.png`` (Input, Coarse, Dense,
+Ground Truth; no Dense under ``only_coarse``), as JAX does
+(``training/trainer.py:187,249,259-264,290,347-365``): from
+``np.random.default_rng(seed + 17)``, made anew by every run (``--resume``
+and ``-from`` too), the validation batch before validation and the sample
+within it at the save, so the port draws JAX's batch and sample epoch by
+epoch.  Only that sample's rotated clouds (``eval_step``'s) are copied to
+the host.  Where matplotlib is not installed (an optional host package:
+the figure is the only thing that needs it) the run makes the same draws,
+logs one warning naming the package and writes no PNG.
 
 With a ``mesh`` (``--mesh``; ``parallel/``) the run is one rank of a
 data-parallel group (JAX ``training/trainer.py:57-63,79-95,168-173``):
@@ -25,8 +35,11 @@ of the one-process epoch over the same batches, ShapeNet and synthetic
 alike.  The validation loader drops its short last batch, and the
 validation means divide by the global count of samples evaluated.  Every
 rank restores ``--resume``, ``-from`` and ``enc_pretrained`` and then takes
-rank 0's state (``shard_state``); only rank 0 writes checkpoints and
-scalars.
+rank 0's state (``shard_state``); only rank 0 writes checkpoints,
+scalars and the figure.  JAX counts the ranks of one host as one process
+holding the global batch, so it draws the figure's sample over the global
+batch: every rank makes the same draws, and the rank holding the sample
+broadcasts its clouds to rank 0.
 
 Before the first epoch, in the JAX trainer's order
 (``training/trainer.py:125-163``): a pretrained encoder
@@ -45,7 +58,9 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from vn_pointcloudcompletion_tpu_torch.data.pipeline import BatchLoader, device_prefetch
 from vn_pointcloudcompletion_tpu_torch.data.shapenet import ShapeNetPCN
@@ -69,6 +84,7 @@ from vn_pointcloudcompletion_tpu_torch.training.steps import eval_step, train_st
 from vn_pointcloudcompletion_tpu_torch.utils.config import Config
 from vn_pointcloudcompletion_tpu_torch.utils.device import resolve_device
 from vn_pointcloudcompletion_tpu_torch.utils.experiments import get_num_params_total
+from vn_pointcloudcompletion_tpu_torch.visualization import plot_pcd_one_view
 
 log = logging.getLogger("train")
 log_dataset = logging.getLogger("dataset")
@@ -107,6 +123,56 @@ class _Scalars:
     def close(self) -> None:
         if self._f is not None:
             self._f.close()
+
+
+class _EpochFigure:
+    """The per-epoch PNG of one validation sample, drawn as JAX draws it
+    (see the module docstring)."""
+
+    def __init__(self, config: Config, mesh: Optional[Mesh]):
+        self.config, self.mesh = config, mesh
+        self.rng = np.random.default_rng(config.seed + 17)
+        self.dir = os.path.join(config.exp_dir, "visualizations")
+        self.warned = False
+
+    def draw_batch(self, n_batches: int) -> int:
+        """The validation batch whose clouds the figure shows."""
+        return int(self.rng.integers(0, max(n_batches, 1)))
+
+    def save(self, epoch: int, clouds) -> None:
+        """Draw the sample of the batch's ``clouds`` (``eval_step``'s, the
+        rank's rows under a mesh); rank 0 writes its figure."""
+        world = 1 if self.mesh is None else self.mesh.world
+        local = clouds[0].shape[0]
+        index = int(self.rng.integers(0, local * world))
+        row = [None if c is None else c[index % local] for c in clouds]
+        owner = index // local
+        if owner:  # another rank's sample: it broadcasts the rows, every rank takes part
+            shown = [c for c in row if c is not None]
+            flat = torch.cat([c.reshape(-1) for c in shown])
+            dist.broadcast(flat, owner)
+            parts = iter(flat.split([c.numel() for c in shown]))
+            row = [None if c is None else next(parts).view(c.shape) for c in row]
+        if self.mesh is not None and not self.mesh.is_main:
+            return
+        partial, coarse, fine, complete = (None if c is None else c.cpu() for c in row)
+        lims = dict(xlim=(-0.35, 0.35), ylim=(-0.35, 0.35), zlim=(-0.35, 0.35))
+        if self.config.only_coarse or fine is None:
+            pcds, titles = [partial, coarse, complete], ["Input", "Coarse", "Ground Truth"]
+        else:
+            pcds = [partial, coarse, fine, complete]
+            titles = ["Input", "Coarse", "Dense", "Ground Truth"]
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, f"epoch_{epoch:03d}.png")
+        try:
+            plot_pcd_one_view(path, pcds, titles, **lims)
+        except ModuleNotFoundError as e:
+            if e.name != "matplotlib":
+                raise
+            if not self.warned:
+                log.warning("matplotlib is not installed: no per-epoch PNG is written "
+                            f"under {self.dir}")
+                self.warned = True
 
 
 def train(config: Config, resume: bool = False, device="cuda",
@@ -200,6 +266,7 @@ def _train(config: Config, resume: bool, device, mesh: Optional[Mesh]) -> dict:
     step_every = max(n_batches // max(config.log_frequency, 1), 1)
     last_every = max(config.checkpoint_last_every, 1)
     scalars = _Scalars(config.exp_dir if writes else None)
+    figure = _EpochFigure(config, mesh)
     epochs_run = 0
     pending_best = None  # (payload, epoch) of a best model not written yet
     try:
@@ -243,12 +310,16 @@ def _train(config: Config, resume: bool, device, mesh: Optional[Mesh]) -> dict:
                 scalars.add("train", "Loss/Epoch/SkippedSteps", n_skipped, epoch)
 
             val = {"coarse": 0.0, "dense": 0.0}
+            rand_iter = figure.draw_batch(len(val_loader))
+            viz = None
             n_evaluated = 0
-            for p, c in device_prefetch(val_loader, dev):
-                out = eval_fn(model, config, p, c, generator)
+            for i, (p, c) in enumerate(device_prefetch(val_loader, dev)):
+                out, clouds = eval_fn(model, config, p, c, generator)
                 val["coarse"] += float(out["coarse_sum"])
                 val["dense"] += float(out["dense_sum"])
                 n_evaluated += p.shape[0] * world
+                if i == rand_iter:
+                    viz = clouds
             if n_evaluated == 0:
                 log.warning("validation evaluated 0 batches (dataset smaller than the "
                             "mesh-divisible batch size); skipping the best-checkpoint update")
@@ -262,6 +333,8 @@ def _train(config: Config, resume: bool, device, mesh: Optional[Mesh]) -> dict:
                 "Validate Epoch [{:03d}/{:03d}]: Coarse = {:.6f}, Dense = {:.6f},"
                 " Total = {:.6f}".format(epoch, end_epoch, val_coarse * 1e3,
                                          val_dense * 1e3, val_total * 1e3))
+            if viz is not None:
+                figure.save(epoch, viz)
 
             if n_evaluated > 0 and val_total < best_cd_l1:
                 best_epoch_l1, best_cd_l1 = epoch, val_total
