@@ -20,17 +20,19 @@ on one NVIDIA GPU:
    against autograd of their plain chains.  Every row prints its share of
    its bound, and its time a call in a run of calls back to back
    (``stream_ms``: the wrapper's host time hidden behind the card's).  Each B, C, S, S', C' and B' row names the design it took (C,
-   S, S', C' wide at C_in, C_out >= 16, else narrow; B the store stream and
-   B' fused at C_in <= 2, else narrow), its TFLOP/s, GB/s and share of its
-   bound, and, for a wide, fused or stream row, the narrow design's time at
-   the same shape in the same call; B's stream design must give the narrow
-   design's bits (float32 and bf16, groups 0 and 64); bf16 C (wide: the
+   S, S', C' wide at C_in, C_out >= 16; at C_in <= 2 B the store stream, S
+   the channel walk "stream", S' and B' the fused walk; else narrow), its
+   TFLOP/s, GB/s and share of its bound, and, for a wide, fused or stream
+   row, the narrow design's time at the same shape in the same call (S and
+   S' at C_in <= 2: a call, back to back and on the device, each with its
+   share of the bound, ``walk_vs_narrow``); B's and S's stream designs must
+   give the narrow design's bits (float32 and bf16, groups 0 and 64); bf16 C (wide: the
    tensor cores) is held to BF16_C_RMS, its mutant at least 4x beyond; D
    (one sweep for both directions) is also timed at the training loss's
    coarse pair (1024 x 16384) and at 448 x 14336, twice for equal bits;
-   S is timed at final_conv.0's 2 -> 256 (narrow) and at 256 -> 128 (wide,
-   both types), and its wide design's bits are compared with the narrow
-   one's; S' at final_conv.0's 2 -> 256 (narrow, both types); F at the
+   S is timed at final_conv.0's 2 -> 256 (stream, both types) and at 256 ->
+   128 (wide, both types), and its wide design's bits are compared with the
+   narrow one's; S' at final_conv.0's 2 -> 256 (fused, both types); F at the
    paths' 2048 -> 512, 512 -> 128 and 2048 -> 224 with its dependency floor
    (the same launch without the per-point arithmetic), K3 in both modes at
    the five path shapes (EDGE_SHAPES: "coords" over coordinates, "tiled"
@@ -122,8 +124,9 @@ on one NVIDIA GPU:
    one DecisionTape against the plain path in bf16 and in float32, a mutant
    of kernel C caught; the flagship metric step counted; median times of
    each in float32 and bf16.  Phase 3 holds the bf16 modes (A, B at group 0
-   and 64, C, K3) against their plain bf16 versions, bounds at the bf16
-   tensor-core rate.
+   and 64, C, K3) against their plain bf16 versions, bounds with the
+   products at the bf16 tensor-core rate and the float32 elementwise work
+   at the FP32 rate (A's and K3's all float32).
 13. The bfloat16 policy's training path: ``train`` + ``train --resume``
    on the root ``config.json`` (vn_pointr + attention_vn_foldingnet at
    448, dtype bfloat16, batch 8; synthetic data at full width), the
@@ -133,8 +136,8 @@ on one NVIDIA GPU:
    versions in the kernels' place and through the plain path in bf16 and
    float32, each gradient held to two bounds, and a mutant of C''s bf16
    backward caught; the designs of both steps' S, S' and C' launches asserted
-   (BF16_STEP_DESIGNS); float32/bf16 step times of the flagship and
-   vn_pointr_448.  Phase 3 holds the bf16 modes of the training kernels
+   (BF16_STEP_DESIGNS); float32/bf16 step times and peaks of the flagship
+   and vn_pointr_448.  Phase 3 holds the bf16 modes of the training kernels
    (A'; S, S', B' at group 0 and 64; C') against their plain bf16 versions,
    twice for equal bits.
 14. The trainer's options.  (a) ``remat`` on the flagship in float32 at
@@ -381,23 +384,24 @@ STEP_LAUNCHES = {path: {k.replace("[bf16]", "").replace(",bf16]", "]"): v
 BF16_TRAIN_EPOCHS = 2  # phase 13's train epochs before --resume
 # The design of every B, C, S, S', C' and B' launch of one train step
 # (cuda_lib.variant_counts(); ops/vn_layer_fused.py::forward_design,
-# backward_design, layer_fwd_design, layer_bwd_design, stats_design): C, S,
-# S' and C' wide at C_in, C_out >= 16 (final_conv.1's 256 -> 256,
-# vn_folding{1,2}.1's 256 -> 128), S and S' narrow below (final_conv.0's 2
-# -> 256, conv1's 2 -> 32, the pair folds' 1 -> 256 at group 64); B the
-# store stream and B' fused at C_in <= 2 (final_conv.0, conv1, the pair
-# folds); vn_pointr's F, K2 (coords) and K3 (on its features: tiled) too,
-# and A in bf16 (run8; float32 A has one design and counts none).  Phase
-# 5b (float32) and phase 13 (bf16) assert them.
-# Kernel S (ops/vn_layer_fused.py::stats_design) takes the same widths'
-# designs as S' in every train step: STATS_STEP_DESIGNS, asserted for each
-# counted training run of phases 5, 7, 9 and 13 (check_stats_designs) and
-# inside the per-step tables below.
+# backward_design, layer_fwd_design, layer_bwd_design, stats_design,
+# stats_bwd_design): C, S, S' and C' wide at C_in, C_out >= 16
+# (final_conv.1's 256 -> 256, vn_folding{1,2}.1's 256 -> 128); at C_in <= 2
+# (final_conv.0's 2 -> 256, conv1's 2 -> 32, the pair folds' 1 -> 256 at
+# group 64) B the store stream, S the channel walk ("stream"), S' and B'
+# the fused walk: no S or S' launch takes the narrow design; vn_pointr's
+# F, K2 (coords) and K3 (on its features: tiled) too, and A in bf16 (run8;
+# float32 A has one design and counts none).  Phase 5b (float32) and phase
+# 13 (bf16) assert them.
+# Kernel S (ops/vn_layer_fused.py::stats_design) takes the wide design
+# where S' does and walks its channels where S' fuses: STATS_STEP_DESIGNS,
+# asserted for each counted training run of phases 5, 7, 9 and 13
+# (check_stats_designs) and inside the per-step tables below.
 STATS_STEP_DESIGNS = {
-    "flagship": {"vn_layer_stats_fwd/narrow": 1, "vn_layer_stats_fwd/wide": 1},
-    "vn_dgcnn": {"vn_layer_stats_fwd/narrow": 2, "vn_layer_stats_fwd/wide": 1},
-    "vn_pointr_448": {"vn_layer_stats_fwd/narrow": 1, "vn_layer_stats_fwd/wide": 2,
-                      "vn_layer_stats_fwd[group]/narrow": 2},
+    "flagship": {"vn_layer_stats_fwd/stream": 1, "vn_layer_stats_fwd/wide": 1},
+    "vn_dgcnn": {"vn_layer_stats_fwd/stream": 2, "vn_layer_stats_fwd/wide": 1},
+    "vn_pointr_448": {"vn_layer_stats_fwd/stream": 1, "vn_layer_stats_fwd/wide": 2,
+                      "vn_layer_stats_fwd[group]/stream": 2},
 }
 STATS_STEP_DESIGNS["vn_pointr_448_dec"] = STATS_STEP_DESIGNS["vn_pointr_448"]
 
@@ -408,18 +412,18 @@ def bf16_designs(designs: dict) -> dict:
             else k.replace("/", "[bf16]/"): v for k, v in designs.items()}
 
 
-FLAGSHIP_STEP_DESIGNS = {"vn_layer_stats_bwd/narrow": 1, "vn_layer_stats_bwd/wide": 1,
+FLAGSHIP_STEP_DESIGNS = {"vn_layer_stats_bwd/fused": 1, "vn_layer_stats_bwd/wide": 1,
                          "vn_layer_fused_fwd/stream": 1, "vn_layer_fused_project_bwd/wide": 1,
                          "vn_layer_fused_project_fwd/wide": 1, "vn_layer_fused_bwd/fused": 1,
                          **STATS_STEP_DESIGNS["flagship"]}
 BF16_STEP_DESIGNS = {
     "flagship": {"vn_bn_leaky_fwd[bf16]/run8": 2,
-                 "vn_layer_stats_bwd[bf16]/narrow": 1, "vn_layer_stats_bwd[bf16]/wide": 1,
+                 "vn_layer_stats_bwd[bf16]/fused": 1, "vn_layer_stats_bwd[bf16]/wide": 1,
                  "vn_layer_fused_fwd[bf16]/stream": 1, "vn_layer_fused_project_bwd[bf16]/wide": 1,
                  "vn_layer_fused_project_fwd[bf16]/wide": 1, "vn_layer_fused_bwd[bf16]/fused": 1,
                  **bf16_designs(STATS_STEP_DESIGNS["flagship"])},
-    "vn_pointr_448": {"vn_layer_stats_bwd[bf16]/narrow": 1, "vn_layer_stats_bwd[bf16]/wide": 2,
-                      "vn_layer_stats_bwd[group,bf16]/narrow": 2,
+    "vn_pointr_448": {"vn_layer_stats_bwd[bf16]/fused": 1, "vn_layer_stats_bwd[bf16]/wide": 2,
+                      "vn_layer_stats_bwd[group,bf16]/fused": 2,
                       "vn_layer_fused_fwd[bf16]/stream": 1,
                       "vn_layer_fused_fwd[group,bf16]/stream": 2,
                       "vn_layer_fused_project_bwd[bf16]/wide": 2,
@@ -607,10 +611,12 @@ def graph_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float, peak_ops: float = PEAK_FP32):
-    """Least time for the work on the card: (ms, what bounds it)."""
+def bound(nbytes: float, ops: float, peak_ops: float = PEAK_FP32, fp32_ops: float = 0.0):
+    """Least time for the work on the card: (ms, what bounds it).  ``ops``
+    at ``peak_ops`` (a bf16 kernel's products: the bf16 tensor-core rate),
+    plus ``fp32_ops`` (its elementwise float32 work) at the FP32 rate."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / peak_ops * 1e3
+    t_ops = (ops / peak_ops + fp32_ops / PEAK_FP32) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -622,7 +628,7 @@ def narrow_designs():
     from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
 
     chooser = ("backward_design", "forward_design", "layer_bwd_design", "layer_fwd_design",
-               "stats_design")
+               "stats_design", "stats_bwd_design")
     saved = [getattr(vn_layer_fused, name) for name in chooser]
     for name in chooser:
         setattr(vn_layer_fused, name, lambda *widths: "narrow")
@@ -718,22 +724,44 @@ def launched_designs(fn):
                        if v != before.get(k, 0))
 
 
-def versus_parent(rec: dict, fn, reps: int = 20) -> None:
-    """A redesigned kernel's row (K1, K2 and A bf16) against its parent design
-    at the same shape in the same call: the parent's time a call
-    (``cuda_ms``), back to back (``stream_ms``) and on the device alone
-    (``graph_ms``), printed first, then the new design's, each with its
-    share of the row's bound; kept in the row."""
-    with parent_designs():
-        parent = cuda_ms(fn, reps), stream_ms(fn, reps), graph_ms(fn)
+def versus_parent(rec: dict, fn, reps: int = 20, parent: str = "parent") -> None:
+    """A redesigned kernel's row (K1, K2 and A bf16; ``parent`` "narrow": S
+    and S' at C_in <= 2) against its parent design (``parent_designs``;
+    ``narrow_designs``) at the same shape in the same call: the parent's
+    time a call (``cuda_ms``), back to back (``stream_ms``) and on the
+    device alone (``graph_ms``), printed first, then the new design's, each
+    with its share of the row's bound; kept in the row under
+    ``<parent>_ms``, ``<parent>_stream_ms`` and ``<parent>_graph_ms``."""
+    with (parent_designs() if parent == "parent" else narrow_designs()):
+        old = cuda_ms(fn, reps), stream_ms(fn, reps), graph_ms(fn)
     new = rec["ms"], stream_ms(fn, reps), graph_ms(fn)
     bound_ms = rec["bound_ms"]
-    for who, (ms, b2b, dev_ms) in (("parent design", parent), (f"{rec['design']} design", new)):
-        print(f"[kernel {rec['name']}] {who}: {ms:.4f} ms a call, {b2b:.4f} back to back, "
-              f"{dev_ms:.4f} on the device; {bound_ms / dev_ms:.1%} of the bound on the "
-              f"device ({bound_ms / b2b:.1%} back to back)", flush=True)
-    rec.update({"stream_ms": new[1], "graph_ms": new[2], "parent_ms": parent[0],
-                "parent_stream_ms": parent[1], "parent_graph_ms": parent[2]})
+    for who, (ms, b2b, dev_ms) in ((f"{parent} design", old), (f"{rec['design']} design", new)):
+        print(f"[kernel {rec['name']}] {who}: {ms:.4f} ms a call ({bound_ms / ms:.1%} of the "
+              f"bound), {b2b:.4f} back to back ({bound_ms / b2b:.1%}), {dev_ms:.4f} on the "
+              f"device ({bound_ms / dev_ms:.1%})", flush=True)
+    rec.update({"stream_ms": new[1], "graph_ms": new[2], f"{parent}_ms": old[0],
+                f"{parent}_stream_ms": old[1], f"{parent}_graph_ms": old[2]})
+
+
+def walk_vs_narrow(rec: dict, fn, same_bits: bool, reps: int = 10) -> None:
+    """Kernel S's or S''s row at C_in <= 2 (the channel walk) beside the
+    narrow design (``versus_parent``), and, for S (``same_bits``), the
+    walk's (s1, s2) equal to the narrow design's on the same inputs (fails
+    otherwise)."""
+    import torch
+
+    versus_parent(rec, fn, reps, "narrow")
+    if same_bits:
+        walk = fn()
+        with narrow_designs():
+            narrow = fn()
+        same = all(torch.equal(a, b) for a, b in zip(walk, narrow))
+        print(f"[kernel {rec['name']}] the {rec['design']} design's (s1, s2) bitwise equal to "
+              f"the narrow design's: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"kernel {rec['name']}: the stream design differs from the "
+                                 "narrow one")
 
 
 def narrow_ms(fn, reps: int) -> float:
@@ -837,9 +865,10 @@ def check_kernels(dev):
 
     def record(name, source, replaces, kernel_fn, plain_fn, compare, tol,
                work_bytes, work_ops, reps=20, plain_reps=5, repro=False,
-               library_fn=None, peak_ops=PEAK_FP32, versus=False):
+               library_fn=None, peak_ops=PEAK_FP32, versus=False, fp32_ops=0.0):
         """One row of the kernels line; ``versus``: the caller goes on to
-        ``versus_parent``, which times the parent design."""
+        ``versus_parent``, which times the parent design; ``work_ops`` at
+        ``peak_ops`` and ``fp32_ops`` at the FP32 rate (``bound``)."""
         got, designs = launched_designs(kernel_fn)
         want = plain_fn()
         torch.cuda.synchronize()
@@ -851,7 +880,7 @@ def check_kernels(dev):
             print(f"[kernel {name}] second launch bitwise equal: {same}")
             ok = ok and same
             del again
-        b_ms, b_by = bound(work_bytes, work_ops, peak_ops)
+        b_ms, b_by = bound(work_bytes, work_ops, peak_ops, fp32_ops)
         rec = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
@@ -878,7 +907,8 @@ def check_kernels(dev):
                               f"{stream_ms(kernel_fn, max(3, reps // 2)):.4f} back to back")
             rec["design"] = "/".join(designs)
             print(f"[kernel {name}] {'/'.join(designs)} design: "
-                  f"{work_ops / rec['ms'] / 1e9:.2f} TFLOP/s, {work_bytes / rec['ms'] / 1e6:.1f} "
+                  f"{(work_ops + fp32_ops) / rec['ms'] / 1e9:.2f} TFLOP/s, "
+                  f"{work_bytes / rec['ms'] / 1e6:.1f} "
                   f"GB/s, {b_ms / rec['ms']:.1%} of the bound{narrow}", flush=True)
         if not ok:
             raise AssertionError(f"kernel {name} disagrees with its plain version")
@@ -944,28 +974,32 @@ def check_kernels(dev):
     del p, d, g_
 
     # S, S': the train-mode statistics of decoder final_conv.1 (256 -> 256,
-    # S wide) and final_conv.0 (2 -> 256, per-sample bias: S narrow, timed;
-    # S' checked only)
+    # wide) and final_conv.0 (2 -> 256, per-sample bias: the channel walk,
+    # S's stream and S''s fused design, each beside the narrow design and S
+    # equal to its bits)
     n = 16384
     src_b = "vn_pointcloudcompletion_tpu_torch/csrc/vn_layer_bwd.cu"
     x2 = randn(BATCH, 3, 2, n, scale=0.3)
     w2 = uniform(-0.02, 0.02, 256, 2)
     pb2 = randn(BATCH, 3, 256, 1)
     vecs = BATCH * 256 * n
-    record("S vn_layer_stats 2 -> 256", src_b,
-           "vn_pointcloudcompletion_tpu/ops/vn_layer_fused.py:278",
-           lambda: vn_layer_fused.stats_fwd(x2, w2, pb2),
-           lambda: vn_layer_fused.reference_stats(x2, w2, pb2),
-           rel_close(1e-5), "1e-5 x max", nbytes(x2, w2, pb2) + 2 * 4 * 256,
-           2 * 3 * vecs * 2 + 12 * vecs, reps=10, repro=True)
+    fn = lambda: vn_layer_fused.stats_fwd(x2, w2, pb2)  # noqa: E731
+    rec = record("S vn_layer_stats 2 -> 256", src_b,
+                 "vn_pointcloudcompletion_tpu/ops/vn_layer_fused.py:278", fn,
+                 lambda: vn_layer_fused.reference_stats(x2, w2, pb2),
+                 rel_close(1e-5), "1e-5 x max", nbytes(x2, w2, pb2) + 2 * 4 * 256,
+                 2 * 3 * vecs * 2 + 12 * vecs, reps=10, repro=True, versus=True)
+    walk_vs_narrow(rec, fn, same_bits=True)
     c1, c2 = randn(256, scale=1e-4), randn(256, scale=1e-5)
-    # S' at final_conv.0 (narrow passes): p, dx and dW, each a 2-deep product
-    record("S' vn_layer_stats backward 2 -> 256", src_b,
-           "vn_pointcloudcompletion_tpu/ops/vn_layer_fused.py:325",
-           lambda: vn_layer_fused.stats_bwd(x2, w2, pb2, c1, c2),
-           lambda: vn_layer_fused.reference_stats_bwd(x2, w2, pb2, c1, c2),
-           rel_close(1e-4), "1e-4 x max", 2 * nbytes(x2, w2, pb2) + nbytes(c1, c2),
-           3 * 2 * 3 * vecs * 2 + 18 * vecs, reps=10, plain_reps=3, repro=True)
+    # S' at final_conv.0 (fused): p, dx and dW, each a 2-deep product
+    fn = lambda: vn_layer_fused.stats_bwd(x2, w2, pb2, c1, c2)  # noqa: E731
+    rec = record("S' vn_layer_stats backward 2 -> 256", src_b,
+                 "vn_pointcloudcompletion_tpu/ops/vn_layer_fused.py:325", fn,
+                 lambda: vn_layer_fused.reference_stats_bwd(x2, w2, pb2, c1, c2),
+                 rel_close(1e-4), "1e-4 x max", 2 * nbytes(x2, w2, pb2) + nbytes(c1, c2),
+                 3 * 2 * 3 * vecs * 2 + 18 * vecs, reps=10, plain_reps=3, repro=True,
+                 versus=True)
+    walk_vs_narrow(rec, fn, same_bits=False)
     x = randn(BATCH, 3, 256, n)
     w = uniform(-1 / 16, 1 / 16, 256, 256)
     prod = 2 * 3 * vecs * 256  # one (256 x 256) map over all planes and points
@@ -1123,7 +1157,9 @@ def check_bf16_kernels(dev, record, randn, uniform):
     -> 128 -> 1 (N 14336, group 64): within BF16_C_RMS in root mean square,
     the mutant (x BF16_MUTANT) at least 4x beyond, the differing count
     printed; twice for equal bits.  Bounds: bytes at 2 per activation
-    element, operations at the dense bf16 tensor-core rate."""
+    element; the products' operations at the dense bf16 tensor-core rate
+    plus the elementwise float32 operations at the FP32 rate (``bound``;
+    A, with no products, all at the FP32 rate)."""
     import torch
 
     from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas, vn_fused, vn_layer_fused
@@ -1163,7 +1199,7 @@ def check_bf16_kernels(dev, record, randn, uniform):
            lambda: vn_layer_fused.vn_layer_fused(x, w, wd, pb, db, a, b, NS),
            lambda: vn_layer_fused.reference_layer_fused(x, w, wd, pb, db, a, b, NS),
            equal, "equal to the bit", nbytes(x, w, wd, pb, db, a, b) + 2 * 3 * vecs,
-           2 * 3 * vecs * 2 * 2 + 38 * vecs, repro=True, peak_ops=PEAK_BF16)
+           2 * 3 * vecs * 2 * 2, repro=True, peak_ops=PEAK_BF16, fp32_ops=38 * vecs)
     layer_stream_vs_narrow("2 -> 256, N 16384, per-sample bias, bf16", x, w, wd, pb, db, a, b)
 
     n, s = 14336, 64
@@ -1178,7 +1214,7 @@ def check_bf16_kernels(dev, record, randn, uniform):
            lambda: vn_layer_fused.vn_layer_fused(x, w, wd, pb, db, a, b, NS, group=s),
            lambda: vn_layer_fused.reference_layer_fused(x, w, wd, pb, db, a, b, NS, s),
            equal, "equal to the bit", nbytes(x, w, wd, pb, db, a, b) + 2 * 3 * vecs,
-           2 * 3 * vecs * 2 + 44 * vecs, repro=True, peak_ops=PEAK_BF16)
+           2 * 3 * vecs * 2, repro=True, peak_ops=PEAK_BF16, fp32_ops=44 * vecs)
     layer_stream_vs_narrow("1 -> 256, N 14336, group 64, bf16", x, w, wd, pb, db, a, b, s)
 
     n = 16384
@@ -1193,7 +1229,8 @@ def check_bf16_kernels(dev, record, randn, uniform):
                x, w, wd, None, None, a, b, w_out, NS),
            within_rms, f"RMS {BF16_C_RMS:.3e} of the norm",
            nbytes(x, w, wd, a, b, w_out) + 2 * 3 * BATCH * n,
-           2 * 3 * vecs * 2 * 256 + (32 + 6) * vecs, reps=10, repro=True, peak_ops=PEAK_BF16)
+           2 * 3 * vecs * 2 * 256, reps=10, repro=True, peak_ops=PEAK_BF16,
+           fp32_ops=(32 + 6) * vecs)
     # C in group mode at vn_folding{1,2}.1 + .2's width (on no model's path)
     n, s = 14336, 64
     x = randn(BATCH, 3, 256, n).to(bf)
@@ -1210,7 +1247,8 @@ def check_bf16_kernels(dev, record, randn, uniform):
                x, w, wd, pb, db, a, b, w_out, NS, s),
            within_rms, f"RMS {BF16_C_RMS:.3e} of the norm",
            nbytes(x, w, wd, pb, db, a, b, w_out) + 2 * 3 * BATCH * n,
-           2 * 3 * vecs * 2 * 256 + (32 + 12) * vecs, reps=10, repro=True, peak_ops=PEAK_BF16)
+           2 * 3 * vecs * 2 * 256, reps=10, repro=True, peak_ops=PEAK_BF16,
+           fp32_ops=(32 + 12) * vecs)
     del x
 
     # K3 at every path shape (EDGE_SHAPES) on bf16 coordinates or features
@@ -1246,18 +1284,17 @@ def check_a_bf16(record, randn, uniform):
         p[:, :, :8, :16] = 0.0
         a, b = uniform(0.5, 1.5, c), randn(c, scale=0.3)
         fn = lambda: vn_fused.fused_bn_leaky(p, d, a, b, NS)  # noqa: E731
-        work = nbytes(p, d, a, b) + nbytes(p), 32 * BATCH * c * n
+        work = nbytes(p, d, a, b) + nbytes(p), 32 * BATCH * c * n  # float32 work: FP32 rate
         if (c, n) == A_BF16_SHAPES[0]:
             rec = record("A fused_bn_leaky bf16", "vn_pointcloudcompletion_tpu_torch/csrc/vn_fused.cu",
                          "vn_pointcloudcompletion_tpu/ops/vn_fused.py:189", fn,
                          lambda: vn_fused.reference_bn_leaky_planes(p, d, a, b, NS),
-                         equal, "equal to the bit", *work, repro=True, peak_ops=PEAK_BF16,
-                         versus=True)
+                         equal, "equal to the bit", *work, repro=True, versus=True)
         else:
             got, designs = launched_designs(fn)
             _, ok = equal(got, vn_fused.reference_bn_leaky_planes(p, d, a, b, NS))
             rec = {"name": f"A fused_bn_leaky bf16 C {c} N {n}", "ms": cuda_ms(fn, 20),
-                   "bound_ms": bound(*work, PEAK_BF16)[0], "design": "/".join(designs)}
+                   "bound_ms": bound(*work)[0], "design": "/".join(designs)}
             print(f"[kernel {rec['name']}] equal to the plain version: {ok}; bound "
                   f"{rec['bound_ms']:.4f} ms (bytes)", flush=True)
             if not ok:
@@ -1307,12 +1344,16 @@ def check_bf16_train_kernels(dev, record, randn, uniform):
     policy's training path) at the main paths' shapes, each against its
     plain bf16 version (``bf16_bwd_close``) and twice for equal bits: A' at
     the flagship's second_conv.0 (C 1024, N 2048; dp and dd equal to the
-    bit), S and S' at final_conv.1 (256 -> 256, N 16384), S, S' and B' at
+    bit), S and S' at final_conv.1 (256 -> 256, N 16384) and at
+    final_conv.0 (2 -> 256, per-sample bias, beside the narrow design:
+    ``walk_vs_narrow``), S, S' and B' at
     the attention decoder's pair folds (1 -> 256, N 14336, group 64), B' at
     final_conv.0 (2 -> 256, per-sample bias), C' at final_conv.1 + .2 (256
     -> 256 -> 1).  Bounds: bytes at 2 per activation element (4 per
-    parameter and float32 gradient), operations at the dense bf16
-    tensor-core rate."""
+    parameter and float32 gradient); the products' operations (bf16
+    operands) at the dense bf16 tensor-core rate plus the elementwise
+    float32 operations at the FP32 rate (``bound``), whichever design runs
+    them; A' (no products) at the FP32 rate."""
     import torch
 
     from vn_pointcloudcompletion_tpu_torch.ops import vn_fused, vn_layer_fused
@@ -1331,8 +1372,7 @@ def check_bf16_train_kernels(dev, record, randn, uniform):
            lambda: vn_fused.bn_leaky_bwd(p, d, a, b, g_, NS),
            lambda: vn_fused.reference_bn_leaky_bwd(p, d, a, b, g_, NS),
            bf16_bwd_close(1e-5, exact=(0, 1)), "dp, dd equal to the bit; dA, dB 1e-5 x max",
-           nbytes(p, d, g_, a, b) + 2 * nbytes(p) + 2 * 4 * c, 80 * vecs, repro=True,
-           peak_ops=PEAK_BF16)
+           nbytes(p, d, g_, a, b) + 2 * nbytes(p) + 2 * 4 * c, 80 * vecs, repro=True)
     del p, d, g_
 
     n = 16384
@@ -1344,8 +1384,8 @@ def check_bf16_train_kernels(dev, record, randn, uniform):
     record("S vn_layer_stats bf16", src + "vn_layer_bwd.cu", at + "vn_layer_fused.py:278",
            lambda: vn_layer_fused.stats_fwd(x, w, None),
            lambda: vn_layer_fused.reference_stats(x, w, None),
-           close, "1e-4 x max", nbytes(x, w) + 2 * 4 * 256, prod + 9 * vecs, reps=10,
-           repro=True, peak_ops=PEAK_BF16)
+           close, "1e-4 x max", nbytes(x, w) + 2 * 4 * 256, prod, reps=10,
+           repro=True, peak_ops=PEAK_BF16, fp32_ops=9 * vecs)
     stats_wide_vs_narrow(x, w, "256 -> 256")
     xf = randn(BATCH, 3, 256, 14336).to(bf)
     wf = uniform(-1 / 16, 1 / 16, 128, 256)
@@ -1355,15 +1395,16 @@ def check_bf16_train_kernels(dev, record, randn, uniform):
            lambda: vn_layer_fused.stats_fwd(xf, wf, None),
            lambda: vn_layer_fused.reference_stats(xf, wf, None),
            close, "1e-4 x max", nbytes(xf, wf) + 2 * 4 * 128,
-           2 * 3 * vecs_f * 256 + 9 * vecs_f, reps=10, repro=True, peak_ops=PEAK_BF16)
+           2 * 3 * vecs_f * 256, reps=10, repro=True, peak_ops=PEAK_BF16,
+           fp32_ops=9 * vecs_f)
     del xf
     record("S' vn_layer_stats backward bf16", src + "vn_layer_bwd.cu",
            at + "vn_layer_fused.py:325",
            lambda: vn_layer_fused.stats_bwd(x, w, None, c1, c2),
            lambda: vn_layer_fused.reference_stats_bwd(x, w, None, c1, c2),
            close, "dx 1 bf16 ulp of max; dW 1e-4 x max",
-           2 * nbytes(x) + 2 * nbytes(w) + nbytes(c1, c2), 3 * prod + 15 * vecs, reps=10,
-           plain_reps=3, repro=True, peak_ops=PEAK_BF16)
+           2 * nbytes(x) + 2 * nbytes(w) + nbytes(c1, c2), 3 * prod, reps=10,
+           plain_reps=3, repro=True, peak_ops=PEAK_BF16, fp32_ops=15 * vecs)
 
     w, wd = uniform(-1 / 16, 1 / 16, 256, 256), uniform(-1 / 16, 1 / 16, 256, 256)
     a, b, w_out = uniform(0.5, 1.5, 256), randn(256, scale=0.3), uniform(-1 / 16, 1 / 16, 256)
@@ -1374,28 +1415,36 @@ def check_bf16_train_kernels(dev, record, randn, uniform):
            lambda: vn_layer_fused.reference_layer_project_bwd(
                x, w, wd, None, None, a, b, w_out, g_, NS),
            close, "dx 1 bf16 ulp of max; dW, dWd, dA, dB, dw_out 1e-4 x max",
-           2 * nbytes(x, w, wd, a, b, w_out) + nbytes(g_), 6 * prod + 90 * vecs, reps=5,
-           plain_reps=3, repro=True, peak_ops=PEAK_BF16)
+           2 * nbytes(x, w, wd, a, b, w_out) + nbytes(g_), 6 * prod, reps=5,
+           plain_reps=3, repro=True, peak_ops=PEAK_BF16, fp32_ops=90 * vecs)
     del x, g_
 
     x = randn(BATCH, 3, 2, n, scale=0.3).to(bf)
     w, wd = uniform(-0.02, 0.02, 256, 2), uniform(-0.02, 0.02, 256, 2)
     pb, db = randn(BATCH, 3, 256, 1).to(bf), randn(BATCH, 3, 256, 1).to(bf)
     g_ = randn(BATCH, 3, 256, n, scale=1e-4).to(bf)
-    record("S' vn_layer_stats backward 2 -> 256 bf16", src + "vn_layer_bwd.cu",
-           at + "vn_layer_fused.py:325",
-           lambda: vn_layer_fused.stats_bwd(x, w, pb, c1, c2),
-           lambda: vn_layer_fused.reference_stats_bwd(x, w, pb, c1, c2),
-           close, "dx, bias grads 1 bf16 ulp of max; dW 1e-4 x max",
-           2 * nbytes(x, w, pb) + nbytes(c1, c2), 3 * 2 * 3 * vecs * 2 + 18 * vecs, reps=10,
-           plain_reps=3, repro=True, peak_ops=PEAK_BF16)
+    fn = lambda: vn_layer_fused.stats_fwd(x, w, pb)  # noqa: E731
+    rec = record("S vn_layer_stats 2 -> 256 bf16", src + "vn_layer_bwd.cu",
+                 at + "vn_layer_fused.py:278", fn,
+                 lambda: vn_layer_fused.reference_stats(x, w, pb),
+                 close, "1e-4 x max", nbytes(x, w, pb) + 2 * 4 * 256, 2 * 3 * vecs * 2,
+                 reps=10, repro=True, peak_ops=PEAK_BF16, fp32_ops=12 * vecs, versus=True)
+    walk_vs_narrow(rec, fn, same_bits=True)
+    fn = lambda: vn_layer_fused.stats_bwd(x, w, pb, c1, c2)  # noqa: E731
+    rec = record("S' vn_layer_stats backward 2 -> 256 bf16", src + "vn_layer_bwd.cu",
+                 at + "vn_layer_fused.py:325", fn,
+                 lambda: vn_layer_fused.reference_stats_bwd(x, w, pb, c1, c2),
+                 close, "dx, bias grads 1 bf16 ulp of max; dW 1e-4 x max",
+                 2 * nbytes(x, w, pb) + nbytes(c1, c2), 3 * 2 * 3 * vecs * 2, reps=10,
+                 plain_reps=3, repro=True, peak_ops=PEAK_BF16, fp32_ops=18 * vecs, versus=True)
+    walk_vs_narrow(rec, fn, same_bits=False)
     record("B' vn_layer_fused backward bf16", src + "vn_layer_bwd.cu",
            at + "vn_layer_fused.py:594",
            lambda: vn_layer_fused.layer_bwd(x, w, wd, pb, db, a, b, g_, NS),
            lambda: vn_layer_fused.reference_layer_bwd(x, w, wd, pb, db, a, b, g_, NS),
            close, "dx, bias grads 1 bf16 ulp of max; dW, dWd, dA, dB 1e-4 x max",
-           2 * nbytes(x, w, wd, pb, db, a, b) + nbytes(g_), 6 * 2 * 3 * vecs * 2 + 86 * vecs,
-           repro=True, peak_ops=PEAK_BF16)
+           2 * nbytes(x, w, wd, pb, db, a, b) + nbytes(g_), 6 * 2 * 3 * vecs * 2,
+           repro=True, peak_ops=PEAK_BF16, fp32_ops=86 * vecs)
     del g_
 
     n, s = 14336, 64
@@ -1407,26 +1456,28 @@ def check_bf16_train_kernels(dev, record, randn, uniform):
     g_ = randn(BATCH, 3, 256, n, scale=1e-4).to(bf)
     vecs = BATCH * 256 * n
     io = nbytes(x, w, wd, pb, db, a, b)
-    record("S vn_layer_stats group=64 bf16", src + "vn_layer_bwd.cu",
-           at + "vn_layer_fused.py:278",
-           lambda: vn_layer_fused.stats_fwd(x, w, pb, s),
-           lambda: vn_layer_fused.reference_stats(x, w, pb, s),
-           close, "1e-4 x max", nbytes(x, w, pb) + 2 * 4 * 256, 2 * 3 * vecs + 12 * vecs,
-           reps=10, repro=True, peak_ops=PEAK_BF16)
-    record("S' vn_layer_stats backward group=64 bf16", src + "vn_layer_bwd.cu",
-           at + "vn_layer_fused.py:325",
-           lambda: vn_layer_fused.stats_bwd(x, w, pb, c1, c2, s),
-           lambda: vn_layer_fused.reference_stats_bwd(x, w, pb, c1, c2, s),
-           close, "dx, bias grads 1 bf16 ulp of max; dW 1e-4 x max",
-           2 * nbytes(x, w, pb) + nbytes(c1, c2), 3 * 2 * 3 * vecs + 18 * vecs, reps=10,
-           plain_reps=3, repro=True, peak_ops=PEAK_BF16)
+    fn = lambda: vn_layer_fused.stats_fwd(x, w, pb, s)  # noqa: E731
+    rec = record("S vn_layer_stats group=64 bf16", src + "vn_layer_bwd.cu",
+                 at + "vn_layer_fused.py:278", fn,
+                 lambda: vn_layer_fused.reference_stats(x, w, pb, s),
+                 close, "1e-4 x max", nbytes(x, w, pb) + 2 * 4 * 256, 2 * 3 * vecs,
+                 reps=10, repro=True, peak_ops=PEAK_BF16, fp32_ops=12 * vecs, versus=True)
+    walk_vs_narrow(rec, fn, same_bits=True)
+    fn = lambda: vn_layer_fused.stats_bwd(x, w, pb, c1, c2, s)  # noqa: E731
+    rec = record("S' vn_layer_stats backward group=64 bf16", src + "vn_layer_bwd.cu",
+                 at + "vn_layer_fused.py:325", fn,
+                 lambda: vn_layer_fused.reference_stats_bwd(x, w, pb, c1, c2, s),
+                 close, "dx, bias grads 1 bf16 ulp of max; dW 1e-4 x max",
+                 2 * nbytes(x, w, pb) + nbytes(c1, c2), 3 * 2 * 3 * vecs, reps=10,
+                 plain_reps=3, repro=True, peak_ops=PEAK_BF16, fp32_ops=18 * vecs, versus=True)
+    walk_vs_narrow(rec, fn, same_bits=False)
     record("B' vn_layer_fused backward group=64 bf16", src + "vn_layer_bwd.cu",
            at + "vn_layer_fused.py:594",
            lambda: vn_layer_fused.layer_bwd(x, w, wd, pb, db, a, b, g_, NS, s),
            lambda: vn_layer_fused.reference_layer_bwd(x, w, wd, pb, db, a, b, g_, NS, s),
            close, "dx, bias grads 1 bf16 ulp of max; dW, dWd, dA, dB 1e-4 x max",
-           2 * io + nbytes(g_), 6 * 2 * 3 * vecs + 86 * vecs, reps=10, plain_reps=3,
-           repro=True, peak_ops=PEAK_BF16)
+           2 * io + nbytes(g_), 6 * 2 * 3 * vecs, reps=10, plain_reps=3,
+           repro=True, peak_ops=PEAK_BF16, fp32_ops=86 * vecs)
 
 
 def check_group_kernels(dev, record, randn, uniform, close, rel_close):
@@ -1457,16 +1508,18 @@ def check_group_kernels(dev, record, randn, uniform, close, rel_close):
            close(0.0, 0.0), "equal to the bit", io + 4 * 3 * vecs,
            2 * 3 * vecs * 2 + 44 * vecs, repro=True)
     layer_stream_vs_narrow("1 -> 256, N 14336, group 64, float32", x, w, wd, pb, db, a, b, s)
-    record("S vn_layer_stats group=64", src_b, at + "278",
-           lambda: vn_layer_fused.stats_fwd(x, w, pb, s),
-           lambda: vn_layer_fused.reference_stats(x, w, pb, s),
-           rel_close(1e-5), "1e-5 x max", nbytes(x, w, pb) + 2 * 4 * 256,
-           2 * 3 * vecs + 12 * vecs, reps=10, repro=True)
-    record("S' vn_layer_stats backward group=64", src_b, at + "325",
-           lambda: vn_layer_fused.stats_bwd(x, w, pb, c1, c2, s),
-           lambda: vn_layer_fused.reference_stats_bwd(x, w, pb, c1, c2, s),
-           rel_close(1e-4), "1e-4 x max", 2 * nbytes(x, w, pb) + nbytes(c1, c2),
-           3 * 2 * 3 * vecs + 18 * vecs, reps=10, plain_reps=3, repro=True)
+    fn = lambda: vn_layer_fused.stats_fwd(x, w, pb, s)  # noqa: E731
+    rec = record("S vn_layer_stats group=64", src_b, at + "278", fn,
+                 lambda: vn_layer_fused.reference_stats(x, w, pb, s),
+                 rel_close(1e-5), "1e-5 x max", nbytes(x, w, pb) + 2 * 4 * 256,
+                 2 * 3 * vecs + 12 * vecs, reps=10, repro=True, versus=True)
+    walk_vs_narrow(rec, fn, same_bits=True)
+    fn = lambda: vn_layer_fused.stats_bwd(x, w, pb, c1, c2, s)  # noqa: E731
+    rec = record("S' vn_layer_stats backward group=64", src_b, at + "325", fn,
+                 lambda: vn_layer_fused.reference_stats_bwd(x, w, pb, c1, c2, s),
+                 rel_close(1e-4), "1e-4 x max", 2 * nbytes(x, w, pb) + nbytes(c1, c2),
+                 3 * 2 * 3 * vecs + 18 * vecs, reps=10, plain_reps=3, repro=True, versus=True)
+    walk_vs_narrow(rec, fn, same_bits=False)
     g_ = randn(BATCH, 3, 256, n, scale=1e-4)
     record("B' vn_layer_fused backward group=64", src_b, at + "594",
            lambda: vn_layer_fused.layer_bwd(x, w, wd, pb, db, a, b, g_, NS, s),
@@ -3818,7 +3871,7 @@ def bf16_train(dev, smi: str):
     (``bf16_step_check``), and a mutant of C''s bf16 backward (dW x
     BF16_MUTANT) that must fail.  (c) CUDA-event medians of the float32 and
     bf16 train steps of both models, with peak memory.  Returns the launch
-    counts of (a)'s counted runs."""
+    counts of (a)'s counted runs, and their launches by design."""
     import torch
 
     from vn_pointcloudcompletion_tpu_torch import __main__ as cli
@@ -3858,8 +3911,9 @@ def bf16_train(dev, smi: str):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         counts = {k: v for k, v in cuda_lib.launch_counts().items() if v}
-        check_designs(f"{tag} root config.json train + resume", counts,
-                      cuda_lib.variant_counts(), "vn_pointr_448")
+        run_designs = cuda_lib.variant_counts()
+        check_designs(f"{tag} root config.json train + resume", counts, run_designs,
+                      "vn_pointr_448")
         check_stats_designs(f"{tag} root config.json train + resume", cuda_lib.variant_counts(),
                             bf16_designs(STATS_STEP_DESIGNS["vn_pointr_448"]),
                             BF16_TRAIN_EPOCHS + 1)
@@ -3913,6 +3967,8 @@ def bf16_train(dev, smi: str):
         raise AssertionError(f"{tag} one step's designs {designs}, expected "
                              f"{BF16_STEP_DESIGNS['vn_pointr_448']}")
     total = {k: counts.get(k, 0) + step_counts.get(k, 0) for k in {*counts, *step_counts}}
+    total.update({k: run_designs.get(k, 0) + designs.get(k, 0)  # by design: ``<name>/<design>``
+                  for k in {*run_designs, *designs}})
 
     # (b) the flagship's bf16 step on one tape
     config, model = bf16_flagship_step(dev, partial, complete)
@@ -4689,6 +4745,14 @@ def main() -> int:
                 run = pointr_counts if on_pointr else dgcnn_counts
                 rec["designs"] = {k.split("/")[1]: v for k, v in run.items()
                                   if k.startswith(f"{sym}/")}
+        if sym in ("vn_layer_stats_fwd", "vn_layer_stats_bwd"):  # by design, the run's
+            run = (bf16_train_counts if rec["name"].endswith(" bf16") else
+                   pointr_counts if "group=" in rec["name"] else counts)
+            prefix = SYMBOL[rec["name"].split()[0]] + (
+                ("[group,bf16]" if "group=" in rec["name"] else "[bf16]")
+                if rec["name"].endswith(" bf16") else "[group]" if "group=" in rec["name"] else "")
+            rec["designs"] = {k.split("/")[1]: v for k, v in run.items()
+                              if k.startswith(f"{prefix}/")}
         if rec["name"].endswith(" bf16") and sym in ("edge_knn_gather", "vn_bn_leaky_fwd"):
             rec["designs"] = {k.split("/")[1]: v for k, v in bf16_counts.items()
                               if k.startswith(f"{sym}[bf16]/")}

@@ -146,6 +146,21 @@ def test_fused_weight_partials_one_per_tile(bsz, n, c_in, c_out):
         assert port_layer.fused_weight_partials(bsz, n, c_in, c_out) * 4 == 8 * 2 ** 20
 
 
+@pytest.mark.parametrize("bsz,n,c_in,c_out", [(8, 16384, 2, 256), (8, 14336, 1, 256),
+                                              (2, 1000, 2, 80), (1, 64, 1, 16)])
+def test_fused_stats_weight_partials_one_per_tile(bsz, n, c_in, c_out):
+    """S''s fused pass writes dW alone, one (C_out, C_in) partial per
+    64-point tile of each sample: half of B''s, 4 MB at final_conv.0's 2 ->
+    256, batch 8, N 16384, against the 403 MB dp scratch of the narrow
+    passes."""
+    tiles = -(-n // port_layer.TILE)
+    got = port_layer.fused_weight_partials(bsz, n, c_in, c_out, grads=1)
+    assert got == bsz * tiles * c_out * c_in
+    assert 2 * got == port_layer.fused_weight_partials(bsz, n, c_in, c_out)
+    if (bsz, n, c_in, c_out) == (8, 16384, 2, 256):
+        assert got * 4 == 4 * 2 ** 20
+
+
 def _kernel_lanes_order(prods):
     """proj_wide_mma's contraction walked lane by lane: for each channel
     block and channel warp, each of the eight row lanes sums its four

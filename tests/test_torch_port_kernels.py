@@ -365,23 +365,38 @@ def test_kernel_a_bwd_plain_matches_pallas(n):
     assert all(torch.isfinite(t).all() for t in got)  # the |p| = 0 guard holds
 
 
-@pytest.mark.parametrize("n,bias", [(1024, False), (1024, True), (1000, True)])
-def test_kernel_s_plain_matches_pallas(n, bias):
+# (C_in, C_out, N, bias, group): 8 -> 16 (the narrow design's shapes), and
+# the widths the channel walk takes on the card: final_conv.0's 2 -> 256
+# with a per-sample bias, the pair folds' one input channel at group 64, and
+# group 2 (two bias columns in a thread's four points: the kSplit partials),
+# each at an N that is no multiple of JAX's 512-point tile (1000: of the
+# port's 64-point tile either)
+@pytest.mark.parametrize("c_in,c_out,n,bias,group", [
+    pytest.param(8, 16, 1024, False, 0, id="1024-False"),
+    pytest.param(8, 16, 1024, True, 0, id="1024-True"),
+    pytest.param(8, 16, 1000, True, 0, id="1000-True"),
+    pytest.param(2, 256, 1000, True, 0, id="2-256-1000-bias"),
+    pytest.param(1, 32, 1088, True, 64, id="1-32-1088-group64"),
+    pytest.param(2, 32, 1000, True, 2, id="2-32-1000-group2"),
+])
+def test_kernel_s_plain_matches_pallas(c_in, c_out, n, bias, group):
     import jax.numpy as jnp
 
     from vn_pointcloudcompletion_tpu.ops import vn_layer_fused as jax_layer
 
-    rng = np.random.default_rng(n + bias)
-    x, w, _, pb, _, _, _, _ = _layer_inputs(rng, 2, 8, 16, n, bias)
+    rng = np.random.default_rng(n + bias + (0 if c_in == 8 else c_in * c_out + group))
+    x, w, _, pb, _, _, _, _ = _layer_inputs(rng, 2, c_in, c_out, n, bias)
+    if group:
+        pb = rng.standard_normal((2, 3, c_out, n // group)).astype(np.float32)
     x = _zero_vectors(x)
-    c1 = rng.standard_normal(16).astype(np.float32)
-    c2 = rng.standard_normal(16).astype(np.float32)
+    c1 = rng.standard_normal(c_out).astype(np.float32)
+    c2 = rng.standard_normal(c_out).astype(np.float32)
     jx = [None if t is None else jnp.asarray(t) for t in (x, w, pb)]
-    got = port_layer.reference_stats(*_t(x, w, pb))
-    (want, res) = jax_layer._stats_fwd(*jx, False, True, 0)
+    got = port_layer.reference_stats(*_t(x, w, pb), group)
+    (want, res) = jax_layer._stats_fwd(*jx, False, True, group)
     _assert_near_jax(got, want)
-    got = port_layer.reference_stats_bwd(*_t(x, w, pb, c1, c2))
-    want = jax_layer._stats_bwd(False, True, 0, res, (jnp.asarray(c1), jnp.asarray(c2)))
+    got = port_layer.reference_stats_bwd(*_t(x, w, pb, c1, c2), group)
+    want = jax_layer._stats_bwd(False, True, group, res, (jnp.asarray(c1), jnp.asarray(c2)))
     _assert_near_jax(got, want)
 
 
@@ -679,6 +694,100 @@ def test_wide_stats_against_narrow_design(cuda, c_in, c_out, n, bias, bf16, monk
         _assert_rel(wide, narrow, 1e-4)
     else:
         _assert_same_bits(wide, narrow)
+
+
+# The channel walk's S and S' (C_in <= 2) against the narrow design at the
+# bias layouts it reads: none, per sample, and one column per 1, 2, 16 or
+# 64 points (1 and 2: a thread's four points span four or two columns, the
+# kSplit partials); N 1000 and 4100 (no multiple of the 64-point tile),
+# 4096, and 999 and 1002 (N % 4 != 0: no vector row).
+_WALK_LAYOUTS = [("none", 1000), ("sample", 1000), ("sample", 4096), ("sample", 4100),
+                 ("sample", 999), ("group1", 1000), ("group2", 4100), ("group2", 1002),
+                 ("group16", 4096), ("group64", 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in", [1, 2])
+@pytest.mark.parametrize("c_out", [16, 80])
+@pytest.mark.parametrize("layout,n", _WALK_LAYOUTS)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_stats_fused_against_narrow_design(cuda, c_in, c_out, layout, n, bf16, monkeypatch):
+    """Kernel S's stream and S''s fused design against their narrow design
+    (pd_pass; for S' also dx_gemm and dw_gemm over a dp scratch), forced
+    through the choosers, on the same inputs, in float32 and bf16: S equal
+    to the bit (pd_pass's operations in pd_pass's order, the same
+    partials); S' within its bound (1e-4 of each output's max; in bf16 one
+    bf16 ulp of the max for dx and the bias gradients) of the plain version
+    and of the narrow design; each twice for equal bits, each launch
+    counted under its design."""
+    rng = np.random.default_rng(c_in + c_out + n + len(layout))
+    x, w, _, pb, _, _, _, _ = _layer_inputs(rng, 2, c_in, c_out, n, layout != "none")
+    group = int(layout[5:]) if layout.startswith("group") else 0
+    if group:
+        pb = rng.standard_normal((2, 3, c_out, n // group)).astype(np.float32)
+    x, pb = (_bf16_t if bf16 else _t)(x, pb, device=cuda)
+    w, c1, c2 = _t(w, rng.standard_normal(c_out).astype(np.float32),
+                   rng.standard_normal(c_out).astype(np.float32), device=cuda)
+    mode = ("[group,bf16]" if bf16 else "[group]") if group else ("[bf16]" if bf16 else "")
+    before = cuda_lib.variant_counts()
+    walked = [(port_layer.stats_fwd(x, w, pb, group),
+               port_layer.stats_bwd(x, w, pb, c1, c2, group)) for _ in range(2)]
+    monkeypatch.setattr(port_layer, "stats_design", lambda *widths: "narrow")
+    monkeypatch.setattr(port_layer, "stats_bwd_design", lambda *widths: "narrow")
+    s_narrow = port_layer.stats_fwd(x, w, pb, group)
+    d_narrow = port_layer.stats_bwd(x, w, pb, c1, c2, group)
+    torch.cuda.synchronize()
+    after = cuda_lib.variant_counts()
+    for key, runs in ((f"vn_layer_stats_fwd{mode}/stream", 2), (f"vn_layer_stats_fwd{mode}/narrow", 1),
+                      (f"vn_layer_stats_bwd{mode}/fused", 2), (f"vn_layer_stats_bwd{mode}/narrow", 1)):
+        assert after.get(key, 0) == before.get(key, 0) + runs, key
+    (s_walk, d_walk), (s_again, d_again) = walked
+    _assert_same_bits(s_walk, s_narrow)
+    _assert_same_bits(s_walk, s_again)
+    _assert_same_bits(d_walk, d_again)
+    check = _assert_bf16_bwd if bf16 else _assert_rel
+    check(d_walk, port_layer.reference_stats_bwd(x, w, pb, c1, c2, group))
+    check(d_walk, d_narrow)
+    assert d_walk[0].dtype == x.dtype
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in", [3, 16])
+def test_stats_walk_refuses_other_widths(cuda, c_in, monkeypatch):
+    """The channel walk exists at C_in 1 and 2 only: forced at another
+    width, S's and S''s entry points return cudaErrorInvalidValue and the
+    wrapper raises; nothing falls back to another design or the plain
+    version."""
+    rng = np.random.default_rng(c_in)
+    x, w, _, pb, _, _, _, _ = _t(*_layer_inputs(rng, 2, c_in, 16, 256, True), device=cuda)
+    c1 = c2 = torch.ones(16, device=cuda)
+    monkeypatch.setattr(port_layer, "stats_design", lambda *widths: "stream")
+    monkeypatch.setattr(port_layer, "stats_bwd_design", lambda *widths: "fused")
+    before = cuda_lib.variant_counts()
+    with pytest.raises(RuntimeError, match="vn_layer_stats_fwd"):
+        port_layer.stats_fwd(x, w, pb)
+    with pytest.raises(RuntimeError, match="vn_layer_stats_bwd"):
+        port_layer.stats_bwd(x, w, pb, c1, c2)
+    assert cuda_lib.variant_counts() == before
+
+
+@pytest.mark.gpu
+def test_backward_entries_refuse_designs_they_lack(cuda, monkeypatch):
+    """B' has no wide passes and C' no channel walk: forced to them, their
+    entry points return cudaErrorInvalidValue for the design code and the
+    wrapper raises, with nothing launched."""
+    rng = np.random.default_rng(7)
+    x, w, wd, pb, db, a, b, _ = _t(*_layer_inputs(rng, 2, 2, 16, 256, True), device=cuda)
+    g = torch.ones(2, 3, 16, 256, device=cuda)
+    monkeypatch.setattr(port_layer, "layer_bwd_design", lambda *widths: "wide")
+    monkeypatch.setattr(port_layer, "backward_design", lambda *widths: "fused")
+    before = cuda_lib.variant_counts()
+    with pytest.raises(RuntimeError, match="vn_layer_fused_bwd"):
+        port_layer.layer_bwd(x, w, wd, pb, db, a, b, g, 0.2)
+    with pytest.raises(RuntimeError, match="vn_layer_fused_project_bwd"):
+        port_layer.layer_project_bwd(x, w, wd, pb, db, a, b, torch.ones(16, device=cuda),
+                                     g[:, :, :1], 0.2)
+    assert cuda_lib.variant_counts() == before
 
 
 @pytest.mark.gpu
@@ -1805,9 +1914,12 @@ def test_wide_backward_cuda_matches_plain(cuda, group, n, bias, kernel, bf16):
 @pytest.mark.parametrize("kernel", ["S'", "C'"])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_wide_backward_dispatch_boundary(cuda, c_in, design, kernel, bf16):
-    """C_in 2 takes the narrow passes, 16 the wide ones; both against the
-    plain version."""
+    """C_in 2 takes C''s narrow passes and S''s fused one, 16 the wide ones;
+    each against the plain version."""
     assert port_layer.backward_design(c_in, 64) == design
+    if kernel == "S'":
+        design = port_layer.stats_bwd_design(c_in, 64)
+        assert design == ("fused" if c_in == 2 else "wide")
     inputs = _wide_inputs(cuda, c_in, 64, 1000, 0, True, bf16, c_in + 5)
     launch, plain, symbol = _wide_run(kernel, *inputs, 0)
     key = _variant(symbol, 0, bf16, design)

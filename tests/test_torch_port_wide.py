@@ -4,10 +4,12 @@ weight-gradient pass, on the CPU.
 ``ops/vn_layer_fused.py::backward_design`` picks the wide passes (cp.async
 rings; in the bf16 mode dx, dW and S''s p on the tensor cores) for C_in
 and C_out >= 16 and the narrow ones (pd_pass, dx_gemm, dw_gemm) below
-that, and ``stats_design`` the same for kernel S (the wide pass 1 without
-its dp store, or pd_pass); the CUDA kernels take what the wrapper picks,
-so the choice for every layer a pipeline trains is checked here, where no
-card is needed.
+that, for C' and for S' above C_in 2; ``stats_bwd_design`` gives S' one
+fused pass that walks the channels at C_in <= 2, and ``stats_design`` gives
+S that walk without its gradients ("stream") there and the wide pass 1
+without its dp store, or pd_pass, above; the CUDA kernels take what the
+wrapper picks, so the choice for every layer a pipeline trains is checked
+here, where no card is needed.
 ``wide_split`` cuts pass 3's reduction into whole stages of one plane
 each: every point is summed by exactly one split.  The kernels themselves
 are held against their plain versions by the ``gpu`` tests of
@@ -31,15 +33,15 @@ _PIPELINES = {
     "vn_pointr": ("vn_pointr", "attention_vn_foldingnet", 448),
 }
 # (kernel, C_in, C_out, group) of every S' and C' launch of one train step,
-# and its design: final_conv.0 (2 -> 256) and the pair folds (1 -> 256,
-# group 64) narrow; final_conv.1 (256 -> 256) and vn_folding{1,2}.1 (256 ->
-# 128) wide; VN DGCNN's and vn_pointr's conv1 (2 -> 32) narrow
+# and its design: final_conv.0 (2 -> 256), the pair folds (1 -> 256, group
+# 64) and VN DGCNN's and vn_pointr's conv1 (2 -> 32) fused; final_conv.1
+# (256 -> 256) and vn_folding{1,2}.1 (256 -> 128) wide
 _EXPECTED = {
-    "flagship": {("S'", 2, 256, 0): "narrow", ("S'", 256, 256, 0): "wide",
+    "flagship": {("S'", 2, 256, 0): "fused", ("S'", 256, 256, 0): "wide",
                  ("C'", 256, 256, 0): "wide"},
-    "vn_dgcnn": {("S'", 2, 32, 0): "narrow", ("S'", 2, 256, 0): "narrow",
+    "vn_dgcnn": {("S'", 2, 32, 0): "fused", ("S'", 2, 256, 0): "fused",
                  ("S'", 256, 256, 0): "wide", ("C'", 256, 256, 0): "wide"},
-    "vn_pointr": {("S'", 2, 32, 0): "narrow", ("S'", 1, 256, 64): "narrow",
+    "vn_pointr": {("S'", 2, 32, 0): "fused", ("S'", 1, 256, 64): "fused",
                   ("S'", 256, 128, 0): "wide", ("C'", 256, 128, 0): "wide"},
 }
 
@@ -53,17 +55,18 @@ def test_backward_design_of_every_trained_layer(name, monkeypatch):
 
     seen = {}
 
-    def record(kernel, fn):
+    def record(kernel, fn, design):
         def wrapped(x, w, *args):
             group = args[-1] if isinstance(args[-1], int) else 0
             key = (kernel, x.shape[2], w.shape[0], group)
-            seen[key] = port_layer.backward_design(x.shape[2], w.shape[0])
+            seen[key] = design(x.shape[2], w.shape[0])
             return fn(x, w, *args)
         return wrapped
 
-    monkeypatch.setattr(port_layer, "stats_bwd", record("S'", port_layer.stats_bwd))
+    monkeypatch.setattr(port_layer, "stats_bwd",
+                        record("S'", port_layer.stats_bwd, port_layer.stats_bwd_design))
     monkeypatch.setattr(port_layer, "layer_project_bwd",
-                        record("C'", port_layer.layer_project_bwd))
+                        record("C'", port_layer.layer_project_bwd, port_layer.backward_design))
     enc, dec, nc = _PIPELINES[name]
     model = build_model(Config.from_dict({"enc_type": enc, "dec_type": dec,
                                           "num_coarse": nc, "seed": 3})).train()
@@ -76,8 +79,8 @@ def test_backward_design_of_every_trained_layer(name, monkeypatch):
 
 # (C_in, C_out, group) of every S launch of one train step, and its
 # design: the train-mode BatchNorm statistics of each whole-layer VN layer,
-# so the same widths as S'
-_STATS_EXPECTED = {name: {(c_in, c_out, group): design
+# so the same widths as S', and the channel walk ("stream") where S' fuses
+_STATS_EXPECTED = {name: {(c_in, c_out, group): "stream" if design == "fused" else design
                           for (kernel, c_in, c_out, group), design in layers.items()
                           if kernel == "S'"}
                    for name, layers in _EXPECTED.items()}
@@ -88,8 +91,8 @@ def test_stats_design_of_every_trained_layer(name, monkeypatch):
     """One train-mode forward of a pipeline at num_coarse 256 or 448: each
     kernel S call's (C_in, C_out, group) and the design the wrapper takes
     for it (final_conv.1's 256 -> 256 and vn_folding{1,2}.1's 256 -> 128
-    wide; 2 -> 256, 2 -> 32 and the pair folds' 1 -> 256 at group 64
-    narrow)."""
+    wide; 2 -> 256, 2 -> 32 and the pair folds' 1 -> 256 at group 64 the
+    stream)."""
     from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
 
     seen = {}
@@ -110,14 +113,48 @@ def test_stats_design_of_every_trained_layer(name, monkeypatch):
 
 
 @pytest.mark.parametrize("c_in,c_out,design", [
-    (1, 256, "narrow"), (2, 256, "narrow"), (2, 32, "narrow"), (15, 256, "narrow"),
-    (16, 15, "narrow"), (15, 16, "narrow"), (16, 16, "wide"), (256, 128, "wide"),
-    (256, 256, "wide"),
+    (1, 256, "stream"), (2, 256, "stream"), (2, 32, "stream"), (1, 4, "stream"),
+    (3, 256, "narrow"), (15, 256, "narrow"), (16, 15, "narrow"), (15, 16, "narrow"),
+    (16, 16, "wide"), (256, 128, "wide"), (256, 256, "wide"),
 ])
 def test_stats_design_boundary(c_in, c_out, design):
-    """Kernel S is wide from C_in = C_out = 16 up, as S' and C'."""
+    """Kernel S walks its channels at C_in <= 2 exactly where S' and B' fuse
+    their passes, and above that is wide from C_in = C_out = 16 up, as S'
+    and C'."""
     assert port_layer.stats_design(c_in, c_out) == design
-    assert port_layer.stats_design(c_in, c_out) == port_layer.backward_design(c_in, c_out)
+    walks = port_layer.stats_design(c_in, c_out) == "stream"
+    assert walks == (port_layer.stats_bwd_design(c_in, c_out) == "fused")
+    assert walks == (port_layer.layer_bwd_design(c_in) == "fused")
+    if not walks:
+        assert port_layer.stats_design(c_in, c_out) == port_layer.backward_design(c_in, c_out)
+
+
+@pytest.mark.parametrize("c_in,c_out,design", [
+    (1, 256, "fused"), (2, 256, "fused"), (2, 32, "fused"), (1, 4, "fused"),
+    (3, 256, "narrow"), (3, 16, "narrow"), (15, 256, "narrow"), (15, 16, "narrow"),
+    (16, 15, "narrow"), (16, 16, "wide"), (16, 256, "wide"), (256, 256, "wide"),
+])
+def test_stats_bwd_design_boundary(c_in, c_out, design):
+    """Kernel S' fuses its passes at C_in 1 and 2 (csrc channel_walk
+    instantiates those), whatever the output width; above that it takes C''s
+    passes (backward_design): narrow below C_in = C_out = 16, wide from
+    there."""
+    assert port_layer.stats_bwd_design(c_in, c_out) == design
+    if c_in > port_layer.FUSED_MAX_CIN:
+        assert design == port_layer.backward_design(c_in, c_out)
+
+
+@pytest.mark.parametrize("c_in,c_out", [(1, 256), (2, 32), (3, 16), (16, 15), (16, 16),
+                                        (256, 128)])
+def test_design_codes_cover_every_choice(c_in, c_out):
+    """Every design the choosers of S, S', C' and B' return has its code in
+    DESIGN_CODES (csrc/vn_layer_bwd.cu's enum Design), and the channel walk
+    has one code under both of its names."""
+    codes = port_layer.DESIGN_CODES
+    for design in (port_layer.stats_design(c_in, c_out), port_layer.stats_bwd_design(c_in, c_out),
+                   port_layer.backward_design(c_in, c_out), port_layer.layer_bwd_design(c_in)):
+        assert design in codes
+    assert codes["stream"] == codes["fused"] not in (codes["narrow"], codes["wide"])
 
 
 @pytest.mark.parametrize("c_in,c_out,design", [

@@ -24,7 +24,7 @@
 // tile's dW into one output; Hopper blocks run in no order, and a register
 // tile that holds dx for all input channels does not fit.  So S', C' and
 // B' above Cin = 2 are three passes, all hand-written here, with no float
-// atomics (B' at Cin <= 2 is one fused pass, below):
+// atomics (S, S' and B' at Cin <= 2 walk the channels in one pass, below):
 //   1. pass 1 recomputes p (and d) for all three planes of a (channel x
 //      64-point) tile, runs the epilogue backward in registers, writes dp
 //      (and dd) to a scratch of B*3*Cout*N elements each, and the
@@ -41,25 +41,30 @@
 // partials over the tiles of each column), so each run of a kernel gives the
 // same bits.  S is pass 1 alone, with the norm sums and no dp store.
 //
-// Three designs; the wrapper picks one from (Cin, Cout) (ops/
-// vn_layer_fused.py::stats_design for S, ::backward_design for S' and C',
-// ::layer_bwd_design for B') and none stands in for another:
-//   fused (B' at Cin <= 2 only: final_conv.0's 2 -> 256, conv1's 2 -> 32,
-//      the pair folds' 1 -> 256 at group 64): layer_bwd_fused, one pass.
-//      A block owns a 64-point tile of one sample and walks all Cout
-//      channels: it recomputes p and d (Cin FMAs a plane), reads g once,
-//      runs the epilogue backward in registers, sums dA, dB, the bias
-//      gradients, dW and dWd over its points (one partial per sample, tile
-//      and channel, or the kSplit sub-partials, as pass 1 writes them) and
-//      keeps dx of its points in registers across the channels, adding the
-//      16 channel groups in order at the end.  No dp/dd scratch (805 MB in
-//      float32 at batch 8, N 16384), no dx_gemm or dw_gemm launch.
-//   narrow (S, S' and C' at Cin or Cout < 16: final_conv.0's 2 -> 256,
-//      conv1's 2 -> 32, the pair folds' 1 -> 256; B' at Cin > 2): pd_pass
-//      with the 4 x 4 FMA micro-tile of vn_tile.cuh (for S alone: no scratch,
-//      one block an SM), dx_gemm and dw_gemm below.  At Cin <= 2
-//      these shapes are bound by bytes, not operations, and the 64 x 64
-//      tiles of dx_gemm and dw_gemm are 1/32-1/64 used.
+// Four designs; the wrapper picks one from (Cin, Cout) (ops/
+// vn_layer_fused.py::stats_design for S, ::stats_bwd_design for S',
+// ::backward_design for C', ::layer_bwd_design for B') and none stands in
+// for another:
+//   stream (S) and fused (S', B'), at Cin <= 2 only (final_conv.0's 2 ->
+//      256, conv1's 2 -> 32, the pair folds' 1 -> 256 at group 64):
+//      channel_walk, one pass.  A block owns a 64-point tile of one sample
+//      and walks all Cout channels: it recomputes p (B': and d; Cin FMAs a
+//      plane) at its points and sums what the mode needs over them, one
+//      partial per sample, tile and channel (or the kSplit sub-partials), as
+//      pass 1 writes them.  S: |p| + EPS and its square, in pd_pass's order,
+//      so the narrow S's bits, with no product tile, no shared memory and
+//      no barrier.  S': dp from (c1, c2) in registers (no g, no d), the bias
+//      gradients and dW.  B': reads g once, runs the epilogue backward in
+//      registers, sums dA, dB, the bias gradients, dW and dWd.  S' and B'
+//      keep dx of their points in registers across the channels, adding the
+//      16 channel groups in order at the end: no dp/dd scratch (403 / 805
+//      MB in float32 at batch 8, N 16384, 2 -> 256), no dx_gemm or dw_gemm.
+//   narrow (C' at Cin or Cout < 16; S and S' there above Cin 2; B' at
+//      Cin > 2): pd_pass with the 4 x 4 FMA micro-tile of
+//      vn_tile.cuh (for S alone: no scratch, one block an SM), dx_gemm and
+//      dw_gemm below.  At Cin <= 2 these shapes are bound by bytes, not
+//      operations, and the 64 x 64 tiles of dx_gemm and dw_gemm are 1/32-1/64
+//      used: the parent design of the walk, kept as its yardstick.
 //   wide (Cin >= 16 and Cout >= 16, S, S' and C': final_conv.1's 256 ->
 //      256, vn_folding{1,2}.1's 256 -> 128): W (and Wd) first transposed
 //      into a (Cin, Cout) scratch in the activations' type (bf16-rounded in
@@ -105,13 +110,18 @@
 //   B' at 2 -> 256: bytes, reading g (B*3*Cout*N floats: 403 MB, 0.12 ms);
 //      the fused pass issues ~130 instructions a (channel, point) vector
 //      (p, d, the epilogue backward, the dx and dW products, the sums).
+//   S and S' at 2 -> 256: operations (x and dx are 3 MB; the partials ~10
+//      MB): ~24 (S) and ~54 (S') FP32 operations a vector, an FMA counted
+//      as two (p, the norm, the sums; S' also dp, dx and dW), besides the
+//      square root's and the division's sequences and the lane
+//      butterflies, which that count leaves out.
 //   C' at 256 -> 256: operations, six products (p, d, dx from dp and dd,
 //      dW, dWd).
 // The attention decoder's pair fold (1 -> 256, N = 14336, group 64) is
-// bound by bytes like B': S and S' read x (one channel) and write dx, B'
-// reads g; the bias columns are 1/64 of a plane.  Passes 2 and 3 read the
-// dp/dd scratch back once each: that round trip (403 / 805 MB for S' / C'
-// in float32 at 256 -> 256, half in bf16) remains in S' and C'.
+// bound like final_conv.0: B' by the g read, S and S' by their operations;
+// the bias columns are 1/64 of a plane.  Passes 2 and 3 read the dp/dd
+// scratch back once each: that round trip (403 / 805 MB for S' / C' in
+// float32 at 256 -> 256, half in bf16) remains in the wide S' and C'.
 //
 // The bf16 mode (entry points <name>_bf16; T = vnk_bf16: x, the biases, g,
 // dx and the dp/dd scratch bfloat16; W, Wd, A, B, w_out, c1, c2, dW, the
@@ -128,9 +138,9 @@
 //      float32, stored bf16;
 //   pass 3 takes dW = dp16 x16^T (dWd = dd16 x16^T) in float32.
 // The narrow passes run the float32 mode's loops over bf16 loads.  The
-// fused B' forms dp, dd in float32 as pass 1 does, sums dA, dB and the bias
-// gradients from them, and rounds dp, dd (and W, Wd) to bf16 only as
-// operands of its dx and dW products; dx is stored bf16.
+// fused S' and B' form dp (dd) in float32 as pass 1 does, sum dA, dB and
+// the bias gradients from them, and round dp, dd (and W, Wd) to bf16 only
+// as operands of their dx and dW products; dx is stored bf16.
 #include "vn_mma.cuh"
 #include "vn_tile.cuh"
 
@@ -1436,26 +1446,38 @@ dw_wide_bf16(const vnk_bf16* __restrict__ g1, const vnk_bf16* __restrict__ g2,
       }
 }
 
-// ------------------------------------------------------------ the fused B'
+// ------------------------------------------------------------ the channel walk
 //
-// B' at Cin <= 2 (kCin, the decoder's first fold layer and the pair folds):
-// a block owns one 64-point tile of one sample and walks all Cout channels,
-// thread (ty, tx) of the 16 x 16 grid channels c0 + 4 ty + i (i < 4, c0 in
-// steps of 64) at points n0 + 4 tx + q.  For each channel it recomputes p
-// and d (kCin FMAs a plane), reads g once (a thread's four points of the
-// three planes, copied by cp.async into its own shared-memory slots one
-// channel ahead), runs the epilogue backward in registers and then
-//   - sums dA, dB, the bias gradients (as pd_pass: one partial per sample,
-//     tile and channel, or the kSplit sub-partials) and dW[c, k], dWd[c, k]
-//     over its four points and a fixed butterfly over its 16 lanes: one
-//     partial per (sample, tile, channel, k), summed by vnk_reduce_rows;
-//   - adds W[c, k] dp + Wd[c, k] dd to its running dx of its four points,
-//     kept in registers across the channels it walks; the 16 channel groups
-//     are added in order through shared memory at the end.
+// S (the stream design), S' and B' (the fused designs) at Cin <= 2 (kCin:
+// the decoder's first fold layer, conv1, the pair folds): a block owns one
+// 64-point tile of one sample and walks all Cout channels, thread (ty, tx)
+// of the 16 x 16 grid channels c0 + 4 ty + i (i < 4, c0 in steps of 64) at
+// points n0 + 4 tx + q.  It holds x at its four points (three planes) in
+// registers and, for each channel, recomputes p (and B''s d) as pd_pass
+// does: kCin FMAs a plane in input-channel order, the bias after them, (bf16)
+// one rounding.  Then
+//   S  sums |p| + EPS and its square over its four points and a fixed
+//      butterfly over its 16 lanes: one partial per (sample, tile,
+//      channel), pd_pass's operations in pd_pass's order, so the narrow
+//      S's bits.  No product tile, no shared memory, no barrier.
+//   S' forms dp = (c1 + 2 c2 (|p| + EPS)) p / |p| (0 where |p| = 0) in
+//      registers; it reads no g and carries no d.
+//   B' reads g once (a thread's four points of the three planes, copied by
+//      cp.async into its own shared-memory slots one channel ahead) and
+//      runs the epilogue backward in registers.
+// S' and B' then
+//   - sum the bias gradients (and B''s dA, dB) as pd_pass does (one
+//     partial per sample, tile and channel, or the kSplit sub-partials) and
+//     dW[c, k] (dWd) over the four points and a fixed butterfly over the 16
+//     lanes: one partial per (sample, tile, channel, k), summed by
+//     vnk_reduce_rows;
+//   - add W[c, k] dp (+ Wd[c, k] dd) to the running dx of the four points,
+//     kept in registers across the channels; the 16 channel groups are
+//     added in order through shared memory at the end.
 // No dp/dd scratch, no further pass over the points.  The bf16 mode forms
 // dp and dd in float32, sums dA, dB and the bias gradients from those, and
 // rounds dp, dd (and W, Wd) to bf16 only as operands of the dx and dW
-// products (JAX vn_layer_fused.py:440-457); dx is stored bf16.
+// products (JAX vn_layer_fused.py:204-209, :440-457); dx is stored bf16.
 // cp.async of a thread's g slice: 16 bytes (four float32 points, through
 // L2 only) or 8 (four bf16 points).
 template <int kBytes>
@@ -1473,18 +1495,42 @@ __device__ __forceinline__ void cp_async_g(void* dst, const void* src) {
 // faster than none and than two).
 constexpr int kGAhead = 1;
 
-// Three blocks an SM at Cin 1 (its x and dx take half the registers), two at
-// Cin 2: each the faster on the card.
-template <int kCin, bool kSplit, typename T>
-__global__ void __launch_bounds__(kThreads, kCin == 1 ? 3 : 2)
-layer_bwd_fused(PdArgs<T> args, T* __restrict__ dx, float* __restrict__ dw_part, bool ag) {
-  constexpr int kNqc = channel_sums<kLayerBwd>();
-  // a thread's g slices (three planes x its four points) kGAhead channels
-  // ahead, each thread filling and reading only its own slots; then, after
-  // the channel walk, the 16 channel groups' dx
+// Blocks an SM of the walk: B' three at Cin 1 (its x and dx take half the
+// registers), two at Cin 2; S' four and three; S four.  Each was the
+// fastest of its neighbours (one block more or fewer; S also six and eight,
+// where eight spills) when timed on an H100.
+constexpr int kStatsBwdBlocks1 = 4;
+constexpr int kStatsBwdBlocks2 = 3;
+constexpr int kStatsBlocks = 4;
+// Channels of the walk unrolled for S (two was faster than one at 2 ->
+// 256); S' walks one at a time (two and four were slower, four spills), and
+// so does B' (its g ring runs one channel ahead).
+constexpr int kStatsUnroll = 2;
+
+template <int kMode, int kCin>
+constexpr int walk_blocks() {
+  return kMode == kLayerBwd   ? (kCin == 1 ? 3 : 2)
+         : kMode == kStatsBwd ? (kCin == 1 ? kStatsBwdBlocks1 : kStatsBwdBlocks2)
+                              : kStatsBlocks;
+}
+
+template <int kMode>
+__host__ __device__ constexpr int walk_unroll() {
+  return kMode == kStatsFwd ? kStatsUnroll : 1;
+}
+
+template <int kMode, int kCin, bool kSplit, typename T>
+__global__ void __launch_bounds__(kThreads, walk_blocks<kMode, kCin>())
+channel_walk(PdArgs<T> args, T* __restrict__ dx, float* __restrict__ dw_part, bool ag) {
+  constexpr bool kWithD = kMode == kLayerBwd;  // d and g: B' only
+  constexpr bool kGrads = kMode != kStatsFwd;  // dx, dW and the bias sums
+  constexpr int kNqc = channel_sums<kMode>();
+  // B': a thread's g slices (three planes x its four points) kGAhead
+  // channels ahead, each thread filling and reading only its own slots;
+  // then, after the walk (S', B'), the 16 channel groups' dx
   constexpr int kGV = 4 * static_cast<int>(sizeof(T));  // bytes of four points
-  constexpr int kGBytes = (kGAhead + 1) * 3 * kThreads * kGV;
-  constexpr int kRedBytes = 16 * 3 * kCin * kPts * 4;
+  constexpr int kGBytes = kWithD ? (kGAhead + 1) * 3 * kThreads * kGV : 16;
+  constexpr int kRedBytes = kGrads ? 16 * 3 * kCin * kPts * 4 : 16;
   __shared__ __align__(16) unsigned char smem[kGBytes > kRedBytes ? kGBytes : kRedBytes];
   auto red = reinterpret_cast<float (*)[3][kCin][kPts]>(smem);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -1512,6 +1558,15 @@ layer_bwd_fused(PdArgs<T> args, T* __restrict__ dx, float* __restrict__ dw_part,
   const size_t bstride = stride * args.spt;
   const size_t row0 = (static_cast<size_t>(bi) * args.T + t) * args.spt;
   float* const bias_part = args.partial + kNqc * stride;
+  // the bias columns of the thread's points (vnk_bias's n / group, the last
+  // column past N), worked out once, not once a channel
+  const int cols = args.group ? N / args.group : 1;
+  int bcol[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) bcol[q] = args.group ? min(nt0 + q, N - 1) / args.group : 0;
+  const auto bias_at = [&](const T* bias, int j, int c, int q) {
+    return vnk_load(bias[((static_cast<size_t>(bi) * 3 + j) * Cout + c) * cols + bcol[q]]);
+  };
   // the thread's channels in turn: m -> c0 + 4 ty + i, c0 = 64 (m / 4), i = m % 4
   const int walk = (Cout + kCh - 1) / kCh * 4;
   const auto channel = [&](int m) { return m / 4 * kCh + ty * 4 + m % 4; };
@@ -1527,12 +1582,17 @@ layer_bwd_fused(PdArgs<T> args, T* __restrict__ dx, float* __restrict__ dw_part,
     }
     cp_async_commit();
   };
+  if constexpr (kWithD) {
 #pragma unroll
-  for (int m = 0; m < kGAhead; ++m) fetch(m);
-#pragma unroll 1
+    for (int m = 0; m < kGAhead; ++m) fetch(m);
+  }
+  constexpr int kUnroll = walk_unroll<kMode>();
+#pragma unroll(kUnroll)
   for (int m = 0; m < walk; ++m) {
-    fetch(m + kGAhead);
-    cp_async_wait<kGAhead>();  // this thread's copies of channel m have landed
+    if constexpr (kWithD) {
+      fetch(m + kGAhead);
+      cp_async_wait<kGAhead>();  // this thread's copies of channel m have landed
+    }
     {
       const int c = channel(m);
       const bool cok = c < Cout;
@@ -1541,20 +1601,30 @@ layer_bwd_fused(PdArgs<T> args, T* __restrict__ dx, float* __restrict__ dw_part,
 #pragma unroll
       for (int k = 0; k < kCin; ++k) {
         wr[k] = cok ? vnk_round_as<T>(args.w[c * kCin + k]) : 0.f;
-        dr[k] = cok ? vnk_round_as<T>(args.wd[c * kCin + k]) : 0.f;
+        dr[k] = kWithD && cok ? vnk_round_as<T>(args.wd[c * kCin + k]) : 0.f;
       }
-      const float av = cok ? args.a[c] : 0.f, bv = cok ? args.b[c] : 0.f;
+      float av = 0.f, bv = 0.f, c1v = 0.f, c2v = 0.f;
+      if (cok && kWithD) {
+        av = args.a[c];
+        bv = args.b[c];
+      }
+      if (cok && kMode == kStatsBwd) {
+        c1v = args.c1[c];
+        c2v = args.c2[c];
+      }
 
-      // g of the four points, three planes
+      // B': g of the four points, three planes
       float gq[3][4];
+      if constexpr (kWithD) {
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const T* row = args.g + ((static_cast<size_t>(bi) * 3 + j) * Cout + (cok ? c : 0)) * N;
-        if (cok && vec) {
-          load_n<4>(reinterpret_cast<const T*>(slot(m, j)), gq[j]);
-        } else {
+        for (int j = 0; j < 3; ++j) {
+          const T* row = args.g + ((static_cast<size_t>(bi) * 3 + j) * Cout + (cok ? c : 0)) * N;
+          if (cok && vec) {
+            load_n<4>(reinterpret_cast<const T*>(slot(m, j)), gq[j]);
+          } else {
 #pragma unroll
-          for (int q = 0; q < 4; ++q) gq[j][q] = cok && nt0 + q < N ? vnk_load(row[nt0 + q]) : 0.f;
+            for (int q = 0; q < 4; ++q) gq[j][q] = cok && nt0 + q < N ? vnk_load(row[nt0 + q]) : 0.f;
+          }
         }
       }
 
@@ -1572,8 +1642,8 @@ layer_bwd_fused(PdArgs<T> args, T* __restrict__ dx, float* __restrict__ dw_part,
         if (has_bias && cok && (q == 0 || (kSplit && args.group < 4))) {
 #pragma unroll
           for (int j = 0; j < 3; ++j) {
-            pb[j] = vnk_bias(args.pbias, bi, j, c, Cout, n, N, args.group);
-            db[j] = vnk_bias(args.dbias, bi, j, c, Cout, n, N, args.group);
+            pb[j] = bias_at(args.pbias, j, c, q);
+            if (kWithD) db[j] = bias_at(args.dbias, j, c, q);
           }
         }
         // p and d as the forward's: input-channel order, the bias, one rounding
@@ -1584,77 +1654,104 @@ layer_bwd_fused(PdArgs<T> args, T* __restrict__ dx, float* __restrict__ dw_part,
 #pragma unroll
           for (int k = 0; k < kCin; ++k) {
             ap = fmaf(wr[k], xv[j][k][q], ap);
-            ad = fmaf(dr[k], xv[j][k][q], ad);
+            if (kWithD) ad = fmaf(dr[k], xv[j][k][q], ad);
           }
           p[j] = vnk_round_as<T>(ap + pb[j]);
           d[j] = vnk_round_as<T>(ad + db[j]);
         }
-        const float gv[3] = {gq[0][q], gq[1][q], gq[2][q]};
-        float dpv[3], ddv[3], dqp, norm_e;
-        vnk_bn_leaky_bwd(p, d, gv, av, bv, args.one_minus_ns, dpv, ddv, &dqp, &norm_e, nullptr);
-        if (ok) {
-          sc[0] += dqp;
-          sc[1] += dqp / norm_e;
-        }
+        if constexpr (kMode == kStatsFwd) {
+          const float norm_e = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2]) + VNK_EPS;
+          if (ok) {
+            sc[0] += norm_e;
+            sc[1] += norm_e * norm_e;
+          }
+        } else {
+          float dpv[3], ddv[3] = {0.f, 0.f, 0.f};
+          if constexpr (kMode == kStatsBwd) {
+            const float pnorm = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2]);
+            const float norm_e = pnorm + VNK_EPS;
+            const float scale = (c1v + 2.f * c2v * norm_e) *
+                                (pnorm > 0.f ? 1.f / fmaxf(pnorm, 1e-30f) : 0.f);
 #pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          outp[j][q] = ok ? dpv[j] : 0.f;
-          outd[j][q] = ok ? ddv[j] : 0.f;
-          sp[j] += outp[j][q];
-          sd[j] += outd[j][q];
-          const float p16 = vnk_round_as<T>(outp[j][q]), d16 = vnk_round_as<T>(outd[j][q]);
+            for (int j = 0; j < 3; ++j) dpv[j] = scale * p[j];
+          } else {
+            const float gv[3] = {gq[0][q], gq[1][q], gq[2][q]};
+            float dqp, norm_e;
+            vnk_bn_leaky_bwd(p, d, gv, av, bv, args.one_minus_ns, dpv, ddv, &dqp, &norm_e,
+                             nullptr);
+            if (ok) {
+              sc[0] += dqp;
+              sc[1] += dqp / norm_e;
+            }
+          }
 #pragma unroll
-          for (int k = 0; k < kCin; ++k) {
-            sw[k] = fmaf(p16, xv[j][k][q], sw[k]);
-            swd[k] = fmaf(d16, xv[j][k][q], swd[k]);
-            dxa[j][k][q] = fmaf(dr[k], d16, fmaf(wr[k], p16, dxa[j][k][q]));
+          for (int j = 0; j < 3; ++j) {
+            outp[j][q] = ok ? dpv[j] : 0.f;
+            outd[j][q] = ok ? ddv[j] : 0.f;
+            sp[j] += outp[j][q];
+            sd[j] += outd[j][q];
+            const float p16 = vnk_round_as<T>(outp[j][q]), d16 = vnk_round_as<T>(outd[j][q]);
+#pragma unroll
+            for (int k = 0; k < kCin; ++k) {
+              sw[k] = fmaf(p16, xv[j][k][q], sw[k]);
+              if constexpr (kWithD) {
+                swd[k] = fmaf(d16, xv[j][k][q], swd[k]);
+                dxa[j][k][q] = fmaf(dr[k], d16, fmaf(wr[k], p16, dxa[j][k][q]));
+              } else {
+                dxa[j][k][q] = fmaf(wr[k], p16, dxa[j][k][q]);
+              }
+            }
           }
         }
       }
 
-      // one partial per (quantity, sample, tile, channel): dA, dB; dW, dWd
-      // at (sample, tile, channel, k); the bias sums as pd_pass writes them
+      // one partial per (quantity, sample, tile, channel): S's s1, s2, B''s
+      // dA, dB; dW (dWd) at (sample, tile, channel, k); the bias sums as
+      // pd_pass writes them
       const size_t at = (static_cast<size_t>(bi) * args.T + t) * Cout + c;
 #pragma unroll
       for (int k = 0; k < kNqc; ++k) {
         const float v = vnk_sum16(sc[k]);
         if (tx == 0 && cok) args.partial[k * stride + at] = v;
       }
+      if constexpr (kGrads) {
 #pragma unroll
-      for (int k = 0; k < kCin; ++k) {
-        const float v = vnk_sum16(sw[k]), vd = vnk_sum16(swd[k]);
-        if (tx == 0 && cok) {
-          dw_part[at * kCin + k] = v;
-          dw_part[(stride + at) * kCin + k] = vd;
+        for (int k = 0; k < kCin; ++k) {
+          const float v = vnk_sum16(sw[k]);
+          if (tx == 0 && cok) dw_part[at * kCin + k] = v;
+          if constexpr (kWithD) {
+            const float vd = vnk_sum16(swd[k]);
+            if (tx == 0 && cok) dw_part[(stride + at) * kCin + k] = vd;
+          }
         }
-      }
-      if (has_bias) {
+        if (has_bias) {
 #pragma unroll
-        for (int j = 0; j < 3; ++j) {
+          for (int j = 0; j < 3; ++j) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float o0 = h == 0 ? outp[j][0] : outd[j][0];
-            const float o1 = h == 0 ? outp[j][1] : outd[j][1];
-            const float o2 = h == 0 ? outp[j][2] : outd[j][2];
-            const float o3 = h == 0 ? outp[j][3] : outd[j][3];
-            float* dst = bias_part + (h * 3 + j) * bstride;
-            if (!kSplit) {  // group 0 or >= 64: one partial a tile
-              const float v = vnk_sum16(h == 0 ? sp[j] : sd[j]);
-              if (tx == 0 && cok) dst[row0 * Cout + c] = v;
-            } else if (args.sub >= 4) {  // a thread's 4 points, then its run of lanes
-              const int lanes = args.sub / 4;
-              const float v = vnk_sum_lanes(((o0 + o1) + o2) + o3, lanes);
-              if (tx % lanes == 0 && cok) dst[(row0 + tx / lanes) * Cout + c] = v;
-            } else if (args.sub == 2) {  // two groups in a thread's points
-              if (cok) {
-                dst[(row0 + tx * 2) * Cout + c] = o0 + o1;
-                dst[(row0 + tx * 2 + 1) * Cout + c] = o2 + o3;
+            for (int h = 0; h < (kWithD ? 2 : 1); ++h) {
+              const float o0 = h == 0 ? outp[j][0] : outd[j][0];
+              const float o1 = h == 0 ? outp[j][1] : outd[j][1];
+              const float o2 = h == 0 ? outp[j][2] : outd[j][2];
+              const float o3 = h == 0 ? outp[j][3] : outd[j][3];
+              float* dst = bias_part + (h * 3 + j) * bstride;
+              if (!kSplit) {  // group 0 or >= 64: one partial a tile
+                const float v = vnk_sum16(h == 0 ? sp[j] : sd[j]);
+                if (tx == 0 && cok) dst[row0 * Cout + c] = v;
+              } else if (args.sub >= 4) {  // a thread's 4 points, then its run of lanes
+                const int lanes = args.sub / 4;
+                const float v = vnk_sum_lanes(((o0 + o1) + o2) + o3, lanes);
+                if (tx % lanes == 0 && cok) dst[(row0 + tx / lanes) * Cout + c] = v;
+              } else if (args.sub == 2) {  // two groups in a thread's points
+                if (cok) {
+                  dst[(row0 + tx * 2) * Cout + c] = o0 + o1;
+                  dst[(row0 + tx * 2 + 1) * Cout + c] = o2 + o3;
+                }
+              } else if (cok) {  // group 1: every point its own column
+                dst[(row0 + tx * 4) * Cout + c] = o0;
+                dst[(row0 + tx * 4 + 1) * Cout + c] = o1;
+                dst[(row0 + tx * 4 + 2) * Cout + c] = o2;
+                dst[(row0 + tx * 4 + 3) * Cout + c] = o3;
               }
-            } else if (cok) {  // group 1: every point its own column
-              dst[(row0 + tx * 4) * Cout + c] = o0;
-              dst[(row0 + tx * 4 + 1) * Cout + c] = o1;
-              dst[(row0 + tx * 4 + 2) * Cout + c] = o2;
-              dst[(row0 + tx * 4 + 3) * Cout + c] = o3;
             }
           }
         }
@@ -1662,21 +1759,23 @@ layer_bwd_fused(PdArgs<T> args, T* __restrict__ dx, float* __restrict__ dw_part,
     }
   }
 
-  // dx: the 16 channel groups' sums in order (red overlays the g slots)
-  __syncthreads();
+  if constexpr (kGrads) {
+    // dx: the 16 channel groups' sums in order (red overlays the g slots)
+    __syncthreads();
 #pragma unroll
-  for (int j = 0; j < 3; ++j)
+    for (int j = 0; j < 3; ++j)
 #pragma unroll
-    for (int k = 0; k < kCin; ++k)
-      *reinterpret_cast<float4*>(&red[ty][j][k][tx * 4]) =
-          make_float4(dxa[j][k][0], dxa[j][k][1], dxa[j][k][2], dxa[j][k][3]);
-  __syncthreads();
-  for (int e = threadIdx.x; e < 3 * kCin * kPts; e += kThreads) {
-    const int j = e / (kCin * kPts), k = e / kPts % kCin, nn = e % kPts, n = n0 + nn;
-    float s = 0.f;
+      for (int k = 0; k < kCin; ++k)
+        *reinterpret_cast<float4*>(&red[ty][j][k][tx * 4]) =
+            make_float4(dxa[j][k][0], dxa[j][k][1], dxa[j][k][2], dxa[j][k][3]);
+    __syncthreads();
+    for (int e = threadIdx.x; e < 3 * kCin * kPts; e += kThreads) {
+      const int j = e / (kCin * kPts), k = e / kPts % kCin, nn = e % kPts, n = n0 + nn;
+      float s = 0.f;
 #pragma unroll
-    for (int g = 0; g < 16; ++g) s += red[g][j][k][nn];
-    if (n < N) dx[((static_cast<size_t>(bi) * 3 + j) * kCin + k) * N + n] = vnk_cast<T>(s);
+      for (int g = 0; g < 16; ++g) s += red[g][j][k][nn];
+      if (n < N) dx[((static_cast<size_t>(bi) * 3 + j) * kCin + k) * N + n] = vnk_cast<T>(s);
+    }
   }
 }
 
@@ -1826,21 +1925,63 @@ void reduce_bias(const PdArgs<T>& args, int nqc, int nq, float* dbias_out,
                   rpg, args.Cout, st);
 }
 
+// The channel walk (S, S', B' at Cin 1 or 2) into its partials, and dx for
+// S' and B'; cudaErrorInvalidValue at any other Cin.
+template <int kMode, int kCin, typename T>
+cudaError_t launch_walk_at(const PdArgs<T>& args, T* dx, float* dw_part, cudaStream_t st) {
+  const bool ag =
+      kMode == kLayerBwd && aligned16(args.g, args.N, 16 / static_cast<int>(sizeof(T)));
+  const dim3 grid(args.T, args.B);
+  if (args.sub < kPts) {
+    channel_walk<kMode, kCin, true, T><<<grid, kThreads, 0, st>>>(args, dx, dw_part, ag);
+  } else {
+    channel_walk<kMode, kCin, false, T><<<grid, kThreads, 0, st>>>(args, dx, dw_part, ag);
+  }
+  return cudaGetLastError();
+}
+
+template <int kMode, typename T>
+cudaError_t launch_walk(const PdArgs<T>& args, T* dx, float* dw_part, cudaStream_t st) {
+  if (args.Cin == 1) return launch_walk_at<kMode, 1>(args, dx, dw_part, st);
+  if (args.Cin == 2) return launch_walk_at<kMode, 2>(args, dx, dw_part, st);
+  return cudaErrorInvalidValue;
+}
+
+// The design code every entry point here takes (the wrapper's DESIGN_CODES:
+// stats_design, stats_bwd_design, backward_design, layer_bwd_design): the
+// narrow passes, the wide ones (S, S', C'), or the channel walk (S's
+// "stream", S''s and B''s "fused"; Cin 1 or 2 only).
+enum Design { kNarrowDesign = 0, kWideDesign = 1, kWalkDesign = 2 };
+
+// cudaErrorInvalidValue for a design code that is none of these, a design
+// the kernel does not have (`wide`, `walk`: whether it has the wide passes,
+// the walk), or the walk at a Cin it does not take; else cudaSuccess.
+inline cudaError_t check_design(int design, int Cin, bool wide, bool walk) {
+  if (design == kNarrowDesign || (design == kWideDesign && wide)) return cudaSuccess;
+  return design == kWalkDesign && walk && (Cin == 1 || Cin == 2) ? cudaSuccess
+                                                                  : cudaErrorInvalidValue;
+}
+
 template <typename T>
 int stats_fwd(const void* x, const void* w, const void* pbias, void* s12,
               void* partial, void* wt, int B, int Cin, int Cout, int N, int group,
-              int wide, void* stream) {
+              int design, void* stream) {
+  if (check_design(design, Cin, true, true) != cudaSuccess)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0 || Cout == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PdArgs<T> args = make_args<T>(x, w, nullptr, pbias, nullptr, nullptr, nullptr,
                                       nullptr, nullptr, nullptr, nullptr, nullptr,
                                       nullptr, partial, B, Cin, Cout, N, group, 0.f);
-  if (wide) {
-    const cudaError_t err = launch_pd_wide<kStatsFwd>(args, static_cast<T*>(wt), st);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = cudaSuccess;
+  if (design == kWideDesign) {
+    err = launch_pd_wide<kStatsFwd>(args, static_cast<T*>(wt), st);
+  } else if (design == kWalkDesign) {
+    err = launch_walk<kStatsFwd>(args, static_cast<T*>(nullptr), nullptr, st);
   } else {
     launch_pd<kStatsFwd>(args, st);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   vnk_reduce_rows(args.partial, static_cast<float*>(s12), 2, B * args.T, Cout, st);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1849,13 +1990,22 @@ template <typename T>
 int stats_bwd(const void* x, const void* w, const void* pbias, const void* c1,
               const void* c2, void* dx, void* dw, void* dpb, void* dp,
               void* partial, void* dw_part, void* wt, int B, int Cin, int Cout, int N,
-              int S, int chunk, int group, int wide, void* stream) {
+              int S, int chunk, int group, int design, void* stream) {
+  if (check_design(design, Cin, true, true) != cudaSuccess)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0 || Cout == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PdArgs<T> args = make_args<T>(x, w, nullptr, pbias, nullptr, nullptr, nullptr,
                                       nullptr, nullptr, c1, c2, dp, nullptr, partial,
                                       B, Cin, Cout, N, group, 0.f);
-  if (wide) {
+  if (design == kWalkDesign) {  // dw_part: the weight partials (B, T, Cout, Cin)
+    float* part = static_cast<float*>(dw_part);
+    const cudaError_t err = launch_walk<kStatsBwd>(args, static_cast<T*>(dx), part, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (pbias != nullptr) reduce_bias(args, 0, 3, static_cast<float*>(dpb), st);
+    vnk_reduce_rows(part, static_cast<float*>(dw), 1, B * args.T,
+                    static_cast<int64_t>(Cout) * Cin, st);
+  } else if (design == kWideDesign) {
     cudaError_t err = launch_pd_wide<kStatsBwd>(args, static_cast<T*>(wt), st);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (pbias != nullptr) reduce_bias(args, 0, 3, static_cast<float*>(dpb), st);
@@ -1874,22 +2024,9 @@ int stats_bwd(const void* x, const void* w, const void* pbias, const void* c1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The fused B' (Cin = kCin <= 2) into dx and its partials.
-template <int kCin, typename T>
-cudaError_t launch_bwd_fused(const PdArgs<T>& args, T* dx, float* dw_part, cudaStream_t st) {
-  const bool ag = aligned16(args.g, args.N, 16 / static_cast<int>(sizeof(T)));
-  const dim3 grid(args.T, args.B);
-  if (args.sub < kPts) {
-    layer_bwd_fused<kCin, true, T><<<grid, kThreads, 0, st>>>(args, dx, dw_part, ag);
-  } else {
-    layer_bwd_fused<kCin, false, T><<<grid, kThreads, 0, st>>>(args, dx, dw_part, ag);
-  }
-  return cudaGetLastError();
-}
-
 // B' (w_out null, kLayerBwd) and C' (kProjBwd): nqc per-channel sums.
-// `design` 1 takes the fused pass (B', Cin <= 2) or the wide passes (C'),
-// 0 the narrow ones.
+// `design` kWalkDesign takes B''s fused pass (Cin <= 2), kWideDesign C''s
+// wide passes, kNarrowDesign the narrow ones.
 template <int kMode, typename T>
 int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
               const void* dbias, const void* a, const void* b,
@@ -1897,6 +2034,8 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
               void* sums, void* dpdb, void* dp, void* dd, void* partial,
               void* dw_part, void* wt, int B, int Cin, int Cout, int N, int S,
               int chunk, int group, int design, float one_minus_ns, void* stream) {
+  if (check_design(design, Cin, kMode == kProjBwd, kMode == kLayerBwd) != cudaSuccess)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0 || Cout == 0) return 0;
   constexpr int nqc = channel_sums<kMode>();
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1904,11 +2043,9 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
                                       nullptr, nullptr, dp, dd, partial, B, Cin,
                                       Cout, N, group, one_minus_ns);
   if constexpr (kMode == kLayerBwd) {
-    if (design) {
-      if (Cin != 1 && Cin != 2) return static_cast<int>(cudaErrorInvalidValue);
+    if (design == kWalkDesign) {
       float* part = static_cast<float*>(dw_part);
-      cudaError_t err = Cin == 1 ? launch_bwd_fused<1>(args, static_cast<T*>(dx), part, st)
-                                 : launch_bwd_fused<2>(args, static_cast<T*>(dx), part, st);
+      const cudaError_t err = launch_walk<kMode>(args, static_cast<T*>(dx), part, st);
       if (err != cudaSuccess) return static_cast<int>(err);
       vnk_reduce_rows(args.partial, static_cast<float*>(sums), nqc, B * args.T, Cout, st);
       if (pbias != nullptr) reduce_bias(args, nqc, 6, static_cast<float*>(dpdb), st);
@@ -1918,7 +2055,7 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
     }
   }
   if constexpr (kMode == kProjBwd) {
-    if (design) {
+    if (design == kWideDesign) {
       cudaError_t err = launch_pd_wide<kMode>(args, static_cast<T*>(wt), st);
       if (err != cudaSuccess) return static_cast<int>(err);
       vnk_reduce_rows(args.partial, static_cast<float*>(sums), nqc, B * args.T, Cout, st);
@@ -1948,41 +2085,43 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
 // group 0, N / group for group >= 64 and T * 64 / group otherwise.  `group`
 // is 0 or a power of two dividing 512.  x, the biases, g, dx, dp and dd are
 // float32 in these entry points and bfloat16 in the _bf16 ones.
-// S' and C' take `wide` (1: the wide passes, 0: the narrow ones; the
-// wrapper's backward_design), and for the wide passes wt, a (1 or 2, Cin,
-// Cout) scratch in the activations' type, and `chunk`, the pass-3 stages
-// (16 points float32, 32 bf16) of each of the S splits.
+// Each takes `design` (Design: 0 the narrow passes; 1 the wide ones, S, S'
+// and C'; 2 the channel walk, S, S' and B' at Cin 1 or 2 only; any other
+// code, or a design the kernel lacks, returns cudaErrorInvalidValue); the
+// wide passes take wt, a (1 or 2, Cin, Cout) scratch in the activations'
+// type, and S' and C' `chunk`, the pass-3 stages (16 points float32, 32
+// bf16) of each of the S splits.
 
-// S: s12 (2, Cout) = (s1, s2); partial with nq = 2.  `wide` (the wrapper's
-// stats_design) takes the wide pass 1 over wt, a (Cin, Cout) scratch in
-// the activations' type; 0 takes pd_pass (wt unused).
+// S: s12 (2, Cout) = (s1, s2); partial with nq = 2; wt unused unless wide
+// (a (Cin, Cout) scratch).
 VNK_EXPORT int vn_layer_stats_fwd(const void* x, const void* w,
                                   const void* pbias, void* s12, void* partial,
                                   void* wt, int B, int Cin, int Cout, int N, int group,
-                                  int wide, void* stream) {
-  return stats_fwd<float>(x, w, pbias, s12, partial, wt, B, Cin, Cout, N, group, wide,
+                                  int design, void* stream) {
+  return stats_fwd<float>(x, w, pbias, s12, partial, wt, B, Cin, Cout, N, group, design,
                           stream);
 }
 
 VNK_EXPORT int vn_layer_stats_fwd_bf16(const void* x, const void* w,
                                        const void* pbias, void* s12,
                                        void* partial, void* wt, int B, int Cin, int Cout,
-                                       int N, int group, int wide, void* stream) {
-  return stats_fwd<vnk_bf16>(x, w, pbias, s12, partial, wt, B, Cin, Cout, N, group, wide,
+                                       int N, int group, int design, void* stream) {
+  return stats_fwd<vnk_bf16>(x, w, pbias, s12, partial, wt, B, Cin, Cout, N, group, design,
                              stream);
 }
 
 // S': dx (B, 3, Cin, N), dw (Cout, Cin), dpb (3, B, G, Cout) or null
-// without bias; partial with nqc = 0, nqb = 3.
+// without bias; partial with nqc = 0, nqb = 3.  The walk takes no dp (null)
+// and dw_part holds its weight partials (B, T, Cout, Cin).
 VNK_EXPORT int vn_layer_stats_bwd(const void* x, const void* w,
                                   const void* pbias, const void* c1,
                                   const void* c2, void* dx, void* dw,
                                   void* dpb, void* dp, void* partial,
                                   void* dw_part, void* wt, int B, int Cin, int Cout,
-                                  int N, int S, int chunk, int group, int wide,
+                                  int N, int S, int chunk, int group, int design,
                                   void* stream) {
   return stats_bwd<float>(x, w, pbias, c1, c2, dx, dw, dpb, dp, partial, dw_part, wt,
-                          B, Cin, Cout, N, S, chunk, group, wide, stream);
+                          B, Cin, Cout, N, S, chunk, group, design, stream);
 }
 
 VNK_EXPORT int vn_layer_stats_bwd_bf16(const void* x, const void* w,
@@ -1991,26 +2130,26 @@ VNK_EXPORT int vn_layer_stats_bwd_bf16(const void* x, const void* w,
                                        void* dpb, void* dp, void* partial,
                                        void* dw_part, void* wt, int B, int Cin,
                                        int Cout, int N, int S, int chunk, int group,
-                                       int wide, void* stream) {
+                                       int design, void* stream) {
   return stats_bwd<vnk_bf16>(x, w, pbias, c1, c2, dx, dw, dpb, dp, partial,
-                             dw_part, wt, B, Cin, Cout, N, S, chunk, group, wide, stream);
+                             dw_part, wt, B, Cin, Cout, N, S, chunk, group, design, stream);
 }
 
 // B': dx, dw2 (2, Cout, Cin) = (dW, dWd), dab (2, Cout) = (dA, dB),
 // dpdb (6, B, G, Cout) = (dpbias planes, ddbias planes) or null; partial
-// with nqc = 2, nqb = 6.  `fused` (the wrapper's layer_bwd_design; Cin <=
-// 2 only) takes the fused pass: no dp, dd (null), and dw_part holds the
-// weight partials (2, B, T, Cout, Cin); otherwise the narrow passes and
-// dw_part (2, S, Cout, Cin).
+// with nqc = 2, nqb = 6.  The walk (the wrapper's layer_bwd_design
+// "fused"; Cin <= 2 only) takes no dp, dd (null), and dw_part holds the
+// weight partials (2, B, T, Cout, Cin); the narrow passes dw_part (2, S,
+// Cout, Cin).
 VNK_EXPORT int vn_layer_fused_bwd(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* g, void* dx,
     void* dw2, void* dab, void* dpdb, void* dp, void* dd, void* partial,
-    void* dw_part, int B, int Cin, int Cout, int N, int S, int group, int fused,
+    void* dw_part, int B, int Cin, int Cout, int N, int S, int group, int design,
     float one_minus_ns, void* stream) {
   return layer_bwd<kLayerBwd, float>(x, w, wd, pbias, dbias, a, b, nullptr, g, dx,
                                      dw2, dab, dpdb, dp, dd, partial, dw_part, nullptr,
-                                     B, Cin, Cout, N, S, 0, group, fused, one_minus_ns,
+                                     B, Cin, Cout, N, S, 0, group, design, one_minus_ns,
                                      stream);
 }
 
@@ -2018,12 +2157,12 @@ VNK_EXPORT int vn_layer_fused_bwd_bf16(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* g, void* dx,
     void* dw2, void* dab, void* dpdb, void* dp, void* dd, void* partial,
-    void* dw_part, int B, int Cin, int Cout, int N, int S, int group, int fused,
+    void* dw_part, int B, int Cin, int Cout, int N, int S, int group, int design,
     float one_minus_ns, void* stream) {
   return layer_bwd<kLayerBwd, vnk_bf16>(x, w, wd, pbias, dbias, a, b, nullptr, g,
                                         dx, dw2, dab, dpdb, dp, dd, partial,
                                         dw_part, nullptr, B, Cin, Cout, N, S, 0, group,
-                                        fused, one_minus_ns, stream);
+                                        design, one_minus_ns, stream);
 }
 
 // C': as B' with w_out (Cout,) and g (B, 3, 1, N); dabo (3, Cout) =
@@ -2033,10 +2172,10 @@ VNK_EXPORT int vn_layer_fused_project_bwd(
     const void* dbias, const void* a, const void* b, const void* w_out,
     const void* g, void* dx, void* dw2, void* dabo, void* dpdb, void* dp,
     void* dd, void* partial, void* dw_part, void* wt, int B, int Cin, int Cout,
-    int N, int S, int chunk, int group, int wide, float one_minus_ns, void* stream) {
+    int N, int S, int chunk, int group, int design, float one_minus_ns, void* stream) {
   return layer_bwd<kProjBwd, float>(x, w, wd, pbias, dbias, a, b, w_out, g, dx,
                                     dw2, dabo, dpdb, dp, dd, partial, dw_part, wt, B,
-                                    Cin, Cout, N, S, chunk, group, wide, one_minus_ns,
+                                    Cin, Cout, N, S, chunk, group, design, one_minus_ns,
                                     stream);
 }
 
@@ -2045,9 +2184,9 @@ VNK_EXPORT int vn_layer_fused_project_bwd_bf16(
     const void* dbias, const void* a, const void* b, const void* w_out,
     const void* g, void* dx, void* dw2, void* dabo, void* dpdb, void* dp,
     void* dd, void* partial, void* dw_part, void* wt, int B, int Cin, int Cout,
-    int N, int S, int chunk, int group, int wide, float one_minus_ns, void* stream) {
+    int N, int S, int chunk, int group, int design, float one_minus_ns, void* stream) {
   return layer_bwd<kProjBwd, vnk_bf16>(x, w, wd, pbias, dbias, a, b, w_out, g,
                                        dx, dw2, dabo, dpdb, dp, dd, partial,
                                        dw_part, wt, B, Cin, Cout, N, S, chunk, group,
-                                       wide, one_minus_ns, stream);
+                                       design, one_minus_ns, stream);
 }

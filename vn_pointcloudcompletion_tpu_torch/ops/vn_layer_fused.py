@@ -19,16 +19,17 @@ contraction that way, expanded in the kernel, never in device memory
 (JAX ``vn_layer_fused.py:74-116``).  Their gradients are ``dp`` summed over
 each column's points.  As in JAX, ``S`` divides N and 512.
 
-Kernels B, C, S, S', C' and B' run one of two designs, chosen from the
-layer's widths and counted by name (``cuda_lib.variant_counts``): C by
-:func:`forward_design`, S by :func:`stats_design` and S', C' by
-:func:`backward_design`, the wide design at C_in, C_out >= 16
-(final_conv.1, vn_folding{1,2}.1), the narrow one below; B by
-:func:`layer_fwd_design`, a store stream at C_in <= 2 (final_conv.0, conv1,
-the pair folds), the narrow tile above; B' by :func:`layer_bwd_design`, one
-fused pass at C_in <= 2, the narrow passes above.  Both designs of a kernel
-compute the same function (``csrc/vn_layer_fused.cu``,
-``csrc/vn_layer_bwd.cu``).
+Kernels B, C, S, S', C' and B' run one of two or three designs, chosen
+from the layer's widths and counted by name (``cuda_lib.variant_counts``):
+C by :func:`forward_design` and C' by :func:`backward_design`, the wide
+design at C_in, C_out >= 16 (final_conv.1, vn_folding{1,2}.1), the narrow
+one below; S by :func:`stats_design` and S' by :func:`stats_bwd_design`,
+one pass that walks the channels at C_in <= 2 (final_conv.0, conv1, the
+pair folds; S's "stream", S''s "fused"), else the wide or narrow design of
+C'; B by :func:`layer_fwd_design`, a store stream at C_in <= 2, the narrow
+tile above; B' by :func:`layer_bwd_design`, one fused pass at C_in <= 2,
+the narrow passes above.  Every design of a kernel computes the same
+function (``csrc/vn_layer_fused.cu``, ``csrc/vn_layer_bwd.cu``).
 
 Each is a ``torch.autograd.Function`` that saves only its inputs; the
 backward recomputes ``p`` and ``d`` from ``x``, as the JAX ops do, so no
@@ -367,7 +368,11 @@ def _split_k(x, c_in, c_out, n_points):
 
 
 WIDE_MIN_CHANNELS = 16  # one m16n8k16 product's depth
-FUSED_MAX_CIN = 2  # the widest input of B''s fused pass and B's stream (csrc)
+FUSED_MAX_CIN = 2  # the widest input of the channel walk (S, S', B') and B's stream (csrc)
+# The code of each design name in the entry points of csrc/vn_layer_bwd.cu
+# (S, S', C', B'; its enum Design): the channel walk is S's "stream" and
+# S''s and B''s "fused"
+DESIGN_CODES = {"narrow": 0, "wide": 1, "stream": 2, "fused": 2}
 WIDE_F32_BLOCK = 32  # channels a block of the float32 wide C (csrc ProjFma::kBC)
 WIDE_BF16_BLOCK = 64  # ... of the bf16 one (csrc ProjMma::kBC)
 
@@ -385,17 +390,32 @@ def forward_design(c_in: int, c_out: int) -> str:
 
 
 def stats_design(c_in: int, c_out: int) -> str:
-    """Which pass kernel S runs at (c_in, c_out): ``"wide"`` (pass 1 of
-    the wide S' without its dp store: a cp.async ring over a W^T scratch,
-    FP32 FMAs in float32, the tensor cores in bf16) where p = W x is
-    matrix work, c_in and c_out >= 16 (final_conv.1's 256 -> 256,
-    vn_folding{1,2}.1's 256 -> 128); ``"narrow"`` (pd_pass, vn_tile.cuh's
-    FMA loop) below that, where the product is one or two channels deep
-    and bytes bound the pass (final_conv.0's 2 -> 256, conv1's 2 -> 32, the
-    pair folds' 1 -> 256).  The same widths as S''s passes, so every
-    layer's S and S' take the same design.  Either is a hand-written
-    kernel; a CUDA launch takes the one chosen here or raises."""
-    return backward_design(c_in, c_out)
+    """Which pass kernel S runs at (c_in, c_out): ``"stream"`` (csrc
+    channel_walk: each block walks all channels of its 64-point tile, each
+    thread forming p at its four points from the one or two input channels;
+    no product tile; pd_pass's operations in pd_pass's order, so the narrow
+    S's bits) at c_in <= 2, where the product is one or two channels deep
+    (final_conv.0's 2 -> 256, conv1's 2 -> 32, the pair folds' 1 -> 256);
+    above that ``"wide"`` (pass 1 of the wide S' without its dp store: a
+    cp.async ring over a W^T scratch, FP32 FMAs in float32, the tensor
+    cores in bf16) where p = W x is matrix work, c_in and c_out >= 16
+    (final_conv.1's 256 -> 256, vn_folding{1,2}.1's 256 -> 128), and
+    ``"narrow"`` (pd_pass, vn_tile.cuh's FMA loop) between.  Every layer's S
+    walks its channels exactly where its S' does (:func:`stats_bwd_design`
+    ``"fused"``).  Each is a hand-written kernel; a CUDA launch takes the
+    one chosen here or raises."""
+    return "stream" if c_in <= FUSED_MAX_CIN else backward_design(c_in, c_out)
+
+
+def stats_bwd_design(c_in: int, c_out: int) -> str:
+    """Which passes kernel S' runs at (c_in, c_out): ``"fused"`` (csrc
+    channel_walk, B''s fused pass without g or d: each block walks all
+    channels of its 64-point tile, recomputes p, forms dp in registers and
+    sums dx, dW and the bias gradients there, with no dp scratch and no
+    dx_gemm or dw_gemm) at c_in <= FUSED_MAX_CIN (final_conv.0's 2 -> 256,
+    conv1's 2 -> 32, the pair folds' 1 -> 256); :func:`backward_design`
+    above."""
+    return "fused" if c_in <= FUSED_MAX_CIN else backward_design(c_in, c_out)
 
 
 def projection_blocks(c_out: int, bf16: bool) -> int:
@@ -427,22 +447,20 @@ def layer_bwd_design(c_in: int) -> str:
     return "fused" if c_in <= FUSED_MAX_CIN else "narrow"
 
 
-def fused_weight_partials(bsz: int, n: int, c_in: int, c_out: int) -> int:
-    """Floats of the weight partials of B''s fused pass: dW and dWd, one
-    (C_out, C_in) partial per 64-point tile of each sample, which
-    ``vnk_reduce_rows`` sums in order."""
-    return 2 * bsz * -(-n // TILE) * c_out * c_in
+def fused_weight_partials(bsz: int, n: int, c_in: int, c_out: int, grads: int = 2) -> int:
+    """Floats of the weight partials of the fused B' (``grads`` 2: dW and
+    dWd) or S' (1: dW): one (C_out, C_in) partial per 64-point tile of each
+    sample and gradient, which ``vnk_reduce_rows`` sums in order."""
+    return grads * bsz * -(-n // TILE) * c_out * c_in
 
 
 def backward_design(c_in: int, c_out: int) -> str:
-    """Which passes kernels S' and C' run at (c_in, c_out): ``"wide"``
-    (cp.async rings; in the bf16 mode dx, dW and S''s p on the tensor
-    cores) where both are matrix work, c_in and c_out >= 16; ``"narrow"``
-    (pd_pass, dx_gemm and dw_gemm on the CUDA cores) below that, where the
-    products are one or two channels deep and bytes bound the pass
-    (final_conv.0's 2 -> 256, the pair folds' 1 -> 256).  Either is a
-    hand-written kernel; a CUDA launch takes the one chosen here or
-    raises."""
+    """Which passes kernel C' (and S' above c_in 2, :func:`stats_bwd_design`)
+    runs at (c_in, c_out): ``"wide"`` (cp.async rings; in the bf16 mode dx,
+    dW and S''s p on the tensor cores) where both are matrix work, c_in and
+    c_out >= 16; ``"narrow"`` (pd_pass, dx_gemm and dw_gemm on the CUDA
+    cores over a dp/dd scratch) below that.  Either is a hand-written
+    kernel; a CUDA launch takes the one chosen here or raises."""
     return "wide" if min(c_in, c_out) >= WIDE_MIN_CHANNELS else "narrow"
 
 
@@ -465,18 +483,16 @@ def wide_split(c_in: int, c_out: int, bsz: int, n: int, two: bool, bf16: bool,
     return -(-stages // chunk), chunk
 
 
-def _design_args(x, c_in, c_out, bsz, n, two):
+def _design_args(x, design, c_in, c_out, bsz, n, two):
     """(W^T scratch of the wide passes or None, dw_part's splits, pass 3's
-    stages a split (0 for the narrow passes), the design's name) for S'
-    (``two`` False) or C' at these widths."""
-    design = backward_design(c_in, c_out)
+    stages a split (0 for the narrow passes)) for S' (``two`` False) or C'
+    in ``design`` ("wide" or "narrow") at these widths."""
     if design == "narrow":
-        s = _split_k(x, c_in, c_out, bsz * 3 * n)
-        return None, s, 0, design
+        return None, _split_k(x, c_in, c_out, bsz * 3 * n), 0
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     s, chunk = wide_split(c_in, c_out, bsz, n, two, _bf16(x), sms)
     wt = _empty(x, 2 if two else 1, c_in, c_out, dtype=x.dtype)  # W^T (and Wd^T)
-    return wt, s, chunk, design
+    return wt, s, chunk
 
 
 def _bias_rows(n: int, group: int):
@@ -539,7 +555,7 @@ def stats_fwd(x, w, pbias, group: int = 0):
     wt = _empty(x, c_in, c_out, dtype=x.dtype) if design == "wide" else None  # W^T
     _counted(_STATS, group, _bf16(x))(x, x.data_ptr(), w.data_ptr(), _ptr(pbias),
                                       s12.data_ptr(), partial.data_ptr(), _ptr(wt), bsz,
-                                      c_in, c_out, n, group, int(design == "wide"),
+                                      c_in, c_out, n, group, DESIGN_CODES[design],
                                       variant=design)
     return s12[0], s12[1]
 
@@ -560,16 +576,21 @@ def stats_bwd(x, w, pbias, c1, c2, group: int = 0):
         return reference_stats_bwd(x, w, pbias, c1, c2, group)
     (x, w, _, pbias, _, c1, c2, *_), (bsz, c_in, c_out, n) = _prepare(
         "vn_layer_stats backward", x, w, pbias=pbias, a=c1, b=c2, group=group)
-    wt, s, chunk, design = _design_args(x, c_in, c_out, bsz, n, two=False)
+    design = stats_bwd_design(c_in, c_out)
     spt, cols = _bias_rows(n, group)
     dx, dw = torch.empty_like(x), _empty(x, c_out, c_in)
     dpb = None if pbias is None else _empty(x, 3, bsz, cols, c_out)
-    dp = _empty(x, bsz, 3, c_out, n, dtype=x.dtype)  # scratch: bf16 in the bf16 mode
     partial = None if pbias is None else _empty(x, 3, bsz, -(-n // TILE) * spt, c_out)
-    dw_part = _empty(x, s, c_out, c_in)
+    if design == "fused":  # no dp; the weight partials (B, T, C_out, C_in)
+        wt, s, chunk, dp = None, 0, 0, None
+        dw_part = _empty(x, fused_weight_partials(bsz, n, c_in, c_out, grads=1))
+    else:
+        wt, s, chunk = _design_args(x, design, c_in, c_out, bsz, n, two=False)
+        dp = _empty(x, bsz, 3, c_out, n, dtype=x.dtype)  # scratch: bf16 in the bf16 mode
+        dw_part = _empty(x, s, c_out, c_in)
     _counted(_STATS_BWD, group, _bf16(x))(
         x, *[_ptr(t) for t in (x, w, pbias, c1, c2, dx, dw, dpb, dp, partial, dw_part, wt)],
-        bsz, c_in, c_out, n, s, chunk, group, int(design == "wide"), variant=design)
+        bsz, c_in, c_out, n, s, chunk, group, DESIGN_CODES[design], variant=design)
     if dpb is not None:
         (dpb,) = _bias_grads(dpb, 3, bsz, c_out, n, group, pbias.dtype)
     return dx, dw, dpb
@@ -582,7 +603,8 @@ def _layer_bwd_launch(kernel, x, w, wd, pbias, dbias, a, b, w_out, g,
         kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out, g, group)
     project = w_out is not None
     if project:  # C' chooses its passes (wide or narrow), B' fused or narrow
-        wt, s, chunk, design = _design_args(x, c_in, c_out, bsz, n, two=True)
+        design = backward_design(c_in, c_out)
+        wt, s, chunk = _design_args(x, design, c_in, c_out, bsz, n, two=True)
     else:
         design = layer_bwd_design(c_in)
         s = 0 if design == "fused" else _split_k(x, c_in, c_out, bsz * 3 * n)
@@ -606,10 +628,10 @@ def _layer_bwd_launch(kernel, x, w, wd, pbias, dbias, a, b, w_out, g,
     if project:
         _counted(kernel, group, _bf16(x))(
             x, *ptrs, _ptr(wt), bsz, c_in, c_out, n, s, chunk, group,
-            int(design == "wide"), 1 - negative_slope, variant=design)
+            DESIGN_CODES[design], 1 - negative_slope, variant=design)
     else:
         _counted(kernel, group, _bf16(x))(x, *ptrs, bsz, c_in, c_out, n, s, group,
-                                          int(design == "fused"), 1 - negative_slope,
+                                          DESIGN_CODES[design], 1 - negative_slope,
                                           variant=design)
     dpb = ddb = None
     if dpdb is not None:
