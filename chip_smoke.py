@@ -48,7 +48,19 @@ on one NVIDIA GPU:
    "stream" design (topk_design) over the (8, 2048, M) distance matrices of
    the rotated scans (K1_SHAPES: M 2048 at k 16, 40 and 64, M 4096 at k 16),
    each equal to its plain version, a second launch and the parent "warp"
-   design, timed beside the parent design and torch.topk.
+   design, timed beside the parent design and torch.topk.  The bf16 S' and
+   C' at 256 -> 256 (N 16384) and 256 -> 128 (N 14336) take the wgmma
+   design (ops/vn_layer_fused.py::wide_bf16_design: passes 2 and 3 on
+   wgmma fed by TMA), each timed beside the parent mma.sync passes
+   (versus_parent: a call, back to back, on the device) and pass by pass in
+   both designs (wgmma_vs_parent: the W^T transpose, pass 1, the sums'
+   reduction, pass 2, pass 3 and the split-K reduction, from
+   torch.profiler's kernel durations over whole calls), with torch.matmul of
+   pass 2's and pass 3's bf16 products (float32 out) beside them as a
+   yardstick; C' also through the certificate probe of a tensor-core pass 1
+   (certificate_share: the share of p, d elements a re-sum in input-channel
+   order would take; every certified element equal to the in-order sum's
+   bf16 value, else the phase fails).
 3b. K1's path: ``knn()`` at (8, 2048 vs 2048, D 768, k 16) (features past
    K2's D 512), counted: K1 once in its stream design and nothing else; the
    indices equal to the plain selection's over the same matrix (one batched
@@ -391,8 +403,10 @@ BF16_TRAIN_EPOCHS = 2  # phase 13's train epochs before --resume
 # group 64) B the store stream, S the channel walk ("stream"), S' and B'
 # the fused walk: no S or S' launch takes the narrow design; vn_pointr's
 # F, K2 (coords) and K3 (on its features: tiled) too, and A in bf16 (run8;
-# float32 A has one design and counts none).  Phase 5b (float32) and phase
-# 13 (bf16) assert them.
+# float32 A has one design and counts none).  In bf16, S' and C' at those
+# wide widths take the wgmma design (wide_bf16_design: passes 2 and 3 on
+# wgmma + TMA; 256 and 128 are multiples of 64, N 16384 and 14336 of 8).
+# Phase 5b (float32) and phase 13 (bf16) assert them.
 # Kernel S (ops/vn_layer_fused.py::stats_design) takes the wide design
 # where S' does and walks its channels where S' fuses: STATS_STEP_DESIGNS,
 # asserted for each counted training run of phases 5, 7, 9 and 13
@@ -418,15 +432,15 @@ FLAGSHIP_STEP_DESIGNS = {"vn_layer_stats_bwd/fused": 1, "vn_layer_stats_bwd/wide
                          **STATS_STEP_DESIGNS["flagship"]}
 BF16_STEP_DESIGNS = {
     "flagship": {"vn_bn_leaky_fwd[bf16]/run8": 2,
-                 "vn_layer_stats_bwd[bf16]/fused": 1, "vn_layer_stats_bwd[bf16]/wide": 1,
-                 "vn_layer_fused_fwd[bf16]/stream": 1, "vn_layer_fused_project_bwd[bf16]/wide": 1,
+                 "vn_layer_stats_bwd[bf16]/fused": 1, "vn_layer_stats_bwd[bf16]/wgmma": 1,
+                 "vn_layer_fused_fwd[bf16]/stream": 1, "vn_layer_fused_project_bwd[bf16]/wgmma": 1,
                  "vn_layer_fused_project_fwd[bf16]/wide": 1, "vn_layer_fused_bwd[bf16]/fused": 1,
                  **bf16_designs(STATS_STEP_DESIGNS["flagship"])},
-    "vn_pointr_448": {"vn_layer_stats_bwd[bf16]/fused": 1, "vn_layer_stats_bwd[bf16]/wide": 2,
+    "vn_pointr_448": {"vn_layer_stats_bwd[bf16]/fused": 1, "vn_layer_stats_bwd[bf16]/wgmma": 2,
                       "vn_layer_stats_bwd[group,bf16]/fused": 2,
                       "vn_layer_fused_fwd[bf16]/stream": 1,
                       "vn_layer_fused_fwd[group,bf16]/stream": 2,
-                      "vn_layer_fused_project_bwd[bf16]/wide": 2,
+                      "vn_layer_fused_project_bwd[bf16]/wgmma": 2,
                       "vn_layer_fused_project_fwd[bf16]/wide": 2,
                       "vn_layer_fused_bwd[bf16]/fused": 1,
                       "vn_layer_fused_bwd[group,bf16]/fused": 2,
@@ -642,12 +656,14 @@ def narrow_designs():
 @contextlib.contextmanager
 def parent_designs():
     """K1, K2 and K3 held to their "warp" designs (the parent designs: one
-    warp a row or query; K3 then the block's gather) and A's bf16 mode to
-    its "vector" design (one thread a vector) inside the block."""
-    from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas, vn_fused
+    warp a row or query; K3 then the block's gather), A's bf16 mode to its
+    "vector" design (one thread a vector) and the wide bf16 S' and C' to the
+    wide design's mma.sync passes 2 and 3 (not "wgmma") inside the block."""
+    from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas, vn_fused, vn_layer_fused
 
     choosers = ((knn_pallas, "edge_design", "warp"), (knn_pallas, "knn_design", "warp"),
-                (knn_pallas, "topk_design", "warp"), (vn_fused, "fwd_design", "vector"))
+                (knn_pallas, "topk_design", "warp"), (vn_fused, "fwd_design", "vector"),
+                (vn_layer_fused, "wide_bf16_design", "wide"))
     saved = [getattr(mod, name) for mod, name, _ in choosers]
     for mod, name, design in choosers:
         setattr(mod, name, lambda *shape, design=design: design)
@@ -762,6 +778,140 @@ def walk_vs_narrow(rec: dict, fn, same_bits: bool, reps: int = 10) -> None:
         if not same:
             raise AssertionError(f"kernel {rec['name']}: the stream design differs from the "
                                  "narrow one")
+
+
+WIDE_PASSES = ("transpose", "pass1", "sums", "pass2", "pass3", "reduce")
+# The kernels of a wide or wgmma bf16 S' or C' launch by the pass they run
+# (a substring of the name torch.profiler gives each); the reductions
+# (vnk_reduce_*, reduce_bias) are the sums' after pass 1, the split-K's
+# after pass 3
+PASS_KERNELS = (("transpose", "transpose"), ("pass1", "pd_wide_"), ("pass2", "dx_"),
+                ("pass3", "dw_"))
+
+
+def pass_ms(fn, calls: int = 5) -> dict:
+    """Device ms a call of each pass (WIDE_PASSES, and ``other`` for any
+    kernel that none names) of a wide bf16 S' or C' call ``fn``: the
+    durations of its kernels under torch.profiler over ``calls`` calls, each
+    kernel put to its pass by its name (PASS_KERNELS) and a reduction to
+    the pass it follows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
+                     key=lambda e: e.time_range.start)
+    out = dict.fromkeys(WIDE_PASSES + ("other",), 0.0)
+    last = None
+    for e in kernels:
+        name = next((p for p, key in PASS_KERNELS if key in e.name), None)
+        if name is None and "reduce" in e.name and last in ("pass1", "pass3"):
+            name = "sums" if last == "pass1" else "reduce"
+        else:
+            last = name or last
+        out[name or "other"] += e.time_range.elapsed_us() / 1e3 / calls
+    return out
+
+
+def wgmma_vs_parent(rec: dict, fn, x, w, wd=None, reps: int = 10) -> None:
+    """A wide bf16 S' (``wd`` None) or C' row in the wgmma design: beside the
+    parent design (the wide design's mma.sync passes 2 and 3:
+    ``versus_parent``), each pass's device time in both designs on the same
+    inputs (``pass_ms``: torch.profiler's kernel durations over whole
+    calls, by pass), and, beside passes 2 and 3, torch.matmul of the same
+    bf16 products at the same shapes with float32 output (``torch.bmm`` /
+    ``torch.mm`` with ``out_dtype``; the yardstick in ``library_ms``'s
+    sense, never on the port's path), timed back to back on the current
+    stream (``stream_ms``: a graph's fresh side stream would keep a cuBLAS
+    workspace of its own allocated for the rest of the run, which every
+    later phase's peak memory would count).  Kept in the row under
+    ``passes`` (``<design>/<pass>`` -> ms) and ``matmul_ms``."""
+    import torch
+
+    versus_parent(rec, fn, reps)
+    passes = {}
+    for design, ctx in (("parent", parent_designs), (rec["design"], contextlib.nullcontext)):
+        with ctx():
+            split = pass_ms(fn)
+            whole = graph_ms(fn, reps)
+        passes.update({f"{design}/{name}": ms for name, ms in split.items()})
+        print(f"[kernel {rec['name']}] {design} design by pass (device ms, torch.profiler): "
+              + ", ".join(f"{name} {ms:.4f}" for name, ms in split.items())
+              + f"; sum {sum(split.values()):.4f}, the whole call by graph replay {whole:.4f}",
+              flush=True)
+    bf = torch.bfloat16
+    planes, c_in, c_out, n = x.shape[0] * 3, x.shape[2], w.shape[0], x.shape[3]
+    mats = [w] if wd is None else [w, wd]
+    g = [torch.randn(planes, c_out, n, device=x.device).to(bf) for _ in mats]
+    wt = torch.cat([m.t() for m in mats], 1).to(bf).expand(planes, c_in, -1).contiguous()
+    g2 = torch.cat(g, 1)  # (planes, k C_out, N): pass 2's B
+    g3 = torch.cat([t.transpose(0, 1).reshape(c_out, planes * n) for t in g], 0)  # pass 3's A
+    x3 = x.reshape(planes, c_in, n).transpose(0, 1).reshape(c_in, planes * n)
+    out = "float32"
+    try:
+        mm2 = lambda: torch.bmm(wt, g2, out_dtype=torch.float32)  # noqa: E731
+        mm3 = lambda: torch.mm(g3, x3.t(), out_dtype=torch.float32)  # noqa: E731
+        mm2(), mm3()
+    except (TypeError, RuntimeError):  # no bf16 -> float32 product in this torch: bf16 out
+        out = "bf16"
+        mm2 = lambda: torch.bmm(wt, g2)  # noqa: E731
+        mm3 = lambda: torch.mm(g3, x3.t())  # noqa: E731
+    mat = {"pass2": stream_ms(mm2, reps), "pass3": stream_ms(mm3, reps)}
+    print(f"[kernel {rec['name']}] torch.matmul yardstick ({out} out, ms a call back to "
+          f"back): pass 2 {mat['pass2']:.4f} (the wgmma pass {passes[rec['design'] + '/pass2']:.4f}, the "
+          f"parent's {passes['parent/pass2']:.4f}), pass 3 {mat['pass3']:.4f} (the wgmma pass "
+          f"{passes[rec['design'] + '/pass3']:.4f}, the parent's {passes['parent/pass3']:.4f})",
+          flush=True)
+    rec.update({"passes": passes, "matmul_ms": mat, "matmul_out": out})
+    del g, wt, g2, g3, x3
+
+
+def certificate_share(rec: dict, x, w, wd) -> None:
+    """Kernel C''s pass 1 on the tensor cores, measured before it is built:
+    the certificate probe (``vn_layer_fused.certify_probe``: p and d summed by
+    mma.sync with |W| |x| beside them, each element certified where its bf16
+    rounding provably equals the in-order sum's) on the row's inputs.  The
+    share it leaves uncertain is what a tensor-core pass 1 would sum again
+    in input-channel order.  Fails if a certified element's bf16 value
+    differs from the plain version's in-order sum, or if the probe's mask is
+    not ``certified_bf16_mask`` of its own sums.  Kept in the row under
+    ``resum_share`` (elements), ``resum_vector_share`` (channel vectors with
+    any of their six p, d elements uncertain) and ``probe_ms`` (the probe's
+    device time for p alone)."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
+
+    c_in = x.shape[2]
+    certified, vectors, wrong = 0, None, 0
+    for m in (w, wd):
+        v, s, cert = vn_layer_fused.certify_probe(x, m)
+        if not torch.equal(cert, vn_layer_fused.certified_bf16_mask(v, s, c_in)):
+            raise AssertionError(f"{rec['name']}: the probe's certificate is not its plain version's")
+        in_order = vn_layer_fused._products(m, x, None)
+        wrong += int((v.to(torch.bfloat16)[cert] != in_order[cert]).sum().item())
+        certified += int(cert.sum().item())
+        whole = cert.all(1)
+        vectors = whole if vectors is None else vectors & whole
+        del v, s, cert, in_order
+    total = 2 * x.shape[0] * 3 * w.shape[0] * x.shape[3]
+    share = 1.0 - certified / total
+    vshare = 1.0 - vectors.float().mean().item()
+    probe = graph_ms(lambda: vn_layer_fused.certify_probe(x, w), 3)
+    print(f"[kernel {rec['name']}] a tensor-core pass 1's certificate (k "
+          f"{vn_layer_fused.certificate_margin(c_in):.4e} s + 2^-23 |v|): {share:.2%} of p, d "
+          f"elements uncertain (the re-sum share), {vshare:.2%} of channel vectors with one or "
+          f"more; certified elements unequal to the in-order bits: {wrong}; the probe (p alone, "
+          f"with |W| |x|) {probe:.4f} ms on the device", flush=True)
+    if wrong:
+        raise AssertionError(f"{rec['name']}: {wrong} certified elements differ from the "
+                             "in-order sum")
+    rec.update({"resum_share": share, "resum_vector_share": vshare, "probe_ms": probe})
 
 
 def narrow_ms(fn, reps: int) -> float:
@@ -1398,26 +1548,45 @@ def check_bf16_train_kernels(dev, record, randn, uniform):
            2 * 3 * vecs_f * 256, reps=10, repro=True, peak_ops=PEAK_BF16,
            fp32_ops=9 * vecs_f)
     del xf
-    record("S' vn_layer_stats backward bf16", src + "vn_layer_bwd.cu",
-           at + "vn_layer_fused.py:325",
-           lambda: vn_layer_fused.stats_bwd(x, w, None, c1, c2),
-           lambda: vn_layer_fused.reference_stats_bwd(x, w, None, c1, c2),
-           close, "dx 1 bf16 ulp of max; dW 1e-4 x max",
-           2 * nbytes(x) + 2 * nbytes(w) + nbytes(c1, c2), 3 * prod, reps=10,
-           plain_reps=3, repro=True, peak_ops=PEAK_BF16, fp32_ops=15 * vecs)
-
-    w, wd = uniform(-1 / 16, 1 / 16, 256, 256), uniform(-1 / 16, 1 / 16, 256, 256)
-    a, b, w_out = uniform(0.5, 1.5, 256), randn(256, scale=0.3), uniform(-1 / 16, 1 / 16, 256)
-    g_ = randn(BATCH, 3, 1, n, scale=1e-4).to(bf)
-    record("C' vn_layer_fused_project backward bf16", src + "vn_layer_bwd.cu",
-           at + "vn_layer_fused.py:878",
-           lambda: vn_layer_fused.layer_project_bwd(x, w, wd, None, None, a, b, w_out, g_, NS),
-           lambda: vn_layer_fused.reference_layer_project_bwd(
-               x, w, wd, None, None, a, b, w_out, g_, NS),
-           close, "dx 1 bf16 ulp of max; dW, dWd, dA, dB, dw_out 1e-4 x max",
-           2 * nbytes(x, w, wd, a, b, w_out) + nbytes(g_), 6 * prod, reps=5,
-           plain_reps=3, repro=True, peak_ops=PEAK_BF16, fp32_ops=90 * vecs)
-    del x, g_
+    # S' and C' at final_conv.1 (256 -> 256, N 16384) and vn_folding{1,2}.1
+    # (256 -> 128, N 14336): the wgmma design, beside the parent mma.sync
+    # passes, pass by pass, with torch.matmul as the yardstick of passes 2
+    # and 3; C' also the certificate of a tensor-core pass 1 (its share)
+    for c_out, npts in ((256, n), (128, 14336)):
+        shape = "" if c_out == 256 else " 256 -> 128"
+        xs = x if npts == n else randn(BATCH, 3, 256, npts).to(bf)
+        ws = w if c_out == 256 else uniform(-1 / 16, 1 / 16, c_out, 256)
+        vecs_s = BATCH * c_out * npts
+        prod_s = 2 * 3 * vecs_s * 256
+        fn = lambda: vn_layer_fused.stats_bwd(xs, ws, None, c1[:c_out], c2[:c_out])  # noqa: E731
+        rec = record(f"S' vn_layer_stats backward{shape} bf16", src + "vn_layer_bwd.cu",
+                     at + "vn_layer_fused.py:325", fn,
+                     lambda: vn_layer_fused.reference_stats_bwd(xs, ws, None, c1[:c_out],
+                                                                c2[:c_out]),
+                     close, "dx 1 bf16 ulp of max; dW 1e-4 x max",
+                     2 * nbytes(xs) + 2 * nbytes(ws) + 2 * 4 * c_out, 3 * prod_s, reps=10,
+                     plain_reps=3, repro=True, peak_ops=PEAK_BF16, fp32_ops=15 * vecs_s,
+                     versus=True)
+        wgmma_vs_parent(rec, fn, xs, ws)
+        wc, wdc = uniform(-1 / 16, 1 / 16, c_out, 256), uniform(-1 / 16, 1 / 16, c_out, 256)
+        a, b = uniform(0.5, 1.5, c_out), randn(c_out, scale=0.3)
+        w_out = uniform(-1 / 16, 1 / 16, c_out)
+        g_ = randn(BATCH, 3, 1, npts, scale=1e-4).to(bf)
+        fn = lambda: vn_layer_fused.layer_project_bwd(  # noqa: E731
+            xs, wc, wdc, None, None, a, b, w_out, g_, NS)
+        rec = record(f"C' vn_layer_fused_project backward{shape} bf16", src + "vn_layer_bwd.cu",
+                     at + "vn_layer_fused.py:878", fn,
+                     lambda: vn_layer_fused.reference_layer_project_bwd(
+                         xs, wc, wdc, None, None, a, b, w_out, g_, NS),
+                     close, "dx 1 bf16 ulp of max; dW, dWd, dA, dB, dw_out 1e-4 x max",
+                     2 * nbytes(xs, wc, wdc, a, b, w_out) + nbytes(g_), 6 * prod_s, reps=5,
+                     plain_reps=3, repro=True, peak_ops=PEAK_BF16, fp32_ops=90 * vecs_s,
+                     versus=True)
+        wgmma_vs_parent(rec, fn, xs, wc, wdc)
+        certificate_share(rec, xs, wc, wdc)
+        del g_, xs
+    del x
+    a, b = uniform(0.5, 1.5, 256), randn(256, scale=0.3)
 
     x = randn(BATCH, 3, 2, n, scale=0.3).to(bf)
     w, wd = uniform(-0.02, 0.02, 256, 2), uniform(-0.02, 0.02, 256, 2)

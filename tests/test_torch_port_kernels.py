@@ -1930,6 +1930,209 @@ def test_wide_backward_dispatch_boundary(cuda, c_in, design, kernel, bf16):
     (_assert_bf16_bwd if bf16 else _assert_rel)(got, plain())
 
 
+# ------------------------------------------ the wgmma passes of bf16 S', C'
+#
+# A wide bf16 S' or C' whose widths are multiples of 64 and whose point rows
+# are 16-byte aligned runs passes 2 and 3 on wgmma fed by TMA
+# (port_layer.wide_bf16_design; csrc vn_wgmma.cuh); pass 1 stays the wide
+# design's.  Held to the plain version at phase 3's bounds (dx one bf16 ulp
+# of its max; dW, dWd, dA, dB, dw_out and the bias sums 1e-4 of theirs),
+# twice for equal bits, counted under "wgmma"; ragged N (1000, 1088: no
+# multiple of the 128-point pass-2 tile or the 64-point pass-3 stage), a
+# bias per sample and per group of 64, and a half tile (192 output
+# channels: 128 + 64).
+
+
+def _wgmma_inputs(cuda, c_in, c_out, n, group, seed):
+    return _wide_inputs(cuda, c_in, c_out, n, group, True, True, seed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out", [(64, 64), (128, 64), (64, 128), (256, 256),
+                                        (256, 128), (128, 192)])
+@pytest.mark.parametrize("n,group", [(1000, 0), (1088, 64)])
+@pytest.mark.parametrize("kernel", ["S'", "C'"])
+def test_wgmma_backward_cuda_matches_plain(cuda, c_in, c_out, n, group, kernel):
+    inputs = _wgmma_inputs(cuda, c_in, c_out, n, group, c_in + c_out + n + group)
+    assert port_layer.wide_bf16_design(c_in, c_out, n) == "wgmma"
+    launch, plain, symbol = _wide_run(kernel, *inputs, group)
+    key = _variant(symbol, group, True, "wgmma")
+    before = cuda_lib.variant_counts().get(key, 0)
+    got, again = launch(), launch()
+    torch.cuda.synchronize()
+    assert cuda_lib.variant_counts().get(key, 0) == before + 2
+    _assert_bf16_bwd(got, plain())
+    _assert_same_bits(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["S'", "C'"])
+def test_wgmma_backward_against_the_mma_sync_design(cuda, kernel, monkeypatch):
+    """The wgmma passes and the parent mma.sync passes (the wide design) on
+    the same inputs: dx within one bf16 ulp, dW within 1e-4 of its max (two
+    summation orders of the same bf16 products), the rest (pass 1's sums)
+    equal to the bit."""
+    inputs = _wgmma_inputs(cuda, 256, 128, 4096, 0, 17)
+    launch, _, _ = _wide_run(kernel, *inputs, 0)
+    got = launch()
+    monkeypatch.setattr(port_layer, "wide_bf16_design", lambda *shape: "wide")
+    parent = launch()
+    _assert_bf16_bwd(got, parent)
+    first = 2 if kernel == "S'" else 3  # dx, dW (dWd) are the products' outputs
+    _assert_same_bits(got[first:], parent[first:])
+
+
+def _adversarial_layer(cuda, c_in, c_out, n, seed):
+    """bf16 x and bf16-exact w, wd whose every p and d lies within a few
+    float32 ulps of a bf16 rounding midpoint: channel 0's product a power of
+    two t0, channel 1's t0 2^-8, the rest ~2^-25 t0 with random signs (as
+    tests/test_torch_port_wide.py builds them)."""
+    rng = np.random.default_rng(seed)
+    sign = lambda *shape: rng.choice([-1.0, 1.0], shape)  # noqa: E731
+    small = lambda *shape: sign(*shape) * np.ldexp(rng.uniform(1, 2, shape), -13)  # noqa: E731
+    lead_x = np.ldexp(sign(2, 3, 1, n), rng.integers(-2, 3, (2, 3, 1, n)))
+    x = np.concatenate([lead_x, lead_x, lead_x * small(2, 3, c_in - 2, n)], 2)
+
+    def weights():
+        lead = np.ldexp(sign(c_out, 1), rng.integers(-2, 3, (c_out, 1)))
+        return np.concatenate([lead, lead * 2.0 ** -8, lead * small(c_out, c_in - 2)], 1)
+
+    w, wd = weights(), weights()
+    a = rng.uniform(0.5, 1.5, c_out)
+    b = rng.normal(0.0, 0.3, c_out)
+    w_out = rng.uniform(-0.3, 0.3, c_out)
+    g = rng.standard_normal((2, 3, 1, n))
+    (x, g), (w, wd, a, b, w_out) = (_bf16_t(*(t.astype(np.float32) for t in (x, g)), device=cuda),
+                                    _t(*(t.astype(np.float32) for t in (w, wd, a, b, w_out)),
+                                       device=cuda))
+    return x, w.to(torch.bfloat16).float(), wd.to(torch.bfloat16).float(), a, b, w_out, g
+
+
+@pytest.mark.gpu
+def test_wgmma_c_bwd_scratch_equals_the_parent_design_near_midpoints(cuda, monkeypatch):
+    """C''s dp and dd scratch (pass 1's bf16 outputs, which the epilogue
+    backward forms from p and d rounded to bf16) equal in bits under the
+    wgmma design and the parent mma.sync design, on inputs whose every p and
+    d lies a few float32 ulps from a bf16 midpoint (where another summation
+    order than the in-order one moves them a bf16 ulp); and the outputs
+    within the plain version's bounds there."""
+    x, w, wd, a, b, w_out, g = _adversarial_layer(cuda, 256, 128, 1024, 5)
+    scratch = []
+    empty = port_layer._empty
+
+    def keep(like, *shape, dtype=torch.float32):
+        t = empty(like, *shape, dtype=dtype)
+        if dtype == torch.bfloat16 and tuple(shape) == (2, 3, 128, 1024):
+            scratch.append(t)
+        return t
+
+    monkeypatch.setattr(port_layer, "_empty", keep)
+    args = (x, w, wd, None, None, a, b, w_out, g, NS)
+    got = port_layer.layer_project_bwd(*args)
+    mine = [t.clone() for t in scratch]
+    scratch.clear()
+    monkeypatch.setattr(port_layer, "wide_bf16_design", lambda *shape: "wide")
+    port_layer.layer_project_bwd(*args)
+    torch.cuda.synchronize()
+    assert len(mine) == len(scratch) == 2
+    for m, p in zip(mine, scratch):
+        assert torch.equal(m, p)
+    monkeypatch.undo()
+    _assert_bf16_bwd(got, port_layer.reference_layer_project_bwd(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "adversarial"])
+def test_certify_probe_certifies_only_the_in_order_bits(cuda, kind):
+    """The tensor-core probe of a certified pass 1 (csrc certify_probe): its
+    certificate is certified_bf16_mask of its own (v, s), and every element
+    it certifies rounds to the bf16 value of the plain version's in-order
+    sum; on the adversarial inputs it certifies few."""
+    if kind == "random":
+        rng = np.random.default_rng(3)
+        x = _bf16_t(rng.standard_normal((2, 3, 256, 1000)).astype(np.float32), device=cuda)[0]
+        w = _t(rng.uniform(-1 / 16, 1 / 16, (128, 256)).astype(np.float32), device=cuda)[0]
+        bias = _bf16_t(rng.standard_normal((2, 3, 128, 1)).astype(np.float32), device=cuda)[0]
+    else:
+        x, w, _, _, _, _, _ = _adversarial_layer(cuda, 256, 128, 1000, 9)
+        bias = None
+    v, s, cert = port_layer.certify_probe(x, w, bias)
+    assert torch.equal(cert, port_layer.certified_bf16_mask(v, s, 256))
+    in_order = port_layer._products(w, x, bias)
+    assert torch.equal(v.to(torch.bfloat16)[cert], in_order[cert])
+    share = cert.float().mean().item()
+    assert share < 0.5 if kind == "adversarial" else share > 0.02
+
+
+def _device_kernels(fn):
+    """The names of the kernels one call of ``fn`` runs on the card, in the
+    order they ran (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    return [e.name for e in sorted(kernels, key=lambda e: e.time_range.start)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["S'", "C'"])
+def test_wgmma_split_k_takes_the_one_thread_reduction(cuda, kernel):
+    """The wgmma pass 3's split-K partials (port_layer.wide_split, capped at
+    REDUCE_FEW_ROWS) are summed by vnk_reduce_rows's one-thread-a-column
+    kernel (csrc common.cuh: kReduceFewRows rows, kReduceFewCols columns),
+    not its tree: at 128 -> 128, N 2048 the card's SMs over one output tile
+    would ask for more splits than that, so the cap binds here."""
+    c_in = c_out = 128
+    n = 2048
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    stages = 2 * 3 * n // port_layer.WGMMA_CHANNELS
+    assert min(stages, sms) > port_layer.REDUCE_FEW_ROWS
+    splits, _ = port_layer.wide_split(c_in, c_out, 2, n, kernel == "C'", True, sms, "wgmma")
+    assert splits <= port_layer.REDUCE_FEW_ROWS
+    launch, _, _ = _wide_run(kernel, *_wgmma_inputs(cuda, c_in, c_out, n, 0, 4), 0)
+    names = _device_kernels(launch)
+    assert any("dw_wgmma" in k for k in names)
+    split_k = [k for k in names[max(i for i, k in enumerate(names) if "dw_wgmma" in k):]
+               if "reduce" in k]
+    assert len(split_k) == 1 and "vnk_reduce_few_rows_kernel" in split_k[0], names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out,n", [(48, 64, 1000), (64, 48, 1000), (64, 64, 1004),
+                                          (16, 64, 1000)])
+@pytest.mark.parametrize("kernel", ["S'", "C'"])
+def test_wgmma_refuses_shapes_it_does_not_tile(cuda, c_in, c_out, n, kernel, monkeypatch):
+    """Forced onto widths that are no multiple of 64, or point rows that are
+    no whole 16-byte vectors, the wgmma design's entry points return
+    cudaErrorInvalidValue and the wrappers raise, with nothing counted; so
+    does its float32 mode, which it does not have.  Where it fits (64 -> 64,
+    N 1000) it runs."""
+    inputs = _wgmma_inputs(cuda, c_in, c_out, n, 0, 1)
+    assert port_layer.wide_bf16_design(c_in, c_out, n) == "wide"
+    monkeypatch.setattr(port_layer, "wide_bf16_design", lambda *shape: "wgmma")
+    launch, _, symbol = _wide_run(kernel, *inputs, 0)
+    before = cuda_lib.variant_counts()
+    with pytest.raises(RuntimeError, match=symbol):
+        launch()
+    x32 = [t.float() if t is not None and t.dtype == torch.bfloat16 else t
+           for t in _wgmma_inputs(cuda, 64, 64, 1000, 0, 2)]
+    monkeypatch.setattr(port_layer, "backward_design", lambda *widths: "wgmma")
+    launch32, _, _ = _wide_run(kernel, *x32, 0)
+    with pytest.raises(RuntimeError, match=symbol):
+        launch32()
+    assert cuda_lib.variant_counts() == before
+    monkeypatch.undo()
+    fits = _wgmma_inputs(cuda, 64, 64, 1000, 0, 3)
+    launch, plain, _ = _wide_run(kernel, *fits, 0)
+    _assert_bf16_bwd(launch(), plain())
+    assert cuda_lib.variant_counts().get(_variant(symbol, 0, True, "wgmma"), 0) == \
+        before.get(_variant(symbol, 0, True, "wgmma"), 0) + 1
+
+
 # ------------------------------------------ the wide C and the fused B'
 #
 # C at C_in, C_out >= 16 runs the wide design (port_layer.forward_design:

@@ -46,20 +46,32 @@ _EXPECTED = {
 }
 
 
+# ... and the passes 2 and 3 each takes in the bf16 mode
+# (wide_bf16_design): every wide layer's widths are multiples of 64 and its
+# point rows (4096 points at num_coarse 256, 14336 at 448) 16-byte aligned,
+# so the wgmma passes; the walk and the narrow passes keep their design
+_EXPECTED_BF16 = {name: {key: "wgmma" if design == "wide" else design
+                         for key, design in layers.items()}
+                  for name, layers in _EXPECTED.items()}
+
+
 @pytest.mark.parametrize("name", list(_PIPELINES))
 def test_backward_design_of_every_trained_layer(name, monkeypatch):
     """One train-mode forward and backward of a pipeline at num_coarse 256
     or 448: each S' and C' call's (C_in, C_out, group) and the design the
-    wrapper takes for it."""
+    wrapper takes for it, in float32 and in the bf16 mode (where a wide
+    layer's passes 2 and 3 go to wgmma)."""
     from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
 
-    seen = {}
+    seen, seen_bf16 = {}, {}
 
     def record(kernel, fn, design):
         def wrapped(x, w, *args):
             group = args[-1] if isinstance(args[-1], int) else 0
             key = (kernel, x.shape[2], w.shape[0], group)
             seen[key] = design(x.shape[2], w.shape[0])
+            seen_bf16[key] = (port_layer.wide_bf16_design(x.shape[2], w.shape[0], x.shape[3])
+                              if seen[key] == "wide" else seen[key])
             return fn(x, w, *args)
         return wrapped
 
@@ -75,6 +87,7 @@ def test_backward_design_of_every_trained_layer(name, monkeypatch):
     coarse, fine = model(xyz)
     (coarse.square().sum() + fine.square().sum()).backward()
     assert seen == _EXPECTED[name]
+    assert seen_bf16 == _EXPECTED_BF16[name]
 
 
 # (C_in, C_out, group) of every S launch of one train step, and its
@@ -152,9 +165,11 @@ def test_design_codes_cover_every_choice(c_in, c_out):
     has one code under both of its names."""
     codes = port_layer.DESIGN_CODES
     for design in (port_layer.stats_design(c_in, c_out), port_layer.stats_bwd_design(c_in, c_out),
-                   port_layer.backward_design(c_in, c_out), port_layer.layer_bwd_design(c_in)):
+                   port_layer.backward_design(c_in, c_out), port_layer.layer_bwd_design(c_in),
+                   port_layer.wide_bf16_design(c_in, c_out, 1024)):
         assert design in codes
     assert codes["stream"] == codes["fused"] not in (codes["narrow"], codes["wide"])
+    assert codes["wgmma"] not in (codes["narrow"], codes["wide"], codes["fused"])
 
 
 @pytest.mark.parametrize("c_in,c_out,design", [
@@ -169,11 +184,12 @@ def test_backward_design_boundary(c_in, c_out, design):
     assert port_layer.backward_design(c_in, c_out) == design
 
 
-def _split_points(s, chunk, bsz, n, bf16):
+def _split_points(s, chunk, bsz, n, bf16, design="wide"):
     """The (plane, point) pairs that split ``s`` of the wide pass 3 sums
-    over, walked as ``dw_wide_f32`` / ``dw_wide_bf16`` walk them: stage t
-    is plane t // ceil(n / step), points (t % ceil(n / step)) * step ..."""
-    step = port_layer.wide_stage_points(bf16)
+    over, walked as ``dw_wide_f32`` / ``dw_wide_bf16`` / ``dw_wgmma`` walk
+    them: stage t is plane t // ceil(n / step), points (t % ceil(n / step))
+    * step ..."""
+    step = port_layer.wide_stage_points(bf16, design)
     per_plane = -(-n // step)
     for t in range(s * chunk, min((s + 1) * chunk, bsz * 3 * per_plane)):
         n0 = (t % per_plane) * step
@@ -208,3 +224,145 @@ def test_wide_split_covers_every_point_once(bsz, n, c_in, c_out, two, bf16):
     assert (seen == 1).all()
     tiles = -(-c_out // (64 if two else 128)) * -(-c_in // 128)
     assert splits * tiles >= min(sms, stages * tiles)
+
+
+@pytest.mark.parametrize("bsz,n,c_in,c_out,two", [
+    (2, 1000, 64, 64, True),
+    (2, 1000, 128, 64, False),
+    (1, 4104, 256, 256, True),
+    (8, 16384, 256, 256, False),
+    (8, 14336, 256, 128, True),
+    (3, 24, 64, 192, True),
+])
+def test_wgmma_split_covers_every_point_once(bsz, n, c_in, c_out, two):
+    """The wgmma pass 3 (csrc ``dw_wgmma``) walks 64-point stages of one
+    plane: every (plane, point) lies in exactly one split, none is empty,
+    and its one-block-an-SM grid of 128 x 128 tiles fills the card once
+    over, or takes the 64 splits that the in-order reduction sums one
+    thread a column (less at most a half, where whole chunks of stages
+    round the count down)."""
+    sms = 132
+    splits, chunk = port_layer.wide_split(c_in, c_out, bsz, n, two, True, sms, "wgmma")
+    step = port_layer.wide_stage_points(True, "wgmma")
+    assert step == port_layer.WGMMA_CHANNELS == 64
+    stages = bsz * 3 * -(-n // step)
+    assert (splits - 1) * chunk < stages <= splits * chunk
+    seen = np.zeros((bsz * 3, n), dtype=np.int64)
+    for s in range(splits):
+        pts = list(_split_points(s, chunk, bsz, n, True, "wgmma"))
+        assert pts, f"split {s} is empty"
+        planes, points = np.array(pts).T
+        np.add.at(seen, (planes, points), 1)
+    assert (seen == 1).all()
+    tiles = -(-c_out // 128) * -(-c_in // 128)
+    assert splits <= port_layer.REDUCE_FEW_ROWS
+    assert 2 * splits >= min(-(-sms // tiles), stages, port_layer.REDUCE_FEW_ROWS)
+
+
+@pytest.mark.parametrize("c_in,c_out,n,aligned,design", [
+    (64, 64, 1000, True, "wgmma"), (256, 256, 16384, True, "wgmma"),
+    (256, 128, 14336, True, "wgmma"), (128, 192, 1088, True, "wgmma"),
+    (48, 80, 1000, True, "wide"), (16, 64, 1000, True, "wide"), (64, 48, 1000, True, "wide"),
+    (256, 256, 999, True, "wide"), (256, 256, 1004, True, "wide"),
+    (256, 256, 16384, False, "wide"),
+])
+def test_wide_bf16_design_boundary(c_in, c_out, n, aligned, design):
+    """A wide bf16 S' or C' takes the wgmma passes where both widths are
+    multiples of 64 and the point rows are whole 16-byte vectors (N % 8 ==
+    0, aligned bases: the tensor maps' strides); elsewhere the mma.sync
+    passes of the wide design."""
+    assert port_layer.wide_bf16_design(c_in, c_out, n, aligned) == design
+    assert port_layer.backward_design(c_in, c_out) == "wide"
+
+
+# ------------------------------------------------ the certificate of a p
+#
+# certified_bf16_mask says which float32 sums of bf16 products (another
+# summation order than the plain version's, a tensor core's) round to bf16
+# as the plain version's in-order sum does.  Held here against the sums it
+# speaks for: the in-order float32 sum (``_products``), the same products in
+# random orders, and the float64 sum, on random and on adversarial inputs
+# (every sum within a few float32 ulps of a bf16 rounding midpoint).
+
+
+def _certificate_inputs(kind, c_in, c_out, n, seed):
+    """bf16 x (1, 3, c_in, n), bf16-exact w (c_out, c_in) and a bf16 bias
+    (1, 3, c_out, 1).  ``adversarial``: channel 0's product t0 a power of two,
+    channel 1's t0 2^-8 (so the two land on the midpoint t0 (1 + 2^-8)
+    between two bf16 values), the other c_in - 2 products ~2^-25 t0 with
+    random signs, so every sum lies within a few float32 ulps of the
+    midpoint; the bias is zero there."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        x = rng.standard_normal((1, 3, c_in, n))
+        w = rng.uniform(-1, 1, (c_out, c_in)) / np.sqrt(c_in)
+        bias = rng.standard_normal((1, 3, c_out, 1))
+    else:
+        lead_x = np.ldexp(rng.choice([-1.0, 1.0], (1, 3, 1, n)), rng.integers(-2, 3, (1, 3, 1, n)))
+        lead_w = np.ldexp(rng.choice([-1.0, 1.0], (c_out, 1)), rng.integers(-2, 3, (c_out, 1)))
+        small = lambda *shape: (rng.choice([-1.0, 1.0], shape)  # noqa: E731
+                                * np.ldexp(rng.uniform(1, 2, shape), -13))
+        x = np.concatenate([lead_x, lead_x, lead_x * small(1, 3, c_in - 2, n)], 2)
+        w = np.concatenate([lead_w, lead_w * 2.0 ** -8, lead_w * small(c_out, c_in - 2)], 1)
+        bias = np.zeros((1, 3, c_out, 1))
+    as16 = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)  # noqa: E731
+    return as16(x), as16(w).float(), as16(bias)
+
+
+def _ordered_sum(w, x, bias, order):
+    """sum_k w[:, k] x[..., k, :] in float32, the products (exact) added one
+    at a time in ``order``, then the bias: as ``_products`` for the input
+    order, before its bf16 rounding."""
+    wf, xf = w.float(), x.float()
+    p = torch.zeros(x.shape[:2] + (w.shape[0], x.shape[3]))
+    for k in order:
+        p.add_(wf[:, k:k + 1] * xf[:, :, k:k + 1])
+    return p + bias.float()
+
+
+@pytest.mark.parametrize("c_in", [16, 64, 256])
+@pytest.mark.parametrize("kind", ["random", "adversarial"])
+def test_certified_bf16_mask_agrees_with_every_order(c_in, kind):
+    """Every element the certificate passes rounds to one bf16 value from v
+    (a float32 matrix product), from the in-order sum the plain version
+    takes, from three random orders and from the float64 sum; on the
+    adversarial inputs the in-order sum itself sits a few float32 ulps from a
+    midpoint, where the orders do part, and the certificate passes none of
+    those that part."""
+    x, w, bias = _certificate_inputs(kind, c_in, 48, 96, c_in + len(kind))
+    v, s, cert = port_layer.certify_probe(x, w, bias)
+    assert torch.equal(cert, port_layer.certified_bf16_mask(v, s, c_in))
+    want = v.to(torch.bfloat16)
+    in_order = port_layer._products(w, x, bias)
+    assert torch.equal(in_order.float(), _ordered_sum(w, x, bias, range(c_in)).to(torch.bfloat16)
+                       .float())
+    sums = [in_order]
+    rng = np.random.default_rng(c_in)
+    for _ in range(3):
+        sums.append(_ordered_sum(w, x, bias, rng.permutation(c_in)).to(torch.bfloat16))
+    exact = (torch.matmul(w.double(), x.double()) + bias.double()).float().to(torch.bfloat16)
+    sums.append(exact)
+    for got in sums:
+        assert torch.equal(got[cert], want[cert])
+    parted = torch.zeros_like(cert)
+    for got in sums[1:]:
+        parted |= got != in_order
+    if kind == "adversarial":
+        assert parted.float().mean() > 0.05  # the orders really part there
+        assert (cert & parted).sum() == 0
+        assert cert.float().mean() < 0.5
+    else:
+        assert cert.float().mean() > 0.02
+
+
+def test_certificate_margin_grows_with_depth():
+    """k of the margin: 2 (gamma_n + tau_n) for n exact products, the
+    tensor-core steps' bound 38 u a k16 step; float32, rising with C_in."""
+    u = 2.0 ** -24
+    for n in (16, 64, 256, 1024):
+        gamma = n * u / (1 - n * u)
+        tau = 38 * u * -(-n // 16)
+        k = port_layer.certificate_margin(n)
+        assert k == pytest.approx(2 * (gamma + tau), rel=1e-6)
+        assert k == float(np.float32(k))
+    assert port_layer.certificate_margin(256) > port_layer.certificate_margin(64)

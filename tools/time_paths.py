@@ -3,7 +3,7 @@
 card, to compare two checkouts of the repository in one call (in the order
 parent, change, change, parent):
 
-    cd <checkout> && python3 <this repository>/tools/time_paths.py [reps]
+    cd <checkout> && python3 <this repository>/tools/time_paths.py [reps] [path ...]
 
 It imports the port package and ``chip_smoke.py`` of the current directory,
 so the same code times the package of whichever commit is checked out
@@ -21,7 +21,15 @@ in all, for kernels F and K3 alone and for kernels K2 and A alone; it
 prints one JSON line per path with the median and the quartiles in ms,
 and (``host``) the quartiles of the host's time to return from each call,
 before its synchronisation: where that is near the call's time, the host
-sets the pace.
+sets the pace.  The flagship and ``vn_pointr_448`` also time the train
+step under the bfloat16 policy (``train_step_bf16``): ``reps`` guarded
+steps after two warm-up steps through ``chip_smoke.step_cost`` (CUDA
+events around each, a step ending in its one host read, the allocator's
+peak), then the profiler's device time over 5 steps, in all and for the
+kernels of the wide bf16 S' and C' (pass 1 ``pd_wide_fma<3`` and
+``pd_wide_mma<1``, passes 2 and 3 ``dx_``/``dw_wide_bf16`` or
+``dx_``/``dw_wgmma``), each of those kernels apart.  Paths named after
+``reps`` are the only ones timed, and the kernels' line is then left out.
 Before the paths, one JSON line times kernels F (2048 -> 512, 512 -> 128,
 2048 -> 224), K3 (the five path shapes, float32 and bf16), K2 (the path
 shapes over the rotated scans) and A in bf16 (the path shapes) alone
@@ -41,6 +49,12 @@ import statistics
 import subprocess
 import sys
 import time
+
+# The kernels of the wide bf16 S' and C' (passes 1, 2 and 3), which the
+# bf16 train steps time apart
+WIDE_BWD = ("pd_wide_fma<3", "pd_wide_mma<1", "dx_wide_bf16", "dw_wide_bf16", "dx_wgmma",
+            "dw_wgmma")
+BF16_STEP_PATHS = ("flagship", "vn_pointr_448")
 
 
 def quartiles(times):
@@ -64,6 +78,7 @@ def main() -> int:
     from vn_pointcloudcompletion_tpu_torch.training.state import create_train_state
 
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 20
+    only = sys.argv[2:]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     cuda_lib.build_all()
@@ -104,6 +119,58 @@ def main() -> int:
         row["host"] = quartiles(host)
         row["device"], row["device_f_k3"], row["device_k2_a"] = device_ms(fn)
         return row
+
+    def bf16_step(model, config):
+        """The bf16 train step: clock, peak, device time (all, wide S', C')."""
+        step_ms, _, peak, _ = cs.step_cost(model, config, partial, complete, torch.bfloat16,
+                                           reps)
+        state = create_train_state(model, config, 1)
+        gen = torch.Generator().manual_seed(0)
+        with compute_dtype_scope(torch.bfloat16):
+            steps.train_step(state, partial, complete, gen)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    steps.train_step(state, partial, complete, gen)
+                torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        wide = [e for e in kernels if any(k in e.key for k in WIDE_BWD)]
+        return {"step_ms": step_ms, "peak_gib": peak,
+                "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3 / 5,
+                "wide_bwd_device_ms": sum(e.self_device_time_total for e in wide) / 1e3 / 5,
+                "wide_bwd": {e.key[:60]: e.self_device_time_total / 1e3 / 5 for e in wide}}
+
+    if not only:
+        timed_kernels(cs, dev, xyz)
+    for path in ("flagship", "vn_dgcnn", "dgcnn_448", "vn_pointr_448", "vn_pointr_448_dec"):
+        if path not in cs.PATHS or (only and path not in only):  # PATHS: a checkout
+            continue  # from before the decoder stack lacks vn_pointr_448_dec
+        config = cs._smoke_config(path)
+        model = build_model(config).to(dev).eval()
+        row = {"path": path, "batch": cs.BATCH, "reps": reps}
+        for name, dtype in (("forward_float32", torch.float32), ("forward_bf16", torch.bfloat16)):
+            def forward(dtype=dtype):
+                with torch.no_grad(), compute_dtype_scope(dtype):
+                    return model(xyz, rot)
+            row[name] = times(forward)
+        model.train()
+        if path != "flagship":  # the flagship's float32 step is chip_smoke's phase 5b
+            state = create_train_state(model, config, 1)
+            gen = torch.Generator().manual_seed(0)
+            row["train_step_float32"] = times(
+                lambda: steps.train_step(state, partial, complete, gen))
+            del state
+        if path in BF16_STEP_PATHS:
+            row["train_step_bf16"] = bf16_step(model, config)
+        print(json.dumps(row), flush=True)
+        del model
+    return 0
+
+
+def timed_kernels(cs, dev, xyz) -> None:
+    """One JSON line: kernels F, K3, K2 and A bf16 alone at the paths'
+    shapes (the module docstring)."""
+    import torch
 
     # kernels F and K3 alone at the paths' shapes, through the checkout's
     # own wrappers: chip_smoke.cuda_ms (a call, host time included) and
@@ -160,28 +227,6 @@ def main() -> int:
                         "host_us": host_us(fn)})
         del p, d
     print(json.dumps({"kernels": kernels}), flush=True)
-
-    for path in ("flagship", "vn_dgcnn", "dgcnn_448", "vn_pointr_448", "vn_pointr_448_dec"):
-        if path not in cs.PATHS:  # a checkout from before the decoder stack
-            continue
-        config = cs._smoke_config(path)
-        model = build_model(config).to(dev).eval()
-        row = {"path": path, "batch": cs.BATCH, "reps": reps}
-        for name, dtype in (("forward_float32", torch.float32), ("forward_bf16", torch.bfloat16)):
-            def forward(dtype=dtype):
-                with torch.no_grad(), compute_dtype_scope(dtype):
-                    return model(xyz, rot)
-            row[name] = times(forward)
-        if path == "flagship":  # its train step is chip_smoke's phase 5b
-            print(json.dumps(row), flush=True)
-            del model
-            continue
-        state = create_train_state(model.train(), config, 1)
-        gen = torch.Generator().manual_seed(0)
-        row["train_step_float32"] = times(lambda: steps.train_step(state, partial, complete, gen))
-        print(json.dumps(row), flush=True)
-        del model, state
-    return 0
 
 
 if __name__ == "__main__":

@@ -158,6 +158,14 @@ inline int vnk_resident_blocks(const void* kernel, int threads, int smem) {
 namespace {
 
 constexpr int kReduceThreads = 256;
+// vnk_reduce_rows sums a column one thread in order where it has at most
+// kReduceFewRows rows and the rows at least kReduceFewCols columns (or 8
+// rows or fewer), else over a tree of kReduceThreads.  ops/vn_layer_fused.py
+// ::wide_split caps the wgmma design's split-K partials at kReduceFewRows
+// (REDUCE_FEW_ROWS there; its Cin, Cout multiples of 64 give >= 4096
+// columns), so its reduction takes the one-thread sum.
+constexpr int kReduceFewRows = 64;
+constexpr int64_t kReduceFewCols = 4096;
 
 // Both kernels walk the groups in strides of gridDim.y (at most 65535).
 __global__ void __launch_bounds__(kReduceThreads)
@@ -203,7 +211,7 @@ inline void vnk_reduce_rows(const float* in, float* out, int groups, int rows,
                             int64_t cols, cudaStream_t stream) {
   if (groups == 0 || cols == 0) return;
   const unsigned gy = static_cast<unsigned>(groups < 65535 ? groups : 65535);
-  if (rows <= 8 || (rows <= 64 && cols >= 4096)) {
+  if (rows <= 8 || (rows <= kReduceFewRows && cols >= kReduceFewCols)) {
     const unsigned blocks = static_cast<unsigned>((cols + kReduceThreads - 1) / kReduceThreads);
     vnk_reduce_few_rows_kernel<<<dim3(blocks, gy), kReduceThreads, 0,
                                  stream>>>(in, out, groups, rows, cols);

@@ -41,10 +41,10 @@
 // partials over the tiles of each column), so each run of a kernel gives the
 // same bits.  S is pass 1 alone, with the norm sums and no dp store.
 //
-// Four designs; the wrapper picks one from (Cin, Cout) (ops/
+// Five designs; the wrapper picks one from (Cin, Cout) (ops/
 // vn_layer_fused.py::stats_design for S, ::stats_bwd_design for S',
-// ::backward_design for C', ::layer_bwd_design for B') and none stands in
-// for another:
+// ::backward_design and, for bf16, ::wide_bf16_design for C',
+// ::layer_bwd_design for B') and none stands in for another:
 //   stream (S) and fused (S', B'), at Cin <= 2 only (final_conv.0's 2 ->
 //      256, conv1's 2 -> 32, the pair folds' 1 -> 256 at group 64):
 //      channel_walk, one pass.  A block owns a 64-point tile of one sample
@@ -103,6 +103,20 @@
 //      together, so x (pass 1) and dp, dd (pass 2) come from DRAM once.
 //   Pass 3's chunks are whole stages of one plane (the wrapper's
 //   wide_split), so a stage never straddles two planes.
+//   wgmma (bf16 S' and C' where Cin and Cout are multiples of 64 and the
+//      point rows 16-byte aligned: final_conv.1's 256 -> 256,
+//      vn_folding{1,2}.1's 256 -> 128): the wide design's W^T and pass 1,
+//      then passes 2 and 3 on Hopper's warpgroup products (vn_wgmma.cuh):
+//      TMA loads of 128-byte swizzled tiles into a ring of shared-memory
+//      stages, one producer warp and two consumer warpgroups of
+//      wgmma.m64n128k16 (bf16 operands, float32 accumulators), 128 x 128
+//      output tiles, 64-deep stages.  Pass 2 reads W^T K-major and dp, dd
+//      MN-major (points contiguous); pass 3 reads dp, dd and x K-major over
+//      the points, split K over whole 64-point stages of one plane, and
+//      vnk_reduce_rows sums the splits in order.  Pass 1 stays the wide
+//      one: C''s pd_wide_fma keeps p and d in input-channel order (its
+//      bits; a tensor-core sum with a certificate of its bf16 rounding
+//      leaves most elements uncertain, PERF.md), S''s pd_wide_mma.
 //
 // Bound on the H100 at the main path's shapes (batch 8, N = 16384):
 //   S at 256 -> 256: operations, the 2*Cin*Cout*3*B*N FLOP of p = W x.
@@ -143,6 +157,7 @@
 // as operands of their dx and dW products; dx is stored bf16.
 #include "vn_mma.cuh"
 #include "vn_tile.cuh"
+#include "vn_wgmma.cuh"
 
 namespace {
 
@@ -1090,6 +1105,118 @@ pd_wide_mma(PdArgs<vnk_bf16> args, const vnk_bf16* __restrict__ wt, bool aw, boo
   }
 }
 
+// The certificate of a tensor-core pass 1 for bf16 C' (a probe: no
+// design runs it; chip_smoke.py phase 3 measures with it what share of p
+// or d a tensor-core pass 1 would have to sum again in input-channel
+// order).  p = W x is summed on the tensor cores (pd_wide_mma's tiling at
+// 64 channels a block, mma.sync, another order than the in-order fmaf sum
+// whose bf16 rounding the epilogue backward needs), s = |W| |x| beside it
+// in the same products (|bf16| clears the sign bits of the fragments, so
+// s is one more product), v = p + bias in float32.  An element is
+// certified when v - M and v + M round to the same bf16 value, M = k s +
+// 2^-23 |v|: ops/vn_layer_fused.py::certified_bf16_mask, which derives k
+// and is the certificate's plain version.  Writes v, s (float32) and the
+// certificate (1 certified, 0 not) of every element.
+struct CertProbe {
+  static constexpr int kThreads = 512;  // 16 warps: 4 channel x 4 point warps
+  static constexpr int kBC = 64;
+  static constexpr int kKs = 32, kStages = 3;
+  static constexpr int kWld = kBC + 8, kXld = kPts + 8;
+  static constexpr int kW = kKs * kWld, kX = kKs * kXld;
+  static constexpr int kStage = kW + 3 * kX;
+  static constexpr int kBytes = kStages * kStage * 2;
+};
+
+__global__ void __launch_bounds__(CertProbe::kThreads, 1)
+certify_probe(const vnk_bf16* __restrict__ x, const vnk_bf16* __restrict__ wt,
+              const vnk_bf16* __restrict__ bias, float* __restrict__ v_out,
+              float* __restrict__ s_out, unsigned char* __restrict__ cert, int Cin, int Cout,
+              int N, float k_margin, bool aw, bool ax) {
+  using T = vnk_bf16;
+  using P = CertProbe;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp % 4, wn = warp / 4, grp = lane / 4, tig = lane % 4;
+  const int t = blockIdx.y, bi = blockIdx.z;
+  const int n0 = t * kPts, c0 = blockIdx.x * P::kBC;
+  const T* xb = x + static_cast<size_t>(bi) * 3 * Cin * N;
+
+  // warp (wm, wn): channels wm 16 .. of the block's 64, points wn 16 .. of
+  // its 64 (two n8 tiles), three planes; acc the products, mag |W| |x|
+  float acc[3][2][4], mag[3][2][4];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][nt][e] = mag[j][nt][e] = 0.f;
+
+  auto load = [&](int st, int kt) {
+    T* stage = sm + st * P::kStage;
+    const int k0 = kt * P::kKs;
+    stage_tile<T, P::kKs, P::kBC, P::kThreads>(stage, P::kWld,
+                                               wt + static_cast<size_t>(k0) * Cout + c0, Cout,
+                                               Cin - k0, Cout - c0, aw);
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      stage_tile<T, P::kKs, kPts, P::kThreads>(
+          stage + P::kW + j * P::kX, P::kXld, xb + (static_cast<size_t>(j) * Cin + k0) * N + n0,
+          N, Cin - k0, N - n0, ax);
+  };
+  auto compute = [&](int st) {
+    const T* ws = sm + st * P::kStage;
+    const T* xs = ws + P::kW;
+#pragma unroll
+    for (int ks = 0; ks < P::kKs; ks += 16) {
+      unsigned a[4], aa[4];
+      frag_a_t(a, ws, P::kWld, wm * 16, ks);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) aa[q] = a[q] & 0x7fff7fffu;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        unsigned b[4], bb[4];
+        frag_b2_t(b, xs + j * P::kX, P::kXld, wn * 16, ks);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) bb[q] = b[q] & 0x7fff7fffu;
+        mma_bf16(acc[j][0], a, b[0], b[1]);
+        mma_bf16(acc[j][1], a, b[2], b[3]);
+        mma_bf16(mag[j][0], aa, bb[0], bb[1]);
+        mma_bf16(mag[j][1], aa, bb[2], bb[3]);
+      }
+    }
+  };
+  pipeline<P::kStages>((Cin + P::kKs - 1) / P::kKs, load, compute);
+
+  // a thread holds channel c0 + wm 16 + grp + 8 r at points n0 + wn 16 +
+  // nt 8 + 2 tig + e
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int c = c0 + wm * 16 + grp + 8 * r;
+    if (c >= Cout) continue;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const size_t at = (static_cast<size_t>(bi) * 3 + j) * Cout + c;
+      const float b = bias != nullptr ? vnk_load(bias[at]) : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + wn * 16 + nt * 8 + 2 * tig + e;
+          if (n >= N) continue;
+          const float v = acc[j][nt][2 * r + e] + b;
+          const float sv = mag[j][nt][2 * r + e];
+          const float margin = k_margin * sv + 1.1920928955078125e-07f * fabsf(v);
+          const bool ok = __bfloat16_as_ushort(__float2bfloat16_rn(v - margin)) ==
+                          __bfloat16_as_ushort(__float2bfloat16_rn(v + margin));
+          v_out[at * N + n] = v;
+          s_out[at * N + n] = sv;
+          cert[at * N + n] = ok ? 1 : 0;
+        }
+    }
+  }
+}
+
 // Wide pass 2: dx[bj, k, n] = sum_c W[c, k] g1[bj, c, n] (+ Wd g2), a
 // kBM x kBN (input channel x point) tile per block; the reduction runs over
 // the Cout channels of (W, g1), then of (Wd, g2).
@@ -1876,6 +2003,53 @@ cudaError_t products_wide(const T* x, const float* w, const float* wd, const T* 
   return cudaGetLastError();
 }
 
+// Whether the wgmma passes take these operands: whole 64-channel tiles of
+// both widths, and every row of x, dp and dd 16-byte aligned (N % 8 == 0,
+// aligned bases), as the tensor maps need.
+inline bool wgmma_fits(int Cin, int Cout, int N, const void* x, const void* dp, const void* dd) {
+  auto aligned = [](const void* p) {
+    return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  return Cin % kWgDepth == 0 && Cout % kWgDepth == 0 && N % 8 == 0 && aligned(x) &&
+         aligned(dp) && aligned(dd);
+}
+
+// Passes 2 and 3 of the wgmma design (vn_wgmma.cuh) and the split-K
+// reduction: as products_wide's bf16 passes, pass 3's `chunk` stages of
+// kWgDepth points each.
+template <bool kTwo>
+cudaError_t products_wgmma(const vnk_bf16* x, const vnk_bf16* wt, const vnk_bf16* dp,
+                           const vnk_bf16* dd, vnk_bf16* dx, float* dw2, float* dw_part, int B,
+                           int Cin, int Cout, int N, int S, int chunk, cudaStream_t st) {
+  const int planes = B * 3;
+  float* part2 = kTwo ? dw_part + static_cast<size_t>(S) * Cout * Cin : nullptr;
+  CUtensorMap wt_map, g1, g2;
+  cudaError_t err = tensor_map(&wt_map, wt, Cout, Cin, kTwo ? 2 : 1, kWgDepth, kWgTile);
+  if (err == cudaSuccess) err = tensor_map(&g1, dp, N, Cout, planes, kWgDepth, kWgDepth);
+  if (err == cudaSuccess)
+    err = tensor_map(&g2, kTwo ? dd : dp, N, Cout, planes, kWgDepth, kWgDepth);
+  if (err == cudaSuccess)
+    err = launch_wide<kWgThreads>(dx_wgmma<kTwo>,
+                                  dim3((Cin + kWgTile - 1) / kWgTile,
+                                       (N + kWgTile - 1) / kWgTile, planes),
+                                  DxWg::kBytes, st, wt_map, g1, g2, dx, Cin, Cout, N);
+  if (err != cudaSuccess) return err;
+  CUtensorMap h1, h2, xm;
+  err = tensor_map(&h1, dp, N, Cout, planes, kWgDepth, kWgTile);
+  if (err == cudaSuccess)
+    err = tensor_map(&h2, kTwo ? dd : dp, N, Cout, planes, kWgDepth, kWgTile);
+  if (err == cudaSuccess) err = tensor_map(&xm, x, N, Cin, planes, kWgDepth, kWgTile);
+  if (err == cudaSuccess)
+    err = launch_wide<kWgThreads>(dw_wgmma<kTwo>,
+                                  dim3((Cin + kWgTile - 1) / kWgTile,
+                                       (Cout + kWgTile - 1) / kWgTile, S),
+                                  DwWg<kTwo>::kBytes, st, h1, h2, xm, dw_part, part2, Cin, Cout,
+                                  N, planes, chunk);
+  if (err != cudaSuccess) return err;
+  vnk_reduce_rows(dw_part, dw2, kTwo ? 2 : 1, S, static_cast<int64_t>(Cout) * Cin, st);
+  return cudaGetLastError();
+}
+
 template <typename T>
 PdArgs<T> make_args(const void* x, const void* w, const void* wd,
                     const void* pbias, const void* dbias, const void* a,
@@ -1951,13 +2125,17 @@ cudaError_t launch_walk(const PdArgs<T>& args, T* dx, float* dw_part, cudaStream
 // stats_design, stats_bwd_design, backward_design, layer_bwd_design): the
 // narrow passes, the wide ones (S, S', C'), or the channel walk (S's
 // "stream", S''s and B''s "fused"; Cin 1 or 2 only).
-enum Design { kNarrowDesign = 0, kWideDesign = 1, kWalkDesign = 2 };
+// kWgmmaDesign: the wide passes with passes 2 and 3 on wgmma + TMA (the
+// bf16 S' and C' only, where wgmma_fits).
+enum Design { kNarrowDesign = 0, kWideDesign = 1, kWalkDesign = 2, kWgmmaDesign = 3 };
 
 // cudaErrorInvalidValue for a design code that is none of these, a design
 // the kernel does not have (`wide`, `walk`: whether it has the wide passes,
-// the walk), or the walk at a Cin it does not take; else cudaSuccess.
-inline cudaError_t check_design(int design, int Cin, bool wide, bool walk) {
+// the walk; `wgmma`: whether the wgmma passes take this launch), or the
+// walk at a Cin it does not take; else cudaSuccess.
+inline cudaError_t check_design(int design, int Cin, bool wide, bool walk, bool wgmma = false) {
   if (design == kNarrowDesign || (design == kWideDesign && wide)) return cudaSuccess;
+  if (design == kWgmmaDesign) return wide && wgmma ? cudaSuccess : cudaErrorInvalidValue;
   return design == kWalkDesign && walk && (Cin == 1 || Cin == 2) ? cudaSuccess
                                                                   : cudaErrorInvalidValue;
 }
@@ -1991,7 +2169,8 @@ int stats_bwd(const void* x, const void* w, const void* pbias, const void* c1,
               const void* c2, void* dx, void* dw, void* dpb, void* dp,
               void* partial, void* dw_part, void* wt, int B, int Cin, int Cout, int N,
               int S, int chunk, int group, int design, void* stream) {
-  if (check_design(design, Cin, true, true) != cudaSuccess)
+  const bool wgmma = vnk_is_bf16<T>() && wgmma_fits(Cin, Cout, N, x, dp, nullptr);
+  if (check_design(design, Cin, true, true, wgmma) != cudaSuccess)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0 || Cout == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -2005,10 +2184,16 @@ int stats_bwd(const void* x, const void* w, const void* pbias, const void* c1,
     if (pbias != nullptr) reduce_bias(args, 0, 3, static_cast<float*>(dpb), st);
     vnk_reduce_rows(part, static_cast<float*>(dw), 1, B * args.T,
                     static_cast<int64_t>(Cout) * Cin, st);
-  } else if (design == kWideDesign) {
+  } else if (design == kWideDesign || design == kWgmmaDesign) {
     cudaError_t err = launch_pd_wide<kStatsBwd>(args, static_cast<T*>(wt), st);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (pbias != nullptr) reduce_bias(args, 0, 3, static_cast<float*>(dpb), st);
+    if constexpr (vnk_is_bf16<T>()) {
+      if (design == kWgmmaDesign)
+        return static_cast<int>(products_wgmma<false>(
+            args.x, static_cast<const T*>(wt), args.dp, nullptr, static_cast<T*>(dx),
+            static_cast<float*>(dw), static_cast<float*>(dw_part), B, Cin, Cout, N, S, chunk, st));
+    }
     err = products_wide<false>(args.x, args.w, nullptr, static_cast<const T*>(wt), args.dp,
                                static_cast<const T*>(nullptr), static_cast<T*>(dx),
                                static_cast<float*>(dw), static_cast<float*>(dw_part), B, Cin,
@@ -2034,7 +2219,8 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
               void* sums, void* dpdb, void* dp, void* dd, void* partial,
               void* dw_part, void* wt, int B, int Cin, int Cout, int N, int S,
               int chunk, int group, int design, float one_minus_ns, void* stream) {
-  if (check_design(design, Cin, kMode == kProjBwd, kMode == kLayerBwd) != cudaSuccess)
+  const bool wgmma = vnk_is_bf16<T>() && wgmma_fits(Cin, Cout, N, x, dp, dd);
+  if (check_design(design, Cin, kMode == kProjBwd, kMode == kLayerBwd, wgmma) != cudaSuccess)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0 || Cout == 0) return 0;
   constexpr int nqc = channel_sums<kMode>();
@@ -2055,11 +2241,18 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
     }
   }
   if constexpr (kMode == kProjBwd) {
-    if (design == kWideDesign) {
+    if (design == kWideDesign || design == kWgmmaDesign) {
       cudaError_t err = launch_pd_wide<kMode>(args, static_cast<T*>(wt), st);
       if (err != cudaSuccess) return static_cast<int>(err);
       vnk_reduce_rows(args.partial, static_cast<float*>(sums), nqc, B * args.T, Cout, st);
       if (pbias != nullptr) reduce_bias(args, nqc, 6, static_cast<float*>(dpdb), st);
+      if constexpr (vnk_is_bf16<T>()) {
+        if (design == kWgmmaDesign)
+          return static_cast<int>(products_wgmma<true>(
+              args.x, static_cast<const T*>(wt), args.dp, args.dd, static_cast<T*>(dx),
+              static_cast<float*>(dw2), static_cast<float*>(dw_part), B, Cin, Cout, N, S, chunk,
+              st));
+      }
       err = products_wide<true>(args.x, args.w, args.wd, static_cast<const T*>(wt), args.dp,
                                 args.dd, static_cast<T*>(dx), static_cast<float*>(dw2),
                                 static_cast<float*>(dw_part), B, Cin, Cout, N, S, chunk, st);
@@ -2086,11 +2279,33 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
 // is 0 or a power of two dividing 512.  x, the biases, g, dx, dp and dd are
 // float32 in these entry points and bfloat16 in the _bf16 ones.
 // Each takes `design` (Design: 0 the narrow passes; 1 the wide ones, S, S'
-// and C'; 2 the channel walk, S, S' and B' at Cin 1 or 2 only; any other
+// and C'; 2 the channel walk, S, S' and B' at Cin 1 or 2 only; 3 the wide
+// passes with passes 2 and 3 on wgmma, bf16 S' and C' at Cin, Cout
+// multiples of 64, N % 8 == 0 and 16-byte aligned x, dp, dd; any other
 // code, or a design the kernel lacks, returns cudaErrorInvalidValue); the
 // wide passes take wt, a (1 or 2, Cin, Cout) scratch in the activations'
 // type, and S' and C' `chunk`, the pass-3 stages (16 points float32, 32
-// bf16) of each of the S splits.
+// bf16, 64 for the wgmma passes) of each of the S splits.
+
+// The certificate probe (certify_probe) of p = W x (+ bias, per sample:
+// (B, 3, Cout) bf16, or null) for bf16 x (B, 3, Cin, N): wt a (Cin, Cout)
+// bf16 scratch for W^T; v, s (B, 3, Cout, N) float32 and cert (B, 3, Cout,
+// N) bytes out.  No design runs it and no count records it.
+VNK_EXPORT int vn_layer_certify_probe(const void* x, const void* w, const void* bias, void* wt,
+                                      void* v, void* s, void* cert, int B, int Cin, int Cout,
+                                      int N, float k_margin, void* stream) {
+  if (B == 0 || N == 0 || Cout == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  vnk_bf16* wtb = static_cast<vnk_bf16*>(wt);
+  launch_transpose(static_cast<const float*>(w), nullptr, wtb, Cin, Cout, st);
+  using P = CertProbe;
+  const dim3 grid((Cout + P::kBC - 1) / P::kBC, tiles(N), B);
+  return static_cast<int>(launch_wide<P::kThreads>(
+      certify_probe, grid, P::kBytes, st, static_cast<const vnk_bf16*>(x), wtb,
+      static_cast<const vnk_bf16*>(bias), static_cast<float*>(v), static_cast<float*>(s),
+      static_cast<unsigned char*>(cert), Cin, Cout, N, k_margin, aligned16(wtb, Cout, 8),
+      aligned16(x, N, 8)));
+}
 
 // S: s12 (2, Cout) = (s1, s2); partial with nq = 2; wt unused unless wide
 // (a (Cin, Cout) scratch).

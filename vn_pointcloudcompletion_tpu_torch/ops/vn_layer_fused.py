@@ -89,6 +89,10 @@ _LAYER_BWD = CudaKernel(
 _PROJECT_BWD = CudaKernel(
     "vn_layer_bwd.cu", "vn_layer_fused_project_bwd",
     [_P] * 18 + [_I] * 8 + [ctypes.c_float, _P])
+# The certificate of a tensor-core pass 1 for bf16 C' (a probe for
+# chip_smoke.py phase 3: on no path, so uncounted)
+_CERTIFY = CudaKernel("vn_layer_bwd.cu", "vn_layer_certify_probe",
+                      [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P], counted=False)
 # The same entry points in group=S mode, counted apart (launch_counts()
 # keys "<symbol>[group]"): the attention decoder's pair folds.
 _GROUPED = {k.symbol: CudaKernel(k.source, k.symbol, k.argtypes, f"{k.symbol}[group]")
@@ -311,6 +315,91 @@ def reference_layer_project_bwd(x, w, wd, pbias, dbias, a, b, w_out, g,
     return dx, dw, dwd, dpb, ddb, da, db, dwo
 
 
+# ------------------------------------ the certificate of a tensor-core p
+
+UNIT_ROUNDOFF = 2.0 ** -24  # float32, round to nearest
+MMA_STEP = 16  # products one tensor-core step adds to its accumulator (k16)
+MMA_STEP_ERROR = 38  # that step's error bound in units of UNIT_ROUNDOFF x the sums' magnitude
+
+
+def certificate_margin(c_in: int) -> float:
+    """k of the certificate's margin ``M = k s + 2^-23 |v|`` for sums of
+    ``c_in`` exact products (:func:`certified_bf16_mask`), a float32 value.
+
+    With u = 2^-24 and s = sum |w_k x_k|, the two sums it separates are:
+
+    - the plain version's p (``_products``; kernels pd_pass, pd_wide_fma):
+      the exact bf16 x bf16 products added with fmaf in input-channel order,
+      within gamma_n s of the exact sum, gamma_n = n u / (1 - n u);
+    - a tensor-core sum (``mma`` k16 steps, float32 accumulators): each step
+      adds 16 exact products to its accumulator after aligning the 17
+      addends to the largest exponent E with at least 24 bits below it and
+      truncating (not rounding) the rest, then truncates the sum to float32:
+      within 17 * 2^(E - 23) + 2^-23 |sum| <= 36 u (1 + delta) (|acc| + the
+      step's sum of |products|) <= 38 u s of the step's exact result (|acc|
+      itself at most the earlier steps' sum of magnitudes, (1 + delta)
+      covering their errors); ceil(n / 16) steps, so tau_n = 38 u ceil(n /
+      16) s.
+
+    k = 2 (gamma_n + tau_n): a factor of 2 over both bounds, which also
+    covers s itself summed on the tensor cores (at most tau_n s short) and
+    the float32 rounding of M."""
+    n = c_in
+    gamma = n * UNIT_ROUNDOFF / (1.0 - n * UNIT_ROUNDOFF)
+    tau = MMA_STEP_ERROR * UNIT_ROUNDOFF * -(-n // MMA_STEP)
+    return float(torch.tensor(2.0 * (gamma + tau), dtype=torch.float32))
+
+
+def certified_bf16_mask(v, s, c_in: int):
+    """Which float32 sums ``v`` (p summed in any order, a tensor core's
+    included, the bias added in float32) round to bf16 exactly as the plain
+    version's in-order sum does: True where ``v - M`` and ``v + M`` round to
+    the same bf16 value (bits), ``M = k s + 2^-23 |v|`` in float32 with ``s``
+    the sum of |products| and k from :func:`certificate_margin`.
+
+    Why: the in-order sum y (a real number, bias included) lies within (k /
+    2) s + u |v| (1 + u) of v, inside [v - M, v + M]; rounding to float32 and
+    then to bf16 is monotone, so fl(y) rounds to the bf16 value of the
+    interval's ends when they agree; so does any sum within gamma_n s of the
+    exact one (random orders, float64).  The plain version of the
+    certificate the tensor-core probe ``vn_layer_certify_probe`` computes
+    (``csrc/vn_layer_bwd.cu`` certify_probe), op for op."""
+    k = torch.tensor(certificate_margin(c_in), dtype=torch.float32, device=v.device)
+    v, s = v.float(), s.float()
+    m = k * s + 2.0 ** -23 * v.abs()
+    lo = (v - m).to(torch.bfloat16).view(torch.int16)
+    hi = (v + m).to(torch.bfloat16).view(torch.int16)
+    return lo == hi
+
+
+def certify_probe(x, w, bias=None):
+    """(v, s, certified) of p = W x (+ bias) for bf16 x (B, 3, C_in, N), w
+    (C_out, C_in) and a per-sample bias (B, 3, C_out, 1): v the float32 sum
+    plus the bias, s the sum of |products|, certified the mask of
+    :func:`certified_bf16_mask`.  On a CUDA tensor the tensor cores sum
+    (``vn_layer_certify_probe``, mma.sync k16 steps; no path launches it);
+    on a CPU tensor a float32 matrix product stands in."""
+    c_in = x.shape[2]
+    if not x.is_cuda:
+        w16 = w.to(torch.bfloat16).float()
+        v = torch.matmul(w16, x.float())
+        if bias is not None:
+            v = v + bias.float()
+        s = torch.matmul(w16.abs(), x.float().abs())
+        return v, s, certified_bf16_mask(v, s, c_in)
+    (x, w, _, bias, *_), (bsz, c_in, c_out, n) = _prepare(
+        "vn_layer_certify_probe", x, w, pbias=bias)
+    if not _bf16(x):
+        raise TypeError("vn_layer_certify_probe takes bf16 x")
+    v = _empty(x, bsz, 3, c_out, n)
+    s = torch.empty_like(v)
+    cert = torch.empty(v.shape, device=x.device, dtype=torch.uint8)
+    wt = _empty(x, c_in, c_out, dtype=x.dtype)
+    _CERTIFY(x, x.data_ptr(), w.data_ptr(), _ptr(bias), wt.data_ptr(), v.data_ptr(),
+             s.data_ptr(), cert.data_ptr(), bsz, c_in, c_out, n, certificate_margin(c_in))
+    return v, s, cert.bool()
+
+
 # ------------------------------------------------------------- launches
 
 
@@ -372,7 +461,7 @@ FUSED_MAX_CIN = 2  # the widest input of the channel walk (S, S', B') and B's st
 # The code of each design name in the entry points of csrc/vn_layer_bwd.cu
 # (S, S', C', B'; its enum Design): the channel walk is S's "stream" and
 # S''s and B''s "fused"
-DESIGN_CODES = {"narrow": 0, "wide": 1, "stream": 2, "fused": 2}
+DESIGN_CODES = {"narrow": 0, "wide": 1, "stream": 2, "fused": 2, "wgmma": 3}
 WIDE_F32_BLOCK = 32  # channels a block of the float32 wide C (csrc ProjFma::kBC)
 WIDE_BF16_BLOCK = 64  # ... of the bf16 one (csrc ProjMma::kBC)
 
@@ -464,21 +553,60 @@ def backward_design(c_in: int, c_out: int) -> str:
     return "wide" if min(c_in, c_out) >= WIDE_MIN_CHANNELS else "narrow"
 
 
-def wide_stage_points(bf16: bool) -> int:
-    """Points per pass-3 stage of the wide passes (csrc DwF32 / DwBf16)."""
+WGMMA_CHANNELS = 64  # the wgmma passes' stage depth (csrc vn_wgmma.cuh kWgDepth)
+WGMMA_TILE = 128  # ... and their output tile's rows and columns (kWgTile)
+# Split-K partials that csrc common.cuh's vnk_reduce_rows sums one thread a
+# column, in order (its kReduceFewRows, where the rows have kReduceFewCols
+# = 4096 columns or more, as every wgmma dW of 64 x 64 or wider has; a
+# column of more rows takes its tree over 256 threads: ~24x slower on the
+# card at the wide design's 66 splits of S''s 256 x 256 gradient).  The gpu
+# test test_wgmma_split_k_takes_the_one_thread_reduction holds the two
+# sides together.
+REDUCE_FEW_ROWS = 64
+
+
+def wide_bf16_design(c_in: int, c_out: int, n: int, aligned: bool = True) -> str:
+    """Which passes 2 and 3 (dx; dW, dWd) a wide bf16 S' or C' runs:
+    ``"wgmma"`` (Hopper's warpgroup products fed by TMA loads into a ring of
+    128-byte swizzled stages, csrc vn_wgmma.cuh) where its tiles fit: c_in
+    and c_out multiples of 64 and every point row of x, dp and dd 16-byte
+    aligned (n % 8 == 0 and ``aligned`` bases), as the tensor maps need
+    (final_conv.1's 256 -> 256, vn_folding{1,2}.1's 256 -> 128); else the
+    wide design's ``mma.sync`` passes (``"wide"``).  Pass 1 is the wide
+    design's in both.  Either is a hand-written kernel; a CUDA launch takes
+    the one chosen here or raises."""
+    fits = c_in % WGMMA_CHANNELS == 0 and c_out % WGMMA_CHANNELS == 0 and n % 8 == 0
+    return "wgmma" if fits and aligned else "wide"
+
+
+def _aligned(*tensors) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def wide_stage_points(bf16: bool, design: str = "wide") -> int:
+    """Points per pass-3 stage of the wide passes (csrc DwF32 / DwBf16) or
+    the wgmma ones (DwWg: 64, one 128-byte row of bf16)."""
+    if design == "wgmma":
+        return WGMMA_CHANNELS
     return 32 if bf16 else 16
 
 
 def wide_split(c_in: int, c_out: int, bsz: int, n: int, two: bool, bf16: bool,
-               sms: int):
+               sms: int, design: str = "wide"):
     """(splits, chunk) of the wide weight-gradient pass: its reduction runs
     over the B*3 planes' ceil(n / stage) stages of ``wide_stage_points``
     points each, stage t of plane t // ceil(n / stage); split s takes the
     ``chunk`` stages from s * chunk.  Splits enough for two blocks of 128
-    (64 for C', ``two``) x 128 output tiles on every SM, none empty."""
-    stages = bsz * 3 * -(-n // wide_stage_points(bf16))
-    tiles = -(-c_out // (64 if two else 128)) * -(-c_in // 128)
-    splits = max(1, min(stages, -(-2 * sms // tiles)))
+    (64 for C', ``two``) x 128 output tiles on every SM (the wgmma design:
+    one block of 128 x 128, its shared memory a block an SM, and at most
+    REDUCE_FEW_ROWS splits), none empty."""
+    stages = bsz * 3 * -(-n // wide_stage_points(bf16, design))
+    if design == "wgmma":
+        tiles = -(-c_out // WGMMA_TILE) * -(-c_in // WGMMA_TILE)
+        splits = max(1, min(stages, -(-sms // tiles), REDUCE_FEW_ROWS))
+    else:
+        tiles = -(-c_out // (64 if two else 128)) * -(-c_in // 128)
+        splits = max(1, min(stages, -(-2 * sms // tiles)))
     chunk = -(-stages // splits)
     return -(-stages // chunk), chunk
 
@@ -486,11 +614,11 @@ def wide_split(c_in: int, c_out: int, bsz: int, n: int, two: bool, bf16: bool,
 def _design_args(x, design, c_in, c_out, bsz, n, two):
     """(W^T scratch of the wide passes or None, dw_part's splits, pass 3's
     stages a split (0 for the narrow passes)) for S' (``two`` False) or C'
-    in ``design`` ("wide" or "narrow") at these widths."""
+    in ``design`` ("wide", "wgmma" or "narrow") at these widths."""
     if design == "narrow":
         return None, _split_k(x, c_in, c_out, bsz * 3 * n), 0
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    s, chunk = wide_split(c_in, c_out, bsz, n, two, _bf16(x), sms)
+    s, chunk = wide_split(c_in, c_out, bsz, n, two, _bf16(x), sms, design)
     wt = _empty(x, 2 if two else 1, c_in, c_out, dtype=x.dtype)  # W^T (and Wd^T)
     return wt, s, chunk
 
@@ -577,6 +705,8 @@ def stats_bwd(x, w, pbias, c1, c2, group: int = 0):
     (x, w, _, pbias, _, c1, c2, *_), (bsz, c_in, c_out, n) = _prepare(
         "vn_layer_stats backward", x, w, pbias=pbias, a=c1, b=c2, group=group)
     design = stats_bwd_design(c_in, c_out)
+    if design == "wide" and _bf16(x):
+        design = wide_bf16_design(c_in, c_out, n, _aligned(x))
     spt, cols = _bias_rows(n, group)
     dx, dw = torch.empty_like(x), _empty(x, c_out, c_in)
     dpb = None if pbias is None else _empty(x, 3, bsz, cols, c_out)
@@ -602,8 +732,10 @@ def _layer_bwd_launch(kernel, x, w, wd, pbias, dbias, a, b, w_out, g,
     (x, w, wd, pbias, dbias, a, b, w_out, g), (bsz, c_in, c_out, n) = _prepare(
         kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out, g, group)
     project = w_out is not None
-    if project:  # C' chooses its passes (wide or narrow), B' fused or narrow
+    if project:  # C' chooses its passes (wide, wgmma or narrow), B' fused or narrow
         design = backward_design(c_in, c_out)
+        if design == "wide" and _bf16(x):
+            design = wide_bf16_design(c_in, c_out, n, _aligned(x))
         wt, s, chunk = _design_args(x, design, c_in, c_out, bsz, n, two=True)
     else:
         design = layer_bwd_design(c_in)
