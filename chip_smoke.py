@@ -48,19 +48,22 @@ on one NVIDIA GPU:
    "stream" design (topk_design) over the (8, 2048, M) distance matrices of
    the rotated scans (K1_SHAPES: M 2048 at k 16, 40 and 64, M 4096 at k 16),
    each equal to its plain version, a second launch and the parent "warp"
-   design, timed beside the parent design and torch.topk.  The bf16 S' and
-   C' at 256 -> 256 (N 16384) and 256 -> 128 (N 14336) take the wgmma
-   design (ops/vn_layer_fused.py::wide_bf16_design: passes 2 and 3 on
-   wgmma fed by TMA), each timed beside the parent mma.sync passes
-   (versus_parent: a call, back to back, on the device) and pass by pass in
-   both designs (wgmma_vs_parent: the W^T transpose, pass 1, the sums'
-   reduction, pass 2, pass 3 and the split-K reduction, from
-   torch.profiler's kernel durations over whole calls), with torch.matmul of
-   pass 2's and pass 3's bf16 products (float32 out) beside them as a
-   yardstick; C' also through the certificate probe of a tensor-core pass 1
-   (certificate_share: the share of p, d elements a re-sum in input-channel
-   order would take; every certified element equal to the in-order sum's
-   bf16 value, else the phase fails).
+   design, timed beside the parent design and torch.topk.  The bf16 S, S'
+   and C' at 256 -> 256 (N 16384) and 256 -> 128 (N 14336) take their
+   pass-1 designs (ops/vn_layer_fused.py::pass1_bf16_design: S and S'
+   "wgmma_p", p on wgmma fed by TMA; C' "certified", p and d on the tensor
+   cores under a certificate of their bf16 rounding, the rest summed again
+   in order; S' and C' then passes 2 and 3 on wgmma), each timed beside
+   the parent design (S "wide", S' and C' "wgmma": pass 1 on mma.sync or
+   FMAs; versus_parent: a call, back to back, on the device) and pass by
+   pass in both designs (wgmma_vs_parent: the W^T transpose, pass 1, the
+   sums' reduction, pass 2, pass 3 and the split-K reduction, from
+   torch.profiler's kernel durations over whole calls), with torch.matmul
+   of each pass's bf16 products (float32 out) beside them as a yardstick;
+   S's p equal in bits to S''s (same_p); C''s outputs equal in bits to the
+   parent design's on the row's inputs and on adversarial ones (every p, d
+   a few float32 ulps from a bf16 midpoint), with the share of elements its
+   pass 1 summed again (certified_checks).
 3b. K1's path: ``knn()`` at (8, 2048 vs 2048, D 768, k 16) (features past
    K2's D 512), counted: K1 once in its stream design and nothing else; the
    indices equal to the plain selection's over the same matrix (one batched
@@ -403,9 +406,10 @@ BF16_TRAIN_EPOCHS = 2  # phase 13's train epochs before --resume
 # group 64) B the store stream, S the channel walk ("stream"), S' and B'
 # the fused walk: no S or S' launch takes the narrow design; vn_pointr's
 # F, K2 (coords) and K3 (on its features: tiled) too, and A in bf16 (run8;
-# float32 A has one design and counts none).  In bf16, S' and C' at those
-# wide widths take the wgmma design (wide_bf16_design: passes 2 and 3 on
-# wgmma + TMA; 256 and 128 are multiples of 64, N 16384 and 14336 of 8).
+# float32 A has one design and counts none).  In bf16, S, S' and C' at
+# those wide widths take pass1_bf16_design's: S and S' "wgmma_p", C'
+# "certified" (256 and 128 are multiples of 64, N 16384 and 14336 of 8,
+# no bias columns narrower than a tile).
 # Phase 5b (float32) and phase 13 (bf16) assert them.
 # Kernel S (ops/vn_layer_fused.py::stats_design) takes the wide design
 # where S' does and walks its channels where S' fuses: STATS_STEP_DESIGNS,
@@ -421,9 +425,12 @@ STATS_STEP_DESIGNS["vn_pointr_448_dec"] = STATS_STEP_DESIGNS["vn_pointr_448"]
 
 
 def bf16_designs(designs: dict) -> dict:
-    """The same design counts under the bf16 modes' names."""
-    return {k.replace("[group]", "[group,bf16]") if "[group]" in k
-            else k.replace("/", "[bf16]/"): v for k, v in designs.items()}
+    """The same design counts under the bf16 modes' names, S's wide design
+    as its bf16 mode takes it there ("wgmma_p")."""
+    named = {k.replace("[group]", "[group,bf16]") if "[group]" in k
+             else k.replace("/", "[bf16]/"): v for k, v in designs.items()}
+    return {k.replace("stats_fwd[bf16]/wide", "stats_fwd[bf16]/wgmma_p"): v
+            for k, v in named.items()}
 
 
 FLAGSHIP_STEP_DESIGNS = {"vn_layer_stats_bwd/fused": 1, "vn_layer_stats_bwd/wide": 1,
@@ -432,15 +439,16 @@ FLAGSHIP_STEP_DESIGNS = {"vn_layer_stats_bwd/fused": 1, "vn_layer_stats_bwd/wide
                          **STATS_STEP_DESIGNS["flagship"]}
 BF16_STEP_DESIGNS = {
     "flagship": {"vn_bn_leaky_fwd[bf16]/run8": 2,
-                 "vn_layer_stats_bwd[bf16]/fused": 1, "vn_layer_stats_bwd[bf16]/wgmma": 1,
-                 "vn_layer_fused_fwd[bf16]/stream": 1, "vn_layer_fused_project_bwd[bf16]/wgmma": 1,
+                 "vn_layer_stats_bwd[bf16]/fused": 1, "vn_layer_stats_bwd[bf16]/wgmma_p": 1,
+                 "vn_layer_fused_fwd[bf16]/stream": 1,
+                 "vn_layer_fused_project_bwd[bf16]/certified": 1,
                  "vn_layer_fused_project_fwd[bf16]/wide": 1, "vn_layer_fused_bwd[bf16]/fused": 1,
                  **bf16_designs(STATS_STEP_DESIGNS["flagship"])},
-    "vn_pointr_448": {"vn_layer_stats_bwd[bf16]/fused": 1, "vn_layer_stats_bwd[bf16]/wgmma": 2,
+    "vn_pointr_448": {"vn_layer_stats_bwd[bf16]/fused": 1, "vn_layer_stats_bwd[bf16]/wgmma_p": 2,
                       "vn_layer_stats_bwd[group,bf16]/fused": 2,
                       "vn_layer_fused_fwd[bf16]/stream": 1,
                       "vn_layer_fused_fwd[group,bf16]/stream": 2,
-                      "vn_layer_fused_project_bwd[bf16]/wgmma": 2,
+                      "vn_layer_fused_project_bwd[bf16]/certified": 2,
                       "vn_layer_fused_project_fwd[bf16]/wide": 2,
                       "vn_layer_fused_bwd[bf16]/fused": 1,
                       "vn_layer_fused_bwd[group,bf16]/fused": 2,
@@ -657,21 +665,29 @@ def narrow_designs():
 def parent_designs():
     """K1, K2 and K3 held to their "warp" designs (the parent designs: one
     warp a row or query; K3 then the block's gather), A's bf16 mode to its
-    "vector" design (one thread a vector) and the wide bf16 S' and C' to the
-    wide design's mma.sync passes 2 and 3 (not "wgmma") inside the block."""
+    "vector" design (one thread a vector) and the wide bf16 S, S' and C' to
+    their pass 1 on mma.sync or FMAs (S "wide", S' and C' "wgmma" where
+    ``wide_bf16_design`` gives it: not "wgmma_p" or "certified") inside the
+    block."""
     from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas, vn_fused, vn_layer_fused
 
+    def pass1(kernel, c_in, c_out, n, aligned=True, group=0):
+        return "wide" if kernel == "S" else vn_layer_fused.wide_bf16_design(c_in, c_out, n,
+                                                                            aligned)
+
     choosers = ((knn_pallas, "edge_design", "warp"), (knn_pallas, "knn_design", "warp"),
-                (knn_pallas, "topk_design", "warp"), (vn_fused, "fwd_design", "vector"),
-                (vn_layer_fused, "wide_bf16_design", "wide"))
+                (knn_pallas, "topk_design", "warp"), (vn_fused, "fwd_design", "vector"))
     saved = [getattr(mod, name) for mod, name, _ in choosers]
+    saved_pass1 = vn_layer_fused.pass1_bf16_design
     for mod, name, design in choosers:
         setattr(mod, name, lambda *shape, design=design: design)
+    vn_layer_fused.pass1_bf16_design = pass1
     try:
         yield
     finally:
         for (mod, name, _), fn_ in zip(choosers, saved):
             setattr(mod, name, fn_)
+        vn_layer_fused.pass1_bf16_design = saved_pass1
 
 
 def knn_scan_sass(sass: str) -> tuple:
@@ -727,6 +743,77 @@ def knn_scan_issue() -> tuple:
     sass = subprocess.run([tool, "-sass", str(cuda_lib.library_path(cuda_lib.CSRC / "knn.cu"))],
                           capture_output=True, text=True, timeout=300, check=True).stdout
     return knn_scan_sass(sass)
+
+
+def chamfer_sweep_sass(sass: str, pairs_a_trip: int) -> tuple:
+    """(instructions, pairs a lane) of one trip of kernel D's chunk loop on
+    its common path, read from ``cuobjdump -sass`` text of the
+    chamfer_bidir library: in nn_sweep, the innermost loop holding the most
+    FMNMX (the minima of the sweep), less the instructions of the longest
+    span that a forward branch skips and that holds no FMNMX (the block's
+    flush of column keys, one chunk in kFlush; the branch over the sweep,
+    taken by a warp past the rows, holds them all and stays); a trip folds
+    ``pairs_a_trip`` (kChunk x kR) pairs a lane.  Raises ValueError where
+    the code has no such loop."""
+    import re
+
+    head = re.search(r"Function : \S*nn_sweep\S*", sass)
+    if head is None:
+        raise ValueError("no nn_sweep in the SASS")
+    body = sass[head.end():].split("Function :", 1)[0]
+    ins = [(int(a, 16), op.strip())
+           for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+
+    def target(op):
+        hit = re.search(r"\bBRA (0x[0-9a-f]+)", op)
+        return None if hit is None else int(hit.group(1), 16)
+
+    loops = [(target(op), a) for a, op in ins if target(op) is not None and target(op) < a]
+    if not loops:
+        raise ValueError("no loop in nn_sweep")
+    mins = {lp: sum(1 for a, op in ins if lp[0] <= a <= lp[1] and op.split()[0].startswith("FMNMX"))
+            for lp in loops}
+    most = max(mins.values())
+    top, end = min((lp for lp in loops if mins[lp] == most), key=lambda lp: lp[1] - lp[0])
+    spans = [[op for b, op in ins if a < b < target(br)] for a, br in ins
+             if top <= a < end and target(br) is not None and a < target(br) <= end]
+    skip = max((len(span) for span in spans
+                if not any(op.split()[0].startswith("FMNMX") for op in span)), default=0)
+    return sum(1 for a, _ in ins if top <= a <= end) - skip, pairs_a_trip
+
+
+def chamfer_sweep_issue() -> tuple:
+    """``chamfer_sweep_sass`` of the chamfer_bidir library built in this run,
+    with the pairs a lane folds a trip from its source (kChunk x kR)."""
+    import re
+
+    from vn_pointcloudcompletion_tpu_torch.ops import cuda_lib
+
+    src = (cuda_lib.CSRC / "chamfer_bidir.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (kR|kChunk) = (\d+);", src)}
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    tool = os.path.join(home, "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+        if tool is None:
+            raise ValueError("no cuobjdump")
+    lib = cuda_lib.library_path(cuda_lib.CSRC / "chamfer_bidir.cu")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    return chamfer_sweep_sass(sass, consts["kR"] * consts["kChunk"])
+
+
+def issue_floor_ms(dev, pairs: int, trip: int, per_trip: int) -> tuple:
+    """(ms, SMs, MHz): ``pairs`` at ``trip`` warp instructions for each
+    ``per_trip`` pairs a lane (32 lanes a warp instruction), 4 warp
+    instructions issued a clock on each SM at the card's top SM clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    return pairs * trip / per_trip / 32 / (sms * 4 * mhz * 1e6) * 1e3, sms, mhz
 
 
 def launched_designs(fn):
@@ -785,7 +872,7 @@ WIDE_PASSES = ("transpose", "pass1", "sums", "pass2", "pass3", "reduce")
 # (a substring of the name torch.profiler gives each); the reductions
 # (vnk_reduce_*, reduce_bias) are the sums' after pass 1, the split-K's
 # after pass 3
-PASS_KERNELS = (("transpose", "transpose"), ("pass1", "pd_wide_"), ("pass2", "dx_"),
+PASS_KERNELS = (("transpose", "transpose"), ("pass1", "pd_"), ("pass2", "dx_"),
                 ("pass3", "dw_"))
 
 
@@ -818,19 +905,20 @@ def pass_ms(fn, calls: int = 5) -> dict:
     return out
 
 
-def wgmma_vs_parent(rec: dict, fn, x, w, wd=None, reps: int = 10) -> None:
-    """A wide bf16 S' (``wd`` None) or C' row in the wgmma design: beside the
-    parent design (the wide design's mma.sync passes 2 and 3:
-    ``versus_parent``), each pass's device time in both designs on the same
-    inputs (``pass_ms``: torch.profiler's kernel durations over whole
-    calls, by pass), and, beside passes 2 and 3, torch.matmul of the same
+def wgmma_vs_parent(rec: dict, fn, x, w, wd=None, reps: int = 10, kind: str = "S'") -> None:
+    """A wide bf16 S, S' (``wd`` None) or C' row (``kind``) in its
+    pass1_bf16_design: beside the parent design (S "wide", S' and C'
+    "wgmma": ``versus_parent``), each pass's device time in both designs on
+    the same inputs (``pass_ms``: torch.profiler's kernel durations over
+    whole calls, by pass), and, beside each pass, torch.matmul of the same
     bf16 products at the same shapes with float32 output (``torch.bmm`` /
-    ``torch.mm`` with ``out_dtype``; the yardstick in ``library_ms``'s
-    sense, never on the port's path), timed back to back on the current
-    stream (``stream_ms``: a graph's fresh side stream would keep a cuBLAS
-    workspace of its own allocated for the rest of the run, which every
-    later phase's peak memory would count).  Kept in the row under
-    ``passes`` (``<design>/<pass>`` -> ms) and ``matmul_ms``."""
+    ``torch.mm`` with ``out_dtype``; pass 1: W, and Wd, times x; the
+    yardstick in ``library_ms``'s sense, never on the port's path), timed
+    back to back on the current stream (``stream_ms``: a graph's fresh side
+    stream would keep a cuBLAS workspace of its own allocated for the rest
+    of the run, which every later phase's peak memory would count).  Kept
+    in the row under ``passes`` (``<design>/<pass>`` -> ms) and
+    ``matmul_ms``."""
     import torch
 
     versus_parent(rec, fn, reps)
@@ -847,71 +935,133 @@ def wgmma_vs_parent(rec: dict, fn, x, w, wd=None, reps: int = 10) -> None:
     bf = torch.bfloat16
     planes, c_in, c_out, n = x.shape[0] * 3, x.shape[2], w.shape[0], x.shape[3]
     mats = [w] if wd is None else [w, wd]
-    g = [torch.randn(planes, c_out, n, device=x.device).to(bf) for _ in mats]
-    wt = torch.cat([m.t() for m in mats], 1).to(bf).expand(planes, c_in, -1).contiguous()
-    g2 = torch.cat(g, 1)  # (planes, k C_out, N): pass 2's B
-    g3 = torch.cat([t.transpose(0, 1).reshape(c_out, planes * n) for t in g], 0)  # pass 3's A
-    x3 = x.reshape(planes, c_in, n).transpose(0, 1).reshape(c_in, planes * n)
+    x1 = x.reshape(planes, c_in, n)
+    w1 = torch.cat(mats, 0).to(bf).expand(planes, -1, -1).contiguous()  # pass 1's A
+    mms = {"pass1": (w1, x1)}
+    if kind != "S":
+        g = [torch.randn(planes, c_out, n, device=x.device).to(bf) for _ in mats]
+        wt = torch.cat([m.t() for m in mats], 1).to(bf).expand(planes, c_in, -1).contiguous()
+        g3 = torch.cat([t.transpose(0, 1).reshape(c_out, planes * n) for t in g], 0)
+        x3 = x1.transpose(0, 1).reshape(c_in, planes * n)
+        mms.update(pass2=(wt, torch.cat(g, 1)), pass3=(g3, x3.t()))
+    mm = lambda a_, b_, **kw: (torch.bmm if a_.dim() == 3 else torch.mm)(a_, b_, **kw)  # noqa: E731
     out = "float32"
     try:
-        mm2 = lambda: torch.bmm(wt, g2, out_dtype=torch.float32)  # noqa: E731
-        mm3 = lambda: torch.mm(g3, x3.t(), out_dtype=torch.float32)  # noqa: E731
-        mm2(), mm3()
+        for a_, b_ in mms.values():
+            mm(a_, b_, out_dtype=torch.float32)
     except (TypeError, RuntimeError):  # no bf16 -> float32 product in this torch: bf16 out
         out = "bf16"
-        mm2 = lambda: torch.bmm(wt, g2)  # noqa: E731
-        mm3 = lambda: torch.mm(g3, x3.t())  # noqa: E731
-    mat = {"pass2": stream_ms(mm2, reps), "pass3": stream_ms(mm3, reps)}
-    print(f"[kernel {rec['name']}] torch.matmul yardstick ({out} out, ms a call back to "
-          f"back): pass 2 {mat['pass2']:.4f} (the wgmma pass {passes[rec['design'] + '/pass2']:.4f}, the "
-          f"parent's {passes['parent/pass2']:.4f}), pass 3 {mat['pass3']:.4f} (the wgmma pass "
-          f"{passes[rec['design'] + '/pass3']:.4f}, the parent's {passes['parent/pass3']:.4f})",
+    kw = {"out_dtype": torch.float32} if out == "float32" else {}
+    mat = {k: stream_ms(lambda a_=a_, b_=b_: mm(a_, b_, **kw), reps)
+           for k, (a_, b_) in mms.items()}
+    print(f"[kernel {rec['name']}] torch.matmul yardstick ({out} out, ms a call back to back): "
+          + ", ".join(f"{k} {v:.4f} (the {rec['design']} pass "
+                      f"{passes[rec['design'] + '/' + k]:.4f}, the parent's "
+                      f"{passes['parent/' + k]:.4f})" for k, v in mat.items()),
           flush=True)
     rec.update({"passes": passes, "matmul_ms": mat, "matmul_out": out})
-    del g, wt, g2, g3, x3
+    del mms, w1
 
 
-def certificate_share(rec: dict, x, w, wd) -> None:
-    """Kernel C''s pass 1 on the tensor cores, measured before it is built:
-    the certificate probe (``vn_layer_fused.certify_probe``: p and d summed by
-    mma.sync with |W| |x| beside them, each element certified where its bf16
-    rounding provably equals the in-order sum's) on the row's inputs.  The
-    share it leaves uncertain is what a tensor-core pass 1 would sum again
-    in input-channel order.  Fails if a certified element's bf16 value
-    differs from the plain version's in-order sum, or if the probe's mask is
-    not ``certified_bf16_mask`` of its own sums.  Kept in the row under
-    ``resum_share`` (elements), ``resum_vector_share`` (channel vectors with
-    any of their six p, d elements uncertain) and ``probe_ms`` (the probe's
-    device time for p alone)."""
+def same_p(rec: dict, x, w, c1, c2) -> None:
+    """S's p equal in bits to S''s recomputed p on the same inputs (the
+    wgmma pass 1 of both fills ``p_out``; fails otherwise or if either
+    launch took another design), within one bf16 ulp of the plain
+    version's in-order p plus 2^-13 of sum |w_k x_k| (two float32 orders of
+    one sum), and S's and S''s outputs equal in bits to their parent
+    designs' (pd_wide_mma takes the same k16 steps in the same order and
+    sums in the order pd_wgmma repeats)."""
     import torch
 
     from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
 
-    c_in = x.shape[2]
-    certified, vectors, wrong = 0, None, 0
-    for m in (w, wd):
-        v, s, cert = vn_layer_fused.certify_probe(x, m)
-        if not torch.equal(cert, vn_layer_fused.certified_bf16_mask(v, s, c_in)):
-            raise AssertionError(f"{rec['name']}: the probe's certificate is not its plain version's")
-        in_order = vn_layer_fused._products(m, x, None)
-        wrong += int((v.to(torch.bfloat16)[cert] != in_order[cert]).sum().item())
-        certified += int(cert.sum().item())
-        whole = cert.all(1)
-        vectors = whole if vectors is None else vectors & whole
-        del v, s, cert, in_order
-    total = 2 * x.shape[0] * 3 * w.shape[0] * x.shape[3]
-    share = 1.0 - certified / total
-    vshare = 1.0 - vectors.float().mean().item()
-    probe = graph_ms(lambda: vn_layer_fused.certify_probe(x, w), 3)
-    print(f"[kernel {rec['name']}] a tensor-core pass 1's certificate (k "
-          f"{vn_layer_fused.certificate_margin(c_in):.4e} s + 2^-23 |v|): {share:.2%} of p, d "
-          f"elements uncertain (the re-sum share), {vshare:.2%} of channel vectors with one or "
-          f"more; certified elements unequal to the in-order bits: {wrong}; the probe (p alone, "
-          f"with |W| |x|) {probe:.4f} ms on the device", flush=True)
-    if wrong:
-        raise AssertionError(f"{rec['name']}: {wrong} certified elements differ from the "
-                             "in-order sum")
-    rec.update({"resum_share": share, "resum_vector_share": vshare, "probe_ms": probe})
+    p_s, p_b = (torch.zeros(x.shape[0], 3, w.shape[0], x.shape[3], device=x.device,
+                            dtype=torch.bfloat16) for _ in range(2))
+    _, d_s = launched_designs(lambda: vn_layer_fused.stats_fwd(x, w, None, p_out=p_s))
+    _, d_b = launched_designs(lambda: vn_layer_fused.stats_bwd(x, w, None, c1, c2, p_out=p_b))
+    same = torch.equal(p_s, p_b)
+    plain = vn_layer_fused._products(w, x, None)
+    diff = (p_s.float() - plain.float()).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(plain.float().abs().clamp_min(2.0 ** -126))) - 7)
+    mag = torch.matmul(w.to(torch.bfloat16).float().abs(), x.float().abs())
+    within = bool((diff <= ulp + 2.0 ** -13 * mag).all())  # two orders of the float32 sum
+    share = float((p_s != plain).float().mean())
+    print(f"[kernel {rec['name']}] S's p ({d_s}) bitwise equal to S''s ({d_b}): {same}; "
+          f"against the in-order p: {share:.4%} of elements differ, all within one bf16 ulp "
+          f"+ 2^-13 sum |w x|: {within}", flush=True)
+    if not same or d_s != ["wgmma_p"] or d_b != ["wgmma_p"] or not within:
+        raise AssertionError(f"{rec['name']}: S's p is not S''s")
+    # the same products in the same order and the sums in the same order as
+    # the parent design (pd_wide_mma): S's and S''s outputs equal its bits
+    for tag, fn in (("S", lambda: vn_layer_fused.stats_fwd(x, w, None)),
+                    ("S'", lambda: vn_layer_fused.stats_bwd(x, w, None, c1, c2))):
+        got = fn()
+        with parent_designs():
+            want = fn()
+        equal = all(torch.equal(a, b) for a, b in zip(got, want) if a is not None)
+        print(f"[kernel {rec['name']}] {tag} in the wgmma_p design bitwise equal to the parent "
+              f"design's: {equal}", flush=True)
+        if not equal:
+            raise AssertionError(f"{rec['name']}: {tag}'s wgmma pass 1 differs from the parent's")
+    rec.update({"p_equal_to_s_bwd": same, "p_differs_from_in_order": share})
+    del p_s, p_b, plain, diff, ulp, mag
+
+
+def certified_checks(rec: dict, fn, inputs, adversarial) -> None:
+    """C''s certified design on the row's inputs: its outputs equal in bits
+    to the parent design's (pass 1 on FMAs in input-channel order); the
+    share of p, d elements its pass 1 summed again (its re-sum count over
+    the 2 B 3 C_out N elements); the same on ``adversarial`` inputs (every
+    p, d a few float32 ulps from a bf16 midpoint: all summed again).  Fails
+    where a bit differs.  Kept in the row under ``resum_share`` and
+    ``adversarial_resum_share``."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
+
+    for tag, args in (("row", inputs), ("adversarial", adversarial)):
+        count = torch.zeros(1, dtype=torch.int32, device=args[0].device)
+        got, designs = launched_designs(
+            lambda: vn_layer_fused.layer_project_bwd(*args, NS, resums=count))
+        with parent_designs():
+            want, parent = launched_designs(lambda: vn_layer_fused.layer_project_bwd(*args, NS))
+        same = all(torch.equal(a, b) for a, b in zip(got, want) if a is not None)
+        x, w = args[0], args[1]
+        share = int(count.item()) / (2 * x.shape[0] * 3 * w.shape[0] * x.shape[3])
+        print(f"[kernel {rec['name']}] {tag} inputs: the {designs} design's outputs bitwise "
+              f"equal to the {parent} design's: {same}; re-summed {share:.4%} of p, d "
+              f"({int(count.item())} elements)", flush=True)
+        if not same or designs != ["certified"]:
+            raise AssertionError(f"{rec['name']}: the certified pass 1 differs from the "
+                                 f"in-order one on the {tag} inputs")
+        rec["resum_share" if tag == "row" else "adversarial_resum_share"] = share
+        del got, want
+
+
+def adversarial_c_inputs(dev, b, c_in, c_out, n, seed):
+    """(x, w, wd, pbias, dbias, a, b, w_out, g) of C' in bf16 whose every p
+    and d lies within a few float32 ulps of a bf16 rounding midpoint:
+    channel 0's product a power of two t0, channel 1's t0 2^-8, the rest
+    ~2^-25 t0 with random signs (tests/test_torch_port_kernels.py's
+    _adversarial_layer at the row's width)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sign = lambda *shape: rng.choice([-1.0, 1.0], shape)  # noqa: E731
+    small = lambda *shape: sign(*shape) * np.ldexp(rng.uniform(1, 2, shape), -13)  # noqa: E731
+    lead_x = np.ldexp(sign(b, 3, 1, n), rng.integers(-2, 3, (b, 3, 1, n)))
+    x = np.concatenate([lead_x, lead_x, lead_x * small(b, 3, c_in - 2, n)], 2)
+
+    def weights():
+        lead = np.ldexp(sign(c_out, 1), rng.integers(-2, 3, (c_out, 1)))
+        return np.concatenate([lead, lead * 2.0 ** -8, lead * small(c_out, c_in - 2)], 1)
+
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    w, wd = (t(m).to(torch.bfloat16).float() for m in (weights(), weights()))
+    return (t(x).to(torch.bfloat16), w, wd, None, None, t(rng.uniform(0.5, 1.5, c_out)),
+            t(rng.normal(0.0, 0.3, c_out)), t(rng.uniform(-0.3, 0.3, c_out)),
+            t(rng.standard_normal((b, 3, 1, n)) * 1e-4).to(torch.bfloat16))
 
 
 def narrow_ms(fn, reps: int) -> float:
@@ -1249,15 +1399,40 @@ def check_kernels(dev):
         same = all(torch.equal(got[k], want[k]) for k in range(4))
         return dmax, same
 
+    def cdist_min(a, b):  # the library yardstick: torch.cdist and its two minima
+        d = torch.cdist(a, b)
+        return d.min(2), d.min(1)
+
     # each pair's distance (8 operations) and both minima, once
-    record("D nn_bidirectional",
-           "vn_pointcloudcompletion_tpu_torch/csrc/chamfer_bidir.cu",
-           "vn_pointcloudcompletion_tpu/ops/chamfer_pallas_bidir.py:159",
-           lambda: chamfer.nn_bidirectional(px, py),
-           lambda: chamfer.nn_bidirectional_reference(px, py),
-           exact, "distances and indices exact",
-           nbytes(px, py) + 2 * 4 * 2 * BATCH * n,
-           BATCH * n * n * (8 + 2), reps=10, plain_reps=3, repro=True)
+    rec = record("D nn_bidirectional",
+                 "vn_pointcloudcompletion_tpu_torch/csrc/chamfer_bidir.cu",
+                 "vn_pointcloudcompletion_tpu/ops/chamfer_pallas_bidir.py:159",
+                 lambda: chamfer.nn_bidirectional(px, py),
+                 lambda: chamfer.nn_bidirectional_reference(px, py),
+                 exact, "distances and indices exact",
+                 nbytes(px, py) + 2 * 4 * 2 * BATCH * n,
+                 BATCH * n * n * (8 + 2), reps=10, plain_reps=3, repro=True,
+                 library_fn=lambda: cdist_min(px, py))
+    torch.cuda.empty_cache()
+    # D's issue floor beside its row (the file is built --fmad=false, so its
+    # ten operations a pair issue as ten instructions, not five FMA slots):
+    # a trip of its chunk loop's warp instructions (chamfer_sweep_issue:
+    # the SASS of the library built in this run) over the pairs a lane
+    # folds in it, 4 issued a clock on each SM at the card's top clock
+    try:
+        trip, per_trip = chamfer_sweep_issue()
+    except (OSError, ValueError, KeyError, subprocess.SubprocessError) as exc:
+        print(f"[kernel D nn_bidirectional] the sweep's issue floor: not measured ({exc})",
+              flush=True)
+    else:
+        floor_ms, sms, mhz = issue_floor_ms(dev, BATCH * n * n, trip, per_trip)
+        dev_ms = graph_ms(lambda: chamfer.nn_bidirectional(px, py))
+        rec.update({"issue_floor_ms": floor_ms, "graph_ms": dev_ms})
+        print(f"[kernel D nn_bidirectional] the sweep's issue floor: {BATCH * n * n} pairs x "
+              f"{trip} instructions a trip / {per_trip} pairs a lane a trip (SASS of this build) "
+              f"/ 32 lanes / ({sms} SMs x 4 a clock x {mhz:.0f} MHz) = {floor_ms:.4f} ms; the "
+              f"device time {dev_ms:.4f} ms ({floor_ms / dev_ms:.1%} of it; the FP32 bound, 10 "
+              f"operations a pair at 67 TFLOP/s, {rec['bound_ms']:.4f} ms)", flush=True)
     # D at the training loss's coarse pair (1024 predicted against the 16384
     # complete points; half of D's launches in a train step) and at
     # num_coarse 448's (448 against 14336)
@@ -1271,7 +1446,8 @@ def check_kernels(dev):
                lambda: chamfer.nn_bidirectional_reference(pc, pd),
                exact, "distances and indices exact",
                nbytes(pc, pd) + 2 * 4 * (nc + nd) * BATCH,
-               BATCH * nc * nd * (8 + 2), reps=20, plain_reps=3, repro=True)
+               BATCH * nc * nd * (8 + 2), reps=20, plain_reps=3, repro=True,
+               library_fn=lambda: cdist_min(pc, pd))
     del px, py, pc, pd
     records += check_knn_fps_kernels(dev, record, randn, uniform)
     check_emd_kernel(dev, record)
@@ -1531,33 +1707,26 @@ def check_bf16_train_kernels(dev, record, randn, uniform):
     c1, c2 = randn(256, scale=1e-4), randn(256, scale=1e-5)
     vecs = BATCH * 256 * n
     prod = 2 * 3 * vecs * 256
-    record("S vn_layer_stats bf16", src + "vn_layer_bwd.cu", at + "vn_layer_fused.py:278",
-           lambda: vn_layer_fused.stats_fwd(x, w, None),
-           lambda: vn_layer_fused.reference_stats(x, w, None),
-           close, "1e-4 x max", nbytes(x, w) + 2 * 4 * 256, prod, reps=10,
-           repro=True, peak_ops=PEAK_BF16, fp32_ops=9 * vecs)
     stats_wide_vs_narrow(x, w, "256 -> 256")
-    xf = randn(BATCH, 3, 256, 14336).to(bf)
-    wf = uniform(-1 / 16, 1 / 16, 128, 256)
-    vecs_f = BATCH * 128 * 14336
-    record("S vn_layer_stats 256 -> 128 bf16", src + "vn_layer_bwd.cu",
-           at + "vn_layer_fused.py:278",
-           lambda: vn_layer_fused.stats_fwd(xf, wf, None),
-           lambda: vn_layer_fused.reference_stats(xf, wf, None),
-           close, "1e-4 x max", nbytes(xf, wf) + 2 * 4 * 128,
-           2 * 3 * vecs_f * 256, reps=10, repro=True, peak_ops=PEAK_BF16,
-           fp32_ops=9 * vecs_f)
-    del xf
-    # S' and C' at final_conv.1 (256 -> 256, N 16384) and vn_folding{1,2}.1
-    # (256 -> 128, N 14336): the wgmma design, beside the parent mma.sync
-    # passes, pass by pass, with torch.matmul as the yardstick of passes 2
-    # and 3; C' also the certificate of a tensor-core pass 1 (its share)
+    # S, S' and C' at final_conv.1 (256 -> 256, N 16384) and
+    # vn_folding{1,2}.1 (256 -> 128, N 14336): pass1_bf16_design's designs
+    # (S, S' wgmma_p; C' certified), beside the parent designs, pass by pass,
+    # with torch.matmul as the yardstick of each pass; S's p against S''s;
+    # C''s bits against the parent's and its re-sum share
     for c_out, npts in ((256, n), (128, 14336)):
         shape = "" if c_out == 256 else " 256 -> 128"
         xs = x if npts == n else randn(BATCH, 3, 256, npts).to(bf)
         ws = w if c_out == 256 else uniform(-1 / 16, 1 / 16, c_out, 256)
         vecs_s = BATCH * c_out * npts
         prod_s = 2 * 3 * vecs_s * 256
+        fn = lambda: vn_layer_fused.stats_fwd(xs, ws, None)  # noqa: E731
+        rec = record(f"S vn_layer_stats{shape} bf16", src + "vn_layer_bwd.cu",
+                     at + "vn_layer_fused.py:278", fn,
+                     lambda: vn_layer_fused.reference_stats(xs, ws, None),
+                     close, "1e-4 x max", nbytes(xs, ws) + 2 * 4 * c_out, prod_s, reps=10,
+                     repro=True, peak_ops=PEAK_BF16, fp32_ops=9 * vecs_s, versus=True)
+        wgmma_vs_parent(rec, fn, xs, ws, kind="S")
+        same_p(rec, xs, ws, c1[:c_out], c2[:c_out])
         fn = lambda: vn_layer_fused.stats_bwd(xs, ws, None, c1[:c_out], c2[:c_out])  # noqa: E731
         rec = record(f"S' vn_layer_stats backward{shape} bf16", src + "vn_layer_bwd.cu",
                      at + "vn_layer_fused.py:325", fn,
@@ -1567,7 +1736,7 @@ def check_bf16_train_kernels(dev, record, randn, uniform):
                      2 * nbytes(xs) + 2 * nbytes(ws) + 2 * 4 * c_out, 3 * prod_s, reps=10,
                      plain_reps=3, repro=True, peak_ops=PEAK_BF16, fp32_ops=15 * vecs_s,
                      versus=True)
-        wgmma_vs_parent(rec, fn, xs, ws)
+        wgmma_vs_parent(rec, fn, xs, ws, kind="S'")
         wc, wdc = uniform(-1 / 16, 1 / 16, c_out, 256), uniform(-1 / 16, 1 / 16, c_out, 256)
         a, b = uniform(0.5, 1.5, c_out), randn(c_out, scale=0.3)
         w_out = uniform(-1 / 16, 1 / 16, c_out)
@@ -1582,8 +1751,9 @@ def check_bf16_train_kernels(dev, record, randn, uniform):
                      2 * nbytes(xs, wc, wdc, a, b, w_out) + nbytes(g_), 6 * prod_s, reps=5,
                      plain_reps=3, repro=True, peak_ops=PEAK_BF16, fp32_ops=90 * vecs_s,
                      versus=True)
-        wgmma_vs_parent(rec, fn, xs, wc, wdc)
-        certificate_share(rec, xs, wc, wdc)
+        wgmma_vs_parent(rec, fn, xs, wc, wdc, kind="C'")
+        certified_checks(rec, fn, (xs, wc, wdc, None, None, a, b, w_out, g_),
+                         adversarial_c_inputs(xs.device, BATCH, 256, c_out, npts, 9))
         del g_, xs
     del x
     a, b = uniform(0.5, 1.5, 256), randn(256, scale=0.3)
@@ -1890,12 +2060,8 @@ def check_knn_kernel(dev, record, randn, uniform, q):
     except (OSError, ValueError, subprocess.SubprocessError) as exc:
         print(f"[kernel K2 knn_min] the scan's issue floor: not measured ({exc})", flush=True)
     else:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        mhz = float(subprocess.run(
-            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-            capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
         pairs = BATCH * 2048 * 2048
-        floor_ms = pairs * trip / per_lane / 32 / (sms * 4 * mhz * 1e6) * 1e3
+        floor_ms, sms, mhz = issue_floor_ms(dev, pairs, trip, per_lane)
         print(f"[kernel K2 knn_min] the scan's issue floor: {pairs} pairs x {trip} "
               f"instructions a trip / {per_lane} references a lane a trip (SASS of this build) "
               f"/ 32 lanes / ({sms} SMs x 4 a clock x {mhz:.0f} MHz) = {floor_ms:.4f} ms "

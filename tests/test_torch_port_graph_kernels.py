@@ -234,6 +234,60 @@ def test_knn_scan_sass_refuses(edit):
         chip_smoke.knn_scan_sass(_SCAN_SASS.replace(*edit))
 
 
+# cuobjdump -sass text in the layout of the chamfer_bidir library's: a
+# nn_sweep whose stage loop (0x10-0xb0) holds the chunk loop (0x20-0xa0):
+# a branch over the sweep for warps past the rows (0x20 -> 0x60, its span
+# holds the FMNMX), the sweep, and the flush (0x70-0x80, no FMNMX) that a
+# forward branch skips on most trips
+_SWEEP_SASS = """
+        Function : _ZN45_GLOBAL__N__0_13_chamfer_bidir_cu_0_split_keysEPKyPfPil
+        /*0000*/                   FMNMX R1, R2, R3, PT ;                 /* 0x0000000302017209 */
+        Function : _ZN45_GLOBAL__N__0_13_chamfer_bidir_cu_0_nn_sweepEPKfS2_PyS3_iii
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                 /* 0x00000a0000017a02 */
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;          /* 0x0000000000007b1d */
+        /*0020*/               @P3 BRA 0x60 ;                             /* 0x0000000000048947 */
+        /*0030*/                   FADD R4, R5, -R6 ;                     /* 0x8000000605047221 */
+        /*0040*/                   FMNMX R7, R7, R4, PT ;                 /* 0x0000000407077209 */
+        /*0050*/                   FMNMX R8, R8, R4, PT ;                 /* 0x0000000408087209 */
+        /*0060*/              @!P0 BRA 0x90 ;                             /* 0x0000000000048947 */
+        /*0070*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;          /* 0x0000000000007b1d */
+        /*0080*/                   ATOMG.E.MIN.64 PT, R2, [R10], R12 ;    /* 0x0000000c0a0279a8 */
+        /*0090*/                   IADD3 R0, R0, 0x1, RZ ;                /* 0x0000000100007810 */
+        /*00a0*/              @!P1 BRA 0x20 ;                             /* 0xffffffec00d48947 */
+        /*00b0*/              @!P2 BRA 0x10 ;                             /* 0xffffffec00d48947 */
+        /*00c0*/                   EXIT ;                                 /* 0x000000000000794d */
+"""
+
+
+def test_chamfer_sweep_sass_counts_one_trip():
+    """chip_smoke's issue floor of kernel D reads one trip of its chunk
+    loop (the innermost loop with the most FMNMX, 0x20-0xa0: 9
+    instructions) less the flush a forward branch skips (0x70, 0x80), and
+    not less the sweep that the branch for warps past the rows skips, from
+    the SASS, with the pairs a lane folds a trip as given."""
+    import chip_smoke
+
+    assert chip_smoke.chamfer_sweep_sass(_SWEEP_SASS, 256) == (7, 256)
+
+
+@pytest.mark.parametrize("edit", [
+    ("_nn_sweepE", "_nn_swapE"),  # no such function
+    ("@!P1 BRA 0x20 ", "@!P1 BRA 0xd0 "),  # then the stage loop alone: 0x10-0xb0
+])
+def test_chamfer_sweep_sass_refuses_or_takes_the_innermost(edit):
+    """Without nn_sweep the SASS gives no count; with the chunk loop gone
+    the stage loop (0x10-0xb0, the same FMNMX: 11 instructions) is the
+    innermost left, less the flush."""
+    import chip_smoke
+
+    sass = _SWEEP_SASS.replace(*edit)
+    if edit[0] == "_nn_sweepE":
+        with pytest.raises(ValueError):
+            chip_smoke.chamfer_sweep_sass(sass, 256)
+    else:
+        assert chip_smoke.chamfer_sweep_sass(sass, 256) == (9, 256)
+
+
 @pytest.mark.parametrize("n,aligned,design", [
     (2048, True, "run8"), (512, True, "run8"), (16384, True, "run8"), (8192, True, "run8"),
     (520, True, "run8"), (516, True, "vector"), (1001, True, "vector"), (2048, False, "vector"),

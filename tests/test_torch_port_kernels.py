@@ -1808,8 +1808,9 @@ def test_kernel_s_bf16_cuda_matches_plain(cuda, c_in, c_out, n, group):
     (256, 128, 1000, 0, True), (256, 128, 1088, 64, True),
 ])
 def test_kernel_s_bf16_wide_cuda_matches_plain(cuda, c_in, c_out, n, group, bias):
-    """The wide bf16 S (p on the tensor cores) at widths without and with
-    a bias (per sample, group 64), counted under its design, twice for
+    """The wide bf16 S (p on the tensor cores: mma.sync, or wgmma where
+    pass1_bf16_design gives "wgmma_p") at widths without and with a bias
+    (per sample, group 64), counted under its design, twice for
     equal bits, against its plain bf16 version within 1e-4 of the max
     (chip_smoke.py's bound for bf16 S): the tensor cores sum p in their own
     order, so a p at a bf16 rounding boundary rounds one ulp away from the
@@ -1818,7 +1819,8 @@ def test_kernel_s_bf16_wide_cuda_matches_plain(cuda, c_in, c_out, n, group, bias
     bias: NVIDIA H100 80GB HBM3, 700 W)."""
     (x, w, _, pb, _, *_), _ = _bf16_layer_case(cuda, c_in, c_out, n, group, n + 11)
     pb = pb if bias else None
-    key = _variant("vn_layer_stats_fwd", group, True, "wide")
+    key = _variant("vn_layer_stats_fwd", group, True,
+                   port_layer.pass1_bf16_design("S", c_in, c_out, n, True, group))
     v0 = cuda_lib.variant_counts().get(key, 0)
     got, launched = _counts_of(_grouped("vn_layer_stats_fwd", group),
                                lambda: port_layer.stats_fwd(x, w, pb, group))
@@ -1934,10 +1936,11 @@ def test_wide_backward_dispatch_boundary(cuda, c_in, design, kernel, bf16):
 #
 # A wide bf16 S' or C' whose widths are multiples of 64 and whose point rows
 # are 16-byte aligned runs passes 2 and 3 on wgmma fed by TMA
-# (port_layer.wide_bf16_design; csrc vn_wgmma.cuh); pass 1 stays the wide
-# design's.  Held to the plain version at phase 3's bounds (dx one bf16 ulp
-# of its max; dW, dWd, dA, dB, dw_out and the bias sums 1e-4 of theirs),
-# twice for equal bits, counted under "wgmma"; ragged N (1000, 1088: no
+# (port_layer.wide_bf16_design; csrc vn_wgmma.cuh), and its pass 1 on the
+# tensor cores too (port_layer.pass1_bf16_design: S' "wgmma_p", C'
+# "certified").  Held to the plain version at phase 3's bounds (dx one bf16
+# ulp of its max; dW, dWd, dA, dB, dw_out and the bias sums 1e-4 of theirs),
+# twice for equal bits, counted under that design; ragged N (1000, 1088: no
 # multiple of the 128-point pass-2 tile or the 64-point pass-3 stage), a
 # bias per sample and per group of 64, and a half tile (192 output
 # channels: 128 + 64).
@@ -1955,8 +1958,10 @@ def _wgmma_inputs(cuda, c_in, c_out, n, group, seed):
 def test_wgmma_backward_cuda_matches_plain(cuda, c_in, c_out, n, group, kernel):
     inputs = _wgmma_inputs(cuda, c_in, c_out, n, group, c_in + c_out + n + group)
     assert port_layer.wide_bf16_design(c_in, c_out, n) == "wgmma"
+    design = port_layer.pass1_bf16_design(kernel, c_in, c_out, n, True, group)
+    assert design == ("certified" if kernel == "C'" else "wgmma_p")
     launch, plain, symbol = _wide_run(kernel, *inputs, group)
-    key = _variant(symbol, group, True, "wgmma")
+    key = _variant(symbol, group, True, design)
     before = cuda_lib.variant_counts().get(key, 0)
     got, again = launch(), launch()
     torch.cuda.synchronize()
@@ -1968,10 +1973,11 @@ def test_wgmma_backward_cuda_matches_plain(cuda, c_in, c_out, n, group, kernel):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["S'", "C'"])
 def test_wgmma_backward_against_the_mma_sync_design(cuda, kernel, monkeypatch):
-    """The wgmma passes and the parent mma.sync passes (the wide design) on
-    the same inputs: dx within one bf16 ulp, dW within 1e-4 of its max (two
-    summation orders of the same bf16 products), the rest (pass 1's sums)
-    equal to the bit."""
+    """The tensor-core designs (S' wgmma_p, C' certified) and the mma.sync
+    passes of the wide design on the same inputs: dx within one bf16 ulp,
+    dW within 1e-4 of its max (two summation orders of the same bf16
+    products), the rest (pass 1's sums; C''s certified pass 1 gives
+    pd_wide_fma's bits) equal to the bit."""
     inputs = _wgmma_inputs(cuda, 256, 128, 4096, 0, 17)
     launch, _, _ = _wide_run(kernel, *inputs, 0)
     got = launch()
@@ -2042,26 +2048,80 @@ def test_wgmma_c_bwd_scratch_equals_the_parent_design_near_midpoints(cuda, monke
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("c_out", [256, 128])
 @pytest.mark.parametrize("kind", ["random", "adversarial"])
-def test_certify_probe_certifies_only_the_in_order_bits(cuda, kind):
-    """The tensor-core probe of a certified pass 1 (csrc certify_probe): its
-    certificate is certified_bf16_mask of its own (v, s), and every element
-    it certifies rounds to the bf16 value of the plain version's in-order
-    sum; on the adversarial inputs it certifies few."""
+@pytest.mark.parametrize("bias", [False, True])
+def test_certified_c_bwd_equals_the_in_order_design(cuda, c_out, kind, bias, monkeypatch):
+    """C''s certified design (pass 1 on the tensor cores under the
+    a-posteriori certificate, the uncertain elements summed again in input
+    order) gives every output equal in bits to the parent design's (the
+    wgmma passes after pd_wide_fma's in-order pass 1), at 256 -> 256 and
+    256 -> 128, on random inputs and on adversarial ones (every p, d a few
+    float32 ulps from a bf16 midpoint: nearly all summed again), with and
+    without a bias per sample; its re-sum count lies between 0 and the 2 B
+    3 C_out N elements of p and d."""
     if kind == "random":
-        rng = np.random.default_rng(3)
-        x = _bf16_t(rng.standard_normal((2, 3, 256, 1000)).astype(np.float32), device=cuda)[0]
-        w = _t(rng.uniform(-1 / 16, 1 / 16, (128, 256)).astype(np.float32), device=cuda)[0]
-        bias = _bf16_t(rng.standard_normal((2, 3, 128, 1)).astype(np.float32), device=cuda)[0]
+        x, w, wd, pb, db, a, b, w_out, _, _, g = _wgmma_inputs(cuda, 256, c_out, 1024, 0,
+                                                               c_out + 7)
     else:
-        x, w, _, _, _, _, _ = _adversarial_layer(cuda, 256, 128, 1000, 9)
-        bias = None
-    v, s, cert = port_layer.certify_probe(x, w, bias)
-    assert torch.equal(cert, port_layer.certified_bf16_mask(v, s, 256))
-    in_order = port_layer._products(w, x, bias)
-    assert torch.equal(v.to(torch.bfloat16)[cert], in_order[cert])
-    share = cert.float().mean().item()
-    assert share < 0.5 if kind == "adversarial" else share > 0.02
+        x, w, wd, a, b, w_out, g = _adversarial_layer(cuda, 256, c_out, 1024, c_out + 9)
+        rng = np.random.default_rng(c_out)
+        pb, db = _bf16_t(*(rng.standard_normal((2, 3, c_out, 1)).astype(np.float32)
+                           for _ in range(2)), device=cuda)
+    if not bias:
+        pb = db = None
+    args = (x, w, wd, pb, db, a, b, w_out, g, NS)
+    assert port_layer.pass1_bf16_design("C'", 256, c_out, 1024) == "certified"
+    count = torch.zeros(1, dtype=torch.int32, device=cuda)
+    key = _variant("vn_layer_fused_project_bwd", 0, True, "certified")
+    before = cuda_lib.variant_counts().get(key, 0)
+    got = port_layer.layer_project_bwd(*args, resums=count)
+    assert cuda_lib.variant_counts().get(key, 0) == before + 1
+    monkeypatch.setattr(port_layer, "pass1_bf16_design", lambda *shape: "wgmma")
+    want = port_layer.layer_project_bwd(*args)
+    _assert_same_bits(got, want)
+    total = 2 * x.shape[0] * 3 * c_out * x.shape[3]
+    resummed = int(count.item())
+    assert 0 <= resummed <= total
+    if kind == "adversarial" and not bias:
+        assert resummed > total // 2
+    if kind == "random":
+        assert resummed < total // 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out,n,group", [(256, 256, 1024, 0), (256, 128, 1000, 0),
+                                                (64, 192, 1088, 64), (128, 64, 1000, 0)])
+def test_wgmma_pass1_gives_s_the_p_of_s_bwd(cuda, c_in, c_out, n, group, monkeypatch):
+    """S and S' in the wgmma_p design recompute p = W x (+ bias) in the same
+    products and order: S's p (p_out) equals S''s in bits, each within one
+    bf16 ulp of the plain version's in-order p where the sum does not cancel
+    (the two float32 orders part by at most ~900 u of sum |w_k x_k|, under
+    2^-13 of it); both stay within their plain versions' bounds (S 1e-4 of
+    the max); and both equal their parent designs' outputs in bits (S
+    "wide", S' "wgmma": pass 1 on mma.sync, the same k16 steps and sums in
+    the same order)."""
+    x, w, _, pb, _, _, _, _, c1, c2, _ = _wgmma_inputs(cuda, c_in, c_out, n, group, n + c_out)
+    assert port_layer.pass1_bf16_design("S", c_in, c_out, n, True, group) == "wgmma_p"
+    p_s, p_b = (torch.full((x.shape[0], 3, c_out, n), 7.0, device=cuda, dtype=torch.bfloat16)
+                for _ in range(2))
+    got = port_layer.stats_fwd(x, w, pb, group, p_out=p_s)
+    dgot = port_layer.stats_bwd(x, w, pb, c1, c2, group, p_out=p_b)
+    assert torch.equal(p_s, p_b)
+    plain = port_layer._products(w, x, pb, group)
+    diff = (p_s.float() - plain.float()).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(plain.float().abs().clamp_min(2.0 ** -126))) - 7)
+    mag = torch.matmul(w.to(torch.bfloat16).float().abs(), x.float().abs())
+    assert bool((diff <= ulp + 2.0 ** -13 * mag).all())  # two orders of the float32 sum
+    _assert_bf16_bwd(got, port_layer.reference_stats(x, w, pb, group), 1e-4)
+    _assert_bf16_bwd(dgot, port_layer.reference_stats_bwd(x, w, pb, c1, c2, group))
+    # pd_wide_mma takes the same k16 steps in the same order, and pd_wgmma
+    # sums in its order: the parent designs' bits
+    parent = port_layer.wide_bf16_design
+    monkeypatch.setattr(port_layer, "pass1_bf16_design",
+                        lambda kernel, *shape: "wide" if kernel == "S" else parent(*shape[:4]))
+    _assert_same_bits(got, port_layer.stats_fwd(x, w, pb, group))
+    _assert_same_bits(dgot, port_layer.stats_bwd(x, w, pb, c1, c2, group))
 
 
 def _device_kernels(fn):
@@ -2129,8 +2189,8 @@ def test_wgmma_refuses_shapes_it_does_not_tile(cuda, c_in, c_out, n, kernel, mon
     fits = _wgmma_inputs(cuda, 64, 64, 1000, 0, 3)
     launch, plain, _ = _wide_run(kernel, *fits, 0)
     _assert_bf16_bwd(launch(), plain())
-    assert cuda_lib.variant_counts().get(_variant(symbol, 0, True, "wgmma"), 0) == \
-        before.get(_variant(symbol, 0, True, "wgmma"), 0) + 1
+    key = _variant(symbol, 0, True, "certified" if kernel == "C'" else "wgmma_p")
+    assert cuda_lib.variant_counts().get(key, 0) == before.get(key, 0) + 1
 
 
 # ------------------------------------------ the wide C and the fused B'

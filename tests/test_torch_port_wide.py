@@ -366,3 +366,122 @@ def test_certificate_margin_grows_with_depth():
         assert k == pytest.approx(2 * (gamma + tau), rel=1e-6)
         assert k == float(np.float32(k))
     assert port_layer.certificate_margin(256) > port_layer.certificate_margin(64)
+
+
+# ---------------------------------- the a-posteriori certificate of a p
+#
+# posterior_bf16_mask certifies a tensor-core sum from what the k16 steps
+# leave behind: v, s = sum |w_k x_k| and a = the sum of |acc| read before
+# each step (csrc pd_cert, C''s certified pass 1).  Held here against a
+# plain model of the tensor cores' step and against float32 sums in random
+# orders read in steps of 16, on the inputs of the tests above.
+
+_U = 2.0 ** -24
+
+
+def _trunc_f32(y):
+    """float64 -> the float32 next to it toward zero."""
+    f = y.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(y)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _tensor_core_step(acc, prods):
+    """One k16 step of the model in certificate_margin's docstring: the 17
+    addends (acc, float32, and the exact products) aligned to the largest
+    exponent E, each truncated to a multiple of 2^(E - 23) (24 bits from
+    E's), summed exactly, the sum truncated to float32."""
+    addends = np.concatenate([acc[None].astype(np.float64), prods], 0)
+    big = np.abs(addends).max(0)
+    e = np.floor(np.log2(np.where(big > 0, big, 1.0)))
+    q = np.exp2(e - 23)
+    return _trunc_f32((np.trunc(addends / q) * q).sum(0))
+
+
+def _stepped_sums(w, x, bias, order=None):
+    """(v, s, a) of p = W x (+ bias), float32 torch tensors (1, 3, C_out, N):
+    the products in k16 steps of input channels (``order`` None: the
+    tensor-core model, 0, 1, ...; else float32 adds one product at a time in
+    that order), a the float32 sum of |acc| read before each step, s the
+    same steps over |products|, v the sum plus the bias in float32."""
+    wf = w.double().numpy()
+    xf = x.double().numpy()[0]  # (3, C_in, N)
+    prods = wf[None, :, :, None] * xf[:, None, :, :]  # (3, C_out, C_in, N), exact
+    c_in = wf.shape[1]
+    ks = np.arange(c_in) if order is None else np.asarray(order)
+    acc = np.zeros(prods[:, :, 0].shape, np.float32)
+    mag = np.zeros_like(acc)
+    a = np.zeros_like(acc)
+    for k0 in range(0, c_in, 16):
+        step = ks[k0:k0 + 16]
+        a = a + np.abs(acc)
+        chunk = np.moveaxis(prods[:, :, step], 2, 0)  # (16, 3, C_out, N)
+        if order is None:
+            acc = _tensor_core_step(acc, chunk)
+            mag = _tensor_core_step(mag, np.abs(chunk))
+        else:
+            for t in chunk:
+                acc = (acc + t.astype(np.float32)).astype(np.float32)
+                mag = (mag + np.abs(t).astype(np.float32)).astype(np.float32)
+    v = torch.from_numpy(acc)[None]
+    if bias is not None:
+        v = v + bias.float()
+    return v, torch.from_numpy(mag)[None], torch.from_numpy(a)[None]
+
+
+@pytest.mark.parametrize("c_in", [64, 256])
+@pytest.mark.parametrize("kind", ["random", "adversarial"])
+@pytest.mark.parametrize("summed", ["tensor cores", "random order"])
+def test_posterior_certificate_passes_only_the_in_order_bits(c_in, kind, summed):
+    """Every element posterior_bf16_mask passes rounds to the bf16 value of
+    the plain version's in-order sum (``_products``), for sums of the
+    tensor-core model and for float32 sums in a random order read in steps
+    of 16; on random inputs it passes most elements, on the adversarial ones
+    (every sum a few float32 ulps from a bf16 midpoint) next to none."""
+    x, w, bias = _certificate_inputs(kind, c_in, 48, 96, c_in + len(kind))
+    order = None if summed == "tensor cores" else np.random.default_rng(c_in).permutation(c_in)
+    v, s, a = _stepped_sums(w, x, bias, order)
+    cert = port_layer.posterior_bf16_mask(v, s, a)
+    in_order = port_layer._products(w, x, bias)
+    assert torch.equal(v.to(torch.bfloat16)[cert], in_order[cert])
+    if kind == "adversarial":
+        assert cert.float().mean() < 0.02
+    else:
+        assert cert.float().mean() > 0.8
+
+
+@pytest.mark.parametrize("c_in", [64, 256])
+@pytest.mark.parametrize("kind", ["random", "adversarial"])
+def test_posterior_margin_never_wider_than_the_prior_one(c_in, kind):
+    """The a-posteriori margin 2^-18 (a + s) + (2^-23 + 2^-42) |v| is never
+    wider than the a-priori one (certificate_margin: k s + 2^-23 |v|) on
+    the same tensor-core sums, so it certifies every element the other
+    does; on random inputs it leaves at most half as many uncertain."""
+    x, w, bias = _certificate_inputs(kind, c_in, 48, 96, c_in + 3)
+    v, s, a = _stepped_sums(w, x, bias)
+    k = torch.tensor(port_layer.certificate_margin(c_in), dtype=torch.float32)
+    prior = k * s + 2.0 ** -23 * v.abs()
+    post = (torch.tensor(port_layer.POSTERIOR_K, dtype=torch.float32) * (a + s)
+            + torch.tensor(port_layer.POSTERIOR_V, dtype=torch.float32) * v.abs())
+    assert bool((post <= prior).all())
+    new, old = port_layer.posterior_bf16_mask(v, s, a), port_layer.certified_bf16_mask(v, s, c_in)
+    assert bool((new | ~old).all())
+    if kind == "random":
+        assert (~new).float().mean() <= 0.5 * (~old).float().mean()
+
+
+def test_tensor_core_model_errs_inside_its_bound():
+    """The model's step errs within its stated 36 u (|acc| + the step's
+    sum of |products|) of the exact step (float64), and truncates: an
+    all-positive step never comes out above the exact sum."""
+    rng = np.random.default_rng(0)
+    acc = (rng.standard_normal((4096,)) * 8).astype(np.float32)
+    prods = (rng.standard_normal((16, 4096)) * rng.uniform(0.01, 10, (16, 1)))
+    prods = prods.astype(np.float32).astype(np.float64)
+    got = _tensor_core_step(acc, prods).astype(np.float64)
+    exact = acc.astype(np.float64) + prods.sum(0)
+    bound = 36 * _U * (np.abs(acc) + np.abs(prods).sum(0))
+    assert bool((np.abs(got - exact) <= bound).all())
+    pos = _tensor_core_step(np.abs(acc), np.abs(prods)).astype(np.float64)
+    assert bool((pos <= np.abs(acc) + np.abs(prods).sum(0)).all())

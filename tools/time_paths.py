@@ -26,9 +26,10 @@ step under the bfloat16 policy (``train_step_bf16``): ``reps`` guarded
 steps after two warm-up steps through ``chip_smoke.step_cost`` (CUDA
 events around each, a step ending in its one host read, the allocator's
 peak), then the profiler's device time over 5 steps, in all and for the
-kernels of the wide bf16 S' and C' (pass 1 ``pd_wide_fma<3`` and
-``pd_wide_mma<1``, passes 2 and 3 ``dx_``/``dw_wide_bf16`` or
-``dx_``/``dw_wgmma``), each of those kernels apart.  Paths named after
+kernels of the wide bf16 S, S' and C' (``WIDE_BWD``: pass 1
+``pd_wide_fma<3``, ``pd_wide_mma``, ``pd_cert`` or ``pd_wgmma``, passes 2
+and 3 ``dx_``/``dw_wide_bf16`` or ``dx_``/``dw_wgmma``), each of those
+kernels apart.  Paths named after
 ``reps`` are the only ones timed, and the kernels' line is then left out.
 Before the paths, one JSON line times kernels F (2048 -> 512, 512 -> 128,
 2048 -> 224), K3 (the five path shapes, float32 and bf16), K2 (the path
@@ -50,10 +51,10 @@ import subprocess
 import sys
 import time
 
-# The kernels of the wide bf16 S' and C' (passes 1, 2 and 3), which the
-# bf16 train steps time apart
-WIDE_BWD = ("pd_wide_fma<3", "pd_wide_mma<1", "dx_wide_bf16", "dw_wide_bf16", "dx_wgmma",
-            "dw_wgmma")
+# The kernels of the wide bf16 S, S' and C' (S's pass 1; S''s and C''s
+# passes 1, 2 and 3, in every design), which the bf16 train steps time apart
+WIDE_BWD = ("pd_wide_fma<3", "pd_wide_mma<", "pd_cert", "pd_wgmma", "dx_wide_bf16",
+            "dw_wide_bf16", "dx_wgmma", "dw_wgmma")
 BF16_STEP_PATHS = ("flagship", "vn_pointr_448")
 
 

@@ -114,9 +114,17 @@
 //      MN-major (points contiguous); pass 3 reads dp, dd and x K-major over
 //      the points, split K over whole 64-point stages of one plane, and
 //      vnk_reduce_rows sums the splits in order.  Pass 1 stays the wide
-//      one: C''s pd_wide_fma keeps p and d in input-channel order (its
-//      bits; a tensor-core sum with a certificate of its bf16 rounding
-//      leaves most elements uncertain, PERF.md), S''s pd_wide_mma.
+//      one (C''s pd_wide_fma, S''s pd_wide_mma): the parent design of the
+//      two below.
+//   certified (bf16 C' where wgmma fits and Cin <= 256): pass 1 on the
+//      tensor cores with the in-order bits (pd_cert: mma.sync sums under an
+//      a-posteriori certificate of their bf16 rounding, the uncertain ~9%
+//      summed again in input-channel order from a resident tile), then the
+//      wgmma passes 2 and 3.
+//   wgmma_p (bf16 S and S' where wgmma fits, bias columns of whole tiles):
+//      pass 1 on wgmma fed by TMA too (pd_wgmma); S' then the wgmma passes
+//      2 and 3.  Its k16 steps and sums run in pd_wide_mma's order, so S and
+//      S' give the bits of the designs above (and S's p stays S''s).
 //
 // Bound on the H100 at the main path's shapes (batch 8, N = 16384):
 //   S at 256 -> 256: operations, the 2*Cin*Cout*3*B*N FLOP of p = W x.
@@ -227,8 +235,9 @@ __device__ __forceinline__ void store4(vnk_bf16* row, int n, int N, bool vec,
 // points n0 + tx * 4 + q).  The sums over a channel's 64 points run over a
 // thread's 4, then a fixed butterfly over its 16 lanes.  (pd_pass keeps its
 // own copy: moved into a function, it compiled to other code, and kernel S
-// ran slower.)
-template <int kMode, bool kSplit, int kMC, typename T>
+// ran slower.)  kBiasIn: accp, accd already hold p and d with their biases
+// added (C''s certified pass 1), so only the bias gradients read the bias.
+template <int kMode, bool kSplit, int kMC, typename T, bool kBiasIn = false>
 __device__ __forceinline__ void pd_epilogue(const PdArgs<T>& args,
                                             const float (&accp)[3][kMC][4],
                                             const float (&accd)[3][kMC][4], int t, int bi,
@@ -266,7 +275,7 @@ __device__ __forceinline__ void pd_epilogue(const PdArgs<T>& args,
       const int n = n0 + tx * 4 + q;
       const bool ok = cok && n < N;
       // a thread's 4 points share one bias column unless group is 1 or 2
-      if (has_bias && cok && (q == 0 || (kSplit && args.group < 4))) {
+      if (!kBiasIn && has_bias && cok && (q == 0 || (kSplit && args.group < 4))) {
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
           pb[j] = vnk_bias(args.pbias, bi, j, c, Cout, n, N, args.group);
@@ -1105,114 +1114,476 @@ pd_wide_mma(PdArgs<vnk_bf16> args, const vnk_bf16* __restrict__ wt, bool aw, boo
   }
 }
 
-// The certificate of a tensor-core pass 1 for bf16 C' (a probe: no
-// design runs it; chip_smoke.py phase 3 measures with it what share of p
-// or d a tensor-core pass 1 would have to sum again in input-channel
-// order).  p = W x is summed on the tensor cores (pd_wide_mma's tiling at
-// 64 channels a block, mma.sync, another order than the in-order fmaf sum
-// whose bf16 rounding the epilogue backward needs), s = |W| |x| beside it
-// in the same products (|bf16| clears the sign bits of the fragments, so
-// s is one more product), v = p + bias in float32.  An element is
-// certified when v - M and v + M round to the same bf16 value, M = k s +
-// 2^-23 |v|: ops/vn_layer_fused.py::certified_bf16_mask, which derives k
-// and is the certificate's plain version.  Writes v, s (float32) and the
-// certificate (1 certified, 0 not) of every element.
-struct CertProbe {
+// Pass 1 of bf16 C' on the tensor cores with the plain version's bits (the
+// "certified" design; ops/vn_layer_fused.py::pass1_bf16_design).  p = W x
+// and d = Wd x are summed by mma.sync k16 steps (exact bf16 products,
+// float32 accumulators), with s = |W| |x| beside them (|bf16| clears the
+// sign bits of the fragments) and a = the sum of |acc| read before each
+// step.  An element whose v = acc + bias carries the a-posteriori
+// certificate of posterior_bf16_mask (v - M and v + M round to one bf16
+// value, M = 2^-18 (a + s) + (2^-23 + 2^-42) |v|) takes bf16(v), which is
+// then the in-order sum's rounding; every other element is summed again in
+// input-channel order, fmaf from 0 as pd_wide_fma sums it, then the bias,
+// then one rounding.  So the staged p, d equal pd_wide_fma's bit for bit,
+// and pd_epilogue runs on them as there.
+//
+// A block owns 64 channels x 64 points of one sample, all three planes.
+// Its x tile (64 points x Cin, 3 planes: 96 KB at Cin 256) and its W, Wd
+// rows (64 channels x Cin: 64 KB) stay resident in shared memory with the
+// reduction axis contiguous (K-major), each row's 16-byte chunks swizzled by
+// the row (chunk ^ (row & 7)): ldmatrix reads the fragments without bank
+// conflicts, and the re-sum reads 8 products' operands a load.  W and Wd
+// come by cp.async from a bf16 copy (Cout, Cin) beside W^T; x is
+// transposed from its (Cin, N) rows in registers, 8 x 8 a thread, the next
+// plane's loads in flight while this plane multiplies.  The planes run in
+// turn: warp (wm, wn) of the 4 x 4 grid holds channels wm 16 .. + 16 and
+// points wn 16 .. + 16 of one plane (one m16 x two n8 tiles, p and d, each
+// with its s and a: 48 float32 a thread).  The certified values go to a
+// staged (p, d) tile (bf16, 54 KB); each warp queues its uncertain elements
+// as it certifies them (64 slots of shared memory a warp) and sums them
+// again 32 at a time, a lane an element, so the re-sums of some warps run
+// beside the products of others.  One block of 16 warps an SM (217 KB at
+// Cin 256).  Bound: the products of p, d (and s) on the
+// tensor cores and the re-sum's FMAs, whose share the certificate sets
+// (the number of re-summed elements goes to `resums` where it is not null).
+struct PdCert {
   static constexpr int kThreads = 512;  // 16 warps: 4 channel x 4 point warps
-  static constexpr int kBC = 64;
-  static constexpr int kKs = 32, kStages = 3;
-  static constexpr int kWld = kBC + 8, kXld = kPts + 8;
-  static constexpr int kW = kKs * kWld, kX = kKs * kXld;
-  static constexpr int kStage = kW + 3 * kX;
-  static constexpr int kBytes = kStages * kStage * 2;
+  static constexpr int kBC = 64;        // channels a block
+  static constexpr int kMaxCin = 256;   // the resident tiles' depth, at most
+  static constexpr int kPdLd = kPts + 8;            // bf16 a row of the staged p, d
+  static constexpr int kPd = 2 * 3 * kBC * kPdLd;   // bf16 elements of the staged p, d
+  static constexpr int kQueue = 64;                 // re-sum slots a warp
+  static constexpr unsigned short kMarked = 0xffff;  // no rounding gives this NaN
+  static constexpr int bytes(int Cin) { return (5 * 64 * Cin + kPd) * 2 + 16 * kQueue * 4; }
 };
 
-__global__ void __launch_bounds__(CertProbe::kThreads, 1)
-certify_probe(const vnk_bf16* __restrict__ x, const vnk_bf16* __restrict__ wt,
-              const vnk_bf16* __restrict__ bias, float* __restrict__ v_out,
-              float* __restrict__ s_out, unsigned char* __restrict__ cert, int Cin, int Cout,
-              int N, float k_margin, bool aw, bool ax) {
+// Element k of row `row` of a resident K-major tile (rows of Cin bf16, a
+// multiple of 64), its 16-byte chunks swizzled by the row.
+__device__ __forceinline__ int cert_at(int row, int k, int Cin) {
+  return row * Cin + ((((k >> 3) ^ (row & 7)) << 3) | (k & 7));
+}
+
+__device__ __forceinline__ unsigned short bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// Element e (< 8) of 8 bf16 in a uint4, widened (exact).
+__device__ __forceinline__ float bf16_of(const uint4& v, int e) {
+  const unsigned w = e < 2 ? v.x : e < 4 ? v.y : e < 6 ? v.z : v.w;
+  return __uint_as_float(e % 2 ? w & 0xffff0000u : w << 16);
+}
+
+template <bool kSplit>
+__global__ void __launch_bounds__(PdCert::kThreads, 1)
+pd_cert(PdArgs<vnk_bf16> args, const vnk_bf16* __restrict__ wk, int* __restrict__ resums) {
   using T = vnk_bf16;
-  using P = CertProbe;
+  using P = PdCert;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const int Cin = args.Cin, Cout = args.Cout, N = args.N;
+  T* const xs = reinterpret_cast<T*>(smem_raw);  // (3, 64 points, Cin)
+  T* const ws = xs + 3 * 64 * Cin;                // (2, 64 channels, Cin): W, Wd
+  unsigned short* const pd = reinterpret_cast<unsigned short*>(ws + 2 * 64 * Cin);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int* const queue = reinterpret_cast<int*>(pd + P::kPd) + warp * P::kQueue;
   const int wm = warp % 4, wn = warp / 4, grp = lane / 4, tig = lane % 4;
   const int t = blockIdx.y, bi = blockIdx.z;
   const int n0 = t * kPts, c0 = blockIdx.x * P::kBC;
-  const T* xb = x + static_cast<size_t>(bi) * 3 * Cin * N;
+  const T* xb = args.x + static_cast<size_t>(bi) * 3 * Cin * N;
+  const bool has_bias = args.pbias != nullptr;
 
-  // warp (wm, wn): channels wm 16 .. of the block's 64, points wn 16 .. of
-  // its 64 (two n8 tiles), three planes; acc the products, mag |W| |x|
-  float acc[3][2][4], mag[3][2][4];
+  // W and Wd rows of the block's channels (bf16, (2, Cout, Cin)) by cp.async
+  for (int e = threadIdx.x; e < 2 * 64 * Cin / 8; e += P::kThreads) {
+    const int row = e / (Cin / 8), k = e % (Cin / 8) * 8, h = row / 64;
+    cp_async16(ws + cert_at(row, k, Cin),
+               wk + (static_cast<size_t>(h) * Cout + c0 + row % 64) * Cin + k);
+  }
+  cp_async_commit();
+  // x of one plane: thread tid < Cin takes the 8 x 8 tile of input
+  // channels (tid / 8) 8 .. and points (tid % 8) 8 .., loaded as 8 rows of
+  // 16 bytes, stored as 8 columns
+  const int tk = threadIdx.x / 8 * 8, tn = threadIdx.x % 8 * 8;
+  const bool tile_in = tk < Cin, tile_pts = n0 + tn < N;  // N % 8 == 0
+  uint4 raw[8];
+  auto fetch = [&](int j) {
 #pragma unroll
-  for (int j = 0; j < 3; ++j)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][nt][e] = mag[j][nt][e] = 0.f;
-
-  auto load = [&](int st, int kt) {
-    T* stage = sm + st * P::kStage;
-    const int k0 = kt * P::kKs;
-    stage_tile<T, P::kKs, P::kBC, P::kThreads>(stage, P::kWld,
-                                               wt + static_cast<size_t>(k0) * Cout + c0, Cout,
-                                               Cin - k0, Cout - c0, aw);
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      stage_tile<T, P::kKs, kPts, P::kThreads>(
-          stage + P::kW + j * P::kX, P::kXld, xb + (static_cast<size_t>(j) * Cin + k0) * N + n0,
-          N, Cin - k0, N - n0, ax);
+    for (int r = 0; r < 8; ++r)
+      raw[r] = tile_in && tile_pts ? *reinterpret_cast<const uint4*>(
+                                         xb + (static_cast<size_t>(j) * Cin + tk + r) * N + n0 + tn)
+                                   : make_uint4(0u, 0u, 0u, 0u);
   };
-  auto compute = [&](int st) {
-    const T* ws = sm + st * P::kStage;
-    const T* xs = ws + P::kW;
+  auto put = [&](int j) {
+    if (!tile_in) return;
 #pragma unroll
-    for (int ks = 0; ks < P::kKs; ks += 16) {
-      unsigned a[4], aa[4];
-      frag_a_t(a, ws, P::kWld, wm * 16, ks);
+    for (int q = 0; q < 8; ++q) {  // point tn + q: its 8 input channels
+      const unsigned sel = q % 2 ? 0x7632u : 0x5410u;
+      unsigned o[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) aa[q] = a[q] & 0x7fff7fffu;
+      for (int u = 0; u < 4; ++u) {
+        const uint4& lo = raw[2 * u];
+        const uint4& hi = raw[2 * u + 1];
+        const unsigned a = q / 2 == 0 ? lo.x : q / 2 == 1 ? lo.y : q / 2 == 2 ? lo.z : lo.w;
+        const unsigned b = q / 2 == 0 ? hi.x : q / 2 == 1 ? hi.y : q / 2 == 2 ? hi.z : hi.w;
+        o[u] = __byte_perm(a, b, sel);
+      }
+      *reinterpret_cast<uint4*>(xs + cert_at(j * 64 + tn + q, tk, Cin)) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  };
+  fetch(0);
+  put(0);
+
+  // k16 steps of plane j: before each, a += |acc|
+  float acc[2][2][4], mag[2][2][4], stp[2][2][4];  // [h][nt][e]
+  const int l = lane % 8, li = lane / 8;
+  auto steps = [&](int j) {
+    for (int k0 = 0; k0 < Cin; k0 += 16) {
+      unsigned b[4], bb[4];
+      ldsm_x4(b, xs + cert_at(j * 64 + wn * 16 + l + (li >> 1) * 8, k0 + (li & 1) * 8, Cin));
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        unsigned b[4], bb[4];
-        frag_b2_t(b, xs + j * P::kX, P::kXld, wn * 16, ks);
+      for (int q = 0; q < 4; ++q) bb[q] = b[q] & 0x7fff7fffu;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) bb[q] = b[q] & 0x7fff7fffu;
-        mma_bf16(acc[j][0], a, b[0], b[1]);
-        mma_bf16(acc[j][1], a, b[2], b[3]);
-        mma_bf16(mag[j][0], aa, bb[0], bb[1]);
-        mma_bf16(mag[j][1], aa, bb[2], bb[3]);
+      for (int h = 0; h < 2; ++h) {
+        unsigned a[4], aa[4];
+        ldsm_x4(a, ws + cert_at(h * 64 + wm * 16 + l + (li & 1) * 8, k0 + (li >> 1) * 8, Cin));
+#pragma unroll
+        for (int q = 0; q < 4; ++q) aa[q] = a[q] & 0x7fff7fffu;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) stp[h][nt][e] += fabsf(acc[h][nt][e]);
+          mma_bf16(acc[h][nt], a, b[2 * nt], b[2 * nt + 1]);
+          mma_bf16(mag[h][nt], aa, bb[2 * nt], bb[2 * nt + 1]);
+        }
       }
     }
   };
-  pipeline<P::kStages>((Cin + P::kKs - 1) / P::kKs, load, compute);
 
-  // a thread holds channel c0 + wm 16 + grp + 8 r at points n0 + wn 16 +
-  // nt 8 + 2 tig + e
+  // the re-sum of element e = ((h 3 + j) 64 + channel) 64 + point: fmaf in
+  // input-channel order from 0, the bias, one rounding
+  auto resum = [&](int e) {
+    const int nl = e % 64, cl = e / 64 % 64, hj = e / 4096, h = hj / 3, j = hj % 3;
+    const int xr = j * 64 + nl, wr = h * 64 + cl;
+    const T* xrow = xs + xr * Cin;
+    const T* wrow = ws + wr * Cin;
+    float y = 0.f;
+    for (int kc = 0; kc < Cin / 8; ++kc) {
+      const uint4 wv = *reinterpret_cast<const uint4*>(wrow + ((kc ^ (wr & 7)) << 3));
+      const uint4 xv = *reinterpret_cast<const uint4*>(xrow + ((kc ^ (xr & 7)) << 3));
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int c = c0 + wm * 16 + grp + 8 * r;
-    if (c >= Cout) continue;
+      for (int q = 0; q < 8; ++q) y = fmaf(bf16_of(wv, q), bf16_of(xv, q), y);
+    }
+    const float bias = has_bias ? vnk_bias(h ? args.dbias : args.pbias, bi, j, c0 + cl, Cout,
+                                           n0 + nl, N, args.group)
+                                : 0.f;
+    pd[(hj * P::kBC + cl) * P::kPdLd + nl] = bf16_bits(y + bias);
+  };
+  // a warp queues its uncertain elements and sums them again 32 at a time
+  int queued = 0, summed = 0;
+  auto drain = [&]() {
+    __syncwarp();
+    const int mine = queue[lane];
+    __syncwarp();
+    if (lane < queued - 32) queue[lane] = queue[32 + lane];
+    __syncwarp();
+    queued -= 32;
+    summed += 32;
+    resum(mine);
+  };
+
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll 1
+  for (int j = 0; j < 3; ++j) {
+    if (j < 2) fetch(j + 1);  // in flight while plane j multiplies
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const size_t at = (static_cast<size_t>(bi) * 3 + j) * Cout + c;
-      const float b = bias != nullptr ? vnk_load(bias[at]) : 0.f;
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + wn * 16 + nt * 8 + 2 * tig + e;
-          if (n >= N) continue;
-          const float v = acc[j][nt][2 * r + e] + b;
-          const float sv = mag[j][nt][2 * r + e];
-          const float margin = k_margin * sv + 1.1920928955078125e-07f * fabsf(v);
-          const bool ok = __bfloat16_as_ushort(__float2bfloat16_rn(v - margin)) ==
-                          __bfloat16_as_ushort(__float2bfloat16_rn(v + margin));
-          v_out[at * N + n] = v;
-          s_out[at * N + n] = sv;
-          cert[at * N + n] = ok ? 1 : 0;
+        for (int e = 0; e < 4; ++e) acc[h][nt][e] = mag[h][nt][e] = stp[h][nt][e] = 0.f;
+    steps(j);
+    // the certificate: a certified pair (e, e + 1), which shares its channel
+    // and holds neighbouring points, goes out as one 32-bit store; an
+    // uncertain element is queued (its slot is written by its re-sum)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int cl = wm * 16 + grp + 8 * r, nl = wn * 16 + nt * 8 + 2 * tig;
+          unsigned short out[2];
+          bool marked[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = n0 + nl + e;
+            const float bias = has_bias ? vnk_bias(h ? args.dbias : args.pbias, bi, j, c0 + cl,
+                                                   Cout, n, N, args.group)
+                                        : 0.f;
+            const float v = acc[h][nt][2 * r + e] + bias;
+            const float m = 0x1p-18f * (stp[h][nt][2 * r + e] + mag[h][nt][2 * r + e]) +
+                            0x1.00002p-23f * fabsf(v);
+            marked[e] = n < N && bf16_bits(v - m) != bf16_bits(v + m);
+            out[e] = bf16_bits(v);
+          }
+          const int at = ((h * 3 + j) * P::kBC + cl) * P::kPdLd + nl;
+          *reinterpret_cast<unsigned*>(pd + at) = out[0] | static_cast<unsigned>(out[1]) << 16;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const unsigned ball = __ballot_sync(0xffffffffu, marked[e]);
+            if (marked[e])
+              queue[queued + __popc(ball & ((1u << lane) - 1u))] =
+                  ((h * 3 + j) * P::kBC + cl) * kPts + nl + e;
+            queued += __popc(ball);
+            if (queued >= 32) drain();
+          }
         }
+    if (j < 2) put(j + 1);
+    __syncthreads();
+  }
+  __syncwarp();
+  if (lane < queued) resum(queue[lane]);
+  summed += queued;
+  if (resums != nullptr && lane == 0 && summed > 0) atomicAdd(resums, summed);
+  __syncthreads();
+
+  // pd_epilogue on the staged p, d (pd_wide_fma's layout at 512 threads:
+  // thread (ty, tx) holds channels ty 2 + i, points tx 4 + q)
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float accp[3][2][4], accd[3][2][4];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int cl = ty * 2 + i;
+      const uint2 vp = *reinterpret_cast<const uint2*>(pd + (j * P::kBC + cl) * P::kPdLd + tx * 4);
+      const uint2 vd =
+          *reinterpret_cast<const uint2*>(pd + ((3 + j) * P::kBC + cl) * P::kPdLd + tx * 4);
+      accp[j][i][0] = __uint_as_float(vp.x << 16);
+      accp[j][i][1] = __uint_as_float(vp.x & 0xffff0000u);
+      accp[j][i][2] = __uint_as_float(vp.y << 16);
+      accp[j][i][3] = __uint_as_float(vp.y & 0xffff0000u);
+      accd[j][i][0] = __uint_as_float(vd.x << 16);
+      accd[j][i][1] = __uint_as_float(vd.x & 0xffff0000u);
+      accd[j][i][2] = __uint_as_float(vd.y << 16);
+      accd[j][i][3] = __uint_as_float(vd.y & 0xffff0000u);
+    }
+  pd_epilogue<kProjBwd, kSplit, 2, T, true>(args, accp, accd, t, bi, c0, n0);
+}
+
+// W and Wd rounded to bf16 as they are, (2, Cout, Cin): the K-major rows
+// of C''s certified pass 1.
+__global__ void __launch_bounds__(kWideThreads)
+round_weights(const float* __restrict__ w, const float* __restrict__ wd,
+              vnk_bf16* __restrict__ wk, int64_t total) {
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kWideThreads + threadIdx.x; e < 2 * total;
+       e += static_cast<int64_t>(gridDim.x) * kWideThreads)
+    wk[e] = __float2bfloat16_rn(e < total ? w[e] : wd[e - total]);
+}
+
+// Pass 1 of bf16 S and S' on Hopper's warpgroup products (the "wgmma_p"
+// design; ops/vn_layer_fused.py::pass1_bf16_design): p = W x for 128
+// channels x 64 points of one sample, all three planes, the reduction over
+// Cin in 64-deep stages that TMA loads into a ring (vn_wgmma.cuh): W^T's
+// two 64-channel boxes and x's three 64-point boxes of the stage's 64 input
+// channels, all MN-major (the channels of W^T, the points of x contiguous),
+// 128-byte swizzled.  Warpgroup wg owns channels wg 64 .. + 64 and keeps
+// the three planes' m64n64 accumulators (96 float32 a thread).  The
+// epilogue runs on the accumulators in their fragment layout: S sums |p| +
+// EPS and its square, S' its dp for the bias gradients, in pd_wide_mma's
+// order (a thread's points of each of that design's 16-point warps, its
+// quad, then those warps in turn): one partial per (sample, 64-point tile,
+// channel); S' writes dp through shared memory in 16-byte pieces of a row.
+// p is rounded through bf16 once after the bias, as in pd_pass.  The k16
+// steps run in pd_wide_mma's order too (the card gives its bits), so S and
+// S' give that design's bits, and S's p is S''s.  One block an SM (the
+// ring's four stages, 160 KB).
+// Bias columns cover whole tiles here (group 0 or >= 64; the wrapper keeps
+// narrower groups on pd_wide_mma).  p_out, where not null, receives p
+// itself (bf16), so that a test can hold S's p to S''s.  Bound at 256 ->
+// 256: bytes (x read; S' also dp written), the products at the bf16 rate
+// below them.
+struct PdWg {
+  static constexpr int kBC = 2 * 64;                 // channels a block
+  static constexpr int kA = kWgDepth * kBC * 2;      // W^T: 64 rows of 128 channels
+  static constexpr int kB = kWgDepth * kPts * 2;     // x, one plane: 64 rows of 64 points
+  static constexpr int kStage = kA + 3 * kB, kStages = 4;
+  static constexpr int kBytes = wg_smem(kStage, kStages);
+  static constexpr int kOutLd = kPts + 8;            // bf16 a row of the staged dp
+};
+
+template <int kMode>
+__global__ void __launch_bounds__(kWgThreads, 1)
+pd_wgmma(PdArgs<vnk_bf16> args, const __grid_constant__ CUtensorMap tm_wt,
+         const __grid_constant__ CUtensorMap tm_x, vnk_bf16* __restrict__ p_out) {
+  static_assert(kMode == kStatsFwd || kMode == kStatsBwd, "S and S' only");
+  using P = PdWg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const tiles = align1024(smem_raw);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(tiles + P::kStages * P::kStage);
+  uint64_t* const empty = full + P::kStages;
+  const int t = blockIdx.y, bi = blockIdx.z;
+  const int c0 = blockIdx.x * P::kBC, n0 = t * kPts;
+  const int Cout = args.Cout, N = args.N;
+  const int steps = (args.Cin + kWgDepth - 1) / kWgDepth;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // the producer warp: its first lane issues the loads
+    if (threadIdx.x == 256) {
+      for (int it = 0; it < steps; ++it) {
+        const int s = it % P::kStages, k0 = it * kWgDepth;
+        mbar_wait(&empty[s], ((it / P::kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], P::kStage);
+        unsigned char* st = tiles + s * P::kStage;
+        tma_load(st, &tm_wt, &full[s], c0, k0, 0);
+        tma_load(st + P::kA / 2, &tm_wt, &full[s], c0 + 64, k0, 0);
+        for (int j = 0; j < 3; ++j)
+          tma_load(st + P::kA + j * P::kB, &tm_x, &full[s], n0, k0, bi * 3 + j);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  float d[3][32];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[j][i] = 0.f;
+  for (int it = 0; it < steps; ++it) {
+    const int s = it % P::kStages;
+    mbar_wait(&full[s], (it / P::kStages) & 1);
+    const unsigned char* st = tiles + s * P::kStage;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) fence_acc(d[j]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgDepth / 16; ++kk) {
+      const uint64_t a = gmma_desc(st + wg * (P::kA / 2) + kk * 16 * 128, P::kA / 2, 1024);
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        wgmma_m64n64k16_tt(d[j], a, gmma_desc(st + P::kA + j * P::kB + kk * 16 * 128, P::kB, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int j = 0; j < 3; ++j) fence_acc(d[j]);
+    mbar_arrive(&empty[s]);
+  }
+
+  // thread (w, grp, tig) of warpgroup wg holds channel c0 + wg 64 + w 16 +
+  // grp + 8 r at points n0 + 8 i + 2 tig + e (i < 8; e, r < 2): d[j][4 i + 2 r + e]
+  const int w = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int grp = lane / 4, tig = lane % 4;
+  const bool has_bias = args.pbias != nullptr;
+  const size_t stride = static_cast<size_t>(args.B) * args.T * Cout;
+  const size_t at = static_cast<size_t>(bi) * args.T + t;
+  vnk_bf16* const out = reinterpret_cast<vnk_bf16*>(tiles);  // (3, 128, kOutLd): S''s dp
+  if (kMode == kStatsBwd) consumers_sync();  // the stages are free: both warpgroups are past them
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int cl = wg * 64 + w * 16 + grp + 8 * r, c = c0 + cl;
+    const bool cok = c < Cout;
+    float pb[3] = {0.f, 0.f, 0.f};
+    if (has_bias && cok) {  // a bias column covers the tile
+#pragma unroll
+      for (int j = 0; j < 3; ++j) pb[j] = vnk_bias(args.pbias, bi, j, c, Cout, n0, N, args.group);
+    }
+    float c1v = 0.f, c2v = 0.f;
+    if (kMode == kStatsBwd && cok) {
+      c1v = args.c1[c];
+      c2v = args.c2[c];
+    }
+    // the sums in pd_wide_mma's order, so its bits: a thread's points of
+    // one of that design's point warps (i / 2: its 16 points) over its two
+    // n8 tiles (i % 2) and their pairs, its quad, then those warps in turn
+    float s1w[4], s2w[4], sbw[4][3];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float o[2][3];
+      if (i % 2 == 0) {
+        s1w[i / 2] = s2w[i / 2] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) sbw[i / 2][j] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + 8 * i + 2 * tig + e;
+        const bool ok = cok && n < N;
+        float p[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) p[j] = vnk_round_bf16(d[j][4 * i + 2 * r + e] + pb[j]);
+        if (p_out != nullptr && ok) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            p_out[((static_cast<size_t>(bi) * 3 + j) * Cout + c) * N + n] =
+                __float2bfloat16_rn(p[j]);
+        }
+        if (kMode == kStatsFwd) {
+          const float norm_e = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2]) + VNK_EPS;
+          if (ok) {
+            s1w[i / 2] += norm_e;
+            s2w[i / 2] += norm_e * norm_e;
+          }
+        } else {  // dp = (c1 + 2 c2 (|p| + EPS)) p / |p|, as pd_pass
+          const float pnorm = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2]);
+          const float norm_e = pnorm + VNK_EPS;
+          float scale = (c1v + 2.f * c2v * norm_e) *
+                        (pnorm > 0.f ? 1.f / fmaxf(pnorm, 1e-30f) : 0.f);
+          if (!ok) scale = 0.f;
+#pragma unroll
+          for (int j = 0; j < 3; ++j) o[e][j] = scale * p[j];
+        }
+      }
+      if (kMode == kStatsBwd) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          sbw[i / 2][j] += o[0][j] + o[1][j];
+          *reinterpret_cast<__nv_bfloat162*>(out + (j * P::kBC + cl) * P::kOutLd + 8 * i +
+                                             2 * tig) = __floats2bfloat162_rn(o[0][j], o[1][j]);
+        }
+      }
+    }
+    if (kMode == kStatsFwd) {
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int w4 = 0; w4 < 4; ++w4) {
+        const float a1 = quad_sum(s1w[w4]), a2 = quad_sum(s2w[w4]);
+        s1 = w4 == 0 ? a1 : s1 + a1;
+        s2 = w4 == 0 ? a2 : s2 + a2;
+      }
+      if (tig == 0 && cok) {
+        args.partial[at * Cout + c] = s1;
+        args.partial[stride + at * Cout + c] = s2;
+      }
+    } else if (has_bias) {  // one bias partial per (plane, sample, tile, channel)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        float v = 0.f;
+#pragma unroll
+        for (int w4 = 0; w4 < 4; ++w4) {
+          const float a1 = quad_sum(sbw[w4][j]);
+          v = w4 == 0 ? a1 : v + a1;
+        }
+        if (tig == 0 && cok) args.partial[j * stride + at * Cout + c] = v;
+      }
+    }
+  }
+  if (kMode == kStatsBwd) {  // dp in 16-byte pieces of a row (N % 8 == 0: a piece is in or out)
+    consumers_sync();
+    for (int e = threadIdx.x; e < 3 * P::kBC * 8; e += 256) {
+      const int row = e / 8, j = row / P::kBC, cl = row % P::kBC, col = (e % 8) * 8;
+      const int c = c0 + cl, n = n0 + col;
+      if (c < Cout && n < N)
+        *reinterpret_cast<uint4*>(args.dp + ((static_cast<size_t>(bi) * 3 + j) * Cout + c) * N +
+                                  n) = *reinterpret_cast<const uint4*>(out + row * P::kOutLd + col);
     }
   }
 }
@@ -1965,6 +2336,40 @@ cudaError_t launch_pd_wide(const PdArgs<T>& args, T* wt, cudaStream_t st) {
   }
 }
 
+// W^T and Wd^T into wt, W and Wd (bf16, K-major) after them, then C''s
+// certified pass 1 (the re-sums counted into `resums` where it is not null).
+cudaError_t launch_pd_cert(const PdArgs<vnk_bf16>& args, vnk_bf16* wt, int* resums,
+                           cudaStream_t st) {
+  using P = PdCert;
+  launch_transpose(args.w, args.wd, wt, args.Cin, args.Cout, st);
+  const int64_t total = static_cast<int64_t>(args.Cin) * args.Cout;
+  vnk_bf16* const wk = wt + 2 * total;  // the K-major copy after W^T, Wd^T
+  const int64_t need = (2 * total + kWideThreads - 1) / kWideThreads;
+  round_weights<<<static_cast<unsigned>(need < 4096 ? need : 4096), kWideThreads, 0, st>>>(
+      args.w, args.wd, wk, total);
+  const dim3 grid(args.Cout / P::kBC, args.T, args.B);
+  const int bytes = P::bytes(args.Cin);
+  return args.sub < kPts
+             ? launch_wide<P::kThreads>(pd_cert<true>, grid, bytes, st, args, wk, resums)
+             : launch_wide<P::kThreads>(pd_cert<false>, grid, bytes, st, args, wk, resums);
+}
+
+// W^T into wt, then pass 1 of S or S' on wgmma (pd_wgmma; p_out null or p).
+template <int kMode>
+cudaError_t launch_pd_wgmma(const PdArgs<vnk_bf16>& args, vnk_bf16* wt, vnk_bf16* p_out,
+                            cudaStream_t st) {
+  using P = PdWg;
+  launch_transpose(args.w, static_cast<const float*>(nullptr), wt, args.Cin, args.Cout, st);
+  CUtensorMap wt_map, x_map;
+  cudaError_t err = tensor_map(&wt_map, wt, args.Cout, args.Cin, 1, kWgDepth, kWgDepth);
+  if (err == cudaSuccess)
+    err = tensor_map(&x_map, args.x, args.N, args.Cin, args.B * 3, kWgDepth, kWgDepth);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((args.Cout + P::kBC - 1) / P::kBC, args.T, args.B);
+  return launch_wide<kWgThreads>(pd_wgmma<kMode>, grid, P::kBytes, st, args, wt_map, x_map,
+                                 p_out);
+}
+
 // Wide passes 2 and 3 and the split-K reduction: as products_bwd, with
 // `chunk` stages of pass 3 to a split.
 template <bool kTwo, typename T>
@@ -2126,25 +2531,43 @@ cudaError_t launch_walk(const PdArgs<T>& args, T* dx, float* dw_part, cudaStream
 // narrow passes, the wide ones (S, S', C'), or the channel walk (S's
 // "stream", S''s and B''s "fused"; Cin 1 or 2 only).
 // kWgmmaDesign: the wide passes with passes 2 and 3 on wgmma + TMA (the
-// bf16 S' and C' only, where wgmma_fits).
-enum Design { kNarrowDesign = 0, kWideDesign = 1, kWalkDesign = 2, kWgmmaDesign = 3 };
+// bf16 S' and C' only, where wgmma_fits).  kCertifiedDesign: C''s certified
+// pass 1 (pd_cert), then the wgmma passes 2 and 3 (bf16 C' where wgmma_fits
+// and Cin <= PdCert::kMaxCin).  kWgmmaPDesign: pass 1 of S and S' on
+// wgmma (pd_wgmma), S''s passes 2 and 3 as kWgmmaDesign's (bf16 S and S'
+// where wgmma_fits and a bias column covers whole tiles: group 0 or >= 64).
+enum Design {
+  kNarrowDesign = 0,
+  kWideDesign = 1,
+  kWalkDesign = 2,
+  kWgmmaDesign = 3,
+  kCertifiedDesign = 4,
+  kWgmmaPDesign = 5
+};
 
 // cudaErrorInvalidValue for a design code that is none of these, a design
 // the kernel does not have (`wide`, `walk`: whether it has the wide passes,
-// the walk; `wgmma`: whether the wgmma passes take this launch), or the
-// walk at a Cin it does not take; else cudaSuccess.
-inline cudaError_t check_design(int design, int Cin, bool wide, bool walk, bool wgmma = false) {
+// the walk; `wgmma`, `cert`, `wgmma_p`: whether the wgmma passes, the
+// certified pass 1, the wgmma pass 1 take this launch), or the walk at a
+// Cin it does not take; else
+// cudaSuccess.
+inline cudaError_t check_design(int design, int Cin, bool wide, bool walk, bool wgmma = false,
+                                bool cert = false, bool wgmma_p = false) {
   if (design == kNarrowDesign || (design == kWideDesign && wide)) return cudaSuccess;
   if (design == kWgmmaDesign) return wide && wgmma ? cudaSuccess : cudaErrorInvalidValue;
+  if (design == kCertifiedDesign) return cert ? cudaSuccess : cudaErrorInvalidValue;
+  if (design == kWgmmaPDesign) return wgmma_p ? cudaSuccess : cudaErrorInvalidValue;
   return design == kWalkDesign && walk && (Cin == 1 || Cin == 2) ? cudaSuccess
                                                                   : cudaErrorInvalidValue;
 }
 
 template <typename T>
 int stats_fwd(const void* x, const void* w, const void* pbias, void* s12,
-              void* partial, void* wt, int B, int Cin, int Cout, int N, int group,
+              void* partial, void* wt, void* p_out, int B, int Cin, int Cout, int N, int group,
               int design, void* stream) {
-  if (check_design(design, Cin, true, true) != cudaSuccess)
+  const bool wgmma_p = vnk_is_bf16<T>() && wgmma_fits(Cin, Cout, N, x, nullptr, nullptr) &&
+                       (group == 0 || group >= kPts);
+  if (check_design(design, Cin, true, true, false, false, wgmma_p) != cudaSuccess)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0 || Cout == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -2152,7 +2575,10 @@ int stats_fwd(const void* x, const void* w, const void* pbias, void* s12,
                                       nullptr, nullptr, nullptr, nullptr, nullptr,
                                       nullptr, partial, B, Cin, Cout, N, group, 0.f);
   cudaError_t err = cudaSuccess;
-  if (design == kWideDesign) {
+  if (design == kWgmmaPDesign) {
+    if constexpr (vnk_is_bf16<T>())
+      err = launch_pd_wgmma<kStatsFwd>(args, static_cast<T*>(wt), static_cast<T*>(p_out), st);
+  } else if (design == kWideDesign) {
     err = launch_pd_wide<kStatsFwd>(args, static_cast<T*>(wt), st);
   } else if (design == kWalkDesign) {
     err = launch_walk<kStatsFwd>(args, static_cast<T*>(nullptr), nullptr, st);
@@ -2167,10 +2593,11 @@ int stats_fwd(const void* x, const void* w, const void* pbias, void* s12,
 template <typename T>
 int stats_bwd(const void* x, const void* w, const void* pbias, const void* c1,
               const void* c2, void* dx, void* dw, void* dpb, void* dp,
-              void* partial, void* dw_part, void* wt, int B, int Cin, int Cout, int N,
-              int S, int chunk, int group, int design, void* stream) {
+              void* partial, void* dw_part, void* wt, void* p_out, int B, int Cin, int Cout,
+              int N, int S, int chunk, int group, int design, void* stream) {
   const bool wgmma = vnk_is_bf16<T>() && wgmma_fits(Cin, Cout, N, x, dp, nullptr);
-  if (check_design(design, Cin, true, true, wgmma) != cudaSuccess)
+  const bool wgmma_p = wgmma && (group == 0 || group >= kPts);
+  if (check_design(design, Cin, true, true, wgmma, false, wgmma_p) != cudaSuccess)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0 || Cout == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -2184,12 +2611,20 @@ int stats_bwd(const void* x, const void* w, const void* pbias, const void* c1,
     if (pbias != nullptr) reduce_bias(args, 0, 3, static_cast<float*>(dpb), st);
     vnk_reduce_rows(part, static_cast<float*>(dw), 1, B * args.T,
                     static_cast<int64_t>(Cout) * Cin, st);
-  } else if (design == kWideDesign || design == kWgmmaDesign) {
-    cudaError_t err = launch_pd_wide<kStatsBwd>(args, static_cast<T*>(wt), st);
+  } else if (design == kWideDesign || design == kWgmmaDesign || design == kWgmmaPDesign) {
+    cudaError_t err = cudaSuccess;
+    if constexpr (vnk_is_bf16<T>()) {
+      if (design == kWgmmaPDesign)
+        err = launch_pd_wgmma<kStatsBwd>(args, static_cast<T*>(wt), static_cast<T*>(p_out), st);
+      else
+        err = launch_pd_wide<kStatsBwd>(args, static_cast<T*>(wt), st);
+    } else {
+      err = launch_pd_wide<kStatsBwd>(args, static_cast<T*>(wt), st);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
     if (pbias != nullptr) reduce_bias(args, 0, 3, static_cast<float*>(dpb), st);
     if constexpr (vnk_is_bf16<T>()) {
-      if (design == kWgmmaDesign)
+      if (design == kWgmmaDesign || design == kWgmmaPDesign)
         return static_cast<int>(products_wgmma<false>(
             args.x, static_cast<const T*>(wt), args.dp, nullptr, static_cast<T*>(dx),
             static_cast<float*>(dw), static_cast<float*>(dw_part), B, Cin, Cout, N, S, chunk, st));
@@ -2217,10 +2652,12 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
               const void* dbias, const void* a, const void* b,
               const void* w_out, const void* g, void* dx, void* dw2,
               void* sums, void* dpdb, void* dp, void* dd, void* partial,
-              void* dw_part, void* wt, int B, int Cin, int Cout, int N, int S,
+              void* dw_part, void* wt, void* resums, int B, int Cin, int Cout, int N, int S,
               int chunk, int group, int design, float one_minus_ns, void* stream) {
   const bool wgmma = vnk_is_bf16<T>() && wgmma_fits(Cin, Cout, N, x, dp, dd);
-  if (check_design(design, Cin, kMode == kProjBwd, kMode == kLayerBwd, wgmma) != cudaSuccess)
+  const bool cert = kMode == kProjBwd && wgmma && Cin <= PdCert::kMaxCin;
+  if (check_design(design, Cin, kMode == kProjBwd, kMode == kLayerBwd, wgmma, cert) !=
+      cudaSuccess)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0 || Cout == 0) return 0;
   constexpr int nqc = channel_sums<kMode>();
@@ -2241,13 +2678,21 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
     }
   }
   if constexpr (kMode == kProjBwd) {
-    if (design == kWideDesign || design == kWgmmaDesign) {
-      cudaError_t err = launch_pd_wide<kMode>(args, static_cast<T*>(wt), st);
+    if (design == kWideDesign || design == kWgmmaDesign || design == kCertifiedDesign) {
+      cudaError_t err = cudaSuccess;
+      if constexpr (vnk_is_bf16<T>()) {
+        if (design == kCertifiedDesign)
+          err = launch_pd_cert(args, static_cast<T*>(wt), static_cast<int*>(resums), st);
+        else
+          err = launch_pd_wide<kMode>(args, static_cast<T*>(wt), st);
+      } else {
+        err = launch_pd_wide<kMode>(args, static_cast<T*>(wt), st);
+      }
       if (err != cudaSuccess) return static_cast<int>(err);
       vnk_reduce_rows(args.partial, static_cast<float*>(sums), nqc, B * args.T, Cout, st);
       if (pbias != nullptr) reduce_bias(args, nqc, 6, static_cast<float*>(dpdb), st);
       if constexpr (vnk_is_bf16<T>()) {
-        if (design == kWgmmaDesign)
+        if (design == kWgmmaDesign || design == kCertifiedDesign)
           return static_cast<int>(products_wgmma<true>(
               args.x, static_cast<const T*>(wt), args.dp, args.dd, static_cast<T*>(dx),
               static_cast<float*>(dw2), static_cast<float*>(dw_part), B, Cin, Cout, N, S, chunk,
@@ -2281,48 +2726,32 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
 // Each takes `design` (Design: 0 the narrow passes; 1 the wide ones, S, S'
 // and C'; 2 the channel walk, S, S' and B' at Cin 1 or 2 only; 3 the wide
 // passes with passes 2 and 3 on wgmma, bf16 S' and C' at Cin, Cout
-// multiples of 64, N % 8 == 0 and 16-byte aligned x, dp, dd; any other
-// code, or a design the kernel lacks, returns cudaErrorInvalidValue); the
-// wide passes take wt, a (1 or 2, Cin, Cout) scratch in the activations'
-// type, and S' and C' `chunk`, the pass-3 stages (16 points float32, 32
-// bf16, 64 for the wgmma passes) of each of the S splits.
-
-// The certificate probe (certify_probe) of p = W x (+ bias, per sample:
-// (B, 3, Cout) bf16, or null) for bf16 x (B, 3, Cin, N): wt a (Cin, Cout)
-// bf16 scratch for W^T; v, s (B, 3, Cout, N) float32 and cert (B, 3, Cout,
-// N) bytes out.  No design runs it and no count records it.
-VNK_EXPORT int vn_layer_certify_probe(const void* x, const void* w, const void* bias, void* wt,
-                                      void* v, void* s, void* cert, int B, int Cin, int Cout,
-                                      int N, float k_margin, void* stream) {
-  if (B == 0 || N == 0 || Cout == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  vnk_bf16* wtb = static_cast<vnk_bf16*>(wt);
-  launch_transpose(static_cast<const float*>(w), nullptr, wtb, Cin, Cout, st);
-  using P = CertProbe;
-  const dim3 grid((Cout + P::kBC - 1) / P::kBC, tiles(N), B);
-  return static_cast<int>(launch_wide<P::kThreads>(
-      certify_probe, grid, P::kBytes, st, static_cast<const vnk_bf16*>(x), wtb,
-      static_cast<const vnk_bf16*>(bias), static_cast<float*>(v), static_cast<float*>(s),
-      static_cast<unsigned char*>(cert), Cin, Cout, N, k_margin, aligned16(wtb, Cout, 8),
-      aligned16(x, N, 8)));
-}
+// multiples of 64, N % 8 == 0 and 16-byte aligned x, dp, dd; 4 the
+// certified pass 1 and the wgmma passes, bf16 C' there at Cin <= 256; 5
+// pass 1 on wgmma (and S''s passes 2 and 3 too), bf16 S and S' there with
+// bias columns of whole tiles; any other code, or a design the kernel
+// lacks, returns cudaErrorInvalidValue); the wide passes take wt, a (1 or
+// 2, Cin, Cout) scratch in the activations' type, and S' and C' `chunk`,
+// the pass-3 stages (16 points float32, 32 bf16, 64 for the wgmma passes)
+// of each of the S splits.
 
 // S: s12 (2, Cout) = (s1, s2); partial with nq = 2; wt unused unless wide
-// (a (Cin, Cout) scratch).
+// (a (Cin, Cout) scratch).  p_out (S and S'): null, or (B, 3, Cout, N)
+// bf16 that the wgmma pass 1 (design 5) fills with p; the others leave it.
 VNK_EXPORT int vn_layer_stats_fwd(const void* x, const void* w,
                                   const void* pbias, void* s12, void* partial,
-                                  void* wt, int B, int Cin, int Cout, int N, int group,
-                                  int design, void* stream) {
-  return stats_fwd<float>(x, w, pbias, s12, partial, wt, B, Cin, Cout, N, group, design,
+                                  void* wt, void* p_out, int B, int Cin, int Cout, int N,
+                                  int group, int design, void* stream) {
+  return stats_fwd<float>(x, w, pbias, s12, partial, wt, p_out, B, Cin, Cout, N, group, design,
                           stream);
 }
 
 VNK_EXPORT int vn_layer_stats_fwd_bf16(const void* x, const void* w,
                                        const void* pbias, void* s12,
-                                       void* partial, void* wt, int B, int Cin, int Cout,
-                                       int N, int group, int design, void* stream) {
-  return stats_fwd<vnk_bf16>(x, w, pbias, s12, partial, wt, B, Cin, Cout, N, group, design,
-                             stream);
+                                       void* partial, void* wt, void* p_out, int B, int Cin,
+                                       int Cout, int N, int group, int design, void* stream) {
+  return stats_fwd<vnk_bf16>(x, w, pbias, s12, partial, wt, p_out, B, Cin, Cout, N, group,
+                             design, stream);
 }
 
 // S': dx (B, 3, Cin, N), dw (Cout, Cin), dpb (3, B, G, Cout) or null
@@ -2332,10 +2761,10 @@ VNK_EXPORT int vn_layer_stats_bwd(const void* x, const void* w,
                                   const void* pbias, const void* c1,
                                   const void* c2, void* dx, void* dw,
                                   void* dpb, void* dp, void* partial,
-                                  void* dw_part, void* wt, int B, int Cin, int Cout,
-                                  int N, int S, int chunk, int group, int design,
+                                  void* dw_part, void* wt, void* p_out, int B, int Cin,
+                                  int Cout, int N, int S, int chunk, int group, int design,
                                   void* stream) {
-  return stats_bwd<float>(x, w, pbias, c1, c2, dx, dw, dpb, dp, partial, dw_part, wt,
+  return stats_bwd<float>(x, w, pbias, c1, c2, dx, dw, dpb, dp, partial, dw_part, wt, p_out,
                           B, Cin, Cout, N, S, chunk, group, design, stream);
 }
 
@@ -2343,11 +2772,11 @@ VNK_EXPORT int vn_layer_stats_bwd_bf16(const void* x, const void* w,
                                        const void* pbias, const void* c1,
                                        const void* c2, void* dx, void* dw,
                                        void* dpb, void* dp, void* partial,
-                                       void* dw_part, void* wt, int B, int Cin,
-                                       int Cout, int N, int S, int chunk, int group,
+                                       void* dw_part, void* wt, void* p_out, int B,
+                                       int Cin, int Cout, int N, int S, int chunk, int group,
                                        int design, void* stream) {
-  return stats_bwd<vnk_bf16>(x, w, pbias, c1, c2, dx, dw, dpb, dp, partial,
-                             dw_part, wt, B, Cin, Cout, N, S, chunk, group, design, stream);
+  return stats_bwd<vnk_bf16>(x, w, pbias, c1, c2, dx, dw, dpb, dp, partial, dw_part, wt,
+                             p_out, B, Cin, Cout, N, S, chunk, group, design, stream);
 }
 
 // B': dx, dw2 (2, Cout, Cin) = (dW, dWd), dab (2, Cout) = (dA, dB),
@@ -2364,7 +2793,7 @@ VNK_EXPORT int vn_layer_fused_bwd(
     float one_minus_ns, void* stream) {
   return layer_bwd<kLayerBwd, float>(x, w, wd, pbias, dbias, a, b, nullptr, g, dx,
                                      dw2, dab, dpdb, dp, dd, partial, dw_part, nullptr,
-                                     B, Cin, Cout, N, S, 0, group, design, one_minus_ns,
+                                     nullptr, B, Cin, Cout, N, S, 0, group, design, one_minus_ns,
                                      stream);
 }
 
@@ -2376,20 +2805,22 @@ VNK_EXPORT int vn_layer_fused_bwd_bf16(
     float one_minus_ns, void* stream) {
   return layer_bwd<kLayerBwd, vnk_bf16>(x, w, wd, pbias, dbias, a, b, nullptr, g,
                                         dx, dw2, dab, dpdb, dp, dd, partial,
-                                        dw_part, nullptr, B, Cin, Cout, N, S, 0, group,
+                                        dw_part, nullptr, nullptr, B, Cin, Cout, N, S, 0, group,
                                         design, one_minus_ns, stream);
 }
 
 // C': as B' with w_out (Cout,) and g (B, 3, 1, N); dabo (3, Cout) =
-// (dA, dB, dw_out); partial with nqc = 3, nqb = 6.
+// (dA, dB, dw_out); partial with nqc = 3, nqb = 6.  resums: null, or one
+// int to which the certified pass 1 (design 4) adds the number of p, d
+// elements it summed again (the other designs leave it).
 VNK_EXPORT int vn_layer_fused_project_bwd(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* w_out,
     const void* g, void* dx, void* dw2, void* dabo, void* dpdb, void* dp,
-    void* dd, void* partial, void* dw_part, void* wt, int B, int Cin, int Cout,
+    void* dd, void* partial, void* dw_part, void* wt, void* resums, int B, int Cin, int Cout,
     int N, int S, int chunk, int group, int design, float one_minus_ns, void* stream) {
   return layer_bwd<kProjBwd, float>(x, w, wd, pbias, dbias, a, b, w_out, g, dx,
-                                    dw2, dabo, dpdb, dp, dd, partial, dw_part, wt, B,
+                                    dw2, dabo, dpdb, dp, dd, partial, dw_part, wt, resums, B,
                                     Cin, Cout, N, S, chunk, group, design, one_minus_ns,
                                     stream);
 }
@@ -2398,10 +2829,10 @@ VNK_EXPORT int vn_layer_fused_project_bwd_bf16(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* w_out,
     const void* g, void* dx, void* dw2, void* dabo, void* dpdb, void* dp,
-    void* dd, void* partial, void* dw_part, void* wt, int B, int Cin, int Cout,
+    void* dd, void* partial, void* dw_part, void* wt, void* resums, int B, int Cin, int Cout,
     int N, int S, int chunk, int group, int design, float one_minus_ns, void* stream) {
   return layer_bwd<kProjBwd, vnk_bf16>(x, w, wd, pbias, dbias, a, b, w_out, g,
                                        dx, dw2, dabo, dpdb, dp, dd, partial,
-                                       dw_part, wt, B, Cin, Cout, N, S, chunk, group,
+                                       dw_part, wt, resums, B, Cin, Cout, N, S, chunk, group,
                                        design, one_minus_ns, stream);
 }

@@ -1,6 +1,8 @@
 // Hopper's warpgroup tensor-core products fed by the Tensor Memory
 // Accelerator: passes 2 and 3 of the wide bf16 S' and C' ("wgmma" design,
-// vn_layer_bwd.cu; ops/vn_layer_fused.py::wide_bf16_design).
+// vn_layer_bwd.cu; ops/vn_layer_fused.py::wide_bf16_design), and the
+// product of pass 1 of S and S' ("wgmma_p" design, pd_wgmma in
+// vn_layer_bwd.cu, whose epilogue needs the layer's arguments).
 //
 // A block is three warpgroups' worth of warps: two consumer warpgroups
 // (warps 0-7; wgmma needs whole, aligned warpgroups), each owning 64 rows
@@ -172,9 +174,32 @@ __device__ __forceinline__ void wgmma_wait_all() {
 
 // Keep the compiler from moving accumulator reads or writes across the
 // asynchronous products.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int kN>
+__device__ __forceinline__ void fence_acc(float (&d)[kN]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, float32) += A (64 x 16) B (16 x 64), both MN-major (A's rows
+// and B's columns contiguous: W^T and x in pass 1 of S and S'): bf16
+// operands, exact products summed into float32.
+__device__ __forceinline__ void wgmma_m64n64k16_tt(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 // d (64 x 128, float32) += A (64 x 16, K-major) B (16 x 128): bf16 operands,

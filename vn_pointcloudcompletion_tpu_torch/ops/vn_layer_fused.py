@@ -80,19 +80,15 @@ _PROJECT = CudaKernel(
     [_P] * 11 + [_I] * 6 + [ctypes.c_float, _P],
 )
 _STATS = CudaKernel(
-    "vn_layer_bwd.cu", "vn_layer_stats_fwd", [_P] * 6 + [_I] * 6 + [_P])
+    "vn_layer_bwd.cu", "vn_layer_stats_fwd", [_P] * 7 + [_I] * 6 + [_P])
 _STATS_BWD = CudaKernel(
-    "vn_layer_bwd.cu", "vn_layer_stats_bwd", [_P] * 12 + [_I] * 8 + [_P])
+    "vn_layer_bwd.cu", "vn_layer_stats_bwd", [_P] * 13 + [_I] * 8 + [_P])
 _LAYER_BWD = CudaKernel(
     "vn_layer_bwd.cu", "vn_layer_fused_bwd",
     [_P] * 16 + [_I] * 7 + [ctypes.c_float, _P])
 _PROJECT_BWD = CudaKernel(
     "vn_layer_bwd.cu", "vn_layer_fused_project_bwd",
-    [_P] * 18 + [_I] * 8 + [ctypes.c_float, _P])
-# The certificate of a tensor-core pass 1 for bf16 C' (a probe for
-# chip_smoke.py phase 3: on no path, so uncounted)
-_CERTIFY = CudaKernel("vn_layer_bwd.cu", "vn_layer_certify_probe",
-                      [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P], counted=False)
+    [_P] * 19 + [_I] * 8 + [ctypes.c_float, _P])
 # The same entry points in group=S mode, counted apart (launch_counts()
 # keys "<symbol>[group]"): the attention decoder's pair folds.
 _GROUPED = {k.symbol: CudaKernel(k.source, k.symbol, k.argtypes, f"{k.symbol}[group]")
@@ -361,9 +357,9 @@ def certified_bf16_mask(v, s, c_in: int):
     2) s + u |v| (1 + u) of v, inside [v - M, v + M]; rounding to float32 and
     then to bf16 is monotone, so fl(y) rounds to the bf16 value of the
     interval's ends when they agree; so does any sum within gamma_n s of the
-    exact one (random orders, float64).  The plain version of the
-    certificate the tensor-core probe ``vn_layer_certify_probe`` computes
-    (``csrc/vn_layer_bwd.cu`` certify_probe), op for op."""
+    exact one (random orders, float64).  The a-priori certificate, which
+    bounds each step's accumulator by s: C''s certified pass 1 takes the
+    tighter :func:`posterior_bf16_mask`, never wider than this one."""
     k = torch.tensor(certificate_margin(c_in), dtype=torch.float32, device=v.device)
     v, s = v.float(), s.float()
     m = k * s + 2.0 ** -23 * v.abs()
@@ -372,32 +368,69 @@ def certified_bf16_mask(v, s, c_in: int):
     return lo == hi
 
 
+POSTERIOR_K = 2.0 ** -18  # 64 u: k of the a-posteriori margin (posterior_bf16_mask)
+POSTERIOR_V = 2.0 ** -23 + 2.0 ** -42  # its coefficient of |v|, float32-exact
+
+
+def posterior_bf16_mask(v, s, a):
+    """The a-posteriori certificate of a tensor-core sum: True where ``v -
+    M`` and ``v + M`` round to the same bf16 value (bits), ``M = 2^-18 (a +
+    s) + (2^-23 + 2^-42) |v|`` in float32, with ``v`` the float32 sum of
+    the k16 steps plus the bias, ``s`` the sum of |products| and ``a`` the
+    sum over the steps of |acc|, each step's accumulator read before it.
+
+    With u = 2^-24, step j adding products of magnitudes sigma_j (sum s) to
+    the accumulator a_j:
+
+    - the tensor cores' step (``certificate_margin``'s model: the addends
+      aligned to the largest exponent E, 2^E <= |a_j| + sigma_j, truncated
+      with at least 24 bits below it, then the sum truncated to float32)
+      errs by at most 17 * 2^(E - 23) + 2^-23 |a_{j+1}| <= 36 u (|a_j| +
+      sigma_j) (1 + delta); a step split into two k8 halves by the hardware,
+      at most 40 u;
+    - the in-order fmaf sum adds each product with one rounding, at most u
+      times the partial sum it forms; over step j's (at most) 16 products
+      the partial sums lie within |a_j| + sigma_j of 0, up to the errors
+      made so far: at most 16 u (|a_j| + sigma_j) (1 + delta) a step;
+
+    so the two sums of the products part by at most 56 u (a + s) (1 + delta),
+    delta of order n u (the errors carried from step to step, s itself
+    summed by the tensor cores and so at most 40 u n / 16 s short, a's
+    float32 sum): under 2^-10 for n up to 4096.  Each side then adds the
+    bias with one rounding, at most u of its result: 2 u |v| (1 + u) more.
+    64 u (a + s) takes 56 u and the delta with room for M's own three
+    float32 roundings, and 2^-42 |v| covers the bias term's (1 + u) and the
+    roundings of its product and of M.  The in-order result y is a float32
+    in [v - M, v + M]; rounding is monotone, so fl(v - M) <= y <= fl(v +
+    M), and when those round to one bf16 value y rounds to it too.
+
+    Never wider than :func:`certificate_margin`'s a-priori margin for the
+    same sums where |v| <= s: a <= (ceil(n / 16) - 1) s, so 64 u (a + s) <=
+    64 u ceil(n / 16) s < 2 (gamma_n + tau_n) s.  The plain version of the
+    certificate ``csrc/vn_layer_bwd.cu`` computes, op for op."""
+    k = torch.tensor(POSTERIOR_K, dtype=torch.float32, device=v.device)
+    kv = torch.tensor(POSTERIOR_V, dtype=torch.float32, device=v.device)
+    v = v.float()
+    m = k * (a.float() + s.float()) + kv * v.abs()
+    lo = (v - m).to(torch.bfloat16).view(torch.int16)
+    hi = (v + m).to(torch.bfloat16).view(torch.int16)
+    return lo == hi
+
+
 def certify_probe(x, w, bias=None):
     """(v, s, certified) of p = W x (+ bias) for bf16 x (B, 3, C_in, N), w
     (C_out, C_in) and a per-sample bias (B, 3, C_out, 1): v the float32 sum
-    plus the bias, s the sum of |products|, certified the mask of
-    :func:`certified_bf16_mask`.  On a CUDA tensor the tensor cores sum
-    (``vn_layer_certify_probe``, mma.sync k16 steps; no path launches it);
-    on a CPU tensor a float32 matrix product stands in."""
-    c_in = x.shape[2]
-    if not x.is_cuda:
-        w16 = w.to(torch.bfloat16).float()
-        v = torch.matmul(w16, x.float())
-        if bias is not None:
-            v = v + bias.float()
-        s = torch.matmul(w16.abs(), x.float().abs())
-        return v, s, certified_bf16_mask(v, s, c_in)
-    (x, w, _, bias, *_), (bsz, c_in, c_out, n) = _prepare(
-        "vn_layer_certify_probe", x, w, pbias=bias)
-    if not _bf16(x):
-        raise TypeError("vn_layer_certify_probe takes bf16 x")
-    v = _empty(x, bsz, 3, c_out, n)
-    s = torch.empty_like(v)
-    cert = torch.empty(v.shape, device=x.device, dtype=torch.uint8)
-    wt = _empty(x, c_in, c_out, dtype=x.dtype)
-    _CERTIFY(x, x.data_ptr(), w.data_ptr(), _ptr(bias), wt.data_ptr(), v.data_ptr(),
-             s.data_ptr(), cert.data_ptr(), bsz, c_in, c_out, n, certificate_margin(c_in))
-    return v, s, cert.bool()
+    plus the bias (a float32 matrix product standing in for another
+    summation order than the in-order one), s the sum of |products|,
+    certified the mask of :func:`certified_bf16_mask`.  Plain PyTorch on
+    any device; C''s certified pass 1 counts its own re-sums
+    (:func:`layer_project_bwd`'s ``resums``)."""
+    w16 = w.to(torch.bfloat16).float()
+    v = torch.matmul(w16, x.float())
+    if bias is not None:
+        v = v + bias.float()
+    s = torch.matmul(w16.abs(), x.float().abs())
+    return v, s, certified_bf16_mask(v, s, x.shape[2])
 
 
 # ------------------------------------------------------------- launches
@@ -461,7 +494,9 @@ FUSED_MAX_CIN = 2  # the widest input of the channel walk (S, S', B') and B's st
 # The code of each design name in the entry points of csrc/vn_layer_bwd.cu
 # (S, S', C', B'; its enum Design): the channel walk is S's "stream" and
 # S''s and B''s "fused"
-DESIGN_CODES = {"narrow": 0, "wide": 1, "stream": 2, "fused": 2, "wgmma": 3}
+DESIGN_CODES = {"narrow": 0, "wide": 1, "stream": 2, "fused": 2, "wgmma": 3, "certified": 4,
+                "wgmma_p": 5}
+WGMMA_DESIGNS = ("wgmma", "certified", "wgmma_p")  # the designs with the wgmma passes 2, 3
 WIDE_F32_BLOCK = 32  # channels a block of the float32 wide C (csrc ProjFma::kBC)
 WIDE_BF16_BLOCK = 64  # ... of the bf16 one (csrc ProjMma::kBC)
 
@@ -573,10 +608,41 @@ def wide_bf16_design(c_in: int, c_out: int, n: int, aligned: bool = True) -> str
     aligned (n % 8 == 0 and ``aligned`` bases), as the tensor maps need
     (final_conv.1's 256 -> 256, vn_folding{1,2}.1's 256 -> 128); else the
     wide design's ``mma.sync`` passes (``"wide"``).  Pass 1 is the wide
-    design's in both.  Either is a hand-written kernel; a CUDA launch takes
-    the one chosen here or raises."""
+    design's in both; :func:`pass1_bf16_design` moves it to the tensor
+    cores where the wgmma passes run.  Either is a hand-written kernel; a
+    CUDA launch takes the one chosen here or raises."""
     fits = c_in % WGMMA_CHANNELS == 0 and c_out % WGMMA_CHANNELS == 0 and n % 8 == 0
     return "wgmma" if fits and aligned else "wide"
+
+
+CERTIFIED_MAX_CIN = 256  # the deepest resident tile of C''s certified pass 1 (csrc PdCert)
+
+
+def pass1_bf16_design(kernel: str, c_in: int, c_out: int, n: int, aligned: bool = True,
+                      group: int = 0) -> str:
+    """The design of a wide bf16 S, S' or C' (``kernel`` "S", "S'" or
+    "C'"), by its pass 1, where :func:`wide_bf16_design` gives the wgmma
+    passes: C' ``"certified"`` at c_in <= CERTIFIED_MAX_CIN (p and d summed
+    on the tensor cores, mma.sync, each element under an a-posteriori
+    certificate that its bf16 rounding is the in-order sum's,
+    :func:`posterior_bf16_mask`; the rest, ~9% on the main path's inputs,
+    summed again in input-channel order from a resident tile: the plain
+    version's bits), then the wgmma passes 2 and 3; S and S' ``"wgmma_p"``
+    (p on wgmma fed by TMA, csrc pd_wgmma; S' then the wgmma passes 2 and
+    3) where a bias column covers whole 64-point tiles (group 0 or >= 64).
+    Elsewhere S takes ``"wide"`` (pd_wide_mma), S' and C' the design of
+    :func:`wide_bf16_design` (pass 1 the wide one: pd_wide_mma,
+    pd_wide_fma).  S and S' choose alike, so S's p is S''s.  Each is a
+    hand-written kernel; a CUDA launch takes the one chosen here or
+    raises."""
+    passes = wide_bf16_design(c_in, c_out, n, aligned)
+    if passes != "wgmma":
+        return "wide"
+    if kernel == "C'":
+        return "certified" if c_in <= CERTIFIED_MAX_CIN else passes
+    if group and group < TILE:
+        return "wide" if kernel == "S" else passes
+    return "wgmma_p"
 
 
 def _aligned(*tensors) -> bool:
@@ -614,12 +680,14 @@ def wide_split(c_in: int, c_out: int, bsz: int, n: int, two: bool, bf16: bool,
 def _design_args(x, design, c_in, c_out, bsz, n, two):
     """(W^T scratch of the wide passes or None, dw_part's splits, pass 3's
     stages a split (0 for the narrow passes)) for S' (``two`` False) or C'
-    in ``design`` ("wide", "wgmma" or "narrow") at these widths."""
+    in ``design`` ("wide", "narrow" or one of WGMMA_DESIGNS) at these widths."""
     if design == "narrow":
         return None, _split_k(x, c_in, c_out, bsz * 3 * n), 0
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    s, chunk = wide_split(c_in, c_out, bsz, n, two, _bf16(x), sms, design)
-    wt = _empty(x, 2 if two else 1, c_in, c_out, dtype=x.dtype)  # W^T (and Wd^T)
+    passes = "wgmma" if design in WGMMA_DESIGNS else design
+    s, chunk = wide_split(c_in, c_out, bsz, n, two, _bf16(x), sms, passes)
+    # W^T (and Wd^T); the certified pass 1 keeps W and Wd K-major after them
+    wt = _empty(x, 4 if design == "certified" else 2 if two else 1, c_in, c_out, dtype=x.dtype)
     return wt, s, chunk
 
 
@@ -671,20 +739,35 @@ def _launch(kernel: CudaKernel, x, w, wd, pbias, dbias, a, b, w_out,
     return out
 
 
-def stats_fwd(x, w, pbias, group: int = 0):
-    """Kernel S on a CUDA tensor, its plain version on a CPU tensor."""
+def _p_out(p_out, x, c_out):
+    """The optional p of S's and S''s wgmma pass 1: None, or a bf16 tensor
+    (B, 3, C_out, N) on x's card."""
+    if p_out is not None and (p_out.dtype != torch.bfloat16 or p_out.device != x.device or
+                              p_out.shape != (x.shape[0], 3, c_out, x.shape[3]) or
+                              not p_out.is_contiguous()):
+        raise ValueError("p_out: a contiguous bf16 (B, 3, C_out, N) tensor on the card of x")
+    return _ptr(p_out)
+
+
+def stats_fwd(x, w, pbias, group: int = 0, p_out=None):
+    """Kernel S on a CUDA tensor, its plain version on a CPU tensor.
+    ``p_out`` (the card only; no path passes it): a tensor that the wgmma
+    pass 1 (design "wgmma_p") fills with p, bf16, so that a test can hold
+    S's p to S''s; the other designs leave it."""
     if not x.is_cuda:
         return reference_stats(x, w, pbias, group)
     (x, w, _, pbias, *_), (bsz, c_in, c_out, n) = _prepare(
         "vn_layer_stats", x, w, pbias=pbias, group=group)
     design = stats_design(c_in, c_out)
+    if design == "wide" and _bf16(x):
+        design = pass1_bf16_design("S", c_in, c_out, n, _aligned(x), group)
     s12 = _empty(x, 2, c_out)
     partial = _empty(x, 2, bsz, -(-n // TILE), c_out)
-    wt = _empty(x, c_in, c_out, dtype=x.dtype) if design == "wide" else None  # W^T
+    wt = None if design in ("narrow", "stream") else _empty(x, c_in, c_out, dtype=x.dtype)  # W^T
     _counted(_STATS, group, _bf16(x))(x, x.data_ptr(), w.data_ptr(), _ptr(pbias),
-                                      s12.data_ptr(), partial.data_ptr(), _ptr(wt), bsz,
-                                      c_in, c_out, n, group, DESIGN_CODES[design],
-                                      variant=design)
+                                      s12.data_ptr(), partial.data_ptr(), _ptr(wt),
+                                      _p_out(p_out, x, c_out), bsz, c_in, c_out, n, group,
+                                      DESIGN_CODES[design], variant=design)
     return s12[0], s12[1]
 
 
@@ -697,16 +780,16 @@ def _bias_grads(out, nq: int, bsz: int, c_out: int, n: int, group: int, dtype):
     return out.permute(0, 2, 1, 4, 3).to(dtype).unbind(0)
 
 
-def stats_bwd(x, w, pbias, c1, c2, group: int = 0):
+def stats_bwd(x, w, pbias, c1, c2, group: int = 0, p_out=None):
     """Kernel S' on a CUDA tensor, its plain version on a CPU tensor:
-    (dx, dw, dpbias)."""
+    (dx, dw, dpbias).  ``p_out``: as :func:`stats_fwd`'s."""
     if not x.is_cuda:
         return reference_stats_bwd(x, w, pbias, c1, c2, group)
     (x, w, _, pbias, _, c1, c2, *_), (bsz, c_in, c_out, n) = _prepare(
         "vn_layer_stats backward", x, w, pbias=pbias, a=c1, b=c2, group=group)
     design = stats_bwd_design(c_in, c_out)
     if design == "wide" and _bf16(x):
-        design = wide_bf16_design(c_in, c_out, n, _aligned(x))
+        design = pass1_bf16_design("S'", c_in, c_out, n, _aligned(x), group)
     spt, cols = _bias_rows(n, group)
     dx, dw = torch.empty_like(x), _empty(x, c_out, c_in)
     dpb = None if pbias is None else _empty(x, 3, bsz, cols, c_out)
@@ -720,22 +803,26 @@ def stats_bwd(x, w, pbias, c1, c2, group: int = 0):
         dw_part = _empty(x, s, c_out, c_in)
     _counted(_STATS_BWD, group, _bf16(x))(
         x, *[_ptr(t) for t in (x, w, pbias, c1, c2, dx, dw, dpb, dp, partial, dw_part, wt)],
-        bsz, c_in, c_out, n, s, chunk, group, DESIGN_CODES[design], variant=design)
+        _p_out(p_out, x, c_out), bsz, c_in, c_out, n, s, chunk, group, DESIGN_CODES[design],
+        variant=design)
     if dpb is not None:
         (dpb,) = _bias_grads(dpb, 3, bsz, c_out, n, group, pbias.dtype)
     return dx, dw, dpb
 
 
 def _layer_bwd_launch(kernel, x, w, wd, pbias, dbias, a, b, w_out, g,
-                      negative_slope, group):
-    """Kernels B' and C': (dx, dw, dwd, dpbias, ddbias, da, db[, dwo])."""
+                      negative_slope, group, resums=None):
+    """Kernels B' and C': (dx, dw, dwd, dpbias, ddbias, da, db[, dwo]);
+    ``resums`` (C'): None, or an int32 tensor of one element on the card to
+    which the certified pass 1 adds the number of p, d elements it summed
+    again."""
     (x, w, wd, pbias, dbias, a, b, w_out, g), (bsz, c_in, c_out, n) = _prepare(
         kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out, g, group)
     project = w_out is not None
-    if project:  # C' chooses its passes (wide, wgmma or narrow), B' fused or narrow
+    if project:  # C' chooses its passes (wide, wgmma, certified or narrow), B' fused or narrow
         design = backward_design(c_in, c_out)
         if design == "wide" and _bf16(x):
-            design = wide_bf16_design(c_in, c_out, n, _aligned(x))
+            design = pass1_bf16_design("C'", c_in, c_out, n, _aligned(x), group)
         wt, s, chunk = _design_args(x, design, c_in, c_out, bsz, n, two=True)
     else:
         design = layer_bwd_design(c_in)
@@ -758,8 +845,11 @@ def _layer_bwd_launch(kernel, x, w, wd, pbias, dbias, a, b, w_out, g,
         ptrs.append(w_out.data_ptr())
     ptrs += [_ptr(t) for t in (g, dx, dw2, sums, dpdb, dp, dd, partial, dw_part)]
     if project:
+        if resums is not None and (resums.dtype != torch.int32 or resums.numel() != 1
+                                   or resums.device != x.device):
+            raise ValueError("resums: one int32 element on the card of x")
         _counted(kernel, group, _bf16(x))(
-            x, *ptrs, _ptr(wt), bsz, c_in, c_out, n, s, chunk, group,
+            x, *ptrs, _ptr(wt), _ptr(resums), bsz, c_in, c_out, n, s, chunk, group,
             DESIGN_CODES[design], 1 - negative_slope, variant=design)
     else:
         _counted(kernel, group, _bf16(x))(x, *ptrs, bsz, c_in, c_out, n, s, group,
@@ -780,13 +870,15 @@ def layer_bwd(x, w, wd, pbias, dbias, a, b, g, negative_slope: float, group: int
 
 
 def layer_project_bwd(x, w, wd, pbias, dbias, a, b, w_out, g,
-                      negative_slope: float, group: int = 0):
-    """Kernel C' on a CUDA tensor, its plain version on a CPU tensor."""
+                      negative_slope: float, group: int = 0, resums=None):
+    """Kernel C' on a CUDA tensor, its plain version on a CPU tensor.
+    ``resums``: see :func:`_layer_bwd_launch` (the card only; no path
+    passes it)."""
     if not x.is_cuda:
         return reference_layer_project_bwd(
             x, w, wd, pbias, dbias, a, b, w_out, g, negative_slope, group)
     return _layer_bwd_launch(_PROJECT_BWD, x, w, wd, pbias, dbias, a, b, w_out,
-                             g, negative_slope, group)
+                             g, negative_slope, group, resums)
 
 
 # ------------------------------------------------------------- autograd
