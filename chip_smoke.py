@@ -26,8 +26,14 @@ on one NVIDIA GPU:
    row, the narrow design's time at the same shape in the same call (S and
    S' at C_in <= 2: a call, back to back and on the device, each with its
    share of the bound, ``walk_vs_narrow``); B's and S's stream designs must
-   give the narrow design's bits (float32 and bf16, groups 0 and 64); bf16 C (wide: the
-   tensor cores) is held to BF16_C_RMS, its mutant at least 4x beyond; D
+   give the narrow design's bits (float32 and bf16, groups 0 and 64); bf16 C
+   (fwd_bf16_design "wgmma": p and d on wgmma fed by TMA, persistent blocks
+   over x tiles resident in shared memory, no second pass) at 256 -> 256
+   (N 16384), at vn_pointr_448's 256 -> 128 (N 14336) and at 256 -> 128
+   with group 64 biases (on no path) is held to BF16_C_RMS, its mutant at
+   least 4x beyond, and to the parent "wide" design's bits (proj_wide_mma
+   and proj_sum), timed beside it (a call, back to back, on the device,
+   kernel by kernel) with torch.bmm of its two products (proj_vs_parent); D
    (one sweep for both directions) is also timed at the training loss's
    coarse pair (1024 x 16384) and at 448 x 14336, twice for equal bits;
    S is timed at final_conv.0's 2 -> 256 (stream, both types) and at 256 ->
@@ -247,6 +253,7 @@ path); the last line is
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -442,14 +449,14 @@ BF16_STEP_DESIGNS = {
                  "vn_layer_stats_bwd[bf16]/fused": 1, "vn_layer_stats_bwd[bf16]/wgmma_p": 1,
                  "vn_layer_fused_fwd[bf16]/stream": 1,
                  "vn_layer_fused_project_bwd[bf16]/certified": 1,
-                 "vn_layer_fused_project_fwd[bf16]/wide": 1, "vn_layer_fused_bwd[bf16]/fused": 1,
+                 "vn_layer_fused_project_fwd[bf16]/wgmma": 1, "vn_layer_fused_bwd[bf16]/fused": 1,
                  **bf16_designs(STATS_STEP_DESIGNS["flagship"])},
     "vn_pointr_448": {"vn_layer_stats_bwd[bf16]/fused": 1, "vn_layer_stats_bwd[bf16]/wgmma_p": 2,
                       "vn_layer_stats_bwd[group,bf16]/fused": 2,
                       "vn_layer_fused_fwd[bf16]/stream": 1,
                       "vn_layer_fused_fwd[group,bf16]/stream": 2,
                       "vn_layer_fused_project_bwd[bf16]/certified": 2,
-                      "vn_layer_fused_project_fwd[bf16]/wide": 2,
+                      "vn_layer_fused_project_fwd[bf16]/wgmma": 2,
                       "vn_layer_fused_bwd[bf16]/fused": 1,
                       "vn_layer_fused_bwd[group,bf16]/fused": 2,
                       "edge_knn_gather[bf16]/tiled": 3,
@@ -460,13 +467,16 @@ BF16_STEP_DESIGNS = {
 BF16_STEP_DESIGNS["vn_pointr_448_dec"] = {**BF16_STEP_DESIGNS["vn_pointr_448"],
                                           "knn_min/coords": 4}
 # Every launch of B on a main path (phases 4-13) takes the store stream
-# (every main-path B has C_in <= 2), every launch of C the wide design and
-# every launch of B' the fused pass, every K2 launch (all over coordinates,
-# D 3) the "coords" design and every A launch in bf16 the "run8" design
-# (every main-path A has N a multiple of 8): checked on each counted run
-# (check_designs).  A name with its mode ("[bf16]") is held to its own
-# entry, B, C, B', F and K2 in either mode to their base name's.
+# (every main-path B has C_in <= 2), every launch of C the wide design (in
+# bf16 the "wgmma" design: every main-path C is 256 -> 256 or 256 -> 128 at
+# N a multiple of 8, group 0) and every launch of B' the fused pass, every
+# K2 launch (all over coordinates, D 3) the "coords" design and every A
+# launch in bf16 the "run8" design (every main-path A has N a multiple of
+# 8): checked on each counted run (check_designs).  A name with its mode
+# ("[bf16]") is held to its own entry, B, B', F and K2 in either mode to
+# their base name's.
 MAIN_DESIGNS = {"vn_layer_fused_fwd": "stream", "vn_layer_fused_project_fwd": "wide",
+                "vn_layer_fused_project_fwd[bf16]": "wgmma",
                 "vn_layer_fused_bwd": "fused", "furthest_point_sample": "single_barrier",
                 "knn_min": "coords", "vn_bn_leaky_fwd[bf16]": "run8"}
 # Every K3 launch of a path takes the design of the path's shapes
@@ -665,10 +675,11 @@ def narrow_designs():
 def parent_designs():
     """K1, K2 and K3 held to their "warp" designs (the parent designs: one
     warp a row or query; K3 then the block's gather), A's bf16 mode to its
-    "vector" design (one thread a vector) and the wide bf16 S, S' and C' to
+    "vector" design (one thread a vector), the wide bf16 S, S' and C' to
     their pass 1 on mma.sync or FMAs (S "wide", S' and C' "wgmma" where
-    ``wide_bf16_design`` gives it: not "wgmma_p" or "certified") inside the
-    block."""
+    ``wide_bf16_design`` gives it: not "wgmma_p" or "certified") and the
+    wide bf16 C to its "wide" design (proj_wide_mma and proj_sum, not
+    "wgmma") inside the block."""
     from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas, vn_fused, vn_layer_fused
 
     def pass1(kernel, c_in, c_out, n, aligned=True, group=0):
@@ -676,7 +687,8 @@ def parent_designs():
                                                                             aligned)
 
     choosers = ((knn_pallas, "edge_design", "warp"), (knn_pallas, "knn_design", "warp"),
-                (knn_pallas, "topk_design", "warp"), (vn_fused, "fwd_design", "vector"))
+                (knn_pallas, "topk_design", "warp"), (vn_fused, "fwd_design", "vector"),
+                (vn_layer_fused, "fwd_bf16_design", "wide"))
     saved = [getattr(mod, name) for mod, name, _ in choosers]
     saved_pass1 = vn_layer_fused.pass1_bf16_design
     for mod, name, design in choosers:
@@ -961,6 +973,80 @@ def wgmma_vs_parent(rec: dict, fn, x, w, wd=None, reps: int = 10, kind: str = "S
           flush=True)
     rec.update({"passes": passes, "matmul_ms": mat, "matmul_out": out})
     del mms, w1
+
+
+# The kernels of a wide bf16 C call by what they do (a substring of the
+# name torch.profiler gives each): the W^T transpose, the product kernel
+# (proj_wide_mma or proj_wgmma) and proj_sum (the parent design's second pass)
+PROJ_KERNELS = (("transpose", "transpose_weights"), ("products", "proj_w"),
+                ("sum", "proj_sum"))
+
+
+def kernel_ms(fn, keys, calls: int = 5) -> dict:
+    """Device ms a call of each kernel of ``fn`` named in ``keys`` ((name,
+    substring of the kernel's name) pairs; ``other`` for the rest):
+    torch.profiler's kernel durations over ``calls`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys([name for name, _ in keys] + ["other"], 0.0)
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            name = next((n for n, key in keys if key in e.name), "other")
+            out[name] += e.time_range.elapsed_us() / 1e3 / calls
+    return out
+
+
+def proj_vs_parent(rec: dict, fn, x, w, wd, reps: int = 10) -> None:
+    """A wide bf16 C row in its fwd_bf16_design ("wgmma") beside the parent
+    design ("wide": proj_wide_mma and proj_sum; ``versus_parent``: a call,
+    back to back, on the device), each kernel's device time in both designs
+    (``kernel_ms`` over PROJ_KERNELS), ``torch.bmm`` of the call's two
+    products (W x and Wd x, bf16 operands, float32 out, back to back on the
+    current stream: the yardstick in ``library_ms``'s sense, never on the
+    port's path), and the output equal in bits to the parent design's on
+    the same inputs (fails otherwise).  Kept in the row under ``kernels``
+    (``<design>/<kernel>`` -> ms), ``matmul_ms`` and ``equal_to_parent``."""
+    import torch
+
+    versus_parent(rec, fn, reps)
+    got, designs = launched_designs(fn)
+    with parent_designs():
+        want, parent = launched_designs(fn)
+    same = torch.equal(got, want)
+    print(f"[kernel {rec['name']}] the {designs} design's output bitwise equal to the "
+          f"{parent} design's: {same}", flush=True)
+    if not same or designs != [rec["design"]] or parent != ["wide"]:
+        raise AssertionError(f"{rec['name']}: the {designs} design differs from the parent's")
+    split = {}
+    for design, ctx in (("parent", parent_designs), (rec["design"], contextlib.nullcontext)):
+        with ctx():
+            parts = kernel_ms(fn, PROJ_KERNELS)
+        split.update({f"{design}/{name}": ms for name, ms in parts.items()})
+        print(f"[kernel {rec['name']}] {design} design by kernel (device ms, torch.profiler): "
+              + ", ".join(f"{name} {ms:.4f}" for name, ms in parts.items()), flush=True)
+    bf = torch.bfloat16
+    planes, c_in, n = x.shape[0] * 3, x.shape[2], x.shape[3]
+    x1 = x.reshape(planes, c_in, n)
+    w1 = torch.cat([w, wd], 0).to(bf).expand(planes, -1, -1).contiguous()
+    try:
+        kw = {"out_dtype": torch.float32}
+        torch.bmm(w1, x1, **kw)
+    except (TypeError, RuntimeError):  # no bf16 -> float32 product in this torch: bf16 out
+        kw = {}
+    mat = stream_ms(lambda: torch.bmm(w1, x1, **kw), reps)
+    print(f"[kernel {rec['name']}] torch.bmm yardstick of W x and Wd x "
+          f"({'float32' if kw else 'bf16'} out, ms a call back to back): {mat:.4f} (the "
+          f"{rec['design']} design's product kernel {split[rec['design'] + '/products']:.4f}, "
+          f"the parent's {split['parent/products']:.4f})", flush=True)
+    rec.update({"kernels": split, "matmul_ms": mat, "equal_to_parent": same})
+    del got, want, x1, w1
 
 
 def same_p(rec: dict, x, w, c1, c2) -> None:
@@ -1548,15 +1634,43 @@ def check_bf16_kernels(dev, record, randn, uniform):
     w, wd = uniform(-1 / 16, 1 / 16, 256, 256), uniform(-1 / 16, 1 / 16, 256, 256)
     w_out = uniform(-1 / 16, 1 / 16, 256)
     vecs = BATCH * 256 * n
-    record("C vn_layer_fused_project bf16", src + "vn_layer_fused.cu",
-           at + "vn_layer_fused.py:821",
-           lambda: vn_layer_fused.vn_layer_fused_project(x, w, wd, None, None, a, b, w_out, NS),
-           lambda: vn_layer_fused.reference_layer_fused_project(
-               x, w, wd, None, None, a, b, w_out, NS),
-           within_rms, f"RMS {BF16_C_RMS:.3e} of the norm",
-           nbytes(x, w, wd, a, b, w_out) + 2 * 3 * BATCH * n,
-           2 * 3 * vecs * 2 * 256, reps=10, repro=True, peak_ops=PEAK_BF16,
-           fp32_ops=(32 + 6) * vecs)
+    c_fn = functools.partial(vn_layer_fused.vn_layer_fused_project, x, w, wd, None, None, a, b,
+                             w_out, NS)
+    rec = record("C vn_layer_fused_project bf16", src + "vn_layer_fused.cu",
+                 at + "vn_layer_fused.py:821", c_fn,
+                 lambda: vn_layer_fused.reference_layer_fused_project(
+                     x, w, wd, None, None, a, b, w_out, NS),
+                 within_rms, f"RMS {BF16_C_RMS:.3e} of the norm",
+                 nbytes(x, w, wd, a, b, w_out) + 2 * 3 * BATCH * n,
+                 2 * 3 * vecs * 2 * 256, reps=10, repro=True, peak_ops=PEAK_BF16,
+                 fp32_ops=(32 + 6) * vecs, versus=True)
+    proj_vs_parent(rec, c_fn, x, w, wd)
+    # C at vn_folding{1,2}.1 + .2 as vn_pointr_448 runs them (256 -> 128 -> 1,
+    # N 14336, group 0, no bias); inputs from a generator of their own, so
+    # that the later rows' inputs stay as they were
+    g2 = torch.Generator(device=x.device).manual_seed(22)
+
+    def u(lo, hi, *shape):
+        return torch.rand(*shape, generator=g2, device=x.device) * (hi - lo) + lo
+
+    n = 14336
+    x = torch.randn(BATCH, 3, 256, n, generator=g2, device=x.device).to(bf)
+    w2, wd2 = u(-1 / 16, 1 / 16, 128, 256), u(-1 / 16, 1 / 16, 128, 256)
+    a2, b2 = u(0.5, 1.5, 128), torch.randn(128, generator=g2, device=x.device) * 0.3
+    wo2 = u(-1 / 11, 1 / 11, 128)
+    vecs = BATCH * 128 * n
+    c_fn = functools.partial(vn_layer_fused.vn_layer_fused_project, x, w2, wd2, None, None, a2,
+                             b2, wo2, NS)
+    rec = record("C vn_layer_fused_project 256->128 bf16", src + "vn_layer_fused.cu",
+                 at + "vn_layer_fused.py:821", c_fn,
+                 lambda: vn_layer_fused.reference_layer_fused_project(
+                     x, w2, wd2, None, None, a2, b2, wo2, NS),
+                 within_rms, f"RMS {BF16_C_RMS:.3e} of the norm",
+                 nbytes(x, w2, wd2, a2, b2, wo2) + 2 * 3 * BATCH * n,
+                 2 * 3 * vecs * 2 * 256, reps=10, repro=True, peak_ops=PEAK_BF16,
+                 fp32_ops=(32 + 6) * vecs, versus=True)
+    proj_vs_parent(rec, c_fn, x, w2, wd2)
+    del w2, wd2, a2, b2, wo2
     # C in group mode at vn_folding{1,2}.1 + .2's width (on no model's path)
     n, s = 14336, 64
     x = randn(BATCH, 3, 256, n).to(bf)
@@ -1565,16 +1679,17 @@ def check_bf16_kernels(dev, record, randn, uniform):
     db = randn(BATCH, 3, 128, n // s, scale=0.5).to(bf)
     a, b, w_out = uniform(0.5, 1.5, 128), randn(128, scale=0.3), uniform(-1 / 11, 1 / 11, 128)
     vecs = BATCH * 128 * n
-    record("C vn_layer_fused_project group=64 bf16", src + "vn_layer_fused.cu",
-           at + "vn_layer_fused.py:821",
-           lambda: vn_layer_fused.vn_layer_fused_project(x, w, wd, pb, db, a, b, w_out, NS,
-                                                         group=s),
-           lambda: vn_layer_fused.reference_layer_fused_project(
-               x, w, wd, pb, db, a, b, w_out, NS, s),
-           within_rms, f"RMS {BF16_C_RMS:.3e} of the norm",
-           nbytes(x, w, wd, pb, db, a, b, w_out) + 2 * 3 * BATCH * n,
-           2 * 3 * vecs * 2 * 256, reps=10, repro=True, peak_ops=PEAK_BF16,
-           fp32_ops=(32 + 12) * vecs)
+    c_fn = functools.partial(vn_layer_fused.vn_layer_fused_project, x, w, wd, pb, db, a, b,
+                             w_out, NS, group=s)
+    rec = record("C vn_layer_fused_project group=64 bf16", src + "vn_layer_fused.cu",
+                 at + "vn_layer_fused.py:821", c_fn,
+                 lambda: vn_layer_fused.reference_layer_fused_project(
+                     x, w, wd, pb, db, a, b, w_out, NS, s),
+                 within_rms, f"RMS {BF16_C_RMS:.3e} of the norm (on no path)",
+                 nbytes(x, w, wd, pb, db, a, b, w_out) + 2 * 3 * BATCH * n,
+                 2 * 3 * vecs * 2 * 256, reps=10, repro=True, peak_ops=PEAK_BF16,
+                 fp32_ops=(32 + 12) * vecs, versus=True)
+    proj_vs_parent(rec, c_fn, x, w, wd)
     del x
 
     # K3 at every path shape (EDGE_SHAPES) on bf16 coordinates or features
@@ -3914,6 +4029,20 @@ def bf16_tape_check(tag, kern, plain, f32) -> bool:
     return ok
 
 
+def bf16_launches_a_step(key: str) -> dict:
+    """Launches of ``key`` (a kernel in its bf16 mode) in one eval forward
+    of each path phase 12 serves (BF16_FORWARD_LAUNCHES), one vn_pointr_448
+    train step of phase 13 (BF16_STEP_LAUNCHES, its validation forward
+    apart) and one flagship bf16 train step (BF16_STEP_DESIGNS, by design):
+    the counts those phases assert."""
+    out = {f"serve {path}": BF16_FORWARD_LAUNCHES[path].get(key, 0)
+           for path in ("flagship", "vn_dgcnn", "vn_pointr_448")}
+    out["train vn_pointr_448"] = BF16_STEP_LAUNCHES["vn_pointr_448"].get(key, 0)
+    out["train flagship"] = sum(v for k, v in BF16_STEP_DESIGNS["flagship"].items()
+                                if k.split("/")[0] == key)
+    return out
+
+
 def bf16_serve(dev, smi: str):
     """Phase 12: the bf16 policy's serving path.  The eval forwards of the
     flagship, VN DGCNN and vn_pointr_448 at full width, batch 8, under
@@ -5053,15 +5182,22 @@ def main() -> int:
     # takes it only for D > 512; C and C' in group=S mode are on no path:
     # no model passes a group to them; F's and
     # K3's rows at vn_pointr's shapes: phase 9's run, by design as well); the
-    # bf16 rows' in phase 12's counted forwards and metric step (A, B, C,
-    # K3) and phase 13's counted training runs (A', S, S', B', C')
+    # bf16 rows' in phase 13's counted training runs (A', S, S', B', C'),
+    # and the forward kernels' (A, B, C, K3) in phase 12's counted forwards
+    # and metric step plus phase 13's runs (serve_launches, train_launches;
+    # launches_a_step: a forward or train step of each path, as phases 12
+    # and 13 assert them)
     for rec in records:
         sym = SYMBOL[rec["name"].split()[0]]
         if rec["name"].endswith(" bf16"):
-            mode = "[group,bf16]" if "group=" in rec["name"] else "[bf16]"
-            train_sym = rec["name"].split()[0] in ("A'", "S", "S'", "B'", "C'")
-            rec["launches"] = (bf16_train_counts if train_sym else bf16_counts).get(
-                f"{sym}{mode}", 0)
+            key = sym + ("[group,bf16]" if "group=" in rec["name"] else "[bf16]")
+            if rec["name"].split()[0] in ("A'", "S", "S'", "B'", "C'"):
+                rec["launches"] = bf16_train_counts.get(key, 0)
+            else:  # the forward kernels (A, B, C, K3) serve and train
+                rec["serve_launches"] = bf16_counts.get(key, 0)
+                rec["train_launches"] = bf16_train_counts.get(key, 0)
+                rec["launches"] = rec["serve_launches"] + rec["train_launches"]
+                rec["launches_a_step"] = bf16_launches_a_step(key)
         elif "group=" in rec["name"]:
             rec["launches"] = pointr_counts[f"{sym}[group]"]
         elif sym == "emd_rounds":  # phase 10: both test --emd runs

@@ -8,7 +8,10 @@ in bf16; the channel blocks' projections summed by a second pass) at C_in,
 C_out >= 16 and the narrow one below; ``layer_fwd_design`` gives B a store
 stream (no product tile) at C_in <= 2 and the narrow tile above;
 ``layer_bwd_design`` gives B' one fused pass at C_in <= 2 and the narrow
-passes above.  The CUDA kernels take what the wrapper picks, so the choice
+passes above; ``fwd_bf16_design`` gives a wide bf16 C the "wgmma" design
+(proj_wgmma) where its tiles fit, whose host helpers (its shared memory,
+its persistent grid) are checked here too.  The CUDA kernels take what the
+wrapper picks, so the choice
 for every layer of the four pipelines is checked here, where no card is
 needed.  In the bf16 mode the plain C
 sums its projection in the order of the design the kernel takes, so the
@@ -87,6 +90,94 @@ def test_design_of_every_c_and_b_bwd_layer(name, monkeypatch):
     coarse, fine = model(xyz)
     (coarse.square().sum() + fine.square().sum()).backward()
     assert seen == _EXPECTED[name]
+
+
+# (C_in, C_out, group) of every C launch of one train-mode forward under the
+# bf16 policy, and the design fwd_bf16_design gives it: the "wgmma" design
+# at final_conv.1 + .2 (256 -> 256, N 4096 at num_coarse 256) and
+# vn_folding{1,2}.1 + .2 (256 -> 128, N 14336); the scalar DGCNN none
+_EXPECTED_BF16 = {
+    "flagship": {(256, 256, 0): "wgmma"},
+    "vn_dgcnn": {(256, 256, 0): "wgmma"},
+    "dgcnn": {},
+    "vn_pointr": {(256, 128, 0): "wgmma"},
+}
+
+
+@pytest.mark.parametrize("name", list(_PIPELINES))
+def test_bf16_design_of_every_c_layer(name, monkeypatch):
+    """One train-mode forward of a pipeline under the bf16 policy: each C
+    call gets bf16 x and takes the design of fwd_bf16_design, as a CUDA
+    launch would (the point rows' alignment read from x itself)."""
+    from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
+    from vn_pointcloudcompletion_tpu_torch.nn.precision import compute_dtype_scope
+
+    seen = {}
+    project = port_layer.vn_layer_fused_project
+
+    def wrapped(x, w, *args, **kwargs):
+        group = kwargs.get("group", 0)
+        assert x.dtype == torch.bfloat16
+        assert port_layer.forward_design(x.shape[2], w.shape[0]) == "wide"
+        seen[(x.shape[2], w.shape[0], group)] = port_layer.fwd_bf16_design(
+            x.shape[2], w.shape[0], x.shape[3], port_layer._aligned(x), group)
+        return project(x, w, *args, **kwargs)
+
+    monkeypatch.setattr(port_layer, "vn_layer_fused_project", wrapped)
+    enc, dec, nc = _PIPELINES[name]
+    model = build_model(Config.from_dict({"enc_type": enc, "dec_type": dec,
+                                          "num_coarse": nc, "seed": 3})).train()
+    xyz = torch.from_numpy((np.random.default_rng(5).standard_normal((1, 600, 3)) * 0.3)
+                           .astype(np.float32))
+    with torch.no_grad(), compute_dtype_scope(torch.bfloat16):
+        model(xyz)
+    assert seen == _EXPECTED_BF16[name]
+
+
+@pytest.mark.parametrize("c_in,c_out,n,aligned,group,design", [
+    (256, 256, 16384, True, 0, "wgmma"), (256, 128, 14336, True, 0, "wgmma"),
+    (64, 64, 1000, True, 0, "wgmma"), (128, 192, 8, True, 0, "wgmma"),
+    (48, 64, 1000, True, 0, "wide"), (64, 48, 1000, True, 0, "wide"),
+    (320, 256, 1000, True, 0, "wide"), (512, 512, 1000, True, 0, "wide"),
+    (256, 256, 1004, True, 0, "wide"), (256, 256, 999, True, 0, "wide"),
+    (256, 256, 16384, False, 0, "wide"), (256, 128, 14336, True, 16, "wide"),
+    (256, 128, 14336, True, 32, "wide"), (256, 128, 14336, True, 64, "wgmma"),
+    (256, 128, 16384, True, 128, "wgmma"), (256, 128, 14400, True, 96, "wide"),
+])
+def test_fwd_bf16_design_boundary(c_in, c_out, n, aligned, group, design):
+    """bf16 C takes the wgmma design where its tiles fit: both widths
+    multiples of 64, C_in at most 256 (x resident), point rows of whole
+    16-byte vectors (N % 8 == 0, an aligned base), a bias column covering
+    whole 64-point tiles (group 0 or a multiple of 64); the wide design
+    elsewhere."""
+    assert port_layer.forward_design(c_in, c_out) == "wide"
+    assert port_layer.fwd_bf16_design(c_in, c_out, n, aligned, group) == design
+
+
+@pytest.mark.parametrize("c_in", [64, 128, 192, 256, 320])
+def test_proj_wgmma_shared_memory_fits_one_block_an_sm(c_in):
+    """proj_wgmma's shared memory (x resident: 24 KB a 64-deep chunk; four
+    16 KB stages of W^T and Wd^T; the staged p, d, A, B, w_out; the halves'
+    sums) fits the 232,448 bytes a block may use up to C_in 256, the
+    chooser's limit, and not at 320: 224,128 bytes at the main path's 256."""
+    bytes_ = port_layer.proj_wgmma_smem(c_in)
+    assert (bytes_ <= 232448) == (c_in <= port_layer.PROJ_WGMMA_MAX_CIN)
+    if c_in == 256:
+        assert bytes_ == 1024 + 4 * 24576 + 4 * 16384 + 55296 + 3072 + 768 + 128 == 224128
+
+
+@pytest.mark.parametrize("bsz,n,sms", [(8, 16384, 132), (8, 14336, 132), (2, 1000, 132),
+                                       (1, 64, 132), (3, 520, 4), (8, 16384, 1)])
+def test_proj_wgmma_grid_walks_every_tile_once(bsz, n, sms):
+    """The persistent blocks (one an SM, no more than the tiles) walk tiles
+    k, k + grid, ...: every (sample, 64-point tile) exactly once, and the
+    blocks' counts differ by at most one."""
+    grid = port_layer.proj_wgmma_grid(bsz, n, sms)
+    tiles = bsz * -(-n // port_layer.TILE)
+    assert grid == min(tiles, sms)
+    walked = [list(range(k, tiles, grid)) for k in range(grid)]
+    assert sorted(t for ts in walked for t in ts) == list(range(tiles))
+    assert max(map(len, walked)) - min(map(len, walked)) <= 1
 
 
 @pytest.mark.parametrize("c_in,c_out,design", [

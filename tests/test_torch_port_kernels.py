@@ -2193,6 +2193,76 @@ def test_wgmma_refuses_shapes_it_does_not_tile(cuda, c_in, c_out, n, kernel, mon
     assert cuda_lib.variant_counts().get(key, 0) == before.get(key, 0) + 1
 
 
+# ------------------------------------------ the wgmma C (bf16)
+#
+# A wide bf16 C whose widths are multiples of 64 (C_in at most 256) and
+# whose point rows are whole 16-byte vectors runs the "wgmma" design
+# (port_layer.fwd_bf16_design; csrc proj_wgmma: p and d on wgmma fed by
+# TMA, x resident, the projections summed in registers, no proj_sum).  It
+# follows the parent "wide" design's order of summation (proj_wide_mma, then
+# proj_sum), so its output is held to that design's bits on the same inputs,
+# at the main paths' shapes and at ragged ones (N 1000 and 520: no whole
+# 64-point tile at the end; 1088 with group 64 biases), twice, counted under
+# its design; and within chip_smoke.BF16_C_RMS of the plain version, whose
+# mutant (the output x BF16_MUTANT) must read at least 4x beyond.
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out,n,group,bias", [
+    (256, 256, 16384, 0, False), (256, 128, 14336, 0, False), (256, 256, 1000, 0, True),
+    (256, 128, 1088, 64, True), (64, 64, 1000, 0, False), (128, 192, 520, 0, True)])
+def test_wgmma_forward_equals_the_wide_design(cuda, c_in, c_out, n, group, bias, monkeypatch):
+    import chip_smoke  # run from the repo root
+
+    inputs = _wide_inputs(cuda, c_in, c_out, n, group, bias, True, c_in + c_out + n + group)
+    args = (*inputs[:8], NS, group)
+    assert port_layer.fwd_bf16_design(c_in, c_out, n, True, group) == "wgmma"
+    key = _variant("vn_layer_fused_project_fwd", group, True, "wgmma")
+    before = cuda_lib.variant_counts().get(key, 0)
+    got, again = (port_layer.vn_layer_fused_project(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    assert cuda_lib.variant_counts().get(key, 0) == before + 2
+    monkeypatch.setattr(port_layer, "fwd_bf16_design", lambda *shape, **kw: "wide")
+    wide = _variant("vn_layer_fused_project_fwd", group, True, "wide")
+    before = cuda_lib.variant_counts().get(wide, 0)
+    want = port_layer.vn_layer_fused_project(*args)
+    torch.cuda.synchronize()
+    assert cuda_lib.variant_counts().get(wide, 0) == before + 1
+    plain = port_layer.reference_layer_fused_project(*args)
+    rms = chip_smoke.bf16_rms(got, plain)
+    mutant = chip_smoke.bf16_rms(got * chip_smoke.BF16_MUTANT, plain)
+    print(f"C bf16 wgmma ({c_in}, {c_out}, {n}, group {group}): {int((got != want).sum())} "
+          f"elements differ from the wide design's; RMS {rms:.3e}, the mutant {mutant:.3e}")
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 3, 1, n)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert rms <= chip_smoke.BF16_C_RMS and mutant >= 4 * chip_smoke.BF16_C_RMS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out,n,group", [(48, 64, 1000, 0), (64, 48, 1000, 0),
+                                                (320, 64, 1000, 0), (64, 64, 1004, 0),
+                                                (64, 64, 1088, 16)])
+def test_wgmma_forward_refuses_shapes_it_does_not_tile(cuda, c_in, c_out, n, group,
+                                                       monkeypatch):
+    """Forced onto widths that are no multiple of 64, a C_in past the
+    resident tile, point rows that are no whole 16-byte vectors or bias
+    columns narrower than a tile, the wgmma design's entry point returns
+    cudaErrorInvalidValue and the wrapper raises, with nothing counted; so
+    does the float32 mode, which has no wgmma design."""
+    inputs = _wide_inputs(cuda, c_in, c_out, n, group, bool(group), True, 1)
+    assert port_layer.fwd_bf16_design(c_in, c_out, n, True, group) == "wide"
+    monkeypatch.setattr(port_layer, "fwd_bf16_design", lambda *shape, **kw: "wgmma")
+    before = cuda_lib.variant_counts()
+    with pytest.raises(RuntimeError, match="vn_layer_fused_project_fwd"):
+        port_layer.vn_layer_fused_project(*inputs[:8], NS, group)
+    x32 = [t.float() if t is not None and t.dtype == torch.bfloat16 else t
+           for t in _wide_inputs(cuda, 64, 64, 1000, 0, False, True, 2)[:8]]
+    monkeypatch.setattr(port_layer, "forward_design", lambda *widths: "wgmma")
+    with pytest.raises(RuntimeError, match="vn_layer_fused_project_fwd"):
+        port_layer.vn_layer_fused_project(*x32, NS, 0)
+    assert cuda_lib.variant_counts() == before
+
+
 # ------------------------------------------ the wide C and the fused B'
 #
 # C at C_in, C_out >= 16 runs the wide design (port_layer.forward_design:

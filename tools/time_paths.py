@@ -28,8 +28,9 @@ events around each, a step ending in its one host read, the allocator's
 peak), then the profiler's device time over 5 steps, in all and for the
 kernels of the wide bf16 S, S' and C' (``WIDE_BWD``: pass 1
 ``pd_wide_fma<3``, ``pd_wide_mma``, ``pd_cert`` or ``pd_wgmma``, passes 2
-and 3 ``dx_``/``dw_wide_bf16`` or ``dx_``/``dw_wgmma``), each of those
-kernels apart.  Paths named after
+and 3 ``dx_``/``dw_wide_bf16`` or ``dx_``/``dw_wgmma``) and of the wide
+bf16 C (``PROJ_FWD``: ``proj_wide_mma`` and ``proj_sum``, or
+``proj_wgmma``), each of those kernels apart.  Paths named after
 ``reps`` are the only ones timed, and the kernels' line is then left out.
 Before the paths, one JSON line times kernels F (2048 -> 512, 512 -> 128,
 2048 -> 224), K3 (the five path shapes, float32 and bf16), K2 (the path
@@ -55,6 +56,8 @@ import time
 # passes 1, 2 and 3, in every design), which the bf16 train steps time apart
 WIDE_BWD = ("pd_wide_fma<3", "pd_wide_mma<", "pd_cert", "pd_wgmma", "dx_wide_bf16",
             "dw_wide_bf16", "dx_wgmma", "dw_wgmma")
+# ... and of the wide bf16 C (the forward): proj_wide_mma and proj_sum, or proj_wgmma
+PROJ_FWD = ("proj_wide_mma", "proj_sum", "proj_wgmma")
 BF16_STEP_PATHS = ("flagship", "vn_pointr_448")
 
 
@@ -136,10 +139,13 @@ def main() -> int:
                 torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
         wide = [e for e in kernels if any(k in e.key for k in WIDE_BWD)]
+        proj = [e for e in kernels if any(k in e.key for k in PROJ_FWD)]
         return {"step_ms": step_ms, "peak_gib": peak,
                 "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3 / 5,
                 "wide_bwd_device_ms": sum(e.self_device_time_total for e in wide) / 1e3 / 5,
-                "wide_bwd": {e.key[:60]: e.self_device_time_total / 1e3 / 5 for e in wide}}
+                "wide_bwd": {e.key[:60]: e.self_device_time_total / 1e3 / 5 for e in wide},
+                "proj_fwd_device_ms": sum(e.self_device_time_total for e in proj) / 1e3 / 5,
+                "proj_fwd": {e.key[:60]: e.self_device_time_total / 1e3 / 5 for e in proj}}
 
     if not only:
         timed_kernels(cs, dev, xyz)

@@ -13,9 +13,10 @@
 //   B: out = o                                  (B, 3, Cout, N)
 //   C: out = sum_c w_out[c] o[c]                (B, 3, 1, N)
 //
-// Two designs of B and two of C; the wrapper picks one, B's from Cin
+// Two designs of B and three of C; the wrapper picks one, B's from Cin
 // (ops/vn_layer_fused.py::layer_fwd_design), C's from (Cin, Cout)
-// (forward_design), and neither stands in for the other:
+// (forward_design; in bf16 then fwd_bf16_design), and none stands in for
+// another:
 //   stream (B at Cin <= 2: final_conv.0's 2 -> 256, conv1's 2 -> 32, the
 //      pair folds' 1 -> 256 at group 64): layer_fwd_stream below.  The layer
 //      writes (B, 3, Cout, N) and reads almost nothing, so the output write
@@ -75,6 +76,8 @@
 //         accumulators in their fragment layout: a thread's four channels in
 //         order, a fixed shuffle tree over the warp's eight channel rows, the
 //         two channel warps in order; the plain version sums in that order.
+//         It runs where the wgmma design's tiles do not fit.
+//      bf16 (proj_wgmma, the wgmma design): below, with proj_wide_mma's bits.
 //
 // The bf16 mode (T = vnk_bf16: x, the biases and out bfloat16; W, Wd, A, B
 // and w_out float32) is the TPU kernels' bf16=True (vn_layer_fused.py:61-65
@@ -97,6 +100,7 @@
 
 #include "vn_mma.cuh"
 #include "vn_tile.cuh"
+#include "vn_wgmma.cuh"
 
 namespace {
 
@@ -647,6 +651,315 @@ proj_wide_mma(const vnk_bf16* __restrict__ x, const vnk_bf16* __restrict__ wt,
   }
 }
 
+// bf16 on Hopper's warpgroup products fed by TMA (proj_wgmma, the "wgmma"
+// design; ops/vn_layer_fused.py::fwd_bf16_design): C_in and C_out
+// multiples of 64, C_in <= 256, N % 8 == 0 and 16-byte aligned x, as the
+// tensor maps and the resident x tile need; group 0 or a multiple of 64.
+//   Persistent blocks, one an SM (`ctas` of them), each walking 64-point
+//   tiles (sample, point tile) t = blockIdx.x + k gridDim.x, every channel
+//   block of a tile in turn: the tile's x (three planes, C_in deep) stays
+//   resident in shared memory, loaded once as 64-deep chunks, so x is read
+//   once from device memory and once from L2 (the parent read it once per
+//   channel block: 805 MB of L2 at 256 -> 256); W^T and Wd^T go through a
+//   four-stage ring.  The channel blocks' projections sum in a register
+//   per (plane, point), in channel-block order from 0 (proj_sum's order):
+//   no partials and no second pass.  In the last channel block each x chunk
+//   is released once its products are done, so the next tile's chunk loads
+//   under the rest of this one.
+//   Registers: 64 channels x 64 points of p and of d, three planes, would
+//   be 192 float32 accumulators a thread.  Here product warpgroup 0 forms p
+//   and product warpgroup 1 forms d (m64n64k16, 96 accumulators each), both
+//   over the same x boxes (two warpgroups of m64n64 read 24 KB of shared
+//   memory a k16 step, four of m64n32 with p and d each would read 36 KB),
+//   two stages in flight (wait_group 1).  Each then writes its matrix, the
+//   bias added and rounded to bf16 (pv of proj_wide_mma), into a staged
+//   (2, 3, 64, 72) tile and goes on to the next channel block's products,
+//   while four epilogue warpgroups run the BN-leaky epilogue and the w_out
+//   contraction on the staged tile (proj_wg_round) and keep the running
+//   projections; named barriers hand the tile over (kPdFull, kPdEmpty).
+//   Bits: the k16 steps in proj_wide_mma's order (input channels ascending,
+//   one float32 accumulator chained through them; wgmma rounds the k16
+//   steps as mma.sync does, as pd_wgmma found), and the w_out contraction
+//   in its order (_project_wide_order): proj_wide_mma's lane sums channels
+//   wm 32 + grp + 8 m (m = 2 mt + r) in order from zero, which wgmma's
+//   fragment puts in two warps.  So the epilogue deals lanes afresh from the
+//   staged tile: lane 4 grp + q one such chain, then the shuffle tree over
+//   grp, the two halves in order, the blocks in order.  The output is
+//   proj_wide_mma's to the bit, ragged N included.
+//   Measured by phase (tools/probe_proj.py, PERF.md): the epilogue on the
+//   product warpgroups' own fragments, each chain carried from one warp to
+//   the next through shared memory, took 0.60 ms alone at 256 -> 256; on
+//   two warps a scheduler it ran at under half the issue rate; on sixteen
+//   warps beside the products the call takes 0.29 ms.
+//   Bound at 256 -> 256 -> 1, batch 8, N 16384: the products' 103 GFLOP at
+//   the bf16 rate (0.104 ms) and the epilogue's ~38 FP32 operations a
+//   vector (0.019 ms); x is 0.2 GB (0.06 ms).
+struct ProjWg {
+  static constexpr int kBox = kWgDepth * kPts * 2;  // one 64 x 64 bf16 box, 8 KB
+  static constexpr int kMaxChunks = 4;              // x chunks of a resident tile: C_in <= 256
+  static constexpr int kStages = 4;                 // W^T and Wd^T of one 64-deep step a stage
+  static constexpr int kStage = 2 * kBox;
+  static constexpr int kPdLd = kPts + 8;            // bf16 a row of the staged p, d
+  static constexpr int kPd = 2 * 3 * kWgDepth * kPdLd * 2;  // bytes of the staged p, d
+  static constexpr int kRed = 2 * 3 * kPts;         // floats: the halves' projections [wm][j][n]
+                                                    // (two: blocks in turn)
+  static constexpr int kAbw = 3 * kWgDepth;         // floats: A, B, w_out of the staged block
+  static constexpr int bytes(int chunks) {
+    return 1024 + chunks * 3 * kBox + kStages * kStage + kPd + (2 * kRed + kAbw) * 4 +
+           (2 * chunks + 2 * kStages) * 8;
+  }
+};
+static_assert(ProjWg::bytes(ProjWg::kMaxChunks) <= 232448, "one block an SM");
+
+// One round of proj_wgmma's epilogue on the staged p, d of a channel block
+// (pd: (2, 3, 64, kPdLd) bf16): lane 4 grp + q of warp v of the sixteen
+// epilogue warps takes the channel half wm = v % 2 and, in round rd, point
+// 16 rd + 4 ((v / 2) % 4) + q; it runs proj_wide_mma's chain over its four
+// channels wm 32 + grp + 8 m (m = 2 mt + r) from zero, then the warp's
+// shuffle tree over grp, and the lanes of row grp 0 leave the half's
+// projection in red (2, 3, 64).  abw: A, B and w_out of the block's 64
+// channels, (3, 64).
+__device__ __forceinline__ void proj_wg_round(const vnk_bf16* __restrict__ pd,
+                                              const float* __restrict__ abw,
+                                              float* __restrict__ red, int rd, int v, int lane,
+                                              float one_minus_ns) {
+  const int wm = v % 2, grp = lane / 4, pt = 16 * rd + 4 * ((v / 2) % 4) + lane % 4;
+  float s[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int row = wm * 32 + grp + 8 * m;
+    float p[3], d[3], o[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      p[j] = __bfloat162float(pd[(j * kWgDepth + row) * ProjWg::kPdLd + pt]);
+      d[j] = __bfloat162float(pd[((3 + j) * kWgDepth + row) * ProjWg::kPdLd + pt]);
+    }
+    vnk_bn_leaky(p[0], p[1], p[2], d[0], d[1], d[2], abw[row], abw[kWgDepth + row],
+                 one_minus_ns, o);
+    const float wo = abw[2 * kWgDepth + row];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) s[j] += wo * o[j];
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    float t = s[j];
+    t += __shfl_xor_sync(0xffffffffu, t, 4);
+    t += __shfl_xor_sync(0xffffffffu, t, 8);
+    t += __shfl_xor_sync(0xffffffffu, t, 16);
+    if (grp == 0) red[(wm * 3 + j) * kPts + pt] = t;
+  }
+}
+
+// Named barriers of proj_wgmma: the two product warpgroups arrive on
+// kPdFull once a block's p, d are staged (the epilogue warpgroups wait
+// there), the epilogue warpgroups on kPdEmpty once they have read them (the
+// product warpgroups wait there before staging the next block); kEpiSync
+// joins the four epilogue warpgroups.
+constexpr int kPdFull = 2, kPdEmpty = 3, kEpiSync = 4;
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Stage kc's products of one warpgroup: 64 channels of W^T (p) or Wd^T
+// (d) times the x chunk's three planes, four k16 steps in order, one
+// commit group.
+__device__ __forceinline__ void proj_wg_issue(float (&acc)[3][32], const unsigned char* wst,
+                                              const unsigned char* xc) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) fence_acc(acc[j]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kWgDepth / 16; ++kk) {
+    const uint64_t da = gmma_desc(wst + kk * 16 * 128, ProjWg::kBox, 1024);
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      wgmma_m64n64k16_tt(acc[j], da, gmma_desc(xc + j * ProjWg::kBox + kk * 2048, ProjWg::kBox,
+                                               1024));
+  }
+  wgmma_commit();
+}
+
+// Threads of proj_wgmma: two product warpgroups, four epilogue warpgroups
+// (the epilogue's square root and two divisions a vector run one vector
+// after another behind their slow-path branches, so it takes four warps a
+// scheduler to keep it issuing), one producer warpgroup.  At launch each
+// thread holds 65536 / 896 rounded down to 8: 72 registers.  setmaxnreg
+// then moves them where they are needed, within the same 7 x 72 a
+// thread-slot (a larger total would block the product warpgroups' increase
+// forever): the producer 24, the epilogue 48, the products 144 (96
+// accumulators).
+constexpr int kProjThreads = 896;
+constexpr int kProjEpi = 512;     // the epilogue warpgroups' threads, from 256
+constexpr int kProjPd = 256 + kProjEpi;  // the threads of kPdFull and kPdEmpty
+constexpr int kProjRegs[3] = {24, 48, 144};  // producer, epilogue, products
+static_assert(kProjRegs[0] + 4 * kProjRegs[1] + 2 * kProjRegs[2] <=
+                  7 * (65536 / kProjThreads / 8 * 8),
+              "setmaxnreg's moves fit the launch's registers");
+
+// kNk: C_in / 64, the x chunks of a tile.
+template <int kNk>
+__global__ void __launch_bounds__(kProjThreads, 1)
+proj_wgmma(const __grid_constant__ CUtensorMap tm_wt, const __grid_constant__ CUtensorMap tm_x,
+           const vnk_bf16* __restrict__ pbias, const vnk_bf16* __restrict__ dbias,
+           const float* __restrict__ a, const float* __restrict__ b,
+           const float* __restrict__ w_out, vnk_bf16* __restrict__ out, int B, int Cin,
+           int Cout, int N, int group, float one_minus_ns) {
+  using P = ProjWg;
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int nk = kNk;
+  const int nb = Cout / kWgDepth;
+  unsigned char* const xs = align1024(smem_raw);  // (nk, 3) boxes: chunk kc, plane j
+  unsigned char* const ws = xs + nk * 3 * P::kBox;
+  vnk_bf16* const pd = reinterpret_cast<vnk_bf16*>(ws + P::kStages * P::kStage);
+  float* const red = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(pd) + P::kPd);
+  float* const abw = red + 2 * P::kRed;
+  uint64_t* const x_full = reinterpret_cast<uint64_t*>(abw + P::kAbw);
+  uint64_t* const x_empty = x_full + nk;
+  uint64_t* const w_full = x_empty + nk;
+  uint64_t* const w_empty = w_full + P::kStages;
+  const int tiles_n = (N + kPts - 1) / kPts, tiles = B * tiles_n;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < nk; ++i) {
+      mbar_init(&x_full[i], 1);
+      mbar_init(&x_empty[i], 256);
+    }
+    for (int s = 0; s < P::kStages; ++s) {
+      mbar_init(&w_full[s], 1);
+      mbar_init(&w_empty[s], 256);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int tiles_mine = (tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  if (threadIdx.x >= kProjPd) {  // the producer warpgroup: its first thread issues the loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProjRegs[0]) : "memory");
+    if (threadIdx.x == kProjPd) {
+      int it = 0;
+      for (int t = blockIdx.x, ti = 0; t < tiles; t += gridDim.x, ++ti) {
+        const int bi = t / tiles_n, n0 = (t % tiles_n) * kPts;
+        for (int cb = 0; cb < nb; ++cb)
+          for (int kc = 0; kc < nk; ++kc, ++it) {
+            if (cb == 0) {  // chunk kc of the tile, once its slot is free
+              mbar_wait(&x_empty[kc], (ti & 1) ^ 1);
+              mbar_expect_tx(&x_full[kc], 3 * P::kBox);
+              for (int j = 0; j < 3; ++j)
+                tma_load(xs + (kc * 3 + j) * P::kBox, &tm_x, &x_full[kc], n0, kc * kWgDepth,
+                         bi * 3 + j);
+            }
+            const int s = it % P::kStages;
+            mbar_wait(&w_empty[s], ((it / P::kStages) & 1) ^ 1);
+            mbar_expect_tx(&w_full[s], P::kStage);
+            unsigned char* st = ws + s * P::kStage;
+            tma_load(st, &tm_wt, &w_full[s], cb * kWgDepth, kc * kWgDepth, 0);
+            tma_load(st + P::kBox, &tm_wt, &w_full[s], cb * kWgDepth, kc * kWgDepth, 1);
+          }
+      }
+    }
+    return;
+  }
+
+  if (threadIdx.x >= 256) {  // the epilogue warpgroups: the staged blocks in turn
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProjRegs[1]) : "memory");
+    const int et = threadIdx.x - 256, v = et / 32, lane = et % 32;
+    const int blocks = tiles_mine * nb;
+    float tot = 0.f;  // et < 192: the projection of plane et / 64 at point et % 64
+    named_arrive(kPdEmpty, kProjPd);  // pd is free for the first block
+    int blk = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int bi = t / tiles_n, n0 = (t % tiles_n) * kPts;
+      for (int cb = 0; cb < nb; ++cb, ++blk) {
+        float* const rb = red + (blk & 1) * P::kRed;
+        named_sync(kPdFull, kProjPd);
+        proj_wg_round(pd, abw, rb, 2 * (v / 8), v, lane, one_minus_ns);
+        proj_wg_round(pd, abw, rb, 2 * (v / 8) + 1, v, lane, one_minus_ns);
+        if (blk + 1 < blocks) named_arrive(kPdEmpty, kProjPd);
+        named_sync(kEpiSync, kProjEpi);  // rb holds both halves of every point
+        if (et < 3 * kPts) {  // the halves in order, then the blocks in order
+          const int j = et / kPts, pt = et % kPts, n = n0 + pt;
+          tot += rb[j * kPts + pt] + rb[(3 + j) * kPts + pt];
+          if (cb == nb - 1) {
+            if (n < N) out[(static_cast<size_t>(bi) * 3 + j) * N + n] = __float2bfloat16_rn(tot);
+            tot = 0.f;
+          }
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kProjRegs[2]) : "memory");
+
+  // the product warpgroups: thread (w, grp, tig) of warpgroup wg holds p
+  // (wg 0) or d (wg 1) of channel 16 w + grp + 8 r of the block at points
+  // 8 i + 2 tig + e of the tile (i < 8; e, r < 2): acc[j][4 i + 2 r + e].
+  const int wg = threadIdx.x / 128, ct = threadIdx.x;
+  const int w = (ct % 128) / 32, lane = ct % 32, grp = lane / 4, tig = lane % 4;
+  const vnk_bf16* const bias = wg == 0 ? pbias : dbias;
+  const float* const param = ct < kWgDepth ? a : ct < 2 * kWgDepth ? b : w_out;  // ct < 192
+  float acc[3][32];
+  int it = 0;
+  for (int t = blockIdx.x, ti = 0; t < tiles; t += gridDim.x, ++ti) {
+    const int bi = t / tiles_n, n0 = (t % tiles_n) * kPts;
+    for (int cb = 0; cb < nb; ++cb) {
+      // this block's A, B or w_out at channel ct % 64, staged with p and d
+      const float abw_next = ct < 3 * kWgDepth ? param[cb * kWgDepth + ct % kWgDepth] : 0.f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+      // Stage kc's products go in flight behind stage kc - 1's, which then
+      // completes (wait_group 1) and frees its stage and, in a tile's last
+      // block, its x chunk.
+#pragma unroll
+      for (int kc = 0; kc <= nk; ++kc) {
+        if (kc < nk) {
+          const int q = it + kc, s = q % P::kStages;
+          if (cb == 0) mbar_wait(&x_full[kc], ti & 1);
+          mbar_wait(&w_full[s], (q / P::kStages) & 1);
+          proj_wg_issue(acc, ws + s * P::kStage + wg * P::kBox, xs + kc * 3 * P::kBox);
+        }
+        if (kc == 0) continue;
+        if (kc < nk)
+          wgmma_wait<1>();
+        else
+          wgmma_wait_all();
+        mbar_arrive(&w_empty[(it + kc - 1) % P::kStages]);
+        if (cb == nb - 1) mbar_arrive(&x_empty[kc - 1]);
+      }
+      it += nk;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) fence_acc(acc[j]);
+      named_sync(kPdEmpty, kProjPd);  // the epilogue has read the last block
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 16 * w + grp + 8 * r;
+        // a bias column covers the tile (group 0 or a multiple of 64)
+        float bc[3] = {0.f, 0.f, 0.f};
+        if (bias != nullptr) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            bc[j] = vnk_bias(bias, bi, j, cb * kWgDepth + row, Cout, n0, N, group);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(pd + ((wg * 3 + j) * kWgDepth + row) * P::kPdLd +
+                                               8 * i + 2 * tig) =
+                __floats2bfloat162_rn(acc[j][4 * i + 2 * r] + bc[j],
+                                      acc[j][4 * i + 2 * r + 1] + bc[j]);
+      }
+      if (ct < 3 * kWgDepth) abw[ct] = abw_next;
+      named_arrive(kPdFull, kProjPd);
+    }
+  }
+}
+
 // out[e] = the sum of the `blocks` projection partials of element e, in
 // channel-block order, rounded once to T.
 template <typename T>
@@ -660,17 +973,63 @@ proj_sum(const float* __restrict__ part, T* __restrict__ out, int blocks, int64_
   }
 }
 
-// Kernel C in the design the wrapper chose: wide, or layer_fwd<true, T>.
+// The designs of kernel C (ops/vn_layer_fused.py DESIGN_CODES).
+enum ProjDesign { kProjNarrow = 0, kProjWide = 1, kProjWgmma = 3 };
+
+// Where proj_wgmma's tiles fit (fwd_bf16_design): whole 64-channel boxes,
+// x resident (C_in <= 256), point rows of whole 16-byte vectors from a
+// 16-byte aligned base (the tensor maps), a bias column per whole tile
+// (group 0 or a multiple of 64).
+inline bool proj_wgmma_fits(int Cin, int Cout, int N, int group, const void* x) {
+  return Cin % kWgDepth == 0 && Cin <= ProjWg::kMaxChunks * kWgDepth && Cout % kWgDepth == 0 &&
+         Cin > 0 && Cout > 0 && N % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         group % kPts == 0;
+}
+
+// W^T and Wd^T into wt, then proj_wgmma on `ctas` persistent blocks.
+cudaError_t launch_proj_wgmma(const vnk_bf16* x, const float* w, const float* wd,
+                              const vnk_bf16* pbias, const vnk_bf16* dbias, const float* a,
+                              const float* b, const float* w_out, vnk_bf16* out, vnk_bf16* wt,
+                              int B, int Cin, int Cout, int N, int group, int ctas,
+                              float one_minus_ns, cudaStream_t st) {
+  if (!proj_wgmma_fits(Cin, Cout, N, group, x) || ctas < 1) return cudaErrorInvalidValue;
+  launch_transpose(w, wd, wt, Cin, Cout, st);
+  CUtensorMap wt_map, x_map;
+  cudaError_t err = tensor_map(&wt_map, wt, Cout, Cin, 2, kWgDepth, kWgDepth);
+  if (err == cudaSuccess) err = tensor_map(&x_map, x, N, Cin, B * 3, kPts, kWgDepth);
+  if (err != cudaSuccess) return err;
+  auto kernel = Cin == 64    ? proj_wgmma<1>
+                : Cin == 128 ? proj_wgmma<2>
+                : Cin == 192 ? proj_wgmma<3>
+                             : proj_wgmma<4>;
+  return launch_wide<kProjThreads>(kernel, dim3(ctas), ProjWg::bytes(Cin / kWgDepth), st, wt_map,
+                                   x_map, pbias, dbias, a, b, w_out, out, B, Cin, Cout, N, group,
+                                   one_minus_ns);
+}
+
+// Kernel C in the design the wrapper chose: wide, wgmma (bf16 only; `ctas`
+// its blocks), or layer_fwd<true, T>.
 template <typename T>
 int project_fwd(const void* x, const void* w, const void* wd, const void* pbias,
                 const void* dbias, const void* a, const void* b, const void* w_out, void* out,
-                void* wt, void* part, int B, int Cin, int Cout, int N, int group, int wide,
-                float one_minus_ns, void* stream) {
-  if (!wide)
+                void* wt, void* part, int B, int Cin, int Cout, int N, int group, int design,
+                int ctas, float one_minus_ns, void* stream) {
+  if (design == kProjNarrow)
     return launch<true, T>(x, w, wd, pbias, dbias, a, b, w_out, out, B, Cin, Cout, N, group,
                            one_minus_ns, stream);
+  if (design != kProjWide && (design != kProjWgmma || !vnk_is_bf16<T>()))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (vnk_is_bf16<T>()) {
+    if (design == kProjWgmma)
+      return static_cast<int>(launch_proj_wgmma(
+          static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const float*>(wd),
+          static_cast<const T*>(pbias), static_cast<const T*>(dbias),
+          static_cast<const float*>(a), static_cast<const float*>(b),
+          static_cast<const float*>(w_out), static_cast<T*>(out), static_cast<T*>(wt), B, Cin,
+          Cout, N, group, ctas, one_minus_ns, st));
+  }
   constexpr int kV = 16 / static_cast<int>(sizeof(T));
   launch_transpose(static_cast<const float*>(w), static_cast<const float*>(wd),
                    static_cast<T*>(wt), Cin, Cout, st);
@@ -735,17 +1094,21 @@ VNK_EXPORT int vn_layer_fused_fwd(const void* x, const void* w, const void* wd,
                                  streamed, one_minus_ns, stream);
 }
 
-// C takes `wide` (1: the wide design, 0: the narrow one; the wrapper's
-// forward_design) and, for the wide design, wt, a (2, Cin, Cout) scratch in
-// the activations' type, and part, (ceil(Cout / kBC), B, 3, N) floats: kBC
-// is 32 in float32 (ProjFma) and 64 in bf16 (ProjMma).
+// C takes `design` (ProjDesign: 1 the wide design, 0 the narrow one, 3 the
+// wgmma one, bf16 only; the wrapper's forward_design and fwd_bf16_design;
+// another, or wgmma where its tiles do not fit, returns
+// cudaErrorInvalidValue) and, for the wide and wgmma designs, wt, a (2,
+// Cin, Cout) scratch in the activations' type; for the wide design part,
+// (ceil(Cout / kBC), B, 3, N) floats (kBC 32 in float32, ProjFma, and 64 in
+// bf16, ProjMma); for the wgmma design `ctas`, its persistent blocks
+// (the wrapper's proj_wgmma_grid).
 VNK_EXPORT int vn_layer_fused_project_fwd(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* w_out,
     void* out, void* wt, void* part, int B, int Cin, int Cout, int N, int group,
-    int wide, float one_minus_ns, void* stream) {
+    int design, int ctas, float one_minus_ns, void* stream) {
   return project_fwd<float>(x, w, wd, pbias, dbias, a, b, w_out, out, wt, part, B, Cin,
-                            Cout, N, group, wide, one_minus_ns, stream);
+                            Cout, N, group, design, ctas, one_minus_ns, stream);
 }
 
 VNK_EXPORT int vn_layer_fused_fwd_bf16(const void* x, const void* w,
@@ -762,7 +1125,7 @@ VNK_EXPORT int vn_layer_fused_project_fwd_bf16(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* w_out,
     void* out, void* wt, void* part, int B, int Cin, int Cout, int N, int group,
-    int wide, float one_minus_ns, void* stream) {
+    int design, int ctas, float one_minus_ns, void* stream) {
   return project_fwd<vnk_bf16>(x, w, wd, pbias, dbias, a, b, w_out, out, wt, part, B, Cin,
-                               Cout, N, group, wide, one_minus_ns, stream);
+                               Cout, N, group, design, ctas, one_minus_ns, stream);
 }

@@ -1,8 +1,9 @@
 // Hopper's warpgroup tensor-core products fed by the Tensor Memory
 // Accelerator: passes 2 and 3 of the wide bf16 S' and C' ("wgmma" design,
-// vn_layer_bwd.cu; ops/vn_layer_fused.py::wide_bf16_design), and the
-// product of pass 1 of S and S' ("wgmma_p" design, pd_wgmma in
-// vn_layer_bwd.cu, whose epilogue needs the layer's arguments).
+// vn_layer_bwd.cu; ops/vn_layer_fused.py::wide_bf16_design), the product
+// of pass 1 of S and S' ("wgmma_p" design, pd_wgmma in vn_layer_bwd.cu,
+// whose epilogue needs the layer's arguments) and bf16 C (proj_wgmma in
+// vn_layer_fused.cu, the "wgmma" design of fwd_bf16_design).
 //
 // A block is three warpgroups' worth of warps: two consumer warpgroups
 // (warps 0-7; wgmma needs whole, aligned warpgroups), each owning 64 rows
@@ -170,6 +171,13 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Wait until at most kPending of the warpgroup's committed groups of
+// products are still in flight.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
 }
 
 // Keep the compiler from moving accumulator reads or writes across the

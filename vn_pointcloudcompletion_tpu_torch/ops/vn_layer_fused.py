@@ -21,7 +21,8 @@ each column's points.  As in JAX, ``S`` divides N and 512.
 
 Kernels B, C, S, S', C' and B' run one of two or three designs, chosen
 from the layer's widths and counted by name (``cuda_lib.variant_counts``):
-C by :func:`forward_design` and C' by :func:`backward_design`, the wide
+C by :func:`forward_design` (and :func:`fwd_bf16_design` in bf16) and C'
+by :func:`backward_design`, the wide
 design at C_in, C_out >= 16 (final_conv.1, vn_folding{1,2}.1), the narrow
 one below; S by :func:`stats_design` and S' by :func:`stats_bwd_design`,
 one pass that walks the channels at C_in <= 2 (final_conv.0, conv1, the
@@ -77,7 +78,7 @@ _LAYER = CudaKernel(
 )
 _PROJECT = CudaKernel(
     "vn_layer_fused.cu", "vn_layer_fused_project_fwd",
-    [_P] * 11 + [_I] * 6 + [ctypes.c_float, _P],
+    [_P] * 11 + [_I] * 7 + [ctypes.c_float, _P],
 )
 _STATS = CudaKernel(
     "vn_layer_bwd.cu", "vn_layer_stats_fwd", [_P] * 7 + [_I] * 6 + [_P])
@@ -507,10 +508,54 @@ def forward_design(c_in: int, c_out: int) -> str:
     cores in bf16; the channel blocks of a point tile run together, their
     projections summed by a second pass) where both are matrix work, c_in
     and c_out >= 16; ``"narrow"`` (one block walks all channels of its
-    point tile with vn_tile.cuh's FMA loop) below that.  Either is a
-    hand-written kernel; a CUDA launch takes the one chosen here or
-    raises."""
+    point tile with vn_tile.cuh's FMA loop) below that.  A wide bf16 C
+    runs the design of :func:`fwd_bf16_design` ("wgmma" or the wide one),
+    in the same order of summation.  Either is a hand-written kernel; a
+    CUDA launch takes the one chosen here or raises."""
     return "wide" if min(c_in, c_out) >= WIDE_MIN_CHANNELS else "narrow"
+
+
+PROJ_WGMMA_MAX_CIN = 256  # the deepest x tile proj_wgmma keeps resident (csrc ProjWg)
+
+
+def fwd_bf16_design(c_in: int, c_out: int, n: int, aligned: bool = True,
+                    group: int = 0) -> str:
+    """Which design a wide bf16 C (:func:`forward_design` "wide") runs:
+    ``"wgmma"`` (csrc proj_wgmma: persistent blocks, a 64-point tile's x
+    resident in shared memory for all of its channel blocks, p and d on
+    Hopper's warpgroup products fed by TMA, the channel blocks' projections
+    summed in registers in order, no second pass; proj_wide_mma's bits)
+    where its tiles fit: c_in and c_out multiples of 64, c_in at most
+    PROJ_WGMMA_MAX_CIN, every point row of x 16-byte aligned (n % 8 == 0
+    and an ``aligned`` base) and a bias column covering whole 64-point
+    tiles (group 0 or a multiple of 64) (final_conv.1's 256 -> 256,
+    vn_folding{1,2}.1's 256 -> 128); else ``"wide"`` (proj_wide_mma,
+    mma.sync, and proj_sum).
+    Either is a hand-written kernel; a CUDA launch takes the one chosen
+    here or raises."""
+    fits = (c_in % WGMMA_CHANNELS == 0 and c_out % WGMMA_CHANNELS == 0 and 0 < c_in
+            <= PROJ_WGMMA_MAX_CIN and c_out > 0 and n % 8 == 0 and group % TILE == 0)
+    return "wgmma" if fits and aligned else "wide"
+
+
+def proj_wgmma_grid(bsz: int, n: int, sms: int) -> int:
+    """Persistent blocks of proj_wgmma: one an SM (its shared memory
+    allows no second), no more than the (sample, 64-point tile) tiles they
+    walk; block k takes tiles k, k + grid, ..."""
+    return max(1, min(bsz * -(-n // TILE), sms))
+
+
+def proj_wgmma_smem(c_in: int) -> int:
+    """Bytes of shared memory of a proj_wgmma block (csrc ProjWg::bytes):
+    1024 of alignment slack, the resident x (3 planes of c_in / 64 boxes of
+    64 x 64 bf16), a ring of 4 stages of W^T and Wd^T boxes, the staged p
+    and d (2 x 3 x 64 rows of 72 bf16), the two halves' projections of two
+    blocks (2 x 2 x 3 x 64 floats), the staged block's A, B and w_out (3 x
+    64 floats) and the barriers (two a chunk and two a stage)."""
+    box = WGMMA_CHANNELS * TILE * 2
+    chunks, stages = c_in // WGMMA_CHANNELS, 4
+    return (1024 + chunks * 3 * box + stages * 2 * box + 2 * 3 * WGMMA_CHANNELS * (TILE + 8) * 2
+            + (2 * 2 * 3 * TILE + 3 * WGMMA_CHANNELS) * 4 + (2 * chunks + 2 * stages) * 8)
 
 
 def stats_design(c_in: int, c_out: int) -> str:
@@ -730,12 +775,19 @@ def _launch(kernel: CudaKernel, x, w, wd, pbias, dbias, a, b, w_out,
                1 - negative_slope, variant=design)
         return out
     design = forward_design(c_in, c_out)
+    if design == "wide" and _bf16(x):
+        design = fwd_bf16_design(c_in, c_out, n, _aligned(x), group)
     wt = part = None
-    if design == "wide":  # W^T and Wd^T; the channel blocks' projections
+    ctas = 0
+    if design != "narrow":  # W^T and Wd^T
         wt = _empty(x, 2, c_in, c_out, dtype=x.dtype)
+    if design == "wide":  # the channel blocks' projections
         part = _empty(x, projection_blocks(c_out, _bf16(x)), bsz, 3, n)
+    elif design == "wgmma":
+        ctas = proj_wgmma_grid(bsz, n, torch.cuda.get_device_properties(x.device)
+                               .multi_processor_count)
     launch(x, *ptrs, w_out.data_ptr(), out.data_ptr(), _ptr(wt), _ptr(part), bsz, c_in,
-           c_out, n, group, int(design == "wide"), 1 - negative_slope, variant=design)
+           c_out, n, group, DESIGN_CODES[design], ctas, 1 - negative_slope, variant=design)
     return out
 
 
