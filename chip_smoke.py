@@ -68,8 +68,13 @@ on one NVIDIA GPU:
    of each pass's bf16 products (float32 out) beside them as a yardstick;
    S's p equal in bits to S''s (same_p); C''s outputs equal in bits to the
    parent design's on the row's inputs and on adversarial ones (every p, d
-   a few float32 ulps from a bf16 midpoint), with the share of elements its
-   pass 1 summed again (certified_checks).
+   a few float32 ulps from a bf16 midpoint), its p, d (pd_out) equal in
+   bits to the in-order ones, the forward C's p, d (C's pd_out) equal in
+   bits to S's p (S run with W, and with Wd for d) and to S''s, with the
+   share of elements its pass 1 summed again and the fault that its
+   in-order p, d leave: the share that differs from the forward C's and
+   the vectors whose leaky side flips with them, printed, not held
+   (certified_checks).
 3b. K1's path: ``knn()`` at (8, 2048 vs 2048, D 768, k 16) (features past
    K2's D 512), counted: K1 once in its stream design and nothing else; the
    indices equal to the plain selection's over the same matrix (one batched
@@ -1093,35 +1098,96 @@ def same_p(rec: dict, x, w, c1, c2) -> None:
     del p_s, p_b, plain, diff, ulp, mag
 
 
+def forward_planes(x, w, wd, pbias, dbias, a, b, w_out, group: int = 0):
+    """The p, d (2, B, 3, C_out, N) that kernel C's forward forms on these
+    inputs (its ``pd_out``), in x's dtype."""
+    import torch
+
+    from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
+
+    pd = torch.empty((2, x.shape[0], 3, w.shape[0], x.shape[3]), device=x.device,
+                     dtype=x.dtype)
+    vn_layer_fused.project_fwd(x, w, wd, pbias, dbias, a, b, w_out, NS, group, pd_out=pd)
+    return pd
+
+
+def leaky_side(p, d, a, b):
+    """Which side of the leaky ReLU each (sample, channel, point) vector of
+    the planes (B, 3, C, N) takes: ``<q, d> >= 0``, q the BatchNorm on the
+    norms (vn_fused.reference_bn_leaky_planes's order), in float32."""
+    from vn_pointcloudcompletion_tpu_torch.ops.vn_fused import EPS, plane_dot, safe_sqrt
+
+    p, d = p.float(), d.float()
+    s = (a[None, :, None] + b[None, :, None] / (safe_sqrt(plane_dot(p, p)) + EPS))[:, None]
+    return plane_dot(p * s, d) >= 0
+
+
+def pd_fault(fwd, got, a, b) -> dict:
+    """How far a C' pass 1's p, d (``got``, its ``pd_out``) lie from the
+    forward C's (``fwd``): the share of elements that differ, and the share
+    and number of (sample, channel, point) vectors whose leaky side differs."""
+    flips = leaky_side(fwd[0], fwd[1], a, b) != leaky_side(got[0], got[1], a, b)
+    return {"pd_differs": float((fwd != got).float().mean()),
+            "side_flips": int(flips.sum()), "side_flip_share": float(flips.float().mean())}
+
+
 def certified_checks(rec: dict, fn, inputs, adversarial) -> None:
     """C''s certified design on the row's inputs: its outputs equal in bits
-    to the parent design's (pass 1 on FMAs in input-channel order); the
-    share of p, d elements its pass 1 summed again (its re-sum count over
-    the 2 B 3 C_out N elements); the same on ``adversarial`` inputs (every
-    p, d a few float32 ulps from a bf16 midpoint: all summed again).  Fails
-    where a bit differs.  Kept in the row under ``resum_share`` and
-    ``adversarial_resum_share``."""
+    to the parent design's (pass 1 on FMAs in input-channel order) and its
+    p, d (pd_out) to the in-order ones; the forward C's p, d (C's pd_out)
+    equal in bits to S's p with W and with Wd and to S''s (one k16 order);
+    the share of p, d elements its pass 1 summed again (its re-sum count
+    over the 2 B 3 C_out N elements); the same on ``adversarial`` inputs
+    (every p, d a few float32 ulps from a bf16 midpoint: all summed again).
+    Fails where a bit differs.  Prints the fault the in-order p, d leave
+    (``pd_fault`` against the forward C's) and the RMS distance over the
+    norm of dx, dW, dWd from the plain C' at the forward's p, d, without
+    holding them (ROADMAP.md §3).  Kept in the row under ``resum_share``,
+    ``fault``, ``rms_at_forward`` (``adversarial_`` before each for the
+    adversarial inputs)."""
     import torch
 
     from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
 
     for tag, args in (("row", inputs), ("adversarial", adversarial)):
-        count = torch.zeros(1, dtype=torch.int32, device=args[0].device)
+        x, w, wd, pb, db, a, b, w_out, _ = args
+        count = torch.zeros(1, dtype=torch.int32, device=x.device)
+        pd = torch.empty((2, x.shape[0], 3, w.shape[0], x.shape[3]), device=x.device,
+                         dtype=x.dtype)
         got, designs = launched_designs(
-            lambda: vn_layer_fused.layer_project_bwd(*args, NS, resums=count))
+            lambda: vn_layer_fused.layer_project_bwd(*args, NS, resums=count, pd_out=pd))
         with parent_designs():
             want, parent = launched_designs(lambda: vn_layer_fused.layer_project_bwd(*args, NS))
-        same = all(torch.equal(a, b) for a, b in zip(got, want) if a is not None)
-        x, w = args[0], args[1]
-        share = int(count.item()) / (2 * x.shape[0] * 3 * w.shape[0] * x.shape[3])
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(got, want) if a_ is not None)
+        in_order = torch.equal(pd, torch.stack([vn_layer_fused._products(w, x, pb),
+                                                vn_layer_fused._products(wd, x, db)]))
+        fwd = forward_planes(x, w, wd, pb, db, a, b, w_out)
+        s_p = [torch.empty_like(fwd[0]) for _ in range(3)]
+        vn_layer_fused.stats_fwd(x, w, pb, p_out=s_p[0])
+        vn_layer_fused.stats_fwd(x, wd, db, p_out=s_p[1])
+        c0 = torch.zeros(w.shape[0], device=x.device)
+        vn_layer_fused.stats_bwd(x, w, pb, c0, c0, p_out=s_p[2])
+        one_p = (torch.equal(s_p[0], fwd[0]) and torch.equal(s_p[1], fwd[1])
+                 and torch.equal(s_p[2], fwd[0]))
+        fault = pd_fault(fwd, pd, a, b)
+        at_fwd = vn_layer_fused.reference_layer_project_bwd(*args, NS, planes=fwd.unbind(0))
+        rms = [bf16_rms(o, r) for o, r in zip(got[:3], at_fwd[:3])]
+        share = int(count.item()) / pd.numel()
         print(f"[kernel {rec['name']}] {tag} inputs: the {designs} design's outputs bitwise "
-              f"equal to the {parent} design's: {same}; re-summed {share:.4%} of p, d "
-              f"({int(count.item())} elements)", flush=True)
-        if not same or designs != ["certified"]:
+              f"equal to the {parent} design's: {same}, its p, d to the in-order ones: "
+              f"{in_order}; the forward C's p, d equal to S's p (W; Wd) and S''s: {one_p}; "
+              f"re-summed {share:.4%} of p, d ({int(count.item())} elements); the fault: "
+              f"{fault['pd_differs']:.4%} of p, d differ from the forward C's, "
+              f"{fault['side_flips']} vectors ({fault['side_flip_share']:.4%}) take the other "
+              f"leaky side; dx, dW, dWd RMS from the plain C' at the forward's p, d {rms}",
+              flush=True)
+        if not (same and in_order and one_p) or designs != ["certified"]:
             raise AssertionError(f"{rec['name']}: the certified pass 1 differs from the "
-                                 f"in-order one on the {tag} inputs")
-        rec["resum_share" if tag == "row" else "adversarial_resum_share"] = share
-        del got, want
+                                 f"in-order one, or C's p, d from S's, on the {tag} inputs")
+        key = "" if tag == "row" else "adversarial_"
+        rec.update({f"{key}resum_share": share, f"{key}fault": fault,
+                    f"{key}rms_at_forward": rms})
+        del got, want, pd, fwd, s_p, at_fwd
 
 
 def adversarial_c_inputs(dev, b, c_in, c_out, n, seed):
@@ -4183,7 +4249,7 @@ def kernels_as_plain():
     PyTorch, for holding the kernels to it inside a whole train step."""
     from vn_pointcloudcompletion_tpu_torch.ops import vn_fused, vn_layer_fused as vl
 
-    def layer(kernel, x, w, wd, pbias, dbias, a, b, w_out, ns, group):
+    def layer(kernel, x, w, wd, pbias, dbias, a, b, w_out, ns, group, pd_out=None):
         if w_out is None:
             return vl.reference_layer_fused(x, w, wd, pbias, dbias, a, b, ns, group)
         return vl.reference_layer_fused_project(x, w, wd, pbias, dbias, a, b, w_out, ns, group)

@@ -2058,8 +2058,9 @@ def test_certified_c_bwd_equals_the_in_order_design(cuda, c_out, kind, bias, mon
     wgmma passes after pd_wide_fma's in-order pass 1), at 256 -> 256 and
     256 -> 128, on random inputs and on adversarial ones (every p, d a few
     float32 ulps from a bf16 midpoint: nearly all summed again), with and
-    without a bias per sample; its re-sum count lies between 0 and the 2 B
-    3 C_out N elements of p and d."""
+    without a bias per sample; its p, d (its pd_out) are the in-order ones
+    (``_products``); its re-sum count lies between 0 and the 2 B 3 C_out N
+    elements of p and d."""
     if kind == "random":
         x, w, wd, pb, db, a, b, w_out, _, _, g = _wgmma_inputs(cuda, 256, c_out, 1024, 0,
                                                                c_out + 7)
@@ -2075,8 +2076,10 @@ def test_certified_c_bwd_equals_the_in_order_design(cuda, c_out, kind, bias, mon
     count = torch.zeros(1, dtype=torch.int32, device=cuda)
     key = _variant("vn_layer_fused_project_bwd", 0, True, "certified")
     before = cuda_lib.variant_counts().get(key, 0)
-    got = port_layer.layer_project_bwd(*args, resums=count)
+    got, pd = _backward_planes(x, w, wd, pb, db, a, b, w_out, g, resums=count)
     assert cuda_lib.variant_counts().get(key, 0) == before + 1
+    assert torch.equal(pd, torch.stack([port_layer._products(w, x, pb),
+                                        port_layer._products(wd, x, db)]))
     monkeypatch.setattr(port_layer, "pass1_bf16_design", lambda *shape: "wgmma")
     want = port_layer.layer_project_bwd(*args)
     _assert_same_bits(got, want)
@@ -2087,6 +2090,128 @@ def test_certified_c_bwd_equals_the_in_order_design(cuda, c_out, kind, bias, mon
         assert resummed > total // 2
     if kind == "random":
         assert resummed < total // 4
+
+
+def _forward_planes(x, w, wd, pb, db, a, b, w_out, group=0):
+    """The p, d (2, B, 3, C_out, N) kernel C's forward forms (its pd_out)."""
+    pd = torch.full((2, x.shape[0], 3, w.shape[0], x.shape[3]), 7.0, device=x.device,
+                    dtype=x.dtype)
+    port_layer.project_fwd(x, w, wd, pb, db, a, b, w_out, NS, group, pd_out=pd)
+    return pd
+
+
+def _backward_planes(x, w, wd, pb, db, a, b, w_out, g, group=0, resums=None):
+    """C''s outputs and the p, d its pass 1 formed (its pd_out)."""
+    pd = torch.full((2, x.shape[0], 3, w.shape[0], x.shape[3]), 7.0, device=x.device,
+                    dtype=x.dtype)
+    out = port_layer.layer_project_bwd(x, w, wd, pb, db, a, b, w_out, g, NS, group,
+                                       resums=resums, pd_out=pd)
+    return out, pd
+
+
+# ------------------------------------------ C''s p, d against the forward's
+#
+# JAX's backward takes the p, d its forward formed (one _compute_pd for
+# both).  Kernel C hands out the p, d its epilogue read and C' the p, d its
+# pass 1 formed (pd_out).  Where their designs sum in one order
+# (port_layer.summation_order) the two are equal in bits: narrow with
+# narrow, float32 wide with float32 wide.  At the wide bf16 shapes C sums
+# in the tensor cores' k16 steps (proj_wgmma, proj_wide_mma) and C' in
+# input-channel order (certified, pd_wide_fma: the plain version's bits),
+# so they part where the two orders round apart, which the adversarial
+# inputs provoke: the fault ROADMAP.md §3 keeps open.
+
+_CONSISTENCY_SHAPES = [  # (C_in, C_out, N, group, unaligned): wgmma, then proj_wide_mma
+    (256, 256, 1024, 0, False), (256, 128, 1000, 0, False), (64, 192, 1088, 64, False),
+    (48, 80, 1000, 0, False), (320, 64, 1000, 0, False), (64, 64, 1088, 16, False),
+    (256, 128, 1024, 0, True),
+]
+
+
+def _unaligned(t):
+    """t's values in a contiguous tensor whose base lies one element past a
+    16-byte boundary."""
+    out = torch.empty(t.numel() + 8, device=t.device, dtype=t.dtype)[1:1 + t.numel()]
+    return out.view(t.shape).copy_(t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out,n,group,unaligned", _CONSISTENCY_SHAPES)
+@pytest.mark.parametrize("kind", ["random", "adversarial"])
+def test_wide_bf16_c_bwd_planes_part_from_the_forward(cuda, c_in, c_out, n, group, unaligned,
+                                                      kind):
+    """At wide bf16 shapes, C''s p, d are the in-order ones and C's the k16
+    ones: C' within the in-order plain version's bounds, and on the
+    adversarial inputs its p, d differ from the forward's (the fault,
+    shown)."""
+    seed = c_in + c_out + n + group
+    if kind == "random":
+        x, w, wd, pb, db, a, b, w_out, _, _, g = _wide_inputs(cuda, c_in, c_out, n, group,
+                                                              True, True, seed)
+    else:
+        x, w, wd, a, b, w_out, g = _adversarial_layer(cuda, c_in, c_out, n, seed)
+        pb = db = None
+        if group:
+            rng = np.random.default_rng(seed)
+            pb, db = _bf16_t(*(rng.standard_normal((2, 3, c_out, n // group))
+                               .astype(np.float32) for _ in range(2)), device=cuda)
+    if unaligned:
+        x = _unaligned(x)
+    aligned = x.data_ptr() % 16 == 0
+    assert aligned != unaligned
+    fwd_design = port_layer.project_fwd_design(c_in, c_out, n, True, aligned, group)
+    bwd_design = port_layer.project_bwd_design(c_in, c_out, n, True, aligned, group)
+    assert port_layer.summation_order("C", fwd_design, True) == "k16"
+    assert port_layer.summation_order("C'", bwd_design, True) == "in_order"
+    inputs = (x, w, wd, pb, db, a, b, w_out)
+    fwd = _forward_planes(*inputs, group)
+    key = _variant("vn_layer_fused_project_bwd", group, True, bwd_design)
+    before = cuda_lib.variant_counts().get(key, 0)
+    got, mine = _backward_planes(*inputs, g, group)
+    assert cuda_lib.variant_counts().get(key, 0) == before + 1
+    assert torch.equal(mine, torch.stack([port_layer._products(w, x, pb, group),
+                                          port_layer._products(wd, x, db, group)]))
+    _assert_bf16_bwd(got, port_layer.reference_layer_project_bwd(*inputs, g, NS, group))
+    differ = int((mine != fwd).sum())
+    print(f"C' {bwd_design} after C {fwd_design} ({c_in}, {c_out}, {n}, group {group}, "
+          f"{kind}): {differ} of {fwd.numel()} p, d differ from the forward's")
+    if kind == "adversarial":
+        assert differ > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out", [(8, 64), (64, 8), (3, 16)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_narrow_c_bwd_recomputes_the_forward_planes(cuda, c_in, c_out, bf16):
+    """Where C and C' both take the narrow design (C_in or C_out under 16),
+    C''s pd_pass forms the p, d of the forward's layer_fwd in bits: both sum
+    with vn_tile.cuh's loop in input-channel order; in bf16 that is the
+    plain version's order too."""
+    inputs = _wide_inputs(cuda, c_in, c_out, 1000, 0, True, bf16, c_in * c_out)
+    x, w, wd, pb, db, a, b, w_out, _, _, g = inputs
+    assert port_layer.project_fwd_design(c_in, c_out, 1000, bf16) == "narrow"
+    assert port_layer.project_bwd_design(c_in, c_out, 1000, bf16) == "narrow"
+    fwd = _forward_planes(x, w, wd, pb, db, a, b, w_out)
+    _, mine = _backward_planes(x, w, wd, pb, db, a, b, w_out, g)
+    assert torch.equal(mine, fwd)
+    if bf16:
+        assert torch.equal(fwd, torch.stack([port_layer._products(w, x, pb),
+                                             port_layer._products(wd, x, db)]))
+
+
+@pytest.mark.gpu
+def test_float32_wide_c_bwd_recomputes_the_forward_planes(cuda):
+    """float32 at 256 -> 256: C's proj_wide_fma and C''s pd_wide_fma form p
+    and d with fmaf in input-channel order from 0, the bias after: equal in
+    bits (their pd_out)."""
+    x, w, wd, pb, db, a, b, w_out, _, _, g = _wide_inputs(cuda, 256, 256, 1024, 0, True, False,
+                                                          11)
+    assert port_layer.project_fwd_design(256, 256, 1024, False) == "wide"
+    assert port_layer.project_bwd_design(256, 256, 1024, False) == "wide"
+    fwd = _forward_planes(x, w, wd, pb, db, a, b, w_out)
+    _, mine = _backward_planes(x, w, wd, pb, db, a, b, w_out, g)
+    print(f"float32 wide C' against C: {int((mine != fwd).sum())} of {fwd.numel()} p, d differ")
+    assert torch.equal(mine, fwd)
 
 
 @pytest.mark.gpu

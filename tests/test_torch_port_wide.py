@@ -46,11 +46,14 @@ _EXPECTED = {
 }
 
 
-# ... and the passes 2 and 3 each takes in the bf16 mode
-# (wide_bf16_design): every wide layer's widths are multiples of 64 and its
-# point rows (4096 points at num_coarse 256, 14336 at 448) 16-byte aligned,
-# so the wgmma passes; the walk and the narrow passes keep their design
-_EXPECTED_BF16 = {name: {key: "wgmma" if design == "wide" else design
+# ... and the design each takes in the bf16 mode (pass1_bf16_design): every
+# wide layer's widths are multiples of 64 and its point rows (4096 points
+# at num_coarse 256, 14336 at 448) 16-byte aligned, so the wgmma passes, and
+# S''s pass 1 on wgmma too ("wgmma_p"), C''s certified one ("certified":
+# every C' call of a flagship and a vn_pointr_448 train step); the walk and
+# the narrow passes keep theirs
+_EXPECTED_BF16 = {name: {key: ("wgmma_p" if key[0] == "S'" else "certified")
+                         if design == "wide" else design
                          for key, design in layers.items()}
                   for name, layers in _EXPECTED.items()}
 
@@ -60,7 +63,7 @@ def test_backward_design_of_every_trained_layer(name, monkeypatch):
     """One train-mode forward and backward of a pipeline at num_coarse 256
     or 448: each S' and C' call's (C_in, C_out, group) and the design the
     wrapper takes for it, in float32 and in the bf16 mode (where a wide
-    layer's passes 2 and 3 go to wgmma)."""
+    layer's passes go to wgmma, its pass 1 too)."""
     from vn_pointcloudcompletion_tpu_torch.models.composer import build_model
 
     seen, seen_bf16 = {}, {}
@@ -70,7 +73,8 @@ def test_backward_design_of_every_trained_layer(name, monkeypatch):
             group = args[-1] if isinstance(args[-1], int) else 0
             key = (kernel, x.shape[2], w.shape[0], group)
             seen[key] = design(x.shape[2], w.shape[0])
-            seen_bf16[key] = (port_layer.wide_bf16_design(x.shape[2], w.shape[0], x.shape[3])
+            seen_bf16[key] = (port_layer.pass1_bf16_design(kernel, x.shape[2], w.shape[0],
+                                                           x.shape[3], True, group)
                               if seen[key] == "wide" else seen[key])
             return fn(x, w, *args)
         return wrapped

@@ -120,7 +120,9 @@
 //      tensor cores with the in-order bits (pd_cert: mma.sync sums under an
 //      a-posteriori certificate of their bf16 rounding, the uncertain ~9%
 //      summed again in input-channel order from a resident tile), then the
-//      wgmma passes 2 and 3.
+//      wgmma passes 2 and 3.  Its p, d are the plain version's, not the
+//      forward C's (proj_wgmma sums in k16 steps): they part at ~0.017% of
+//      elements on the main paths' inputs (ROADMAP.md §3).
 //   wgmma_p (bf16 S and S' where wgmma fits, bias columns of whole tiles):
 //      pass 1 on wgmma fed by TMA too (pd_wgmma); S' then the wgmma passes
 //      2 and 3.  Its k16 steps and sums run in pd_wide_mma's order, so S and
@@ -138,7 +140,7 @@
 //      square root's and the division's sequences and the lane
 //      butterflies, which that count leaves out.
 //   C' at 256 -> 256: operations, six products (p, d, dx from dp and dd,
-//      dW, dWd).
+//      dW, dWd).  C''s pass 1 hands out the p, d it formed (pd_out, tests).
 // The attention decoder's pair fold (1 -> 256, N = 14336, group 64) is
 // bound like final_conv.0: B' by the g read, S and S' by their operations;
 // the bias columns are 1/64 of a plane.  Passes 2 and 3 read the dp/dd
@@ -190,6 +192,8 @@ struct PdArgs {
   E* dd;
   float* partial;  // (nqc, B, T, Cout) per-channel sums, then the bias
                    // sums (nqb, B, R, Cout) with R = T * spt
+  E* pd_out;       // C': null, or (2, B, 3, Cout, N) that pass 1 fills with the
+                   // p and d its epilogue backward reads (tests)
   int B, Cin, Cout, N, T;
   int group;  // 0: one bias column per sample; S: one per S points
   int sub;    // points per bias partial: min(group, kPts), kPts for group 0
@@ -307,6 +311,8 @@ __device__ __forceinline__ void pd_epilogue(const PdArgs<T>& args,
         const float d[3] = {vnk_round_as<T>(accd[0][i][q] + db[0]),
                             vnk_round_as<T>(accd[1][i][q] + db[1]),
                             vnk_round_as<T>(accd[2][i][q] + db[2])};
+        if (kMode == kProjBwd && args.pd_out != nullptr && ok)
+          vnk_put_pd(args.pd_out, args.B, bi, c, Cout, n, N, p, d);
         float gp[3] = {0.f, 0.f, 0.f}, gv[3] = {0.f, 0.f, 0.f};
         if (ok) {
 #pragma unroll
@@ -473,6 +479,8 @@ __global__ void __launch_bounds__(kThreads, 1) pd_pass(PdArgs<T> args) {
         const float d[3] = {vnk_round_as<T>(accd[0][i][q] + db[0]),
                             vnk_round_as<T>(accd[1][i][q] + db[1]),
                             vnk_round_as<T>(accd[2][i][q] + db[2])};
+        if (kMode == kProjBwd && args.pd_out != nullptr && ok)
+          vnk_put_pd(args.pd_out, args.B, bi, c, Cout, n, N, p, d);
         float gp[3] = {0.f, 0.f, 0.f}, gv[3] = {0.f, 0.f, 0.f};
         if (ok) {
 #pragma unroll
@@ -2477,6 +2485,7 @@ PdArgs<T> make_args(const void* x, const void* w, const void* wd,
   r.dp = static_cast<T*>(dp);
   r.dd = static_cast<T*>(dd);
   r.partial = static_cast<float*>(partial);
+  r.pd_out = nullptr;
   r.B = B;
   r.Cin = Cin;
   r.Cout = Cout;
@@ -2652,8 +2661,8 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
               const void* dbias, const void* a, const void* b,
               const void* w_out, const void* g, void* dx, void* dw2,
               void* sums, void* dpdb, void* dp, void* dd, void* partial,
-              void* dw_part, void* wt, void* resums, int B, int Cin, int Cout, int N, int S,
-              int chunk, int group, int design, float one_minus_ns, void* stream) {
+              void* dw_part, void* wt, void* resums, void* pd_out, int B, int Cin, int Cout,
+              int N, int S, int chunk, int group, int design, float one_minus_ns, void* stream) {
   const bool wgmma = vnk_is_bf16<T>() && wgmma_fits(Cin, Cout, N, x, dp, dd);
   const bool cert = kMode == kProjBwd && wgmma && Cin <= PdCert::kMaxCin;
   if (check_design(design, Cin, kMode == kProjBwd, kMode == kLayerBwd, wgmma, cert) !=
@@ -2662,9 +2671,10 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
   if (B == 0 || N == 0 || Cout == 0) return 0;
   constexpr int nqc = channel_sums<kMode>();
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const PdArgs<T> args = make_args<T>(x, w, wd, pbias, dbias, a, b, w_out, g,
-                                      nullptr, nullptr, dp, dd, partial, B, Cin,
-                                      Cout, N, group, one_minus_ns);
+  PdArgs<T> args = make_args<T>(x, w, wd, pbias, dbias, a, b, w_out, g,
+                                nullptr, nullptr, dp, dd, partial, B, Cin,
+                                Cout, N, group, one_minus_ns);
+  args.pd_out = static_cast<T*>(pd_out);
   if constexpr (kMode == kLayerBwd) {
     if (design == kWalkDesign) {
       float* part = static_cast<float*>(dw_part);
@@ -2793,8 +2803,8 @@ VNK_EXPORT int vn_layer_fused_bwd(
     float one_minus_ns, void* stream) {
   return layer_bwd<kLayerBwd, float>(x, w, wd, pbias, dbias, a, b, nullptr, g, dx,
                                      dw2, dab, dpdb, dp, dd, partial, dw_part, nullptr,
-                                     nullptr, B, Cin, Cout, N, S, 0, group, design, one_minus_ns,
-                                     stream);
+                                     nullptr, nullptr, B, Cin, Cout, N, S, 0, group, design,
+                                     one_minus_ns, stream);
 }
 
 VNK_EXPORT int vn_layer_fused_bwd_bf16(
@@ -2805,23 +2815,26 @@ VNK_EXPORT int vn_layer_fused_bwd_bf16(
     float one_minus_ns, void* stream) {
   return layer_bwd<kLayerBwd, vnk_bf16>(x, w, wd, pbias, dbias, a, b, nullptr, g,
                                         dx, dw2, dab, dpdb, dp, dd, partial,
-                                        dw_part, nullptr, nullptr, B, Cin, Cout, N, S, 0, group,
-                                        design, one_minus_ns, stream);
+                                        dw_part, nullptr, nullptr, nullptr, B, Cin, Cout, N, S, 0,
+                                        group, design, one_minus_ns, stream);
 }
 
 // C': as B' with w_out (Cout,) and g (B, 3, 1, N); dabo (3, Cout) =
 // (dA, dB, dw_out); partial with nqc = 3, nqb = 6.  resums: null, or one
 // int to which the certified pass 1 (design 4) adds the number of p, d
-// elements it summed again (the other designs leave it).
+// elements it summed again (the other designs leave it).  pd_out: null, or
+// (2, B, 3, Cout, N) in the activations' type that every design's pass 1
+// fills with the p and d its epilogue backward reads (tests hold them to
+// kernel C's pd_out).
 VNK_EXPORT int vn_layer_fused_project_bwd(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* w_out,
     const void* g, void* dx, void* dw2, void* dabo, void* dpdb, void* dp,
-    void* dd, void* partial, void* dw_part, void* wt, void* resums, int B, int Cin, int Cout,
-    int N, int S, int chunk, int group, int design, float one_minus_ns, void* stream) {
+    void* dd, void* partial, void* dw_part, void* wt, void* resums, void* pd_out, int B, int Cin,
+    int Cout, int N, int S, int chunk, int group, int design, float one_minus_ns, void* stream) {
   return layer_bwd<kProjBwd, float>(x, w, wd, pbias, dbias, a, b, w_out, g, dx,
-                                    dw2, dabo, dpdb, dp, dd, partial, dw_part, wt, resums, B,
-                                    Cin, Cout, N, S, chunk, group, design, one_minus_ns,
+                                    dw2, dabo, dpdb, dp, dd, partial, dw_part, wt, resums,
+                                    pd_out, B, Cin, Cout, N, S, chunk, group, design, one_minus_ns,
                                     stream);
 }
 
@@ -2829,10 +2842,10 @@ VNK_EXPORT int vn_layer_fused_project_bwd_bf16(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* w_out,
     const void* g, void* dx, void* dw2, void* dabo, void* dpdb, void* dp,
-    void* dd, void* partial, void* dw_part, void* wt, void* resums, int B, int Cin, int Cout,
-    int N, int S, int chunk, int group, int design, float one_minus_ns, void* stream) {
+    void* dd, void* partial, void* dw_part, void* wt, void* resums, void* pd_out, int B, int Cin,
+    int Cout, int N, int S, int chunk, int group, int design, float one_minus_ns, void* stream) {
   return layer_bwd<kProjBwd, vnk_bf16>(x, w, wd, pbias, dbias, a, b, w_out, g,
                                        dx, dw2, dabo, dpdb, dp, dd, partial,
-                                       dw_part, wt, resums, B, Cin, Cout, N, S, chunk, group,
-                                       design, one_minus_ns, stream);
+                                       dw_part, wt, resums, pd_out, B, Cin, Cout, N, S, chunk,
+                                       group, design, one_minus_ns, stream);
 }

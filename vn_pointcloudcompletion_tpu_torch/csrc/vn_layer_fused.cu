@@ -121,7 +121,7 @@ layer_fwd(const T* __restrict__ x, const float* __restrict__ w,
           const float* __restrict__ wd, const T* __restrict__ pbias,
           const T* __restrict__ dbias, const float* __restrict__ a,
           const float* __restrict__ b, const float* __restrict__ w_out,
-          T* __restrict__ out, int Cin, int Cout, int N, int group,
+          T* __restrict__ out, T* __restrict__ pd_out, int Cin, int Cout, int N, int group,
           float one_minus_ns) {
   __shared__ VnkTileSmem sm;
   __shared__ float red[kProject ? 16 : 1][3][kPts];
@@ -170,6 +170,8 @@ layer_fwd(const T* __restrict__ x, const float* __restrict__ w,
             dv[j] = vnk_round_bf16(dv[j]);
           }
         }
+        if (kProject && pd_out != nullptr && n0 + tx * 4 + q < N)
+          vnk_put_pd(pd_out, gridDim.z, bi, c, Cout, n0 + tx * 4 + q, N, pv, dv);
         vnk_bn_leaky(pv[0], pv[1], pv[2], dv[0], dv[1], dv[2], av, bv,
                      one_minus_ns, v);
         o[0][q] = v[0];
@@ -219,7 +221,7 @@ layer_fwd(const T* __restrict__ x, const float* __restrict__ w,
 template <bool kProject, typename T>
 int launch(const void* x, const void* w, const void* wd, const void* pbias,
            const void* dbias, const void* a, const void* b, const void* w_out,
-           void* out, int B, int Cin, int Cout, int N, int group,
+           void* out, void* pd_out, int B, int Cin, int Cout, int N, int group,
            float one_minus_ns, void* stream) {
   if (B == 0 || N == 0) return 0;
   const int ch_tiles = kProject ? 1 : (Cout + kCh - 1) / kCh;
@@ -229,7 +231,7 @@ int launch(const void* x, const void* w, const void* wd, const void* pbias,
       static_cast<const float*>(wd), static_cast<const T*>(pbias),
       static_cast<const T*>(dbias), static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<const float*>(w_out),
-      static_cast<T*>(out), Cin, Cout, N, group, one_minus_ns);
+      static_cast<T*>(out), static_cast<T*>(pd_out), Cin, Cout, N, group, one_minus_ns);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -405,8 +407,9 @@ __global__ void __launch_bounds__(kWideThreads, 2)
 proj_wide_fma(const float* __restrict__ x, const float* __restrict__ wt,
               const float* __restrict__ pbias, const float* __restrict__ dbias,
               const float* __restrict__ a, const float* __restrict__ b,
-              const float* __restrict__ w_out, float* __restrict__ part, int B, int Cin,
-              int Cout, int N, int group, float one_minus_ns, bool aw, bool ax) {
+              const float* __restrict__ w_out, float* __restrict__ part,
+              float* __restrict__ pd_out, int B, int Cin, int Cout, int N, int group,
+              float one_minus_ns, bool aw, bool ax) {
   using P = ProjFma;
   constexpr int kMC = P::kMC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -486,10 +489,12 @@ proj_wide_fma(const float* __restrict__ x, const float* __restrict__ wt,
           db[j] = vnk_bias(dbias, bi, j, c, Cout, n0 + tx * 4 + q, N, group);
         }
       }
+      const float pv[3] = {accp[0][i][q] + pb[0], accp[1][i][q] + pb[1], accp[2][i][q] + pb[2]};
+      const float dv[3] = {accd[0][i][q] + db[0], accd[1][i][q] + db[1], accd[2][i][q] + db[2]};
+      if (pd_out != nullptr && n0 + tx * 4 + q < N)
+        vnk_put_pd(pd_out, B, bi, c, Cout, n0 + tx * 4 + q, N, pv, dv);
       float o[3];
-      vnk_bn_leaky(accp[0][i][q] + pb[0], accp[1][i][q] + pb[1], accp[2][i][q] + pb[2],
-                   accd[0][i][q] + db[0], accd[1][i][q] + db[1], accd[2][i][q] + db[2], av,
-                   bv, one_minus_ns, o);
+      vnk_bn_leaky(pv[0], pv[1], pv[2], dv[0], dv[1], dv[2], av, bv, one_minus_ns, o);
 #pragma unroll
       for (int j = 0; j < 3; ++j) proj[j][q] += wo * o[j];
     }
@@ -525,8 +530,9 @@ __global__ void __launch_bounds__(ProjMma::kThreads, 2)
 proj_wide_mma(const vnk_bf16* __restrict__ x, const vnk_bf16* __restrict__ wt,
               const vnk_bf16* __restrict__ pbias, const vnk_bf16* __restrict__ dbias,
               const float* __restrict__ a, const float* __restrict__ b,
-              const float* __restrict__ w_out, float* __restrict__ part, int B, int Cin,
-              int Cout, int N, int group, float one_minus_ns, bool aw, bool ax) {
+              const float* __restrict__ w_out, float* __restrict__ part,
+              vnk_bf16* __restrict__ pd_out, int B, int Cin, int Cout, int N, int group,
+              float one_minus_ns, bool aw, bool ax) {
   using T = vnk_bf16;
   using P = ProjMma;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -621,6 +627,7 @@ proj_wide_mma(const vnk_bf16* __restrict__ x, const vnk_bf16* __restrict__ wt,
             pv[j] = vnk_round_bf16(accp[j][mt][nt][2 * r + e] + pb);
             dv[j] = vnk_round_bf16(accd[j][mt][nt][2 * r + e] + db);
           }
+          if (pd_out != nullptr && n < N) vnk_put_pd(pd_out, B, bi, c, Cout, n, N, pv, dv);
           float o[3];
           vnk_bn_leaky(pv[0], pv[1], pv[2], dv[0], dv[1], dv[2], av, bv, one_minus_ns, o);
 #pragma unroll
@@ -807,8 +814,9 @@ __global__ void __launch_bounds__(kProjThreads, 1)
 proj_wgmma(const __grid_constant__ CUtensorMap tm_wt, const __grid_constant__ CUtensorMap tm_x,
            const vnk_bf16* __restrict__ pbias, const vnk_bf16* __restrict__ dbias,
            const float* __restrict__ a, const float* __restrict__ b,
-           const float* __restrict__ w_out, vnk_bf16* __restrict__ out, int B, int Cin,
-           int Cout, int N, int group, float one_minus_ns) {
+           const float* __restrict__ w_out, vnk_bf16* __restrict__ out,
+           vnk_bf16* __restrict__ pd_out, int B, int Cin, int Cout, int N, int group,
+           float one_minus_ns) {
   using P = ProjWg;
   extern __shared__ unsigned char smem_raw[];
   constexpr int nk = kNk;
@@ -948,11 +956,19 @@ proj_wgmma(const __grid_constant__ CUtensorMap tm_wt, const __grid_constant__ CU
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < 3; ++j)
+          for (int j = 0; j < 3; ++j) {
+            const __nv_bfloat162 v = __floats2bfloat162_rn(acc[j][4 * i + 2 * r] + bc[j],
+                                                           acc[j][4 * i + 2 * r + 1] + bc[j]);
             *reinterpret_cast<__nv_bfloat162*>(pd + ((wg * 3 + j) * kWgDepth + row) * P::kPdLd +
-                                               8 * i + 2 * tig) =
-                __floats2bfloat162_rn(acc[j][4 * i + 2 * r] + bc[j],
-                                      acc[j][4 * i + 2 * r + 1] + bc[j]);
+                                               8 * i + 2 * tig) = v;
+            // the test hook: p (wg 0) or d (wg 1) as staged, (2, B, 3, Cout, N);
+            // N % 8 == 0, so a pair is in or out
+            const int n = n0 + 8 * i + 2 * tig;
+            if (pd_out != nullptr && n < N)
+              *reinterpret_cast<__nv_bfloat162*>(
+                  pd_out + (((static_cast<size_t>(wg) * B + bi) * 3 + j) * Cout +
+                            cb * kWgDepth + row) * N + n) = v;
+          }
       }
       if (ct < 3 * kWgDepth) abw[ct] = abw_next;
       named_arrive(kPdFull, kProjPd);
@@ -990,7 +1006,7 @@ inline bool proj_wgmma_fits(int Cin, int Cout, int N, int group, const void* x) 
 cudaError_t launch_proj_wgmma(const vnk_bf16* x, const float* w, const float* wd,
                               const vnk_bf16* pbias, const vnk_bf16* dbias, const float* a,
                               const float* b, const float* w_out, vnk_bf16* out, vnk_bf16* wt,
-                              int B, int Cin, int Cout, int N, int group, int ctas,
+                              vnk_bf16* pd_out, int B, int Cin, int Cout, int N, int group, int ctas,
                               float one_minus_ns, cudaStream_t st) {
   if (!proj_wgmma_fits(Cin, Cout, N, group, x) || ctas < 1) return cudaErrorInvalidValue;
   launch_transpose(w, wd, wt, Cin, Cout, st);
@@ -1003,8 +1019,8 @@ cudaError_t launch_proj_wgmma(const vnk_bf16* x, const float* w, const float* wd
                 : Cin == 192 ? proj_wgmma<3>
                              : proj_wgmma<4>;
   return launch_wide<kProjThreads>(kernel, dim3(ctas), ProjWg::bytes(Cin / kWgDepth), st, wt_map,
-                                   x_map, pbias, dbias, a, b, w_out, out, B, Cin, Cout, N, group,
-                                   one_minus_ns);
+                                   x_map, pbias, dbias, a, b, w_out, out, pd_out, B, Cin, Cout, N,
+                                   group, one_minus_ns);
 }
 
 // Kernel C in the design the wrapper chose: wide, wgmma (bf16 only; `ctas`
@@ -1012,11 +1028,11 @@ cudaError_t launch_proj_wgmma(const vnk_bf16* x, const float* w, const float* wd
 template <typename T>
 int project_fwd(const void* x, const void* w, const void* wd, const void* pbias,
                 const void* dbias, const void* a, const void* b, const void* w_out, void* out,
-                void* wt, void* part, int B, int Cin, int Cout, int N, int group, int design,
-                int ctas, float one_minus_ns, void* stream) {
+                void* wt, void* part, void* pd_out, int B, int Cin, int Cout, int N, int group,
+                int design, int ctas, float one_minus_ns, void* stream) {
   if (design == kProjNarrow)
-    return launch<true, T>(x, w, wd, pbias, dbias, a, b, w_out, out, B, Cin, Cout, N, group,
-                           one_minus_ns, stream);
+    return launch<true, T>(x, w, wd, pbias, dbias, a, b, w_out, out, pd_out, B, Cin, Cout, N,
+                           group, one_minus_ns, stream);
   if (design != kProjWide && (design != kProjWgmma || !vnk_is_bf16<T>()))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
@@ -1027,8 +1043,8 @@ int project_fwd(const void* x, const void* w, const void* wd, const void* pbias,
           static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const float*>(wd),
           static_cast<const T*>(pbias), static_cast<const T*>(dbias),
           static_cast<const float*>(a), static_cast<const float*>(b),
-          static_cast<const float*>(w_out), static_cast<T*>(out), static_cast<T*>(wt), B, Cin,
-          Cout, N, group, ctas, one_minus_ns, st));
+          static_cast<const float*>(w_out), static_cast<T*>(out), static_cast<T*>(wt),
+          static_cast<T*>(pd_out), B, Cin, Cout, N, group, ctas, one_minus_ns, st));
   }
   constexpr int kV = 16 / static_cast<int>(sizeof(T));
   launch_transpose(static_cast<const float*>(w), static_cast<const float*>(wd),
@@ -1044,8 +1060,8 @@ int project_fwd(const void* x, const void* w, const void* wd, const void* pbias,
         proj_wide_mma, dim3(blocks, tiles, B), P::kBytes, st, static_cast<const T*>(x),
         static_cast<const T*>(wt), static_cast<const T*>(pbias), static_cast<const T*>(dbias),
         static_cast<const float*>(a), static_cast<const float*>(b),
-        static_cast<const float*>(w_out), static_cast<float*>(part), B, Cin, Cout, N, group,
-        one_minus_ns, aw, ax);
+        static_cast<const float*>(w_out), static_cast<float*>(part), static_cast<T*>(pd_out), B,
+        Cin, Cout, N, group, one_minus_ns, aw, ax);
   } else {
     using P = ProjFma;
     blocks = (Cout + P::kBC - 1) / P::kBC;
@@ -1053,8 +1069,8 @@ int project_fwd(const void* x, const void* w, const void* wd, const void* pbias,
         proj_wide_fma, dim3(blocks, tiles, B), P::kBytes, st, static_cast<const T*>(x),
         static_cast<const T*>(wt), static_cast<const T*>(pbias), static_cast<const T*>(dbias),
         static_cast<const float*>(a), static_cast<const float*>(b),
-        static_cast<const float*>(w_out), static_cast<float*>(part), B, Cin, Cout, N, group,
-        one_minus_ns, aw, ax);
+        static_cast<const float*>(w_out), static_cast<float*>(part), static_cast<T*>(pd_out), B,
+        Cin, Cout, N, group, one_minus_ns, aw, ax);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t cols = static_cast<int64_t>(B) * 3 * N;
@@ -1075,8 +1091,8 @@ int layer_fwd_design(const void* x, const void* w, const void* wd, const void* p
   if (streamed)
     return launch_stream<T>(x, w, wd, pbias, dbias, a, b, out, B, Cin, Cout, N, group,
                             one_minus_ns, stream);
-  return launch<false, T>(x, w, wd, pbias, dbias, a, b, nullptr, out, B, Cin, Cout, N, group,
-                          one_minus_ns, stream);
+  return launch<false, T>(x, w, wd, pbias, dbias, a, b, nullptr, out, nullptr, B, Cin, Cout, N,
+                          group, one_minus_ns, stream);
 }
 
 // pbias and dbias are (B, 3, Cout) per-sample biases (group = 0) or
@@ -1101,13 +1117,16 @@ VNK_EXPORT int vn_layer_fused_fwd(const void* x, const void* w, const void* wd,
 // Cin, Cout) scratch in the activations' type; for the wide design part,
 // (ceil(Cout / kBC), B, 3, N) floats (kBC 32 in float32, ProjFma, and 64 in
 // bf16, ProjMma); for the wgmma design `ctas`, its persistent blocks
-// (the wrapper's proj_wgmma_grid).
+// (the wrapper's proj_wgmma_grid).  pd_out: null, or (2, B, 3, Cout, N) in
+// the activations' type, which every design fills with the p and d its
+// epilogue reads (the bias added, rounded through bf16 in the bf16 mode),
+// so that a test can hold C''s recomputed planes to them; no path passes it.
 VNK_EXPORT int vn_layer_fused_project_fwd(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* w_out,
-    void* out, void* wt, void* part, int B, int Cin, int Cout, int N, int group,
+    void* out, void* wt, void* part, void* pd_out, int B, int Cin, int Cout, int N, int group,
     int design, int ctas, float one_minus_ns, void* stream) {
-  return project_fwd<float>(x, w, wd, pbias, dbias, a, b, w_out, out, wt, part, B, Cin,
+  return project_fwd<float>(x, w, wd, pbias, dbias, a, b, w_out, out, wt, part, pd_out, B, Cin,
                             Cout, N, group, design, ctas, one_minus_ns, stream);
 }
 
@@ -1124,8 +1143,8 @@ VNK_EXPORT int vn_layer_fused_fwd_bf16(const void* x, const void* w,
 VNK_EXPORT int vn_layer_fused_project_fwd_bf16(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* w_out,
-    void* out, void* wt, void* part, int B, int Cin, int Cout, int N, int group,
+    void* out, void* wt, void* part, void* pd_out, int B, int Cin, int Cout, int N, int group,
     int design, int ctas, float one_minus_ns, void* stream) {
-  return project_fwd<vnk_bf16>(x, w, wd, pbias, dbias, a, b, w_out, out, wt, part, B, Cin,
+  return project_fwd<vnk_bf16>(x, w, wd, pbias, dbias, a, b, w_out, out, wt, part, pd_out, B, Cin,
                                Cout, N, group, design, ctas, one_minus_ns, stream);
 }

@@ -133,4 +133,21 @@ __device__ __forceinline__ float vnk_bias(const T* __restrict__ bias, int bi,
   return vnk_load(bias[row * (N / group) + min(n, N - 1) / group]);
 }
 
+// p and d of output channel c at point n < N of sample bi (three planes
+// each) into pd_out (2, B, 3, Cout, N) of the activations' type, p then d:
+// the planes a layer kernel's epilogue (or its backward) reads, handed to
+// tests (kernels C and C' write them where their pd_out is not null).
+template <typename T>
+__device__ __forceinline__ void vnk_put_pd(T* __restrict__ pd_out, int B, int bi, int c,
+                                           int Cout, int n, int N, const float (&p)[3],
+                                           const float (&d)[3]) {
+  const size_t plane = static_cast<size_t>(B) * 3 * Cout * N;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const size_t at = ((static_cast<size_t>(bi) * 3 + j) * Cout + c) * N + n;
+    pd_out[at] = vnk_cast<T>(p[j]);
+    pd_out[plane + at] = vnk_cast<T>(d[j]);
+  }
+}
+
 }  // namespace

@@ -21,8 +21,9 @@ each column's points.  As in JAX, ``S`` divides N and 512.
 
 Kernels B, C, S, S', C' and B' run one of two or three designs, chosen
 from the layer's widths and counted by name (``cuda_lib.variant_counts``):
-C by :func:`forward_design` (and :func:`fwd_bf16_design` in bf16) and C'
-by :func:`backward_design`, the wide
+C by :func:`project_fwd_design` (:func:`forward_design`, and
+:func:`fwd_bf16_design` in bf16) and C' by :func:`project_bwd_design`
+(:func:`backward_design`, and :func:`pass1_bf16_design` in bf16), the wide
 design at C_in, C_out >= 16 (final_conv.1, vn_folding{1,2}.1), the narrow
 one below; S by :func:`stats_design` and S' by :func:`stats_bwd_design`,
 one pass that walks the channels at C_in <= 2 (final_conv.0, conv1, the
@@ -34,7 +35,11 @@ function (``csrc/vn_layer_fused.cu``, ``csrc/vn_layer_bwd.cu``).
 
 Each is a ``torch.autograd.Function`` that saves only its inputs; the
 backward recomputes ``p`` and ``d`` from ``x``, as the JAX ops do, so no
-(B, 3, C, N) residual is kept between forward and backward.  The matrix
+(B, 3, C, N) residual is kept between forward and backward.  JAX's one
+``_compute_pd`` gives its backward the forward's bits of p and d; the
+port's C' sums them in the order its forward C did but at the wide bf16
+shapes, where C sums in the tensor cores' k16 steps and C' in input-channel
+order (:func:`summation_order`; ROADMAP.md §3).  The matrix
 products run inside the kernels (``csrc/vn_layer_fused.cu``,
 ``csrc/vn_layer_bwd.cu``).  A CPU tensor takes the plain versions
 (``reference_*``).
@@ -78,7 +83,7 @@ _LAYER = CudaKernel(
 )
 _PROJECT = CudaKernel(
     "vn_layer_fused.cu", "vn_layer_fused_project_fwd",
-    [_P] * 11 + [_I] * 7 + [ctypes.c_float, _P],
+    [_P] * 12 + [_I] * 7 + [ctypes.c_float, _P],
 )
 _STATS = CudaKernel(
     "vn_layer_bwd.cu", "vn_layer_stats_fwd", [_P] * 7 + [_I] * 6 + [_P])
@@ -89,7 +94,7 @@ _LAYER_BWD = CudaKernel(
     [_P] * 16 + [_I] * 7 + [ctypes.c_float, _P])
 _PROJECT_BWD = CudaKernel(
     "vn_layer_bwd.cu", "vn_layer_fused_project_bwd",
-    [_P] * 19 + [_I] * 8 + [ctypes.c_float, _P])
+    [_P] * 20 + [_I] * 8 + [ctypes.c_float, _P])
 # The same entry points in group=S mode, counted apart (launch_counts()
 # keys "<symbol>[group]"): the attention decoder's pair folds.
 _GROUPED = {k.symbol: CudaKernel(k.source, k.symbol, k.argtypes, f"{k.symbol}[group]")
@@ -280,13 +285,28 @@ def reference_stats_bwd(x, w, pbias, c1, c2, group: int = 0):
     return _input_grad(x, (w, dp)), _weight_grad(dp, x), dpb
 
 
+def _given_planes(planes, w, wd, x, pbias, dbias, group):
+    """(p, d) as a backward's epilogue reads them: ``planes`` (p, d), the
+    bf16 (or float32) planes (B, 3, C_out, N) at which to take it, in at
+    least float32; or, ``planes`` None, :func:`_planes`'s, recomputed in
+    input-channel order."""
+    if planes is None:
+        return _planes(w, x, pbias, group), _planes(wd, x, dbias, group)
+    ct = torch.promote_types(x.dtype, torch.float32)
+    return tuple(t.to(ct) for t in planes)
+
+
 def reference_layer_bwd(x, w, wd, pbias, dbias, a, b, g, negative_slope: float,
-                        group: int = 0):
+                        group: int = 0, planes=None):
     """Plain version of kernel B': (dx, dw, dwd, dpbias, ddbias, da, db) for
     the cotangent g (B, 3, C_out, N); the bias gradients are None without
     biases.  dp and dd stay float32 for dA, dB and the bias sums; the bf16
-    mode rounds them only as operands of dx, dw and dwd (JAX ``:440-457``)."""
-    p, d = _planes(w, x, pbias, group), _planes(wd, x, dbias, group)
+    mode rounds them only as operands of dx, dw and dwd (JAX ``:440-457``).
+    ``planes``: None (p, d recomputed here, in input-channel order), or the
+    (p, d) at which to take the backward, as a forward formed them (JAX's
+    ``_compute_pd`` gives its backward the bits its forward used; on the
+    card kernel C's ``pd_out``)."""
+    p, d = _given_planes(planes, w, wd, x, pbias, dbias, group)
     dp, dd, da, db = reference_bn_leaky_bwd(p, d, a, b, g, negative_slope)
     dpb = ddb = None
     if pbias is not None:
@@ -296,18 +316,19 @@ def reference_layer_bwd(x, w, wd, pbias, dbias, a, b, g, negative_slope: float,
 
 
 def reference_layer_project_bwd(x, w, wd, pbias, dbias, a, b, w_out, g,
-                                negative_slope: float, group: int = 0):
+                                negative_slope: float, group: int = 0, planes=None):
     """Plain version of kernel C': as :func:`reference_layer_bwd` for the
     cotangent g (B, 3, 1, N) of the projected output, plus d w_out: the
     layer's cotangent ``w_out * g`` and ``<o, g>`` (o the unrounded
-    epilogue) formed in at least float32 (JAX ``:678-684``)."""
+    epilogue) formed in at least float32 (JAX ``:678-684``).  ``planes``:
+    as :func:`reference_layer_bwd`'s (the CPU path never passes it)."""
     ct = torch.promote_types(x.dtype, torch.float32)
     g = g.to(ct)
+    p, d = _given_planes(planes, w, wd, x, pbias, dbias, group)
     dx, dw, dwd, dpb, ddb, da, db = reference_layer_bwd(
         x, w, wd, pbias, dbias, a, b, w_out.to(ct)[None, None, :, None] * g,
-        negative_slope, group)
-    o = reference_bn_leaky_planes(_planes(w, x, pbias, group), _planes(wd, x, dbias, group),
-                                  a, b, negative_slope)
+        negative_slope, group, planes=(p, d))
+    o = reference_bn_leaky_planes(p, d, a, b, negative_slope)
     dwo = plane_dot(o, g).sum((0, 2))
     return dx, dw, dwd, dpb, ddb, da, db, dwo
 
@@ -690,6 +711,55 @@ def pass1_bf16_design(kernel: str, c_in: int, c_out: int, n: int, aligned: bool 
     return "wgmma_p"
 
 
+# How each design forms p = W x (and d = Wd x) before the bias: "in_order",
+# fmaf over the input channels in ascending order from 0 (the plain
+# version's _products; csrc vn_tile.cuh's loop, the channel walks,
+# pd_wide_fma, proj_wide_fma; pd_cert's certified result), or "k16", the
+# tensor cores' steps of 16 input channels in ascending order chained
+# through one float32 accumulator from 0 (mma.sync in pd_wide_mma and
+# proj_wide_mma, wgmma in pd_wgmma and proj_wgmma).  Both then add the bias
+# and, in bf16, round once.  Every float32 design sums in order; the bf16
+# designs of each kernel below.  Kernels whose designs share an order form
+# one p, d to the bit: S and S' always; C and C' but at the wide bf16
+# shapes, where C sums in k16 steps and C' in order (the fault ROADMAP.md
+# §3 keeps open).
+BF16_SUMMATION_ORDER = {
+    "C": {"narrow": "in_order", "wide": "k16", "wgmma": "k16"},
+    "C'": {"narrow": "in_order", "wide": "in_order", "wgmma": "in_order",
+           "certified": "in_order"},
+    "S": {"stream": "in_order", "narrow": "in_order", "wide": "k16", "wgmma_p": "k16"},
+    "S'": {"fused": "in_order", "narrow": "in_order", "wide": "k16", "wgmma": "k16",
+           "wgmma_p": "k16"},
+}
+
+
+def summation_order(kernel: str, design: str, bf16: bool) -> str:
+    """The order in which ``kernel`` ("C", "C'", "S" or "S'") sums p in
+    ``design`` (:data:`BF16_SUMMATION_ORDER`)."""
+    return BF16_SUMMATION_ORDER[kernel][design] if bf16 else "in_order"
+
+
+def project_fwd_design(c_in: int, c_out: int, n: int, bf16: bool, aligned: bool = True,
+                       group: int = 0) -> str:
+    """The design a launch of kernel C takes: :func:`forward_design`, a wide
+    bf16 C then :func:`fwd_bf16_design`'s."""
+    design = forward_design(c_in, c_out)
+    if design == "wide" and bf16:
+        return fwd_bf16_design(c_in, c_out, n, aligned, group)
+    return design
+
+
+def project_bwd_design(c_in: int, c_out: int, n: int, bf16: bool, aligned: bool = True,
+                       group: int = 0) -> str:
+    """The design a launch of kernel C' takes: :func:`backward_design`, a
+    wide bf16 C' then :func:`pass1_bf16_design`'s (:func:`summation_order`
+    says where its p, d part from those of :func:`project_fwd_design`'s)."""
+    design = backward_design(c_in, c_out)
+    if design == "wide" and bf16:
+        return pass1_bf16_design("C'", c_in, c_out, n, aligned, group)
+    return design
+
+
 def _aligned(*tensors) -> bool:
     return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
@@ -761,9 +831,10 @@ def _counted(kernel: CudaKernel, group: int, bf16: bool) -> CudaKernel:
 
 
 def _launch(kernel: CudaKernel, x, w, wd, pbias, dbias, a, b, w_out,
-            negative_slope: float, group: int):
+            negative_slope: float, group: int, pd_out=None):
     """Kernel B or C, in the mode of x's dtype (float32 or bf16); B in the
-    design of :func:`layer_fwd_design`, C in that of :func:`forward_design`."""
+    design of :func:`layer_fwd_design`, C in that of
+    :func:`project_fwd_design`; ``pd_out``: :func:`project_fwd`'s."""
     (x, w, wd, pbias, dbias, a, b, w_out, _), (bsz, c_in, c_out, n) = _prepare(
         kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out, group=group)
     out = _empty(x, bsz, 3, c_out if w_out is None else 1, n, dtype=x.dtype)
@@ -774,9 +845,7 @@ def _launch(kernel: CudaKernel, x, w, wd, pbias, dbias, a, b, w_out,
         launch(x, *ptrs, out.data_ptr(), bsz, c_in, c_out, n, group, int(design == "stream"),
                1 - negative_slope, variant=design)
         return out
-    design = forward_design(c_in, c_out)
-    if design == "wide" and _bf16(x):
-        design = fwd_bf16_design(c_in, c_out, n, _aligned(x), group)
+    design = project_fwd_design(c_in, c_out, n, _bf16(x), _aligned(x), group)
     wt = part = None
     ctas = 0
     if design != "narrow":  # W^T and Wd^T
@@ -786,19 +855,44 @@ def _launch(kernel: CudaKernel, x, w, wd, pbias, dbias, a, b, w_out,
     elif design == "wgmma":
         ctas = proj_wgmma_grid(bsz, n, torch.cuda.get_device_properties(x.device)
                                .multi_processor_count)
-    launch(x, *ptrs, w_out.data_ptr(), out.data_ptr(), _ptr(wt), _ptr(part), bsz, c_in,
-           c_out, n, group, DESIGN_CODES[design], ctas, 1 - negative_slope, variant=design)
+    launch(x, *ptrs, w_out.data_ptr(), out.data_ptr(), _ptr(wt), _ptr(part),
+           _pd_out(pd_out, x, c_out), bsz, c_in, c_out, n, group, DESIGN_CODES[design], ctas,
+           1 - negative_slope, variant=design)
     return out
 
 
+def project_fwd(x, w, wd, pbias, dbias, a, b, w_out, negative_slope: float, group: int = 0,
+                pd_out=None):
+    """Kernel C on a CUDA tensor, its plain version on a CPU tensor.
+    ``pd_out`` (the card only; no path passes it): a tensor (2, B, 3,
+    C_out, N) of x's dtype that every design of C fills with the p and d
+    its epilogue reads (p first), so that a test can hold C''s recomputed
+    planes to the forward's."""
+    if not x.is_cuda:
+        return reference_layer_fused_project(x, w, wd, pbias, dbias, a, b, w_out,
+                                             negative_slope, group)
+    return _launch(_PROJECT, x, w, wd, pbias, dbias, a, b, w_out, negative_slope, group,
+                   pd_out)
+
+
+def _planes_out(name, out, x, c_out, lead=(), dtype=torch.bfloat16):
+    """The pointer of an optional test output of planes: None, or a
+    contiguous ``dtype`` tensor ``lead`` + (B, 3, C_out, N) on x's card (S's
+    and S''s ``p_out``: bf16 p; C's and C''s ``pd_out``: (2,) p and d of x's
+    dtype)."""
+    shape = tuple(lead) + (x.shape[0], 3, c_out, x.shape[3])
+    if out is not None and (out.dtype != dtype or out.device != x.device or
+                            out.shape != shape or not out.is_contiguous()):
+        raise ValueError(f"{name}: a contiguous {dtype} {shape} tensor on the card of x")
+    return _ptr(out)
+
+
 def _p_out(p_out, x, c_out):
-    """The optional p of S's and S''s wgmma pass 1: None, or a bf16 tensor
-    (B, 3, C_out, N) on x's card."""
-    if p_out is not None and (p_out.dtype != torch.bfloat16 or p_out.device != x.device or
-                              p_out.shape != (x.shape[0], 3, c_out, x.shape[3]) or
-                              not p_out.is_contiguous()):
-        raise ValueError("p_out: a contiguous bf16 (B, 3, C_out, N) tensor on the card of x")
-    return _ptr(p_out)
+    return _planes_out("p_out", p_out, x, c_out)
+
+
+def _pd_out(pd_out, x, c_out):
+    return _planes_out("pd_out", pd_out, x, c_out, (2,), x.dtype)
 
 
 def stats_fwd(x, w, pbias, group: int = 0, p_out=None):
@@ -863,18 +957,17 @@ def stats_bwd(x, w, pbias, c1, c2, group: int = 0, p_out=None):
 
 
 def _layer_bwd_launch(kernel, x, w, wd, pbias, dbias, a, b, w_out, g,
-                      negative_slope, group, resums=None):
+                      negative_slope, group, resums=None, pd_out=None):
     """Kernels B' and C': (dx, dw, dwd, dpbias, ddbias, da, db[, dwo]);
     ``resums`` (C'): None, or an int32 tensor of one element on the card to
     which the certified pass 1 adds the number of p, d elements it summed
-    again."""
+    again; ``pd_out`` (C'): None, or a (2, B, 3, C_out, N) tensor of x's
+    dtype that pass 1 fills with the p and d its epilogue backward reads."""
     (x, w, wd, pbias, dbias, a, b, w_out, g), (bsz, c_in, c_out, n) = _prepare(
         kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out, g, group)
     project = w_out is not None
     if project:  # C' chooses its passes (wide, wgmma, certified or narrow), B' fused or narrow
-        design = backward_design(c_in, c_out)
-        if design == "wide" and _bf16(x):
-            design = pass1_bf16_design("C'", c_in, c_out, n, _aligned(x), group)
+        design = project_bwd_design(c_in, c_out, n, _bf16(x), _aligned(x), group)
         wt, s, chunk = _design_args(x, design, c_in, c_out, bsz, n, two=True)
     else:
         design = layer_bwd_design(c_in)
@@ -901,8 +994,8 @@ def _layer_bwd_launch(kernel, x, w, wd, pbias, dbias, a, b, w_out, g,
                                    or resums.device != x.device):
             raise ValueError("resums: one int32 element on the card of x")
         _counted(kernel, group, _bf16(x))(
-            x, *ptrs, _ptr(wt), _ptr(resums), bsz, c_in, c_out, n, s, chunk, group,
-            DESIGN_CODES[design], 1 - negative_slope, variant=design)
+            x, *ptrs, _ptr(wt), _ptr(resums), _pd_out(pd_out, x, c_out), bsz, c_in, c_out, n, s,
+            chunk, group, DESIGN_CODES[design], 1 - negative_slope, variant=design)
     else:
         _counted(kernel, group, _bf16(x))(x, *ptrs, bsz, c_in, c_out, n, s, group,
                                           DESIGN_CODES[design], 1 - negative_slope,
@@ -922,15 +1015,15 @@ def layer_bwd(x, w, wd, pbias, dbias, a, b, g, negative_slope: float, group: int
 
 
 def layer_project_bwd(x, w, wd, pbias, dbias, a, b, w_out, g,
-                      negative_slope: float, group: int = 0, resums=None):
+                      negative_slope: float, group: int = 0, resums=None, pd_out=None):
     """Kernel C' on a CUDA tensor, its plain version on a CPU tensor.
-    ``resums``: see :func:`_layer_bwd_launch` (the card only; no path
-    passes it)."""
+    ``resums``, ``pd_out``: see :func:`_layer_bwd_launch` (the card only; no
+    path passes them)."""
     if not x.is_cuda:
         return reference_layer_project_bwd(
             x, w, wd, pbias, dbias, a, b, w_out, g, negative_slope, group)
     return _layer_bwd_launch(_PROJECT_BWD, x, w, wd, pbias, dbias, a, b, w_out,
-                             g, negative_slope, group, resums)
+                             g, negative_slope, group, resums, pd_out)
 
 
 # ------------------------------------------------------------- autograd
@@ -978,11 +1071,7 @@ class _LayerFusedProject(torch.autograd.Function):
     def forward(ctx, x, w, wd, pbias, dbias, a, b, w_out, negative_slope, group):
         ctx.save_for_backward(x, w, wd, pbias, dbias, a, b, w_out)
         ctx.negative_slope, ctx.group = negative_slope, group
-        if not x.is_cuda:
-            return reference_layer_fused_project(
-                x, w, wd, pbias, dbias, a, b, w_out, negative_slope, group)
-        return _launch(_PROJECT, x, w, wd, pbias, dbias, a, b, w_out, negative_slope,
-                       group)
+        return project_fwd(x, w, wd, pbias, dbias, a, b, w_out, negative_slope, group)
 
     @staticmethod
     def backward(ctx, g):
