@@ -56,25 +56,26 @@ on one NVIDIA GPU:
    each equal to its plain version, a second launch and the parent "warp"
    design, timed beside the parent design and torch.topk.  The bf16 S, S'
    and C' at 256 -> 256 (N 16384) and 256 -> 128 (N 14336) take their
-   pass-1 designs (ops/vn_layer_fused.py::pass1_bf16_design: S and S'
-   "wgmma_p", p on wgmma fed by TMA; C' "certified", p and d on the tensor
-   cores under a certificate of their bf16 rounding, the rest summed again
-   in order; S' and C' then passes 2 and 3 on wgmma), each timed beside
-   the parent design (S "wide", S' and C' "wgmma": pass 1 on mma.sync or
-   FMAs; versus_parent: a call, back to back, on the device) and pass by
-   pass in both designs (wgmma_vs_parent: the W^T transpose, pass 1, the
-   sums' reduction, pass 2, pass 3 and the split-K reduction, from
-   torch.profiler's kernel durations over whole calls), with torch.matmul
-   of each pass's bf16 products (float32 out) beside them as a yardstick;
-   S's p equal in bits to S''s (same_p); C''s outputs equal in bits to the
-   parent design's on the row's inputs and on adversarial ones (every p, d
-   a few float32 ulps from a bf16 midpoint), its p, d (pd_out) equal in
-   bits to the in-order ones, the forward C's p, d (C's pd_out) equal in
-   bits to S's p (S run with W, and with Wd for d) and to S''s, with the
-   share of elements its pass 1 summed again and the fault that its
-   in-order p, d leave: the share that differs from the forward C's and
-   the vectors whose leaky side flips with them, printed, not held
-   (certified_checks).
+   pass-1 designs (ops/vn_layer_fused.py::pass1_bf16_design: "wgmma_p",
+   p (C': p and d) on wgmma fed by TMA; S' and C' then passes 2 and 3 on
+   wgmma), each timed beside the parent design (S "wide", S' and C'
+   "wgmma": pass 1 on mma.sync; versus_parent: a call, back to back, on
+   the device) and pass by pass in both designs (wgmma_vs_parent: the W^T
+   transpose, pass 1, the sums' reduction, pass 2, pass 3 and the split-K
+   reduction, from torch.profiler's kernel durations over whole calls),
+   with torch.matmul of each pass's bf16 products (float32 out) beside them
+   as a yardstick; C' held to its plain version summing p, d in the
+   tensor cores' k16 order (``launch_order``).  Before them the tensor
+   cores' k16 step against its plain model on tools/probe_k16.py's crafted
+   operands, every float32 accumulator in bits (k16_probe); S's p equal in
+   bits to S''s and to the model's (same_p); C''s p, d (pd_out) equal in
+   bits to the forward C's, the model's and S's p (S run with W, and with
+   Wd for d), its outputs to the mma.sync design's (C' "wgmma": pass 1
+   pd_wide_mma, the same k16 steps; a design of this tree, not the
+   in-order one it replaced), on the row's inputs and on adversarial ones
+   (every p, d a few float32 ulps from a bf16 midpoint), the fault (the
+   p, d elements and leaky sides that part from the forward C's) 0
+   (c_bwd_checks).
 3b. K1's path: ``knn()`` at (8, 2048 vs 2048, D 768, k 16) (features past
    K2's D 512), counted: K1 once in its stream design and nothing else; the
    indices equal to the plain selection's over the same matrix (one batched
@@ -419,9 +420,9 @@ BF16_TRAIN_EPOCHS = 2  # phase 13's train epochs before --resume
 # the fused walk: no S or S' launch takes the narrow design; vn_pointr's
 # F, K2 (coords) and K3 (on its features: tiled) too, and A in bf16 (run8;
 # float32 A has one design and counts none).  In bf16, S, S' and C' at
-# those wide widths take pass1_bf16_design's: S and S' "wgmma_p", C'
-# "certified" (256 and 128 are multiples of 64, N 16384 and 14336 of 8,
-# no bias columns narrower than a tile).
+# those wide widths take pass1_bf16_design's: "wgmma_p" (256 and 128 are
+# multiples of 64, N 16384 and 14336 of 8, no bias columns narrower than a
+# tile; C' where C takes "wgmma").
 # Phase 5b (float32) and phase 13 (bf16) assert them.
 # Kernel S (ops/vn_layer_fused.py::stats_design) takes the wide design
 # where S' does and walks its channels where S' fuses: STATS_STEP_DESIGNS,
@@ -453,14 +454,14 @@ BF16_STEP_DESIGNS = {
     "flagship": {"vn_bn_leaky_fwd[bf16]/run8": 2,
                  "vn_layer_stats_bwd[bf16]/fused": 1, "vn_layer_stats_bwd[bf16]/wgmma_p": 1,
                  "vn_layer_fused_fwd[bf16]/stream": 1,
-                 "vn_layer_fused_project_bwd[bf16]/certified": 1,
+                 "vn_layer_fused_project_bwd[bf16]/wgmma_p": 1,
                  "vn_layer_fused_project_fwd[bf16]/wgmma": 1, "vn_layer_fused_bwd[bf16]/fused": 1,
                  **bf16_designs(STATS_STEP_DESIGNS["flagship"])},
     "vn_pointr_448": {"vn_layer_stats_bwd[bf16]/fused": 1, "vn_layer_stats_bwd[bf16]/wgmma_p": 2,
                       "vn_layer_stats_bwd[group,bf16]/fused": 2,
                       "vn_layer_fused_fwd[bf16]/stream": 1,
                       "vn_layer_fused_fwd[group,bf16]/stream": 2,
-                      "vn_layer_fused_project_bwd[bf16]/certified": 2,
+                      "vn_layer_fused_project_bwd[bf16]/wgmma_p": 2,
                       "vn_layer_fused_project_fwd[bf16]/wgmma": 2,
                       "vn_layer_fused_bwd[bf16]/fused": 1,
                       "vn_layer_fused_bwd[group,bf16]/fused": 2,
@@ -681,8 +682,8 @@ def parent_designs():
     """K1, K2 and K3 held to their "warp" designs (the parent designs: one
     warp a row or query; K3 then the block's gather), A's bf16 mode to its
     "vector" design (one thread a vector), the wide bf16 S, S' and C' to
-    their pass 1 on mma.sync or FMAs (S "wide", S' and C' "wgmma" where
-    ``wide_bf16_design`` gives it: not "wgmma_p" or "certified") and the
+    their pass 1 on mma.sync (S "wide", S' and C' "wgmma" where
+    ``wide_bf16_design`` gives it: not "wgmma_p") and the
     wide bf16 C to its "wide" design (proj_wide_mma and proj_sum, not
     "wgmma") inside the block."""
     from vn_pointcloudcompletion_tpu_torch.ops import knn_pallas, vn_fused, vn_layer_fused
@@ -1057,7 +1058,8 @@ def proj_vs_parent(rec: dict, fn, x, w, wd, reps: int = 10) -> None:
 def same_p(rec: dict, x, w, c1, c2) -> None:
     """S's p equal in bits to S''s recomputed p on the same inputs (the
     wgmma pass 1 of both fills ``p_out``; fails otherwise or if either
-    launch took another design), within one bf16 ulp of the plain
+    launch took another design) and to the plain k16 model's
+    (``_products(order="k16")``), within one bf16 ulp of the plain
     version's in-order p plus 2^-13 of sum |w_k x_k| (two float32 orders of
     one sum), and S's and S''s outputs equal in bits to their parent
     designs' (pd_wide_mma takes the same k16 steps in the same order and
@@ -1071,6 +1073,10 @@ def same_p(rec: dict, x, w, c1, c2) -> None:
     _, d_s = launched_designs(lambda: vn_layer_fused.stats_fwd(x, w, None, p_out=p_s))
     _, d_b = launched_designs(lambda: vn_layer_fused.stats_bwd(x, w, None, c1, c2, p_out=p_b))
     same = torch.equal(p_s, p_b)
+    t0 = time.time()
+    model = vn_layer_fused._products(w, x, None, order="k16")
+    model_s = time.time() - t0
+    model_differ = int((model.view(torch.int16) != p_s.view(torch.int16)).sum())
     plain = vn_layer_fused._products(w, x, None)
     diff = (p_s.float() - plain.float()).abs()
     ulp = torch.exp2(torch.floor(torch.log2(plain.float().abs().clamp_min(2.0 ** -126))) - 7)
@@ -1078,10 +1084,11 @@ def same_p(rec: dict, x, w, c1, c2) -> None:
     within = bool((diff <= ulp + 2.0 ** -13 * mag).all())  # two orders of the float32 sum
     share = float((p_s != plain).float().mean())
     print(f"[kernel {rec['name']}] S's p ({d_s}) bitwise equal to S''s ({d_b}): {same}; "
-          f"against the in-order p: {share:.4%} of elements differ, all within one bf16 ulp "
-          f"+ 2^-13 sum |w x|: {within}", flush=True)
-    if not same or d_s != ["wgmma_p"] or d_b != ["wgmma_p"] or not within:
-        raise AssertionError(f"{rec['name']}: S's p is not S''s")
+          f"the k16 model's p against S's: {model_differ} of {model.numel()} elements differ "
+          f"in bits (the model {model_s:.2f} s); against the in-order p: {share:.4%} of "
+          f"elements differ, all within one bf16 ulp + 2^-13 sum |w x|: {within}", flush=True)
+    if not same or d_s != ["wgmma_p"] or d_b != ["wgmma_p"] or not within or model_differ:
+        raise AssertionError(f"{rec['name']}: S's p is not S''s, or not the k16 model's")
     # the same products in the same order and the sums in the same order as
     # the parent design (pd_wide_mma): S's and S''s outputs equal its bits
     for tag, fn in (("S", lambda: vn_layer_fused.stats_fwd(x, w, None)),
@@ -1094,8 +1101,9 @@ def same_p(rec: dict, x, w, c1, c2) -> None:
               f"design's: {equal}", flush=True)
         if not equal:
             raise AssertionError(f"{rec['name']}: {tag}'s wgmma pass 1 differs from the parent's")
-    rec.update({"p_equal_to_s_bwd": same, "p_differs_from_in_order": share})
-    del p_s, p_b, plain, diff, ulp, mag
+    rec.update({"p_equal_to_s_bwd": same, "p_differs_from_in_order": share,
+                "model_differs": model_differ})
+    del p_s, p_b, plain, diff, ulp, mag, model
 
 
 def forward_planes(x, w, wd, pbias, dbias, a, b, w_out, group: int = 0):
@@ -1131,63 +1139,87 @@ def pd_fault(fwd, got, a, b) -> dict:
             "side_flips": int(flips.sum()), "side_flip_share": float(flips.float().mean())}
 
 
-def certified_checks(rec: dict, fn, inputs, adversarial) -> None:
-    """C''s certified design on the row's inputs: its outputs equal in bits
-    to the parent design's (pass 1 on FMAs in input-channel order) and its
-    p, d (pd_out) to the in-order ones; the forward C's p, d (C's pd_out)
-    equal in bits to S's p with W and with Wd and to S''s (one k16 order);
-    the share of p, d elements its pass 1 summed again (its re-sum count
-    over the 2 B 3 C_out N elements); the same on ``adversarial`` inputs
-    (every p, d a few float32 ulps from a bf16 midpoint: all summed again).
-    Fails where a bit differs.  Prints the fault the in-order p, d leave
-    (``pd_fault`` against the forward C's) and the RMS distance over the
-    norm of dx, dW, dWd from the plain C' at the forward's p, d, without
-    holding them (ROADMAP.md §3).  Kept in the row under ``resum_share``,
-    ``fault``, ``rms_at_forward`` (``adversarial_`` before each for the
-    adversarial inputs)."""
+def c_bwd_checks(rec: dict, inputs, adversarial) -> None:
+    """C' in its bf16 design on the row's inputs and on ``adversarial``
+    ones (every p, d a few float32 ulps from a bf16 midpoint): its p, d
+    (``pd_out``) equal in bits to the forward C's (C's ``pd_out``), to the
+    plain k16 model's and to S's p (S run with W, and with Wd for d); its
+    outputs equal in bits to the mma.sync design's (``parent_designs``: C'
+    "wgmma", pass 1 pd_wide_mma on ``mma.sync``, the same k16 steps; two
+    k16 designs of this tree, not the in-order design they replaced); the
+    fault (``pd_fault`` against the
+    forward C's) 0 elements and 0 leaky-side flips.  Fails where a bit
+    differs.  Kept in the row under ``fault`` (``adversarial_fault``)."""
     import torch
 
     from vn_pointcloudcompletion_tpu_torch.ops import vn_layer_fused
 
     for tag, args in (("row", inputs), ("adversarial", adversarial)):
         x, w, wd, pb, db, a, b, w_out, _ = args
-        count = torch.zeros(1, dtype=torch.int32, device=x.device)
         pd = torch.empty((2, x.shape[0], 3, w.shape[0], x.shape[3]), device=x.device,
                          dtype=x.dtype)
         got, designs = launched_designs(
-            lambda: vn_layer_fused.layer_project_bwd(*args, NS, resums=count, pd_out=pd))
+            lambda: vn_layer_fused.layer_project_bwd(*args, NS, pd_out=pd))
         with parent_designs():
             want, parent = launched_designs(lambda: vn_layer_fused.layer_project_bwd(*args, NS))
         same = all(torch.equal(a_, b_) for a_, b_ in zip(got, want) if a_ is not None)
-        in_order = torch.equal(pd, torch.stack([vn_layer_fused._products(w, x, pb),
-                                                vn_layer_fused._products(wd, x, db)]))
         fwd = forward_planes(x, w, wd, pb, db, a, b, w_out)
-        s_p = [torch.empty_like(fwd[0]) for _ in range(3)]
+        t0 = time.time()
+        model = torch.stack([vn_layer_fused._products(w, x, pb, order="k16"),
+                             vn_layer_fused._products(wd, x, db, order="k16")])
+        model_s = time.time() - t0
+        model_differ = int((model.view(torch.int16) != pd.view(torch.int16)).sum())
+        s_p = [torch.empty_like(fwd[0]) for _ in range(2)]
         vn_layer_fused.stats_fwd(x, w, pb, p_out=s_p[0])
         vn_layer_fused.stats_fwd(x, wd, db, p_out=s_p[1])
-        c0 = torch.zeros(w.shape[0], device=x.device)
-        vn_layer_fused.stats_bwd(x, w, pb, c0, c0, p_out=s_p[2])
-        one_p = (torch.equal(s_p[0], fwd[0]) and torch.equal(s_p[1], fwd[1])
-                 and torch.equal(s_p[2], fwd[0]))
+        one_p = torch.equal(s_p[0], fwd[0]) and torch.equal(s_p[1], fwd[1])
         fault = pd_fault(fwd, pd, a, b)
-        at_fwd = vn_layer_fused.reference_layer_project_bwd(*args, NS, planes=fwd.unbind(0))
-        rms = [bf16_rms(o, r) for o, r in zip(got[:3], at_fwd[:3])]
-        share = int(count.item()) / pd.numel()
-        print(f"[kernel {rec['name']}] {tag} inputs: the {designs} design's outputs bitwise "
-              f"equal to the {parent} design's: {same}, its p, d to the in-order ones: "
-              f"{in_order}; the forward C's p, d equal to S's p (W; Wd) and S''s: {one_p}; "
-              f"re-summed {share:.4%} of p, d ({int(count.item())} elements); the fault: "
-              f"{fault['pd_differs']:.4%} of p, d differ from the forward C's, "
-              f"{fault['side_flips']} vectors ({fault['side_flip_share']:.4%}) take the other "
-              f"leaky side; dx, dW, dWd RMS from the plain C' at the forward's p, d {rms}",
-              flush=True)
-        if not (same and in_order and one_p) or designs != ["certified"]:
-            raise AssertionError(f"{rec['name']}: the certified pass 1 differs from the "
-                                 f"in-order one, or C's p, d from S's, on the {tag} inputs")
-        key = "" if tag == "row" else "adversarial_"
-        rec.update({f"{key}resum_share": share, f"{key}fault": fault,
-                    f"{key}rms_at_forward": rms})
-        del got, want, pd, fwd, s_p, at_fwd
+        print(f"[kernel {rec['name']}] {tag} inputs: the {designs} design's p, d bitwise "
+              f"equal to the forward C's: {torch.equal(pd, fwd)}; the k16 model's: "
+              f"{model_differ} of {model.numel()} elements differ (the model {model_s:.2f} s); "
+              f"C's p, d equal to S's p (W; Wd): {one_p}; outputs bitwise equal to the "
+              f"mma.sync design's ({parent}): {same}; the fault: {fault['pd_differs']:.4%} of "
+              f"p, d differ from the forward C's, {fault['side_flips']} vectors take the "
+              f"other leaky side", flush=True)
+        if (not (same and one_p and torch.equal(pd, fwd)) or model_differ or fault["side_flips"]
+                or designs != ["wgmma_p"]):
+            raise AssertionError(f"{rec['name']}: C''s p, d are not the forward C's, S's or the "
+                                 f"k16 model's, or its outputs not the mma.sync design's, on the "
+                                 f"{tag} inputs")
+        rec.update({("" if tag == "row" else "adversarial_") + "fault": fault})
+        del got, want, pd, fwd, s_p, model
+
+
+def k16_probe() -> None:
+    """The tensor cores' k16 step against its plain model: the crafted
+    operand sets of ``tools/probe_k16.py`` through ``mma.sync`` (k16 and
+    k8 steps) and ``wgmma`` (grouped and alone), the float32 accumulators
+    read back and compared in bits with ``vn_layer_fused.k16_sum``.  Fails
+    if the model and the card part on any accumulator, or the k16 ways on
+    each other."""
+    import importlib.util
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        "probe_k16", os.path.join(ROOT, "tools", "probe_k16.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    t0 = time.time()
+    bad = 0
+    for name, res in probe.run(probe.problem_sets(), torch.device("cuda")).items():
+        model = probe.model_of(res)
+        line = {"model_vs_wgmma": probe.differ(model, res["wgmma"]),
+                "model_vs_mma16": probe.differ(model, res["mma16"]),
+                "wgmma_vs_alone": probe.differ(res["wgmma"], res["wgmma_alone"]),
+                "mma16_vs_mma8": probe.differ(res["mma16"], res["mma8"])}
+        bad += line["model_vs_wgmma"] + line["model_vs_mma16"] + line["wgmma_vs_alone"]
+        print(f"[k16 probe] {name} (K {res['a'].shape[1]}, {res['c'].size} accumulators): "
+              f"{json.dumps(line)}", flush=True)
+    print(f"[k16 probe] {'the model gives every accumulator of the card' if bad == 0 else bad}"
+          f" ({time.time() - t0:.1f} s)", flush=True)
+    if bad:
+        raise AssertionError("the k16 model parts from the tensor cores")
 
 
 def adversarial_c_inputs(dev, b, c_in, c_out, n, seed):
@@ -1889,11 +1921,13 @@ def check_bf16_train_kernels(dev, record, randn, uniform):
     vecs = BATCH * 256 * n
     prod = 2 * 3 * vecs * 256
     stats_wide_vs_narrow(x, w, "256 -> 256")
+    k16_probe()
     # S, S' and C' at final_conv.1 (256 -> 256, N 16384) and
     # vn_folding{1,2}.1 (256 -> 128, N 14336): pass1_bf16_design's designs
-    # (S, S' wgmma_p; C' certified), beside the parent designs, pass by pass,
-    # with torch.matmul as the yardstick of each pass; S's p against S''s;
-    # C''s bits against the parent's and its re-sum share
+    # (wgmma_p), beside the parent designs, pass by pass, with torch.matmul
+    # as the yardstick of each pass; S's p against S''s and the k16 model;
+    # C''s p, d against the forward C's, S's and the model, its bits against
+    # the parent's
     for c_out, npts in ((256, n), (128, 14336)):
         shape = "" if c_out == 256 else " 256 -> 128"
         xs = x if npts == n else randn(BATCH, 3, 256, npts).to(bf)
@@ -1924,17 +1958,19 @@ def check_bf16_train_kernels(dev, record, randn, uniform):
         g_ = randn(BATCH, 3, 1, npts, scale=1e-4).to(bf)
         fn = lambda: vn_layer_fused.layer_project_bwd(  # noqa: E731
             xs, wc, wdc, None, None, a, b, w_out, g_, NS)
+        order = vn_layer_fused.launch_order("C'", xs, c_out)
         rec = record(f"C' vn_layer_fused_project backward{shape} bf16", src + "vn_layer_bwd.cu",
                      at + "vn_layer_fused.py:878", fn,
                      lambda: vn_layer_fused.reference_layer_project_bwd(
-                         xs, wc, wdc, None, None, a, b, w_out, g_, NS),
-                     close, "dx 1 bf16 ulp of max; dW, dWd, dA, dB, dw_out 1e-4 x max",
+                         xs, wc, wdc, None, None, a, b, w_out, g_, NS, order=order),
+                     close, f"dx 1 bf16 ulp of max; dW, dWd, dA, dB, dw_out 1e-4 x max (the "
+                     f"plain C' summing p, d in {order} order)",
                      2 * nbytes(xs, wc, wdc, a, b, w_out) + nbytes(g_), 6 * prod_s, reps=5,
-                     plain_reps=3, repro=True, peak_ops=PEAK_BF16, fp32_ops=90 * vecs_s,
+                     plain_reps=1, repro=True, peak_ops=PEAK_BF16, fp32_ops=90 * vecs_s,
                      versus=True)
         wgmma_vs_parent(rec, fn, xs, wc, wdc, kind="C'")
-        certified_checks(rec, fn, (xs, wc, wdc, None, None, a, b, w_out, g_),
-                         adversarial_c_inputs(xs.device, BATCH, 256, c_out, npts, 9))
+        c_bwd_checks(rec, (xs, wc, wdc, None, None, a, b, w_out, g_),
+                     adversarial_c_inputs(xs.device, BATCH, 256, c_out, npts, 9))
         del g_, xs
     del x
     a, b = uniform(0.5, 1.5, 256), randn(256, scale=0.3)
@@ -4241,24 +4277,52 @@ def rms_errs(got, want):
             if w.norm() > 0}
 
 
+PLAIN_SWAPS = {"A": "bn_leaky_fwd", "A'": "bn_leaky_bwd", "S": "stats_fwd", "S'": "stats_bwd",
+               "B": "_launch", "B'": "layer_bwd", "C": "project_fwd", "C'": "layer_project_bwd"}
+
+
 @contextlib.contextmanager
-def kernels_as_plain():
-    """Inside: every VN kernel's wrapper (A, A', S, S', B, B', C, C') runs
-    its plain version on CUDA tensors too, at the kernels' dispatch points
-    and rounding points: the arithmetic of the kernel path in plain
-    PyTorch, for holding the kernels to it inside a whole train step."""
+def kernels_as_plain(only=None):
+    """Inside: every VN kernel's wrapper (A, A', S, S', B, B', C, C'), or
+    those named in ``only`` (keys of PLAIN_SWAPS), runs its plain version on
+    CUDA tensors too, at the kernels' dispatch points and rounding points,
+    S, S', C and C' summing p, d in the order of the kernel's launch at that
+    call's shapes (``launch_order``: the tensor cores' k16 steps at the wide
+    bf16 layers): the arithmetic of the kernel path in plain PyTorch, for
+    holding the kernels to it inside a whole train step."""
     from vn_pointcloudcompletion_tpu_torch.ops import vn_fused, vn_layer_fused as vl
 
+    launch = vl._launch
+
     def layer(kernel, x, w, wd, pbias, dbias, a, b, w_out, ns, group, pd_out=None):
-        if w_out is None:
-            return vl.reference_layer_fused(x, w, wd, pbias, dbias, a, b, ns, group)
-        return vl.reference_layer_fused_project(x, w, wd, pbias, dbias, a, b, w_out, ns, group)
+        if w_out is not None:  # kernel C, where it is not swapped itself
+            return launch(kernel, x, w, wd, pbias, dbias, a, b, w_out, ns, group, pd_out)
+        return vl.reference_layer_fused(x, w, wd, pbias, dbias, a, b, ns, group)  # B
+
+    def stats(x, w, pbias, group=0, p_out=None):
+        return vl.reference_stats(x, w, pbias, group, order=vl.launch_order("S", x, w.shape[0],
+                                                                            group))
+
+    def stats_bwd(x, w, pbias, c1, c2, group=0, p_out=None):
+        return vl.reference_stats_bwd(x, w, pbias, c1, c2, group,
+                                      order=vl.launch_order("S'", x, w.shape[0], group))
+
+    def project(x, w, wd, pbias, dbias, a, b, w_out, ns, group=0, pd_out=None):
+        return vl.reference_layer_fused_project(x, w, wd, pbias, dbias, a, b, w_out, ns, group,
+                                                order=vl.launch_order("C", x, w.shape[0], group))
+
+    def project_bwd(x, w, wd, pbias, dbias, a, b, w_out, g, ns, group=0, pd_out=None):
+        return vl.reference_layer_project_bwd(
+            x, w, wd, pbias, dbias, a, b, w_out, g, ns, group,
+            order=vl.launch_order("C'", x, w.shape[0], group))
 
     swaps = [(vn_fused, "bn_leaky_fwd", vn_fused.reference_bn_leaky_planes),
              (vn_fused, "bn_leaky_bwd", vn_fused.reference_bn_leaky_bwd),
-             (vl, "stats_fwd", vl.reference_stats), (vl, "stats_bwd", vl.reference_stats_bwd),
-             (vl, "layer_bwd", vl.reference_layer_bwd),
-             (vl, "layer_project_bwd", vl.reference_layer_project_bwd), (vl, "_launch", layer)]
+             (vl, "stats_fwd", stats), (vl, "stats_bwd", stats_bwd),
+             (vl, "layer_bwd", vl.reference_layer_bwd), (vl, "project_fwd", project),
+             (vl, "layer_project_bwd", project_bwd), (vl, "_launch", layer)]
+    if only is not None:
+        swaps = [s for s in swaps if s[1] in {PLAIN_SWAPS[k] for k in only}]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -4353,20 +4417,35 @@ def bf16_flagship_step(dev, partial, complete):
             _, _, gm = run(model, torch.bfloat16)
         finally:
             vn_layer_fused.layer_project_bwd = orig
-    # The forward's C sums p and d on the tensor cores, C''s pass 1 (and the
-    # plain C) in input-channel order: on this step's own input to
-    # final_conv.1 + .2, how far the two roundings of p, d carry to the output
+    # Kernel C on this step's own input to final_conv.1 + .2 against its
+    # plain version in the kernel's order (p, d in the tensor cores' k16
+    # steps, the projection in the kernel's order), and its p, d against the
+    # k16 model's, in bits
     (args, kwargs), = seen
     with torch.no_grad():
         args = tuple(t.detach() if torch.is_tensor(t) else t for t in args)
+        x, w, wd, pb, db, a, b, w_out, ns = args[:9]
+        group = args[9] if len(args) > 9 else kwargs.get("group", 0)
         got = project(*args, **kwargs)
-        want = vn_layer_fused.reference_layer_fused_project(*args, **kwargs)
+        order = vn_layer_fused.launch_order("C", x, w.shape[0], group)
+        want = vn_layer_fused.reference_layer_fused_project(*args, **kwargs, order=order)
+        fwd = forward_planes(x, w, wd, pb, db, a, b, w_out, group)
+        t0 = time.time()
+        pd_model = torch.stack([vn_layer_fused._products(w, x, pb, group, order),
+                                vn_layer_fused._products(wd, x, db, group, order)])
+        model_s = time.time() - t0
+        model_differ = int((pd_model.view(torch.int16) != fwd.view(torch.int16)).sum())
     worst_ulp, differ = bf16_ulps(got, want)
-    print(f"{btag} final_conv.1 + .2 on the step's own input: kernel C (p, d on the tensor "
-          f"cores) against its plain version (p, d in input-channel order, as C''s pass 1 "
-          f"forms them): {differ} of {got.numel()} outputs differ, the largest by "
-          f"{worst_ulp:.2f} bf16 ulp; RMS distance {bf16_rms(got, want):.3e} (bound "
-          f"{BF16_C_RMS:.3e})")
+    c_rms = bf16_rms(got, want)
+    print(f"{btag} final_conv.1 + .2 on the step's own input: kernel C against its plain "
+          f"version (p, d in {order} order): {differ} of {got.numel()} outputs differ, the "
+          f"largest by {worst_ulp:.2f} bf16 ulp; RMS distance {c_rms:.3e} (bound "
+          f"{BF16_C_RMS:.3e}); C's p, d against the k16 model's: {model_differ} of "
+          f"{pd_model.numel()} elements differ (the model {model_s:.2f} s)")
+    if c_rms > BF16_C_RMS or model_differ:
+        raise AssertionError(f"{btag} kernel C parts from its plain version or its p, d from "
+                             "the k16 model's")
+    del pd_model, fwd
     print(f"{btag} C, S, S', C' and B' launches by design: {designs} (expected "
           f"{BF16_STEP_DESIGNS['flagship']})")
     if designs != BF16_STEP_DESIGNS["flagship"]:
@@ -4378,6 +4457,11 @@ def bf16_flagship_step(dev, partial, complete):
           f"{max(rel_errs(bk, bv).values()):.3e}")
     if not (finite and bf16_step_check(btag, gk, gv, gp, g32)):
         raise AssertionError(f"{btag} the bf16 kernel step disagrees with the plain path")
+    d_kv = rms_errs(gk, gv)
+    top = max(d_kv, key=d_kv.get)
+    print(f"{btag} kernels vs their plain versions in the kernels' summation order: largest "
+          f"{d_kv[top]:.4e} at {top} (the former in-order C' against plain versions in "
+          f"input-channel order read 1.242e-2 there, PERF.md)")
     mutated = "decoder.final_conv.1.map_to_feat.weight"
     print(f"{btag} mutant: {mutated} lies {rms_errs(gm, gv)[mutated]:.3e} from the plain "
           f"versions' (unmutated kernels: {rms_errs(gk, gv)[mutated]:.3e})")

@@ -13,6 +13,8 @@ so the ``gpu`` tests also run on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_kernels.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1633,7 +1635,8 @@ def test_kernel_c_bf16_cuda_matches_plain(cuda, c_in, c_out, n):
     got = port_layer.vn_layer_fused_project(xt, wt, wdt, None, None, at, bt, wot, NS)
     torch.cuda.synchronize()
     assert cuda_lib.launch_counts()["vn_layer_fused_project_fwd[bf16]"] == before + 1
-    want = port_layer.reference_layer_fused_project(xt, wt, wdt, None, None, at, bt, wot, NS)
+    want = port_layer.reference_layer_fused_project(xt, wt, wdt, None, None, at, bt, wot, NS,
+                                                    order=_order("C", xt, wt))
     from chip_smoke import BF16_C_RMS, bf16_rms, bf16_ulps  # run from the repo root
 
     assert port_layer.forward_design(c_in, c_out) == "wide"
@@ -1793,11 +1796,13 @@ def test_kernel_s_bf16_cuda_matches_plain(cuda, c_in, c_out, n, group):
     got, launched = _counts_of(_grouped("vn_layer_stats_fwd", group),
                                lambda: port_layer.stats_fwd(x, w, pb, group))
     assert launched == 1 and cuda_lib.variant_counts().get(key, 0) == v0 + 1
-    _assert_bf16_bwd(got, port_layer.reference_stats(x, w, pb, group), 1e-5)
+    _assert_bf16_bwd(got, port_layer.reference_stats(x, w, pb, group,
+                                                     order=_order("S", x, w, group)), 1e-5)
     dgot, launched = _counts_of(_grouped("vn_layer_stats_bwd", group),
                                 lambda: port_layer.stats_bwd(x, w, pb, c1, c2, group))
     assert launched == 1 and dgot[0].dtype == torch.bfloat16
-    _assert_bf16_bwd(dgot, port_layer.reference_stats_bwd(x, w, pb, c1, c2, group))
+    _assert_bf16_bwd(dgot, port_layer.reference_stats_bwd(x, w, pb, c1, c2, group,
+                                                          order=_order("S'", x, w, group)))
     _assert_same_bits(got, port_layer.stats_fwd(x, w, pb, group))
     _assert_same_bits(dgot, port_layer.stats_bwd(x, w, pb, c1, c2, group))
 
@@ -1825,7 +1830,8 @@ def test_kernel_s_bf16_wide_cuda_matches_plain(cuda, c_in, c_out, n, group, bias
     got, launched = _counts_of(_grouped("vn_layer_stats_fwd", group),
                                lambda: port_layer.stats_fwd(x, w, pb, group))
     assert launched == 1 and cuda_lib.variant_counts().get(key, 0) == v0 + 1
-    _assert_bf16_bwd(got, port_layer.reference_stats(x, w, pb, group), 1e-4)
+    _assert_bf16_bwd(got, port_layer.reference_stats(x, w, pb, group,
+                                                     order=_order("S", x, w, group)), 1e-4)
     _assert_same_bits(got, port_layer.stats_fwd(x, w, pb, group))
 
 
@@ -1841,7 +1847,9 @@ def test_kernel_b_c_bwd_bf16_cuda_matches_plain(cuda, c_in, c_out, n, group, pro
         np.float32)).to(cuda, torch.bfloat16)
     if project:
         symbol, fn = "vn_layer_fused_project_bwd", port_layer.layer_project_bwd
-        plain, args = port_layer.reference_layer_project_bwd, (x, w, wd, pb, db, a, b, w_out, g)
+        plain = functools.partial(port_layer.reference_layer_project_bwd,
+                                  order=_order("C'", x, w, group))
+        args = (x, w, wd, pb, db, a, b, w_out, g)
     else:
         symbol, fn = "vn_layer_fused_bwd", port_layer.layer_bwd
         plain, args = port_layer.reference_layer_bwd, (x, w, wd, pb, db, a, b, g)
@@ -1878,15 +1886,25 @@ def _wide_inputs(cuda, c_in, c_out, n, group, bias, bf16, seed):
     return (x, *_t(w, wd, device=cuda), pb, db, *_t(a, b, w_out, c1, c2, device=cuda), g1)
 
 
+def _order(kernel, x, w, group=0):
+    """The summation order of a launch of ``kernel`` on x with weights w
+    (``port_layer.launch_order``), which its plain version takes."""
+    return port_layer.launch_order(kernel, x, w.shape[0], group)
+
+
 def _wide_run(kernel, x, w, wd, pb, db, a, b, w_out, c1, c2, g1, group):
-    """(launch, plain version, symbol) of S' or C' on these inputs."""
+    """(launch, plain version, symbol) of S' or C' on these inputs; the
+    plain version sums p, d in the order the launch takes
+    (``port_layer.launch_order``), as chip_smoke's kernels_as_plain does."""
+    order = port_layer.launch_order(kernel, x, w.shape[0], group)
     if kernel == "S'":
         return (lambda: port_layer.stats_bwd(x, w, pb, c1, c2, group),
-                lambda: port_layer.reference_stats_bwd(x, w, pb, c1, c2, group),
+                lambda: port_layer.reference_stats_bwd(x, w, pb, c1, c2, group, order=order),
                 "vn_layer_stats_bwd")
     args = (x, w, wd, pb, db, a, b, w_out, g1, NS, group)
     return (lambda: port_layer.layer_project_bwd(*args),
-            lambda: port_layer.reference_layer_project_bwd(*args), "vn_layer_fused_project_bwd")
+            lambda: port_layer.reference_layer_project_bwd(*args, order=order),
+            "vn_layer_fused_project_bwd")
 
 
 def _variant(symbol, group, bf16, design):
@@ -1936,9 +1954,10 @@ def test_wide_backward_dispatch_boundary(cuda, c_in, design, kernel, bf16):
 #
 # A wide bf16 S' or C' whose widths are multiples of 64 and whose point rows
 # are 16-byte aligned runs passes 2 and 3 on wgmma fed by TMA
-# (port_layer.wide_bf16_design; csrc vn_wgmma.cuh), and its pass 1 on the
-# tensor cores too (port_layer.pass1_bf16_design: S' "wgmma_p", C'
-# "certified").  Held to the plain version at phase 3's bounds (dx one bf16
+# (port_layer.wide_bf16_design; csrc vn_wgmma.cuh), and its pass 1 on
+# wgmma too (port_layer.pass1_bf16_design: "wgmma_p", C' where kernel C
+# takes its wgmma design).  Held to the plain version, summing p, d in the
+# tensor cores' k16 order as the kernels do, at phase 3's bounds (dx one bf16
 # ulp of its max; dW, dWd, dA, dB, dw_out and the bias sums 1e-4 of theirs),
 # twice for equal bits, counted under that design; ragged N (1000, 1088: no
 # multiple of the 128-point pass-2 tile or the 64-point pass-3 stage), a
@@ -1959,7 +1978,7 @@ def test_wgmma_backward_cuda_matches_plain(cuda, c_in, c_out, n, group, kernel):
     inputs = _wgmma_inputs(cuda, c_in, c_out, n, group, c_in + c_out + n + group)
     assert port_layer.wide_bf16_design(c_in, c_out, n) == "wgmma"
     design = port_layer.pass1_bf16_design(kernel, c_in, c_out, n, True, group)
-    assert design == ("certified" if kernel == "C'" else "wgmma_p")
+    assert design == "wgmma_p"
     launch, plain, symbol = _wide_run(kernel, *inputs, group)
     key = _variant(symbol, group, True, design)
     before = cuda_lib.variant_counts().get(key, 0)
@@ -1973,11 +1992,11 @@ def test_wgmma_backward_cuda_matches_plain(cuda, c_in, c_out, n, group, kernel):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["S'", "C'"])
 def test_wgmma_backward_against_the_mma_sync_design(cuda, kernel, monkeypatch):
-    """The tensor-core designs (S' wgmma_p, C' certified) and the mma.sync
-    passes of the wide design on the same inputs: dx within one bf16 ulp,
-    dW within 1e-4 of its max (two summation orders of the same bf16
-    products), the rest (pass 1's sums; C''s certified pass 1 gives
-    pd_wide_fma's bits) equal to the bit."""
+    """The wgmma_p designs (pass 1 on wgmma, passes 2 and 3 on wgmma) and
+    the mma.sync passes of the wide design on the same inputs: dx within
+    one bf16 ulp, dW within 1e-4 of its max (two summation orders of the
+    same bf16 products), the rest (pass 1's sums: the same k16 steps give
+    the same p, d) equal to the bit."""
     inputs = _wgmma_inputs(cuda, 256, 128, 4096, 0, 17)
     launch, _, _ = _wide_run(kernel, *inputs, 0)
     got = launch()
@@ -2018,10 +2037,11 @@ def _adversarial_layer(cuda, c_in, c_out, n, seed):
 def test_wgmma_c_bwd_scratch_equals_the_parent_design_near_midpoints(cuda, monkeypatch):
     """C''s dp and dd scratch (pass 1's bf16 outputs, which the epilogue
     backward forms from p and d rounded to bf16) equal in bits under the
-    wgmma design and the parent mma.sync design, on inputs whose every p and
-    d lies a few float32 ulps from a bf16 midpoint (where another summation
-    order than the in-order one moves them a bf16 ulp); and the outputs
-    within the plain version's bounds there."""
+    wgmma_p design and the mma.sync design (C' "wgmma": pass 1 pd_wide_mma,
+    the same k16 steps), on inputs whose every p
+    and d lies a few float32 ulps from a bf16 midpoint (where another
+    summation order than the k16 one moves them a bf16 ulp); and the
+    outputs within the plain version's bounds there (p, d in k16 order)."""
     x, w, wd, a, b, w_out, g = _adversarial_layer(cuda, 256, 128, 1024, 5)
     scratch = []
     empty = port_layer._empty
@@ -2044,52 +2064,8 @@ def test_wgmma_c_bwd_scratch_equals_the_parent_design_near_midpoints(cuda, monke
     for m, p in zip(mine, scratch):
         assert torch.equal(m, p)
     monkeypatch.undo()
-    _assert_bf16_bwd(got, port_layer.reference_layer_project_bwd(*args))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("c_out", [256, 128])
-@pytest.mark.parametrize("kind", ["random", "adversarial"])
-@pytest.mark.parametrize("bias", [False, True])
-def test_certified_c_bwd_equals_the_in_order_design(cuda, c_out, kind, bias, monkeypatch):
-    """C''s certified design (pass 1 on the tensor cores under the
-    a-posteriori certificate, the uncertain elements summed again in input
-    order) gives every output equal in bits to the parent design's (the
-    wgmma passes after pd_wide_fma's in-order pass 1), at 256 -> 256 and
-    256 -> 128, on random inputs and on adversarial ones (every p, d a few
-    float32 ulps from a bf16 midpoint: nearly all summed again), with and
-    without a bias per sample; its p, d (its pd_out) are the in-order ones
-    (``_products``); its re-sum count lies between 0 and the 2 B 3 C_out N
-    elements of p and d."""
-    if kind == "random":
-        x, w, wd, pb, db, a, b, w_out, _, _, g = _wgmma_inputs(cuda, 256, c_out, 1024, 0,
-                                                               c_out + 7)
-    else:
-        x, w, wd, a, b, w_out, g = _adversarial_layer(cuda, 256, c_out, 1024, c_out + 9)
-        rng = np.random.default_rng(c_out)
-        pb, db = _bf16_t(*(rng.standard_normal((2, 3, c_out, 1)).astype(np.float32)
-                           for _ in range(2)), device=cuda)
-    if not bias:
-        pb = db = None
-    args = (x, w, wd, pb, db, a, b, w_out, g, NS)
-    assert port_layer.pass1_bf16_design("C'", 256, c_out, 1024) == "certified"
-    count = torch.zeros(1, dtype=torch.int32, device=cuda)
-    key = _variant("vn_layer_fused_project_bwd", 0, True, "certified")
-    before = cuda_lib.variant_counts().get(key, 0)
-    got, pd = _backward_planes(x, w, wd, pb, db, a, b, w_out, g, resums=count)
-    assert cuda_lib.variant_counts().get(key, 0) == before + 1
-    assert torch.equal(pd, torch.stack([port_layer._products(w, x, pb),
-                                        port_layer._products(wd, x, db)]))
-    monkeypatch.setattr(port_layer, "pass1_bf16_design", lambda *shape: "wgmma")
-    want = port_layer.layer_project_bwd(*args)
-    _assert_same_bits(got, want)
-    total = 2 * x.shape[0] * 3 * c_out * x.shape[3]
-    resummed = int(count.item())
-    assert 0 <= resummed <= total
-    if kind == "adversarial" and not bias:
-        assert resummed > total // 2
-    if kind == "random":
-        assert resummed < total // 4
+    _assert_bf16_bwd(got, port_layer.reference_layer_project_bwd(
+        *args, order=port_layer.launch_order("C'", x, w.shape[0])))
 
 
 def _forward_planes(x, w, wd, pb, db, a, b, w_out, group=0):
@@ -2100,12 +2076,11 @@ def _forward_planes(x, w, wd, pb, db, a, b, w_out, group=0):
     return pd
 
 
-def _backward_planes(x, w, wd, pb, db, a, b, w_out, g, group=0, resums=None):
+def _backward_planes(x, w, wd, pb, db, a, b, w_out, g, group=0):
     """C''s outputs and the p, d its pass 1 formed (its pd_out)."""
     pd = torch.full((2, x.shape[0], 3, w.shape[0], x.shape[3]), 7.0, device=x.device,
                     dtype=x.dtype)
-    out = port_layer.layer_project_bwd(x, w, wd, pb, db, a, b, w_out, g, NS, group,
-                                       resums=resums, pd_out=pd)
+    out = port_layer.layer_project_bwd(x, w, wd, pb, db, a, b, w_out, g, NS, group, pd_out=pd)
     return out, pd
 
 
@@ -2113,13 +2088,12 @@ def _backward_planes(x, w, wd, pb, db, a, b, w_out, g, group=0, resums=None):
 #
 # JAX's backward takes the p, d its forward formed (one _compute_pd for
 # both).  Kernel C hands out the p, d its epilogue read and C' the p, d its
-# pass 1 formed (pd_out).  Where their designs sum in one order
-# (port_layer.summation_order) the two are equal in bits: narrow with
-# narrow, float32 wide with float32 wide.  At the wide bf16 shapes C sums
-# in the tensor cores' k16 steps (proj_wgmma, proj_wide_mma) and C' in
-# input-channel order (certified, pd_wide_fma: the plain version's bits),
-# so they part where the two orders round apart, which the adversarial
-# inputs provoke: the fault ROADMAP.md §3 keeps open.
+# pass 1 formed (pd_out).  Their designs sum in one order at every shape
+# (port_layer.summation_order), so the two are equal in bits: narrow with
+# narrow, float32 wide with float32 wide, and at the wide bf16 shapes the
+# tensor cores' k16 steps on both sides (C: proj_wgmma, proj_wide_mma; C':
+# pd_wgmma, pd_wide_mma), also on the adversarial inputs, where any other
+# order rounds apart.
 
 _CONSISTENCY_SHAPES = [  # (C_in, C_out, N, group, unaligned): wgmma, then proj_wide_mma
     (256, 256, 1024, 0, False), (256, 128, 1000, 0, False), (64, 192, 1088, 64, False),
@@ -2135,26 +2109,34 @@ def _unaligned(t):
     return out.view(t.shape).copy_(t)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("c_in,c_out,n,group,unaligned", _CONSISTENCY_SHAPES)
-@pytest.mark.parametrize("kind", ["random", "adversarial"])
-def test_wide_bf16_c_bwd_planes_part_from_the_forward(cuda, c_in, c_out, n, group, unaligned,
-                                                      kind):
-    """At wide bf16 shapes, C''s p, d are the in-order ones and C's the k16
-    ones: C' within the in-order plain version's bounds, and on the
-    adversarial inputs its p, d differ from the forward's (the fault,
-    shown)."""
-    seed = c_in + c_out + n + group
+def _consistency_inputs(cuda, c_in, c_out, n, group, kind, seed):
+    """(x, w, wd, pb, db, a, b, w_out, g) in bf16: random, or adversarial
+    (every p, d a few float32 ulps from a bf16 midpoint; a bias per group
+    where ``group``)."""
     if kind == "random":
         x, w, wd, pb, db, a, b, w_out, _, _, g = _wide_inputs(cuda, c_in, c_out, n, group,
                                                               True, True, seed)
-    else:
-        x, w, wd, a, b, w_out, g = _adversarial_layer(cuda, c_in, c_out, n, seed)
-        pb = db = None
-        if group:
-            rng = np.random.default_rng(seed)
-            pb, db = _bf16_t(*(rng.standard_normal((2, 3, c_out, n // group))
-                               .astype(np.float32) for _ in range(2)), device=cuda)
+        return x, w, wd, pb, db, a, b, w_out, g
+    x, w, wd, a, b, w_out, g = _adversarial_layer(cuda, c_in, c_out, n, seed)
+    pb = db = None
+    if group:
+        rng = np.random.default_rng(seed)
+        pb, db = _bf16_t(*(rng.standard_normal((2, 3, c_out, n // group))
+                           .astype(np.float32) for _ in range(2)), device=cuda)
+    return x, w, wd, pb, db, a, b, w_out, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out,n,group,unaligned", _CONSISTENCY_SHAPES)
+@pytest.mark.parametrize("kind", ["random", "adversarial"])
+def test_wide_bf16_c_bwd_recomputes_the_forward_planes(cuda, c_in, c_out, n, group, unaligned,
+                                                       kind):
+    """At wide bf16 shapes (wgmma and proj_wide_mma ones: ragged N, groups
+    16 and 64, C_in 320, an unaligned base), C''s p, d are the forward C's
+    in bits, and C' lies within its plain version's bounds (p, d in k16
+    order), on random inputs and on adversarial ones."""
+    x, w, wd, pb, db, a, b, w_out, g = _consistency_inputs(cuda, c_in, c_out, n, group, kind,
+                                                           c_in + c_out + n + group)
     if unaligned:
         x = _unaligned(x)
     aligned = x.data_ptr() % 16 == 0
@@ -2162,21 +2144,90 @@ def test_wide_bf16_c_bwd_planes_part_from_the_forward(cuda, c_in, c_out, n, grou
     fwd_design = port_layer.project_fwd_design(c_in, c_out, n, True, aligned, group)
     bwd_design = port_layer.project_bwd_design(c_in, c_out, n, True, aligned, group)
     assert port_layer.summation_order("C", fwd_design, True) == "k16"
-    assert port_layer.summation_order("C'", bwd_design, True) == "in_order"
+    assert port_layer.summation_order("C'", bwd_design, True) == "k16"
+    assert (bwd_design == "wgmma_p") == (fwd_design == "wgmma")
     inputs = (x, w, wd, pb, db, a, b, w_out)
     fwd = _forward_planes(*inputs, group)
     key = _variant("vn_layer_fused_project_bwd", group, True, bwd_design)
     before = cuda_lib.variant_counts().get(key, 0)
     got, mine = _backward_planes(*inputs, g, group)
     assert cuda_lib.variant_counts().get(key, 0) == before + 1
-    assert torch.equal(mine, torch.stack([port_layer._products(w, x, pb, group),
-                                          port_layer._products(wd, x, db, group)]))
-    _assert_bf16_bwd(got, port_layer.reference_layer_project_bwd(*inputs, g, NS, group))
-    differ = int((mine != fwd).sum())
     print(f"C' {bwd_design} after C {fwd_design} ({c_in}, {c_out}, {n}, group {group}, "
-          f"{kind}): {differ} of {fwd.numel()} p, d differ from the forward's")
-    if kind == "adversarial":
-        assert differ > 0
+          f"{kind}): {int((mine != fwd).sum())} of {fwd.numel()} p, d differ from the forward's")
+    assert torch.equal(mine.view(torch.int16), fwd.view(torch.int16))
+    _assert_bf16_bwd(got, port_layer.reference_layer_project_bwd(*inputs, g, NS, group,
+                                                                 order="k16"))
+
+
+_MODEL_SHAPES = [  # (C_in, C_out, N, group): wgmma_p, then pd_wide_mma / proj_wide_mma
+    (256, 256, 1024, 0), (256, 128, 1088, 64), (48, 80, 1008, 16), (320, 64, 1024, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out,n,group", _MODEL_SHAPES)
+@pytest.mark.parametrize("kind", ["random", "adversarial"])
+def test_k16_model_gives_the_cards_planes(cuda, c_in, c_out, n, group, kind):
+    """The plain k16 model (``_products(order="k16")``, ``k16_sum``) gives
+    the p, d of the card in bits: kernel C's and C''s (pd_out) at every
+    shape, S's and S''s p (p_out) where their wgmma pass 1 hands it out."""
+    x, w, wd, pb, db, a, b, w_out, g = _consistency_inputs(cuda, c_in, c_out, n, group, kind,
+                                                           c_in + c_out + n + group + 1)
+    model = torch.stack([port_layer._products(w, x, pb, group, order="k16"),
+                         port_layer._products(wd, x, db, group, order="k16")])
+    bits = lambda t: t.view(torch.int16)  # noqa: E731
+    fwd = _forward_planes(x, w, wd, pb, db, a, b, w_out, group)
+    _, mine = _backward_planes(x, w, wd, pb, db, a, b, w_out, g, group)
+    assert torch.equal(bits(fwd), bits(model)), int((fwd != model).sum())
+    assert torch.equal(bits(mine), bits(model))
+    if port_layer.launch_design("S", c_in, c_out, n, True, True, group) == "wgmma_p":
+        c0 = torch.zeros(c_out, device=cuda)
+        p_s, p_b = (torch.full_like(fwd[0], 7.0) for _ in range(2))
+        port_layer.stats_fwd(x, w, pb, group, p_out=p_s)
+        port_layer.stats_bwd(x, w, pb, c0, c0, group, p_out=p_b)
+        assert torch.equal(bits(p_s), bits(model[0])) and torch.equal(bits(p_b), bits(model[0]))
+
+
+@pytest.mark.gpu
+def test_off_wgmma_layer_step_within_the_step_bound(cuda):
+    """A train-mode bf16 step of one whole layer at an off-wgmma shape (48
+    -> 80 with the 1-channel projection: kernels S, C, C' and S' in their
+    "wide" designs, pd_wide_mma and proj_wide_mma) through the kernels and
+    through their plain versions in the kernels' place
+    (``chip_smoke.kernels_as_plain``, p and d in the kernels' k16 order):
+    every gradient within ``chip_smoke.BF16_STEP_TOL`` (RMS over the
+    norm), as phase 13 holds the main paths' steps."""
+    import chip_smoke  # run from the repo root
+    from vn_pointcloudcompletion_tpu_torch.nn.precision import compute_dtype_scope
+    from vn_pointcloudcompletion_tpu_torch.nn.vn import VNLinearLeakyReLU
+
+    torch.manual_seed(0)
+    layer = VNLinearLeakyReLU(48, 80, layout="plane").to(cuda).train()
+    proj = torch.nn.Parameter(torch.randn(1, 80, device=cuda) / 80 ** 0.5)
+    x = torch.randn(2, 3, 48, 4096, device=cuda)
+
+    def step():
+        layer.zero_grad()
+        proj.grad = None
+        xs = x.clone().requires_grad_(True)
+        with compute_dtype_scope(torch.bfloat16):
+            out = layer(xs, project_out=proj)
+        (out.float().square().sum()).backward()
+        grads = {name: p.grad.clone() for name, p in layer.named_parameters()}
+        return {**grads, "project_out": proj.grad.clone(), "x": xs.grad.clone()}
+
+    before = cuda_lib.variant_counts()
+    kern = step()
+    designs = {k: v - before.get(k, 0) for k, v in cuda_lib.variant_counts().items()
+               if v != before.get(k, 0)}
+    assert designs == {"vn_layer_stats_fwd[bf16]/wide": 1, "vn_layer_stats_bwd[bf16]/wide": 1,
+                       "vn_layer_fused_project_fwd[bf16]/wide": 1,
+                       "vn_layer_fused_project_bwd[bf16]/wide": 1}, designs
+    with chip_smoke.kernels_as_plain():
+        plain = step()
+    errs = chip_smoke.rms_errs(kern, plain)
+    print(f"48 -> 80 bf16 layer step, kernels vs their plain versions: {errs}")
+    assert max(errs.values()) <= chip_smoke.BF16_STEP_TOL
 
 
 @pytest.mark.gpu
@@ -2221,6 +2272,7 @@ def test_wgmma_pass1_gives_s_the_p_of_s_bwd(cuda, c_in, c_out, n, group, monkeyp
     """S and S' in the wgmma_p design recompute p = W x (+ bias) in the same
     products and order: S's p (p_out) equals S''s in bits, each within one
     bf16 ulp of the plain version's in-order p where the sum does not cancel
+    and equal in bits to the plain k16 model's
     (the two float32 orders part by at most ~900 u of sum |w_k x_k|, under
     2^-13 of it); both stay within their plain versions' bounds (S 1e-4 of
     the max); and both equal their parent designs' outputs in bits (S
@@ -2233,13 +2285,15 @@ def test_wgmma_pass1_gives_s_the_p_of_s_bwd(cuda, c_in, c_out, n, group, monkeyp
     got = port_layer.stats_fwd(x, w, pb, group, p_out=p_s)
     dgot = port_layer.stats_bwd(x, w, pb, c1, c2, group, p_out=p_b)
     assert torch.equal(p_s, p_b)
+    assert torch.equal(p_s.view(torch.int16),
+                       port_layer._products(w, x, pb, group, order="k16").view(torch.int16))
     plain = port_layer._products(w, x, pb, group)
     diff = (p_s.float() - plain.float()).abs()
     ulp = torch.exp2(torch.floor(torch.log2(plain.float().abs().clamp_min(2.0 ** -126))) - 7)
     mag = torch.matmul(w.to(torch.bfloat16).float().abs(), x.float().abs())
     assert bool((diff <= ulp + 2.0 ** -13 * mag).all())  # two orders of the float32 sum
-    _assert_bf16_bwd(got, port_layer.reference_stats(x, w, pb, group), 1e-4)
-    _assert_bf16_bwd(dgot, port_layer.reference_stats_bwd(x, w, pb, c1, c2, group))
+    _assert_bf16_bwd(got, port_layer.reference_stats(x, w, pb, group, order="k16"), 1e-4)
+    _assert_bf16_bwd(dgot, port_layer.reference_stats_bwd(x, w, pb, c1, c2, group, order="k16"))
     # pd_wide_mma takes the same k16 steps in the same order, and pd_wgmma
     # sums in its order: the parent designs' bits
     parent = port_layer.wide_bf16_design
@@ -2314,7 +2368,7 @@ def test_wgmma_refuses_shapes_it_does_not_tile(cuda, c_in, c_out, n, kernel, mon
     fits = _wgmma_inputs(cuda, 64, 64, 1000, 0, 3)
     launch, plain, _ = _wide_run(kernel, *fits, 0)
     _assert_bf16_bwd(launch(), plain())
-    key = _variant(symbol, 0, True, "certified" if kernel == "C'" else "wgmma_p")
+    key = _variant(symbol, 0, True, "wgmma_p")
     assert cuda_lib.variant_counts().get(key, 0) == before.get(key, 0) + 1
 
 
@@ -2353,7 +2407,8 @@ def test_wgmma_forward_equals_the_wide_design(cuda, c_in, c_out, n, group, bias,
     want = port_layer.vn_layer_fused_project(*args)
     torch.cuda.synchronize()
     assert cuda_lib.variant_counts().get(wide, 0) == before + 1
-    plain = port_layer.reference_layer_fused_project(*args)
+    plain = port_layer.reference_layer_fused_project(
+        *args, order=_order("C", inputs[0], inputs[1], group))
     rms = chip_smoke.bf16_rms(got, plain)
     mutant = chip_smoke.bf16_rms(got * chip_smoke.BF16_MUTANT, plain)
     print(f"C bf16 wgmma ({c_in}, {c_out}, {n}, group {group}): {int((got != want).sum())} "
@@ -2420,7 +2475,7 @@ def test_wide_forward_cuda_matches_plain(cuda, c_out, n, group, bf16):
     got, again = (port_layer.vn_layer_fused_project(*args) for _ in range(2))
     torch.cuda.synchronize()
     assert cuda_lib.variant_counts().get(key, 0) == before + 2
-    want = port_layer.reference_layer_fused_project(*args)
+    want = port_layer.reference_layer_fused_project(*args, order=_order("C", x, w, group))
     assert got.dtype == want.dtype and got.shape == (2, 3, 1, n)
     if bf16:
         rms = chip_smoke.bf16_rms(got, want)

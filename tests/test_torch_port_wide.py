@@ -49,11 +49,10 @@ _EXPECTED = {
 # ... and the design each takes in the bf16 mode (pass1_bf16_design): every
 # wide layer's widths are multiples of 64 and its point rows (4096 points
 # at num_coarse 256, 14336 at 448) 16-byte aligned, so the wgmma passes, and
-# S''s pass 1 on wgmma too ("wgmma_p"), C''s certified one ("certified":
-# every C' call of a flagship and a vn_pointr_448 train step); the walk and
-# the narrow passes keep theirs
-_EXPECTED_BF16 = {name: {key: ("wgmma_p" if key[0] == "S'" else "certified")
-                         if design == "wide" else design
+# pass 1 on wgmma too ("wgmma_p": S''s, and C''s where kernel C takes its
+# wgmma design, as at every C call of a flagship and a vn_pointr_448 train
+# step); the walk and the narrow passes keep theirs
+_EXPECTED_BF16 = {name: {key: "wgmma_p" if design == "wide" else design
                          for key, design in layers.items()}
                   for name, layers in _EXPECTED.items()}
 
@@ -279,108 +278,66 @@ def test_wide_bf16_design_boundary(c_in, c_out, n, aligned, design):
     assert port_layer.backward_design(c_in, c_out) == "wide"
 
 
-# ------------------------------------------------ the certificate of a p
+
+
+# ------------------------------------------ the tensor cores' k16 step
 #
-# certified_bf16_mask says which float32 sums of bf16 products (another
-# summation order than the plain version's, a tensor core's) round to bf16
-# as the plain version's in-order sum does.  Held here against the sums it
-# speaks for: the in-order float32 sum (``_products``), the same products in
-# random orders, and the float64 sum, on random and on adversarial inputs
-# (every sum within a few float32 ulps of a bf16 rounding midpoint).
-
-
-def _certificate_inputs(kind, c_in, c_out, n, seed):
-    """bf16 x (1, 3, c_in, n), bf16-exact w (c_out, c_in) and a bf16 bias
-    (1, 3, c_out, 1).  ``adversarial``: channel 0's product t0 a power of two,
-    channel 1's t0 2^-8 (so the two land on the midpoint t0 (1 + 2^-8)
-    between two bf16 values), the other c_in - 2 products ~2^-25 t0 with
-    random signs, so every sum lies within a few float32 ulps of the
-    midpoint; the bias is zero there."""
-    rng = np.random.default_rng(seed)
-    if kind == "random":
-        x = rng.standard_normal((1, 3, c_in, n))
-        w = rng.uniform(-1, 1, (c_out, c_in)) / np.sqrt(c_in)
-        bias = rng.standard_normal((1, 3, c_out, 1))
-    else:
-        lead_x = np.ldexp(rng.choice([-1.0, 1.0], (1, 3, 1, n)), rng.integers(-2, 3, (1, 3, 1, n)))
-        lead_w = np.ldexp(rng.choice([-1.0, 1.0], (c_out, 1)), rng.integers(-2, 3, (c_out, 1)))
-        small = lambda *shape: (rng.choice([-1.0, 1.0], shape)  # noqa: E731
-                                * np.ldexp(rng.uniform(1, 2, shape), -13))
-        x = np.concatenate([lead_x, lead_x, lead_x * small(1, 3, c_in - 2, n)], 2)
-        w = np.concatenate([lead_w, lead_w * 2.0 ** -8, lead_w * small(c_out, c_in - 2)], 1)
-        bias = np.zeros((1, 3, c_out, 1))
-    as16 = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)  # noqa: E731
-    return as16(x), as16(w).float(), as16(bias)
-
-
-def _ordered_sum(w, x, bias, order):
-    """sum_k w[:, k] x[..., k, :] in float32, the products (exact) added one
-    at a time in ``order``, then the bias: as ``_products`` for the input
-    order, before its bf16 rounding."""
-    wf, xf = w.float(), x.float()
-    p = torch.zeros(x.shape[:2] + (w.shape[0], x.shape[3]))
-    for k in order:
-        p.add_(wf[:, k:k + 1] * xf[:, :, k:k + 1])
-    return p + bias.float()
-
-
-@pytest.mark.parametrize("c_in", [16, 64, 256])
-@pytest.mark.parametrize("kind", ["random", "adversarial"])
-def test_certified_bf16_mask_agrees_with_every_order(c_in, kind):
-    """Every element the certificate passes rounds to one bf16 value from v
-    (a float32 matrix product), from the in-order sum the plain version
-    takes, from three random orders and from the float64 sum; on the
-    adversarial inputs the in-order sum itself sits a few float32 ulps from a
-    midpoint, where the orders do part, and the certificate passes none of
-    those that part."""
-    x, w, bias = _certificate_inputs(kind, c_in, 48, 96, c_in + len(kind))
-    v, s, cert = port_layer.certify_probe(x, w, bias)
-    assert torch.equal(cert, port_layer.certified_bf16_mask(v, s, c_in))
-    want = v.to(torch.bfloat16)
-    in_order = port_layer._products(w, x, bias)
-    assert torch.equal(in_order.float(), _ordered_sum(w, x, bias, range(c_in)).to(torch.bfloat16)
-                       .float())
-    sums = [in_order]
-    rng = np.random.default_rng(c_in)
-    for _ in range(3):
-        sums.append(_ordered_sum(w, x, bias, rng.permutation(c_in)).to(torch.bfloat16))
-    exact = (torch.matmul(w.double(), x.double()) + bias.double()).float().to(torch.bfloat16)
-    sums.append(exact)
-    for got in sums:
-        assert torch.equal(got[cert], want[cert])
-    parted = torch.zeros_like(cert)
-    for got in sums[1:]:
-        parted |= got != in_order
-    if kind == "adversarial":
-        assert parted.float().mean() > 0.05  # the orders really part there
-        assert (cert & parted).sum() == 0
-        assert cert.float().mean() < 0.5
-    else:
-        assert cert.float().mean() > 0.02
-
-
-def test_certificate_margin_grows_with_depth():
-    """k of the margin: 2 (gamma_n + tau_n) for n exact products, the
-    tensor-core steps' bound 38 u a k16 step; float32, rising with C_in."""
-    u = 2.0 ** -24
-    for n in (16, 64, 256, 1024):
-        gamma = n * u / (1 - n * u)
-        tau = 38 * u * -(-n // 16)
-        k = port_layer.certificate_margin(n)
-        assert k == pytest.approx(2 * (gamma + tau), rel=1e-6)
-        assert k == float(np.float32(k))
-    assert port_layer.certificate_margin(256) > port_layer.certificate_margin(64)
-
-
-# ---------------------------------- the a-posteriori certificate of a p
-#
-# posterior_bf16_mask certifies a tensor-core sum from what the k16 steps
-# leave behind: v, s = sum |w_k x_k| and a = the sum of |acc| read before
-# each step (csrc pd_cert, C''s certified pass 1).  Held here against a
-# plain model of the tensor cores' step and against float32 sums in random
-# orders read in steps of 16, on the inputs of the tests above.
+# ops/vn_layer_fused.py::k16_sum sums p = W x as the tensor cores do, to the
+# bit (established on an H100 by tools/probe_k16.py, and held to kernel C's,
+# S's, S''s and C''s p, d by the gpu tests): each step adds 16 exact
+# products to a float32 accumulator, all 17 addends aligned to the largest
+# exponent E (a product's taken as its operands' sum, an exponent at least
+# -126) and truncated toward zero to multiples of 2^(E - 25), summed
+# exactly, the sum truncated to float32.  Held here on steps whose answers
+# are known and against a float64 loop written apart from it.
 
 _U = 2.0 ** -24
+
+
+def _k16_one(acc, pairs):
+    """k16_sum of one output: the float32 accumulator ``acc`` plus the
+    products of the (w, x) pairs (bf16-exact), as a Python float."""
+    w = torch.tensor([[p[0] for p in pairs]], dtype=torch.float64).to(torch.bfloat16)
+    x = torch.tensor([[p[1]] for p in pairs], dtype=torch.float64).to(torch.bfloat16)
+    assert torch.equal(w.double(), torch.tensor([[p[0] for p in pairs]], dtype=torch.float64))
+    assert torch.equal(x.double(), torch.tensor([[p[1]] for p in pairs], dtype=torch.float64))
+    out = port_layer.k16_sum(w, x, torch.tensor([[acc]], dtype=torch.float32))
+    return float(out[0, 0])
+
+
+# (acc, the step's (w, x) pairs, the card's answer, the answer of the
+# reading of the step that the case rules out, or None)
+_KNOWN_STEPS = {
+    # exact 1 + 1.5 2^-24: rounding to nearest would give 1 + 2^-23
+    "sum_truncated": (1.0, [(2.0 ** -24, 1.5)], 1.0, 1 + 2.0 ** -23),
+    # exact 2^-8 + 2^-26: 2^-26 lies below 2^(E - 25), E = 0
+    "dropped_by_alignment": (1.0, [(-1.0, 1 - 2.0 ** -8), (2.0 ** -13, 2.0 ** -13)], 2.0 ** -8,
+                             2.0 ** -8 + 2.0 ** -26),
+    "exact_cancellation": (3.0, [(-1.5, 1.0), (-1.5, 1.0)], 0.0, None),
+    # exact 2^-25: the accumulator's exponent (1) sets E, so 2^-25 drops;
+    # aligned without it (E = 0) it would stay
+    "accumulator_aligned": (-2.25, [(1.5, 1.5), (2.0 ** -12, 2.0 ** -13)], 0.0, 2.0 ** -25),
+    # 1.5 x 1.5 = 2.25 counts at its operands' exponent 0, not at its own 1:
+    # 2^-25 stays
+    "product_exponent_of_operands": (0.0, [(1.5, 1.5), (2.0 ** -12, 2.0 ** -13), (-1.5, 1.5)],
+                                     2.0 ** -25, 0.0),
+    # exact -1.5 2^-25: truncated toward zero, not toward -inf
+    "negative_toward_zero": (1.0, [(-1.0, 1.0), (-1.5 * 2.0 ** -12, 2.0 ** -13)],
+                             -(2.0 ** -25), -(2.0 ** -24)),
+    "zeros": (-0.0, [(0.0, 1.0), (0.0, -1.0)], 0.0, None),
+    # a subnormal accumulator counts at exponent -126: sixteen products of
+    # 1.5 2^-152 drop (at -127 each would keep 2^-152)
+    "subnormal_accumulator": (2.0 ** -127, [(1.5 * 2.0 ** -76, 2.0 ** -76)] * 16, 2.0 ** -127,
+                              2.0 ** -127 + 2.0 ** -148),
+}
+
+
+@pytest.mark.parametrize("case", list(_KNOWN_STEPS))
+def test_k16_step_known_answers(case):
+    acc, pairs, want, other = _KNOWN_STEPS[case]
+    got = _k16_one(acc, pairs)
+    assert got == want and np.copysign(1.0, got) == np.copysign(1.0, want), (case, got, want)
+    assert other is None or got != other, case
 
 
 def _trunc_f32(y):
@@ -391,101 +348,94 @@ def _trunc_f32(y):
     return f
 
 
-def _tensor_core_step(acc, prods):
-    """One k16 step of the model in certificate_margin's docstring: the 17
-    addends (acc, float32, and the exact products) aligned to the largest
-    exponent E, each truncated to a multiple of 2^(E - 23) (24 bits from
-    E's), summed exactly, the sum truncated to float32."""
-    addends = np.concatenate([acc[None].astype(np.float64), prods], 0)
-    big = np.abs(addends).max(0)
-    e = np.floor(np.log2(np.where(big > 0, big, 1.0)))
-    q = np.exp2(e - 23)
-    return _trunc_f32((np.trunc(addends / q) * q).sum(0))
+def _exp_floor(v):
+    """floor(log2 |v|), at least -126 (v != 0)."""
+    _, e = np.frexp(v)
+    return np.maximum(e - 1, -126)
 
 
-def _stepped_sums(w, x, bias, order=None):
-    """(v, s, a) of p = W x (+ bias), float32 torch tensors (1, 3, C_out, N):
-    the products in k16 steps of input channels (``order`` None: the
-    tensor-core model, 0, 1, ...; else float32 adds one product at a time in
-    that order), a the float32 sum of |acc| read before each step, s the
-    same steps over |products|, v the sum plus the bias in float32."""
-    wf = w.double().numpy()
-    xf = x.double().numpy()[0]  # (3, C_in, N)
-    prods = wf[None, :, :, None] * xf[:, None, :, :]  # (3, C_out, C_in, N), exact
-    c_in = wf.shape[1]
-    ks = np.arange(c_in) if order is None else np.asarray(order)
-    acc = np.zeros(prods[:, :, 0].shape, np.float32)
-    mag = np.zeros_like(acc)
-    a = np.zeros_like(acc)
-    for k0 in range(0, c_in, 16):
-        step = ks[k0:k0 + 16]
-        a = a + np.abs(acc)
-        chunk = np.moveaxis(prods[:, :, step], 2, 0)  # (16, 3, C_out, N)
-        if order is None:
-            acc = _tensor_core_step(acc, chunk)
-            mag = _tensor_core_step(mag, np.abs(chunk))
-        else:
-            for t in chunk:
-                acc = (acc + t.astype(np.float32)).astype(np.float32)
-                mag = (mag + np.abs(t).astype(np.float32)).astype(np.float32)
-    v = torch.from_numpy(acc)[None]
-    if bias is not None:
-        v = v + bias.float()
-    return v, torch.from_numpy(mag)[None], torch.from_numpy(a)[None]
+def _k16_loop(w, x):
+    """The k16 steps of sum_k w[m, k] x[k, n] in float64, one product at a
+    time: w (M, K), x (K, N) bf16-exact float64 arrays."""
+    m, k = w.shape
+    acc = np.zeros((m, x.shape[1]), np.float32)
+    for k0 in range(0, k, 16):
+        terms = [w[:, i, None] * x[None, i, :] for i in range(k0, min(k0 + 16, k))]
+        tops = [np.where(t == 0, -1000, _exp_floor(w[:, i, None]) + _exp_floor(x[None, i, :]))
+                for i, t in zip(range(k0, k), terms)]
+        a = acc.astype(np.float64)
+        top = np.where(a == 0, -1000, _exp_floor(np.where(a == 0, 1.0, a)))
+        for t in tops:
+            top = np.maximum(top, t)
+        unit = np.ldexp(1.0, np.maximum(top, -300) - 25)
+        total = np.trunc(a / unit)
+        for t in terms:
+            total = total + np.trunc(t / unit)
+        acc = _trunc_f32(total * unit)
+    return acc
 
 
-@pytest.mark.parametrize("c_in", [64, 256])
-@pytest.mark.parametrize("kind", ["random", "adversarial"])
-@pytest.mark.parametrize("summed", ["tensor cores", "random order"])
-def test_posterior_certificate_passes_only_the_in_order_bits(c_in, kind, summed):
-    """Every element posterior_bf16_mask passes rounds to the bf16 value of
-    the plain version's in-order sum (``_products``), for sums of the
-    tensor-core model and for float32 sums in a random order read in steps
-    of 16; on random inputs it passes most elements, on the adversarial ones
-    (every sum a few float32 ulps from a bf16 midpoint) next to none."""
-    x, w, bias = _certificate_inputs(kind, c_in, 48, 96, c_in + len(kind))
-    order = None if summed == "tensor cores" else np.random.default_rng(c_in).permutation(c_in)
-    v, s, a = _stepped_sums(w, x, bias, order)
-    cert = port_layer.posterior_bf16_mask(v, s, a)
-    in_order = port_layer._products(w, x, bias)
-    assert torch.equal(v.to(torch.bfloat16)[cert], in_order[cert])
-    if kind == "adversarial":
-        assert cert.float().mean() < 0.02
-    else:
-        assert cert.float().mean() > 0.8
-
-
-@pytest.mark.parametrize("c_in", [64, 256])
-@pytest.mark.parametrize("kind", ["random", "adversarial"])
-def test_posterior_margin_never_wider_than_the_prior_one(c_in, kind):
-    """The a-posteriori margin 2^-18 (a + s) + (2^-23 + 2^-42) |v| is never
-    wider than the a-priori one (certificate_margin: k s + 2^-23 |v|) on
-    the same tensor-core sums, so it certifies every element the other
-    does; on random inputs it leaves at most half as many uncertain."""
-    x, w, bias = _certificate_inputs(kind, c_in, 48, 96, c_in + 3)
-    v, s, a = _stepped_sums(w, x, bias)
-    k = torch.tensor(port_layer.certificate_margin(c_in), dtype=torch.float32)
-    prior = k * s + 2.0 ** -23 * v.abs()
-    post = (torch.tensor(port_layer.POSTERIOR_K, dtype=torch.float32) * (a + s)
-            + torch.tensor(port_layer.POSTERIOR_V, dtype=torch.float32) * v.abs())
-    assert bool((post <= prior).all())
-    new, old = port_layer.posterior_bf16_mask(v, s, a), port_layer.certified_bf16_mask(v, s, c_in)
-    assert bool((new | ~old).all())
+def _k16_inputs(kind, c_in, c_out, n, seed):
+    """bf16 x (1, 3, c_in, n) and bf16-exact w (c_out, c_in).
+    ``adversarial``: channel 0's product t0 a power of two, channel 1's t0
+    2^-8 (so the two land on the midpoint t0 (1 + 2^-8) between two bf16
+    values), the other c_in - 2 products ~2^-25 t0 with random signs, so
+    every sum lies within a few float32 ulps of the midpoint."""
+    rng = np.random.default_rng(seed)
     if kind == "random":
-        assert (~new).float().mean() <= 0.5 * (~old).float().mean()
+        x = rng.standard_normal((1, 3, c_in, n))
+        w = rng.uniform(-1, 1, (c_out, c_in)) / np.sqrt(c_in)
+    else:
+        lead_x = np.ldexp(rng.choice([-1.0, 1.0], (1, 3, 1, n)), rng.integers(-2, 3, (1, 3, 1, n)))
+        lead_w = np.ldexp(rng.choice([-1.0, 1.0], (c_out, 1)), rng.integers(-2, 3, (c_out, 1)))
+        small = lambda *shape: (rng.choice([-1.0, 1.0], shape)  # noqa: E731
+                                * np.ldexp(rng.uniform(1, 2, shape), -13))
+        x = np.concatenate([lead_x, lead_x, lead_x * small(1, 3, c_in - 2, n)], 2)
+        w = np.concatenate([lead_w, lead_w * 2.0 ** -8, lead_w * small(c_out, c_in - 2)], 1)
+    as16 = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)  # noqa: E731
+    return as16(x), as16(w).float()
+
+
+@pytest.mark.parametrize("c_in", [16, 64, 256])
+@pytest.mark.parametrize("kind", ["random", "adversarial"])
+def test_k16_sum_against_a_float64_loop(c_in, kind):
+    """k16_sum's float32 sums equal, in bits, a float64 loop over the same
+    steps; in bf16 (the bias-free p) they part from the in-order sum of the
+    plain version where the sums lie at a rounding midpoint, and stay within
+    one bf16 ulp of it."""
+    x, w = _k16_inputs(kind, c_in, 48, 40, c_in + len(kind))
+    got = port_layer.k16_sum(w, x.float())
+    x64 = x.double().numpy()[0]
+    want = np.stack([_k16_loop(w.double().numpy(), x64[j]) for j in range(3)])[None]
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    k16 = port_layer._products(w, x, None, order="k16")
+    assert torch.equal(k16, got.to(torch.bfloat16))
+    in_order = port_layer._products(w, x, None)
+    parted = (k16 != in_order).float().mean()
+    step = torch.exp2(torch.floor(torch.log2(in_order.float().abs().clamp_min(2.0 ** -126))) - 7)
+    mag = torch.matmul(w.abs(), x.float().abs())  # two float32 orders of one sum
+    assert bool(((k16.float() - in_order.float()).abs() <= step + 2.0 ** -13 * mag).all())
+    if kind == "adversarial":
+        assert parted > 0.01, parted  # the orders really part there
 
 
 def test_tensor_core_model_errs_inside_its_bound():
-    """The model's step errs within its stated 36 u (|acc| + the step's
-    sum of |products|) of the exact step (float64), and truncates: an
-    all-positive step never comes out above the exact sum."""
+    """The model's step errs within 11 u (|acc| + the step's sum of
+    |products|) of the exact step (float64): 17 addends each truncated below
+    2^(E - 25) <= 2^-25 4 max (a product's exponent counts from its
+    operands', so its magnitude may reach 2^(E + 2)), then the float32
+    truncation of the sum, 2 u |sum|; and truncates: an all-positive step
+    never comes out above the exact sum."""
     rng = np.random.default_rng(0)
-    acc = (rng.standard_normal((4096,)) * 8).astype(np.float32)
-    prods = (rng.standard_normal((16, 4096)) * rng.uniform(0.01, 10, (16, 1)))
-    prods = prods.astype(np.float32).astype(np.float64)
-    got = _tensor_core_step(acc, prods).astype(np.float64)
-    exact = acc.astype(np.float64) + prods.sum(0)
-    bound = 36 * _U * (np.abs(acc) + np.abs(prods).sum(0))
+    w = torch.from_numpy(rng.standard_normal((4096, 16)) * rng.uniform(0.01, 10, (1, 16))
+                         ).to(torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((16, 1))).to(torch.bfloat16)
+    acc = torch.from_numpy((rng.standard_normal((4096, 1)) * 8).astype(np.float32))
+    got = port_layer.k16_sum(w, x, acc).double().numpy()[:, 0]
+    prods = (w.double() * x.double()[:, 0]).numpy()
+    a = acc.double().numpy()[:, 0]
+    exact = a + prods.sum(1)
+    bound = 11 * _U * (np.abs(a) + np.abs(prods).sum(1))
     assert bool((np.abs(got - exact) <= bound).all())
-    pos = _tensor_core_step(np.abs(acc), np.abs(prods)).astype(np.float64)
-    assert bool((pos <= np.abs(acc) + np.abs(prods).sum(0)).all())
+    pos = port_layer.k16_sum(w.abs(), x.abs(), acc.abs()).double().numpy()[:, 0]
+    assert bool((pos <= np.abs(a) + np.abs(prods).sum(1)).all())

@@ -27,8 +27,8 @@ steps after two warm-up steps through ``chip_smoke.step_cost`` (CUDA
 events around each, a step ending in its one host read, the allocator's
 peak), then the profiler's device time over 5 steps, in all and for the
 kernels of the wide bf16 S, S' and C' (``WIDE_BWD``: pass 1
-``pd_wide_fma<3``, ``pd_wide_mma``, ``pd_cert`` or ``pd_wgmma``, passes 2
-and 3 ``dx_``/``dw_wide_bf16`` or ``dx_``/``dw_wgmma``) and of the wide
+``pd_wide_mma`` or ``pd_wgmma``, passes 2 and 3 ``dx_``/``dw_wide_bf16``
+or ``dx_``/``dw_wgmma``) and of the wide
 bf16 C (``PROJ_FWD``: ``proj_wide_mma`` and ``proj_sum``, or
 ``proj_wgmma``), each of those kernels apart.  Paths named after
 ``reps`` are the only ones timed, and the kernels' line is then left out.
@@ -54,7 +54,7 @@ import time
 
 # The kernels of the wide bf16 S, S' and C' (S's pass 1; S''s and C''s
 # passes 1, 2 and 3, in every design), which the bf16 train steps time apart
-WIDE_BWD = ("pd_wide_fma<3", "pd_wide_mma<", "pd_cert", "pd_wgmma", "dx_wide_bf16",
+WIDE_BWD = ("pd_wide_mma<", "pd_wgmma", "dx_wide_bf16",
             "dw_wide_bf16", "dx_wgmma", "dw_wgmma")
 # ... and of the wide bf16 C (the forward): proj_wide_mma and proj_sum, or proj_wgmma
 PROJ_FWD = ("proj_wide_mma", "proj_sum", "proj_wgmma")

@@ -72,27 +72,27 @@
 //      every pass a ring of shared-memory stages filled by cp.async
 //      (vn_mma.cuh), loading the next reduction slice while the current one
 //      multiplies, one barrier a slice.
-//      Pass 1 of float32 S, S' and C' and of bf16 C' (pd_wide_fma): FP32
-//      FMAs on the CUDA cores, pd_pass's layout and epilogue at 2 (C') or 4 (S, S')
-//      channels x 4 points x 3 planes a thread, 256 threads, two blocks an
-//      SM, over a ring of 16-channel stages (32 for bf16); p, d summed in
-//      input-channel order with fmaf, so they have pd_pass's bits and the
-//      plain version's.  bf16 C' takes it because its epilogue backward
-//      turns a p or d one bf16 ulp off (which another summation order
-//      gives, rarely) into dp, dd several percent off, beyond what the 1e-4
-//      bound on dW, dWd absorbs; S' has no such amplification.  float32 S
-//      takes the same products in the same order as pd_pass and sums its
+//      Pass 1 in float32 (pd_wide_fma): FP32 FMAs on the CUDA cores,
+//      pd_pass's layout and epilogue at 2 (C') or 4 (S, S') channels x 4
+//      points x 3 planes a thread, 256 threads, two blocks an SM, over a
+//      ring of 16-channel stages; p, d summed in input-channel order with
+//      fmaf, so they have pd_pass's bits and the plain version's.  float32
+//      S takes the same products in the same order as pd_pass and sums its
 //      partials in pd_pass's order, so its bits are the narrow S's.
-//      Pass 1 of bf16 S and S' (pd_wide_mma): the tensor cores, warp-level
+//      Pass 1 in bf16 (pd_wide_mma): the tensor cores, warp-level
 //      mma.sync.m16n8k16 bf16 -> float32 (exact products, float32 sums:
-//      JAX's preferred_element_type=float32), W^T and x read by
-//      ldmatrix.trans, a 128-channel x 64-point tile in 16 warps (32 x 16
-//      each, 3 planes), three 32-channel stages; its epilogue reads the
-//      accumulators in their fragment layout and sums the bias columns
-//      (S': dp; S: |p| + EPS and its square, p rounded through bf16 once as
-//      pd_pass rounds it) over a thread's points, its quad by shuffles,
-//      then across the point warps in warp order through shared memory.
-//      So S's p is S''s p, bit for bit.
+//      JAX's preferred_element_type=float32), W^T (and Wd^T) and x read by
+//      ldmatrix.trans, a 128-channel (C': 64-channel, p and d) x 64-point
+//      tile in 16 warps, three 32-channel stages, the k16 steps in
+//      ascending order from 0 as kernel C's forward takes them, so that
+//      C''s p, d are the forward's and S's p is S''s, bit for bit (the
+//      card rounds a step by its operands alone: ops/vn_layer_fused.py
+//      ::k16_step).  S and S' run their epilogue on the accumulators in
+//      their fragment layout and sum the bias columns (S': dp; S: |p| + EPS
+//      and its square, p rounded through bf16 once as pd_pass rounds it)
+//      over a thread's points, its quad by shuffles, then across the point
+//      warps in warp order through shared memory; C' stages p and d in
+//      bf16 and runs pd_wide_fma's epilogue on them (staged_pd_epilogue).
 //      Passes 2 and 3 in float32 (dx_wide_f32, dw_wide_f32): FP32 FMAs (the
 //      float32 policy keeps products in full float32; 3xTF32 would round
 //      each product), 128 x 128 tiles (pass 3: 64 x 128 for C'), 8 x 8 a
@@ -114,19 +114,13 @@
 //      MN-major (points contiguous); pass 3 reads dp, dd and x K-major over
 //      the points, split K over whole 64-point stages of one plane, and
 //      vnk_reduce_rows sums the splits in order.  Pass 1 stays the wide
-//      one (C''s pd_wide_fma, S''s pd_wide_mma): the parent design of the
-//      two below.
-//   certified (bf16 C' where wgmma fits and Cin <= 256): pass 1 on the
-//      tensor cores with the in-order bits (pd_cert: mma.sync sums under an
-//      a-posteriori certificate of their bf16 rounding, the uncertain ~9%
-//      summed again in input-channel order from a resident tile), then the
-//      wgmma passes 2 and 3.  Its p, d are the plain version's, not the
-//      forward C's (proj_wgmma sums in k16 steps): they part at ~0.017% of
-//      elements on the main paths' inputs (ROADMAP.md §3).
-//   wgmma_p (bf16 S and S' where wgmma fits, bias columns of whole tiles):
-//      pass 1 on wgmma fed by TMA too (pd_wgmma); S' then the wgmma passes
-//      2 and 3.  Its k16 steps and sums run in pd_wide_mma's order, so S and
-//      S' give the bits of the designs above (and S's p stays S''s).
+//      one (pd_wide_mma): the parent design of the one below.
+//   wgmma_p (bf16 S, S' and C' where wgmma fits, bias columns of whole
+//      tiles; C' where kernel C takes proj_wgmma): pass 1 on wgmma fed by
+//      TMA too (pd_wgmma); S' and C' then the wgmma passes 2 and 3.  Its
+//      k16 steps run in pd_wide_mma's order and S's and S''s sums too, so
+//      S and S' give the bits of the designs above, S's p stays S''s and
+//      C''s p, d stay the forward C's.
 //
 // Bound on the H100 at the main path's shapes (batch 8, N = 16384):
 //   S at 256 -> 256: operations, the 2*Cin*Cout*3*B*N FLOP of p = W x.
@@ -240,7 +234,7 @@ __device__ __forceinline__ void store4(vnk_bf16* row, int n, int N, bool vec,
 // thread's 4, then a fixed butterfly over its 16 lanes.  (pd_pass keeps its
 // own copy: moved into a function, it compiled to other code, and kernel S
 // ran slower.)  kBiasIn: accp, accd already hold p and d with their biases
-// added (C''s certified pass 1), so only the bias gradients read the bias.
+// added (bf16 C''s staged p, d), so only the bias gradients read the bias.
 template <int kMode, bool kSplit, int kMC, typename T, bool kBiasIn = false>
 __device__ __forceinline__ void pd_epilogue(const PdArgs<T>& args,
                                             const float (&accp)[3][kMC][4],
@@ -728,34 +722,23 @@ dw_gemm(const T* __restrict__ g1, const T* __restrict__ g2,
 
 // ------------------------------------------------------------ wide passes
 
-// Wide pass 1 on the CUDA cores (float32 S' and C', and bf16 C'):
-// pd_pass's layout, order and epilogue (thread (ty, tx) of the 16 x 16
-// grid: kMC channels x 4 points x 3 planes, of p and d for C'; two blocks
-// an SM, so one's epilogue overlaps the other's products) over a ring of
-// kKs input channels a stage: W^T rows in the activations' type T by
-// cp.async, the three x planes as float32 (bf16 x is loaded
-// into registers and widened as it is stored).  p and d are summed with
-// fmaf in input-channel order, so they have pd_pass's bits and the plain
-// version's.  bf16 C' takes this pass rather than the tensor cores: its
-// epilogue backward (BatchNorm on the norms, the reflection) turns a p or d
-// one bf16 ulp away -- which another summation order gives, rarely -- into
-// dp, dd several percent away, beyond what the 1e-4 bound on dW, dWd
-// absorbs.
-template <int kMode, typename T>
+// Wide pass 1 on the CUDA cores (float32 S, S' and C'): pd_pass's layout,
+// order and epilogue (thread (ty, tx) of the 16 x 16 grid: kMC channels x
+// 4 points x 3 planes, of p and d for C'; two blocks an SM, so one's
+// epilogue overlaps the other's products) over a ring of 16 input channels
+// a stage: W^T rows and the three x planes by cp.async.  p and d are summed
+// with fmaf in input-channel order, so they have pd_pass's bits and the
+// plain version's.
+template <int kMode>
 struct PdFma {
   static constexpr bool kWithD = kMode == kProjBwd;
   static constexpr int kMC = kWithD ? 2 : 4;  // channels a thread
   static constexpr int kBC = 16 * kMC;        // channels a block
-  // bf16 x: 32 channels a stage, two deep; float32: 16, three deep (each
-  // the faster on the card at 256 -> 256)
-  static constexpr int kKs = vnk_is_bf16<T>() ? 32 : 16, kStages = vnk_is_bf16<T>() ? 2 : 3;
-  static constexpr int kW = kKs * kBC;        // elements of one W stage
+  static constexpr int kKs = 16, kStages = 3;  // input channels a stage, stages
+  static constexpr int kW = kKs * kBC;        // floats of one W stage
   static constexpr int kX = kKs * kPts;       // floats of one x plane stage
-  static constexpr int kWBytes = (kWithD ? 2 : 1) * kW * static_cast<int>(sizeof(T));
-  static constexpr int kStage = kWBytes + 3 * kX * 4;  // bytes
-  static constexpr int kBytes = kStages * kStage;
-  static constexpr int kXChunks = 3 * kX / 8;  // 8-element bf16 loads of an x stage
-  static constexpr int kXPer = (kXChunks + kWideThreads - 1) / kWideThreads;  // a thread
+  static constexpr int kStage = (kWithD ? 2 : 1) * kW + 3 * kX;  // floats
+  static constexpr int kBytes = kStages * kStage * 4;
 };
 
 // kN (2 or 4) consecutive elements of shared memory, widened to float.
@@ -785,23 +768,19 @@ __device__ __forceinline__ void load_n(const vnk_bf16* p, float (&v)[kN]) {
   }
 }
 
-// The bf16 pair in a 32-bit word, widened (exact).
-__device__ __forceinline__ float2 widen2(unsigned w) {
-  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
-}
-
-template <int kMode, bool kSplit, typename T>
+template <int kMode, bool kSplit>
 __global__ void __launch_bounds__(kWideThreads, 2)
-pd_wide_fma(PdArgs<T> args, const T* __restrict__ wt, bool aw, bool ax) {
-  using P = PdFma<kMode, T>;
+pd_wide_fma(PdArgs<float> args, const float* __restrict__ wt, bool aw, bool ax) {
+  using P = PdFma<kMode>;
   constexpr int kMC = P::kMC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const sm = reinterpret_cast<float*>(smem_raw);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int t = blockIdx.y, bi = blockIdx.z;  // channel blocks of a tile run together
   const int n0 = t * kPts, c0 = blockIdx.x * P::kBC;
   const int Cin = args.Cin, Cout = args.Cout, N = args.N;
-  const T* xb = args.x + static_cast<size_t>(bi) * 3 * Cin * N;
-  const T* wdt = wt + static_cast<size_t>(Cin) * Cout;
+  const float* xb = args.x + static_cast<size_t>(bi) * 3 * Cin * N;
+  const float* wdt = wt + static_cast<size_t>(Cin) * Cout;
 
   float accp[3][kMC][4], accd[3][kMC][4];
 #pragma unroll
@@ -811,64 +790,25 @@ pd_wide_fma(PdArgs<T> args, const T* __restrict__ wt, bool aw, bool ax) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) accp[j][i][q] = accd[j][i][q] = 0.f;
 
-  uint4 xraw[P::kXPer];  // bf16: this thread's 8-value pieces of the next x stage
-  int xat[P::kXPer];     // ... and where they go in it
   auto load = [&](int s, int kt) {
-    unsigned char* st = smem_raw + s * P::kStage;
+    float* ws = sm + s * P::kStage;
     const int k0 = kt * P::kKs;
     const size_t wrow = static_cast<size_t>(k0) * Cout + c0;
-    T* ws = reinterpret_cast<T*>(st);
-    stage_tile<T, P::kKs, P::kBC>(ws, P::kBC, wt + wrow, Cout, Cin - k0, Cout - c0, aw);
+    stage_tile<float, P::kKs, P::kBC>(ws, P::kBC, wt + wrow, Cout, Cin - k0, Cout - c0, aw);
     if (P::kWithD)
-      stage_tile<T, P::kKs, P::kBC>(ws + P::kW, P::kBC, wdt + wrow, Cout, Cin - k0, Cout - c0,
-                                    aw);
-    if constexpr (!vnk_is_bf16<T>()) {
-      float* xs = reinterpret_cast<float*>(st + P::kWBytes);
+      stage_tile<float, P::kKs, P::kBC>(ws + P::kW, P::kBC, wdt + wrow, Cout, Cin - k0,
+                                        Cout - c0, aw);
+    float* xs = ws + (P::kWithD ? 2 : 1) * P::kW;
 #pragma unroll
-      for (int j = 0; j < 3; ++j)
-        stage_tile<float, P::kKs, kPts>(xs + j * P::kX, kPts,
-                                        xb + (static_cast<size_t>(j) * Cin + k0) * N + n0, N,
-                                        Cin - k0, N - n0, ax);
-    } else {
-#pragma unroll
-      for (int u = 0; u < P::kXPer; ++u) {
-        const int e = threadIdx.x + u * kWideThreads;
-        if (e >= P::kXChunks) break;
-        const int j = e / (P::kX / 8), r = e / (kPts / 8) % P::kKs, cc = e % (kPts / 8) * 8;
-        const T* row = xb + (static_cast<size_t>(j) * Cin + k0 + r) * N + n0;
-        const int len = k0 + r < Cin ? N - n0 : 0;
-        xat[u] = (j * P::kKs + r) * kPts + cc;
-        if (ax && cc + 8 <= len) {
-          xraw[u] = *reinterpret_cast<const uint4*>(row + cc);
-        } else {
-          unsigned h[8];
-#pragma unroll
-          for (int q = 0; q < 8; ++q)
-            h[q] = cc + q < len ? __bfloat16_as_ushort(row[cc + q]) : 0u;
-          xraw[u] = make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16, h[4] | h[5] << 16,
-                               h[6] | h[7] << 16);
-        }
-      }
-    }
-  };
-  auto store = [&](int s) {
-    if constexpr (vnk_is_bf16<T>()) {
-      float* xs = reinterpret_cast<float*>(smem_raw + s * P::kStage + P::kWBytes);
-#pragma unroll
-      for (int u = 0; u < P::kXPer; ++u) {
-        if (threadIdx.x + u * kWideThreads >= P::kXChunks) break;
-        const float2 a = widen2(xraw[u].x), b = widen2(xraw[u].y), c = widen2(xraw[u].z),
-                     d = widen2(xraw[u].w);
-        reinterpret_cast<float4*>(xs + xat[u])[0] = make_float4(a.x, a.y, b.x, b.y);
-        reinterpret_cast<float4*>(xs + xat[u])[1] = make_float4(c.x, c.y, d.x, d.y);
-      }
-    }
+    for (int j = 0; j < 3; ++j)
+      stage_tile<float, P::kKs, kPts>(xs + j * P::kX, kPts,
+                                      xb + (static_cast<size_t>(j) * Cin + k0) * N + n0, N,
+                                      Cin - k0, N - n0, ax);
   };
   auto compute = [&](int s) {
-    const unsigned char* st = smem_raw + s * P::kStage;
-    const T* ws = reinterpret_cast<const T*>(st);
-    const T* wds = ws + P::kW;
-    const float* xs = reinterpret_cast<const float*>(st + P::kWBytes);
+    const float* ws = sm + s * P::kStage;
+    const float* wds = ws + P::kW;
+    const float* xs = ws + (P::kWithD ? 2 : 1) * P::kW;
 #pragma unroll
     for (int k = 0; k < P::kKs; ++k) {
       float wr[kMC], dr[kMC];
@@ -888,21 +828,88 @@ pd_wide_fma(PdArgs<T> args, const T* __restrict__ wt, bool aw, bool ax) {
       }
     }
   };
-  pipeline<P::kStages>((Cin + P::kKs - 1) / P::kKs, load, compute, store);
+  pipeline<P::kStages>((Cin + P::kKs - 1) / P::kKs, load, compute);
   pd_epilogue<kMode, kSplit, kMC>(args, accp, accd, t, bi, c0, n0);
 }
 
-// Wide pass 1 of S' in bf16, and the wide S in bf16, on the tensor cores:
-// warp (wm, wn) of the 4 x 4 grid owns channels wm * 32 .. of the block's
-// 128 and points wn * 16 .. of its 64: two m16 tiles x two n8 tiles a plane.
+// ----------------------------------------- pass 1 of bf16 C' from staged p, d
+//
+// Both tensor-core designs of C''s pass 1 (pd_wide_mma and pd_wgmma in
+// kProjBwd mode) round p and d through bf16 after the bias, as kernel C's
+// forward does (proj_wide_mma, proj_wgmma), stage them in shared memory as
+// bf16 (2, 3 planes, 64 channels, kPdLd: p then d) and run pd_epilogue on
+// them with pd_wide_fma's thread layout at 512 threads: thread (ty, tx)
+// holds channels ty 2 + i (i < 2), points tx 4 + q.
+constexpr int kPdLd = kPts + 8;                  // bf16 a row of the staged p, d
+constexpr int kPdStaged = 2 * 3 * 64 * kPdLd;    // bf16 elements of the staged p, d
+
+__device__ __forceinline__ unsigned short bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// p or d (h 0 or 1) of plane j, channel cl of the block (c0 + cl), point nl
+// of the tile: the accumulator plus the bias, rounded through bf16, staged.
+__device__ __forceinline__ void stage_pd(const PdArgs<vnk_bf16>& args, unsigned short* pd, int h,
+                                         int j, int cl, int nl, float acc, int bi, int c0,
+                                         int n0) {
+  const int c = c0 + cl;
+  const float bias = args.pbias != nullptr && c < args.Cout
+                         ? vnk_bias(h ? args.dbias : args.pbias, bi, j, c, args.Cout, n0 + nl,
+                                    args.N, args.group)
+                         : 0.f;
+  pd[((h * 3 + j) * 64 + cl) * kPdLd + nl] = bf16_bits(acc + bias);
+}
+
+template <bool kSplit>
+__device__ __forceinline__ void staged_pd_epilogue(const PdArgs<vnk_bf16>& args,
+                                                   const unsigned short* pd, int t, int bi,
+                                                   int c0, int n0) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float accp[3][2][4], accd[3][2][4];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int cl = ty * 2 + i;
+      const uint2 vp = *reinterpret_cast<const uint2*>(pd + (j * 64 + cl) * kPdLd + tx * 4);
+      const uint2 vd = *reinterpret_cast<const uint2*>(pd + ((3 + j) * 64 + cl) * kPdLd + tx * 4);
+      accp[j][i][0] = __uint_as_float(vp.x << 16);
+      accp[j][i][1] = __uint_as_float(vp.x & 0xffff0000u);
+      accp[j][i][2] = __uint_as_float(vp.y << 16);
+      accp[j][i][3] = __uint_as_float(vp.y & 0xffff0000u);
+      accd[j][i][0] = __uint_as_float(vd.x << 16);
+      accd[j][i][1] = __uint_as_float(vd.x & 0xffff0000u);
+      accd[j][i][2] = __uint_as_float(vd.y << 16);
+      accd[j][i][3] = __uint_as_float(vd.y & 0xffff0000u);
+    }
+  pd_epilogue<kProjBwd, kSplit, 2, vnk_bf16, true>(args, accp, accd, t, bi, c0, n0);
+}
+
+// Wide pass 1 in bf16 (S, S' and C') on the tensor cores: warp-level
+// mma.sync.m16n8k16 bf16 -> float32 (exact products, float32 sums: JAX's
+// preferred_element_type=float32), W^T (and Wd^T) and x read by
+// ldmatrix.trans from a ring of three 32-channel stages, 16 warps; warp
+// (wm, wn) of the 4 x 4 grid owns channels wm 16 kMT .. + 16 kMT of the
+// block's 64 kMT and points wn 16 .. + 16 of its 64: kMT m16 tiles x two n8
+// tiles a plane.  S and S' (kMT 2, 128 channels a block) run their
+// epilogue on the accumulators in their fragment layout; C' (kMT 1, 64
+// channels, p and d) stages p and d (staged_pd_epilogue).  The k16 steps
+// run in ascending order from a zero accumulator, as in kernel C's
+// proj_wide_mma, so C''s p, d are the forward's.
+template <int kMode>
 struct PdBf16 {
-  static constexpr int kThreads = 512;  // 16 warps
-  static constexpr int kMT = 2, kBC = 128;
+  static constexpr bool kTwo = kMode == kProjBwd;  // p and d
+  static constexpr int kThreads = 512;             // 16 warps
+  static constexpr int kMT = kTwo ? 1 : 2, kBC = 64 * kMT;
   static constexpr int kKs = 32, kStages = 3;
   static constexpr int kWld = kBC + 8, kXld = kPts + 8;  // padded rows: no bank conflicts
   static constexpr int kW = kKs * kWld, kX = kKs * kXld;
-  static constexpr int kStage = kW + 3 * kX;  // bf16 elements
-  static constexpr int kBytes = kStages * kStage * 2 + 4 * kBC * 3 * 4;  // + the bias sums
+  static constexpr int kStage = (kTwo ? 2 : 1) * kW + 3 * kX;  // bf16 elements
+  static constexpr int kRing = kStages * kStage * 2;             // bytes
+  // + the bias sums of S' (4 point warps x kBC channels x 3 planes), or C''s
+  // staged p, d in the freed ring
+  static constexpr int kBytes = kTwo ? (kRing > kPdStaged * 2 ? kRing : kPdStaged * 2)
+                                     : kRing + 4 * kBC * 3 * 4;
 };
 
 // dp at points n, n + 1 of a row, rounded to bf16.
@@ -916,15 +923,14 @@ __device__ __forceinline__ void store2(vnk_bf16* row, int n, int N, float v0, fl
 }
 
 template <int kMode, bool kSplit>
-__global__ void __launch_bounds__(PdBf16::kThreads, 1)
+__global__ void __launch_bounds__(512, 1)
 pd_wide_mma(PdArgs<vnk_bf16> args, const vnk_bf16* __restrict__ wt, bool aw, bool ax) {
-  static_assert(kMode == kStatsFwd || kMode == kStatsBwd, "S and S' only");
   using T = vnk_bf16;
-  using P = PdBf16;
-  constexpr int kMT = P::kMT, kBC = P::kBC;
+  using P = PdBf16<kMode>;
+  constexpr int kMT = P::kMT, kBC = P::kBC, kNh = P::kTwo ? 2 : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);
-  float* const red = reinterpret_cast<float*>(smem_raw + P::kStages * P::kStage * 2);
+  float* const red = reinterpret_cast<float*>(smem_raw + P::kRing);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp % 4, wn = warp / 4, grp = lane / 4, tig = lane % 4;
   const int t = blockIdx.y, bi = blockIdx.z;  // channel blocks of a tile run together
@@ -932,51 +938,79 @@ pd_wide_mma(PdArgs<vnk_bf16> args, const vnk_bf16* __restrict__ wt, bool aw, boo
   const int Cin = args.Cin, Cout = args.Cout, N = args.N;
   const T* xb = args.x + static_cast<size_t>(bi) * 3 * Cin * N;
 
-  float acc[3][kMT][2][4];
+  float acc[kNh][3][kMT][2][4];  // [p or d][plane][m16 tile][n8 tile][fragment]
 #pragma unroll
-  for (int j = 0; j < 3; ++j)
+  for (int h = 0; h < kNh; ++h)
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
+    for (int j = 0; j < 3; ++j)
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+      for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][mt][nt][e] = 0.f;
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[h][j][mt][nt][e] = 0.f;
 
   auto load = [&](int s, int kt) {
     T* st = sm + s * P::kStage;
     const int k0 = kt * P::kKs;
-    stage_tile<T, P::kKs, kBC, P::kThreads>(st, P::kWld, wt + static_cast<size_t>(k0) * Cout + c0,
-                                           Cout, Cin - k0, Cout - c0, aw);
+#pragma unroll
+    for (int h = 0; h < kNh; ++h)  // W^T, then Wd^T (wt's second matrix)
+      stage_tile<T, P::kKs, kBC, P::kThreads>(
+          st + h * P::kW, P::kWld,
+          wt + (static_cast<size_t>(h) * Cin + k0) * Cout + c0, Cout, Cin - k0, Cout - c0, aw);
 #pragma unroll
     for (int j = 0; j < 3; ++j)
       stage_tile<T, P::kKs, kPts, P::kThreads>(
-          st + P::kW + j * P::kX, P::kXld, xb + (static_cast<size_t>(j) * Cin + k0) * N + n0, N,
-          Cin - k0, N - n0, ax);
+          st + kNh * P::kW + j * P::kX, P::kXld,
+          xb + (static_cast<size_t>(j) * Cin + k0) * N + n0, N, Cin - k0, N - n0, ax);
   };
   auto compute = [&](int s) {
     const T* ws = sm + s * P::kStage;
-    const T* xs = ws + P::kW;
+    const T* xs = ws + kNh * P::kW;
 #pragma unroll
     for (int ks = 0; ks < P::kKs; ks += 16) {
-      unsigned a[kMT][4];
+      unsigned a[kNh][kMT][4];
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) frag_a_t(a[mt], ws, P::kWld, wm * 16 * kMT + mt * 16, ks);
+      for (int h = 0; h < kNh; ++h)
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+          frag_a_t(a[h][mt], ws + h * P::kW, P::kWld, wm * 16 * kMT + mt * 16, ks);
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
         unsigned b[4];
         frag_b2_t(b, xs + j * P::kX, P::kXld, wn * 16, ks);
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          mma_bf16(acc[j][mt][0], a[mt], b[0], b[1]);
-          mma_bf16(acc[j][mt][1], a[mt], b[2], b[3]);
-        }
+        for (int h = 0; h < kNh; ++h)
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            mma_bf16(acc[h][j][mt][0], a[h][mt], b[0], b[1]);
+            mma_bf16(acc[h][j][mt][1], a[h][mt], b[2], b[3]);
+          }
       }
     }
   };
   pipeline<P::kStages>((Cin + P::kKs - 1) / P::kKs, load, compute);
   const bool has_bias = args.pbias != nullptr;
 
-  if constexpr (kMode == kStatsFwd) {
+  if constexpr (kMode == kProjBwd) {
+    // C': p and d through bf16 into the freed ring, then the epilogue
+    // backward on all 16 warps
+    unsigned short* const pd = reinterpret_cast<unsigned short*>(smem_raw);
+    __syncthreads();  // every warp is past the ring
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int f = 0; f < 4; ++f)
+            stage_pd(args, pd, h, j, wm * 16 + grp + 8 * (f / 2), wn * 16 + nt * 8 + 2 * tig + f % 2,
+                     acc[h][j][0][nt][f], bi, c0, n0);
+    __syncthreads();
+    staged_pd_epilogue<kSplit>(args, pd, t, bi, c0, n0);
+    return;
+  } else if constexpr (kMode == kStatsFwd) {
     // S: p rounded through bf16 once (the bias added first), then |p| + EPS
     // and its square summed over a thread's four points (nt, then e), its
     // quad (quad_sum) and the four point warps in order (shared memory):
@@ -999,7 +1033,7 @@ pd_wide_mma(PdArgs<vnk_bf16> args, const vnk_bf16* __restrict__ wt, bool aw, boo
             for (int j = 0; j < 3; ++j) {
               const float pb = has_bias && cok ? vnk_bias(args.pbias, bi, j, c, Cout, n, N,
                                                           args.group) : 0.f;
-              p[j] = vnk_round_bf16(acc[j][mt][nt][2 * r + e] + pb);
+              p[j] = vnk_round_bf16(acc[0][j][mt][nt][2 * r + e] + pb);
             }
             const float norm_e = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2]) + VNK_EPS;
             if (cok && n < N) {
@@ -1028,404 +1062,146 @@ pd_wide_mma(PdArgs<vnk_bf16> args, const vnk_bf16* __restrict__ wt, bool aw, boo
       }
     }
     return;
-  }
-
-  // The epilogue on the fragments: a thread holds, per (mt, row half r),
-  // channel c0 + wm 32 + mt 16 + grp + 8 r at points n0 + wn 16 + nt 8 +
-  // 2 tig + e (nt, e < 2), all three planes of p.  A bias sum runs over a
-  // thread's points, its quad (shuffles), then, for columns of 16 points
-  // or more, the point warps in order (shared memory).
-  const int sub = args.sub;
-  const bool warp_sums = has_bias && (!kSplit || sub >= 16);
-  const size_t bstride = static_cast<size_t>(args.B) * args.T * Cout * args.spt;
-  const size_t row0 = (static_cast<size_t>(bi) * args.T + t) * args.spt;
+  } else {
+    // S': the epilogue on the fragments.  A thread holds, per (mt, row half
+    // r), channel c0 + wm 32 + mt 16 + grp + 8 r at points n0 + wn 16 + nt 8
+    // + 2 tig + e (nt, e < 2), all three planes of p.  A bias sum runs over
+    // a thread's points, its quad (shuffles), then, for columns of 16
+    // points or more, the point warps in order (shared memory).
+    const int sub = args.sub;
+    const bool warp_sums = has_bias && (!kSplit || sub >= 16);
+    const size_t bstride = static_cast<size_t>(args.B) * args.T * Cout * args.spt;
+    const size_t row0 = (static_cast<size_t>(bi) * args.T + t) * args.spt;
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
+    for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int cl = wm * 16 * kMT + mt * 16 + grp + 8 * r;
-      const int c = c0 + cl;
-      const bool cok = c < Cout;
-      const float c1v = cok ? args.c1[c] : 0.f, c2v = cok ? args.c2[c] : 0.f;
-      float sb[3] = {0.f, 0.f, 0.f};  // the warp's bias sums
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int lp = wn * 16 + nt * 8 + 2 * tig;  // the pair's first point in the tile
-        float o[2][3];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {  // dp = (c1 + 2 c2 (|p| + EPS)) p / |p|, as pd_pass
-          const int n = n0 + lp + e;
-          float p[3];
-#pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            const float pb = has_bias && cok ? vnk_bias(args.pbias, bi, j, c, Cout, n, N,
-                                                        args.group) : 0.f;
-            p[j] = vnk_round_bf16(acc[j][mt][nt][2 * r + e] + pb);
-          }
-          const float pnorm = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2]);
-          const float norm_e = pnorm + VNK_EPS;
-          float scale = (c1v + 2.f * c2v * norm_e) *
-                        (pnorm > 0.f ? 1.f / fmaxf(pnorm, 1e-30f) : 0.f);
-          if (!(cok && n < N)) scale = 0.f;
-#pragma unroll
-          for (int j = 0; j < 3; ++j) o[e][j] = scale * p[j];
-        }
-        if (cok) {  // the stores round dp; the bias sums read the float32 values
-#pragma unroll
-          for (int j = 0; j < 3; ++j)
-            store2(args.dp + ((static_cast<size_t>(bi) * 3 + j) * Cout + c) * N, n0 + lp, N,
-                   o[0][j], o[1][j]);
-        }
-        if (!has_bias) continue;
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const float pair = o[0][j] + o[1][j];
-          float* dst = args.partial + j * bstride;
-          if (warp_sums) {
-            sb[j] += pair;
-          } else if (sub == 8) {  // one n8 tile a column
-            const float v = quad_sum(pair);
-            if (tig == 0 && cok) dst[(row0 + lp / 8) * Cout + c] = v;
-          } else if (sub == 4) {  // two lanes' pairs
-            const float v = pair + __shfl_xor_sync(0xffffffffu, pair, 1);
-            if (tig % 2 == 0 && cok) dst[(row0 + lp / 4) * Cout + c] = v;
-          } else if (sub == 2) {
-            if (cok) dst[(row0 + lp / 2) * Cout + c] = pair;
-          } else if (cok) {  // group 1: every point its own column
-            dst[(row0 + lp) * Cout + c] = o[0][j];
-            dst[(row0 + lp + 1) * Cout + c] = o[1][j];
-          }
-        }
-      }
-      if (warp_sums) {
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const float v = quad_sum(sb[j]);
-          if (tig == 0) red[((wn * kBC + cl) * 3) + j] = v;
-        }
-      }
-    }
-  }
-  if (!warp_sums) return;
-  __syncthreads();
-  // a bias column of w = sub / 16 point warps (4 for group 0 or >= 64)
-  // sums its w in order
-  if (threadIdx.x < kBC && c0 + static_cast<int>(threadIdx.x) < Cout) {
-    const int cl = threadIdx.x, c = c0 + cl;
-    const int per = kSplit ? sub / 16 : 4;
-    for (int j = 0; j < 3; ++j)
-      for (int col = 0; col < 4 / per; ++col) {
-        float v = red[(col * per * kBC + cl) * 3 + j];
-        for (int w = col * per + 1; w < (col + 1) * per; ++w) v += red[(w * kBC + cl) * 3 + j];
-        args.partial[j * bstride + (row0 + col) * Cout + c] = v;
-      }
-  }
-}
-
-// Pass 1 of bf16 C' on the tensor cores with the plain version's bits (the
-// "certified" design; ops/vn_layer_fused.py::pass1_bf16_design).  p = W x
-// and d = Wd x are summed by mma.sync k16 steps (exact bf16 products,
-// float32 accumulators), with s = |W| |x| beside them (|bf16| clears the
-// sign bits of the fragments) and a = the sum of |acc| read before each
-// step.  An element whose v = acc + bias carries the a-posteriori
-// certificate of posterior_bf16_mask (v - M and v + M round to one bf16
-// value, M = 2^-18 (a + s) + (2^-23 + 2^-42) |v|) takes bf16(v), which is
-// then the in-order sum's rounding; every other element is summed again in
-// input-channel order, fmaf from 0 as pd_wide_fma sums it, then the bias,
-// then one rounding.  So the staged p, d equal pd_wide_fma's bit for bit,
-// and pd_epilogue runs on them as there.
-//
-// A block owns 64 channels x 64 points of one sample, all three planes.
-// Its x tile (64 points x Cin, 3 planes: 96 KB at Cin 256) and its W, Wd
-// rows (64 channels x Cin: 64 KB) stay resident in shared memory with the
-// reduction axis contiguous (K-major), each row's 16-byte chunks swizzled by
-// the row (chunk ^ (row & 7)): ldmatrix reads the fragments without bank
-// conflicts, and the re-sum reads 8 products' operands a load.  W and Wd
-// come by cp.async from a bf16 copy (Cout, Cin) beside W^T; x is
-// transposed from its (Cin, N) rows in registers, 8 x 8 a thread, the next
-// plane's loads in flight while this plane multiplies.  The planes run in
-// turn: warp (wm, wn) of the 4 x 4 grid holds channels wm 16 .. + 16 and
-// points wn 16 .. + 16 of one plane (one m16 x two n8 tiles, p and d, each
-// with its s and a: 48 float32 a thread).  The certified values go to a
-// staged (p, d) tile (bf16, 54 KB); each warp queues its uncertain elements
-// as it certifies them (64 slots of shared memory a warp) and sums them
-// again 32 at a time, a lane an element, so the re-sums of some warps run
-// beside the products of others.  One block of 16 warps an SM (217 KB at
-// Cin 256).  Bound: the products of p, d (and s) on the
-// tensor cores and the re-sum's FMAs, whose share the certificate sets
-// (the number of re-summed elements goes to `resums` where it is not null).
-struct PdCert {
-  static constexpr int kThreads = 512;  // 16 warps: 4 channel x 4 point warps
-  static constexpr int kBC = 64;        // channels a block
-  static constexpr int kMaxCin = 256;   // the resident tiles' depth, at most
-  static constexpr int kPdLd = kPts + 8;            // bf16 a row of the staged p, d
-  static constexpr int kPd = 2 * 3 * kBC * kPdLd;   // bf16 elements of the staged p, d
-  static constexpr int kQueue = 64;                 // re-sum slots a warp
-  static constexpr unsigned short kMarked = 0xffff;  // no rounding gives this NaN
-  static constexpr int bytes(int Cin) { return (5 * 64 * Cin + kPd) * 2 + 16 * kQueue * 4; }
-};
-
-// Element k of row `row` of a resident K-major tile (rows of Cin bf16, a
-// multiple of 64), its 16-byte chunks swizzled by the row.
-__device__ __forceinline__ int cert_at(int row, int k, int Cin) {
-  return row * Cin + ((((k >> 3) ^ (row & 7)) << 3) | (k & 7));
-}
-
-__device__ __forceinline__ unsigned short bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-
-// Element e (< 8) of 8 bf16 in a uint4, widened (exact).
-__device__ __forceinline__ float bf16_of(const uint4& v, int e) {
-  const unsigned w = e < 2 ? v.x : e < 4 ? v.y : e < 6 ? v.z : v.w;
-  return __uint_as_float(e % 2 ? w & 0xffff0000u : w << 16);
-}
-
-template <bool kSplit>
-__global__ void __launch_bounds__(PdCert::kThreads, 1)
-pd_cert(PdArgs<vnk_bf16> args, const vnk_bf16* __restrict__ wk, int* __restrict__ resums) {
-  using T = vnk_bf16;
-  using P = PdCert;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Cin = args.Cin, Cout = args.Cout, N = args.N;
-  T* const xs = reinterpret_cast<T*>(smem_raw);  // (3, 64 points, Cin)
-  T* const ws = xs + 3 * 64 * Cin;                // (2, 64 channels, Cin): W, Wd
-  unsigned short* const pd = reinterpret_cast<unsigned short*>(ws + 2 * 64 * Cin);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  int* const queue = reinterpret_cast<int*>(pd + P::kPd) + warp * P::kQueue;
-  const int wm = warp % 4, wn = warp / 4, grp = lane / 4, tig = lane % 4;
-  const int t = blockIdx.y, bi = blockIdx.z;
-  const int n0 = t * kPts, c0 = blockIdx.x * P::kBC;
-  const T* xb = args.x + static_cast<size_t>(bi) * 3 * Cin * N;
-  const bool has_bias = args.pbias != nullptr;
-
-  // W and Wd rows of the block's channels (bf16, (2, Cout, Cin)) by cp.async
-  for (int e = threadIdx.x; e < 2 * 64 * Cin / 8; e += P::kThreads) {
-    const int row = e / (Cin / 8), k = e % (Cin / 8) * 8, h = row / 64;
-    cp_async16(ws + cert_at(row, k, Cin),
-               wk + (static_cast<size_t>(h) * Cout + c0 + row % 64) * Cin + k);
-  }
-  cp_async_commit();
-  // x of one plane: thread tid < Cin takes the 8 x 8 tile of input
-  // channels (tid / 8) 8 .. and points (tid % 8) 8 .., loaded as 8 rows of
-  // 16 bytes, stored as 8 columns
-  const int tk = threadIdx.x / 8 * 8, tn = threadIdx.x % 8 * 8;
-  const bool tile_in = tk < Cin, tile_pts = n0 + tn < N;  // N % 8 == 0
-  uint4 raw[8];
-  auto fetch = [&](int j) {
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-      raw[r] = tile_in && tile_pts ? *reinterpret_cast<const uint4*>(
-                                         xb + (static_cast<size_t>(j) * Cin + tk + r) * N + n0 + tn)
-                                   : make_uint4(0u, 0u, 0u, 0u);
-  };
-  auto put = [&](int j) {
-    if (!tile_in) return;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {  // point tn + q: its 8 input channels
-      const unsigned sel = q % 2 ? 0x7632u : 0x5410u;
-      unsigned o[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const uint4& lo = raw[2 * u];
-        const uint4& hi = raw[2 * u + 1];
-        const unsigned a = q / 2 == 0 ? lo.x : q / 2 == 1 ? lo.y : q / 2 == 2 ? lo.z : lo.w;
-        const unsigned b = q / 2 == 0 ? hi.x : q / 2 == 1 ? hi.y : q / 2 == 2 ? hi.z : hi.w;
-        o[u] = __byte_perm(a, b, sel);
-      }
-      *reinterpret_cast<uint4*>(xs + cert_at(j * 64 + tn + q, tk, Cin)) =
-          make_uint4(o[0], o[1], o[2], o[3]);
-    }
-  };
-  fetch(0);
-  put(0);
-
-  // k16 steps of plane j: before each, a += |acc|
-  float acc[2][2][4], mag[2][2][4], stp[2][2][4];  // [h][nt][e]
-  const int l = lane % 8, li = lane / 8;
-  auto steps = [&](int j) {
-    for (int k0 = 0; k0 < Cin; k0 += 16) {
-      unsigned b[4], bb[4];
-      ldsm_x4(b, xs + cert_at(j * 64 + wn * 16 + l + (li >> 1) * 8, k0 + (li & 1) * 8, Cin));
-#pragma unroll
-      for (int q = 0; q < 4; ++q) bb[q] = b[q] & 0x7fff7fffu;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        unsigned a[4], aa[4];
-        ldsm_x4(a, ws + cert_at(h * 64 + wm * 16 + l + (li & 1) * 8, k0 + (li >> 1) * 8, Cin));
-#pragma unroll
-        for (int q = 0; q < 4; ++q) aa[q] = a[q] & 0x7fff7fffu;
+      for (int r = 0; r < 2; ++r) {
+        const int cl = wm * 16 * kMT + mt * 16 + grp + 8 * r;
+        const int c = c0 + cl;
+        const bool cok = c < Cout;
+        const float c1v = cok ? args.c1[c] : 0.f, c2v = cok ? args.c2[c] : 0.f;
+        float sb[3] = {0.f, 0.f, 0.f};  // the warp's bias sums
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) {
+          const int lp = wn * 16 + nt * 8 + 2 * tig;  // the pair's first point in the tile
+          float o[2][3];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) stp[h][nt][e] += fabsf(acc[h][nt][e]);
-          mma_bf16(acc[h][nt], a, b[2 * nt], b[2 * nt + 1]);
-          mma_bf16(mag[h][nt], aa, bb[2 * nt], bb[2 * nt + 1]);
+          for (int e = 0; e < 2; ++e) {  // dp = (c1 + 2 c2 (|p| + EPS)) p / |p|, as pd_pass
+            const int n = n0 + lp + e;
+            float p[3];
+#pragma unroll
+            for (int j = 0; j < 3; ++j) {
+              const float pb = has_bias && cok ? vnk_bias(args.pbias, bi, j, c, Cout, n, N,
+                                                          args.group) : 0.f;
+              p[j] = vnk_round_bf16(acc[0][j][mt][nt][2 * r + e] + pb);
+            }
+            const float pnorm = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2]);
+            const float norm_e = pnorm + VNK_EPS;
+            float scale = (c1v + 2.f * c2v * norm_e) *
+                          (pnorm > 0.f ? 1.f / fmaxf(pnorm, 1e-30f) : 0.f);
+            if (!(cok && n < N)) scale = 0.f;
+#pragma unroll
+            for (int j = 0; j < 3; ++j) o[e][j] = scale * p[j];
+          }
+          if (cok) {  // the stores round dp; the bias sums read the float32 values
+#pragma unroll
+            for (int j = 0; j < 3; ++j)
+              store2(args.dp + ((static_cast<size_t>(bi) * 3 + j) * Cout + c) * N, n0 + lp, N,
+                     o[0][j], o[1][j]);
+          }
+          if (!has_bias) continue;
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            const float pair = o[0][j] + o[1][j];
+            float* dst = args.partial + j * bstride;
+            if (warp_sums) {
+              sb[j] += pair;
+            } else if (sub == 8) {  // one n8 tile a column
+              const float v = quad_sum(pair);
+              if (tig == 0 && cok) dst[(row0 + lp / 8) * Cout + c] = v;
+            } else if (sub == 4) {  // two lanes' pairs
+              const float v = pair + __shfl_xor_sync(0xffffffffu, pair, 1);
+              if (tig % 2 == 0 && cok) dst[(row0 + lp / 4) * Cout + c] = v;
+            } else if (sub == 2) {
+              if (cok) dst[(row0 + lp / 2) * Cout + c] = pair;
+            } else if (cok) {  // group 1: every point its own column
+              dst[(row0 + lp) * Cout + c] = o[0][j];
+              dst[(row0 + lp + 1) * Cout + c] = o[1][j];
+            }
+          }
+        }
+        if (warp_sums) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            const float v = quad_sum(sb[j]);
+            if (tig == 0) red[((wn * kBC + cl) * 3) + j] = v;
+          }
         }
       }
     }
-  };
-
-  // the re-sum of element e = ((h 3 + j) 64 + channel) 64 + point: fmaf in
-  // input-channel order from 0, the bias, one rounding
-  auto resum = [&](int e) {
-    const int nl = e % 64, cl = e / 64 % 64, hj = e / 4096, h = hj / 3, j = hj % 3;
-    const int xr = j * 64 + nl, wr = h * 64 + cl;
-    const T* xrow = xs + xr * Cin;
-    const T* wrow = ws + wr * Cin;
-    float y = 0.f;
-    for (int kc = 0; kc < Cin / 8; ++kc) {
-      const uint4 wv = *reinterpret_cast<const uint4*>(wrow + ((kc ^ (wr & 7)) << 3));
-      const uint4 xv = *reinterpret_cast<const uint4*>(xrow + ((kc ^ (xr & 7)) << 3));
-#pragma unroll
-      for (int q = 0; q < 8; ++q) y = fmaf(bf16_of(wv, q), bf16_of(xv, q), y);
-    }
-    const float bias = has_bias ? vnk_bias(h ? args.dbias : args.pbias, bi, j, c0 + cl, Cout,
-                                           n0 + nl, N, args.group)
-                                : 0.f;
-    pd[(hj * P::kBC + cl) * P::kPdLd + nl] = bf16_bits(y + bias);
-  };
-  // a warp queues its uncertain elements and sums them again 32 at a time
-  int queued = 0, summed = 0;
-  auto drain = [&]() {
-    __syncwarp();
-    const int mine = queue[lane];
-    __syncwarp();
-    if (lane < queued - 32) queue[lane] = queue[32 + lane];
-    __syncwarp();
-    queued -= 32;
-    summed += 32;
-    resum(mine);
-  };
-
-  cp_async_wait<0>();
-  __syncthreads();
-#pragma unroll 1
-  for (int j = 0; j < 3; ++j) {
-    if (j < 2) fetch(j + 1);  // in flight while plane j multiplies
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[h][nt][e] = mag[h][nt][e] = stp[h][nt][e] = 0.f;
-    steps(j);
-    // the certificate: a certified pair (e, e + 1), which shares its channel
-    // and holds neighbouring points, goes out as one 32-bit store; an
-    // uncertain element is queued (its slot is written by its re-sum)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int cl = wm * 16 + grp + 8 * r, nl = wn * 16 + nt * 8 + 2 * tig;
-          unsigned short out[2];
-          bool marked[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int n = n0 + nl + e;
-            const float bias = has_bias ? vnk_bias(h ? args.dbias : args.pbias, bi, j, c0 + cl,
-                                                   Cout, n, N, args.group)
-                                        : 0.f;
-            const float v = acc[h][nt][2 * r + e] + bias;
-            const float m = 0x1p-18f * (stp[h][nt][2 * r + e] + mag[h][nt][2 * r + e]) +
-                            0x1.00002p-23f * fabsf(v);
-            marked[e] = n < N && bf16_bits(v - m) != bf16_bits(v + m);
-            out[e] = bf16_bits(v);
-          }
-          const int at = ((h * 3 + j) * P::kBC + cl) * P::kPdLd + nl;
-          *reinterpret_cast<unsigned*>(pd + at) = out[0] | static_cast<unsigned>(out[1]) << 16;
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const unsigned ball = __ballot_sync(0xffffffffu, marked[e]);
-            if (marked[e])
-              queue[queued + __popc(ball & ((1u << lane) - 1u))] =
-                  ((h * 3 + j) * P::kBC + cl) * kPts + nl + e;
-            queued += __popc(ball);
-            if (queued >= 32) drain();
-          }
-        }
-    if (j < 2) put(j + 1);
+    if (!warp_sums) return;
     __syncthreads();
-  }
-  __syncwarp();
-  if (lane < queued) resum(queue[lane]);
-  summed += queued;
-  if (resums != nullptr && lane == 0 && summed > 0) atomicAdd(resums, summed);
-  __syncthreads();
-
-  // pd_epilogue on the staged p, d (pd_wide_fma's layout at 512 threads:
-  // thread (ty, tx) holds channels ty 2 + i, points tx 4 + q)
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float accp[3][2][4], accd[3][2][4];
-#pragma unroll
-  for (int j = 0; j < 3; ++j)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int cl = ty * 2 + i;
-      const uint2 vp = *reinterpret_cast<const uint2*>(pd + (j * P::kBC + cl) * P::kPdLd + tx * 4);
-      const uint2 vd =
-          *reinterpret_cast<const uint2*>(pd + ((3 + j) * P::kBC + cl) * P::kPdLd + tx * 4);
-      accp[j][i][0] = __uint_as_float(vp.x << 16);
-      accp[j][i][1] = __uint_as_float(vp.x & 0xffff0000u);
-      accp[j][i][2] = __uint_as_float(vp.y << 16);
-      accp[j][i][3] = __uint_as_float(vp.y & 0xffff0000u);
-      accd[j][i][0] = __uint_as_float(vd.x << 16);
-      accd[j][i][1] = __uint_as_float(vd.x & 0xffff0000u);
-      accd[j][i][2] = __uint_as_float(vd.y << 16);
-      accd[j][i][3] = __uint_as_float(vd.y & 0xffff0000u);
+    // a bias column of w = sub / 16 point warps (4 for group 0 or >= 64)
+    // sums its w in order
+    if (threadIdx.x < kBC && c0 + static_cast<int>(threadIdx.x) < Cout) {
+      const int cl = threadIdx.x, c = c0 + cl;
+      const int per = kSplit ? sub / 16 : 4;
+      for (int j = 0; j < 3; ++j)
+        for (int col = 0; col < 4 / per; ++col) {
+          float v = red[(col * per * kBC + cl) * 3 + j];
+          for (int w = col * per + 1; w < (col + 1) * per; ++w) v += red[(w * kBC + cl) * 3 + j];
+          args.partial[j * bstride + (row0 + col) * Cout + c] = v;
+        }
     }
-  pd_epilogue<kProjBwd, kSplit, 2, T, true>(args, accp, accd, t, bi, c0, n0);
+  }
 }
 
-// W and Wd rounded to bf16 as they are, (2, Cout, Cin): the K-major rows
-// of C''s certified pass 1.
-__global__ void __launch_bounds__(kWideThreads)
-round_weights(const float* __restrict__ w, const float* __restrict__ wd,
-              vnk_bf16* __restrict__ wk, int64_t total) {
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kWideThreads + threadIdx.x; e < 2 * total;
-       e += static_cast<int64_t>(gridDim.x) * kWideThreads)
-    wk[e] = __float2bfloat16_rn(e < total ? w[e] : wd[e - total]);
-}
-
-// Pass 1 of bf16 S and S' on Hopper's warpgroup products (the "wgmma_p"
-// design; ops/vn_layer_fused.py::pass1_bf16_design): p = W x for 128
-// channels x 64 points of one sample, all three planes, the reduction over
-// Cin in 64-deep stages that TMA loads into a ring (vn_wgmma.cuh): W^T's
-// two 64-channel boxes and x's three 64-point boxes of the stage's 64 input
-// channels, all MN-major (the channels of W^T, the points of x contiguous),
-// 128-byte swizzled.  Warpgroup wg owns channels wg 64 .. + 64 and keeps
-// the three planes' m64n64 accumulators (96 float32 a thread).  The
-// epilogue runs on the accumulators in their fragment layout: S sums |p| +
-// EPS and its square, S' its dp for the bias gradients, in pd_wide_mma's
-// order (a thread's points of each of that design's 16-point warps, its
-// quad, then those warps in turn): one partial per (sample, 64-point tile,
-// channel); S' writes dp through shared memory in 16-byte pieces of a row.
-// p is rounded through bf16 once after the bias, as in pd_pass.  The k16
-// steps run in pd_wide_mma's order too (the card gives its bits), so S and
-// S' give that design's bits, and S's p is S''s.  One block an SM (the
-// ring's four stages, 160 KB).
+// Pass 1 of bf16 S, S' and C' on Hopper's warpgroup products (the "wgmma_p"
+// design; ops/vn_layer_fused.py::pass1_bf16_design): the reduction over
+// Cin in 64-deep stages that TMA loads into a ring (vn_wgmma.cuh), all
+// operands MN-major (the channels of W^T, the points of x contiguous),
+// 128-byte swizzled: two 64-channel boxes of W^T (S, S': channels c0 ..
+// c0 + 127; C': W^T's and Wd^T's channels c0 .. c0 + 63) and x's three
+// 64-point boxes of the stage's 64 input channels.  The k16 steps run in
+// ascending order from a zero accumulator, as in pd_wide_mma and in kernel
+// C (proj_wide_mma, proj_wgmma): the card gives them the same bits, so S's
+// p is S''s and C''s p, d are the forward's.
+// S and S' (288 threads: two warpgroups and a producer warp): warpgroup wg
+// owns channels wg 64 .. + 64 and keeps the three planes' m64n64
+// accumulators (96 float32 a thread); the epilogue runs on them in their
+// fragment layout: S sums |p| + EPS and its square, S' its dp for the bias
+// gradients, in pd_wide_mma's order (a thread's points of each of that
+// design's 16-point warps, its quad, then those warps in turn): one partial
+// per (sample, 64-point tile, channel); S' writes dp through shared memory
+// in 16-byte pieces of a row.  p is rounded through bf16 once after the
+// bias, as in pd_pass.  p_out, where not null, receives p itself (bf16), so
+// that a test can hold S's p to S''s.
+// C' (512 threads): warpgroup j < 3 forms p and d of plane j (64 float32
+// accumulators a thread), thread 384 issues the loads, and all four
+// warpgroups then run the epilogue backward on p and d staged through bf16
+// in the freed ring (staged_pd_epilogue).
 // Bias columns cover whole tiles here (group 0 or >= 64; the wrapper keeps
-// narrower groups on pd_wide_mma).  p_out, where not null, receives p
-// itself (bf16), so that a test can hold S's p to S''s.  Bound at 256 ->
-// 256: bytes (x read; S' also dp written), the products at the bf16 rate
-// below them.
+// narrower groups on pd_wide_mma).  One block an SM (the ring's four
+// stages, 160 KB).  Bound at 256 -> 256: S, S' bytes (x read; S' also dp
+// written), the products at the bf16 rate below them; C' the six products.
+template <int kMode>
 struct PdWg {
-  static constexpr int kBC = 2 * 64;                 // channels a block
-  static constexpr int kA = kWgDepth * kBC * 2;      // W^T: 64 rows of 128 channels
+  static constexpr bool kTwo = kMode == kProjBwd;     // p and d
+  static constexpr int kThreads = kTwo ? 512 : kWgThreads;
+  static constexpr int kConsumers = kTwo ? 384 : 256;  // the threads of the products
+  static constexpr int kBC = kTwo ? 64 : 2 * 64;     // channels a block
+  static constexpr int kA = kWgDepth * 2 * 64 * 2;   // two boxes of 64 channels x 64 rows
   static constexpr int kB = kWgDepth * kPts * 2;     // x, one plane: 64 rows of 64 points
   static constexpr int kStage = kA + 3 * kB, kStages = 4;
   static constexpr int kBytes = wg_smem(kStage, kStages);
-  static constexpr int kOutLd = kPts + 8;            // bf16 a row of the staged dp
+  static constexpr int kOutLd = kPts + 8;            // bf16 a row of S''s staged dp
 };
 
 template <int kMode>
-__global__ void __launch_bounds__(kWgThreads, 1)
+__global__ void __launch_bounds__(PdWg<kMode>::kThreads, 1)
 pd_wgmma(PdArgs<vnk_bf16> args, const __grid_constant__ CUtensorMap tm_wt,
          const __grid_constant__ CUtensorMap tm_x, vnk_bf16* __restrict__ p_out) {
-  static_assert(kMode == kStatsFwd || kMode == kStatsBwd, "S and S' only");
-  using P = PdWg;
+  using P = PdWg<kMode>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* const tiles = align1024(smem_raw);
   uint64_t* const full = reinterpret_cast<uint64_t*>(tiles + P::kStages * P::kStage);
@@ -1437,161 +1213,213 @@ pd_wgmma(PdArgs<vnk_bf16> args, const __grid_constant__ CUtensorMap tm_wt,
   if (threadIdx.x == 0) {
     for (int s = 0; s < P::kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 256);
+      mbar_init(&empty[s], P::kConsumers);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (threadIdx.x >= 256) {  // the producer warp: its first lane issues the loads
-    if (threadIdx.x == 256) {
-      for (int it = 0; it < steps; ++it) {
-        const int s = it % P::kStages, k0 = it * kWgDepth;
-        mbar_wait(&empty[s], ((it / P::kStages) & 1) ^ 1);
-        mbar_expect_tx(&full[s], P::kStage);
-        unsigned char* st = tiles + s * P::kStage;
-        tma_load(st, &tm_wt, &full[s], c0, k0, 0);
-        tma_load(st + P::kA / 2, &tm_wt, &full[s], c0 + 64, k0, 0);
-        for (int j = 0; j < 3; ++j)
-          tma_load(st + P::kA + j * P::kB, &tm_x, &full[s], n0, k0, bi * 3 + j);
-      }
-    }
-    return;
-  }
-
   const int wg = threadIdx.x / 128;
-  float d[3][32];
-#pragma unroll
-  for (int j = 0; j < 3; ++j)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) d[j][i] = 0.f;
-  for (int it = 0; it < steps; ++it) {
-    const int s = it % P::kStages;
-    mbar_wait(&full[s], (it / P::kStages) & 1);
-    const unsigned char* st = tiles + s * P::kStage;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) fence_acc(d[j]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kWgDepth / 16; ++kk) {
-      const uint64_t a = gmma_desc(st + wg * (P::kA / 2) + kk * 16 * 128, P::kA / 2, 1024);
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        wgmma_m64n64k16_tt(d[j], a, gmma_desc(st + P::kA + j * P::kB + kk * 16 * 128, P::kB, 1024));
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-#pragma unroll
-    for (int j = 0; j < 3; ++j) fence_acc(d[j]);
-    mbar_arrive(&empty[s]);
-  }
-
-  // thread (w, grp, tig) of warpgroup wg holds channel c0 + wg 64 + w 16 +
-  // grp + 8 r at points n0 + 8 i + 2 tig + e (i < 8; e, r < 2): d[j][4 i + 2 r + e]
   const int w = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int grp = lane / 4, tig = lane % 4;
-  const bool has_bias = args.pbias != nullptr;
-  const size_t stride = static_cast<size_t>(args.B) * args.T * Cout;
-  const size_t at = static_cast<size_t>(bi) * args.T + t;
-  vnk_bf16* const out = reinterpret_cast<vnk_bf16*>(tiles);  // (3, 128, kOutLd): S''s dp
-  if (kMode == kStatsBwd) consumers_sync();  // the stages are free: both warpgroups are past them
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int cl = wg * 64 + w * 16 + grp + 8 * r, c = c0 + cl;
-    const bool cok = c < Cout;
-    float pb[3] = {0.f, 0.f, 0.f};
-    if (has_bias && cok) {  // a bias column covers the tile
-#pragma unroll
-      for (int j = 0; j < 3; ++j) pb[j] = vnk_bias(args.pbias, bi, j, c, Cout, n0, N, args.group);
-    }
-    float c1v = 0.f, c2v = 0.f;
-    if (kMode == kStatsBwd && cok) {
-      c1v = args.c1[c];
-      c2v = args.c2[c];
-    }
-    // the sums in pd_wide_mma's order, so its bits: a thread's points of
-    // one of that design's point warps (i / 2: its 16 points) over its two
-    // n8 tiles (i % 2) and their pairs, its quad, then those warps in turn
-    float s1w[4], s2w[4], sbw[4][3];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float o[2][3];
-      if (i % 2 == 0) {
-        s1w[i / 2] = s2w[i / 2] = 0.f;
-#pragma unroll
-        for (int j = 0; j < 3; ++j) sbw[i / 2][j] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = n0 + 8 * i + 2 * tig + e;
-        const bool ok = cok && n < N;
-        float p[3];
-#pragma unroll
-        for (int j = 0; j < 3; ++j) p[j] = vnk_round_bf16(d[j][4 * i + 2 * r + e] + pb[j]);
-        if (p_out != nullptr && ok) {
-#pragma unroll
-          for (int j = 0; j < 3; ++j)
-            p_out[((static_cast<size_t>(bi) * 3 + j) * Cout + c) * N + n] =
-                __float2bfloat16_rn(p[j]);
-        }
-        if (kMode == kStatsFwd) {
-          const float norm_e = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2]) + VNK_EPS;
-          if (ok) {
-            s1w[i / 2] += norm_e;
-            s2w[i / 2] += norm_e * norm_e;
-          }
-        } else {  // dp = (c1 + 2 c2 (|p| + EPS)) p / |p|, as pd_pass
-          const float pnorm = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2]);
-          const float norm_e = pnorm + VNK_EPS;
-          float scale = (c1v + 2.f * c2v * norm_e) *
-                        (pnorm > 0.f ? 1.f / fmaxf(pnorm, 1e-30f) : 0.f);
-          if (!ok) scale = 0.f;
-#pragma unroll
-          for (int j = 0; j < 3; ++j) o[e][j] = scale * p[j];
-        }
-      }
-      if (kMode == kStatsBwd) {
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          sbw[i / 2][j] += o[0][j] + o[1][j];
-          *reinterpret_cast<__nv_bfloat162*>(out + (j * P::kBC + cl) * P::kOutLd + 8 * i +
-                                             2 * tig) = __floats2bfloat162_rn(o[0][j], o[1][j]);
-        }
-      }
-    }
-    if (kMode == kStatsFwd) {
-      float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-      for (int w4 = 0; w4 < 4; ++w4) {
-        const float a1 = quad_sum(s1w[w4]), a2 = quad_sum(s2w[w4]);
-        s1 = w4 == 0 ? a1 : s1 + a1;
-        s2 = w4 == 0 ? a2 : s2 + a2;
-      }
-      if (tig == 0 && cok) {
-        args.partial[at * Cout + c] = s1;
-        args.partial[stride + at * Cout + c] = s2;
-      }
-    } else if (has_bias) {  // one bias partial per (plane, sample, tile, channel)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        float v = 0.f;
-#pragma unroll
-        for (int w4 = 0; w4 < 4; ++w4) {
-          const float a1 = quad_sum(sbw[w4][j]);
-          v = w4 == 0 ? a1 : v + a1;
-        }
-        if (tig == 0 && cok) args.partial[j * stride + at * Cout + c] = v;
-      }
+  if (threadIdx.x == P::kConsumers) {  // the producer issues the loads
+    for (int it = 0; it < steps; ++it) {
+      const int s = it % P::kStages, k0 = it * kWgDepth;
+      mbar_wait(&empty[s], ((it / P::kStages) & 1) ^ 1);
+      mbar_expect_tx(&full[s], P::kStage);
+      unsigned char* st = tiles + s * P::kStage;
+      tma_load(st, &tm_wt, &full[s], c0, k0, 0);
+      if (P::kTwo)  // Wd^T's box of the same channels
+        tma_load(st + P::kA / 2, &tm_wt, &full[s], c0, k0, 1);
+      else
+        tma_load(st + P::kA / 2, &tm_wt, &full[s], c0 + 64, k0, 0);
+      for (int j = 0; j < 3; ++j)
+        tma_load(st + P::kA + j * P::kB, &tm_x, &full[s], n0, k0, bi * 3 + j);
     }
   }
-  if (kMode == kStatsBwd) {  // dp in 16-byte pieces of a row (N % 8 == 0: a piece is in or out)
-    consumers_sync();
-    for (int e = threadIdx.x; e < 3 * P::kBC * 8; e += 256) {
-      const int row = e / 8, j = row / P::kBC, cl = row % P::kBC, col = (e % 8) * 8;
-      const int c = c0 + cl, n = n0 + col;
-      if (c < Cout && n < N)
-        *reinterpret_cast<uint4*>(args.dp + ((static_cast<size_t>(bi) * 3 + j) * Cout + c) * N +
-                                  n) = *reinterpret_cast<const uint4*>(out + row * P::kOutLd + col);
+
+  if constexpr (P::kTwo) {
+    // warpgroup j: p (acc[0]) and d (acc[1]) of plane j; thread (w, grp,
+    // tig) holds channel w 16 + grp + 8 r at points 8 i + 2 tig + e of the
+    // tile (i < 8; e, r < 2): acc[h][4 i + 2 r + e]
+    float acc[2][32];
+    if (threadIdx.x < P::kConsumers) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+      for (int it = 0; it < steps; ++it) {
+        const int s = it % P::kStages;
+        mbar_wait(&full[s], (it / P::kStages) & 1);
+        const unsigned char* st = tiles + s * P::kStage;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) fence_acc(acc[h]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgDepth / 16; ++kk) {
+          const uint64_t b = gmma_desc(st + P::kA + wg * P::kB + kk * 16 * 128, P::kB, 1024);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            wgmma_m64n64k16_tt(acc[h], gmma_desc(st + h * (P::kA / 2) + kk * 16 * 128,
+                                                 P::kA / 2, 1024), b);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) fence_acc(acc[h]);
+        mbar_arrive(&empty[s]);
+      }
+    }
+    __syncthreads();  // every warpgroup is past the ring
+    unsigned short* const pd = reinterpret_cast<unsigned short*>(tiles);
+    if (threadIdx.x < P::kConsumers) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int f = 0; f < 4; ++f)
+            stage_pd(args, pd, h, wg, w * 16 + grp + 8 * (f / 2), 8 * i + 2 * tig + f % 2,
+                     acc[h][4 * i + f], bi, c0, n0);
+    }
+    __syncthreads();
+    staged_pd_epilogue<false>(args, pd, t, bi, c0, n0);
+    return;
+  } else {
+    if (threadIdx.x >= P::kConsumers) return;
+    float d[3][32];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) d[j][i] = 0.f;
+    for (int it = 0; it < steps; ++it) {
+      const int s = it % P::kStages;
+      mbar_wait(&full[s], (it / P::kStages) & 1);
+      const unsigned char* st = tiles + s * P::kStage;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) fence_acc(d[j]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgDepth / 16; ++kk) {
+        const uint64_t a = gmma_desc(st + wg * (P::kA / 2) + kk * 16 * 128, P::kA / 2, 1024);
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          wgmma_m64n64k16_tt(d[j], a,
+                             gmma_desc(st + P::kA + j * P::kB + kk * 16 * 128, P::kB, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int j = 0; j < 3; ++j) fence_acc(d[j]);
+      mbar_arrive(&empty[s]);
+    }
+
+    // thread (w, grp, tig) of warpgroup wg holds channel c0 + wg 64 + w 16 +
+    // grp + 8 r at points n0 + 8 i + 2 tig + e (i < 8; e, r < 2): d[j][4 i + 2 r + e]
+    const bool has_bias = args.pbias != nullptr;
+    const size_t stride = static_cast<size_t>(args.B) * args.T * Cout;
+    const size_t at = static_cast<size_t>(bi) * args.T + t;
+    vnk_bf16* const out = reinterpret_cast<vnk_bf16*>(tiles);  // (3, 128, kOutLd): S''s dp
+    if (kMode == kStatsBwd) consumers_sync();  // the stages are free: both warpgroups are past them
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int cl = wg * 64 + w * 16 + grp + 8 * r, c = c0 + cl;
+      const bool cok = c < Cout;
+      float pb[3] = {0.f, 0.f, 0.f};
+      if (has_bias && cok) {  // a bias column covers the tile
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          pb[j] = vnk_bias(args.pbias, bi, j, c, Cout, n0, N, args.group);
+      }
+      float c1v = 0.f, c2v = 0.f;
+      if (kMode == kStatsBwd && cok) {
+        c1v = args.c1[c];
+        c2v = args.c2[c];
+      }
+      // the sums in pd_wide_mma's order, so its bits: a thread's points of
+      // one of that design's point warps (i / 2: its 16 points) over its two
+      // n8 tiles (i % 2) and their pairs, its quad, then those warps in turn
+      float s1w[4], s2w[4], sbw[4][3];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float o[2][3];
+        if (i % 2 == 0) {
+          s1w[i / 2] = s2w[i / 2] = 0.f;
+#pragma unroll
+          for (int j = 0; j < 3; ++j) sbw[i / 2][j] = 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + 8 * i + 2 * tig + e;
+          const bool ok = cok && n < N;
+          float p[3];
+#pragma unroll
+          for (int j = 0; j < 3; ++j) p[j] = vnk_round_bf16(d[j][4 * i + 2 * r + e] + pb[j]);
+          if (p_out != nullptr && ok) {
+#pragma unroll
+            for (int j = 0; j < 3; ++j)
+              p_out[((static_cast<size_t>(bi) * 3 + j) * Cout + c) * N + n] =
+                  __float2bfloat16_rn(p[j]);
+          }
+          if (kMode == kStatsFwd) {
+            const float norm_e = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2]) + VNK_EPS;
+            if (ok) {
+              s1w[i / 2] += norm_e;
+              s2w[i / 2] += norm_e * norm_e;
+            }
+          } else {  // dp = (c1 + 2 c2 (|p| + EPS)) p / |p|, as pd_pass
+            const float pnorm = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2]);
+            const float norm_e = pnorm + VNK_EPS;
+            float scale = (c1v + 2.f * c2v * norm_e) *
+                          (pnorm > 0.f ? 1.f / fmaxf(pnorm, 1e-30f) : 0.f);
+            if (!ok) scale = 0.f;
+#pragma unroll
+            for (int j = 0; j < 3; ++j) o[e][j] = scale * p[j];
+          }
+        }
+        if (kMode == kStatsBwd) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            sbw[i / 2][j] += o[0][j] + o[1][j];
+            *reinterpret_cast<__nv_bfloat162*>(out + (j * P::kBC + cl) * P::kOutLd + 8 * i +
+                                               2 * tig) = __floats2bfloat162_rn(o[0][j], o[1][j]);
+          }
+        }
+      }
+      if (kMode == kStatsFwd) {
+        float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int w4 = 0; w4 < 4; ++w4) {
+          const float a1 = quad_sum(s1w[w4]), a2 = quad_sum(s2w[w4]);
+          s1 = w4 == 0 ? a1 : s1 + a1;
+          s2 = w4 == 0 ? a2 : s2 + a2;
+        }
+        if (tig == 0 && cok) {
+          args.partial[at * Cout + c] = s1;
+          args.partial[stride + at * Cout + c] = s2;
+        }
+      } else if (has_bias) {  // one bias partial per (plane, sample, tile, channel)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          float v = 0.f;
+#pragma unroll
+          for (int w4 = 0; w4 < 4; ++w4) {
+            const float a1 = quad_sum(sbw[w4][j]);
+            v = w4 == 0 ? a1 : v + a1;
+          }
+          if (tig == 0 && cok) args.partial[j * stride + at * Cout + c] = v;
+        }
+      }
+    }
+    if (kMode == kStatsBwd) {  // dp in 16-byte pieces of a row (N % 8 == 0: a piece is in or out)
+      consumers_sync();
+      for (int e = threadIdx.x; e < 3 * P::kBC * 8; e += 256) {
+        const int row = e / 8, j = row / P::kBC, cl = row % P::kBC, col = (e % 8) * 8;
+        const int c = c0 + cl, n = n0 + col;
+        if (c < Cout && n < N)
+          *reinterpret_cast<uint4*>(args.dp + ((static_cast<size_t>(bi) * 3 + j) * Cout + c) * N +
+                                    n) = *reinterpret_cast<const uint4*>(out + row * P::kOutLd + col);
+      }
     }
   }
 }
@@ -2319,63 +2147,47 @@ void products_bwd(const T* x, const float* w, const float* wd, const T* dp,
                   static_cast<int64_t>(Cout) * Cin, st);
 }
 
-// W^T (and Wd^T) into wt, then the wide pass 1.
+// W^T (and Wd^T) into wt, then the wide pass 1: the FMAs in float32, the
+// tensor cores in bf16.
 template <int kMode, typename T>
 cudaError_t launch_pd_wide(const PdArgs<T>& args, T* wt, cudaStream_t st) {
   constexpr int kV = 16 / static_cast<int>(sizeof(T));
   launch_transpose(args.w, kMode == kProjBwd ? args.wd : nullptr, wt, args.Cin, args.Cout, st);
   const bool aw = aligned16(wt, args.Cout, kV), ax = aligned16(args.x, args.N, kV);
   const bool split = args.sub < kPts;
-  if constexpr (vnk_is_bf16<T>() && (kMode == kStatsBwd || kMode == kStatsFwd)) {
-    using P = PdBf16;
+  if constexpr (vnk_is_bf16<T>()) {
+    using P = PdBf16<kMode>;
     const dim3 grid((args.Cout + P::kBC - 1) / P::kBC, args.T, args.B);
-    if (kMode == kStatsFwd)  // no bias partials: kSplit plays no part
-      return launch_wide<P::kThreads>(pd_wide_mma<kMode, false>, grid, P::kBytes, st, args, wt,
-                                      aw, ax);
-    return split ? launch_wide<P::kThreads>(pd_wide_mma<kMode, true>, grid, P::kBytes, st, args,
+    // S reads its bias at every point and writes no bias partials: kSplit
+    // plays no part there
+    return split && kMode != kStatsFwd ? launch_wide<P::kThreads>(pd_wide_mma<kMode, true>, grid, P::kBytes, st, args,
                                             wt, aw, ax)
                  : launch_wide<P::kThreads>(pd_wide_mma<kMode, false>, grid, P::kBytes, st, args,
                                             wt, aw, ax);
   } else {
-    using P = PdFma<kMode, T>;
+    using P = PdFma<kMode>;
     const dim3 grid((args.Cout + P::kBC - 1) / P::kBC, args.T, args.B);
-    return split ? launch_wide(pd_wide_fma<kMode, true, T>, grid, P::kBytes, st, args, wt, aw, ax)
-                 : launch_wide(pd_wide_fma<kMode, false, T>, grid, P::kBytes, st, args, wt, aw, ax);
+    return split ? launch_wide(pd_wide_fma<kMode, true>, grid, P::kBytes, st, args, wt, aw, ax)
+                 : launch_wide(pd_wide_fma<kMode, false>, grid, P::kBytes, st, args, wt, aw, ax);
   }
 }
 
-// W^T and Wd^T into wt, W and Wd (bf16, K-major) after them, then C''s
-// certified pass 1 (the re-sums counted into `resums` where it is not null).
-cudaError_t launch_pd_cert(const PdArgs<vnk_bf16>& args, vnk_bf16* wt, int* resums,
-                           cudaStream_t st) {
-  using P = PdCert;
-  launch_transpose(args.w, args.wd, wt, args.Cin, args.Cout, st);
-  const int64_t total = static_cast<int64_t>(args.Cin) * args.Cout;
-  vnk_bf16* const wk = wt + 2 * total;  // the K-major copy after W^T, Wd^T
-  const int64_t need = (2 * total + kWideThreads - 1) / kWideThreads;
-  round_weights<<<static_cast<unsigned>(need < 4096 ? need : 4096), kWideThreads, 0, st>>>(
-      args.w, args.wd, wk, total);
-  const dim3 grid(args.Cout / P::kBC, args.T, args.B);
-  const int bytes = P::bytes(args.Cin);
-  return args.sub < kPts
-             ? launch_wide<P::kThreads>(pd_cert<true>, grid, bytes, st, args, wk, resums)
-             : launch_wide<P::kThreads>(pd_cert<false>, grid, bytes, st, args, wk, resums);
-}
-
-// W^T into wt, then pass 1 of S or S' on wgmma (pd_wgmma; p_out null or p).
+// W^T (and C''s Wd^T) into wt, then pass 1 on wgmma (pd_wgmma; p_out null
+// or S's and S''s p).
 template <int kMode>
 cudaError_t launch_pd_wgmma(const PdArgs<vnk_bf16>& args, vnk_bf16* wt, vnk_bf16* p_out,
                             cudaStream_t st) {
-  using P = PdWg;
-  launch_transpose(args.w, static_cast<const float*>(nullptr), wt, args.Cin, args.Cout, st);
+  using P = PdWg<kMode>;
+  launch_transpose(args.w, P::kTwo ? args.wd : nullptr, wt, args.Cin, args.Cout, st);
   CUtensorMap wt_map, x_map;
-  cudaError_t err = tensor_map(&wt_map, wt, args.Cout, args.Cin, 1, kWgDepth, kWgDepth);
+  cudaError_t err =
+      tensor_map(&wt_map, wt, args.Cout, args.Cin, P::kTwo ? 2 : 1, kWgDepth, kWgDepth);
   if (err == cudaSuccess)
     err = tensor_map(&x_map, args.x, args.N, args.Cin, args.B * 3, kWgDepth, kWgDepth);
   if (err != cudaSuccess) return err;
   const dim3 grid((args.Cout + P::kBC - 1) / P::kBC, args.T, args.B);
-  return launch_wide<kWgThreads>(pd_wgmma<kMode>, grid, P::kBytes, st, args, wt_map, x_map,
-                                 p_out);
+  return launch_wide<P::kThreads>(pd_wgmma<kMode>, grid, P::kBytes, st, args, wt_map, x_map,
+                                  p_out);
 }
 
 // Wide passes 2 and 3 and the split-K reduction: as products_bwd, with
@@ -2540,31 +2352,27 @@ cudaError_t launch_walk(const PdArgs<T>& args, T* dx, float* dw_part, cudaStream
 // narrow passes, the wide ones (S, S', C'), or the channel walk (S's
 // "stream", S''s and B''s "fused"; Cin 1 or 2 only).
 // kWgmmaDesign: the wide passes with passes 2 and 3 on wgmma + TMA (the
-// bf16 S' and C' only, where wgmma_fits).  kCertifiedDesign: C''s certified
-// pass 1 (pd_cert), then the wgmma passes 2 and 3 (bf16 C' where wgmma_fits
-// and Cin <= PdCert::kMaxCin).  kWgmmaPDesign: pass 1 of S and S' on
-// wgmma (pd_wgmma), S''s passes 2 and 3 as kWgmmaDesign's (bf16 S and S'
-// where wgmma_fits and a bias column covers whole tiles: group 0 or >= 64).
+// bf16 S' and C' only, where wgmma_fits).  kWgmmaPDesign: pass 1 on wgmma
+// too (pd_wgmma), S''s and C''s passes 2 and 3 as kWgmmaDesign's (bf16 S,
+// S' and C' where wgmma_fits and a bias column covers whole tiles: group 0
+// or >= 64).
 enum Design {
   kNarrowDesign = 0,
   kWideDesign = 1,
   kWalkDesign = 2,
   kWgmmaDesign = 3,
-  kCertifiedDesign = 4,
-  kWgmmaPDesign = 5
+  kWgmmaPDesign = 4
 };
 
 // cudaErrorInvalidValue for a design code that is none of these, a design
 // the kernel does not have (`wide`, `walk`: whether it has the wide passes,
-// the walk; `wgmma`, `cert`, `wgmma_p`: whether the wgmma passes, the
-// certified pass 1, the wgmma pass 1 take this launch), or the walk at a
-// Cin it does not take; else
+// the walk; `wgmma`, `wgmma_p`: whether the wgmma passes, the wgmma pass 1
+// take this launch), or the walk at a Cin it does not take; else
 // cudaSuccess.
 inline cudaError_t check_design(int design, int Cin, bool wide, bool walk, bool wgmma = false,
-                                bool cert = false, bool wgmma_p = false) {
+                                bool wgmma_p = false) {
   if (design == kNarrowDesign || (design == kWideDesign && wide)) return cudaSuccess;
   if (design == kWgmmaDesign) return wide && wgmma ? cudaSuccess : cudaErrorInvalidValue;
-  if (design == kCertifiedDesign) return cert ? cudaSuccess : cudaErrorInvalidValue;
   if (design == kWgmmaPDesign) return wgmma_p ? cudaSuccess : cudaErrorInvalidValue;
   return design == kWalkDesign && walk && (Cin == 1 || Cin == 2) ? cudaSuccess
                                                                   : cudaErrorInvalidValue;
@@ -2576,7 +2384,7 @@ int stats_fwd(const void* x, const void* w, const void* pbias, void* s12,
               int design, void* stream) {
   const bool wgmma_p = vnk_is_bf16<T>() && wgmma_fits(Cin, Cout, N, x, nullptr, nullptr) &&
                        (group == 0 || group >= kPts);
-  if (check_design(design, Cin, true, true, false, false, wgmma_p) != cudaSuccess)
+  if (check_design(design, Cin, true, true, false, wgmma_p) != cudaSuccess)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0 || Cout == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -2606,7 +2414,7 @@ int stats_bwd(const void* x, const void* w, const void* pbias, const void* c1,
               int N, int S, int chunk, int group, int design, void* stream) {
   const bool wgmma = vnk_is_bf16<T>() && wgmma_fits(Cin, Cout, N, x, dp, nullptr);
   const bool wgmma_p = wgmma && (group == 0 || group >= kPts);
-  if (check_design(design, Cin, true, true, wgmma, false, wgmma_p) != cudaSuccess)
+  if (check_design(design, Cin, true, true, wgmma, wgmma_p) != cudaSuccess)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0 || Cout == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -2661,11 +2469,11 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
               const void* dbias, const void* a, const void* b,
               const void* w_out, const void* g, void* dx, void* dw2,
               void* sums, void* dpdb, void* dp, void* dd, void* partial,
-              void* dw_part, void* wt, void* resums, void* pd_out, int B, int Cin, int Cout,
-              int N, int S, int chunk, int group, int design, float one_minus_ns, void* stream) {
+              void* dw_part, void* wt, void* pd_out, int B, int Cin, int Cout, int N, int S,
+              int chunk, int group, int design, float one_minus_ns, void* stream) {
   const bool wgmma = vnk_is_bf16<T>() && wgmma_fits(Cin, Cout, N, x, dp, dd);
-  const bool cert = kMode == kProjBwd && wgmma && Cin <= PdCert::kMaxCin;
-  if (check_design(design, Cin, kMode == kProjBwd, kMode == kLayerBwd, wgmma, cert) !=
+  const bool wgmma_p = kMode == kProjBwd && wgmma && (group == 0 || group >= kPts);
+  if (check_design(design, Cin, kMode == kProjBwd, kMode == kLayerBwd, wgmma, wgmma_p) !=
       cudaSuccess)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0 || Cout == 0) return 0;
@@ -2688,11 +2496,11 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
     }
   }
   if constexpr (kMode == kProjBwd) {
-    if (design == kWideDesign || design == kWgmmaDesign || design == kCertifiedDesign) {
+    if (design == kWideDesign || design == kWgmmaDesign || design == kWgmmaPDesign) {
       cudaError_t err = cudaSuccess;
       if constexpr (vnk_is_bf16<T>()) {
-        if (design == kCertifiedDesign)
-          err = launch_pd_cert(args, static_cast<T*>(wt), static_cast<int*>(resums), st);
+        if (design == kWgmmaPDesign)
+          err = launch_pd_wgmma<kMode>(args, static_cast<T*>(wt), nullptr, st);
         else
           err = launch_pd_wide<kMode>(args, static_cast<T*>(wt), st);
       } else {
@@ -2702,7 +2510,7 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
       vnk_reduce_rows(args.partial, static_cast<float*>(sums), nqc, B * args.T, Cout, st);
       if (pbias != nullptr) reduce_bias(args, nqc, 6, static_cast<float*>(dpdb), st);
       if constexpr (vnk_is_bf16<T>()) {
-        if (design == kWgmmaDesign || design == kCertifiedDesign)
+        if (design == kWgmmaDesign || design == kWgmmaPDesign)
           return static_cast<int>(products_wgmma<true>(
               args.x, static_cast<const T*>(wt), args.dp, args.dd, static_cast<T*>(dx),
               static_cast<float*>(dw2), static_cast<float*>(dw_part), B, Cin, Cout, N, S, chunk,
@@ -2736,10 +2544,9 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
 // Each takes `design` (Design: 0 the narrow passes; 1 the wide ones, S, S'
 // and C'; 2 the channel walk, S, S' and B' at Cin 1 or 2 only; 3 the wide
 // passes with passes 2 and 3 on wgmma, bf16 S' and C' at Cin, Cout
-// multiples of 64, N % 8 == 0 and 16-byte aligned x, dp, dd; 4 the
-// certified pass 1 and the wgmma passes, bf16 C' there at Cin <= 256; 5
-// pass 1 on wgmma (and S''s passes 2 and 3 too), bf16 S and S' there with
-// bias columns of whole tiles; any other code, or a design the kernel
+// multiples of 64, N % 8 == 0 and 16-byte aligned x, dp, dd; 4 pass 1 on
+// wgmma (and S''s and C''s passes 2 and 3 too), bf16 S, S' and C' there
+// with bias columns of whole tiles; any other code, or a design the kernel
 // lacks, returns cudaErrorInvalidValue); the wide passes take wt, a (1 or
 // 2, Cin, Cout) scratch in the activations' type, and S' and C' `chunk`,
 // the pass-3 stages (16 points float32, 32 bf16, 64 for the wgmma passes)
@@ -2747,7 +2554,7 @@ int layer_bwd(const void* x, const void* w, const void* wd, const void* pbias,
 
 // S: s12 (2, Cout) = (s1, s2); partial with nq = 2; wt unused unless wide
 // (a (Cin, Cout) scratch).  p_out (S and S'): null, or (B, 3, Cout, N)
-// bf16 that the wgmma pass 1 (design 5) fills with p; the others leave it.
+// bf16 that the wgmma pass 1 (design 4) fills with p; the others leave it.
 VNK_EXPORT int vn_layer_stats_fwd(const void* x, const void* w,
                                   const void* pbias, void* s12, void* partial,
                                   void* wt, void* p_out, int B, int Cin, int Cout, int N,
@@ -2803,8 +2610,8 @@ VNK_EXPORT int vn_layer_fused_bwd(
     float one_minus_ns, void* stream) {
   return layer_bwd<kLayerBwd, float>(x, w, wd, pbias, dbias, a, b, nullptr, g, dx,
                                      dw2, dab, dpdb, dp, dd, partial, dw_part, nullptr,
-                                     nullptr, nullptr, B, Cin, Cout, N, S, 0, group, design,
-                                     one_minus_ns, stream);
+                                     nullptr, B, Cin, Cout, N, S, 0, group, design, one_minus_ns,
+                                     stream);
 }
 
 VNK_EXPORT int vn_layer_fused_bwd_bf16(
@@ -2815,14 +2622,12 @@ VNK_EXPORT int vn_layer_fused_bwd_bf16(
     float one_minus_ns, void* stream) {
   return layer_bwd<kLayerBwd, vnk_bf16>(x, w, wd, pbias, dbias, a, b, nullptr, g,
                                         dx, dw2, dab, dpdb, dp, dd, partial,
-                                        dw_part, nullptr, nullptr, nullptr, B, Cin, Cout, N, S, 0,
-                                        group, design, one_minus_ns, stream);
+                                        dw_part, nullptr, nullptr, B, Cin, Cout, N, S, 0, group,
+                                        design, one_minus_ns, stream);
 }
 
 // C': as B' with w_out (Cout,) and g (B, 3, 1, N); dabo (3, Cout) =
-// (dA, dB, dw_out); partial with nqc = 3, nqb = 6.  resums: null, or one
-// int to which the certified pass 1 (design 4) adds the number of p, d
-// elements it summed again (the other designs leave it).  pd_out: null, or
+// (dA, dB, dw_out); partial with nqc = 3, nqb = 6.  pd_out: null, or
 // (2, B, 3, Cout, N) in the activations' type that every design's pass 1
 // fills with the p and d its epilogue backward reads (tests hold them to
 // kernel C's pd_out).
@@ -2830,22 +2635,21 @@ VNK_EXPORT int vn_layer_fused_project_bwd(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* w_out,
     const void* g, void* dx, void* dw2, void* dabo, void* dpdb, void* dp,
-    void* dd, void* partial, void* dw_part, void* wt, void* resums, void* pd_out, int B, int Cin,
-    int Cout, int N, int S, int chunk, int group, int design, float one_minus_ns, void* stream) {
+    void* dd, void* partial, void* dw_part, void* wt, void* pd_out, int B, int Cin, int Cout,
+    int N, int S, int chunk, int group, int design, float one_minus_ns, void* stream) {
   return layer_bwd<kProjBwd, float>(x, w, wd, pbias, dbias, a, b, w_out, g, dx,
-                                    dw2, dabo, dpdb, dp, dd, partial, dw_part, wt, resums,
-                                    pd_out, B, Cin, Cout, N, S, chunk, group, design, one_minus_ns,
-                                    stream);
+                                    dw2, dabo, dpdb, dp, dd, partial, dw_part, wt, pd_out, B, Cin,
+                                    Cout, N, S, chunk, group, design, one_minus_ns, stream);
 }
 
 VNK_EXPORT int vn_layer_fused_project_bwd_bf16(
     const void* x, const void* w, const void* wd, const void* pbias,
     const void* dbias, const void* a, const void* b, const void* w_out,
     const void* g, void* dx, void* dw2, void* dabo, void* dpdb, void* dp,
-    void* dd, void* partial, void* dw_part, void* wt, void* resums, void* pd_out, int B, int Cin,
-    int Cout, int N, int S, int chunk, int group, int design, float one_minus_ns, void* stream) {
+    void* dd, void* partial, void* dw_part, void* wt, void* pd_out, int B, int Cin, int Cout,
+    int N, int S, int chunk, int group, int design, float one_minus_ns, void* stream) {
   return layer_bwd<kProjBwd, vnk_bf16>(x, w, wd, pbias, dbias, a, b, w_out, g,
                                        dx, dw2, dabo, dpdb, dp, dd, partial,
-                                       dw_part, wt, resums, pd_out, B, Cin, Cout, N, S, chunk,
+                                       dw_part, wt, pd_out, B, Cin, Cout, N, S, chunk,
                                        group, design, one_minus_ns, stream);
 }

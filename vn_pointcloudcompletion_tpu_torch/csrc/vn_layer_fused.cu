@@ -68,11 +68,12 @@
 //         channels x 16 points each, p and d, three planes), three 32-channel
 //         stages, two blocks an SM.  The sums run in the tensor cores' order,
 //         not input-channel order, so a p or d that lies at a bf16 rounding
-//         boundary rounds one ulp away from the plain version's at rare
-//         points; the forward has no step that amplifies that (C''s
-//         BatchNorm-on-norms backward does, so C' keeps FMA order for p and
-//         d).  The check against the plain version is a stated bound, not
-//         equal bits (chip_smoke.py, BF16_C_RMS).  The epilogue reads the
+//         boundary rounds one ulp away from the in-order sum's at rare
+//         points; C''s pass 1 takes the same k16 steps (vn_layer_bwd.cu
+//         pd_wide_mma, pd_wgmma), so its backward sees these bits, and the
+//         plain version summing in k16 order (ops/vn_layer_fused.py
+//         k16_sum) gives them too; against the in-order plain version the
+//         check is a stated bound (chip_smoke.py, BF16_C_RMS).  The epilogue reads the
 //         accumulators in their fragment layout: a thread's four channels in
 //         order, a fixed shuffle tree over the warp's eight channel rows, the
 //         two channel warps in order; the plain version sums in that order.

@@ -55,6 +55,8 @@ def sources() -> List[Path]:
 
 
 def library_path(source: Path) -> Path:
+    """Where ``source`` builds to: a name carrying a hash of it, the headers
+    of ``csrc/`` and the flags."""
     h = hashlib.sha256()
     for part in [source, *sorted(CSRC.glob("*.cuh"))]:
         h.update(part.read_bytes())
@@ -92,12 +94,33 @@ def build_all() -> Dict[str, str]:
     return reports
 
 
+def build_source(source: Path) -> Path:
+    """Compile one source outside ``csrc/`` (a probe under ``tools/``, which
+    includes ``csrc/`` headers by relative path) into ``build/kernels/``
+    unless its library is there; returns the library's path."""
+    out = library_path(source)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {source.name}:\n{proc.stdout}")
+        os.replace(tmp, out)
+    return out
+
+
 def _library(source: str) -> ctypes.CDLL:
+    """The library of ``source``: a file name under ``csrc/``, or the path of
+    a source elsewhere (:func:`build_source`)."""
     lib = _libs.get(source)
     if lib is None:
-        path = library_path(CSRC / source)
-        if not path.exists():
-            build_all()
+        if os.sep in source:
+            path = build_source(Path(source))
+        else:
+            path = library_path(CSRC / source)
+            if not path.exists():
+                build_all()
         lib = ctypes.CDLL(str(path))
         lib.vnk_error_string.argtypes = [ctypes.c_int]
         lib.vnk_error_string.restype = ctypes.c_char_p

@@ -36,13 +36,15 @@ function (``csrc/vn_layer_fused.cu``, ``csrc/vn_layer_bwd.cu``).
 Each is a ``torch.autograd.Function`` that saves only its inputs; the
 backward recomputes ``p`` and ``d`` from ``x``, as the JAX ops do, so no
 (B, 3, C, N) residual is kept between forward and backward.  JAX's one
-``_compute_pd`` gives its backward the forward's bits of p and d; the
-port's C' sums them in the order its forward C did but at the wide bf16
-shapes, where C sums in the tensor cores' k16 steps and C' in input-channel
-order (:func:`summation_order`; ROADMAP.md §3).  The matrix
-products run inside the kernels (``csrc/vn_layer_fused.cu``,
-``csrc/vn_layer_bwd.cu``).  A CPU tensor takes the plain versions
-(``reference_*``).
+``_compute_pd`` gives its backward the forward's bits of p and d; so
+does the port: C' sums them in the order its forward C did at every shape
+(:func:`summation_order`), in the tensor cores' k16 steps at the wide bf16
+shapes.  The matrix products run inside the kernels
+(``csrc/vn_layer_fused.cu``, ``csrc/vn_layer_bwd.cu``).  A CPU tensor takes
+the plain versions (``reference_*``), in input-channel order; given
+``order="k16"``, the plain versions of S, S', C and C' sum p, d as the
+tensor cores do (:func:`k16_sum`), so that on the card each can be held to
+its kernel at the order its launch takes (:func:`launch_order`).
 
 Every kernel has a bf16 mode, taken when x is bfloat16 (the bfloat16
 compute policy; JAX's ``bf16=True``): bf16 x, biases and cotangent,
@@ -94,7 +96,7 @@ _LAYER_BWD = CudaKernel(
     [_P] * 16 + [_I] * 7 + [ctypes.c_float, _P])
 _PROJECT_BWD = CudaKernel(
     "vn_layer_bwd.cu", "vn_layer_fused_project_bwd",
-    [_P] * 20 + [_I] * 8 + [ctypes.c_float, _P])
+    [_P] * 19 + [_I] * 8 + [ctypes.c_float, _P])
 # The same entry points in group=S mode, counted apart (launch_counts()
 # keys "<symbol>[group]"): the attention decoder's pair folds.
 _GROUPED = {k.symbol: CudaKernel(k.source, k.symbol, k.argtypes, f"{k.symbol}[group]")
@@ -142,22 +144,34 @@ def bias_grad(dp, group: int):
     return dp.reshape(b, 3, c, n // group, group).sum(-1)
 
 
-def _products(w, x, bias, group: int = 0):
+ORDERS = ("in_order", "k16")  # the summation orders of p = W x (summation_order)
+
+
+def _products(w, x, bias, group: int = 0, order: str = "in_order"):
     """(C_out, C_in) map over the planes of x (B, 3, C_in, N), plus bias.
 
     bf16 x (the bf16 mode; JAX ``_compute_pd`` with ``bf16=True``): the
     products of bf16-rounded w and x (each exact in float32) summed in
-    float32 in input-channel order, as kernels B and C sum them, the bias
-    added in float32, then one rounding to bf16.  (A matrix product would
-    sum in another order and move p by one bf16 step where it lies at a
-    rounding boundary; C's 256-channel projection turns that into several
-    ulps of its output.)"""
+    float32 in ``order``, the bias added in float32, then one rounding to
+    bf16.  ``order`` "in_order": one product at a time in input-channel
+    order, as the kernels' FMA designs sum them (and JAX's ``bf16=True``
+    kernels in interpret mode, to their bound); "k16": the tensor cores'
+    steps (:func:`k16_sum`), as the kernels' tensor-core designs sum them,
+    to the bit.  (A matrix product would sum in yet another order and move
+    p by one bf16 step where it lies at a rounding boundary; C's 256-channel
+    projection turns that into several ulps of its output.)  float32 x sums
+    in a matrix product and takes "in_order" only."""
+    if order not in ORDERS or (order == "k16" and x.dtype != torch.bfloat16):
+        raise ValueError(f"order {order!r}: one of {ORDERS}, k16 in the bf16 mode only")
     if x.dtype == torch.bfloat16:
         wf, xf = w.to(torch.bfloat16).float(), x.float()
-        p = torch.zeros(x.shape[:2] + (w.shape[0], x.shape[3]), dtype=torch.float32,
-                        device=x.device)
-        for k in range(w.shape[1]):
-            p.addcmul_(wf[:, k:k + 1], xf[:, :, k:k + 1])
+        if order == "k16":
+            p = k16_sum(wf, xf)
+        else:
+            p = torch.zeros(x.shape[:2] + (w.shape[0], x.shape[3]), dtype=torch.float32,
+                            device=x.device)
+            for k in range(w.shape[1]):
+                p.addcmul_(wf[:, k:k + 1], xf[:, :, k:k + 1])
         if bias is not None:
             p = p + expand_bias(bias, group).float()
         return p.to(torch.bfloat16)
@@ -165,11 +179,94 @@ def _products(w, x, bias, group: int = 0):
     return p if bias is None else p + expand_bias(bias, group)
 
 
-def _planes(w, x, bias, group: int = 0):
+# ---------------------------------------- the tensor cores' k16 step, exactly
+#
+# Established on an H100 (tools/probe_k16.py: mma.sync m16n8k16 and
+# wgmma.m64n64k16, which give the same bits, on crafted operands read back
+# as float32; PERF.md §6): a step adds 16 exact products to its float32
+# accumulator as one fused sum (not two k8 halves: m16n8k8 steps round
+# otherwise).  The 17 addends are aligned to E, the largest of the
+# accumulator's exponent and the products' exponents taken as the sums of
+# their operands' exponents (before the product's own normalisation; an
+# exponent is floor(log2 |v|), at least -126: a subnormal counts at the
+# least normal exponent); each addend is truncated toward zero to a multiple
+# of 2^(E - 25); the aligned addends are summed exactly; the sum is
+# truncated toward zero to float32.
+
+K16_STEP = 16  # products a step adds to its accumulator (m16n8k16, wgmma k16)
+K16_BITS = 25  # each addend keeps the multiples of 2^(E - K16_BITS)
+K16_EMIN = -126  # the least exponent an addend counts with (float32's, bf16's normal range)
+K16_CHUNK = 1 << 23  # float64 products of one step held at once: 64 MB
+
+
+def _trunc_to_f32(y):
+    """float64 -> the float32 next to it toward zero."""
+    f = y.float()
+    over = f.double().abs() > y.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _pow2(e):
+    """2^e (float64) for integer tensors e in float64's normal range, built
+    from its bits: exact on any device (torch.ldexp multiplies by a power
+    that a card may not form exactly)."""
+    return ((e.long() + 1023) << 52).view(torch.float64)
+
+
+def _exponent(v):
+    """floor(log2 |v|) of float64 ``v``, at least K16_EMIN; -2^20 at 0 (an
+    addend of 0 takes no part in the alignment)."""
+    _, e = torch.frexp(v)
+    return torch.where(v == 0, torch.full_like(e, -(1 << 20)), (e - 1).clamp_min(K16_EMIN))
+
+
+def k16_step(acc, prods, exps):
+    """One step of the tensor cores: ``acc`` (...) float32 plus the exact
+    products ``prods`` (16, ...) float64, ``exps`` (16, ...) their
+    exponents as the sums of their operands' (:func:`_exponent`).  Returns
+    the float32 accumulator after the step (see above).  The float64 sum is
+    exact: each aligned addend is an integer multiple of 2^(E - 25) below
+    2^(E + 2), so the 17 of them sum below 2^32 such units."""
+    a = acc.double()
+    # all 17 addends zero: any E gives +0
+    e = torch.maximum(exps.amax(0), _exponent(a)).clamp_min(2 * K16_EMIN)
+    up = _pow2(K16_BITS - e)  # the aligned addends as integers
+    total = torch.trunc(a * up) + torch.trunc(prods * up).sum(0)
+    return _trunc_to_f32(total * _pow2(e - K16_BITS))
+
+
+def k16_sum(w, x, acc=None):
+    """sum_k w[..., m, k] x[..., k, n] for bf16-exact w (..., M, K) and x
+    (..., K, N) as the tensor cores sum it: from the float32 accumulator
+    ``acc`` (..., M, N) (None: +0), steps of K16_STEP input channels in
+    ascending order (:func:`k16_step`; the last one short).  Exact, in
+    chunks of the points that keep a full-width call within a few hundred
+    MB.  Returns float32 (..., M, N)."""
+    wf, xf = w.double(), x.double()
+    ew, ex = _exponent(wf), _exponent(xf)
+    m, k, n = wf.shape[-2], wf.shape[-1], xf.shape[-1]
+    lead = torch.broadcast_shapes(wf.shape[:-2], xf.shape[:-2])
+    out = torch.zeros(lead + (m, n), dtype=torch.float32, device=x.device)
+    if acc is not None:
+        out.copy_(acc.expand(lead + (m, n)))
+    per = max(1, K16_CHUNK // (K16_STEP * m * max(1, lead.numel())))
+    for n0 in range(0, n, per):
+        cols = slice(n0, n0 + per)
+        a = out[..., cols]
+        for k0 in range(0, k, K16_STEP):
+            ks = slice(k0, k0 + K16_STEP)
+            prods = (wf[..., :, ks, None] * xf[..., None, ks, cols]).movedim(-2, 0)
+            exps = (ew[..., :, ks, None] + ex[..., None, ks, cols]).movedim(-2, 0)
+            a = k16_step(a, prods, torch.where(prods == 0, -(1 << 20), exps))
+        out[..., cols] = a
+    return out
+
+
+def _planes(w, x, bias, group: int = 0, order: str = "in_order"):
     """p (or d) as the epilogue and its backward read them, in at least
-    float32: in the bf16 mode the bf16-rounded planes of :func:`_products`,
-    as float32."""
-    return _products(w, x, bias, group).to(torch.promote_types(x.dtype, torch.float32))
+    float32: in the bf16 mode the bf16-rounded planes of :func:`_products`
+    summed in ``order``, as float32."""
+    return _products(w, x, bias, group, order).to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _operand(t, x):
@@ -201,13 +298,15 @@ def reference_layer_fused(x, w, wd, pbias, dbias, a, b, negative_slope: float,
 
 
 def reference_layer_fused_project(x, w, wd, pbias, dbias, a, b, w_out,
-                                  negative_slope: float, group: int = 0):
-    """Plain version of kernel C: the layer, then the 1-channel VNLinear.
-    The projection reads the layer's epilogue unrounded (in at least
-    float32, as JAX's fused C does) and rounds once to x's dtype."""
+                                  negative_slope: float, group: int = 0,
+                                  order: str = "in_order"):
+    """Plain version of kernel C: the layer (p, d summed in ``order``,
+    :func:`_products`), then the 1-channel VNLinear.  The projection reads
+    the layer's epilogue unrounded (in at least float32, as JAX's fused C
+    does) and rounds once to x's dtype."""
     ct = torch.promote_types(x.dtype, torch.float32)
     o = reference_bn_leaky_planes(
-        _products(w, x, pbias, group), _products(wd, x, dbias, group), a, b,
+        _products(w, x, pbias, group, order), _products(wd, x, dbias, group, order), a, b,
         negative_slope, out_dtype=ct)
     if x.dtype == torch.bfloat16:
         wide = forward_design(x.shape[2], w.shape[0]) == "wide"
@@ -262,20 +361,21 @@ def _project_wide_order(prods):
     return out
 
 
-def reference_stats(x, w, pbias, group: int = 0):
+def reference_stats(x, w, pbias, group: int = 0, order: str = "in_order"):
     """Plain version of kernel S: (s1, s2), the sums over samples and points
-    of ``|p| + EPS`` and its square per output channel."""
-    p = _planes(w, x, pbias, group)
+    of ``|p| + EPS`` and its square per output channel (p summed in
+    ``order``, :func:`_products`)."""
+    p = _planes(w, x, pbias, group, order)
     norm_e = safe_sqrt(plane_dot(p, p)) + EPS  # (B, C, N)
     return norm_e.sum((0, 2)), (norm_e * norm_e).sum((0, 2))
 
 
-def reference_stats_bwd(x, w, pbias, c1, c2, group: int = 0):
+def reference_stats_bwd(x, w, pbias, c1, c2, group: int = 0, order: str = "in_order"):
     """Plain version of kernel S': (dx, dw, dpbias) from the cotangents
     (c1, c2) of (s1, s2); dpbias is None without a bias.  The bias
     gradient sums the float32 dp (JAX ``:218-225``), dx and dw take it
-    rounded in the bf16 mode."""
-    p = _planes(w, x, pbias, group)
+    rounded in the bf16 mode; p summed in ``order`` (:func:`_products`)."""
+    p = _planes(w, x, pbias, group, order)
     pnorm = safe_sqrt(plane_dot(p, p))
     norm_e = pnorm + EPS
     inv = torch.where(pnorm > 0, 1.0 / torch.clamp_min(pnorm, 1e-30), 0.0)
@@ -285,13 +385,13 @@ def reference_stats_bwd(x, w, pbias, c1, c2, group: int = 0):
     return _input_grad(x, (w, dp)), _weight_grad(dp, x), dpb
 
 
-def _given_planes(planes, w, wd, x, pbias, dbias, group):
+def _given_planes(planes, w, wd, x, pbias, dbias, group, order="in_order"):
     """(p, d) as a backward's epilogue reads them: ``planes`` (p, d), the
     bf16 (or float32) planes (B, 3, C_out, N) at which to take it, in at
     least float32; or, ``planes`` None, :func:`_planes`'s, recomputed in
-    input-channel order."""
+    ``order``."""
     if planes is None:
-        return _planes(w, x, pbias, group), _planes(wd, x, dbias, group)
+        return _planes(w, x, pbias, group, order), _planes(wd, x, dbias, group, order)
     ct = torch.promote_types(x.dtype, torch.float32)
     return tuple(t.to(ct) for t in planes)
 
@@ -316,143 +416,23 @@ def reference_layer_bwd(x, w, wd, pbias, dbias, a, b, g, negative_slope: float,
 
 
 def reference_layer_project_bwd(x, w, wd, pbias, dbias, a, b, w_out, g,
-                                negative_slope: float, group: int = 0, planes=None):
+                                negative_slope: float, group: int = 0, planes=None,
+                                order: str = "in_order"):
     """Plain version of kernel C': as :func:`reference_layer_bwd` for the
     cotangent g (B, 3, 1, N) of the projected output, plus d w_out: the
     layer's cotangent ``w_out * g`` and ``<o, g>`` (o the unrounded
     epilogue) formed in at least float32 (JAX ``:678-684``).  ``planes``:
-    as :func:`reference_layer_bwd`'s (the CPU path never passes it)."""
+    as :func:`reference_layer_bwd`'s (the CPU path never passes it); else p,
+    d recomputed in ``order`` (:func:`_products`)."""
     ct = torch.promote_types(x.dtype, torch.float32)
     g = g.to(ct)
-    p, d = _given_planes(planes, w, wd, x, pbias, dbias, group)
+    p, d = _given_planes(planes, w, wd, x, pbias, dbias, group, order)
     dx, dw, dwd, dpb, ddb, da, db = reference_layer_bwd(
         x, w, wd, pbias, dbias, a, b, w_out.to(ct)[None, None, :, None] * g,
         negative_slope, group, planes=(p, d))
     o = reference_bn_leaky_planes(p, d, a, b, negative_slope)
     dwo = plane_dot(o, g).sum((0, 2))
     return dx, dw, dwd, dpb, ddb, da, db, dwo
-
-
-# ------------------------------------ the certificate of a tensor-core p
-
-UNIT_ROUNDOFF = 2.0 ** -24  # float32, round to nearest
-MMA_STEP = 16  # products one tensor-core step adds to its accumulator (k16)
-MMA_STEP_ERROR = 38  # that step's error bound in units of UNIT_ROUNDOFF x the sums' magnitude
-
-
-def certificate_margin(c_in: int) -> float:
-    """k of the certificate's margin ``M = k s + 2^-23 |v|`` for sums of
-    ``c_in`` exact products (:func:`certified_bf16_mask`), a float32 value.
-
-    With u = 2^-24 and s = sum |w_k x_k|, the two sums it separates are:
-
-    - the plain version's p (``_products``; kernels pd_pass, pd_wide_fma):
-      the exact bf16 x bf16 products added with fmaf in input-channel order,
-      within gamma_n s of the exact sum, gamma_n = n u / (1 - n u);
-    - a tensor-core sum (``mma`` k16 steps, float32 accumulators): each step
-      adds 16 exact products to its accumulator after aligning the 17
-      addends to the largest exponent E with at least 24 bits below it and
-      truncating (not rounding) the rest, then truncates the sum to float32:
-      within 17 * 2^(E - 23) + 2^-23 |sum| <= 36 u (1 + delta) (|acc| + the
-      step's sum of |products|) <= 38 u s of the step's exact result (|acc|
-      itself at most the earlier steps' sum of magnitudes, (1 + delta)
-      covering their errors); ceil(n / 16) steps, so tau_n = 38 u ceil(n /
-      16) s.
-
-    k = 2 (gamma_n + tau_n): a factor of 2 over both bounds, which also
-    covers s itself summed on the tensor cores (at most tau_n s short) and
-    the float32 rounding of M."""
-    n = c_in
-    gamma = n * UNIT_ROUNDOFF / (1.0 - n * UNIT_ROUNDOFF)
-    tau = MMA_STEP_ERROR * UNIT_ROUNDOFF * -(-n // MMA_STEP)
-    return float(torch.tensor(2.0 * (gamma + tau), dtype=torch.float32))
-
-
-def certified_bf16_mask(v, s, c_in: int):
-    """Which float32 sums ``v`` (p summed in any order, a tensor core's
-    included, the bias added in float32) round to bf16 exactly as the plain
-    version's in-order sum does: True where ``v - M`` and ``v + M`` round to
-    the same bf16 value (bits), ``M = k s + 2^-23 |v|`` in float32 with ``s``
-    the sum of |products| and k from :func:`certificate_margin`.
-
-    Why: the in-order sum y (a real number, bias included) lies within (k /
-    2) s + u |v| (1 + u) of v, inside [v - M, v + M]; rounding to float32 and
-    then to bf16 is monotone, so fl(y) rounds to the bf16 value of the
-    interval's ends when they agree; so does any sum within gamma_n s of the
-    exact one (random orders, float64).  The a-priori certificate, which
-    bounds each step's accumulator by s: C''s certified pass 1 takes the
-    tighter :func:`posterior_bf16_mask`, never wider than this one."""
-    k = torch.tensor(certificate_margin(c_in), dtype=torch.float32, device=v.device)
-    v, s = v.float(), s.float()
-    m = k * s + 2.0 ** -23 * v.abs()
-    lo = (v - m).to(torch.bfloat16).view(torch.int16)
-    hi = (v + m).to(torch.bfloat16).view(torch.int16)
-    return lo == hi
-
-
-POSTERIOR_K = 2.0 ** -18  # 64 u: k of the a-posteriori margin (posterior_bf16_mask)
-POSTERIOR_V = 2.0 ** -23 + 2.0 ** -42  # its coefficient of |v|, float32-exact
-
-
-def posterior_bf16_mask(v, s, a):
-    """The a-posteriori certificate of a tensor-core sum: True where ``v -
-    M`` and ``v + M`` round to the same bf16 value (bits), ``M = 2^-18 (a +
-    s) + (2^-23 + 2^-42) |v|`` in float32, with ``v`` the float32 sum of
-    the k16 steps plus the bias, ``s`` the sum of |products| and ``a`` the
-    sum over the steps of |acc|, each step's accumulator read before it.
-
-    With u = 2^-24, step j adding products of magnitudes sigma_j (sum s) to
-    the accumulator a_j:
-
-    - the tensor cores' step (``certificate_margin``'s model: the addends
-      aligned to the largest exponent E, 2^E <= |a_j| + sigma_j, truncated
-      with at least 24 bits below it, then the sum truncated to float32)
-      errs by at most 17 * 2^(E - 23) + 2^-23 |a_{j+1}| <= 36 u (|a_j| +
-      sigma_j) (1 + delta); a step split into two k8 halves by the hardware,
-      at most 40 u;
-    - the in-order fmaf sum adds each product with one rounding, at most u
-      times the partial sum it forms; over step j's (at most) 16 products
-      the partial sums lie within |a_j| + sigma_j of 0, up to the errors
-      made so far: at most 16 u (|a_j| + sigma_j) (1 + delta) a step;
-
-    so the two sums of the products part by at most 56 u (a + s) (1 + delta),
-    delta of order n u (the errors carried from step to step, s itself
-    summed by the tensor cores and so at most 40 u n / 16 s short, a's
-    float32 sum): under 2^-10 for n up to 4096.  Each side then adds the
-    bias with one rounding, at most u of its result: 2 u |v| (1 + u) more.
-    64 u (a + s) takes 56 u and the delta with room for M's own three
-    float32 roundings, and 2^-42 |v| covers the bias term's (1 + u) and the
-    roundings of its product and of M.  The in-order result y is a float32
-    in [v - M, v + M]; rounding is monotone, so fl(v - M) <= y <= fl(v +
-    M), and when those round to one bf16 value y rounds to it too.
-
-    Never wider than :func:`certificate_margin`'s a-priori margin for the
-    same sums where |v| <= s: a <= (ceil(n / 16) - 1) s, so 64 u (a + s) <=
-    64 u ceil(n / 16) s < 2 (gamma_n + tau_n) s.  The plain version of the
-    certificate ``csrc/vn_layer_bwd.cu`` computes, op for op."""
-    k = torch.tensor(POSTERIOR_K, dtype=torch.float32, device=v.device)
-    kv = torch.tensor(POSTERIOR_V, dtype=torch.float32, device=v.device)
-    v = v.float()
-    m = k * (a.float() + s.float()) + kv * v.abs()
-    lo = (v - m).to(torch.bfloat16).view(torch.int16)
-    hi = (v + m).to(torch.bfloat16).view(torch.int16)
-    return lo == hi
-
-
-def certify_probe(x, w, bias=None):
-    """(v, s, certified) of p = W x (+ bias) for bf16 x (B, 3, C_in, N), w
-    (C_out, C_in) and a per-sample bias (B, 3, C_out, 1): v the float32 sum
-    plus the bias (a float32 matrix product standing in for another
-    summation order than the in-order one), s the sum of |products|,
-    certified the mask of :func:`certified_bf16_mask`.  Plain PyTorch on
-    any device; C''s certified pass 1 counts its own re-sums
-    (:func:`layer_project_bwd`'s ``resums``)."""
-    w16 = w.to(torch.bfloat16).float()
-    v = torch.matmul(w16, x.float())
-    if bias is not None:
-        v = v + bias.float()
-    s = torch.matmul(w16.abs(), x.float().abs())
-    return v, s, certified_bf16_mask(v, s, x.shape[2])
 
 
 # ------------------------------------------------------------- launches
@@ -516,9 +496,8 @@ FUSED_MAX_CIN = 2  # the widest input of the channel walk (S, S', B') and B's st
 # The code of each design name in the entry points of csrc/vn_layer_bwd.cu
 # (S, S', C', B'; its enum Design): the channel walk is S's "stream" and
 # S''s and B''s "fused"
-DESIGN_CODES = {"narrow": 0, "wide": 1, "stream": 2, "fused": 2, "wgmma": 3, "certified": 4,
-                "wgmma_p": 5}
-WGMMA_DESIGNS = ("wgmma", "certified", "wgmma_p")  # the designs with the wgmma passes 2, 3
+DESIGN_CODES = {"narrow": 0, "wide": 1, "stream": 2, "fused": 2, "wgmma": 3, "wgmma_p": 4}
+WGMMA_DESIGNS = ("wgmma", "wgmma_p")  # the designs with the wgmma passes 2, 3
 WIDE_F32_BLOCK = 32  # channels a block of the float32 wide C (csrc ProjFma::kBC)
 WIDE_BF16_BLOCK = 64  # ... of the bf16 one (csrc ProjMma::kBC)
 
@@ -646,8 +625,8 @@ def fused_weight_partials(bsz: int, n: int, c_in: int, c_out: int, grads: int = 
 
 def backward_design(c_in: int, c_out: int) -> str:
     """Which passes kernel C' (and S' above c_in 2, :func:`stats_bwd_design`)
-    runs at (c_in, c_out): ``"wide"`` (cp.async rings; in the bf16 mode dx,
-    dW and S''s p on the tensor cores) where both are matrix work, c_in and
+    runs at (c_in, c_out): ``"wide"`` (cp.async rings; in the bf16 mode p,
+    C''s d, dx and dW on the tensor cores) where both are matrix work, c_in and
     c_out >= 16; ``"narrow"`` (pd_pass, dx_gemm and dw_gemm on the CUDA
     cores over a dp/dd scratch) below that.  Either is a hand-written
     kernel; a CUDA launch takes the one chosen here or raises."""
@@ -674,59 +653,50 @@ def wide_bf16_design(c_in: int, c_out: int, n: int, aligned: bool = True) -> str
     aligned (n % 8 == 0 and ``aligned`` bases), as the tensor maps need
     (final_conv.1's 256 -> 256, vn_folding{1,2}.1's 256 -> 128); else the
     wide design's ``mma.sync`` passes (``"wide"``).  Pass 1 is the wide
-    design's in both; :func:`pass1_bf16_design` moves it to the tensor
-    cores where the wgmma passes run.  Either is a hand-written kernel; a
+    design's (pd_wide_mma) in both; :func:`pass1_bf16_design` moves it to
+    wgmma where it fits.  Either is a hand-written kernel; a
     CUDA launch takes the one chosen here or raises."""
     fits = c_in % WGMMA_CHANNELS == 0 and c_out % WGMMA_CHANNELS == 0 and n % 8 == 0
     return "wgmma" if fits and aligned else "wide"
-
-
-CERTIFIED_MAX_CIN = 256  # the deepest resident tile of C''s certified pass 1 (csrc PdCert)
 
 
 def pass1_bf16_design(kernel: str, c_in: int, c_out: int, n: int, aligned: bool = True,
                       group: int = 0) -> str:
     """The design of a wide bf16 S, S' or C' (``kernel`` "S", "S'" or
     "C'"), by its pass 1, where :func:`wide_bf16_design` gives the wgmma
-    passes: C' ``"certified"`` at c_in <= CERTIFIED_MAX_CIN (p and d summed
-    on the tensor cores, mma.sync, each element under an a-posteriori
-    certificate that its bf16 rounding is the in-order sum's,
-    :func:`posterior_bf16_mask`; the rest, ~9% on the main path's inputs,
-    summed again in input-channel order from a resident tile: the plain
-    version's bits), then the wgmma passes 2 and 3; S and S' ``"wgmma_p"``
-    (p on wgmma fed by TMA, csrc pd_wgmma; S' then the wgmma passes 2 and
-    3) where a bias column covers whole 64-point tiles (group 0 or >= 64).
-    Elsewhere S takes ``"wide"`` (pd_wide_mma), S' and C' the design of
-    :func:`wide_bf16_design` (pass 1 the wide one: pd_wide_mma,
-    pd_wide_fma).  S and S' choose alike, so S's p is S''s.  Each is a
-    hand-written kernel; a CUDA launch takes the one chosen here or
-    raises."""
+    passes: ``"wgmma_p"`` (p, and C''s d, on wgmma fed by TMA, csrc
+    pd_wgmma; S' and C' then the wgmma passes 2 and 3) for S and S' where a
+    bias column covers whole 64-point tiles (group 0 or >= 64), for C'
+    where kernel C takes its "wgmma" design (:func:`fwd_bf16_design`: C'
+    chooses as C does).  Elsewhere S takes ``"wide"`` (pd_wide_mma), S' and
+    C' the design of :func:`wide_bf16_design` (pass 1 pd_wide_mma).  Every
+    one sums p and d in the tensor cores' k16 steps in ascending order, as
+    kernel C does, so C''s p, d are the forward's and S's p is S''s, bit for
+    bit (:func:`summation_order`).  Each is a hand-written kernel; a CUDA
+    launch takes the one chosen here or raises."""
     passes = wide_bf16_design(c_in, c_out, n, aligned)
     if passes != "wgmma":
         return "wide"
     if kernel == "C'":
-        return "certified" if c_in <= CERTIFIED_MAX_CIN else passes
+        return "wgmma_p" if fwd_bf16_design(c_in, c_out, n, aligned, group) == "wgmma" else passes
     if group and group < TILE:
         return "wide" if kernel == "S" else passes
     return "wgmma_p"
 
 
 # How each design forms p = W x (and d = Wd x) before the bias: "in_order",
-# fmaf over the input channels in ascending order from 0 (the plain
-# version's _products; csrc vn_tile.cuh's loop, the channel walks,
-# pd_wide_fma, proj_wide_fma; pd_cert's certified result), or "k16", the
-# tensor cores' steps of 16 input channels in ascending order chained
-# through one float32 accumulator from 0 (mma.sync in pd_wide_mma and
-# proj_wide_mma, wgmma in pd_wgmma and proj_wgmma).  Both then add the bias
-# and, in bf16, round once.  Every float32 design sums in order; the bf16
-# designs of each kernel below.  Kernels whose designs share an order form
-# one p, d to the bit: S and S' always; C and C' but at the wide bf16
-# shapes, where C sums in k16 steps and C' in order (the fault ROADMAP.md
-# §3 keeps open).
+# fmaf over the input channels in ascending order from 0 (csrc
+# vn_tile.cuh's loop, the channel walks, pd_wide_fma, proj_wide_fma), or
+# "k16", the tensor cores' steps of 16 input channels in ascending order
+# chained through one float32 accumulator from 0 (mma.sync in pd_wide_mma
+# and proj_wide_mma, wgmma in pd_wgmma and proj_wgmma; k16_sum).  Both then
+# add the bias and, in bf16, round once.  Every float32 design sums in
+# order; the bf16 designs of each kernel below.  Kernels whose designs
+# share an order form one p, d to the bit: S and S', and C and C', at every
+# shape, as JAX's one _compute_pd gives its forward's bits to its backward.
 BF16_SUMMATION_ORDER = {
     "C": {"narrow": "in_order", "wide": "k16", "wgmma": "k16"},
-    "C'": {"narrow": "in_order", "wide": "in_order", "wgmma": "in_order",
-           "certified": "in_order"},
+    "C'": {"narrow": "in_order", "wide": "k16", "wgmma": "k16", "wgmma_p": "k16"},
     "S": {"stream": "in_order", "narrow": "in_order", "wide": "k16", "wgmma_p": "k16"},
     "S'": {"fused": "in_order", "narrow": "in_order", "wide": "k16", "wgmma": "k16",
            "wgmma_p": "k16"},
@@ -752,12 +722,34 @@ def project_fwd_design(c_in: int, c_out: int, n: int, bf16: bool, aligned: bool 
 def project_bwd_design(c_in: int, c_out: int, n: int, bf16: bool, aligned: bool = True,
                        group: int = 0) -> str:
     """The design a launch of kernel C' takes: :func:`backward_design`, a
-    wide bf16 C' then :func:`pass1_bf16_design`'s (:func:`summation_order`
-    says where its p, d part from those of :func:`project_fwd_design`'s)."""
+    wide bf16 C' then :func:`pass1_bf16_design`'s."""
     design = backward_design(c_in, c_out)
     if design == "wide" and bf16:
         return pass1_bf16_design("C'", c_in, c_out, n, aligned, group)
     return design
+
+
+def launch_design(kernel: str, c_in: int, c_out: int, n: int, bf16: bool,
+                  aligned: bool = True, group: int = 0) -> str:
+    """The design a CUDA launch of ``kernel`` ("S", "S'", "C" or "C'") takes
+    at these shapes: the chooser its wrapper calls."""
+    if kernel == "C":
+        return project_fwd_design(c_in, c_out, n, bf16, aligned, group)
+    if kernel == "C'":
+        return project_bwd_design(c_in, c_out, n, bf16, aligned, group)
+    design = (stats_design if kernel == "S" else stats_bwd_design)(c_in, c_out)
+    if design == "wide" and bf16:
+        return pass1_bf16_design(kernel, c_in, c_out, n, aligned, group)
+    return design
+
+
+def launch_order(kernel: str, x, c_out: int, group: int = 0) -> str:
+    """The order (:func:`summation_order`) in which a CUDA launch of
+    ``kernel`` on x (B, 3, C_in, N) with C_out output channels sums p:
+    what its plain version takes to give the kernel's p, d."""
+    bf16 = _bf16(x)
+    design = launch_design(kernel, x.shape[2], c_out, x.shape[3], bf16, _aligned(x), group)
+    return summation_order(kernel, design, bf16)
 
 
 def _aligned(*tensors) -> bool:
@@ -801,8 +793,7 @@ def _design_args(x, design, c_in, c_out, bsz, n, two):
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     passes = "wgmma" if design in WGMMA_DESIGNS else design
     s, chunk = wide_split(c_in, c_out, bsz, n, two, _bf16(x), sms, passes)
-    # W^T (and Wd^T); the certified pass 1 keeps W and Wd K-major after them
-    wt = _empty(x, 4 if design == "certified" else 2 if two else 1, c_in, c_out, dtype=x.dtype)
+    wt = _empty(x, 2 if two else 1, c_in, c_out, dtype=x.dtype)  # W^T (and Wd^T)
     return wt, s, chunk
 
 
@@ -845,7 +836,7 @@ def _launch(kernel: CudaKernel, x, w, wd, pbias, dbias, a, b, w_out,
         launch(x, *ptrs, out.data_ptr(), bsz, c_in, c_out, n, group, int(design == "stream"),
                1 - negative_slope, variant=design)
         return out
-    design = project_fwd_design(c_in, c_out, n, _bf16(x), _aligned(x), group)
+    design = launch_design("C", c_in, c_out, n, _bf16(x), _aligned(x), group)
     wt = part = None
     ctas = 0
     if design != "narrow":  # W^T and Wd^T
@@ -904,9 +895,7 @@ def stats_fwd(x, w, pbias, group: int = 0, p_out=None):
         return reference_stats(x, w, pbias, group)
     (x, w, _, pbias, *_), (bsz, c_in, c_out, n) = _prepare(
         "vn_layer_stats", x, w, pbias=pbias, group=group)
-    design = stats_design(c_in, c_out)
-    if design == "wide" and _bf16(x):
-        design = pass1_bf16_design("S", c_in, c_out, n, _aligned(x), group)
+    design = launch_design("S", c_in, c_out, n, _bf16(x), _aligned(x), group)
     s12 = _empty(x, 2, c_out)
     partial = _empty(x, 2, bsz, -(-n // TILE), c_out)
     wt = None if design in ("narrow", "stream") else _empty(x, c_in, c_out, dtype=x.dtype)  # W^T
@@ -933,9 +922,7 @@ def stats_bwd(x, w, pbias, c1, c2, group: int = 0, p_out=None):
         return reference_stats_bwd(x, w, pbias, c1, c2, group)
     (x, w, _, pbias, _, c1, c2, *_), (bsz, c_in, c_out, n) = _prepare(
         "vn_layer_stats backward", x, w, pbias=pbias, a=c1, b=c2, group=group)
-    design = stats_bwd_design(c_in, c_out)
-    if design == "wide" and _bf16(x):
-        design = pass1_bf16_design("S'", c_in, c_out, n, _aligned(x), group)
+    design = launch_design("S'", c_in, c_out, n, _bf16(x), _aligned(x), group)
     spt, cols = _bias_rows(n, group)
     dx, dw = torch.empty_like(x), _empty(x, c_out, c_in)
     dpb = None if pbias is None else _empty(x, 3, bsz, cols, c_out)
@@ -957,17 +944,15 @@ def stats_bwd(x, w, pbias, c1, c2, group: int = 0, p_out=None):
 
 
 def _layer_bwd_launch(kernel, x, w, wd, pbias, dbias, a, b, w_out, g,
-                      negative_slope, group, resums=None, pd_out=None):
+                      negative_slope, group, pd_out=None):
     """Kernels B' and C': (dx, dw, dwd, dpbias, ddbias, da, db[, dwo]);
-    ``resums`` (C'): None, or an int32 tensor of one element on the card to
-    which the certified pass 1 adds the number of p, d elements it summed
-    again; ``pd_out`` (C'): None, or a (2, B, 3, C_out, N) tensor of x's
-    dtype that pass 1 fills with the p and d its epilogue backward reads."""
+    ``pd_out`` (C'): None, or a (2, B, 3, C_out, N) tensor of x's dtype
+    that pass 1 fills with the p and d its epilogue backward reads."""
     (x, w, wd, pbias, dbias, a, b, w_out, g), (bsz, c_in, c_out, n) = _prepare(
         kernel.symbol, x, w, wd, pbias, dbias, a, b, w_out, g, group)
     project = w_out is not None
-    if project:  # C' chooses its passes (wide, wgmma, certified or narrow), B' fused or narrow
-        design = project_bwd_design(c_in, c_out, n, _bf16(x), _aligned(x), group)
+    if project:  # C' chooses its passes (wide, wgmma, wgmma_p or narrow), B' fused or narrow
+        design = launch_design("C'", c_in, c_out, n, _bf16(x), _aligned(x), group)
         wt, s, chunk = _design_args(x, design, c_in, c_out, bsz, n, two=True)
     else:
         design = layer_bwd_design(c_in)
@@ -990,12 +975,9 @@ def _layer_bwd_launch(kernel, x, w, wd, pbias, dbias, a, b, w_out, g,
         ptrs.append(w_out.data_ptr())
     ptrs += [_ptr(t) for t in (g, dx, dw2, sums, dpdb, dp, dd, partial, dw_part)]
     if project:
-        if resums is not None and (resums.dtype != torch.int32 or resums.numel() != 1
-                                   or resums.device != x.device):
-            raise ValueError("resums: one int32 element on the card of x")
         _counted(kernel, group, _bf16(x))(
-            x, *ptrs, _ptr(wt), _ptr(resums), _pd_out(pd_out, x, c_out), bsz, c_in, c_out, n, s,
-            chunk, group, DESIGN_CODES[design], 1 - negative_slope, variant=design)
+            x, *ptrs, _ptr(wt), _pd_out(pd_out, x, c_out), bsz, c_in, c_out, n, s, chunk, group,
+            DESIGN_CODES[design], 1 - negative_slope, variant=design)
     else:
         _counted(kernel, group, _bf16(x))(x, *ptrs, bsz, c_in, c_out, n, s, group,
                                           DESIGN_CODES[design], 1 - negative_slope,
@@ -1015,15 +997,15 @@ def layer_bwd(x, w, wd, pbias, dbias, a, b, g, negative_slope: float, group: int
 
 
 def layer_project_bwd(x, w, wd, pbias, dbias, a, b, w_out, g,
-                      negative_slope: float, group: int = 0, resums=None, pd_out=None):
+                      negative_slope: float, group: int = 0, pd_out=None):
     """Kernel C' on a CUDA tensor, its plain version on a CPU tensor.
-    ``resums``, ``pd_out``: see :func:`_layer_bwd_launch` (the card only; no
-    path passes them)."""
+    ``pd_out``: see :func:`_layer_bwd_launch` (the card only; no path
+    passes it)."""
     if not x.is_cuda:
         return reference_layer_project_bwd(
             x, w, wd, pbias, dbias, a, b, w_out, g, negative_slope, group)
     return _layer_bwd_launch(_PROJECT_BWD, x, w, wd, pbias, dbias, a, b, w_out,
-                             g, negative_slope, group, resums, pd_out)
+                             g, negative_slope, group, pd_out)
 
 
 # ------------------------------------------------------------- autograd
